@@ -1,0 +1,231 @@
+"""Two-level preconditioner for the matrix-free CG solver (``jacobi3``
+smoother), the port of :mod:`fcvm_tpu.ops.precond`.
+
+* **Fine level**: inverse 3x3 nodal diagonal blocks
+  (:func:`fcvm_tpu_torch.ops.assembly.block_jacobi_inverse_blocks`).
+* **Coarse level**: nodes are aggregated into index-contiguous clusters;
+  each cluster carries 12 affine (or 6 rigid-body) modes about its
+  centroid.  The coarse operator ``K_c = Q^T K_hat Q`` is accumulated from
+  the element blocks and inverted densely once; each application adds
+  ``Q K_c^{-1} Q^T r``.  Clusters are contiguous index ranges, so ``Q`` and
+  ``Q^T`` are reshapes and small products with no gather.
+
+The driver builds it in the Morton solve space
+(:class:`fcvm_tpu_torch.runtime.system.SolveSpace`), where contiguous
+ranges are spatially compact.
+
+The coarse inverse is a Cholesky factor and ``cholesky_inverse`` in the
+working dtype (the JAX package forces float32 and a blocked Schur scheme
+because of TPU limits).  The coarse product, projection and prolongation run
+in full float32 at least (no TF32): the coarse correction exists to cancel
+smooth error below CG's tolerance.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple
+
+import torch
+
+from fcvm_tpu_torch.ops import assembly as asm
+
+# Observability for the coarse-build degradation paths (ridge escalation,
+# zero-coarse fallback).  Both keep the solver correct, but the fallback
+# costs several times more CG iterations, so the collapse driver surfaces
+# these counters in cg_stats and its log.
+COARSE_BUILD_STATS = {
+    "builds": 0,
+    "ridge_escalations": 0,  # builds that needed a ridge above the first
+    "zero_coarse_fallbacks": 0,  # builds that gave up (fine smoother only)
+    "last_escalations": 0,  # ladder steps the most recent build climbed
+    "last_fallback": False,
+}
+
+_RIDGE_LADDER = (3.0e-5, 3.0e-4, 3.0e-3, 3.0e-2, 3.0e-1)
+
+
+class TwoLevelPrecond(NamedTuple):
+    pinv: torch.Tensor  # (nn, 3, 3) block-Jacobi inverses
+    qmat: torch.Tensor  # (nn_cl, 3, nm) cluster mode basis per node
+    coarse_inv: torch.Tensor  # (nm ncl, nm ncl), mode-major order
+    fixmask: torch.Tensor  # (ndof,)
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        z = asm.apply_block_precond(self.pinv, r)
+        nn_cl, _, nm = self.qmat.shape
+        ncl = self.coarse_inv.shape[0] // nm
+        cs = nn_cl // ncl
+        r3 = (self.fixmask * r).reshape(-1, 3)
+        nn = r3.shape[0]
+        r3p = torch.nn.functional.pad(r3, (0, 0, 0, nn_cl - nn))
+        # Q^T r: project onto cluster modes, sum within clusters; the coarse
+        # vector is mode-major (k * ncl + i), the layout of coarse_inv
+        rc = torch.einsum("nak,na->nk", self.qmat, r3p)
+        rc = rc.reshape(ncl, cs, nm).sum(dim=1)  # (ncl, nm)
+        zc = self.coarse_inv @ rc.T.reshape(-1)
+        zc_n = zc.reshape(nm, ncl).T.repeat_interleave(cs, dim=0)  # (nn_cl, nm)
+        z2 = torch.einsum("nak,nk->na", self.qmat, zc_n)
+        return z + z2[:nn].reshape(-1) * self.fixmask
+
+
+def apply_precond(pc, r):
+    """Apply a :class:`TwoLevelPrecond` or nodal block-Jacobi blocks."""
+    if isinstance(pc, TwoLevelPrecond):
+        return pc.apply(r)
+    return asm.apply_block_precond(pc, r)
+
+
+def rigid_modes(coords, cluster_size: int, n_modes: int = 6):
+    """(nn_cl, 3, n_modes) cluster mode basis per node, centroid-centered.
+
+    ``n_modes=6``: rigid-body modes (translations + rotations);
+    ``n_modes=12``: the full affine basis, rigid plus the six uniform strain
+    fields.  Rotation and strain modes are normalised by the cluster's rms
+    offset so all modes have comparable magnitude."""
+    if n_modes not in (6, 12):
+        raise ValueError(f"n_modes must be 6 or 12, got {n_modes}")
+    nn = coords.shape[0]
+    ncl = -(-nn // cluster_size)
+    nn_cl = ncl * cluster_size
+    cpad = torch.nn.functional.pad(coords, (0, 0, 0, nn_cl - nn))
+    centroids = cpad.reshape(ncl, cluster_size, 3).mean(dim=1)
+    d = cpad - centroids.repeat_interleave(cluster_size, dim=0)  # (nn_cl, 3)
+    d_rms = torch.sqrt((d.reshape(ncl, cluster_size, 3) ** 2).mean(dim=(1, 2)))
+    scale = 1.0 / torch.clamp(d_rms.repeat_interleave(cluster_size), min=1e-30)
+    dx, dy, dz = d[:, 0] * scale, d[:, 1] * scale, d[:, 2] * scale
+    z = torch.zeros_like(dx)
+    eye = torch.eye(3, dtype=coords.dtype, device=coords.device)
+    trans = eye.expand(nn_cl, 3, 3)
+    rot = torch.stack(
+        [
+            torch.stack([z, dz, -dy], dim=-1),
+            torch.stack([-dz, z, dx], dim=-1),
+            torch.stack([dy, -dx, z], dim=-1),
+        ],
+        dim=1,
+    )  # column b = rotation about axis b
+    parts = [trans, rot]
+    if n_modes == 12:
+        h = 0.5
+        parts.append(torch.stack(
+            [
+                torch.stack([dx, z, z, h * dy, h * dz, z], dim=-1),
+                torch.stack([z, dy, z, h * dx, z, h * dz], dim=-1),
+                torch.stack([z, z, dz, z, h * dx, h * dy], dim=-1),
+            ],
+            dim=1,
+        ))  # exx, eyy, ezz and the engineering shears exy, exz, eyz
+    q = torch.cat(parts, dim=2)
+    mask = (torch.arange(nn_cl, device=coords.device) < nn).to(coords.dtype)
+    return q * mask[:, None, None]
+
+
+def qmat_bc(coords, fixmask, cluster_size: int, n_modes: int = 6):
+    """(nn_cl, 3, nm) Dirichlet-masked cluster-mode basis.  ``coords`` are
+    padded to the ``fixmask`` node count first (padding nodes sit at the
+    origin), as the JAX package does."""
+    nn_pad = fixmask.shape[0] // 3
+    coords_p = torch.nn.functional.pad(coords, (0, 0, 0, nn_pad - coords.shape[0]))
+    q = rigid_modes(coords_p, cluster_size, n_modes)
+    m3 = torch.nn.functional.pad(fixmask.reshape(nn_pad, 3), (0, 0, 0, q.shape[0] - nn_pad))
+    return q * m3[:, :, None]
+
+
+def coarse_accumulate(esm, elnodes, qmat, cluster_size: int, chunk: int = 8192):
+    """Galerkin pair-block accumulation into the (ncl*ncl, nm*nm) layout.
+
+    Per element ``S_e = Q~ B_e Q~^T`` with the block-diagonal element mode
+    matrix ``Q~`` (10 nm, 30); its (nm, nm) pair blocks are added at key
+    ``cluster(i) * ncl + cluster(j)``.  Chunked over elements to bound the
+    (chunk, 10 nm, 10 nm) intermediate."""
+    ne = esm.shape[0]
+    nm = qmat.shape[2]
+    ncl = qmat.shape[0] // cluster_size
+    kc = torch.zeros((ncl * ncl, nm * nm), dtype=esm.dtype, device=esm.device)
+    eye10 = torch.eye(10, dtype=esm.dtype, device=esm.device)
+    for s in range(0, ne, chunk):
+        esm_c = esm[s:s + chunk]
+        eln_c = elnodes[s:s + chunk]
+        c = esm_c.shape[0]
+        qe = qmat[eln_c]  # (c, 10, 3, nm)
+        qt = torch.einsum("ciax,ij->cixja", qe, eye10).reshape(c, 10 * nm, 30)
+        s_blk = qt @ esm_c @ qt.transpose(1, 2)  # (c, 10 nm, 10 nm)
+        pair = (s_blk.reshape(c, 10, nm, 10, nm).permute(0, 1, 3, 2, 4)
+                .reshape(c * 100, nm * nm))
+        ci = eln_c // cluster_size
+        keys = (ci[:, :, None] * ncl + ci[:, None, :]).reshape(-1)
+        kc.index_add_(0, keys, pair)
+    return kc
+
+
+def _coarse_densify_scale(kc, ridge: float):
+    """Mode-major dense layout + symmetric Jacobi scaling + symmetrisation +
+    ridge of the pair-block accumulator; returns ``(kc_scaled, dscale)``."""
+    ncl = round(kc.shape[0] ** 0.5)
+    nm = round(kc.shape[1] ** 0.5)
+    n = nm * ncl
+    # D[(a ncl + i), (b ncl + j)] = kc[i ncl + j, nm a + b]
+    dense = kc.T.reshape(nm, nm, ncl, ncl).permute(0, 2, 1, 3).reshape(n, n)
+    diag = dense.diagonal().abs()
+    top = diag.max()
+    diag = torch.where(diag <= 1e-12 * top, top, diag)
+    dscale = 1.0 / torch.sqrt(diag)
+    ks = dense * dscale[:, None] * dscale[None, :]
+    ks.diagonal().clamp_(min=1.0)
+    ks = 0.5 * (ks + ks.T)
+    ks.diagonal().add_(ridge)
+    return ks, dscale
+
+
+def coarse_invert(kc, ridge: float):
+    """Dense inverse of the scaled, ridged coarse matrix (Cholesky), in the
+    original scaling.  A failed factorization gives a non-finite result."""
+    ks, dscale = _coarse_densify_scale(kc, ridge)
+    chol, info = torch.linalg.cholesky_ex(ks)
+    if int(info) != 0:
+        return torch.full_like(ks, float("nan"))
+    inv = torch.cholesky_inverse(chol)
+    return inv * dscale[:, None] * dscale[None, :]
+
+
+def invert_coarse_with_ladder(kc, label: str = ""):
+    """Dense coarse inverse with the escalating ridge ladder.
+
+    The Galerkin accumulation cancels heavily (the modes nearly annihilate
+    the rows of K), so the scaled coarse matrix can come out slightly
+    indefinite.  Escalate the ridge until the inverse is finite; if every
+    ridge fails, fall back to a zero coarse correction (fine smoother only),
+    warn, and record it in :data:`COARSE_BUILD_STATS`.
+    """
+    stats = COARSE_BUILD_STATS
+    stats["builds"] += 1
+    inv = None
+    for i, ridge in enumerate(_RIDGE_LADDER):
+        inv = coarse_invert(kc, ridge)
+        if bool(torch.isfinite(inv).all()):
+            stats["last_escalations"] = i
+            stats["last_fallback"] = False
+            if i:
+                stats["ridge_escalations"] += 1
+            return inv
+    stats["last_escalations"] = len(_RIDGE_LADDER)
+    stats["last_fallback"] = True
+    stats["zero_coarse_fallbacks"] += 1
+    warnings.warn(
+        f"{label}two-level coarse inverse non-finite at every ridge; "
+        "continuing with the fine-level smoother only"
+    )
+    return torch.zeros_like(inv)
+
+
+def build_two_level(esm, elnodes, coords, fixmask, cluster_size: int = 64,
+                    n_modes: int = 6) -> TwoLevelPrecond:
+    """Assemble the two-level preconditioner from element blocks.
+
+    All inputs share one node/element numbering (the driver passes the
+    Morton solve-space views).  ``esm`` is (ne, 30, 30)."""
+    pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
+    qmat = qmat_bc(coords, fixmask, cluster_size, n_modes)
+    kc = coarse_accumulate(esm, elnodes, qmat, cluster_size)
+    return TwoLevelPrecond(pinv, qmat, invert_coarse_with_ladder(kc), fixmask)
