@@ -12,16 +12,28 @@ Phases, each printing its numbers before the next starts:
 2. build: compile the port's CUDA kernels from ``fcvm_tpu_torch/csrc``;
 3. kernel vs plain: K0 (``block_matvec``) against its plain PyTorch version
    at the headline plate's element count, float32 and float64;
+3b. bandwidth probe: K0p (``soa_matvec``) and Kbw (``bw_read``, each k)
+   against their plain versions on seeded data, then the probe
+   (``fcvm_tpu_torch.tools.bw_probe``) at its full sizes, whose launches of
+   K0p and Kbw are counted; the probe fails when a Kbw k takes less than 0.9
+   of the time of a plain full read of the same 2 GiB (Kbw's result shows
+   only the chunk heads, so its time is what shows it read every byte);
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU; the load-factor histories must agree;
 5. the slice at full size: the quarter plate with a hole at 502,599 dof,
-   float32, two-level PCG, plastic Riks steps through
-   ``fcvm_tpu_torch.solve_collapse``; the launch count of every kernel on
-   that path must be > 0;
+   float32, two-level PCG without deflation or the precision tiers, plastic
+   Riks steps through ``fcvm_tpu_torch.solve_collapse``; the launch count
+   of every kernel on that path must be > 0;
 6. layers: on the same plate, the CUDA-event time of each piece of one CG
    iteration (K_hat·v and its stages, the preconditioner apply and its
    coarse product) and of one residual, and torch.profiler's share of
-   device time per operation over one elastic solve.
+   device time per operation over one elastic solve;
+7. the same plate and steps with the default configuration (Ritz deflation,
+   residual refinement and the float64 failover on): phase 5's checks, at
+   least one deflation space built, and the ratios of stepping time and CG
+   iterations against phase 5.
+
+Each phase prints its wall time.
 
 Any failed check raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
@@ -32,7 +44,6 @@ from __future__ import annotations
 
 import json
 import subprocess
-import sys
 import time
 
 import numpy as np
@@ -44,9 +55,12 @@ PLATE_BIG = (54, 26, 14)  # n_circ, n_rad, n_thick -> 502,599 dof
 PLATE_SMALL = (10, 8, 1)
 NE_BIG = 117_936  # tet10 elements of PLATE_BIG
 TOL_F32, TOL_F64 = 1e-5, 1e-12  # K0 vs plain: max |diff| / max |plain|
+# K0p: max |diff| / max |plain| on standard normal data; Kbw: relative
+# difference of the chunk sum on uniform [0, 1) data (no cancellation)
+TOL_K0P, TOL_KBW = 1e-5, 1e-5
 LBD_RTOL = 1e-9  # GPU vs CPU float64 load-factor histories
-UNPORTED_OFF = dict(deflation=False, load_deflation=False,
-                    residual_refinement=False, precision_failover=False)
+# the default solver tiers off: Ritz deflation and the float32 precision tiers
+TIERS_OFF = dict(deflation=False, residual_refinement=False, precision_failover=False)
 
 
 def check(ok: bool, what: str):
@@ -54,8 +68,18 @@ def check(ok: bool, what: str):
         raise SystemExit(f"FAILED: {what}")
 
 
-def phase(name: str):
-    print(f"\n== {name}", flush=True)
+_phase = {}
+
+
+def phase(name=None):
+    """Print the wall time of the phase that ends here and start ``name``
+    (``None``: the last phase ends)."""
+    now = time.perf_counter()
+    if _phase:
+        print(f"(phase {_phase['name']}: {now - _phase['t0']:.1f} s wall)", flush=True)
+    if name is not None:
+        _phase.update(name=name.split()[0], t0=now)
+        print(f"\n== {name}", flush=True)
 
 
 def plate_model(size):
@@ -103,10 +127,12 @@ def cuda_ms(fn, *args, runs=20):
 
 def layer_breakdown(model, cfg):
     """Print where one CG iteration and one residual spend their time on
-    ``model``: CUDA-event medians of each piece, the wall time per iteration
-    of one elastic solve, and torch.profiler's device-time shares over it."""
+    ``model``: CUDA-event medians of each piece (the deflation correction
+    and a deflation-space build included), the wall time per iteration of
+    one elastic solve, and torch.profiler's device-time shares over it."""
     from fcvm_tpu_torch.ops import assembly as asm
     from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.ops.deflation import NSTORE, RITZ_K, deflated, ritz_coefficients
     from fcvm_tpu_torch.runtime.backend import TorchSystem
 
     backend = TorchSystem(model, cfg, cfg.resolve_dtype(), cfg.resolve_device())
@@ -115,7 +141,7 @@ def layer_breakdown(model, cfg):
     khat = backend.operator(esm)
     pc = backend.make_pc(esm, pinv)
     space = backend.space
-    esm_t = esm[space.eperm].permute(1, 2, 0).contiguous()
+    esm_t = khat.esm_t
     del esm, pinv
     eldofs_t = space.eldofs_m.T.contiguous()
     u = space.to_m(rhs)
@@ -132,7 +158,7 @@ def layer_breakdown(model, cfg):
         ("  block Jacobi", cuda_ms(asm.apply_block_precond, pc.pinv, u)),
         (f"  coarse GEMV ({zc.numel()})", cuda_ms(lambda: pc.coarse_inv @ zc)),
     ]
-    del esm_t, ue_t, fe
+    del ue_t, fe
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = backend.solve(khat, pc, rhs, x0=backend.u_fix)
@@ -144,6 +170,23 @@ def layer_breakdown(model, cfg):
     rows.append(("residual (stress update + internal force), per Newton iteration",
                  cuda_ms(lambda: backend.residual(coords, sig_yield, zero, res.x, sig0,
                                                   glv, 1.0, qnorm, 0.0))))
+    # a deflation space from a harvest of the same elastic solve, at the
+    # driver's sizes
+    res_h, h = backend.solve_harvest(khat, pc, rhs, x0=backend.u_fix, nstore=NSTORE)
+    alphas, betas, rzs = torch.stack([h.alphas, h.betas, h.rzs]).cpu().numpy()
+    coef = ritz_coefficients(alphas, betas, rzs, res_h.iters, RITZ_K)
+    defl = backend.build_deflation(khat, h.zs, coef)
+    res_d = backend.solve(khat, pc, rhs, x0=backend.u_fix, defl=defl)
+    print(f"elastic solve: {res_h.iters} CG iterations harvesting, {res_d.iters} deflated "
+          "by the space built from that harvest")
+    rows += [
+        (f"preconditioner apply + deflation correction (k = {RITZ_K})",
+         cuda_ms(deflated(pc.apply, defl), u)),
+        (f"deflation space build (k = {RITZ_K}, {NSTORE}-slot harvest), per harvest "
+         "[median of 5]",
+         cuda_ms(lambda: backend.build_deflation(khat, h.zs, coef), runs=5)),
+    ]
+    del h, defl
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -152,8 +195,9 @@ def layer_breakdown(model, cfg):
           f"temperature = {clocks}")
     print(f"elastic solve: {res.iters} CG iterations, {solve_ms:.1f} ms, "
           f"{solve_ms / res.iters:.4f} ms per iteration (wall, host sync included)")
+    print("CUDA-event times, median of 20 runs unless marked:")
     for name, ms in rows:
-        print(f"{name}: {ms:.4f} ms (median of 20, CUDA events)")
+        print(f"{name}: {ms:.4f} ms")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -172,6 +216,127 @@ def layer_breakdown(model, cfg):
               f"{ev.key[:90]}")
 
 
+def probe_phase():
+    """K0p and Kbw against their plain versions on seeded data, then the
+    bandwidth probe at its full sizes with the launch counts set to 0 just
+    before it; returns the kernels' JSON rows."""
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.tools import bw_probe
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    esm_t = torch.randn((30, 30, bw_probe.NE), generator=gen, device="cuda")
+    ue_t = torch.randn((30, bw_probe.NE), generator=gen, device="cuda")
+    out = kernels.soa_matvec(esm_t, ue_t, bw_probe.TILE)
+    torch.cuda.synchronize()
+    ref = kernels.soa_matvec_ref(esm_t, ue_t)
+    k0p_err = float((out - ref).abs().max())
+    rel = k0p_err / float(ref.abs().max())
+    print(f"K0p vs plain, standard normal (30, 30, {bw_probe.NE}): max |diff| / max |plain| "
+          f"{rel:.3e} (limit {TOL_K0P:g})")
+    check(rel <= TOL_K0P, "K0p disagrees with its plain version")
+    del esm_t, ue_t, out, ref
+    x = torch.rand((bw_probe.ROWS, 128), generator=gen, device="cuda")
+    kbw_err = {}
+    for k in bw_probe.KS:
+        out = kernels.bw_read(x, k, bw_probe.CHUNK_ROWS)
+        torch.cuda.synchronize()
+        ref = kernels.bw_read_ref(x, bw_probe.CHUNK_ROWS)
+        kbw_err[k] = float((out - ref).abs().max())
+        rel = kbw_err[k] / float(ref.abs().max())
+        print(f"Kbw k={k} vs plain, uniform [0, 1) (2^22, 128): relative difference "
+              f"{rel:.3e} (limit {TOL_KBW:g})")
+        check(rel <= TOL_KBW, f"Kbw (k={k}) disagrees with its plain version")
+    del x, out, ref
+    torch.cuda.empty_cache()
+
+    kernels.soa_matvec.launches = 0
+    kernels.bw_read.launches = 0
+    res = bw_probe.run(seed=0, report=lambda line: print(line, flush=True))
+    launches = {"soa_matvec": kernels.soa_matvec.launches, "bw_read": kernels.bw_read.launches}
+    print(f"launches in the probe run: {launches}")
+    check(launches["soa_matvec"] > 0, "K0p was not launched by the probe")
+    k0p = res["K0p soa_matvec"]
+    rows = [{
+        "name": "soa_matvec", "route": "cuda", "source": "fcvm_tpu_torch/csrc/bw_probe.cu",
+        "replaces": "tools/bw_probe.py:106", "launches": launches["soa_matvec"],
+        "max_abs_err": k0p_err, "ms": k0p["ms"],
+        "plain_ms": res["plain einsum (soa_matvec_ref)"]["ms"],
+    }]
+    for k in bw_probe.KS:
+        kbw = res[f"Kbw bw_read k={k}"]
+        check(kbw["launches"] > 0, f"Kbw (k={k}) was not launched by the probe")
+        rows.append({
+            "name": "bw_read", "k": k, "route": "cuda",
+            "source": "fcvm_tpu_torch/csrc/bw_probe.cu", "replaces": "tools/bw_probe.py:137",
+            "launches": kbw["launches"], "max_abs_err": kbw_err[k], "ms": kbw["ms"],
+            "plain_ms": res["plain bw_read_ref"]["ms"],
+            "full_read_ms": res["plain full read x.sum()"]["ms"],
+            "full_read_share": kbw["ms"] / res["plain full read x.sum()"]["ms"],
+        })
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_plate(big, cfg, label):
+    """Drive ``solve_collapse`` on the full-size plate with ``cfg``, print
+    every step, apply the slice's checks, and return the numbers."""
+    from fcvm_tpu_torch import solve_collapse
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.utils.indexing import pad_ndof
+
+    lines, stamps = [], [time.perf_counter()]
+
+    def monitor(disp_nodes, history):
+        stamps.append(time.perf_counter())
+
+    def continuation(history, info):
+        # at least three plastic steps: add nstep more once if needed
+        plastic = sum(p > 0.0 for p in history.peeqmax)
+        return "add" if plastic < 3 and len(history.lbd) <= 5 else "stop"
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.block_matvec.launches = 0
+    stamps[0] = time.perf_counter()
+    res = solve_collapse(big, plate_params(4), continuation=continuation,
+                         progress=lines.append, monitor=monitor, config=cfg)
+    torch.cuda.synchronize()
+    launches = kernels.block_matvec.launches
+    wall = time.perf_counter() - stamps[0]
+    t = res.timers
+    cs = cfg.resolve_cluster_size(big.mesh.n_nodes)
+    coarse_dim = cfg.coarse_modes * -(-pad_ndof(big.mesh.ndof) // 3 // cs)
+    step_iters = sum(sum(s["cg"]) for s in res.cg_stats["steps"])
+    step_solves = sum(len(s["cg"]) for s in res.cg_stats["steps"])
+    elastic_iters = res.cg_stats["iters"] - step_iters
+    print(f"assemble {t['assemble']:.3f} s, precond build {t['precond_build']:.3f} s "
+          f"(coarse dim {coarse_dim}), elastic solve {t['elastic_solve']:.3f} s "
+          f"({elastic_iters} CG iterations)")
+    h = res.history
+    for k, s in enumerate(res.cg_stats["steps"]):
+        print(f"step {k}: lbd {h.lbd[k + 1]:.6f}, Newton {s['newton']}, restarts "
+              f"{s['restarts']}, CG per solve {s['cg']}, {stamps[k + 1] - stamps[k]:.2f} s, "
+              f"peeq max {h.peeqmax[k + 1]:.3e}")
+    print(f"total {wall:.2f} s (stepping {t['stepping']:.2f} s), {res.cg_stats['solves']} "
+          f"solves, {res.cg_stats['iters']} CG iterations ({step_iters} in {step_solves} "
+          f"stepping solves), {1e3 * res.cg_stats['time'] / max(res.cg_stats['iters'], 1):.3f} "
+          f"ms per CG iteration incl. stress updates, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K0 launches {launches}")
+    lbd = np.asarray(h.lbd)
+    check(not any("MAXIMUM RESTARTS" in ln for ln in lines), f"{label}: a load step did not converge")
+    check(len(res.cg_stats["steps"]) == len(lbd) - 1 >= 4, f"{label}: fewer than 4 recorded steps")
+    check(bool(np.all(np.isfinite(lbd))), f"{label}: non-finite load factor")
+    check(bool(np.all(np.diff(lbd) >= 0.0)), f"{label}: load factor decreased")
+    check(lbd.max() < 1.76, f"{label}: peak load factor {lbd.max():.4f} above 1.1 x the 1.6 bound")
+    check(sum(p > 0.0 for p in h.peeqmax) >= 3, f"{label}: fewer than 3 plastic steps")
+    check(float(res.peeq_gp.max()) > 0.0 and h.peeqmax[-1] > 0.0, f"{label}: no plastic strain")
+    check(res.sig_gp.shape == (NE_BIG, 4, 6) and bool(np.isfinite(res.sig_gp).all()),
+          f"{label}: stresses are not finite (ne, 4, 6)")
+    check(launches > 0, f"{label}: K0 was not launched on the main path")
+    return dict(lines=lines, cg_stats=res.cg_stats,
+                stepping=t["stepping"], step_iters=step_iters, step_solves=step_solves,
+                launches=launches, lbd=lbd)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: torch.cuda.is_available() is false; this "
@@ -179,8 +344,8 @@ def main():
     from fcvm_tpu_torch import FcvmConfig, solve_collapse
     from fcvm_tpu_torch.config import pin_full_fp32
     from fcvm_tpu_torch.ops import kernels
-    from fcvm_tpu_torch.utils.indexing import pad_ndof
 
+    t_start = time.perf_counter()
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -222,11 +387,14 @@ def main():
         del esm_t, ue_t, out, ref
     torch.cuda.empty_cache()
 
+    phase(f"3b bandwidth probe: K0p and Kbw vs plain, then the probe ({smi})")
+    probe_rows = probe_phase()
+
     phase("4 small plate, float64, GPU vs CPU")
     small = plate_model(PLATE_SMALL)
     lbds = {}
     for dev in ("cuda", "cpu"):
-        cfg = FcvmConfig(device=dev, dtype="float64", cg_rtol=1e-10, **UNPORTED_OFF)
+        cfg = FcvmConfig(device=dev, dtype="float64", cg_rtol=1e-10, **TIERS_OFF)
         t0 = time.perf_counter()
         res = solve_collapse(small, plate_params(6), config=cfg)
         lbds[dev] = np.asarray(res.history.lbd)
@@ -236,70 +404,49 @@ def main():
     print(f"max rel lbd difference {diff:.3e} (limit {LBD_RTOL:g})")
     check(diff <= LBD_RTOL, "GPU and CPU load-factor histories disagree")
 
-    phase("5 plate with hole at full size, float32")
+    phase("5 plate with hole at full size, float32, deflation and precision tiers off")
     t0 = time.perf_counter()
     big = plate_model(PLATE_BIG)
     print(f"{big.mesh.n_nodes} nodes, {big.mesh.n_elements} elements, "
           f"{big.mesh.ndof} dof (mesh built in {time.perf_counter() - t0:.1f} s)")
     check(big.mesh.ndof == 502_599 and big.mesh.n_elements == NE_BIG, "unexpected mesh size")
-    cfg = FcvmConfig(device="cuda", dtype="float32", precond="two_level", **UNPORTED_OFF)
-    lines, stamps = [], [time.perf_counter()]
-
-    def monitor(disp_nodes, history):
-        stamps.append(time.perf_counter())
-
-    def continuation(history, info):
-        # at least three plastic steps: add nstep more once if needed
-        plastic = sum(p > 0.0 for p in history.peeqmax)
-        return "add" if plastic < 3 and len(history.lbd) <= 5 else "stop"
-
-    torch.cuda.reset_peak_memory_stats()
-    kernels.block_matvec.launches = 0
-    stamps[0] = time.perf_counter()
-    res = solve_collapse(big, plate_params(4), continuation=continuation,
-                         progress=lines.append, monitor=monitor, config=cfg)
-    torch.cuda.synchronize()
-    launches = kernels.block_matvec.launches
-    wall = time.perf_counter() - stamps[0]
-    t = res.timers
-    cs = cfg.resolve_cluster_size(big.mesh.n_nodes)
-    coarse_dim = cfg.coarse_modes * -(-pad_ndof(big.mesh.ndof) // 3 // cs)
-    elastic_iters = res.cg_stats["iters"] - sum(sum(s["cg"]) for s in res.cg_stats["steps"])
-    print(f"assemble {t['assemble']:.3f} s, precond build {t['precond_build']:.3f} s "
-          f"(coarse dim {coarse_dim}), elastic solve {t['elastic_solve']:.3f} s "
-          f"({elastic_iters} CG iterations)")
-    h = res.history
-    for k, s in enumerate(res.cg_stats["steps"]):
-        print(f"step {k}: lbd {h.lbd[k + 1]:.6f}, Newton {s['newton']}, restarts "
-              f"{s['restarts']}, CG per solve {s['cg']}, {stamps[k + 1] - stamps[k]:.2f} s, "
-              f"peeq max {h.peeqmax[k + 1]:.3e}")
-    print(f"total {wall:.2f} s (stepping {t['stepping']:.2f} s), {res.cg_stats['solves']} "
-          f"solves, {res.cg_stats['iters']} CG iterations, "
-          f"{1e3 * res.cg_stats['time'] / max(res.cg_stats['iters'], 1):.3f} ms per CG "
-          f"iteration incl. stress updates, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K0 launches {launches}")
-    lbd = np.asarray(h.lbd)
-    check(not any("MAXIMUM RESTARTS" in ln for ln in lines), "a load step did not converge")
-    check(len(res.cg_stats["steps"]) == len(lbd) - 1 >= 4, "fewer than 4 recorded steps")
-    check(bool(np.all(np.isfinite(lbd))), "non-finite load factor")
-    check(bool(np.all(np.diff(lbd) >= 0.0)), "load factor decreased")
-    check(lbd.max() < 1.76, f"peak load factor {lbd.max():.4f} above 1.1 x the 1.6 bound")
-    check(sum(p > 0.0 for p in h.peeqmax) >= 3, "fewer than 3 plastic steps")
-    check(float(res.peeq_gp.max()) > 0.0 and h.peeqmax[-1] > 0.0, "no plastic strain")
-    check(res.sig_gp.shape == (NE_BIG, 4, 6) and bool(np.isfinite(res.sig_gp).all()),
-          "stresses are not finite (ne, 4, 6)")
-    check(launches > 0, "K0 was not launched on the main path")
-    del res
+    cfg = FcvmConfig(device="cuda", dtype="float32", precond="two_level", **TIERS_OFF)
+    off = run_plate(big, cfg, "phase 5")
 
     phase("6 layers of one CG iteration, plate at full size, float32")
     layer_breakdown(big, cfg)
+
+    phase("7 plate with hole at full size, float32, default configuration")
+    cfg7 = FcvmConfig(device="cuda", dtype="float32")
+    check(cfg7.deflation and cfg7.residual_refinement and cfg7.precision_failover,
+          "the default configuration has a tier off")
+    on = run_plate(big, cfg7, "phase 7")
+    cs = on["cg_stats"]
+    built = [hv for hv in cs["harvests"] if hv["k"] > 0]
+    print(f"harvesting solves: {len(cs['harvests'])} (step, CG iterations, Ritz vectors "
+          f"kept): {[(hv['step'], hv['iters'], hv['k']) for hv in cs['harvests']]}")
+    print(f"deflation spaces built: {len(built)}; dropped as stale: "
+          f"{sum('deflation space stale' in ln for ln in on['lines'])}")
+    failover = any(ln.startswith("PRECISION FAILOVER") for ln in on["lines"])
+    print(f"refinement activations {cs['refinement_activations']} (from step "
+          f"{cs['refined_from_step']}), floor clamps {cs['floor_clamps']}, "
+          f"float64 failover {'fired' if failover else 'not fired'}")
+    check(len(built) >= 1, "phase 7: no deflation space was built")
+    mean = {k: v["step_iters"] / max(v["step_solves"], 1) for k, v in (("off", off), ("on", on))}
+    print(f"default vs phase 5: stepping time {on['stepping']:.2f} / {off['stepping']:.2f} s "
+          f"= {on['stepping'] / off['stepping']:.3f}; stepping CG iterations "
+          f"{on['step_iters']} / {off['step_iters']} = {on['step_iters'] / off['step_iters']:.3f}; "
+          f"CG iterations per solve {mean['on']:.1f} / {mean['off']:.1f} = "
+          f"{mean['on'] / mean['off']:.3f}")
+    phase()
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s wall")
 
     print(json.dumps({"kernels": [{
         "name": "block_matvec", "route": "cuda",
         "source": "fcvm_tpu_torch/csrc/block_matvec.cu",
         "replaces": "fcvm_tpu/ops/pallas_kernels.py:60",
-        "launches": launches, **k0[torch.float32],
-    }]}))
+        "launches": off["launches"], **k0[torch.float32],
+    }, *probe_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

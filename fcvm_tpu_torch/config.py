@@ -6,9 +6,9 @@ A :class:`FcvmConfig` is created by the caller and passed to
 no environment override.  Options the slice has not ported are kept with
 their JAX defaults so a config reads like the reference's, and
 :meth:`FcvmConfig.check_supported` raises :class:`NotImplementedError` for
-them naming the ROADMAP item that ports them.  ``deflation``,
-``load_deflation``, ``residual_refinement`` and ``precision_failover`` are
-on by default there, so a caller of this slice turns them off explicitly.
+them naming the ROADMAP item that ports them.  The defaults run as they
+do in the JAX package: Ritz deflation, residual refinement and the float64
+failover on.
 """
 
 from __future__ import annotations
@@ -40,9 +40,19 @@ class FcvmConfig:
         :meth:`resolve_cluster_size`); ``coarse_modes`` is 12 (affine) or
         6 (rigid-body).
       n_devices: 0 or 1 (one device).
-      deflation, load_deflation, residual_refinement, precision_failover,
-      arc_length: the JAX package's options; only the "off" settings and
-        ``arc_length="riks"`` are ported.
+      deflation: Ritz-deflation recycling of the Newton correction solves
+        (:mod:`fcvm_tpu_torch.ops.deflation`, whose constants size it): one
+        solve harvests its Lanczos byproducts, the lowest Ritz vectors
+        deflate the following solves, across load steps, until a deflated
+        solve regresses.  A harvest shorter than ``deflation_min_iters``
+        builds nothing.  (The JAX package's ``load_deflation``, the GNL
+        tangent predictor's load-space recycling, comes with the GNL port.)
+      precision_failover: in float32, watch the Newton error for an
+        arithmetic floor above ``error_max``: clamp the tolerance near the
+        floor, or escalate (refinement, then a float64 rerun).
+      residual_refinement: the first escalation tier, float64 residuals
+        over float32 state with the float32 operator and CG.
+      arc_length: ``"riks"``.
     """
 
     device: str = "cuda"
@@ -58,7 +68,7 @@ class FcvmConfig:
     coarse_max_dim: int = 12288
     n_devices: int = 0
     deflation: bool = True
-    load_deflation: bool = True
+    deflation_min_iters: int = 48
     precision_failover: bool = True
     residual_refinement: bool = True
     arc_length: str = "riks"
@@ -107,14 +117,6 @@ class FcvmConfig:
     def check_supported(self) -> None:
         """Raise for every option this slice of the port does not run."""
         todo = [
-            (self.deflation, "deflation=True",
-             "Ritz deflation (ROADMAP Queue 1 item 11)"),
-            (self.load_deflation, "load_deflation=True",
-             "load-space deflation (ROADMAP Queue 1 item 11)"),
-            (self.residual_refinement, "residual_refinement=True",
-             "the f64 residual-refinement tier (ROADMAP Queue 1 item 11)"),
-            (self.precision_failover, "precision_failover=True",
-             "the automatic f64 failover (ROADMAP Queue 1 item 11)"),
             (self.solver == "scipy", "solver='scipy'",
              "the scipy direct tier (ROADMAP Queue 1 item 5)"),
             (self.smoother == "cluster", "smoother='cluster'",

@@ -11,7 +11,8 @@ Data contract (the same as ``LocalSystem``'s):
 * Gauss-state tensors (stress, PEEQ, CSR, yield) are (ne, 4, ...) in user
   element order;
 * the linear solves run in the Morton solve space
-  (:class:`fcvm_tpu_torch.runtime.system.SolveSpace`).
+  (:class:`fcvm_tpu_torch.runtime.system.SolveSpace`), and so do the
+  harvested residuals and the deflation spaces built from them.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fcvm_tpu_torch.ops import deflation as dfl
 from fcvm_tpu_torch.ops import material as mat
 from fcvm_tpu_torch.ops.stress_update import internal_force_from_stress, update_stress_load
 from fcvm_tpu_torch.runtime import system as sysm
@@ -92,9 +94,19 @@ class TorchSystem:
                 self.space, self.cfg.coarse_modes)
         return pinv[self.space.nperm]  # block-Jacobi tier, in solve space
 
-    def solve(self, khat, pc, b, x0=None):
+    def solve(self, khat, pc, b, x0=None, defl=None):
         return sysm.solve_displacement(khat, pc, b, self.rtol, self.maxiter,
-                                       self.space, x0=x0)
+                                       self.space, x0=x0, defl=defl)
+
+    # -- Ritz-deflation recycling (fcvm_tpu_torch.ops.deflation) -------------
+
+    def solve_harvest(self, khat, pc, b, x0=None, nstore=dfl.NSTORE):
+        return sysm.solve_displacement_harvest(
+            khat, pc, b, self.rtol, self.maxiter, self.space, x0=x0, nstore=nstore)
+
+    def build_deflation(self, khat, zs, coef):
+        """Harvested ``zs`` + Ritz ``coef`` -> DeflationSpace on ``khat``."""
+        return sysm.build_deflation(khat, self.space, zs, coef)
 
     def residual(self, coords, sig_yield, disp_new, du, sig_old, glv, lbd1,
                  qnorm, et_e, relax=1.0):
@@ -103,13 +115,15 @@ class TorchSystem:
             self.e, self.nu, et_e, glv, self.fixmask, self.tensor(lbd1),
             qnorm, relax=relax)
 
-    def newton_iteration(self, coords, sig_yield, disp_new, du, sig_old, glv,
-                         lbd0, lbd1, qnorm, a, ue, r, et_e, khat, pc, relax=1.0):
-        return sysm.newton_iteration(
+    def residual_refined(self, coords, sig_yield, disp_new, du, sig_old, glv,
+                         lbd1, qnorm, et_e, relax=1.0):
+        """The residual in float64 over float32 state (the refinement tier,
+        :func:`fcvm_tpu_torch.runtime.system.residual_refined`)."""
+        return sysm.residual_refined(
             coords, self.elnodes, self.dmat, sig_yield, disp_new, du, sig_old,
-            self.e, self.nu, et_e, glv, self.fixmask, self.tensor(lbd0),
-            self.tensor(lbd1), qnorm, a, ue, r, khat, pc, self.rtol,
-            self.maxiter, self.space, relax=relax)
+            self.e, self.nu, et_e, glv, self.fixmask,
+            torch.tensor(float(lbd1), dtype=torch.float64, device=self.device),
+            qnorm, relax=relax)
 
     def stress_update(self, coords, sig_yield, disp, du, sig_old, et_e):
         return update_stress_load(coords, self.elnodes, self.dmat, sig_yield,

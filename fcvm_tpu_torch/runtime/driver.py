@@ -12,7 +12,13 @@ Every tensor operation runs through :class:`TorchSystem`.
 
 Small strain keeps the elastic operator and preconditioner for the whole
 analysis (modified Newton, as the reference keeps its elastic factor,
-``fcVM.py:1400-1406``).  Reference quirks reproduced on purpose: the
+``fcVM.py:1400-1406``).  On top of the reference's loop sit the JAX
+package's default solver tiers: Ritz-deflation recycling of the correction
+solves (one harvesting solve, the space kept across load steps until it
+goes stale), and, in float32, precision governance (:class:`_FloorWatch`):
+a tolerance clamp near the arithmetic floor, float64 residual refinement,
+and a float64 rerun of the whole analysis
+(:class:`PrecisionFloorError`).  Reference quirks reproduced on purpose: the
 restart's double division of the increment, and the ``Et * DL`` hardening
 update (:func:`fcvm_tpu_torch.ops.material.update_peeq_csr`).
 
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -34,6 +41,7 @@ import torch
 from fcvm_tpu_torch.config import FcvmConfig, pin_full_fp32
 from fcvm_tpu_torch.models.inp import ControlParams
 from fcvm_tpu_torch.models.spec import Model
+from fcvm_tpu_torch.ops import deflation as dfl
 from fcvm_tpu_torch.ops.precond import COARSE_BUILD_STATS
 from fcvm_tpu_torch.runtime import system as sysm
 from fcvm_tpu_torch.runtime.backend import TorchSystem
@@ -86,6 +94,87 @@ class AnalysisResults:
     disp_scale: float = 1.0
 
 
+class PrecisionFloorError(RuntimeError):
+    """The float32 Newton residual stagnated at an arithmetic floor above
+    ``error_max``, too far above it to clamp.
+
+    The reference has no such failure mode (its pipeline is float64 numpy +
+    CHOLMOD, ``fcVM.py:1111-1135``).  :func:`solve_collapse` catches it and
+    reruns the analysis in float64 (``config.precision_failover``)."""
+
+
+# float32 residual-floor detector tuning (see _FloorWatch), the JAX
+# package's values
+_FLOOR_WINDOW = 4  # iterations of non-improvement that define "stagnant"
+_FLOOR_IMPROVE = 0.7  # stagnant = best error improved < 30% over the window
+_FLOOR_CLAMP_FACTOR = 10.0  # clamp only while 2*floor <= 10 * error_max
+_FLOOR_ESCALATE_CAP = 1.0e-3  # escalate only below this absolute error: a
+# stagnation above it is physics (limit-load imbalance), not roundoff
+_FLOOR_RISE = 1.03  # rising-tail veto: an error on an arithmetic floor
+# bounces around its level, a diverging attempt climbs away from it; act
+# only when one of the last two errors is within 3% of the window best
+
+
+class _FloorWatch:
+    """Detect the float32 residual floor in a Newton error sequence.
+
+    Converging Newton contracts the error at least geometrically; a
+    sequence whose best error improves by less than 30% over 4 iterations
+    while still above ``error_max`` sits on an arithmetic floor (or a
+    physical limit state, told apart by ``_FLOOR_ESCALATE_CAP``).
+
+    ``observe(error)`` returns ``None`` (keep iterating), ``("clamp", e)``
+    (accept convergence at the tolerance ``e``) or ``"escalate"`` (the
+    floor is too far above ``error_max``).  ``reset(attempt)`` starts a step
+    attempt.  Clamp and escalate fire only from a step's second attempt on
+    (the restart's smaller increment is a free second opinion), or on any
+    attempt once a clamp has fired in the run.
+    """
+
+    def __init__(self, error_max: float, enabled: bool):
+        self.error_max = error_max
+        self.enabled = enabled
+        self.errs: list = []
+        self.attempt = 0
+        self.run_floored = False  # a clamp fired earlier in this run
+
+    def reset(self, attempt: int = 0):
+        self.errs = []
+        self.attempt = attempt
+
+    def observe(self, error: float):
+        if not self.enabled:
+            return None
+        self.errs.append(error)
+        if len(self.errs) <= _FLOOR_WINDOW:
+            return None
+        best_now = min(self.errs[-_FLOOR_WINDOW:])
+        best_before = min(self.errs[:-_FLOOR_WINDOW])
+        if best_now <= _FLOOR_IMPROVE * best_before:
+            return None  # still converging
+        if best_now <= self.error_max:
+            return None  # the exit criterion will fire on its own
+        if min(self.errs[-2:]) > _FLOOR_RISE * best_now:
+            return None  # rising tail: divergence, not a floor
+        if self.attempt < 1 and not self.run_floored:
+            return None  # first attempt: let the restart re-probe once
+        if 2.0 * best_now <= _FLOOR_CLAMP_FACTOR * self.error_max:
+            self.run_floored = True
+            return ("clamp", 2.0 * best_now)
+        if best_now <= _FLOOR_ESCALATE_CAP:
+            return "escalate"
+        return None  # physical stagnation: leave it to the restart ladder
+
+    def escalate_at_mrr(self) -> bool:
+        """Restarts exhausted: escalate iff the abandoned attempt's best
+        error was roundoff-class (at most ``_FLOOR_ESCALATE_CAP``) yet above
+        ``error_max``.  Large errors are genuine divergence, the normal end
+        of a collapse analysis."""
+        if not self.enabled or not self.errs:
+            return False
+        return self.error_max < min(self.errs) <= _FLOOR_ESCALATE_CAP
+
+
 def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
@@ -117,8 +206,12 @@ def solve_collapse(
       monitor: optional per-converged-step observer
         ``(disp_nodes, history) -> None`` receiving the (nn, 3) total nodal
         displacements.
-      config: solver configuration; ``None`` = ``FcvmConfig()``, whose
-        defaults keep the JAX package's options that this slice raises for.
+      config: solver configuration; ``None`` = ``FcvmConfig()``, the JAX
+        package's defaults.
+
+    When a float32 run raises :class:`PrecisionFloorError` and
+    ``config.precision_failover`` is on, the whole analysis reruns in
+    float64 (a warning says so); the callbacks then fire again from step 0.
 
     Returns:
       :class:`AnalysisResults`.
@@ -136,6 +229,23 @@ def solve_collapse(
             "checkpoint_path/resume_from: checkpointing is not ported yet "
             "(ROADMAP Queue 1 item 12)"
         )
+    try:
+        return _solve_collapse_impl(model, params, continuation, progress, monitor, cfg)
+    except PrecisionFloorError as err:
+        if not cfg.precision_failover or cfg.resolve_dtype() != torch.float32:
+            raise
+        msg = (f"f32 collapse run hit its residual floor ({err}); "
+               "rerunning the analysis in the float64 tier")
+        warnings.warn(msg)
+        if progress is not None:
+            progress(f"PRECISION FAILOVER: {msg}")
+        return _solve_collapse_impl(model, params, continuation, progress, monitor,
+                                    dataclasses.replace(cfg, dtype="float64"))
+
+
+def _solve_collapse_impl(model, params, continuation, progress, monitor,
+                         cfg: FcvmConfig) -> AnalysisResults:
+    """The driver of :func:`solve_collapse`, in ``cfg``'s dtype."""
     device = cfg.resolve_device()
     dtype = cfg.resolve_dtype()
     pin_full_fp32()
@@ -157,6 +267,14 @@ def solve_collapse(
                 # the GNL tangent refresh's own time (none in small strain)
                 "tangent_time": 0.0,
                 "coarse_ridge_escalations": 0, "coarse_zero_fallbacks": 0,
+                # noise-aware stepping: steps accepted at a tolerance clamped
+                # to ~2x the measured float32 residual floor
+                "floor_clamps": 0, "floor_clamp_steps": [],
+                # float64 residual refinement: activations, first refined step
+                "refinement_activations": 0, "refined_from_step": None,
+                # per harvesting solve: its step, CG iterations and the Ritz
+                # vectors kept (0 = no deflation space built)
+                "harvests": [],
                 # per recorded step: Newton iterations, restarts and the CG
                 # iterations of each of its solves
                 "steps": []}
@@ -167,6 +285,19 @@ def solve_collapse(
         cg_stats["iters"] += iters
         cg_stats["time"] += time.perf_counter() - t0
         step_solves.append(iters)
+
+    # float32 precision governance (see _FloorWatch / PrecisionFloorError)
+    floor_watch = _FloorWatch(
+        params.error_max,
+        enabled=cfg.precision_failover and dtype == torch.float32,
+    )
+    # float64 residual refinement: on a roundoff-class escalation, evaluate
+    # residuals in float64 over the float32 state and hold du (and, after the
+    # first refined commit, disp_new) in float64; the operator,
+    # preconditioner and CG stay float32.  The float64 rerun remains the
+    # last tier.
+    refined = False
+    refine_ok = cfg.residual_refinement and floor_watch.enabled
 
     coords = backend.tensor(coords_np)
     with timers.phase("assemble"):
@@ -189,6 +320,46 @@ def solve_collapse(
         log("two-level coarse build needed "
             f"{COARSE_BUILD_STATS['last_escalations']} ridge escalation(s)")
     qnorm = max(float(torch.linalg.vector_norm(glv)), 1.0)
+
+    # Ritz-deflation recycling: the held space (solve space) and the harvest
+    # policy.  armed: the next correction solve without a held space
+    # harvests; a harvest below deflation_min_iters disarms, a plain solve at
+    # or past it re-arms.
+    defl = None
+    defl_state = {"armed": True}
+
+    def solve_policy(iters: int):
+        nonlocal defl
+        # stale against both the absolute bar and the harvest's own count:
+        # where every solve runs past REFRESH_ITERS, an absolute test alone
+        # would drop the space after each deflated solve
+        stale_at = max(dfl.REFRESH_ITERS, defl_state.get("harvest_iters", 0))
+        if defl is not None and iters >= stale_at:
+            defl = None
+            log(f"deflation space stale ({iters} iters), will re-harvest")
+        elif defl is None and iters >= cfg.deflation_min_iters:
+            defl_state["armed"] = True
+
+    def harvesting_solve(b):
+        """Correction solve that (re)builds the deflation space from its own
+        Lanczos byproducts; a harvest shorter than deflation_min_iters
+        builds nothing and disarms."""
+        nonlocal defl
+        res, h = backend.solve_harvest(khat, pc, b)
+        alphas, betas, rzs = torch.stack([h.alphas, h.betas, h.rzs]).cpu().numpy()
+        defl = None
+        defl_state["harvest_iters"] = res.iters  # staleness reference
+        kept = 0
+        if res.iters < cfg.deflation_min_iters:
+            defl_state["armed"] = False
+        else:
+            coef = dfl.ritz_coefficients(alphas, betas, rzs, res.iters, dfl.RITZ_K)
+            if coef is not None:
+                defl = backend.build_deflation(khat, h.zs, coef)
+                kept = int((np.abs(coef).sum(axis=0) > 0).sum())
+                log(f"deflation space: k={kept} (harvest solve: {res.iters} iters)")
+        cg_stats["harvests"].append({"step": step, "iters": res.iters, "k": kept})
+        return res
 
     with timers.phase("elastic_solve"):
         t0 = time.perf_counter()
@@ -255,10 +426,25 @@ def solve_collapse(
     target_lf = params.target_lf
     disp_scale = 1.0
     iterat_tot = 0
+    eff_error_max = params.error_max
 
     def do_residual(du_, lbd1):
-        return backend.residual(coords, sig_yield, disp_new, du_, sig_old,
-                                glv, lbd1, qnorm, et_e, relax=relax)
+        fn = backend.residual_refined if refined else backend.residual
+        return fn(coords, sig_yield, disp_new, du_, sig_old, glv, lbd1, qnorm, et_e,
+                  relax=relax)
+
+    def activate_refinement(where: str):
+        nonlocal refined, du, eff_error_max
+        refined = True
+        du = du.to(torch.float64)
+        eff_error_max = params.error_max  # a refined run resolves the true
+        # tolerance: drop any noise clamp
+        cg_stats["refinement_activations"] += 1
+        if cg_stats["refined_from_step"] is None:
+            cg_stats["refined_from_step"] = step
+        floor_watch.reset(attempt=floor_watch.attempt)
+        log(f"f32 RESIDUAL FLOOR {where}: switching to f64 residual refinement "
+            "(operator and CG stay f32; config.residual_refinement)")
 
     def record_step(qin, iterat, restart):
         nonlocal sig_yield, peeq, csr, triax, pressure_gp, sigmises
@@ -306,21 +492,50 @@ def solve_collapse(
                 error = float(error_dev)
                 iterat = 0
                 log(f"Iteration: {iterat}, Error: {error:.2e}")
+                eff_error_max = params.error_max
+                floor_watch.reset(attempt=0)
+                floor_watch.observe(error)
 
-                while error > params.error_max and not mrr:
+                while error > eff_error_max and not mrr:
                     iterat += 1
                     iterat_tot += 1
+                    # one modified-Newton iteration: correction solve (a
+                    # harvesting one when the policy asks), Riks update,
+                    # residual (fcVM.py:1304-1557)
                     t0 = time.perf_counter()
-                    out = backend.newton_iteration(
-                        coords, sig_yield, disp_new, du, sig_old, glv,
-                        lbd[step], lbd[step + 1], qnorm, a, ue, r, et_e,
-                        khat, pc, relax=relax)
-                    error = float(out.error)
-                    lbd[step + 1] = float(out.lbd1)
-                    du = out.du
-                    sig_new, sig_test, qin, r = out.sig_new, out.sig_test, out.qin, out.r
-                    count_solve(out.cg_iters, t0)
+                    if cfg.deflation and defl is None and defl_state["armed"]:
+                        res = harvesting_solve(r)
+                    else:
+                        res = backend.solve(khat, pc, r, defl=defl)
+                        solve_policy(res.iters)
+                    du, lbd1, _ = sysm.riks_update(a, ue, res.x, du, lbd[step], lbd[step + 1])
+                    lbd[step + 1] = float(lbd1)
+                    sig_new, sig_test, _, qin, r, error_dev = do_residual(du, lbd[step + 1])
+                    error = float(error_dev)
+                    count_solve(res.iters, t0)
                     log(f"Iteration: {iterat}, Error: {error:.2e}")
+
+                    act = floor_watch.observe(error)
+                    if act == "escalate":
+                        if refine_ok and not refined:
+                            # first escalation tier: float64 residuals in
+                            # place; the refined attempt gets a fresh
+                            # iteration budget
+                            activate_refinement(f"at step {step}")
+                            iterat = 0
+                            continue
+                        raise PrecisionFloorError(
+                            f"Newton error stagnant at ~{min(floor_watch.errs):.2e} > "
+                            f"error_max {params.error_max:g} at step {step}"
+                            + (" (with f64 residual refinement)" if refined else ""))
+                    if act is not None and act[1] > eff_error_max:
+                        eff_error_max = act[1]
+                        if step not in cg_stats["floor_clamp_steps"]:
+                            cg_stats["floor_clamps"] += 1
+                            cg_stats["floor_clamp_steps"].append(step)
+                        log(f"f32 RESIDUAL FLOOR at step {step}: error stagnant above "
+                            f"error_max {params.error_max:g}; accepting this step at "
+                            f"the noise-clamped tolerance {act[1]:.2e}")
 
                     if iterat > params.iterat_max:
                         # Divergence restart with shrinking increments
@@ -328,11 +543,24 @@ def solve_collapse(
                         restart += 1
                         log(f"RESTART # {restart}")
                         if restart > 4:
-                            log("MAXIMUM RESTARTS REACHED")
-                            step -= 1
-                            del lbd[-1]
-                            mrr = True
-                            break
+                            if floor_watch.escalate_at_mrr() and refine_ok and not refined:
+                                # roundoff-class abandonment: retry the
+                                # restart ladder once with refined residuals
+                                activate_refinement(f"at restart exhaustion, step {step}")
+                                restart = 1
+                            elif floor_watch.escalate_at_mrr():
+                                raise PrecisionFloorError(
+                                    "restarts exhausted with the Newton error "
+                                    f"near-converged at ~{min(floor_watch.errs):.2e} "
+                                    f"(> error_max {params.error_max:g}) at step {step}"
+                                    + (" (with f64 residual refinement)" if refined
+                                       else ""))
+                            else:
+                                log("MAXIMUM RESTARTS REACHED")
+                                step -= 1
+                                del lbd[-1]
+                                mrr = True
+                                break
                         # reference quirk kept: the increment is divided by
                         # scale_re * restart twice on the first step
                         if step > 0:
@@ -341,11 +569,17 @@ def solve_collapse(
                         else:
                             dl = dl0 / params.scale_re / restart
                             du = dl * ue / params.scale_re / restart
+                        if refined:
+                            du = du.to(torch.float64)
                         lbd[step + 1] = lbd[step] + dl
                         sig_new, sig_test, _, qin, r, error_dev = do_residual(
                             du, lbd[step + 1])
                         error = float(error_dev)
                         iterat = 0
+                        # a fresh attempt re-probes the floor
+                        eff_error_max = params.error_max
+                        floor_watch.reset(attempt=restart)
+                        floor_watch.observe(error)
 
                 if mrr:
                     break
@@ -378,6 +612,12 @@ def solve_collapse(
                     factor = params.scale_up
                 disp_new, du = sysm.commit_step(disp_new, du, factor)
                 record_step(qin, iterat, restart)
+                # decay the harvest-based staleness bar once per converged
+                # step, so one hard harvest does not pin it for the rest of
+                # the run
+                if defl_state.get("harvest_iters", 0) > dfl.REFRESH_ITERS:
+                    defl_state["harvest_iters"] = max(
+                        dfl.REFRESH_ITERS, int(0.9 * defl_state["harvest_iters"]))
 
             if continuation is not None and not mrr:
                 action = continuation(history, dict(step=step, dl=dl, target_lf=target_lf))

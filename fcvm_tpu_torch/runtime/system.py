@@ -2,12 +2,14 @@
 
 The port of the :mod:`fcvm_tpu.runtime.system` functions on the slice's
 call chain: elastic assembly, the Morton solve space, the preconditioner
-build, the PCG solve, the residual, one Newton iteration (correction solve
-+ Riks update + residual) and the converged-step records.  JAX compiles
-each of these into one device program; here they are plain functions on
-tensors, and the operator's element blocks are permuted into the solve
-space and stored element-major once per operator (:func:`make_operator`),
-not on every solve.
+build, the PCG solve (plain, deflated or harvesting), the deflation-space
+build, the residual (and its float64 refinement over float32 state), the
+Riks update and the converged-step records.  JAX compiles each of these
+into one device program, and fuses a Newton iteration's solve, Riks update
+and residual into another; here they are plain functions on tensors, which
+the driver calls one after the other, and the operator's element blocks are
+permuted into the solve space and stored element-major once per operator
+(:func:`make_operator`), not on every solve.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from fcvm_tpu_torch.ops import assembly as asm
+from fcvm_tpu_torch.ops import deflation as dfl
 from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.precond import apply_precond, build_two_level
 from fcvm_tpu_torch.ops.stress_update import update_stress_load
@@ -138,12 +141,24 @@ def build_solve_space(coords_np, elnodes_np, fixmask, ndof_pad: int) -> SolveSpa
     )
 
 
-def make_operator(esm, space: SolveSpace) -> Callable:
+class Operator(NamedTuple):
+    """``K_hat`` in the solve space: its blocks, Morton-ordered and
+    element-major (30, 30, ne), and the matvec over them.  Calling it
+    applies the matvec."""
+
+    esm_t: torch.Tensor
+    matvec: Callable
+
+    def __call__(self, v):
+        return self.matvec(v)
+
+
+def make_operator(esm, space: SolveSpace) -> Operator:
     """``K_hat @ v`` in the solve space over the user-order blocks ``esm``
     (ne, 30, 30): the blocks are permuted to the Morton element order and
     stored element-major (30, 30, ne) here, once."""
     esm_t = esm[space.eperm].permute(1, 2, 0).contiguous()
-    return asm.make_bc_matvec(esm_t, space.eldofs_m, space.fixmask_m)
+    return Operator(esm_t, asm.make_bc_matvec(esm_t, space.eldofs_m, space.fixmask_m))
 
 
 def build_precond(esm, cluster_size: int, space: SolveSpace, n_modes: int):
@@ -154,15 +169,38 @@ def build_precond(esm, cluster_size: int, space: SolveSpace, n_modes: int):
 
 
 def solve_displacement(khat, pc, b, rtol, maxiter: int, space: SolveSpace,
-                       x0=None) -> slv.CGResult:
+                       x0=None, defl=None) -> slv.CGResult:
     """PCG solve of ``K_hat x = b`` in the solve space (replaces the
     reference's ``factor(f)``); ``b``, ``x0`` and the returned ``x`` are in
     user dof order.  Seeding ``x0`` with the prescribed displacements makes
-    the fixed dofs exact from iteration zero."""
-    res = slv.pcg(khat, space.to_m(b), precond=lambda r: apply_precond(pc, r),
+    the fixed dofs exact from iteration zero.  ``defl`` (a
+    :class:`fcvm_tpu_torch.ops.deflation.DeflationSpace` in the solve space)
+    adds the Ritz correction to the preconditioner."""
+    res = slv.pcg(khat, space.to_m(b),
+                  precond=dfl.deflated(lambda r: apply_precond(pc, r), defl),
                   x0=None if x0 is None else space.to_m(x0), rtol=rtol,
                   maxiter=maxiter)
     return res._replace(x=space.from_m(res.x))
+
+
+def solve_displacement_harvest(khat, pc, b, rtol, maxiter: int, space: SolveSpace,
+                               x0=None, nstore: int = dfl.NSTORE):
+    """Undeflated :func:`solve_displacement` that records its Lanczos
+    byproducts (a harvest runs only when no deflation space is held).
+
+    Returns ``(CGResult, HarvestData)``; the harvested ``zs`` live in the
+    solve space, as the deflation space built from them does."""
+    res, h = slv.pcg_harvest(
+        khat, space.to_m(b), precond=lambda r: apply_precond(pc, r),
+        x0=None if x0 is None else space.to_m(x0), rtol=rtol, maxiter=maxiter,
+        nstore=nstore)
+    return res._replace(x=space.from_m(res.x)), h
+
+
+def build_deflation(khat: Operator, space: SolveSpace, zs, coef) -> dfl.DeflationSpace:
+    """Deflation space from harvested residuals ``zs`` and Ritz
+    coefficients ``coef``, on the operator ``khat``, in the solve space."""
+    return dfl.build_space(khat.esm_t, space.eldofs_m, space.fixmask_m, zs, coef)
 
 
 def residual(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu,
@@ -179,50 +217,57 @@ def residual(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu,
     return sig_new, sig_test, pgp, qin, relax * r, error
 
 
-class NewtonIterOut(NamedTuple):
-    """What one Newton iteration hands back to the driver's loop."""
+def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
+                     nu, et_e, glv, fixmask, lbd1, qnorm, relax=1.0):
+    """:func:`residual` evaluated in float64 over float32-stored state.
 
-    du: torch.Tensor
-    lbd1: torch.Tensor
-    sig_new: torch.Tensor
-    sig_test: torch.Tensor
-    pgp: torch.Tensor
-    qin: torch.Tensor
-    r: torch.Tensor
-    error: torch.Tensor
-    cg_iters: int
+    The mixed-precision refinement tier (``config.residual_refinement``):
+    every input is upcast and the stress update and out-of-balance force
+    are computed in float64, which removes the float32 evaluation floor of
+    ``B^T sigma``.  Returns the Gauss state, the internal force and the CG
+    right-hand side in the storage dtype of ``glv`` (the operator and the
+    correction solve stay float32) and the error as a float64 scalar."""
+    f64 = torch.float64
+    out_dt = glv.dtype
 
+    def c(x):
+        return x.to(f64)
 
-def newton_iteration(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old,
-                     e, nu, et_e, glv, fixmask, lbd0, lbd1, qnorm, a, ue, r,
-                     khat, pc, rtol, maxiter: int, space: SolveSpace,
-                     relax=1.0) -> NewtonIterOut:
-    """One modified-Newton iteration: correction solve with the held
-    operator, Riks update, stress update and residual (reference loop
-    ``fcVM.py:1304-1557``; small strain, so no tangent refresh)."""
-    res = solve_displacement(khat, pc, r, rtol, maxiter, space)
-    du, lbd1, _ = riks_update(a, ue, res.x, du, lbd0, lbd1)
-    sig_new, sig_test, pgp, qin, r_new, error = residual(
-        coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu, et_e,
-        glv, fixmask, lbd1, qnorm, relax=relax)
-    return NewtonIterOut(du, lbd1, sig_new, sig_test, pgp, qin, r_new, error,
-                         res.iters)
+    sig_new, sig_test, pgp, qin = update_stress_load(
+        c(coords), elnodes, c(dmat), c(sig_yield), c(disp_new), c(du), c(sig_old),
+        e, nu, et_e)
+    r = c(fixmask) * (c(lbd1) * c(glv) - qin)
+    error = torch.linalg.vector_norm(r) / qnorm
+    return (sig_new.to(out_dt), sig_test.to(out_dt), pgp, qin.to(out_dt),
+            (relax * r).to(out_dt), error)
 
 
 def _nonzero(x):
     return torch.where(x == 0.0, torch.ones_like(x), x)
 
 
+def _dot(x, y):
+    """``x . y`` in the wider of the two dtypes (a refined float64 increment
+    meets float32 solve vectors, as JAX promotes)."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return torch.dot(x.to(dt), y.to(dt))
+
+
 def riks_update(a, ue, due, du, lbd0, lbd1):
     """Arc-length load correction + increment scale-back
-    (``fcVM.py:1414-1434``); ``lbd0``/``lbd1`` are 0-dim tensors.
+    (``fcVM.py:1414-1434``).
 
-    Returns (du, lbd1, dl).  A zero increment (``|du| = 0``) skips the
-    scale-back instead of dividing by zero as the reference does."""
-    dl = -torch.dot(a, due) / _nonzero(torch.dot(a, ue))
-    lbd1 = lbd1 + dl
+    ``lbd0``/``lbd1`` (numbers or 0-dim tensors) take the dtype of the load
+    correction, as the JAX package's weakly typed Python floats do: float32
+    in a float32 run, float64 once the Riks control vector is a refined
+    float64 increment.  Returns (du, lbd1, dl).  A zero increment
+    (``|du| = 0``) skips the scale-back instead of dividing by zero as the
+    reference does."""
+    dl = -_dot(a, due) / _nonzero(_dot(a, ue))
+    lbd0 = torch.as_tensor(lbd0, dtype=dl.dtype, device=dl.device)
+    lbd1 = torch.as_tensor(lbd1, dtype=dl.dtype, device=dl.device) + dl
     aa = torch.linalg.vector_norm(a)
-    du = du + due + dl * ue
+    du = du + due + dl * ue.to(dl.dtype)
     uu = torch.linalg.vector_norm(du)
     sf = torch.where(uu > 0.0, torch.clamp(aa / _nonzero(uu), max=1.0),
                      torch.ones_like(uu))

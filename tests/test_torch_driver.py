@@ -1,17 +1,17 @@
 """End-to-end parity of the port's ``solve_collapse`` with the JAX package's
 on the cases of ``tests/test_driver_collapse.py`` and the small plate with
-a hole, CPU float64, the JAX package's unported options off on both sides.
+a hole, CPU float64, the JAX package's default solver tiers off on both
+sides (``test_default_config_matches_jax`` runs them).
 
 Both sides solve with ``cg_rtol = 1e-12``, so their solutions agree to far
 below the compared tolerances although the coarse inverse is float32 in the
 JAX package (a TPU rule) and float64 in the port.
 """
 
-import re
-
 import numpy as np
 import pytest
-from torch_parity import disp_control_model, jax_cfg, plate_model, port_config, tension_model  # noqa: F401
+from torch_parity import (  # noqa: F401
+    disp_control_model, jax_cfg, newton_per_step, plate_model, port_config, tension_model)
 
 import fcvm_tpu
 import fcvm_tpu_torch as ft
@@ -35,18 +35,6 @@ CASES = {
                                 ultimate_strain=0.25)),
     "elastic_only": (tension_model, dict(sig_yield=240.0, nstep=1, error_max=1e-10)),
 }
-
-
-def newton_per_step(lines):
-    """Newton iterations (restarts included) of each step, from the
-    ``Step: k`` / ``Iteration: n, Error: e`` progress lines both drivers log."""
-    counts = []
-    for ln in lines:
-        if ln.startswith("Step: "):
-            counts.append(0)
-        elif counts and (m := re.match(r"Iteration: (\d+),", ln)) and int(m.group(1)) > 0:
-            counts[-1] += 1
-    return counts
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -82,10 +70,6 @@ def test_solve_collapse_matches_jax(case, jax_cfg):  # noqa: F811
 
 
 UNPORTED = [
-    (dict(deflation=True), {}),
-    (dict(load_deflation=True), {}),
-    (dict(residual_refinement=True), {}),
-    (dict(precision_failover=True), {}),
     (dict(solver="scipy"), {}),
     (dict(smoother="cluster"), {}),
     (dict(arc_length="crisfield"), {}),
@@ -110,11 +94,32 @@ def test_checkpointing_raises(tmp_path):
                           config=port_config())
 
 
-def test_default_config_raises_for_unported_defaults():
-    """``FcvmConfig()`` keeps the JAX package's defaults, so deflation is
-    on and the slice refuses it instead of ignoring it."""
-    with pytest.raises(NotImplementedError, match="deflation"):
-        ft.solve_collapse(ft.model_from_arrays(tension_model()), ft.ControlParams(nstep=2))
+def test_default_config_matches_jax():
+    """``FcvmConfig()`` keeps the JAX package's defaults (deflation,
+    refinement and the float64 failover on) and runs them: the hardening
+    case with the default config on both sides (both at ``cg_rtol =
+    1e-12``, where every correction solve harvests or deflates) takes the
+    same steps, Newton iterations and deflation spaces as the JAX package."""
+    build, kw = CASES["hardening"]
+    model = build()
+    c = fcvm_tpu.config.get_config()
+    saved = c.cg_rtol
+    c.cg_rtol = CG_RTOL
+    lines_ref, lines = [], []
+    try:
+        ref = fcvm_tpu.solve_collapse(model, fcvm_tpu.ControlParams(**kw),
+                                      progress=lines_ref.append)
+    finally:
+        c.cg_rtol = saved
+    cfg = ft.FcvmConfig(device="cpu", dtype="float64", cg_rtol=CG_RTOL)
+    assert cfg.deflation and cfg.residual_refinement and cfg.precision_failover
+    res = ft.solve_collapse(ft.model_from_arrays(model), ft.ControlParams(**kw),
+                            progress=lines.append, config=cfg)
+    assert len(res.history.lbd) == len(ref.history.lbd) > 1
+    assert newton_per_step(lines) == newton_per_step(lines_ref)
+    np.testing.assert_allclose(res.history.lbd, ref.history.lbd, rtol=RTOL, atol=0)
+    built = [sum("deflation space: k=" in ln for ln in lg) for lg in (lines, lines_ref)]
+    assert built[0] == built[1] > 0
 
 
 def test_cuda_device_without_gpu_raises():

@@ -13,6 +13,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "fcvm_tpu_torch",
     "fcvm_tpu_torch.ops.kernels",
+    "fcvm_tpu_torch.ops.deflation",
+    "fcvm_tpu_torch.runtime.driver",
+    "fcvm_tpu_torch.tools.bw_probe",
     "fcvm_tpu_torch.models.meshgen",
     "chip_smoke",
 ]

@@ -7,6 +7,8 @@ float64).  Models are built with the JAX package's mesh generators and
 handed to the port through :func:`fcvm_tpu_torch.models.spec.model_from_arrays`.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -21,25 +23,26 @@ torch.set_num_threads(1)
 
 E, NU, L = 210000.0, 0.3, 10.0
 F64 = torch.float64
-# the JAX package's options the port's slice raises for, turned off on
-# both sides of every end-to-end comparison
-UNPORTED_OFF = dict(deflation=False, load_deflation=False,
-                    residual_refinement=False, precision_failover=False)
+# the JAX package's default solver tiers (Ritz deflation and the float32
+# precision governance), off on both sides where a test compares the plain
+# solver; the JAX package's load_deflation, which acts only in GNL, goes off
+# with them there
+TIERS_OFF = dict(deflation=False, residual_refinement=False, precision_failover=False)
 
 
 def port_config(**kw) -> FcvmConfig:
-    return FcvmConfig(**{"device": "cpu", "dtype": "float64", **UNPORTED_OFF, **kw})
+    return FcvmConfig(**{"device": "cpu", "dtype": "float64", **TIERS_OFF, **kw})
 
 
 @pytest.fixture
 def jax_cfg():
-    """The JAX package's global config with the unported options off;
+    """The JAX package's global config with the solver tiers off;
     every field a test sets is restored afterwards."""
     c = get_config()
     fields = ("deflation", "load_deflation", "residual_refinement",
               "precision_failover", "cg_rtol")
     saved = {f: getattr(c, f) for f in fields}
-    for f, v in UNPORTED_OFF.items():
+    for f, v in {**TIERS_OFF, "load_deflation": False}.items():
         setattr(c, f, v)
     yield c
     for f, v in saved.items():
@@ -96,3 +99,15 @@ def t64(a):
 def ti(a):
     """A JAX or numpy integer array as an int64 CPU tensor."""
     return torch.as_tensor(np.asarray(a).astype(np.int64))
+
+
+def newton_per_step(lines):
+    """Newton iterations (restarts included) of each step, from the
+    ``Step: k`` / ``Iteration: n, Error: e`` progress lines both drivers log."""
+    counts = []
+    for ln in lines:
+        if ln.startswith("Step: "):
+            counts.append(0)
+        elif counts and (m := re.match(r"Iteration: (\d+),", ln)) and int(m.group(1)) > 0:
+            counts[-1] += 1
+    return counts
