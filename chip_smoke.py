@@ -19,7 +19,8 @@ Phases, each printing its numbers before the next starts:
    of the time of a plain full read of the same 2 GiB (Kbw's result shows
    only the chunk heads, so its time is what shows it read every byte);
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
-   on the CPU; the load-factor histories must agree;
+   on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
+   the load-factor histories must agree;
 5. the slice at full size: the quarter plate with a hole at 502,599 dof,
    float32, two-level PCG without deflation or the precision tiers, plastic
    Riks steps through ``fcvm_tpu_torch.solve_collapse``; the launch count
@@ -31,7 +32,16 @@ Phases, each printing its numbers before the next starts:
 7. the same plate and steps with the default configuration (Ritz deflation,
    residual refinement and the float64 failover on): phase 5's checks, at
    least one deflation space built, and the ratios of stepping time and CG
-   iterations against phase 5.
+   iterations against phase 5;
+8. the same plate and steps with geometric nonlinearity (``gnl="GNLY"``,
+   ``max_imp = 0``) and the default configuration: phase 5's checks, at
+   least one tangent predictor solve, the Newton iterations, correction and
+   predictor CG counts of every step, the refreshes' time and the stepping
+   time against phase 7;
+8b. one tangent refresh in pieces, on the plastic end state of phase 8:
+   CUDA-event times of the tangent formation, the follower loads, the
+   operator build, the block-Jacobi rebuild, the predictor solve cold and
+   warm-started, and the GNL residual against the small-strain one.
 
 Each phase prints its wall time.
 
@@ -102,12 +112,12 @@ def plate_model(size):
     return Model(mesh, Material(E, NU), bcs, loads, name="plate")
 
 
-def plate_params(nstep):
+def plate_params(nstep, gnl=False):
     from fcvm_tpu_torch import ControlParams
 
     return ControlParams(sig_yield=PLATE_SY, nstep=nstep, iterat_max=20,
                          error_max=5e-4, et_e=0.0, target_lf=1.62,
-                         ultimate_strain=0.25)
+                         ultimate_strain=0.25, gnl="GNLY" if gnl else "GNLN", max_imp=0.0)
 
 
 def cuda_ms(fn, *args, runs=20):
@@ -216,6 +226,79 @@ def layer_breakdown(model, cfg):
               f"{ev.key[:90]}")
 
 
+def refresh_breakdown(model, cfg, res):
+    """Print the CUDA-event time of each piece of one GNL tangent refresh on
+    the end state of a GNL run ``res`` (its total displacement and
+    stresses; the plastic points are those on the yield surface): tangent
+    formation, follower loads, operator build, block-Jacobi rebuild, the
+    predictor solve cold and warm-started from the predictor of a nearby
+    state (5% less displacement, standing for the previous Newton
+    iteration's), and one residual with and without GNL."""
+    from fcvm_tpu_torch.ops import assembly as asm
+    from fcvm_tpu_torch.ops import material as mat
+    from fcvm_tpu_torch.ops.precond import refresh_blocks
+    from fcvm_tpu_torch.runtime import system as sysm
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+    from fcvm_tpu_torch.utils.indexing import pad_vector
+
+    backend = TorchSystem(model, cfg, cfg.resolve_dtype(), cfg.resolve_device())
+    coords = backend.tensor(model.mesh.coords)
+    esm, pinv, glv, *_ = backend.assemble(coords)
+    pc = backend.make_pc(esm, pinv)
+    del esm, pinv
+    space = backend.space
+    disp = backend.tensor(pad_vector(res.disp_total, backend.ndof_pad))
+    sig = backend.tensor(res.sig_gp)
+    sig_yield = backend.tensor(res.sig_yield_gp)
+    pgp = mat.von_mises(sig)[2] >= (1.0 - 1e-4) * sig_yield
+    print(f"plastic end state: lbd {res.history.lbd[-1]:.6f}, {int(pgp.sum())} of "
+          f"{pgp.numel()} Gauss points plastic")
+    check(bool(pgp.any()), "phase 8b: no plastic Gauss point in the end state")
+    et_e = 0.0
+    eperm = space.eperm
+    coords_def = coords + disp.reshape(-1, 3)[: coords.shape[0]]
+
+    def form():
+        return asm.tangent_stiffness_blocks(
+            coords_def, backend.elnodes[eperm], backend.dmat, sig[eperm], pgp[eperm],
+            backend.g, mat.hardening_modulus(backend.e, et_e))
+
+    esm_m = form()
+    rows = [
+        ("tangent formation (ne, 30, 30), solve-space element order [median of 5]",
+         cuda_ms(form, runs=5)),
+        ("follower loads (pressure and gravity on the deformed geometry)",
+         cuda_ms(lambda: sysm.external_loads(coords, disp, backend.elnodes, backend.loads,
+                                             backend.density, follower=True))),
+        ("operator build (blocks to element-major (30, 30, ne))",
+         cuda_ms(lambda: sysm.make_operator(esm_m, space))),
+        ("block-Jacobi rebuild", cuda_ms(
+            lambda: refresh_blocks(pc, esm_m, space.elnodes_m, space.fixmask_m))),
+    ]
+    del esm_m
+    rows.append(("whole refresh without the predictor solve [median of 5]", cuda_ms(
+        lambda: backend.tangent_refresh(coords, sig, pgp, disp, pc, et_e,
+                                        solve_predictor=False), runs=5)))
+    prev = backend.tangent_refresh(coords, sig, pgp, 0.95 * disp, pc, et_e)[3]
+    khat, pc_t, _, rhs, _ = backend.tangent_refresh(coords, sig, pgp, disp, pc, et_e,
+                                                     solve_predictor=False)
+    for name, x0 in (("cold", None), ("warm", prev)):
+        iters = backend.solve(khat, pc_t, rhs, x0=x0).iters
+        rows.append((f"predictor solve, {name}: {iters} CG iterations [median of 3]",
+                     cuda_ms(lambda: backend.solve(khat, pc_t, rhs, x0=x0), runs=3)))
+    del khat, pc_t, prev
+    qnorm = max(float(torch.linalg.vector_norm(glv)), 1.0)
+    du = 0.02 * disp
+    for name, large_disp in (("small strain", False), ("GNL", True)):
+        rows.append((f"residual, {name}", cuda_ms(
+            lambda: backend.residual(coords, sig_yield, disp, du, sig, glv, 1.0, qnorm, et_e,
+                                     large_disp))))
+    print("CUDA-event times, median of 20 runs unless marked:")
+    for name, ms in rows:
+        print(f"{name}: {ms:.4f} ms")
+    torch.cuda.empty_cache()
+
+
 def probe_phase():
     """K0p and Kbw against their plain versions on seeded data, then the
     bandwidth probe at its full sizes with the launch counts set to 0 just
@@ -277,9 +360,10 @@ def probe_phase():
     return rows
 
 
-def run_plate(big, cfg, label):
-    """Drive ``solve_collapse`` on the full-size plate with ``cfg``, print
-    every step, apply the slice's checks, and return the numbers."""
+def run_plate(big, cfg, label, gnl=False):
+    """Drive ``solve_collapse`` on the full-size plate with ``cfg`` (with
+    geometric nonlinearity when ``gnl``), print every step, apply the
+    slice's checks, and return the numbers and the results."""
     from fcvm_tpu_torch import solve_collapse
     from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.utils.indexing import pad_ndof
@@ -297,7 +381,7 @@ def run_plate(big, cfg, label):
     torch.cuda.reset_peak_memory_stats()
     kernels.block_matvec.launches = 0
     stamps[0] = time.perf_counter()
-    res = solve_collapse(big, plate_params(4), continuation=continuation,
+    res = solve_collapse(big, plate_params(4, gnl), continuation=continuation,
                          progress=lines.append, monitor=monitor, config=cfg)
     torch.cuda.synchronize()
     launches = kernels.block_matvec.launches
@@ -313,9 +397,10 @@ def run_plate(big, cfg, label):
           f"({elastic_iters} CG iterations)")
     h = res.history
     for k, s in enumerate(res.cg_stats["steps"]):
+        pred = f", predictor CG per refresh {s['predictor']}" if gnl else ""
         print(f"step {k}: lbd {h.lbd[k + 1]:.6f}, Newton {s['newton']}, restarts "
-              f"{s['restarts']}, CG per solve {s['cg']}, {stamps[k + 1] - stamps[k]:.2f} s, "
-              f"peeq max {h.peeqmax[k + 1]:.3e}")
+              f"{s['restarts']}, CG per solve {s['cg']}{pred}, "
+              f"{stamps[k + 1] - stamps[k]:.2f} s, peeq max {h.peeqmax[k + 1]:.3e}")
     print(f"total {wall:.2f} s (stepping {t['stepping']:.2f} s), {res.cg_stats['solves']} "
           f"solves, {res.cg_stats['iters']} CG iterations ({step_iters} in {step_solves} "
           f"stepping solves), {1e3 * res.cg_stats['time'] / max(res.cg_stats['iters'], 1):.3f} "
@@ -332,7 +417,7 @@ def run_plate(big, cfg, label):
     check(res.sig_gp.shape == (NE_BIG, 4, 6) and bool(np.isfinite(res.sig_gp).all()),
           f"{label}: stresses are not finite (ne, 4, 6)")
     check(launches > 0, f"{label}: K0 was not launched on the main path")
-    return dict(lines=lines, cg_stats=res.cg_stats,
+    return dict(lines=lines, cg_stats=res.cg_stats, res=res,
                 stepping=t["stepping"], step_iters=step_iters, step_solves=step_solves,
                 launches=launches, lbd=lbd)
 
@@ -390,19 +475,25 @@ def main():
     phase(f"3b bandwidth probe: K0p and Kbw vs plain, then the probe ({smi})")
     probe_rows = probe_phase()
 
-    phase("4 small plate, float64, GPU vs CPU")
+    phase("4 small plate, float64, GPU vs CPU, small strain and GNL")
     small = plate_model(PLATE_SMALL)
-    lbds = {}
-    for dev in ("cuda", "cpu"):
-        cfg = FcvmConfig(device=dev, dtype="float64", cg_rtol=1e-10, **TIERS_OFF)
-        t0 = time.perf_counter()
-        res = solve_collapse(small, plate_params(6), config=cfg)
-        lbds[dev] = np.asarray(res.history.lbd)
-        print(f"{dev}: {time.perf_counter() - t0:.2f} s, lbd {lbds[dev].round(6).tolist()}")
-    check(len(lbds["cuda"]) == len(lbds["cpu"]) == 7, "step counts differ from 6")
-    diff = float(np.max(np.abs(lbds["cuda"] - lbds["cpu"]) / np.maximum(np.abs(lbds["cpu"]), 1e-300)))
-    print(f"max rel lbd difference {diff:.3e} (limit {LBD_RTOL:g})")
-    check(diff <= LBD_RTOL, "GPU and CPU load-factor histories disagree")
+    for gnl in (False, True):
+        lbds = {}
+        for dev in ("cuda", "cpu"):
+            cfg = FcvmConfig(device=dev, dtype="float64", cg_rtol=1e-10, **TIERS_OFF)
+            t0 = time.perf_counter()
+            res = solve_collapse(small, plate_params(6, gnl), config=cfg)
+            lbds[dev] = np.asarray(res.history.lbd)
+            print(f"{'GNL' if gnl else 'small strain'}, {dev}: {time.perf_counter() - t0:.2f} s, "
+                  f"lbd {lbds[dev].round(6).tolist()}, predictor solves "
+                  f"{res.cg_stats['predictor_solves']}")
+            if gnl:
+                check(res.cg_stats["predictor_solves"] > 0, "GNL: no tangent predictor solve")
+        check(len(lbds["cuda"]) == len(lbds["cpu"]) == 7, "step counts differ from 6")
+        diff = float(np.max(np.abs(lbds["cuda"] - lbds["cpu"])
+                            / np.maximum(np.abs(lbds["cpu"]), 1e-300)))
+        print(f"max rel lbd difference {diff:.3e} (limit {LBD_RTOL:g})")
+        check(diff <= LBD_RTOL, "GPU and CPU load-factor histories disagree")
 
     phase("5 plate with hole at full size, float32, deflation and precision tiers off")
     t0 = time.perf_counter()
@@ -438,6 +529,25 @@ def main():
           f"{on['step_iters']} / {off['step_iters']} = {on['step_iters'] / off['step_iters']:.3f}; "
           f"CG iterations per solve {mean['on']:.1f} / {mean['off']:.1f} = "
           f"{mean['on'] / mean['off']:.3f}")
+
+    phase("8 plate with hole at full size, GNL, float32, default configuration")
+    gnl = run_plate(big, cfg7, "phase 8", gnl=True)
+    cs = gnl["cg_stats"]
+    check(cs["predictor_solves"] > 0, "phase 8: no tangent predictor solve")
+    newton = [s["newton"] for s in cs["steps"]]
+    print(f"Newton iterations per step {newton}; tangent refreshes {cs['predictor_solves']}, "
+          f"tangent_time {cs['tangent_time']:.2f} s ({cs['tangent_time'] / cs['predictor_solves']:.3f} "
+          f"s per refresh); correction CG per solve {gnl['step_iters'] / max(gnl['step_solves'], 1):.1f}, "
+          f"predictor CG per refresh {cs['predictor_iters'] / cs['predictor_solves']:.1f}")
+    print(f"load-deflation spaces built: "
+          f"{sum('load-deflation space (' in ln for ln in gnl['lines'])}; dropped as stale: "
+          f"{sum('load-deflation space stale' in ln for ln in gnl['lines'])}; correction-space "
+          f"harvests: {len(cs['harvests'])}")
+    print(f"GNL vs phase 7: stepping time {gnl['stepping']:.2f} / {on['stepping']:.2f} s "
+          f"= {gnl['stepping'] / on['stepping']:.3f}")
+
+    phase(f"8b one tangent refresh in pieces, plate at full size, float32 ({smi})")
+    refresh_breakdown(big, cfg7, gnl["res"])
     phase()
     print(f"all phases: {time.perf_counter() - t_start:.1f} s wall")
 
@@ -445,7 +555,8 @@ def main():
         "name": "block_matvec", "route": "cuda",
         "source": "fcvm_tpu_torch/csrc/block_matvec.cu",
         "replaces": "fcvm_tpu/ops/pallas_kernels.py:60",
-        "launches": off["launches"], **k0[torch.float32],
+        "launches": off["launches"], "launches_default": on["launches"],
+        "launches_gnl": gnl["launches"], **k0[torch.float32],
     }, *probe_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

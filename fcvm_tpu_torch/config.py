@@ -1,5 +1,5 @@
 """Solver configuration of the port (the fields of :mod:`fcvm_tpu.config`
-that the small-strain slice uses, with the same defaults, plus ``device``).
+that the port uses, with the same defaults, plus ``device``).
 
 A :class:`FcvmConfig` is created by the caller and passed to
 :func:`fcvm_tpu_torch.solve_collapse`; there is no process-wide config and
@@ -45,14 +45,21 @@ class FcvmConfig:
         solve harvests its Lanczos byproducts, the lowest Ritz vectors
         deflate the following solves, across load steps, until a deflated
         solve regresses.  A harvest shorter than ``deflation_min_iters``
-        builds nothing.  (The JAX package's ``load_deflation``, the GNL
-        tangent predictor's load-space recycling, comes with the GNL port.)
+        builds nothing.
+      load_deflation: with ``deflation``, the GNL tangent predictor's own
+        recycling: one predictor solve harvests a Ritz basis of its load
+        right-hand side, which each later tangent refresh re-Galerkins and
+        deflates its predictor with, until a predictor solve regresses.
       precision_failover: in float32, watch the Newton error for an
         arithmetic floor above ``error_max``: clamp the tolerance near the
         floor, or escalate (refinement, then a float64 rerun).
       residual_refinement: the first escalation tier, float64 residuals
         over float32 state with the float32 operator and CG.
-      arc_length: ``"riks"``.
+      arc_length: ``"riks"`` (the reference's linearised update) or
+        ``"crisfield"`` (the spherical constraint, which follows snapback).
+
+    Not ported, and refused by :meth:`check_supported`: the scipy direct
+    tier, the cluster smoother and more than one device.
     """
 
     device: str = "cuda"
@@ -69,6 +76,7 @@ class FcvmConfig:
     n_devices: int = 0
     deflation: bool = True
     deflation_min_iters: int = 48
+    load_deflation: bool = True
     precision_failover: bool = True
     residual_refinement: bool = True
     arc_length: str = "riks"
@@ -121,8 +129,6 @@ class FcvmConfig:
              "the scipy direct tier (ROADMAP Queue 1 item 5)"),
             (self.smoother == "cluster", "smoother='cluster'",
              "the cluster block-Cholesky smoother (ROADMAP Queue 1 item 6)"),
-            (self.arc_length == "crisfield", "arc_length='crisfield'",
-             "the Crisfield arc-length update (ROADMAP Queue 1 item 8)"),
             (self.n_devices > 1, f"n_devices={self.n_devices}",
              "the multi-device backend (ROADMAP Queue 1 item 16)"),
         ]
@@ -133,7 +139,7 @@ class FcvmConfig:
             raise ValueError(f"unknown solver {self.solver!r}")
         if self.smoother != "jacobi3":
             raise ValueError(f"unknown smoother {self.smoother!r}")
-        if self.arc_length != "riks":
+        if self.arc_length not in ("riks", "crisfield"):
             raise ValueError(f"unknown arc_length {self.arc_length!r}")
         if self.precond not in ("two_level", "block_jacobi"):
             raise ValueError(f"unknown precond {self.precond!r}")

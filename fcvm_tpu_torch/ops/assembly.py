@@ -1,6 +1,7 @@
 """Element stiffness blocks, load integration, Dirichlet handling, K_hat·v.
 
-The small-strain subset of :mod:`fcvm_tpu.ops.assembly`.  The global
+The port of :mod:`fcvm_tpu.ops.assembly` without the buckling pencil's
+geometric stiffness (ROADMAP Queue 1 item 13).  The global
 stiffness matrix is never formed: the per-element 30x30 blocks stay on the
 device and ``K @ v`` is gather -> block matvec -> scatter-add, with the
 block stage the hand-written CUDA kernel K0
@@ -20,6 +21,7 @@ import torch
 
 from fcvm_tpu_torch.ops import elements as el
 from fcvm_tpu_torch.ops import kernels
+from fcvm_tpu_torch.ops import material as mat
 from fcvm_tpu_torch.utils.linalg3 import det3, inv3_spd
 
 
@@ -45,6 +47,27 @@ def elastic_stiffness_blocks(coords, elnodes, dmat) -> torch.Tensor:
     det, _, bmat = el.tet10_element_geometry(coords[elnodes])
     scale = torch.as_tensor(el.W10, dtype=coords.dtype, device=coords.device) * det.abs()
     db = torch.einsum("kl,egln->egkn", dmat, bmat)
+    return torch.einsum("egkm,egkn,eg->emn", bmat, db, scale)
+
+
+def tangent_stiffness_blocks(coords_def, elnodes, dmat, sig_gp, pgp, g, h) -> torch.Tensor:
+    """(ne, 30, 30) tangent blocks on the deformed coordinates
+    ``coords_def`` (``fcVM.py:971-1000``): ``sum_g B_g^T D_g B_g w_g |J_g|``
+    with ``D_g = D - fac s s^T`` at plastic Gauss points, ``s`` the
+    deviator of ``sig_gp`` (the stress at the start of the step, (ne, 4, 6))
+    and ``fac = 3G / (1 + H/3G) / svm^2``; ``pgp`` (ne, 4) flags the
+    plastic points.  Each element's block depends on its own rows only, so
+    the rows of ``elnodes``, ``sig_gp`` and ``pgp`` may come in any element
+    order."""
+    det, _, bmat = el.tet10_element_geometry(coords_def[elnodes])
+    scale = torch.as_tensor(el.W10, dtype=coords_def.dtype,
+                            device=coords_def.device) * det.abs()
+    dev, _, svm = mat.von_mises(sig_gp)
+    svm = torch.where(svm == 0.0, torch.ones_like(svm), svm)
+    g3fac = 3.0 * g / (1.0 + h / (3.0 * g))
+    fac = torch.where(pgp, g3fac / svm**2, torch.zeros_like(svm))
+    dmat_g = dmat - fac[..., None, None] * dev[..., :, None] * dev[..., None, :]
+    db = torch.einsum("egkl,egln->egkn", dmat_g, bmat)
     return torch.einsum("egkm,egkn,eg->emn", bmat, db, scale)
 
 
@@ -155,10 +178,10 @@ def make_bc_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.Ten
     return khat
 
 
-def dirichlet_rhs(esm, eldofs, fixmask, u_fix, glv):
-    """Full elastic RHS ``f = P glv - (P K u_fix) + u_fix`` (``fcVM.py:1128``);
-    ``esm`` (ne, 30, 30)."""
-    kv = make_matvec(esm.permute(1, 2, 0).contiguous(), eldofs, fixmask.shape[0])
+def dirichlet_rhs(esm_t, eldofs, fixmask, u_fix, glv):
+    """Full RHS ``f = P glv - (P K u_fix) + u_fix`` (``fcVM.py:1128``) over
+    element-major blocks ``esm_t`` (30, 30, ne)."""
+    kv = make_matvec(esm_t, eldofs, fixmask.shape[0])
     return fixmask * glv - fixmask * kv(u_fix) + u_fix
 
 

@@ -148,10 +148,3 @@ def pinv_psd(kw):
     inv = torch.where(good, 1.0 / torch.where(good, evals, torch.ones_like(evals)),
                       torch.zeros_like(evals))
     return (evecs * inv[None, :]) @ evecs.T
-
-
-def build_space(esm_t, eldofs, fixmask, zs, coef) -> DeflationSpace:
-    """Z, coef -> (W, (W^T K W)^+): basis combination, block Galerkin
-    product and the PSD pseudo-inverse."""
-    w = build_w(zs, coef, fixmask)
-    return DeflationSpace(w, pinv_psd(galerkin(esm_t, eldofs, fixmask, w)))

@@ -76,6 +76,19 @@ def apply_precond(pc, r):
     return asm.apply_block_precond(pc, r)
 
 
+def refresh_blocks(pc, esm, elnodes, fixmask):
+    """Rebuild the block-Jacobi part after a tangent refresh from the
+    blocks ``esm`` (ne, 30, 30), keeping the two-level coarse correction of
+    the elastic operator (a preconditioner only needs to stay SPD and
+    spectrally close, as the reference keeps its elastic factor,
+    ``fcVM.py:1400-1406``).  Returns the new preconditioner: a
+    :class:`TwoLevelPrecond`, or the nodal blocks of the block-Jacobi tier."""
+    pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
+    if isinstance(pc, TwoLevelPrecond):
+        return pc._replace(pinv=pinv)
+    return pinv
+
+
 def rigid_modes(coords, cluster_size: int, n_modes: int = 6):
     """(nn_cl, 3, n_modes) cluster mode basis per node, centroid-centered.
 

@@ -1,13 +1,14 @@
-"""Stress update and internal force, small strain: the port of
-:mod:`fcvm_tpu.ops.stress_update` with ``large_disp=False``.
+"""Stress update and internal force: the port of :mod:`fcvm_tpu.ops.stress_update`.
 
-Per Gauss point: B on the original coordinates, strain increment
-``deps = B du``, elastic trial stress ``sig_old + D deps``, radial return
-to the von Mises surface, and the internal force
-``qin = sum_e sum_g B^T sigma w |J|`` (``fcVM.py:2196-2464``).  Float32
-products run in full float32 (no TF32): a lower-precision internal force
-floors the Newton residual.  The geometrically nonlinear branch (the
-convected stress ``F sigma F^T / det F``) comes with the GNL port.
+Per Gauss point: B on the original coordinates (small strain) or on the
+start-of-step deformed ones (``large_disp``), strain increment
+``deps = B du``, the old stress convected through the incremental
+deformation gradient ``F = I + d(du)/dx`` as ``F sigma F^T / det F``
+(``large_disp`` only, ``fcVM.py:2383-2429``), elastic trial stress
+``sig_c + D deps``, radial return to the von Mises surface, and the
+internal force ``qin = sum_e sum_g B^T sigma w |J|`` (``fcVM.py:2196-2464``).
+Float32 products run in full float32 (no TF32): a lower-precision internal
+force floors the Newton residual.
 """
 
 from __future__ import annotations
@@ -16,28 +17,38 @@ import torch
 
 from fcvm_tpu_torch.ops import elements as el
 from fcvm_tpu_torch.ops import material as mat
+from fcvm_tpu_torch.utils.linalg3 import det3
 
 
-def _require_small_strain(large_disp: bool):
-    if large_disp:
-        raise NotImplementedError(
-            "large_disp=True: the geometrically nonlinear stress update "
-            "(gnl='GNLY') is not ported yet (ROADMAP Queue 1 item 7)"
-        )
+def voigt_to_tensor(sig: torch.Tensor) -> torch.Tensor:
+    """(..., 6) Voigt [xx,yy,zz,xy,zx,yz] -> (..., 3, 3) symmetric tensor."""
+    sxx, syy, szz = sig[..., 0], sig[..., 1], sig[..., 2]
+    sxy, szx, syz = sig[..., 3], sig[..., 4], sig[..., 5]
+    return torch.stack([
+        torch.stack([sxx, sxy, szx], dim=-1),
+        torch.stack([sxy, syy, syz], dim=-1),
+        torch.stack([szx, syz, szz], dim=-1),
+    ], dim=-2)
 
 
-def _geometry(coords, elnodes):
-    """B (ne, 4, 6, 30), the quadrature scale w |J| (ne, 4) and the element
-    dof ids (ne, 30)."""
-    det, _, bmat = el.tet10_element_geometry(coords[elnodes])
-    w = torch.as_tensor(el.W10, dtype=coords.dtype, device=coords.device)
-    dofs = 3 * elnodes[:, :, None] + torch.arange(3, device=elnodes.device)
-    return bmat, w * det.abs(), dofs.reshape(-1, 30)
+def _tensor_to_voigt(s: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) symmetric tensor -> (..., 6) Voigt [xx,yy,zz,xy,zx,yz]."""
+    return torch.stack([s[..., 0, 0], s[..., 1, 1], s[..., 2, 2],
+                        s[..., 0, 1], s[..., 0, 2], s[..., 1, 2]], dim=-1)
 
 
-def _internal_force(bmat, scale, sig, dofs, ndof):
+def _geometry(coords_el):
+    """det J (ne, 4), dshpg (ne, 4, 3, 10), B (ne, 4, 6, 30) and the
+    quadrature scale w |J| (ne, 4) of elements with nodes ``coords_el``."""
+    det, dshpg, bmat = el.tet10_element_geometry(coords_el)
+    w = torch.as_tensor(el.W10, dtype=coords_el.dtype, device=coords_el.device)
+    return dshpg, bmat, w * det.abs()
+
+
+def _internal_force(bmat, scale, sig, elnodes, ndof):
     """``sum_e sum_g B_g^T sig_g w_g |J_g|`` (``fcVM.py:2448-2462``)."""
     elv = torch.einsum("egkn,egk,eg->en", bmat, sig, scale)
+    dofs = 3 * elnodes[:, :, None] + torch.arange(3, device=elnodes.device)
     qin = torch.zeros(ndof, dtype=elv.dtype, device=elv.device)
     return qin.index_add_(0, dofs.reshape(-1), elv.reshape(-1))
 
@@ -51,30 +62,46 @@ def update_stress_load(coords, elnodes, dmat, sig_yield, disp, du, sig_old,
       elnodes: (ne, 10) 0-based connectivity.
       dmat: (6, 6) elastic matrix.
       sig_yield: (ne, 4) current yield stresses.
-      disp: (ndof,) total displacement at the start of the step (unused in
-        small strain; kept for the JAX signature).
+      disp: (ndof,) total displacement at the start of the step (read only
+        with ``large_disp``).
       du: (ndof,) displacement increment of the current step.
       sig_old: (ne, 4, 6) stresses at the start of the step.
+      large_disp: geometric nonlinearity (``gnl="GNLY"``).
 
     Returns:
       (sig_new, sig_test, pgp, qin): stresses (ne, 4, 6), trial stresses
       (ne, 4, 6), plastic flags (ne, 4), internal force (ndof,).
     """
-    _require_small_strain(large_disp)
     g = mat.shear_modulus(e, nu)
     h = mat.hardening_modulus(e, et_e)
-    bmat, scale, dofs = _geometry(coords, elnodes)
-    deps = torch.einsum("egkn,en->egk", bmat, du[dofs])  # (ne, 4, 6)
-    sig_test = sig_old + torch.einsum("kl,egl->egk", dmat, deps)
+    coords_el = coords[elnodes]
+    du_el = du.reshape(-1, 3)[elnodes]  # (ne, 10, 3)
+    if large_disp:
+        coords_el = coords_el + disp.reshape(-1, 3)[elnodes]
+    dshpg, bmat, scale = _geometry(coords_el)
+    deps = torch.einsum("egkn,en->egk", bmat, du_el.reshape(-1, 30))  # (ne, 4, 6)
+    sig_c = sig_old
+    if large_disp:
+        # incremental deformation gradient on the start-of-step deformed
+        # configuration (fcVM.py:2396-2414): F[a, b] = d_ab + sum_i du_ia dN_i/dx_b
+        f = torch.eye(3, dtype=du.dtype, device=du.device) + torch.einsum(
+            "eia,egbi->egab", du_el, dshpg)
+        s_conv = torch.einsum("egij,egjl,egkl->egik", f, voigt_to_tensor(sig_old), f)
+        sig_c = _tensor_to_voigt(s_conv / det3(f)[..., None, None])
+    sig_test = sig_c + torch.einsum("kl,egl->egk", dmat, deps)
     sig_new, pgp = mat.radial_return(sig_test, sig_yield, h, g)
-    qin = _internal_force(bmat, scale, sig_new, dofs, disp.shape[0])
+    qin = _internal_force(bmat, scale, sig_new, elnodes, disp.shape[0])
     return sig_new, sig_test, pgp, qin
 
 
 def internal_force_from_stress(coords, elnodes, sig_gp, disp, large_disp: bool = False):
     """``qin = sum_e B^T sigma w |J|`` for a given stress field (the
     reaction of the target-LF interception state, whose stress is a linear
-    interpolation, ``fcVM.py:1486-1510``)."""
-    _require_small_strain(large_disp)
-    bmat, scale, dofs = _geometry(coords, elnodes)
-    return _internal_force(bmat, scale, sig_gp, dofs, disp.shape[0])
+    interpolation, ``fcVM.py:1486-1510``); with ``large_disp`` on the
+    deformed coordinates.  A float64 ``disp`` (the refinement tier's) is
+    cast to the storage dtype of ``coords`` first: the record stays in it."""
+    coords_el = coords[elnodes]
+    if large_disp:
+        coords_el = coords_el + disp.to(coords.dtype).reshape(-1, 3)[elnodes]
+    _, bmat, scale = _geometry(coords_el)
+    return _internal_force(bmat, scale, sig_gp, elnodes, disp.shape[0])

@@ -1,8 +1,8 @@
 """The compute engine behind the collapse driver: :class:`TorchSystem`.
 
-The port of :class:`fcvm_tpu.runtime.backend.LocalSystem` (one device) for
-the small-strain slice.  The driver keeps the host control flow; every
-tensor operation goes through this object.
+The port of :class:`fcvm_tpu.runtime.backend.LocalSystem` (one device)
+without buckling and the scipy tier.  The driver keeps the host control
+flow; every tensor operation goes through this object.
 
 Data contract (the same as ``LocalSystem``'s):
 
@@ -12,7 +12,8 @@ Data contract (the same as ``LocalSystem``'s):
   element order;
 * the linear solves run in the Morton solve space
   (:class:`fcvm_tpu_torch.runtime.system.SolveSpace`), and so do the
-  harvested residuals and the deflation spaces built from them.
+  harvested residuals and the deflation spaces built from them, and the
+  tangent refresh's operator, preconditioner and load-space basis.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ class TorchSystem:
         self.nu = float(model.material.nu)
         self.density = float(model.material.density)
         self.dmat = mat.hooke_dmat(self.e, self.nu, dtype, device)
+        self.g = mat.shear_modulus(self.e, self.nu)
         self.elnodes = torch.as_tensor(mesh.elnodes.astype(np.int64), device=device)
 
         def vec(a):
@@ -85,7 +87,7 @@ class TorchSystem:
 
     def operator(self, esm):
         """K_hat·v in the solve space over blocks ``esm`` (user order)."""
-        return sysm.make_operator(esm, self.space)
+        return sysm.make_operator(esm[self.space.eperm], self.space)
 
     def make_pc(self, esm, pinv):
         if self.cfg.precond == "two_level":
@@ -108,29 +110,50 @@ class TorchSystem:
         """Harvested ``zs`` + Ritz ``coef`` -> DeflationSpace on ``khat``."""
         return sysm.build_deflation(khat, self.space, zs, coef)
 
+    def make_deflation(self, khat, w):
+        """Re-Galerkin a held basis ``w`` on a (refreshed) operator."""
+        return sysm.regalerkin_deflation(khat, self.space, w)
+
+    def deflation_basis(self, zs, coef):
+        """Harvest data -> solve-space (ndof, k) Ritz basis, without a
+        Galerkin: the tangent predictor's load space, re-Galerkined on
+        each new tangent inside :meth:`tangent_refresh`."""
+        return dfl.build_w(zs, coef, self.space.fixmask_m)
+
+    # -- geometric nonlinearity ----------------------------------------------
+
+    def tangent_refresh(self, coords, sig_old, pgp, disp_new, pc, et_e, ue0=None,
+                        w=None, solve_predictor=True):
+        """See :func:`fcvm_tpu_torch.runtime.system.tangent_refresh`."""
+        return sysm.tangent_refresh(
+            coords, self.elnodes, self.dmat, sig_old, pgp, disp_new, self.loads,
+            self.density, self.u_fix, self.g, mat.hardening_modulus(self.e, et_e),
+            self.rtol, self.maxiter, pc, self.space, ue0=ue0, w=w,
+            solve_predictor=solve_predictor)
+
     def residual(self, coords, sig_yield, disp_new, du, sig_old, glv, lbd1,
-                 qnorm, et_e, relax=1.0):
+                 qnorm, et_e, large_disp=False, relax=1.0):
         return sysm.residual(
             coords, self.elnodes, self.dmat, sig_yield, disp_new, du, sig_old,
             self.e, self.nu, et_e, glv, self.fixmask, self.tensor(lbd1),
-            qnorm, relax=relax)
+            qnorm, large_disp, relax=relax)
 
     def residual_refined(self, coords, sig_yield, disp_new, du, sig_old, glv,
-                         lbd1, qnorm, et_e, relax=1.0):
+                         lbd1, qnorm, et_e, large_disp=False, relax=1.0):
         """The residual in float64 over float32 state (the refinement tier,
         :func:`fcvm_tpu_torch.runtime.system.residual_refined`)."""
         return sysm.residual_refined(
             coords, self.elnodes, self.dmat, sig_yield, disp_new, du, sig_old,
             self.e, self.nu, et_e, glv, self.fixmask,
             torch.tensor(float(lbd1), dtype=torch.float64, device=self.device),
-            qnorm, relax=relax)
+            qnorm, large_disp, relax=relax)
 
-    def stress_update(self, coords, sig_yield, disp, du, sig_old, et_e):
+    def stress_update(self, coords, sig_yield, disp, du, sig_old, et_e, large_disp=False):
         return update_stress_load(coords, self.elnodes, self.dmat, sig_yield,
-                                  disp, du, sig_old, self.e, self.nu, et_e)
+                                  disp, du, sig_old, self.e, self.nu, et_e, large_disp)
 
-    def internal_force(self, coords, sig_gp, disp):
-        return internal_force_from_stress(coords, self.elnodes, sig_gp, disp)
+    def internal_force(self, coords, sig_gp, disp, large_disp=False):
+        return internal_force_from_stress(coords, self.elnodes, sig_gp, disp, large_disp)
 
     def update_peeq_csr(self, sig_test, sig_new, sig_yield, peeq, csr, et_e,
                         ultimate_strain):

@@ -1,7 +1,8 @@
 """Incremental-iterative collapse driver: Riks arc-length + restarts.
 
 The port of :func:`fcvm_tpu.runtime.driver.solve_collapse` for the
-small-strain analysis (``gnl="GNLN"``), itself a rebuild of the reference's
+small-strain analysis (``gnl="GNLN"``) and the geometrically nonlinear one
+(``gnl="GNLY"``) without buckling, itself a rebuild of the reference's
 ``calcDisp`` (``source code/fcVM.py:1083-1635``).  The host keeps the
 control flow the reference keeps in Python: the elastic step, load
 stepping, divergence restarts with shrinking increments (4-restart cap,
@@ -12,10 +13,17 @@ Every tensor operation runs through :class:`TorchSystem`.
 
 Small strain keeps the elastic operator and preconditioner for the whole
 analysis (modified Newton, as the reference keeps its elastic factor,
-``fcVM.py:1400-1406``).  On top of the reference's loop sit the JAX
-package's default solver tiers: Ritz-deflation recycling of the correction
-solves (one harvesting solve, the space kept across load steps until it
-goes stale), and, in float32, precision governance (:class:`_FloorWatch`):
+``fcVM.py:1400-1406``).  GNL refreshes them on the first Newton iteration
+of each step attempt and on every iteration that starts with a plastic
+Gauss point (``fcVM.py:1351``): tangent blocks on the deformed geometry,
+follower loads, the nodal block Jacobi and a tangent predictor solve, whose
+solution becomes the new ``ue`` and, scaled to ``|du|``, the arc-length
+control vector (``fcVM.py:1351-1396``).  On top of the reference's loop
+sit the JAX package's default solver tiers: Ritz-deflation recycling of
+the correction solves (one harvesting solve, the space kept across load
+steps until it goes stale, re-Galerkined on each tangent) and of the
+tangent predictor (its own load-rhs space), and, in float32, precision
+governance (:class:`_FloorWatch`):
 a tolerance clamp near the arithmetic floor, float64 residual refinement,
 and a float64 rerun of the whole analysis
 (:class:`PrecisionFloorError`).  Reference quirks reproduced on purpose: the
@@ -190,12 +198,14 @@ def solve_collapse(
     *,
     config: Optional[FcvmConfig] = None,
 ) -> AnalysisResults:
-    """Run a small-strain collapse analysis (the Start-button pipeline).
+    """Run a collapse analysis (the Start-button pipeline).
 
     Args:
       model: mesh + material + BCs + loads
         (:class:`fcvm_tpu_torch.models.spec.Model`).
-      params: the 21 control parameters; ``gnl`` must be ``"GNLN"``.
+      params: the 21 control parameters.  ``gnl="GNLY"`` needs ``nstep > 1``
+        and ``max_imp == 0``: otherwise the reference runs the buckling
+        eigensolve, which is not ported (raises).
       continuation: optional callback ``(history, state_info) -> action``:
         ``None``/``"stop"``, ``"add"`` (run ``nstep`` more steps), ``"rev"``
         (reverse loading), ``("target", new_target_lf)``, ``("scale",
@@ -218,11 +228,11 @@ def solve_collapse(
     """
     cfg = config if config is not None else FcvmConfig()
     cfg.check_supported()
-    if params.large_disp:
+    if params.large_disp and not (params.nstep > 1 and params.max_imp == 0.0):
         raise NotImplementedError(
-            "gnl='GNLY': geometric nonlinearity (tangent refresh, follower "
-            "loads, buckling and imperfection seeding) is not ported yet "
-            "(ROADMAP Queue 1 items 7, 8 and 13)"
+            "gnl='GNLY' with nstep == 1 or max_imp != 0 runs the buckling "
+            "eigensolve and imperfection seeding, which are not ported yet "
+            "(ROADMAP Queue 1 item 13)"
         )
     if checkpoint_path is not None or resume_from is not None:
         raise NotImplementedError(
@@ -253,7 +263,11 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
     log = progress or (lambda s: None)
     timers = PhaseTimers(torch.cuda.synchronize if device.type == "cuda" else None)
 
-    relax = params.relax
+    # the reference's GNL settings (fcVM.py:1087-1094)
+    large_disp = params.large_disp
+    relax = 1.0 if large_disp else params.relax
+    disp_output = "total" if large_disp else params.disp_output
+    scale_up = 1.1 if large_disp else params.scale_up
     nstep = params.nstep
     mesh = model.mesh
     coords_np = mesh.coords.copy()
@@ -264,8 +278,10 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
     has_movdof = backend.has_movdof
 
     cg_stats = {"solves": 0, "iters": 0, "time": 0.0,
-                # the GNL tangent refresh's own time (none in small strain)
-                "tangent_time": 0.0,
+                # the GNL tangent refreshes: their time (formation, follower
+                # loads, block Jacobi, predictor solve), predictor solves
+                # and their CG iterations (none in small strain)
+                "tangent_time": 0.0, "predictor_solves": 0, "predictor_iters": 0,
                 "coarse_ridge_escalations": 0, "coarse_zero_fallbacks": 0,
                 # noise-aware stepping: steps accepted at a tolerance clamped
                 # to ~2x the measured float32 residual floor
@@ -275,10 +291,11 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
                 # per harvesting solve: its step, CG iterations and the Ritz
                 # vectors kept (0 = no deflation space built)
                 "harvests": [],
-                # per recorded step: Newton iterations, restarts and the CG
-                # iterations of each of its solves
+                # per recorded step: Newton iterations, restarts, the CG
+                # iterations of each of its correction solves and of each
+                # of its tangent predictor solves
                 "steps": []}
-    step_solves = []
+    step_solves, step_predictors = [], []
 
     def count_solve(iters: int, t0: float):
         cg_stats["solves"] += 1
@@ -327,6 +344,12 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
     # or past it re-arms.
     defl = None
     defl_state = {"armed": True}
+    # the GNL tangent predictor's own recycling: a load-rhs harvested basis
+    # (solve space, (ndof, k)), re-Galerkined on each tangent, with the same
+    # hysteresis (a residual-harvested space does nothing for a load rhs)
+    use_ldefl = cfg.deflation and cfg.load_deflation
+    lstate = {"w": None, "armed": True}
+    riks_fn = sysm.riks_update_crisfield if cfg.arc_length == "crisfield" else sysm.riks_update
 
     def solve_policy(iters: int):
         nonlocal defl
@@ -388,13 +411,13 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
     # on the driven boundary (fcVM.py:1169-1177).
     if has_movdof:
         *_, qelastic = backend.stress_update(coords, sig_yield, disp_new, ue,
-                                             zeros_gp6, et_e)
+                                             zeros_gp6, et_e, large_disp)
         qnorm = float(torch.linalg.vector_norm(movdof * qelastic))
 
     def results(disp_scale=1.0):
         ndof = mesh.ndof  # strip the dof-alignment padding
         disp_total = _host(disp_new)[:ndof]
-        disp = (disp_total if params.disp_output == "total"
+        disp = (disp_total if disp_output == "total"
                 else disp_total - _host(disp_old)[:ndof])
         return AnalysisResults(
             disp=disp, disp_total=disp_total, disp_el=disp_el[:ndof],
@@ -431,7 +454,7 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
     def do_residual(du_, lbd1):
         fn = backend.residual_refined if refined else backend.residual
         return fn(coords, sig_yield, disp_new, du_, sig_old, glv, lbd1, qnorm, et_e,
-                  relax=relax)
+                  large_disp, relax=relax)
 
     def activate_refinement(where: str):
         nonlocal refined, du, eff_error_max
@@ -468,11 +491,52 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
         else:
             history.load.append(lbd[step + 1])
         history.lbd.append(lbd[step + 1])
-        cg_stats["steps"].append(
-            {"newton": iterat, "restarts": restart, "cg": list(step_solves)})
+        cg_stats["steps"].append({"newton": iterat, "restarts": restart,
+                                  "cg": list(step_solves),
+                                  "predictor": list(step_predictors)})
         step_solves.clear()
+        step_predictors.clear()
         if monitor is not None:
             monitor(_host(disp_new).reshape(-1, 3)[: mesh.n_nodes], history)
+
+    def tangent_step():
+        """GNL tangent refresh (fcVM.py:1351-1396): a new operator and
+        preconditioner, the tangent predictor as the new ``ue`` (warm-started
+        from the last one; harvesting the load space when the policy asks,
+        deflated by it when one is held), the follower loads as the new
+        ``glv``, and the held correction space re-Galerkined on the new
+        operator.  Returns (khat, pc, defl, a), ``a`` the new control
+        vector."""
+        nonlocal ue, glv
+        t0 = time.perf_counter()
+        lharvest = use_ldefl and lstate["w"] is None and lstate["armed"]
+        khat_t, pc_t, glv, out, itp = backend.tangent_refresh(
+            coords, sig_old, pgp, disp_new, pc, et_e, ue0=ue,
+            w=lstate["w"] if use_ldefl else None, solve_predictor=not lharvest)
+        if lharvest:
+            res_p, h = backend.solve_harvest(khat_t, pc_t, out, x0=ue)
+            ue, itp = res_p.x, res_p.iters
+            if itp < cfg.deflation_min_iters:
+                lstate["armed"] = False
+            else:
+                alphas, betas, rzs = torch.stack([h.alphas, h.betas, h.rzs]).cpu().numpy()
+                coef = dfl.ritz_coefficients(alphas, betas, rzs, itp, dfl.RITZ_K)
+                if coef is not None:
+                    lstate["w"] = backend.deflation_basis(h.zs, coef)
+                    log(f"load-deflation space (predictor solve: {itp} iters)")
+        else:
+            ue = out
+            if lstate["w"] is not None and itp >= dfl.REFRESH_ITERS:
+                lstate["w"] = None
+                log(f"load-deflation space stale ({itp} iters), will re-harvest")
+            elif lstate["w"] is None and itp >= cfg.deflation_min_iters:
+                lstate["armed"] = True
+        cg_stats["predictor_solves"] += 1
+        cg_stats["predictor_iters"] += itp
+        step_predictors.append(itp)
+        cg_stats["tangent_time"] += time.perf_counter() - t0
+        defl_t = None if defl is None else backend.make_deflation(khat_t, defl.w)
+        return khat_t, pc_t, defl_t, sysm.scaled_control_vector(ue, du)
 
     with timers.phase("stepping"):
         while cnt:
@@ -487,8 +551,9 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
                 sig_old = sig_new
                 lbd.append(lbd[step] + dl)
                 step_solves.clear()
+                step_predictors.clear()
 
-                sig_new, sig_test, _, qin, r, error_dev = do_residual(du, lbd[step + 1])
+                sig_new, sig_test, pgp, qin, r, error_dev = do_residual(du, lbd[step + 1])
                 error = float(error_dev)
                 iterat = 0
                 log(f"Iteration: {iterat}, Error: {error:.2e}")
@@ -499,18 +564,20 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
                 while error > eff_error_max and not mrr:
                     iterat += 1
                     iterat_tot += 1
-                    # one modified-Newton iteration: correction solve (a
-                    # harvesting one when the policy asks), Riks update,
-                    # residual (fcVM.py:1304-1557)
+                    if large_disp and (iterat == 1 or bool(pgp.any())):
+                        khat, pc, defl, a = tangent_step()
+                    # one Newton iteration: correction solve (a harvesting
+                    # one when the policy asks), arc-length update, residual
+                    # (fcVM.py:1304-1557)
                     t0 = time.perf_counter()
                     if cfg.deflation and defl is None and defl_state["armed"]:
                         res = harvesting_solve(r)
                     else:
                         res = backend.solve(khat, pc, r, defl=defl)
                         solve_policy(res.iters)
-                    du, lbd1, _ = sysm.riks_update(a, ue, res.x, du, lbd[step], lbd[step + 1])
+                    du, lbd1, _ = riks_fn(a, ue, res.x, du, lbd[step], lbd[step + 1])
                     lbd[step + 1] = float(lbd1)
-                    sig_new, sig_test, _, qin, r, error_dev = do_residual(du, lbd[step + 1])
+                    sig_new, sig_test, pgp, qin, r, error_dev = do_residual(du, lbd[step + 1])
                     error = float(error_dev)
                     count_solve(res.iters, t0)
                     log(f"Iteration: {iterat}, Error: {error:.2e}")
@@ -572,7 +639,7 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
                         if refined:
                             du = du.to(torch.float64)
                         lbd[step + 1] = lbd[step] + dl
-                        sig_new, sig_test, _, qin, r, error_dev = do_residual(
+                        sig_new, sig_test, pgp, qin, r, error_dev = do_residual(
                             du, lbd[step + 1])
                         error = float(error_dev)
                         iterat = 0
@@ -596,7 +663,7 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
                     if has_movdof:
                         # consistent reaction for the interpolated state (the
                         # reference skips this record, fcVM.py:1486-1523)
-                        qin = backend.internal_force(coords, sig_new, disp_new)
+                        qin = backend.internal_force(coords, sig_new, disp_new, large_disp)
                     disp_new = disp_new + du
                     record_step(qin, iterat, restart)
                     break
@@ -608,8 +675,8 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
                     dl /= params.scale_dn
                     factor = 1.0 / params.scale_dn
                 if iterat < 5:
-                    dl *= params.scale_up
-                    factor = params.scale_up
+                    dl *= scale_up
+                    factor = scale_up
                 disp_new, du = sysm.commit_step(disp_new, du, factor)
                 record_step(qin, iterat, restart)
                 # decay the harvest-based staleness bar once per converged
@@ -656,6 +723,9 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
 
     cg_stats["newton_iterations"] = iterat_tot
     log(f"total number of CG solves: {cg_stats['solves']}, iterations: {cg_stats['iters']}")
+    if cg_stats["predictor_solves"]:
+        log(f"tangent predictor solves: {cg_stats['predictor_solves']}, "
+            f"iterations: {cg_stats['predictor_iters']}")
     log(f"total time evaluating K_inv * r: {cg_stats['time']:.3f}s")
     log(f"total number of Newton iterations: {iterat_tot}")
     history.load = history.load[: step + 2]

@@ -1,15 +1,18 @@
-"""Whole-system composites of the small-strain collapse analysis.
+"""Whole-system composites of the collapse analysis.
 
-The port of the :mod:`fcvm_tpu.runtime.system` functions on the slice's
+The port of the :mod:`fcvm_tpu.runtime.system` functions on the driver's
 call chain: elastic assembly, the Morton solve space, the preconditioner
 build, the PCG solve (plain, deflated or harvesting), the deflation-space
-build, the residual (and its float64 refinement over float32 state), the
-Riks update and the converged-step records.  JAX compiles each of these
-into one device program, and fuses a Newton iteration's solve, Riks update
-and residual into another; here they are plain functions on tensors, which
-the driver calls one after the other, and the operator's element blocks are
-permuted into the solve space and stored element-major once per operator
-(:func:`make_operator`), not on every solve.
+build and its re-Galerkin on a new operator, the residual (and its float64
+refinement over float32 state), the geometrically nonlinear tangent refresh
+(tangent blocks, follower loads, block-Jacobi rebuild, tangent predictor
+solve), the Riks and Crisfield arc-length updates and the converged-step
+records.  JAX compiles each of these into one device program, and fuses a
+Newton iteration's solve, Riks update and residual into another; here they
+are plain functions on tensors, which the driver calls one after the other,
+and the operator's element blocks are stored in the solve space's element
+order, element-major, once per operator (:func:`make_operator`), not on
+every solve.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 from fcvm_tpu_torch.ops import assembly as asm
 from fcvm_tpu_torch.ops import deflation as dfl
 from fcvm_tpu_torch.ops import solver as slv
-from fcvm_tpu_torch.ops.precond import apply_precond, build_two_level
+from fcvm_tpu_torch.ops.precond import apply_precond, build_two_level, refresh_blocks
 from fcvm_tpu_torch.ops.stress_update import update_stress_load
 from fcvm_tpu_torch.utils.ordering import morton_perm
 
@@ -57,14 +60,21 @@ class LoadTables(NamedTuple):
         )
 
 
-def external_loads(coords, ndof, elnodes, loads: LoadTables, density):
-    """Global load vector (length ``ndof``, padding included), Gauss-point
-    coordinates, volume and load sums, all on the original geometry
-    (elastic assembly, ``fcVM.py:647-767``).  The follower loads of the GNL
-    tangent come with the GNL port."""
+def external_loads(coords, disp, elnodes, loads: LoadTables, density, follower: bool):
+    """Global load vector (the length of ``disp``, padding included),
+    Gauss-point coordinates, volume and load sums.
+
+    ``follower=False``: everything on the original geometry (elastic
+    assembly, ``fcVM.py:647-767``).  ``follower=True``: pressure follows the
+    deformed surface and gravity integrates on the deformed coordinates
+    ``coords + disp``, while uniform face and edge loads stay on the
+    original geometry, as the reference's GNL tangent does
+    (``fcVM.py:858-938, 962-1009``)."""
+    ndof = disp.shape[0]
+    coords_def = coords + disp.reshape(-1, 3)[: coords.shape[0]] if follower else coords
     glv, gp_coords, volume = asm.gravity_load_and_gp_coords(
-        coords, elnodes, density, loads.gravity, ndof)
-    glv = glv + asm.pressure_face_loads(coords, loads.pressure_faces, loads.pressures, ndof)
+        coords_def, elnodes, density, loads.gravity, ndof)
+    glv = glv + asm.pressure_face_loads(coords_def, loads.pressure_faces, loads.pressures, ndof)
     glv = glv + asm.uniform_face_loads(coords, loads.traction_faces, loads.tractions, ndof)
     glv = glv + asm.edge_loads(coords, loads.edges, loads.edge_tractions, ndof)
     glv = glv + asm.vertex_loads(loads.vertices, loads.vertex_forces, ndof)
@@ -80,8 +90,9 @@ def assemble_elastic(coords, elnodes, dmat, loads: LoadTables, density, fixmask,
     esm = asm.elastic_stiffness_blocks(coords, elnodes, dmat)
     pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
     glv, gp_coords, volume, loadsums = external_loads(
-        coords, fixmask.shape[0], elnodes, loads, density)
-    rhs = asm.dirichlet_rhs(esm, asm.element_dof_ids(elnodes), fixmask, u_fix, glv)
+        coords, torch.zeros_like(u_fix), elnodes, loads, density, follower=False)
+    rhs = asm.dirichlet_rhs(esm.permute(1, 2, 0).contiguous(), asm.element_dof_ids(elnodes),
+                            fixmask, u_fix, glv)
     return esm, pinv, glv, rhs, gp_coords, volume, loadsums
 
 
@@ -153,11 +164,12 @@ class Operator(NamedTuple):
         return self.matvec(v)
 
 
-def make_operator(esm, space: SolveSpace) -> Operator:
-    """``K_hat @ v`` in the solve space over the user-order blocks ``esm``
-    (ne, 30, 30): the blocks are permuted to the Morton element order and
-    stored element-major (30, 30, ne) here, once."""
-    esm_t = esm[space.eperm].permute(1, 2, 0).contiguous()
+def make_operator(esm_m, space: SolveSpace) -> Operator:
+    """``K_hat @ v`` in the solve space over the blocks ``esm_m`` (ne, 30,
+    30) in the solve space's element order (``esm[space.eperm]`` of
+    user-order blocks): they are stored element-major (30, 30, ne) here,
+    once."""
+    esm_t = esm_m.permute(1, 2, 0).contiguous()
     return Operator(esm_t, asm.make_bc_matvec(esm_t, space.eldofs_m, space.fixmask_m))
 
 
@@ -197,28 +209,37 @@ def solve_displacement_harvest(khat, pc, b, rtol, maxiter: int, space: SolveSpac
     return res._replace(x=space.from_m(res.x)), h
 
 
+def regalerkin_deflation(khat: Operator, space: SolveSpace, w) -> dfl.DeflationSpace:
+    """The basis ``w`` (ndof, k) with ``(W^T K_hat W)^+`` on the operator
+    ``khat``: one block matvec and the PSD pseudo-inverse.  A tangent
+    refresh re-Galerkins a held basis on the new operator this way (a stale
+    Galerkin stays SPD but deflates the wrong scales)."""
+    return dfl.DeflationSpace(
+        w, dfl.pinv_psd(dfl.galerkin(khat.esm_t, space.eldofs_m, space.fixmask_m, w)))
+
+
 def build_deflation(khat: Operator, space: SolveSpace, zs, coef) -> dfl.DeflationSpace:
     """Deflation space from harvested residuals ``zs`` and Ritz
     coefficients ``coef``, on the operator ``khat``, in the solve space."""
-    return dfl.build_space(khat.esm_t, space.eldofs_m, space.fixmask_m, zs, coef)
+    return regalerkin_deflation(khat, space, dfl.build_w(zs, coef, space.fixmask_m))
 
 
 def residual(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu,
-             et_e, glv, fixmask, lbd1, qnorm, relax=1.0):
+             et_e, glv, fixmask, lbd1, qnorm, large_disp=False, relax=1.0):
     """Stress update + out-of-balance residual (``fcVM.py:1323-1342``).
 
     The returned ``r`` is pre-scaled by the relaxation factor (applied at
     the solve RHS, ``fcVM.py:1398-1400``); ``error`` (a 0-dim tensor) is
     computed from the raw residual as the reference does."""
     sig_new, sig_test, pgp, qin = update_stress_load(
-        coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu, et_e)
+        coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu, et_e, large_disp)
     r = fixmask * (lbd1 * glv - qin)
     error = torch.linalg.vector_norm(r) / qnorm
     return sig_new, sig_test, pgp, qin, relax * r, error
 
 
 def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
-                     nu, et_e, glv, fixmask, lbd1, qnorm, relax=1.0):
+                     nu, et_e, glv, fixmask, lbd1, qnorm, large_disp=False, relax=1.0):
     """:func:`residual` evaluated in float64 over float32-stored state.
 
     The mixed-precision refinement tier (``config.residual_refinement``):
@@ -235,11 +256,55 @@ def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
 
     sig_new, sig_test, pgp, qin = update_stress_load(
         c(coords), elnodes, c(dmat), c(sig_yield), c(disp_new), c(du), c(sig_old),
-        e, nu, et_e)
+        e, nu, et_e, large_disp)
     r = c(fixmask) * (c(lbd1) * c(glv) - qin)
     error = torch.linalg.vector_norm(r) / qnorm
     return (sig_new.to(out_dt), sig_test.to(out_dt), pgp, qin.to(out_dt),
             (relax * r).to(out_dt), error)
+
+
+def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTables,
+                    density, u_fix, g, h, rtol, maxiter: int, pc, space: SolveSpace,
+                    ue0=None, w=None, solve_predictor: bool = True):
+    """GNL tangent refresh: tangent blocks on the deformed geometry,
+    follower loads, block-Jacobi rebuild and the tangent predictor solve
+    (``calcTSM``, re-factorisation and ``ue = K_t^-1 f``,
+    ``fcVM.py:1351-1396``).
+
+    The blocks are formed directly in the solve space's element order (the
+    Gauss state ``sig_old``/``pgp`` comes in user order and is permuted
+    with them); the two-level coarse correction of ``pc`` is kept and only
+    the nodal blocks are rebuilt (:func:`refresh_blocks`).  A float64
+    ``disp_new`` (the refinement tier's) is cast to the storage dtype of
+    ``coords``: the tangent operator stays in it.
+
+    The predictor is warm-started from the previous predictor ``ue0`` (two
+    successive tangents differ by one Newton update).  ``w``, a load-rhs
+    harvested Ritz basis in the solve space, is re-Galerkined on the new
+    operator and deflates the predictor solve.  With
+    ``solve_predictor=False`` no solve runs and ``out`` is the predictor's
+    right-hand side in user dof order, for the caller's harvesting solve.
+
+    Returns ``(khat, pc_t, glv_t, out, iters)``: the tangent
+    :class:`Operator`, the refreshed preconditioner, the follower load
+    vector, the predictor (user dof order) and its CG count."""
+    disp_new = disp_new.to(coords.dtype)
+    coords_def = coords + disp_new.reshape(-1, 3)[: coords.shape[0]]
+    eperm = space.eperm
+    esm_m = asm.tangent_stiffness_blocks(coords_def, elnodes[eperm], dmat, sig_old[eperm],
+                                         pgp[eperm], g, h)
+    pc_t = refresh_blocks(pc, esm_m, space.elnodes_m, space.fixmask_m)
+    khat = make_operator(esm_m, space)
+    del esm_m
+    glv_t, *_ = external_loads(coords, disp_new, elnodes, loads, density, follower=True)
+    rhs = asm.dirichlet_rhs(khat.esm_t, space.eldofs_m, space.fixmask_m,
+                            space.to_m(u_fix), space.to_m(glv_t))
+    if not solve_predictor:
+        return khat, pc_t, glv_t, space.from_m(rhs), 0
+    defl = None if w is None else regalerkin_deflation(khat, space, w)
+    res = slv.pcg(khat, rhs, precond=dfl.deflated(lambda r: apply_precond(pc_t, r), defl),
+                  x0=None if ue0 is None else space.to_m(ue0), rtol=rtol, maxiter=maxiter)
+    return khat, pc_t, glv_t, space.from_m(res.x), res.iters
 
 
 def _nonzero(x):
@@ -273,6 +338,44 @@ def riks_update(a, ue, due, du, lbd0, lbd1):
                      torch.ones_like(uu))
     lbd1 = lbd0 + sf * (lbd1 - lbd0)
     return du * sf, lbd1, dl
+
+
+def riks_update_crisfield(a, ue, due, du, lbd0, lbd1):
+    """Spherical (Crisfield) arc-length update, beyond the reference.
+
+    Solves ``|du + due + dl ue|^2 = |a|^2`` for the load correction ``dl``
+    and keeps the root whose increment advances along the control vector
+    ``a`` (Crisfield 1981); where the sphere is out of reach, the stationary
+    point.  Unlike :func:`riks_update` it can follow a snapback fold.
+    ``lbd0`` is unused (the signature of :func:`riks_update`).  Every
+    product runs in the widest dtype of the vectors, as JAX promotes.
+    Returns (du, lbd1, dl)."""
+    dt = torch.promote_types(torch.promote_types(du.dtype, due.dtype),
+                             torch.promote_types(a.dtype, ue.dtype))
+    a, ue = a.to(dt), ue.to(dt)
+    p = du.to(dt) + due.to(dt)
+    a2 = torch.dot(ue, ue)
+    safe_a2 = _nonzero(a2)
+    b = 2.0 * torch.dot(p, ue)
+    c = torch.dot(p, p) - torch.dot(a, a)
+    disc = b * b - 4.0 * a2 * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    dl_hi = (-b + sq) / (2.0 * safe_a2)
+    dl_lo = (-b - sq) / (2.0 * safe_a2)
+    keep_hi = torch.dot(a, p + dl_hi * ue) >= torch.dot(a, p + dl_lo * ue)
+    dl = torch.where(keep_hi, dl_hi, dl_lo)
+    dl = torch.where(disc >= 0.0, dl, -b / (2.0 * safe_a2))
+    return p + dl * ue, torch.as_tensor(lbd1, dtype=dt, device=dl.device) + dl, dl
+
+
+def scaled_control_vector(ue, du):
+    """The GNL control vector after a tangent refresh,
+    ``a = ue |du| / |ue|`` (``fcVM.py:1392-1394``), in the wider dtype of
+    the two; ``|ue| = 0`` is guarded as in :func:`riks_update`."""
+    dt = torch.promote_types(ue.dtype, du.dtype)
+    scale = (torch.linalg.vector_norm(du).to(dt)
+             / _nonzero(torch.linalg.vector_norm(ue)).to(dt))
+    return ue.to(dt) * scale
 
 
 def record_step_stats(disp_new, csr, peeq, pressure, svm, triax, ecr):

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from fcvm_tpu_torch import FcvmConfig
+from fcvm_tpu_torch import ControlParams, FcvmConfig, solve_collapse
 from fcvm_tpu_torch.models import meshgen
 from fcvm_tpu_torch.models.spec import BoundaryConditions, Loads, Material, Model
 from fcvm_tpu_torch.ops import assembly as tasm
@@ -144,10 +144,9 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda):
         kernels.bw_read(torch.zeros((128, 256), device=cuda)[:, ::2], 4, 16)
 
 
-def _deflated_solve(device):
-    """A deflated float64 solve of a 3x3x3 tension box on ``device``: harvest,
-    Ritz space, then the deflated solve, all at cg_rtol 1e-12."""
-    mesh = meshgen.box_tet10(3, 3, 3, 10.0, 10.0, 10.0)
+def _tension_box(n):
+    """An n x n x n symmetry-constrained box pulled by 100 MPa on x = 10."""
+    mesh = meshgen.box_tet10(n, n, n, 10.0, 10.0, 10.0)
     bcs = BoundaryConditions.from_node_sets([
         (mesh.select_nodes(lambda x, y, z: x < 1e-9), (0.0, None, None)),
         (mesh.select_nodes(lambda x, y, z: y < 1e-9), (None, 0.0, None)),
@@ -155,9 +154,16 @@ def _deflated_solve(device):
     ])
     faces = mesh.faces_on(lambda x, y, z: x > 10.0 - 1e-9)
     loads = Loads(traction_faces=faces, tractions=np.tile([100.0, 0, 0], (len(faces), 1)))
+    return Model(mesh, Material(210000.0, 0.3), bcs, loads)
+
+
+def _deflated_solve(device):
+    """A deflated float64 solve of a 3x3x3 tension box on ``device``: harvest,
+    Ritz space, then the deflated solve, all at cg_rtol 1e-12."""
+    model = _tension_box(3)
+    mesh = model.mesh
     cfg = FcvmConfig(device=device, dtype="float64", cg_rtol=1e-12)
-    be = TorchSystem(Model(mesh, Material(210000.0, 0.3), bcs, loads), cfg, torch.float64,
-                     torch.device(device))
+    be = TorchSystem(model, cfg, torch.float64, torch.device(device))
     esm, pinv, _, rhs, *_ = be.assemble(be.tensor(mesh.coords))
     khat, pc = be.operator(esm), be.make_pc(esm, pinv)
     res, h = be.solve_harvest(khat, pc, rhs, nstore=64)
@@ -177,3 +183,22 @@ def test_deflated_solve_cuda_matches_cpu(cuda):
     x_ref = ref.x.numpy()
     np.testing.assert_allclose(res.x.cpu().numpy(), x_ref, rtol=0,
                                atol=1e-10 * np.abs(x_ref).max())
+
+
+def test_gnl_collapse_cuda_matches_cpu(cuda):
+    """The geometrically nonlinear plastic collapse of the 2x2x2 tension box
+    (tangent refreshes, predictor solves through K0) in float64 on the card
+    against the CPU: the same steps and load factors to 1e-9."""
+    params = ControlParams(sig_yield=60.0, nstep=3, error_max=1e-8, et_e=0.1, target_lf=99.0,
+                           gnl="GNLY", max_imp=0.0)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        launches = kernels.block_matvec.launches
+        res = solve_collapse(_tension_box(2), params,
+                             config=FcvmConfig(device=device, dtype="float64", cg_rtol=1e-10))
+        runs[device] = (np.asarray(res.history.lbd), res.cg_stats,
+                        kernels.block_matvec.launches - launches)
+    (lbd_cpu, _, k0_cpu), (lbd_gpu, stats, k0_gpu) = runs["cpu"], runs["cuda"]
+    assert len(lbd_gpu) == len(lbd_cpu) == 4
+    np.testing.assert_allclose(lbd_gpu, lbd_cpu, rtol=1e-9, atol=0)
+    assert stats["predictor_solves"] > 0 and k0_cpu == 0 and k0_gpu > 0

@@ -69,21 +69,22 @@ def test_solve_collapse_matches_jax(case, jax_cfg):  # noqa: F811
         assert ref.peeq_gp.max() > 0.0  # the case is plastic
 
 
-UNPORTED = [
-    (dict(solver="scipy"), {}),
-    (dict(smoother="cluster"), {}),
-    (dict(arc_length="crisfield"), {}),
-    (dict(n_devices=2), {}),
-    ({}, dict(gnl="GNLY")),
+UNPORTED = [  # config fields, control parameters, what the error names
+    (dict(solver="scipy"), {}, "ROADMAP"),
+    (dict(smoother="cluster"), {}, "ROADMAP"),
+    (dict(n_devices=2), {}, "ROADMAP"),
+    # GNL with an imperfection or one step runs the buckling eigensolve
+    ({}, dict(gnl="GNLY", max_imp=0.05), "ROADMAP Queue 1 item 13"),
+    ({}, dict(gnl="GNLY", nstep=1), "ROADMAP Queue 1 item 13"),
 ]
 
 
-@pytest.mark.parametrize("cfg_kw,param_kw", UNPORTED,
-                         ids=[next(iter({**c, **p})) for c, p in UNPORTED])
-def test_unported_options_raise(cfg_kw, param_kw):
+@pytest.mark.parametrize("cfg_kw,param_kw,match", UNPORTED,
+                         ids=["solver", "smoother", "n_devices", "gnl", "gnl_nstep1"])
+def test_unported_options_raise(cfg_kw, param_kw, match):
     model = ft.model_from_arrays(tension_model())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.solve_collapse(model, ft.ControlParams(nstep=2, **param_kw),
+    with pytest.raises(NotImplementedError, match=match):
+        ft.solve_collapse(model, ft.ControlParams(**{"nstep": 2, **param_kw}),
                           config=port_config(**cfg_kw))
 
 

@@ -171,7 +171,8 @@ def test_dirichlet_rhs_and_block_jacobi_match_jax(box):
     glv = jnp.asarray(np.random.default_rng(6).normal(size=box["nd"]))
     u_fix = box["u_fix"] + 1e-3 * (1.0 - box["fixmask"])  # nonzero prescribed values
     rhs = asm.dirichlet_rhs(box["esm"], eldofs, box["fixmask"], u_fix, glv)
-    trhs = tasm.dirichlet_rhs(t64(box["esm"]), ti(eldofs), t64(box["fixmask"]),
+    trhs = tasm.dirichlet_rhs(t64(box["esm"]).permute(1, 2, 0).contiguous(), ti(eldofs),
+                              t64(box["fixmask"]),
                               t64(u_fix), t64(glv))
     close(trhs, rhs, atol=RTOL * float(jnp.abs(rhs).max()))
     pinv = asm.block_jacobi_inverse_blocks(box["esm"], box["eln"], box["fixmask"])
@@ -208,10 +209,31 @@ def test_stress_update_plastic_matches_jax(box):
           qin2, atol=RTOL * float(jnp.abs(qin2).max()))
 
 
-def test_gnl_stress_update_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsu.update_stress_load(None, None, None, None, None, None, None, E, NU, 0.0,
-                               large_disp=True)
+def test_gnl_stress_update_raises(box):
+    """The geometrically nonlinear stress update (``large_disp=True``: B on
+    ``coords + disp``, the old stress convected as ``F sigma F^T / det F``)
+    with a non-zero total displacement and increment, some points plastic
+    and some not: the same flags, stresses and internal force as the JAX
+    package; and not those of small strain."""
+    rng = np.random.default_rng(17)
+    ne = box["eln"].shape[0]
+    disp = np.asarray(box["fixmask"]) * rng.normal(scale=0.05, size=box["nd"])
+    du = rng.normal(scale=2e-3, size=box["nd"])
+    sig_old = rng.normal(scale=40.0, size=(ne, 4, 6))
+    sy = rng.uniform(100.0, 400.0, size=(ne, 4))
+    dmat = mat.hooke_dmat(jnp.float64(E), jnp.float64(NU))
+    args = (jnp.asarray(sy), jnp.asarray(disp), jnp.asarray(du), jnp.asarray(sig_old), E, NU, 0.1)
+    targs = (t64(sy), t64(disp), t64(du), t64(sig_old), E, NU, 0.1)
+    sig_new, sig_test, pgp, qin = update_stress_load(box["coords"], box["eln"], dmat, *args, True)
+    out = tsu.update_stress_load(t64(box["coords"]), ti(box["eln"]), t64(dmat), *targs,
+                                 large_disp=True)
+    assert np.asarray(pgp).any() and not np.asarray(pgp).all()
+    assert np.array_equal(out[2].numpy(), np.asarray(pgp))
+    close(out[0], sig_new, atol=RTOL * float(jnp.abs(sig_new).max()))
+    close(out[1], sig_test, atol=RTOL * float(jnp.abs(sig_test).max()))
+    close(out[3], qin, atol=RTOL * float(jnp.abs(qin).max()))
+    small = tsu.update_stress_load(t64(box["coords"]), ti(box["eln"]), t64(dmat), *targs)
+    assert float((small[1] - out[1]).abs().max()) > 1e-3 * float(out[1].abs().max())
 
 
 # -- two-level preconditioner ------------------------------------------------
