@@ -11,7 +11,11 @@ Phases, each printing its numbers before the next starts:
    torch and CUDA versions; float32 products must be full float32 (no TF32);
 2. build: compile the port's CUDA kernels from ``fcvm_tpu_torch/csrc``;
 3. kernel vs plain: K0 (``block_matvec``) against its plain PyTorch version
-   at the headline plate's element count, float32 and float64;
+   at the headline plate's element count, float32 and float64; K0m
+   (``block_matmat``) against its plain version and ``torch.bmm`` at every
+   shape the paths give it (``K0M_SHAPES``: the beam-column's element count
+   with m = 1 to 8, 32 and 64, the plate's with m = 32), float32 and
+   float64, timed beside m launches of K0;
 3b. bandwidth probe: K0p (``soa_matvec``) and Kbw (``bw_read``, each k)
    against their plain versions on seeded data, then the probe
    (``fcvm_tpu_torch.tools.bw_probe``) at its full sizes, whose launches of
@@ -20,7 +24,8 @@ Phases, each printing its numbers before the next starts:
    only the chunk heads, so its time is what shows it read every byte);
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
-   the load-factor histories must agree;
+   the load-factor histories must agree; and ``linear_buckling`` of a small
+   clamped-free column on both, whose factors must agree;
 5. the slice at full size: the quarter plate with a hole at 502,599 dof,
    float32, two-level PCG without deflation or the precision tiers, plastic
    Riks steps through ``fcvm_tpu_torch.solve_collapse``; the launch count
@@ -41,7 +46,18 @@ Phases, each printing its numbers before the next starts:
 8b. one tangent refresh in pieces, on the plastic end state of phase 8:
    CUDA-event times of the tangent formation, the follower loads, the
    operator build, the block-Jacobi rebuild, the predictor solve cold and
-   warm-started, and the GNL residual against the small-strain one.
+   warm-started, and the GNL residual against the small-strain one;
+9. the imperfect beam-column of ``examples/imperfect_column_collapse.toml``
+   refined to 451,875 dof, float32, default configuration: the linear
+   buckling eigensolve (its tier, sweeps, pencil residuals and inner CG
+   iterations), imperfection seeding and a few GNL steps; both factors
+   within 3% of the clamped-free Euler value, the imperfection applied
+   exactly, every step converged below the squash factor, and K0 and K0m
+   launched on the path;
+9b. the eigensolve in pieces on the same mesh: CUDA-event times of the
+   geometric-block formation, one K_hat·V and one -G_hat·V at m = 8, the
+   block preconditioner apply against 8 vector applies, and one pcg_block
+   iteration against one pcg iteration (wall, host sync included).
 
 Each phase prints its wall time.
 
@@ -53,8 +69,10 @@ with its launches, error and times.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -71,6 +89,27 @@ TOL_K0P, TOL_KBW = 1e-5, 1e-5
 LBD_RTOL = 1e-9  # GPU vs CPU float64 load-factor histories
 # the default solver tiers off: Ritz deflation and the float32 precision tiers
 TIERS_OFF = dict(deflation=False, residual_refinement=False, precision_failover=False)
+# the beam-column of examples/imperfect_column_collapse.toml: 20 x 2 x 2, end
+# traction 200, sigma_y 240 (squash factor 1.2), Et/E 0.1, max_imp 0.05,
+# modes blended 1.0 / 0.3; its 10 x 3 x 3 mesh refined to 120 x 12 x 12
+COL_BIG = (120, 12, 12)  # -> 150,625 nodes, 451,875 dof
+NE_COL = 103_680  # tet10 elements of COL_BIG
+COL_L, COL_W, COL_T, COL_SY = 20.0, 2.0, 200.0, 240.0
+# clamped-free Euler factor pi^2 E I / (4 L^2) / P, I = w^4 / 12, P = t w^2
+EULER_COL = math.pi**2 * E * COL_W**4 / 12 / (4 * COL_L**2) / (COL_T * COL_W**2)
+COL_NSTEP = 5  # the example's 60 steps cut to 5 (increments of 0.2 in lbd)
+EIG_RTOL = 1e-10  # GPU vs CPU float64 buckling factors
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, and the float32 /
+# float64 rates outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def bound(nbytes, flops, dtype):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` and do ``flops`` of ``dtype`` arithmetic."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check(ok: bool, what: str):
@@ -317,7 +356,9 @@ def probe_phase():
     print(f"K0p vs plain, standard normal (30, 30, {bw_probe.NE}): max |diff| / max |plain| "
           f"{rel:.3e} (limit {TOL_K0P:g})")
     check(rel <= TOL_K0P, "K0p disagrees with its plain version")
-    del esm_t, ue_t, out, ref
+    esm = esm_t.permute(2, 0, 1).contiguous()  # (ne, 30, 30), bmm's layout
+    k0p_bmm_ms = cuda_ms(torch.bmm, esm, ue_t.T.contiguous()[:, :, None])
+    del esm_t, esm, ue_t, out, ref
     x = torch.rand((bw_probe.ROWS, 128), generator=gen, device="cuda")
     kbw_err = {}
     for k in bw_probe.KS:
@@ -344,7 +385,12 @@ def probe_phase():
         "replaces": "tools/bw_probe.py:106", "launches": launches["soa_matvec"],
         "max_abs_err": k0p_err, "ms": k0p["ms"],
         "plain_ms": res["plain einsum (soa_matvec_ref)"]["ms"],
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(960 * bw_probe.NE * 4, 1800 * bw_probe.NE, torch.float32))),
+        "library_ms": k0p_bmm_ms,
     }]
+    full_read_ms = res["plain full read x.sum()"]["ms"]
+    kbw_bound = bound(bw_probe.ROWS * 128 * 4, bw_probe.ROWS * 128, torch.float32)
     for k in bw_probe.KS:
         kbw = res[f"Kbw bw_read k={k}"]
         check(kbw["launches"] > 0, f"Kbw (k={k}) was not launched by the probe")
@@ -353,8 +399,8 @@ def probe_phase():
             "source": "fcvm_tpu_torch/csrc/bw_probe.cu", "replaces": "tools/bw_probe.py:137",
             "launches": kbw["launches"], "max_abs_err": kbw_err[k], "ms": kbw["ms"],
             "plain_ms": res["plain bw_read_ref"]["ms"],
-            "full_read_ms": res["plain full read x.sum()"]["ms"],
-            "full_read_share": kbw["ms"] / res["plain full read x.sum()"]["ms"],
+            "bound_ms": kbw_bound[0], "bound_by": kbw_bound[1],
+            "library_ms": full_read_ms, "full_read_share": kbw["ms"] / full_read_ms,
         })
     torch.cuda.empty_cache()
     return rows
@@ -380,11 +426,13 @@ def run_plate(big, cfg, label, gnl=False):
 
     torch.cuda.reset_peak_memory_stats()
     kernels.block_matvec.launches = 0
+    kernels.block_matmat.launches = 0
     stamps[0] = time.perf_counter()
     res = solve_collapse(big, plate_params(4, gnl), continuation=continuation,
                          progress=lines.append, monitor=monitor, config=cfg)
     torch.cuda.synchronize()
     launches = kernels.block_matvec.launches
+    launches_k0m = kernels.block_matmat.launches
     wall = time.perf_counter() - stamps[0]
     t = res.timers
     cs = cfg.resolve_cluster_size(big.mesh.n_nodes)
@@ -405,7 +453,8 @@ def run_plate(big, cfg, label, gnl=False):
           f"solves, {res.cg_stats['iters']} CG iterations ({step_iters} in {step_solves} "
           f"stepping solves), {1e3 * res.cg_stats['time'] / max(res.cg_stats['iters'], 1):.3f} "
           f"ms per CG iteration incl. stress updates, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K0 launches {launches}")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K0 launches {launches}, "
+          f"K0m launches {launches_k0m}")
     lbd = np.asarray(h.lbd)
     check(not any("MAXIMUM RESTARTS" in ln for ln in lines), f"{label}: a load step did not converge")
     check(len(res.cg_stats["steps"]) == len(lbd) - 1 >= 4, f"{label}: fewer than 4 recorded steps")
@@ -419,14 +468,240 @@ def run_plate(big, cfg, label, gnl=False):
     check(launches > 0, f"{label}: K0 was not launched on the main path")
     return dict(lines=lines, cg_stats=res.cg_stats, res=res,
                 stepping=t["stepping"], step_iters=step_iters, step_solves=step_solves,
-                launches=launches, lbd=lbd)
+                launches=launches, launches_k0m=launches_k0m, lbd=lbd)
+
+
+def column_model(size, width, traction, length=COL_L):
+    """A clamped-free column along x, ``width`` x ``width`` section, under
+    an end traction (per unit area) along -x."""
+    from fcvm_tpu_torch.models import meshgen
+    from fcvm_tpu_torch.models.spec import BoundaryConditions, Loads, Material, Model
+
+    nx, ny, nz = size
+    mesh = meshgen.box_tet10(nx, ny, nz, length, width, width)
+    bcs = BoundaryConditions.from_node_sets(
+        [(mesh.select_nodes(lambda x, y, z: x < 1e-9), (0.0, 0.0, 0.0))])
+    end = mesh.faces_on(lambda x, y, z: x > length - 1e-9)
+    loads = Loads(traction_faces=end, tractions=np.tile([-traction, 0.0, 0.0], (len(end), 1)))
+    return Model(mesh, Material(E, NU), bcs, loads, name="column")
+
+
+def column_params(nstep):
+    """The control block of ``examples/imperfect_column_collapse.toml``."""
+    from fcvm_tpu_torch import ControlParams
+
+    return ControlParams(gnl="GNLY", sig_yield=COL_SY, nstep=nstep, error_max=1e-5,
+                         et_e=0.1, target_lf=99.0, max_imp=0.05, ev1=1.0, ev2=0.3)
+
+
+K0M_SHAPES = (  # (ne, m) at which the paths launch K0m
+    # the beam-column's eigensolve: its block of 8 and every width of a
+    # sweep's tail (pcg_block runs only the columns still iterating; the
+    # recycled inverse's first solve has 7); the eigensolve's deflation k = 64
+    *((NE_COL, m) for m in (1, 2, 3, 4, 5, 6, 7, 8, 32, 64)),
+    (NE_BIG, 32),  # the plate's deflation builds, k = 32
+)
+
+
+def k0m_phase():
+    """K0m against its plain version and ``torch.bmm`` at every ``K0M_SHAPES``
+    entry, float32 and float64; CUDA-event medians of the kernel, the plain
+    version, ``bmm`` and m launches of K0.  Returns ``{(dtype, ne, m):
+    numbers}``."""
+    from fcvm_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    groups = [(dtype, tol, ne) for dtype, tol in ((torch.float32, TOL_F32),
+                                                  (torch.float64, TOL_F64))
+              for ne in sorted({ne for ne, _ in K0M_SHAPES})]
+    for dtype, tol, ne in groups:
+        esm_t = torch.randn((30, 30, ne), generator=gen, device="cuda", dtype=dtype)
+        esm = esm_t.permute(2, 0, 1).contiguous()  # (ne, 30, 30), bmm's layout
+        for m in [m for n, m in K0M_SHAPES if n == ne]:
+            ue = torch.randn((ne, 30, m), generator=gen, device="cuda", dtype=dtype)
+            out = kernels.block_matmat(esm_t, ue)
+            torch.cuda.synchronize()
+            ref = kernels.block_matmat_ref(esm_t, ue)
+            scale = float(ref.abs().max())
+            abs_err = float((out - ref).abs().max())
+            rel, rel_bmm = abs_err / scale, float((out - torch.bmm(esm, ue)).abs().max()) / scale
+            del out, ref
+            cols = [ue[:, :, c].T.contiguous() for c in range(m)]
+            ms = cuda_ms(kernels.block_matmat, esm_t, ue)
+            plain_ms = cuda_ms(kernels.block_matmat_ref, esm_t, ue)
+            bmm_ms = cuda_ms(torch.bmm, esm, ue)
+            k0_ms = cuda_ms(lambda: [kernels.block_matvec(esm_t, u) for u in cols])
+            bound_ms, bound_by = bound((900 + 60 * m) * ne * esm_t.element_size(),
+                                       2 * 900 * m * ne, dtype)
+            print(f"K0m {dtype} ne={ne} m={m}: max rel err {rel:.3e} vs plain, {rel_bmm:.3e} "
+                  f"vs bmm (limit {tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bmm "
+                  f"{bmm_ms:.4f} ms, {m} x K0 {k0_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {bound_ms / ms:.1%} of it; median of 20")
+            check(rel <= tol and rel_bmm <= tol, f"K0m disagrees with its plain version "
+                  f"({dtype}, ne={ne}, m={m})")
+            rows[(dtype, ne, m)] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                        library_ms=bmm_ms, k0_ms=k0_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by)
+            del ue, cols
+        del esm_t, esm
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_column(cfg):
+    """Drive ``solve_collapse`` on the imperfect beam-column at 451,875 dof
+    (buckling, seeding, COL_NSTEP GNL steps) with the launch counts set to
+    0 just before it; print the eigensolve and the steps, apply the checks
+    and return the launch counts."""
+    from fcvm_tpu_torch import solve_collapse
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.ops.solver import ScipyDirectSolver
+
+    t0 = time.perf_counter()
+    col = column_model(COL_BIG, COL_W, COL_T)
+    print(f"{col.mesh.n_nodes} nodes, {col.mesh.n_elements} elements, {col.mesh.ndof} dof "
+          f"(mesh built in {time.perf_counter() - t0:.1f} s); Euler factor {EULER_COL:.4f}, "
+          f"squash factor {COL_SY / COL_T:.2f}")
+    check(col.mesh.ndof == 451_875 and col.mesh.n_elements == NE_COL, "unexpected column mesh")
+    lines, stamps = [], [0.0]
+
+    def monitor(disp_nodes, history):
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    direct0 = (ScipyDirectSolver.factorizations, ScipyDirectSolver.solves)
+    kernels.block_matvec.launches = 0
+    kernels.block_matmat.launches = 0
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        stamps[0] = time.perf_counter()
+        res = solve_collapse(col, column_params(COL_NSTEP), progress=lines.append,
+                             monitor=monitor, config=cfg)
+        torch.cuda.synchronize()
+    launches = {"block_matvec": kernels.block_matvec.launches,
+                "block_matmat": kernels.block_matmat.launches}
+    wall = time.perf_counter() - stamps[0]
+    direct = (ScipyDirectSolver.factorizations - direct0[0], ScipyDirectSolver.solves - direct0[1])
+    for w in warned:
+        print(f"warning: {str(w.message)[:200]}")
+    t, cs = res.timers, res.cg_stats
+    tiers = cs["buckling"]
+    for r in tiers:
+        per_sweep = [sum(it) for it in r["inner_iters"]]
+        print(f"eigensolve tier {r['dtype']} / {r['solver']}: {r['sweeps']} sweeps, harvest "
+              f"{r['harvest']}, pencil residuals {r['pencil_residuals']}, "
+              f"{'broke down: ' + r['error'][:160] if r['error'] else 'served'}")
+        print(f"  inner CG iterations per sweep (all columns): {per_sweep}; per column, "
+              f"first and last sweep: {r['inner_iters'][:1]} ... {r['inner_iters'][-1:]}")
+    served = [r for r in tiers if r["error"] is None]
+    lam = np.asarray(res.eigenvalues)
+    print(f"buckling factors {lam.tolist()} ({(lam / EULER_COL - 1).tolist()} off Euler), "
+          f"served by tier {[(r['dtype'], r['solver']) for r in served]}; eigensolve "
+          f"{t['buckling']:.2f} s wall")
+    h = res.history
+    dc = float(np.abs(res.coords - res.coords_old).max())
+    print(f"imperfection: max |coords - coords_old| = {dc:.9f} (max_imp 0.05)")
+    for k, s in enumerate(cs["steps"]):
+        print(f"step {k}: lbd {h.lbd[k + 1]:.6f}, Newton {s['newton']}, restarts "
+              f"{s['restarts']}, CG per solve {s['cg']}, predictor CG {s['predictor']}, "
+              f"{stamps[k + 1] - stamps[k]:.2f} s, peeq max {h.peeqmax[k + 1]:.3e}")
+    print(f"total {wall:.2f} s: assemble {t['assemble']:.2f} s, precond build "
+          f"{t['precond_build']:.2f} s, elastic solves {t['elastic_solve']:.2f} s, buckling "
+          f"{t['buckling']:.2f} s, stepping {t['stepping']:.2f} s; Newton iterations per step "
+          f"{[s['newton'] for s in cs['steps']]}; launches {launches}; ScipyDirectSolver "
+          f"factorisations {direct[0]}, column solves {direct[1]}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    lbd = np.asarray(h.lbd)
+    check(len(served) == 1 and lam.shape == (2,) and bool(np.all(np.isfinite(lam))),
+          "phase 9: the eigensolve served no tier")
+    check(bool(np.all(np.abs(lam / EULER_COL - 1) <= 0.03)),
+          f"phase 9: factors {lam} not within 3% of {EULER_COL:.4f}")
+    check(abs(dc / 0.05 - 1) <= 1e-6, f"phase 9: imperfection {dc} is not max_imp 0.05")
+    check(not any("MAXIMUM RESTARTS" in ln for ln in lines), "phase 9: a step did not converge")
+    check(len(cs["steps"]) == len(lbd) - 1 == COL_NSTEP, "phase 9: not every step recorded")
+    check(bool(np.all(np.isfinite(lbd))) and lbd.max() < COL_SY / COL_T,
+          f"phase 9: load factors {lbd} not finite or not below the squash factor")
+    check(bool(np.isfinite(res.sig_gp).all()), "phase 9: stresses are not finite")
+    check(launches["block_matvec"] > 0 and launches["block_matmat"] > 0,
+          "phase 9: K0 or K0m was not launched on the path")
+    return launches
+
+
+def column_breakdown(cfg):
+    """Print the CUDA-event time of each piece of the eigensolve on the
+    beam-column at 451,875 dof: geometric-block formation, K_hat·V and
+    -G_hat·V at m = 8, the block preconditioner apply against 8 vector
+    applies, and one pcg_block iteration against one pcg iteration (wall
+    time per iteration over 20 iterations, host syncs included)."""
+    from fcvm_tpu_torch.ops import assembly as asm
+    from fcvm_tpu_torch.ops import solver as slv
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    col = column_model(COL_BIG, COL_W, COL_T)
+    backend = TorchSystem(col, cfg, cfg.resolve_dtype(), cfg.resolve_device())
+    coords = backend.tensor(col.mesh.coords)
+    esm, pinv, _, rhs, *_ = backend.assemble(coords)
+    khat = backend.operator(esm)
+    pc = backend.make_pc(esm, pinv)
+    del esm, pinv
+    ue = backend.solve(khat, pc, rhs, x0=backend.u_fix).x
+    sig, *_ = backend.stress_update(coords, backend.gauss_full(1.0e30), torch.zeros_like(ue),
+                                    ue, backend.gauss_zeros((6,)), 0.0)
+    sp = backend.space
+
+    def form():
+        return asm.geometric_stiffness_blocks(coords, backend.elnodes, sig)
+
+    nsm_t = form()[sp.eperm].permute(1, 2, 0).contiguous()
+    kmv = asm.make_multi_matvec(khat.esm_t, sp.eldofs_m, sp.fixmask_m)
+    minus_g = asm.make_multi_matvec(nsm_t, sp.eldofs_m, sp.fixmask_m, identity_on_fixed=False,
+                                    negate=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    v = sp.fixmask_m[:, None] * torch.randn((backend.ndof_pad, 8), generator=gen,
+                                            device="cuda", dtype=ue.dtype)
+    cols = [v[:, c].contiguous() for c in range(8)]
+    rows = [
+        ("geometric-block formation (ne, 30, 30) [median of 5]", cuda_ms(form, runs=5)),
+        ("K_hat.V, m = 8", cuda_ms(kmv, v)),
+        ("-G_hat.V, m = 8", cuda_ms(minus_g, v)),
+        ("K_hat.v, one column", cuda_ms(khat, cols[0])),
+        ("preconditioner apply, block m = 8", cuda_ms(pc.apply, v)),
+        ("preconditioner apply, 8 vectors", cuda_ms(lambda: [pc.apply(c) for c in cols])),
+    ]
+    b = minus_g(v)
+
+    def per_iteration(solve):
+        walls = []
+        for iters in (1, 21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve(iters)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return 1e3 * (walls[1] - walls[0]) / 20
+
+    def block(iters):
+        return slv.pcg_block(kmv, b, precond=pc.apply, rtol=1e-10, maxiter=iters)
+
+    def single(iters):
+        return slv.pcg(khat, b[:, 0].contiguous(), precond=pc.apply, rtol=1e-10, maxiter=iters)
+
+    block(1), single(1)
+    rows += [("pcg_block iteration, m = 8 (wall)", per_iteration(block)),
+             ("pcg iteration, one column (wall)", per_iteration(single))]
+    print("CUDA-event times, median of 20 runs unless marked:")
+    for name, ms in rows:
+        print(f"{name}: {ms:.4f} ms")
+    del khat, pc, nsm_t
+    torch.cuda.empty_cache()
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: torch.cuda.is_available() is false; this "
                          "script runs the port on an NVIDIA GPU")
-    from fcvm_tpu_torch import FcvmConfig, solve_collapse
+    from fcvm_tpu_torch import ControlParams, FcvmConfig, linear_buckling, solve_collapse
     from fcvm_tpu_torch.config import pin_full_fp32
     from fcvm_tpu_torch.ops import kernels
 
@@ -468,9 +743,16 @@ def main():
               f"{ms:.4f} ms ({gbs:.0f} GB/s esm read), plain {plain_ms:.4f} ms, "
               f"median of 20")
         check(rel_err <= tol, f"K0 disagrees with its plain version in {dtype}")
-        k0[dtype] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
-        del esm_t, ue_t, out, ref
+        esm = esm_t.permute(2, 0, 1).contiguous()  # (ne, 30, 30), bmm's layout
+        bmm_ms = cuda_ms(torch.bmm, esm, ue_t.T.contiguous()[:, :, None])
+        bound_ms, bound_by = bound(960 * NE_BIG * esm_t.element_size(), 1800 * NE_BIG, dtype)
+        print(f"  bmm {bmm_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of it")
+        k0[dtype] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=bmm_ms)
+        del esm_t, esm, ue_t, out, ref
     torch.cuda.empty_cache()
+    k0m = k0m_phase()
 
     phase(f"3b bandwidth probe: K0p and Kbw vs plain, then the probe ({smi})")
     probe_rows = probe_phase()
@@ -494,6 +776,18 @@ def main():
                             / np.maximum(np.abs(lbds["cpu"]), 1e-300)))
         print(f"max rel lbd difference {diff:.3e} (limit {LBD_RTOL:g})")
         check(diff <= LBD_RTOL, "GPU and CPU load-factor histories disagree")
+    # the clamped-free 8 x 1 x 1 column of tests/test_buckling_gnl.py:29
+    col = column_model((8, 1, 1), 1.0, 1000.0)
+    lams = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        lams[dev], _ = linear_buckling(col, ControlParams(gnl="GNLY", nstep=1), config=FcvmConfig(
+            device=dev, dtype="float64", cg_rtol=1e-12))
+        print(f"linear_buckling, small column, {dev}: {time.perf_counter() - t0:.2f} s, "
+              f"factors {lams[dev].tolist()}")
+    diff = float(np.max(np.abs(lams["cuda"] / lams["cpu"] - 1)))
+    print(f"max rel factor difference {diff:.3e} (limit {EIG_RTOL:g})")
+    check(diff <= EIG_RTOL, "GPU and CPU buckling factors disagree")
 
     phase("5 plate with hole at full size, float32, deflation and precision tiers off")
     t0 = time.perf_counter()
@@ -532,6 +826,7 @@ def main():
 
     phase("8 plate with hole at full size, GNL, float32, default configuration")
     gnl = run_plate(big, cfg7, "phase 8", gnl=True)
+    gnl_launches = gnl["launches"], gnl["launches_k0m"]
     cs = gnl["cg_stats"]
     check(cs["predictor_solves"] > 0, "phase 8: no tangent predictor solve")
     newton = [s["newton"] for s in cs["steps"]]
@@ -548,6 +843,13 @@ def main():
 
     phase(f"8b one tangent refresh in pieces, plate at full size, float32 ({smi})")
     refresh_breakdown(big, cfg7, gnl["res"])
+    del big, gnl
+
+    phase("9 imperfect beam-column at 451,875 dof, GNL, float32, default configuration")
+    col_launches = run_column(cfg7)
+
+    phase(f"9b the eigensolve in pieces, beam-column at 451,875 dof, float32 ({smi})")
+    column_breakdown(cfg7)
     phase()
     print(f"all phases: {time.perf_counter() - t_start:.1f} s wall")
 
@@ -556,8 +858,19 @@ def main():
         "source": "fcvm_tpu_torch/csrc/block_matvec.cu",
         "replaces": "fcvm_tpu/ops/pallas_kernels.py:60",
         "launches": off["launches"], "launches_default": on["launches"],
-        "launches_gnl": gnl["launches"], **k0[torch.float32],
-    }, *probe_rows]}))
+        "launches_gnl": gnl_launches[0], "launches_column": col_launches["block_matvec"],
+        **k0[torch.float32],
+    }, *probe_rows, {
+        "name": "block_matmat", "route": "cuda",
+        "source": "fcvm_tpu_torch/csrc/block_matmat.cu",
+        "replaces": "fcvm_tpu/ops/pallas_kernels.py:60 under vmap; "
+                    "fcvm_tpu/runtime/buckling.py:318",
+        "launches": col_launches["block_matmat"], "launches_plate": off["launches_k0m"],
+        "launches_default": on["launches_k0m"], "launches_gnl": gnl_launches[1],
+        "ne": NE_COL, "m": 8, **k0m[(torch.float32, NE_COL, 8)],
+        "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, "m": m, **row}
+                   for (dtype, ne, m), row in k0m.items()],
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -2,11 +2,13 @@
 
 The JAX package stays the reference; this package mirrors its module layout
 and names, imports neither it nor JAX, and is checked against it by the
-``tests/test_torch_*.py`` parity tests.  This slice runs the small-strain
-plastic Riks collapse analysis (``gnl="GNLN"``) through
-:func:`solve_collapse`, with the two-level-preconditioned CG solver whose
-K_hat·v block stage is the hand-written CUDA kernel K0
-(:mod:`fcvm_tpu_torch.ops.kernels`, source ``csrc/block_matvec.cu``).
+``tests/test_torch_*.py`` parity tests.  It runs the plastic Riks collapse
+analysis, small strain (``gnl="GNLN"``) and geometrically nonlinear
+(``gnl="GNLY"``, with the linear-buckling pre-analysis and imperfection
+seeding), through :func:`solve_collapse`, and linear buckling alone through
+:func:`linear_buckling`, with the two-level-preconditioned CG solver (or the
+scipy direct tier) whose block stages are the hand-written CUDA kernels K0
+and K0m (:mod:`fcvm_tpu_torch.ops.kernels`, sources under ``csrc/``).
 
 Options that are not ported yet raise :class:`NotImplementedError` naming
 the ROADMAP item that ports them.
@@ -22,6 +24,7 @@ from fcvm_tpu_torch.models.spec import (
     Model,
     model_from_arrays,
 )
+from fcvm_tpu_torch.runtime.buckling import EigensolveBreakdownError, linear_buckling
 from fcvm_tpu_torch.runtime.driver import AnalysisResults, solve_collapse
 
 __all__ = [
@@ -35,4 +38,6 @@ __all__ = [
     "model_from_arrays",
     "solve_collapse",
     "AnalysisResults",
+    "linear_buckling",
+    "EigensolveBreakdownError",
 ]

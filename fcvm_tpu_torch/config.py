@@ -26,7 +26,9 @@ class FcvmConfig:
     Attributes:
       device: where every tensor of the analysis lives.  ``"cuda"`` raises
         when no CUDA device is available; nothing falls back to the CPU.
-      solver: ``"cg"`` = matrix-free preconditioned conjugate gradients.
+      solver: ``"cg"`` = matrix-free preconditioned conjugate gradients;
+        ``"scipy"`` = the host direct tier, a scipy sparse LU of the
+        assembled operator (small meshes, debugging; no deflation).
       dtype: compute dtype (``torch.float32``/``torch.float64`` or their
         names); ``None`` = float32.
       cg_rtol: relative residual tolerance of the PCG solves.
@@ -39,6 +41,12 @@ class FcvmConfig:
       coarse_max_dim: size the coarse space (see
         :meth:`resolve_cluster_size`); ``coarse_modes`` is 12 (affine) or
         6 (rigid-body).
+      n_eig_vectors: subspace size of the buckling eigensolve (at least
+        the requested modes; larger improves its convergence).
+      buckling_bc: Dirichlet handling of the buckling pencil:
+        ``"eliminate"`` removes fixed dofs exactly (identity rows in K_hat,
+        zero rows in G_hat); ``"penalty"`` reproduces the reference's x100
+        fixed-diagonal penalty on the full pencil (``fcVM.py:1051-1062``).
       n_devices: 0 or 1 (one device).
       deflation: Ritz-deflation recycling of the Newton correction solves
         (:mod:`fcvm_tpu_torch.ops.deflation`, whose constants size it): one
@@ -58,8 +66,8 @@ class FcvmConfig:
       arc_length: ``"riks"`` (the reference's linearised update) or
         ``"crisfield"`` (the spherical constraint, which follows snapback).
 
-    Not ported, and refused by :meth:`check_supported`: the scipy direct
-    tier, the cluster smoother and more than one device.
+    Not ported, and refused by :meth:`check_supported`: the cluster
+    smoother and more than one device.
     """
 
     device: str = "cuda"
@@ -73,6 +81,8 @@ class FcvmConfig:
     coarse_cluster_nodes: int = 32
     coarse_modes: int = 12
     coarse_max_dim: int = 12288
+    n_eig_vectors: int = 8
+    buckling_bc: str = "eliminate"
     n_devices: int = 0
     deflation: bool = True
     deflation_min_iters: int = 48
@@ -125,8 +135,6 @@ class FcvmConfig:
     def check_supported(self) -> None:
         """Raise for every option this slice of the port does not run."""
         todo = [
-            (self.solver == "scipy", "solver='scipy'",
-             "the scipy direct tier (ROADMAP Queue 1 item 5)"),
             (self.smoother == "cluster", "smoother='cluster'",
              "the cluster block-Cholesky smoother (ROADMAP Queue 1 item 6)"),
             (self.n_devices > 1, f"n_devices={self.n_devices}",
@@ -135,7 +143,7 @@ class FcvmConfig:
         for unsupported, what, item in todo:
             if unsupported:
                 raise NotImplementedError(f"{what}: {item} is not ported yet")
-        if self.solver != "cg":
+        if self.solver not in ("cg", "scipy"):
             raise ValueError(f"unknown solver {self.solver!r}")
         if self.smoother != "jacobi3":
             raise ValueError(f"unknown smoother {self.smoother!r}")
@@ -143,6 +151,8 @@ class FcvmConfig:
             raise ValueError(f"unknown arc_length {self.arc_length!r}")
         if self.precond not in ("two_level", "block_jacobi"):
             raise ValueError(f"unknown precond {self.precond!r}")
+        if self.buckling_bc not in ("eliminate", "penalty"):
+            raise ValueError(f"unknown buckling_bc {self.buckling_bc!r}")
 
 
 def pin_full_fp32() -> None:

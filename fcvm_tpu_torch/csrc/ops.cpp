@@ -2,6 +2,7 @@
 //
 // Registers with the dispatcher, for CUDA tensors:
 //   fcvm::block_matvec  K0   csrc/block_matvec.cu
+//   fcvm::block_matmat  K0m  csrc/block_matmat.cu
 //   fcvm::soa_matvec    K0p  csrc/bw_probe.cu
 //   fcvm::bw_read       Kbw  csrc/bw_probe.cu
 // so each is called as torch.ops.fcvm.<name>.  The kernels themselves keep a
@@ -23,6 +24,10 @@ extern "C" int fcvm_block_matvec_f32(const float* esm_t, const float* ue_t,
                                      float* out, long long ne, void* stream);
 extern "C" int fcvm_block_matvec_f64(const double* esm_t, const double* ue_t,
                                      double* out, long long ne, void* stream);
+extern "C" int fcvm_block_matmat_f32(const float* esm_t, const float* ue, float* out,
+                                     long long ne, int m, void* stream);
+extern "C" int fcvm_block_matmat_f64(const double* esm_t, const double* ue, double* out,
+                                     long long ne, int m, void* stream);
 extern "C" int fcvm_soa_matvec_f32(const float* esm_t, const float* ue_t, float* out,
                                    long long ne, int tile, void* stream);
 extern "C" int fcvm_bw_read_blocks(long long rows, long long chunk_rows, int device);
@@ -61,6 +66,41 @@ at::Tensor block_matvec(const at::Tensor& esm_t, const at::Tensor& ue_t) {
                   esm_t.scalar_type());
   }
   TORCH_CHECK(err == 0, "block_matvec: kernel launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  return out;
+}
+
+at::Tensor block_matmat(const at::Tensor& esm_t, const at::Tensor& ue) {
+  TORCH_CHECK(esm_t.is_cuda() && ue.device() == esm_t.device(),
+              "block_matmat: both tensors must be on one CUDA device");
+  TORCH_CHECK(esm_t.scalar_type() == ue.scalar_type(),
+              "block_matmat: esm_t and ue differ in dtype");
+  TORCH_CHECK(esm_t.dim() == 3 && esm_t.size(0) == 30 && esm_t.size(1) == 30 &&
+                  ue.dim() == 3 && ue.size(0) == esm_t.size(2) && ue.size(1) == 30 &&
+                  ue.size(2) >= 1 && ue.size(2) <= 0x7fffffff,
+              "block_matmat: expected esm_t (30, 30, ne) and ue (ne, 30, m), m >= 1");
+  TORCH_CHECK(esm_t.is_contiguous() && ue.is_contiguous(),
+              "block_matmat: inputs must be contiguous");
+  const c10::cuda::CUDAGuard guard(esm_t.device());
+  at::Tensor out = at::empty_like(ue);
+  const long long ne = esm_t.size(2);
+  const int m = static_cast<int>(ue.size(2));
+  void* stream = c10::cuda::getCurrentCUDAStream().stream();
+  int err = 0;
+  switch (esm_t.scalar_type()) {
+    case at::kFloat:
+      err = fcvm_block_matmat_f32(esm_t.data_ptr<float>(), ue.data_ptr<float>(),
+                                  out.data_ptr<float>(), ne, m, stream);
+      break;
+    case at::kDouble:
+      err = fcvm_block_matmat_f64(esm_t.data_ptr<double>(), ue.data_ptr<double>(),
+                                  out.data_ptr<double>(), ne, m, stream);
+      break;
+    default:
+      TORCH_CHECK(false, "block_matmat: dtype must be float32 or float64, got ",
+                  esm_t.scalar_type());
+  }
+  TORCH_CHECK(err == 0, "block_matmat: kernel launch failed: ",
               cudaGetErrorString(static_cast<cudaError_t>(err)));
   return out;
 }
@@ -118,12 +158,14 @@ at::Tensor bw_read(const at::Tensor& x, int64_t k, int64_t chunk_rows) {
 
 TORCH_LIBRARY(fcvm, m) {
   m.def("block_matvec(Tensor esm_t, Tensor ue_t) -> Tensor");
+  m.def("block_matmat(Tensor esm_t, Tensor ue) -> Tensor");
   m.def("soa_matvec(Tensor esm_t, Tensor ue_t, int tile) -> Tensor");
   m.def("bw_read(Tensor x, int k, int chunk_rows) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(fcvm, CUDA, m) {
   m.impl("block_matvec", &block_matvec);
+  m.impl("block_matmat", &block_matmat);
   m.impl("soa_matvec", &soa_matvec);
   m.impl("bw_read", &bw_read);
 }

@@ -3,7 +3,8 @@
 The reference relies on FreeCAD/Gmsh/Netgen for meshing; the bundled
 ``.FCStd`` documents do not ship their meshes, so the validation corpus here
 is regenerated from parametric generators: structured boxes (Kuhn 6-tet
-subdivision of a hex grid) and a quarter plate-with-hole.  All generators
+subdivision of a hex grid), slender bars, cruciform columns and a quarter
+plate-with-hole.  All generators
 emit the tet10 node convention of :mod:`fcvm_tpu_torch.models.spec`, and
 number nodes exactly as :mod:`fcvm_tpu.models.meshgen` does.
 """
@@ -131,6 +132,39 @@ def box_tet10(
         np.linspace(0.0, ly, ny + 1),
         np.linspace(0.0, lz, nz + 1),
     )
+
+
+def cruciform_tet10(
+    b: float,
+    t: float,
+    length: float,
+    n_flange: int = 5,
+    n_thick: int = 1,
+    n_z: int = 16,
+) -> Mesh:
+    """Cruciform (+-shaped) column along +z, centered on the z axis.
+
+    Cross-section: two orthogonal rectangular plates of thickness ``t`` and
+    total width ``2 b + t`` each (four outstands of clear width ``b``), the
+    torsional-buckling specimen of the reference manual section 9.4.
+    ``n_thick`` elements through the plate thickness, ``n_flange`` cells per
+    outstand width, ``n_z`` slices along the length.
+    """
+    # in-plane breakpoints: outstand splits on each side of the exact
+    # [-t/2, +t/2] plate-face planes
+    out = np.linspace(0.5 * t, 0.5 * t + b, n_flange + 1)
+    core = np.linspace(-0.5 * t, 0.5 * t, n_thick + 1)
+    brk = np.unique(np.concatenate([-out[::-1], core, out]))
+
+    def keep(cx, cy, cz):
+        return (np.abs(cx) < 0.5 * t) | (np.abs(cy) < 0.5 * t)
+
+    return grid_tet10(brk, brk, np.linspace(0.0, length, n_z + 1), keep=keep)
+
+
+def bar_tet10(length: float, width: float, height: float, nx: int, ny: int, nz: int) -> Mesh:
+    """Slender bar along +x for buckling validation (Euler column)."""
+    return box_tet10(nx, ny, nz, length, width, height)
 
 
 def plate_with_hole_tet10(

@@ -1,12 +1,14 @@
 """Element stiffness blocks, load integration, Dirichlet handling, K_hat·v.
 
-The port of :mod:`fcvm_tpu.ops.assembly` without the buckling pencil's
-geometric stiffness (ROADMAP Queue 1 item 13).  The global
+The port of :mod:`fcvm_tpu.ops.assembly`, with the buckling pencil's
+geometric stiffness.  The global
 stiffness matrix is never formed: the per-element 30x30 blocks stay on the
 device and ``K @ v`` is gather -> block matvec -> scatter-add, with the
 block stage the hand-written CUDA kernel K0
-(:func:`fcvm_tpu_torch.ops.kernels.block_matvec`).  The operator stores the
-blocks element-major, ``(30, 30, ne)``, the layout K0 reads coalesced.
+(:func:`fcvm_tpu_torch.ops.kernels.block_matvec`); an ``(ndof, m)`` block
+of vectors goes through K0m (:func:`fcvm_tpu_torch.ops.kernels.block_matmat`)
+in one pass.  The operator stores the
+blocks element-major, ``(30, 30, ne)``, the layout K0 and K0m read coalesced.
 The node reduction is ``index_add_`` (on CUDA an atomic scatter-add whose
 float32 summation order varies from run to run).
 
@@ -22,6 +24,7 @@ import torch
 from fcvm_tpu_torch.ops import elements as el
 from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import material as mat
+from fcvm_tpu_torch.ops.stress_update import voigt_to_tensor
 from fcvm_tpu_torch.utils.linalg3 import det3, inv3_spd
 
 
@@ -69,6 +72,17 @@ def tangent_stiffness_blocks(coords_def, elnodes, dmat, sig_gp, pgp, g, h) -> to
     dmat_g = dmat - fac[..., None, None] * dev[..., :, None] * dev[..., None, :]
     db = torch.einsum("egkl,egln->egkn", dmat_g, bmat)
     return torch.einsum("egkm,egkn,eg->emn", bmat, db, scale)
+
+
+def geometric_stiffness_blocks(coords, elnodes, sig_gp) -> torch.Tensor:
+    """(ne, 30, 30) initial-stress (geometric) blocks (``fcVM.py:1002-1006``):
+    ``sum_g w_g |J_g| (dN_g^T sigma_g dN_g) (x) I_3``, ``sig_gp`` (ne, 4, 6)
+    the pre-stress field."""
+    det, dshpg, _ = el.tet10_element_geometry(coords[elnodes])
+    scale = torch.as_tensor(el.W10, dtype=coords.dtype, device=coords.device) * det.abs()
+    m = torch.einsum("egij,egik,egkl,eg->ejl", dshpg, voigt_to_tensor(sig_gp), dshpg, scale)
+    eye3 = torch.eye(3, dtype=coords.dtype, device=coords.device)
+    return torch.einsum("ejl,bc->ejblc", m, eye3).reshape(-1, 30, 30)
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +192,37 @@ def make_bc_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.Ten
     return khat
 
 
+def make_multi_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.Tensor,
+                      identity_on_fixed: bool = True, negate: bool = False):
+    """``(ndof, m) -> (ndof, m)`` block operator with Dirichlet projection,
+    ``P K P U`` (plus ``(I - P) U`` with ``identity_on_fixed``; negated
+    with ``negate``), over element-major blocks ``esm_t`` (30, 30, ne).
+
+    The node-row gather of ``U`` gives the (ne, 30, m) layout K0m reads,
+    and K0m's output reshapes to node rows for ``index_add_``: no copy on
+    either side.  ``identity_on_fixed`` gives ``K_hat @ U``; without it and
+    with ``negate``, ``-G_hat @ U`` of the buckling pencil (zero on fixed
+    dofs); ``fixmask`` all ones gives the raw ``K @ U``."""
+    elnodes = eldofs[:, ::3] // 3
+    flat = elnodes.reshape(-1)
+    ne = elnodes.shape[0]
+    nn = fixmask.shape[0] // 3
+    pm = fixmask[:, None]
+
+    def mv(u):
+        m = u.shape[1]
+        ue = (pm * u).reshape(nn, 3, m)[elnodes].reshape(ne, 30, m)  # node-row gather
+        fe = kernels.block_matmat(esm_t, ue)
+        out = torch.zeros((nn, 3, m), dtype=u.dtype, device=u.device)
+        out.index_add_(0, flat, fe.reshape(ne * 10, 3, m))
+        y = pm * out.reshape(nn * 3, m)
+        if identity_on_fixed:
+            y = y + (1.0 - pm) * u
+        return -y if negate else y
+
+    return mv
+
+
 def dirichlet_rhs(esm_t, eldofs, fixmask, u_fix, glv):
     """Full RHS ``f = P glv - (P K u_fix) + u_fix`` (``fcVM.py:1128``) over
     element-major blocks ``esm_t`` (30, 30, ne)."""
@@ -205,5 +250,8 @@ def block_jacobi_inverse_blocks(esm, elnodes, fixmask):
 
 
 def apply_block_precond(pinv, r):
-    """Apply nodal block-Jacobi inverse blocks (nn, 3, 3) to r (ndof,)."""
+    """Apply nodal block-Jacobi inverse blocks (nn, 3, 3) to r (ndof,) or to
+    each column of r (ndof, m)."""
+    if r.dim() == 2:
+        return torch.einsum("nab,nbm->nam", pinv, r.reshape(-1, 3, r.shape[1])).reshape(r.shape)
     return torch.einsum("nab,nb->na", pinv, r.reshape(-1, 3)).reshape(-1)

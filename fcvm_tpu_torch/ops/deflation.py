@@ -15,7 +15,8 @@ driver's policy (harvest one correction solve, keep the space across load
 steps, drop it when a deflated solve regresses) lives in
 :mod:`fcvm_tpu_torch.runtime.driver`.
 
-The ``(ndof, k)`` products here are plain PyTorch in the working dtype;
+``K_hat @ W`` runs through K0m (:func:`fcvm_tpu_torch.ops.assembly.make_multi_matvec`).
+The other ``(ndof, k)`` products here are plain PyTorch in the working dtype;
 float32 runs in full float32 (no TF32, :func:`fcvm_tpu_torch.config.pin_full_fp32`),
 the counterpart of the JAX package's HIGHEST matmul precision: the
 correction must cancel the slow modes below the CG tolerance.
@@ -27,6 +28,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from fcvm_tpu_torch.ops import assembly as asm
 
 # the driver's recycling sizes, the JAX package's defaults
 # (``fcvm_tpu.config``: deflation_k, deflation_nstore, deflation_refresh_iters)
@@ -43,7 +46,9 @@ class DeflationSpace(NamedTuple):
 
 
 def deflated(precond, defl: Optional[DeflationSpace]):
-    """Wrap a preconditioner apply with the deflation correction."""
+    """Wrap a preconditioner apply with the deflation correction; the
+    wrapped apply takes a vector (ndof,) or a block (ndof, m) and corrects
+    each column as it does a vector."""
     if defl is None:
         return precond
 
@@ -111,27 +116,23 @@ def build_w(zs, coef, fixmask):
 
 
 def block_khat_matvec(esm_t, eldofs, fixmask, w):
-    """``K_hat @ W`` for a (ndof, k) block of vectors in one pass.
+    """``K_hat @ W`` for a (ndof, k) block of vectors in one pass (K0m).
 
     ``esm_t`` holds the element blocks element-major, (30, 30, ne), as the
-    operator stores them; ``eldofs`` (ne, 30).  Row gather of each element's
-    10 node rows (3, k), the block product, ``index_add_`` over node rows,
-    and the Dirichlet mask (identity on fixed dofs)."""
-    ne = esm_t.shape[-1]
-    elnodes = eldofs[:, ::3] // 3
-    nn = fixmask.shape[0] // 3
-    k = w.shape[1]
-    wp = fixmask[:, None] * w
-    u = wp.reshape(nn, 3, k)[elnodes].reshape(ne, 30, k)  # row gather
-    fe = torch.einsum("ije,ejk->eik", esm_t, u)
-    out = torch.zeros((nn, 3, k), dtype=w.dtype, device=w.device)
-    out.index_add_(0, elnodes.reshape(-1), fe.reshape(ne * 10, 3, k))
-    return fixmask[:, None] * out.reshape(nn * 3, k) + (1.0 - fixmask)[:, None] * w
+    operator stores them; ``eldofs`` (ne, 30)."""
+    return asm.make_multi_matvec(esm_t, eldofs, fixmask)(w)
 
 
 def galerkin(esm_t, eldofs, fixmask, w):
     """(k, k) Galerkin matrix ``W^T K_hat W`` on the current operator."""
     return w.T @ block_khat_matvec(esm_t, eldofs, fixmask, w)
+
+
+def build_space(esm_t, eldofs, fixmask, zs, coef) -> DeflationSpace:
+    """Deflation space from harvested residuals ``zs`` and Ritz
+    coefficients ``coef`` on the operator of blocks ``esm_t``."""
+    w = build_w(zs, coef, fixmask)
+    return DeflationSpace(w, pinv_psd(galerkin(esm_t, eldofs, fixmask, w)))
 
 
 def pinv_psd(kw):

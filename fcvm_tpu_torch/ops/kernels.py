@@ -3,12 +3,17 @@
 * K0 :func:`block_matvec` replaces the Pallas TPU kernel
   ``fcvm_tpu/ops/pallas_kernels.py::block_matvec``; source
   ``csrc/block_matvec.cu``.
+* K0m :func:`block_matmat`, K0's multi-column form, replaces K0 under
+  ``vmap`` and the block ``einsum`` of ``fcvm_tpu/runtime/buckling.py:318``;
+  source ``csrc/block_matmat.cu``.
 * K0p :func:`soa_matvec` replaces ``tools/bw_probe.py::soa_matvec``;
   source ``csrc/bw_probe.cu``.
 * Kbw :func:`bw_read` replaces ``tools/bw_probe.py::make_bw_kernel``;
   source ``csrc/bw_probe.cu``.
 
-K0 is the block stage of the solver's K_hat·v; K0p and Kbw serve the
+K0 is the block stage of the solver's K_hat·v, K0m that of the
+multi-column K_hat·V and -G_hat·V (the buckling eigensolve, the deflation
+Galerkin and correction builds); K0p and Kbw serve the
 bandwidth probe (:mod:`fcvm_tpu_torch.tools.bw_probe`).  What bounds each
 on the card and how its design answers that is written at the top of its
 source.
@@ -37,7 +42,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("ops.cpp", "block_matvec.cu", "bw_probe.cu")
+SOURCES = ("ops.cpp", "block_matvec.cu", "block_matmat.cu", "bw_probe.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3")
 
 
@@ -118,6 +123,56 @@ def block_matvec(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:
 
 
 block_matvec.launches = 0
+
+
+def block_matmat_ref(esm_t: torch.Tensor, ue: torch.Tensor) -> torch.Tensor:
+    """Plain version of K0m: ``out[e, i, c] = sum_j esm_t[i, j, e] ue[e, j, c]``."""
+    return torch.einsum("ije,ejc->eic", esm_t, ue)
+
+
+def block_matmat(esm_t: torch.Tensor, ue: torch.Tensor) -> torch.Tensor:
+    """K0m: K0 on ``m`` columns at once (design and bound at the top of
+    ``csrc/block_matmat.cu``).
+
+    Args:
+      esm_t: (30, 30, ne) element blocks, element-major, float32 or float64.
+      ue: (ne, 30, m) gathered element dof values (the node-row gather of
+        an (ndof, m) block), same dtype and device.
+
+    Returns:
+      (ne, 30, m) element force contributions.  CPU tensors take the plain
+      version; CUDA tensors launch the kernel (``block_matmat.launches``
+      counts those launches).
+    """
+    if esm_t.device.type == "cpu" and ue.device.type == "cpu":
+        return block_matmat_ref(esm_t, ue)
+    if esm_t.device.type != "cuda" or ue.device != esm_t.device:
+        raise ValueError(
+            f"block_matmat: tensors on {esm_t.device} and {ue.device}; "
+            "expected both on the CPU or both on one CUDA device"
+        )
+    if esm_t.dtype not in (torch.float32, torch.float64) or ue.dtype != esm_t.dtype:
+        raise TypeError(
+            f"block_matmat: dtypes {esm_t.dtype}/{ue.dtype}; expected both "
+            "float32 or both float64"
+        )
+    ne = esm_t.shape[-1]
+    if esm_t.shape != (30, 30, ne) or ue.dim() != 3 or ue.shape[:2] != (ne, 30):
+        raise ValueError(
+            f"block_matmat: shapes {tuple(esm_t.shape)} and {tuple(ue.shape)}; "
+            "expected (30, 30, ne) and (ne, 30, m)"
+        )
+    if not (esm_t.is_contiguous() and ue.is_contiguous()):
+        raise ValueError("block_matmat: inputs must be contiguous")
+    if ne == 0 or ue.shape[2] == 0:
+        return torch.empty_like(ue)
+    build()
+    out = torch.ops.fcvm.block_matmat(esm_t, ue)
+    block_matmat.launches += 1
+    return out
+
+
+block_matmat.launches = 0
 
 
 def soa_matvec_ref(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """The compute engine behind the collapse driver: :class:`TorchSystem`.
 
-The port of :class:`fcvm_tpu.runtime.backend.LocalSystem` (one device)
-without buckling and the scipy tier.  The driver keeps the host control
-flow; every tensor operation goes through this object.
+The port of :class:`fcvm_tpu.runtime.backend.LocalSystem` (one device).
+The driver keeps the host control flow; every tensor operation goes
+through this object.
 
 Data contract (the same as ``LocalSystem``'s):
 
@@ -23,8 +23,10 @@ import torch
 
 from fcvm_tpu_torch.ops import deflation as dfl
 from fcvm_tpu_torch.ops import material as mat
+from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.stress_update import internal_force_from_stress, update_stress_load
 from fcvm_tpu_torch.runtime import system as sysm
+from fcvm_tpu_torch.runtime.buckling import buckling_from_arrays
 from fcvm_tpu_torch.utils.indexing import pad_ndof, pad_vector
 
 
@@ -99,6 +101,23 @@ class TorchSystem:
     def solve(self, khat, pc, b, x0=None, defl=None):
         return sysm.solve_displacement(khat, pc, b, self.rtol, self.maxiter,
                                        self.space, x0=x0, defl=defl)
+
+    def scipy_direct(self, khat):
+        """The scipy direct tier on the operator ``khat``: a host LU of its
+        blocks, returned as a solve ``b -> x`` in user dof order."""
+        sp = self.space
+        direct = slv.ScipyDirectSolver(khat.esm_t.permute(2, 0, 1), sp.eldofs_m,
+                                       sp.fixmask_m, self.ndof_pad)
+        return lambda b: sp.from_m(direct.solve(sp.to_m(b)))
+
+    def buckling(self, coords, sig_el_gp, k=2, stats=None):
+        """Lowest-``k`` buckling factors and mode shapes (user dof order)
+        under the elastic pre-stress ``sig_el_gp`` (user Gauss order); see
+        :func:`fcvm_tpu_torch.runtime.buckling.buckling_from_arrays`."""
+        return buckling_from_arrays(
+            coords, self.elnodes, self.dmat, sig_el_gp, self.fixmask, k=k,
+            rtol=min(self.rtol, 1.0e-10), maxiter=self.maxiter, space=self.space,
+            config=self.cfg, stats=stats)
 
     # -- Ritz-deflation recycling (fcvm_tpu_torch.ops.deflation) -------------
 

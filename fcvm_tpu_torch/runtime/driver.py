@@ -2,14 +2,18 @@
 
 The port of :func:`fcvm_tpu.runtime.driver.solve_collapse` for the
 small-strain analysis (``gnl="GNLN"``) and the geometrically nonlinear one
-(``gnl="GNLY"``) without buckling, itself a rebuild of the reference's
-``calcDisp`` (``source code/fcVM.py:1083-1635``).  The host keeps the
-control flow the reference keeps in Python: the elastic step, load
-stepping, divergence restarts with shrinking increments (4-restart cap,
+(``gnl="GNLY"``), itself a rebuild of the reference's ``calcDisp``
+(``source code/fcVM.py:1083-1635``).  The host keeps the control flow the
+reference keeps in Python: the elastic step, the linear-buckling
+pre-analysis and imperfection seeding of GNL runs (``fcVM.py:1195-1295``),
+load stepping, divergence restarts with shrinking increments (4-restart cap,
 ``fcVM.py:1457-1484``), adaptive step scaling (``fcVM.py:1530-1537``),
 target-load-factor interception (``fcVM.py:1486-1510``), displacement
 control, history recording and the ``continuation``/``monitor`` callbacks.
-Every tensor operation runs through :class:`TorchSystem`.
+Every tensor operation runs through :class:`TorchSystem`.  With
+``solver="scipy"`` every linear solve is a host LU of the current operator
+(factorised once per operator, as the reference factorises its stiffness),
+and the recycling tiers are off.
 
 Small strain keeps the elastic operator and preconditioner for the whole
 analysis (modified Newton, as the reference keeps its elastic factor,
@@ -50,6 +54,7 @@ from fcvm_tpu_torch.config import FcvmConfig, pin_full_fp32
 from fcvm_tpu_torch.models.inp import ControlParams
 from fcvm_tpu_torch.models.spec import Model
 from fcvm_tpu_torch.ops import deflation as dfl
+from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.precond import COARSE_BUILD_STATS
 from fcvm_tpu_torch.runtime import system as sysm
 from fcvm_tpu_torch.runtime.backend import TorchSystem
@@ -203,9 +208,12 @@ def solve_collapse(
     Args:
       model: mesh + material + BCs + loads
         (:class:`fcvm_tpu_torch.models.spec.Model`).
-      params: the 21 control parameters.  ``gnl="GNLY"`` needs ``nstep > 1``
-        and ``max_imp == 0``: otherwise the reference runs the buckling
-        eigensolve, which is not ported (raises).
+      params: the 21 control parameters.  With ``gnl="GNLY"`` and
+        ``nstep == 1`` or ``max_imp != 0`` the buckling eigensolve runs on
+        the elastic pre-stress (factors and modes in the results); with
+        ``nstep == 1`` the analysis ends there, with ``max_imp != 0`` the
+        blend of the two lowest modes scaled to ``max_imp`` is added to the
+        coordinates and the analysis restarts from them.
       continuation: optional callback ``(history, state_info) -> action``:
         ``None``/``"stop"``, ``"add"`` (run ``nstep`` more steps), ``"rev"``
         (reverse loading), ``("target", new_target_lf)``, ``("scale",
@@ -228,12 +236,6 @@ def solve_collapse(
     """
     cfg = config if config is not None else FcvmConfig()
     cfg.check_supported()
-    if params.large_disp and not (params.nstep > 1 and params.max_imp == 0.0):
-        raise NotImplementedError(
-            "gnl='GNLY' with nstep == 1 or max_imp != 0 runs the buckling "
-            "eigensolve and imperfection seeding, which are not ported yet "
-            "(ROADMAP Queue 1 item 13)"
-        )
     if checkpoint_path is not None or resume_from is not None:
         raise NotImplementedError(
             "checkpoint_path/resume_from: checkpointing is not ported yet "
@@ -294,7 +296,10 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
                 # per recorded step: Newton iterations, restarts, the CG
                 # iterations of each of its correction solves and of each
                 # of its tangent predictor solves
-                "steps": []}
+                "steps": [],
+                # the buckling eigensolve: one record per tier tried
+                # (runtime/buckling.buckling_from_arrays)
+                "buckling": []}
     step_solves, step_predictors = [], []
 
     def count_solve(iters: int, t0: float):
@@ -316,38 +321,58 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
     refined = False
     refine_ok = cfg.residual_refinement and floor_watch.enabled
 
+    def linear_system(coords):
+        """The elastic operator and preconditioner, loads and right-hand
+        side on the geometry ``coords``."""
+        with timers.phase("assemble"):
+            esm, pinv, glv, rhs, gp_coords, volume, loadsums = backend.assemble(coords)
+            khat = backend.operator(esm)
+        before = (COARSE_BUILD_STATS["ridge_escalations"],
+                  COARSE_BUILD_STATS["zero_coarse_fallbacks"])
+        with timers.phase("precond_build"):
+            pc = backend.make_pc(esm, pinv)
+        del esm, pinv  # the operator holds its own (Morton, element-major) copy
+        esc = COARSE_BUILD_STATS["ridge_escalations"] - before[0]
+        fb = COARSE_BUILD_STATS["zero_coarse_fallbacks"] - before[1]
+        cg_stats["coarse_ridge_escalations"] += esc
+        cg_stats["coarse_zero_fallbacks"] += fb
+        if fb:
+            log("WARNING: two-level coarse inverse non-finite at every ridge — "
+                "continuing with the fine-level smoother ONLY (expect several "
+                "times more CG iterations)")
+        elif esc:
+            log("two-level coarse build needed "
+                f"{COARSE_BUILD_STATS['last_escalations']} ridge escalation(s)")
+        return khat, pc, glv, rhs, gp_coords, volume, loadsums
+
+    # the scipy tier's host LU, factorised once per operator
+    direct = {"khat": None, "solve": None}
+
+    def solve(khat_, pc_, b, x0=None, defl_=None) -> slv.CGResult:
+        """One linear solve: PCG, or the host LU of ``khat_`` on the scipy
+        tier (which ignores ``x0``, has no deflation and reports 0 CG
+        iterations)."""
+        if cfg.solver != "scipy":
+            return backend.solve(khat_, pc_, b, x0=x0, defl=defl_)
+        if direct["khat"] is not khat_:
+            direct.update(khat=khat_, solve=backend.scipy_direct(khat_))
+        return slv.CGResult(direct["solve"](b), 0, 0.0)
+
     coords = backend.tensor(coords_np)
-    with timers.phase("assemble"):
-        esm, pinv, glv, rhs, gp_coords, volume, loadsums = backend.assemble(coords)
-        khat = backend.operator(esm)
-    before = (COARSE_BUILD_STATS["ridge_escalations"],
-              COARSE_BUILD_STATS["zero_coarse_fallbacks"])
-    with timers.phase("precond_build"):
-        pc = backend.make_pc(esm, pinv)
-    del esm, pinv  # the operator holds its own (Morton, element-major) copy
-    esc = COARSE_BUILD_STATS["ridge_escalations"] - before[0]
-    fb = COARSE_BUILD_STATS["zero_coarse_fallbacks"] - before[1]
-    cg_stats["coarse_ridge_escalations"] += esc
-    cg_stats["coarse_zero_fallbacks"] += fb
-    if fb:
-        log("WARNING: two-level coarse inverse non-finite at every ridge — "
-            "continuing with the fine-level smoother ONLY (expect several "
-            "times more CG iterations)")
-    elif esc:
-        log("two-level coarse build needed "
-            f"{COARSE_BUILD_STATS['last_escalations']} ridge escalation(s)")
+    khat, pc, glv, rhs, gp_coords, volume, loadsums = linear_system(coords)
     qnorm = max(float(torch.linalg.vector_norm(glv)), 1.0)
 
     # Ritz-deflation recycling: the held space (solve space) and the harvest
     # policy.  armed: the next correction solve without a held space
     # harvests; a harvest below deflation_min_iters disarms, a plain solve at
     # or past it re-arms.
+    use_deflation = cfg.deflation and cfg.solver == "cg"
     defl = None
     defl_state = {"armed": True}
     # the GNL tangent predictor's own recycling: a load-rhs harvested basis
     # (solve space, (ndof, k)), re-Galerkined on each tangent, with the same
     # hysteresis (a residual-harvested space does nothing for a load rhs)
-    use_ldefl = cfg.deflation and cfg.load_deflation
+    use_ldefl = use_deflation and cfg.load_deflation
     lstate = {"w": None, "armed": True}
     riks_fn = sysm.riks_update_crisfield if cfg.arc_length == "crisfield" else sysm.riks_update
 
@@ -384,11 +409,14 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
         cg_stats["harvests"].append({"step": step, "iters": res.iters, "k": kept})
         return res
 
-    with timers.phase("elastic_solve"):
-        t0 = time.perf_counter()
-        res = backend.solve(khat, pc, rhs, x0=backend.u_fix)
-        count_solve(res.iters, t0)
-    ue = res.x
+    def elastic_solve():
+        with timers.phase("elastic_solve"):
+            t0 = time.perf_counter()
+            res = solve(khat, pc, rhs, x0=backend.u_fix)
+            count_solve(res.iters, t0)
+        return res.x
+
+    ue = elastic_solve()
     disp_el = _host(ue)
 
     dl0 = 1.0 / nstep
@@ -406,6 +434,7 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
     disp_new = torch.zeros(backend.ndof_pad, dtype=dtype, device=device)
     disp_old = torch.zeros_like(disp_new)
     history = History()
+    eigenvalues = eigenvectors = None
 
     # Displacement control: replace the load norm with the elastic reaction
     # on the driven boundary (fcVM.py:1169-1177).
@@ -421,7 +450,8 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
                 else disp_total - _host(disp_old)[:ndof])
         return AnalysisResults(
             disp=disp, disp_total=disp_total, disp_el=disp_el[:ndof],
-            eigenvalues=None, eigenvectors=None,
+            eigenvalues=None if eigenvalues is None else np.asarray(eigenvalues),
+            eigenvectors=None if eigenvectors is None else np.asarray(eigenvectors)[:ndof],
             sig_gp=_host(sig_new), peeq_gp=_host(peeq), csr_gp=_host(csr),
             svm_gp=_host(sigmises), triax_gp=_host(triax),
             sig_yield_gp=_host(sig_yield), history=history,
@@ -431,8 +461,22 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
             disp_scale=disp_scale,
         )
 
+    # Linear buckling on the elastic pre-stress and imperfection seeding
+    # (fcVM.py:1195-1295)
+    run_buckling = large_disp and not (nstep > 1 and params.max_imp == 0.0)
+    if run_buckling:
+        with timers.phase("buckling"):
+            # the elastic stresses of the full load: a huge yield stress
+            # disables the radial return (fcVM.py:1195)
+            sig_el_gp, *_ = backend.stress_update(coords, 1.0e6 * sig_yield, disp_new, ue,
+                                                  zeros_gp6, et_e, False)
+            eigenvalues, eigenvectors = backend.buckling(coords, sig_el_gp, k=2,
+                                                         stats=cg_stats["buckling"])
+            del sig_el_gp
+        log(f"buckling load factors: {eigenvalues}")
+
     if nstep == 1:
-        # Elastic analysis only (fcVM.py:1216-1223).
+        # Elastic (and linear-buckling) analysis only (fcVM.py:1216-1223).
         disp_new = ue
         history.lbd = [0.0, 1.0]
         history.load = [0.0, 1.0]
@@ -441,6 +485,28 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
                     history.triax, history.ecr, history.csr, history.peeqmax):
             lst.append(lst[0])
         return results()
+
+    if run_buckling and params.max_imp != 0.0:
+        # Blend the two buckling modes into a geometric imperfection and
+        # restart the analysis from the perturbed geometry (fcVM.py:1224-1295)
+        ev1, ev2 = params.ev1, params.ev2
+        v1, v2 = eigenvectors[:, 0], eigenvectors[:, 1]
+        ua = ev1 / (ev1 + ev2) * v1 + ev2 / (ev1 + ev2) * v2
+        ub = ev1 / (ev1 + ev2) * v1 - ev2 / (ev1 + ev2) * v2
+        ma, mb = np.max(np.abs(ua)), np.max(np.abs(ub))
+        if ma > mb:
+            imper = params.max_imp / ma * np.sign(ua[np.argmax(np.abs(ua))]) * ua
+        else:
+            imper = params.max_imp / mb * np.sign(ub[np.argmax(np.abs(ub))]) * ub
+        coords_np = coords_np + imper[: mesh.ndof].reshape(-1, 3)
+        coords = backend.tensor(coords_np)
+        del khat, pc
+        khat, pc, glv, rhs, gp_coords, volume, loadsums = linear_system(coords)
+        qnorm = max(float(torch.linalg.vector_norm(glv)), 1.0)
+        ue = elastic_solve()
+        disp_el = _host(ue)
+        dl = dl0
+        du = dl * ue
 
     lbd = [0.0]
     step = -1
@@ -509,10 +575,12 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
         vector."""
         nonlocal ue, glv
         t0 = time.perf_counter()
+        # on the scipy tier the direct solve below is the predictor
+        want_cg = cfg.solver != "scipy"
         lharvest = use_ldefl and lstate["w"] is None and lstate["armed"]
         khat_t, pc_t, glv, out, itp = backend.tangent_refresh(
-            coords, sig_old, pgp, disp_new, pc, et_e, ue0=ue,
-            w=lstate["w"] if use_ldefl else None, solve_predictor=not lharvest)
+            coords, sig_old, pgp, disp_new, pc, et_e, ue0=ue if want_cg else None,
+            w=lstate["w"] if use_ldefl else None, solve_predictor=want_cg and not lharvest)
         if lharvest:
             res_p, h = backend.solve_harvest(khat_t, pc_t, out, x0=ue)
             ue, itp = res_p.x, res_p.iters
@@ -524,17 +592,22 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
                 if coef is not None:
                     lstate["w"] = backend.deflation_basis(h.zs, coef)
                     log(f"load-deflation space (predictor solve: {itp} iters)")
-        else:
+        elif want_cg:
             ue = out
             if lstate["w"] is not None and itp >= dfl.REFRESH_ITERS:
                 lstate["w"] = None
                 log(f"load-deflation space stale ({itp} iters), will re-harvest")
             elif lstate["w"] is None and itp >= cfg.deflation_min_iters:
                 lstate["armed"] = True
-        cg_stats["predictor_solves"] += 1
-        cg_stats["predictor_iters"] += itp
-        step_predictors.append(itp)
+        if want_cg:
+            cg_stats["predictor_solves"] += 1
+            cg_stats["predictor_iters"] += itp
+            step_predictors.append(itp)
         cg_stats["tangent_time"] += time.perf_counter() - t0
+        if not want_cg:
+            t1 = time.perf_counter()
+            ue = solve(khat_t, pc_t, out).x  # out: the predictor's right-hand side
+            count_solve(0, t1)
         defl_t = None if defl is None else backend.make_deflation(khat_t, defl.w)
         return khat_t, pc_t, defl_t, sysm.scaled_control_vector(ue, du)
 
@@ -570,10 +643,10 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
                     # one when the policy asks), arc-length update, residual
                     # (fcVM.py:1304-1557)
                     t0 = time.perf_counter()
-                    if cfg.deflation and defl is None and defl_state["armed"]:
+                    if use_deflation and defl is None and defl_state["armed"]:
                         res = harvesting_solve(r)
                     else:
-                        res = backend.solve(khat, pc, r, defl=defl)
+                        res = solve(khat, pc, r, defl_=defl)
                         solve_policy(res.iters)
                     du, lbd1, _ = riks_fn(a, ue, res.x, du, lbd[step], lbd[step + 1])
                     lbd[step + 1] = float(lbd1)

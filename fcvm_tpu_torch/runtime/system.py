@@ -221,7 +221,7 @@ def regalerkin_deflation(khat: Operator, space: SolveSpace, w) -> dfl.DeflationS
 def build_deflation(khat: Operator, space: SolveSpace, zs, coef) -> dfl.DeflationSpace:
     """Deflation space from harvested residuals ``zs`` and Ritz
     coefficients ``coef``, on the operator ``khat``, in the solve space."""
-    return regalerkin_deflation(khat, space, dfl.build_w(zs, coef, space.fixmask_m))
+    return dfl.build_space(khat.esm_t, space.eldofs_m, space.fixmask_m, zs, coef)
 
 
 def residual(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu,

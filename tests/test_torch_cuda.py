@@ -11,12 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from fcvm_tpu_torch import ControlParams, FcvmConfig, solve_collapse
+from fcvm_tpu_torch import ControlParams, FcvmConfig, linear_buckling, solve_collapse
 from fcvm_tpu_torch.models import meshgen
 from fcvm_tpu_torch.models.spec import BoundaryConditions, Loads, Material, Model
 from fcvm_tpu_torch.ops import assembly as tasm
 from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import material as tmat
+from fcvm_tpu_torch.ops import solver as tslv
 from fcvm_tpu_torch.ops.deflation import ritz_coefficients
 from fcvm_tpu_torch.runtime.backend import TorchSystem
 from fcvm_tpu_torch.tools import bw_probe
@@ -202,3 +203,131 @@ def test_gnl_collapse_cuda_matches_cpu(cuda):
     assert len(lbd_gpu) == len(lbd_cpu) == 4
     np.testing.assert_allclose(lbd_gpu, lbd_cpu, rtol=1e-9, atol=0)
     assert stats["predictor_solves"] > 0 and k0_cpu == 0 and k0_gpu > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 37, 64])
+def test_block_matmat_kernel_matches_plain(cuda, dtype, m):
+    """K0m on a ragged element count (no tile padding) and column counts
+    that take each of its designs and variants in both dtypes: the narrow
+    design's scalar variant (m <= 3), its vector variant (m = 8 in float32,
+    4 in float64, one 32-byte sector) and the wide design, which stages the
+    blocks in shared memory (every other m); counted once, and each column
+    against K0 on that column as well."""
+    rng = np.random.default_rng(m)
+    ne = 1003
+    esm_t = torch.as_tensor(rng.normal(size=(30, 30, ne)), device=cuda).to(dtype)
+    ue = torch.as_tensor(rng.normal(size=(ne, 30, m)), device=cuda).to(dtype)
+    launches = kernels.block_matmat.launches
+    out = kernels.block_matmat(esm_t, ue)
+    torch.cuda.synchronize()
+    assert kernels.block_matmat.launches == launches + 1
+    ref = kernels.block_matmat_ref(esm_t, ue)
+    assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+    for c in (0, m - 1):
+        k0 = kernels.block_matvec(esm_t, ue[:, :, c].T.contiguous())
+        assert float((out[:, :, c].T - k0).abs().max()) <= TOL[dtype] * float(k0.abs().max())
+
+
+def test_block_matmat_rejects_what_it_does_not_take(cuda):
+    esm_t = torch.zeros((30, 30, 8), device=cuda)
+    with pytest.raises(TypeError):
+        kernels.block_matmat(esm_t, torch.zeros((8, 30, 2), device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        kernels.block_matmat(esm_t, torch.zeros((8, 29, 2), device=cuda))
+    with pytest.raises(ValueError):
+        kernels.block_matmat(esm_t, torch.zeros((8, 30, 2)))
+    with pytest.raises(ValueError):
+        kernels.block_matmat(esm_t, torch.zeros((8, 2, 30), device=cuda).transpose(1, 2))
+
+
+def _column_model(nx=8, ny=1, lc=20.0, p=1000.0):
+    """A clamped-free column of section ny x 1 under an end traction."""
+    mesh = meshgen.box_tet10(nx, ny, 1, lc, float(ny), 1.0)
+    bcs = BoundaryConditions.from_node_sets(
+        [(mesh.select_nodes(lambda x, y, z: x < 1e-9), (0.0, 0.0, 0.0))])
+    faces = mesh.faces_on(lambda x, y, z: x > lc - 1e-9)
+    loads = Loads(traction_faces=faces, tractions=np.tile([-p / ny, 0, 0], (len(faces), 1)))
+    return Model(mesh, Material(210000.0, 0.3), bcs, loads)
+
+
+def _pcg_block(device):
+    """pcg_block on four columns of a 3x3x3 tension box's K_hat, float64,
+    block-Jacobi preconditioner, half of them warm-started."""
+    model = _tension_box(3)
+    cfg = FcvmConfig(device=device, dtype="float64")
+    be = TorchSystem(model, cfg, torch.float64, torch.device(device))
+    esm, pinv, *_ = be.assemble(be.tensor(model.mesh.coords))
+    khat = be.operator(esm)
+    sp = be.space
+    kmv = tasm.make_multi_matvec(khat.esm_t, sp.eldofs_m, sp.fixmask_m)
+    b = torch.as_tensor(np.random.default_rng(5).normal(size=(be.ndof_pad, 4)), device=device)
+    b = sp.fixmask_m[:, None] * b
+    x0 = torch.zeros_like(b)
+    x0[:, 2:] = 0.5 * b[:, 2:]
+    return tslv.pcg_block(kmv, b, precond=lambda r: tasm.apply_block_precond(pinv[sp.nperm], r),
+                          x0=x0, rtol=1e-10, maxiter=500)
+
+
+def test_pcg_block_cuda_matches_cpu(cuda):
+    """The block PCG through K0m on the card against the CPU, float64:
+    every column's CG count within one (atomic sums in another order), the
+    same solutions."""
+    ref, res = _pcg_block("cpu"), _pcg_block("cuda")
+    assert all(abs(a - b) <= 1 for a, b in zip(res.iters, ref.iters))
+    np.testing.assert_allclose(res.x.cpu().numpy(), ref.x.numpy(), rtol=0,
+                               atol=1e-9 * float(ref.x.abs().max()))
+
+
+def test_linear_buckling_cuda_matches_cpu(cuda):
+    """linear_buckling of the 8x1x1 clamped-free column in float64 on the
+    card (K0m in every K_hat·V and -G_hat·V) against the CPU: the factors
+    to 1e-10, the (near-degenerate) mode pair spanning the same plane.  The
+    solves run to 1e-12: at the default 1e-6 the two devices' pre-stress
+    solves, whose sums round in another order, differ by ~1e-8, and so do
+    the factors."""
+    params = ControlParams(gnl="GNLY", nstep=1)
+    out = {}
+    for device in ("cpu", "cuda"):
+        launches = kernels.block_matmat.launches
+        out[device] = linear_buckling(
+            _column_model(), params,
+            config=FcvmConfig(device=device, dtype="float64", cg_rtol=1e-12))
+        out[device] += (kernels.block_matmat.launches - launches,)
+    (lam_c, v_c, k0m_c), (lam_g, v_g, k0m_g) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(lam_g, lam_c, rtol=1e-10, atol=0)
+    coef, *_ = np.linalg.lstsq(v_c, v_g, rcond=None)
+    assert np.linalg.norm(v_g - v_c @ coef) < 1e-6 * np.linalg.norm(v_g)
+    assert k0m_c == 0 and k0m_g > 0
+
+
+@pytest.mark.parametrize("case", ["buckling_only", "seeded", "scipy"])
+def test_driver_branches_cuda_match_cpu(cuda, case):
+    """``solve_collapse`` through the branches the buckling slice opened, in
+    float64 on the card against the CPU: GNL with ``nstep == 1`` (the
+    factors to 1e-10), GNL seeded with a blend of both modes of a 2 x 1
+    column (the perturbed coordinates to 1e-9 of ``max_imp``, the same
+    steps, ``lbd`` to 1e-8), and the scipy direct tier in small strain
+    (``lbd`` to 1e-10, no CG iteration)."""
+    if case == "scipy":
+        model = _tension_box(2)
+        params = ControlParams(sig_yield=60.0, nstep=3, error_max=1e-8, et_e=0.1, target_lf=99.0)
+        cfg_kw = dict(solver="scipy")
+    else:
+        model = _column_model(nx=6, ny=2, p=100.0)
+        params = ControlParams(gnl="GNLY", nstep=1) if case == "buckling_only" else ControlParams(
+            gnl="GNLY", nstep=3, max_imp=0.05, ev1=1.0, ev2=0.3, sig_yield=60.0, et_e=0.1,
+            error_max=1e-8, target_lf=99.0)
+        cfg_kw = {}
+    res = {device: solve_collapse(model, params, config=FcvmConfig(
+        device=device, dtype="float64", cg_rtol=1e-12, **cfg_kw)) for device in ("cpu", "cuda")}
+    cpu, gpu = res["cpu"], res["cuda"]
+    assert len(gpu.history.lbd) == len(cpu.history.lbd) == params.nstep + 1
+    if case == "scipy":
+        np.testing.assert_allclose(gpu.history.lbd, cpu.history.lbd, rtol=1e-10, atol=0)
+        assert gpu.cg_stats["iters"] == cpu.cg_stats["iters"] == 0
+        return
+    np.testing.assert_allclose(gpu.eigenvalues, cpu.eigenvalues, rtol=1e-10, atol=0)
+    if case == "seeded":
+        np.testing.assert_allclose(gpu.coords, cpu.coords, rtol=0, atol=1e-9 * 0.05)
+        np.testing.assert_allclose(gpu.history.lbd, cpu.history.lbd, rtol=1e-8, atol=0)

@@ -15,6 +15,8 @@ PORT_MODULES = [
     "fcvm_tpu_torch.ops.kernels",
     "fcvm_tpu_torch.ops.deflation",
     "fcvm_tpu_torch.runtime.driver",
+    "fcvm_tpu_torch.runtime.buckling",
+    "fcvm_tpu_torch.ops.solver",
     "fcvm_tpu_torch.tools.bw_probe",
     "fcvm_tpu_torch.models.meshgen",
     "chip_smoke",
