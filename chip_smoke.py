@@ -11,7 +11,8 @@ Phases, each printing its numbers before the next starts:
    torch and CUDA versions; float32 products must be full float32 (no TF32);
 2. build: compile the port's CUDA kernels from ``fcvm_tpu_torch/csrc``;
 3. kernel vs plain: K0 (``block_matvec``) against its plain PyTorch version
-   at the headline plate's element count, float32 and float64; K0m
+   and ``torch.bmm`` at the plate's and the beam-column's element counts
+   (``K0_SHAPES``), float32 and float64; K0m
    (``block_matmat``) against its plain version and ``torch.bmm`` at every
    shape the paths give it (``K0M_SHAPES``: the beam-column's element count
    with m = 1 to 8, 32 and 64, the plate's with m = 32), float32 and
@@ -53,7 +54,7 @@ Phases, each printing its numbers before the next starts:
    iterations), imperfection seeding and a few GNL steps; both factors
    within 3% of the clamped-free Euler value, the imperfection applied
    exactly, every step converged below the squash factor, and K0 and K0m
-   launched on the path;
+   launched on the path (K0 by dtype, K0m by dtype and column count);
 9b. the eigensolve in pieces on the same mesh: CUDA-event times of the
    geometric-block formation, one K_hat·V and one -G_hat·V at m = 8, the
    block preconditioner apply against 8 vector applies, and one pcg_block
@@ -427,12 +428,14 @@ def run_plate(big, cfg, label, gnl=False):
     torch.cuda.reset_peak_memory_stats()
     kernels.block_matvec.launches = 0
     kernels.block_matmat.launches = 0
+    kernels.block_matvec.dtypes.clear()
     stamps[0] = time.perf_counter()
     res = solve_collapse(big, plate_params(4, gnl), continuation=continuation,
                          progress=lines.append, monitor=monitor, config=cfg)
     torch.cuda.synchronize()
     launches = kernels.block_matvec.launches
     launches_k0m = kernels.block_matmat.launches
+    k0_dtypes = dict(kernels.block_matvec.dtypes)
     wall = time.perf_counter() - stamps[0]
     t = res.timers
     cs = cfg.resolve_cluster_size(big.mesh.n_nodes)
@@ -453,8 +456,8 @@ def run_plate(big, cfg, label, gnl=False):
           f"solves, {res.cg_stats['iters']} CG iterations ({step_iters} in {step_solves} "
           f"stepping solves), {1e3 * res.cg_stats['time'] / max(res.cg_stats['iters'], 1):.3f} "
           f"ms per CG iteration incl. stress updates, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K0 launches {launches}, "
-          f"K0m launches {launches_k0m}")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K0 launches {launches} "
+          f"{k0_dtypes}, K0m launches {launches_k0m}")
     lbd = np.asarray(h.lbd)
     check(not any("MAXIMUM RESTARTS" in ln for ln in lines), f"{label}: a load step did not converge")
     check(len(res.cg_stats["steps"]) == len(lbd) - 1 >= 4, f"{label}: fewer than 4 recorded steps")
@@ -468,7 +471,7 @@ def run_plate(big, cfg, label, gnl=False):
     check(launches > 0, f"{label}: K0 was not launched on the main path")
     return dict(lines=lines, cg_stats=res.cg_stats, res=res,
                 stepping=t["stepping"], step_iters=step_iters, step_solves=step_solves,
-                launches=launches, launches_k0m=launches_k0m, lbd=lbd)
+                launches=launches, launches_k0m=launches_k0m, k0_dtypes=k0_dtypes, lbd=lbd)
 
 
 def column_model(size, width, traction, length=COL_L):
@@ -492,6 +495,44 @@ def column_params(nstep):
 
     return ControlParams(gnl="GNLY", sig_yield=COL_SY, nstep=nstep, error_max=1e-5,
                          et_e=0.1, target_lf=99.0, max_imp=0.05, ev1=1.0, ev2=0.3)
+
+
+K0_SHAPES = (NE_BIG, NE_COL)  # element counts at which the paths launch K0
+
+
+def k0_phase():
+    """K0 against its plain version and ``torch.bmm`` at every ``K0_SHAPES``
+    entry, float32 and float64 (the float64 tiers launch it in float64);
+    CUDA-event medians.  Returns ``{(dtype, ne): numbers}``."""
+    from fcvm_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(0)
+    rows = {}
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        for ne in K0_SHAPES:
+            esm_t = torch.as_tensor(rng.standard_normal((30, 30, ne)), device="cuda").to(dtype)
+            ue_t = torch.as_tensor(rng.standard_normal((30, ne)), device="cuda").to(dtype)
+            out = kernels.block_matvec(esm_t, ue_t)
+            torch.cuda.synchronize()
+            ref = kernels.block_matvec_ref(esm_t, ue_t)
+            abs_err = float((out - ref).abs().max())
+            rel_err = abs_err / float(ref.abs().max())
+            ms = cuda_ms(kernels.block_matvec, esm_t, ue_t)
+            plain_ms = cuda_ms(kernels.block_matvec_ref, esm_t, ue_t)
+            gbs = esm_t.numel() * esm_t.element_size() / ms / 1e6
+            esm = esm_t.permute(2, 0, 1).contiguous()  # (ne, 30, 30), bmm's layout
+            bmm_ms = cuda_ms(torch.bmm, esm, ue_t.T.contiguous()[:, :, None])
+            bound_ms, bound_by = bound(960 * ne * esm_t.element_size(), 1800 * ne, dtype)
+            print(f"K0 {dtype} ne={ne}: max rel err {rel_err:.3e} (limit {tol:g}), kernel "
+                  f"{ms:.4f} ms ({gbs:.0f} GB/s esm read), plain {plain_ms:.4f} ms, bmm "
+                  f"{bmm_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} "
+                  "of it; median of 20")
+            check(rel_err <= tol, f"K0 disagrees with its plain version ({dtype}, ne={ne})")
+            rows[(dtype, ne)] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by, library_ms=bmm_ms)
+            del esm_t, esm, ue_t, out, ref
+    torch.cuda.empty_cache()
+    return rows
 
 
 K0M_SHAPES = (  # (ne, m) at which the paths launch K0m
@@ -573,6 +614,8 @@ def run_column(cfg):
     direct0 = (ScipyDirectSolver.factorizations, ScipyDirectSolver.solves)
     kernels.block_matvec.launches = 0
     kernels.block_matmat.launches = 0
+    kernels.block_matvec.dtypes.clear()
+    kernels.block_matmat.shapes.clear()
     with warnings.catch_warnings(record=True) as warned:
         warnings.simplefilter("always")
         stamps[0] = time.perf_counter()
@@ -581,6 +624,8 @@ def run_column(cfg):
         torch.cuda.synchronize()
     launches = {"block_matvec": kernels.block_matvec.launches,
                 "block_matmat": kernels.block_matmat.launches}
+    k0_dtypes = dict(kernels.block_matvec.dtypes)
+    k0m_shapes = {f"{dt} m={m}": n for (dt, m), n in sorted(kernels.block_matmat.shapes.items())}
     wall = time.perf_counter() - stamps[0]
     direct = (ScipyDirectSolver.factorizations - direct0[0], ScipyDirectSolver.solves - direct0[1])
     for w in warned:
@@ -625,7 +670,9 @@ def run_column(cfg):
     check(bool(np.isfinite(res.sig_gp).all()), "phase 9: stresses are not finite")
     check(launches["block_matvec"] > 0 and launches["block_matmat"] > 0,
           "phase 9: K0 or K0m was not launched on the path")
-    return launches
+    print(f"K0 launches by dtype {k0_dtypes}; K0m launches by dtype and m {k0m_shapes}")
+    return dict(launches=launches, k0_dtypes=k0_dtypes, k0m_shapes=k0m_shapes,
+                buckling=t["buckling"], stepping=t["stepping"], wall=wall, factors=lam.tolist())
 
 
 def column_breakdown(cfg):
@@ -725,33 +772,8 @@ def main():
     print(f"built and loaded {info.path} in {info.seconds:.2f} s (sm_90a, "
           "torch.ops.fcvm)")
 
-    phase(f"3 kernel vs plain, ne = {NE_BIG} ({smi})")
-    rng = np.random.default_rng(0)
-    k0 = {}
-    for dtype, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
-        esm_t = torch.as_tensor(rng.standard_normal((30, 30, NE_BIG)), device="cuda").to(dtype)
-        ue_t = torch.as_tensor(rng.standard_normal((30, NE_BIG)), device="cuda").to(dtype)
-        out = kernels.block_matvec(esm_t, ue_t)
-        torch.cuda.synchronize()
-        ref = kernels.block_matvec_ref(esm_t, ue_t)
-        abs_err = float((out - ref).abs().max())
-        rel_err = abs_err / float(ref.abs().max())
-        ms = cuda_ms(kernels.block_matvec, esm_t, ue_t)
-        plain_ms = cuda_ms(kernels.block_matvec_ref, esm_t, ue_t)
-        gbs = esm_t.numel() * esm_t.element_size() / ms / 1e6
-        print(f"{dtype}: max rel err {rel_err:.3e} (limit {tol:g}), kernel "
-              f"{ms:.4f} ms ({gbs:.0f} GB/s esm read), plain {plain_ms:.4f} ms, "
-              f"median of 20")
-        check(rel_err <= tol, f"K0 disagrees with its plain version in {dtype}")
-        esm = esm_t.permute(2, 0, 1).contiguous()  # (ne, 30, 30), bmm's layout
-        bmm_ms = cuda_ms(torch.bmm, esm, ue_t.T.contiguous()[:, :, None])
-        bound_ms, bound_by = bound(960 * NE_BIG * esm_t.element_size(), 1800 * NE_BIG, dtype)
-        print(f"  bmm {bmm_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{bound_ms / ms:.1%} of it")
-        k0[dtype] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=bmm_ms)
-        del esm_t, esm, ue_t, out, ref
-    torch.cuda.empty_cache()
+    phase(f"3 kernels vs plain, ne = {NE_BIG} and {NE_COL} ({smi})")
+    k0 = k0_phase()
     k0m = k0m_phase()
 
     phase(f"3b bandwidth probe: K0p and Kbw vs plain, then the probe ({smi})")
@@ -846,26 +868,34 @@ def main():
     del big, gnl
 
     phase("9 imperfect beam-column at 451,875 dof, GNL, float32, default configuration")
-    col_launches = run_column(cfg7)
+    col = run_column(cfg7)
 
     phase(f"9b the eigensolve in pieces, beam-column at 451,875 dof, float32 ({smi})")
     column_breakdown(cfg7)
     phase()
     print(f"all phases: {time.perf_counter() - t_start:.1f} s wall")
 
+    k0_source = dict(route="cuda", source="fcvm_tpu_torch/csrc/block_matvec.cu",
+                     replaces="fcvm_tpu/ops/pallas_kernels.py:60")
     print(json.dumps({"kernels": [{
-        "name": "block_matvec", "route": "cuda",
-        "source": "fcvm_tpu_torch/csrc/block_matvec.cu",
-        "replaces": "fcvm_tpu/ops/pallas_kernels.py:60",
+        "name": "block_matvec", "dtype": "float32", **k0_source,
         "launches": off["launches"], "launches_default": on["launches"],
-        "launches_gnl": gnl_launches[0], "launches_column": col_launches["block_matvec"],
-        **k0[torch.float32],
+        "launches_gnl": gnl_launches[0], "launches_column": col["k0_dtypes"].get("float32", 0),
+        "ne": NE_BIG, **k0[(torch.float32, NE_BIG)],
+        "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, **row}
+                   for (dtype, ne), row in k0.items()],
+    }, {
+        # the float64 tiers: the eigensolve's tier 2 on the beam-column
+        "name": "block_matvec", "dtype": "float64", **k0_source,
+        "launches": col["k0_dtypes"].get("float64", 0),
+        "ne": NE_COL, **k0[(torch.float64, NE_COL)],
     }, *probe_rows, {
         "name": "block_matmat", "route": "cuda",
         "source": "fcvm_tpu_torch/csrc/block_matmat.cu",
         "replaces": "fcvm_tpu/ops/pallas_kernels.py:60 under vmap; "
                     "fcvm_tpu/runtime/buckling.py:318",
-        "launches": col_launches["block_matmat"], "launches_plate": off["launches_k0m"],
+        "launches": col["launches"]["block_matmat"], "launches_by_shape": col["k0m_shapes"],
+        "launches_plate": off["launches_k0m"],
         "launches_default": on["launches_k0m"], "launches_gnl": gnl_launches[1],
         "ne": NE_COL, "m": 8, **k0m[(torch.float32, NE_COL, 8)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, "m": m, **row}

@@ -21,7 +21,9 @@ source.
 Dispatch is by the tensors' device: on CPU tensors a wrapper runs the plain
 version (``*_ref``), on CUDA tensors it launches the kernel or raises.  There
 is no fallback from a failed build or launch.  Each wrapper counts its
-kernel launches in its ``launches`` attribute.
+kernel launches in its ``launches`` attribute; K0 also counts them by dtype
+in ``block_matvec.dtypes``, K0m by dtype and column count in
+``block_matmat.shapes``.
 
 The kernels are compiled at first use by ``torch.utils.cpp_extension.load``
 (``nvcc`` for ``sm_90a``, the host compiler for the bindings) into
@@ -34,6 +36,7 @@ against PyTorch's headers.
 from __future__ import annotations
 
 import time
+from collections import Counter
 from pathlib import Path
 from typing import NamedTuple
 
@@ -119,10 +122,12 @@ def block_matvec(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:
     build()
     out = torch.ops.fcvm.block_matvec(esm_t, ue_t)
     block_matvec.launches += 1
+    block_matvec.dtypes[str(ue_t.dtype).removeprefix("torch.")] += 1
     return out
 
 
 block_matvec.launches = 0
+block_matvec.dtypes = Counter()  # launches by dtype name
 
 
 def block_matmat_ref(esm_t: torch.Tensor, ue: torch.Tensor) -> torch.Tensor:
@@ -169,10 +174,12 @@ def block_matmat(esm_t: torch.Tensor, ue: torch.Tensor) -> torch.Tensor:
     build()
     out = torch.ops.fcvm.block_matmat(esm_t, ue)
     block_matmat.launches += 1
+    block_matmat.shapes[(str(ue.dtype).removeprefix("torch."), ue.shape[2])] += 1
     return out
 
 
 block_matmat.launches = 0
+block_matmat.shapes = Counter()  # launches by (dtype name, m)
 
 
 def soa_matvec_ref(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:

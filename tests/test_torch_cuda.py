@@ -37,18 +37,23 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
-@pytest.mark.parametrize("ne", [1, 5003])
+@pytest.mark.parametrize("ne", [1, 100, 1003, 5003, 103_680])
 def test_block_matvec_kernel_matches_plain(cuda, dtype, ne):
-    """K0 on a ragged element count (no tile padding), counted once."""
+    """K0 on element counts below one tile of its ring (1, 100), not a
+    multiple of 4 (its one-value copies: 1003, 5003) and large enough that
+    each persistent block walks many tiles (103,680); two launches in a row
+    on different inputs, so stale ring contents would show; counted once
+    each."""
     rng = np.random.default_rng(2)
-    esm_t = torch.as_tensor(rng.normal(size=(30, 30, ne)), device=cuda).to(dtype)
-    ue_t = torch.as_tensor(rng.normal(size=(30, ne)), device=cuda).to(dtype)
     launches = kernels.block_matvec.launches
-    out = kernels.block_matvec(esm_t, ue_t)
-    torch.cuda.synchronize()
-    assert kernels.block_matvec.launches == launches + 1
-    ref = kernels.block_matvec_ref(esm_t, ue_t)
-    assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+    for _ in range(2):
+        esm_t = torch.as_tensor(rng.normal(size=(30, 30, ne)), device=cuda).to(dtype)
+        ue_t = torch.as_tensor(rng.normal(size=(30, ne)), device=cuda).to(dtype)
+        out = kernels.block_matvec(esm_t, ue_t)
+        torch.cuda.synchronize()
+        ref = kernels.block_matvec_ref(esm_t, ue_t)
+        assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+    assert kernels.block_matvec.launches == launches + 2
 
 
 def test_block_matvec_rejects_what_it_does_not_take(cuda):
@@ -206,24 +211,26 @@ def test_gnl_collapse_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
-@pytest.mark.parametrize("m", [1, 3, 4, 8, 37, 64])
-def test_block_matmat_kernel_matches_plain(cuda, dtype, m):
-    """K0m on a ragged element count (no tile padding) and column counts
-    that take each of its designs and variants in both dtypes: the narrow
-    design's scalar variant (m <= 3), its vector variant (m = 8 in float32,
-    4 in float64, one 32-byte sector) and the wide design, which stages the
-    blocks in shared memory (every other m); counted once, and each column
-    against K0 on that column as well."""
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8, 9, 31, 32, 33, 37, 64])
+@pytest.mark.parametrize("ne", [1, 1003, 103_680])
+def test_block_matmat_kernel_matches_plain(cuda, dtype, m, ne):
+    """K0m at every column count of its narrow ring (m = 1 to 8, float64 m
+    = 8 included) and across the boundaries of its wide ring (9, and 31 to
+    33 around one warp of columns), on one element (below a tile), a count
+    that is not a multiple of 4 (its one-value block copies) and 103,680
+    (many tiles a persistent block); two launches in a row on different
+    inputs, so stale ring contents would show; counted once each, and the
+    first and last columns against K0 on that column as well."""
     rng = np.random.default_rng(m)
-    ne = 1003
-    esm_t = torch.as_tensor(rng.normal(size=(30, 30, ne)), device=cuda).to(dtype)
-    ue = torch.as_tensor(rng.normal(size=(ne, 30, m)), device=cuda).to(dtype)
     launches = kernels.block_matmat.launches
-    out = kernels.block_matmat(esm_t, ue)
-    torch.cuda.synchronize()
-    assert kernels.block_matmat.launches == launches + 1
-    ref = kernels.block_matmat_ref(esm_t, ue)
-    assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+    for _ in range(2):
+        esm_t = torch.as_tensor(rng.normal(size=(30, 30, ne)), device=cuda).to(dtype)
+        ue = torch.as_tensor(rng.normal(size=(ne, 30, m)), device=cuda).to(dtype)
+        out = kernels.block_matmat(esm_t, ue)
+        torch.cuda.synchronize()
+        ref = kernels.block_matmat_ref(esm_t, ue)
+        assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+    assert kernels.block_matmat.launches == launches + 2
     for c in (0, m - 1):
         k0 = kernels.block_matvec(esm_t, ue[:, :, c].T.contiguous())
         assert float((out[:, :, c].T - k0).abs().max()) <= TOL[dtype] * float(k0.abs().max())

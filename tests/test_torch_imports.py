@@ -18,6 +18,7 @@ PORT_MODULES = [
     "fcvm_tpu_torch.runtime.buckling",
     "fcvm_tpu_torch.ops.solver",
     "fcvm_tpu_torch.tools.bw_probe",
+    "fcvm_tpu_torch.tools.turns",
     "fcvm_tpu_torch.models.meshgen",
     "chip_smoke",
 ]
@@ -49,6 +50,17 @@ def test_chip_smoke_fails_without_gpu():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_turns_fails_without_gpu():
+    """The in-turns timing script: no CUDA device, non-zero exit and no
+    JSON line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; turns.py would run in full")
+    proc = subprocess.run([sys.executable, "fcvm_tpu_torch/tools/turns.py", ".", "kernels"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"part"' not in proc.stdout
 
 
 def test_chip_smoke_fails_alone(tmp_path):

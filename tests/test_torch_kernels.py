@@ -1,7 +1,9 @@
-"""K0, the port's CUDA block matvec: its plain version against the Pallas
-TPU kernel (interpret mode), and the port's K_hat·v against the JAX
-package's.  The CUDA kernel itself is tested in ``test_torch_cuda.py``."""
+"""K0 and K0m, the port's CUDA block products: their plain versions against
+the Pallas TPU kernel (interpret mode) and, for K0m, the eigensolve's block
+einsum; and the port's K_hat·v against the JAX package's.  The CUDA kernels
+themselves are tested in ``test_torch_cuda.py``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +38,30 @@ def test_block_matvec_plain_matches_pallas(dtype):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=rtol, atol=atol)
     # CPU tensors take the plain version: no kernel launch is counted
     assert kernels.block_matvec.launches == launches
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("dtype", list(CASES))
+def test_block_matmat_plain_matches_jax(dtype, m):
+    """K0m's plain version on one tile of elements against K0 under
+    ``jax.vmap`` over the columns (interpret mode) and against the block
+    einsum of ``fcvm_tpu/runtime/buckling.py`` at HIGHEST precision."""
+    np_dt, rtol, atol = CASES[dtype]
+    rng = np.random.default_rng(m)
+    ne = pk.ELEM_TILE
+    esm_t = rng.normal(size=(30, 30, ne)).astype(np_dt)
+    ue = rng.normal(size=(ne, 30, m)).astype(np_dt)
+    cols = jnp.transpose(jnp.asarray(ue), (2, 1, 0))  # (m, 30, ne): K0's ue_t per column
+    by_col = jax.vmap(lambda u: pk.block_matvec(jnp.asarray(esm_t), u, interpret=True))(cols)
+    blocks = jnp.transpose(jnp.asarray(esm_t), (2, 0, 1)).reshape(ne, 10, 3, 30)
+    by_einsum = jnp.einsum("eabj,ejm->eabm", blocks, jnp.asarray(ue),
+                           precision=jax.lax.Precision.HIGHEST).reshape(ne, 30, m)
+    launches = kernels.block_matmat.launches
+    out = kernels.block_matmat(torch.as_tensor(esm_t), torch.as_tensor(ue))
+    assert out.dtype == torch.as_tensor(ue).dtype and kernels.block_matmat.launches == launches
+    np.testing.assert_allclose(out.numpy(), np.transpose(np.asarray(by_col), (2, 1, 0)),
+                               rtol=rtol, atol=atol)
+    np.testing.assert_allclose(out.numpy(), np.asarray(by_einsum), rtol=rtol, atol=atol)
 
 
 def _box_operator():
