@@ -58,7 +58,19 @@ Phases, each printing its numbers before the next starts:
 9b. the eigensolve in pieces on the same mesh: CUDA-event times of the
    geometric-block formation, one K_hat·V and one -G_hat·V at m = 8, the
    block preconditioner apply against 8 vector applies, and one pcg_block
-   iteration against one pcg iteration (wall, host sync included).
+   iteration against one pcg iteration (wall, host sync included);
+10. the case-file path at full size: a TOML case of the phase-5 plate with
+   a region ``y > 75`` twice as stiff and Sum groups on the loaded face and
+   edge, through ``load_case``, ``run_analysis`` (float32, default
+   configuration, no plots) and ``run_sum``, then the CLI's ``info`` and
+   ``sum``: the ``.out``/``.vtk``/``.avr`` written and read back, the face
+   area and edge length, phase 5's bars on the steps, a per-element
+   elasticity in the backend, K0 launched and the native formatter loaded;
+   the timers of every stage and of the host-side export pieces;
+10b. ``python -m fcvm_tpu_torch run --x64`` on the small plate with the same
+   region, on the GPU and with ``--cpu``: load factors and the ``.vtk``
+   fields to CLI_RTOL; then ``--resume`` from the first half of the GPU
+   run's checkpoints lands on the straight run's last ``.out`` row.
 
 Each phase prints its wall time.
 
@@ -72,8 +84,10 @@ from __future__ import annotations
 import json
 import math
 import subprocess
+import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -83,11 +97,19 @@ PLATE_SY, PLATE_SIGMA = 100.0, 50.0  # net-section limit LF (50-10)/50*100/50 = 
 PLATE_BIG = (54, 26, 14)  # n_circ, n_rad, n_thick -> 502,599 dof
 PLATE_SMALL = (10, 8, 1)
 NE_BIG = 117_936  # tet10 elements of PLATE_BIG
+NDOF_BIG = 502_599
 TOL_F32, TOL_F64 = 1e-5, 1e-12  # K0 vs plain: max |diff| / max |plain|
 # K0p: max |diff| / max |plain| on standard normal data; Kbw: relative
 # difference of the chunk sum on uniform [0, 1) data (no cancellation)
 TOL_K0P, TOL_KBW = 1e-5, 1e-5
 LBD_RTOL = 1e-9  # GPU vs CPU float64 load-factor histories
+# GPU vs CPU float64 through the CLI (phase 10b): it runs the default solver,
+# whose CG stops at a relative residual of 1e-6 (FcvmConfig.cg_rtol) with
+# deflation on, so the rounding of the two devices' reductions is carried
+# through every solve (measured 3e-12 to 3e-10 in lbd and up to 8.3e-10 in
+# the .vtk fields between runs of one tree); the bar is the solver's
+# tolerance, and phase 4 keeps LBD_RTOL at cg_rtol 1e-10
+CLI_RTOL = 1e-6
 # the default solver tiers off: Ritz deflation and the float32 precision tiers
 TIERS_OFF = dict(deflation=False, residual_refinement=False, precision_failover=False)
 # the beam-column of examples/imperfect_column_collapse.toml: 20 x 2 x 2, end
@@ -744,6 +766,272 @@ def column_breakdown(cfg):
     torch.cuda.empty_cache()
 
 
+def case_toml(size, nstep):
+    """The plate of ``examples/plate_with_hole.toml`` at ``size`` as a TOML
+    case with the control values of ``plate_params(nstep)``, a region
+    ``y > 75`` twice as stiff, and the Sum groups of the loaded face (area
+    250) and of its edge at z = 0 (length 50)."""
+    p = plate_params(nstep)
+    nc, nr, nt = size
+    return f"""name = "plate"
+[mesh.generator]
+kind = "plate_with_hole"
+radius = 10.0
+width = 50.0
+height = 100.0
+thickness = 5.0
+n_circ = {nc}
+n_rad = {nr}
+n_thick = {nt}
+[material]
+e = {E}
+nu = {NU}
+[[material.region]]
+where = "y > 75.0"
+e = {2 * E}
+[control]
+sig_yield = {p.sig_yield}
+nstep = {p.nstep}
+iterat_max = {p.iterat_max}
+error_max = {p.error_max}
+et_e = {p.et_e}
+target_lf = {p.target_lf}
+ultimate_strain = {p.ultimate_strain}
+[[bc]]
+where = "x < 1e-9"
+ux = 0.0
+[[bc]]
+where = "y < 1e-9"
+uy = 0.0
+[[bc]]
+where = "z < 1e-9"
+uz = 0.0
+[[load.face]]
+where = "y > 100.0 - 1e-6"
+traction = [0.0, {PLATE_SIGMA}, 0.0]
+[[sum.face]]
+name = "loaded_face"
+where = "y > 100.0 - 1e-6"
+[[sum.edge]]
+name = "loaded_edge_z0"
+where = "(y > 100.0 - 1e-6) & (z < 1e-9)"
+"""
+
+
+def out_rows(path):
+    """The history rows of a ``.out`` report, one per recorded step."""
+    return [ln for ln in Path(path).read_text().splitlines() if ln.strip()[:1].isdigit()]
+
+
+def run_cli(args):
+    """``python -m fcvm_tpu_torch`` in this process: (exit code, its output)."""
+    import contextlib
+    import io
+
+    from fcvm_tpu_torch.__main__ import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli([str(a) for a in args])
+    return rc, buf.getvalue()
+
+
+def case_phase(tmp, smi):
+    """Phase 10: the case-file path at full width on the card. A TOML case
+    of the 502,599-dof plate with a stiffer region goes ``load_case`` ->
+    ``run_analysis`` (float32, default configuration) -> ``run_sum``, with
+    the launch counts set to 0 just before ``run_analysis``; then the CLI's
+    ``info`` and ``sum`` run on the case and the files written. Returns the
+    launch counts."""
+    from fcvm_tpu_torch import FcvmConfig, native, run_analysis, run_sum
+    from fcvm_tpu_torch.models.casefile import load_case, parse_sum_groups
+    from fcvm_tpu_torch.ops import kernels, postproc
+    from fcvm_tpu_torch.runtime import driver
+    from fcvm_tpu_torch.runtime.viz import _clip_surface
+    from fcvm_tpu_torch.runtime.vtk import _elements_per_node, read_point_fields
+
+    case = tmp / "plate.toml"
+    case.write_text(case_toml(PLATE_BIG, 8))
+    outdir = tmp / "out"
+    t0 = time.perf_counter()
+    model, params = load_case(case)
+    t_load = time.perf_counter() - t0
+    mesh, mbe = model.mesh, model.materials_by_element
+    n_stiff = int((mbe[:, 0] == 2 * E).sum()) if mbe is not None else 0
+    print(f"load_case: {mesh.n_nodes} nodes, {mesh.n_elements} elements, {mesh.ndof} dof, "
+          f"{n_stiff} elements in the region, {t_load:.2f} s; native library "
+          f"{'loaded' if native.available() else 'NOT loaded'}")
+    check(mesh.ndof == NDOF_BIG and mesh.n_elements == NE_BIG, "phase 10: unexpected mesh size")
+    check(0 < n_stiff < NE_BIG, "phase 10: the region selects no element or every one")
+    check(native.available(), "phase 10: the native formatter did not load")
+
+    dmat_shapes = []
+
+    class Recording(driver.TorchSystem):
+        """The driver's backend, recording the shape of its elasticity."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            dmat_shapes.append(tuple(self.dmat.shape))
+
+    lines = []
+    backend = driver.TorchSystem
+    driver.TorchSystem = Recording
+    kernels.block_matvec.launches = 0
+    kernels.block_matmat.launches = 0
+    kernels.block_matvec.dtypes.clear()
+    try:
+        res = run_analysis(model, params, outdir=str(outdir), progress=lines.append,
+                           save_plots=False, config=FcvmConfig(device="cuda", dtype="float32"))
+        torch.cuda.synchronize()
+    finally:
+        driver.TorchSystem = backend
+    launches = kernels.block_matvec.launches, kernels.block_matmat.launches
+    k0_dtypes = dict(kernels.block_matvec.dtypes)
+    t0 = time.perf_counter()
+    sums = run_sum(model, res, params, *parse_sum_groups(case, model.mesh), outdir=str(outdir))
+    t_sum = time.perf_counter() - t0
+
+    t, h, cs = res.timers, res.history, res.cg_stats
+    print(f"run_analysis timers ({smi}): " + ", ".join(
+        f"{k} {t[k]:.3f} s" for k in ("assemble", "precond_build", "elastic_solve", "stepping",
+                                      "solve", "report", "vtk")))
+    print(f"run_sum {t_sum:.3f} s; {len(h.lbd) - 1} steps, lbd {np.round(h.lbd, 6).tolist()}, "
+          f"Newton per step {[s['newton'] for s in cs['steps']]}, {cs['iters']} CG iterations, "
+          f"backend elasticity {dmat_shapes}, K0 launches {launches[0]} {k0_dtypes}, "
+          f"K0m launches {launches[1]}")
+    for group, measure in (("faces", "area"), ("edges", "length")):
+        for name, row in sums[group].items():
+            print(f"sum {group} {name}: {measure} {row[measure]:.9f}, peeq {row['peeq']:.4e}, "
+                  f"csr {row['csr']:.4e}, svm {row['svm']:.4e}")
+
+    # the host side of the export, each piece timed alone on the same results
+    nn = mesh.n_nodes
+    t0 = time.perf_counter()
+    noce = _elements_per_node(mesh.elnodes, nn)
+    t_noce = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stress, *_ = postproc.map_stresses(params.averaged_option == "averaged", mesh.elnodes, nn,
+                                       res.sig_gp, res.peeq_gp, res.csr_gp, res.svm_gp, noce,
+                                       params.sig_yield)
+    t_map = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    postproc.principal_stresses(stress)
+    t_prin = time.perf_counter() - t0
+    proj = res.coords[:, 0]
+    t0 = time.perf_counter()
+    clip = _clip_surface(res.coords, mesh.elnodes, np.array([1.0, 0.0, 0.0]),
+                         proj.min() + 0.5 * (proj.max() - proj.min()))
+    t_clip = time.perf_counter() - t0
+    vtk = outdir / "plate.vtk"
+    t0 = time.perf_counter()
+    fields = read_point_fields(vtk)
+    t_read = time.perf_counter() - t0
+    edge_groups, face_groups = parse_sum_groups(case, model.mesh)
+    nodal = [fields[k] for k in ("Equivalent_Plastic_Strain", "Critical_Strain_Ratio",
+                                 "von_Mises_Stress")]
+    t0 = time.perf_counter()
+    postproc.integrate_faces(list(face_groups.values()), res.coords, *nodal)
+    t_faces = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    postproc.integrate_edges(list(edge_groups.values()), res.coords, *nodal)
+    t_edges = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_sum(model, res, params, edge_groups, face_groups)
+    t_sum2 = time.perf_counter() - t0
+    print(f"host side ({smi}): elements per node {t_noce:.3f} s, map_stresses "
+          f"({4 * NE_BIG} Gauss values) {t_map:.3f} s, principal_stresses {t_prin:.3f} s, "
+          f"clip surface ({len(clip)} faces) {t_clip:.3f} s, .vtk export {t['vtk']:.3f} s for "
+          f"{vtk.stat().st_size / 1e6:.1f} MB, read_point_fields {t_read:.3f} s, "
+          f"integrate_faces ({sum(map(len, face_groups.values()))} faces) {t_faces:.3f} s, "
+          f"integrate_edges ({sum(map(len, edge_groups.values()))} edges) {t_edges:.3f} s, "
+          f"run_sum again {t_sum2:.3f} s")
+
+    rc, out = run_cli(["info", case])
+    print("CLI info: " + "; ".join(out.splitlines()[1:3]))
+    check(rc == 0 and f"elements: {NE_BIG}" in out, "phase 10: the CLI's info failed")
+    avr = outdir / "plate.avr"
+    in_run = avr.read_bytes()
+    avr.unlink()
+    t0 = time.perf_counter()
+    rc, out = run_cli(["sum", case, "--outdir", outdir])
+    print(f"CLI sum {time.perf_counter() - t0:.3f} s (its load_case and .vtk read included)")
+    check(rc == 0 and avr.read_bytes() == in_run,
+          "phase 10: the CLI's sum did not rewrite the in-run .avr")
+
+    lbd = np.asarray(h.lbd)
+    check((outdir / "plate.out").exists() and vtk.exists(), "phase 10: .out or .vtk missing")
+    check(len(out_rows(outdir / "plate.out")) == len(lbd), "phase 10: not one .out row per step")
+    check(len(fields) == 12 and all(len(v) == nn for v in fields.values()),
+          f"phase 10: the .vtk holds {len(fields)} fields, not 12 at {nn} nodes")
+    face, edge = sums["faces"]["loaded_face"], sums["edges"]["loaded_edge_z0"]
+    check(abs(face["area"] / 250.0 - 1) <= 1e-6 and abs(edge["length"] / 50.0 - 1) <= 1e-6,
+          "phase 10: the Sum groups' area or length is wrong")
+    check(not any("MAXIMUM RESTARTS" in ln for ln in lines), "phase 10: a step did not converge")
+    check(len(cs["steps"]) == len(lbd) - 1 >= 4, "phase 10: fewer than 4 recorded steps")
+    check(bool(np.all(np.isfinite(lbd)) and np.all(np.diff(lbd) >= 0.0)),
+          "phase 10: load factors not finite or decreasing")
+    check(lbd.max() < 1.76, f"phase 10: peak load factor {lbd.max():.4f} above 1.76")
+    check(float(res.peeq_gp.max()) > 0.0, "phase 10: no plastic strain")
+    check(bool(dmat_shapes) and all(s == (NE_BIG, 6, 6) for s in dmat_shapes),
+          f"phase 10: the backend's elasticity is {dmat_shapes}, not per element")
+    check(launches[0] > 0, "phase 10: K0 was not launched on the path")
+    return dict(launches=launches[0], launches_k0m=launches[1])
+
+
+def cli_phase(tmp):
+    """Phase 10b: ``python -m fcvm_tpu_torch run`` on the small plate with
+    the region, float64, on the GPU and with ``--cpu``: the load factors
+    (read from the last checkpoint) and the ``.vtk`` fields to CLI_RTOL
+    (the default solver's tolerance); then the GPU run's checkpoints cut to the first half of its steps
+    and ``--resume`` for the rest: the last ``.out`` row equals the
+    straight run's."""
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.runtime.checkpoint import latest_step
+    from fcvm_tpu_torch.runtime.vtk import read_point_fields
+
+    case = tmp / "small.toml"
+    case.write_text(case_toml(PLATE_SMALL, 6))
+    lbd, fields = {}, {}
+    for dev in ("cuda", "cpu"):
+        args = ["run", case, "--x64", "--no-plots", "--checkpoint", "--outdir", tmp / dev]
+        launches = kernels.block_matvec.launches
+        t0 = time.perf_counter()
+        rc, out = run_cli(args + (["--cpu"] if dev == "cpu" else []))
+        launches = kernels.block_matvec.launches - launches
+        check(rc == 0 and "MAXIMUM RESTARTS" not in out, f"phase 10b: the {dev} run failed")
+        lbd[dev] = latest_step(tmp / dev / "checkpoints")[1]["lbd"]
+        fields[dev] = read_point_fields(tmp / dev / "plate.vtk")
+        print(f"CLI run --x64{' --cpu' if dev == 'cpu' else ''}: {time.perf_counter() - t0:.2f} s, "
+              f"lbd {np.round(lbd[dev], 6).tolist()}, K0 launches {launches}")
+        check((launches > 0) == (dev == "cuda"), f"phase 10b: K0 launches {launches} on {dev}")
+    check(len(lbd["cuda"]) == len(lbd["cpu"]) == 7, "phase 10b: step counts differ from 6")
+    diff = float(np.max(np.abs(lbd["cuda"] - lbd["cpu"]) / np.maximum(np.abs(lbd["cpu"]), 1e-300)))
+    fdiff, fname = max((float(np.abs(fields["cuda"][k] - v).max() / max(np.abs(v).max(), 1.0)), k)
+                       for k, v in fields["cpu"].items())
+    print(f"max rel lbd difference {diff:.3e}; max .vtk field difference {fdiff:.3e} of the "
+          f"field's largest value, in {fname} (limit {CLI_RTOL:g} for both)")
+    check(diff <= CLI_RTOL, "phase 10b: GPU and CPU load-factor histories disagree")
+    check(list(fields["cuda"]) == list(fields["cpu"]) and fdiff <= CLI_RTOL,
+          "phase 10b: GPU and CPU .vtk fields disagree")
+
+    ckdir = tmp / "cuda" / "checkpoints"
+    steps = sorted(ckdir.glob("step_*.npz"))
+    half = len(steps) // 2
+    for f in steps[half:]:  # what a run cut after the first half leaves
+        f.unlink()
+    t0 = time.perf_counter()
+    rc, out = run_cli(["run", case, "--x64", "--no-plots", "--steps", len(steps) - half,
+                       "--resume", ckdir, "--outdir", tmp / "resumed"])
+    straight, resumed = out_rows(tmp / "cuda" / "plate.out"), out_rows(tmp / "resumed" / "plate.out")
+    print(f"CLI run --resume from step {half} of {len(steps)}: {time.perf_counter() - t0:.2f} s; "
+          f"last .out row {resumed[-1].split() if resumed else None}")
+    check(rc == 0 and f"resuming from checkpoint step {half}" in out,
+          "phase 10b: the resumed run did not resume")
+    check(len(resumed) == len(straight) and resumed[-1] == straight[-1],
+          "phase 10b: the resumed run's last .out row differs from the straight run's")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: torch.cuda.is_available() is false; this "
@@ -872,6 +1160,14 @@ def main():
 
     phase(f"9b the eigensolve in pieces, beam-column at 451,875 dof, float32 ({smi})")
     column_breakdown(cfg7)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("10 case file at full size: load_case -> run_analysis -> run_sum, the CLI's "
+              "info and sum, float32, default configuration")
+        case = case_phase(Path(tmp), smi)
+
+        phase("10b CLI run --x64 on the GPU and with --cpu, small plate; checkpoint and resume")
+        cli_phase(Path(tmp))
     phase()
     print(f"all phases: {time.perf_counter() - t_start:.1f} s wall")
 
@@ -881,7 +1177,7 @@ def main():
         "name": "block_matvec", "dtype": "float32", **k0_source,
         "launches": off["launches"], "launches_default": on["launches"],
         "launches_gnl": gnl_launches[0], "launches_column": col["k0_dtypes"].get("float32", 0),
-        "ne": NE_BIG, **k0[(torch.float32, NE_BIG)],
+        "launches_case": case["launches"], "ne": NE_BIG, **k0[(torch.float32, NE_BIG)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, **row}
                    for (dtype, ne), row in k0.items()],
     }, {
@@ -897,7 +1193,7 @@ def main():
         "launches": col["launches"]["block_matmat"], "launches_by_shape": col["k0m_shapes"],
         "launches_plate": off["launches_k0m"],
         "launches_default": on["launches_k0m"], "launches_gnl": gnl_launches[1],
-        "ne": NE_COL, "m": 8, **k0m[(torch.float32, NE_COL, 8)],
+        "launches_case": case["launches_k0m"], "ne": NE_COL, "m": 8, **k0m[(torch.float32, NE_COL, 8)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, "m": m, **row}
                    for (dtype, ne, m), row in k0m.items()],
     }]}))

@@ -9,13 +9,17 @@ seeding), through :func:`solve_collapse`, and linear buckling alone through
 :func:`linear_buckling`, with the two-level-preconditioned CG solver (or the
 scipy direct tier) whose block stages are the hand-written CUDA kernels K0
 and K0m (:mod:`fcvm_tpu_torch.ops.kernels`, sources under ``csrc/``).
+:func:`run_analysis` and :func:`run_sum` (:mod:`fcvm_tpu_torch.api`) add
+the reference's output files (``.out``, ``.vtk``, ``.avr``, curves), and
+``python -m fcvm_tpu_torch run case.toml`` runs a TOML case file
+(:mod:`fcvm_tpu_torch.models.casefile`) through them.
 
 Options that are not ported yet raise :class:`NotImplementedError` naming
 the ROADMAP item that ports them.
 """
 
 from fcvm_tpu_torch.config import FcvmConfig
-from fcvm_tpu_torch.models.inp import ControlParams
+from fcvm_tpu_torch.models.inp import ControlParams, read_inp, write_inp
 from fcvm_tpu_torch.models.spec import (
     BoundaryConditions,
     Loads,
@@ -26,10 +30,13 @@ from fcvm_tpu_torch.models.spec import (
 )
 from fcvm_tpu_torch.runtime.buckling import EigensolveBreakdownError, linear_buckling
 from fcvm_tpu_torch.runtime.driver import AnalysisResults, solve_collapse
+from fcvm_tpu_torch.api import run_analysis, run_sum
 
 __all__ = [
     "FcvmConfig",
     "ControlParams",
+    "read_inp",
+    "write_inp",
     "Mesh",
     "Material",
     "BoundaryConditions",
@@ -40,4 +47,6 @@ __all__ = [
     "AnalysisResults",
     "linear_buckling",
     "EigensolveBreakdownError",
+    "run_analysis",
+    "run_sum",
 ]

@@ -1,0 +1,191 @@
+"""Command-line front end: ``python -m fcvm_tpu_torch <command> case.toml``.
+
+The port of :mod:`fcvm_tpu.__main__`, the batch equivalent of the reference
+workbench's Start / Save / Sum buttons (``InitGui.py:141-145``):
+
+  run     full collapse analysis -> .out, .vtk, .png (the Start button)
+  buckle  linear buckling factors + mode shapes
+  info    parse + validate a case, print the model summary
+  bench   quick per-step timing of the case on the current device
+  sum     post-hoc surface/edge averages from a finished run's .vtk
+          (the Sum button; reads [[sum.*]] groups from the case file)
+
+The analysis runs on the GPU (``FcvmConfig(device="cuda")``), and raises
+when there is none, unless ``--cpu`` asks for the CPU; ``--x64`` runs it in
+float64; ``--no-plots`` skips the matplotlib outputs of ``run`` (beyond
+the JAX package's CLI, for machines without matplotlib).  Not ported yet,
+and refused with ``NotImplementedError``: FreeCAD ``.FCStd`` documents
+(``models/fcstd.py``, ROADMAP Queue 1 item 12b) and the multi-process flags
+``--distributed``/``--coordinator``/``--num-processes``/``--process-id``
+(ROADMAP Queue 1 item 16); ``--devices N`` with N > 1 is refused by
+:meth:`FcvmConfig.check_supported`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="fcvm_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    for name in ("run", "buckle", "info", "bench", "sum"):
+        p = sub.add_parser(name)
+        p.add_argument("case", help="TOML case file (FreeCAD .FCStd: not ported yet)")
+        p.add_argument("--outdir", default="out")
+        p.add_argument("--x64", action="store_true", help="run in float64")
+        p.add_argument("--cpu", action="store_true", help="run on the CPU, not the GPU")
+        p.add_argument("--checkpoint", action="store_true",
+                       help="save every converged step under OUTDIR/checkpoints")
+        p.add_argument("--resume", default=None, metavar="DIR",
+                       help="resume from the latest step checkpoint in DIR "
+                       "(written by a previous --checkpoint run)")
+        p.add_argument("--steps", type=int, default=0, help="override nstep")
+        p.add_argument("--devices", type=int, default=0,
+                       help="number of devices (0 or 1: one GPU)")
+        p.add_argument("--gif", action="store_true", help="also write the orbital clip-view GIF")
+        p.add_argument("--no-plots", action="store_true",
+                       help="run: skip the .png curves and viewer bundle (which need "
+                       "matplotlib)")
+        p.add_argument("--distributed", action="store_true",
+                       help="multi-process run (not ported yet)")
+        p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                       help="with --distributed (not ported yet)")
+        p.add_argument("--num-processes", type=int, default=None)
+        p.add_argument("--process-id", type=int, default=None)
+    args = ap.parse_args(argv)
+
+    if args.distributed or args.coordinator is not None or args.num_processes is not None \
+            or args.process_id is not None:
+        raise NotImplementedError(
+            "--distributed/--coordinator/--num-processes/--process-id: the "
+            "multi-device backend (ROADMAP Queue 1 item 16) is not ported yet")
+    if str(args.case).lower().endswith(".fcstd"):
+        raise NotImplementedError(
+            f"{args.case}: FreeCAD documents (models/fcstd.py, ROADMAP Queue 1 "
+            "item 12b) are not ported yet; use a TOML case file")
+
+    from fcvm_tpu_torch.config import FcvmConfig
+    from fcvm_tpu_torch.models.casefile import load_case, parse_sum_groups
+
+    cfg = FcvmConfig(device="cpu" if args.cpu else "cuda",
+                     dtype="float64" if args.x64 else "float32",
+                     n_devices=args.devices)
+    cfg.check_supported()
+    model, params = load_case(args.case)
+    if args.steps:
+        params.nstep = args.steps
+
+    if args.cmd == "info":
+        m = model.mesh
+        fixmask, u_fix, movdof = model.bcs.masks(m.ndof)
+        print(f"model: {model.name}")
+        print(f"nodes: {m.n_nodes}  elements: {m.n_elements}  ndof: {m.ndof}")
+        print(f"material: E={model.material.e} nu={model.material.nu} "
+              f"rho={model.material.density}")
+        print(f"fixed dofs: {int((fixmask < 0.5).sum())}  "
+              f"driven dofs: {int(movdof.sum())}")
+        print(f"loads: {len(model.loads.pressure_faces)} pressure faces, "
+              f"{len(model.loads.traction_faces)} traction faces, "
+              f"{len(model.loads.vertices)} point loads, "
+              f"gravity {model.loads.gravity.tolist()}")
+        print(f"control: nstep={params.nstep} gnl={params.gnl} "
+              f"sig_yield={params.sig_yield} target_LF={params.target_lf}")
+        return 0
+
+    if args.cmd == "sum":
+        # Post-hoc Sum (fcVM_sum.FCMacro): the reference reads CSR/PEEQ/
+        # von Mises from the stored result object of a finished analysis;
+        # here they are read back from the run's exported .vtk (host only).
+        from pathlib import Path
+
+        from fcvm_tpu_torch.models.meshio_io import read_vtk
+        from fcvm_tpu_torch.ops import postproc
+        from fcvm_tpu_torch.runtime import report as report_mod
+        from fcvm_tpu_torch.runtime.vtk import read_point_fields
+
+        edge_groups, face_groups = parse_sum_groups(args.case, model.mesh)
+        if not (edge_groups or face_groups):
+            print("no [[sum.edge]]/[[sum.face]] groups in the case file", file=sys.stderr)
+            return 2
+        vtk_path = Path(args.outdir) / f"{model.name}.vtk"
+        if not vtk_path.exists():
+            print(f"{vtk_path} not found — run the analysis first", file=sys.stderr)
+            return 2
+        fields = read_point_fields(vtk_path)
+        peeq = fields["Equivalent_Plastic_Strain"]
+        csr = fields["Critical_Strain_Ratio"]
+        svm = fields["von_Mises_Stress"]
+        coords = read_vtk(vtk_path).coords  # run-time (possibly seeded) coords
+        e_names, f_names = list(edge_groups), list(face_groups)
+        e_len, (e_peeq, e_csr, e_svm) = postproc.integrate_edges(
+            [edge_groups[k] for k in e_names], coords, peeq, csr, svm)
+        f_area, (f_peeq, f_csr, f_svm) = postproc.integrate_faces(
+            [face_groups[k] for k in f_names], coords, peeq, csr, svm)
+        report_mod.write_avr(
+            vtk_path.with_suffix(".avr"), model.name,
+            e_names, e_len, e_peeq, e_csr, e_svm,
+            f_names, f_area, f_peeq, f_csr, f_svm,
+        )
+        print(f"wrote {vtk_path.with_suffix('.avr')}")
+        return 0
+
+    cfg.resolve_device()  # raises when the GPU was asked for and there is none
+    import fcvm_tpu_torch
+
+    if args.cmd == "buckle":
+        lam, vecs = fcvm_tpu_torch.linear_buckling(model, params, k=2, config=cfg)
+        print("buckling load factors:", lam)
+        return 0
+
+    if args.cmd == "run":
+        res = fcvm_tpu_torch.run_analysis(
+            model, params, outdir=args.outdir,
+            checkpoint=args.checkpoint, resume_from=args.resume,
+            progress=print, save_plots=not args.no_plots, config=cfg,
+        )
+        h = res.history
+        print(f"final load level: {h.lbd[-1]:.5f}  max |u|: {max(h.un):.5e}  "
+              f"PEEQ max: {h.peeqmax[-1]:.4e}  CSR max: {h.csr[-1]:.4e}")
+        if args.gif:
+            from fcvm_tpu_torch.ops import postproc
+            from fcvm_tpu_torch.runtime.viz import save_orbit_gif
+            from fcvm_tpu_torch.runtime.vtk import _elements_per_node
+
+            noce = _elements_per_node(model.mesh.elnodes, model.mesh.n_nodes)
+            _, _, csr_n, _, _ = postproc.map_stresses(
+                params.averaged_option == "averaged", model.mesh.elnodes,
+                model.mesh.n_nodes, res.sig_gp, res.peeq_gp, res.csr_gp,
+                res.svm_gp, noce, params.sig_yield,
+            )
+            save_orbit_gif(f"{args.outdir}/{model.name}_orbit.gif", res.coords,
+                           model.mesh.elnodes, csr_n)
+        print(f"wrote {args.outdir}/{model.name}.out .vtk" + ("" if args.no_plots else " .png"))
+        edge_groups, face_groups = parse_sum_groups(args.case, model.mesh)
+        if edge_groups or face_groups:
+            fcvm_tpu_torch.run_sum(model, res, params, edge_groups, face_groups,
+                                   outdir=args.outdir)
+            print(f"wrote {args.outdir}/{model.name}.avr")
+        return 0
+
+    if args.cmd == "bench":
+        t0 = time.time()
+        res = fcvm_tpu_torch.solve_collapse(model, params, config=cfg)
+        dt = time.time() - t0
+        nsteps = max(len(res.history.lbd) - 1, 1)
+        print(json.dumps({
+            "metric": "case_step_wall_ms",
+            "value": round(dt / nsteps * 1e3, 2),
+            "unit": "ms",
+            "steps": nsteps,
+            "cg_solves": res.cg_stats["solves"],
+            "cg_iters": res.cg_stats["iters"],
+        }))
+        return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,4 @@
-"""Analysis-control parameters: the reference's 21-line ``.inp`` schema.
+"""The reference's 21-line positional ``.inp`` control-file format.
 
 Schema (write: ``InitGui.py:253-276``; read: ``fcVM.FCMacro:73-96``):
 
@@ -10,13 +10,14 @@ Schema (write: ``InitGui.py:253-276``; read: ``fcVM.FCMacro:73-96``):
   6 iterat_max          13 ultimate_strain     20 ev1
   7 error_max           14 Et_E                21 ev2
 
-The file reader and writer (:func:`fcvm_tpu.models.inp.read_inp`) are not
-ported yet (ROADMAP Queue 1 item 12).
+The port's copy of :mod:`fcvm_tpu.models.inp`: the reader and writer
+give and take the same files as the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 
 @dataclasses.dataclass
@@ -53,3 +54,56 @@ class ControlParams:
     @property
     def gravity(self):
         return (self.grav_x, self.grav_y, self.grav_z)
+
+
+def read_inp(path) -> ControlParams:
+    """Parse a control file.
+
+    The bundled corpus contains files from earlier format revisions with
+    13-20 lines (the current reference driver cannot read those either — its
+    bare ``except`` at ``fcVM.FCMacro:97`` silently aborts); missing trailing
+    fields take the GUI defaults.
+    """
+    lines = Path(path).read_text(encoding="utf8").splitlines()
+    vals = [ln.strip() for ln in lines]
+    p = ControlParams()
+    fields = [
+        ("sig_yield", float), ("grav_x", float), ("grav_y", float),
+        ("grav_z", float), ("nstep", lambda s: int(float(s))),
+        ("iterat_max", lambda s: int(float(s))),
+        ("error_max", float), ("relax", float), ("scale_re", float),
+        ("scale_up", float), ("scale_dn", float), ("disp_output", str),
+        ("ultimate_strain", float), ("et_e", float), ("target_lf", float),
+        ("csr_option", str), ("averaged_option", str), ("gnl", str),
+        ("max_imp", float), ("ev1", float), ("ev2", float),
+    ]
+    for (name, conv), raw in zip(fields, vals):
+        setattr(p, name, conv(raw))
+    return p
+
+
+def write_inp(params: ControlParams, path) -> None:
+    lines = [
+        str(params.sig_yield),
+        str(params.grav_x),
+        str(params.grav_y),
+        str(params.grav_z),
+        str(params.nstep),
+        str(params.iterat_max),
+        str(params.error_max),
+        str(params.relax),
+        str(params.scale_re),
+        str(params.scale_up),
+        str(params.scale_dn),
+        params.disp_output,
+        str(params.ultimate_strain),
+        str(params.et_e),
+        str(params.target_lf),
+        params.csr_option,
+        params.averaged_option,
+        params.gnl,
+        str(params.max_imp),
+        str(params.ev1),
+        str(params.ev2),
+    ]
+    Path(path).write_text("\n".join(lines) + "\n", encoding="utf8")

@@ -60,6 +60,12 @@ class Mesh:
     def ndof(self) -> int:
         return 3 * self.n_nodes
 
+    def elements_per_node(self) -> np.ndarray:
+        """The reference's ``noce`` (``fcVM.py:183-185``): number of volume
+        elements adjacent to each node."""
+        return np.bincount(self.elnodes.reshape(-1),
+                           minlength=self.n_nodes).astype(np.int32)
+
     def select_nodes(self, predicate) -> np.ndarray:
         """Node ids where ``predicate(x, y, z)`` (vectorized) is true."""
         m = predicate(self.coords[:, 0], self.coords[:, 1], self.coords[:, 2])
@@ -159,6 +165,23 @@ class Mesh:
         sel = self.select_nodes(predicate)
         node_ok[sel] = True
         return bf[node_ok[bf].all(axis=1)]
+
+    def boundary_edges(self) -> np.ndarray:
+        """All unique line3 edges (corner, corner, midside) of the exterior
+        surface — the mesh entities behind the reference's edge queries
+        (``getEdgesByEdge``), in order of first appearance."""
+        bf = self.boundary_faces()
+        edges = np.concatenate([bf[:, [0, 1, 3]], bf[:, [1, 2, 4]], bf[:, [2, 0, 5]]], axis=0)
+        key = np.sort(edges[:, :2], axis=1)
+        _, first = np.unique(key, axis=0, return_index=True)
+        return edges[np.sort(first)].astype(np.int32)
+
+    def edges_on(self, predicate) -> np.ndarray:
+        """Boundary edges whose 3 nodes all satisfy the predicate."""
+        be = self.boundary_edges()
+        node_ok = np.zeros(self.n_nodes, dtype=bool)
+        node_ok[self.select_nodes(predicate)] = True
+        return be[node_ok[be].all(axis=1)]
 
 
 @dataclasses.dataclass

@@ -46,10 +46,11 @@ def _scatter(values: torch.Tensor, dofs: torch.Tensor, ndof: int) -> torch.Tenso
 
 def elastic_stiffness_blocks(coords, elnodes, dmat) -> torch.Tensor:
     """(ne, 30, 30) elastic element stiffness blocks (``fcVM.py:739-756``):
-    ``sum_g B_g^T D B_g w_g |J_g|``."""
+    ``sum_g B_g^T D B_g w_g |J_g|``; ``dmat`` (6, 6) or (ne, 6, 6) per
+    element."""
     det, _, bmat = el.tet10_element_geometry(coords[elnodes])
     scale = torch.as_tensor(el.W10, dtype=coords.dtype, device=coords.device) * det.abs()
-    db = torch.einsum("kl,egln->egkn", dmat, bmat)
+    db = mat.apply_dmat(dmat, bmat)
     return torch.einsum("egkm,egkn,eg->emn", bmat, db, scale)
 
 
@@ -60,16 +61,19 @@ def tangent_stiffness_blocks(coords_def, elnodes, dmat, sig_gp, pgp, g, h) -> to
     deviator of ``sig_gp`` (the stress at the start of the step, (ne, 4, 6))
     and ``fac = 3G / (1 + H/3G) / svm^2``; ``pgp`` (ne, 4) flags the
     plastic points.  Each element's block depends on its own rows only, so
-    the rows of ``elnodes``, ``sig_gp`` and ``pgp`` may come in any element
-    order."""
+    the rows of ``elnodes``, ``sig_gp`` and ``pgp`` (and of ``dmat`` (ne,
+    6, 6), ``g`` and ``h`` (ne,) when they are per element) may come in any
+    element order, the same for all."""
     det, _, bmat = el.tet10_element_geometry(coords_def[elnodes])
     scale = torch.as_tensor(el.W10, dtype=coords_def.dtype,
                             device=coords_def.device) * det.abs()
     dev, _, svm = mat.von_mises(sig_gp)
     svm = torch.where(svm == 0.0, torch.ones_like(svm), svm)
+    g, h = mat.per_gauss(g), mat.per_gauss(h)
     g3fac = 3.0 * g / (1.0 + h / (3.0 * g))
     fac = torch.where(pgp, g3fac / svm**2, torch.zeros_like(svm))
-    dmat_g = dmat - fac[..., None, None] * dev[..., :, None] * dev[..., None, :]
+    dmat_e = dmat if dmat.dim() == 2 else dmat[:, None]
+    dmat_g = dmat_e - fac[..., None, None] * dev[..., :, None] * dev[..., None, :]
     db = torch.einsum("egkl,egln->egkn", dmat_g, bmat)
     return torch.einsum("egkm,egkn,eg->emn", bmat, db, scale)
 
@@ -93,7 +97,8 @@ def geometric_stiffness_blocks(coords, elnodes, sig_gp) -> torch.Tensor:
 def gravity_load_and_gp_coords(coords, elnodes, density, grav, ndof):
     """Gravity nodal loads + Gauss point coordinates + mesh volume.
 
-    Integrates ``grav * rho * N_i w |J|`` per element (``fcVM.py:757-767``).
+    Integrates ``grav * rho * N_i w |J|`` per element (``fcVM.py:757-767``);
+    ``density`` is a number or (ne,) per element.
     """
     coords_el = coords[elnodes]  # (ne, 10, 3)
     dt, dev = coords.dtype, coords.device
@@ -103,7 +108,8 @@ def gravity_load_and_gp_coords(coords, elnodes, density, grav, ndof):
     xs = torch.einsum("eki,gjk->egij", coords_el, dshp)
     det = det3(xs)  # (ne, 4)
     scale = w[None, :] * det.abs()
-    gamma = torch.einsum("eg,gj,c->ejc", scale, shp, grav) * density
+    rho = density[:, None, None] if torch.is_tensor(density) and density.dim() == 1 else density
+    gamma = torch.einsum("eg,gj,c->ejc", scale, shp, grav) * rho
     nodes3 = 3 * elnodes[:, :, None] + torch.arange(3, device=dev)
     glv = _scatter(gamma, nodes3, ndof)
     gp_coords = torch.einsum("gj,eji->egi", shp, coords_el)  # (ne, 4, 3)

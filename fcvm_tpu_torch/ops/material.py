@@ -8,6 +8,10 @@ The port of :mod:`fcvm_tpu.ops.material`, batched over leading dimensions:
 
 The reference's inter-step hardening ``sig_yield += Et * DL`` (not the
 textbook ``H * DL``) is kept on purpose: results follow the reference.
+
+Material constants are numbers (one material) or (ne,) tensors (a model's
+``materials_by_element``): :func:`per_gauss` and :func:`apply_dmat` make
+either broadcast over the 4 Gauss points of every element.
 """
 
 from __future__ import annotations
@@ -35,6 +39,20 @@ def hooke_dmat(e, nu, dtype, device) -> torch.Tensor:
     for i, j in ((0, 1), (0, 2), (1, 2), (1, 0), (2, 0), (2, 1)):
         dmat[..., i, j] = od
     return dmat * dm[..., None, None]
+
+
+def per_gauss(x):
+    """A per-element (ne,) tensor as (ne, 1), to broadcast over the Gauss
+    points of (ne, 4) state; a number stays a number."""
+    return x[:, None] if torch.is_tensor(x) and x.dim() == 1 else x
+
+
+def apply_dmat(dmat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``D x`` over the last axis of ``x`` (ne, 4, 6, ...) for one (6, 6)
+    matrix or per-element (ne, 6, 6) matrices."""
+    if dmat.dim() == 2:
+        return torch.einsum("kl,egl...->egk...", dmat, x)
+    return torch.einsum("ekl,egl...->egk...", dmat, x)
 
 
 def shear_modulus(e, nu):

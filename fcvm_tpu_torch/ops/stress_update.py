@@ -60,7 +60,7 @@ def update_stress_load(coords, elnodes, dmat, sig_yield, disp, du, sig_old,
     Args:
       coords: (nn, 3) original nodal coordinates.
       elnodes: (ne, 10) 0-based connectivity.
-      dmat: (6, 6) elastic matrix.
+      dmat: (6, 6) elastic matrix, or (ne, 6, 6) per element.
       sig_yield: (ne, 4) current yield stresses.
       disp: (ndof,) total displacement at the start of the step (read only
         with ``large_disp``).
@@ -72,6 +72,7 @@ def update_stress_load(coords, elnodes, dmat, sig_yield, disp, du, sig_old,
       (sig_new, sig_test, pgp, qin): stresses (ne, 4, 6), trial stresses
       (ne, 4, 6), plastic flags (ne, 4), internal force (ndof,).
     """
+    e, nu = mat.per_gauss(e), mat.per_gauss(nu)
     g = mat.shear_modulus(e, nu)
     h = mat.hardening_modulus(e, et_e)
     coords_el = coords[elnodes]
@@ -88,7 +89,7 @@ def update_stress_load(coords, elnodes, dmat, sig_yield, disp, du, sig_old,
             "eia,egbi->egab", du_el, dshpg)
         s_conv = torch.einsum("egij,egjl,egkl->egik", f, voigt_to_tensor(sig_old), f)
         sig_c = _tensor_to_voigt(s_conv / det3(f)[..., None, None])
-    sig_test = sig_c + torch.einsum("kl,egl->egk", dmat, deps)
+    sig_test = sig_c + mat.apply_dmat(dmat, deps)
     sig_new, pgp = mat.radial_return(sig_test, sig_yield, h, g)
     qin = _internal_force(bmat, scale, sig_new, elnodes, disp.shape[0])
     return sig_new, sig_test, pgp, qin

@@ -34,11 +34,6 @@ class TorchSystem:
     """Single-device backend over :mod:`fcvm_tpu_torch.runtime.system`."""
 
     def __init__(self, model, cfg, dtype: torch.dtype, device: torch.device):
-        if model.materials_by_element is not None:
-            raise NotImplementedError(
-                "materials_by_element: per-element materials are not ported "
-                "yet (ROADMAP Queue 1 item 3)"
-            )
         self.cfg = cfg
         self.dtype = dtype
         self.device = device
@@ -46,9 +41,16 @@ class TorchSystem:
         self.mesh = mesh
         self.ne = mesh.n_elements
         self.ndof_pad = pad_ndof(mesh.ndof)
-        self.e = float(model.material.e)
-        self.nu = float(model.material.nu)
-        self.density = float(model.material.density)
+        if model.materials_by_element is not None:
+            # per-element (E, nu, rho): (ne,) tensors, dmat (ne, 6, 6); they
+            # reach elastic and tangent formation, the stress update, the
+            # damage update, gravity and the buckling pencil
+            mbe = model.materials_by_element
+            self.e, self.nu, self.density = (self.tensor(mbe[:, k]) for k in range(3))
+        else:
+            self.e = float(model.material.e)
+            self.nu = float(model.material.nu)
+            self.density = float(model.material.density)
         self.dmat = mat.hooke_dmat(self.e, self.nu, dtype, device)
         self.g = mat.shear_modulus(self.e, self.nu)
         self.elnodes = torch.as_tensor(mesh.elnodes.astype(np.int64), device=device)
@@ -177,7 +179,8 @@ class TorchSystem:
     def update_peeq_csr(self, sig_test, sig_new, sig_yield, peeq, csr, et_e,
                         ultimate_strain):
         return mat.update_peeq_csr(sig_test, sig_new, sig_yield, peeq, csr,
-                                   self.e, self.nu, et_e, ultimate_strain)
+                                   mat.per_gauss(self.e), mat.per_gauss(self.nu),
+                                   et_e, ultimate_strain)
 
     def record_stats(self, disp_new, csr, peeq, pressure, svm, triax, ecr):
         """Converged-step history scalars as host numbers."""

@@ -226,8 +226,9 @@ def buckling_from_arrays(
 
     Args:
       coords: (nn, 3) nodal coordinates; their dtype is the operands'.
-      elnodes: (ne, 10) connectivity; ``dmat`` (6, 6); ``fixmask`` (ndof,)
-        padded, 1 on free dofs.
+      elnodes: (ne, 10) connectivity; ``dmat`` (6, 6), or (ne, 6, 6) per
+        element in the order of ``elnodes``; ``fixmask`` (ndof,) padded, 1
+        on free dofs.
       sig_gp: (ne, 4, 6) pre-stress field (elastic stresses under the full
         reference load, ``fcVM.py:1195-1207``).
       space: optional :class:`fcvm_tpu_torch.runtime.system.SolveSpace`: the

@@ -58,7 +58,9 @@ from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.precond import COARSE_BUILD_STATS
 from fcvm_tpu_torch.runtime import system as sysm
 from fcvm_tpu_torch.runtime.backend import TorchSystem
+from fcvm_tpu_torch.runtime.checkpoint import latest_step, save_state
 from fcvm_tpu_torch.runtime.profiling import PhaseTimers
+from fcvm_tpu_torch.utils.indexing import pad_vector
 
 
 @dataclasses.dataclass
@@ -77,6 +79,22 @@ class History:
     csr: list = dataclasses.field(default_factory=lambda: [0.0])
     peeqmax: list = dataclasses.field(default_factory=lambda: [0.0])
     lbd: list = dataclasses.field(default_factory=lambda: [0.0])
+
+    def limits(self, ultimate_strain: float, use_csr: bool):
+        """(elastic limit index, ultimate limit index)
+        (``fcVM.py:1595-1612``)."""
+        csr = np.asarray(self.csr)
+        nz = np.nonzero(csr)[0]
+        el_limit = int(nz[0] - 1) if len(nz) else 0
+        if use_csr:
+            over = np.argwhere(csr > 1.0)
+        else:
+            over = np.argwhere(np.asarray(self.peeqmax) > ultimate_strain)
+        ul_limit = int(over[0][0] - 1) if len(over) else 0
+        return el_limit, ul_limit
+
+
+_HISTORY_FIELDS = tuple(f.name for f in dataclasses.fields(History))
 
 
 @dataclasses.dataclass
@@ -219,7 +237,12 @@ def solve_collapse(
         (reverse loading), ``("target", new_target_lf)``, ``("scale",
         disp_scale)``, or a list/tuple of those applied in order
         (``fcVM.py:2004-2080``).  Anything else raises ``ValueError``.
-      checkpoint_path, resume_from: not ported yet (raise).
+      checkpoint_path: if set, the state of every converged step is saved
+        there (:mod:`fcvm_tpu_torch.runtime.checkpoint`, the JAX package's
+        files: user element order, unpadded vectors).
+      resume_from: a directory of such checkpoints: the analysis continues
+        from the newest one (its state cast to this run's dtype) after the
+        elastic step, buckling and seeding have run again.
       progress: optional line logger (the reference's ``prn_upd``).
       monitor: optional per-converged-step observer
         ``(disp_nodes, history) -> None`` receiving the (nn, 3) total nodal
@@ -229,20 +252,18 @@ def solve_collapse(
 
     When a float32 run raises :class:`PrecisionFloorError` and
     ``config.precision_failover`` is on, the whole analysis reruns in
-    float64 (a warning says so); the callbacks then fire again from step 0.
+    float64 (a warning says so); the callbacks then fire again from step 0,
+    and the checkpoints, if any, are overwritten from step 1: the rerun does
+    not resume from the float32 run's own checkpoints.
 
     Returns:
       :class:`AnalysisResults`.
     """
     cfg = config if config is not None else FcvmConfig()
     cfg.check_supported()
-    if checkpoint_path is not None or resume_from is not None:
-        raise NotImplementedError(
-            "checkpoint_path/resume_from: checkpointing is not ported yet "
-            "(ROADMAP Queue 1 item 12)"
-        )
     try:
-        return _solve_collapse_impl(model, params, continuation, progress, monitor, cfg)
+        return _solve_collapse_impl(model, params, continuation, checkpoint_path,
+                                    resume_from, progress, monitor, cfg)
     except PrecisionFloorError as err:
         if not cfg.precision_failover or cfg.resolve_dtype() != torch.float32:
             raise
@@ -251,12 +272,13 @@ def solve_collapse(
         warnings.warn(msg)
         if progress is not None:
             progress(f"PRECISION FAILOVER: {msg}")
-        return _solve_collapse_impl(model, params, continuation, progress, monitor,
+        return _solve_collapse_impl(model, params, continuation, checkpoint_path, None,
+                                    progress, monitor,
                                     dataclasses.replace(cfg, dtype="float64"))
 
 
-def _solve_collapse_impl(model, params, continuation, progress, monitor,
-                         cfg: FcvmConfig) -> AnalysisResults:
+def _solve_collapse_impl(model, params, continuation, checkpoint_path, resume_from,
+                         progress, monitor, cfg: FcvmConfig) -> AnalysisResults:
     """The driver of :func:`solve_collapse`, in ``cfg``'s dtype."""
     device = cfg.resolve_device()
     dtype = cfg.resolve_dtype()
@@ -516,6 +538,29 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
     disp_scale = 1.0
     iterat_tot = 0
     eff_error_max = params.error_max
+    pgp = torch.zeros((backend.ne, 4), dtype=torch.bool, device=device)
+
+    if resume_from is not None:
+        # the converged state of an earlier run's newest checkpoint, in this
+        # run's dtype (a new capability against the reference, which has
+        # only the in-session GUI continuation loop, fcVM.py:1659-1686)
+        ck_step, st = latest_step(resume_from)
+        if ck_step is not None:
+            log(f"resuming from checkpoint step {ck_step}")
+
+            def vec(key):
+                return backend.tensor(pad_vector(st[key], backend.ndof_pad))
+
+            disp_new, disp_old, du = vec("disp_new"), vec("disp_old"), vec("du")
+            sig_new, sig_test, sig_yield, peeq, csr = (
+                backend.tensor(st[k]) for k in ("sig_new", "sig_test", "sig_yield", "peeq", "csr"))
+            pgp = torch.as_tensor(st["pgp"], dtype=torch.bool, device=device)
+            lbd = [float(v) for v in st["lbd"]]
+            step = len(lbd) - 2
+            dl = float(st["dl"]) if "dl" in st else lbd[-1] - lbd[-2]
+            history = History(**{k: [float(v) for v in st[f"hist_{k}"]]
+                                 for k in _HISTORY_FIELDS})
+            history.crip = [int(v) for v in history.crip]
 
     def do_residual(du_, lbd1):
         fn = backend.residual_refined if refined else backend.residual
@@ -564,6 +609,16 @@ def _solve_collapse_impl(model, params, continuation, progress, monitor,
         step_predictors.clear()
         if monitor is not None:
             monitor(_host(disp_new).reshape(-1, 3)[: mesh.n_nodes], history)
+        if checkpoint_path:
+            ndof = mesh.ndof
+            state = dict(
+                disp_new=_host(disp_new)[:ndof], disp_old=_host(disp_old)[:ndof],
+                du=_host(du)[:ndof], sig_new=_host(sig_new), sig_test=_host(sig_test),
+                sig_yield=_host(sig_yield), peeq=_host(peeq), csr=_host(csr),
+                pgp=_host(pgp), lbd=np.asarray(lbd), dl=np.asarray(dl))
+            for k in _HISTORY_FIELDS:
+                state[f"hist_{k}"] = np.asarray(getattr(history, k))
+            save_state(checkpoint_path, step + 1, state)
 
     def tangent_step():
         """GNL tangent refresh (fcVM.py:1351-1396): a new operator and

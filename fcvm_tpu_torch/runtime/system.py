@@ -251,12 +251,12 @@ def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
     f64 = torch.float64
     out_dt = glv.dtype
 
-    def c(x):
-        return x.to(f64)
+    def c(x):  # numbers (one material's E and nu) stay as they are
+        return x.to(f64) if torch.is_tensor(x) else x
 
     sig_new, sig_test, pgp, qin = update_stress_load(
         c(coords), elnodes, c(dmat), c(sig_yield), c(disp_new), c(du), c(sig_old),
-        e, nu, et_e, large_disp)
+        c(e), c(nu), et_e, large_disp)
     r = c(fixmask) * (c(lbd1) * c(glv) - qin)
     error = torch.linalg.vector_norm(r) / qnorm
     return (sig_new.to(out_dt), sig_test.to(out_dt), pgp, qin.to(out_dt),
@@ -272,8 +272,9 @@ def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTa
     ``fcVM.py:1351-1396``).
 
     The blocks are formed directly in the solve space's element order (the
-    Gauss state ``sig_old``/``pgp`` comes in user order and is permuted
-    with them); the two-level coarse correction of ``pc`` is kept and only
+    Gauss state ``sig_old``/``pgp``, and per-element ``dmat`` (ne, 6, 6),
+    ``g`` and ``h`` (ne,), come in user order and are permuted with them);
+    the two-level coarse correction of ``pc`` is kept and only
     the nodal blocks are rebuilt (:func:`refresh_blocks`).  A float64
     ``disp_new`` (the refinement tier's) is cast to the storage dtype of
     ``coords``: the tangent operator stays in it.
@@ -291,6 +292,8 @@ def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTa
     disp_new = disp_new.to(coords.dtype)
     coords_def = coords + disp_new.reshape(-1, 3)[: coords.shape[0]]
     eperm = space.eperm
+    if dmat.dim() == 3:  # per-element materials follow their elements
+        dmat, g, h = dmat[eperm], g[eperm], h[eperm]
     esm_m = asm.tangent_stiffness_blocks(coords_def, elnodes[eperm], dmat, sig_old[eperm],
                                          pgp[eperm], g, h)
     pc_t = refresh_blocks(pc, esm_m, space.elnodes_m, space.fixmask_m)

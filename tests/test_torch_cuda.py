@@ -338,3 +338,72 @@ def test_driver_branches_cuda_match_cpu(cuda, case):
     if case == "seeded":
         np.testing.assert_allclose(gpu.coords, cpu.coords, rtol=0, atol=1e-9 * 0.05)
         np.testing.assert_allclose(gpu.history.lbd, cpu.history.lbd, rtol=1e-8, atol=0)
+
+
+PLATE_CASE = """
+name = "plate"
+[mesh.generator]
+kind = "plate_with_hole"
+n_circ = 10
+n_rad = 8
+[material]
+e = 210000.0
+nu = 0.3
+[[material.region]]
+where = "y > 75.0"
+e = 420000.0
+[control]
+sig_yield = 100.0
+nstep = 6
+iterat_max = 20
+error_max = 5e-4
+target_lf = 1.62
+ultimate_strain = 0.25
+[[bc]]
+where = "x < 1e-9"
+ux = 0.0
+[[bc]]
+where = "y < 1e-9"
+uy = 0.0
+[[bc]]
+where = "z < 1e-9"
+uz = 0.0
+[[load.face]]
+where = "y > 100.0 - 1e-6"
+traction = [0.0, 50.0, 0.0]
+[[sum.face]]
+where = "y > 100.0 - 1e-6"
+"""
+
+
+def test_run_analysis_cuda_matches_cpu(cuda, tmp_path):
+    """The case-file path on the card: the small plate with a stiffer region,
+    ``load_case`` -> ``run_analysis`` -> ``run_sum`` in float64 on the GPU
+    against the CPU: the same steps, load factors to 1e-9, the exported
+    nodal fields and the face averages to 1e-9; K0 launched on the card
+    only."""
+    from fcvm_tpu_torch import run_analysis, run_sum
+    from fcvm_tpu_torch.models.casefile import load_case, parse_sum_groups
+    from fcvm_tpu_torch.runtime.vtk import read_point_fields
+
+    case = tmp_path / "plate.toml"
+    case.write_text(PLATE_CASE)
+    out = {}
+    for device in ("cpu", "cuda"):
+        model, params = load_case(case)
+        launches = kernels.block_matvec.launches
+        res = run_analysis(model, params, outdir=str(tmp_path / device), save_plots=False,
+                           config=FcvmConfig(device=device, dtype="float64", cg_rtol=1e-10))
+        sums = run_sum(model, res, params, *parse_sum_groups(case, model.mesh))
+        out[device] = (res, read_point_fields(tmp_path / device / "plate.vtk"), sums,
+                       kernels.block_matvec.launches - launches)
+    (cpu, f_cpu, s_cpu, k0_cpu), (gpu, f_gpu, s_gpu, k0_gpu) = out["cpu"], out["cuda"]
+    assert len(gpu.history.lbd) == len(cpu.history.lbd) == 7
+    np.testing.assert_allclose(gpu.history.lbd, cpu.history.lbd, rtol=1e-9, atol=0)
+    assert list(f_gpu) == list(f_cpu) and len(f_cpu) == 12
+    for k, want in f_cpu.items():
+        np.testing.assert_allclose(f_gpu[k], want, rtol=0, atol=1e-9 * max(np.abs(want).max(), 1))
+    np.testing.assert_allclose(s_gpu["faces"]["Face1"]["area"], 250.0, rtol=1e-12)
+    np.testing.assert_allclose(s_gpu["faces"]["Face1"]["svm"], s_cpu["faces"]["Face1"]["svm"],
+                               rtol=1e-9)
+    assert k0_cpu == 0 and k0_gpu > 0

@@ -103,11 +103,100 @@ def test_unported_options_raise(cfg_kw, param_kw, match):
         assert res.eigenvalues.shape == (2,) and np.all(res.eigenvalues < 0.0)
 
 
-def test_checkpointing_raises(tmp_path):
-    model = ft.model_from_arrays(tension_model())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.solve_collapse(model, ft.ControlParams(nstep=2), checkpoint_path=str(tmp_path),
-                          config=port_config())
+def _restart_params():
+    # tests/test_restart_resume.py:27-42: yield at LF 0.4, inside the first
+    # dl = 0.5, with 5 Newton iterations allowed
+    return dict(sig_yield=40.0, nstep=2, iterat_max=5, error_max=1e-5, et_e=0.0,
+                target_lf=99.0, scale_re=2.0)
+
+
+def _two_phase(first):
+    """A continuation that answers ``first`` once, then stops."""
+    calls = []
+
+    def cont(history, info):
+        calls.append(info)
+        return first(history) if len(calls) == 1 else "stop"
+
+    return cont
+
+
+CONTINUED = {  # control parameters, continuation factory, what the run must show
+    # tests/test_restart_resume.py:27: the divergence restart recovers
+    "restart": (_restart_params(), lambda: None, "RESTART"),
+    # tests/test_restart_resume.py:75: "rev" unloads after the first nstep
+    "rev": (dict(sig_yield=240.0, nstep=8, error_max=1e-9, et_e=0.1, target_lf=99.0),
+            lambda: _two_phase(lambda h: "rev"), None),
+    # ("target", v): a new target above the reached level resumes the loop
+    "target": (dict(sig_yield=240.0, nstep=4, error_max=1e-9, et_e=0.1, target_lf=99.0),
+               lambda: _two_phase(lambda h: ("target", h.lbd[-1] + 0.35)),
+               "REACHED TARGET LOAD"),
+}
+
+
+@pytest.mark.parametrize("case", list(CONTINUED))
+def test_continued_paths_match_jax(case, jax_cfg):  # noqa: F811
+    """The divergence restart, load reversal and a retarget against the JAX
+    driver: the same steps, Newton iterations (restarts included) and load
+    factors, and the path's own mark."""
+    kw, make_cont, mark = CONTINUED[case]
+    model = tension_model()
+    jax_cfg.cg_rtol = CG_RTOL
+    lines_ref, lines = [], []
+    ref = fcvm_tpu.solve_collapse(model, fcvm_tpu.ControlParams(**kw), continuation=make_cont(),
+                                  progress=lines_ref.append)
+    res = ft.solve_collapse(ft.model_from_arrays(model), ft.ControlParams(**kw),
+                            continuation=make_cont(), progress=lines.append,
+                            config=port_config(cg_rtol=CG_RTOL))
+    assert len(res.history.lbd) == len(ref.history.lbd) > 2
+    assert newton_per_step(lines) == newton_per_step(lines_ref)
+    np.testing.assert_allclose(res.history.lbd, ref.history.lbd, rtol=RTOL, atol=0)
+    np.testing.assert_allclose(res.peeq_gp, ref.peeq_gp, rtol=0,
+                               atol=RTOL * max(ref.peeq_gp.max(), 1e-12))
+    if mark is not None:
+        assert sum(mark in ln for ln in lines) == sum(mark in ln for ln in lines_ref) > 0
+    lbd = np.asarray(res.history.lbd)
+    if case == "restart":
+        assert abs(lbd.max() - 0.4) < 1e-3 and res.peeq_gp.max() > 0.0
+    elif case == "rev":
+        assert int(np.argmax(lbd)) < len(lbd) - 1 and res.peeq_gp.max() > 0.0
+    else:
+        assert abs(lbd[-1] - (lbd[4] + 0.35)) < 1e-12
+
+
+@pytest.mark.parametrize("first_dtype", ["float64", "float32"])
+def test_checkpoint_resume_matches_jax(tmp_path, jax_cfg, first_dtype):  # noqa: F811
+    """tests/test_restart_resume.py:58: 5 steps with checkpoints, then a
+    resume for 5 more, equal a straight run of 10; the JAX driver resumed
+    from the port's checkpoints lands on the same state.  Checkpoints of a
+    float32 run resume in float64 on both sides (cast as they are read)."""
+    kw = dict(sig_yield=240.0, nstep=5, error_max=1e-10, et_e=0.1, target_lf=99.0)
+    model, pmodel = tension_model(), ft.model_from_arrays(tension_model())
+    cfg = port_config(cg_rtol=CG_RTOL)
+    jax_cfg.cg_rtol = CG_RTOL
+    ck = str(tmp_path / "ck")
+    # a float32 run converges to its own floor, not to 1e-10
+    kw_first = {**kw, "error_max": 1e-10 if first_dtype == "float64" else 1e-5}
+    first = ft.solve_collapse(pmodel, ft.ControlParams(**kw_first), checkpoint_path=ck,
+                              config=port_config(cg_rtol=CG_RTOL, dtype=first_dtype))
+    assert len(first.history.lbd) == 6 and len(list((tmp_path / "ck").iterdir())) == 5
+    lines = []
+    resumed = ft.solve_collapse(pmodel, ft.ControlParams(**kw), resume_from=ck,
+                                progress=lines.append, config=cfg)
+    assert "resuming from checkpoint step 5" in lines
+    ref = fcvm_tpu.solve_collapse(model, fcvm_tpu.ControlParams(**kw), resume_from=ck)
+    assert len(resumed.history.lbd) == len(ref.history.lbd) == 11
+    np.testing.assert_allclose(resumed.history.lbd, ref.history.lbd, rtol=RTOL, atol=0)
+    np.testing.assert_allclose(resumed.disp_total, ref.disp_total, rtol=0,
+                               atol=RTOL * np.abs(ref.disp_total).max())
+    np.testing.assert_allclose(resumed.peeq_gp, ref.peeq_gp, rtol=0, atol=RTOL * ref.peeq_gp.max())
+    assert resumed.sig_gp.dtype == np.float64 and ref.peeq_gp.max() > 0.0
+    if first_dtype == "float64":
+        full = ft.solve_collapse(pmodel, ft.ControlParams(**kw), config=cfg,
+                                 continuation=lambda h, i: "add" if len(h.lbd) <= 6 else "stop")
+        np.testing.assert_allclose(resumed.history.lbd, full.history.lbd, rtol=1e-9)
+        np.testing.assert_allclose(resumed.disp_total, full.disp_total, rtol=1e-6, atol=1e-12)
+        np.testing.assert_allclose(resumed.peeq_gp, full.peeq_gp, rtol=1e-6, atol=1e-15)
 
 
 def test_default_config_matches_jax():

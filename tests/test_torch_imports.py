@@ -20,6 +20,15 @@ PORT_MODULES = [
     "fcvm_tpu_torch.tools.bw_probe",
     "fcvm_tpu_torch.tools.turns",
     "fcvm_tpu_torch.models.meshgen",
+    "fcvm_tpu_torch.api",
+    "fcvm_tpu_torch.__main__",
+    "fcvm_tpu_torch.models.casefile",
+    "fcvm_tpu_torch.models.meshio_io",
+    "fcvm_tpu_torch.native",
+    "fcvm_tpu_torch.ops.postproc",
+    "fcvm_tpu_torch.runtime.vtk",
+    "fcvm_tpu_torch.runtime.viz",
+    "fcvm_tpu_torch.runtime.plots",
     "chip_smoke",
 ]
 
@@ -50,6 +59,21 @@ def test_chip_smoke_fails_without_gpu():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_cli_run_without_gpu_fails(tmp_path):
+    """``python -m fcvm_tpu_torch run case.toml`` without ``--cpu`` asks for
+    the GPU: with none, a non-zero exit and no report written."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the CLI would run on it")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "fcvm_tpu_torch", "run", "examples/uniaxial_tension.toml",
+         "--outdir", str(out)], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is false" in proc.stderr
+    assert not out.exists() or not list(out.glob("*.out"))
 
 
 def test_turns_fails_without_gpu():
