@@ -70,7 +70,27 @@ Phases, each printing its numbers before the next starts:
 10b. ``python -m fcvm_tpu_torch run --x64`` on the small plate with the same
    region, on the GPU and with ``--cpu``: load factors and the ``.vtk``
    fields to CLI_RTOL; then ``--resume`` from the first half of the GPU
-   run's checkpoints lands on the straight run's last ``.out`` row.
+   run's checkpoints lands on the straight run's last ``.out`` row;
+11. the phase-7 plate and steps with the cluster block-Cholesky smoother
+   (``smoother="cluster"``, 64-node clusters): phase 5's checks, one
+   smoother per operator, the stepping time, CG iterations and ms per CG
+   iteration against phase 7's; then the smoother's pieces (the build with
+   and without it and the memory it adds, its accumulate and factorization,
+   its apply against block Jacobi's and against the bound of reading its
+   inverses once);
+11b. the same with ``gnl="GNLY"`` (``max_imp = 0``): the tangent refreshes
+   keep the elastic smoother (one build per analysis), against phase 8;
+11c. the small plate in float64 with the smoother on the GPU and on the
+   CPU at ``cg_rtol`` 1e-10, small strain and GNL: the load factors to
+   LBD_RTOL;
+12. a synthetic FreeCAD ``.FCStd`` document of the phase-5 plate
+   (``fcvm_tpu_torch.tools.fcstd_doc``: symmetry planes as Displacement
+   constraints, a Fixed corner, a Force on the top face) through
+   ``python -m fcvm_tpu_torch run doc.FCStd --inp doc.inp --x64`` on the
+   GPU against the same model's TOML case through the CLI: the load
+   factors to CLI_RTOL, no ``.avr`` for the document, phase 5's bars on the
+   steps, K0 launched; the host times of ``read_fcstd``, the resolver and
+   ``build_model``.
 
 Each phase prints its wall time.
 
@@ -81,6 +101,7 @@ with its launches, error and times.
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import math
 import subprocess
@@ -1032,13 +1053,193 @@ def cli_phase(tmp):
           "phase 10b: the resumed run's last .out row differs from the straight run's")
 
 
+def smoother_breakdown(model, cfg):
+    """Print the cluster smoother's pieces on ``model`` with ``cfg``
+    (``smoother="cluster"``): the preconditioner build with and without it
+    (wall, synchronised) and the device memory each adds, the smoother's
+    accumulate and batched Cholesky inverse alone, and the apply of the
+    fine level and of the whole preconditioner against block Jacobi's, in
+    the run's dtype and with the inverses in float64; CUDA-event medians
+    against the bound of reading the inverses once."""
+    import dataclasses
+
+    from fcvm_tpu_torch.ops import assembly as asm
+    from fcvm_tpu_torch.ops import precond as pre
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    backend = TorchSystem(model, cfg, cfg.resolve_dtype(), cfg.resolve_device())
+    esm, pinv, _, rhs, *_ = backend.assemble(backend.tensor(model.mesh.coords))
+    builds = {}
+    for name, c in (("jacobi3", dataclasses.replace(cfg, smoother="jacobi3")), ("cluster", cfg)):
+        backend.cfg = c
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pc = backend.make_pc(esm, pinv)
+        torch.cuda.synchronize()
+        builds[name] = (time.perf_counter() - t0, (torch.cuda.memory_allocated() - base) / 2**20,
+                        (torch.cuda.max_memory_allocated() - base) / 2**20)
+    backend.cfg = cfg
+    check(pc.smooth_inv is not None, "phase 11: the cluster smoother was not built")
+    sp, cs = backend.space, cfg.smoother_cluster_nodes
+    esm_m = esm[sp.eperm]
+    del esm, pinv
+    ncl, m, _ = pc.smooth_inv.shape
+    blocks = pre.cluster_diag_blocks(esm_m, sp.elnodes_m, sp.fixmask_m, cs)
+    rows = [
+        (f"smoother accumulate ({ncl}, {m}, {m}) by index_add_ [median of 5]",
+         cuda_ms(lambda: pre.cluster_diag_blocks(esm_m, sp.elnodes_m, sp.fixmask_m, cs), runs=5)),
+        ("smoother batched cholesky_ex + cholesky_inverse [median of 5]",
+         cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(blocks)[0]), runs=5)),
+    ]
+    del blocks, esm_m
+    u = sp.to_m(rhs)
+    jacobi = pc._replace(smooth_inv=None)
+    inv64, u64 = pc.smooth_inv.double(), u.double()
+    apply = {
+        "cluster": cuda_ms(pc.fine, u),
+        "jacobi3": cuda_ms(asm.apply_block_precond, pc.pinv, u),
+        "cluster64": cuda_ms(lambda: torch.bmm(inv64, u64.view(ncl, m, 1))),
+        "whole_cluster": cuda_ms(pc.apply, u),
+        "whole_jacobi3": cuda_ms(jacobi.apply, u),
+    }
+    del inv64, u64
+    nbytes = pc.smooth_inv.numel() * pc.smooth_inv.element_size()
+    b32 = bound(nbytes + 2 * u.numel() * u.element_size(), 2 * pc.smooth_inv.numel(), u.dtype)
+    b64 = bound(2 * nbytes + 2 * u.numel() * 8, 2 * pc.smooth_inv.numel(), torch.float64)
+    rows += [
+        (f"fine level: cluster smoother bmm ({ncl}, {m}, {m}) x ({ncl}, {m}, 1), masks "
+         f"included; bound {b32[0]:.4f} ms ({b32[1]}), {b32[0] / apply['cluster']:.1%} of it",
+         apply["cluster"]),
+        ("fine level: block Jacobi (3x3 nodal blocks)", apply["jacobi3"]),
+        (f"fine level: the bmm in float64; bound {b64[0]:.4f} ms ({b64[1]}), "
+         f"{b64[0] / apply['cluster64']:.1%} of it", apply["cluster64"]),
+        ("preconditioner apply with the cluster smoother", apply["whole_cluster"]),
+        ("preconditioner apply with block Jacobi", apply["whole_jacobi3"]),
+    ]
+    for name, (wall, resident, peak) in builds.items():
+        print(f"preconditioner build, smoother {name}: {wall:.3f} s wall, resident "
+              f"{resident:.1f} MiB, peak {peak:.1f} MiB above what was allocated before")
+    print(f"smoother inverses: {nbytes / 1e6:.1f} MB ({ncl} clusters of {cs} nodes)")
+    print("CUDA-event times, median of 20 runs unless marked:")
+    for name, ms in rows:
+        print(f"{name}: {ms:.4f} ms")
+    del pc, jacobi, backend
+    torch.cuda.empty_cache()
+
+
+def cluster_small_phase():
+    """Phase 11c: the small plate in float64 with the cluster smoother on the
+    GPU and on the CPU at cg_rtol 1e-10, small strain and GNL, as phase 4:
+    the load-factor histories to LBD_RTOL, one smoother built per run."""
+    from fcvm_tpu_torch import FcvmConfig, solve_collapse
+    from fcvm_tpu_torch.ops.precond import COARSE_BUILD_STATS
+
+    small = plate_model(PLATE_SMALL)
+    for gnl in (False, True):
+        lbds = {}
+        for dev in ("cuda", "cpu"):
+            cfg = FcvmConfig(device=dev, dtype="float64", cg_rtol=1e-10, smoother="cluster",
+                             **TIERS_OFF)
+            builds = COARSE_BUILD_STATS["smoother_builds"]
+            t0 = time.perf_counter()
+            res = solve_collapse(small, plate_params(6, gnl), config=cfg)
+            lbds[dev] = np.asarray(res.history.lbd)
+            built = COARSE_BUILD_STATS["smoother_builds"] - builds
+            print(f"{'GNL' if gnl else 'small strain'}, {dev}: {time.perf_counter() - t0:.2f} s, "
+                  f"lbd {lbds[dev].round(6).tolist()}, {res.cg_stats['iters']} CG iterations, "
+                  f"smoother builds {built}, predictor solves {res.cg_stats['predictor_solves']}")
+            check(built == 1, f"phase 11c: {built} smoother builds on {dev}, not 1")
+        check(len(lbds["cuda"]) == len(lbds["cpu"]) == 7, "phase 11c: step counts differ from 6")
+        diff = float(np.max(np.abs(lbds["cuda"] - lbds["cpu"])
+                            / np.maximum(np.abs(lbds["cpu"]), 1e-300)))
+        print(f"max rel lbd difference {diff:.3e} (limit {LBD_RTOL:g})")
+        check(diff <= LBD_RTOL, "phase 11c: GPU and CPU load-factor histories disagree")
+
+
+FCSTD_NSTEP = 6  # the document's .inp: six steps, the last three plastic
+
+
+def fcstd_phase(tmp, smi):
+    """Phase 12: a synthetic FreeCAD document of the 502,599-dof plate
+    (``fcvm_tpu_torch.tools.fcstd_doc``) through the CLI on the card, in
+    float64 (``--x64``), against the same model from its TOML case: the
+    load factors (from each run's last checkpoint) to CLI_RTOL. Host times of writing the document,
+    ``read_fcstd``, the resolver and ``build_model``, and of each CLI run;
+    the launch counts set to 0 just before the document's run. Returns
+    them."""
+    from fcvm_tpu_torch.models import fcstd
+    from fcvm_tpu_torch.models.inp import read_inp
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.runtime.checkpoint import latest_step
+    from fcvm_tpu_torch.tools import fcstd_doc
+
+    t0 = time.perf_counter()
+    params = plate_params(FCSTD_NSTEP)
+    mesh, (doc, inp, toml) = fcstd_doc.plate_document(tmp / "doc", PLATE_BIG, params,
+                                                      sigma=PLATE_SIGMA, e=E, nu=NU)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = fcstd.read_fcstd(doc)
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fcstd.CloudResolver(parsed.mesh)
+    t_resolver = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = fcstd.build_model(parsed, read_inp(inp))
+    t_build = time.perf_counter() - t0
+    nfix = int((model.bcs.masks(model.mesh.ndof)[0] < 0.5).sum())
+    print(f"document {doc.stat().st_size / 1e6:.1f} MB written in {t_write:.2f} s; read_fcstd "
+          f"{t_read:.2f} s ({parsed.mesh.n_nodes} nodes, {len(parsed.constraints)} constraints); "
+          f"CloudResolver {t_resolver:.2f} s; build_model (its resolver included) {t_build:.2f} "
+          f"s: {nfix} fixed dofs, {len(model.loads.traction_faces)} loaded faces ({smi})")
+    check(model.mesh.ndof == NDOF_BIG and len(model.loads.traction_faces) > 0 and nfix > 0,
+          "phase 12: the document resolved to the wrong model")
+    del parsed, model
+    lbd, walls = {}, {}
+    for tag, case in (("fcstd", [doc, "--inp", inp]), ("toml", [toml])):
+        if tag == "fcstd":
+            kernels.block_matvec.launches = 0
+            kernels.block_matmat.launches = 0
+        t0 = time.perf_counter()
+        rc, out = run_cli(["run", *case, "--x64", "--no-plots", "--checkpoint", "--outdir",
+                           tmp / tag])
+        walls[tag] = time.perf_counter() - t0
+        if tag == "fcstd":
+            launches = kernels.block_matvec.launches, kernels.block_matmat.launches
+        check(rc == 0 and "MAXIMUM RESTARTS" not in out, f"phase 12: the {tag} run failed")
+        lbd[tag] = latest_step(tmp / tag / "checkpoints")[1]["lbd"]
+        check(len(out_rows(tmp / tag / "plate.out")) == len(lbd[tag]),
+              f"phase 12: the {tag} run's .out has not one row per step")
+        final = [ln for ln in out.splitlines() if ln.startswith("final load level")][-1]
+        print(f"CLI run {tag} --x64: {walls[tag]:.2f} s wall; lbd {np.round(lbd[tag], 6).tolist()}; "
+              f"{final}")
+        check(float(final.split("PEEQ max:")[1].split()[0]) > 0.0, f"phase 12: the {tag} run "
+              "stayed elastic")
+    check(not (tmp / "fcstd" / "plate.avr").exists(), "phase 12: an .avr was written for a document")
+    check(len(lbd["fcstd"]) == len(lbd["toml"]) == FCSTD_NSTEP + 1,
+          "phase 12: the histories have different or wrong lengths")
+    diff = float(np.max(np.abs(lbd["fcstd"] - lbd["toml"]) / np.maximum(np.abs(lbd["toml"]), 1e-300)))
+    print(f"max rel lbd difference, document against TOML: {diff:.3e} (limit {CLI_RTOL:g}); "
+          f"K0 launches {launches[0]}, K0m launches {launches[1]}")
+    check(diff <= CLI_RTOL, "phase 12: the document's history differs from the TOML case's")
+    check(bool(np.all(np.diff(lbd["fcstd"]) >= 0.0)) and lbd["fcstd"].max() < 1.76,
+          "phase 12: load factors decreasing or above 1.76")
+    check(launches[0] > 0, "phase 12: K0 was not launched on the path")
+    return dict(launches=launches[0], launches_k0m=launches[1], t_read=t_read,
+                t_resolver=t_resolver, t_build=t_build, walls=walls)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: torch.cuda.is_available() is false; this "
                          "script runs the port on an NVIDIA GPU")
+    faulthandler.enable()  # a crash in native code prints where it happened
     from fcvm_tpu_torch import ControlParams, FcvmConfig, linear_buckling, solve_collapse
     from fcvm_tpu_torch.config import pin_full_fp32
     from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.ops.precond import COARSE_BUILD_STATS
 
     t_start = time.perf_counter()
     phase("1 device")
@@ -1152,8 +1353,7 @@ def main():
           f"= {gnl['stepping'] / on['stepping']:.3f}")
 
     phase(f"8b one tangent refresh in pieces, plate at full size, float32 ({smi})")
-    refresh_breakdown(big, cfg7, gnl["res"])
-    del big, gnl
+    refresh_breakdown(big, cfg7, gnl.pop("res"))
 
     phase("9 imperfect beam-column at 451,875 dof, GNL, float32, default configuration")
     col = run_column(cfg7)
@@ -1168,6 +1368,52 @@ def main():
 
         phase("10b CLI run --x64 on the GPU and with --cpu, small plate; checkpoint and resume")
         cli_phase(Path(tmp))
+
+        phase("11 plate with hole at full size, cluster smoother, float32, default configuration")
+        cfg11 = FcvmConfig(device="cuda", dtype="float32", smoother="cluster")
+        builds = dict(COARSE_BUILD_STATS)
+        clus = run_plate(big, cfg11, "phase 11")
+        built = {k: COARSE_BUILD_STATS[k] - builds[k] for k in ("smoother_builds",
+                                                                 "smoother_fallbacks")}
+        failover = sum(ln.startswith("PRECISION FAILOVER") for ln in clus["lines"])
+        print(f"smoother builds {built['smoother_builds']}, fallbacks to block Jacobi "
+              f"{built['smoother_fallbacks']}, float64 failovers {failover}")
+        check(built == {"smoother_builds": 1 + failover, "smoother_fallbacks": 0},
+              "phase 11: not one cluster smoother per operator")
+        mean = {k: v["step_iters"] / max(v["step_solves"], 1) for k, v in (("7", on), ("11", clus))}
+        per_it = {k: 1e3 * v["cg_stats"]["time"] / v["cg_stats"]["iters"]
+                  for k, v in (("7", on), ("11", clus))}
+        print(f"cluster smoother vs phase 7 ({smi}): stepping time {clus['stepping']:.2f} / "
+              f"{on['stepping']:.2f} s = {clus['stepping'] / on['stepping']:.3f}; stepping CG "
+              f"iterations {clus['step_iters']} / {on['step_iters']} = "
+              f"{clus['step_iters'] / on['step_iters']:.3f}; CG iterations per solve "
+              f"{mean['11']:.1f} / {mean['7']:.1f}; ms per CG iteration incl. stress updates "
+              f"{per_it['11']:.3f} / {per_it['7']:.3f}")
+        print("the smoother's pieces, same plate and configuration:")
+        smoother_breakdown(big, cfg11)
+
+        phase("11b plate with hole at full size, GNL, cluster smoother, float32, default "
+              "configuration")
+        builds = COARSE_BUILD_STATS["smoother_builds"]
+        clus_gnl = run_plate(big, cfg11, "phase 11b", gnl=True)
+        built = COARSE_BUILD_STATS["smoother_builds"] - builds
+        failover = sum(ln.startswith("PRECISION FAILOVER") for ln in clus_gnl["lines"])
+        cs = clus_gnl["cg_stats"]
+        print(f"smoother builds {built} (float64 failovers {failover}) over "
+              f"{cs['predictor_solves']} tangent refreshes; predictor CG per refresh "
+              f"{cs['predictor_iters'] / max(cs['predictor_solves'], 1):.1f} (phase 8: "
+              f"{gnl['cg_stats']['predictor_iters'] / gnl['cg_stats']['predictor_solves']:.1f}); "
+              f"stepping {clus_gnl['stepping']:.2f} s against phase 8's {gnl['stepping']:.2f} s, "
+              f"stepping CG iterations {clus_gnl['step_iters']} against {gnl['step_iters']}")
+        check(cs["predictor_solves"] > 0, "phase 11b: no tangent predictor solve")
+        check(built == 1 + failover, "phase 11b: the refreshes rebuilt the smoother")
+        del big
+
+        phase("11c small plate, float64, cluster smoother, GPU vs CPU, small strain and GNL")
+        cluster_small_phase()
+
+        phase(f"12 FreeCAD document of the plate at full size through the CLI, float64 ({smi})")
+        doc = fcstd_phase(Path(tmp), smi)
     phase()
     print(f"all phases: {time.perf_counter() - t_start:.1f} s wall")
 
@@ -1177,7 +1423,9 @@ def main():
         "name": "block_matvec", "dtype": "float32", **k0_source,
         "launches": off["launches"], "launches_default": on["launches"],
         "launches_gnl": gnl_launches[0], "launches_column": col["k0_dtypes"].get("float32", 0),
-        "launches_case": case["launches"], "ne": NE_BIG, **k0[(torch.float32, NE_BIG)],
+        "launches_case": case["launches"], "launches_cluster": clus["launches"],
+        "launches_cluster_gnl": clus_gnl["launches"], "launches_fcstd_f64": doc["launches"],
+        "ne": NE_BIG, **k0[(torch.float32, NE_BIG)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, **row}
                    for (dtype, ne), row in k0.items()],
     }, {
@@ -1193,7 +1441,9 @@ def main():
         "launches": col["launches"]["block_matmat"], "launches_by_shape": col["k0m_shapes"],
         "launches_plate": off["launches_k0m"],
         "launches_default": on["launches_k0m"], "launches_gnl": gnl_launches[1],
-        "launches_case": case["launches_k0m"], "ne": NE_COL, "m": 8, **k0m[(torch.float32, NE_COL, 8)],
+        "launches_case": case["launches_k0m"], "launches_cluster": clus["launches_k0m"],
+        "launches_cluster_gnl": clus_gnl["launches_k0m"], "launches_fcstd_f64": doc["launches_k0m"],
+        "ne": NE_COL, "m": 8, **k0m[(torch.float32, NE_COL, 8)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, "m": m, **row}
                    for (dtype, ne, m), row in k0m.items()],
     }]}))

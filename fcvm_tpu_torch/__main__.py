@@ -13,9 +13,13 @@ workbench's Start / Save / Sum buttons (``InitGui.py:141-145``):
 The analysis runs on the GPU (``FcvmConfig(device="cuda")``), and raises
 when there is none, unless ``--cpu`` asks for the CPU; ``--x64`` runs it in
 float64; ``--no-plots`` skips the matplotlib outputs of ``run`` (beyond
-the JAX package's CLI, for machines without matplotlib).  Not ported yet,
-and refused with ``NotImplementedError``: FreeCAD ``.FCStd`` documents
-(``models/fcstd.py``, ROADMAP Queue 1 item 12b) and the multi-process flags
+the JAX package's CLI, for machines without matplotlib).  A FreeCAD
+``.FCStd`` document runs with its paired ``.inp`` control file
+(:func:`fcvm_tpu_torch.models.fcstd.load_reference_case`; ``--inp`` and
+``--mesh`` replace the paired file and the embedded mesh): ``run`` writes
+no ``.avr`` for it and ``sum`` refuses it (both need a TOML case's
+``[[sum.*]]`` groups).  Not ported yet, and refused with
+``NotImplementedError``: the multi-process flags
 ``--distributed``/``--coordinator``/``--num-processes``/``--process-id``
 (ROADMAP Queue 1 item 16); ``--devices N`` with N > 1 is refused by
 :meth:`FcvmConfig.check_supported`.
@@ -34,7 +38,13 @@ def main(argv=None):
     sub = ap.add_subparsers(dest="cmd", required=True)
     for name in ("run", "buckle", "info", "bench", "sum"):
         p = sub.add_parser(name)
-        p.add_argument("case", help="TOML case file (FreeCAD .FCStd: not ported yet)")
+        p.add_argument("case", help="TOML case file or FreeCAD .FCStd document")
+        p.add_argument("--inp", default=None,
+                       help=".inp control file overriding the document's paired one "
+                       "(FCStd input only)")
+        p.add_argument("--mesh", default=None,
+                       help="external mesh file (UNV/Gmsh/VTK) replacing the "
+                       "document's embedded mesh (FCStd input only)")
         p.add_argument("--outdir", default="out")
         p.add_argument("--x64", action="store_true", help="run in float64")
         p.add_argument("--cpu", action="store_true", help="run on the CPU, not the GPU")
@@ -63,10 +73,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--distributed/--coordinator/--num-processes/--process-id: the "
             "multi-device backend (ROADMAP Queue 1 item 16) is not ported yet")
-    if str(args.case).lower().endswith(".fcstd"):
-        raise NotImplementedError(
-            f"{args.case}: FreeCAD documents (models/fcstd.py, ROADMAP Queue 1 "
-            "item 12b) are not ported yet; use a TOML case file")
+    fcstd = str(args.case).lower().endswith(".fcstd")
 
     from fcvm_tpu_torch.config import FcvmConfig
     from fcvm_tpu_torch.models.casefile import load_case, parse_sum_groups
@@ -75,7 +82,14 @@ def main(argv=None):
                      dtype="float64" if args.x64 else "float32",
                      n_devices=args.devices)
     cfg.check_supported()
-    model, params = load_case(args.case)
+    if fcstd:
+        # FreeCAD document + its paired .inp control file, the reference's
+        # own input pairing (fcVM.py:74-76)
+        from fcvm_tpu_torch.models.fcstd import load_reference_case
+
+        model, params = load_reference_case(args.case, inp_path=args.inp, mesh_path=args.mesh)
+    else:
+        model, params = load_case(args.case)
     if args.steps:
         params.nstep = args.steps
 
@@ -107,6 +121,10 @@ def main(argv=None):
         from fcvm_tpu_torch.runtime import report as report_mod
         from fcvm_tpu_torch.runtime.vtk import read_point_fields
 
+        if fcstd:
+            print("sum needs a TOML case file with [[sum.edge]]/[[sum.face]] groups",
+                  file=sys.stderr)
+            return 2
         edge_groups, face_groups = parse_sum_groups(args.case, model.mesh)
         if not (edge_groups or face_groups):
             print("no [[sum.edge]]/[[sum.face]] groups in the case file", file=sys.stderr)
@@ -164,7 +182,8 @@ def main(argv=None):
             save_orbit_gif(f"{args.outdir}/{model.name}_orbit.gif", res.coords,
                            model.mesh.elnodes, csr_n)
         print(f"wrote {args.outdir}/{model.name}.out .vtk" + ("" if args.no_plots else " .png"))
-        edge_groups, face_groups = parse_sum_groups(args.case, model.mesh)
+        edge_groups, face_groups = ({}, {}) if fcstd else parse_sum_groups(args.case,
+                                                                            model.mesh)
         if edge_groups or face_groups:
             fcvm_tpu_torch.run_sum(model, res, params, edge_groups, face_groups,
                                    outdir=args.outdir)

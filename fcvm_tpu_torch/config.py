@@ -36,7 +36,14 @@ class FcvmConfig:
         200000)``.
       precond: ``"two_level"`` (3x3 nodal blocks + cluster coarse
         correction, :mod:`fcvm_tpu_torch.ops.precond`) or ``"block_jacobi"``.
-      smoother: fine level of the two-level preconditioner; ``"jacobi3"``.
+      smoother: fine level of the two-level preconditioner: ``"jacobi3"``,
+        3x3 nodal block Jacobi; ``"cluster"``, the block-Cholesky inverse of
+        ``K_hat``'s diagonal blocks over index-contiguous clusters of
+        ``smoother_cluster_nodes`` nodes, built once from the elastic
+        operator and kept through tangent refreshes (fewer CG iterations for
+        a larger apply; block Jacobi stays where the node count is not a
+        multiple of the cluster size or the factorization fails).
+      smoother_cluster_nodes: nodes per cluster of the ``"cluster"`` smoother.
       coarse_max_clusters, coarse_cluster_nodes, coarse_modes,
       coarse_max_dim: size the coarse space (see
         :meth:`resolve_cluster_size`); ``coarse_modes`` is 12 (affine) or
@@ -66,8 +73,8 @@ class FcvmConfig:
       arc_length: ``"riks"`` (the reference's linearised update) or
         ``"crisfield"`` (the spherical constraint, which follows snapback).
 
-    Not ported, and refused by :meth:`check_supported`: the cluster
-    smoother and more than one device.
+    Not ported, and refused by :meth:`check_supported`: more than one
+    device.
     """
 
     device: str = "cuda"
@@ -77,6 +84,7 @@ class FcvmConfig:
     cg_maxiter: int = 0
     precond: str = "two_level"
     smoother: str = "jacobi3"
+    smoother_cluster_nodes: int = 64
     coarse_max_clusters: int = 1500
     coarse_cluster_nodes: int = 32
     coarse_modes: int = 12
@@ -134,19 +142,17 @@ class FcvmConfig:
 
     def check_supported(self) -> None:
         """Raise for every option this slice of the port does not run."""
-        todo = [
-            (self.smoother == "cluster", "smoother='cluster'",
-             "the cluster block-Cholesky smoother (ROADMAP Queue 1 item 6)"),
-            (self.n_devices > 1, f"n_devices={self.n_devices}",
-             "the multi-device backend (ROADMAP Queue 1 item 16)"),
-        ]
-        for unsupported, what, item in todo:
-            if unsupported:
-                raise NotImplementedError(f"{what}: {item} is not ported yet")
+        if self.n_devices > 1:
+            raise NotImplementedError(
+                f"n_devices={self.n_devices}: the multi-device backend "
+                "(ROADMAP Queue 1 item 16) is not ported yet")
         if self.solver not in ("cg", "scipy"):
             raise ValueError(f"unknown solver {self.solver!r}")
-        if self.smoother != "jacobi3":
+        if self.smoother not in ("jacobi3", "cluster"):
             raise ValueError(f"unknown smoother {self.smoother!r}")
+        if self.smoother_cluster_nodes < 1:
+            raise ValueError(f"smoother_cluster_nodes must be >= 1, got "
+                             f"{self.smoother_cluster_nodes}")
         if self.arc_length not in ("riks", "crisfield"):
             raise ValueError(f"unknown arc_length {self.arc_length!r}")
         if self.precond not in ("two_level", "block_jacobi"):

@@ -50,6 +50,46 @@ bool starts_with(const std::string& s, const char* p) {
   return s.rfind(p, 0) == 0;
 }
 
+// One line at a time through C stdio (POSIX getline), the trailing newline
+// kept; starts() skips leading blanks.
+class LineReader {
+ public:
+  explicit LineReader(const char* path) : f_(fopen(path, "r")) {}
+  ~LineReader() {
+    if (f_) fclose(f_);
+    free(buf_);
+  }
+  LineReader(const LineReader&) = delete;
+  LineReader& operator=(const LineReader&) = delete;
+  bool ok() const { return f_ != nullptr; }
+  bool next() { return getline(&buf_, &cap_, f_) >= 0; }
+  char* line() { return buf_; }
+  bool starts(const char* p) const {
+    const char* s = buf_;
+    while (*s == ' ' || *s == '\t' || *s == '\r') ++s;
+    return strncmp(s, p, strlen(p)) == 0;
+  }
+
+ private:
+  FILE* f_;
+  char* buf_ = nullptr;
+  size_t cap_ = 0;
+};
+
+// Up to `max` whitespace-separated integers from the start of `s` into
+// `out`; returns how many were read.
+int parse_ints(const char* s, int64_t* out, int max) {
+  int n = 0;
+  while (n < max) {
+    char* end;
+    long long x = strtoll(s, &end, 10);
+    if (end == s) break;
+    out[n++] = x;
+    s = end;
+  }
+  return n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -205,39 +245,32 @@ FcvmMesh* fcvm_read_gmsh(const char* path) {
 // ---------------------------------------------------------------------------
 
 FcvmMesh* fcvm_read_unv(const char* path) {
-  std::ifstream f(path);
-  if (!f) return nullptr;
-  std::string line;
+  // C stdio, not iostreams: the iostream version of this reader crashed
+  // (SIGSEGV) on a 167,533-node file inside a process that had loaded
+  // PyTorch and the port's CUDA extension on an H100 machine, though not in
+  // a fresh process there; this one reads the file in both.
+  LineReader f(path);
+  if (!f.ok()) return nullptr;
   MeshData m;
   std::vector<int64_t> tags;
   std::vector<double> xyz;
+  int64_t v[16];
 
-  auto read_dataset_id = [&](const std::string& l) -> int {
-    return atoi(l.c_str());
-  };
-
-  while (std::getline(f, line)) {
+  while (f.next()) {
     // datasets start and end with a line containing "-1"
-    std::string t = line;
-    t.erase(0, t.find_first_not_of(" \t\r"));
-    if (t.rfind("-1", 0) != 0) continue;
-    if (!std::getline(f, line)) break;
-    int ds = read_dataset_id(line);
+    if (!f.starts("-1")) continue;
+    if (!f.next()) break;
+    int ds = atoi(f.line());
     if (ds == 2411) {
-      while (std::getline(f, line)) {
-        std::string s = line;
-        s.erase(0, s.find_first_not_of(" \t\r"));
-        if (s.rfind("-1", 0) == 0) break;
-        std::istringstream ss(line);
-        int64_t tag, a, b, c;
-        ss >> tag >> a >> b >> c;
-        if (!std::getline(f, line)) break;
+      while (f.next()) {
+        if (f.starts("-1")) break;
+        int64_t tag = parse_ints(f.line(), v, 1) == 1 ? v[0] : 0;
+        if (!f.next()) break;
         // UNV uses Fortran D exponents
-        for (auto& ch : line)
-          if (ch == 'D' || ch == 'd') ch = 'E';
-        std::istringstream cs(line);
-        double x, y, z;
-        cs >> x >> y >> z;
+        for (char* c = f.line(); *c; ++c)
+          if (*c == 'D' || *c == 'd') *c = 'E';
+        char* p = f.line();
+        double x = strtod(p, &p), y = strtod(p, &p), z = strtod(p, &p);
         tags.push_back(tag);
         xyz.push_back(x);
         xyz.push_back(y);
@@ -247,40 +280,39 @@ FcvmMesh* fcvm_read_unv(const char* path) {
       int64_t maxtag = 0;
       for (auto tg : tags) maxtag = std::max(maxtag, tg);
       std::vector<int64_t> tag2idx(maxtag + 1, -1);
-      for (size_t i = 0; i < tags.size(); ++i) tag2idx[tags[i]] = (int64_t)i;
-      while (std::getline(f, line)) {
-        std::string s = line;
-        s.erase(0, s.find_first_not_of(" \t\r"));
-        if (s.rfind("-1", 0) == 0) break;
-        std::istringstream ss(line);
-        int64_t tag = 0, fe = 0, a = 0, b = 0, c = 0, nnodes = 0;
-        if (!(ss >> tag >> fe >> a >> b >> c >> nnodes)) continue;
+      for (size_t i = 0; i < tags.size(); ++i)
+        if (tags[i] >= 0) tag2idx[tags[i]] = (int64_t)i;
+      while (f.next()) {
+        if (f.starts("-1")) break;
+        // tag, FE descriptor, physical and material property, colour, nodes
+        if (parse_ints(f.line(), v, 6) < 6) continue;
+        int64_t fe = v[1], nnodes = v[5];
         // Beam-family elements (UNV FE 11/21/22/23/24) carry one extra
         // orientation record between the header and the node list; SMESH /
         // FreeCAD meshes include them for edge groups.
         if (fe == 11 || fe == 21 || fe == 22 || fe == 23 || fe == 24) {
-          if (!std::getline(f, line)) break;
+          if (!f.next()) break;
         }
         std::vector<int64_t> nd;
-        while ((int64_t)nd.size() < nnodes && std::getline(f, line)) {
-          std::istringstream ns(line);
-          int64_t v;
-          while (ns >> v) nd.push_back(v);
+        while ((int64_t)nd.size() < nnodes && f.next()) {
+          int n = parse_ints(f.line(), v, 16);
+          nd.insert(nd.end(), v, v + n);
         }
         if (fe == 118 && nnodes == 10) {
+          if (nd.size() < 10) return nullptr;
           int64_t row[10];
-          for (int k = 0; k < 10; ++k) row[kUnvToFcvm[k]] = tag2idx[nd[k]];
+          for (int k = 0; k < 10; ++k) {
+            if (nd[k] < 0 || nd[k] > maxtag || tag2idx[nd[k]] < 0) return nullptr;
+            row[kUnvToFcvm[k]] = tag2idx[nd[k]];
+          }
           for (int k = 0; k < 10; ++k) m.elnodes.push_back(row[k]);
           ++m.ne;
         }
       }
     } else {
       // skip to dataset end
-      while (std::getline(f, line)) {
-        std::string s = line;
-        s.erase(0, s.find_first_not_of(" \t\r"));
-        if (s.rfind("-1", 0) == 0) break;
-      }
+      while (f.next())
+        if (f.starts("-1")) break;
     }
   }
   m.nn = (int64_t)tags.size();

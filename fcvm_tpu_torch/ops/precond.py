@@ -1,8 +1,12 @@
-"""Two-level preconditioner for the matrix-free CG solver (``jacobi3``
-smoother), the port of :mod:`fcvm_tpu.ops.precond`.
+"""Two-level preconditioner for the matrix-free CG solver, the port of
+:mod:`fcvm_tpu.ops.precond`.
 
-* **Fine level**: inverse 3x3 nodal diagonal blocks
-  (:func:`fcvm_tpu_torch.ops.assembly.block_jacobi_inverse_blocks`).
+* **Fine level** (``smoother``): ``"jacobi3"``, inverse 3x3 nodal diagonal
+  blocks (:func:`fcvm_tpu_torch.ops.assembly.block_jacobi_inverse_blocks`),
+  rebuilt with every tangent refresh; or ``"cluster"``, the inverse
+  (3 cs, 3 cs) diagonal blocks of ``K_hat`` over index-contiguous clusters
+  of ``cs`` nodes (:func:`cluster_diag_inverse`), built once from the
+  elastic operator and applied as one batched product.
 * **Coarse level**: nodes are aggregated into index-contiguous clusters;
   each cluster carries 12 affine (or 6 rigid-body) modes about its
   centroid.  The coarse operator ``K_c = Q^T K_hat Q`` is accumulated from
@@ -24,7 +28,7 @@ smooth error below CG's tolerance.
 from __future__ import annotations
 
 import warnings
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,13 +37,18 @@ from fcvm_tpu_torch.ops import assembly as asm
 # Observability for the coarse-build degradation paths (ridge escalation,
 # zero-coarse fallback).  Both keep the solver correct, but the fallback
 # costs several times more CG iterations, so the collapse driver surfaces
-# these counters in cg_stats and its log.
+# these counters in cg_stats and its log.  ``smoother_builds`` counts the
+# cluster smoother's factorizations (one per analysis: tangent refreshes
+# keep it), ``smoother_fallbacks`` the builds whose inverse had a NaN and
+# fell back to block Jacobi.
 COARSE_BUILD_STATS = {
     "builds": 0,
     "ridge_escalations": 0,  # builds that needed a ridge above the first
     "zero_coarse_fallbacks": 0,  # builds that gave up (fine smoother only)
     "last_escalations": 0,  # ladder steps the most recent build climbed
     "last_fallback": False,
+    "smoother_builds": 0,
+    "smoother_fallbacks": 0,
 }
 
 _RIDGE_LADDER = (3.0e-5, 3.0e-4, 3.0e-3, 3.0e-2, 3.0e-1)
@@ -50,12 +59,26 @@ class TwoLevelPrecond(NamedTuple):
     qmat: torch.Tensor  # (nn_cl, 3, nm) cluster mode basis per node
     coarse_inv: torch.Tensor  # (nm ncl, nm ncl), mode-major order
     fixmask: torch.Tensor  # (ndof,)
+    # the cluster block-Cholesky smoother (ncl_s, 3 cs, 3 cs); when present
+    # it replaces the block-Jacobi fine level
+    smooth_inv: Optional[torch.Tensor] = None
+
+    def fine(self, r: torch.Tensor) -> torch.Tensor:
+        """The fine level on a vector (ndof,) or a block (ndof, m): block
+        Jacobi, or one batched product with the cluster inverses (full
+        float32 at least, no TF32, as the rest of the preconditioner)."""
+        if self.smooth_inv is None:
+            return asm.apply_block_precond(self.pinv, r)
+        ncl, m, _ = self.smooth_inv.shape
+        mask = self.fixmask if r.dim() == 1 else self.fixmask[:, None]
+        z = torch.bmm(self.smooth_inv, (mask * r).reshape(ncl, m, -1))
+        return z.reshape(r.shape) * mask
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """Apply to a vector (ndof,) or to each column of a block (ndof, m)."""
         if r.dim() == 2:
             return self._apply_block(r)
-        z = asm.apply_block_precond(self.pinv, r)
+        z = self.fine(r)
         nn_cl, _, nm = self.qmat.shape
         ncl = self.coarse_inv.shape[0] // nm
         cs = nn_cl // ncl
@@ -77,7 +100,7 @@ class TwoLevelPrecond(NamedTuple):
         vector form stays separate: run as a block of one column, it made
         the default plate run's stepping ~3% slower on the H100 (PERF.md)."""
         m = r.shape[1]
-        z = asm.apply_block_precond(self.pinv, r)
+        z = self.fine(r)
         nn_cl, _, nm = self.qmat.shape
         ncl = self.coarse_inv.shape[0] // nm
         cs = nn_cl // ncl
@@ -104,7 +127,11 @@ def refresh_blocks(pc, esm, elnodes, fixmask):
     the elastic operator (a preconditioner only needs to stay SPD and
     spectrally close, as the reference keeps its elastic factor,
     ``fcVM.py:1400-1406``).  Returns the new preconditioner: a
-    :class:`TwoLevelPrecond`, or the nodal blocks of the block-Jacobi tier."""
+    :class:`TwoLevelPrecond`, or the nodal blocks of the block-Jacobi tier.
+    A preconditioner with the cluster smoother is returned unchanged: its
+    elastic cluster inverses stay, and nothing is rebuilt."""
+    if isinstance(pc, TwoLevelPrecond) and pc.smooth_inv is not None:
+        return pc
     pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
     if isinstance(pc, TwoLevelPrecond):
         return pc._replace(pinv=pinv)
@@ -255,12 +282,71 @@ def invert_coarse_with_ladder(kc, label: str = ""):
 
 
 def build_two_level(esm, elnodes, coords, fixmask, cluster_size: int = 64,
-                    n_modes: int = 6) -> TwoLevelPrecond:
+                    n_modes: int = 6, smoother: str = "jacobi3",
+                    smoother_cluster_nodes: int = 64) -> TwoLevelPrecond:
     """Assemble the two-level preconditioner from element blocks.
 
     All inputs share one node/element numbering (the driver passes the
-    Morton solve-space views).  ``esm`` is (ne, 30, 30)."""
+    Morton solve-space views).  ``esm`` is (ne, 30, 30).  With
+    ``smoother="cluster"`` the cluster smoother of ``smoother_cluster_nodes``
+    nodes is built when that count divides the padded node count; an
+    inverse with a NaN keeps block Jacobi, as in the JAX package."""
     pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
     qmat = qmat_bc(coords, fixmask, cluster_size, n_modes)
     kc = coarse_accumulate(esm, elnodes, qmat, cluster_size)
-    return TwoLevelPrecond(pinv, qmat, invert_coarse_with_ladder(kc), fixmask)
+    coarse_inv = invert_coarse_with_ladder(kc)
+    del kc
+    smooth_inv = None
+    cs = smoother_cluster_nodes
+    if smoother == "cluster" and (fixmask.shape[0] // 3) % cs == 0:
+        smooth_inv = cluster_diag_inverse(esm, elnodes, fixmask, cs)
+        COARSE_BUILD_STATS["smoother_builds"] += 1
+        if bool(torch.isnan(smooth_inv).any()):
+            COARSE_BUILD_STATS["smoother_fallbacks"] += 1
+            smooth_inv = None
+    return TwoLevelPrecond(pinv, qmat, coarse_inv, fixmask, smooth_inv)
+
+
+def cluster_diag_inverse(esm, elnodes, fixmask, cs: int):
+    """Inverse cluster-diagonal blocks of ``K_hat``: (ncl, 3 cs, 3 cs).
+
+    Clusters are index-contiguous ranges of ``cs`` nodes (compact in the
+    Morton solve space), so the apply is a reshape and one batched product.
+    The blocks (:func:`cluster_diag_blocks`) are principal submatrices of
+    the SPD ``K_hat``, so a batched Cholesky inverts them.
+
+    The factorization runs in the working dtype: the JAX package factors in
+    float32 because the TPU has no float64 Cholesky.  A block whose
+    factorization fails comes back NaN (as the JAX package's does), which
+    the caller reads as "keep block Jacobi"."""
+    chol, info = torch.linalg.cholesky_ex(cluster_diag_blocks(esm, elnodes, fixmask, cs))
+    inv = torch.cholesky_inverse(chol)
+    return inv.masked_fill_((info != 0)[:, None, None], float("nan"))
+
+
+def cluster_diag_blocks(esm, elnodes, fixmask, cs: int, chunk: int = 4096):
+    """The (ncl, 3 cs, 3 cs) diagonal blocks of ``K_hat`` over clusters of
+    ``cs`` nodes, fixed dofs masked to the identity.  Each element's
+    same-cluster 3x3 node pairs are added into a flat (ncl 3cs cs + 1, 3)
+    accumulator (row = cluster, block row, column node; pairs across
+    clusters go to the last, dump row), chunked over elements."""
+    nn_pad = fixmask.shape[0] // 3
+    if nn_pad % cs:
+        raise ValueError(f"{nn_pad} padded nodes are not a multiple of {cs}")
+    ncl, m = nn_pad // cs, 3 * cs
+    nrow = ncl * m * cs  # flat (cluster, block row, column node) 3-wide rows
+    acc = torch.zeros((nrow + 1, 3), dtype=esm.dtype, device=esm.device)
+    a3 = torch.arange(3, device=esm.device)
+    for s in range(0, esm.shape[0], chunk):
+        esm_c, eln_c = esm[s:s + chunk], elnodes[s:s + chunk]
+        cid, loc = eln_c // cs, eln_c % cs  # (c, 10)
+        # [e, i, j, a, b] = esm[e, 3i + a, 3j + b]
+        pair = esm_c.reshape(-1, 10, 3, 10, 3).permute(0, 1, 3, 2, 4)
+        row = 3 * loc[:, :, None, None] + a3  # (c, 10, 1, 3)
+        key = (cid[:, :, None, None] * m + row) * cs + loc[:, None, :, None]
+        key = torch.where((cid[:, :, None] == cid[:, None, :])[..., None], key, nrow)
+        acc.index_add_(0, key.reshape(-1), pair.reshape(-1, 3))
+    mask = fixmask.reshape(ncl, m)
+    blocks = acc[:-1].reshape(ncl, m, m).mul_(mask[:, :, None]).mul_(mask[:, None, :])
+    blocks.diagonal(dim1=1, dim2=2).add_(1.0 - mask)
+    return blocks

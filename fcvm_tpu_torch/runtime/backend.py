@@ -97,7 +97,8 @@ class TorchSystem:
         if self.cfg.precond == "two_level":
             return sysm.build_precond(
                 esm, self.cfg.resolve_cluster_size(self.mesh.n_nodes),
-                self.space, self.cfg.coarse_modes)
+                self.space, self.cfg.coarse_modes, self.cfg.smoother,
+                self.cfg.smoother_cluster_nodes)
         return pinv[self.space.nperm]  # block-Jacobi tier, in solve space
 
     def solve(self, khat, pc, b, x0=None, defl=None):

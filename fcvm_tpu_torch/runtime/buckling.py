@@ -331,7 +331,8 @@ def buckling_from_arrays(
         if cfg.precond == "two_level":
             pc = build_two_level(esm, elnodes, coords_work, fixmask,
                                  cluster_size=cfg.resolve_cluster_size(coords.shape[0]),
-                                 n_modes=cfg.coarse_modes)
+                                 n_modes=cfg.coarse_modes, smoother=cfg.smoother,
+                                 smoother_cluster_nodes=cfg.smoother_cluster_nodes)
         else:
             pc = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
         nstore, k_defl = _recycling_params(ndof, esm.element_size())

@@ -173,11 +173,14 @@ def make_operator(esm_m, space: SolveSpace) -> Operator:
     return Operator(esm_t, asm.make_bc_matvec(esm_t, space.eldofs_m, space.fixmask_m))
 
 
-def build_precond(esm, cluster_size: int, space: SolveSpace, n_modes: int):
-    """Two-level preconditioner on the Morton-permuted operator."""
+def build_precond(esm, cluster_size: int, space: SolveSpace, n_modes: int,
+                  smoother: str = "jacobi3", smoother_cluster_nodes: int = 64):
+    """Two-level preconditioner on the Morton-permuted operator, with the
+    fine level ``smoother`` (see :func:`build_two_level`)."""
     return build_two_level(esm[space.eperm], space.elnodes_m, space.coords_m,
                            space.fixmask_m, cluster_size=cluster_size,
-                           n_modes=n_modes)
+                           n_modes=n_modes, smoother=smoother,
+                           smoother_cluster_nodes=smoother_cluster_nodes)
 
 
 def solve_displacement(khat, pc, b, rtol, maxiter: int, space: SolveSpace,
@@ -275,7 +278,8 @@ def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTa
     Gauss state ``sig_old``/``pgp``, and per-element ``dmat`` (ne, 6, 6),
     ``g`` and ``h`` (ne,), come in user order and are permuted with them);
     the two-level coarse correction of ``pc`` is kept and only
-    the nodal blocks are rebuilt (:func:`refresh_blocks`).  A float64
+    the nodal blocks are rebuilt (:func:`refresh_blocks`; a cluster
+    smoother is kept as well, and nothing is rebuilt).  A float64
     ``disp_new`` (the refinement tier's) is cast to the storage dtype of
     ``coords``: the tangent operator stays in it.
 

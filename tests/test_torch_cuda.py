@@ -210,6 +210,53 @@ def test_gnl_collapse_cuda_matches_cpu(cuda):
     assert stats["predictor_solves"] > 0 and k0_cpu == 0 and k0_gpu > 0
 
 
+def _smoothed_precond(device, dtype):
+    """The two-level preconditioner with the cluster smoother (16-node
+    clusters) of a 3x3x3 tension box on ``device``, and its apply on a
+    seeded vector and on a seeded block of 8 columns."""
+    model = _tension_box(3)
+    cfg = FcvmConfig(device=device, dtype=dtype, smoother="cluster", smoother_cluster_nodes=16)
+    be = TorchSystem(model, cfg, dtype, torch.device(device))
+    esm, pinv, *_ = be.assemble(be.tensor(model.mesh.coords))
+    pc = be.make_pc(esm, pinv)
+    r = np.random.default_rng(5).normal(size=(be.ndof_pad, 9))
+    rr = torch.as_tensor(r, device=device).to(dtype)
+    return [t.cpu().double().numpy() for t in (pc.smooth_inv, pc.apply(rr[:, 0]),
+                                               pc.apply(rr[:, 1:]))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_cluster_smoother_cuda_matches_cpu(cuda, dtype):
+    """The cluster smoother built (accumulate, batched Cholesky, inverse)
+    and applied on the card, to a vector and to a block, against the same
+    on the CPU: to 1e-10 of the largest value in float64, and in float32 to
+    1e-3 (the inverse of a block with condition ~1e3 in float32)."""
+    tol = {torch.float32: 1e-3, torch.float64: 1e-10}[dtype]
+    for got, want in zip(_smoothed_precond("cuda", dtype), _smoothed_precond("cpu", dtype)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+def test_cluster_smoother_collapse_cuda_matches_cpu(cuda):
+    """The GNL collapse of the 2x2x2 box with ``smoother="cluster"`` in
+    float64 on the card against the CPU: the same steps and load factors to
+    1e-9, one smoother build per run (the refreshes keep it)."""
+    from fcvm_tpu_torch.ops.precond import COARSE_BUILD_STATS
+
+    params = ControlParams(sig_yield=60.0, nstep=3, error_max=1e-8, et_e=0.1, target_lf=99.0,
+                           gnl="GNLY", max_imp=0.0)
+    lbd = {}
+    for device in ("cpu", "cuda"):
+        builds = COARSE_BUILD_STATS["smoother_builds"]
+        res = solve_collapse(_tension_box(2), params, config=FcvmConfig(
+            device=device, dtype="float64", cg_rtol=1e-10, smoother="cluster",
+            smoother_cluster_nodes=16))
+        lbd[device] = np.asarray(res.history.lbd)
+        assert COARSE_BUILD_STATS["smoother_builds"] == builds + 1
+        assert res.cg_stats["predictor_solves"] > 0
+    assert len(lbd["cuda"]) == len(lbd["cpu"]) == 4
+    np.testing.assert_allclose(lbd["cuda"], lbd["cpu"], rtol=1e-9, atol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
 @pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8, 9, 31, 32, 33, 37, 64])
 @pytest.mark.parametrize("ne", [1, 1003, 103_680])

@@ -70,11 +70,11 @@ def test_solve_collapse_matches_jax(case, jax_cfg):  # noqa: F811
 
 
 UNPORTED = [  # config fields, control parameters, what the error names
-    (dict(smoother="cluster"), {}, "ROADMAP"),
     (dict(n_devices=2), {}, "ROADMAP"),
 ]
 # options that raised before they were ported: each now runs
 PORTED = [
+    (dict(smoother="cluster"), {}),
     (dict(solver="scipy"), {}),
     # GNL with an imperfection or one step runs the buckling eigensolve
     ({}, dict(gnl="GNLY", max_imp=0.05)),
@@ -83,21 +83,28 @@ PORTED = [
 
 
 @pytest.mark.parametrize("cfg_kw,param_kw,match", UNPORTED + [(*c, None) for c in PORTED],
-                         ids=["smoother", "n_devices", "solver", "gnl", "gnl_nstep1"])
+                         ids=["n_devices", "smoother", "solver", "gnl", "gnl_nstep1"])
 def test_unported_options_raise(cfg_kw, param_kw, match):
     """Options not ported yet raise ``NotImplementedError`` naming their
     ROADMAP item; the rows of options ported since (``match`` None) run:
-    the scipy tier with no CG iteration, the GNL buckling branch with its
-    two factors, negative under the box's tension pre-stress."""
+    the cluster smoother built once, the scipy tier with no CG iteration,
+    the GNL buckling branch with its two factors, negative under the box's
+    tension pre-stress."""
+    from fcvm_tpu_torch.ops.precond import COARSE_BUILD_STATS
+
     model = ft.model_from_arrays(tension_model())
     params = ft.ControlParams(**{"nstep": 2, **param_kw})
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
             ft.solve_collapse(model, params, config=port_config(**cfg_kw))
         return
+    built = COARSE_BUILD_STATS["smoother_builds"]
     res = ft.solve_collapse(model, params, config=port_config(**cfg_kw))
     assert np.all(np.isfinite(res.history.lbd)) and len(res.history.lbd) >= 2
-    if "solver" in cfg_kw:
+    if "smoother" in cfg_kw:
+        assert COARSE_BUILD_STATS["smoother_builds"] == built + 1
+        assert res.cg_stats["iters"] > 0 and res.eigenvalues is None
+    elif "solver" in cfg_kw:
         assert res.cg_stats["iters"] == 0 and res.eigenvalues is None
     else:
         assert res.eigenvalues.shape == (2,) and np.all(res.eigenvalues < 0.0)

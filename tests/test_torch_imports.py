@@ -29,6 +29,8 @@ PORT_MODULES = [
     "fcvm_tpu_torch.runtime.vtk",
     "fcvm_tpu_torch.runtime.viz",
     "fcvm_tpu_torch.runtime.plots",
+    "fcvm_tpu_torch.models.fcstd",
+    "fcvm_tpu_torch.tools.fcstd_doc",
     "chip_smoke",
 ]
 
