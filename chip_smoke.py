@@ -90,7 +90,22 @@ Phases, each printing its numbers before the next starts:
    GPU against the same model's TOML case through the CLI: the load
    factors to CLI_RTOL, no ``.avr`` for the document, phase 5's bars on the
    steps, K0 launched; the host times of ``read_fcstd``, the resolver and
-   ``build_model``.
+   ``build_model``;
+11d. (before 12) the phase-5 plate written with ``meshio_io.write_gmsh`` and
+   read back through the native Gmsh reader in this process, after the CUDA
+   extension has loaded: the same coordinates and connectivity;
+13. the sharded backend (``fcvm_tpu_torch.parallel``) on a world of one over
+   NCCL, this process its rank (``force_sharded``): the phase-7 plate with
+   phase 7's configuration and checks, held against phase 7 (the same
+   steps, the final lbd within 1e-3, stepping CG iterations within 3%),
+   K0 and K0m launched, the time of one ``all_reduce`` of the plate's
+   vector; then the beam-column's eigensolve, seeding and two GNL steps on
+   the sharded backend with phase 9's bars;
+13b. two gloo ranks spawned on ``cuda:0`` (NCCL refuses two ranks on one
+   card): phase 4's small plate, small strain and GNL, and the small
+   column's buckling (``nstep = 1``) in float64 against the CPU's
+   single-device runs (lbd to LBD_RTOL, factors to EIG_RTOL), both ranks'
+   histories identical, K0 and K0m launched on each rank.
 
 Each phase prints its wall time.
 
@@ -633,9 +648,9 @@ def k0m_phase():
     return rows
 
 
-def run_column(cfg):
+def run_column(cfg, nstep=COL_NSTEP, label="phase 9"):
     """Drive ``solve_collapse`` on the imperfect beam-column at 451,875 dof
-    (buckling, seeding, COL_NSTEP GNL steps) with the launch counts set to
+    (buckling, seeding, ``nstep`` GNL steps) with the launch counts set to
     0 just before it; print the eigensolve and the steps, apply the checks
     and return the launch counts."""
     from fcvm_tpu_torch import solve_collapse
@@ -662,7 +677,7 @@ def run_column(cfg):
     with warnings.catch_warnings(record=True) as warned:
         warnings.simplefilter("always")
         stamps[0] = time.perf_counter()
-        res = solve_collapse(col, column_params(COL_NSTEP), progress=lines.append,
+        res = solve_collapse(col, column_params(nstep), progress=lines.append,
                              monitor=monitor, config=cfg)
         torch.cuda.synchronize()
     launches = {"block_matvec": kernels.block_matvec.launches,
@@ -702,17 +717,17 @@ def run_column(cfg):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     lbd = np.asarray(h.lbd)
     check(len(served) == 1 and lam.shape == (2,) and bool(np.all(np.isfinite(lam))),
-          "phase 9: the eigensolve served no tier")
+          f"{label}: the eigensolve served no tier")
     check(bool(np.all(np.abs(lam / EULER_COL - 1) <= 0.03)),
-          f"phase 9: factors {lam} not within 3% of {EULER_COL:.4f}")
-    check(abs(dc / 0.05 - 1) <= 1e-6, f"phase 9: imperfection {dc} is not max_imp 0.05")
-    check(not any("MAXIMUM RESTARTS" in ln for ln in lines), "phase 9: a step did not converge")
-    check(len(cs["steps"]) == len(lbd) - 1 == COL_NSTEP, "phase 9: not every step recorded")
+          f"{label}: factors {lam} not within 3% of {EULER_COL:.4f}")
+    check(abs(dc / 0.05 - 1) <= 1e-6, f"{label}: imperfection {dc} is not max_imp 0.05")
+    check(not any("MAXIMUM RESTARTS" in ln for ln in lines), f"{label}: a step did not converge")
+    check(len(cs["steps"]) == len(lbd) - 1 == nstep, f"{label}: not every step recorded")
     check(bool(np.all(np.isfinite(lbd))) and lbd.max() < COL_SY / COL_T,
-          f"phase 9: load factors {lbd} not finite or not below the squash factor")
-    check(bool(np.isfinite(res.sig_gp).all()), "phase 9: stresses are not finite")
+          f"{label}: load factors {lbd} not finite or not below the squash factor")
+    check(bool(np.isfinite(res.sig_gp).all()), f"{label}: stresses are not finite")
     check(launches["block_matvec"] > 0 and launches["block_matmat"] > 0,
-          "phase 9: K0 or K0m was not launched on the path")
+          f"{label}: K0 or K0m was not launched on the path")
     print(f"K0 launches by dtype {k0_dtypes}; K0m launches by dtype and m {k0m_shapes}")
     return dict(launches=launches, k0_dtypes=k0_dtypes, k0m_shapes=k0m_shapes,
                 buckling=t["buckling"], stepping=t["stepping"], wall=wall, factors=lam.tolist())
@@ -867,7 +882,7 @@ def case_phase(tmp, smi):
     from fcvm_tpu_torch import FcvmConfig, native, run_analysis, run_sum
     from fcvm_tpu_torch.models.casefile import load_case, parse_sum_groups
     from fcvm_tpu_torch.ops import kernels, postproc
-    from fcvm_tpu_torch.runtime import driver
+    from fcvm_tpu_torch.runtime import backend as backend_mod
     from fcvm_tpu_torch.runtime.viz import _clip_surface
     from fcvm_tpu_torch.runtime.vtk import _elements_per_node, read_point_fields
 
@@ -888,7 +903,7 @@ def case_phase(tmp, smi):
 
     dmat_shapes = []
 
-    class Recording(driver.TorchSystem):
+    class Recording(backend_mod.TorchSystem):
         """The driver's backend, recording the shape of its elasticity."""
 
         def __init__(self, *args, **kwargs):
@@ -896,8 +911,8 @@ def case_phase(tmp, smi):
             dmat_shapes.append(tuple(self.dmat.shape))
 
     lines = []
-    backend = driver.TorchSystem
-    driver.TorchSystem = Recording
+    backend = backend_mod.TorchSystem
+    backend_mod.TorchSystem = Recording  # what make_backend builds on one device
     kernels.block_matvec.launches = 0
     kernels.block_matmat.launches = 0
     kernels.block_matvec.dtypes.clear()
@@ -906,7 +921,7 @@ def case_phase(tmp, smi):
                            save_plots=False, config=FcvmConfig(device="cuda", dtype="float32"))
         torch.cuda.synchronize()
     finally:
-        driver.TorchSystem = backend
+        backend_mod.TorchSystem = backend
     launches = kernels.block_matvec.launches, kernels.block_matmat.launches
     k0_dtypes = dict(kernels.block_matvec.dtypes)
     t0 = time.perf_counter()
@@ -1137,6 +1152,7 @@ def cluster_small_phase():
     from fcvm_tpu_torch.ops.precond import COARSE_BUILD_STATS
 
     small = plate_model(PLATE_SMALL)
+    cpu_small = {}
     for gnl in (False, True):
         lbds = {}
         for dev in ("cuda", "cpu"):
@@ -1231,6 +1247,157 @@ def fcstd_phase(tmp, smi):
                 t_resolver=t_resolver, t_build=t_build, walls=walls)
 
 
+def gmsh_phase(big, tmp: Path):
+    """Write the plate with ``meshio_io.write_gmsh`` and read it back through
+    the native Gmsh reader in this process (the CUDA extension loaded), the
+    conditions under which the iostream UNV reader crashed; host times."""
+    from fcvm_tpu_torch import native
+    from fcvm_tpu_torch.models import meshio_io
+
+    path = tmp / "plate.msh"
+    t0 = time.perf_counter()
+    meshio_io.write_gmsh(path, big.mesh)
+    t1 = time.perf_counter()
+    out = native.read_gmsh_native(str(path))
+    t2 = time.perf_counter()
+    check(out is not None, "phase 11d: the native Gmsh reader returned nothing")
+    coords, elnodes = out
+    err = float(np.abs(coords - big.mesh.coords).max())
+    print(f"write_gmsh {t1 - t0:.2f} s ({path.stat().st_size / 2**20:.1f} MiB), native read "
+          f"{t2 - t1:.2f} s: {len(coords)} nodes, {len(elnodes)} elements, max |coords diff| "
+          f"{err:.3e}, connectivity {'equal' if np.array_equal(elnodes, big.mesh.elnodes) else 'DIFFERENT'}")
+    check(coords.shape == big.mesh.coords.shape and err <= 1e-12
+          and np.array_equal(elnodes, big.mesh.elnodes),
+          "phase 11d: the native Gmsh read-back differs from the written mesh")
+
+
+def sharded_phase(big, on, smi):
+    """Phase 13: the sharded backend on a world of one over NCCL
+    (``force_sharded``), this process its rank: the phase-7 plate against
+    phase 7, one all_reduce of the plate's vector, then the beam-column's
+    eigensolve, seeding and two steps against phase 9's bars."""
+    from fcvm_tpu_torch import FcvmConfig
+    from fcvm_tpu_torch.parallel import dist as pdist
+    from fcvm_tpu_torch.utils.indexing import pad_ndof
+
+    g = pdist.init_process_group("cuda")
+    print(f"process group: rank {g.rank} of {g.world_size}, backend {g.backend}, {g.device}")
+    try:
+        cfg = FcvmConfig(device="cuda", dtype="float32", force_sharded=True)
+        sh = run_plate(big, cfg, "phase 13")
+        steps = (len(sh["cg_stats"]["steps"]), len(on["cg_stats"]["steps"]))
+        rel = abs(sh["lbd"][-1] / on["lbd"][-1] - 1)
+        ratio = sh["step_iters"] / on["step_iters"]
+        per_it = [1e3 * v["cg_stats"]["time"] / v["cg_stats"]["iters"] for v in (sh, on)]
+        vec = torch.ones(pad_ndof(NDOF_BIG), device="cuda")
+        ar_ms = cuda_ms(pdist.all_reduce, vec)
+        ar = allreduce_pieces(big, cfg, vec)
+        print(f"sharded (world 1, NCCL) vs phase 7 ({smi}): steps {steps[0]} / {steps[1]}, final "
+              f"lbd {sh['lbd'][-1]:.6f} / {on['lbd'][-1]:.6f} (rel diff {rel:.2e}), stepping CG "
+              f"iterations {sh['step_iters']} / {on['step_iters']} = {ratio:.3f}, stepping "
+              f"{sh['stepping']:.2f} / {on['stepping']:.2f} s, ms per CG iteration incl. stress "
+              f"updates {per_it[0]:.3f} / {per_it[1]:.3f}; one all_reduce of the "
+              f"{vec.numel()}-float32 vector {ar_ms:.4f} ms (median of 20)")
+        check(steps[0] == steps[1], "phase 13: not phase 7's number of steps")
+        check(rel <= 1e-3, "phase 13: final lbd not within 1e-3 of phase 7's")
+        check(abs(ratio - 1) <= 0.03, "phase 13: stepping CG iterations not within 3% of phase 7's")
+        check(sh["launches_k0m"] > 0, "phase 13: K0m was not launched on the sharded plate")
+        print(f"all_reduce pieces: one float {ar['one_ms']:.4f} ms (CUDA events), the plate's "
+              f"vector {ar['host_ms']:.4f} ms of host time per call (100 calls, one sync); the "
+              f"sharded K_hat.v {ar['khat_ms']:.4f} ms against its unreduced body "
+              f"{ar['body_ms']:.4f} ms (medians of 20)")
+        print("beam-column at 451,875 dof on the sharded backend, eigensolve, seeding, 2 steps:")
+        col = run_column(cfg, nstep=2, label="phase 13 column")
+    finally:
+        pdist.destroy_process_group()
+    return dict(plate=sh, column=col, all_reduce_ms=ar_ms, **ar)
+
+
+def allreduce_pieces(big, cfg, vec):
+    """Where phase 13's all_reduce spends its time: one of a single float,
+    the host time per call of the plate's vector, and the sharded operator's
+    K_hat.v against the same steps without the collective."""
+    from fcvm_tpu_torch.parallel import dist as pdist
+    from fcvm_tpu_torch.parallel.system import ShardedSystem
+
+    one_ms = cuda_ms(pdist.all_reduce, torch.ones(1, device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        pdist.all_reduce(vec)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 10.0
+    be = ShardedSystem(big, cfg, torch.float32, torch.device("cuda"))
+    esm, *_ = be.assemble(be.tensor(big.mesh.coords))
+    khat = be.operator(esm)
+    del esm
+    fm = be.space.fixmask_m
+    u = torch.randn(be.ndof_pad, device="cuda")
+    out = dict(one_ms=one_ms, host_ms=host_ms, khat_ms=cuda_ms(khat, u),
+               body_ms=cuda_ms(lambda v: fm * khat.local(fm * v) + (1.0 - fm) * v, u))
+    del khat, be
+    torch.cuda.empty_cache()
+    return out
+
+
+def gloo_rank():
+    """Phase 13b on one rank (a process of its own): the small plate in
+    small strain and GNL and the small column's buckling, float64, on a
+    world of two gloo ranks sharing ``cuda:0``; its load and buckling
+    factors, CG counts and kernel launches."""
+    from fcvm_tpu_torch import ControlParams, FcvmConfig, solve_collapse
+    from fcvm_tpu_torch.ops import kernels
+
+    k0, k0m = kernels.block_matvec.launches, kernels.block_matmat.launches
+    out = {}
+    for gnl in (False, True):
+        res = solve_collapse(plate_model(PLATE_SMALL), plate_params(6, gnl), config=FcvmConfig(
+            device="cuda:0", dtype="float64", cg_rtol=1e-10, n_devices=2, **TIERS_OFF))
+        out[gnl] = (np.asarray(res.history.lbd), [s["cg"] for s in res.cg_stats["steps"]])
+    res = solve_collapse(column_model((8, 1, 1), 1.0, 1000.0), ControlParams(gnl="GNLY", nstep=1),
+                         config=FcvmConfig(device="cuda:0", dtype="float64", cg_rtol=1e-12,
+                                           n_devices=2))
+    out["eig"] = np.asarray(res.eigenvalues)
+    out["launches"] = (kernels.block_matvec.launches - k0, kernels.block_matmat.launches - k0m)
+    return out
+
+
+def gloo_phase(cpu_small):
+    """Phase 13b: two gloo ranks spawned on ``cuda:0`` against the CPU's
+    single-device runs (phase 4's plate, and the column here)."""
+    from fcvm_tpu_torch import ControlParams, FcvmConfig, solve_collapse
+    from fcvm_tpu_torch.parallel import dist as pdist
+
+    print("two ranks share one card here (gloo, each collective staged through the host): "
+          "correctness numbers, not speed; NCCL with two or more cards is unmeasured")
+    t0 = time.perf_counter()
+    outs = pdist.spawn(gloo_rank, 2, device="cuda:0", backend="gloo", timeout=600)
+    print(f"spawned world of 2: {time.perf_counter() - t0:.1f} s wall")
+    ref_col = solve_collapse(column_model((8, 1, 1), 1.0, 1000.0),
+                             ControlParams(gnl="GNLY", nstep=1),
+                             config=FcvmConfig(device="cpu", dtype="float64", cg_rtol=1e-12))
+    same = all(np.array_equal(outs[0][k][0], outs[1][k][0]) and outs[0][k][1] == outs[1][k][1]
+               for k in (False, True)) and np.array_equal(outs[0]["eig"], outs[1]["eig"])
+    for gnl in (False, True):
+        lbd = outs[0][gnl][0]
+        diff = float(np.max(np.abs(lbd - cpu_small[gnl]) / np.maximum(np.abs(cpu_small[gnl]),
+                                                                       1e-300)))
+        print(f"{'GNL' if gnl else 'small strain'}: lbd {lbd.round(6).tolist()}, max rel diff "
+              f"against the CPU {diff:.3e} (limit {LBD_RTOL:g}), CG per solve "
+              f"{outs[0][gnl][1]}")
+        check(len(lbd) == len(cpu_small[gnl]) and diff <= LBD_RTOL,
+              "phase 13b: the gloo ranks' load factors disagree with the CPU")
+    eig_diff = float(np.max(np.abs(outs[0]["eig"] / ref_col.eigenvalues - 1)))
+    print(f"column buckling factors {outs[0]['eig'].tolist()}, max rel diff against the CPU "
+          f"{eig_diff:.3e} (limit {EIG_RTOL:g}); ranks identical: {same}; K0 and K0m launches "
+          f"per rank {[o['launches'] for o in outs]}")
+    check(eig_diff <= EIG_RTOL, "phase 13b: buckling factors disagree with the CPU")
+    check(same, "phase 13b: the two ranks' histories differ")
+    check(all(o["launches"][0] > 0 and o["launches"][1] > 0 for o in outs),
+          "phase 13b: K0 or K0m was not launched on a rank")
+    return [o["launches"] for o in outs]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: torch.cuda.is_available() is false; this "
@@ -1270,6 +1437,7 @@ def main():
 
     phase("4 small plate, float64, GPU vs CPU, small strain and GNL")
     small = plate_model(PLATE_SMALL)
+    cpu_small = {}
     for gnl in (False, True):
         lbds = {}
         for dev in ("cuda", "cpu"):
@@ -1282,6 +1450,7 @@ def main():
                   f"{res.cg_stats['predictor_solves']}")
             if gnl:
                 check(res.cg_stats["predictor_solves"] > 0, "GNL: no tangent predictor solve")
+        cpu_small[gnl] = lbds["cpu"]
         check(len(lbds["cuda"]) == len(lbds["cpu"]) == 7, "step counts differ from 6")
         diff = float(np.max(np.abs(lbds["cuda"] - lbds["cpu"])
                             / np.maximum(np.abs(lbds["cpu"]), 1e-300)))
@@ -1407,13 +1576,23 @@ def main():
               f"stepping CG iterations {clus_gnl['step_iters']} against {gnl['step_iters']}")
         check(cs["predictor_solves"] > 0, "phase 11b: no tangent predictor solve")
         check(built == 1 + failover, "phase 11b: the refreshes rebuilt the smoother")
-        del big
+
+        phase("11d the plate through write_gmsh and the native Gmsh reader, in this process")
+        gmsh_phase(big, Path(tmp))
 
         phase("11c small plate, float64, cluster smoother, GPU vs CPU, small strain and GNL")
         cluster_small_phase()
 
         phase(f"12 FreeCAD document of the plate at full size through the CLI, float64 ({smi})")
         doc = fcstd_phase(Path(tmp), smi)
+
+    phase(f"13 sharded backend, world of 1 over NCCL: the plate (phase 7's configuration) and "
+          f"the beam-column ({smi})")
+    sharded = sharded_phase(big, on, smi)
+    del big
+
+    phase("13b sharded backend, world of 2 over gloo on one card, float64, GPU ranks vs CPU")
+    gloo_launches = gloo_phase(cpu_small)
     phase()
     print(f"all phases: {time.perf_counter() - t_start:.1f} s wall")
 
@@ -1425,6 +1604,9 @@ def main():
         "launches_gnl": gnl_launches[0], "launches_column": col["k0_dtypes"].get("float32", 0),
         "launches_case": case["launches"], "launches_cluster": clus["launches"],
         "launches_cluster_gnl": clus_gnl["launches"], "launches_fcstd_f64": doc["launches"],
+        "launches_sharded": sharded["plate"]["launches"],
+        "launches_sharded_column": sharded["column"]["k0_dtypes"].get("float32", 0),
+        "launches_gloo_ranks_f64": [k[0] for k in gloo_launches],
         "ne": NE_BIG, **k0[(torch.float32, NE_BIG)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, **row}
                    for (dtype, ne), row in k0.items()],
@@ -1432,6 +1614,7 @@ def main():
         # the float64 tiers: the eigensolve's tier 2 on the beam-column
         "name": "block_matvec", "dtype": "float64", **k0_source,
         "launches": col["k0_dtypes"].get("float64", 0),
+        "launches_sharded_column": sharded["column"]["k0_dtypes"].get("float64", 0),
         "ne": NE_COL, **k0[(torch.float64, NE_COL)],
     }, *probe_rows, {
         "name": "block_matmat", "route": "cuda",
@@ -1443,6 +1626,10 @@ def main():
         "launches_default": on["launches_k0m"], "launches_gnl": gnl_launches[1],
         "launches_case": case["launches_k0m"], "launches_cluster": clus["launches_k0m"],
         "launches_cluster_gnl": clus_gnl["launches_k0m"], "launches_fcstd_f64": doc["launches_k0m"],
+        "launches_sharded": sharded["plate"]["launches_k0m"],
+        "launches_sharded_column": sharded["column"]["launches"]["block_matmat"],
+        "launches_sharded_column_by_shape": sharded["column"]["k0m_shapes"],
+        "launches_gloo_ranks_f64": [k[1] for k in gloo_launches],
         "ne": NE_COL, "m": 8, **k0m[(torch.float32, NE_COL, 8)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, "m": m, **row}
                    for (dtype, ne, m), row in k0m.items()],

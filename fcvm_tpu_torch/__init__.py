@@ -1,4 +1,4 @@
-"""fcVM on PyTorch and CUDA: the port of :mod:`fcvm_tpu` to one NVIDIA GPU.
+"""fcVM on PyTorch and CUDA: the port of :mod:`fcvm_tpu` to NVIDIA GPUs.
 
 The JAX package stays the reference; this package mirrors its module layout
 and names, imports neither it nor JAX, and is checked against it by the
@@ -12,10 +12,10 @@ and K0m (:mod:`fcvm_tpu_torch.ops.kernels`, sources under ``csrc/``).
 :func:`run_analysis` and :func:`run_sum` (:mod:`fcvm_tpu_torch.api`) add
 the reference's output files (``.out``, ``.vtk``, ``.avr``, curves), and
 ``python -m fcvm_tpu_torch run case.toml`` runs a TOML case file
-(:mod:`fcvm_tpu_torch.models.casefile`) through them.
-
-Options that are not ported yet raise :class:`NotImplementedError` naming
-the ROADMAP item that ports them.
+(:mod:`fcvm_tpu_torch.models.casefile`) through them.  On several
+devices the analysis runs over an element partition, one process per
+device (:mod:`fcvm_tpu_torch.parallel`, ``FcvmConfig(n_devices=N)``, the
+CLI's ``--devices N`` and ``--distributed``).
 """
 
 from fcvm_tpu_torch.config import FcvmConfig

@@ -18,11 +18,17 @@ the JAX package's CLI, for machines without matplotlib).  A FreeCAD
 (:func:`fcvm_tpu_torch.models.fcstd.load_reference_case`; ``--inp`` and
 ``--mesh`` replace the paired file and the embedded mesh): ``run`` writes
 no ``.avr`` for it and ``sum`` refuses it (both need a TOML case's
-``[[sum.*]]`` groups).  Not ported yet, and refused with
-``NotImplementedError``: the multi-process flags
-``--distributed``/``--coordinator``/``--num-processes``/``--process-id``
-(ROADMAP Queue 1 item 16); ``--devices N`` with N > 1 is refused by
-:meth:`FcvmConfig.check_supported`.
+``[[sum.*]]`` groups).
+
+Several devices run the sharded backend (:mod:`fcvm_tpu_torch.parallel`),
+one process per device.  ``--devices N`` (N > 1) starts N local ranks
+itself: one per visible GPU (more ranks than GPUs raise), or N gloo ranks
+on the CPU with ``--cpu``.  ``--distributed`` joins a launch made outside:
+``torchrun --nproc-per-node N -m fcvm_tpu_torch run case.toml
+--distributed`` (``env://``), or the same command on every process with
+``--coordinator HOST:PORT --num-processes N --process-id R`` (``tcp://``);
+the world size is the device count.  Every rank solves; rank 0 alone
+prints and writes files.
 """
 
 from __future__ import annotations
@@ -55,24 +61,61 @@ def main(argv=None):
                        "(written by a previous --checkpoint run)")
         p.add_argument("--steps", type=int, default=0, help="override nstep")
         p.add_argument("--devices", type=int, default=0,
-                       help="number of devices (0 or 1: one GPU)")
+                       help="number of devices: N > 1 starts N ranks of the sharded "
+                       "backend, one per GPU (gloo ranks on the CPU with --cpu)")
         p.add_argument("--gif", action="store_true", help="also write the orbital clip-view GIF")
         p.add_argument("--no-plots", action="store_true",
                        help="run: skip the .png curves and viewer bundle (which need "
                        "matplotlib)")
         p.add_argument("--distributed", action="store_true",
-                       help="multi-process run (not ported yet)")
+                       help="join a multi-process launch (torchrun's env://, or "
+                       "--coordinator): one rank per device, the world size is the "
+                       "device count")
         p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                       help="with --distributed (not ported yet)")
+                       help="with --distributed: rank 0's address (tcp://), with "
+                       "--num-processes and --process-id")
         p.add_argument("--num-processes", type=int, default=None)
         p.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
+    launch = (args.coordinator, args.num_processes, args.process_id)
+    if not args.distributed and launch != (None, None, None):
+        ap.error("--coordinator/--num-processes/--process-id need --distributed")
+    if args.coordinator is not None and None in launch:
+        ap.error("--coordinator needs --num-processes and --process-id")
 
-    if args.distributed or args.coordinator is not None or args.num_processes is not None \
-            or args.process_id is not None:
-        raise NotImplementedError(
-            "--distributed/--coordinator/--num-processes/--process-id: the "
-            "multi-device backend (ROADMAP Queue 1 item 16) is not ported yet")
+    from fcvm_tpu_torch.parallel import dist as pdist
+
+    device = "cpu" if args.cpu else "cuda"
+    if args.distributed:
+        pdist.init_process_group(
+            device, init_method=f"tcp://{args.coordinator}" if args.coordinator else "env://",
+            world_size=args.num_processes, rank=args.process_id)
+        try:
+            return _command(args)
+        finally:
+            pdist.destroy_process_group()
+    if args.devices > 1 and args.cmd in ("run", "buckle", "bench"):
+        if not args.cpu:
+            import torch
+
+            found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if args.devices > found:
+                raise RuntimeError(f"--devices {args.devices}: found {found} CUDA device(s)")
+        import importlib
+
+        # by module name: a spawned process does not import a package's
+        # __main__ as its own, so `__main__._command` would not unpickle
+        rank_command = importlib.import_module("fcvm_tpu_torch.__main__")._command
+        return max(pdist.spawn(rank_command, args.devices, args=(args,), device=device))
+    return _command(args)
+
+
+def _command(args) -> int:
+    """Run ``args.cmd`` in this process: one rank of a multi-device run, or
+    the only process."""
+    from fcvm_tpu_torch.parallel import dist as pdist
+
+    say = print if pdist.rank() == 0 else (lambda *a, **k: None)
     fcstd = str(args.case).lower().endswith(".fcstd")
 
     from fcvm_tpu_torch.config import FcvmConfig
@@ -80,7 +123,7 @@ def main(argv=None):
 
     cfg = FcvmConfig(device="cpu" if args.cpu else "cuda",
                      dtype="float64" if args.x64 else "float32",
-                     n_devices=args.devices)
+                     n_devices=args.devices or pdist.world_size())
     cfg.check_supported()
     if fcstd:
         # FreeCAD document + its paired .inp control file, the reference's
@@ -96,21 +139,23 @@ def main(argv=None):
     if args.cmd == "info":
         m = model.mesh
         fixmask, u_fix, movdof = model.bcs.masks(m.ndof)
-        print(f"model: {model.name}")
-        print(f"nodes: {m.n_nodes}  elements: {m.n_elements}  ndof: {m.ndof}")
-        print(f"material: E={model.material.e} nu={model.material.nu} "
+        say(f"model: {model.name}")
+        say(f"nodes: {m.n_nodes}  elements: {m.n_elements}  ndof: {m.ndof}")
+        say(f"material: E={model.material.e} nu={model.material.nu} "
               f"rho={model.material.density}")
-        print(f"fixed dofs: {int((fixmask < 0.5).sum())}  "
+        say(f"fixed dofs: {int((fixmask < 0.5).sum())}  "
               f"driven dofs: {int(movdof.sum())}")
-        print(f"loads: {len(model.loads.pressure_faces)} pressure faces, "
+        say(f"loads: {len(model.loads.pressure_faces)} pressure faces, "
               f"{len(model.loads.traction_faces)} traction faces, "
               f"{len(model.loads.vertices)} point loads, "
               f"gravity {model.loads.gravity.tolist()}")
-        print(f"control: nstep={params.nstep} gnl={params.gnl} "
+        say(f"control: nstep={params.nstep} gnl={params.gnl} "
               f"sig_yield={params.sig_yield} target_LF={params.target_lf}")
         return 0
 
     if args.cmd == "sum":
+        if pdist.rank() != 0:
+            return 0  # host work on the finished run's files: rank 0's
         # Post-hoc Sum (fcVM_sum.FCMacro): the reference reads CSR/PEEQ/
         # von Mises from the stored result object of a finished analysis;
         # here they are read back from the run's exported .vtk (host only).
@@ -156,19 +201,19 @@ def main(argv=None):
 
     if args.cmd == "buckle":
         lam, vecs = fcvm_tpu_torch.linear_buckling(model, params, k=2, config=cfg)
-        print("buckling load factors:", lam)
+        say("buckling load factors:", lam)
         return 0
 
     if args.cmd == "run":
         res = fcvm_tpu_torch.run_analysis(
             model, params, outdir=args.outdir,
             checkpoint=args.checkpoint, resume_from=args.resume,
-            progress=print, save_plots=not args.no_plots, config=cfg,
+            progress=say, save_plots=not args.no_plots, config=cfg,
         )
         h = res.history
-        print(f"final load level: {h.lbd[-1]:.5f}  max |u|: {max(h.un):.5e}  "
+        say(f"final load level: {h.lbd[-1]:.5f}  max |u|: {max(h.un):.5e}  "
               f"PEEQ max: {h.peeqmax[-1]:.4e}  CSR max: {h.csr[-1]:.4e}")
-        if args.gif:
+        if args.gif and pdist.rank() == 0:
             from fcvm_tpu_torch.ops import postproc
             from fcvm_tpu_torch.runtime.viz import save_orbit_gif
             from fcvm_tpu_torch.runtime.vtk import _elements_per_node
@@ -181,13 +226,13 @@ def main(argv=None):
             )
             save_orbit_gif(f"{args.outdir}/{model.name}_orbit.gif", res.coords,
                            model.mesh.elnodes, csr_n)
-        print(f"wrote {args.outdir}/{model.name}.out .vtk" + ("" if args.no_plots else " .png"))
+        say(f"wrote {args.outdir}/{model.name}.out .vtk" + ("" if args.no_plots else " .png"))
         edge_groups, face_groups = ({}, {}) if fcstd else parse_sum_groups(args.case,
                                                                             model.mesh)
-        if edge_groups or face_groups:
+        if (edge_groups or face_groups) and pdist.rank() == 0:
             fcvm_tpu_torch.run_sum(model, res, params, edge_groups, face_groups,
                                    outdir=args.outdir)
-            print(f"wrote {args.outdir}/{model.name}.avr")
+            say(f"wrote {args.outdir}/{model.name}.avr")
         return 0
 
     if args.cmd == "bench":
@@ -195,7 +240,7 @@ def main(argv=None):
         res = fcvm_tpu_torch.solve_collapse(model, params, config=cfg)
         dt = time.time() - t0
         nsteps = max(len(res.history.lbd) - 1, 1)
-        print(json.dumps({
+        say(json.dumps({
             "metric": "case_step_wall_ms",
             "value": round(dt / nsteps * 1e3, 2),
             "unit": "ms",

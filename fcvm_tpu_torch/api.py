@@ -5,7 +5,8 @@ Start-button pipeline (``source code/fcVM.FCMacro:100-257``): solve -> map
 stresses -> write the ``.out`` report -> export VTK -> save curves, with
 per-phase wall timers.  ``run_sum`` is the "Sum" button
 (``fcVM_sum.FCMacro``): integrate nodal fields over named edge/face groups
-into a ``.avr`` report.  One process writes every file.
+into a ``.avr`` report.  In a multi-device run every rank solves and
+rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from fcvm_tpu_torch.config import FcvmConfig
 from fcvm_tpu_torch.models.inp import ControlParams
 from fcvm_tpu_torch.models.spec import Model
 from fcvm_tpu_torch.ops import postproc
+from fcvm_tpu_torch.parallel import dist as pdist
 from fcvm_tpu_torch.runtime import report as report_mod
 from fcvm_tpu_torch.runtime import vtk as vtk_mod
 from fcvm_tpu_torch.runtime.driver import AnalysisResults, solve_collapse
@@ -56,7 +58,7 @@ def run_analysis(
     )
     t["solve"] = time.time() - t0
 
-    if outdir is not None:
+    if outdir is not None and pdist.rank() == 0:
         out = Path(outdir)
         out.mkdir(parents=True, exist_ok=True)
         t0 = time.time()

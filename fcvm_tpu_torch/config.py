@@ -3,12 +3,10 @@ that the port uses, with the same defaults, plus ``device``).
 
 A :class:`FcvmConfig` is created by the caller and passed to
 :func:`fcvm_tpu_torch.solve_collapse`; there is no process-wide config and
-no environment override.  Options the slice has not ported are kept with
-their JAX defaults so a config reads like the reference's, and
-:meth:`FcvmConfig.check_supported` raises :class:`NotImplementedError` for
-them naming the ROADMAP item that ports them.  The defaults run as they
-do in the JAX package: Ritz deflation, residual refinement and the float64
-failover on.
+no environment override.  :meth:`FcvmConfig.check_supported` raises for
+values outside each option's range.  The defaults run as they do in the
+JAX package: Ritz deflation, residual refinement and the float64 failover
+on.
 """
 
 from __future__ import annotations
@@ -54,7 +52,20 @@ class FcvmConfig:
         ``"eliminate"`` removes fixed dofs exactly (identity rows in K_hat,
         zero rows in G_hat); ``"penalty"`` reproduces the reference's x100
         fixed-diagonal penalty on the full pencil (``fcVM.py:1051-1062``).
-      n_devices: 0 or 1 (one device).
+      n_devices: 0 or 1 = one device; N > 1 runs the element-partition
+        backend (:mod:`fcvm_tpu_torch.parallel.system`) over a process
+        group of exactly N ranks, one per device, which the caller starts
+        (the CLI's ``--devices N`` or ``--distributed``,
+        :func:`fcvm_tpu_torch.parallel.dist.spawn`); another group size
+        raises.
+      force_sharded: run the sharded backend even at ``n_devices <= 1``, on
+        a world of one (which it starts when none is running): the sharded
+        code on one device, as the JAX package validates its ``shard_map``
+        kernels on one chip.
+      node_partition: in the sharded backend, run each PCG on the ranks'
+        slices of Morton node rows (one ``all_gather`` and one
+        ``reduce_scatter`` per matvec, all-reduced dots and coarse
+        restriction) instead of on replicated vectors.
       deflation: Ritz-deflation recycling of the Newton correction solves
         (:mod:`fcvm_tpu_torch.ops.deflation`, whose constants size it): one
         solve harvests its Lanczos byproducts, the lowest Ritz vectors
@@ -72,9 +83,6 @@ class FcvmConfig:
         over float32 state with the float32 operator and CG.
       arc_length: ``"riks"`` (the reference's linearised update) or
         ``"crisfield"`` (the spherical constraint, which follows snapback).
-
-    Not ported, and refused by :meth:`check_supported`: more than one
-    device.
     """
 
     device: str = "cuda"
@@ -92,6 +100,8 @@ class FcvmConfig:
     n_eig_vectors: int = 8
     buckling_bc: str = "eliminate"
     n_devices: int = 0
+    force_sharded: bool = False
+    node_partition: bool = False
     deflation: bool = True
     deflation_min_iters: int = 48
     load_deflation: bool = True
@@ -141,11 +151,9 @@ class FcvmConfig:
         return min(max(1000, 2 * ndof), 200_000)
 
     def check_supported(self) -> None:
-        """Raise for every option this slice of the port does not run."""
-        if self.n_devices > 1:
-            raise NotImplementedError(
-                f"n_devices={self.n_devices}: the multi-device backend "
-                "(ROADMAP Queue 1 item 16) is not ported yet")
+        """Raise for every option value outside its range."""
+        if self.n_devices < 0:
+            raise ValueError(f"n_devices must be >= 0, got {self.n_devices}")
         if self.solver not in ("cg", "scipy"):
             raise ValueError(f"unknown solver {self.solver!r}")
         if self.smoother not in ("jacobi3", "cluster"):

@@ -17,10 +17,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <algorithm>
-#include <fstream>
 #include <queue>
-#include <sstream>
-#include <string>
 #include <vector>
 
 namespace {
@@ -45,10 +42,6 @@ constexpr int kUnvToFcvm[10] = {0, 4, 1, 5, 2, 6, 7, 8, 9, 3};
 // kUnvToFcvm[i] gives the fcvm slot receiving UNV slot i:
 //   unv0=c1->0, unv1=m12->4, unv2=c2->1, unv3=m23->5, unv4=c3->2,
 //   unv5=m31->6, unv6=m14->7, unv7=m24->8, unv8=m34->9, unv9=c4->3
-
-bool starts_with(const std::string& s, const char* p) {
-  return s.rfind(p, 0) == 0;
-}
 
 // One line at a time through C stdio (POSIX getline), the trailing newline
 // kept; starts() skips leading blanks.
@@ -124,111 +117,98 @@ void fcvm_mesh_free(FcvmMesh* m) {
 // ---------------------------------------------------------------------------
 
 FcvmMesh* fcvm_read_gmsh(const char* path) {
-  std::ifstream f(path);
-  if (!f) return nullptr;
-  std::string line;
+  // C stdio with bounds-checked node tags, as the UNV reader below (an
+  // iostream reader crashed inside a process that had loaded the port's
+  // CUDA extension); a malformed file returns nullptr.
+  LineReader f(path);
+  if (!f.ok()) return nullptr;
   double version = 0.0;
   MeshData m;
-  std::vector<int64_t> tag_to_idx_keys;  // node tags (gmsh can be sparse)
+  std::vector<int64_t> tags;  // node tags (gmsh numbering can be sparse)
   std::vector<double> xyz;
-  std::vector<int64_t> tags;
+  int64_t v[64];
 
-  while (std::getline(f, line)) {
-    if (starts_with(line, "$MeshFormat")) {
-      std::getline(f, line);
-      version = atof(line.c_str());
-    } else if (starts_with(line, "$Nodes")) {
+  auto node = [&](char* p, int64_t tag) {
+    double x = strtod(p, &p), y = strtod(p, &p), z = strtod(p, &p);
+    tags.push_back(tag);
+    xyz.push_back(x);
+    xyz.push_back(y);
+    xyz.push_back(z);
+  };
+  // append one tet10 from its gmsh node tags; false on an unknown tag
+  std::vector<int64_t> tag2idx;
+  auto element = [&](const int64_t* nd) {
+    int64_t row[10];
+    for (int k = 0; k < 10; ++k) {
+      if (nd[k] < 0 || nd[k] >= (int64_t)tag2idx.size() || tag2idx[nd[k]] < 0) return false;
+      row[kGmshToFcvm[k]] = tag2idx[nd[k]];
+    }
+    m.elnodes.insert(m.elnodes.end(), row, row + 10);
+    ++m.ne;
+    return true;
+  };
+
+  while (f.next()) {
+    if (f.starts("$MeshFormat")) {
+      if (!f.next()) return nullptr;
+      version = atof(f.line());
+    } else if (f.starts("$Nodes")) {
+      if (!f.next()) return nullptr;
       if (version < 4.0) {
-        std::getline(f, line);
-        int64_t n = atoll(line.c_str());
-        tags.reserve(n);
-        xyz.reserve(n * 3);
-        for (int64_t i = 0; i < n; ++i) {
-          std::getline(f, line);
-          std::istringstream ss(line);
-          int64_t tag;
-          double x, y, z;
-          ss >> tag >> x >> y >> z;
-          tags.push_back(tag);
-          xyz.push_back(x);
-          xyz.push_back(y);
-          xyz.push_back(z);
+        if (parse_ints(f.line(), v, 1) < 1) return nullptr;
+        for (int64_t i = 0, n = v[0]; i < n; ++i) {
+          if (!f.next()) return nullptr;
+          char* p = f.line();
+          int64_t tag = strtoll(p, &p, 10);
+          node(p, tag);
         }
       } else {
-        std::getline(f, line);
-        std::istringstream hh(line);
-        int64_t nblocks, n, mn, mx;
-        hh >> nblocks >> n >> mn >> mx;
-        for (int64_t b = 0; b < nblocks; ++b) {
-          std::getline(f, line);
-          std::istringstream bh(line);
-          int64_t dim, etag, parametric, nb;
-          bh >> dim >> etag >> parametric >> nb;
+        // numEntityBlocks numNodes minNodeTag maxNodeTag
+        if (parse_ints(f.line(), v, 4) < 4) return nullptr;
+        for (int64_t b = 0, nblocks = v[0]; b < nblocks; ++b) {
+          // entityDim entityTag parametric numNodesInBlock
+          if (!f.next() || parse_ints(f.line(), v, 4) < 4) return nullptr;
+          int64_t nb = v[3];
           std::vector<int64_t> btags(nb);
           for (int64_t i = 0; i < nb; ++i) {
-            std::getline(f, line);
-            btags[i] = atoll(line.c_str());
+            if (!f.next() || parse_ints(f.line(), v, 1) < 1) return nullptr;
+            btags[i] = v[0];
           }
           for (int64_t i = 0; i < nb; ++i) {
-            std::getline(f, line);
-            std::istringstream ss(line);
-            double x, y, z;
-            ss >> x >> y >> z;
-            tags.push_back(btags[i]);
-            xyz.push_back(x);
-            xyz.push_back(y);
-            xyz.push_back(z);
+            if (!f.next()) return nullptr;
+            node(f.line(), btags[i]);
           }
         }
       }
-    } else if (starts_with(line, "$Elements")) {
-      // map node tag -> index
-      int64_t maxtag = 0;
+    } else if (f.starts("$Elements")) {
+      int64_t maxtag = -1;
       for (auto t : tags) maxtag = std::max(maxtag, t);
-      std::vector<int64_t> tag2idx(maxtag + 1, -1);
-      for (size_t i = 0; i < tags.size(); ++i) tag2idx[tags[i]] = (int64_t)i;
-
+      tag2idx.assign(maxtag + 1, -1);
+      for (size_t i = 0; i < tags.size(); ++i)
+        if (tags[i] >= 0) tag2idx[tags[i]] = (int64_t)i;
+      if (!f.next()) return nullptr;
       if (version < 4.0) {
-        std::getline(f, line);
-        int64_t n = atoll(line.c_str());
-        for (int64_t i = 0; i < n; ++i) {
-          std::getline(f, line);
-          std::istringstream ss(line);
-          int64_t tag, type, ntags;
-          ss >> tag >> type >> ntags;
-          int64_t skip;
-          for (int64_t t = 0; t < ntags; ++t) ss >> skip;
-          if (type == 11) {
-            int64_t nd[10];
-            for (int& g : (int[10]){0}) (void)g;
-            for (int k = 0; k < 10; ++k) ss >> nd[k];
-            int64_t row[10];
-            for (int k = 0; k < 10; ++k) row[kGmshToFcvm[k]] = tag2idx[nd[k]];
-            for (int k = 0; k < 10; ++k) m.elnodes.push_back(row[k]);
-            ++m.ne;
-          }
+        if (parse_ints(f.line(), v, 1) < 1) return nullptr;
+        for (int64_t i = 0, n = v[0]; i < n; ++i) {
+          // tag type ntags tag... nodes...
+          if (!f.next()) return nullptr;
+          int got = parse_ints(f.line(), v, 64);
+          if (got < 3) return nullptr;
+          if (v[1] != 11) continue;
+          int64_t first = 3 + v[2];
+          if (v[2] < 0 || got < first + 10 || !element(v + first)) return nullptr;
         }
       } else {
-        std::getline(f, line);
-        std::istringstream hh(line);
-        int64_t nblocks, n, mn, mx;
-        hh >> nblocks >> n >> mn >> mx;
-        for (int64_t b = 0; b < nblocks; ++b) {
-          std::getline(f, line);
-          std::istringstream bh(line);
-          int64_t dim, etag, type, nb;
-          bh >> dim >> etag >> type >> nb;
+        // numEntityBlocks numElements minElementTag maxElementTag
+        if (parse_ints(f.line(), v, 4) < 4) return nullptr;
+        for (int64_t b = 0, nblocks = v[0]; b < nblocks; ++b) {
+          // entityDim entityTag elementType numElementsInBlock
+          if (!f.next() || parse_ints(f.line(), v, 4) < 4) return nullptr;
+          int64_t type = v[2], nb = v[3];
           for (int64_t i = 0; i < nb; ++i) {
-            std::getline(f, line);
+            if (!f.next()) return nullptr;
             if (type != 11) continue;
-            std::istringstream ss(line);
-            int64_t tag, nd[10];
-            ss >> tag;
-            for (int k = 0; k < 10; ++k) ss >> nd[k];
-            int64_t row[10];
-            for (int k = 0; k < 10; ++k) row[kGmshToFcvm[k]] = tag2idx[nd[k]];
-            for (int k = 0; k < 10; ++k) m.elnodes.push_back(row[k]);
-            ++m.ne;
+            if (parse_ints(f.line(), v, 11) < 11 || !element(v + 1)) return nullptr;
           }
         }
       }

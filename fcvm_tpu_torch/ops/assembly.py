@@ -94,11 +94,13 @@ def geometric_stiffness_blocks(coords, elnodes, sig_gp) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def gravity_load_and_gp_coords(coords, elnodes, density, grav, ndof):
+def gravity_load_and_gp_coords(coords, elnodes, density, grav, ndof, weights=None):
     """Gravity nodal loads + Gauss point coordinates + mesh volume.
 
     Integrates ``grav * rho * N_i w |J|`` per element (``fcVM.py:757-767``);
-    ``density`` is a number or (ne,) per element.
+    ``density`` is a number or (ne,) per element.  ``weights`` (ne,), when
+    given, scales each element's load and volume (0 for the sharded
+    backend's padding elements).
     """
     coords_el = coords[elnodes]  # (ne, 10, 3)
     dt, dev = coords.dtype, coords.device
@@ -107,6 +109,8 @@ def gravity_load_and_gp_coords(coords, elnodes, density, grav, ndof):
     w = torch.as_tensor(el.W10, dtype=dt, device=dev)
     xs = torch.einsum("eki,gjk->egij", coords_el, dshp)
     det = det3(xs)  # (ne, 4)
+    if weights is not None:
+        det = det * weights[:, None]
     scale = w[None, :] * det.abs()
     rho = density[:, None, None] if torch.is_tensor(density) and density.dim() == 1 else density
     gamma = torch.einsum("eg,gj,c->ejc", scale, shp, grav) * rho
@@ -236,11 +240,14 @@ def dirichlet_rhs(esm_t, eldofs, fixmask, u_fix, glv):
     return fixmask * glv - fixmask * kv(u_fix) + u_fix
 
 
-def block_jacobi_inverse_blocks(esm, elnodes, fixmask):
+def block_jacobi_inverse_blocks(esm, elnodes, fixmask, reduce=None):
     """Inverse 3x3 nodal diagonal blocks of ``K_hat`` (nn, 3, 3).
 
     Fixed dofs get identity rows/columns so the preconditioner is
     consistent with :func:`make_bc_matvec`.  ``esm`` (ne, 30, 30).
+    ``reduce``, when given, sums the nodal blocks of a part of the mesh
+    over the parts before they are inverted (the sharded backend's
+    ``all_reduce``).
     """
     ne = esm.shape[0]
     nn = fixmask.shape[0] // 3
@@ -249,6 +256,8 @@ def block_jacobi_inverse_blocks(esm, elnodes, fixmask):
     diag = esm.reshape(ne, 10, 3, 10, 3)[:, idx, :, idx, :]
     nodal = torch.zeros((nn, 3, 3), dtype=esm.dtype, device=esm.device)
     nodal.index_add_(0, elnodes.T.reshape(-1), diag.reshape(-1, 3, 3))
+    if reduce is not None:
+        nodal = reduce(nodal)
     m3 = fixmask.reshape(nn, 3)
     eye = torch.eye(3, dtype=esm.dtype, device=esm.device)
     nodal = nodal * (m3[:, :, None] * m3[:, None, :]) + (1.0 - m3)[:, :, None] * eye

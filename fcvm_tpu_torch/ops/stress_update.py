@@ -45,16 +45,21 @@ def _geometry(coords_el):
     return dshpg, bmat, w * det.abs()
 
 
-def _internal_force(bmat, scale, sig, elnodes, ndof):
-    """``sum_e sum_g B_g^T sig_g w_g |J_g|`` (``fcVM.py:2448-2462``)."""
+def _internal_force(bmat, scale, sig, elnodes, ndof, weights=None, reduce=None):
+    """``sum_e sum_g B_g^T sig_g w_g |J_g|`` (``fcVM.py:2448-2462``); each
+    element's share scaled by ``weights`` (ne,) when given, the node vector
+    passed through ``reduce`` when given (see :func:`update_stress_load`)."""
     elv = torch.einsum("egkn,egk,eg->en", bmat, sig, scale)
+    if weights is not None:
+        elv = elv * weights[:, None]
     dofs = 3 * elnodes[:, :, None] + torch.arange(3, device=elnodes.device)
     qin = torch.zeros(ndof, dtype=elv.dtype, device=elv.device)
-    return qin.index_add_(0, dofs.reshape(-1), elv.reshape(-1))
+    qin.index_add_(0, dofs.reshape(-1), elv.reshape(-1))
+    return qin if reduce is None else reduce(qin)
 
 
 def update_stress_load(coords, elnodes, dmat, sig_yield, disp, du, sig_old,
-                       e, nu, et_e, large_disp: bool = False):
+                       e, nu, et_e, large_disp: bool = False, weights=None, reduce=None):
     """Full-mesh stress update + internal force.
 
     Args:
@@ -67,6 +72,10 @@ def update_stress_load(coords, elnodes, dmat, sig_yield, disp, du, sig_old,
       du: (ndof,) displacement increment of the current step.
       sig_old: (ne, 4, 6) stresses at the start of the step.
       large_disp: geometric nonlinearity (``gnl="GNLY"``).
+      weights: optional (ne,) scale of each element's internal force (0 for
+        the sharded backend's padding elements).
+      reduce: optional sum of the internal force over the parts of a
+        partitioned mesh (the sharded backend's ``all_reduce``).
 
     Returns:
       (sig_new, sig_test, pgp, qin): stresses (ne, 4, 6), trial stresses
@@ -91,18 +100,20 @@ def update_stress_load(coords, elnodes, dmat, sig_yield, disp, du, sig_old,
         sig_c = _tensor_to_voigt(s_conv / det3(f)[..., None, None])
     sig_test = sig_c + mat.apply_dmat(dmat, deps)
     sig_new, pgp = mat.radial_return(sig_test, sig_yield, h, g)
-    qin = _internal_force(bmat, scale, sig_new, elnodes, disp.shape[0])
+    qin = _internal_force(bmat, scale, sig_new, elnodes, disp.shape[0], weights, reduce)
     return sig_new, sig_test, pgp, qin
 
 
-def internal_force_from_stress(coords, elnodes, sig_gp, disp, large_disp: bool = False):
+def internal_force_from_stress(coords, elnodes, sig_gp, disp, large_disp: bool = False,
+                               weights=None, reduce=None):
     """``qin = sum_e B^T sigma w |J|`` for a given stress field (the
     reaction of the target-LF interception state, whose stress is a linear
     interpolation, ``fcVM.py:1486-1510``); with ``large_disp`` on the
     deformed coordinates.  A float64 ``disp`` (the refinement tier's) is
-    cast to the storage dtype of ``coords`` first: the record stays in it."""
+    cast to the storage dtype of ``coords`` first: the record stays in it.
+    ``weights`` and ``reduce`` as in :func:`update_stress_load`."""
     coords_el = coords[elnodes]
     if large_disp:
         coords_el = coords_el + disp.to(coords.dtype).reshape(-1, 3)[elnodes]
     _, bmat, scale = _geometry(coords_el)
-    return _internal_force(bmat, scale, sig_gp, elnodes, disp.shape[0])
+    return _internal_force(bmat, scale, sig_gp, elnodes, disp.shape[0], weights, reduce)

@@ -1,15 +1,19 @@
-"""The compute engine behind the collapse driver: :class:`TorchSystem`.
+"""The compute engines behind the collapse driver and their factory.
 
-The port of :class:`fcvm_tpu.runtime.backend.LocalSystem` (one device).
+:class:`TorchSystem` is the port of :class:`fcvm_tpu.runtime.backend.LocalSystem`
+(one device); :func:`make_backend` picks it or the element-partition
+:class:`fcvm_tpu_torch.parallel.system.ShardedSystem` (several devices).
 The driver keeps the host control flow; every tensor operation goes
-through this object.
+through the backend.
 
 Data contract (the same as ``LocalSystem``'s):
 
 * node vectors (disp, du, loads, residuals) are in user dof order, padded
   to the 384-dof alignment (:mod:`fcvm_tpu_torch.utils.indexing`);
-* Gauss-state tensors (stress, PEEQ, CSR, yield) are (ne, 4, ...) in user
-  element order;
+* Gauss-state tensors (stress, PEEQ, CSR, yield) are (ne, 4, ...) in the
+  backend's element order: user order here, each rank's padded Morton
+  slice in the sharded backend; ``gauss_to_user`` / ``user_to_gauss``
+  convert, and the driver converts exactly at results and checkpoints;
 * the linear solves run in the Morton solve space
   (:class:`fcvm_tpu_torch.runtime.system.SolveSpace`), and so do the
   harvested residuals and the deflation spaces built from them, and the
@@ -32,6 +36,9 @@ from fcvm_tpu_torch.utils.indexing import pad_ndof, pad_vector
 
 class TorchSystem:
     """Single-device backend over :mod:`fcvm_tpu_torch.runtime.system`."""
+
+    supports_scipy = True
+    writes_files = True  # the process that writes outputs and checkpoints
 
     def __init__(self, model, cfg, dtype: torch.dtype, device: torch.device):
         self.cfg = cfg
@@ -77,6 +84,23 @@ class TorchSystem:
 
     def gauss_full(self, value):
         return torch.full((self.ne, 4), value, dtype=self.dtype, device=self.device)
+
+    def gauss_false(self):
+        return torch.zeros((self.ne, 4), dtype=torch.bool, device=self.device)
+
+    def gauss_to_user(self, a) -> np.ndarray:
+        """A Gauss-state tensor as a host array in user element order."""
+        return a.detach().cpu().numpy()
+
+    def user_to_gauss(self, a):
+        """A user-order host array (a checkpoint's) as Gauss state: floats in
+        the working dtype, booleans as they are."""
+        t = torch.as_tensor(np.asarray(a), device=self.device)
+        return t if t.dtype == torch.bool else t.to(self.dtype)
+
+    def any(self, flags) -> bool:
+        """Whether any Gauss point is flagged (``pgp``), over the whole mesh."""
+        return bool(flags.any())
 
     def tensor(self, a):
         """A host array or scalar as a tensor of the working dtype."""
@@ -187,3 +211,15 @@ class TorchSystem:
         """Converged-step history scalars as host numbers."""
         vals = sysm.record_step_stats(disp_new, csr, peeq, pressure, svm, triax, ecr)
         return [v.item() for v in torch.stack([v.to(torch.float64) for v in vals]).cpu()]
+
+
+def make_backend(model, cfg, dtype: torch.dtype, device: torch.device):
+    """The backend of an analysis: the sharded one when ``cfg.n_devices >
+    1`` or ``cfg.force_sharded`` (a world of one, which runs the sharded
+    code on one device), :class:`TorchSystem` otherwise, as
+    :func:`fcvm_tpu.runtime.backend.make_backend` chooses."""
+    if cfg.n_devices > 1 or cfg.force_sharded:
+        from fcvm_tpu_torch.parallel.system import ShardedSystem
+
+        return ShardedSystem(model, cfg, dtype, device)
+    return TorchSystem(model, cfg, dtype, device)

@@ -10,7 +10,9 @@ load stepping, divergence restarts with shrinking increments (4-restart cap,
 ``fcVM.py:1457-1484``), adaptive step scaling (``fcVM.py:1530-1537``),
 target-load-factor interception (``fcVM.py:1486-1510``), displacement
 control, history recording and the ``continuation``/``monitor`` callbacks.
-Every tensor operation runs through :class:`TorchSystem`.  With
+Every tensor operation runs through the backend (:class:`TorchSystem` on one
+device, :class:`fcvm_tpu_torch.parallel.system.ShardedSystem` over several,
+where every rank runs this loop and one writes the checkpoints).  With
 ``solver="scipy"`` every linear solve is a host LU of the current operator
 (factorised once per operator, as the reference factorises its stiffness),
 and the recycling tiers are off.
@@ -57,7 +59,7 @@ from fcvm_tpu_torch.ops import deflation as dfl
 from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.precond import COARSE_BUILD_STATS
 from fcvm_tpu_torch.runtime import system as sysm
-from fcvm_tpu_torch.runtime.backend import TorchSystem
+from fcvm_tpu_torch.runtime.backend import make_backend
 from fcvm_tpu_torch.runtime.checkpoint import latest_step, save_state
 from fcvm_tpu_torch.runtime.profiling import PhaseTimers
 from fcvm_tpu_torch.utils.indexing import pad_vector
@@ -296,7 +298,11 @@ def _solve_collapse_impl(model, params, continuation, checkpoint_path, resume_fr
     mesh = model.mesh
     coords_np = mesh.coords.copy()
 
-    backend = TorchSystem(model, cfg, dtype, device)
+    backend = make_backend(model, cfg, dtype, device)
+    if cfg.solver == "scipy" and not backend.supports_scipy:
+        raise ValueError("the scipy direct tier is single-device only")
+    device = backend.device
+    g2u = backend.gauss_to_user  # Gauss state -> host array, user element order
     et_e = float(params.et_e)
     movdof = backend.movdof
     has_movdof = backend.has_movdof
@@ -474,10 +480,10 @@ def _solve_collapse_impl(model, params, continuation, checkpoint_path, resume_fr
             disp=disp, disp_total=disp_total, disp_el=disp_el[:ndof],
             eigenvalues=None if eigenvalues is None else np.asarray(eigenvalues),
             eigenvectors=None if eigenvectors is None else np.asarray(eigenvectors)[:ndof],
-            sig_gp=_host(sig_new), peeq_gp=_host(peeq), csr_gp=_host(csr),
-            svm_gp=_host(sigmises), triax_gp=_host(triax),
-            sig_yield_gp=_host(sig_yield), history=history,
-            gp_coords=_host(gp_coords), volume=float(volume),
+            sig_gp=g2u(sig_new), peeq_gp=g2u(peeq), csr_gp=g2u(csr),
+            svm_gp=g2u(sigmises), triax_gp=g2u(triax),
+            sig_yield_gp=g2u(sig_yield), history=history,
+            gp_coords=g2u(gp_coords), volume=float(volume),
             loadsums=_host(loadsums), fail=False, coords_old=mesh.coords.copy(),
             coords=coords_np, timers=timers.totals(), cg_stats=cg_stats,
             disp_scale=disp_scale,
@@ -538,7 +544,7 @@ def _solve_collapse_impl(model, params, continuation, checkpoint_path, resume_fr
     disp_scale = 1.0
     iterat_tot = 0
     eff_error_max = params.error_max
-    pgp = torch.zeros((backend.ne, 4), dtype=torch.bool, device=device)
+    pgp = backend.gauss_false()
 
     if resume_from is not None:
         # the converged state of an earlier run's newest checkpoint, in this
@@ -552,9 +558,9 @@ def _solve_collapse_impl(model, params, continuation, checkpoint_path, resume_fr
                 return backend.tensor(pad_vector(st[key], backend.ndof_pad))
 
             disp_new, disp_old, du = vec("disp_new"), vec("disp_old"), vec("du")
-            sig_new, sig_test, sig_yield, peeq, csr = (
-                backend.tensor(st[k]) for k in ("sig_new", "sig_test", "sig_yield", "peeq", "csr"))
-            pgp = torch.as_tensor(st["pgp"], dtype=torch.bool, device=device)
+            sig_new, sig_test, sig_yield, peeq, csr, pgp = (
+                backend.user_to_gauss(st[k])
+                for k in ("sig_new", "sig_test", "sig_yield", "peeq", "csr", "pgp"))
             lbd = [float(v) for v in st["lbd"]]
             step = len(lbd) - 2
             dl = float(st["dl"]) if "dl" in st else lbd[-1] - lbd[-2]
@@ -610,15 +616,17 @@ def _solve_collapse_impl(model, params, continuation, checkpoint_path, resume_fr
         if monitor is not None:
             monitor(_host(disp_new).reshape(-1, 3)[: mesh.n_nodes], history)
         if checkpoint_path:
+            # every rank gathers its Gauss state; one process writes
             ndof = mesh.ndof
             state = dict(
                 disp_new=_host(disp_new)[:ndof], disp_old=_host(disp_old)[:ndof],
-                du=_host(du)[:ndof], sig_new=_host(sig_new), sig_test=_host(sig_test),
-                sig_yield=_host(sig_yield), peeq=_host(peeq), csr=_host(csr),
-                pgp=_host(pgp), lbd=np.asarray(lbd), dl=np.asarray(dl))
+                du=_host(du)[:ndof], sig_new=g2u(sig_new), sig_test=g2u(sig_test),
+                sig_yield=g2u(sig_yield), peeq=g2u(peeq), csr=g2u(csr),
+                pgp=g2u(pgp), lbd=np.asarray(lbd), dl=np.asarray(dl))
             for k in _HISTORY_FIELDS:
                 state[f"hist_{k}"] = np.asarray(getattr(history, k))
-            save_state(checkpoint_path, step + 1, state)
+            if backend.writes_files:
+                save_state(checkpoint_path, step + 1, state)
 
     def tangent_step():
         """GNL tangent refresh (fcVM.py:1351-1396): a new operator and
@@ -692,7 +700,7 @@ def _solve_collapse_impl(model, params, continuation, checkpoint_path, resume_fr
                 while error > eff_error_max and not mrr:
                     iterat += 1
                     iterat_tot += 1
-                    if large_disp and (iterat == 1 or bool(pgp.any())):
+                    if large_disp and (iterat == 1 or backend.any(pgp)):
                         khat, pc, defl, a = tangent_step()
                     # one Newton iteration: correction solve (a harvesting
                     # one when the policy asks), arc-length update, residual

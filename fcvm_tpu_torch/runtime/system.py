@@ -228,21 +228,26 @@ def build_deflation(khat: Operator, space: SolveSpace, zs, coef) -> dfl.Deflatio
 
 
 def residual(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu,
-             et_e, glv, fixmask, lbd1, qnorm, large_disp=False, relax=1.0):
+             et_e, glv, fixmask, lbd1, qnorm, large_disp=False, relax=1.0,
+             weights=None, reduce=None):
     """Stress update + out-of-balance residual (``fcVM.py:1323-1342``).
 
     The returned ``r`` is pre-scaled by the relaxation factor (applied at
     the solve RHS, ``fcVM.py:1398-1400``); ``error`` (a 0-dim tensor) is
-    computed from the raw residual as the reference does."""
+    computed from the raw residual as the reference does.  ``weights`` and
+    ``reduce`` go to the internal force (the sharded backend's padding
+    elements and ``all_reduce``, :func:`update_stress_load`)."""
     sig_new, sig_test, pgp, qin = update_stress_load(
-        coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu, et_e, large_disp)
+        coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu, et_e, large_disp,
+        weights=weights, reduce=reduce)
     r = fixmask * (lbd1 * glv - qin)
     error = torch.linalg.vector_norm(r) / qnorm
     return sig_new, sig_test, pgp, qin, relax * r, error
 
 
 def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
-                     nu, et_e, glv, fixmask, lbd1, qnorm, large_disp=False, relax=1.0):
+                     nu, et_e, glv, fixmask, lbd1, qnorm, large_disp=False, relax=1.0,
+                     weights=None, reduce=None):
     """:func:`residual` evaluated in float64 over float32-stored state.
 
     The mixed-precision refinement tier (``config.residual_refinement``):
@@ -259,7 +264,7 @@ def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
 
     sig_new, sig_test, pgp, qin = update_stress_load(
         c(coords), elnodes, c(dmat), c(sig_yield), c(disp_new), c(du), c(sig_old),
-        c(e), c(nu), et_e, large_disp)
+        c(e), c(nu), et_e, large_disp, weights=c(weights), reduce=reduce)
     r = c(fixmask) * (c(lbd1) * c(glv) - qin)
     error = torch.linalg.vector_norm(r) / qnorm
     return (sig_new.to(out_dt), sig_test.to(out_dt), pgp, qin.to(out_dt),

@@ -314,12 +314,17 @@ def test_cli_checkpoint_then_resume(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """The multi-process flags raise naming their ROADMAP item; --devices 2
-    raises in check_supported; a case without [[sum.*]] groups makes
-    ``sum`` return 2.  (FreeCAD documents run: ``tests/test_torch_fcstd.py``.)"""
+    """The multi-process flags are ported (``tests/test_torch_sharded_ops.py``
+    runs them); what the CLI still refuses: ``--distributed`` outside a
+    launch, the launch flags without ``--distributed``, ``--coordinator``
+    without the world's size and this process's rank, and a case without
+    [[sum.*]] groups (``sum`` returns 2).  (FreeCAD documents run:
+    ``tests/test_torch_fcstd.py``.)"""
     p = _case_path(tmp_path, "column")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="torchrun"):
         main(["run", str(p), "--cpu", "--distributed"])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        main(["run", str(p), "--cpu", "--devices", "2"])
+    with pytest.raises(SystemExit):
+        main(["run", str(p), "--cpu", "--coordinator", "127.0.0.1:1"])
+    with pytest.raises(SystemExit):
+        main(["run", str(p), "--cpu", "--distributed", "--coordinator", "127.0.0.1:1"])
     assert main(["sum", str(p), "--outdir", str(tmp_path)]) == 2

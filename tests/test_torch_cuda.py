@@ -454,3 +454,61 @@ def test_run_analysis_cuda_matches_cpu(cuda, tmp_path):
     np.testing.assert_allclose(s_gpu["faces"]["Face1"]["svm"], s_cpu["faces"]["Face1"]["svm"],
                                rtol=1e-9)
     assert k0_cpu == 0 and k0_gpu > 0
+
+
+GNL_BOX = dict(sig_yield=60.0, nstep=3, error_max=1e-8, et_e=0.1, target_lf=99.0, gnl="GNLY",
+               max_imp=0.0)
+COLUMN = dict(gnl="GNLY", nstep=1)
+
+
+def _sharded_rank(case, device):
+    """One rank of a sharded run of ``case`` in float64 at ``cg_rtol``
+    1e-10 on ``device``: its load factors, buckling factors, the CG
+    iterations of every solve and its K0 and K0m launches."""
+    from fcvm_tpu_torch.parallel import dist as pdist
+
+    model, params = ((_tension_box(2), GNL_BOX) if case == "gnl" else
+                     (_column_model(), COLUMN))
+    k0, k0m = kernels.block_matvec.launches, kernels.block_matmat.launches
+    res = solve_collapse(model, ControlParams(**params), config=FcvmConfig(
+        device=device, dtype="float64", cg_rtol=1e-10, force_sharded=True,
+        n_devices=pdist.world_size()))
+    return dict(lbd=np.asarray(res.history.lbd), eig=res.eigenvalues,
+                cg=[s["cg"] for s in res.cg_stats["steps"]], iters=res.cg_stats["iters"],
+                k0=kernels.block_matvec.launches - k0, k0m=kernels.block_matmat.launches - k0m)
+
+
+@pytest.mark.parametrize("case", ["gnl", "column"])
+def test_sharded_world_of_one_over_nccl_matches_torchsystem(cuda, case):
+    """The sharded backend on a world of one over NCCL against the
+    single-device backend on the same card, float64: the same load and
+    buckling factors to 1e-9, K0 (and K0m for the eigensolve) launched."""
+    from fcvm_tpu_torch.parallel import dist as pdist
+
+    (out,) = pdist.spawn(_sharded_rank, 1, args=(case, "cuda"), device="cuda", timeout=900)
+    model, params = ((_tension_box(2), GNL_BOX) if case == "gnl" else
+                     (_column_model(), COLUMN))
+    ref = solve_collapse(model, ControlParams(**params),
+                         config=FcvmConfig(device="cuda", dtype="float64", cg_rtol=1e-10))
+    np.testing.assert_allclose(out["lbd"], ref.history.lbd, rtol=1e-9, atol=0)
+    if case == "column":
+        np.testing.assert_allclose(out["eig"], ref.eigenvalues, rtol=1e-9)
+        assert out["k0m"] > 0
+    assert out["k0"] > 0
+
+
+def test_sharded_two_gloo_ranks_on_one_card_match_cpu(cuda):
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    device; gloo stages each collective through the host): the GNL box's
+    load factors against the single-device CPU run to 1e-9, both ranks the
+    same bits."""
+    from fcvm_tpu_torch.parallel import dist as pdist
+
+    outs = pdist.spawn(_sharded_rank, 2, args=("gnl", "cuda:0"), device="cuda:0",
+                       backend="gloo", timeout=900)
+    np.testing.assert_array_equal(outs[0]["lbd"], outs[1]["lbd"])
+    assert outs[0]["cg"] == outs[1]["cg"]
+    ref = solve_collapse(_tension_box(2), ControlParams(**GNL_BOX),
+                         config=FcvmConfig(device="cpu", dtype="float64", cg_rtol=1e-10))
+    np.testing.assert_allclose(outs[0]["lbd"], ref.history.lbd, rtol=1e-9, atol=0)
+    assert outs[0]["k0"] > 0

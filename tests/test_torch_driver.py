@@ -69,11 +69,10 @@ def test_solve_collapse_matches_jax(case, jax_cfg):  # noqa: F811
         assert ref.peeq_gp.max() > 0.0  # the case is plastic
 
 
-UNPORTED = [  # config fields, control parameters, what the error names
-    (dict(n_devices=2), {}, "ROADMAP"),
-]
-# options that raised before they were ported: each now runs
+# options that raised before they were ported: each now runs (the first,
+# n_devices, as a world of one: force_sharded)
 PORTED = [
+    (dict(n_devices=1, force_sharded=True), {}),
     (dict(smoother="cluster"), {}),
     (dict(solver="scipy"), {}),
     # GNL with an imperfection or one step runs the buckling eigensolve
@@ -82,30 +81,34 @@ PORTED = [
 ]
 
 
-@pytest.mark.parametrize("cfg_kw,param_kw,match", UNPORTED + [(*c, None) for c in PORTED],
+@pytest.mark.parametrize("cfg_kw,param_kw", PORTED,
                          ids=["n_devices", "smoother", "solver", "gnl", "gnl_nstep1"])
-def test_unported_options_raise(cfg_kw, param_kw, match):
-    """Options not ported yet raise ``NotImplementedError`` naming their
-    ROADMAP item; the rows of options ported since (``match`` None) run:
+def test_unported_options_raise(cfg_kw, param_kw):
+    """Options that raised ``NotImplementedError`` before they were ported
+    now run: the sharded backend on a world of one (which it starts and
+    this test stops; worlds of several ranks: ``test_torch_sharded_*.py``),
     the cluster smoother built once, the scipy tier with no CG iteration,
     the GNL buckling branch with its two factors, negative under the box's
     tension pre-stress."""
     from fcvm_tpu_torch.ops.precond import COARSE_BUILD_STATS
+    from fcvm_tpu_torch.parallel import dist as pdist
 
     model = ft.model_from_arrays(tension_model())
     params = ft.ControlParams(**{"nstep": 2, **param_kw})
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            ft.solve_collapse(model, params, config=port_config(**cfg_kw))
-        return
     built = COARSE_BUILD_STATS["smoother_builds"]
-    res = ft.solve_collapse(model, params, config=port_config(**cfg_kw))
+    try:
+        res = ft.solve_collapse(model, params, config=port_config(**cfg_kw))
+        assert (pdist.group() is not None) == ("force_sharded" in cfg_kw)
+    finally:
+        pdist.destroy_process_group()
     assert np.all(np.isfinite(res.history.lbd)) and len(res.history.lbd) >= 2
     if "smoother" in cfg_kw:
         assert COARSE_BUILD_STATS["smoother_builds"] == built + 1
         assert res.cg_stats["iters"] > 0 and res.eigenvalues is None
     elif "solver" in cfg_kw:
         assert res.cg_stats["iters"] == 0 and res.eigenvalues is None
+    elif "force_sharded" in cfg_kw:
+        assert res.cg_stats["iters"] > 0 and res.sig_gp.shape == (model.mesh.n_elements, 4, 6)
     else:
         assert res.eigenvalues.shape == (2,) and np.all(res.eigenvalues < 0.0)
 

@@ -31,6 +31,9 @@ PORT_MODULES = [
     "fcvm_tpu_torch.runtime.plots",
     "fcvm_tpu_torch.models.fcstd",
     "fcvm_tpu_torch.tools.fcstd_doc",
+    "fcvm_tpu_torch.parallel",
+    "fcvm_tpu_torch.parallel.dist",
+    "fcvm_tpu_torch.parallel.system",
     "chip_smoke",
 ]
 

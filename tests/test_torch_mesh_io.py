@@ -101,3 +101,53 @@ def test_vtk_reader_on_own_export(tmp_path, mesh):
     vtk.export_results(path, res, mesh.elnodes, ControlParams(), 240.0)
     for reader in (tio, jio):
         _assert_same(mesh, reader.read_vtk(path))
+
+
+def _gmsh_text(mesh, version, missing_tag=False):
+    """A Gmsh file of ``mesh`` with sparse node tags (2 i + 5), extra
+    element tags and elements of other types beside the tet10s: v2.2 in one
+    section each, v4.1 with two node blocks and three element blocks."""
+    ntag = 2 * np.arange(mesh.n_nodes) + 5
+    g2f = np.asarray(tio.GMSH_TO_FCVM)
+    gmsh_rows = np.empty_like(mesh.elnodes)
+    gmsh_rows[:, np.arange(10)] = ntag[mesh.elnodes[:, g2f]]
+    if missing_tag:
+        gmsh_rows[-1, 4] = 2 * mesh.n_nodes + 7  # no such node
+    xyz = [" ".join(f"{v:.17g}" for v in c) for c in mesh.coords]
+    ne = len(gmsh_rows)
+    if version == "2.2":
+        lines = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$Nodes", str(mesh.n_nodes)]
+        lines += [f"{t} {c}" for t, c in zip(ntag, xyz)]
+        lines += ["$EndNodes", "$Elements", str(ne + 2), f"1 15 2 0 1 {ntag[0]}"]
+        lines += [f"{e + 2} 11 3 0 1 7 " + " ".join(map(str, r)) for e, r in enumerate(gmsh_rows)]
+        lines += [f"{ne + 2} 4 2 0 1 " + " ".join(map(str, ntag[:4])), "$EndElements"]
+    else:
+        half = mesh.n_nodes // 2
+        lines = ["$MeshFormat", "4.1 0 8", "$EndMeshFormat", "$Nodes",
+                 f"2 {mesh.n_nodes} {ntag.min()} {ntag.max()}"]
+        for lo, hi in ((0, half), (half, mesh.n_nodes)):
+            lines += [f"3 1 0 {hi - lo}"] + [str(t) for t in ntag[lo:hi]] + xyz[lo:hi]
+        lines += ["$EndNodes", "$Elements", f"3 {ne + 1} 1 {ne + 1}",
+                  "3 1 4 1", "1 " + " ".join(map(str, ntag[:4])), f"3 1 11 {ne - 1}"]
+        lines += [f"{e + 2} " + " ".join(map(str, r)) for e, r in enumerate(gmsh_rows[:-1])]
+        lines += ["3 2 11 1", f"{ne + 1} " + " ".join(map(str, gmsh_rows[-1])), "$EndElements"]
+    return "\n".join(lines) + "\n"
+
+
+@pytest.mark.parametrize("version", ["2.2", "4.1"])
+def test_native_gmsh_reader_matches_python(tmp_path, mesh, version):
+    """The native Gmsh reader (C stdio, bounds-checked tags) against the
+    Python reader on v2.2 and v4.1 files with sparse node tags, several
+    blocks and elements of other types; a tag with no node is refused."""
+    p = tmp_path / "m.msh"
+    p.write_text(_gmsh_text(mesh, version))
+    out = native.read_gmsh_native(str(p))
+    assert out is not None
+    py = tio._read_gmsh_py(p)
+    np.testing.assert_array_equal(out[0], py.coords)
+    np.testing.assert_array_equal(out[1], py.elnodes)
+    _assert_same(mesh, py)
+    p.write_text(_gmsh_text(mesh, version, missing_tag=True))
+    assert native.read_gmsh_native(str(p)) is None
+    with pytest.raises(KeyError):
+        tio._read_gmsh_py(p)

@@ -111,3 +111,99 @@ def newton_per_step(lines):
         elif counts and (m := re.match(r"Iteration: (\d+),", ln)) and int(m.group(1)) > 0:
             counts[-1] += 1
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The sharded backend (tests/test_torch_sharded_*.py)
+# ---------------------------------------------------------------------------
+
+# both packages' CG runs to this relative residual in the sharded parity
+# tests, so their solutions agree far below the history tolerances
+SHARD_CG_RTOL = 1e-12
+
+
+def jax_collapse(model, params_kw, n_devices=0, **fields):
+    """The JAX package's ``solve_collapse`` with its solver tiers off,
+    ``cg_rtol = SHARD_CG_RTOL``, ``n_devices`` (its ``ShardedSystem`` over
+    that many of conftest's virtual CPU devices when > 1) and the config
+    ``fields``, all restored afterwards.  Returns the result, its log lines
+    and Newton iterations per step."""
+    c = get_config()
+    fields = {**TIERS_OFF, "load_deflation": False, "cg_rtol": SHARD_CG_RTOL,
+              "n_devices": n_devices, **fields}
+    saved = {f: getattr(c, f) for f in fields}
+    for f, v in fields.items():
+        setattr(c, f, v)
+    lines = []
+    try:
+        res = fcvm_tpu.solve_collapse(model, fcvm_tpu.ControlParams(**params_kw),
+                                      progress=lines.append)
+    finally:
+        for f, v in saved.items():
+            setattr(c, f, v)
+    return res, lines
+
+
+def assert_ranks_identical(outs):
+    """Every rank of a spawned world returned the same history, CG counts,
+    log and fields, bit for bit."""
+    def untimed(lines):  # the log's wall-time lines differ by nature
+        return [ln for ln in lines if " time " not in ln]
+
+    def same(a, b):
+        if isinstance(a, np.ndarray):
+            return isinstance(b, np.ndarray) and np.array_equal(a, b)
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return a == b
+
+    first = outs[0]
+    for o in outs[1:]:
+        assert untimed(o.get("lines", [])) == untimed(first.get("lines", []))
+        for k, v in first.items():
+            if k not in ("rank", "lines"):
+                assert same(o[k], v), (k, o["rank"])
+
+
+def assert_history_match(port, ref, ref_lines, tol=1e-10):
+    """``tests/test_sharded_driver.py::_assert_history_match`` between a
+    port rank's summary and a JAX result: 1e-10 on lbd, un, load, csr, the
+    displacements and PEEQ, 1e-8 on the stresses, equal Newton iterations
+    per step and the same number of CG solves (their iteration counts are
+    held against the port's own single-device run, :func:`assert_cg_match`:
+    the JAX package inverts its coarse matrix in float32, so its counts
+    drift from the port's with the two-level preconditioner).  The critical
+    Gauss point: ``csr`` at it is compared as above at every step, and at
+    the last step it must hold the maximum of the JAX package's final CSR
+    field to 1e-12.  Its index is not compared by equality: the box models'
+    CSR maxima are ties between symmetric Gauss points that rounding
+    breaks, and the JAX package's own single-device and sharded runs pick
+    different points of a tie (17 and 16 at the last step of the 6-step
+    GNL box at ``cg_rtol = 1e-12``)."""
+    h = ref.history
+    for k in ("lbd", "un", "load", "csr"):
+        np.testing.assert_allclose(port[k], np.asarray(getattr(h, k)), rtol=0, atol=tol,
+                                   err_msg=k)
+    np.testing.assert_allclose(port["disp_total"], ref.disp_total, rtol=0, atol=tol)
+    np.testing.assert_allclose(port["peeq_gp"], ref.peeq_gp, rtol=0, atol=tol)
+    np.testing.assert_allclose(port["sig_gp"], ref.sig_gp, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(port["volume"], ref.volume, rtol=1e-12)
+    np.testing.assert_allclose(port["loadsums"], ref.loadsums, rtol=0, atol=1e-9)
+    csr_ref = np.asarray(ref.csr_gp).reshape(-1)
+    assert csr_ref[port["crip"][-1]] >= csr_ref.max() - 1e-12 * max(csr_ref.max(), 1.0)
+    assert newton_per_step(port["lines"]) == newton_per_step(ref_lines)
+    assert port["solves"] == ref.cg_stats["solves"]
+    assert port["predictor_solves"] == ref.cg_stats["predictor_solves"]
+
+
+def assert_cg_match(port, local):
+    """The sharded port against its single-device run: the same steps and
+    Newton iterations, and every correction and predictor solve within one
+    CG iteration (the two reduce in different orders, so a solve at 1e-12
+    may stop one iteration apart)."""
+    assert len(port["steps"]) == len(local["steps"])
+    for s, t in zip(port["steps"], local["steps"]):
+        assert s["newton"] == t["newton"] and s["restarts"] == t["restarts"]
+        for key in ("cg", "predictor"):
+            assert len(s[key]) == len(t[key])
+            assert all(abs(a - b) <= 1 for a, b in zip(s[key], t[key])), (key, s, t)
