@@ -106,6 +106,13 @@ Phases, each printing its numbers before the next starts:
    column's buckling (``nstep = 1``) in float64 against the CPU's
    single-device runs (lbd to LBD_RTOL, factors to EIG_RTOL), both ranks'
    histories identical, K0 and K0m launched on each rank.
+14. the port's benchmark (``fcvm_tpu_torch.tools.bench.main`` with
+   ``--no-same-size``, in this process): the matched plate, the 502,599-dof
+   headline plate (plastic, ``assembly_gdof_s`` > 0), the box at 499,125
+   dof, the capacity rows at 1,073,733 and 1,975,509 dof (converged below
+   the CG cap) with each row's peak device memory, the sharded row within
+   its ``lbd_tol``, a ``vs_baseline`` from the CPU child, and K0 launched
+   in every row.
 
 Each phase prints its wall time.
 
@@ -1398,6 +1405,61 @@ def gloo_phase(cpu_small):
     return [o["launches"] for o in outs]
 
 
+def bench_phase(smi):
+    """Phase 14: the port's benchmark, in this process, with the CPU
+    baseline at the matched size only; its checks and each row's peak
+    device memory.  Returns its K0 and K0m launches."""
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.tools import bench
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    kernels.block_matvec.launches = 0
+    kernels.block_matmat.launches = 0
+    rc = bench.main(["--no-same-size"], emit=lines.append)
+    launches = kernels.block_matvec.launches, kernels.block_matmat.launches
+    check(rc == 0 and len(lines) >= 2, "phase 14: the bench did not finish")
+    g = json.loads(lines[-1])
+    x = g["extra"]
+    print(f"bench's last line ({len(lines)} lines): {lines[-1]}")
+    head, cap, sh = x["headline"], x["capacity"], x["sharded_1dev"]
+    rows = {"matched": x["matched_size"], "headline": head, "box": x["box_crosscheck"],
+            **{f"capacity {r['ndof']}": r for r in cap}, "sharded": sh}
+    print(f"headline ({smi}): {g['metric']} = {g['value']:.3f} ms per step (runs "
+          f"{[round(t, 3) for t in head['step_ms_runs']]}), assembly {head['assembly_ms']:.3f} "
+          f"ms = {head['assembly_gdof_s']:.4f} GDOF/s, precond {head['precond_first_s']:.3f} / "
+          f"{head['precond_repeat_s']:.3f} s, elastic {head['elastic_iters']} CG iterations, "
+          f"per-solve {head['iters_per_solve']}, plastic GP fraction "
+          f"{head['plastic_gp_fraction']:.4f}; vs_baseline {g['vs_baseline']} "
+          f"({x['vs_baseline_from']})")
+    for name, r in rows.items():
+        print(f"{name}: peak device memory {r['peak_mib'] / 1024:.2f} GiB, launches "
+              f"{r['launches']}")
+    for r in cap:
+        print(f"capacity {r['ndof']} dof ({smi}): assembly {r['assembly_ms']:.2f} ms (first "
+              f"{r['assembly_cold_s']:.2f} s), precond {r['precond_first_s']:.3f} / "
+              f"{r['precond_repeat_s']:.3f} s, elastic {r['elastic_iters']} CG iterations in "
+              f"{r['elastic_solve_ms']:.1f} ms = {r['ms_per_cg_iter']:.4f} ms each; host: mesh "
+              f"{r['host_mesh_s']:.2f} s, tensors and solve space {r['host_setup_s']:.2f} s")
+    print(f"sharded (world of one) vs local, {sh['ndof']} dof: step {sh['step_ms_sharded']:.1f} "
+          f"/ {sh['step_ms_local']:.1f} ms, max lbd diff {sh['max_lbd_diff']:.3e} (tol "
+          f"{sh['lbd_tol']:g}); launches in the bench: K0 {launches[0]}, K0m {launches[1]}")
+    check(g["metric"] == "newton_load_step_wall_ms_plate_with_hole_503kdof"
+          and head["ndof"] == NDOF_BIG, "phase 14: not the 502,599-dof headline")
+    check(head["plastic_gp_fraction"] > 0, "phase 14: the headline step is not plastic")
+    check(head["assembly_gdof_s"] > 0, "phase 14: no assembly rate")
+    check([r["ndof"] for r in cap] == [1_073_733, 1_975_509],
+          "phase 14: the capacity rows are not at 1,073,733 and 1,975,509 dof")
+    check(all(r["elastic_iters"] < bench.CG_MAXITER for r in cap),
+          "phase 14: a capacity row's elastic solve reached the CG cap")
+    check(sh["lbd_within_tol"], "phase 14: sharded and local load factors differ")
+    check(g["vs_baseline"] is not None, "phase 14: no vs_baseline")
+    check(all(r["launches"]["block_matvec"] > 0 for r in rows.values()),
+          "phase 14: a row of the bench did not launch K0")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: torch.cuda.is_available() is false; this "
@@ -1593,6 +1655,9 @@ def main():
 
     phase("13b sharded backend, world of 2 over gloo on one card, float64, GPU ranks vs CPU")
     gloo_launches = gloo_phase(cpu_small)
+
+    phase(f"14 the port's benchmark: tools.bench --no-same-size ({smi})")
+    bench_launches = bench_phase(smi)
     phase()
     print(f"all phases: {time.perf_counter() - t_start:.1f} s wall")
 
@@ -1607,6 +1672,7 @@ def main():
         "launches_sharded": sharded["plate"]["launches"],
         "launches_sharded_column": sharded["column"]["k0_dtypes"].get("float32", 0),
         "launches_gloo_ranks_f64": [k[0] for k in gloo_launches],
+        "launches_bench": bench_launches[0],
         "ne": NE_BIG, **k0[(torch.float32, NE_BIG)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, **row}
                    for (dtype, ne), row in k0.items()],
@@ -1630,6 +1696,7 @@ def main():
         "launches_sharded_column": sharded["column"]["launches"]["block_matmat"],
         "launches_sharded_column_by_shape": sharded["column"]["k0m_shapes"],
         "launches_gloo_ranks_f64": [k[1] for k in gloo_launches],
+        "launches_bench": bench_launches[1],
         "ne": NE_COL, "m": 8, **k0m[(torch.float32, NE_COL, 8)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, "m": m, **row}
                    for (dtype, ne, m), row in k0m.items()],
