@@ -20,21 +20,31 @@ Phases, each printing its numbers before the next starts:
 3b. bandwidth probe: K0p (``soa_matvec``) and Kbw (``bw_read``, each k)
    against their plain versions on seeded data, then the probe
    (``fcvm_tpu_torch.tools.bw_probe``) at its full sizes, whose launches of
-   K0p and Kbw are counted; the probe fails when a Kbw k takes less than 0.9
+   K0, K0p and Kbw are counted (the probe is K0's path: the solver's
+   K_hat·v runs K1); the probe fails when a Kbw k takes less than 0.9
    of the time of a plain full read of the same 2 GiB (Kbw's result shows
    only the chunk heads, so its time is what shows it read every byte);
+3c. the kernels of the CG iteration: K1 (``khat_matvec``, the fused
+   K_hat·v, masked and raw) on the plate's and the beam-column's operators
+   and K4 (``two_level_apply``, with block Jacobi and with the cluster
+   smoother's output) on the plate's preconditioner, float32 and float64,
+   against their plain versions, K1 bit for bit the same on a second call;
+   timed against their plain versions, against the chain K1 replaced
+   (gather, K0, ``index_add_``, masks) and, for K1, against a cuSPARSE CSR
+   matvec of the assembled K_hat (``torch.sparse``, built once here);
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
    the load-factor histories must agree; and ``linear_buckling`` of a small
    clamped-free column on both, whose factors must agree;
 5. the slice at full size: the quarter plate with a hole at 502,599 dof,
    float32, two-level PCG without deflation or the precision tiers, plastic
-   Riks steps through ``fcvm_tpu_torch.solve_collapse``; the launch count
-   of every kernel on that path must be > 0;
+   Riks steps through ``fcvm_tpu_torch.solve_collapse``; the launch counts
+   of K1 and K4, the kernels on that path, must be > 0;
 6. layers: on the same plate, the CUDA-event time of each piece of one CG
-   iteration (K_hat·v and its stages, the preconditioner apply and its
-   coarse product) and of one residual, and torch.profiler's share of
-   device time per operation over one elastic solve;
+   iteration (K_hat·v through K1 and the stages of the chain it replaced,
+   the preconditioner apply through K4 and its coarse product, the plain
+   apply) and of one residual, and torch.profiler's share of device time
+   per operation over one elastic solve;
 7. the same plate and steps with the default configuration (Ritz deflation,
    residual refinement and the float64 failover on): phase 5's checks, at
    least one deflation space built, and the ratios of stepping time and CG
@@ -53,8 +63,9 @@ Phases, each printing its numbers before the next starts:
    buckling eigensolve (its tier, sweeps, pencil residuals and inner CG
    iterations), imperfection seeding and a few GNL steps; both factors
    within 3% of the clamped-free Euler value, the imperfection applied
-   exactly, every step converged below the squash factor, and K0 and K0m
-   launched on the path (K0 by dtype, K0m by dtype and column count);
+   exactly, every step converged below the squash factor, and K1, K4 and
+   K0m launched on the path (K1 and K4 by dtype, K0m by dtype and column
+   count);
 9b. the eigensolve in pieces on the same mesh: CUDA-event times of the
    geometric-block formation, one K_hat·V and one -G_hat·V at m = 8, the
    block preconditioner apply against 8 vector applies, and one pcg_block
@@ -65,12 +76,14 @@ Phases, each printing its numbers before the next starts:
    configuration, no plots) and ``run_sum``, then the CLI's ``info`` and
    ``sum``: the ``.out``/``.vtk``/``.avr`` written and read back, the face
    area and edge length, phase 5's bars on the steps, a per-element
-   elasticity in the backend, K0 launched and the native formatter loaded;
+   elasticity in the backend, K1 and K4 launched and the native formatter
+   loaded;
    the timers of every stage and of the host-side export pieces;
 10b. ``python -m fcvm_tpu_torch run --x64`` on the small plate with the same
    region, on the GPU and with ``--cpu``: load factors and the ``.vtk``
    fields to CLI_RTOL; then ``--resume`` from the first half of the GPU
-   run's checkpoints lands on the straight run's last ``.out`` row;
+   run's checkpoints lands on the straight run's last ``.out`` row; K1 and
+   K4 launched by the GPU run only;
 11. the phase-7 plate and steps with the cluster block-Cholesky smoother
    (``smoother="cluster"``, 64-node clusters): phase 5's checks, one
    smoother per operator, the stepping time, CG iterations and ms per CG
@@ -89,7 +102,7 @@ Phases, each printing its numbers before the next starts:
    ``python -m fcvm_tpu_torch run doc.FCStd --inp doc.inp --x64`` on the
    GPU against the same model's TOML case through the CLI: the load
    factors to CLI_RTOL, no ``.avr`` for the document, phase 5's bars on the
-   steps, K0 launched; the host times of ``read_fcstd``, the resolver and
+   steps, K1 and K4 launched; the host times of ``read_fcstd``, the resolver and
    ``build_model``;
 11d. (before 12) the phase-5 plate written with ``meshio_io.write_gmsh`` and
    read back through the native Gmsh reader in this process, after the CUDA
@@ -98,21 +111,21 @@ Phases, each printing its numbers before the next starts:
    NCCL, this process its rank (``force_sharded``): the phase-7 plate with
    phase 7's configuration and checks, held against phase 7 (the same
    steps, the final lbd within 1e-3, stepping CG iterations within 3%),
-   K0 and K0m launched, the time of one ``all_reduce`` of the plate's
+   K1, K4 and K0m launched, the time of one ``all_reduce`` of the plate's
    vector; then the beam-column's eigensolve, seeding and two GNL steps on
    the sharded backend with phase 9's bars;
 13b. two gloo ranks spawned on ``cuda:0`` (NCCL refuses two ranks on one
    card): phase 4's small plate, small strain and GNL, and the small
    column's buckling (``nstep = 1``) in float64 against the CPU's
    single-device runs (lbd to LBD_RTOL, factors to EIG_RTOL), both ranks'
-   histories identical, K0 and K0m launched on each rank.
+   histories identical, K1, K4 and K0m launched on each rank.
 14. the port's benchmark (``fcvm_tpu_torch.tools.bench.main`` with
    ``--no-same-size``, in this process): the matched plate, the 502,599-dof
    headline plate (plastic, ``assembly_gdof_s`` > 0), the box at 499,125
    dof, the capacity rows at 1,073,733 and 1,975,509 dof (converged below
    the CG cap) with each row's peak device memory, the sharded row within
-   its ``lbd_tol``, a ``vs_baseline`` from the CPU child, and K0 launched
-   in every row.
+   its ``lbd_tol``, a ``vs_baseline`` from the CPU child, and K1 and K4
+   launched in every row.
 
 Each phase prints its wall time.
 
@@ -240,6 +253,36 @@ def cuda_ms(fn, *args, runs=20):
     return float(np.median(times))
 
 
+# the kernels of the solver's paths: K1 and K4 in every CG iteration (the
+# vector paths), K0m in the block products (the eigensolve, the deflation
+# builds), K0 in none since K1 carries K_hat·v
+CG_KERNELS = ("khat_matvec", "two_level_apply")
+PATH_KERNELS = (*CG_KERNELS, "block_matmat", "block_matvec")
+
+
+def reset_launches():
+    """Set the launch counts of every path kernel to 0."""
+    from fcvm_tpu_torch.ops import kernels
+
+    for name in PATH_KERNELS:
+        fn = getattr(kernels, name)
+        fn.launches = 0
+        getattr(fn, "shapes" if name == "block_matmat" else "dtypes").clear()
+
+
+def read_launches():
+    """``({kernel: launches}, {kernel: {dtype: launches}})`` of the path
+    kernels; K0m's by dtype and column count."""
+    from fcvm_tpu_torch.ops import kernels
+
+    counts = {name: getattr(kernels, name).launches for name in PATH_KERNELS}
+    by = {name: dict(getattr(kernels, name).dtypes) for name in PATH_KERNELS
+          if name != "block_matmat"}
+    by["block_matmat"] = {f"{dt} m={m}": n
+                          for (dt, m), n in sorted(kernels.block_matmat.shapes.items())}
+    return counts, by
+
+
 def layer_breakdown(model, cfg):
     """Print where one CG iteration and one residual spend their time on
     ``model``: CUDA-event medians of each piece (the deflation correction
@@ -260,16 +303,24 @@ def layer_breakdown(model, cfg):
     del esm, pinv
     eldofs_t = space.eldofs_m.T.contiguous()
     u = space.to_m(rhs)
+    fm = space.fixmask_m
     ue_t = u[eldofs_t]
     fe = kernels.block_matvec(esm_t, ue_t).reshape(-1)
     zc = torch.ones(pc.coarse_inv.shape[0], dtype=u.dtype, device=u.device)
+    pc_args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, u)
     rows = [
-        ("K_hat.v", cuda_ms(khat, u)),
+        ("K_hat.v (K1)", cuda_ms(khat, u)),
+        ("  K1, raw K.v", cuda_ms(kernels.khat_matvec, esm_t, space.incidence, u)),
+        ("K_hat.v by the chain K1 replaced (gather, K0, index_add_, masks)",
+         cuda_ms(k0_chain, esm_t, eldofs_t, u, fm)),
         ("  gather (30, ne)", cuda_ms(lambda: u[eldofs_t])),
         ("  K0", cuda_ms(kernels.block_matvec, esm_t, ue_t)),
         ("  index_add_", cuda_ms(
             lambda: torch.zeros_like(u).index_add_(0, eldofs_t.reshape(-1), fe))),
-        ("preconditioner apply", cuda_ms(pc.apply, u)),
+        ("preconditioner apply (K4)", cuda_ms(pc.apply, u)),
+        ("  K4 alone", cuda_ms(kernels.two_level_apply, *pc_args)),
+        ("preconditioner apply by the code K4 replaced (its plain version)",
+         cuda_ms(kernels.two_level_apply_ref, *pc_args)),
         ("  block Jacobi", cuda_ms(asm.apply_block_precond, pc.pinv, u)),
         (f"  coarse GEMV ({zc.numel()})", cuda_ms(lambda: pc.coarse_inv @ zc)),
     ]
@@ -407,7 +458,8 @@ def refresh_breakdown(model, cfg, res):
 def probe_phase():
     """K0p and Kbw against their plain versions on seeded data, then the
     bandwidth probe at its full sizes with the launch counts set to 0 just
-    before it; returns the kernels' JSON rows."""
+    before it; returns the kernels' JSON rows and K0's launches in the
+    probe (its path)."""
     from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.tools import bw_probe
 
@@ -441,10 +493,13 @@ def probe_phase():
 
     kernels.soa_matvec.launches = 0
     kernels.bw_read.launches = 0
+    kernels.block_matvec.launches = 0
     res = bw_probe.run(seed=0, report=lambda line: print(line, flush=True))
-    launches = {"soa_matvec": kernels.soa_matvec.launches, "bw_read": kernels.bw_read.launches}
+    launches = {"soa_matvec": kernels.soa_matvec.launches, "bw_read": kernels.bw_read.launches,
+                "block_matvec": kernels.block_matvec.launches}
     print(f"launches in the probe run: {launches}")
     check(launches["soa_matvec"] > 0, "K0p was not launched by the probe")
+    check(launches["block_matvec"] > 0, "K0 was not launched by the probe")
     k0p = res["K0p soa_matvec"]
     rows = [{
         "name": "soa_matvec", "route": "cuda", "source": "fcvm_tpu_torch/csrc/bw_probe.cu",
@@ -469,15 +524,15 @@ def probe_phase():
             "library_ms": full_read_ms, "full_read_share": kbw["ms"] / full_read_ms,
         })
     torch.cuda.empty_cache()
-    return rows
+    return rows, launches["block_matvec"]
 
 
-def run_plate(big, cfg, label, gnl=False):
+def run_plate(big, cfg, label, gnl=False, required=CG_KERNELS):
     """Drive ``solve_collapse`` on the full-size plate with ``cfg`` (with
-    geometric nonlinearity when ``gnl``), print every step, apply the
-    slice's checks, and return the numbers and the results."""
+    geometric nonlinearity when ``gnl``) with the launch counts set to 0
+    just before it, print every step, apply the slice's checks (the kernels
+    ``required`` launched), and return the numbers and the results."""
     from fcvm_tpu_torch import solve_collapse
-    from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.utils.indexing import pad_ndof
 
     lines, stamps = [], [time.perf_counter()]
@@ -491,16 +546,12 @@ def run_plate(big, cfg, label, gnl=False):
         return "add" if plastic < 3 and len(history.lbd) <= 5 else "stop"
 
     torch.cuda.reset_peak_memory_stats()
-    kernels.block_matvec.launches = 0
-    kernels.block_matmat.launches = 0
-    kernels.block_matvec.dtypes.clear()
+    reset_launches()
     stamps[0] = time.perf_counter()
     res = solve_collapse(big, plate_params(4, gnl), continuation=continuation,
                          progress=lines.append, monitor=monitor, config=cfg)
     torch.cuda.synchronize()
-    launches = kernels.block_matvec.launches
-    launches_k0m = kernels.block_matmat.launches
-    k0_dtypes = dict(kernels.block_matvec.dtypes)
+    launches, by_dtype = read_launches()
     wall = time.perf_counter() - stamps[0]
     t = res.timers
     cs = cfg.resolve_cluster_size(big.mesh.n_nodes)
@@ -521,8 +572,8 @@ def run_plate(big, cfg, label, gnl=False):
           f"solves, {res.cg_stats['iters']} CG iterations ({step_iters} in {step_solves} "
           f"stepping solves), {1e3 * res.cg_stats['time'] / max(res.cg_stats['iters'], 1):.3f} "
           f"ms per CG iteration incl. stress updates, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K0 launches {launches} "
-          f"{k0_dtypes}, K0m launches {launches_k0m}")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches} "
+          f"{by_dtype}")
     lbd = np.asarray(h.lbd)
     check(not any("MAXIMUM RESTARTS" in ln for ln in lines), f"{label}: a load step did not converge")
     check(len(res.cg_stats["steps"]) == len(lbd) - 1 >= 4, f"{label}: fewer than 4 recorded steps")
@@ -533,10 +584,11 @@ def run_plate(big, cfg, label, gnl=False):
     check(float(res.peeq_gp.max()) > 0.0 and h.peeqmax[-1] > 0.0, f"{label}: no plastic strain")
     check(res.sig_gp.shape == (NE_BIG, 4, 6) and bool(np.isfinite(res.sig_gp).all()),
           f"{label}: stresses are not finite (ne, 4, 6)")
-    check(launches > 0, f"{label}: K0 was not launched on the main path")
+    check(all(launches[k] > 0 for k in required),
+          f"{label}: {required} not all launched on the main path")
     return dict(lines=lines, cg_stats=res.cg_stats, res=res,
                 stepping=t["stepping"], step_iters=step_iters, step_solves=step_solves,
-                launches=launches, launches_k0m=launches_k0m, k0_dtypes=k0_dtypes, lbd=lbd)
+                launches=launches, by_dtype=by_dtype, lbd=lbd)
 
 
 def column_model(size, width, traction, length=COL_L):
@@ -655,13 +707,144 @@ def k0m_phase():
     return rows
 
 
-def run_column(cfg, nstep=COL_NSTEP, label="phase 9"):
+def k0_chain(esm_t, eldofs_t, u, fm=None):
+    """The K_hat·v (``fm`` given) or K·v the solver ran before K1: the
+    per-dof gather, K0, ``index_add_`` and the masks."""
+    from fcvm_tpu_torch.ops import kernels
+
+    v = u if fm is None else fm * u
+    out = torch.zeros_like(u).index_add_(0, eldofs_t.reshape(-1),
+                                         kernels.block_matvec(esm_t, v[eldofs_t]).reshape(-1))
+    return out if fm is None else fm * out + (1.0 - fm) * u
+
+
+def assembled_khat(esm_t, eldofs, fm):
+    """K_hat = P K P + (I - P) of the element-major blocks as a sparse CSR
+    matrix (``torch.sparse``, duplicates summed), for cuSPARSE's matvec."""
+    ne, n = esm_t.shape[2], fm.numel()
+    rows = eldofs[:, :, None].expand(ne, 30, 30).reshape(-1)
+    cols = eldofs[:, None, :].expand(ne, 30, 30).reshape(-1)
+    vals = esm_t.permute(2, 0, 1).reshape(-1) * fm[rows] * fm[cols]
+    diag = torch.arange(n, device=fm.device)
+    idx = torch.stack([torch.cat([rows, diag]), torch.cat([cols, diag])])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the beta-state notices of sparse CSR
+        return torch.sparse_coo_tensor(idx, torch.cat([vals, 1.0 - fm]),
+                                       (n, n)).coalesce().to_sparse_csr()
+
+
+def cg_kernel_phase(models):
+    """Phase 3c: K1 (masked and raw) on the operators of ``models`` (name ->
+    model: the plate and the beam-column) and K4 (block Jacobi and the
+    cluster smoother's output) on the plate's preconditioner, float32 and
+    float64, against their plain versions on a seeded vector (K1 also bit
+    for bit against a second call); CUDA-event medians of each, of its
+    plain version, of the chain K1 replaced and of cuSPARSE's CSR matvec of
+    the assembled K_hat.  Returns ``{(kernel, dtype, model, variant):
+    numbers}``."""
+    from fcvm_tpu_torch import FcvmConfig
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    rows = {}
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        dname, size = str(dtype).removeprefix("torch."), torch.finfo(dtype).bits // 8
+        for name, model in models.items():
+            cfg = FcvmConfig(device="cuda", dtype=dname)
+            be = TorchSystem(model, cfg, dtype, torch.device("cuda"))
+            esm, pinv, *_ = be.assemble(be.tensor(model.mesh.coords))
+            sp = be.space
+            esm_t = be.operator(esm).esm_t
+            ne, nn = esm_t.shape[2], be.ndof_pad // 3
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            u = torch.randn(be.ndof_pad, generator=gen, device="cuda", dtype=dtype)
+            eldofs_t = sp.eldofs_m.T.contiguous()
+            kcsr = assembled_khat(esm_t, sp.eldofs_m, sp.fixmask_m)
+            for form in ("masked", "raw"):
+                fm = sp.fixmask_m if form == "masked" else None
+                out = kernels.khat_matvec(esm_t, sp.incidence, u, fm)
+                again = kernels.khat_matvec(esm_t, sp.incidence, u, fm)
+                torch.cuda.synchronize()
+                ref = kernels.khat_matvec_ref(esm_t, sp.incidence, u, fm)
+                abs_err = float((out - ref).abs().max())
+                rel = abs_err / float(ref.abs().max())
+                same = bool(torch.equal(out, again))
+                row = dict(max_abs_err=abs_err, ms=cuda_ms(kernels.khat_matvec, esm_t,
+                                                             sp.incidence, u, fm),
+                           plain_ms=cuda_ms(kernels.khat_matvec_ref, esm_t, sp.incidence, u, fm),
+                           chain_ms=cuda_ms(k0_chain, esm_t, eldofs_t, u, fm), library_ms=None)
+                # the blocks, the node table and pos, offsets, u (and the
+                # mask) read once, the result written once
+                nvec = 2 if fm is None else 3
+                nbytes = (900 * size + 80) * ne + 4 * (nn + 1) + nvec * 3 * nn * size
+                row["bound_ms"], row["bound_by"] = bound(nbytes, 1830 * ne, dtype)
+                lib = ""
+                if fm is not None:
+                    row["library_ms"] = cuda_ms(torch.mv, kcsr, u)
+                    lib_err = float((torch.mv(kcsr, u) - ref).abs().max()) / float(ref.abs().max())
+                    lib = (f", cuSPARSE CSR matvec ({kcsr.values().numel()} stored values) "
+                           f"{row['library_ms']:.4f} ms (its max rel err {lib_err:.2e})")
+                print(f"K1 {dname} {name} ne={ne} {form}: max rel err {rel:.3e} (limit {tol:g}), "
+                      f"second call {'the same bits' if same else 'DIFFERENT BITS'}; kernel "
+                      f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, the chain it "
+                      f"replaced (gather, K0, index_add_, masks) {row['chain_ms']:.4f} ms{lib}; "
+                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                      f"{row['bound_ms'] / row['ms']:.1%} of it; median of 20")
+                check(rel <= tol, f"K1 disagrees with its plain version ({dname}, {name}, {form})")
+                check(same, f"K1 gave other bits on a second call ({dname}, {name}, {form})")
+                rows[("khat_matvec", dname, name, form)] = dict(ne=ne, **row)
+                del out, again, ref
+            del kcsr, u, eldofs_t
+            if name != "plate":
+                del be, esm, pinv, esm_t
+                torch.cuda.empty_cache()
+                continue
+            r = torch.randn(be.ndof_pad, generator=gen, device="cuda", dtype=dtype)
+            for fine in ("jacobi3", "cluster"):
+                be.cfg = FcvmConfig(device="cuda", dtype=dname, smoother=fine)
+                pc = be.make_pc(esm, pinv)
+                check((pc.smooth_inv is not None) == (fine == "cluster"),
+                      f"phase 3c: the {fine} preconditioner was not built")
+                z_fine = None if fine == "jacobi3" else pc.fine(r)
+                args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, r, z_fine)
+                out = kernels.two_level_apply(*args)
+                again = kernels.two_level_apply(*args)
+                torch.cuda.synchronize()
+                ref = kernels.two_level_apply_ref(*args)
+                abs_err = float((out - ref).abs().max())
+                rel = abs_err / float(ref.abs().max())
+                same = bool(torch.equal(out, again))
+                nm, nn_cl, ncf = pc.qmat.shape[2], pc.qmat.shape[0], pc.coarse_inv.shape[0]
+                nbytes = (3 * nm * nn_cl + ncf * ncf + (9 if z_fine is None else 3) * nn
+                          + 9 * nn) * size
+                row = dict(max_abs_err=abs_err, ms=cuda_ms(kernels.two_level_apply, *args),
+                           plain_ms=cuda_ms(kernels.two_level_apply_ref, *args),
+                           apply_ms=cuda_ms(pc.apply, r), library_ms=None,
+                           gemv_ms=cuda_ms(torch.mv, pc.coarse_inv, r[:ncf].contiguous()))
+                row["bound_ms"], row["bound_by"] = bound(
+                    nbytes, 2 * ncf * ncf + 12 * nm * nn + 18 * nn, dtype)
+                print(f"K4 {dname} {name} {fine}: coarse {ncf} = {nm} x {ncf // nm} clusters of "
+                      f"{nn_cl // (ncf // nm)} nodes; max rel err {rel:.3e} (limit {tol:g}), "
+                      f"second call {'the same bits' if same else 'other bits'}; kernel "
+                      f"{row['ms']:.4f} ms (its coarse GEMV alone {row['gemv_ms']:.4f} ms), "
+                      f"plain {row['plain_ms']:.4f} ms, the whole apply (with the fine level) "
+                      f"{row['apply_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of it; median "
+                      "of 20")
+                check(rel <= tol, f"K4 disagrees with its plain version ({dname}, {fine})")
+                rows[("two_level_apply", dname, name, fine)] = dict(nn=nn, **row)
+                del pc, out, again, ref, args, z_fine
+            del be, esm, pinv, esm_t, r
+            torch.cuda.empty_cache()
+    return rows
+
+
+def run_column(cfg, nstep=COL_NSTEP, label="phase 9", required=(*CG_KERNELS, "block_matmat")):
     """Drive ``solve_collapse`` on the imperfect beam-column at 451,875 dof
     (buckling, seeding, ``nstep`` GNL steps) with the launch counts set to
     0 just before it; print the eigensolve and the steps, apply the checks
-    and return the launch counts."""
+    (the kernels ``required`` launched) and return the launch counts."""
     from fcvm_tpu_torch import solve_collapse
-    from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.ops.solver import ScipyDirectSolver
 
     t0 = time.perf_counter()
@@ -677,20 +860,14 @@ def run_column(cfg, nstep=COL_NSTEP, label="phase 9"):
 
     torch.cuda.reset_peak_memory_stats()
     direct0 = (ScipyDirectSolver.factorizations, ScipyDirectSolver.solves)
-    kernels.block_matvec.launches = 0
-    kernels.block_matmat.launches = 0
-    kernels.block_matvec.dtypes.clear()
-    kernels.block_matmat.shapes.clear()
+    reset_launches()
     with warnings.catch_warnings(record=True) as warned:
         warnings.simplefilter("always")
         stamps[0] = time.perf_counter()
         res = solve_collapse(col, column_params(nstep), progress=lines.append,
                              monitor=monitor, config=cfg)
         torch.cuda.synchronize()
-    launches = {"block_matvec": kernels.block_matvec.launches,
-                "block_matmat": kernels.block_matmat.launches}
-    k0_dtypes = dict(kernels.block_matvec.dtypes)
-    k0m_shapes = {f"{dt} m={m}": n for (dt, m), n in sorted(kernels.block_matmat.shapes.items())}
+    launches, by_dtype = read_launches()
     wall = time.perf_counter() - stamps[0]
     direct = (ScipyDirectSolver.factorizations - direct0[0], ScipyDirectSolver.solves - direct0[1])
     for w in warned:
@@ -733,11 +910,11 @@ def run_column(cfg, nstep=COL_NSTEP, label="phase 9"):
     check(bool(np.all(np.isfinite(lbd))) and lbd.max() < COL_SY / COL_T,
           f"{label}: load factors {lbd} not finite or not below the squash factor")
     check(bool(np.isfinite(res.sig_gp).all()), f"{label}: stresses are not finite")
-    check(launches["block_matvec"] > 0 and launches["block_matmat"] > 0,
-          f"{label}: K0 or K0m was not launched on the path")
-    print(f"K0 launches by dtype {k0_dtypes}; K0m launches by dtype and m {k0m_shapes}")
-    return dict(launches=launches, k0_dtypes=k0_dtypes, k0m_shapes=k0m_shapes,
-                buckling=t["buckling"], stepping=t["stepping"], wall=wall, factors=lam.tolist())
+    check(all(launches[k] > 0 for k in required),
+          f"{label}: {required} not all launched on the path")
+    print(f"launches by dtype (K0m by dtype and m) {by_dtype}")
+    return dict(launches=launches, by_dtype=by_dtype, buckling=t["buckling"],
+                stepping=t["stepping"], wall=wall, factors=lam.tolist())
 
 
 def column_breakdown(cfg):
@@ -888,7 +1065,7 @@ def case_phase(tmp, smi):
     launch counts."""
     from fcvm_tpu_torch import FcvmConfig, native, run_analysis, run_sum
     from fcvm_tpu_torch.models.casefile import load_case, parse_sum_groups
-    from fcvm_tpu_torch.ops import kernels, postproc
+    from fcvm_tpu_torch.ops import postproc
     from fcvm_tpu_torch.runtime import backend as backend_mod
     from fcvm_tpu_torch.runtime.viz import _clip_surface
     from fcvm_tpu_torch.runtime.vtk import _elements_per_node, read_point_fields
@@ -920,17 +1097,14 @@ def case_phase(tmp, smi):
     lines = []
     backend = backend_mod.TorchSystem
     backend_mod.TorchSystem = Recording  # what make_backend builds on one device
-    kernels.block_matvec.launches = 0
-    kernels.block_matmat.launches = 0
-    kernels.block_matvec.dtypes.clear()
+    reset_launches()
     try:
         res = run_analysis(model, params, outdir=str(outdir), progress=lines.append,
                            save_plots=False, config=FcvmConfig(device="cuda", dtype="float32"))
         torch.cuda.synchronize()
     finally:
         backend_mod.TorchSystem = backend
-    launches = kernels.block_matvec.launches, kernels.block_matmat.launches
-    k0_dtypes = dict(kernels.block_matvec.dtypes)
+    launches, by_dtype = read_launches()
     t0 = time.perf_counter()
     sums = run_sum(model, res, params, *parse_sum_groups(case, model.mesh), outdir=str(outdir))
     t_sum = time.perf_counter() - t0
@@ -941,8 +1115,7 @@ def case_phase(tmp, smi):
                                       "solve", "report", "vtk")))
     print(f"run_sum {t_sum:.3f} s; {len(h.lbd) - 1} steps, lbd {np.round(h.lbd, 6).tolist()}, "
           f"Newton per step {[s['newton'] for s in cs['steps']]}, {cs['iters']} CG iterations, "
-          f"backend elasticity {dmat_shapes}, K0 launches {launches[0]} {k0_dtypes}, "
-          f"K0m launches {launches[1]}")
+          f"backend elasticity {dmat_shapes}, launches {launches} {by_dtype}")
     for group, measure in (("faces", "area"), ("edges", "length")):
         for name, row in sums[group].items():
             print(f"sum {group} {name}: {measure} {row[measure]:.9f}, peeq {row['peeq']:.4e}, "
@@ -1018,8 +1191,8 @@ def case_phase(tmp, smi):
     check(float(res.peeq_gp.max()) > 0.0, "phase 10: no plastic strain")
     check(bool(dmat_shapes) and all(s == (NE_BIG, 6, 6) for s in dmat_shapes),
           f"phase 10: the backend's elasticity is {dmat_shapes}, not per element")
-    check(launches[0] > 0, "phase 10: K0 was not launched on the path")
-    return dict(launches=launches[0], launches_k0m=launches[1])
+    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 10: K1 or K4 was not launched")
+    return dict(launches=launches)
 
 
 def cli_phase(tmp):
@@ -1029,7 +1202,6 @@ def cli_phase(tmp):
     (the default solver's tolerance); then the GPU run's checkpoints cut to the first half of its steps
     and ``--resume`` for the rest: the last ``.out`` row equals the
     straight run's."""
-    from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.runtime.checkpoint import latest_step
     from fcvm_tpu_torch.runtime.vtk import read_point_fields
 
@@ -1038,16 +1210,17 @@ def cli_phase(tmp):
     lbd, fields = {}, {}
     for dev in ("cuda", "cpu"):
         args = ["run", case, "--x64", "--no-plots", "--checkpoint", "--outdir", tmp / dev]
-        launches = kernels.block_matvec.launches
+        before = read_launches()[0]
         t0 = time.perf_counter()
         rc, out = run_cli(args + (["--cpu"] if dev == "cpu" else []))
-        launches = kernels.block_matvec.launches - launches
+        launches = {k: n - before[k] for k, n in read_launches()[0].items() if k in CG_KERNELS}
         check(rc == 0 and "MAXIMUM RESTARTS" not in out, f"phase 10b: the {dev} run failed")
         lbd[dev] = latest_step(tmp / dev / "checkpoints")[1]["lbd"]
         fields[dev] = read_point_fields(tmp / dev / "plate.vtk")
         print(f"CLI run --x64{' --cpu' if dev == 'cpu' else ''}: {time.perf_counter() - t0:.2f} s, "
-              f"lbd {np.round(lbd[dev], 6).tolist()}, K0 launches {launches}")
-        check((launches > 0) == (dev == "cuda"), f"phase 10b: K0 launches {launches} on {dev}")
+              f"lbd {np.round(lbd[dev], 6).tolist()}, K1 and K4 launches {launches}")
+        check(all((n > 0) == (dev == "cuda") for n in launches.values()),
+              f"phase 10b: K1 and K4 launches {launches} on {dev}")
     check(len(lbd["cuda"]) == len(lbd["cpu"]) == 7, "phase 10b: step counts differ from 6")
     diff = float(np.max(np.abs(lbd["cuda"] - lbd["cpu"]) / np.maximum(np.abs(lbd["cpu"]), 1e-300)))
     fdiff, fname = max((float(np.abs(fields["cuda"][k] - v).max() / max(np.abs(v).max(), 1.0)), k)
@@ -1194,7 +1367,6 @@ def fcstd_phase(tmp, smi):
     them."""
     from fcvm_tpu_torch.models import fcstd
     from fcvm_tpu_torch.models.inp import read_inp
-    from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.runtime.checkpoint import latest_step
     from fcvm_tpu_torch.tools import fcstd_doc
 
@@ -1223,14 +1395,13 @@ def fcstd_phase(tmp, smi):
     lbd, walls = {}, {}
     for tag, case in (("fcstd", [doc, "--inp", inp]), ("toml", [toml])):
         if tag == "fcstd":
-            kernels.block_matvec.launches = 0
-            kernels.block_matmat.launches = 0
+            reset_launches()
         t0 = time.perf_counter()
         rc, out = run_cli(["run", *case, "--x64", "--no-plots", "--checkpoint", "--outdir",
                            tmp / tag])
         walls[tag] = time.perf_counter() - t0
         if tag == "fcstd":
-            launches = kernels.block_matvec.launches, kernels.block_matmat.launches
+            launches = read_launches()[0]
         check(rc == 0 and "MAXIMUM RESTARTS" not in out, f"phase 12: the {tag} run failed")
         lbd[tag] = latest_step(tmp / tag / "checkpoints")[1]["lbd"]
         check(len(out_rows(tmp / tag / "plate.out")) == len(lbd[tag]),
@@ -1245,13 +1416,13 @@ def fcstd_phase(tmp, smi):
           "phase 12: the histories have different or wrong lengths")
     diff = float(np.max(np.abs(lbd["fcstd"] - lbd["toml"]) / np.maximum(np.abs(lbd["toml"]), 1e-300)))
     print(f"max rel lbd difference, document against TOML: {diff:.3e} (limit {CLI_RTOL:g}); "
-          f"K0 launches {launches[0]}, K0m launches {launches[1]}")
+          f"the document's launches {launches}")
     check(diff <= CLI_RTOL, "phase 12: the document's history differs from the TOML case's")
     check(bool(np.all(np.diff(lbd["fcstd"]) >= 0.0)) and lbd["fcstd"].max() < 1.76,
           "phase 12: load factors decreasing or above 1.76")
-    check(launches[0] > 0, "phase 12: K0 was not launched on the path")
-    return dict(launches=launches[0], launches_k0m=launches[1], t_read=t_read,
-                t_resolver=t_resolver, t_build=t_build, walls=walls)
+    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 12: K1 or K4 was not launched")
+    return dict(launches=launches, t_read=t_read, t_resolver=t_resolver, t_build=t_build,
+                walls=walls)
 
 
 def gmsh_phase(big, tmp: Path):
@@ -1308,7 +1479,8 @@ def sharded_phase(big, on, smi):
         check(steps[0] == steps[1], "phase 13: not phase 7's number of steps")
         check(rel <= 1e-3, "phase 13: final lbd not within 1e-3 of phase 7's")
         check(abs(ratio - 1) <= 0.03, "phase 13: stepping CG iterations not within 3% of phase 7's")
-        check(sh["launches_k0m"] > 0, "phase 13: K0m was not launched on the sharded plate")
+        check(sh["launches"]["block_matmat"] > 0,
+              "phase 13: K0m was not launched on the sharded plate")
         print(f"all_reduce pieces: one float {ar['one_ms']:.4f} ms (CUDA events), the plate's "
               f"vector {ar['host_ms']:.4f} ms of host time per call (100 calls, one sync); the "
               f"sharded K_hat.v {ar['khat_ms']:.4f} ms against its unreduced body "
@@ -1353,9 +1525,8 @@ def gloo_rank():
     world of two gloo ranks sharing ``cuda:0``; its load and buckling
     factors, CG counts and kernel launches."""
     from fcvm_tpu_torch import ControlParams, FcvmConfig, solve_collapse
-    from fcvm_tpu_torch.ops import kernels
 
-    k0, k0m = kernels.block_matvec.launches, kernels.block_matmat.launches
+    reset_launches()
     out = {}
     for gnl in (False, True):
         res = solve_collapse(plate_model(PLATE_SMALL), plate_params(6, gnl), config=FcvmConfig(
@@ -1365,7 +1536,7 @@ def gloo_rank():
                          config=FcvmConfig(device="cuda:0", dtype="float64", cg_rtol=1e-12,
                                            n_devices=2))
     out["eig"] = np.asarray(res.eigenvalues)
-    out["launches"] = (kernels.block_matvec.launches - k0, kernels.block_matmat.launches - k0m)
+    out["launches"] = read_launches()[0]
     return out
 
 
@@ -1396,29 +1567,27 @@ def gloo_phase(cpu_small):
               "phase 13b: the gloo ranks' load factors disagree with the CPU")
     eig_diff = float(np.max(np.abs(outs[0]["eig"] / ref_col.eigenvalues - 1)))
     print(f"column buckling factors {outs[0]['eig'].tolist()}, max rel diff against the CPU "
-          f"{eig_diff:.3e} (limit {EIG_RTOL:g}); ranks identical: {same}; K0 and K0m launches "
-          f"per rank {[o['launches'] for o in outs]}")
+          f"{eig_diff:.3e} (limit {EIG_RTOL:g}); ranks identical: {same}; launches per rank "
+          f"{[o['launches'] for o in outs]}")
     check(eig_diff <= EIG_RTOL, "phase 13b: buckling factors disagree with the CPU")
     check(same, "phase 13b: the two ranks' histories differ")
-    check(all(o["launches"][0] > 0 and o["launches"][1] > 0 for o in outs),
-          "phase 13b: K0 or K0m was not launched on a rank")
+    check(all(o["launches"][k] > 0 for o in outs for k in (*CG_KERNELS, "block_matmat")),
+          "phase 13b: K1, K4 or K0m was not launched on a rank")
     return [o["launches"] for o in outs]
 
 
 def bench_phase(smi):
     """Phase 14: the port's benchmark, in this process, with the CPU
     baseline at the matched size only; its checks and each row's peak
-    device memory.  Returns its K0 and K0m launches."""
-    from fcvm_tpu_torch.ops import kernels
+    device memory.  Returns its launches."""
     from fcvm_tpu_torch.tools import bench
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lines = []
-    kernels.block_matvec.launches = 0
-    kernels.block_matmat.launches = 0
+    reset_launches()
     rc = bench.main(["--no-same-size"], emit=lines.append)
-    launches = kernels.block_matvec.launches, kernels.block_matmat.launches
+    launches = read_launches()[0]
     check(rc == 0 and len(lines) >= 2, "phase 14: the bench did not finish")
     g = json.loads(lines[-1])
     x = g["extra"]
@@ -1444,7 +1613,7 @@ def bench_phase(smi):
               f"{r['host_mesh_s']:.2f} s, tensors and solve space {r['host_setup_s']:.2f} s")
     print(f"sharded (world of one) vs local, {sh['ndof']} dof: step {sh['step_ms_sharded']:.1f} "
           f"/ {sh['step_ms_local']:.1f} ms, max lbd diff {sh['max_lbd_diff']:.3e} (tol "
-          f"{sh['lbd_tol']:g}); launches in the bench: K0 {launches[0]}, K0m {launches[1]}")
+          f"{sh['lbd_tol']:g}); launches in the bench: {launches}")
     check(g["metric"] == "newton_load_step_wall_ms_plate_with_hole_503kdof"
           and head["ndof"] == NDOF_BIG, "phase 14: not the 502,599-dof headline")
     check(head["plastic_gp_fraction"] > 0, "phase 14: the headline step is not plastic")
@@ -1455,8 +1624,8 @@ def bench_phase(smi):
           "phase 14: a capacity row's elastic solve reached the CG cap")
     check(sh["lbd_within_tol"], "phase 14: sharded and local load factors differ")
     check(g["vs_baseline"] is not None, "phase 14: no vs_baseline")
-    check(all(r["launches"]["block_matvec"] > 0 for r in rows.values()),
-          "phase 14: a row of the bench did not launch K0")
+    check(all(r["launches"][k] > 0 for r in rows.values() for k in CG_KERNELS),
+          "phase 14: a row of the bench did not launch K1 or K4")
     return launches
 
 
@@ -1495,7 +1664,16 @@ def main():
     k0m = k0m_phase()
 
     phase(f"3b bandwidth probe: K0p and Kbw vs plain, then the probe ({smi})")
-    probe_rows = probe_phase()
+    probe_rows, k0_probe_launches = probe_phase()
+
+    phase(f"3c K1 and K4 vs plain, the chain they replaced and cuSPARSE, on the plate's and "
+          f"the beam-column's operators ({smi})")
+    t0 = time.perf_counter()
+    big = plate_model(PLATE_BIG)
+    print(f"plate: {big.mesh.n_nodes} nodes, {big.mesh.n_elements} elements, "
+          f"{big.mesh.ndof} dof (mesh built in {time.perf_counter() - t0:.1f} s)")
+    check(big.mesh.ndof == NDOF_BIG and big.mesh.n_elements == NE_BIG, "unexpected mesh size")
+    cg_rows = cg_kernel_phase({"plate": big, "column": column_model(COL_BIG, COL_W, COL_T)})
 
     phase("4 small plate, float64, GPU vs CPU, small strain and GNL")
     small = plate_model(PLATE_SMALL)
@@ -1532,11 +1710,6 @@ def main():
     check(diff <= EIG_RTOL, "GPU and CPU buckling factors disagree")
 
     phase("5 plate with hole at full size, float32, deflation and precision tiers off")
-    t0 = time.perf_counter()
-    big = plate_model(PLATE_BIG)
-    print(f"{big.mesh.n_nodes} nodes, {big.mesh.n_elements} elements, "
-          f"{big.mesh.ndof} dof (mesh built in {time.perf_counter() - t0:.1f} s)")
-    check(big.mesh.ndof == 502_599 and big.mesh.n_elements == NE_BIG, "unexpected mesh size")
     cfg = FcvmConfig(device="cuda", dtype="float32", precond="two_level", **TIERS_OFF)
     off = run_plate(big, cfg, "phase 5")
 
@@ -1568,7 +1741,6 @@ def main():
 
     phase("8 plate with hole at full size, GNL, float32, default configuration")
     gnl = run_plate(big, cfg7, "phase 8", gnl=True)
-    gnl_launches = gnl["launches"], gnl["launches_k0m"]
     cs = gnl["cg_stats"]
     check(cs["predictor_solves"] > 0, "phase 8: no tangent predictor solve")
     newton = [s["newton"] for s in cs["steps"]]
@@ -1661,42 +1833,54 @@ def main():
     phase()
     print(f"all phases: {time.perf_counter() - t_start:.1f} s wall")
 
-    k0_source = dict(route="cuda", source="fcvm_tpu_torch/csrc/block_matvec.cu",
-                     replaces="fcvm_tpu/ops/pallas_kernels.py:60")
+    paths = {"plate": off, "default": on, "gnl": gnl, "column": col, "case": case,
+             "cluster": clus, "cluster_gnl": clus_gnl, "fcstd_f64": doc,
+             "sharded": sharded["plate"], "sharded_column": sharded["column"]}
+
+    def path_launches(name):
+        """A kernel's launches in each path phase (5 to 14)."""
+        out = {f"launches_{k}": v["launches"][name] for k, v in paths.items()}
+        return {**out, "launches_gloo_ranks_f64": [g[name] for g in gloo_launches],
+                "launches_bench": bench_launches[name]}
+
+    def cg_shapes(name):
+        return [{"dtype": dt, "model": m, "variant": v, **row}
+                for (kname, dt, m, v), row in cg_rows.items() if kname == name]
+
     print(json.dumps({"kernels": [{
-        "name": "block_matvec", "dtype": "float32", **k0_source,
-        "launches": off["launches"], "launches_default": on["launches"],
-        "launches_gnl": gnl_launches[0], "launches_column": col["k0_dtypes"].get("float32", 0),
-        "launches_case": case["launches"], "launches_cluster": clus["launches"],
-        "launches_cluster_gnl": clus_gnl["launches"], "launches_fcstd_f64": doc["launches"],
-        "launches_sharded": sharded["plate"]["launches"],
-        "launches_sharded_column": sharded["column"]["k0_dtypes"].get("float32", 0),
-        "launches_gloo_ranks_f64": [k[0] for k in gloo_launches],
-        "launches_bench": bench_launches[0],
-        "ne": NE_BIG, **k0[(torch.float32, NE_BIG)],
+        "name": "khat_matvec", "route": "cuda", "source": "fcvm_tpu_torch/csrc/khat_matvec.cu",
+        "replaces": "fcvm_tpu/ops/assembly.py:525",
+        "replaces_also": "fcvm_tpu/ops/assembly.py:576 (make_bc_matvec), :386 "
+                         "(scatter_node_rows); XLA-lowered",
+        "launches": off["launches"]["khat_matvec"], **path_launches("khat_matvec"),
+        "launches_column_by_dtype": col["by_dtype"]["khat_matvec"],
+        "dtype": "float32", "model": "plate", "variant": "masked",
+        **cg_rows[("khat_matvec", "float32", "plate", "masked")],
+        "shapes": cg_shapes("khat_matvec"),
+    }, {
+        "name": "two_level_apply", "route": "cuda", "source": "fcvm_tpu_torch/csrc/two_level.cu",
+        "replaces": "fcvm_tpu/ops/precond.py:108", "replaces_also": "XLA-lowered",
+        "launches": off["launches"]["two_level_apply"], **path_launches("two_level_apply"),
+        "launches_column_by_dtype": col["by_dtype"]["two_level_apply"],
+        "dtype": "float32", "model": "plate", "variant": "jacobi3",
+        **cg_rows[("two_level_apply", "float32", "plate", "jacobi3")],
+        "shapes": cg_shapes("two_level_apply"),
+    }, {
+        # K1 carries the solver's K_hat·v: K0's path is the bandwidth probe
+        "name": "block_matvec", "route": "cuda", "source": "fcvm_tpu_torch/csrc/block_matvec.cu",
+        "replaces": "fcvm_tpu/ops/pallas_kernels.py:60", "path": "bandwidth probe (phase 3b)",
+        "launches": k0_probe_launches, **path_launches("block_matvec"),
+        "dtype": "float32", "ne": NE_BIG, **k0[(torch.float32, NE_BIG)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, **row}
                    for (dtype, ne), row in k0.items()],
-    }, {
-        # the float64 tiers: the eigensolve's tier 2 on the beam-column
-        "name": "block_matvec", "dtype": "float64", **k0_source,
-        "launches": col["k0_dtypes"].get("float64", 0),
-        "launches_sharded_column": sharded["column"]["k0_dtypes"].get("float64", 0),
-        "ne": NE_COL, **k0[(torch.float64, NE_COL)],
     }, *probe_rows, {
         "name": "block_matmat", "route": "cuda",
         "source": "fcvm_tpu_torch/csrc/block_matmat.cu",
         "replaces": "fcvm_tpu/ops/pallas_kernels.py:60 under vmap; "
                     "fcvm_tpu/runtime/buckling.py:318",
-        "launches": col["launches"]["block_matmat"], "launches_by_shape": col["k0m_shapes"],
-        "launches_plate": off["launches_k0m"],
-        "launches_default": on["launches_k0m"], "launches_gnl": gnl_launches[1],
-        "launches_case": case["launches_k0m"], "launches_cluster": clus["launches_k0m"],
-        "launches_cluster_gnl": clus_gnl["launches_k0m"], "launches_fcstd_f64": doc["launches_k0m"],
-        "launches_sharded": sharded["plate"]["launches_k0m"],
-        "launches_sharded_column": sharded["column"]["launches"]["block_matmat"],
-        "launches_sharded_column_by_shape": sharded["column"]["k0m_shapes"],
-        "launches_gloo_ranks_f64": [k[1] for k in gloo_launches],
-        "launches_bench": bench_launches[1],
+        "launches": col["launches"]["block_matmat"], **path_launches("block_matmat"),
+        "launches_by_shape": col["by_dtype"]["block_matmat"],
+        "launches_sharded_column_by_shape": sharded["column"]["by_dtype"]["block_matmat"],
         "ne": NE_COL, "m": 8, **k0m[(torch.float32, NE_COL, 8)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, "m": m, **row}
                    for (dtype, ne, m), row in k0m.items()],

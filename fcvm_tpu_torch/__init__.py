@@ -7,8 +7,9 @@ analysis, small strain (``gnl="GNLN"``) and geometrically nonlinear
 (``gnl="GNLY"``, with the linear-buckling pre-analysis and imperfection
 seeding), through :func:`solve_collapse`, and linear buckling alone through
 :func:`linear_buckling`, with the two-level-preconditioned CG solver (or the
-scipy direct tier) whose block stages are the hand-written CUDA kernels K0
-and K0m (:mod:`fcvm_tpu_torch.ops.kernels`, sources under ``csrc/``).
+scipy direct tier) whose K_hat·v, preconditioner apply and block products
+are the hand-written CUDA kernels K1, K4 and K0m
+(:mod:`fcvm_tpu_torch.ops.kernels`, sources under ``csrc/``).
 :func:`run_analysis` and :func:`run_sum` (:mod:`fcvm_tpu_torch.api`) add
 the reference's output files (``.out``, ``.vtk``, ``.avr``, curves), and
 ``python -m fcvm_tpu_torch run case.toml`` runs a TOML case file

@@ -3,14 +3,15 @@
 The port of :mod:`fcvm_tpu.ops.assembly`, with the buckling pencil's
 geometric stiffness.  The global
 stiffness matrix is never formed: the per-element 30x30 blocks stay on the
-device and ``K @ v`` is gather -> block matvec -> scatter-add, with the
-block stage the hand-written CUDA kernel K0
-(:func:`fcvm_tpu_torch.ops.kernels.block_matvec`); an ``(ndof, m)`` block
-of vectors goes through K0m (:func:`fcvm_tpu_torch.ops.kernels.block_matmat`)
-in one pass.  The operator stores the
-blocks element-major, ``(30, 30, ne)``, the layout K0 and K0m read coalesced.
-The node reduction is ``index_add_`` (on CUDA an atomic scatter-add whose
-float32 summation order varies from run to run).
+device and ``K @ v`` is gather -> block matvec -> node sum -> mask, one
+hand-written CUDA kernel K1 (:func:`fcvm_tpu_torch.ops.kernels.khat_matvec`)
+over the element node table and its node-incidence CSR
+(:func:`node_incidence`), whose node sums run in a fixed order, so its
+results are deterministic; an ``(ndof, m)`` block of vectors goes through
+K0m (:func:`fcvm_tpu_torch.ops.kernels.block_matmat`) in one pass, its node
+reduction ``index_add_`` (on CUDA an atomic scatter-add whose float32
+summation order varies from run to run).  The operator stores the blocks
+element-major, ``(30, 30, ne)``, the layout K1 and K0m read coalesced.
 
 Dirichlet boundary conditions reproduce the reference's elimination scheme
 (``fcVM.py:771-796``): the operator is the identity on fixed dofs and the
@@ -174,30 +175,55 @@ def vertex_loads(vertices, forces, ndof):
 # ---------------------------------------------------------------------------
 
 
-def make_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, ndof: int):
-    """Raw ``K @ v`` from element-major blocks ``esm_t`` (30, 30, ne):
-    per-dof gather into (30, ne) -> K0 -> ``index_add_`` into dofs."""
-    eldofs_t = eldofs.T.contiguous()  # (30, ne), the layout K0 reads
-    flat = eldofs_t.reshape(-1)
+def node_incidence(elnodes: torch.Tensor, nn: int) -> kernels.NodeIncidence:
+    """K1's tables for the elements ``elnodes`` (ne, 10) over ``nn`` nodes:
+    the element-major int32 node table and the node-incidence CSR, each
+    node's incidences in ascending element order (the JAX package's
+    ``ScatterPlan`` semantics, a fixed-order gather-sum, as a CSR).  Built
+    once per element numbering (one stable sort on the device)."""
+    ne = elnodes.shape[0]
+    if 30 * ne >= 2**31:
+        raise ValueError(f"node_incidence: {ne} elements; K1's int32 offsets need 30 ne < 2^31")
+    flat = elnodes.reshape(-1)  # element-major: incidence k = 10 e + slot
+    if ne and int(flat.max()) >= nn:
+        raise ValueError(f"node_incidence: a node id {int(flat.max())} is not below {nn}")
+    nodes, order = torch.sort(flat, stable=True)
+    e, slot = order // 10, order % 10
+    bounds = torch.arange(nn + 1, device=flat.device, dtype=nodes.dtype)
+    return kernels.NodeIncidence(
+        elnodes.T.contiguous().to(torch.int32),
+        torch.searchsorted(nodes, bounds).to(torch.int32),
+        (3 * slot * ne + e).to(torch.int32))
+
+
+def _incidence(eldofs, ndof, incidence):
+    return incidence if incidence is not None else node_incidence(eldofs[:, ::3] // 3, ndof // 3)
+
+
+def make_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, ndof: int, incidence=None):
+    """Raw ``K @ v`` from element-major blocks ``esm_t`` (30, 30, ne)
+    through K1.  ``incidence``, the :func:`node_incidence` of the elements
+    of ``eldofs`` (ne, 30) over ``ndof // 3`` nodes, is built here when not
+    given."""
+    inc = _incidence(eldofs, ndof, incidence)
 
     def kv(u):
-        fe_t = kernels.block_matvec(esm_t, u[eldofs_t])
-        out = torch.zeros(ndof, dtype=u.dtype, device=u.device)
-        return out.index_add_(0, flat, fe_t.reshape(-1))
+        return kernels.khat_matvec(esm_t, inc, u.contiguous())  # K1 reads a dense vector
 
     return kv
 
 
-def make_bc_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.Tensor):
-    """``K_hat @ v`` with eliminated Dirichlet dofs:
+def make_bc_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.Tensor,
+                   incidence=None):
+    """``K_hat @ v`` with eliminated Dirichlet dofs through K1:
     ``K_hat u = P K P u + (I - P) u`` with ``P = diag(fixmask)`` — the same
     solution space as the reference's row/column elimination
-    (``fcVM.py:771-796``).  ``esm_t`` is element-major (30, 30, ne)."""
-    kv = make_matvec(esm_t, eldofs, fixmask.shape[0])
-    free = 1.0 - fixmask
+    (``fcVM.py:771-796``).  ``esm_t`` is element-major (30, 30, ne);
+    ``incidence`` as in :func:`make_matvec`."""
+    inc = _incidence(eldofs, fixmask.shape[0], incidence)
 
     def khat(u):
-        return fixmask * kv(fixmask * u) + free * u
+        return kernels.khat_matvec(esm_t, inc, u.contiguous(), fixmask)
 
     return khat
 
@@ -233,10 +259,11 @@ def make_multi_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.
     return mv
 
 
-def dirichlet_rhs(esm_t, eldofs, fixmask, u_fix, glv):
+def dirichlet_rhs(esm_t, eldofs, fixmask, u_fix, glv, incidence=None):
     """Full RHS ``f = P glv - (P K u_fix) + u_fix`` (``fcVM.py:1128``) over
-    element-major blocks ``esm_t`` (30, 30, ne)."""
-    kv = make_matvec(esm_t, eldofs, fixmask.shape[0])
+    element-major blocks ``esm_t`` (30, 30, ne); ``incidence`` as in
+    :func:`make_matvec`."""
+    kv = make_matvec(esm_t, eldofs, fixmask.shape[0], incidence)
     return fixmask * glv - fixmask * kv(u_fix) + u_fix
 
 

@@ -6,14 +6,24 @@
 * K0m :func:`block_matmat`, K0's multi-column form, replaces K0 under
   ``vmap`` and the block ``einsum`` of ``fcvm_tpu/runtime/buckling.py:318``;
   source ``csrc/block_matmat.cu``.
+* K1 :func:`khat_matvec`, the fused K_hat·v (gather -> element pass ->
+  fixed-order node sum -> Dirichlet mask), replaces the XLA-lowered
+  ``fcvm_tpu/ops/assembly.py::make_matvec``/``make_bc_matvec`` with its
+  ``ScatterPlan`` node sum; source ``csrc/khat_matvec.cu`` (its element
+  pass is K0's, ``csrc/element_pass.cuh``).
+* K4 :func:`two_level_apply`, the fused two-level preconditioner apply on
+  a vector, replaces the XLA-lowered
+  ``fcvm_tpu/ops/precond.py::TwoLevelPrecond.apply``; source
+  ``csrc/two_level.cu``.
 * K0p :func:`soa_matvec` replaces ``tools/bw_probe.py::soa_matvec``;
   source ``csrc/bw_probe.cu``.
 * Kbw :func:`bw_read` replaces ``tools/bw_probe.py::make_bw_kernel``;
   source ``csrc/bw_probe.cu``.
 
-K0 is the block stage of the solver's K_hat·v, K0m that of the
-multi-column K_hat·V and -G_hat·V (the buckling eigensolve, the deflation
-Galerkin and correction builds); K0p and Kbw serve the
+K1 and K4 carry the solver's CG iteration (every ``K_hat @ v`` and raw
+``K @ v``, every preconditioner apply on a vector); K0m is the block stage
+of the multi-column K_hat·V and -G_hat·V (the buckling eigensolve, the
+deflation Galerkin and correction builds); K0, K0p and Kbw serve the
 bandwidth probe (:mod:`fcvm_tpu_torch.tools.bw_probe`).  What bounds each
 on the card and how its design answers that is written at the top of its
 source.
@@ -21,8 +31,8 @@ source.
 Dispatch is by the tensors' device: on CPU tensors a wrapper runs the plain
 version (``*_ref``), on CUDA tensors it launches the kernel or raises.  There
 is no fallback from a failed build or launch.  Each wrapper counts its
-kernel launches in its ``launches`` attribute; K0 also counts them by dtype
-in ``block_matvec.dtypes``, K0m by dtype and column count in
+kernel launches in its ``launches`` attribute; K0, K1 and K4 also count them
+by dtype in their ``dtypes``, K0m by dtype and column count in
 ``block_matmat.shapes``.
 
 The kernels are compiled at first use by ``torch.utils.cpp_extension.load``
@@ -45,7 +55,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("ops.cpp", "block_matvec.cu", "block_matmat.cu", "bw_probe.cu")
+SOURCES = ("ops.cpp", "block_matvec.cu", "block_matmat.cu", "khat_matvec.cu", "two_level.cu",
+           "bw_probe.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3")
 
 
@@ -78,6 +89,10 @@ def build() -> BuildInfo:
         )
         _build_info = BuildInfo(path, time.perf_counter() - t0)
     return _build_info
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
 
 
 def block_matvec_ref(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:
@@ -122,7 +137,7 @@ def block_matvec(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:
     build()
     out = torch.ops.fcvm.block_matvec(esm_t, ue_t)
     block_matvec.launches += 1
-    block_matvec.dtypes[str(ue_t.dtype).removeprefix("torch.")] += 1
+    block_matvec.dtypes[_dtype_name(ue_t)] += 1
     return out
 
 
@@ -174,12 +189,177 @@ def block_matmat(esm_t: torch.Tensor, ue: torch.Tensor) -> torch.Tensor:
     build()
     out = torch.ops.fcvm.block_matmat(esm_t, ue)
     block_matmat.launches += 1
-    block_matmat.shapes[(str(ue.dtype).removeprefix("torch."), ue.shape[2])] += 1
+    block_matmat.shapes[(_dtype_name(ue), ue.shape[2])] += 1
     return out
 
 
 block_matmat.launches = 0
 block_matmat.shapes = Counter()  # launches by (dtype name, m)
+
+
+class NodeIncidence(NamedTuple):
+    """K1's int32 tables of one element numbering (built by
+    :func:`fcvm_tpu_torch.ops.assembly.node_incidence`).
+
+    Fields:
+      elnodes_t: (10, ne) element node ids, element-major.
+      offsets: (nn + 1,) CSR row starts over the nodes.
+      pos: (10 ne,) each incidence's offset ``3 slot ne + e`` into K1's
+        element output (30, ne), the node's incidences in ascending
+        element order.
+    """
+
+    elnodes_t: torch.Tensor
+    offsets: torch.Tensor
+    pos: torch.Tensor
+
+
+def khat_matvec_ref(esm_t: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
+                    fixmask=None) -> torch.Tensor:
+    """Plain version of K1: the gather of ``P u`` (``u`` without
+    ``fixmask``) at the element dofs, K0's plain version, ``index_add_``
+    into the dofs and, with ``fixmask``, ``P (.) + (I - P) u``."""
+    ne = esm_t.shape[-1]
+    a3 = torch.arange(3, device=u.device)
+    eldofs_t = (3 * inc.elnodes_t.long()[:, None, :] + a3[None, :, None]).reshape(30, ne)
+    v = u if fixmask is None else fixmask * u
+    fe_t = block_matvec_ref(esm_t, v[eldofs_t])
+    out = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+    out.index_add_(0, eldofs_t.reshape(-1), fe_t.reshape(-1))
+    if fixmask is None:
+        return out
+    return fixmask * out + (1.0 - fixmask) * u
+
+
+def khat_matvec(esm_t: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
+                fixmask=None) -> torch.Tensor:
+    """K1: ``K_hat u = P K (P u) + (I - P) u`` with ``P = diag(fixmask)``,
+    or the raw ``K u`` without ``fixmask`` (design and bound at the top of
+    ``csrc/khat_matvec.cu``).
+
+    Args:
+      esm_t: (30, 30, ne) element blocks, element-major, float32 or float64.
+      inc: the element numbering's :class:`NodeIncidence` over ``nn`` nodes.
+      u: (3 nn,) dof vector, same dtype and device.
+      fixmask: (3 nn,) 1 on free dofs, 0 on fixed ones, or None.
+
+    Returns:
+      (3 nn,).  CPU tensors take the plain version; CUDA tensors launch the
+      kernel (``khat_matvec.launches`` counts those launches), whose sums
+      run in a fixed order: two calls on the same inputs give the same bits.
+    """
+    ne = esm_t.shape[-1]
+    nn = inc.offsets.shape[0] - 1
+    if (esm_t.shape != (30, 30, ne) or inc.elnodes_t.shape != (10, ne)
+            or inc.pos.shape != (10 * ne,) or u.shape != (3 * nn,)
+            or (fixmask is not None and fixmask.shape != u.shape)):
+        raise ValueError(
+            f"khat_matvec: shapes {tuple(esm_t.shape)}, elnodes_t "
+            f"{tuple(inc.elnodes_t.shape)}, {nn} nodes, pos {tuple(inc.pos.shape)}, u "
+            f"{tuple(u.shape)}; expected (30, 30, ne), (10, ne), (10 ne,), (3 nn,)")
+    tensors = (esm_t, u, *inc) + (() if fixmask is None else (fixmask,))
+    if all(t.device.type == "cpu" for t in tensors):
+        return khat_matvec_ref(esm_t, inc, u, fixmask)
+    if esm_t.device.type != "cuda" or any(t.device != esm_t.device for t in tensors):
+        raise ValueError("khat_matvec: tensors on several devices; expected all on the CPU "
+                         "or all on one CUDA device")
+    if (esm_t.dtype not in (torch.float32, torch.float64) or u.dtype != esm_t.dtype
+            or (fixmask is not None and fixmask.dtype != esm_t.dtype)):
+        raise TypeError(f"khat_matvec: dtypes {esm_t.dtype}/{u.dtype}; expected float32 or "
+                        "float64 throughout")
+    if any(t.dtype != torch.int32 for t in inc):
+        raise TypeError("khat_matvec: the incidence tables must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("khat_matvec: inputs must be contiguous")
+    build()
+    out = torch.ops.fcvm.khat_matvec(esm_t, inc.elnodes_t, inc.offsets, inc.pos, u, fixmask)
+    khat_matvec.launches += 1
+    khat_matvec.dtypes[_dtype_name(u)] += 1
+    return out
+
+
+khat_matvec.launches = 0
+khat_matvec.dtypes = Counter()  # launches by dtype name
+
+
+def two_level_apply_ref(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
+    """Plain version of K4: the fine level (block Jacobi ``pinv r`` per
+    node, or ``z_fine``), the projection of ``P r`` onto the cluster modes,
+    the cluster sum, the coarse product in mode-major order, the
+    prolongation and the mask."""
+    z = z_fine
+    if z is None:
+        z = torch.einsum("nab,nb->na", pinv, r.reshape(-1, 3)).reshape(-1)
+    nn_cl, _, nm = qmat.shape
+    ncl = coarse_inv.shape[0] // nm
+    cs = nn_cl // ncl
+    r3 = (fixmask * r).reshape(-1, 3)
+    nn = r3.shape[0]
+    r3p = torch.nn.functional.pad(r3, (0, 0, 0, nn_cl - nn))
+    # Q^T r: project onto cluster modes, sum within clusters; the coarse
+    # vector is mode-major (k * ncl + i), the layout of coarse_inv
+    rc = torch.einsum("nak,na->nk", qmat, r3p)
+    rc = rc.reshape(ncl, cs, nm).sum(dim=1)  # (ncl, nm)
+    zc = coarse_inv @ rc.T.reshape(-1)
+    zc_n = zc.reshape(nm, ncl).T.repeat_interleave(cs, dim=0)  # (nn_cl, nm)
+    z2 = torch.einsum("nak,nk->na", qmat, zc_n)
+    return z + z2[:nn].reshape(-1) * fixmask
+
+
+def two_level_apply(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
+    """K4: the two-level preconditioner on a vector, ``z_fine + P Q Kc^-1
+    Q^T (P r)`` with ``z_fine = pinv r`` per node unless given (design and
+    bound at the top of ``csrc/two_level.cu``).
+
+    Args:
+      pinv: (nn, 3, 3) block-Jacobi inverses.
+      qmat: (ncl cs, 3, nm) cluster mode basis, nm 6 or 12, ncl cs >= nn.
+      coarse_inv: (nm ncl, nm ncl) coarse inverse, mode-major, in any
+        layout (``cholesky_inverse`` gives column-major): it reaches only
+        the GEMV, cuBLAS's, as in the plain version.
+      fixmask, r: (3 nn,).
+      z_fine: (3 nn,) the fine level's output (the cluster smoother's), or
+        None for block Jacobi.
+
+    Returns:
+      (3 nn,).  CPU tensors take the plain version; CUDA tensors launch the
+      kernels (``two_level_apply.launches`` counts those calls).
+    """
+    nn = r.shape[0] // 3
+    if (r.dim() != 1 or r.shape != (3 * nn,) or fixmask.shape != r.shape
+            or pinv.shape != (nn, 3, 3) or qmat.dim() != 3 or qmat.shape[1] != 3
+            or (z_fine is not None and z_fine.shape != r.shape)):
+        raise ValueError(
+            f"two_level_apply: shapes pinv {tuple(pinv.shape)}, qmat {tuple(qmat.shape)}, "
+            f"r {tuple(r.shape)}; expected (nn, 3, 3), (ncl cs, 3, nm), (3 nn,)")
+    nm = qmat.shape[2]
+    ncl = coarse_inv.shape[0] // nm if nm else 0
+    if (nm not in (6, 12) or ncl == 0 or coarse_inv.shape != (nm * ncl, nm * ncl)
+            or qmat.shape[0] % ncl or qmat.shape[0] < nn):
+        raise ValueError(
+            f"two_level_apply: qmat {tuple(qmat.shape)} and coarse_inv "
+            f"{tuple(coarse_inv.shape)}; expected nm 6 or 12 modes on ncl clusters that "
+            "cover the nodes")
+    tensors = (pinv, qmat, coarse_inv, fixmask, r) + (() if z_fine is None else (z_fine,))
+    if all(t.device.type == "cpu" for t in tensors):
+        return two_level_apply_ref(pinv, qmat, coarse_inv, fixmask, r, z_fine)
+    if r.device.type != "cuda" or any(t.device != r.device for t in tensors):
+        raise ValueError("two_level_apply: tensors on several devices; expected all on the "
+                         "CPU or all on one CUDA device")
+    if r.dtype not in (torch.float32, torch.float64) or any(t.dtype != r.dtype
+                                                             for t in tensors):
+        raise TypeError("two_level_apply: expected float32 or float64 throughout")
+    if not all(t.is_contiguous() for t in tensors if t is not coarse_inv):
+        raise ValueError("two_level_apply: inputs other than coarse_inv must be contiguous")
+    build()
+    out = torch.ops.fcvm.two_level_apply(pinv, qmat, coarse_inv, fixmask, r, z_fine)
+    two_level_apply.launches += 1
+    two_level_apply.dtypes[_dtype_name(r)] += 1
+    return out
+
+
+two_level_apply.launches = 0
+two_level_apply.dtypes = Counter()  # launches by dtype name
 
 
 def soa_matvec_ref(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from fcvm_tpu_torch.ops import assembly as asm
+from fcvm_tpu_torch.ops import kernels
 
 # Observability for the coarse-build degradation paths (ridge escalation,
 # zero-coarse fallback).  Both keep the solver correct, but the fallback
@@ -75,24 +76,16 @@ class TwoLevelPrecond(NamedTuple):
         return z.reshape(r.shape) * mask
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
-        """Apply to a vector (ndof,) or to each column of a block (ndof, m)."""
+        """Apply to a vector (ndof,) through K4
+        (:func:`fcvm_tpu_torch.ops.kernels.two_level_apply`, block Jacobi
+        fused into it; the cluster smoother's ``bmm`` runs before it), or
+        to each column of a block (ndof, m)."""
         if r.dim() == 2:
             return self._apply_block(r)
-        z = self.fine(r)
-        nn_cl, _, nm = self.qmat.shape
-        ncl = self.coarse_inv.shape[0] // nm
-        cs = nn_cl // ncl
-        r3 = (self.fixmask * r).reshape(-1, 3)
-        nn = r3.shape[0]
-        r3p = torch.nn.functional.pad(r3, (0, 0, 0, nn_cl - nn))
-        # Q^T r: project onto cluster modes, sum within clusters; the coarse
-        # vector is mode-major (k * ncl + i), the layout of coarse_inv
-        rc = torch.einsum("nak,na->nk", self.qmat, r3p)
-        rc = rc.reshape(ncl, cs, nm).sum(dim=1)  # (ncl, nm)
-        zc = self.coarse_inv @ rc.T.reshape(-1)
-        zc_n = zc.reshape(nm, ncl).T.repeat_interleave(cs, dim=0)  # (nn_cl, nm)
-        z2 = torch.einsum("nak,nk->na", self.qmat, zc_n)
-        return z + z2[:nn].reshape(-1) * self.fixmask
+        r = r.contiguous()  # K4 reads a dense vector; a column of a block is strided
+        z_fine = None if self.smooth_inv is None else self.fine(r)
+        return kernels.two_level_apply(self.pinv, self.qmat, self.coarse_inv, self.fixmask, r,
+                                       z_fine)
 
     def _apply_block(self, r: torch.Tensor) -> torch.Tensor:
         """:meth:`apply` on the m columns of ``r`` at once: the same steps

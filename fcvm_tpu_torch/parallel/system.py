@@ -11,10 +11,11 @@ per device instead of one process driving a mesh.
   0's connectivity; each rank holds only its slice of connectivity,
   materials, element blocks and Gauss state, so element memory divides by
   the world size.
-* **Node vectors are replicated.**  Every operator application gathers the
-  rank's element rows, runs K0 (:func:`fcvm_tpu_torch.ops.kernels.block_matvec`)
-  or K0m (``block_matmat``) on the rank's blocks, reduces with
-  ``index_add_`` and ends in exactly one ``all_reduce`` of the
+* **Node vectors are replicated.**  Every operator application runs K1's
+  raw form (:func:`fcvm_tpu_torch.ops.kernels.khat_matvec`, over the rank's
+  own node-incidence table) or K0m (``block_matmat``, reduced with
+  ``index_add_``) on the rank's blocks and ends in exactly one
+  ``all_reduce`` of the
   ``(ndof_pad,)`` or ``(ndof_pad, k)`` result, then applies the Dirichlet
   mask: the counterpart of the one ``psum``.  The same holds for the
   internal force, the gravity load, the volume, the block-Jacobi blocks
@@ -112,6 +113,7 @@ class ShardedSystem(TorchSystem):
         self.eln_l = self.elnodes[self._user]
         self.eln_m_l = self.space.elnodes_m[torch.as_tensor(morton, device=self.device)]
         self.eldofs_m_l = asm.element_dof_ids(self.eln_m_l)
+        self.incidence_l = asm.node_incidence(self.eln_m_l, self.nn_pad)
 
         def local(x):  # per-element (ne,) material tables follow their elements
             return x[self._user] if torch.is_tensor(x) and x.dim() == 1 else x
@@ -160,7 +162,7 @@ class ShardedSystem(TorchSystem):
     def operator(self, esm):
         """``K_hat @ v`` in the solve space over this rank's blocks."""
         esm_t = esm.permute(1, 2, 0).contiguous()
-        local = asm.make_matvec(esm_t, self.eldofs_m_l, self.ndof_pad)
+        local = asm.make_matvec(esm_t, self.eldofs_m_l, self.ndof_pad, self.incidence_l)
         fm = self.space.fixmask_m
         free = 1.0 - fm
 

@@ -25,6 +25,7 @@ import torch
 from fcvm_tpu_torch.ops import assembly as asm
 from fcvm_tpu_torch.ops import deflation as dfl
 from fcvm_tpu_torch.ops import solver as slv
+from fcvm_tpu_torch.ops.kernels import NodeIncidence
 from fcvm_tpu_torch.ops.precond import apply_precond, build_two_level, refresh_blocks
 from fcvm_tpu_torch.ops.stress_update import update_stress_load
 from fcvm_tpu_torch.utils.ordering import morton_perm
@@ -112,6 +113,10 @@ class SolveSpace(NamedTuple):
       eldofs_m: (ne, 30) the matching dof ids.
       fixmask_m: (ndof_pad,) fixmask in Morton numbering.
       coords_m: (nn, 3) coordinates in Morton numbering.
+      incidence: K1's node table and node-incidence CSR of ``elnodes_m``
+        over the ``nn_pad`` Morton nodes
+        (:func:`fcvm_tpu_torch.ops.assembly.node_incidence`), built once
+        here and shared by every operator of the analysis.
     """
 
     nperm: torch.Tensor
@@ -121,6 +126,7 @@ class SolveSpace(NamedTuple):
     eldofs_m: torch.Tensor
     fixmask_m: torch.Tensor
     coords_m: torch.Tensor
+    incidence: NodeIncidence
 
     def to_m(self, v):
         return v.reshape(-1, 3)[self.nperm].reshape(-1)
@@ -149,6 +155,7 @@ def build_solve_space(coords_np, elnodes_np, fixmask, ndof_pad: int) -> SolveSpa
         asm.element_dof_ids(elnodes_m),
         fixmask.reshape(nn_pad, 3)[perm_t].reshape(-1),
         torch.as_tensor(np.asarray(coords_np)[perm[:nn]], device=dev).to(dtype),
+        asm.node_incidence(elnodes_m, nn_pad),
     )
 
 
@@ -170,7 +177,8 @@ def make_operator(esm_m, space: SolveSpace) -> Operator:
     user-order blocks): they are stored element-major (30, 30, ne) here,
     once."""
     esm_t = esm_m.permute(1, 2, 0).contiguous()
-    return Operator(esm_t, asm.make_bc_matvec(esm_t, space.eldofs_m, space.fixmask_m))
+    return Operator(esm_t, asm.make_bc_matvec(esm_t, space.eldofs_m, space.fixmask_m,
+                                              space.incidence))
 
 
 def build_precond(esm, cluster_size: int, space: SolveSpace, n_modes: int,
@@ -310,7 +318,7 @@ def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTa
     del esm_m
     glv_t, *_ = external_loads(coords, disp_new, elnodes, loads, density, follower=True)
     rhs = asm.dirichlet_rhs(khat.esm_t, space.eldofs_m, space.fixmask_m,
-                            space.to_m(u_fix), space.to_m(glv_t))
+                            space.to_m(u_fix), space.to_m(glv_t), space.incidence)
     if not solve_predictor:
         return khat, pc_t, glv_t, space.from_m(rhs), 0
     defl = None if w is None else regalerkin_deflation(khat, space, w)

@@ -3,7 +3,7 @@
 Compares two trees of the port on one card, in turns (A B B A, each turn a
 process of its own):
 
-    python fcvm_tpu_torch/tools/turns.py TREE kernels  # K0, K0p, K0m at the paths' shapes
+    python fcvm_tpu_torch/tools/turns.py TREE kernels  # K0, K0p, K0m, K1, K4 at the paths' shapes
     python fcvm_tpu_torch/tools/turns.py TREE plate    # phases 5 and 7 (stepping times)
     python fcvm_tpu_torch/tools/turns.py TREE column   # phase 9 (eigensolve, stepping)
 
@@ -11,7 +11,10 @@ process of its own):
 of another commit unpacked in a directory that ``.gitignore`` lists); its
 ``fcvm_tpu_torch`` is imported and built, while the phases' code is this
 checkout's ``chip_smoke.py``.  Prints the card's ``nvidia-smi`` name and
-power limit, then one JSON line.  Needs a CUDA device.
+power limit, then one JSON line.  Needs a CUDA device.  A tree from before
+K1 and K4 (``kernels.khat_matvec``, ``two_level_apply``) times and launches
+K0 where they would be: its plate runs are held to K0's launches, and its
+``kernels`` part has no K1 and K4 rows.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import subprocess
 import sys
 from collections import Counter
 from pathlib import Path
+from types import SimpleNamespace
 
 HERE = Path(__file__).resolve().parents[2]
 
@@ -39,7 +43,12 @@ def main(tree: str, part: str) -> dict:
     from fcvm_tpu_torch.config import pin_full_fp32
     from fcvm_tpu_torch.ops import kernels
 
-    # an older tree's wrappers keep no counts by shape: give them empty ones
+    # an older tree's wrappers keep no counts by shape, and a tree from
+    # before K1 and K4 has neither: give them empty ones
+    fused = hasattr(kernels, "khat_matvec")
+    if not fused:
+        for name in smoke.CG_KERNELS:
+            setattr(kernels, name, SimpleNamespace(launches=0, dtypes=Counter()))
     for fn, attr in ((kernels.block_matvec, "dtypes"), (kernels.block_matmat, "shapes")):
         if not hasattr(fn, attr):
             setattr(fn, attr, Counter())
@@ -67,16 +76,24 @@ def main(tree: str, part: str) -> dict:
         k0m = smoke.k0m_phase()
         out["k0m"] = [{"dtype": str(dt).removeprefix("torch."), "ne": ne, "m": m, **row}
                       for (dt, ne, m), row in k0m.items()]
+        if fused:  # K1 and K4 on the plate's and the beam-column's operators
+            models = {"plate": smoke.plate_model(smoke.PLATE_BIG),
+                      "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)}
+            out["k1_k4"] = [{"kernel": k, "dtype": dt, "model": m, "variant": v, **row}
+                            for (k, dt, m, v), row in smoke.cg_kernel_phase(models).items()]
     elif part == "plate":
         big = smoke.plate_model(smoke.PLATE_BIG)
         for label, cfg in (("phase 5", FcvmConfig(device="cuda", dtype="float32",
                                                   precond="two_level", **smoke.TIERS_OFF)),
                            ("phase 7", FcvmConfig(device="cuda", dtype="float32"))):
-            r = smoke.run_plate(big, cfg, label)
+            r = smoke.run_plate(big, cfg, label,
+                                required=smoke.CG_KERNELS if fused else ("block_matvec",))
             out[label] = dict(stepping=r["stepping"], step_iters=r["step_iters"],
-                              launches=r["launches"], launches_k0m=r["launches_k0m"])
+                              cg_iters=r["cg_stats"]["iters"], launches=r["launches"])
     elif part == "column":
-        out["phase 9"] = smoke.run_column(FcvmConfig(device="cuda", dtype="float32"))
+        out["phase 9"] = smoke.run_column(
+            FcvmConfig(device="cuda", dtype="float32"),
+            required=(*smoke.CG_KERNELS, "block_matmat") if fused else ("block_matvec",))
     else:
         raise SystemExit(f"turns.py: unknown part {part!r}")
     return out

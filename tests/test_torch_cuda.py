@@ -36,6 +36,11 @@ def cuda():
     return torch.device("cuda")
 
 
+def _cg_launches():
+    """The launches so far of the kernels of the CG iteration, K1 and K4."""
+    return kernels.khat_matvec.launches, kernels.two_level_apply.launches
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
 @pytest.mark.parametrize("ne", [1, 100, 1003, 5003, 103_680])
 def test_block_matvec_kernel_matches_plain(cuda, dtype, ne):
@@ -69,8 +74,9 @@ def test_block_matvec_rejects_what_it_does_not_take(cuda):
 
 
 def test_bc_matvec_cuda_matches_cpu(cuda):
-    """K_hat·v through K0 on the card against the plain path on the CPU,
-    float64, on a 3x3x3 box with one face clamped."""
+    """K_hat·v through K1 on the card against the plain path on the CPU,
+    float64, on a 3x3x3 box with one face clamped; and on a column of a
+    block, which K1 reads after a copy."""
     mesh = meshgen.box_tet10(3, 3, 3, 10.0, 10.0, 10.0)
     nd = pad_ndof(mesh.ndof)
     fixed = 3 * mesh.select_nodes(lambda x, y, z: x < 1e-9)
@@ -85,11 +91,142 @@ def test_bc_matvec_cuda_matches_cpu(cuda):
     fm = torch.as_tensor(pad_vector(fixmask, nd))
     u = torch.as_tensor(np.random.default_rng(3).normal(size=nd))
     ref = tasm.make_bc_matvec(esm_t, eldofs, fm)(u)
-    launches = kernels.block_matvec.launches
-    out = tasm.make_bc_matvec(esm_t.to(cuda), eldofs.to(cuda), fm.to(cuda))(u.to(cuda))
-    assert kernels.block_matvec.launches == launches + 1
+    launches = kernels.khat_matvec.launches
+    khat = tasm.make_bc_matvec(esm_t.to(cuda), eldofs.to(cuda), fm.to(cuda))
+    out = khat(u.to(cuda))
+    assert kernels.khat_matvec.launches == launches + 1
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=0,
                                atol=1e-12 * float(ref.abs().max()))
+    # a column of a block (strided) gives the same bits
+    block = torch.stack([torch.zeros_like(u), u], dim=1).to(cuda)
+    assert torch.equal(khat(block[:, 1]), out)
+
+
+# the element and node counts of the paths: the 502,599-dof plate, the
+# 451,875-dof beam-column
+PATH_SIZES = {"plate": (117_936, 167_533), "column": (103_680, 150_625)}
+
+
+def _random_operator(ne, nn, dtype, seed):
+    """Random element blocks (30, 30, ne), a random connectivity of ne
+    elements over nn nodes (ten distinct nodes an element, spread as a
+    mesh's are: element e's nodes near node e nn / ne) with its
+    node-incidence table, a dof vector and a mask with a tenth of the dofs
+    fixed, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    esm_t = torch.randn((30, 30, ne), generator=gen, device="cuda", dtype=dtype)
+    base = torch.arange(ne, device="cuda")[:, None] * nn // ne
+    off = torch.argsort(torch.rand((ne, 40), generator=gen, device="cuda"), dim=1)[:, :10]
+    elnodes = (base + off) % nn
+    inc = tasm.node_incidence(elnodes, nn)
+    u = torch.randn(3 * nn, generator=gen, device="cuda", dtype=dtype)
+    fm = (torch.rand(3 * nn, generator=gen, device="cuda") > 0.1).to(dtype)
+    return esm_t, inc, u, fm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("form", ["masked", "raw"])
+@pytest.mark.parametrize("size", ["box", "plate", "column"])
+def test_khat_matvec_kernel_matches_plain(cuda, dtype, form, size):
+    """K1 against its plain version on the card, masked and raw: on the
+    3x3x3 box's operator and mask in its solve space, and on random blocks
+    and connectivity at the plate's and the beam-column's element and node
+    counts; max |kernel - plain| / max |plain| within TOL; the same bits on
+    a second call; one launch counted each."""
+    if size == "box":
+        be = TorchSystem(_tension_box(3), FcvmConfig(device="cuda", dtype="float64"), dtype,
+                         cuda)
+        esm, *_ = be.assemble(be.tensor(be.mesh.coords))
+        esm_t, inc, fm = be.operator(esm).esm_t, be.space.incidence, be.space.fixmask_m
+        u = torch.randn(be.ndof_pad, generator=torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda", dtype=dtype)
+    else:
+        esm_t, inc, u, fm = _random_operator(*PATH_SIZES[size], dtype, seed=2)
+    fm = fm if form == "masked" else None
+    launches = kernels.khat_matvec.launches
+    out = kernels.khat_matvec(esm_t, inc, u, fm)
+    again = kernels.khat_matvec(esm_t, inc, u, fm)
+    torch.cuda.synchronize()
+    assert kernels.khat_matvec.launches == launches + 2
+    assert torch.equal(out, again)  # fixed-order sums: deterministic
+    ref = kernels.khat_matvec_ref(esm_t, inc, u, fm)
+    assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+def test_khat_matvec_rejects_what_it_does_not_take(cuda):
+    esm_t, inc, u, fm = _random_operator(50, 120, torch.float32, seed=3)
+    with pytest.raises(TypeError):
+        kernels.khat_matvec(esm_t, inc, u.double(), fm)
+    with pytest.raises(TypeError):
+        kernels.khat_matvec(esm_t, inc._replace(pos=inc.pos.long()), u, fm)
+    with pytest.raises(ValueError):
+        kernels.khat_matvec(esm_t, inc, u.cpu(), fm)
+    with pytest.raises(ValueError):
+        kernels.khat_matvec(esm_t, inc, u[:-3], fm)
+
+
+def _random_precond(nn, cs, ncl, nm, dtype, seed):
+    """Random block-Jacobi blocks, mode basis (zero past the nn nodes),
+    coarse inverse, mask, vector and fine-level output on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    qmat = randn(ncl * cs, 3, nm)
+    qmat[nn:] = 0.0
+    fm = (torch.rand(3 * nn, generator=gen, device="cuda") > 0.1).to(dtype)
+    return (randn(nn, 3, 3), qmat, randn(nm * ncl, nm * ncl) / (nm * ncl) ** 0.5, fm,
+            randn(3 * nn), randn(3 * nn))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("fine", ["jacobi3", "cluster"])
+@pytest.mark.parametrize("size", ["box", "plate", "column"])
+def test_two_level_apply_kernel_matches_plain(cuda, dtype, fine, size):
+    """K4 against its plain version on the card, with block Jacobi and with
+    the cluster smoother's output as the fine level: on the 3x3x3 box's
+    preconditioner (16-node smoother clusters), and on random state at the
+    plate's and the beam-column's node counts with their coarse sizes (12
+    modes on 1,022 clusters of 164 nodes; 1,021 of 148); within TOL, the
+    same bits on a second call, one launch counted each."""
+    if size == "box":
+        cfg = FcvmConfig(device="cuda", dtype="float64", smoother=fine,
+                         smoother_cluster_nodes=16)
+        be = TorchSystem(_tension_box(3), cfg, dtype, cuda)
+        esm, pinv, *_ = be.assemble(be.tensor(be.mesh.coords))
+        pc = be.make_pc(esm, pinv)
+        r = torch.randn(be.ndof_pad, generator=torch.Generator(device="cuda").manual_seed(4),
+                        device="cuda", dtype=dtype)
+        args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, r)
+        z_fine = pc.fine(r) if fine == "cluster" else None
+        assert (pc.smooth_inv is None) == (fine == "jacobi3")
+    else:
+        nn = PATH_SIZES[size][1] + (-PATH_SIZES[size][1] % 128)  # the padded node count
+        cs, ncl = {"plate": (164, 1022), "column": (148, 1021)}[size]
+        *args, z = _random_precond(nn, cs, ncl, 12, dtype, seed=5)
+        z_fine = z if fine == "cluster" else None
+    launches = kernels.two_level_apply.launches
+    out = kernels.two_level_apply(*args, z_fine)
+    again = kernels.two_level_apply(*args, z_fine)
+    torch.cuda.synchronize()
+    assert kernels.two_level_apply.launches == launches + 2
+    assert torch.equal(out, again)
+    ref = kernels.two_level_apply_ref(*args, z_fine)
+    assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+def test_two_level_apply_rejects_what_it_does_not_take(cuda):
+    pinv, qmat, kinv, fm, r, _ = _random_precond(200, 16, 13, 12, torch.float32, seed=6)
+    with pytest.raises(TypeError):
+        kernels.two_level_apply(pinv, qmat, kinv.double(), fm, r)
+    with pytest.raises(ValueError):
+        kernels.two_level_apply(pinv, qmat, kinv, fm, r.cpu())
+    with pytest.raises(ValueError):
+        kernels.two_level_apply(pinv, qmat[:, :, :7], kinv, fm, r)
+    with pytest.raises(ValueError):
+        kernels.two_level_apply(pinv, qmat.transpose(1, 2).contiguous().transpose(1, 2), kinv,
+                                fm, r)
 
 
 @pytest.mark.parametrize("ne,tile", [(4096, 1024), (3000, 1000), (512, 512)])
@@ -193,21 +330,21 @@ def test_deflated_solve_cuda_matches_cpu(cuda):
 
 def test_gnl_collapse_cuda_matches_cpu(cuda):
     """The geometrically nonlinear plastic collapse of the 2x2x2 tension box
-    (tangent refreshes, predictor solves through K0) in float64 on the card
-    against the CPU: the same steps and load factors to 1e-9."""
+    (tangent refreshes, predictor solves through K1 and K4) in float64 on
+    the card against the CPU: the same steps and load factors to 1e-9."""
     params = ControlParams(sig_yield=60.0, nstep=3, error_max=1e-8, et_e=0.1, target_lf=99.0,
                            gnl="GNLY", max_imp=0.0)
     runs = {}
     for device in ("cpu", "cuda"):
-        launches = kernels.block_matvec.launches
+        launches = _cg_launches()
         res = solve_collapse(_tension_box(2), params,
                              config=FcvmConfig(device=device, dtype="float64", cg_rtol=1e-10))
         runs[device] = (np.asarray(res.history.lbd), res.cg_stats,
-                        kernels.block_matvec.launches - launches)
-    (lbd_cpu, _, k0_cpu), (lbd_gpu, stats, k0_gpu) = runs["cpu"], runs["cuda"]
+                        min(np.subtract(_cg_launches(), launches)))
+    (lbd_cpu, _, cg_cpu), (lbd_gpu, stats, cg_gpu) = runs["cpu"], runs["cuda"]
     assert len(lbd_gpu) == len(lbd_cpu) == 4
     np.testing.assert_allclose(lbd_gpu, lbd_cpu, rtol=1e-9, atol=0)
-    assert stats["predictor_solves"] > 0 and k0_cpu == 0 and k0_gpu > 0
+    assert stats["predictor_solves"] > 0 and cg_cpu == 0 and cg_gpu > 0
 
 
 def _smoothed_precond(device, dtype):
@@ -427,8 +564,8 @@ def test_run_analysis_cuda_matches_cpu(cuda, tmp_path):
     """The case-file path on the card: the small plate with a stiffer region,
     ``load_case`` -> ``run_analysis`` -> ``run_sum`` in float64 on the GPU
     against the CPU: the same steps, load factors to 1e-9, the exported
-    nodal fields and the face averages to 1e-9; K0 launched on the card
-    only."""
+    nodal fields and the face averages to 1e-9; K1 and K4 launched on the
+    card only."""
     from fcvm_tpu_torch import run_analysis, run_sum
     from fcvm_tpu_torch.models.casefile import load_case, parse_sum_groups
     from fcvm_tpu_torch.runtime.vtk import read_point_fields
@@ -438,13 +575,13 @@ def test_run_analysis_cuda_matches_cpu(cuda, tmp_path):
     out = {}
     for device in ("cpu", "cuda"):
         model, params = load_case(case)
-        launches = kernels.block_matvec.launches
+        launches = _cg_launches()
         res = run_analysis(model, params, outdir=str(tmp_path / device), save_plots=False,
                            config=FcvmConfig(device=device, dtype="float64", cg_rtol=1e-10))
         sums = run_sum(model, res, params, *parse_sum_groups(case, model.mesh))
         out[device] = (res, read_point_fields(tmp_path / device / "plate.vtk"), sums,
-                       kernels.block_matvec.launches - launches)
-    (cpu, f_cpu, s_cpu, k0_cpu), (gpu, f_gpu, s_gpu, k0_gpu) = out["cpu"], out["cuda"]
+                       min(np.subtract(_cg_launches(), launches)))
+    (cpu, f_cpu, s_cpu, cg_cpu), (gpu, f_gpu, s_gpu, cg_gpu) = out["cpu"], out["cuda"]
     assert len(gpu.history.lbd) == len(cpu.history.lbd) == 7
     np.testing.assert_allclose(gpu.history.lbd, cpu.history.lbd, rtol=1e-9, atol=0)
     assert list(f_gpu) == list(f_cpu) and len(f_cpu) == 12
@@ -453,7 +590,7 @@ def test_run_analysis_cuda_matches_cpu(cuda, tmp_path):
     np.testing.assert_allclose(s_gpu["faces"]["Face1"]["area"], 250.0, rtol=1e-12)
     np.testing.assert_allclose(s_gpu["faces"]["Face1"]["svm"], s_cpu["faces"]["Face1"]["svm"],
                                rtol=1e-9)
-    assert k0_cpu == 0 and k0_gpu > 0
+    assert cg_cpu == 0 and cg_gpu > 0
 
 
 GNL_BOX = dict(sig_yield=60.0, nstep=3, error_max=1e-8, et_e=0.1, target_lf=99.0, gnl="GNLY",
@@ -464,25 +601,28 @@ COLUMN = dict(gnl="GNLY", nstep=1)
 def _sharded_rank(case, device):
     """One rank of a sharded run of ``case`` in float64 at ``cg_rtol``
     1e-10 on ``device``: its load factors, buckling factors, the CG
-    iterations of every solve and its K0 and K0m launches."""
+    iterations of every solve, the fewer of its K1 and K4 launches and its
+    K0m launches."""
     from fcvm_tpu_torch.parallel import dist as pdist
 
     model, params = ((_tension_box(2), GNL_BOX) if case == "gnl" else
                      (_column_model(), COLUMN))
-    k0, k0m = kernels.block_matvec.launches, kernels.block_matmat.launches
+    cg, k0m = _cg_launches(), kernels.block_matmat.launches
     res = solve_collapse(model, ControlParams(**params), config=FcvmConfig(
         device=device, dtype="float64", cg_rtol=1e-10, force_sharded=True,
         n_devices=pdist.world_size()))
     return dict(lbd=np.asarray(res.history.lbd), eig=res.eigenvalues,
                 cg=[s["cg"] for s in res.cg_stats["steps"]], iters=res.cg_stats["iters"],
-                k0=kernels.block_matvec.launches - k0, k0m=kernels.block_matmat.launches - k0m)
+                k1k4=min(np.subtract(_cg_launches(), cg)),
+                k0m=kernels.block_matmat.launches - k0m)
 
 
 @pytest.mark.parametrize("case", ["gnl", "column"])
 def test_sharded_world_of_one_over_nccl_matches_torchsystem(cuda, case):
     """The sharded backend on a world of one over NCCL against the
     single-device backend on the same card, float64: the same load and
-    buckling factors to 1e-9, K0 (and K0m for the eigensolve) launched."""
+    buckling factors to 1e-9, K1 and K4 (and K0m for the eigensolve)
+    launched."""
     from fcvm_tpu_torch.parallel import dist as pdist
 
     (out,) = pdist.spawn(_sharded_rank, 1, args=(case, "cuda"), device="cuda", timeout=900)
@@ -494,7 +634,7 @@ def test_sharded_world_of_one_over_nccl_matches_torchsystem(cuda, case):
     if case == "column":
         np.testing.assert_allclose(out["eig"], ref.eigenvalues, rtol=1e-9)
         assert out["k0m"] > 0
-    assert out["k0"] > 0
+    assert out["k1k4"] > 0
 
 
 def test_sharded_two_gloo_ranks_on_one_card_match_cpu(cuda):
@@ -511,4 +651,4 @@ def test_sharded_two_gloo_ranks_on_one_card_match_cpu(cuda):
     ref = solve_collapse(_tension_box(2), ControlParams(**GNL_BOX),
                          config=FcvmConfig(device="cpu", dtype="float64", cg_rtol=1e-10))
     np.testing.assert_allclose(outs[0]["lbd"], ref.history.lbd, rtol=1e-9, atol=0)
-    assert outs[0]["k0"] > 0
+    assert outs[0]["k1k4"] > 0

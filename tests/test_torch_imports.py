@@ -19,6 +19,7 @@ PORT_MODULES = [
     "fcvm_tpu_torch.ops.solver",
     "fcvm_tpu_torch.tools.bw_probe",
     "fcvm_tpu_torch.tools.turns",
+    "fcvm_tpu_torch.tools.k1_atomic",
     "fcvm_tpu_torch.tools.bench",
     "fcvm_tpu_torch.models.meshgen",
     "fcvm_tpu_torch.api",

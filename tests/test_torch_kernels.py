@@ -1,7 +1,7 @@
 """K0 and K0m, the port's CUDA block products: their plain versions against
 the Pallas TPU kernel (interpret mode) and, for K0m, the eigensolve's block
-einsum; and the port's K_hat·v against the JAX package's.  The CUDA kernels
-themselves are tested in ``test_torch_cuda.py``."""
+einsum; and the port's K_hat·v (K1) against the JAX package's.  The CUDA
+kernels themselves are tested in ``test_torch_cuda.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -79,7 +79,8 @@ def _box_operator():
 
 @pytest.mark.parametrize("reference", ["pallas", "xla"])
 def test_bc_matvec_matches_jax(reference):
-    """The port's K_hat·v (gather -> K0 -> index_add_ -> BC mask) against
+    """The port's K_hat·v (K1's plain version: gather, K0's plain version,
+    ``index_add_``, the BC mask) against
     ``make_pallas_matvec`` and ``make_bc_matvec`` of the JAX package."""
     esm, eldofs, fixmask = _box_operator()
     make = pk.make_pallas_matvec if reference == "pallas" else asm.make_bc_matvec
