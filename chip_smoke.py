@@ -25,13 +25,21 @@ Phases, each printing its numbers before the next starts:
    of the time of a plain full read of the same 2 GiB (Kbw's result shows
    only the chunk heads, so its time is what shows it read every byte);
 3c. the kernels of the CG iteration: K1 (``khat_matvec``, the fused
-   K_hat·v, masked and raw) on the plate's and the beam-column's operators
-   and K4 (``two_level_apply``, with block Jacobi and with the cluster
-   smoother's output) on the plate's preconditioner, float32 and float64,
-   against their plain versions, K1 bit for bit the same on a second call;
-   timed against their plain versions, against the chain K1 replaced
-   (gather, K0, ``index_add_``, masks) and, for K1, against a cuSPARSE CSR
-   matvec of the assembled K_hat (``torch.sparse``, built once here);
+   K_hat·v, masked and raw, reading the packed upper triangles of the
+   blocks) on the plate's and the beam-column's operators and K4
+   (``two_level_apply``, with block Jacobi and with the cluster smoother's
+   output) on the plate's preconditioner, float32 and float64, against
+   their plain versions, K1 bit for bit the same on a second call; timed
+   against their plain versions, against the chain K1 replaced (gather, K0,
+   ``index_add_``, masks) and, for K1, against a cuSPARSE CSR matvec of the
+   assembled K_hat (``torch.sparse``, built once here); the blocks'
+   asymmetry ``max |K - K^T| / max |K|`` and the packed copy's size; then
+   K8 (``segment_sum``, the fixed-order node sum) at the paths' shapes (the
+   internal force's, K_hat·V's, the block-Jacobi blocks', the first chunk
+   of the coarse table's and of the cluster smoother's accumulation, at
+   their real keys) against its
+   plain version on the card (``index_add_``, the library call) and bit for
+   bit against it on the CPU, whose order is the kernel's;
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
    the load-factor histories must agree; and ``linear_buckling`` of a small
@@ -39,7 +47,10 @@ Phases, each printing its numbers before the next starts:
 5. the slice at full size: the quarter plate with a hole at 502,599 dof,
    float32, two-level PCG without deflation or the precision tiers, plastic
    Riks steps through ``fcvm_tpu_torch.solve_collapse``; the launch counts
-   of K1 and K4, the kernels on that path, must be > 0;
+   of K1, K4 and K8, the kernels on that path, must be > 0;
+5b. phase 5 again in the same process: the same Newton and CG counts of
+   every step and the same load factors, bit for bit (every node sum runs
+   in a fixed order);
 6. layers: on the same plate, the CUDA-event time of each piece of one CG
    iteration (K_hat·v through K1 and the stages of the chain it replaced,
    the preconditioner apply through K4 and its coarse product, the plain
@@ -63,8 +74,8 @@ Phases, each printing its numbers before the next starts:
    buckling eigensolve (its tier, sweeps, pencil residuals and inner CG
    iterations), imperfection seeding and a few GNL steps; both factors
    within 3% of the clamped-free Euler value, the imperfection applied
-   exactly, every step converged below the squash factor, and K1, K4 and
-   K0m launched on the path (K1 and K4 by dtype, K0m by dtype and column
+   exactly, every step converged below the squash factor, and K1, K4, K8
+   and K0m launched on the path (K1, K4 and K8 by dtype, K0m by dtype and column
    count);
 9b. the eigensolve in pieces on the same mesh: CUDA-event times of the
    geometric-block formation, one K_hat·V and one -G_hat·V at m = 8, the
@@ -76,7 +87,7 @@ Phases, each printing its numbers before the next starts:
    configuration, no plots) and ``run_sum``, then the CLI's ``info`` and
    ``sum``: the ``.out``/``.vtk``/``.avr`` written and read back, the face
    area and edge length, phase 5's bars on the steps, a per-element
-   elasticity in the backend, K1 and K4 launched and the native formatter
+   elasticity in the backend, K1, K4 and K8 launched and the native formatter
    loaded;
    the timers of every stage and of the host-side export pieces;
 10b. ``python -m fcvm_tpu_torch run --x64`` on the small plate with the same
@@ -88,7 +99,8 @@ Phases, each printing its numbers before the next starts:
    (``smoother="cluster"``, 64-node clusters): phase 5's checks, one
    smoother per operator, the stepping time, CG iterations and ms per CG
    iteration against phase 7's; then the smoother's pieces (the build with
-   and without it and the memory it adds, its accumulate and factorization,
+   and without it and the memory it adds, the coarse table's accumulate and
+   the smoother's, both by K8, and the smoother's factorization,
    its apply against block Jacobi's and against the bound of reading its
    inverses once);
 11b. the same with ``gnl="GNLY"`` (``max_imp = 0``): the tangent refreshes
@@ -102,7 +114,7 @@ Phases, each printing its numbers before the next starts:
    ``python -m fcvm_tpu_torch run doc.FCStd --inp doc.inp --x64`` on the
    GPU against the same model's TOML case through the CLI: the load
    factors to CLI_RTOL, no ``.avr`` for the document, phase 5's bars on the
-   steps, K1 and K4 launched; the host times of ``read_fcstd``, the resolver and
+   steps, K1, K4 and K8 launched; the host times of ``read_fcstd``, the resolver and
    ``build_model``;
 11d. (before 12) the phase-5 plate written with ``meshio_io.write_gmsh`` and
    read back through the native Gmsh reader in this process, after the CUDA
@@ -111,20 +123,20 @@ Phases, each printing its numbers before the next starts:
    NCCL, this process its rank (``force_sharded``): the phase-7 plate with
    phase 7's configuration and checks, held against phase 7 (the same
    steps, the final lbd within 1e-3, stepping CG iterations within 3%),
-   K1, K4 and K0m launched, the time of one ``all_reduce`` of the plate's
+   K1, K4, K8 and K0m launched, the time of one ``all_reduce`` of the plate's
    vector; then the beam-column's eigensolve, seeding and two GNL steps on
    the sharded backend with phase 9's bars;
 13b. two gloo ranks spawned on ``cuda:0`` (NCCL refuses two ranks on one
    card): phase 4's small plate, small strain and GNL, and the small
    column's buckling (``nstep = 1``) in float64 against the CPU's
    single-device runs (lbd to LBD_RTOL, factors to EIG_RTOL), both ranks'
-   histories identical, K1, K4 and K0m launched on each rank.
+   histories identical, K1, K4, K8 and K0m launched on each rank.
 14. the port's benchmark (``fcvm_tpu_torch.tools.bench.main`` with
    ``--no-same-size``, in this process): the matched plate, the 502,599-dof
    headline plate (plastic, ``assembly_gdof_s`` > 0), the box at 499,125
    dof, the capacity rows at 1,073,733 and 1,975,509 dof (converged below
    the CG cap) with each row's peak device memory, the sharded row within
-   its ``lbd_tol``, a ``vs_baseline`` from the CPU child, and K1 and K4
+   its ``lbd_tol``, a ``vs_baseline`` from the CPU child, and K1, K4 and K8
    launched in every row.
 
 Each phase prints its wall time.
@@ -254,9 +266,9 @@ def cuda_ms(fn, *args, runs=20):
 
 
 # the kernels of the solver's paths: K1 and K4 in every CG iteration (the
-# vector paths), K0m in the block products (the eigensolve, the deflation
-# builds), K0 in none since K1 carries K_hat·v
-CG_KERNELS = ("khat_matvec", "two_level_apply")
+# vector paths), K8 in every residual and build, K0m in the block products
+# (the eigensolve, the deflation builds), K0 in none since K1 carries K_hat·v
+CG_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum")
 PATH_KERNELS = (*CG_KERNELS, "block_matmat", "block_matvec")
 
 
@@ -310,7 +322,7 @@ def layer_breakdown(model, cfg):
     pc_args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, u)
     rows = [
         ("K_hat.v (K1)", cuda_ms(khat, u)),
-        ("  K1, raw K.v", cuda_ms(kernels.khat_matvec, esm_t, space.incidence, u)),
+        ("  K1, raw K.v", cuda_ms(kernels.khat_matvec, khat.packed, space.incidence, u)),
         ("K_hat.v by the chain K1 replaced (gather, K0, index_add_, masks)",
          cuda_ms(k0_chain, esm_t, eldofs_t, u, fm)),
         ("  gather (30, ne)", cuda_ms(lambda: u[eldofs_t])),
@@ -336,6 +348,13 @@ def layer_breakdown(model, cfg):
     rows.append(("residual (stress update + internal force), per Newton iteration",
                  cuda_ms(lambda: backend.residual(coords, sig_yield, zero, res.x, sig0,
                                                   glv, 1.0, qnorm, 0.0))))
+    rows_k8 = torch.ones((backend.ne * 10, 3), dtype=u.dtype, device=u.device)
+    acc = torch.zeros((backend.ndof_pad // 3, 3), dtype=u.dtype, device=u.device)
+    rows += [("  its node sum (K8)", cuda_ms(kernels.segment_sum, rows_k8, backend.node_plan,
+                                              acc)),
+             ("  the same by index_add_", cuda_ms(lambda: acc.index_add_(
+                 0, backend.node_plan.keys, rows_k8)))]
+    del rows_k8, acc
     # a deflation space from a harvest of the same elastic solve, at the
     # driver's sizes
     res_h, h = backend.solve_harvest(khat, pc, rhs, x0=backend.u_fix, nstore=NSTORE)
@@ -425,7 +444,8 @@ def refresh_breakdown(model, cfg, res):
          cuda_ms(form, runs=5)),
         ("follower loads (pressure and gravity on the deformed geometry)",
          cuda_ms(lambda: sysm.external_loads(coords, disp, backend.elnodes, backend.loads,
-                                             backend.density, follower=True))),
+                                             backend.density, follower=True,
+                                             plan=backend.node_plan))),
         ("operator build (blocks to element-major (30, 30, ne))",
          cuda_ms(lambda: sysm.make_operator(esm_m, space))),
         ("block-Jacobi rebuild", cuda_ms(
@@ -740,8 +760,8 @@ def cg_kernel_phase(models):
     float64, against their plain versions on a seeded vector (K1 also bit
     for bit against a second call); CUDA-event medians of each, of its
     plain version, of the chain K1 replaced and of cuSPARSE's CSR matvec of
-    the assembled K_hat.  Returns ``{(kernel, dtype, model, variant):
-    numbers}``."""
+    the assembled K_hat; the blocks' asymmetry and the packed copy's size.
+    Returns ``{(kernel, dtype, model, variant): numbers}``."""
     from fcvm_tpu_torch import FcvmConfig
     from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.runtime.backend import TorchSystem
@@ -753,39 +773,51 @@ def cg_kernel_phase(models):
             cfg = FcvmConfig(device="cuda", dtype=dname)
             be = TorchSystem(model, cfg, dtype, torch.device("cuda"))
             esm, pinv, *_ = be.assemble(be.tensor(model.mesh.coords))
+            asym = float((esm - esm.transpose(1, 2)).abs().max() / esm.abs().max())
             sp = be.space
-            esm_t = be.operator(esm).esm_t
+            op = be.operator(esm)
+            esm_t, packed = op.esm_t, op.packed
             ne, nn = esm_t.shape[2], be.ndof_pad // 3
+            print(f"{name} {dname}: blocks' max |K - K^T| / max |K| = {asym:.3e}; packed copy "
+                  f"{tuple(packed.shape)}, {packed.numel() * size / 1e9:.4f} GB against the "
+                  f"full blocks' {esm_t.numel() * size / 1e9:.4f} GB")
             gen = torch.Generator(device="cuda").manual_seed(7)
             u = torch.randn(be.ndof_pad, generator=gen, device="cuda", dtype=dtype)
             eldofs_t = sp.eldofs_m.T.contiguous()
             kcsr = assembled_khat(esm_t, sp.eldofs_m, sp.fixmask_m)
+
+            def k1(fm):
+                return kernels.khat_matvec(packed, sp.incidence, u, fm)
+
             for form in ("masked", "raw"):
                 fm = sp.fixmask_m if form == "masked" else None
-                out = kernels.khat_matvec(esm_t, sp.incidence, u, fm)
-                again = kernels.khat_matvec(esm_t, sp.incidence, u, fm)
+                out, again = k1(fm), k1(fm)
                 torch.cuda.synchronize()
-                ref = kernels.khat_matvec_ref(esm_t, sp.incidence, u, fm)
+                ref = kernels.khat_matvec_packed_ref(packed, sp.incidence, u, fm)
+                full = kernels.khat_matvec_ref(esm_t, sp.incidence, u, fm)
                 abs_err = float((out - ref).abs().max())
                 rel = abs_err / float(ref.abs().max())
+                rel_full = float((out - full).abs().max()) / float(full.abs().max())
                 same = bool(torch.equal(out, again))
-                row = dict(max_abs_err=abs_err, ms=cuda_ms(kernels.khat_matvec, esm_t,
-                                                             sp.incidence, u, fm),
-                           plain_ms=cuda_ms(kernels.khat_matvec_ref, esm_t, sp.incidence, u, fm),
-                           chain_ms=cuda_ms(k0_chain, esm_t, eldofs_t, u, fm), library_ms=None)
-                # the blocks, the node table and pos, offsets, u (and the
-                # mask) read once, the result written once
+                row = dict(max_abs_err=abs_err, ms=cuda_ms(k1, fm),
+                           plain_ms=cuda_ms(kernels.khat_matvec_packed_ref, packed,
+                                            sp.incidence, u, fm),
+                           chain_ms=cuda_ms(k0_chain, esm_t, eldofs_t, u, fm), library_ms=None,
+                           block_asymmetry=asym, rel_err_vs_full_blocks=rel_full)
+                # the packed upper triangles, the node table and pos, offsets,
+                # u (and the mask) read once, the result written once
                 nvec = 2 if fm is None else 3
-                nbytes = (900 * size + 80) * ne + 4 * (nn + 1) + nvec * 3 * nn * size
+                nbytes = (465 * size + 80) * ne + 4 * (nn + 1) + nvec * 3 * nn * size
                 row["bound_ms"], row["bound_by"] = bound(nbytes, 1830 * ne, dtype)
                 lib = ""
                 if fm is not None:
                     row["library_ms"] = cuda_ms(torch.mv, kcsr, u)
-                    lib_err = float((torch.mv(kcsr, u) - ref).abs().max()) / float(ref.abs().max())
+                    lib_err = float((torch.mv(kcsr, u) - full).abs().max()) / float(full.abs().max())
                     lib = (f", cuSPARSE CSR matvec ({kcsr.values().numel()} stored values) "
                            f"{row['library_ms']:.4f} ms (its max rel err {lib_err:.2e})")
-                print(f"K1 {dname} {name} ne={ne} {form}: max rel err {rel:.3e} (limit {tol:g}), "
-                      f"second call {'the same bits' if same else 'DIFFERENT BITS'}; kernel "
+                print(f"K1 {dname} {name} ne={ne} {form}: max rel err {rel:.3e} (limit {tol:g}; "
+                      f"{rel_full:.3e} against the full blocks), second call "
+                      f"{'the same bits' if same else 'DIFFERENT BITS'}; kernel "
                       f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, the chain it "
                       f"replaced (gather, K0, index_add_, masks) {row['chain_ms']:.4f} ms{lib}; "
                       f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
@@ -793,8 +825,8 @@ def cg_kernel_phase(models):
                 check(rel <= tol, f"K1 disagrees with its plain version ({dname}, {name}, {form})")
                 check(same, f"K1 gave other bits on a second call ({dname}, {name}, {form})")
                 rows[("khat_matvec", dname, name, form)] = dict(ne=ne, **row)
-                del out, again, ref
-            del kcsr, u, eldofs_t
+                del out, again, ref, full
+            del kcsr, u, eldofs_t, op, packed
             if name != "plate":
                 del be, esm, pinv, esm_t
                 torch.cuda.empty_cache()
@@ -836,6 +868,105 @@ def cg_kernel_phase(models):
                 del pc, out, again, ref, args, z_fine
             del be, esm, pinv, esm_t, r
             torch.cuda.empty_cache()
+    return rows
+
+
+def k8_phase(models):
+    """Phase 3c, K8: the fixed-order node sum at the paths' shapes, on
+    seeded values over the plans the paths build: the internal force's
+    (3-wide rows of the user-order elements; float32 and float64), K_hat·V's
+    node pass at m = 8 (24-wide rows of the Morton elements), the
+    block-Jacobi blocks' (9-wide, slot-major), the first chunk of the
+    coarse Galerkin table's accumulation (144-wide pair blocks keyed by
+    cluster pair, the plan of its real cluster keys: few segments of
+    thousands of rows) and, where the cluster smoother divides the padded
+    nodes, the first chunk of the smoother's (3-wide rows, most of them
+    keyed to the dump row, which the kernel skips and no comparison reads),
+    on the plate's and the beam-column's meshes; against its plain version
+    on the card (``index_add_``, whose order varies) within the tolerance
+    and bit for bit against it on the CPU (the kernel's order); the same
+    bits on a second call; CUDA-event medians of the kernel and of
+    ``index_add_``, each adding into one output allocated before the timing
+    (no zeroing timed).  Returns ``{(dtype, model, site): numbers}``."""
+    from fcvm_tpu_torch import FcvmConfig
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.ops import precond as pre
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name, model in models.items():
+        cfg = FcvmConfig(device="cuda", dtype="float32")
+        be = TorchSystem(model, cfg, torch.float32, torch.device("cuda"))
+        sp, nn = be.space, be.ndof_pad // 3
+        # (site, dtype, plan, output rows, trailing shape, last row a dump row)
+        sites = [("internal force", torch.float32, be.node_plan, nn, (3,), False),
+                 ("internal force", torch.float64, be.node_plan, nn, (3,), False),
+                 ("K_hat.V, m = 8", torch.float32, kernels.segment_plan(sp.elnodes_m), nn,
+                  (3, 8), False),
+                 ("block Jacobi", torch.float32, sp.jacobi_plan, nn, (3, 3), False)]
+        csz = cfg.resolve_cluster_size(model.mesh.n_nodes)
+        qmat = pre.qmat_bc(sp.coords_m, sp.fixmask_m, csz, cfg.coarse_modes)
+        ncl, nm = qmat.shape[0] // csz, qmat.shape[2]
+        keys = pre.coarse_keys(sp.elnodes_m[:pre.COARSE_CHUNK], csz, ncl)
+        sites.append((f"coarse accumulate, first chunk of {pre.COARSE_CHUNK} elements",
+                      torch.float32, kernels.segment_plan(keys), ncl * ncl, (nm * nm,), False))
+        cs = cfg.smoother_cluster_nodes
+        if nn % cs == 0:
+            nrow = (nn // cs) * 3 * cs * cs
+            key = pre.cluster_diag_keys(sp.elnodes_m[:pre.SMOOTHER_CHUNK], cs, nrow)
+            sites.append((f"smoother blocks, first chunk of {pre.SMOOTHER_CHUNK} elements",
+                          torch.float32, kernels.segment_plan(key, drop=nrow), nrow + 1, (3,),
+                          True))
+        del qmat, keys
+        for site, dtype, plan, nout, trail, dump in sites:
+            tol = TOL_F32 if dtype == torch.float32 else TOL_F64
+            size = torch.finfo(dtype).bits // 8
+            n, w, nu = plan.keys.shape[0], math.prod(trail), plan.segs.shape[0]
+            nread = plan.order.shape[0]  # the rows the kernel sums (no dump rows)
+            keep = nout - 1 if dump else nout  # the rows anyone reads
+            vals = torch.randn((n, *trail), generator=gen, device="cuda", dtype=dtype)
+
+            def zeros(device="cuda"):
+                return torch.zeros((nout, *trail), dtype=dtype, device=device)
+
+            out = kernels.segment_sum(vals, plan, zeros())
+            again = kernels.segment_sum(vals, plan, zeros())
+            torch.cuda.synchronize()
+            ref = kernels.segment_sum_ref(vals, plan, zeros())
+            cpu = kernels.segment_sum_ref(vals.cpu(), plan._replace(keys=plan.keys.cpu()),
+                                          zeros("cpu"))
+            out, again, ref, cpu = out[:keep], again[:keep], ref[:keep], cpu[:keep]
+            abs_err = float((out - ref).abs().max())
+            rel = abs_err / float(ref.abs().max())
+            same, same_cpu = bool(torch.equal(out, again)), bool(torch.equal(out.cpu(), cpu))
+            del out, again, ref, cpu
+            acc = zeros()
+            # the summed values, the plan's order, offsets and segs read once,
+            # the touched output rows written once
+            nbytes = nread * w * size + 4 * (nread + 2 * nu + 1) + nu * w * size
+            row = dict(max_abs_err=abs_err,
+                       ms=cuda_ms(kernels.segment_sum, vals, plan, acc),
+                       plain_ms=cuda_ms(kernels.segment_sum_ref, vals, plan, acc),
+                       library_ms=cuda_ms(lambda: acc.index_add_(0, plan.keys, vals)),
+                       n=n, n_summed=nread, width=w, segments=nu, out_rows=nout)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, nread * w, dtype)
+            dname = str(dtype).removeprefix("torch.")
+            print(f"K8 {dname} {name} {site}: {n} rows of {w}"
+                  f"{f' ({nread} summed, the rest to the dump row)' if dump else ''} into "
+                  f"{nu} segments of {nout} output rows; max rel err {rel:.3e} vs index_add_ "
+                  f"on the card (limit {tol:g}), "
+                  f"{'bit for bit' if same_cpu else 'NOT bit for bit'} the CPU's index_add_, "
+                  f"second call {'the same bits' if same else 'DIFFERENT BITS'}; kernel "
+                  f"{row['ms']:.4f} ms, index_add_ {row['library_ms']:.4f} ms; bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"{row['bound_ms'] / row['ms']:.1%} of it; median of 20")
+            check(rel <= tol, f"K8 disagrees with its plain version ({dname}, {name}, {site})")
+            check(same and same_cpu, f"K8 is not the fixed-order sum ({dname}, {name}, {site})")
+            rows[(dname, name, site)] = row
+            del vals, acc
+        del be, sites
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1191,7 +1322,7 @@ def case_phase(tmp, smi):
     check(float(res.peeq_gp.max()) > 0.0, "phase 10: no plastic strain")
     check(bool(dmat_shapes) and all(s == (NE_BIG, 6, 6) for s in dmat_shapes),
           f"phase 10: the backend's elasticity is {dmat_shapes}, not per element")
-    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 10: K1 or K4 was not launched")
+    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 10: K1, K4 or K8 was not launched")
     return dict(launches=launches)
 
 
@@ -1218,9 +1349,9 @@ def cli_phase(tmp):
         lbd[dev] = latest_step(tmp / dev / "checkpoints")[1]["lbd"]
         fields[dev] = read_point_fields(tmp / dev / "plate.vtk")
         print(f"CLI run --x64{' --cpu' if dev == 'cpu' else ''}: {time.perf_counter() - t0:.2f} s, "
-              f"lbd {np.round(lbd[dev], 6).tolist()}, K1 and K4 launches {launches}")
+              f"lbd {np.round(lbd[dev], 6).tolist()}, K1, K4 and K8 launches {launches}")
         check(all((n > 0) == (dev == "cuda") for n in launches.values()),
-              f"phase 10b: K1 and K4 launches {launches} on {dev}")
+              f"phase 10b: K1, K4 and K8 launches {launches} on {dev}")
     check(len(lbd["cuda"]) == len(lbd["cpu"]) == 7, "phase 10b: step counts differ from 6")
     diff = float(np.max(np.abs(lbd["cuda"] - lbd["cpu"]) / np.maximum(np.abs(lbd["cpu"]), 1e-300)))
     fdiff, fname = max((float(np.abs(fields["cuda"][k] - v).max() / max(np.abs(v).max(), 1.0)), k)
@@ -1251,8 +1382,9 @@ def cli_phase(tmp):
 def smoother_breakdown(model, cfg):
     """Print the cluster smoother's pieces on ``model`` with ``cfg``
     (``smoother="cluster"``): the preconditioner build with and without it
-    (wall, synchronised) and the device memory each adds, the smoother's
-    accumulate and batched Cholesky inverse alone, and the apply of the
+    (wall, synchronised) and the device memory each adds, the coarse table's
+    accumulate, the smoother's accumulate and its batched Cholesky inverse
+    alone, and the apply of the
     fine level and of the whole preconditioner against block Jacobi's, in
     the run's dtype and with the inverses in float64; CUDA-event medians
     against the bound of reading the inverses once."""
@@ -1282,8 +1414,13 @@ def smoother_breakdown(model, cfg):
     del esm, pinv
     ncl, m, _ = pc.smooth_inv.shape
     blocks = pre.cluster_diag_blocks(esm_m, sp.elnodes_m, sp.fixmask_m, cs)
+    csz = cfg.resolve_cluster_size(model.mesh.n_nodes)
     rows = [
-        (f"smoother accumulate ({ncl}, {m}, {m}) by index_add_ [median of 5]",
+        (f"coarse accumulate ({pc.qmat.shape[0] // csz}^2, {pc.qmat.shape[2]}^2) by K8, fixed "
+         f"order, chunks of {pre.COARSE_CHUNK} elements [median of 5]",
+         cuda_ms(lambda: pre.coarse_accumulate(esm_m, sp.elnodes_m, pc.qmat, csz), runs=5)),
+        (f"smoother accumulate ({ncl}, {m}, {m}) by K8, fixed order, chunks of "
+         f"{pre.SMOOTHER_CHUNK} elements [median of 5]",
          cuda_ms(lambda: pre.cluster_diag_blocks(esm_m, sp.elnodes_m, sp.fixmask_m, cs), runs=5)),
         ("smoother batched cholesky_ex + cholesky_inverse [median of 5]",
          cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(blocks)[0]), runs=5)),
@@ -1420,7 +1557,7 @@ def fcstd_phase(tmp, smi):
     check(diff <= CLI_RTOL, "phase 12: the document's history differs from the TOML case's")
     check(bool(np.all(np.diff(lbd["fcstd"]) >= 0.0)) and lbd["fcstd"].max() < 1.76,
           "phase 12: load factors decreasing or above 1.76")
-    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 12: K1 or K4 was not launched")
+    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 12: K1, K4 or K8 was not launched")
     return dict(launches=launches, t_read=t_read, t_resolver=t_resolver, t_build=t_build,
                 walls=walls)
 
@@ -1572,7 +1709,7 @@ def gloo_phase(cpu_small):
     check(eig_diff <= EIG_RTOL, "phase 13b: buckling factors disagree with the CPU")
     check(same, "phase 13b: the two ranks' histories differ")
     check(all(o["launches"][k] > 0 for o in outs for k in (*CG_KERNELS, "block_matmat")),
-          "phase 13b: K1, K4 or K0m was not launched on a rank")
+          "phase 13b: K1, K4, K8 or K0m was not launched on a rank")
     return [o["launches"] for o in outs]
 
 
@@ -1625,7 +1762,7 @@ def bench_phase(smi):
     check(sh["lbd_within_tol"], "phase 14: sharded and local load factors differ")
     check(g["vs_baseline"] is not None, "phase 14: no vs_baseline")
     check(all(r["launches"][k] > 0 for r in rows.values() for k in CG_KERNELS),
-          "phase 14: a row of the bench did not launch K1 or K4")
+          "phase 14: a row of the bench did not launch K1, K4 or K8")
     return launches
 
 
@@ -1666,14 +1803,17 @@ def main():
     phase(f"3b bandwidth probe: K0p and Kbw vs plain, then the probe ({smi})")
     probe_rows, k0_probe_launches = probe_phase()
 
-    phase(f"3c K1 and K4 vs plain, the chain they replaced and cuSPARSE, on the plate's and "
-          f"the beam-column's operators ({smi})")
+    phase(f"3c K1, K4 and K8 vs plain, the chain they replaced and cuSPARSE, on the plate's "
+          f"and the beam-column's operators ({smi})")
     t0 = time.perf_counter()
     big = plate_model(PLATE_BIG)
     print(f"plate: {big.mesh.n_nodes} nodes, {big.mesh.n_elements} elements, "
           f"{big.mesh.ndof} dof (mesh built in {time.perf_counter() - t0:.1f} s)")
     check(big.mesh.ndof == NDOF_BIG and big.mesh.n_elements == NE_BIG, "unexpected mesh size")
-    cg_rows = cg_kernel_phase({"plate": big, "column": column_model(COL_BIG, COL_W, COL_T)})
+    cg_models = {"plate": big, "column": column_model(COL_BIG, COL_W, COL_T)}
+    cg_rows = cg_kernel_phase(cg_models)
+    k8 = k8_phase(cg_models)
+    del cg_models
 
     phase("4 small plate, float64, GPU vs CPU, small strain and GNL")
     small = plate_model(PLATE_SMALL)
@@ -1712,6 +1852,17 @@ def main():
     phase("5 plate with hole at full size, float32, deflation and precision tiers off")
     cfg = FcvmConfig(device="cuda", dtype="float32", precond="two_level", **TIERS_OFF)
     off = run_plate(big, cfg, "phase 5")
+
+    phase("5b phase 5 again: the same counts and load factors, bit for bit")
+    again = run_plate(big, cfg, "phase 5b")
+    counts = [[(s["newton"], s["cg"]) for s in r["cg_stats"]["steps"]] for r in (off, again)]
+    print(f"Newton and CG counts per step equal: {counts[0] == counts[1]}; load factors equal "
+          f"bit for bit: {np.array_equal(off['lbd'], again['lbd'])}; CG iterations "
+          f"{off['cg_stats']['iters']} / {again['cg_stats']['iters']}; stepping "
+          f"{off['stepping']:.2f} / {again['stepping']:.2f} s")
+    check(counts[0] == counts[1], "phase 5b: Newton or CG counts differ from phase 5's")
+    check(np.array_equal(off["lbd"], again["lbd"]), "phase 5b: load factors differ from phase 5's")
+    del again
 
     phase("6 layers of one CG iteration, plate at full size, float32")
     layer_breakdown(big, cfg)
@@ -1849,6 +2000,8 @@ def main():
 
     print(json.dumps({"kernels": [{
         "name": "khat_matvec", "route": "cuda", "source": "fcvm_tpu_torch/csrc/khat_matvec.cu",
+        "source_also": "fcvm_tpu_torch/csrc/bulk.cuh, segment.cuh; packed by "
+                       "fcvm_tpu_torch/ops/kernels.py:pack_blocks",
         "replaces": "fcvm_tpu/ops/assembly.py:525",
         "replaces_also": "fcvm_tpu/ops/assembly.py:576 (make_bc_matvec), :386 "
                          "(scatter_node_rows); XLA-lowered",
@@ -1857,6 +2010,17 @@ def main():
         "dtype": "float32", "model": "plate", "variant": "masked",
         **cg_rows[("khat_matvec", "float32", "plate", "masked")],
         "shapes": cg_shapes("khat_matvec"),
+    }, {
+        "name": "segment_sum", "route": "cuda", "source": "fcvm_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "fcvm_tpu/ops/assembly.py:386",
+        "replaces_also": "fcvm_tpu/ops/assembly.py:324 (ScatterPlan), "
+                         "fcvm_tpu/ops/stress_update.py:151 (segment_sum); XLA-lowered",
+        "launches": off["launches"]["segment_sum"], **path_launches("segment_sum"),
+        "launches_column_by_dtype": col["by_dtype"]["segment_sum"],
+        "dtype": "float32", "model": "plate", "site": "internal force",
+        **k8[("float32", "plate", "internal force")],
+        "shapes": [{"dtype": dt, "model": m, "site": site, **row}
+                   for (dt, m, site), row in k8.items()],
     }, {
         "name": "two_level_apply", "route": "cuda", "source": "fcvm_tpu_torch/csrc/two_level.cu",
         "replaces": "fcvm_tpu/ops/precond.py:108", "replaces_also": "XLA-lowered",

@@ -7,8 +7,8 @@ analysis, small strain (``gnl="GNLN"``) and geometrically nonlinear
 (``gnl="GNLY"``, with the linear-buckling pre-analysis and imperfection
 seeding), through :func:`solve_collapse`, and linear buckling alone through
 :func:`linear_buckling`, with the two-level-preconditioned CG solver (or the
-scipy direct tier) whose K_hat·v, preconditioner apply and block products
-are the hand-written CUDA kernels K1, K4 and K0m
+scipy direct tier) whose K_hat·v, preconditioner apply, node sums and block
+products are the hand-written CUDA kernels K1, K4, K8 and K0m
 (:mod:`fcvm_tpu_torch.ops.kernels`, sources under ``csrc/``).
 :func:`run_analysis` and :func:`run_sum` (:mod:`fcvm_tpu_torch.api`) add
 the reference's output files (``.out``, ``.vtk``, ``.avr``, curves), and
@@ -32,8 +32,10 @@ from fcvm_tpu_torch.models.spec import (
 from fcvm_tpu_torch.runtime.buckling import EigensolveBreakdownError, linear_buckling
 from fcvm_tpu_torch.runtime.driver import AnalysisResults, solve_collapse
 from fcvm_tpu_torch.api import run_analysis, run_sum
+from fcvm_tpu_torch.version import __version__
 
 __all__ = [
+    "__version__",
     "FcvmConfig",
     "ControlParams",
     "read_inp",

@@ -14,8 +14,8 @@
 // esm_t from device memory.  On the H100 it reads at 73-77% of 3.35 TB/s in
 // f32 and 79-85% in f64 at the paths' element counts; rows of 2 or 4 KB a
 // copy, 6 slots, or K0p's thread over all 30 rows read no faster (PERF.md).
-// K1 (csrc/khat_matvec.cu) runs the same element pass on gathered values;
-// the solver's K_hat·v goes through K1, and K0 serves the bandwidth probe.
+// The solver's K_hat·v goes through K1 (csrc/khat_matvec.cu), which streams
+// packed symmetric blocks with bulk copies; K0 serves the bandwidth probe.
 //
 // C interface: returns cudaGetLastError() after the launch (0 = launched).
 // The caller owns all memory and the stream; the kernel does not synchronise.

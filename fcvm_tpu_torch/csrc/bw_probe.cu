@@ -40,7 +40,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk.cuh"
+
 namespace {
+
+using fcvm_bulk::bulk_copy_g2s;
+using fcvm_bulk::mbar_expect_tx;
+using fcvm_bulk::mbar_init;
+using fcvm_bulk::mbar_wait;
 
 constexpr int kDofs = 30;
 constexpr int kMaxThreads = 1024;     // soa_matvec: threads per block
@@ -68,45 +75,6 @@ soa_matvec_kernel(const float* __restrict__ esm_t, const float* __restrict__ ue_
   }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-// One arrival that also announces `bytes` of asynchronous copy to the slot.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
-                                              uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // One thread per block issues and waits; the copy engine moves the bytes.
 __global__ void __launch_bounds__(32)
 bw_read_kernel(const float* __restrict__ x, float* __restrict__ partial,
@@ -118,7 +86,7 @@ bw_read_kernel(const float* __restrict__ x, float* __restrict__ partial,
   const long long s1 = nsub_total * (blockIdx.x + 1) / gridDim.x;
   const unsigned char* src = reinterpret_cast<const unsigned char*>(x);
   for (int s = 0; s < k; ++s) mbar_init(&bars[s], 1);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  fcvm_bulk::fence_barrier_init();
 
   for (long long j = s0; j < s1 && j < s0 + k; ++j) {
     const int s = static_cast<int>((j - s0) % k);
@@ -135,7 +103,7 @@ bw_read_kernel(const float* __restrict__ x, float* __restrict__ partial,
     if (j + k < s1) {
       // the slot was read through the generic proxy; order that read before
       // the asynchronous copy that refills it
-      if (chunk_start) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (chunk_start) fcvm_bulk::fence_proxy_async();
       mbar_expect_tx(&bars[s], sub_bytes);
       bulk_copy_g2s(ring + s * sub_bytes, src + (j + k) * sub_bytes, sub_bytes, &bars[s]);
     }

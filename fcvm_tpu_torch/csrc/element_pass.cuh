@@ -1,13 +1,14 @@
-// The element pass of K0 (block_matvec.cu) and K1 (khat_matvec.cu): the
-// batched 30x30 element-block matvec, element-major,
+// The element pass of K0 (block_matvec.cu) and of the atomic K1 variant
+// (khat_atomic_probe.cu): the batched 30x30 element-block matvec,
+// element-major,
 //
 //     out[i, e] = sum_j esm_t[i, j, e] * u_e[j]
 //
 // with esm_t (30, 30, ne) contiguous.  Where the element's 30 values u_e
-// come from is the caller's: K0 reads them from a dense (30, ne) array, K1
-// gathers them from a dof vector at the element's nodes.  The LoadU functor
-// fills them: load_u(e, ne, u).  The Store functor takes each sum:
-// store(i, e, ne, sum); DenseStore writes out (30, ne), as K0 and K1 do.
+// come from is the caller's: K0 reads them from a dense (30, ne) array, the
+// probe gathers them from a dof vector at the element's nodes.  The LoadU
+// functor fills them: load_u(e, ne, u).  The Store functor takes each sum:
+// store(i, e, ne, sum); DenseStore writes out (30, ne), as K0 does.
 //
 // What bounds it: every block entry is read once and used once (two flops
 // per eight bytes in f64, per four in f32), so reading esm_t from device
@@ -45,7 +46,7 @@ namespace fcvm_element {
 
 constexpr int kDofs = 30;  // 10 nodes x 3 components per tet10 element
 
-// out[i, e] = v: the (30, ne) element output of K0 and K1.
+// out[i, e] = v: the (30, ne) element output of K0.
 template <typename T>
 struct DenseStore {
   T* __restrict__ out;

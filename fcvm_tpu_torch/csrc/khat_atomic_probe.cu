@@ -1,7 +1,8 @@
 // A measurement probe, not a kernel of the solver: K1's atomic variant.
 //
 // The same K_hat·v as K1 (csrc/khat_matvec.cu), masked form, in one pass
-// over the elements that adds each element row straight into the zeroed
+// over the full (30, 30, ne) blocks through K0's element pass
+// (element_pass.cuh) that adds each element row straight into the zeroed
 // output with red.global.add (atomicAdd, its result unused), then the mask
 // pass.  It skips K1's (30, ne) element output and its node pass, at the
 // price of sums whose order changes from run to run.  Built on its own by
@@ -10,6 +11,7 @@
 
 #include <cuda_runtime.h>
 
+#include "element_pass.cuh"
 #include "khat_matvec.cu"
 
 namespace {

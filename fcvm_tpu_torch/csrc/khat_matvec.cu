@@ -9,26 +9,39 @@
 //     masked:  y = P K (P x) + (I - P) x,   P = diag(fixmask)
 //     raw:     y = K x
 //
-// for K given by its element blocks esm_t (30, 30, ne), element-major, and
+// for K given by its symmetric element blocks, packed: the upper triangle
+// i <= j of each 30x30 block, 465 values in row-major order, tile-major
+// (ntiles, 465, E) with E elements a tile (256 in f32, 128 in f64: 1 KB a
+// packed row; ops/kernels.py::pack_blocks), the last tile zero-padded; and
 // the element node table elnodes_t (10, ne) int32, element-major.
 //
-// Two passes, no atomics, so two calls on the same inputs give the same bits:
-//   1. the element pass (csrc/element_pass.cuh, K0's ring): each thread
-//      gathers its element's 30 values of P x (x) at its 10 nodes and the
-//      blocks stream through the cp.async ring; it writes fe (30, ne) in
-//      K0's layout;
+// What bounds it: reading the blocks.  The packed copy halves them (465 of
+// 900 values: 1860 bytes an element in f32, 3720 in f64); the rest is the
+// node table, x and the mask at the elements' nodes, the incidence table,
+// and fe written once and read once (14 MB in f32 on the 502,599-dof plate,
+// mostly out of the 50 MB L2).  Each tile is one contiguous span, so the
+// blocks stream in large bulk asynchronous copies:
+//   1. the element pass: a persistent grid; in each block one producer
+//      thread copies stages of 31 packed rows (31 KB, 15 stages a tile) with
+//      cp.async.bulk into a ring of 3 shared-memory slots, each with a full
+//      mbarrier (the copy's bytes landed) and an empty one (every consumer
+//      warp is done with the slot), and with an L2 evict-first hint, so the
+//      stream does not push x, the mask, fe and the tables out of the L2.
+//      Each consumer thread owns one element of the tile: it gathers its 30
+//      values of P x (x) at the 10 nodes while the first stages are in
+//      flight, keeps them and 30 sums in registers, and for each packed
+//      entry k = K[i][j] adds k u_j to y_i and, off the diagonal, k u_i to
+//      y_j; the entry indices are compile-time, so the 60 values never leave
+//      the registers.  It writes fe (30, ne) once per tile;
 //   2. the node pass: one thread a node sums the node's incident rows of fe
 //      in the fixed order of the incidence table, a CSR over nodes
 //      (offsets (nn + 1), and pos: each incidence's offset 3 slot ne + e of
-//      its first component in fe), then applies the mask and the identity
-//      on fixed dofs.  A node with no incident element (the padding) gets
-//      (1 - P) x, which is 0 there.
-// What bounds it: reading the blocks (3600 bytes an element in f32, 7200 in
-// f64), as K0; the rest is the node table, x and the mask at the elements'
-// nodes, the incidence table, and fe written once and read once (14 MB in
-// f32 on the 502,599-dof plate, mostly out of the 50 MB L2).
-// Each element sum runs over j in order 0..29, each node sum over its
-// incidences in table order.  Sums accumulate in the input type, with FMA;
+//      its first component in fe; fcvm_segment::gather_sum, K8's sum), then
+//      applies the mask and the identity on fixed dofs.  A node with no
+//      incident element (the padding) gets (1 - P) x, which is 0 there.
+// No atomics and a fixed order everywhere (each element's entries in packed
+// order, each node's incidences in table order), so two calls on the same
+// inputs give the same bits.  Sums accumulate in the input type, with FMA;
 // nothing is lowered in precision.
 //
 // C interface: returns cudaGetLastError() after the launches (0 = launched);
@@ -36,14 +49,25 @@
 // its scratch) and the stream; the kernels do not synchronise.  csrc/ops.cpp
 // binds it to PyTorch as torch.ops.fcvm.khat_matvec.
 
+#include <cstdint>
+#include <utility>
+
 #include <cuda_runtime.h>
 
-#include "element_pass.cuh"
+#include "bulk.cuh"
+#include "ring.cuh"
+#include "segment.cuh"
 
 namespace {
 
 constexpr int kNodes = 10;  // tet10
+constexpr int kDofs = 30;
 constexpr int kNodeThreads = 256;
+constexpr int kPacked = 465;                // 30 * 31 / 2 entries a block
+constexpr int kRows = 31;                   // packed rows a stage
+constexpr int kStages = kPacked / kRows;    // 15 stages a tile
+constexpr int kSlots = 3;                   // the ring
+static_assert(kStages * kRows == kPacked, "a tile is a whole number of stages");
 
 // The element's 30 values of P x (kMasked) or x, gathered at its nodes.
 template <typename T, bool kMasked>
@@ -52,8 +76,7 @@ struct GatherU {
   const T* __restrict__ x;
   const T* __restrict__ fixmask;
 
-  __device__ __forceinline__ void operator()(long long e, long long ne,
-                                             T (&u)[fcvm_element::kDofs]) const {
+  __device__ __forceinline__ void operator()(long long e, long long ne, T (&u)[kDofs]) const {
 #pragma unroll
     for (int n = 0; n < kNodes; ++n) {
       const long long d = 3LL * elnodes_t[n * ne + e];
@@ -62,6 +85,112 @@ struct GatherU {
     }
   }
 };
+
+// Packed entry q -> its row i and column j (i <= j, row-major).
+__host__ __device__ constexpr int entry_row(int q) {
+  int i = 0;
+  while (q >= kDofs - i) q -= kDofs - i++;
+  return i;
+}
+__host__ __device__ constexpr int entry_col(int q) {
+  int i = 0;
+  while (q >= kDofs - i) q -= kDofs - i++;
+  return i + q;
+}
+
+template <int kI, int kJ, typename T>
+__device__ __forceinline__ void entry(T k, T (&y)[kDofs], const T (&u)[kDofs]) {
+  y[kI] = fma(k, u[kJ], y[kI]);
+  if constexpr (kI != kJ) y[kJ] = fma(k, u[kI], y[kJ]);
+}
+
+// The kRows entries of stage kS, in order, from a slot of the ring.
+template <int kS, int kE, typename T, int... kR>
+__device__ __forceinline__ void stage_sum(const T* slot, T (&y)[kDofs], const T (&u)[kDofs],
+                                          std::integer_sequence<int, kR...>) {
+  (entry<entry_row(kS * kRows + kR), entry_col(kS * kRows + kR)>(slot[kR * kE], y, u), ...);
+}
+
+struct Ring {
+  uint64_t* full;   // kSlots: the stage's bytes have landed
+  uint64_t* empty;  // kSlots: every consumer warp is done with the slot
+};
+
+// A consumer's whole tile: stage by stage, wait for the slot, sum its
+// entries, release the slot (one arrival a warp).  k0 is the tile's first
+// stage in this block's sequence.
+template <int kE, typename T, int... kS>
+__device__ __forceinline__ void tile_sum(const T* ring, Ring bars, long long k0,
+                                         T (&y)[kDofs], const T (&u)[kDofs],
+                                         std::integer_sequence<int, kS...>) {
+  const auto one = [&](auto stage) {
+    constexpr int s = decltype(stage)::value;
+    const long long k = k0 + s;
+    const int slot = static_cast<int>(k % kSlots);
+    fcvm_bulk::mbar_wait(bars.full + slot, static_cast<uint32_t>((k / kSlots) & 1));
+    stage_sum<s, kE>(ring + slot * kRows * kE + threadIdx.x, y, u,
+                     std::make_integer_sequence<int, kRows>{});
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) fcvm_bulk::mbar_arrive(bars.empty + slot);
+  };
+  (one(std::integral_constant<int, kS>{}), ...);
+}
+
+// The element pass: kE consumer threads (one element each) and one producer
+// warp; block b takes tiles b, b + gridDim.x, ...
+template <typename T, int kE, typename LoadU>
+__global__ void __launch_bounds__(kE + 32)
+packed_kernel(const T* __restrict__ packed, const LoadU load_u, T* __restrict__ fe,
+              long long ne, long long ntiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kSlots], empty[kSlots];
+  T* const ring = reinterpret_cast<T*>(smem);
+  constexpr int kStageBytes = kRows * kE * static_cast<int>(sizeof(T));
+  const long long my_tiles =
+      ntiles > blockIdx.x ? (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      fcvm_bulk::mbar_init(full + s, 1);
+      fcvm_bulk::mbar_init(empty + s, kE / 32);
+    }
+    fcvm_bulk::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kE) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == kE) {
+      const uint64_t policy = fcvm_bulk::evict_first_policy();
+      const long long nk = my_tiles * kStages;
+      for (long long k = 0; k < nk; ++k) {
+        const int slot = static_cast<int>(k % kSlots);
+        if (k >= kSlots) {
+          fcvm_bulk::mbar_wait(empty + slot, static_cast<uint32_t>((k / kSlots - 1) & 1));
+          fcvm_bulk::fence_proxy_async();  // the consumers' reads before the refill
+        }
+        const long long t = blockIdx.x + (k / kStages) * gridDim.x;
+        const T* src = packed + (t * kPacked + (k % kStages) * kRows) * kE;
+        fcvm_bulk::mbar_expect_tx(full + slot, kStageBytes);
+        fcvm_bulk::bulk_copy_g2s_hint(ring + slot * kRows * kE, src, kStageBytes, full + slot,
+                                      policy);
+      }
+    }
+    return;
+  }
+
+  const Ring bars{full, empty};
+  for (long long n = 0; n < my_tiles; ++n) {
+    const long long e = (blockIdx.x + n * gridDim.x) * kE + threadIdx.x;
+    T u[kDofs], y[kDofs];
+#pragma unroll
+    for (int i = 0; i < kDofs; ++i) u[i] = y[i] = T(0);
+    if (e < ne) load_u(e, ne, u);
+    tile_sum<kE>(ring, bars, n * kStages, y, u, std::make_integer_sequence<int, kStages>{});
+    if (e < ne) {
+#pragma unroll
+      for (int i = 0; i < kDofs; ++i) fe[i * ne + e] = y[i];
+    }
+  }
+}
 
 // One thread a node: y[3n + c] = sum over the node's incidences p of
 // fe[pos[p] + c ne], masked.
@@ -73,12 +202,7 @@ node_sum_kernel(const T* __restrict__ fe, const int* __restrict__ offsets,
   const long long n = static_cast<long long>(blockIdx.x) * kNodeThreads + threadIdx.x;
   if (n >= nn) return;
   T s[3] = {T(0), T(0), T(0)};
-  const int end = offsets[n + 1];
-  for (int p = offsets[n]; p < end; ++p) {
-    const T* f = fe + pos[p];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) s[c] += f[c * ne];
-  }
+  fcvm_segment::gather_sum<T, 3>(s, fe, pos, offsets[n], offsets[n + 1], 1, ne);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const long long d = 3 * n + c;
@@ -87,39 +211,55 @@ node_sum_kernel(const T* __restrict__ fe, const int* __restrict__ offsets,
 }
 
 template <typename T, bool kMasked>
-int run(const T* esm_t, const int* elnodes_t, const int* offsets, const int* pos, const T* x,
-        const T* fixmask, T* fe, T* y, long long ne, long long nn, void* stream) {
-  const int err = fcvm_element::launch<T>(esm_t, GatherU<T, kMasked>{elnodes_t, x, fixmask},
-                                          fcvm_element::DenseStore<T>{fe}, ne, stream);
-  if (err != 0 || nn <= 0) return err;
+int run(const T* packed, const int* elnodes_t, const int* offsets, const int* pos, const T* x,
+        const T* fixmask, T* fe, T* y, long long ne, long long nn, long long ntiles,
+        void* stream) {
+  constexpr int kE = 1024 / sizeof(T);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (ne > 0) {
+    const auto kernel = packed_kernel<T, kE, GatherU<T, kMasked>>;
+    constexpr int kSmem = kSlots * kRows * kE * static_cast<int>(sizeof(T));
+    static int resident[fcvm_ring::kMaxDevices];
+    int grid = 0;
+    const int err = fcvm_ring::persistent_grid(kernel, kE + 32, kSmem, ntiles, resident, &grid);
+    if (err != 0) return err;
+    kernel<<<grid, kE + 32, kSmem, s>>>(packed, GatherU<T, kMasked>{elnodes_t, x, fixmask}, fe,
+                                        ne, ntiles);
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return static_cast<int>(launched);
+  }
+  if (nn <= 0) return 0;
   const long long blocks = (nn + kNodeThreads - 1) / kNodeThreads;
-  node_sum_kernel<T, kMasked><<<static_cast<unsigned>(blocks), kNodeThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(fe, offsets, pos, x,
-                                                                     fixmask, y, nn, ne);
+  node_sum_kernel<T, kMasked><<<static_cast<unsigned>(blocks), kNodeThreads, 0, s>>>(
+      fe, offsets, pos, x, fixmask, y, nn, ne);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const T* esm_t, const int* elnodes_t, const int* offsets, const int* pos,
+int dispatch(const T* packed, const int* elnodes_t, const int* offsets, const int* pos,
              const T* x, const T* fixmask, T* fe, T* y, long long ne, long long nn,
-             void* stream) {
+             long long ntiles, void* stream) {
   return fixmask != nullptr
-             ? run<T, true>(esm_t, elnodes_t, offsets, pos, x, fixmask, fe, y, ne, nn, stream)
-             : run<T, false>(esm_t, elnodes_t, offsets, pos, x, fixmask, fe, y, ne, nn, stream);
+             ? run<T, true>(packed, elnodes_t, offsets, pos, x, fixmask, fe, y, ne, nn, ntiles,
+                            stream)
+             : run<T, false>(packed, elnodes_t, offsets, pos, x, fixmask, fe, y, ne, nn, ntiles,
+                             stream);
 }
 
 }  // namespace
 
-extern "C" int fcvm_khat_matvec_f32(const float* esm_t, const int* elnodes_t,
+extern "C" int fcvm_khat_matvec_f32(const float* packed, const int* elnodes_t,
                                     const int* offsets, const int* pos, const float* x,
                                     const float* fixmask, float* fe, float* y, long long ne,
-                                    long long nn, void* stream) {
-  return dispatch<float>(esm_t, elnodes_t, offsets, pos, x, fixmask, fe, y, ne, nn, stream);
+                                    long long nn, long long ntiles, void* stream) {
+  return dispatch<float>(packed, elnodes_t, offsets, pos, x, fixmask, fe, y, ne, nn, ntiles,
+                         stream);
 }
 
-extern "C" int fcvm_khat_matvec_f64(const double* esm_t, const int* elnodes_t,
+extern "C" int fcvm_khat_matvec_f64(const double* packed, const int* elnodes_t,
                                     const int* offsets, const int* pos, const double* x,
                                     const double* fixmask, double* fe, double* y, long long ne,
-                                    long long nn, void* stream) {
-  return dispatch<double>(esm_t, elnodes_t, offsets, pos, x, fixmask, fe, y, ne, nn, stream);
+                                    long long nn, long long ntiles, void* stream) {
+  return dispatch<double>(packed, elnodes_t, offsets, pos, x, fixmask, fe, y, ne, nn, ntiles,
+                          stream);
 }

@@ -5,6 +5,7 @@
 //   fcvm::block_matmat  K0m  csrc/block_matmat.cu
 //   fcvm::khat_matvec   K1   csrc/khat_matvec.cu
 //   fcvm::two_level_apply  K4  csrc/two_level.cu (around at::mv)
+//   fcvm::segment_sum   K8   csrc/segment_sum.cu (in place)
 //   fcvm::soa_matvec    K0p  csrc/bw_probe.cu
 //   fcvm::bw_read       Kbw  csrc/bw_probe.cu
 // so each is called as torch.ops.fcvm.<name>.  The kernels themselves keep a
@@ -32,14 +33,20 @@ extern "C" int fcvm_block_matmat_f32(const float* esm_t, const float* ue, float*
                                      long long ne, int m, void* stream);
 extern "C" int fcvm_block_matmat_f64(const double* esm_t, const double* ue, double* out,
                                      long long ne, int m, void* stream);
-extern "C" int fcvm_khat_matvec_f32(const float* esm_t, const int* elnodes_t,
+extern "C" int fcvm_khat_matvec_f32(const float* packed, const int* elnodes_t,
                                     const int* offsets, const int* pos, const float* x,
                                     const float* fixmask, float* fe, float* y, long long ne,
-                                    long long nn, void* stream);
-extern "C" int fcvm_khat_matvec_f64(const double* esm_t, const int* elnodes_t,
+                                    long long nn, long long ntiles, void* stream);
+extern "C" int fcvm_khat_matvec_f64(const double* packed, const int* elnodes_t,
                                     const int* offsets, const int* pos, const double* x,
                                     const double* fixmask, double* fe, double* y, long long ne,
-                                    long long nn, void* stream);
+                                    long long nn, long long ntiles, void* stream);
+extern "C" int fcvm_segment_sum_f32(const float* vals, const int* order, const int* offsets,
+                                    const int* segs, float* out, long long nu, long long w,
+                                    void* stream);
+extern "C" int fcvm_segment_sum_f64(const double* vals, const int* order, const int* offsets,
+                                    const int* segs, double* out, long long nu, long long w,
+                                    void* stream);
 extern "C" int fcvm_two_level_restrict_f32(const float* r, const float* fixmask,
                                            const float* qmat, const float* pinv, float* z,
                                            float* rc, long long nn, int cs, int ncl, int nm,
@@ -133,62 +140,114 @@ at::Tensor block_matmat(const at::Tensor& esm_t, const at::Tensor& ue) {
 }
 
 // K1: y = P K (P x) + (I - P) x with fixmask, K x without; K from the
-// element-major blocks esm_t (30, 30, ne) and the int32 tables: elnodes_t
-// (10, ne), the node-incidence CSR offsets (nn + 1) and pos (10 ne).
-at::Tensor khat_matvec(const at::Tensor& esm_t, const at::Tensor& elnodes_t,
+// packed symmetric blocks (ntiles, 465, E), E = 1024 / sizeof(T)
+// (ops/kernels.py::pack_blocks), and the int32 tables: elnodes_t (10, ne),
+// the node-incidence CSR offsets (nn + 1) and pos (10 ne).
+at::Tensor khat_matvec(const at::Tensor& packed, const at::Tensor& elnodes_t,
                        const at::Tensor& offsets, const at::Tensor& pos, const at::Tensor& x,
                        const std::optional<at::Tensor>& fixmask) {
-  TORCH_CHECK(esm_t.is_cuda() && elnodes_t.device() == esm_t.device() &&
-                  offsets.device() == esm_t.device() && pos.device() == esm_t.device() &&
-                  x.device() == esm_t.device() &&
-                  (!fixmask || fixmask->device() == esm_t.device()),
+  TORCH_CHECK(packed.is_cuda() && elnodes_t.device() == packed.device() &&
+                  offsets.device() == packed.device() && pos.device() == packed.device() &&
+                  x.device() == packed.device() &&
+                  (!fixmask || fixmask->device() == packed.device()),
               "khat_matvec: all tensors must be on one CUDA device");
-  TORCH_CHECK(x.scalar_type() == esm_t.scalar_type() &&
-                  (!fixmask || fixmask->scalar_type() == esm_t.scalar_type()),
-              "khat_matvec: esm_t, x and fixmask differ in dtype");
+  TORCH_CHECK(x.scalar_type() == packed.scalar_type() &&
+                  (!fixmask || fixmask->scalar_type() == packed.scalar_type()),
+              "khat_matvec: packed, x and fixmask differ in dtype");
   TORCH_CHECK(elnodes_t.scalar_type() == at::kInt && offsets.scalar_type() == at::kInt &&
                   pos.scalar_type() == at::kInt,
               "khat_matvec: elnodes_t, offsets and pos must be int32");
-  const long long ne = esm_t.dim() == 3 ? esm_t.size(2) : -1;
+  const long long tile = static_cast<long long>(1024 / packed.element_size());
+  const long long ne = elnodes_t.dim() == 2 ? elnodes_t.size(1) : -1;
   const long long nn = offsets.dim() == 1 ? offsets.size(0) - 1 : -1;
-  TORCH_CHECK(esm_t.dim() == 3 && esm_t.size(0) == 30 && esm_t.size(1) == 30 &&
-                  elnodes_t.dim() == 2 && elnodes_t.size(0) == 10 && elnodes_t.size(1) == ne &&
+  const long long ntiles = packed.dim() == 3 ? packed.size(0) : -1;
+  TORCH_CHECK(packed.dim() == 3 && packed.size(1) == 465 && packed.size(2) == tile &&
+                  (ntiles - 1) * tile < ne && ne <= ntiles * tile && elnodes_t.size(0) == 10 &&
                   nn >= 0 && pos.dim() == 1 && pos.size(0) == 10 * ne && x.dim() == 1 &&
                   x.size(0) == 3 * nn && (!fixmask || fixmask->sizes() == x.sizes()) &&
                   30 * ne <= 0x7fffffffLL,
-              "khat_matvec: expected esm_t (30, 30, ne), elnodes_t (10, ne), offsets "
-              "(nn + 1), pos (10 ne), x and fixmask (3 nn), 30 ne < 2^31");
-  TORCH_CHECK(esm_t.is_contiguous() && elnodes_t.is_contiguous() && offsets.is_contiguous() &&
+              "khat_matvec: expected packed (ntiles, 465, 1024 / itemsize) covering ne "
+              "elements, elnodes_t (10, ne), offsets (nn + 1), pos (10 ne), x and fixmask "
+              "(3 nn), 30 ne < 2^31");
+  TORCH_CHECK(packed.is_contiguous() && elnodes_t.is_contiguous() && offsets.is_contiguous() &&
                   pos.is_contiguous() && x.is_contiguous() &&
-                  (!fixmask || fixmask->is_contiguous()),
-              "khat_matvec: inputs must be contiguous");
-  const c10::cuda::CUDAGuard guard(esm_t.device());
+                  (!fixmask || fixmask->is_contiguous()) &&
+                  reinterpret_cast<uintptr_t>(packed.data_ptr()) % 16 == 0,
+              "khat_matvec: inputs must be contiguous, packed 16-byte aligned");
+  const c10::cuda::CUDAGuard guard(packed.device());
   at::Tensor fe = at::empty({30, ne}, x.options());
   at::Tensor y = at::empty_like(x);
   void* stream = c10::cuda::getCurrentCUDAStream().stream();
   const int* tables[3] = {elnodes_t.data_ptr<int>(), offsets.data_ptr<int>(),
                           pos.data_ptr<int>()};
   int err = 0;
-  switch (esm_t.scalar_type()) {
+  switch (packed.scalar_type()) {
     case at::kFloat:
-      err = fcvm_khat_matvec_f32(esm_t.data_ptr<float>(), tables[0], tables[1], tables[2],
+      err = fcvm_khat_matvec_f32(packed.data_ptr<float>(), tables[0], tables[1], tables[2],
                                  x.data_ptr<float>(),
                                  fixmask ? fixmask->data_ptr<float>() : nullptr,
-                                 fe.data_ptr<float>(), y.data_ptr<float>(), ne, nn, stream);
+                                 fe.data_ptr<float>(), y.data_ptr<float>(), ne, nn, ntiles,
+                                 stream);
       break;
     case at::kDouble:
-      err = fcvm_khat_matvec_f64(esm_t.data_ptr<double>(), tables[0], tables[1], tables[2],
+      err = fcvm_khat_matvec_f64(packed.data_ptr<double>(), tables[0], tables[1], tables[2],
                                  x.data_ptr<double>(),
                                  fixmask ? fixmask->data_ptr<double>() : nullptr,
-                                 fe.data_ptr<double>(), y.data_ptr<double>(), ne, nn, stream);
+                                 fe.data_ptr<double>(), y.data_ptr<double>(), ne, nn, ntiles,
+                                 stream);
       break;
     default:
       TORCH_CHECK(false, "khat_matvec: dtype must be float32 or float64, got ",
-                  esm_t.scalar_type());
+                  packed.scalar_type());
   }
   TORCH_CHECK(err == 0, "khat_matvec: kernel launch failed: ",
               cudaGetErrorString(static_cast<cudaError_t>(err)));
   return y;
+}
+
+// K8: out[segs[u], :] += sum over p in [offsets[u], offsets[u + 1]) of
+// vals[order[p], :], in place; vals (n, ...) and out (nseg, ...) contiguous
+// with the same trailing shape, the plan int32.
+void segment_sum(const at::Tensor& vals, const at::Tensor& order, const at::Tensor& offsets,
+                 const at::Tensor& segs, at::Tensor& out) {
+  TORCH_CHECK(out.is_cuda() && vals.device() == out.device() && order.device() == out.device() &&
+                  offsets.device() == out.device() && segs.device() == out.device(),
+              "segment_sum: all tensors must be on one CUDA device");
+  TORCH_CHECK(vals.scalar_type() == out.scalar_type(), "segment_sum: vals and out differ in dtype");
+  TORCH_CHECK(order.scalar_type() == at::kInt && offsets.scalar_type() == at::kInt &&
+                  segs.scalar_type() == at::kInt,
+              "segment_sum: order, offsets and segs must be int32");
+  TORCH_CHECK(vals.dim() >= 1 && out.dim() == vals.dim() &&
+                  out.sizes().slice(1) == vals.sizes().slice(1) && order.dim() == 1 &&
+                  order.size(0) <= vals.size(0) && segs.dim() == 1 && offsets.dim() == 1 &&
+                  offsets.size(0) == segs.size(0) + 1 && out.size(0) <= 0x7fffffffLL,
+              "segment_sum: expected vals (n, ...), out (nseg, ...), order (at most n), segs "
+              "(nu), offsets (nu + 1)");
+  TORCH_CHECK(vals.is_contiguous() && out.is_contiguous() && order.is_contiguous() &&
+                  offsets.is_contiguous() && segs.is_contiguous(),
+              "segment_sum: inputs must be contiguous");
+  const c10::cuda::CUDAGuard guard(out.device());
+  const long long nu = segs.size(0);
+  const long long w = out.size(0) > 0 ? out.numel() / out.size(0) : 0;
+  void* stream = c10::cuda::getCurrentCUDAStream().stream();
+  int err = 0;
+  switch (out.scalar_type()) {
+    case at::kFloat:
+      err = fcvm_segment_sum_f32(vals.data_ptr<float>(), order.data_ptr<int>(),
+                                 offsets.data_ptr<int>(), segs.data_ptr<int>(),
+                                 out.data_ptr<float>(), nu, w, stream);
+      break;
+    case at::kDouble:
+      err = fcvm_segment_sum_f64(vals.data_ptr<double>(), order.data_ptr<int>(),
+                                 offsets.data_ptr<int>(), segs.data_ptr<int>(),
+                                 out.data_ptr<double>(), nu, w, stream);
+      break;
+    default:
+      TORCH_CHECK(false, "segment_sum: dtype must be float32 or float64, got ",
+                  out.scalar_type());
+  }
+  TORCH_CHECK(err == 0, "segment_sum: kernel launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
 }
 
 // K4: z = z_fine + P Q Kc^-1 Q^T (P r), z_fine = pinv r per node unless given.
@@ -318,8 +377,10 @@ at::Tensor bw_read(const at::Tensor& x, int64_t k, int64_t chunk_rows) {
 TORCH_LIBRARY(fcvm, m) {
   m.def("block_matvec(Tensor esm_t, Tensor ue_t) -> Tensor");
   m.def("block_matmat(Tensor esm_t, Tensor ue) -> Tensor");
-  m.def("khat_matvec(Tensor esm_t, Tensor elnodes_t, Tensor offsets, Tensor pos, Tensor x, "
+  m.def("khat_matvec(Tensor packed, Tensor elnodes_t, Tensor offsets, Tensor pos, Tensor x, "
         "Tensor? fixmask) -> Tensor");
+  m.def("segment_sum(Tensor vals, Tensor order, Tensor offsets, Tensor segs, "
+        "Tensor(a!) out) -> ()");
   m.def("two_level_apply(Tensor pinv, Tensor qmat, Tensor coarse_inv, Tensor fixmask, "
         "Tensor r, Tensor? z_fine) -> Tensor");
   m.def("soa_matvec(Tensor esm_t, Tensor ue_t, int tile) -> Tensor");
@@ -331,6 +392,7 @@ TORCH_LIBRARY_IMPL(fcvm, CUDA, m) {
   m.impl("block_matmat", &block_matmat);
   m.impl("khat_matvec", &khat_matvec);
   m.impl("two_level_apply", &two_level_apply);
+  m.impl("segment_sum", &segment_sum);
   m.impl("soa_matvec", &soa_matvec);
   m.impl("bw_read", &bw_read);
 }

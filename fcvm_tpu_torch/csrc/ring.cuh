@@ -1,5 +1,6 @@
-// Asynchronous copies into a shared-memory ring, and the persistent grid,
-// shared by K0 (block_matvec.cu) and K0m (block_matmat.cu).
+// Asynchronous copies into a shared-memory ring, shared by K0
+// (block_matvec.cu) and K0m (block_matmat.cu), and the persistent grid,
+// which K1 (khat_matvec.cu) uses as well.
 //
 // A ring is S slots of shared memory.  Each thread issues its share of a
 // stage's copies with cp.async (global -> shared without passing through

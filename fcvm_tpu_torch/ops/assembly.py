@@ -7,11 +7,17 @@ device and ``K @ v`` is gather -> block matvec -> node sum -> mask, one
 hand-written CUDA kernel K1 (:func:`fcvm_tpu_torch.ops.kernels.khat_matvec`)
 over the element node table and its node-incidence CSR
 (:func:`node_incidence`), whose node sums run in a fixed order, so its
-results are deterministic; an ``(ndof, m)`` block of vectors goes through
-K0m (:func:`fcvm_tpu_torch.ops.kernels.block_matmat`) in one pass, its node
-reduction ``index_add_`` (on CUDA an atomic scatter-add whose float32
-summation order varies from run to run).  The operator stores the blocks
-element-major, ``(30, 30, ne)``, the layout K1 and K0m read coalesced.
+results are deterministic; on the card K1 reads the blocks' packed upper
+triangles (:func:`fcvm_tpu_torch.ops.kernels.pack_blocks`, made once per
+operator).  An ``(ndof, m)`` block of vectors goes through K0m
+(:func:`fcvm_tpu_torch.ops.kernels.block_matmat`) in one pass.  Every other
+sum of element rows into nodes (the loads, the block products' node pass,
+the block-Jacobi blocks) is K8
+(:func:`fcvm_tpu_torch.ops.kernels.segment_sum`) over a
+:class:`~fcvm_tpu_torch.ops.kernels.SegmentPlan` of its keys, a fixed
+order as well; CPU tensors take ``index_add_``, the plain version.  The
+operator stores the blocks element-major, ``(30, 30, ne)``, the layout K0m
+reads coalesced.
 
 Dirichlet boundary conditions reproduce the reference's elimination scheme
 (``fcVM.py:771-796``): the operator is the identity on fixed dofs and the
@@ -35,9 +41,16 @@ def element_dof_ids(elnodes: torch.Tensor) -> torch.Tensor:
     return (3 * elnodes[:, :, None] + a3).reshape(elnodes.shape[0], 30)
 
 
-def _scatter(values: torch.Tensor, dofs: torch.Tensor, ndof: int) -> torch.Tensor:
-    out = torch.zeros(ndof, dtype=values.dtype, device=values.device)
-    return out.index_add_(0, dofs.reshape(-1), values.reshape(-1))
+def node_sum(rows: torch.Tensor, nodes: torch.Tensor, ndof: int, plan=None) -> torch.Tensor:
+    """(ndof,) node vector of the 3-wide ``rows`` (n k, 3) of ``n`` items
+    of ``k`` nodes each (``nodes`` (n, k)), each node's rows summed in
+    ascending row order by K8 over ``plan``, the
+    :func:`~fcvm_tpu_torch.ops.kernels.segment_plan` of ``nodes`` (built
+    here when not given)."""
+    if plan is None:
+        plan = kernels.segment_plan(nodes)
+    out = torch.zeros((ndof // 3, 3), dtype=rows.dtype, device=rows.device)
+    return kernels.segment_sum(rows.reshape(-1, 3).contiguous(), plan, out).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -95,13 +108,14 @@ def geometric_stiffness_blocks(coords, elnodes, sig_gp) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def gravity_load_and_gp_coords(coords, elnodes, density, grav, ndof, weights=None):
+def gravity_load_and_gp_coords(coords, elnodes, density, grav, ndof, weights=None, plan=None):
     """Gravity nodal loads + Gauss point coordinates + mesh volume.
 
     Integrates ``grav * rho * N_i w |J|`` per element (``fcVM.py:757-767``);
     ``density`` is a number or (ne,) per element.  ``weights`` (ne,), when
     given, scales each element's load and volume (0 for the sharded
-    backend's padding elements).
+    backend's padding elements).  ``plan``: the segment plan of
+    ``elnodes`` (see :func:`node_sum`).
     """
     coords_el = coords[elnodes]  # (ne, 10, 3)
     dt, dev = coords.dtype, coords.device
@@ -115,59 +129,57 @@ def gravity_load_and_gp_coords(coords, elnodes, density, grav, ndof, weights=Non
     scale = w[None, :] * det.abs()
     rho = density[:, None, None] if torch.is_tensor(density) and density.dim() == 1 else density
     gamma = torch.einsum("eg,gj,c->ejc", scale, shp, grav) * rho
-    nodes3 = 3 * elnodes[:, :, None] + torch.arange(3, device=dev)
-    glv = _scatter(gamma, nodes3, ndof)
+    glv = node_sum(gamma, elnodes, ndof, plan)
     gp_coords = torch.einsum("gj,eji->egi", shp, coords_el)  # (ne, 4, 3)
     volume = torch.sum(det * w[None, :])
     return glv, gp_coords, volume
 
 
-def _node_dofs(nodes: torch.Tensor) -> torch.Tensor:
-    return 3 * nodes[..., None] + torch.arange(3, device=nodes.device)
-
-
-def pressure_face_loads(coords, faces, pressures, ndof):
+def pressure_face_loads(coords, faces, pressures, ndof, plan=None):
     """Nodal loads from pressure along the outward normal of tri6 faces
-    (``fcVM.py:649-672``); ``faces`` (nf, 6), ``pressures`` (nf,)."""
+    (``fcVM.py:649-672``); ``faces`` (nf, 6), ``pressures`` (nf,); ``plan``
+    the segment plan of ``faces`` (see :func:`node_sum`)."""
     if faces.shape[0] == 0:
         return torch.zeros(ndof, dtype=coords.dtype, device=coords.device)
     xsj, normal = el.tri6_surface_frame(coords[faces])  # (nf, 6g), (nf, 6g, 3)
     shp = torch.as_tensor(el.SHP6_AT_GP, dtype=coords.dtype, device=coords.device)
     w = torch.as_tensor(el.W6, dtype=coords.dtype, device=coords.device)
     load = torch.einsum("gn,f,fgc,fg,g->fnc", shp, pressures, normal, xsj.abs(), w)
-    return _scatter(load, _node_dofs(faces), ndof)
+    return node_sum(load, faces, ndof, plan)
 
 
-def uniform_face_loads(coords, faces, tractions, ndof):
+def uniform_face_loads(coords, faces, tractions, ndof, plan=None):
     """Nodal loads from uniform tractions on tri6 faces (``fcVM.py:683-705``);
-    ``faces`` (nf, 6), ``tractions`` (nf, 3) force per unit area."""
+    ``faces`` (nf, 6), ``tractions`` (nf, 3) force per unit area; ``plan``
+    as in :func:`pressure_face_loads`."""
     if faces.shape[0] == 0:
         return torch.zeros(ndof, dtype=coords.dtype, device=coords.device)
     xsj, _ = el.tri6_surface_frame(coords[faces])
     shp = torch.as_tensor(el.SHP6_AT_GP, dtype=coords.dtype, device=coords.device)
     w = torch.as_tensor(el.W6, dtype=coords.dtype, device=coords.device)
     load = torch.einsum("gn,fc,fg,g->fnc", shp, tractions, xsj.abs(), w)
-    return _scatter(load, _node_dofs(faces), ndof)
+    return node_sum(load, faces, ndof, plan)
 
 
-def edge_loads(coords, edges, tractions, ndof):
+def edge_loads(coords, edges, tractions, ndof, plan=None):
     """Nodal loads from line tractions on 3-node edges (``fcVM.py:707-727``);
-    ``edges`` (nedg, 3), ``tractions`` (nedg, 3) force per unit length."""
+    ``edges`` (nedg, 3), ``tractions`` (nedg, 3) force per unit length;
+    ``plan`` the segment plan of ``edges`` (see :func:`node_sum`)."""
     if edges.shape[0] == 0:
         return torch.zeros(ndof, dtype=coords.dtype, device=coords.device)
     xsj = el.line3_jacobian(coords[edges])  # (nedg, 2)
     shp = torch.as_tensor(el.SHP2_AT_GP, dtype=coords.dtype, device=coords.device)
     w = torch.as_tensor(el.W2, dtype=coords.dtype, device=coords.device)
     load = torch.einsum("gn,ec,eg,g->enc", shp, tractions, xsj.abs(), w)
-    return _scatter(load, _node_dofs(edges), ndof)
+    return node_sum(load, edges, ndof, plan)
 
 
-def vertex_loads(vertices, forces, ndof):
+def vertex_loads(vertices, forces, ndof, plan=None):
     """Point loads at nodes (``fcVM.py:674-681``); ``vertices`` (nv,),
-    ``forces`` (nv, 3)."""
+    ``forces`` (nv, 3); ``plan`` the segment plan of ``vertices``."""
     if vertices.shape[0] == 0:
         return torch.zeros(ndof, dtype=forces.dtype, device=forces.device)
-    return _scatter(forces, _node_dofs(vertices), ndof)
+    return node_sum(forces, vertices, ndof, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -178,52 +190,66 @@ def vertex_loads(vertices, forces, ndof):
 def node_incidence(elnodes: torch.Tensor, nn: int) -> kernels.NodeIncidence:
     """K1's tables for the elements ``elnodes`` (ne, 10) over ``nn`` nodes:
     the element-major int32 node table and the node-incidence CSR, each
-    node's incidences in ascending element order (the JAX package's
-    ``ScatterPlan`` semantics, a fixed-order gather-sum, as a CSR).  Built
-    once per element numbering (one stable sort on the device)."""
+    node's incidences in ascending element order: K8's
+    :func:`~fcvm_tpu_torch.ops.kernels.segment_plan` of ``elnodes`` (the
+    JAX package's ``ScatterPlan`` semantics) with a row for every node and
+    ``pos`` each incidence's offset ``3 slot ne + e`` into K1's element
+    output (30, ne).  Built once per element numbering."""
     ne = elnodes.shape[0]
     if 30 * ne >= 2**31:
         raise ValueError(f"node_incidence: {ne} elements; K1's int32 offsets need 30 ne < 2^31")
-    flat = elnodes.reshape(-1)  # element-major: incidence k = 10 e + slot
-    if ne and int(flat.max()) >= nn:
-        raise ValueError(f"node_incidence: a node id {int(flat.max())} is not below {nn}")
-    nodes, order = torch.sort(flat, stable=True)
-    e, slot = order // 10, order % 10
-    bounds = torch.arange(nn + 1, device=flat.device, dtype=nodes.dtype)
+    plan = kernels.segment_plan(elnodes)  # element-major: incidence k = 10 e + slot
+    if plan.top > nn:
+        raise ValueError(f"node_incidence: a node id {plan.top - 1} is not below {nn}")
+    counts = torch.zeros(nn + 1, dtype=torch.int32, device=elnodes.device)
+    counts[plan.segs.long() + 1] = plan.offsets[1:] - plan.offsets[:-1]
+    order = plan.order.long()
     return kernels.NodeIncidence(
         elnodes.T.contiguous().to(torch.int32),
-        torch.searchsorted(nodes, bounds).to(torch.int32),
-        (3 * slot * ne + e).to(torch.int32))
+        torch.cumsum(counts, 0, dtype=torch.int32),
+        (3 * (order % 10) * ne + order // 10).to(torch.int32))
 
 
 def _incidence(eldofs, ndof, incidence):
     return incidence if incidence is not None else node_incidence(eldofs[:, ::3] // 3, ndof // 3)
 
 
-def make_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, ndof: int, incidence=None):
+def _blocks(esm_t, packed):
+    """What K1 reads: on the CPU the full blocks, on the card their packed
+    copy (made here when not given)."""
+    if esm_t.device.type == "cpu":
+        return esm_t
+    return packed if packed is not None else kernels.pack_blocks(esm_t)
+
+
+def make_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, ndof: int, incidence=None,
+                packed=None):
     """Raw ``K @ v`` from element-major blocks ``esm_t`` (30, 30, ne)
     through K1.  ``incidence``, the :func:`node_incidence` of the elements
-    of ``eldofs`` (ne, 30) over ``ndof // 3`` nodes, is built here when not
-    given."""
+    of ``eldofs`` (ne, 30) over ``ndof // 3`` nodes, and on the card
+    ``packed``, the blocks' :func:`~fcvm_tpu_torch.ops.kernels.pack_blocks`
+    copy, are made here when not given."""
     inc = _incidence(eldofs, ndof, incidence)
+    blocks = _blocks(esm_t, packed)
 
     def kv(u):
-        return kernels.khat_matvec(esm_t, inc, u.contiguous())  # K1 reads a dense vector
+        return kernels.khat_matvec(blocks, inc, u.contiguous())  # a dense vector
 
     return kv
 
 
 def make_bc_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.Tensor,
-                   incidence=None):
+                   incidence=None, packed=None):
     """``K_hat @ v`` with eliminated Dirichlet dofs through K1:
     ``K_hat u = P K P u + (I - P) u`` with ``P = diag(fixmask)`` — the same
     solution space as the reference's row/column elimination
     (``fcVM.py:771-796``).  ``esm_t`` is element-major (30, 30, ne);
-    ``incidence`` as in :func:`make_matvec`."""
+    ``incidence`` and ``packed`` as in :func:`make_matvec`."""
     inc = _incidence(eldofs, fixmask.shape[0], incidence)
+    blocks = _blocks(esm_t, packed)
 
     def khat(u):
-        return kernels.khat_matvec(esm_t, inc, u.contiguous(), fixmask)
+        return kernels.khat_matvec(blocks, inc, u.contiguous(), fixmask)
 
     return khat
 
@@ -235,12 +261,13 @@ def make_multi_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.
     with ``negate``), over element-major blocks ``esm_t`` (30, 30, ne).
 
     The node-row gather of ``U`` gives the (ne, 30, m) layout K0m reads,
-    and K0m's output reshapes to node rows for ``index_add_``: no copy on
-    either side.  ``identity_on_fixed`` gives ``K_hat @ U``; without it and
-    with ``negate``, ``-G_hat @ U`` of the buckling pencil (zero on fixed
-    dofs); ``fixmask`` all ones gives the raw ``K @ U``."""
+    and K0m's output reshapes to node rows for K8's node sum (its plan
+    built here, once): no copy on either side.  ``identity_on_fixed`` gives
+    ``K_hat @ U``; without it and with ``negate``, ``-G_hat @ U`` of the
+    buckling pencil (zero on fixed dofs); ``fixmask`` all ones gives the
+    raw ``K @ U``."""
     elnodes = eldofs[:, ::3] // 3
-    flat = elnodes.reshape(-1)
+    plan = kernels.segment_plan(elnodes)
     ne = elnodes.shape[0]
     nn = fixmask.shape[0] // 3
     pm = fixmask[:, None]
@@ -250,7 +277,7 @@ def make_multi_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.
         ue = (pm * u).reshape(nn, 3, m)[elnodes].reshape(ne, 30, m)  # node-row gather
         fe = kernels.block_matmat(esm_t, ue)
         out = torch.zeros((nn, 3, m), dtype=u.dtype, device=u.device)
-        out.index_add_(0, flat, fe.reshape(ne * 10, 3, m))
+        kernels.segment_sum(fe.reshape(ne * 10, 3, m), plan, out)
         y = pm * out.reshape(nn * 3, m)
         if identity_on_fixed:
             y = y + (1.0 - pm) * u
@@ -259,22 +286,29 @@ def make_multi_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.
     return mv
 
 
-def dirichlet_rhs(esm_t, eldofs, fixmask, u_fix, glv, incidence=None):
+def dirichlet_rhs(esm_t, eldofs, fixmask, u_fix, glv, incidence=None, packed=None):
     """Full RHS ``f = P glv - (P K u_fix) + u_fix`` (``fcVM.py:1128``) over
-    element-major blocks ``esm_t`` (30, 30, ne); ``incidence`` as in
-    :func:`make_matvec`."""
-    kv = make_matvec(esm_t, eldofs, fixmask.shape[0], incidence)
+    element-major blocks ``esm_t`` (30, 30, ne); ``incidence`` and
+    ``packed`` as in :func:`make_matvec`."""
+    kv = make_matvec(esm_t, eldofs, fixmask.shape[0], incidence, packed)
     return fixmask * glv - fixmask * kv(u_fix) + u_fix
 
 
-def block_jacobi_inverse_blocks(esm, elnodes, fixmask, reduce=None):
+def jacobi_plan(elnodes: torch.Tensor) -> kernels.SegmentPlan:
+    """The segment plan of :func:`block_jacobi_inverse_blocks`'s node sum
+    over the elements ``elnodes`` (ne, 10): slot-major keys."""
+    return kernels.segment_plan(elnodes.T)
+
+
+def block_jacobi_inverse_blocks(esm, elnodes, fixmask, reduce=None, plan=None):
     """Inverse 3x3 nodal diagonal blocks of ``K_hat`` (nn, 3, 3).
 
     Fixed dofs get identity rows/columns so the preconditioner is
     consistent with :func:`make_bc_matvec`.  ``esm`` (ne, 30, 30).
     ``reduce``, when given, sums the nodal blocks of a part of the mesh
     over the parts before they are inverted (the sharded backend's
-    ``all_reduce``).
+    ``all_reduce``).  ``plan``, the :func:`jacobi_plan` of ``elnodes``, is
+    built here when not given.
     """
     ne = esm.shape[0]
     nn = fixmask.shape[0] // 3
@@ -282,7 +316,8 @@ def block_jacobi_inverse_blocks(esm, elnodes, fixmask, reduce=None):
     # diag[n, e] = esm[e, 3n:3n+3, 3n:3n+3] -> (10, ne, 3, 3)
     diag = esm.reshape(ne, 10, 3, 10, 3)[:, idx, :, idx, :]
     nodal = torch.zeros((nn, 3, 3), dtype=esm.dtype, device=esm.device)
-    nodal.index_add_(0, elnodes.T.reshape(-1), diag.reshape(-1, 3, 3))
+    kernels.segment_sum(diag.reshape(-1, 3, 3).contiguous(),
+                        plan if plan is not None else jacobi_plan(elnodes), nodal)
     if reduce is not None:
         nodal = reduce(nodal)
     m3 = fixmask.reshape(nn, 3)

@@ -9,8 +9,15 @@
 * K1 :func:`khat_matvec`, the fused K_hat·v (gather -> element pass ->
   fixed-order node sum -> Dirichlet mask), replaces the XLA-lowered
   ``fcvm_tpu/ops/assembly.py::make_matvec``/``make_bc_matvec`` with its
-  ``ScatterPlan`` node sum; source ``csrc/khat_matvec.cu`` (its element
-  pass is K0's, ``csrc/element_pass.cuh``).
+  ``ScatterPlan`` node sum; source ``csrc/khat_matvec.cu``.  On the card it
+  reads the blocks' upper triangles, packed tile by tile
+  (:func:`pack_blocks`), streamed by bulk asynchronous copies.
+* K8 :func:`segment_sum`, the fixed-order segment sum of a
+  :class:`SegmentPlan`, replaces the node reductions of the JAX package
+  (``fcvm_tpu/ops/assembly.py::scatter_node_rows`` with its
+  ``ScatterPlan``, and ``jax.ops.segment_sum``); source
+  ``csrc/segment_sum.cu``.  Every node reduction of the port runs through
+  it, so none is an atomic scatter-add on the card.
 * K4 :func:`two_level_apply`, the fused two-level preconditioner apply on
   a vector, replaces the XLA-lowered
   ``fcvm_tpu/ops/precond.py::TwoLevelPrecond.apply``; source
@@ -21,9 +28,12 @@
   source ``csrc/bw_probe.cu``.
 
 K1 and K4 carry the solver's CG iteration (every ``K_hat @ v`` and raw
-``K @ v``, every preconditioner apply on a vector); K0m is the block stage
-of the multi-column K_hat·V and -G_hat·V (the buckling eigensolve, the
-deflation Galerkin and correction builds); K0, K0p and Kbw serve the
+``K @ v``, every preconditioner apply on a vector); K8 every sum of element
+rows into nodes outside K1 (the internal force of every residual, the
+loads, the block products' node pass, the preconditioner builds); K0m is
+the block stage of the multi-column K_hat·V and -G_hat·V (the buckling
+eigensolve, the deflation Galerkin and correction builds); K0, K0p and Kbw
+serve the
 bandwidth probe (:mod:`fcvm_tpu_torch.tools.bw_probe`).  What bounds each
 on the card and how its design answers that is written at the top of its
 source.
@@ -31,8 +41,8 @@ source.
 Dispatch is by the tensors' device: on CPU tensors a wrapper runs the plain
 version (``*_ref``), on CUDA tensors it launches the kernel or raises.  There
 is no fallback from a failed build or launch.  Each wrapper counts its
-kernel launches in its ``launches`` attribute; K0, K1 and K4 also count them
-by dtype in their ``dtypes``, K0m by dtype and column count in
+kernel launches in its ``launches`` attribute; K0, K1, K4 and K8 also count
+them by dtype in their ``dtypes``, K0m by dtype and column count in
 ``block_matmat.shapes``.
 
 The kernels are compiled at first use by ``torch.utils.cpp_extension.load``
@@ -56,7 +66,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("ops.cpp", "block_matvec.cu", "block_matmat.cu", "khat_matvec.cu", "two_level.cu",
-           "bw_probe.cu")
+           "segment_sum.cu", "bw_probe.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3")
 
 
@@ -214,11 +224,56 @@ class NodeIncidence(NamedTuple):
     pos: torch.Tensor
 
 
+# K1's packed blocks: the upper triangle i <= j of each 30x30 block, row by
+# row, PACK_TILE[dtype] elements a tile (1 KB a packed row), the tiles one
+# after the other; the kernel streams PACK_ROWS packed rows a copy
+NPACK = 465  # 30 * 31 / 2
+PACK_ROWS = 31  # 465 = 15 x 31
+PACK_TILE = {torch.float32: 256, torch.float64: 128}
+
+
+def _triu(device):
+    return torch.triu_indices(30, 30, device=device)  # row-major, i <= j
+
+
+def pack_blocks(esm_t: torch.Tensor) -> torch.Tensor:
+    """K1's packed copy of element-major blocks ``esm_t`` (30, 30, ne):
+    ``(ntiles, 465, E)`` with ``packed[t, q, k]`` the upper-triangle entry
+    ``q`` (row-major, ``i <= j``) of element ``t E + k``, ``E`` =
+    ``PACK_TILE[dtype]``, the last tile zero-padded.  Plain indexing, once
+    per operator; the blocks must be symmetric (``B^T D B``), which the
+    tests check."""
+    if esm_t.dim() != 3 or esm_t.shape[:2] != (30, 30):
+        raise ValueError(f"pack_blocks: shape {tuple(esm_t.shape)}; expected (30, 30, ne)")
+    if esm_t.dtype not in PACK_TILE:
+        raise TypeError(f"pack_blocks: dtype {esm_t.dtype}; expected float32 or float64")
+    tile, ne = PACK_TILE[esm_t.dtype], esm_t.shape[2]
+    ntiles = -(-ne // tile)
+    iu = _triu(esm_t.device)
+    upper = torch.nn.functional.pad(esm_t[iu[0], iu[1]], (0, ntiles * tile - ne))
+    return upper.reshape(NPACK, ntiles, tile).transpose(0, 1).contiguous()
+
+
+def unpack_blocks(packed: torch.Tensor, ne: int) -> torch.Tensor:
+    """The symmetric element-major blocks (30, 30, ne) of a
+    :func:`pack_blocks` copy: each packed entry at ``(i, j)`` and ``(j, i)``."""
+    ntiles, npack, tile = packed.shape
+    if npack != NPACK or not (ntiles - 1) * tile < ne <= ntiles * tile:
+        raise ValueError(f"unpack_blocks: packed {tuple(packed.shape)} for {ne} elements")
+    upper = packed.transpose(0, 1).reshape(NPACK, ntiles * tile)[:, :ne]
+    iu = _triu(packed.device)
+    out = torch.empty((30, 30, ne), dtype=packed.dtype, device=packed.device)
+    out[iu[1], iu[0]] = upper
+    out[iu[0], iu[1]] = upper
+    return out
+
+
 def khat_matvec_ref(esm_t: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
                     fixmask=None) -> torch.Tensor:
-    """Plain version of K1: the gather of ``P u`` (``u`` without
-    ``fixmask``) at the element dofs, K0's plain version, ``index_add_``
-    into the dofs and, with ``fixmask``, ``P (.) + (I - P) u``."""
+    """Plain version of K1 on full blocks (the CPU's path): the gather of
+    ``P u`` (``u`` without ``fixmask``) at the element dofs, K0's plain
+    version, ``index_add_`` into the dofs and, with ``fixmask``,
+    ``P (.) + (I - P) u``."""
     ne = esm_t.shape[-1]
     a3 = torch.arange(3, device=u.device)
     eldofs_t = (3 * inc.elnodes_t.long()[:, None, :] + a3[None, :, None]).reshape(30, ne)
@@ -231,14 +286,23 @@ def khat_matvec_ref(esm_t: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
     return fixmask * out + (1.0 - fixmask) * u
 
 
-def khat_matvec(esm_t: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
+def khat_matvec_packed_ref(packed: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
+                           fixmask=None) -> torch.Tensor:
+    """Plain version of K1 on the card: the packed blocks unpacked to
+    symmetric blocks, then :func:`khat_matvec_ref`."""
+    return khat_matvec_ref(unpack_blocks(packed, inc.elnodes_t.shape[1]), inc, u, fixmask)
+
+
+def khat_matvec(blocks: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
                 fixmask=None) -> torch.Tensor:
     """K1: ``K_hat u = P K (P u) + (I - P) u`` with ``P = diag(fixmask)``,
     or the raw ``K u`` without ``fixmask`` (design and bound at the top of
     ``csrc/khat_matvec.cu``).
 
     Args:
-      esm_t: (30, 30, ne) element blocks, element-major, float32 or float64.
+      blocks: the element blocks, float32 or float64: on the CPU the full
+        element-major blocks (30, 30, ne), which the plain version reads;
+        on the card their :func:`pack_blocks` copy, which the kernel reads.
       inc: the element numbering's :class:`NodeIncidence` over ``nn`` nodes.
       u: (3 nn,) dof vector, same dtype and device.
       fixmask: (3 nn,) 1 on free dofs, 0 on fixed ones, or None.
@@ -248,31 +312,38 @@ def khat_matvec(esm_t: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
       kernel (``khat_matvec.launches`` counts those launches), whose sums
       run in a fixed order: two calls on the same inputs give the same bits.
     """
-    ne = esm_t.shape[-1]
+    ne = inc.elnodes_t.shape[1] if inc.elnodes_t.dim() == 2 else -1
     nn = inc.offsets.shape[0] - 1
-    if (esm_t.shape != (30, 30, ne) or inc.elnodes_t.shape != (10, ne)
-            or inc.pos.shape != (10 * ne,) or u.shape != (3 * nn,)
-            or (fixmask is not None and fixmask.shape != u.shape)):
+    if (inc.elnodes_t.shape != (10, ne) or inc.pos.shape != (10 * ne,)
+            or u.shape != (3 * nn,) or (fixmask is not None and fixmask.shape != u.shape)):
         raise ValueError(
-            f"khat_matvec: shapes {tuple(esm_t.shape)}, elnodes_t "
-            f"{tuple(inc.elnodes_t.shape)}, {nn} nodes, pos {tuple(inc.pos.shape)}, u "
-            f"{tuple(u.shape)}; expected (30, 30, ne), (10, ne), (10 ne,), (3 nn,)")
-    tensors = (esm_t, u, *inc) + (() if fixmask is None else (fixmask,))
+            f"khat_matvec: elnodes_t {tuple(inc.elnodes_t.shape)}, {nn} nodes, pos "
+            f"{tuple(inc.pos.shape)}, u {tuple(u.shape)}; expected (10, ne), (10 ne,), (3 nn,)")
+    tensors = (blocks, u, *inc) + (() if fixmask is None else (fixmask,))
     if all(t.device.type == "cpu" for t in tensors):
-        return khat_matvec_ref(esm_t, inc, u, fixmask)
-    if esm_t.device.type != "cuda" or any(t.device != esm_t.device for t in tensors):
+        if blocks.shape != (30, 30, ne):
+            raise ValueError(f"khat_matvec: CPU blocks {tuple(blocks.shape)}; expected the "
+                             f"full blocks (30, 30, {ne})")
+        return khat_matvec_ref(blocks, inc, u, fixmask)
+    if blocks.device.type != "cuda" or any(t.device != blocks.device for t in tensors):
         raise ValueError("khat_matvec: tensors on several devices; expected all on the CPU "
                          "or all on one CUDA device")
-    if (esm_t.dtype not in (torch.float32, torch.float64) or u.dtype != esm_t.dtype
-            or (fixmask is not None and fixmask.dtype != esm_t.dtype)):
-        raise TypeError(f"khat_matvec: dtypes {esm_t.dtype}/{u.dtype}; expected float32 or "
+    if (blocks.dtype not in PACK_TILE or u.dtype != blocks.dtype
+            or (fixmask is not None and fixmask.dtype != blocks.dtype)):
+        raise TypeError(f"khat_matvec: dtypes {blocks.dtype}/{u.dtype}; expected float32 or "
                         "float64 throughout")
+    tile = PACK_TILE[blocks.dtype]
+    if (blocks.dim() != 3 or blocks.shape[1:] != (NPACK, tile)
+            or not (blocks.shape[0] - 1) * tile < ne <= blocks.shape[0] * tile):
+        raise ValueError(f"khat_matvec: CUDA blocks {tuple(blocks.shape)} for {ne} "
+                         f"elements; expected (ntiles, {NPACK}, {tile}) from pack_blocks")
     if any(t.dtype != torch.int32 for t in inc):
         raise TypeError("khat_matvec: the incidence tables must be int32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("khat_matvec: inputs must be contiguous")
+    if not all(t.is_contiguous() for t in tensors) or blocks.data_ptr() % 16:
+        raise ValueError("khat_matvec: inputs must be contiguous, the packed blocks "
+                         "16-byte aligned")
     build()
-    out = torch.ops.fcvm.khat_matvec(esm_t, inc.elnodes_t, inc.offsets, inc.pos, u, fixmask)
+    out = torch.ops.fcvm.khat_matvec(blocks, inc.elnodes_t, inc.offsets, inc.pos, u, fixmask)
     khat_matvec.launches += 1
     khat_matvec.dtypes[_dtype_name(u)] += 1
     return out
@@ -280,6 +351,106 @@ def khat_matvec(esm_t: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
 
 khat_matvec.launches = 0
 khat_matvec.dtypes = Counter()  # launches by dtype name
+
+
+class SegmentPlan(NamedTuple):
+    """K8's plan of one fixed set of keys: value row ``p`` adds into row
+    ``keys[p]`` of the output (built by :func:`segment_plan`).
+
+    Fields:
+      keys: (n,) int64, the plain version's ``index_add_`` index.
+      order: (n,) int32, the value rows grouped by key in ascending key
+        order, each group in ascending row order (a stable sort).
+      offsets: (nu + 1,) int32, each group's range in ``order``.
+      segs: (nu,) int32, each group's key: the output rows the kernel
+        writes; every other row keeps its value.
+      top: the largest key in ``segs`` plus one (0 when empty): the least
+        number of output rows.
+    """
+
+    keys: torch.Tensor
+    order: torch.Tensor
+    offsets: torch.Tensor
+    segs: torch.Tensor
+    top: int
+
+
+def segment_plan(keys: torch.Tensor, drop=None) -> SegmentPlan:
+    """The :class:`SegmentPlan` of ``keys`` (any shape, flattened): one
+    stable sort on their device, the JAX package's ``ScatterPlan`` order.
+    Rows whose key is ``drop`` are left out of the kernel's sums (a dump
+    row nobody reads); the plain version still adds them."""
+    keys = keys.reshape(-1).long()
+    n = keys.shape[0]
+    if n >= 2**31 or (n and int(keys.max()) >= 2**31) or (n and int(keys.min()) < 0):
+        raise ValueError("segment_plan: K8's int32 tables need fewer than 2^31 rows and "
+                         "keys in [0, 2^31)")
+    sorted_keys, order = torch.sort(keys, stable=True)
+    if drop is not None:
+        keep = sorted_keys != drop
+        sorted_keys, order = sorted_keys[keep], order[keep]
+    segs, counts = torch.unique_consecutive(sorted_keys, return_counts=True)
+    offsets = torch.zeros(segs.shape[0] + 1, dtype=torch.int64, device=keys.device)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    top = int(segs[-1]) + 1 if segs.shape[0] else 0
+    return SegmentPlan(keys, order.to(torch.int32), offsets.to(torch.int32),
+                       segs.to(torch.int32), top)
+
+
+def segment_sum_ref(vals: torch.Tensor, plan: SegmentPlan, out: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: ``out.index_add_(0, plan.keys, vals)``."""
+    return out.index_add_(0, plan.keys, vals)
+
+
+def segment_sum(vals: torch.Tensor, plan: SegmentPlan, out: torch.Tensor) -> torch.Tensor:
+    """K8: ``out[keys[p]] += vals[p]`` for every row ``p`` of ``vals``, each
+    output row summed in the plan's fixed order, in place (design and
+    bound at the top of ``csrc/segment_sum.cu``).
+
+    Args:
+      vals: (n, ...) values, float32 or float64, contiguous.
+      plan: the :class:`SegmentPlan` of the n rows' keys.
+      out: (nseg, ...) accumulator, the trailing shape of ``vals``, same
+        dtype and device, contiguous.
+
+    Returns:
+      ``out``.  CPU tensors take the plain version; CUDA tensors launch the
+      kernel (``segment_sum.launches`` counts those launches): no atomics,
+      so two calls on the same inputs give the same bits.
+    """
+    if (vals.dim() < 1 or out.dim() != vals.dim() or out.shape[1:] != vals.shape[1:]
+            or plan.keys.shape != vals.shape[:1] or plan.order.shape[0] > vals.shape[0]
+            or plan.offsets.shape != (plan.segs.shape[0] + 1,)):
+        raise ValueError(
+            f"segment_sum: vals {tuple(vals.shape)}, out {tuple(out.shape)}, plan of "
+            f"{plan.keys.shape[0]} keys; expected (n, ...), (nseg, ...) and n keys")
+    if not (vals.is_contiguous() and out.is_contiguous()):
+        raise ValueError("segment_sum: vals and out must be contiguous")
+    tensors = (vals, out, plan.keys, plan.order, plan.offsets, plan.segs)
+    if all(t.device.type == "cpu" for t in tensors):
+        return segment_sum_ref(vals, plan, out)
+    if out.device.type != "cuda" or any(t.device != out.device for t in tensors):
+        raise ValueError("segment_sum: tensors on several devices; expected all on the CPU "
+                         "or all on one CUDA device")
+    if out.dtype not in (torch.float32, torch.float64) or vals.dtype != out.dtype:
+        raise TypeError(f"segment_sum: dtypes {vals.dtype}/{out.dtype}; expected both "
+                        "float32 or both float64")
+    if any(t.dtype != torch.int32 for t in (plan.order, plan.offsets, plan.segs)):
+        raise TypeError("segment_sum: the plan's order, offsets and segs must be int32")
+    if not plan.top <= out.shape[0] < 2**31:
+        raise ValueError(f"segment_sum: {out.shape[0]} output rows; the plan needs "
+                         f"{plan.top} and the kernel fewer than 2^31")
+    if plan.segs.shape[0] == 0 or out.numel() == 0:
+        return out
+    build()
+    torch.ops.fcvm.segment_sum(vals, plan.order, plan.offsets, plan.segs, out)
+    segment_sum.launches += 1
+    segment_sum.dtypes[_dtype_name(out)] += 1
+    return out
+
+
+segment_sum.launches = 0
+segment_sum.dtypes = Counter()  # launches by dtype name
 
 
 def two_level_apply_ref(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):

@@ -114,9 +114,11 @@ def apply_precond(pc, r):
     return asm.apply_block_precond(pc, r)
 
 
-def refresh_blocks(pc, esm, elnodes, fixmask):
+def refresh_blocks(pc, esm, elnodes, fixmask, plan=None):
     """Rebuild the block-Jacobi part after a tangent refresh from the
-    blocks ``esm`` (ne, 30, 30), keeping the two-level coarse correction of
+    blocks ``esm`` (ne, 30, 30) (``plan``: the
+    :func:`~fcvm_tpu_torch.ops.assembly.jacobi_plan` of ``elnodes``, built
+    when not given), keeping the two-level coarse correction of
     the elastic operator (a preconditioner only needs to stay SPD and
     spectrally close, as the reference keeps its elastic factor,
     ``fcVM.py:1400-1406``).  Returns the new preconditioner: a
@@ -125,7 +127,7 @@ def refresh_blocks(pc, esm, elnodes, fixmask):
     elastic cluster inverses stay, and nothing is rebuilt."""
     if isinstance(pc, TwoLevelPrecond) and pc.smooth_inv is not None:
         return pc
-    pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
+    pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask, plan=plan)
     if isinstance(pc, TwoLevelPrecond):
         return pc._replace(pinv=pinv)
     return pinv
@@ -187,12 +189,17 @@ def qmat_bc(coords, fixmask, cluster_size: int, n_modes: int = 6):
     return q * m3[:, :, None]
 
 
-def coarse_accumulate(esm, elnodes, qmat, cluster_size: int, chunk: int = 8192):
+# elements a chunk of the coarse table's and of the smoother's accumulation
+COARSE_CHUNK, SMOOTHER_CHUNK = 8192, 4096
+
+
+def coarse_accumulate(esm, elnodes, qmat, cluster_size: int, chunk: int = COARSE_CHUNK):
     """Galerkin pair-block accumulation into the (ncl*ncl, nm*nm) layout.
 
     Per element ``S_e = Q~ B_e Q~^T`` with the block-diagonal element mode
     matrix ``Q~`` (10 nm, 30); its (nm, nm) pair blocks are added at key
-    ``cluster(i) * ncl + cluster(j)``.  Chunked over elements to bound the
+    ``cluster(i) * ncl + cluster(j)``, each chunk's in a fixed order by K8
+    over the chunk's segment plan.  Chunked over elements to bound the
     (chunk, 10 nm, 10 nm) intermediate."""
     ne = esm.shape[0]
     nm = qmat.shape[2]
@@ -208,10 +215,16 @@ def coarse_accumulate(esm, elnodes, qmat, cluster_size: int, chunk: int = 8192):
         s_blk = qt @ esm_c @ qt.transpose(1, 2)  # (c, 10 nm, 10 nm)
         pair = (s_blk.reshape(c, 10, nm, 10, nm).permute(0, 1, 3, 2, 4)
                 .reshape(c * 100, nm * nm))
-        ci = eln_c // cluster_size
-        keys = (ci[:, :, None] * ncl + ci[:, None, :]).reshape(-1)
-        kc.index_add_(0, keys, pair)
+        keys = coarse_keys(eln_c, cluster_size, ncl)
+        kernels.segment_sum(pair, kernels.segment_plan(keys), kc)
     return kc
+
+
+def coarse_keys(eln_c, cluster_size: int, ncl: int):
+    """(c 100,) keys of a chunk's pair blocks in :func:`coarse_accumulate`:
+    ``cluster(i) * ncl + cluster(j)`` for each element's node pair (i, j)."""
+    ci = eln_c // cluster_size
+    return (ci[:, :, None] * ncl + ci[:, None, :]).reshape(-1)
 
 
 def _coarse_densify_scale(kc, ridge: float):
@@ -317,29 +330,37 @@ def cluster_diag_inverse(esm, elnodes, fixmask, cs: int):
     return inv.masked_fill_((info != 0)[:, None, None], float("nan"))
 
 
-def cluster_diag_blocks(esm, elnodes, fixmask, cs: int, chunk: int = 4096):
+def cluster_diag_blocks(esm, elnodes, fixmask, cs: int, chunk: int = SMOOTHER_CHUNK):
     """The (ncl, 3 cs, 3 cs) diagonal blocks of ``K_hat`` over clusters of
     ``cs`` nodes, fixed dofs masked to the identity.  Each element's
     same-cluster 3x3 node pairs are added into a flat (ncl 3cs cs + 1, 3)
     accumulator (row = cluster, block row, column node; pairs across
-    clusters go to the last, dump row), chunked over elements."""
+    clusters go to the last, dump row, which K8 skips), chunked over
+    elements, each chunk summed in a fixed order by K8."""
     nn_pad = fixmask.shape[0] // 3
     if nn_pad % cs:
         raise ValueError(f"{nn_pad} padded nodes are not a multiple of {cs}")
     ncl, m = nn_pad // cs, 3 * cs
     nrow = ncl * m * cs  # flat (cluster, block row, column node) 3-wide rows
     acc = torch.zeros((nrow + 1, 3), dtype=esm.dtype, device=esm.device)
-    a3 = torch.arange(3, device=esm.device)
     for s in range(0, esm.shape[0], chunk):
         esm_c, eln_c = esm[s:s + chunk], elnodes[s:s + chunk]
-        cid, loc = eln_c // cs, eln_c % cs  # (c, 10)
         # [e, i, j, a, b] = esm[e, 3i + a, 3j + b]
         pair = esm_c.reshape(-1, 10, 3, 10, 3).permute(0, 1, 3, 2, 4)
-        row = 3 * loc[:, :, None, None] + a3  # (c, 10, 1, 3)
-        key = (cid[:, :, None, None] * m + row) * cs + loc[:, None, :, None]
-        key = torch.where((cid[:, :, None] == cid[:, None, :])[..., None], key, nrow)
-        acc.index_add_(0, key.reshape(-1), pair.reshape(-1, 3))
+        key = cluster_diag_keys(eln_c, cs, nrow)
+        kernels.segment_sum(pair.reshape(-1, 3), kernels.segment_plan(key, drop=nrow), acc)
     mask = fixmask.reshape(ncl, m)
     blocks = acc[:-1].reshape(ncl, m, m).mul_(mask[:, :, None]).mul_(mask[:, None, :])
     blocks.diagonal(dim1=1, dim2=2).add_(1.0 - mask)
     return blocks
+
+
+def cluster_diag_keys(eln_c, cs: int, nrow: int):
+    """(c, 10, 10, 3) keys of a chunk's 3-wide rows in
+    :func:`cluster_diag_blocks`: row ``[e, i, j, a]`` (``esm[e, 3i + a,
+    3j:3j + 3]``) goes to the flat row (cluster, block row, column node)
+    when nodes i and j share a cluster, else to the dump row ``nrow``."""
+    cid, loc = eln_c // cs, eln_c % cs  # (c, 10)
+    row = 3 * loc[:, :, None, None] + torch.arange(3, device=eln_c.device)  # (c, 10, 1, 3)
+    key = (cid[:, :, None, None] * (3 * cs) + row) * cs + loc[:, None, :, None]
+    return torch.where((cid[:, :, None] == cid[:, None, :])[..., None], key, nrow)

@@ -8,7 +8,9 @@ deformation gradient ``F = I + d(du)/dx`` as ``F sigma F^T / det F``
 ``sig_c + D deps``, radial return to the von Mises surface, and the
 internal force ``qin = sum_e sum_g B^T sigma w |J|`` (``fcVM.py:2196-2464``).
 Float32 products run in full float32 (no TF32): a lower-precision internal
-force floors the Newton residual.
+force floors the Newton residual.  The element rows are summed into nodes by
+K8 (:func:`fcvm_tpu_torch.ops.kernels.segment_sum`) in a fixed order, so two
+residuals at the same state give the same bits on the card too.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from fcvm_tpu_torch.ops import elements as el
+from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import material as mat
 from fcvm_tpu_torch.utils.linalg3 import det3
 
@@ -45,21 +48,26 @@ def _geometry(coords_el):
     return dshpg, bmat, w * det.abs()
 
 
-def _internal_force(bmat, scale, sig, elnodes, ndof, weights=None, reduce=None):
+def _internal_force(bmat, scale, sig, elnodes, ndof, weights=None, reduce=None, plan=None):
     """``sum_e sum_g B_g^T sig_g w_g |J_g|`` (``fcVM.py:2448-2462``); each
     element's share scaled by ``weights`` (ne,) when given, the node vector
-    passed through ``reduce`` when given (see :func:`update_stress_load`)."""
+    passed through ``reduce`` when given (see :func:`update_stress_load`);
+    the node sum is K8's over ``plan``, the segment plan of ``elnodes``
+    (built here when not given)."""
     elv = torch.einsum("egkn,egk,eg->en", bmat, sig, scale)
     if weights is not None:
         elv = elv * weights[:, None]
-    dofs = 3 * elnodes[:, :, None] + torch.arange(3, device=elnodes.device)
-    qin = torch.zeros(ndof, dtype=elv.dtype, device=elv.device)
-    qin.index_add_(0, dofs.reshape(-1), elv.reshape(-1))
+    if plan is None:
+        plan = kernels.segment_plan(elnodes)
+    qin = torch.zeros((ndof // 3, 3), dtype=elv.dtype, device=elv.device)
+    kernels.segment_sum(elv.reshape(-1, 3).contiguous(), plan, qin)
+    qin = qin.reshape(-1)
     return qin if reduce is None else reduce(qin)
 
 
 def update_stress_load(coords, elnodes, dmat, sig_yield, disp, du, sig_old,
-                       e, nu, et_e, large_disp: bool = False, weights=None, reduce=None):
+                       e, nu, et_e, large_disp: bool = False, weights=None, reduce=None,
+                       plan=None):
     """Full-mesh stress update + internal force.
 
     Args:
@@ -76,6 +84,9 @@ def update_stress_load(coords, elnodes, dmat, sig_yield, disp, du, sig_old,
         the sharded backend's padding elements).
       reduce: optional sum of the internal force over the parts of a
         partitioned mesh (the sharded backend's ``all_reduce``).
+      plan: the :func:`~fcvm_tpu_torch.ops.kernels.segment_plan` of
+        ``elnodes``, the internal force's node sum (built here when not
+        given; a backend builds it once).
 
     Returns:
       (sig_new, sig_test, pgp, qin): stresses (ne, 4, 6), trial stresses
@@ -100,20 +111,20 @@ def update_stress_load(coords, elnodes, dmat, sig_yield, disp, du, sig_old,
         sig_c = _tensor_to_voigt(s_conv / det3(f)[..., None, None])
     sig_test = sig_c + mat.apply_dmat(dmat, deps)
     sig_new, pgp = mat.radial_return(sig_test, sig_yield, h, g)
-    qin = _internal_force(bmat, scale, sig_new, elnodes, disp.shape[0], weights, reduce)
+    qin = _internal_force(bmat, scale, sig_new, elnodes, disp.shape[0], weights, reduce, plan)
     return sig_new, sig_test, pgp, qin
 
 
 def internal_force_from_stress(coords, elnodes, sig_gp, disp, large_disp: bool = False,
-                               weights=None, reduce=None):
+                               weights=None, reduce=None, plan=None):
     """``qin = sum_e B^T sigma w |J|`` for a given stress field (the
     reaction of the target-LF interception state, whose stress is a linear
     interpolation, ``fcVM.py:1486-1510``); with ``large_disp`` on the
     deformed coordinates.  A float64 ``disp`` (the refinement tier's) is
     cast to the storage dtype of ``coords`` first: the record stays in it.
-    ``weights`` and ``reduce`` as in :func:`update_stress_load`."""
+    ``weights``, ``reduce`` and ``plan`` as in :func:`update_stress_load`."""
     coords_el = coords[elnodes]
     if large_disp:
         coords_el = coords_el + disp.to(coords.dtype).reshape(-1, 3)[elnodes]
     _, bmat, scale = _geometry(coords_el)
-    return _internal_force(bmat, scale, sig_gp, elnodes, disp.shape[0], weights, reduce)
+    return _internal_force(bmat, scale, sig_gp, elnodes, disp.shape[0], weights, reduce, plan)

@@ -13,8 +13,8 @@ per device instead of one process driving a mesh.
   the world size.
 * **Node vectors are replicated.**  Every operator application runs K1's
   raw form (:func:`fcvm_tpu_torch.ops.kernels.khat_matvec`, over the rank's
-  own node-incidence table) or K0m (``block_matmat``, reduced with
-  ``index_add_``) on the rank's blocks and ends in exactly one
+  own node-incidence table and packed blocks) or K0m (``block_matmat``,
+  reduced by K8, ``segment_sum``) on the rank's blocks and ends in exactly one
   ``all_reduce`` of the
   ``(ndof_pad,)`` or ``(ndof_pad, k)`` result, then applies the Dirichlet
   mask: the counterpart of the one ``psum``.  The same holds for the
@@ -35,12 +35,11 @@ flow (Newton, CG convergence, restarts, harvests), so two ranks that read
 different bits would take different branches and hang.  Every value that
 decides a branch is computed from all-reduced or broadcast tensors by
 operations that are deterministic on a given device (elementwise work,
-gathers, reductions, cuBLAS and cuSOLVER products and factorisations, host
-numpy); no replicated operation uses an atomic scatter.  The two that
-would (the small load tables' ``index_add_``, and the local eigensolve
-ladder's scatters) are computed on every rank and replaced by rank 0's
-copy (:func:`~fcvm_tpu_torch.parallel.dist.broadcast`).  The tests assert
-that all ranks' histories and CG counts are identical.
+gathers, reductions, the fixed-order node sums of K1 and K8, cuBLAS and
+cuSOLVER products and factorisations, host numpy); no operation uses an
+atomic scatter.  The local eigensolve ladder's result is rank 0's,
+broadcast (:func:`~fcvm_tpu_torch.parallel.dist.broadcast`).  The tests
+assert that all ranks' histories and CG counts are identical.
 """
 
 from __future__ import annotations
@@ -53,6 +52,7 @@ import torch
 
 from fcvm_tpu_torch.ops import assembly as asm
 from fcvm_tpu_torch.ops import deflation as dfl
+from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import material as mat
 from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.precond import (
@@ -114,6 +114,10 @@ class ShardedSystem(TorchSystem):
         self.eln_m_l = self.space.elnodes_m[torch.as_tensor(morton, device=self.device)]
         self.eldofs_m_l = asm.element_dof_ids(self.eln_m_l)
         self.incidence_l = asm.node_incidence(self.eln_m_l, self.nn_pad)
+        # the K8 plans of the rank's node sums: the internal force's and
+        # gravity's (user node ids), the block-Jacobi blocks' (Morton)
+        self.node_plan_l = kernels.segment_plan(self.eln_l)
+        self.jacobi_plan_l = asm.jacobi_plan(self.eln_m_l)
 
         def local(x):  # per-element (ne,) material tables follow their elements
             return x[self._user] if torch.is_tensor(x) and x.dim() == 1 else x
@@ -189,24 +193,27 @@ class ShardedSystem(TorchSystem):
     def _pinv_m(self, esm):
         """Replicated (nn_pad, 3, 3) block-Jacobi inverses, Morton order."""
         return asm.block_jacobi_inverse_blocks(esm, self.eln_m_l, self.space.fixmask_m,
-                                               reduce=pdist.all_reduce)
+                                               reduce=pdist.all_reduce, plan=self.jacobi_plan_l)
 
     def _external_loads(self, coords, disp, follower: bool):
         """:func:`fcvm_tpu_torch.runtime.system.external_loads` over this
         rank's elements: gravity and volume all-reduced, the small load
-        tables (faces, edges, vertices) replicated and the sum taken from
-        rank 0 (their ``index_add_`` rounds differently on each rank)."""
+        tables (faces, edges, vertices) replicated (their fixed-order node
+        sums give every rank the same bits)."""
         ndof = self.ndof_pad
         coords_def = coords + disp.reshape(-1, 3)[: coords.shape[0]] if follower else coords
         ld = self.loads
         glv, gp_coords, volume = asm.gravity_load_and_gp_coords(
-            coords_def, self.eln_l, self.density_l, ld.gravity, ndof, weights=self.w_l)
+            coords_def, self.eln_l, self.density_l, ld.gravity, ndof, weights=self.w_l,
+            plan=self.node_plan_l)
         glv = pdist.all_reduce(glv)
         volume = pdist.all_reduce(volume.reshape(1))[0]
-        glv = glv + asm.pressure_face_loads(coords_def, ld.pressure_faces, ld.pressures, ndof)
-        glv = glv + asm.uniform_face_loads(coords, ld.traction_faces, ld.tractions, ndof)
-        glv = glv + asm.edge_loads(coords, ld.edges, ld.edge_tractions, ndof)
-        glv = pdist.broadcast(glv + asm.vertex_loads(ld.vertices, ld.vertex_forces, ndof))
+        glv = glv + asm.pressure_face_loads(coords_def, ld.pressure_faces, ld.pressures, ndof,
+                                            ld.pressure_plan)
+        glv = glv + asm.uniform_face_loads(coords, ld.traction_faces, ld.tractions, ndof,
+                                           ld.traction_plan)
+        glv = glv + asm.edge_loads(coords, ld.edges, ld.edge_tractions, ndof, ld.edge_plan)
+        glv = glv + asm.vertex_loads(ld.vertices, ld.vertex_forces, ndof, ld.vertex_plan)
         return glv, gp_coords, volume, glv.reshape(-1, 3).sum(dim=0)
 
     def _rhs_m(self, khat: ShardedOperator, glv):
@@ -271,6 +278,7 @@ class ShardedSystem(TorchSystem):
             ncl = pc.coarse_inv.shape[0] // nm
             q = pc.qmat[lo:hi]
             cid = torch.arange(lo, hi, device=self.device) // (pc.qmat.shape[0] // ncl)
+            cid_plan = kernels.segment_plan(cid)
         w = None if defl is None else defl.w[own]
 
         def mv(u):
@@ -282,7 +290,8 @@ class ShardedSystem(TorchSystem):
             z3 = torch.einsum("nab,nb->na", pinv, r3)
             if two_level:
                 rc = torch.zeros((ncl, nm), dtype=r.dtype, device=r.device)
-                rc.index_add_(0, cid, torch.einsum("nak,na->nk", q, fm3 * r3))
+                kernels.segment_sum(torch.einsum("nak,na->nk", q, fm3 * r3).contiguous(),
+                                    cid_plan, rc)
                 zc = pc.coarse_inv @ pdist.all_reduce(rc).T.reshape(-1)  # mode-major
                 z3 = z3 + torch.einsum("nak,nk->na", q, zc.reshape(nm, ncl).T[cid]) * fm3
             z = z3.reshape(-1)
@@ -338,7 +347,7 @@ class ShardedSystem(TorchSystem):
         return sysm.residual(
             coords, self.eln_l, self.dmat_l, sig_yield, disp_new, du, sig_old, self.e_l,
             self.nu_l, et_e, glv, self.fixmask, self.tensor(lbd1), qnorm, large_disp,
-            relax=relax, weights=self.w_l, reduce=pdist.all_reduce)
+            relax=relax, weights=self.w_l, reduce=pdist.all_reduce, plan=self.node_plan_l)
 
     def residual_refined(self, coords, sig_yield, disp_new, du, sig_old, glv,
                          lbd1, qnorm, et_e, large_disp=False, relax=1.0):
@@ -346,16 +355,19 @@ class ShardedSystem(TorchSystem):
             coords, self.eln_l, self.dmat_l, sig_yield, disp_new, du, sig_old, self.e_l,
             self.nu_l, et_e, glv, self.fixmask,
             torch.tensor(float(lbd1), dtype=torch.float64, device=self.device),
-            qnorm, large_disp, relax=relax, weights=self.w_l, reduce=pdist.all_reduce)
+            qnorm, large_disp, relax=relax, weights=self.w_l, reduce=pdist.all_reduce,
+            plan=self.node_plan_l)
 
     def stress_update(self, coords, sig_yield, disp, du, sig_old, et_e, large_disp=False):
         return update_stress_load(coords, self.eln_l, self.dmat_l, sig_yield, disp, du,
                                   sig_old, self.e_l, self.nu_l, et_e, large_disp,
-                                  weights=self.w_l, reduce=pdist.all_reduce)
+                                  weights=self.w_l, reduce=pdist.all_reduce,
+                                  plan=self.node_plan_l)
 
     def internal_force(self, coords, sig_gp, disp, large_disp=False):
         return internal_force_from_stress(coords, self.eln_l, sig_gp, disp, large_disp,
-                                          weights=self.w_l, reduce=pdist.all_reduce)
+                                          weights=self.w_l, reduce=pdist.all_reduce,
+                                          plan=self.node_plan_l)
 
     def update_peeq_csr(self, sig_test, sig_new, sig_yield, peeq, csr, et_e,
                         ultimate_strain):

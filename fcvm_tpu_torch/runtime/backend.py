@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from fcvm_tpu_torch.ops import deflation as dfl
+from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import material as mat
 from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.stress_update import internal_force_from_stress, update_stress_load
@@ -61,6 +62,9 @@ class TorchSystem:
         self.dmat = mat.hooke_dmat(self.e, self.nu, dtype, device)
         self.g = mat.shear_modulus(self.e, self.nu)
         self.elnodes = torch.as_tensor(mesh.elnodes.astype(np.int64), device=device)
+        # the K8 plan of the internal force's and gravity's node sums, over
+        # the user element order the Gauss state keeps
+        self.node_plan = kernels.segment_plan(self.elnodes)
 
         def vec(a):
             return torch.as_tensor(pad_vector(a, self.ndof_pad), device=device).to(dtype)
@@ -111,7 +115,7 @@ class TorchSystem:
     def assemble(self, coords):
         return sysm.assemble_elastic(
             coords, self.elnodes, self.dmat, self.loads, self.density,
-            self.fixmask, self.u_fix)
+            self.fixmask, self.u_fix, self.node_plan)
 
     def operator(self, esm):
         """K_hat·v in the solve space over blocks ``esm`` (user order)."""
@@ -175,14 +179,14 @@ class TorchSystem:
             coords, self.elnodes, self.dmat, sig_old, pgp, disp_new, self.loads,
             self.density, self.u_fix, self.g, mat.hardening_modulus(self.e, et_e),
             self.rtol, self.maxiter, pc, self.space, ue0=ue0, w=w,
-            solve_predictor=solve_predictor)
+            solve_predictor=solve_predictor, plan=self.node_plan)
 
     def residual(self, coords, sig_yield, disp_new, du, sig_old, glv, lbd1,
                  qnorm, et_e, large_disp=False, relax=1.0):
         return sysm.residual(
             coords, self.elnodes, self.dmat, sig_yield, disp_new, du, sig_old,
             self.e, self.nu, et_e, glv, self.fixmask, self.tensor(lbd1),
-            qnorm, large_disp, relax=relax)
+            qnorm, large_disp, relax=relax, plan=self.node_plan)
 
     def residual_refined(self, coords, sig_yield, disp_new, du, sig_old, glv,
                          lbd1, qnorm, et_e, large_disp=False, relax=1.0):
@@ -192,14 +196,16 @@ class TorchSystem:
             coords, self.elnodes, self.dmat, sig_yield, disp_new, du, sig_old,
             self.e, self.nu, et_e, glv, self.fixmask,
             torch.tensor(float(lbd1), dtype=torch.float64, device=self.device),
-            qnorm, large_disp, relax=relax)
+            qnorm, large_disp, relax=relax, plan=self.node_plan)
 
     def stress_update(self, coords, sig_yield, disp, du, sig_old, et_e, large_disp=False):
         return update_stress_load(coords, self.elnodes, self.dmat, sig_yield,
-                                  disp, du, sig_old, self.e, self.nu, et_e, large_disp)
+                                  disp, du, sig_old, self.e, self.nu, et_e, large_disp,
+                                  plan=self.node_plan)
 
     def internal_force(self, coords, sig_gp, disp, large_disp=False):
-        return internal_force_from_stress(coords, self.elnodes, sig_gp, disp, large_disp)
+        return internal_force_from_stress(coords, self.elnodes, sig_gp, disp, large_disp,
+                                          plan=self.node_plan)
 
     def update_peeq_csr(self, sig_test, sig_new, sig_yield, peeq, csr, et_e,
                         ultimate_strain):

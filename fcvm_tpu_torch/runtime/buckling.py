@@ -7,8 +7,8 @@ factors are ``lambda_i = 1 / theta_i`` for the largest eigenvalues
 ``theta`` of ``K_hat^{-1} (-G_hat)``, found by block subspace iteration
 with Rayleigh-Ritz on the (K, -G) pencil (:func:`pencil_subspace`).  Every
 operator application is the matrix-free node-row gather, block product
-(the CUDA kernel K0m on the card) and scatter-add over ``(ndof, m)``
-blocks; the inner ``K_hat^{-1}`` solves the ``m`` columns together with
+(the CUDA kernel K0m on the card) and fixed-order node sum (K8) over
+``(ndof, m)`` blocks; the inner ``K_hat^{-1}`` solves the ``m`` columns together with
 :func:`fcvm_tpu_torch.ops.solver.pcg_block`, deflated by one deep Ritz
 harvest of the first column (:func:`make_recycled_k_inverse`).
 
@@ -41,6 +41,7 @@ import torch
 from fcvm_tpu_torch.config import FcvmConfig, pin_full_fp32
 from fcvm_tpu_torch.ops import assembly as asm
 from fcvm_tpu_torch.ops import deflation as dfl
+from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.precond import apply_precond, build_two_level
 from fcvm_tpu_torch.utils.linalg3 import inv3_spd
@@ -132,9 +133,9 @@ def make_recycled_k_inverse(kinv, harvest, build_space, k_defl, min_iters, enabl
 
 def _assembled_diagonal(esm, eldofs, ndof: int):
     """(ndof,) assembled diagonal of the element blocks (no BC handling)."""
-    d = torch.diagonal(esm, dim1=1, dim2=2)
-    return torch.zeros(ndof, dtype=esm.dtype, device=esm.device).index_add_(
-        0, eldofs.reshape(-1), d.reshape(-1))
+    d = torch.diagonal(esm, dim1=1, dim2=2).contiguous()
+    return kernels.segment_sum(d.reshape(-1), kernels.segment_plan(eldofs),
+                               torch.zeros(ndof, dtype=esm.dtype, device=esm.device))
 
 
 def _penalty_block_jacobi(esm, elnodes, dvec):
@@ -146,7 +147,7 @@ def _penalty_block_jacobi(esm, elnodes, dvec):
     idx = torch.arange(10, device=esm.device)
     diag = esm.reshape(ne, 10, 3, 10, 3)[:, idx, :, idx, :]  # (10, ne, 3, 3)
     nodal = torch.zeros((nn, 3, 3), dtype=esm.dtype, device=esm.device)
-    nodal.index_add_(0, elnodes.T.reshape(-1), diag.reshape(-1, 3, 3))
+    kernels.segment_sum(diag.reshape(-1, 3, 3).contiguous(), asm.jacobi_plan(elnodes), nodal)
     eye = torch.eye(3, dtype=esm.dtype, device=esm.device)
     return inv3_spd(nodal + eye[None] * dvec.reshape(nn, 3)[:, :, None])
 

@@ -12,7 +12,9 @@ Newton iteration's solve, Riks update and residual into another; here they
 are plain functions on tensors, which the driver calls one after the other,
 and the operator's element blocks are stored in the solve space's element
 order, element-major, once per operator (:func:`make_operator`), not on
-every solve.
+every solve, with K1's packed copy on the card.  Every fixed set of keys
+of a node sum (the elements', the load tables', the block-Jacobi rebuild's)
+gets its K8 segment plan once, here or on the backend.
 """
 
 from __future__ import annotations
@@ -24,15 +26,17 @@ import torch
 
 from fcvm_tpu_torch.ops import assembly as asm
 from fcvm_tpu_torch.ops import deflation as dfl
+from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import solver as slv
-from fcvm_tpu_torch.ops.kernels import NodeIncidence
+from fcvm_tpu_torch.ops.kernels import NodeIncidence, SegmentPlan
 from fcvm_tpu_torch.ops.precond import apply_precond, build_two_level, refresh_blocks
 from fcvm_tpu_torch.ops.stress_update import update_stress_load
 from fcvm_tpu_torch.utils.ordering import morton_perm
 
 
 class LoadTables(NamedTuple):
-    """Device-side load tables (see :class:`fcvm_tpu_torch.models.spec.Loads`)."""
+    """Device-side load tables (see :class:`fcvm_tpu_torch.models.spec.Loads`),
+    each node table with its K8 segment plan."""
 
     pressure_faces: torch.Tensor
     pressures: torch.Tensor
@@ -43,6 +47,10 @@ class LoadTables(NamedTuple):
     vertices: torch.Tensor
     vertex_forces: torch.Tensor
     gravity: torch.Tensor
+    pressure_plan: SegmentPlan
+    traction_plan: SegmentPlan
+    edge_plan: SegmentPlan
+    vertex_plan: SegmentPlan
 
     @staticmethod
     def from_spec(loads, dtype, device) -> "LoadTables":
@@ -52,18 +60,23 @@ class LoadTables(NamedTuple):
         def f(a):
             return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device).to(dtype)
 
+        tables = (i(loads.pressure_faces), i(loads.traction_faces), i(loads.edges),
+                  i(loads.vertices))
         return LoadTables(
-            i(loads.pressure_faces), f(loads.pressures),
-            i(loads.traction_faces), f(loads.tractions),
-            i(loads.edges), f(loads.edge_tractions),
-            i(loads.vertices), f(loads.vertex_forces),
+            tables[0], f(loads.pressures),
+            tables[1], f(loads.tractions),
+            tables[2], f(loads.edge_tractions),
+            tables[3], f(loads.vertex_forces),
             f(loads.gravity),
+            *(kernels.segment_plan(t) for t in tables),
         )
 
 
-def external_loads(coords, disp, elnodes, loads: LoadTables, density, follower: bool):
+def external_loads(coords, disp, elnodes, loads: LoadTables, density, follower: bool,
+                   plan: SegmentPlan):
     """Global load vector (the length of ``disp``, padding included),
-    Gauss-point coordinates, volume and load sums.
+    Gauss-point coordinates, volume and load sums; ``plan`` is the segment
+    plan of ``elnodes`` (gravity's node sum), built once by the caller.
 
     ``follower=False``: everything on the original geometry (elastic
     assembly, ``fcVM.py:647-767``).  ``follower=True``: pressure follows the
@@ -74,24 +87,28 @@ def external_loads(coords, disp, elnodes, loads: LoadTables, density, follower: 
     ndof = disp.shape[0]
     coords_def = coords + disp.reshape(-1, 3)[: coords.shape[0]] if follower else coords
     glv, gp_coords, volume = asm.gravity_load_and_gp_coords(
-        coords_def, elnodes, density, loads.gravity, ndof)
-    glv = glv + asm.pressure_face_loads(coords_def, loads.pressure_faces, loads.pressures, ndof)
-    glv = glv + asm.uniform_face_loads(coords, loads.traction_faces, loads.tractions, ndof)
-    glv = glv + asm.edge_loads(coords, loads.edges, loads.edge_tractions, ndof)
-    glv = glv + asm.vertex_loads(loads.vertices, loads.vertex_forces, ndof)
+        coords_def, elnodes, density, loads.gravity, ndof, plan=plan)
+    glv = glv + asm.pressure_face_loads(coords_def, loads.pressure_faces, loads.pressures, ndof,
+                                        loads.pressure_plan)
+    glv = glv + asm.uniform_face_loads(coords, loads.traction_faces, loads.tractions, ndof,
+                                       loads.traction_plan)
+    glv = glv + asm.edge_loads(coords, loads.edges, loads.edge_tractions, ndof, loads.edge_plan)
+    glv = glv + asm.vertex_loads(loads.vertices, loads.vertex_forces, ndof, loads.vertex_plan)
     loadsums = glv.reshape(-1, 3).sum(dim=0)
     return glv, gp_coords, volume, loadsums
 
 
-def assemble_elastic(coords, elnodes, dmat, loads: LoadTables, density, fixmask, u_fix):
+def assemble_elastic(coords, elnodes, dmat, loads: LoadTables, density, fixmask, u_fix,
+                     plan: SegmentPlan):
     """Elastic blocks (ne, 30, 30) in user element order, nodal block-Jacobi
-    inverses, loads and the elastic RHS (``calcGSM``, ``fcVM.py:620-816``).
+    inverses, loads and the elastic RHS (``calcGSM``, ``fcVM.py:620-816``);
+    ``plan`` as in :func:`external_loads`.
 
     Returns (esm, pinv, glv, rhs, gp_coords, volume, loadsums)."""
     esm = asm.elastic_stiffness_blocks(coords, elnodes, dmat)
     pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
     glv, gp_coords, volume, loadsums = external_loads(
-        coords, torch.zeros_like(u_fix), elnodes, loads, density, follower=False)
+        coords, torch.zeros_like(u_fix), elnodes, loads, density, follower=False, plan=plan)
     rhs = asm.dirichlet_rhs(esm.permute(1, 2, 0).contiguous(), asm.element_dof_ids(elnodes),
                             fixmask, u_fix, glv)
     return esm, pinv, glv, rhs, gp_coords, volume, loadsums
@@ -117,6 +134,8 @@ class SolveSpace(NamedTuple):
         over the ``nn_pad`` Morton nodes
         (:func:`fcvm_tpu_torch.ops.assembly.node_incidence`), built once
         here and shared by every operator of the analysis.
+      jacobi_plan: the block-Jacobi rebuild's K8 plan over ``elnodes_m``
+        (:func:`fcvm_tpu_torch.ops.assembly.jacobi_plan`), built once here.
     """
 
     nperm: torch.Tensor
@@ -127,6 +146,7 @@ class SolveSpace(NamedTuple):
     fixmask_m: torch.Tensor
     coords_m: torch.Tensor
     incidence: NodeIncidence
+    jacobi_plan: SegmentPlan
 
     def to_m(self, v):
         return v.reshape(-1, 3)[self.nperm].reshape(-1)
@@ -156,16 +176,19 @@ def build_solve_space(coords_np, elnodes_np, fixmask, ndof_pad: int) -> SolveSpa
         fixmask.reshape(nn_pad, 3)[perm_t].reshape(-1),
         torch.as_tensor(np.asarray(coords_np)[perm[:nn]], device=dev).to(dtype),
         asm.node_incidence(elnodes_m, nn_pad),
+        asm.jacobi_plan(elnodes_m),
     )
 
 
 class Operator(NamedTuple):
     """``K_hat`` in the solve space: its blocks, Morton-ordered and
-    element-major (30, 30, ne), and the matvec over them.  Calling it
-    applies the matvec."""
+    element-major (30, 30, ne), their packed copy that K1 reads on the card
+    (:func:`fcvm_tpu_torch.ops.kernels.pack_blocks`; None on the CPU), and
+    the matvec over them.  Calling it applies the matvec."""
 
     esm_t: torch.Tensor
     matvec: Callable
+    packed: torch.Tensor = None
 
     def __call__(self, v):
         return self.matvec(v)
@@ -175,10 +198,11 @@ def make_operator(esm_m, space: SolveSpace) -> Operator:
     """``K_hat @ v`` in the solve space over the blocks ``esm_m`` (ne, 30,
     30) in the solve space's element order (``esm[space.eperm]`` of
     user-order blocks): they are stored element-major (30, 30, ne) here,
-    once."""
+    once, and on the card packed for K1 as well."""
     esm_t = esm_m.permute(1, 2, 0).contiguous()
+    packed = kernels.pack_blocks(esm_t) if esm_t.device.type != "cpu" else None
     return Operator(esm_t, asm.make_bc_matvec(esm_t, space.eldofs_m, space.fixmask_m,
-                                              space.incidence))
+                                              space.incidence, packed), packed)
 
 
 def build_precond(esm, cluster_size: int, space: SolveSpace, n_modes: int,
@@ -237,17 +261,18 @@ def build_deflation(khat: Operator, space: SolveSpace, zs, coef) -> dfl.Deflatio
 
 def residual(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu,
              et_e, glv, fixmask, lbd1, qnorm, large_disp=False, relax=1.0,
-             weights=None, reduce=None):
+             weights=None, reduce=None, *, plan: SegmentPlan):
     """Stress update + out-of-balance residual (``fcVM.py:1323-1342``).
 
     The returned ``r`` is pre-scaled by the relaxation factor (applied at
     the solve RHS, ``fcVM.py:1398-1400``); ``error`` (a 0-dim tensor) is
-    computed from the raw residual as the reference does.  ``weights`` and
-    ``reduce`` go to the internal force (the sharded backend's padding
-    elements and ``all_reduce``, :func:`update_stress_load`)."""
+    computed from the raw residual as the reference does.  ``weights``,
+    ``reduce`` and ``plan`` go to the internal force (the sharded backend's
+    padding elements and ``all_reduce``, the node sum's segment plan,
+    :func:`update_stress_load`)."""
     sig_new, sig_test, pgp, qin = update_stress_load(
         coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu, et_e, large_disp,
-        weights=weights, reduce=reduce)
+        weights=weights, reduce=reduce, plan=plan)
     r = fixmask * (lbd1 * glv - qin)
     error = torch.linalg.vector_norm(r) / qnorm
     return sig_new, sig_test, pgp, qin, relax * r, error
@@ -255,7 +280,7 @@ def residual(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu,
 
 def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
                      nu, et_e, glv, fixmask, lbd1, qnorm, large_disp=False, relax=1.0,
-                     weights=None, reduce=None):
+                     weights=None, reduce=None, *, plan: SegmentPlan):
     """:func:`residual` evaluated in float64 over float32-stored state.
 
     The mixed-precision refinement tier (``config.residual_refinement``):
@@ -272,7 +297,7 @@ def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
 
     sig_new, sig_test, pgp, qin = update_stress_load(
         c(coords), elnodes, c(dmat), c(sig_yield), c(disp_new), c(du), c(sig_old),
-        c(e), c(nu), et_e, large_disp, weights=c(weights), reduce=reduce)
+        c(e), c(nu), et_e, large_disp, weights=c(weights), reduce=reduce, plan=plan)
     r = c(fixmask) * (c(lbd1) * c(glv) - qin)
     error = torch.linalg.vector_norm(r) / qnorm
     return (sig_new.to(out_dt), sig_test.to(out_dt), pgp, qin.to(out_dt),
@@ -281,7 +306,8 @@ def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
 
 def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTables,
                     density, u_fix, g, h, rtol, maxiter: int, pc, space: SolveSpace,
-                    ue0=None, w=None, solve_predictor: bool = True):
+                    ue0=None, w=None, solve_predictor: bool = True, *,
+                    plan: SegmentPlan):
     """GNL tangent refresh: tangent blocks on the deformed geometry,
     follower loads, block-Jacobi rebuild and the tangent predictor solve
     (``calcTSM``, re-factorisation and ``ue = K_t^-1 f``,
@@ -302,6 +328,7 @@ def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTa
     operator and deflates the predictor solve.  With
     ``solve_predictor=False`` no solve runs and ``out`` is the predictor's
     right-hand side in user dof order, for the caller's harvesting solve.
+    ``plan`` is the segment plan of ``elnodes`` (the follower gravity).
 
     Returns ``(khat, pc_t, glv_t, out, iters)``: the tangent
     :class:`Operator`, the refreshed preconditioner, the follower load
@@ -313,12 +340,13 @@ def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTa
         dmat, g, h = dmat[eperm], g[eperm], h[eperm]
     esm_m = asm.tangent_stiffness_blocks(coords_def, elnodes[eperm], dmat, sig_old[eperm],
                                          pgp[eperm], g, h)
-    pc_t = refresh_blocks(pc, esm_m, space.elnodes_m, space.fixmask_m)
+    pc_t = refresh_blocks(pc, esm_m, space.elnodes_m, space.fixmask_m, space.jacobi_plan)
     khat = make_operator(esm_m, space)
     del esm_m
-    glv_t, *_ = external_loads(coords, disp_new, elnodes, loads, density, follower=True)
+    glv_t, *_ = external_loads(coords, disp_new, elnodes, loads, density, follower=True,
+                               plan=plan)
     rhs = asm.dirichlet_rhs(khat.esm_t, space.eldofs_m, space.fixmask_m,
-                            space.to_m(u_fix), space.to_m(glv_t), space.incidence)
+                            space.to_m(u_fix), space.to_m(glv_t), space.incidence, khat.packed)
     if not solve_predictor:
         return khat, pc_t, glv_t, space.from_m(rhs), 0
     defl = None if w is None else regalerkin_deflation(khat, space, w)

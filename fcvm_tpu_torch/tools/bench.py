@@ -26,8 +26,8 @@ order:
    1,975,509 dof): assembly, preconditioner, one elastic solve, ms per CG
    iteration and the row's peak device memory (:func:`capacity_row`);
 5. the sharded backend on a world of one against the local one, through
-   ``solve_collapse`` in float64, on the ``--box-nx`` box
-   (:func:`sharded_vs_local_row`);
+   ``solve_collapse`` in float32 as the reference's row runs, on the
+   ``--box-nx`` box (:func:`sharded_vs_local_row`);
 6. the CPU baseline's final join.
 
 ``vs_baseline`` is the speed-up over a reference-style CPU collapse step
@@ -165,7 +165,7 @@ def _sync(device):
 # the kernels a row can launch: K1 and K4 (every CG iteration), K0m (the
 # deflation and sharded block products), K0 (on no row's path: K1 carries
 # K_hat·v)
-ROW_KERNELS = ("khat_matvec", "two_level_apply", "block_matmat", "block_matvec")
+ROW_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "block_matmat", "block_matvec")
 
 
 def _tracker(device):
@@ -197,6 +197,8 @@ def _device_setup(mesh, model, device, dtype):
     return SimpleNamespace(
         coords=torch.as_tensor(mesh.coords, device=device).to(dtype),
         eln=torch.as_tensor(mesh.elnodes.astype(np.int64), device=device),
+        plan=kernels.segment_plan(torch.as_tensor(mesh.elnodes.astype(np.int64),
+                                                  device=device)),
         dmat=mat.hooke_dmat(E, NU, dtype, device),
         fixmask=fixmask, u_fix=vec(u_fix_np), nd_pad=nd_pad,
         loads=sysm.LoadTables.from_spec(model.loads, dtype, device),
@@ -209,7 +211,7 @@ def _assemble(s, sync):
     blocks is part of it, as the driver's assemble phase makes it."""
     t0 = time.perf_counter()
     esm, _, glv, rhs, *_ = sysm.assemble_elastic(s.coords, s.eln, s.dmat, s.loads, 0.0,
-                                                 s.fixmask, s.u_fix)
+                                                 s.fixmask, s.u_fix, s.plan)
     khat = sysm.make_operator(esm[s.space.eperm], s.space)
     sync()
     return time.perf_counter() - t0, esm, khat, glv, rhs
@@ -309,7 +311,7 @@ def step_time(builder, sy=SY, drive=1.02, label="", device="cuda"):
 
     def residual(du):
         return sysm.residual(s.coords, s.eln, s.dmat, sig_yield, disp, du, sig0, E, NU, ET_E,
-                             glv, s.fixmask, lbd0 + dl, qnorm)
+                             glv, s.fixmask, lbd0 + dl, qnorm, plan=s.plan)
 
     def one_step():
         # the recycling policy is consulted once per step, as bench.py does:
@@ -426,12 +428,12 @@ def sharded_vs_local_row(nx, device="cuda"):
     ``nx``: the same physics, and the step time of each.  Plastic with 10%
     hardening and no limit point, so the two runs follow a stable path and
     the bound on their lbd difference measures the kernels' and the
-    collective's parity.  Both run in float64: in float32 the first step's
-    Newton error stalls at 1.0-1.1e-5 against ``error_max`` = 1e-5 on this
-    box, so rounding decides whether that attempt converges or restarts,
-    and two float32 runs, even of one backend, take different paths.
-    Raises when the histories differ by more than ``LBD_TOL`` or in
-    length."""
+    collective's parity.  Both run in float32, as the reference's row
+    does: the first step's Newton error sits at ``error_max`` = 1e-5
+    on this box, so its rounding decides whether that attempt converges or
+    restarts, and with every node sum in a fixed order two runs take the
+    same path.  Raises when the histories differ by more than ``LBD_TOL``
+    or in length."""
     from fcvm_tpu_torch.parallel import dist as pdist
 
     device = torch.device(device)
@@ -442,7 +444,7 @@ def sharded_vs_local_row(nx, device="cuda"):
 
     def run(**kw):
         res = solve_collapse(model, params,
-                             config=FcvmConfig(device=str(device), dtype="float64", **kw))
+                             config=FcvmConfig(device=str(device), dtype="float32", **kw))
         nsteps = max(len(res.history.lbd) - 1, 1)
         return res, res.timers.get("stepping", 0.0) / nsteps
 
@@ -461,7 +463,7 @@ def sharded_vs_local_row(nx, device="cuda"):
     lbd_diff = float(np.max(np.abs(lbd_l[:nsh] - lbd_s[:nsh])))
     row = {
         "ndof": 3 * len(model.mesh.coords),
-        "dtype": "float64",
+        "dtype": "float32",
         "lbd": lbd_l.tolist(),
         "steps_local": len(lbd_l) - 1,
         "steps_sharded": len(lbd_s) - 1,

@@ -3,18 +3,23 @@
 Compares two trees of the port on one card, in turns (A B B A, each turn a
 process of its own):
 
-    python fcvm_tpu_torch/tools/turns.py TREE kernels  # K0, K0p, K0m, K1, K4 at the paths' shapes
+    python fcvm_tpu_torch/tools/turns.py TREE kernels  # K0, K0p, K0m, K1, K4, K8 at the paths' shapes
+    python fcvm_tpu_torch/tools/turns.py TREE cg       # TREE's own phase 3c on the plate
     python fcvm_tpu_torch/tools/turns.py TREE plate    # phases 5 and 7 (stepping times)
     python fcvm_tpu_torch/tools/turns.py TREE column   # phase 9 (eigensolve, stepping)
 
 ``TREE`` is the root of a checkout (``.`` for this one, or a ``git archive``
 of another commit unpacked in a directory that ``.gitignore`` lists); its
 ``fcvm_tpu_torch`` is imported and built, while the phases' code is this
-checkout's ``chip_smoke.py``.  Prints the card's ``nvidia-smi`` name and
+checkout's ``chip_smoke.py``, except for ``cg``, which runs TREE's own
+``chip_smoke.py`` phase 3c (K1 and K4 as that tree calls them, against
+its plain versions, the chain K1 replaced and cuSPARSE) on the plate.  Prints the card's ``nvidia-smi`` name and
 power limit, then one JSON line.  Needs a CUDA device.  A tree from before
 K1 and K4 (``kernels.khat_matvec``, ``two_level_apply``) times and launches
 K0 where they would be: its plate runs are held to K0's launches, and its
-``kernels`` part has no K1 and K4 rows.
+``kernels`` part has no K1 and K4 rows.  A tree from before K8
+(``segment_sum``) and K1's packed blocks is held to the kernels it has, and
+its ``kernels`` part has no K1, K4 and K8 rows.
 """
 
 from __future__ import annotations
@@ -43,11 +48,12 @@ def main(tree: str, part: str) -> dict:
     from fcvm_tpu_torch.config import pin_full_fp32
     from fcvm_tpu_torch.ops import kernels
 
-    # an older tree's wrappers keep no counts by shape, and a tree from
-    # before K1 and K4 has neither: give them empty ones
+    # an older tree's wrappers keep no counts by shape, and an older tree
+    # lacks the newer kernels: give them empty ones
     fused = hasattr(kernels, "khat_matvec")
-    if not fused:
-        for name in smoke.CG_KERNELS:
+    has = tuple(name for name in smoke.CG_KERNELS if hasattr(kernels, name))
+    for name in smoke.CG_KERNELS:
+        if not hasattr(kernels, name):
             setattr(kernels, name, SimpleNamespace(launches=0, dtypes=Counter()))
     for fn, attr in ((kernels.block_matvec, "dtypes"), (kernels.block_matmat, "shapes")):
         if not hasattr(fn, attr):
@@ -76,24 +82,33 @@ def main(tree: str, part: str) -> dict:
         k0m = smoke.k0m_phase()
         out["k0m"] = [{"dtype": str(dt).removeprefix("torch."), "ne": ne, "m": m, **row}
                       for (dt, ne, m), row in k0m.items()]
-        if fused:  # K1 and K4 on the plate's and the beam-column's operators
+        if hasattr(kernels, "pack_blocks"):  # K1, K4 and K8 on the paths' operators
             models = {"plate": smoke.plate_model(smoke.PLATE_BIG),
                       "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)}
             out["k1_k4"] = [{"kernel": k, "dtype": dt, "model": m, "variant": v, **row}
                             for (k, dt, m, v), row in smoke.cg_kernel_phase(models).items()]
+            out["k8"] = [{"dtype": dt, "model": m, "site": site, **row}
+                         for (dt, m, site), row in smoke.k8_phase(models).items()]
+    elif part == "cg":
+        spec = importlib.util.spec_from_file_location(
+            "tree_smoke", Path(tree).resolve() / "chip_smoke.py")
+        tsmoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tsmoke)
+        rows = tsmoke.cg_kernel_phase({"plate": tsmoke.plate_model(tsmoke.PLATE_BIG)})
+        out["cg"] = [{"kernel": k, "dtype": dt, "model": m, "variant": v, **row}
+                     for (k, dt, m, v), row in rows.items()]
     elif part == "plate":
         big = smoke.plate_model(smoke.PLATE_BIG)
         for label, cfg in (("phase 5", FcvmConfig(device="cuda", dtype="float32",
                                                   precond="two_level", **smoke.TIERS_OFF)),
                            ("phase 7", FcvmConfig(device="cuda", dtype="float32"))):
-            r = smoke.run_plate(big, cfg, label,
-                                required=smoke.CG_KERNELS if fused else ("block_matvec",))
+            r = smoke.run_plate(big, cfg, label, required=has if fused else ("block_matvec",))
             out[label] = dict(stepping=r["stepping"], step_iters=r["step_iters"],
                               cg_iters=r["cg_stats"]["iters"], launches=r["launches"])
     elif part == "column":
         out["phase 9"] = smoke.run_column(
             FcvmConfig(device="cuda", dtype="float32"),
-            required=(*smoke.CG_KERNELS, "block_matmat") if fused else ("block_matvec",))
+            required=(*has, "block_matmat") if fused else ("block_matvec",))
     else:
         raise SystemExit(f"turns.py: unknown part {part!r}")
     return out

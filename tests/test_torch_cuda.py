@@ -103,66 +103,133 @@ def test_bc_matvec_cuda_matches_cpu(cuda):
 
 
 # the element and node counts of the paths: the 502,599-dof plate, the
-# 451,875-dof beam-column
-PATH_SIZES = {"plate": (117_936, 167_533), "column": (103_680, 150_625)}
+# 451,875-dof beam-column; and a ragged count (no whole tile in either dtype)
+PATH_SIZES = {"plate": (117_936, 167_533), "column": (103_680, 150_625),
+              "ragged": (1_001, 1_500)}
 
 
 def _random_operator(ne, nn, dtype, seed):
-    """Random element blocks (30, 30, ne), a random connectivity of ne
-    elements over nn nodes (ten distinct nodes an element, spread as a
-    mesh's are: element e's nodes near node e nn / ne) with its
-    node-incidence table, a dof vector and a mask with a tenth of the dofs
-    fixed, on the card."""
+    """Random symmetric element blocks (30, 30, ne) and their packed copy,
+    a random connectivity of ne elements over nn nodes (ten distinct nodes
+    an element, spread as a mesh's are: element e's nodes near node e nn /
+    ne) with its node-incidence table, a dof vector and a mask with a tenth
+    of the dofs fixed, on the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    esm_t = torch.randn((30, 30, ne), generator=gen, device="cuda", dtype=dtype)
+    a = torch.randn((30, 30, ne), generator=gen, device="cuda", dtype=dtype)
+    esm_t = (a + a.transpose(0, 1)).contiguous()
     base = torch.arange(ne, device="cuda")[:, None] * nn // ne
     off = torch.argsort(torch.rand((ne, 40), generator=gen, device="cuda"), dim=1)[:, :10]
     elnodes = (base + off) % nn
     inc = tasm.node_incidence(elnodes, nn)
     u = torch.randn(3 * nn, generator=gen, device="cuda", dtype=dtype)
     fm = (torch.rand(3 * nn, generator=gen, device="cuda") > 0.1).to(dtype)
-    return esm_t, inc, u, fm
+    return esm_t, kernels.pack_blocks(esm_t), inc, u, fm
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
 @pytest.mark.parametrize("form", ["masked", "raw"])
-@pytest.mark.parametrize("size", ["box", "plate", "column"])
+@pytest.mark.parametrize("size", ["box", "plate", "column", "ragged"])
 def test_khat_matvec_kernel_matches_plain(cuda, dtype, form, size):
     """K1 against its plain version on the card, masked and raw: on the
-    3x3x3 box's operator and mask in its solve space, and on random blocks
-    and connectivity at the plate's and the beam-column's element and node
-    counts; max |kernel - plain| / max |plain| within TOL; the same bits on
-    a second call; one launch counted each."""
+    3x3x3 box's operator and mask in its solve space, and on random
+    symmetric blocks and connectivity at the plate's and the beam-column's
+    element and node counts and at a ragged count; the kernel reads only
+    the packed blocks (the full ones are not passed); max |kernel - plain|
+    / max |plain| within TOL against the packed plain version and against
+    the full blocks' (symmetric, so the same operator); the same bits on a
+    second call; one launch counted each."""
     if size == "box":
         be = TorchSystem(_tension_box(3), FcvmConfig(device="cuda", dtype="float64"), dtype,
                          cuda)
         esm, *_ = be.assemble(be.tensor(be.mesh.coords))
-        esm_t, inc, fm = be.operator(esm).esm_t, be.space.incidence, be.space.fixmask_m
+        op = be.operator(esm)
+        esm_t, packed, inc, fm = op.esm_t, op.packed, be.space.incidence, be.space.fixmask_m
         u = torch.randn(be.ndof_pad, generator=torch.Generator(device="cuda").manual_seed(1),
                         device="cuda", dtype=dtype)
     else:
-        esm_t, inc, u, fm = _random_operator(*PATH_SIZES[size], dtype, seed=2)
+        esm_t, packed, inc, u, fm = _random_operator(*PATH_SIZES[size], dtype, seed=2)
     fm = fm if form == "masked" else None
     launches = kernels.khat_matvec.launches
-    out = kernels.khat_matvec(esm_t, inc, u, fm)
-    again = kernels.khat_matvec(esm_t, inc, u, fm)
+    out = kernels.khat_matvec(packed, inc, u, fm)
+    again = kernels.khat_matvec(packed, inc, u, fm)
     torch.cuda.synchronize()
     assert kernels.khat_matvec.launches == launches + 2
     assert torch.equal(out, again)  # fixed-order sums: deterministic
-    ref = kernels.khat_matvec_ref(esm_t, inc, u, fm)
-    assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+    for ref in (kernels.khat_matvec_packed_ref(packed, inc, u, fm),
+                kernels.khat_matvec_ref(esm_t, inc, u, fm)):
+        assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
 
 
 def test_khat_matvec_rejects_what_it_does_not_take(cuda):
-    esm_t, inc, u, fm = _random_operator(50, 120, torch.float32, seed=3)
-    with pytest.raises(TypeError):
-        kernels.khat_matvec(esm_t, inc, u.double(), fm)
-    with pytest.raises(TypeError):
-        kernels.khat_matvec(esm_t, inc._replace(pos=inc.pos.long()), u, fm)
+    esm_t, packed, inc, u, fm = _random_operator(50, 120, torch.float32, seed=3)
     with pytest.raises(ValueError):
-        kernels.khat_matvec(esm_t, inc, u.cpu(), fm)
+        kernels.khat_matvec(esm_t, inc, u, fm)  # the full blocks, not the packed copy
+    with pytest.raises(TypeError):
+        kernels.khat_matvec(packed, inc, u.double(), fm)
+    with pytest.raises(TypeError):
+        kernels.khat_matvec(packed, inc._replace(pos=inc.pos.long()), u, fm)
     with pytest.raises(ValueError):
-        kernels.khat_matvec(esm_t, inc, u[:-3], fm)
+        kernels.khat_matvec(packed, inc, u.cpu(), fm)
+    with pytest.raises(ValueError):
+        kernels.khat_matvec(packed, inc, u[:-3], fm)
+    with pytest.raises(ValueError):
+        kernels.khat_matvec(packed[:, :, :128].contiguous(), inc, u, fm)
+    with pytest.raises(ValueError):
+        kernels.khat_matvec(torch.cat([packed, packed]), inc, u, fm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("width", [1, 3, 9, 144])
+def test_segment_sum_kernel_matches_index_add(cuda, dtype, width):
+    """K8 on the card against ``index_add_`` on the CPU on the same values:
+    the same order of adds, so the same bits; into zeros and into a
+    non-zero accumulator, with a dropped dump key; the same bits on a
+    second call; one launch counted each."""
+    rng = np.random.default_rng(width)
+    n, nseg = 50_000, 7_000
+    keys = torch.as_tensor(np.sort(rng.integers(0, nseg, size=n)) if width == 144
+                           else rng.integers(0, nseg, size=n))
+    vals = torch.as_tensor(rng.normal(size=(n, width))).to(dtype)
+    start = torch.as_tensor(rng.normal(size=(nseg, width))).to(dtype)
+    launches = kernels.segment_sum.launches
+    for out0 in (torch.zeros_like(start), start):
+        want = out0.clone().index_add_(0, keys, vals)
+        plan = kernels.segment_plan(keys.to(cuda))
+        got = kernels.segment_sum(vals.to(cuda), plan, out0.to(cuda))
+        again = kernels.segment_sum(vals.to(cuda), plan, out0.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.equal(got.cpu(), want)
+    drop = kernels.segment_plan(keys.to(cuda), drop=0)
+    got = kernels.segment_sum(vals.to(cuda), drop, start.to(cuda)).cpu()
+    want = start.clone().index_add_(0, keys, vals)
+    assert torch.equal(got[1:], want[1:]) and torch.equal(got[0], start[0])
+    assert kernels.segment_sum.launches == launches + 5
+
+
+def test_residual_and_block_products_give_the_same_bits(cuda):
+    """The residual (stress update and internal force through K8) twice at
+    one state, and K_hat·V and the block-Jacobi blocks twice: the same
+    bits, float32, on the 3x3x3 box; K8 launched."""
+    be = TorchSystem(_tension_box(3), FcvmConfig(device="cuda", dtype="float32"),
+                     torch.float32, cuda)
+    coords = be.tensor(be.mesh.coords)
+    esm, pinv, glv, rhs, *_ = be.assemble(coords)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    du = 1e-3 * torch.randn(be.ndof_pad, generator=gen, device="cuda")
+    sig_y, sig0 = be.gauss_full(100.0), be.gauss_zeros((6,))
+    launches = kernels.segment_sum.launches
+    res = [be.residual(coords, sig_y, torch.zeros_like(du), du, sig0, glv, 1.0, 1.0, 0.1)
+           for _ in range(2)]
+    assert kernels.segment_sum.launches > launches
+    for a, b in zip(res[0], res[1]):
+        assert torch.equal(a, b)
+    sp = be.space
+    op = tasm.make_multi_matvec(be.operator(esm).esm_t, sp.eldofs_m, sp.fixmask_m)
+    v = torch.randn((be.ndof_pad, 8), generator=gen, device="cuda")
+    assert torch.equal(op(v), op(v))
+    again = be.assemble(coords)[1]
+    assert torch.equal(pinv, again)
 
 
 def _random_precond(nn, cs, ncl, nm, dtype, seed):

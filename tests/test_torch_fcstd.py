@@ -237,6 +237,7 @@ def test_plate_document_matches_its_toml_case(plate_doc, tmp_path):
     import torch
 
     from fcvm_tpu_torch.models.casefile import load_case
+    from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.runtime import system as sysm
 
     doc_model, doc_params = fcstd.load_reference_case(plate_doc["doc"],
@@ -251,7 +252,8 @@ def test_plate_document_matches_its_toml_case(plate_doc, tmp_path):
         coords = torch.as_tensor(model.mesh.coords)
         elnodes = torch.as_tensor(model.mesh.elnodes, dtype=torch.int64)
         glv.append(sysm.external_loads(coords, torch.zeros(ndof, dtype=torch.float64), elnodes,
-                                       lt, model.material.density, False)[0].numpy())
+                                       lt, model.material.density, False,
+                                       kernels.segment_plan(elnodes))[0].numpy())
     assert np.abs(glv[1]).max() > 0
     np.testing.assert_allclose(glv[0], glv[1], rtol=0, atol=1e-12 * np.abs(glv[1]).max())
     rows = {}

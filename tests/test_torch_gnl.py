@@ -28,6 +28,7 @@ from fcvm_tpu.runtime import system as sysm
 from fcvm_tpu.runtime.backend import LocalSystem
 from fcvm_tpu_torch.models.spec import model_from_arrays, to_torch
 from fcvm_tpu_torch.ops import assembly as tasm
+from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import precond as tpre
 from fcvm_tpu_torch.ops import stress_update as tsu
 from fcvm_tpu_torch.runtime import system as tsys
@@ -175,12 +176,13 @@ def test_external_loads_match_jax(deformed, follower):
     ttables = tsys.LoadTables.from_spec(model_from_arrays(model).loads, F64, "cpu")
     ref = sysm.external_loads(jnp.asarray(d["coords"]), jnp.asarray(d["disp"]),
                               jnp.asarray(d["eln"]), tables, jnp.float64(7.85e-6), follower)
+    plan = kernels.segment_plan(ti(d["eln"]))
     out = tsys.external_loads(t64(d["coords"]), t64(d["disp"]), ti(d["eln"]), ttables,
-                              7.85e-6, follower)
+                              7.85e-6, follower, plan)
     for a, b in zip(out, ref):
         _close(a, b)
     original = tsys.external_loads(t64(d["coords"]), torch.zeros(d["nd"], dtype=F64),
-                                   ti(d["eln"]), ttables, 7.85e-6, follower)[0]
+                                   ti(d["eln"]), ttables, 7.85e-6, follower, plan)[0]
     moved = float((out[0] - original).abs().max()) > 1e-3 * float(original.abs().max())
     assert moved == follower
 

@@ -12,6 +12,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "fcvm_tpu_torch",
+    "fcvm_tpu_torch.version",
     "fcvm_tpu_torch.ops.kernels",
     "fcvm_tpu_torch.ops.deflation",
     "fcvm_tpu_torch.runtime.driver",
@@ -56,6 +57,18 @@ def test_port_imports_no_jax(module):
     )
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_version_is_the_jax_packages():
+    """The port exports ``__version__``, the JAX package's value (read from
+    its source, which imports nothing)."""
+    import fcvm_tpu_torch
+
+    ns = {}
+    with open(os.path.join(ROOT, "fcvm_tpu", "version.py")) as f:
+        exec(f.read(), ns)
+    assert fcvm_tpu_torch.__version__ == ns["__version__"]
+    assert "__version__" in fcvm_tpu_torch.__all__
 
 
 def test_chip_smoke_fails_without_gpu():

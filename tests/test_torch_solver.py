@@ -11,6 +11,7 @@ from fcvm_tpu.ops import material as mat
 from fcvm_tpu.runtime import system as sysm
 from fcvm_tpu.utils.indexing import pad_ndof, pad_vector
 from fcvm_tpu_torch.models.spec import model_from_arrays, to_torch
+from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import precond as tpre
 from fcvm_tpu_torch.ops import solver as tslv
 from fcvm_tpu_torch.runtime import system as tsys
@@ -42,9 +43,10 @@ def elastic():
 
     tmodel = model_from_arrays(model)
     tloads = tsys.LoadTables.from_spec(tmodel.loads, F64, "cpu")
+    teln = torch.as_tensor(mesh.elnodes.astype(np.int64))
     tesm, tpinv, _, trhs, _, _, _ = tsys.assemble_elastic(
-        t64(mesh.coords), torch.as_tensor(mesh.elnodes.astype(np.int64)),
-        t64(dmat), tloads, 0.0, t64(fixmask), t64(u_fix))
+        t64(mesh.coords), teln, t64(dmat), tloads, 0.0, t64(fixmask), t64(u_fix),
+        kernels.segment_plan(teln))
     tspace = tsys.build_solve_space(mesh.coords, mesh.elnodes, t64(fixmask), nd)
     return dict(space=space, pc=pc, res=res, rhs=rhs, u_fix=u_fix, tspace=tspace,
                 tesm=tesm, tpinv=tpinv, trhs=trhs)
