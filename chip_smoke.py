@@ -34,12 +34,14 @@ Phases, each printing its numbers before the next starts:
    ``index_add_``, masks) and, for K1, against a cuSPARSE CSR matvec of the
    assembled K_hat (``torch.sparse``, built once here); the blocks'
    asymmetry ``max |K - K^T| / max |K|`` and the packed copy's size; then
-   K8 (``segment_sum``, the fixed-order node sum) at the paths' shapes (the
-   internal force's, K_hat·V's, the block-Jacobi blocks', the first chunk
-   of the coarse table's and of the cluster smoother's accumulation, at
-   their real keys) against its
-   plain version on the card (``index_add_``, the library call) and bit for
-   bit against it on the CPU, whose order is the kernel's;
+   K8 (``segment_sum``, the fixed-order node sum) at every site the paths
+   give it, float32 and float64 (the internal force's, K_hat·V's and the
+   block-Jacobi blocks' in its write form, two chunks of the coarse table's
+   and the first of the cluster smoother's accumulation in its accumulating
+   form, at their real keys), in both forms against its plain version on
+   the card (``index_add_``, the library call) and bit for bit against it
+   on the CPU, whose order is the kernel's, with each site's group sizes
+   and the launches by path;
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
    the load-factor histories must agree; and ``linear_buckling`` of a small
@@ -100,7 +102,9 @@ Phases, each printing its numbers before the next starts:
    smoother per operator, the stepping time, CG iterations and ms per CG
    iteration against phase 7's; then the smoother's pieces (the build with
    and without it and the memory it adds, the coarse table's accumulate and
-   the smoother's, both by K8, and the smoother's factorization,
+   the smoother's, both by K8, each split into its pair products, its
+   plans (``segment_plan``: the stable sort, then the groups and the
+   host's read) and K8, and the smoother's factorization,
    its apply against block Jacobi's and against the bound of reading its
    inverses once);
 11b. the same with ``gnl="GNLY"`` (``max_imp = 0``): the tangent refreshes
@@ -149,12 +153,14 @@ with its launches, error and times.
 from __future__ import annotations
 
 import faulthandler
+import itertools
 import json
 import math
 import subprocess
 import tempfile
 import time
 import warnings
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -265,6 +271,20 @@ def cuda_ms(fn, *args, runs=20):
     return float(np.median(times))
 
 
+def device_ms(fn, *args, calls=10):
+    """Mean device time of one call of ``fn``: the CUDA kernels
+    torch.profiler records over ``calls`` calls (after a warm-up), with no
+    host time between them."""
+    fn(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / calls / 1e3
+
+
 # the kernels of the solver's paths: K1 and K4 in every CG iteration (the
 # vector paths), K8 in every residual and build, K0m in the block products
 # (the eigensolve, the deflation builds), K0 in none since K1 carries K_hat·v
@@ -280,11 +300,13 @@ def reset_launches():
         fn = getattr(kernels, name)
         fn.launches = 0
         getattr(fn, "shapes" if name == "block_matmat" else "dtypes").clear()
+    getattr(kernels.segment_sum, "paths", Counter()).clear()
 
 
 def read_launches():
     """``({kernel: launches}, {kernel: {dtype: launches}})`` of the path
-    kernels; K0m's by dtype and column count."""
+    kernels; K0m's by dtype and column count; K8's also by form and path
+    (``"segment_sum paths"``)."""
     from fcvm_tpu_torch.ops import kernels
 
     counts = {name: getattr(kernels, name).launches for name in PATH_KERNELS}
@@ -292,6 +314,7 @@ def read_launches():
           if name != "block_matmat"}
     by["block_matmat"] = {f"{dt} m={m}": n
                           for (dt, m), n in sorted(kernels.block_matmat.shapes.items())}
+    by["segment_sum paths"] = dict(getattr(kernels.segment_sum, "paths", {}))
     return counts, by
 
 
@@ -349,12 +372,13 @@ def layer_breakdown(model, cfg):
                  cuda_ms(lambda: backend.residual(coords, sig_yield, zero, res.x, sig0,
                                                   glv, 1.0, qnorm, 0.0))))
     rows_k8 = torch.ones((backend.ne * 10, 3), dtype=u.dtype, device=u.device)
-    acc = torch.zeros((backend.ndof_pad // 3, 3), dtype=u.dtype, device=u.device)
-    rows += [("  its node sum (K8)", cuda_ms(kernels.segment_sum, rows_k8, backend.node_plan,
-                                              acc)),
-             ("  the same by index_add_", cuda_ms(lambda: acc.index_add_(
+    nn = backend.ndof_pad // 3
+    rows += [("  its node sum (K8, the write form)", cuda_ms(
+                 lambda: kernels.segment_sum(rows_k8, backend.node_plan, rows=nn))),
+             ("  the same by torch.zeros + index_add_", cuda_ms(lambda: torch.zeros(
+                 (nn, 3), dtype=u.dtype, device=u.device).index_add_(
                  0, backend.node_plan.keys, rows_k8)))]
-    del rows_k8, acc
+    del rows_k8
     # a deflation space from a harvest of the same elastic solve, at the
     # driver's sizes
     res_h, h = backend.solve_harvest(khat, pc, rhs, x0=backend.u_fix, nstore=NSTORE)
@@ -871,103 +895,177 @@ def cg_kernel_phase(models):
     return rows
 
 
-def k8_phase(models):
-    """Phase 3c, K8: the fixed-order node sum at the paths' shapes, on
-    seeded values over the plans the paths build: the internal force's
-    (3-wide rows of the user-order elements; float32 and float64), K_hat·V's
-    node pass at m = 8 (24-wide rows of the Morton elements), the
-    block-Jacobi blocks' (9-wide, slot-major), the first chunk of the
-    coarse Galerkin table's accumulation (144-wide pair blocks keyed by
-    cluster pair, the plan of its real cluster keys: few segments of
-    thousands of rows) and, where the cluster smoother divides the padded
-    nodes, the first chunk of the smoother's (3-wide rows, most of them
-    keyed to the dump row, which the kernel skips and no comparison reads),
-    on the plate's and the beam-column's meshes; against its plain version
-    on the card (``index_add_``, whose order varies) within the tolerance
-    and bit for bit against it on the CPU (the kernel's order); the same
-    bits on a second call; CUDA-event medians of the kernel and of
-    ``index_add_``, each adding into one output allocated before the timing
-    (no zeroing timed).  Returns ``{(dtype, model, site): numbers}``."""
-    from fcvm_tpu_torch import FcvmConfig
-    from fcvm_tpu_torch.ops import kernels
-    from fcvm_tpu_torch.ops import precond as pre
-    from fcvm_tpu_torch.runtime.backend import TorchSystem
+# where the coarse table's later chunk starts (its longest group: 7,473 rows
+# on the plate)
+COARSE_LATER = 57_344
 
+
+def k8_phase(models):
+    """Phase 3c, K8: the fixed-order node sum at every site the paths give
+    it, float32 and float64, on seeded values over the plans the paths
+    build: the internal force's (3-wide rows of the user-order elements),
+    K_hat·V's node pass at m = 8 (24-wide rows of the Morton elements), the
+    block-Jacobi blocks' (9-wide, slot-major), each in the write form the
+    path uses; the coarse Galerkin table's first chunk and its chunk from
+    element ``COARSE_LATER`` (144-wide pair blocks keyed by cluster pair,
+    the plans of their real cluster keys: few groups of thousands of rows)
+    and, where the cluster smoother divides the padded nodes, the
+    smoother's plan of every element (3-wide rows of the element blocks,
+    most of them keyed to the dump row, which the kernel skips and no
+    comparison reads), each in the
+    accumulating form the path uses; on the plate's and the beam-column's
+    meshes.  Each against its plain version on the card (``index_add_``,
+    whose order varies) within the tolerance and bit for bit against it on
+    the CPU (the kernel's order), the same bits on a second call, in both
+    forms; the groups' count, median and longest, the launches by path;
+    CUDA-event medians of the path's form against its library call (the
+    write form against ``torch.zeros`` + ``index_add_``) and its device
+    time alone (torch.profiler), and CUDA-event medians of the
+    accumulating form and ``index_add_`` into one held output.  A tree
+    without the write form (``tools/turns.py``) runs its path's call
+    there: ``torch.zeros``, then K8 accumulating.  Returns ``{(dtype,
+    model, site): numbers}``."""
+    from fcvm_tpu_torch.ops import kernels
+
+    written = "rows" in kernels.SegmentPlan._fields  # K8 has its write form
+    paths = getattr(kernels.segment_sum, "paths", Counter())
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(11)
     for name, model in models.items():
-        cfg = FcvmConfig(device="cuda", dtype="float32")
-        be = TorchSystem(model, cfg, torch.float32, torch.device("cuda"))
-        sp, nn = be.space, be.ndof_pad // 3
-        # (site, dtype, plan, output rows, trailing shape, last row a dump row)
-        sites = [("internal force", torch.float32, be.node_plan, nn, (3,), False),
-                 ("internal force", torch.float64, be.node_plan, nn, (3,), False),
-                 ("K_hat.V, m = 8", torch.float32, kernels.segment_plan(sp.elnodes_m), nn,
-                  (3, 8), False),
-                 ("block Jacobi", torch.float32, sp.jacobi_plan, nn, (3, 3), False)]
-        csz = cfg.resolve_cluster_size(model.mesh.n_nodes)
-        qmat = pre.qmat_bc(sp.coords_m, sp.fixmask_m, csz, cfg.coarse_modes)
-        ncl, nm = qmat.shape[0] // csz, qmat.shape[2]
-        keys = pre.coarse_keys(sp.elnodes_m[:pre.COARSE_CHUNK], csz, ncl)
-        sites.append((f"coarse accumulate, first chunk of {pre.COARSE_CHUNK} elements",
-                      torch.float32, kernels.segment_plan(keys), ncl * ncl, (nm * nm,), False))
-        cs = cfg.smoother_cluster_nodes
-        if nn % cs == 0:
-            nrow = (nn // cs) * 3 * cs * cs
-            key = pre.cluster_diag_keys(sp.elnodes_m[:pre.SMOOTHER_CHUNK], cs, nrow)
-            sites.append((f"smoother blocks, first chunk of {pre.SMOOTHER_CHUNK} elements",
-                          torch.float32, kernels.segment_plan(key, drop=nrow), nrow + 1, (3,),
-                          True))
-        del qmat, keys
-        for site, dtype, plan, nout, trail, dump in sites:
+        sites = k8_sites(model)
+        for (site, plan, nout, trail, form, dump), dtype in itertools.product(
+                sites, (torch.float32, torch.float64)):
             tol = TOL_F32 if dtype == torch.float32 else TOL_F64
             size = torch.finfo(dtype).bits // 8
             n, w, nu = plan.keys.shape[0], math.prod(trail), plan.segs.shape[0]
             nread = plan.order.shape[0]  # the rows the kernel sums (no dump rows)
             keep = nout - 1 if dump else nout  # the rows anyone reads
+            deg = (plan.offsets[1:] - plan.offsets[:-1]).long()
+            median, longest = int(deg.median()), int(deg.max())
             vals = torch.randn((n, *trail), generator=gen, device="cuda", dtype=dtype)
 
             def zeros(device="cuda"):
                 return torch.zeros((nout, *trail), dtype=dtype, device=device)
 
-            out = kernels.segment_sum(vals, plan, zeros())
-            again = kernels.segment_sum(vals, plan, zeros())
-            torch.cuda.synchronize()
-            ref = kernels.segment_sum_ref(vals, plan, zeros())
-            cpu = kernels.segment_sum_ref(vals.cpu(), plan._replace(keys=plan.keys.cpu()),
-                                          zeros("cpu"))
-            out, again, ref, cpu = out[:keep], again[:keep], ref[:keep], cpu[:keep]
-            abs_err = float((out - ref).abs().max())
-            rel = abs_err / float(ref.abs().max())
-            same, same_cpu = bool(torch.equal(out, again)), bool(torch.equal(out.cpu(), cpu))
+            def write():  # the write form, or a tree's call without it
+                if written:
+                    return kernels.segment_sum(vals, plan, rows=nout)
+                return kernels.segment_sum(vals, plan, zeros())
+
+            cpu = zeros("cpu").index_add_(0, plan.keys.cpu(), vals.cpu())[:keep]
+            ref = zeros().index_add_(0, plan.keys, vals)[:keep]
+            forms = {"accumulate": lambda: kernels.segment_sum(vals, plan, zeros())}
+            if form == "write":
+                forms["write"] = write
+            before = Counter(paths)
+            errs, launched = {}, {}
+            for f, call in forms.items():
+                p0 = Counter(paths)
+                out, again = call(), call()
+                torch.cuda.synchronize()
+                launched[f] = {k: v for k, v in (paths - p0).items()}
+                out, again = out[:keep], again[:keep]
+                errs[f] = float((out - ref).abs().max())
+                rel = errs[f] / float(ref.abs().max())
+                same, same_cpu = bool(torch.equal(out, again)), bool(torch.equal(out.cpu(), cpu))
+                check(rel <= tol, f"K8 disagrees with its plain version ({dtype}, {name}, {site}, "
+                                  f"{f})")
+                check(same and same_cpu, f"K8 is not the fixed-order sum ({dtype}, {name}, "
+                                         f"{site}, {f}): second call {same}, the CPU's {same_cpu}")
             del out, again, ref, cpu
+            path_counts = dict(paths - before)
             acc = zeros()
-            # the summed values, the plan's order, offsets and segs read once,
-            # the touched output rows written once
-            nbytes = nread * w * size + 4 * (nread + 2 * nu + 1) + nu * w * size
-            row = dict(max_abs_err=abs_err,
-                       ms=cuda_ms(kernels.segment_sum, vals, plan, acc),
-                       plain_ms=cuda_ms(kernels.segment_sum_ref, vals, plan, acc),
-                       library_ms=cuda_ms(lambda: acc.index_add_(0, plan.keys, vals)),
-                       n=n, n_summed=nread, width=w, segments=nu, out_rows=nout)
+            plan_bytes = 4 * (nread + 3 * nu)  # order, and each group's range and key
+            # the summed values and the plan read once; accumulating, the
+            # touched rows read and written once; writing, every row written once
+            acc_bytes = nread * w * size + plan_bytes + 2 * nu * w * size
+            row = dict(form=form, max_abs_err=max(errs.values()), n=n, n_summed=nread, width=w,
+                       segments=nu, median_rows=median, longest_rows=longest, out_rows=nout,
+                       paths=path_counts,
+                       accumulate_ms=cuda_ms(kernels.segment_sum, vals, plan, acc),
+                       accumulate_library_ms=cuda_ms(lambda: acc.index_add_(0, plan.keys, vals)))
+            row["accumulate_bound_ms"] = bound(acc_bytes, nread * w, dtype)[0]
+            if form == "write":
+                row.update(ms=cuda_ms(write), device_ms=device_ms(write),
+                           plain_ms=cuda_ms(lambda: zeros().index_add_(0, plan.keys, vals)))
+                row["library_ms"] = row["plain_ms"]  # torch.zeros + index_add_
+                nbytes = nread * w * size + plan_bytes + 4 * (nout - nu) + nout * w * size
+            else:
+                row.update(ms=row["accumulate_ms"], plain_ms=cuda_ms(
+                    kernels.segment_sum_ref, vals, plan, acc), library_ms=row[
+                    "accumulate_library_ms"], device_ms=device_ms(kernels.segment_sum, vals,
+                                                                  plan, acc))
+                nbytes = acc_bytes
             row["bound_ms"], row["bound_by"] = bound(nbytes, nread * w, dtype)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             dname = str(dtype).removeprefix("torch.")
             print(f"K8 {dname} {name} {site}: {n} rows of {w}"
-                  f"{f' ({nread} summed, the rest to the dump row)' if dump else ''} into "
-                  f"{nu} segments of {nout} output rows; max rel err {rel:.3e} vs index_add_ "
-                  f"on the card (limit {tol:g}), "
-                  f"{'bit for bit' if same_cpu else 'NOT bit for bit'} the CPU's index_add_, "
-                  f"second call {'the same bits' if same else 'DIFFERENT BITS'}; kernel "
-                  f"{row['ms']:.4f} ms, index_add_ {row['library_ms']:.4f} ms; bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                  f"{row['bound_ms'] / row['ms']:.1%} of it; median of 20")
-            check(rel <= tol, f"K8 disagrees with its plain version ({dname}, {name}, {site})")
-            check(same and same_cpu, f"K8 is not the fixed-order sum ({dname}, {name}, {site})")
+                  f"{f' ({nread} summed, the rest to the dump row)' if dump else ''} into {nu} "
+                  f"groups (median {median} rows, longest {longest}) of {nout} output rows; "
+                  f"launches by path {path_counts}; max abs err {row['max_abs_err']:.3e} vs "
+                  f"index_add_ on the card (rel limit {tol:g}), bit for bit the CPU's "
+                  f"index_add_ and the same bits on a second call, "
+                  f"{' and '.join(forms)}; the path's {form}: kernel {row['ms']:.4f} ms "
+                  f"(device time {row['device_ms']:.4f} ms), "
+                  f"{'torch.zeros + ' if form == 'write' else ''}index_add_ "
+                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}), {row['bound_share']:.1%} of it; into a held output: "
+                  f"kernel {row['accumulate_ms']:.4f} ms, index_add_ "
+                  f"{row['accumulate_library_ms']:.4f} ms, bound "
+                  f"{row['accumulate_bound_ms']:.4f} ms; median of 20")
+            need = "accumulate ring" if site.startswith("coarse") else (
+                "write register" if form == "write" else None)
+            check(not written or need is None or launched[form].get(need, 0) > 0,
+                  f"K8 did not take the {need} path at {site} ({name}): {launched}")
             rows[(dname, name, site)] = row
             del vals, acc
-        del be, sites
+        del sites
         torch.cuda.empty_cache()
     return rows
+
+
+def k8_sites(model):
+    """K8's sites on ``model``'s paths, each ``(site, plan, output rows,
+    trailing shape, the path's form, last row a dump row)``: the internal
+    force's, K_hat·V's at m = 8 and the block-Jacobi blocks' plans in the
+    write form, the coarse table's first chunk and its chunk from element
+    ``COARSE_LATER`` and, where the cluster smoother divides the padded
+    nodes, the smoother's plan of every element (a tree that sums it by
+    chunks: its first chunk) accumulating; a tree without K8's write form
+    builds its plans without their rows."""
+    from fcvm_tpu_torch import FcvmConfig
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.ops import precond as pre
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    cfg = FcvmConfig(device="cuda", dtype="float32")
+    be = TorchSystem(model, cfg, torch.float32, torch.device("cuda"))
+    sp, nn = be.space, be.ndof_pad // 3
+    kv_plan = (kernels.segment_plan(sp.elnodes_m, rows=nn)
+               if "rows" in kernels.SegmentPlan._fields else kernels.segment_plan(sp.elnodes_m))
+    sites = [("internal force", be.node_plan, nn, (3,), "write", False),
+             ("K_hat.V, m = 8", kv_plan, nn, (3, 8), "write", False),
+             ("block Jacobi", sp.jacobi_plan, nn, (3, 3), "write", False)]
+    csz = cfg.resolve_cluster_size(model.mesh.n_nodes)
+    qmat = pre.qmat_bc(sp.coords_m, sp.fixmask_m, csz, cfg.coarse_modes)
+    ncl, nm = qmat.shape[0] // csz, qmat.shape[2]
+    for start in (0, COARSE_LATER):
+        keys = pre.coarse_keys(sp.elnodes_m[start:start + pre.COARSE_CHUNK], csz, ncl)
+        sites.append((f"coarse accumulate, chunk of {pre.COARSE_CHUNK} elements from {start}",
+                      kernels.segment_plan(keys), ncl * ncl, (nm * nm,), "accumulate", False))
+    cs = cfg.smoother_cluster_nodes
+    if nn % cs == 0:
+        nrow = (nn // cs) * 3 * cs * cs
+        chunk = getattr(pre, "SMOOTHER_CHUNK", None)  # a tree that sums the smoother by chunks
+        if chunk:
+            key, site = (pre.cluster_diag_keys(sp.elnodes_m[:chunk], cs, nrow),
+                         f"smoother blocks, first chunk of {chunk} elements")
+        else:  # the blocks' rows [e, 3i + a, j]
+            key, site = (pre.cluster_diag_keys(sp.elnodes_m, cs, nrow).transpose(2, 3),
+                         "smoother blocks, every element")
+        sites.append((site, kernels.segment_plan(key, drop=nrow), nrow + 1, (3,), "accumulate",
+                      True))
+    return sites
 
 
 def run_column(cfg, nstep=COL_NSTEP, label="phase 9", required=(*CG_KERNELS, "block_matmat")):
@@ -1379,6 +1477,91 @@ def cli_phase(tmp):
           "phase 10b: the resumed run's last .out row differs from the straight run's")
 
 
+def accumulate_split(esm_m, sp, qmat, csz, cs):
+    """The two-level build's accumulations on the Morton blocks ``esm_m``:
+    each whole (``coarse_accumulate``, ``cluster_diag_blocks``), then in
+    pieces over all of its chunks: the keys and their plans
+    (``segment_plan``), their device time alone (torch.profiler; the rest
+    of their time is the host's: its calls and its reads, which it waits
+    on), their stable sort alone; and, where the tree splits them out, the
+    pair products and K8's accumulating sums over plans made before.  The
+    smoother's blocks are one plan over every element's rows, or, in a
+    tree that sums them by chunks (``SMOOTHER_CHUNK``), a plan a chunk.
+    CUDA-event medians of 5.  Returns ``{table: {piece: ms}}``."""
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.ops import precond as pre
+
+    ncl, nm, ne = qmat.shape[0] // csz, qmat.shape[2], esm_m.shape[0]
+    nrow = (sp.fixmask_m.shape[0] // 3) * 3 * cs
+    split = hasattr(pre, "coarse_pairs")  # the coarse pair products as a function of their own
+    chunk = getattr(pre, "SMOOTHER_CHUNK", None)
+    smoother_parts = ([(s, s + chunk) for s in range(0, ne, chunk)] if chunk else [(0, ne)])
+    tables = {
+        "coarse": ([(s, s + pre.COARSE_CHUNK) for s in range(0, ne, pre.COARSE_CHUNK)],
+                   lambda: pre.coarse_accumulate(esm_m, sp.elnodes_m, qmat, csz),
+                   split and (lambda a, b: pre.coarse_pairs(esm_m[a:b], sp.elnodes_m[a:b], qmat)),
+                   lambda a, b: pre.coarse_keys(sp.elnodes_m[a:b], csz, ncl), None,
+                   lambda: torch.zeros((ncl * ncl, nm * nm), dtype=esm_m.dtype, device="cuda")),
+        "smoother": (smoother_parts,
+                     lambda: pre.cluster_diag_blocks(esm_m, sp.elnodes_m, sp.fixmask_m, cs),
+                     not chunk and (lambda a, b: esm_m.reshape(-1, 3)),
+                     lambda a, b: (pre.cluster_diag_keys(sp.elnodes_m[a:b], cs, nrow)
+                                   if chunk else pre.cluster_diag_keys(sp.elnodes_m, cs, nrow)
+                                   .transpose(2, 3)), nrow,
+                     lambda: torch.zeros((nrow + 1, 3), dtype=esm_m.dtype, device="cuda")),
+    }
+    out = {}
+    for name, (parts, whole, pairs_of, keys_of, drop, zeros) in tables.items():
+        keys = [keys_of(a, b) for a, b in parts]
+
+        def plans():
+            return [kernels.segment_plan(keys_of(a, b), drop=drop) for a, b in parts]
+
+        out[name] = {
+            "whole": cuda_ms(whole, runs=5),
+            "keys and segment_plan": cuda_ms(plans, runs=5),
+            "  their device time": device_ms(plans, calls=5),
+            "  their stable sort": cuda_ms(lambda: [torch.sort(k.reshape(-1), stable=True)
+                                                    for k in keys], runs=5),
+            "chunks": len(parts),
+        }
+        if pairs_of:
+            made, acc = plans(), zeros()
+            pairs = [pairs_of(a, b) for a, b in parts]
+            out[name]["pair products"] = cuda_ms(lambda: [pairs_of(a, b) for a, b in parts],
+                                                 runs=5)
+            out[name]["K8"] = cuda_ms(lambda: [kernels.segment_sum(p, pl, acc)
+                                               for p, pl in zip(pairs, made)], runs=5)
+            del pairs, made, acc
+        del keys
+    return out
+
+
+def build_split(model, cfg):
+    """Phase 11's build of the two-level preconditioner with ``cfg``'s
+    smoother on ``model`` (float32): the whole build (wall, synchronised,
+    median of 5) and :func:`accumulate_split`.  Returns ``{piece: ms}``
+    and the split."""
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    backend = TorchSystem(model, cfg, cfg.resolve_dtype(), cfg.resolve_device())
+    esm, pinv, *_ = backend.assemble(backend.tensor(model.mesh.coords))
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pc = backend.make_pc(esm, pinv)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    sp = backend.space
+    split = accumulate_split(esm[sp.eperm], sp, pc.qmat,
+                             cfg.resolve_cluster_size(model.mesh.n_nodes),
+                             cfg.smoother_cluster_nodes)
+    del backend, esm, pinv, pc
+    torch.cuda.empty_cache()
+    return {"build (wall, median of 5 after one)": float(np.median(walls[1:]))}, split
+
+
 def smoother_breakdown(model, cfg):
     """Print the cluster smoother's pieces on ``model`` with ``cfg``
     (``smoother="cluster"``): the preconditioner build with and without it
@@ -1415,13 +1598,12 @@ def smoother_breakdown(model, cfg):
     ncl, m, _ = pc.smooth_inv.shape
     blocks = pre.cluster_diag_blocks(esm_m, sp.elnodes_m, sp.fixmask_m, cs)
     csz = cfg.resolve_cluster_size(model.mesh.n_nodes)
+    split = accumulate_split(esm_m, sp, pc.qmat, csz, cs)
     rows = [
-        (f"coarse accumulate ({pc.qmat.shape[0] // csz}^2, {pc.qmat.shape[2]}^2) by K8, fixed "
-         f"order, chunks of {pre.COARSE_CHUNK} elements [median of 5]",
-         cuda_ms(lambda: pre.coarse_accumulate(esm_m, sp.elnodes_m, pc.qmat, csz), runs=5)),
-        (f"smoother accumulate ({ncl}, {m}, {m}) by K8, fixed order, chunks of "
-         f"{pre.SMOOTHER_CHUNK} elements [median of 5]",
-         cuda_ms(lambda: pre.cluster_diag_blocks(esm_m, sp.elnodes_m, sp.fixmask_m, cs), runs=5)),
+        *((f"{table} accumulate by K8, fixed order: {piece}, its {pieces['chunks']} plans "
+           "[median of 5]", ms)
+          for table, pieces in split.items() for piece, ms in pieces.items()
+          if piece != "chunks"),
         ("smoother batched cholesky_ex + cholesky_inverse [median of 5]",
          cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(blocks)[0]), runs=5)),
     ]
@@ -2017,6 +2199,8 @@ def main():
                          "fcvm_tpu/ops/stress_update.py:151 (segment_sum); XLA-lowered",
         "launches": off["launches"]["segment_sum"], **path_launches("segment_sum"),
         "launches_column_by_dtype": col["by_dtype"]["segment_sum"],
+        "launches_by_path": {k: v["by_dtype"]["segment_sum paths"] for k, v in paths.items()
+                             if "by_dtype" in v},
         "dtype": "float32", "model": "plate", "site": "internal force",
         **k8[("float32", "plate", "internal force")],
         "shapes": [{"dtype": dt, "model": m, "site": site, **row}

@@ -5,7 +5,7 @@
 //   fcvm::block_matmat  K0m  csrc/block_matmat.cu
 //   fcvm::khat_matvec   K1   csrc/khat_matvec.cu
 //   fcvm::two_level_apply  K4  csrc/two_level.cu (around at::mv)
-//   fcvm::segment_sum   K8   csrc/segment_sum.cu (in place)
+//   fcvm::segment_sum   K8   csrc/segment_sum.cu (in place: accumulate or write)
 //   fcvm::soa_matvec    K0p  csrc/bw_probe.cu
 //   fcvm::bw_read       Kbw  csrc/bw_probe.cu
 // so each is called as torch.ops.fcvm.<name>.  The kernels themselves keep a
@@ -41,12 +41,12 @@ extern "C" int fcvm_khat_matvec_f64(const double* packed, const int* elnodes_t,
                                     const int* offsets, const int* pos, const double* x,
                                     const double* fixmask, double* fe, double* y, long long ne,
                                     long long nn, long long ntiles, void* stream);
-extern "C" int fcvm_segment_sum_f32(const float* vals, const int* order, const int* offsets,
-                                    const int* segs, float* out, long long nu, long long w,
-                                    void* stream);
-extern "C" int fcvm_segment_sum_f64(const double* vals, const int* order, const int* offsets,
-                                    const int* segs, double* out, long long nu, long long w,
-                                    void* stream);
+extern "C" int fcvm_segment_sum_f32(const float* vals, const int* order, const int* walk,
+                                    const int* holes, float* out, long long nu, long long nlong,
+                                    long long nholes, long long w, int write, void* stream);
+extern "C" int fcvm_segment_sum_f64(const double* vals, const int* order, const int* walk,
+                                    const int* holes, double* out, long long nu, long long nlong,
+                                    long long nholes, long long w, int write, void* stream);
 extern "C" int fcvm_two_level_restrict_f32(const float* r, const float* fixmask,
                                            const float* qmat, const float* pinv, float* z,
                                            float* rc, long long nn, int cs, int ncl, int nm,
@@ -205,42 +205,58 @@ at::Tensor khat_matvec(const at::Tensor& packed, const at::Tensor& elnodes_t,
   return y;
 }
 
-// K8: out[segs[u], :] += sum over p in [offsets[u], offsets[u + 1]) of
-// vals[order[p], :], in place; vals (n, ...) and out (nseg, ...) contiguous
-// with the same trailing shape, the plan int32.
-void segment_sum(const at::Tensor& vals, const at::Tensor& order, const at::Tensor& offsets,
-                 const at::Tensor& segs, at::Tensor& out) {
+// K8: out[seg_u, :] (+)= sum over the rows p of segment u of vals[order[p], :],
+// in place; accumulating onto out's rows (write false) or onto zeros, with
+// every row of out that no key names (holes) written 0 (write true).  vals
+// (n, ...) and out (nout, ...) contiguous with the same trailing shape; the
+// plan int32: order, walk (3, nu) (each segment's begin and end in order and
+// its output row, longest first), holes; nlong from
+// ops/kernels.py::ring_groups: the first nlong segments take the ring
+// path (rows of 16-byte multiples at a 16-byte aligned vals), the rest the
+// register path.
+void segment_sum(const at::Tensor& vals, const at::Tensor& order, const at::Tensor& walk,
+                 const std::optional<at::Tensor>& holes, at::Tensor& out, int64_t nlong,
+                 bool write) {
   TORCH_CHECK(out.is_cuda() && vals.device() == out.device() && order.device() == out.device() &&
-                  offsets.device() == out.device() && segs.device() == out.device(),
+                  walk.device() == out.device() && (!holes || holes->device() == out.device()),
               "segment_sum: all tensors must be on one CUDA device");
   TORCH_CHECK(vals.scalar_type() == out.scalar_type(), "segment_sum: vals and out differ in dtype");
-  TORCH_CHECK(order.scalar_type() == at::kInt && offsets.scalar_type() == at::kInt &&
-                  segs.scalar_type() == at::kInt,
-              "segment_sum: order, offsets and segs must be int32");
+  TORCH_CHECK(order.scalar_type() == at::kInt && walk.scalar_type() == at::kInt &&
+                  (!holes || holes->scalar_type() == at::kInt),
+              "segment_sum: order, walk and holes must be int32");
   TORCH_CHECK(vals.dim() >= 1 && out.dim() == vals.dim() &&
                   out.sizes().slice(1) == vals.sizes().slice(1) && order.dim() == 1 &&
-                  order.size(0) <= vals.size(0) && segs.dim() == 1 && offsets.dim() == 1 &&
-                  offsets.size(0) == segs.size(0) + 1 && out.size(0) <= 0x7fffffffLL,
-              "segment_sum: expected vals (n, ...), out (nseg, ...), order (at most n), segs "
-              "(nu), offsets (nu + 1)");
+                  order.size(0) <= vals.size(0) && walk.dim() == 2 && walk.size(0) == 3 &&
+                  (!holes || holes->dim() == 1) && out.size(0) <= 0x7fffffffLL,
+              "segment_sum: expected vals (n, ...), out (nout, ...), order (at most n), walk "
+              "(3, nu), holes (nholes)");
   TORCH_CHECK(vals.is_contiguous() && out.is_contiguous() && order.is_contiguous() &&
-                  offsets.is_contiguous() && segs.is_contiguous(),
+                  walk.is_contiguous() && (!holes || holes->is_contiguous()),
               "segment_sum: inputs must be contiguous");
-  const c10::cuda::CUDAGuard guard(out.device());
-  const long long nu = segs.size(0);
+  TORCH_CHECK(!write || holes, "segment_sum: the write form needs the plan's holes");
+  const long long nu = walk.size(1);
   const long long w = out.size(0) > 0 ? out.numel() / out.size(0) : 0;
+  TORCH_CHECK(nlong >= 0 && nlong <= nu && w > 0, "segment_sum: nlong ", nlong, " of ", nu,
+              " segments at width ", w, "; expected 0 <= nlong <= nu and a width");
+  TORCH_CHECK(nlong == 0 || ((w * vals.element_size()) % 16 == 0 &&
+                             reinterpret_cast<uintptr_t>(vals.data_ptr()) % 16 == 0),
+              "segment_sum: the ring path needs rows of a multiple of 16 bytes at a 16-byte "
+              "aligned address");
+  const c10::cuda::CUDAGuard guard(out.device());
   void* stream = c10::cuda::getCurrentCUDAStream().stream();
+  const long long nholes = holes ? holes->size(0) : 0;
+  const int* holes_ptr = holes ? holes->data_ptr<int>() : nullptr;
   int err = 0;
   switch (out.scalar_type()) {
     case at::kFloat:
       err = fcvm_segment_sum_f32(vals.data_ptr<float>(), order.data_ptr<int>(),
-                                 offsets.data_ptr<int>(), segs.data_ptr<int>(),
-                                 out.data_ptr<float>(), nu, w, stream);
+                                 walk.data_ptr<int>(), holes_ptr, out.data_ptr<float>(), nu,
+                                 nlong, nholes, w, write, stream);
       break;
     case at::kDouble:
       err = fcvm_segment_sum_f64(vals.data_ptr<double>(), order.data_ptr<int>(),
-                                 offsets.data_ptr<int>(), segs.data_ptr<int>(),
-                                 out.data_ptr<double>(), nu, w, stream);
+                                 walk.data_ptr<int>(), holes_ptr, out.data_ptr<double>(), nu,
+                                 nlong, nholes, w, write, stream);
       break;
     default:
       TORCH_CHECK(false, "segment_sum: dtype must be float32 or float64, got ",
@@ -379,8 +395,8 @@ TORCH_LIBRARY(fcvm, m) {
   m.def("block_matmat(Tensor esm_t, Tensor ue) -> Tensor");
   m.def("khat_matvec(Tensor packed, Tensor elnodes_t, Tensor offsets, Tensor pos, Tensor x, "
         "Tensor? fixmask) -> Tensor");
-  m.def("segment_sum(Tensor vals, Tensor order, Tensor offsets, Tensor segs, "
-        "Tensor(a!) out) -> ()");
+  m.def("segment_sum(Tensor vals, Tensor order, Tensor walk, Tensor? holes, Tensor(a!) out, "
+        "int nlong, bool write) -> ()");
   m.def("two_level_apply(Tensor pinv, Tensor qmat, Tensor coarse_inv, Tensor fixmask, "
         "Tensor r, Tensor? z_fine) -> Tensor");
   m.def("soa_matvec(Tensor esm_t, Tensor ue_t, int tile) -> Tensor");

@@ -1,6 +1,6 @@
 // Asynchronous copies into a shared-memory ring, shared by K0
 // (block_matvec.cu) and K0m (block_matmat.cu), and the persistent grid,
-// which K1 (khat_matvec.cu) uses as well.
+// which K1 (khat_matvec.cu) and K8 (segment_sum.cu) use as well.
 //
 // A ring is S slots of shared memory.  Each thread issues its share of a
 // stage's copies with cp.async (global -> shared without passing through
@@ -54,12 +54,30 @@ __device__ __forceinline__ void cp_async_wait() {
 
 constexpr int kMaxDevices = 64;
 
+// Blocks of `kernel` resident on the current device at once, with `threads`
+// threads and `smem` bytes of dynamic shared memory (the kernel's limit is
+// set to `smem` first): its SM count times the blocks an SM holds by the
+// kernel's registers and shared memory.  Returns a cudaError_t (0 = ok).
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, int smem, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *blocks = sms * per_sm;
+  return 0;
+}
+
 // Blocks of a persistent launch of `kernel`: as many as fit on the current
-// device at once (by its SM count and the kernel's registers and shared
-// memory), and no more than `units` of work.  The first launch on a device
-// sets the kernel's dynamic shared-memory limit and keeps the count in
-// resident[device] (the caller's, one array a kernel).  Returns a
-// cudaError_t (0 = ok).
+// device at once (resident_blocks), and no more than `units` of work.  The
+// first launch on a device keeps the count in resident[device] (the
+// caller's, one array a kernel of fixed threads and shared memory).
+// Returns a cudaError_t (0 = ok).
 template <typename Kernel>
 int persistent_grid(Kernel kernel, int threads, int smem, long long units, int* resident,
                     int* grid) {
@@ -68,15 +86,8 @@ int persistent_grid(Kernel kernel, int threads, int smem, long long units, int* 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    resident[dev] = sms * per_sm;
+    const int failed = resident_blocks(kernel, threads, smem, resident + dev);
+    if (failed != 0) return failed;
   }
   *grid = static_cast<int>(units < resident[dev] ? units : resident[dev]);
   return 0;

@@ -44,13 +44,13 @@ def element_dof_ids(elnodes: torch.Tensor) -> torch.Tensor:
 def node_sum(rows: torch.Tensor, nodes: torch.Tensor, ndof: int, plan=None) -> torch.Tensor:
     """(ndof,) node vector of the 3-wide ``rows`` (n k, 3) of ``n`` items
     of ``k`` nodes each (``nodes`` (n, k)), each node's rows summed in
-    ascending row order by K8 over ``plan``, the
-    :func:`~fcvm_tpu_torch.ops.kernels.segment_plan` of ``nodes`` (built
-    here when not given)."""
+    ascending row order by K8's write form over ``plan``, the
+    :func:`~fcvm_tpu_torch.ops.kernels.segment_plan` of ``nodes`` with
+    ``rows = ndof // 3`` (built here when not given)."""
     if plan is None:
-        plan = kernels.segment_plan(nodes)
-    out = torch.zeros((ndof // 3, 3), dtype=rows.dtype, device=rows.device)
-    return kernels.segment_sum(rows.reshape(-1, 3).contiguous(), plan, out).reshape(-1)
+        plan = kernels.segment_plan(nodes, rows=ndof // 3)
+    return kernels.segment_sum(rows.reshape(-1, 3).contiguous(), plan,
+                               rows=ndof // 3).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -261,23 +261,22 @@ def make_multi_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.
     with ``negate``), over element-major blocks ``esm_t`` (30, 30, ne).
 
     The node-row gather of ``U`` gives the (ne, 30, m) layout K0m reads,
-    and K0m's output reshapes to node rows for K8's node sum (its plan
-    built here, once): no copy on either side.  ``identity_on_fixed`` gives
-    ``K_hat @ U``; without it and with ``negate``, ``-G_hat @ U`` of the
-    buckling pencil (zero on fixed dofs); ``fixmask`` all ones gives the
-    raw ``K @ U``."""
+    and K0m's output reshapes to node rows for K8's node sum (its write
+    form, the plan built here, once): no copy on either side.
+    ``identity_on_fixed`` gives ``K_hat @ U``; without it and with
+    ``negate``, ``-G_hat @ U`` of the buckling pencil (zero on fixed dofs);
+    ``fixmask`` all ones gives the raw ``K @ U``."""
     elnodes = eldofs[:, ::3] // 3
-    plan = kernels.segment_plan(elnodes)
     ne = elnodes.shape[0]
     nn = fixmask.shape[0] // 3
+    plan = kernels.segment_plan(elnodes, rows=nn)
     pm = fixmask[:, None]
 
     def mv(u):
         m = u.shape[1]
         ue = (pm * u).reshape(nn, 3, m)[elnodes].reshape(ne, 30, m)  # node-row gather
         fe = kernels.block_matmat(esm_t, ue)
-        out = torch.zeros((nn, 3, m), dtype=u.dtype, device=u.device)
-        kernels.segment_sum(fe.reshape(ne * 10, 3, m), plan, out)
+        out = kernels.segment_sum(fe.reshape(ne * 10, 3, m), plan, rows=nn)
         y = pm * out.reshape(nn * 3, m)
         if identity_on_fixed:
             y = y + (1.0 - pm) * u
@@ -294,10 +293,11 @@ def dirichlet_rhs(esm_t, eldofs, fixmask, u_fix, glv, incidence=None, packed=Non
     return fixmask * glv - fixmask * kv(u_fix) + u_fix
 
 
-def jacobi_plan(elnodes: torch.Tensor) -> kernels.SegmentPlan:
+def jacobi_plan(elnodes: torch.Tensor, nn: int) -> kernels.SegmentPlan:
     """The segment plan of :func:`block_jacobi_inverse_blocks`'s node sum
-    over the elements ``elnodes`` (ne, 10): slot-major keys."""
-    return kernels.segment_plan(elnodes.T)
+    over the elements ``elnodes`` (ne, 10) into ``nn`` nodes: slot-major
+    keys, K8's write form."""
+    return kernels.segment_plan(elnodes.T, rows=nn)
 
 
 def block_jacobi_inverse_blocks(esm, elnodes, fixmask, reduce=None, plan=None):
@@ -307,17 +307,16 @@ def block_jacobi_inverse_blocks(esm, elnodes, fixmask, reduce=None, plan=None):
     consistent with :func:`make_bc_matvec`.  ``esm`` (ne, 30, 30).
     ``reduce``, when given, sums the nodal blocks of a part of the mesh
     over the parts before they are inverted (the sharded backend's
-    ``all_reduce``).  ``plan``, the :func:`jacobi_plan` of ``elnodes``, is
-    built here when not given.
+    ``all_reduce``).  ``plan``, the :func:`jacobi_plan` of ``elnodes``
+    (K8's write form), is built here when not given.
     """
     ne = esm.shape[0]
     nn = fixmask.shape[0] // 3
     idx = torch.arange(10, device=esm.device)
     # diag[n, e] = esm[e, 3n:3n+3, 3n:3n+3] -> (10, ne, 3, 3)
     diag = esm.reshape(ne, 10, 3, 10, 3)[:, idx, :, idx, :]
-    nodal = torch.zeros((nn, 3, 3), dtype=esm.dtype, device=esm.device)
-    kernels.segment_sum(diag.reshape(-1, 3, 3).contiguous(),
-                        plan if plan is not None else jacobi_plan(elnodes), nodal)
+    nodal = kernels.segment_sum(diag.reshape(-1, 3, 3).contiguous(),
+                                plan if plan is not None else jacobi_plan(elnodes, nn), rows=nn)
     if reduce is not None:
         nodal = reduce(nodal)
     m3 = fixmask.reshape(nn, 3)

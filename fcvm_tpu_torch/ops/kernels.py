@@ -16,8 +16,10 @@
   :class:`SegmentPlan`, replaces the node reductions of the JAX package
   (``fcvm_tpu/ops/assembly.py::scatter_node_rows`` with its
   ``ScatterPlan``, and ``jax.ops.segment_sum``); source
-  ``csrc/segment_sum.cu``.  Every node reduction of the port runs through
-  it, so none is an atomic scatter-add on the card.
+  ``csrc/segment_sum.cu``: long groups of wide rows stream through a
+  bulk-copy ring, the rest are summed in registers, longest first, in
+  place or into a new output it writes whole.  Every node reduction of the
+  port runs through it, so none is an atomic scatter-add on the card.
 * K4 :func:`two_level_apply`, the fused two-level preconditioner apply on
   a vector, replaces the XLA-lowered
   ``fcvm_tpu/ops/precond.py::TwoLevelPrecond.apply``; source
@@ -41,9 +43,10 @@ source.
 Dispatch is by the tensors' device: on CPU tensors a wrapper runs the plain
 version (``*_ref``), on CUDA tensors it launches the kernel or raises.  There
 is no fallback from a failed build or launch.  Each wrapper counts its
-kernel launches in its ``launches`` attribute; K0, K1, K4 and K8 also count
-them by dtype in their ``dtypes``, K0m by dtype and column count in
-``block_matmat.shapes``.
+kernel launches in its ``launches`` attribute (K8 its calls, each launching
+one or two kernels); K0, K1, K4 and K8 also count them by dtype in their
+``dtypes``, K0m by dtype and column count in ``block_matmat.shapes``, and
+K8 its kernels by form and path in ``segment_sum.paths``.
 
 The kernels are compiled at first use by ``torch.utils.cpp_extension.load``
 (``nvcc`` for ``sm_90a``, the host compiler for the bindings) into
@@ -359,13 +362,23 @@ class SegmentPlan(NamedTuple):
 
     Fields:
       keys: (n,) int64, the plain version's ``index_add_`` index.
-      order: (n,) int32, the value rows grouped by key in ascending key
+      order: (nsum,) int32, the value rows grouped by key in ascending key
         order, each group in ascending row order (a stable sort).
       offsets: (nu + 1,) int32, each group's range in ``order``.
       segs: (nu,) int32, each group's key: the output rows the kernel
-        writes; every other row keeps its value.
+        writes; every other row keeps its value (accumulating) or is
+        written 0 (the write form).
       top: the largest key in ``segs`` plus one (0 when empty): the least
         number of output rows.
+      walk: (3, nu) int32, the groups longest first (ties in ascending key
+        order): each one's begin and end in ``order`` and its key, the
+        order in which the kernel takes them.
+      long_counts: 32 ints, ``long_counts[k]`` the number of groups of at
+        least ``2**k`` rows: the first ones of ``walk``.
+      rows: the output rows of the write form, or None (a plan for the
+        accumulating form only; the write form's plain version takes any).
+      holes: (rows - nu,) int32, the output rows below ``rows`` that no key
+        names, which the write form zeroes; None without ``rows``.
     """
 
     keys: torch.Tensor
@@ -373,84 +386,170 @@ class SegmentPlan(NamedTuple):
     offsets: torch.Tensor
     segs: torch.Tensor
     top: int
+    walk: torch.Tensor
+    long_counts: tuple
+    rows: int | None = None
+    holes: torch.Tensor | None = None
 
 
-def segment_plan(keys: torch.Tensor, drop=None) -> SegmentPlan:
+def segment_plan(keys: torch.Tensor, drop=None, rows=None) -> SegmentPlan:
     """The :class:`SegmentPlan` of ``keys`` (any shape, flattened): one
     stable sort on their device, the JAX package's ``ScatterPlan`` order.
-    Rows whose key is ``drop`` are left out of the kernel's sums (a dump
-    row nobody reads); the plain version still adds them."""
+    Besides the count of groups (``torch.unique_consecutive``) the host
+    reads once: the keys' range and the long-group counts together.  Rows
+    whose key is ``drop`` are left out of the kernel's sums (a dump row
+    nobody reads); the plain version still adds them.  ``rows``, for a plan
+    of the write form (not with ``drop``): the output's rows, every key
+    below it."""
     keys = keys.reshape(-1).long()
-    n = keys.shape[0]
-    if n >= 2**31 or (n and int(keys.max()) >= 2**31) or (n and int(keys.min()) < 0):
-        raise ValueError("segment_plan: K8's int32 tables need fewer than 2^31 rows and "
-                         "keys in [0, 2^31)")
-    sorted_keys, order = torch.sort(keys, stable=True)
-    if drop is not None:
-        keep = sorted_keys != drop
-        sorted_keys, order = sorted_keys[keep], order[keep]
+    n, dev = keys.shape[0], keys.device
+    if n >= 2**31:
+        raise ValueError("segment_plan: K8's int32 tables need fewer than 2^31 rows")
+    if drop is not None and rows is not None:
+        raise ValueError("segment_plan: a plan of the write form has no dump row")
+    # a dropped row sorts last, in a group of its own that sums nothing
+    sort_keys = keys if drop is None else keys.masked_fill(keys == drop, _DROPPED)
+    sorted_keys, order = torch.sort(sort_keys, stable=True)
     segs, counts = torch.unique_consecutive(sorted_keys, return_counts=True)
-    offsets = torch.zeros(segs.shape[0] + 1, dtype=torch.int64, device=keys.device)
+    offsets = torch.zeros(segs.shape[0] + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts, 0, out=offsets[1:])
-    top = int(segs[-1]) + 1 if segs.shape[0] else 0
+    nall = segs.shape[0]
+    last = min(nall, 2)  # the last two groups' keys, and the last one's rows
+    ends = [sorted_keys[:1], segs[nall - last:], counts[nall - last:]]
+    if drop is not None:
+        counts = counts.masked_fill(segs == _DROPPED, 0)
+    lengths, by_length = torch.sort(counts, descending=True, stable=True)
+    walk = torch.stack([offsets[:-1][by_length], offsets[1:][by_length], segs[by_length]])
+    longer = torch.searchsorted(-lengths, -(2 ** torch.arange(32, device=dev)), right=True)
+    lo, tail, tail_rows, long_counts = 0, [], [], [0] * 32
+    if n:
+        lo, *read = torch.cat([*ends, longer]).tolist()
+        tail, tail_rows, long_counts = read[:last], read[last:2 * last], read[2 * last:]
+    nu = long_counts[0]  # the groups summed: every one but the dropped rows'
+    ndrop = tail_rows[-1] if nu < nall else 0
+    hi = tail[nall - nu - 1] if nu else 0  # the largest key summed
+    if lo < 0 or hi >= 2**31:
+        raise ValueError("segment_plan: K8's int32 tables need keys in [0, 2^31)")
+    segs, offsets, order, walk = segs[:nu], offsets[:nu + 1], order[:n - ndrop], walk[:, :nu]
+    top = hi + 1 if nu else 0
+    holes = None
+    if rows is not None:
+        if top > rows:
+            raise ValueError(f"segment_plan: a key {top - 1} is not below rows = {rows}")
+        named = torch.zeros(rows, dtype=torch.bool, device=dev)
+        named[segs] = True
+        holes = torch.nonzero(~named).reshape(-1).to(torch.int32)
     return SegmentPlan(keys, order.to(torch.int32), offsets.to(torch.int32),
-                       segs.to(torch.int32), top)
+                       segs.to(torch.int32), top, walk.to(torch.int32), tuple(long_counts),
+                       rows, holes)
 
 
-def segment_sum_ref(vals: torch.Tensor, plan: SegmentPlan, out: torch.Tensor) -> torch.Tensor:
-    """Plain version of K8: ``out.index_add_(0, plan.keys, vals)``."""
+_DROPPED = 2**62  # a dropped row's sort key, past every key K8 takes
+
+
+# K8's schedule (csrc/segment_sum.cu, which owns the ring's shape): a group
+# of at least RING_MIN_VALUES values (rows x width, its rows rounded up to a
+# power of two) takes the ring path where its rows allow: a multiple of 16
+# bytes at a 16-byte aligned address, and at most RING_MAX_WIDTH values (31
+# consumer warps of the kernel's 1024 threads).  Every other group takes the
+# register path.
+RING_MIN_VALUES = 4096
+RING_MAX_WIDTH = 992
+
+
+def ring_groups(plan: SegmentPlan, width: int, itemsize: int, aligned: bool = True) -> int:
+    """How many of ``plan``'s groups K8 sums on its ring path, the first of
+    its ``walk``, for rows of ``width`` values of ``itemsize`` bytes;
+    ``aligned``: the values start at a 16-byte aligned address."""
+    if not (aligned and (width * itemsize) % 16 == 0 and 0 < width <= RING_MAX_WIDTH):
+        return 0
+    k = (-(-RING_MIN_VALUES // width) - 1).bit_length()  # log2 of the rows, rounded up
+    return plan.long_counts[k] if k < len(plan.long_counts) else 0
+
+
+def segment_sum_ref(vals: torch.Tensor, plan: SegmentPlan, out=None, *, rows=None):
+    """Plain version of K8: ``out.index_add_(0, plan.keys, vals)``, or
+    with ``rows`` instead of ``out`` the same into ``torch.zeros``."""
+    if out is None:
+        out = torch.zeros((rows, *vals.shape[1:]), dtype=vals.dtype, device=vals.device)
     return out.index_add_(0, plan.keys, vals)
 
 
-def segment_sum(vals: torch.Tensor, plan: SegmentPlan, out: torch.Tensor) -> torch.Tensor:
+def segment_sum(vals: torch.Tensor, plan: SegmentPlan, out=None, *, rows=None):
     """K8: ``out[keys[p]] += vals[p]`` for every row ``p`` of ``vals``, each
-    output row summed in the plan's fixed order, in place (design and
-    bound at the top of ``csrc/segment_sum.cu``).
+    output row summed in the plan's fixed order (design and bound at the
+    top of ``csrc/segment_sum.cu``).  Two forms:
+
+    * accumulate, given ``out``: in place onto its rows;
+    * write, given ``rows`` instead: a new output of ``rows`` rows, each
+      sum from zero and every row that no key names 0, as ``index_add_``
+      into ``torch.zeros`` (on the card one launch writes all of it: no
+      zero fill; the plan must be built with the same ``rows``).
 
     Args:
       vals: (n, ...) values, float32 or float64, contiguous.
       plan: the :class:`SegmentPlan` of the n rows' keys.
-      out: (nseg, ...) accumulator, the trailing shape of ``vals``, same
-        dtype and device, contiguous.
+      out: (nout, ...) accumulator, the trailing shape of ``vals``, same
+        dtype and device, contiguous; or None with ``rows``.
 
     Returns:
-      ``out``.  CPU tensors take the plain version; CUDA tensors launch the
-      kernel (``segment_sum.launches`` counts those launches): no atomics,
-      so two calls on the same inputs give the same bits.
+      The output.  CPU tensors take the plain version; CUDA tensors launch
+      the kernel: no atomics, so two calls on the same inputs give the same
+      bits.  ``segment_sum.launches`` counts the calls that launch, one each
+      whatever its paths; ``segment_sum.paths`` counts the kernels launched,
+      by form and path (a call with long and short groups launches two).
     """
-    if (vals.dim() < 1 or out.dim() != vals.dim() or out.shape[1:] != vals.shape[1:]
-            or plan.keys.shape != vals.shape[:1] or plan.order.shape[0] > vals.shape[0]
-            or plan.offsets.shape != (plan.segs.shape[0] + 1,)):
+    write = out is None
+    if write == (rows is None):
+        raise ValueError("segment_sum: give out (the accumulating form) or rows (the write "
+                         "form)")
+    nout = rows if write else out.shape[0]
+    if (vals.dim() < 1 or plan.keys.shape[0] != vals.shape[0] or not plan.top <= nout < 2**31
+            or (write and plan.rows not in (None, rows))):
         raise ValueError(
-            f"segment_sum: vals {tuple(vals.shape)}, out {tuple(out.shape)}, plan of "
-            f"{plan.keys.shape[0]} keys; expected (n, ...), (nseg, ...) and n keys")
-    if not (vals.is_contiguous() and out.is_contiguous()):
-        raise ValueError("segment_sum: vals and out must be contiguous")
-    tensors = (vals, out, plan.keys, plan.order, plan.offsets, plan.segs)
-    if all(t.device.type == "cpu" for t in tensors):
-        return segment_sum_ref(vals, plan, out)
-    if out.device.type != "cuda" or any(t.device != out.device for t in tensors):
-        raise ValueError("segment_sum: tensors on several devices; expected all on the CPU "
-                         "or all on one CUDA device")
-    if out.dtype not in (torch.float32, torch.float64) or vals.dtype != out.dtype:
-        raise TypeError(f"segment_sum: dtypes {vals.dtype}/{out.dtype}; expected both "
-                        "float32 or both float64")
-    if any(t.dtype != torch.int32 for t in (plan.order, plan.offsets, plan.segs)):
-        raise TypeError("segment_sum: the plan's order, offsets and segs must be int32")
-    if not plan.top <= out.shape[0] < 2**31:
-        raise ValueError(f"segment_sum: {out.shape[0]} output rows; the plan needs "
-                         f"{plan.top} and the kernel fewer than 2^31")
-    if plan.segs.shape[0] == 0 or out.numel() == 0:
+            f"segment_sum: vals {tuple(vals.shape)}, {nout} output rows, a plan of "
+            f"{plan.keys.shape[0]} keys needing {plan.top} rows (built for {plan.rows}); "
+            "expected n keys for the n rows of vals, every key below the output's rows, "
+            "fewer than 2^31 of them, and the plan's rows")
+    if not vals.is_cuda:
+        tensors = (vals, plan.keys, plan.order, plan.walk) + (() if write else (out,))
+        if any(t.device.type != "cpu" for t in tensors):
+            raise ValueError("segment_sum: tensors on several devices; expected all on the CPU "
+                             "or all on one CUDA device")
+        if (plan.order.shape[0] > vals.shape[0] or plan.walk.shape != (3, plan.segs.shape[0])
+                or (not write and (out.dim() != vals.dim() or out.shape[1:] != vals.shape[1:]))):
+            raise ValueError(f"segment_sum: vals {tuple(vals.shape)}, out "
+                             f"{None if write else tuple(out.shape)}; expected (n, ...) and "
+                             "(nout, ...) of the same trailing shape")
+        if not (vals.is_contiguous() and (write or out.is_contiguous())):
+            raise ValueError("segment_sum: vals and out must be contiguous")
+        return segment_sum_ref(vals, plan, out, rows=rows)
+    # on the card the binding checks the devices, dtypes, shapes and layouts
+    if write:
+        if plan.rows != rows:
+            raise ValueError("segment_sum: the write form on the card needs a plan built with "
+                             f"rows = {rows}")
+        out = vals.new_empty((rows, *vals.shape[1:]))
+    nu, nholes = plan.segs.shape[0], (plan.holes.shape[0] if write else 0)
+    if out.numel() == 0 or nu + nholes == 0:
         return out
+    nlong = ring_groups(plan, out.numel() // nout, vals.element_size(), vals.data_ptr() % 16 == 0)
     build()
-    torch.ops.fcvm.segment_sum(vals, plan.order, plan.offsets, plan.segs, out)
+    torch.ops.fcvm.segment_sum(vals, plan.order, plan.walk, plan.holes if write else None, out,
+                               nlong, write)
     segment_sum.launches += 1
     segment_sum.dtypes[_dtype_name(out)] += 1
+    form = "write" if write else "accumulate"
+    if nlong:
+        segment_sum.paths[f"{form} ring"] += 1
+    if nu > nlong or nholes:
+        segment_sum.paths[f"{form} register"] += 1
     return out
 
 
-segment_sum.launches = 0
-segment_sum.dtypes = Counter()  # launches by dtype name
+segment_sum.launches = 0  # calls that launch (one or two kernels each)
+segment_sum.dtypes = Counter()  # those calls by dtype name
+segment_sum.paths = Counter()  # kernels launched, by form and path ("write register", ...)
 
 
 def two_level_apply_ref(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):

@@ -189,8 +189,8 @@ def qmat_bc(coords, fixmask, cluster_size: int, n_modes: int = 6):
     return q * m3[:, :, None]
 
 
-# elements a chunk of the coarse table's and of the smoother's accumulation
-COARSE_CHUNK, SMOOTHER_CHUNK = 8192, 4096
+# elements a chunk of the coarse table's accumulation
+COARSE_CHUNK = 8192
 
 
 def coarse_accumulate(esm, elnodes, qmat, cluster_size: int, chunk: int = COARSE_CHUNK):
@@ -199,25 +199,29 @@ def coarse_accumulate(esm, elnodes, qmat, cluster_size: int, chunk: int = COARSE
     Per element ``S_e = Q~ B_e Q~^T`` with the block-diagonal element mode
     matrix ``Q~`` (10 nm, 30); its (nm, nm) pair blocks are added at key
     ``cluster(i) * ncl + cluster(j)``, each chunk's in a fixed order by K8
-    over the chunk's segment plan.  Chunked over elements to bound the
-    (chunk, 10 nm, 10 nm) intermediate."""
-    ne = esm.shape[0]
+    (accumulating across chunks) over the chunk's segment plan.  Chunked
+    over elements to bound the (chunk, 10 nm, 10 nm) intermediate."""
     nm = qmat.shape[2]
     ncl = qmat.shape[0] // cluster_size
     kc = torch.zeros((ncl * ncl, nm * nm), dtype=esm.dtype, device=esm.device)
-    eye10 = torch.eye(10, dtype=esm.dtype, device=esm.device)
-    for s in range(0, ne, chunk):
-        esm_c = esm[s:s + chunk]
+    for s in range(0, esm.shape[0], chunk):
         eln_c = elnodes[s:s + chunk]
-        c = esm_c.shape[0]
-        qe = qmat[eln_c]  # (c, 10, 3, nm)
-        qt = torch.einsum("ciax,ij->cixja", qe, eye10).reshape(c, 10 * nm, 30)
-        s_blk = qt @ esm_c @ qt.transpose(1, 2)  # (c, 10 nm, 10 nm)
-        pair = (s_blk.reshape(c, 10, nm, 10, nm).permute(0, 1, 3, 2, 4)
-                .reshape(c * 100, nm * nm))
         keys = coarse_keys(eln_c, cluster_size, ncl)
-        kernels.segment_sum(pair, kernels.segment_plan(keys), kc)
+        kernels.segment_sum(coarse_pairs(esm[s:s + chunk], eln_c, qmat),
+                            kernels.segment_plan(keys), kc)
     return kc
+
+
+def coarse_pairs(esm_c, eln_c, qmat):
+    """(c 100, nm nm) pair blocks of a chunk of ``c`` elements in
+    :func:`coarse_accumulate`: ``S_e = Q~ B_e Q~^T``, (nm, nm) block (i, j)
+    for each element's node pair (i, j)."""
+    c, nm = esm_c.shape[0], qmat.shape[2]
+    eye10 = torch.eye(10, dtype=esm_c.dtype, device=esm_c.device)
+    qe = qmat[eln_c]  # (c, 10, 3, nm)
+    qt = torch.einsum("ciax,ij->cixja", qe, eye10).reshape(c, 10 * nm, 30)
+    s_blk = qt @ esm_c @ qt.transpose(1, 2)  # (c, 10 nm, 10 nm)
+    return s_blk.reshape(c, 10, nm, 10, nm).permute(0, 1, 3, 2, 4).reshape(c * 100, nm * nm)
 
 
 def coarse_keys(eln_c, cluster_size: int, ncl: int):
@@ -330,25 +334,24 @@ def cluster_diag_inverse(esm, elnodes, fixmask, cs: int):
     return inv.masked_fill_((info != 0)[:, None, None], float("nan"))
 
 
-def cluster_diag_blocks(esm, elnodes, fixmask, cs: int, chunk: int = SMOOTHER_CHUNK):
+def cluster_diag_blocks(esm, elnodes, fixmask, cs: int):
     """The (ncl, 3 cs, 3 cs) diagonal blocks of ``K_hat`` over clusters of
     ``cs`` nodes, fixed dofs masked to the identity.  Each element's
     same-cluster 3x3 node pairs are added into a flat (ncl 3cs cs + 1, 3)
     accumulator (row = cluster, block row, column node; pairs across
-    clusters go to the last, dump row, which K8 skips), chunked over
-    elements, each chunk summed in a fixed order by K8."""
+    clusters go to the last, dump row, which K8 skips) by K8 in one
+    fixed-order pass over the blocks' 3-wide rows ``esm[e, r, 3j:3j + 3]``,
+    over one plan a build: each sum adds its rows in ascending element, as
+    chunks summed one after another would."""
     nn_pad = fixmask.shape[0] // 3
     if nn_pad % cs:
         raise ValueError(f"{nn_pad} padded nodes are not a multiple of {cs}")
     ncl, m = nn_pad // cs, 3 * cs
     nrow = ncl * m * cs  # flat (cluster, block row, column node) 3-wide rows
     acc = torch.zeros((nrow + 1, 3), dtype=esm.dtype, device=esm.device)
-    for s in range(0, esm.shape[0], chunk):
-        esm_c, eln_c = esm[s:s + chunk], elnodes[s:s + chunk]
-        # [e, i, j, a, b] = esm[e, 3i + a, 3j + b]
-        pair = esm_c.reshape(-1, 10, 3, 10, 3).permute(0, 1, 3, 2, 4)
-        key = cluster_diag_keys(eln_c, cs, nrow)
-        kernels.segment_sum(pair.reshape(-1, 3), kernels.segment_plan(key, drop=nrow), acc)
+    # the keys [e, i, j, a] in the blocks' row order [e, 3i + a, j]
+    key = cluster_diag_keys(elnodes, cs, nrow).transpose(2, 3)
+    kernels.segment_sum(esm.reshape(-1, 3), kernels.segment_plan(key, drop=nrow), acc)
     mask = fixmask.reshape(ncl, m)
     blocks = acc[:-1].reshape(ncl, m, m).mul_(mask[:, :, None]).mul_(mask[:, None, :])
     blocks.diagonal(dim1=1, dim2=2).add_(1.0 - mask)
@@ -356,7 +359,7 @@ def cluster_diag_blocks(esm, elnodes, fixmask, cs: int, chunk: int = SMOOTHER_CH
 
 
 def cluster_diag_keys(eln_c, cs: int, nrow: int):
-    """(c, 10, 10, 3) keys of a chunk's 3-wide rows in
+    """(c, 10, 10, 3) keys of ``c`` elements' 3-wide rows in
     :func:`cluster_diag_blocks`: row ``[e, i, j, a]`` (``esm[e, 3i + a,
     3j:3j + 3]``) goes to the flat row (cluster, block row, column node)
     when nodes i and j share a cluster, else to the dump row ``nrow``."""

@@ -52,16 +52,14 @@ def _internal_force(bmat, scale, sig, elnodes, ndof, weights=None, reduce=None, 
     """``sum_e sum_g B_g^T sig_g w_g |J_g|`` (``fcVM.py:2448-2462``); each
     element's share scaled by ``weights`` (ne,) when given, the node vector
     passed through ``reduce`` when given (see :func:`update_stress_load`);
-    the node sum is K8's over ``plan``, the segment plan of ``elnodes``
-    (built here when not given)."""
+    the node sum is K8's write form over ``plan``, the segment plan of
+    ``elnodes`` with ``rows = ndof // 3`` (built here when not given)."""
     elv = torch.einsum("egkn,egk,eg->en", bmat, sig, scale)
     if weights is not None:
         elv = elv * weights[:, None]
     if plan is None:
-        plan = kernels.segment_plan(elnodes)
-    qin = torch.zeros((ndof // 3, 3), dtype=elv.dtype, device=elv.device)
-    kernels.segment_sum(elv.reshape(-1, 3).contiguous(), plan, qin)
-    qin = qin.reshape(-1)
+        plan = kernels.segment_plan(elnodes, rows=ndof // 3)
+    qin = kernels.segment_sum(elv.reshape(-1, 3).contiguous(), plan, rows=ndof // 3).reshape(-1)
     return qin if reduce is None else reduce(qin)
 
 

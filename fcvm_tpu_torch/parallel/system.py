@@ -116,8 +116,8 @@ class ShardedSystem(TorchSystem):
         self.incidence_l = asm.node_incidence(self.eln_m_l, self.nn_pad)
         # the K8 plans of the rank's node sums: the internal force's and
         # gravity's (user node ids), the block-Jacobi blocks' (Morton)
-        self.node_plan_l = kernels.segment_plan(self.eln_l)
-        self.jacobi_plan_l = asm.jacobi_plan(self.eln_m_l)
+        self.node_plan_l = kernels.segment_plan(self.eln_l, rows=self.nn_pad)
+        self.jacobi_plan_l = asm.jacobi_plan(self.eln_m_l, self.nn_pad)
 
         def local(x):  # per-element (ne,) material tables follow their elements
             return x[self._user] if torch.is_tensor(x) and x.dim() == 1 else x
@@ -278,7 +278,7 @@ class ShardedSystem(TorchSystem):
             ncl = pc.coarse_inv.shape[0] // nm
             q = pc.qmat[lo:hi]
             cid = torch.arange(lo, hi, device=self.device) // (pc.qmat.shape[0] // ncl)
-            cid_plan = kernels.segment_plan(cid)
+            cid_plan = kernels.segment_plan(cid, rows=ncl)
         w = None if defl is None else defl.w[own]
 
         def mv(u):
@@ -289,9 +289,8 @@ class ShardedSystem(TorchSystem):
             r3 = r.reshape(-1, 3)
             z3 = torch.einsum("nab,nb->na", pinv, r3)
             if two_level:
-                rc = torch.zeros((ncl, nm), dtype=r.dtype, device=r.device)
-                kernels.segment_sum(torch.einsum("nak,na->nk", q, fm3 * r3).contiguous(),
-                                    cid_plan, rc)
+                rc = kernels.segment_sum(torch.einsum("nak,na->nk", q, fm3 * r3).contiguous(),
+                                         cid_plan, rows=ncl)
                 zc = pc.coarse_inv @ pdist.all_reduce(rc).T.reshape(-1)  # mode-major
                 z3 = z3 + torch.einsum("nak,nk->na", q, zc.reshape(nm, ncl).T[cid]) * fm3
             z = z3.reshape(-1)

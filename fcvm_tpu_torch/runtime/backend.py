@@ -64,7 +64,7 @@ class TorchSystem:
         self.elnodes = torch.as_tensor(mesh.elnodes.astype(np.int64), device=device)
         # the K8 plan of the internal force's and gravity's node sums, over
         # the user element order the Gauss state keeps
-        self.node_plan = kernels.segment_plan(self.elnodes)
+        self.node_plan = kernels.segment_plan(self.elnodes, rows=self.ndof_pad // 3)
 
         def vec(a):
             return torch.as_tensor(pad_vector(a, self.ndof_pad), device=device).to(dtype)
@@ -74,7 +74,7 @@ class TorchSystem:
         self.u_fix = vec(u_fix_np)
         self.movdof = vec(movdof_np)
         self.has_movdof = bool(movdof_np.max() > 0.5)
-        self.loads = sysm.LoadTables.from_spec(model.loads, dtype, device)
+        self.loads = sysm.LoadTables.from_spec(model.loads, dtype, device, self.ndof_pad)
         self.space = sysm.build_solve_space(mesh.coords, mesh.elnodes,
                                             self.fixmask, self.ndof_pad)
         self.rtol = cfg.cg_rtol

@@ -134,8 +134,7 @@ def make_recycled_k_inverse(kinv, harvest, build_space, k_defl, min_iters, enabl
 def _assembled_diagonal(esm, eldofs, ndof: int):
     """(ndof,) assembled diagonal of the element blocks (no BC handling)."""
     d = torch.diagonal(esm, dim1=1, dim2=2).contiguous()
-    return kernels.segment_sum(d.reshape(-1), kernels.segment_plan(eldofs),
-                               torch.zeros(ndof, dtype=esm.dtype, device=esm.device))
+    return kernels.segment_sum(d.reshape(-1), kernels.segment_plan(eldofs, rows=ndof), rows=ndof)
 
 
 def _penalty_block_jacobi(esm, elnodes, dvec):
@@ -146,8 +145,8 @@ def _penalty_block_jacobi(esm, elnodes, dvec):
     nn = dvec.shape[0] // 3
     idx = torch.arange(10, device=esm.device)
     diag = esm.reshape(ne, 10, 3, 10, 3)[:, idx, :, idx, :]  # (10, ne, 3, 3)
-    nodal = torch.zeros((nn, 3, 3), dtype=esm.dtype, device=esm.device)
-    kernels.segment_sum(diag.reshape(-1, 3, 3).contiguous(), asm.jacobi_plan(elnodes), nodal)
+    nodal = kernels.segment_sum(diag.reshape(-1, 3, 3).contiguous(), asm.jacobi_plan(elnodes, nn),
+                                rows=nn)
     eye = torch.eye(3, dtype=esm.dtype, device=esm.device)
     return inv3_spd(nodal + eye[None] * dvec.reshape(nn, 3)[:, :, None])
 

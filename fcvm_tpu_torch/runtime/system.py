@@ -36,7 +36,8 @@ from fcvm_tpu_torch.utils.ordering import morton_perm
 
 class LoadTables(NamedTuple):
     """Device-side load tables (see :class:`fcvm_tpu_torch.models.spec.Loads`),
-    each node table with its K8 segment plan."""
+    each node table with its K8 segment plan (of the write form, into the
+    ``ndof`` of :meth:`from_spec`)."""
 
     pressure_faces: torch.Tensor
     pressures: torch.Tensor
@@ -53,7 +54,7 @@ class LoadTables(NamedTuple):
     vertex_plan: SegmentPlan
 
     @staticmethod
-    def from_spec(loads, dtype, device) -> "LoadTables":
+    def from_spec(loads, dtype, device, ndof: int) -> "LoadTables":
         def i(a):
             return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
 
@@ -68,7 +69,7 @@ class LoadTables(NamedTuple):
             tables[2], f(loads.edge_tractions),
             tables[3], f(loads.vertex_forces),
             f(loads.gravity),
-            *(kernels.segment_plan(t) for t in tables),
+            *(kernels.segment_plan(t, rows=ndof // 3) for t in tables),
         )
 
 
@@ -176,7 +177,7 @@ def build_solve_space(coords_np, elnodes_np, fixmask, ndof_pad: int) -> SolveSpa
         fixmask.reshape(nn_pad, 3)[perm_t].reshape(-1),
         torch.as_tensor(np.asarray(coords_np)[perm[:nn]], device=dev).to(dtype),
         asm.node_incidence(elnodes_m, nn_pad),
-        asm.jacobi_plan(elnodes_m),
+        asm.jacobi_plan(elnodes_m, nn_pad),
     )
 
 

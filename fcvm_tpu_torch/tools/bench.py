@@ -198,10 +198,10 @@ def _device_setup(mesh, model, device, dtype):
         coords=torch.as_tensor(mesh.coords, device=device).to(dtype),
         eln=torch.as_tensor(mesh.elnodes.astype(np.int64), device=device),
         plan=kernels.segment_plan(torch.as_tensor(mesh.elnodes.astype(np.int64),
-                                                  device=device)),
+                                                  device=device), rows=nd_pad // 3),
         dmat=mat.hooke_dmat(E, NU, dtype, device),
         fixmask=fixmask, u_fix=vec(u_fix_np), nd_pad=nd_pad,
-        loads=sysm.LoadTables.from_spec(model.loads, dtype, device),
+        loads=sysm.LoadTables.from_spec(model.loads, dtype, device, nd_pad),
         space=sysm.build_solve_space(mesh.coords, mesh.elnodes, fixmask, nd_pad))
 
 

@@ -5,8 +5,11 @@ process of its own):
 
     python fcvm_tpu_torch/tools/turns.py TREE kernels  # K0, K0p, K0m, K1, K4, K8 at the paths' shapes
     python fcvm_tpu_torch/tools/turns.py TREE cg       # TREE's own phase 3c on the plate
-    python fcvm_tpu_torch/tools/turns.py TREE plate    # phases 5 and 7 (stepping times)
+    python fcvm_tpu_torch/tools/turns.py TREE plate    # phases 5 and 7 (stepping times, the
+                                                       # Newton and CG counts, lbd's bits)
     python fcvm_tpu_torch/tools/turns.py TREE column   # phase 9 (eigensolve, stepping)
+    python fcvm_tpu_torch/tools/turns.py TREE smoother # phase 11 (stepping, the counts, lbd's
+                                                       # bits; the two-level build and its split)
 
 ``TREE`` is the root of a checkout (``.`` for this one, or a ``git archive``
 of another commit unpacked in a directory that ``.gitignore`` lists); its
@@ -19,7 +22,9 @@ K1 and K4 (``kernels.khat_matvec``, ``two_level_apply``) times and launches
 K0 where they would be: its plate runs are held to K0's launches, and its
 ``kernels`` part has no K1 and K4 rows.  A tree from before K8
 (``segment_sum``) and K1's packed blocks is held to the kernels it has, and
-its ``kernels`` part has no K1, K4 and K8 rows.
+its ``kernels`` part has no K1, K4 and K8 rows.  A tree from before K8's
+write form times, at the sites that use it, what its paths run there:
+``torch.zeros``, then K8 accumulating.
 """
 
 from __future__ import annotations
@@ -104,7 +109,26 @@ def main(tree: str, part: str) -> dict:
                            ("phase 7", FcvmConfig(device="cuda", dtype="float32"))):
             r = smoke.run_plate(big, cfg, label, required=has if fused else ("block_matvec",))
             out[label] = dict(stepping=r["stepping"], step_iters=r["step_iters"],
-                              cg_iters=r["cg_stats"]["iters"], launches=r["launches"])
+                              cg_iters=r["cg_stats"]["iters"], launches=r["launches"],
+                              newton=[s["newton"] for s in r["cg_stats"]["steps"]],
+                              cg=[s["cg"] for s in r["cg_stats"]["steps"]],
+                              lbd_bits=[float(x).hex() for x in r["lbd"]])
+    elif part == "smoother":
+        big = smoke.plate_model(smoke.PLATE_BIG)
+        cfg = FcvmConfig(device="cuda", dtype="float32", smoother="cluster")
+        r = smoke.run_plate(big, cfg, "phase 11", required=has)
+        out["phase 11"] = dict(stepping=r["stepping"], step_iters=r["step_iters"],
+                               cg_iters=r["cg_stats"]["iters"],
+                               peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                               newton=[s["newton"] for s in r["cg_stats"]["steps"]],
+                               cg=[s["cg"] for s in r["cg_stats"]["steps"]],
+                               lbd_bits=[float(x).hex() for x in r["lbd"]])
+        build, split = smoke.build_split(big, cfg)
+        for table, pieces in split.items():
+            print(f"{table}: " + "; ".join(f"{k.strip()} {v:.4f} ms" for k, v in pieces.items()
+                                           if k != "chunks") + f" ({pieces['chunks']} chunks)")
+        print(f"build: {build}")
+        out["build"], out["split"] = build, split
     elif part == "column":
         out["phase 9"] = smoke.run_column(
             FcvmConfig(device="cuda", dtype="float32"),

@@ -207,6 +207,73 @@ def test_segment_sum_kernel_matches_index_add(cuda, dtype, width):
     assert kernels.segment_sum.launches == launches + 5
 
 
+def _long_groups(rng, long_rows, n_long, nseg, n):
+    """Keys of ``n`` random rows in ``nseg`` groups plus ``n_long`` groups
+    of ``long_rows`` rows, the rows in random order."""
+    keys = np.concatenate([np.full(long_rows, 5 * k + 2) for k in range(n_long)]
+                          + [rng.integers(0, nseg, size=n)])
+    return torch.as_tensor(rng.permutation(keys))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("form", ["accumulate", "write"])
+def test_segment_sum_streams_long_groups_through_the_ring(cuda, dtype, form):
+    """K8's ring path on groups of 7,473 and more rows of 144 values (576-
+    and 1,152-byte rows, the coarse table's), among 2,000 groups of tens of
+    rows: bit for bit ``index_add_`` on the CPU on the same values, the
+    same bits on a second call, the ring and the register paths launched
+    (counted by form and path)."""
+    rng = np.random.default_rng(7)
+    keys = _long_groups(rng, 7_473, 3, 2_000, 60_000)
+    vals = torch.as_tensor(rng.normal(size=(keys.shape[0], 144))).to(dtype)
+    start = torch.as_tensor(rng.normal(size=(2_050, 144))).to(dtype)
+    write = form == "write"
+    plan = kernels.segment_plan(keys.to(cuda), rows=2_050 if write else None)
+    assert kernels.ring_groups(plan, 144, vals.element_size()) >= 3
+    paths = dict(kernels.segment_sum.paths)
+    v = vals.to(cuda)
+    if write:
+        got, again = (kernels.segment_sum(v, plan, rows=2_050) for _ in range(2))
+        want = torch.zeros_like(start).index_add_(0, keys, vals)
+    else:
+        got, again = (kernels.segment_sum(v, plan, start.to(cuda)) for _ in range(2))
+        want = start.clone().index_add_(0, keys, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got.cpu(), want)
+    for path in ("ring", "register"):
+        assert kernels.segment_sum.paths[f"{form} {path}"] == paths.get(f"{form} {path}", 0) + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("width", [1, 3, 5, 9, 24, 144])
+def test_segment_sum_write_form_matches_index_add_into_zeros(cuda, dtype, width):
+    """K8's write form: a new output of which every row is written, the
+    summed ones bit for bit ``index_add_`` into zeros on the CPU and the
+    rows that no key names (a quarter of them) 0, at the paths' widths
+    (5: rows not a multiple of 16 bytes in float32); values at an address
+    that is not 16-byte aligned take the register path, with the same
+    bits."""
+    rng = np.random.default_rng(width)
+    n, nseg = 40_000, 8_000
+    keys = torch.as_tensor(rng.integers(0, nseg, size=n) * 4 // 3)
+    rows = nseg * 4 // 3 + 7
+    vals = torch.as_tensor(rng.normal(size=(n, width))).to(dtype)
+    want = torch.zeros((rows, width), dtype=dtype).index_add_(0, keys, vals)
+    plan = kernels.segment_plan(keys.to(cuda), rows=rows)
+    assert plan.holes.shape[0] >= rows // 4
+    launches = kernels.segment_sum.launches
+    got = kernels.segment_sum(vals.to(cuda), plan, rows=rows)
+    buf = torch.empty(n * width + 1, dtype=dtype, device=cuda)
+    shifted = buf[1:].view(n, width)
+    shifted.copy_(vals)
+    ring = kernels.segment_sum.paths["write ring"]
+    again = kernels.segment_sum(shifted, plan, rows=rows)
+    torch.cuda.synchronize()
+    assert kernels.segment_sum.paths["write ring"] == ring
+    assert torch.equal(got.cpu(), want) and torch.equal(again, got)
+    assert kernels.segment_sum.launches == launches + 2
+
+
 def test_residual_and_block_products_give_the_same_bits(cuda):
     """The residual (stress update and internal force through K8) twice at
     one state, and K_hat·V and the block-Jacobi blocks twice: the same

@@ -248,7 +248,7 @@ def test_plate_document_matches_its_toml_case(plate_doc, tmp_path):
     np.testing.assert_array_equal(doc_model.bcs.masks(ndof)[0], toml_model.bcs.masks(ndof)[0])
     glv = []
     for model in (doc_model, toml_model):
-        lt = sysm.LoadTables.from_spec(model.loads, torch.float64, "cpu")
+        lt = sysm.LoadTables.from_spec(model.loads, torch.float64, "cpu", ndof)
         coords = torch.as_tensor(model.mesh.coords)
         elnodes = torch.as_tensor(model.mesh.elnodes, dtype=torch.int64)
         glv.append(sysm.external_loads(coords, torch.zeros(ndof, dtype=torch.float64), elnodes,

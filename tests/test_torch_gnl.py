@@ -173,7 +173,7 @@ def test_external_loads_match_jax(deformed, follower):
     d = deformed
     model = _pressure_gravity_model()
     tables = sysm.LoadTables.from_spec(model.loads, jnp.float64)
-    ttables = tsys.LoadTables.from_spec(model_from_arrays(model).loads, F64, "cpu")
+    ttables = tsys.LoadTables.from_spec(model_from_arrays(model).loads, F64, "cpu", d["nd"])
     ref = sysm.external_loads(jnp.asarray(d["coords"]), jnp.asarray(d["disp"]),
                               jnp.asarray(d["eln"]), tables, jnp.float64(7.85e-6), follower)
     plan = kernels.segment_plan(ti(d["eln"]))

@@ -1,9 +1,14 @@
 """K8, the fixed-order segment sum, and the node sums routed through it, on
 the CPU, float64.
 
-* The plan (``kernels.segment_plan``): one stable sort of the keys; an
-  emulation of the kernel's order over it (each output row from its value,
-  its rows added in plan order) gives ``index_add_``'s bits; the plain
+* The plan (``kernels.segment_plan``): one stable sort of the keys, its
+  groups listed longest first (``walk``, ``long_counts``) and, for the
+  write form, the output rows no key names (``holes``); an emulation of
+  the kernel's schedule over it (``kernels.ring_groups``: the long
+  groups stage by stage through the ring, the rest in register batches,
+  each output row from its value or from zero, its rows added in plan
+  order) gives ``index_add_``'s bits, into zeros and into an accumulator,
+  at the widths the paths give K8 and across both paths; the plain
   version and the plan against the JAX package's ``jax.ops.segment_sum``
   and its ``ScatterPlan`` (``scatter_node_rows``) to 1e-12, for items of 10
   (tet10 elements), 6 (tri6 faces), 3 (edges) and 1 (vertices) nodes.
@@ -11,7 +16,8 @@ the CPU, float64.
   the internal force, the loads, the block products' node pass, the
   block-Jacobi blocks, the coarse Galerkin table, the smoother's blocks,
   the buckling pencil's diagonal and penalty blocks, the sharded
-  restriction's cluster sum.
+  restriction's cluster sum; the backend's plans of the write-form sites
+  know their output rows, as the card needs.
 * No atomic scatter-add is left on a CUDA path: every ``index_add_``,
   ``scatter_add_`` or accumulating ``index_put_`` in ``fcvm_tpu_torch`` is
   a plain version that only CPU tensors take.
@@ -63,17 +69,42 @@ def box():
                        1: mesh.select_nodes(lambda x, y, z: y < 1e-9)[:, None]})
 
 
-def _emulate(vals, plan, out):
-    """K8's order on the CPU: each touched output row starts from its value
-    and adds its rows in plan order, one position of every segment at a
-    time."""
-    offsets, order, segs = plan.offsets.long(), plan.order.long(), plan.segs.long()
-    deg = offsets[1:] - offsets[:-1]
-    acc = out[segs].clone()
-    for r in range(int(deg.max()) if deg.numel() else 0):
-        live = deg > r
-        acc[live] = acc[live] + vals[order[offsets[:-1][live] + r]]
-    out[segs] = acc
+def _emulate(vals, plan, out=None, rows=None, aligned=True, stage=32, depth=8):
+    """K8's schedule on the CPU (``csrc/segment_sum.cu``), accumulating
+    into ``out`` or writing ``rows`` rows: the first ``ring_groups`` groups
+    of ``walk`` one after another, stage by stage as the ring delivers them
+    (``stage`` rows, the kernel's at the coarse table's widths), each sum
+    from its output row's value or from zero adding the stage's rows in
+    order; then every other group at once, a register batch of ``depth``
+    rows at a time (the kernel's 8: loaded first, a batch past the group's
+    end reloading its first row, then added in order); the write form's
+    holes zeroed.  Every written row starts as NaN, so a row left unwritten
+    shows."""
+    write = out is None
+    if write:
+        out = torch.full((rows, *vals.shape[1:]), float("nan"), dtype=vals.dtype)
+    v, o = vals.reshape(vals.shape[0], -1), out.view(out.shape[0], -1)
+    nlong = kernels.ring_groups(plan, v.shape[1], vals.element_size(), aligned)
+    walk, order = plan.walk.long(), plan.order.long()
+    for j in range(nlong):  # the ring path
+        begin, end, seg = walk[:, j].tolist()
+        acc = torch.zeros_like(o[seg]) if write else o[seg].clone()
+        for p in range(begin, end, stage):
+            for row in v[order[p:min(p + stage, end)]]:  # a slot
+                acc = acc + row
+        o[seg] = acc
+    begin, end, seg = walk[:, nlong:]  # the register path
+    acc = torch.zeros((seg.shape[0], v.shape[1]), dtype=v.dtype) if write else o[seg].clone()
+    longest = int((end - begin).max()) if seg.numel() else 0
+    for b in range(0, longest, depth):
+        p = [begin + b + d for d in range(depth)]
+        batch = [v[order[torch.where(q < end, q, begin)]] for q in p]
+        for q, rows_d in zip(p, batch):
+            live = q < end
+            acc[live] = acc[live] + rows_d[live]
+    o[seg] = acc
+    if write:
+        o[plan.holes.long()] = 0.0
     return out
 
 
@@ -111,6 +142,10 @@ def test_kernel_order_is_index_add(box, k):
         want = out0.clone().index_add_(0, items.reshape(-1), vals)
         assert torch.equal(_emulate(vals, plan, out0.clone()), want)
         assert torch.equal(kernels.segment_sum(vals, plan, out0.clone()), want)
+    want = torch.zeros_like(start).index_add_(0, items.reshape(-1), vals)
+    written = kernels.segment_plan(items, rows=box["nn"])
+    assert torch.equal(_emulate(vals, written, rows=box["nn"]), want)
+    assert torch.equal(kernels.segment_sum(vals, written, rows=box["nn"]), want)
     assert kernels.segment_sum.launches == launches
 
 
@@ -160,6 +195,104 @@ def test_drop_leaves_the_dump_row_to_the_plain_version():
     out = _emulate(vals, plan, torch.zeros(6, dtype=F64))
     assert out.tolist() == [1.0, 6.0, 0.0, 3.0, 0.0, 0.0]
     assert kernels.segment_sum(vals, plan, torch.zeros(6, dtype=F64))[5] == 2.0 + 4.0 + 5.0
+    with pytest.raises(ValueError):
+        kernels.segment_plan(keys, drop=5, rows=6)
+
+
+def test_walk_lists_the_groups_longest_first():
+    """``walk`` holds every group once, longest first and ties in
+    ascending key order, with its range in ``order`` and its key;
+    ``long_counts[k]`` counts the groups of at least 2^k rows; ``holes``
+    are the rows below ``rows`` that no key names."""
+    rng = np.random.default_rng(5)
+    keys = torch.as_tensor(rng.integers(0, 400, size=3000) ** 2 % 997)
+    plan = kernels.segment_plan(keys, rows=1000)
+    begin, end, seg = plan.walk.long()
+    length = end - begin
+    offsets = plan.offsets.long()
+    order = sorted(range(plan.segs.shape[0]),
+                   key=lambda u: (-int(offsets[u + 1] - offsets[u]), int(plan.segs[u])))
+    assert seg.tolist() == [int(plan.segs[u]) for u in order]
+    assert begin.tolist() == [int(offsets[u]) for u in order]
+    assert bool((length[1:] <= length[:-1]).all())
+    assert plan.long_counts == tuple(int((length >= 2**k).sum()) for k in range(32))
+    named = set(plan.segs.tolist())
+    assert plan.holes.tolist() == [r for r in range(1000) if r not in named]
+    assert plan.rows == 1000 and plan.top == max(named) + 1
+
+
+def _groups(rng, long_rows, n_long, nseg, n):
+    """Keys of ``n`` rows in ``nseg`` groups, ``n_long`` of them of
+    ``long_rows`` rows, the rows in random order."""
+    keys = np.concatenate([np.full(long_rows, 3 * k + 1) for k in range(n_long)]
+                          + [rng.integers(0, nseg, size=n)])
+    return torch.as_tensor(rng.permutation(keys))
+
+
+# name: (width, dtype, long groups' rows, how many, form, what the schedule must do)
+SCHEDULES = {
+    "144-wide groups of 10,000 rows, float64": (144, F64, 10_000, 3, "ring"),
+    "144-wide groups of 10,000 rows, float32": (144, torch.float32, 10_000, 3, "ring"),
+    "144-wide short groups": (144, F64, 0, 0, "register"),
+    "width 3": (3, F64, 24, 2, "register"),
+    "width 9": (9, F64, 24, 2, "register"),
+    "width 24": (24, F64, 24, 2, "register"),
+    "width 24, float32": (24, torch.float32, 24, 2, "register"),
+    "width 5, float32 (20-byte rows)": (5, torch.float32, 10_000, 1, "register"),
+    "144-wide groups, unaligned": (144, F64, 10_000, 1, "unaligned"),
+}
+
+
+@pytest.mark.parametrize("form", ["accumulate", "write"])
+@pytest.mark.parametrize("name", list(SCHEDULES))
+def test_schedule_gives_index_add_bits(name, form):
+    """The kernel's schedule (emulated) and the wrapper on CPU tensors give
+    ``index_add_``'s bits, into a non-zero accumulator or written into
+    zeros with rows that no key names, at the paths' widths: groups longer
+    than the ring on the ring path (10,000 rows of 144), short groups and
+    narrow rows (3, 9, 24) in register batches, a width whose rows are
+    not a multiple of 16 bytes (5 in float32) and unaligned values on the
+    register path whatever their length."""
+    width, dtype, long_rows, n_long, path = SCHEDULES[name]
+    rng = np.random.default_rng(width + long_rows)
+    nseg = 700
+    keys = _groups(rng, long_rows, n_long, nseg, 3000)
+    vals = torch.as_tensor(rng.normal(size=(keys.shape[0], width))).to(dtype)
+    rows = nseg + 40  # rows nseg .. nseg + 39 named by no key
+    plan = kernels.segment_plan(keys, rows=rows)
+    nlong = kernels.ring_groups(plan, width, vals.element_size(), path != "unaligned")
+    lengths = (plan.walk[1] - plan.walk[0]).long()
+    if path == "ring":
+        assert nlong >= n_long and int(lengths[:n_long].min()) >= long_rows
+        assert long_rows > 4 * 32  # longer than the kernel's ring of 4 stages of 32 rows
+    else:
+        assert nlong == 0
+    assert len(plan.holes) >= 40
+    if form == "write":
+        want = torch.zeros((rows, width), dtype=dtype).index_add_(0, keys, vals)
+        got = _emulate(vals, plan, rows=rows, aligned=path != "unaligned")
+        assert torch.equal(kernels.segment_sum(vals, plan, rows=rows), want)
+    else:
+        start = torch.as_tensor(rng.normal(size=(rows, width))).to(dtype)
+        want = start.clone().index_add_(0, keys, vals)
+        got = _emulate(vals, plan, start.clone(), aligned=path != "unaligned")
+        assert torch.equal(kernels.segment_sum(vals, plan, start.clone()), want)
+    assert torch.equal(got, want)
+
+
+def test_schedule_skips_the_dump_row():
+    """A plan with a dump row on both paths: every other row
+    ``index_add_``'s bits, the dump row untouched by the schedule."""
+    rng = np.random.default_rng(8)
+    keys = _groups(rng, 5000, 2, 300, 4000)
+    keys[::3] = 300  # the dump row
+    vals = torch.as_tensor(rng.normal(size=(keys.shape[0], 144)))
+    start = torch.as_tensor(rng.normal(size=(301, 144)))
+    plan = kernels.segment_plan(keys, drop=300)
+    assert kernels.ring_groups(plan, 144, 8) >= 2
+    want = start.clone().index_add_(0, keys, vals)
+    got = _emulate(vals, plan, start.clone())
+    assert torch.equal(got[:300], want[:300]) and torch.equal(got[300], start[300])
 
 
 def test_segment_sum_rejects_what_it_does_not_take(box):
@@ -172,9 +305,43 @@ def test_segment_sum_rejects_what_it_does_not_take(box):
         kernels.segment_sum(torch.zeros((3, 3), dtype=F64).T, plan, torch.zeros((3, 3), dtype=F64))
     with pytest.raises(ValueError):
         kernels.segment_plan(torch.tensor([-1, 0]))
+    vals, out = torch.zeros((3, 3), dtype=F64), torch.zeros((3, 3), dtype=F64)
+    with pytest.raises(ValueError):  # neither form, or both
+        kernels.segment_sum(vals, plan)
+    with pytest.raises(ValueError):
+        kernels.segment_sum(vals, plan, out, rows=3)
+    with pytest.raises(ValueError):  # fewer rows than the keys need
+        kernels.segment_sum(vals, plan, rows=2)
+    with pytest.raises(ValueError):  # another output than the plan's
+        kernels.segment_sum(vals, kernels.segment_plan(torch.tensor([0, 2, 2]), rows=4), rows=3)
+    with pytest.raises(ValueError):
+        kernels.segment_plan(torch.tensor([0, 2, 2]), rows=2)
 
 
 # -- each routed site bit for bit its parent's index_add_ ----------------------
+
+
+def test_write_form_plans_know_their_rows():
+    """The backend's plans of the write-form sites (the internal force and
+    gravity, the load tables, the block-Jacobi blocks) are built with
+    their output's rows, as the kernel's write form needs on the card."""
+    from fcvm_tpu_torch import FcvmConfig
+    from fcvm_tpu_torch.models import meshgen as tmeshgen
+    from fcvm_tpu_torch.models.spec import BoundaryConditions, Loads, Material, Model
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    mesh = tmeshgen.box_tet10(2, 2, 2, 10.0, 10.0, 10.0)
+    bcs = BoundaryConditions.from_node_sets(
+        [(mesh.select_nodes(lambda x, y, z: x < 1e-9), (0.0, 0.0, 0.0))])
+    faces = mesh.faces_on(lambda x, y, z: x > 10.0 - 1e-9)
+    model = Model(mesh, Material(210000.0, 0.3), bcs,
+                  Loads(traction_faces=faces, tractions=np.tile([1.0, 0, 0], (len(faces), 1))))
+    be = TorchSystem(model, FcvmConfig(device="cpu", dtype="float64"), F64, torch.device("cpu"))
+    nn = be.ndof_pad // 3
+    plans = (be.node_plan, be.space.jacobi_plan, be.loads.pressure_plan,
+             be.loads.traction_plan, be.loads.edge_plan, be.loads.vertex_plan)
+    assert [p.rows for p in plans] == [nn] * len(plans)
+    assert be.loads.traction_plan.holes.shape[0] == nn - be.loads.traction_plan.segs.shape[0]
 
 
 def _dofs(nodes):
@@ -272,7 +439,7 @@ def test_block_jacobi_is_the_parents_index_add(box):
     seen = []
     got = tasm.block_jacobi_inverse_blocks(esm, eln, fm, reduce=lambda x: seen.append(x) or x)
     assert torch.equal(seen[0], nodal)
-    again = tasm.block_jacobi_inverse_blocks(esm, eln, fm, plan=tasm.jacobi_plan(eln))
+    again = tasm.block_jacobi_inverse_blocks(esm, eln, fm, plan=tasm.jacobi_plan(eln, nn))
     assert torch.equal(got, again)
     # the buckling penalty mode's blocks: the same sum plus a diagonal
     dvec = t64(np.random.default_rng(70).uniform(1.0, 2.0, size=3 * nn))
@@ -320,8 +487,10 @@ def test_coarse_accumulate_is_the_parents_index_add(box, chunk):
 
 @pytest.mark.parametrize("chunk", [4096, 9])
 def test_smoother_blocks_are_the_parents_index_add(box, chunk):
-    """The cluster smoother's blocks (the dump row skipped by the kernel,
-    added by the plain version and cut away by both), bit for bit."""
+    """The cluster smoother's blocks, summed over one plan of every
+    element (the dump row skipped by the kernel, added by the plain
+    version and cut away by both), bit for bit the parent's chunks of
+    ``chunk`` elements summed one after another."""
     mesh, esm = box["mesh"], box["esm"]
     eln = t64(mesh.elnodes).long()
     cs = 16
@@ -342,7 +511,7 @@ def test_smoother_blocks_are_the_parents_index_add(box, chunk):
     mask = fm.reshape(ncl, m)
     want = acc[:-1].reshape(ncl, m, m).mul_(mask[:, :, None]).mul_(mask[:, None, :])
     want.diagonal(dim1=1, dim2=2).add_(1.0 - mask)
-    assert torch.equal(tpre.cluster_diag_blocks(esm, eln, fm, cs, chunk=chunk), want)
+    assert torch.equal(tpre.cluster_diag_blocks(esm, eln, fm, cs), want)
 
 
 def test_cluster_restriction_is_the_parents_index_add():

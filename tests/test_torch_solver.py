@@ -42,7 +42,7 @@ def elastic():
                                   space=space)
 
     tmodel = model_from_arrays(model)
-    tloads = tsys.LoadTables.from_spec(tmodel.loads, F64, "cpu")
+    tloads = tsys.LoadTables.from_spec(tmodel.loads, F64, "cpu", nd)
     teln = torch.as_tensor(mesh.elnodes.astype(np.int64))
     tesm, tpinv, _, trhs, _, _, _ = tsys.assemble_elastic(
         t64(mesh.coords), teln, t64(dmat), tloads, 0.0, t64(fixmask), t64(u_fix),
