@@ -15,8 +15,9 @@ Phases, each printing its numbers before the next starts:
    (``K0_SHAPES``), float32 and float64; K0m
    (``block_matmat``) against its plain version and ``torch.bmm`` at every
    shape the paths give it (``K0M_SHAPES``: the beam-column's element count
-   with m = 1 to 8, 32 and 64, the plate's with m = 32), float32 and
-   float64, timed beside m launches of K0;
+   with m = 1 to 8, 32 and 64, the plate's with m = 32: the widths at which
+   the paths ran it before K1m took its place), float32 and float64, timed
+   beside m launches of K0;
 3b. bandwidth probe: K0p (``soa_matvec``) and Kbw (``bw_read``, each k)
    against their plain versions on seeded data, then the probe
    (``fcvm_tpu_torch.tools.bw_probe``) at its full sizes, whose launches of
@@ -35,13 +36,25 @@ Phases, each printing its numbers before the next starts:
    assembled K_hat (``torch.sparse``, built once here); the blocks'
    asymmetry ``max |K - K^T| / max |K|`` and the packed copy's size; then
    K8 (``segment_sum``, the fixed-order node sum) at every site the paths
-   give it, float32 and float64 (the internal force's, K_hat·V's and the
+   give it, float32 and float64 (the internal force's and the
    block-Jacobi blocks' in its write form, two chunks of the coarse table's
    and the first of the cluster smoother's accumulation in its accumulating
    form, at their real keys), in both forms against its plain version on
    the card (``index_add_``, the library call) and bit for bit against it
    on the CPU, whose order is the kernel's, with each site's group sizes
    and the launches by path;
+3d. the block kernels of the eigensolve: K1m (``khat_matmat``, K1 on an
+   (ndof, m) block, reading K1's packed blocks and incidence table) in its
+   three forms (K_hat·V; -G_hat·V, projected and negated; the raw K·V) on
+   the beam-column's operator at every width of its eigensolve and
+   deflation (``K1M_WIDTHS``) and on the plate's at its deflation width,
+   and K4m (``two_level_apply_block``, with block Jacobi and with the
+   cluster smoother's output) on the beam-column's preconditioner at the
+   widths of its block solves, float32 and float64, against their plain
+   versions and bit for bit against a second call; timed against their
+   plain versions, the chains they replaced (K1m: gather, K0m, K8, masks;
+   K4m: the torch steps, and m vector applies) and, for K1m's K_hat·V, a
+   cuSPARSE CSR product (``torch.sparse.mm``) of the assembled K_hat;
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
    the load-factor histories must agree; and ``linear_buckling`` of a small
@@ -76,13 +89,19 @@ Phases, each printing its numbers before the next starts:
    buckling eigensolve (its tier, sweeps, pencil residuals and inner CG
    iterations), imperfection seeding and a few GNL steps; both factors
    within 3% of the clamped-free Euler value, the imperfection applied
-   exactly, every step converged below the squash factor, and K1, K4, K8
-   and K0m launched on the path (K1, K4 and K8 by dtype, K0m by dtype and column
-   count);
+   exactly, every step converged below the squash factor, and K1, K4, K8,
+   K1m and K4m launched on the path, K0m not (K1, K4 and K8 by dtype, K1m
+   and K4m by dtype and column count); its peak device memory;
 9b. the eigensolve in pieces on the same mesh: CUDA-event times of the
-   geometric-block formation, one K_hat·V and one -G_hat·V at m = 8, the
-   block preconditioner apply against 8 vector applies, and one pcg_block
-   iteration against one pcg iteration (wall, host sync included);
+   geometric-block formation, one K_hat·V and one -G_hat·V at m = 8 through
+   K1m and through the chain it replaced, the block preconditioner apply
+   through K4m, through the steps it replaced and as 8 vector applies, and
+   one pcg_block iteration through each against one pcg iteration (wall,
+   host sync included);
+9c. phase 9 with the cluster smoother (``smoother="cluster"``), its checks,
+   against phase 9: the eigensolve's tier, sweeps and inner CG iterations,
+   the factors, the stepping and the peak device memory (the smoother's
+   fine level reaches K4m as the caller's output);
 10. the case-file path at full size: a TOML case of the phase-5 plate with
    a region ``y > 75`` twice as stiff and Sum groups on the loaded face and
    edge, through ``load_case``, ``run_analysis`` (float32, default
@@ -127,14 +146,14 @@ Phases, each printing its numbers before the next starts:
    NCCL, this process its rank (``force_sharded``): the phase-7 plate with
    phase 7's configuration and checks, held against phase 7 (the same
    steps, the final lbd within 1e-3, stepping CG iterations within 3%),
-   K1, K4, K8 and K0m launched, the time of one ``all_reduce`` of the plate's
-   vector; then the beam-column's eigensolve, seeding and two GNL steps on
-   the sharded backend with phase 9's bars;
+   K1, K4, K8 and K1m launched and K0m not, the time of one ``all_reduce``
+   of the plate's vector; then the beam-column's eigensolve, seeding and
+   two GNL steps on the sharded backend with phase 9's bars;
 13b. two gloo ranks spawned on ``cuda:0`` (NCCL refuses two ranks on one
    card): phase 4's small plate, small strain and GNL, and the small
    column's buckling (``nstep = 1``) in float64 against the CPU's
    single-device runs (lbd to LBD_RTOL, factors to EIG_RTOL), both ranks'
-   histories identical, K1, K4, K8 and K0m launched on each rank.
+   histories identical, K1, K4, K8 and K1m launched on each rank, K0m not.
 14. the port's benchmark (``fcvm_tpu_torch.tools.bench.main`` with
    ``--no-same-size``, in this process): the matched plate, the 502,599-dof
    headline plate (plastic, ``assembly_gdof_s`` > 0), the box at 499,125
@@ -286,10 +305,14 @@ def device_ms(fn, *args, calls=10):
 
 
 # the kernels of the solver's paths: K1 and K4 in every CG iteration (the
-# vector paths), K8 in every residual and build, K0m in the block products
-# (the eigensolve, the deflation builds), K0 in none since K1 carries K_hat·v
+# vector paths), K8 in every residual and build, K1m in the block products
+# (the eigensolve, the deflation builds), K4m in the eigensolve's block
+# preconditioner applies; K0m and K0 in none since K1m and K1 carry K_hat·V
+# and K_hat·v
 CG_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum")
-PATH_KERNELS = (*CG_KERNELS, "block_matmat", "block_matvec")
+BLOCK_KERNELS = ("khat_matmat", "two_level_apply_block")
+PATH_KERNELS = (*CG_KERNELS, *BLOCK_KERNELS, "block_matmat", "block_matvec")
+BY_SHAPE = ("block_matmat", *BLOCK_KERNELS)  # counted by dtype and column count
 
 
 def reset_launches():
@@ -299,21 +322,22 @@ def reset_launches():
     for name in PATH_KERNELS:
         fn = getattr(kernels, name)
         fn.launches = 0
-        getattr(fn, "shapes" if name == "block_matmat" else "dtypes").clear()
+        getattr(fn, "shapes" if name in BY_SHAPE else "dtypes").clear()
     getattr(kernels.segment_sum, "paths", Counter()).clear()
 
 
 def read_launches():
     """``({kernel: launches}, {kernel: {dtype: launches}})`` of the path
-    kernels; K0m's by dtype and column count; K8's also by form and path
-    (``"segment_sum paths"``)."""
+    kernels; K0m's, K1m's and K4m's by dtype and column count; K8's also by
+    form and path (``"segment_sum paths"``)."""
     from fcvm_tpu_torch.ops import kernels
 
     counts = {name: getattr(kernels, name).launches for name in PATH_KERNELS}
     by = {name: dict(getattr(kernels, name).dtypes) for name in PATH_KERNELS
-          if name != "block_matmat"}
-    by["block_matmat"] = {f"{dt} m={m}": n
-                          for (dt, m), n in sorted(kernels.block_matmat.shapes.items())}
+          if name not in BY_SHAPE}
+    for name in BY_SHAPE:
+        by[name] = {f"{dt} m={m}": n
+                    for (dt, m), n in sorted(getattr(kernels, name).shapes.items())}
     by["segment_sum paths"] = dict(getattr(kernels.segment_sum, "paths", {}))
     return counts, by
 
@@ -895,6 +919,164 @@ def cg_kernel_phase(models):
     return rows
 
 
+def old_multi_matvec(esm_t, eldofs, fixmask, identity_on_fixed=True, negate=False):
+    """The K_hat·V (or, projected and negated, -G_hat·V) the eigensolve ran
+    before K1m: the node-row gather of ``P U``, K0m, K8's write form over
+    the elements' plan and the masks."""
+    from fcvm_tpu_torch.ops import kernels
+
+    elnodes = eldofs[:, ::3] // 3
+    ne, nn = elnodes.shape[0], fixmask.shape[0] // 3
+    plan = kernels.segment_plan(elnodes, rows=nn)
+    pm = fixmask[:, None]
+
+    def mv(u):
+        m = u.shape[1]
+        ue = (pm * u).reshape(nn, 3, m)[elnodes].reshape(ne, 30, m)
+        out = kernels.segment_sum(kernels.block_matmat(esm_t, ue).reshape(ne * 10, 3, m), plan,
+                                  rows=nn)
+        y = pm * out.reshape(nn * 3, m)
+        if identity_on_fixed:
+            y = y + (1.0 - pm) * u
+        return -y if negate else y
+
+    return mv
+
+
+# the widths at which the paths launch K1m (K0m's before it): K0M_SHAPES by model
+K1M_WIDTHS = {"column": tuple(m for ne, m in K0M_SHAPES if ne == NE_COL),
+              "plate": tuple(m for ne, m in K0M_SHAPES if ne == NE_BIG)}
+K4M_WIDTHS = (1, 2, 3, 4, 5, 6, 7, 8)  # the eigensolve's block of 8 and its tails
+# form -> (with fixmask, identity_on_fixed, negate): K_hat·V, -G_hat·V, the raw K·V
+K1M_FORMS = {"masked": (True, True, False), "projected_negated": (True, False, True),
+             "raw": (False, False, False)}
+
+
+def block_kernel_phase(models):
+    """Phase 3d: K1m in each form on the operators of ``models`` (the plate
+    at its deflation width, the beam-column at every width of its
+    eigensolve and deflation) and K4m (block Jacobi and the cluster
+    smoother's output) on the beam-column's preconditioner at the widths of
+    its block solves, float32 and float64, against their plain versions on
+    seeded blocks, each bit for bit against a second call; CUDA-event
+    medians of each, of its plain version, of the chain it replaced (K1m:
+    gather, K0m, K8, masks; K4m: the torch steps, which are its plain
+    version), K4m against m applies of K4 and, for K1m's K_hat·V, against
+    cuSPARSE's CSR product (``torch.sparse.mm``) of the assembled K_hat.
+    Returns ``{(kernel, dtype, model, variant, m): numbers}``."""
+    from fcvm_tpu_torch import FcvmConfig
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    rows = {}
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        dname, size = str(dtype).removeprefix("torch."), torch.finfo(dtype).bits // 8
+        for name, model in models.items():
+            be = TorchSystem(model, FcvmConfig(device="cuda", dtype=dname), dtype,
+                             torch.device("cuda"))
+            esm, pinv, *_ = be.assemble(be.tensor(model.mesh.coords))
+            sp = be.space
+            op = be.operator(esm)
+            esm_t, packed, inc, fm = op.esm_t, op.packed, sp.incidence, sp.fixmask_m
+            ne, nn = esm_t.shape[2], be.ndof_pad // 3
+            kcsr = assembled_khat(esm_t, sp.eldofs_m, fm)
+            gen = torch.Generator(device="cuda").manual_seed(13)
+            for m in K1M_WIDTHS[name]:
+                u = torch.randn((be.ndof_pad, m), generator=gen, device="cuda", dtype=dtype)
+                for form, (masked, ident, neg) in K1M_FORMS.items():
+                    f = fm if masked else None
+                    args = (packed, inc, u, f, ident, neg)
+                    out, again = kernels.khat_matmat(*args), kernels.khat_matmat(*args)
+                    torch.cuda.synchronize()
+                    ref = kernels.khat_matmat_packed_ref(*args)
+                    abs_err = float((out - ref).abs().max())
+                    rel = abs_err / float(ref.abs().max())
+                    same = bool(torch.equal(out, again))
+                    del out, again, ref
+                    row = dict(max_abs_err=abs_err, ms=cuda_ms(kernels.khat_matmat, *args),
+                               plain_ms=None, chain_ms=None, library_ms=None)
+                    # the packed blocks, the node table, pos and offsets, U (and
+                    # the mask) read once, Y written once
+                    nbytes = ((465 * size + 80) * ne + 4 * (nn + 1)
+                              + (2 * m + (1 if masked else 0)) * 3 * nn * size)
+                    row["bound_ms"], row["bound_by"] = bound(nbytes, 1830 * ne * m, dtype)
+                    extra = ""
+                    if form == "masked":
+                        chain = old_multi_matvec(esm_t, sp.eldofs_m, fm)
+                        row.update(plain_ms=cuda_ms(kernels.khat_matmat_packed_ref, *args),
+                                   chain_ms=cuda_ms(chain, u),
+                                   library_ms=cuda_ms(torch.sparse.mm, kcsr, u))
+                        del chain
+                        extra = (f"; plain {row['plain_ms']:.4f} ms, the chain it replaced "
+                                 f"(gather, K0m, K8, masks) {row['chain_ms']:.4f} ms, cuSPARSE "
+                                 f"CSR product {row['library_ms']:.4f} ms")
+                    print(f"K1m {dname} {name} ne={ne} m={m} {form}: max rel err {rel:.3e} "
+                          f"(limit {tol:g}), second call "
+                          f"{'the same bits' if same else 'DIFFERENT BITS'}; kernel "
+                          f"{row['ms']:.4f} ms{extra}; bound {row['bound_ms']:.4f} ms "
+                          f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of it; "
+                          "median of 20")
+                    check(rel <= tol, f"K1m disagrees with its plain version ({dname}, {name}, "
+                                      f"m={m}, {form})")
+                    check(same, f"K1m gave other bits on a second call ({dname}, {name}, m={m}, "
+                                f"{form})")
+                    rows[("khat_matmat", dname, name, form, m)] = dict(ne=ne, **row)
+                del u
+            del kcsr, op, packed
+            if name != "column":
+                del be, esm, pinv, esm_t
+                torch.cuda.empty_cache()
+                continue
+            for fine in ("jacobi3", "cluster"):
+                be.cfg = FcvmConfig(device="cuda", dtype=dname, smoother=fine)
+                pc = be.make_pc(esm, pinv)
+                check((pc.smooth_inv is not None) == (fine == "cluster"),
+                      f"phase 3d: the {fine} preconditioner was not built")
+                nm, nn_cl, ncf = pc.qmat.shape[2], pc.qmat.shape[0], pc.coarse_inv.shape[0]
+                for m in K4M_WIDTHS:
+                    r = torch.randn((be.ndof_pad, m), generator=gen, device="cuda", dtype=dtype)
+                    z_fine = None if fine == "jacobi3" else pc.fine(r)
+                    args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, r, z_fine)
+                    out = kernels.two_level_apply_block(*args)
+                    again = kernels.two_level_apply_block(*args)
+                    torch.cuda.synchronize()
+                    ref = kernels.two_level_apply_block_ref(*args)
+                    abs_err = float((out - ref).abs().max())
+                    rel = abs_err / float(ref.abs().max())
+                    same = bool(torch.equal(out, again))
+                    del out, again, ref
+                    # coarse_inv once, qmat twice, pinv (block Jacobi), the mask,
+                    # r and z (and z_fine) once each
+                    nbytes = (ncf * ncf + 6 * nm * nn_cl + (9 * nn if z_fine is None else 0)
+                              + 3 * nn + (2 if z_fine is None else 3) * 3 * nn * m) * size
+                    row = dict(max_abs_err=abs_err,
+                               ms=cuda_ms(kernels.two_level_apply_block, *args),
+                               plain_ms=cuda_ms(kernels.two_level_apply_block_ref, *args),
+                               apply_ms=cuda_ms(pc.apply, r),
+                               vectors_ms=cuda_ms(lambda: [pc.apply(r[:, c]) for c in range(m)]),
+                               library_ms=None)
+                    row["bound_ms"], row["bound_by"] = bound(
+                        nbytes, (2 * ncf * ncf + 12 * nm * nn + 18 * nn) * m, dtype)
+                    print(f"K4m {dname} {name} {fine} m={m}: coarse {ncf} = {nm} x {ncf // nm} "
+                          f"clusters; max rel err {rel:.3e} (limit {tol:g}), second call "
+                          f"{'the same bits' if same else 'other bits'}; kernel {row['ms']:.4f} "
+                          f"ms, plain (the chain it replaced) {row['plain_ms']:.4f} ms; the "
+                          f"whole apply (fine level included) {row['apply_ms']:.4f} ms, {m} "
+                          f"vector applies (K4) "
+                          f"{row['vectors_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+                          f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of it; "
+                          "median of 20")
+                    check(rel <= tol, f"K4m disagrees with its plain version ({dname}, {fine}, "
+                                      f"m={m})")
+                    check(same, f"K4m gave other bits on a second call ({dname}, {fine}, m={m})")
+                    rows[("two_level_apply_block", dname, name, fine, m)] = dict(nn=nn, **row)
+                    del r, z_fine, args
+                del pc
+            del be, esm, pinv, esm_t
+            torch.cuda.empty_cache()
+    return rows
+
+
 # where the coarse table's later chunk starts (its longest group: 7,473 rows
 # on the plate)
 COARSE_LATER = 57_344
@@ -903,9 +1085,8 @@ COARSE_LATER = 57_344
 def k8_phase(models):
     """Phase 3c, K8: the fixed-order node sum at every site the paths give
     it, float32 and float64, on seeded values over the plans the paths
-    build: the internal force's (3-wide rows of the user-order elements),
-    K_hat·V's node pass at m = 8 (24-wide rows of the Morton elements), the
-    block-Jacobi blocks' (9-wide, slot-major), each in the write form the
+    build: the internal force's (3-wide rows of the user-order elements)
+    and the block-Jacobi blocks' (9-wide, slot-major), each in the write form the
     path uses; the coarse Galerkin table's first chunk and its chunk from
     element ``COARSE_LATER`` (144-wide pair blocks keyed by cluster pair,
     the plans of their real cluster keys: few groups of thousands of rows)
@@ -1027,8 +1208,7 @@ def k8_phase(models):
 def k8_sites(model):
     """K8's sites on ``model``'s paths, each ``(site, plan, output rows,
     trailing shape, the path's form, last row a dump row)``: the internal
-    force's, K_hat·V's at m = 8 and the block-Jacobi blocks' plans in the
-    write form, the coarse table's first chunk and its chunk from element
+    force's and the block-Jacobi blocks' plans in the write form, the coarse table's first chunk and its chunk from element
     ``COARSE_LATER`` and, where the cluster smoother divides the padded
     nodes, the smoother's plan of every element (a tree that sums it by
     chunks: its first chunk) accumulating; a tree without K8's write form
@@ -1041,10 +1221,7 @@ def k8_sites(model):
     cfg = FcvmConfig(device="cuda", dtype="float32")
     be = TorchSystem(model, cfg, torch.float32, torch.device("cuda"))
     sp, nn = be.space, be.ndof_pad // 3
-    kv_plan = (kernels.segment_plan(sp.elnodes_m, rows=nn)
-               if "rows" in kernels.SegmentPlan._fields else kernels.segment_plan(sp.elnodes_m))
     sites = [("internal force", be.node_plan, nn, (3,), "write", False),
-             ("K_hat.V, m = 8", kv_plan, nn, (3, 8), "write", False),
              ("block Jacobi", sp.jacobi_plan, nn, (3, 3), "write", False)]
     csz = cfg.resolve_cluster_size(model.mesh.n_nodes)
     qmat = pre.qmat_bc(sp.coords_m, sp.fixmask_m, csz, cfg.coarse_modes)
@@ -1068,11 +1245,13 @@ def k8_sites(model):
     return sites
 
 
-def run_column(cfg, nstep=COL_NSTEP, label="phase 9", required=(*CG_KERNELS, "block_matmat")):
+def run_column(cfg, nstep=COL_NSTEP, label="phase 9", required=(*CG_KERNELS, *BLOCK_KERNELS),
+               absent=("block_matmat",)):
     """Drive ``solve_collapse`` on the imperfect beam-column at 451,875 dof
     (buckling, seeding, ``nstep`` GNL steps) with the launch counts set to
     0 just before it; print the eigensolve and the steps, apply the checks
-    (the kernels ``required`` launched) and return the launch counts."""
+    (the kernels ``required`` launched, those ``absent`` not) and return
+    the launch counts, the times, the factors and the peak device memory."""
     from fcvm_tpu_torch import solve_collapse
     from fcvm_tpu_torch.ops.solver import ScipyDirectSolver
 
@@ -1141,18 +1320,25 @@ def run_column(cfg, nstep=COL_NSTEP, label="phase 9", required=(*CG_KERNELS, "bl
     check(bool(np.isfinite(res.sig_gp).all()), f"{label}: stresses are not finite")
     check(all(launches[k] > 0 for k in required),
           f"{label}: {required} not all launched on the path")
-    print(f"launches by dtype (K0m by dtype and m) {by_dtype}")
+    check(all(launches[k] == 0 for k in absent), f"{label}: {absent} launched on the path")
+    print(f"launches by dtype (K0m, K1m and K4m by dtype and m) {by_dtype}")
     return dict(launches=launches, by_dtype=by_dtype, buckling=t["buckling"],
-                stepping=t["stepping"], wall=wall, factors=lam.tolist())
+                stepping=t["stepping"], wall=wall, factors=lam.tolist(), tiers=tiers,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def column_breakdown(cfg):
     """Print the CUDA-event time of each piece of the eigensolve on the
     beam-column at 451,875 dof: geometric-block formation, K_hat·V and
-    -G_hat·V at m = 8, the block preconditioner apply against 8 vector
-    applies, and one pcg_block iteration against one pcg iteration (wall
-    time per iteration over 20 iterations, host syncs included)."""
+    -G_hat·V at m = 8 through K1m and through the chain it replaced
+    (gather, K0m, K8, masks), the block preconditioner apply through K4m,
+    through the torch steps it replaced and as 8 vector applies, and one
+    pcg_block iteration through each against one pcg iteration (wall time
+    per iteration over 20 iterations, host syncs included).  A tree without
+    K1m (``tools/turns.py``) times its own path, the chain.  Returns the
+    rows."""
     from fcvm_tpu_torch.ops import assembly as asm
+    from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.ops import solver as slv
     from fcvm_tpu_torch.runtime.backend import TorchSystem
 
@@ -1172,22 +1358,42 @@ def column_breakdown(cfg):
         return asm.geometric_stiffness_blocks(coords, backend.elnodes, sig)
 
     nsm_t = form()[sp.eperm].permute(1, 2, 0).contiguous()
-    kmv = asm.make_multi_matvec(khat.esm_t, sp.eldofs_m, sp.fixmask_m)
-    minus_g = asm.make_multi_matvec(nsm_t, sp.eldofs_m, sp.fixmask_m, identity_on_fixed=False,
-                                    negate=True)
+    fused = hasattr(kernels, "khat_matmat_ref")  # turns.py stubs an older tree's counts
+    chain = {"kmv": old_multi_matvec(khat.esm_t, sp.eldofs_m, sp.fixmask_m),
+             "minus_g": old_multi_matvec(nsm_t, sp.eldofs_m, sp.fixmask_m, False, True),
+             "apply": pc.apply}  # an older tree's block apply is the chain
+    if fused:
+        def chain_apply(r):  # K4m's plain version is the chain it replaced
+            z_fine = None if pc.smooth_inv is None else pc.fine(r)
+            return kernels.two_level_apply_block_ref(pc.pinv, pc.qmat, pc.coarse_inv,
+                                                     pc.fixmask, r, z_fine)
+
+        chain["apply"] = chain_apply
+        new = {"kmv": asm.make_multi_matvec(khat.esm_t, sp.eldofs_m, sp.fixmask_m,
+                                            incidence=sp.incidence, packed=khat.packed),
+               "minus_g": asm.make_multi_matvec(nsm_t, sp.eldofs_m, sp.fixmask_m, False, True,
+                                                incidence=sp.incidence,
+                                                packed=kernels.pack_blocks(nsm_t)),
+               "apply": pc.apply}
+    else:
+        new = chain
     gen = torch.Generator(device="cuda").manual_seed(4)
     v = sp.fixmask_m[:, None] * torch.randn((backend.ndof_pad, 8), generator=gen,
                                             device="cuda", dtype=ue.dtype)
     cols = [v[:, c].contiguous() for c in range(8)]
-    rows = [
-        ("geometric-block formation (ne, 30, 30) [median of 5]", cuda_ms(form, runs=5)),
-        ("K_hat.V, m = 8", cuda_ms(kmv, v)),
-        ("-G_hat.V, m = 8", cuda_ms(minus_g, v)),
-        ("K_hat.v, one column", cuda_ms(khat, cols[0])),
-        ("preconditioner apply, block m = 8", cuda_ms(pc.apply, v)),
-        ("preconditioner apply, 8 vectors", cuda_ms(lambda: [pc.apply(c) for c in cols])),
-    ]
-    b = minus_g(v)
+    rows = [("geometric-block formation (ne, 30, 30) [median of 5]", cuda_ms(form, runs=5))]
+    for key, what, kernel in (("kmv", "K_hat.V, m = 8", "K1m"),
+                              ("minus_g", "-G_hat.V, m = 8", "K1m"),
+                              ("apply", "preconditioner apply, block m = 8", "K4m")):
+        if fused:
+            rows += [(f"{what}, {kernel}", cuda_ms(new[key], v)),
+                     (f"{what}, the chain before them", cuda_ms(chain[key], v))]
+        else:
+            rows.append((f"{what}, this tree's chain", cuda_ms(chain[key], v)))
+    rows += [("K_hat.v, one column (K1)", cuda_ms(khat, cols[0])),
+             ("preconditioner apply, 8 vectors (K4)",
+              cuda_ms(lambda: [pc.apply(c) for c in cols]))]
+    b = new["minus_g"](v)
 
     def per_iteration(solve):
         walls = []
@@ -1199,20 +1405,28 @@ def column_breakdown(cfg):
             walls.append(time.perf_counter() - t0)
         return 1e3 * (walls[1] - walls[0]) / 20
 
-    def block(iters):
-        return slv.pcg_block(kmv, b, precond=pc.apply, rtol=1e-10, maxiter=iters)
+    def block(ops):
+        return lambda iters: slv.pcg_block(ops["kmv"], b, precond=ops["apply"], rtol=1e-10,
+                                           maxiter=iters)
 
     def single(iters):
         return slv.pcg(khat, b[:, 0].contiguous(), precond=pc.apply, rtol=1e-10, maxiter=iters)
 
-    block(1), single(1)
-    rows += [("pcg_block iteration, m = 8 (wall)", per_iteration(block)),
-             ("pcg iteration, one column (wall)", per_iteration(single))]
+    block(new)(1), block(chain)(1), single(1)
+    if fused:
+        rows += [("pcg_block iteration, m = 8 (wall), K1m and K4m", per_iteration(block(new))),
+                 ("pcg_block iteration, m = 8 (wall), the chains before them",
+                  per_iteration(block(chain)))]
+    else:
+        rows.append(("pcg_block iteration, m = 8 (wall), this tree's chains",
+                     per_iteration(block(chain))))
+    rows.append(("pcg iteration, one column (wall)", per_iteration(single)))
     print("CUDA-event times, median of 20 runs unless marked:")
     for name, ms in rows:
         print(f"{name}: {ms:.4f} ms")
-    del khat, pc, nsm_t
+    del khat, pc, nsm_t, new, chain
     torch.cuda.empty_cache()
+    return dict(rows)
 
 
 def case_toml(size, nstep):
@@ -1798,8 +2012,8 @@ def sharded_phase(big, on, smi):
         check(steps[0] == steps[1], "phase 13: not phase 7's number of steps")
         check(rel <= 1e-3, "phase 13: final lbd not within 1e-3 of phase 7's")
         check(abs(ratio - 1) <= 0.03, "phase 13: stepping CG iterations not within 3% of phase 7's")
-        check(sh["launches"]["block_matmat"] > 0,
-              "phase 13: K0m was not launched on the sharded plate")
+        check(sh["launches"]["khat_matmat"] > 0 and sh["launches"]["block_matmat"] == 0,
+              "phase 13: K1m was not launched on the sharded plate, or K0m was")
         print(f"all_reduce pieces: one float {ar['one_ms']:.4f} ms (CUDA events), the plate's "
               f"vector {ar['host_ms']:.4f} ms of host time per call (100 calls, one sync); the "
               f"sharded K_hat.v {ar['khat_ms']:.4f} ms against its unreduced body "
@@ -1890,8 +2104,10 @@ def gloo_phase(cpu_small):
           f"{[o['launches'] for o in outs]}")
     check(eig_diff <= EIG_RTOL, "phase 13b: buckling factors disagree with the CPU")
     check(same, "phase 13b: the two ranks' histories differ")
-    check(all(o["launches"][k] > 0 for o in outs for k in (*CG_KERNELS, "block_matmat")),
-          "phase 13b: K1, K4, K8 or K0m was not launched on a rank")
+    check(all(o["launches"][k] > 0 for o in outs for k in (*CG_KERNELS, "khat_matmat")),
+          "phase 13b: K1, K4, K8 or K1m was not launched on a rank")
+    check(all(o["launches"]["block_matmat"] == 0 for o in outs),
+          "phase 13b: K0m was launched on a rank")
     return [o["launches"] for o in outs]
 
 
@@ -1995,6 +2211,10 @@ def main():
     cg_models = {"plate": big, "column": column_model(COL_BIG, COL_W, COL_T)}
     cg_rows = cg_kernel_phase(cg_models)
     k8 = k8_phase(cg_models)
+
+    phase(f"3d K1m and K4m vs plain, the chains they replaced and cuSPARSE, on the plate's and "
+          f"the beam-column's operators ({smi})")
+    block_rows = block_kernel_phase(cg_models)
     del cg_models
 
     phase("4 small plate, float64, GPU vs CPU, small strain and GNL")
@@ -2097,6 +2317,27 @@ def main():
     phase(f"9b the eigensolve in pieces, beam-column at 451,875 dof, float32 ({smi})")
     column_breakdown(cfg7)
 
+    phase("9c phase 9 with the cluster smoother (smoother=\"cluster\"), float32")
+    builds = COARSE_BUILD_STATS["smoother_builds"]
+    col_cl = run_column(FcvmConfig(device="cuda", dtype="float32", smoother="cluster"),
+                        label="phase 9c")
+    built = COARSE_BUILD_STATS["smoother_builds"] - builds
+
+    def served(run):  # (dtype, sweeps) of the tier that served
+        return [(r["dtype"], r["sweeps"]) for r in run["tiers"] if r["error"] is None]
+
+    def inner(run):  # the eigensolve's inner CG iterations, by tier
+        return [sum(map(sum, r["inner_iters"])) for r in run["tiers"]]
+
+    print(f"cluster smoother vs phase 9 ({smi}): smoother builds {built}; eigensolve "
+          f"{col_cl['buckling']:.2f} / {col['buckling']:.2f} s, served by {served(col_cl)} / "
+          f"{served(col)} (dtype, sweeps); inner CG iterations by tier {inner(col_cl)} / "
+          f"{inner(col)}; factors {col_cl['factors']} / {col['factors']}; stepping "
+          f"{col_cl['stepping']:.2f} / {col['stepping']:.2f} s; whole run {col_cl['wall']:.2f} / "
+          f"{col['wall']:.2f} s; peak device memory {col_cl['peak_gib']:.2f} / "
+          f"{col['peak_gib']:.2f} GiB")
+    check(built >= 1, "phase 9c: no cluster smoother was built")
+
     with tempfile.TemporaryDirectory() as tmp:
         phase("10 case file at full size: load_case -> run_analysis -> run_sum, the CLI's "
               "info and sum, float32, default configuration")
@@ -2166,7 +2407,8 @@ def main():
     phase()
     print(f"all phases: {time.perf_counter() - t_start:.1f} s wall")
 
-    paths = {"plate": off, "default": on, "gnl": gnl, "column": col, "case": case,
+    paths = {"plate": off, "default": on, "gnl": gnl, "column": col, "column_cluster": col_cl,
+             "case": case,
              "cluster": clus, "cluster_gnl": clus_gnl, "fcstd_f64": doc,
              "sharded": sharded["plate"], "sharded_column": sharded["column"]}
 
@@ -2222,13 +2464,43 @@ def main():
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, **row}
                    for (dtype, ne), row in k0.items()],
     }, *probe_rows, {
+        "name": "khat_matmat", "route": "cuda", "source": "fcvm_tpu_torch/csrc/khat_matmat.cu",
+        "source_also": "fcvm_tpu_torch/csrc/packed.cuh, bulk.cuh, segment.cuh; K1's packed "
+                       "blocks and incidence table",
+        "replaces": "fcvm_tpu/runtime/buckling.py:292",
+        "replaces_also": "fcvm_tpu/ops/deflation.py:166 (block_khat_matvec), "
+                         "fcvm_tpu/ops/pallas_kernels.py:60 under the vmap of "
+                         "fcvm_tpu/runtime/buckling.py:552; XLA-lowered",
+        "launches": col["launches"]["khat_matmat"], **path_launches("khat_matmat"),
+        "launches_by_shape": col["by_dtype"]["khat_matmat"],
+        "launches_sharded_column_by_shape": sharded["column"]["by_dtype"]["khat_matmat"],
+        "dtype": "float32", "model": "column", "variant": "masked", "m": 8,
+        **block_rows[("khat_matmat", "float32", "column", "masked", 8)],
+        "shapes": [{"dtype": dt, "model": mo, "variant": v, "m": m, **row}
+                   for (k, dt, mo, v, m), row in block_rows.items() if k == "khat_matmat"],
+    }, {
+        "name": "two_level_apply_block", "route": "cuda",
+        "source": "fcvm_tpu_torch/csrc/two_level.cu",
+        "source_also": "+ cuBLAS GEMM (at::mm), as the JAX package leaves it to XLA",
+        "replaces": "fcvm_tpu/ops/precond.py:108",
+        "replaces_also": "under the vmap of fcvm_tpu/runtime/buckling.py:552; XLA-lowered",
+        "launches": col["launches"]["two_level_apply_block"],
+        **path_launches("two_level_apply_block"),
+        "launches_by_shape": col["by_dtype"]["two_level_apply_block"],
+        "dtype": "float32", "model": "column", "variant": "jacobi3", "m": 8,
+        **block_rows[("two_level_apply_block", "float32", "column", "jacobi3", 8)],
+        "shapes": [{"dtype": dt, "model": mo, "variant": v, "m": m, **row}
+                   for (k, dt, mo, v, m), row in block_rows.items()
+                   if k == "two_level_apply_block"],
+    }, {
+        # K1m carries the block products: K0m runs on no path
         "name": "block_matmat", "route": "cuda",
         "source": "fcvm_tpu_torch/csrc/block_matmat.cu",
         "replaces": "fcvm_tpu/ops/pallas_kernels.py:60 under vmap; "
                     "fcvm_tpu/runtime/buckling.py:318",
+        "path": "none: K1m carries K_hat.V and -G_hat.V; held against its plain version in "
+                "phase 3",
         "launches": col["launches"]["block_matmat"], **path_launches("block_matmat"),
-        "launches_by_shape": col["by_dtype"]["block_matmat"],
-        "launches_sharded_column_by_shape": sharded["column"]["by_dtype"]["block_matmat"],
         "ne": NE_COL, "m": 8, **k0m[(torch.float32, NE_COL, 8)],
         "shapes": [{"dtype": str(dtype).removeprefix("torch."), "ne": ne, "m": m, **row}
                    for (dtype, ne, m), row in k0m.items()],

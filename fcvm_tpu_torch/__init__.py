@@ -8,7 +8,7 @@ analysis, small strain (``gnl="GNLN"``) and geometrically nonlinear
 seeding), through :func:`solve_collapse`, and linear buckling alone through
 :func:`linear_buckling`, with the two-level-preconditioned CG solver (or the
 scipy direct tier) whose K_hat·v, preconditioner apply, node sums and block
-products are the hand-written CUDA kernels K1, K4, K8 and K0m
+products are the hand-written CUDA kernels K1, K4, K8, K1m and K4m
 (:mod:`fcvm_tpu_torch.ops.kernels`, sources under ``csrc/``).
 :func:`run_analysis` and :func:`run_sum` (:mod:`fcvm_tpu_torch.api`) add
 the reference's output files (``.out``, ``.vtk``, ``.avr``, curves), and

@@ -1,6 +1,6 @@
 // Hopper's bulk asynchronous copies (TMA, cp.async.bulk) into shared memory
-// and the mbarriers that report them, shared by Kbw (bw_probe.cu) and K1
-// (khat_matvec.cu).
+// and the mbarriers that report them, shared by Kbw (bw_probe.cu), K1
+// (khat_matvec.cu), K1m (khat_matmat.cu) and K8's ring (segment_sum.cu).
 //
 // One thread announces the bytes a copy will deliver to an mbarrier
 // (expect_tx) and issues the copy; the copy engine moves them and completes
@@ -86,6 +86,29 @@ __device__ __forceinline__ void bulk_copy_g2s_hint(void* dst, const void* src, u
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
       "[%0], [%1], %2, [%3], %4;\n"
       :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// A 2-D box of a tensor (TMA's tiled mode) into shared memory, rows one
+// after the other: `tmap` is the generic address of a CUtensorMap (a
+// __grid_constant__ kernel parameter), (x, y) the box's first column and
+// row.  One request, however many rows the box has.
+__device__ __forceinline__ void tensor_copy_2d_g2s(void* dst, const void* tmap, int x, int y,
+                                                   uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_addr(dst)), "l"(tmap), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// tensor_copy_2d_g2s with an L2 cache policy.
+__device__ __forceinline__ void tensor_copy_2d_g2s_hint(void* dst, const void* tmap, int x,
+                                                        int y, uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n"
+      :: "r"(smem_addr(dst)), "l"(tmap), "r"(x), "r"(y), "r"(smem_addr(bar)), "l"(policy)
       : "memory");
 }
 

@@ -32,7 +32,8 @@
 //      flight, keeps them and 30 sums in registers, and for each packed
 //      entry k = K[i][j] adds k u_j to y_i and, off the diagonal, k u_i to
 //      y_j; the entry indices are compile-time, so the 60 values never leave
-//      the registers.  It writes fe (30, ne) once per tile;
+//      the registers (csrc/packed.cuh, which K1m shares).  It writes fe
+//      (30, ne) once per tile;
 //   2. the node pass: one thread a node sums the node's incident rows of fe
 //      in the fixed order of the incidence table, a CSR over nodes
 //      (offsets (nn + 1), and pos: each incidence's offset 3 slot ne + e of
@@ -55,19 +56,19 @@
 #include <cuda_runtime.h>
 
 #include "bulk.cuh"
+#include "packed.cuh"
 #include "ring.cuh"
 #include "segment.cuh"
 
 namespace {
 
-constexpr int kNodes = 10;  // tet10
-constexpr int kDofs = 30;
+using fcvm_packed::kDofs;
+using fcvm_packed::kNodes;
+using fcvm_packed::kPacked;
+using fcvm_packed::kRows;
+using fcvm_packed::kStages;
 constexpr int kNodeThreads = 256;
-constexpr int kPacked = 465;                // 30 * 31 / 2 entries a block
-constexpr int kRows = 31;                   // packed rows a stage
-constexpr int kStages = kPacked / kRows;    // 15 stages a tile
-constexpr int kSlots = 3;                   // the ring
-static_assert(kStages * kRows == kPacked, "a tile is a whole number of stages");
+constexpr int kSlots = 3;  // the ring
 
 // The element's 30 values of P x (kMasked) or x, gathered at its nodes.
 template <typename T, bool kMasked>
@@ -85,56 +86,6 @@ struct GatherU {
     }
   }
 };
-
-// Packed entry q -> its row i and column j (i <= j, row-major).
-__host__ __device__ constexpr int entry_row(int q) {
-  int i = 0;
-  while (q >= kDofs - i) q -= kDofs - i++;
-  return i;
-}
-__host__ __device__ constexpr int entry_col(int q) {
-  int i = 0;
-  while (q >= kDofs - i) q -= kDofs - i++;
-  return i + q;
-}
-
-template <int kI, int kJ, typename T>
-__device__ __forceinline__ void entry(T k, T (&y)[kDofs], const T (&u)[kDofs]) {
-  y[kI] = fma(k, u[kJ], y[kI]);
-  if constexpr (kI != kJ) y[kJ] = fma(k, u[kI], y[kJ]);
-}
-
-// The kRows entries of stage kS, in order, from a slot of the ring.
-template <int kS, int kE, typename T, int... kR>
-__device__ __forceinline__ void stage_sum(const T* slot, T (&y)[kDofs], const T (&u)[kDofs],
-                                          std::integer_sequence<int, kR...>) {
-  (entry<entry_row(kS * kRows + kR), entry_col(kS * kRows + kR)>(slot[kR * kE], y, u), ...);
-}
-
-struct Ring {
-  uint64_t* full;   // kSlots: the stage's bytes have landed
-  uint64_t* empty;  // kSlots: every consumer warp is done with the slot
-};
-
-// A consumer's whole tile: stage by stage, wait for the slot, sum its
-// entries, release the slot (one arrival a warp).  k0 is the tile's first
-// stage in this block's sequence.
-template <int kE, typename T, int... kS>
-__device__ __forceinline__ void tile_sum(const T* ring, Ring bars, long long k0,
-                                         T (&y)[kDofs], const T (&u)[kDofs],
-                                         std::integer_sequence<int, kS...>) {
-  const auto one = [&](auto stage) {
-    constexpr int s = decltype(stage)::value;
-    const long long k = k0 + s;
-    const int slot = static_cast<int>(k % kSlots);
-    fcvm_bulk::mbar_wait(bars.full + slot, static_cast<uint32_t>((k / kSlots) & 1));
-    stage_sum<s, kE>(ring + slot * kRows * kE + threadIdx.x, y, u,
-                     std::make_integer_sequence<int, kRows>{});
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) fcvm_bulk::mbar_arrive(bars.empty + slot);
-  };
-  (one(std::integral_constant<int, kS>{}), ...);
-}
 
 // The element pass: kE consumer threads (one element each) and one producer
 // warp; block b takes tiles b, b + gridDim.x, ...
@@ -177,14 +128,15 @@ packed_kernel(const T* __restrict__ packed, const LoadU load_u, T* __restrict__ 
     return;
   }
 
-  const Ring bars{full, empty};
+  const fcvm_packed::Ring bars{full, empty};
   for (long long n = 0; n < my_tiles; ++n) {
     const long long e = (blockIdx.x + n * gridDim.x) * kE + threadIdx.x;
     T u[kDofs], y[kDofs];
 #pragma unroll
     for (int i = 0; i < kDofs; ++i) u[i] = y[i] = T(0);
     if (e < ne) load_u(e, ne, u);
-    tile_sum<kE>(ring, bars, n * kStages, y, u, std::make_integer_sequence<int, kStages>{});
+    fcvm_packed::block_sum<kE, kSlots>(ring, bars, n * kStages, threadIdx.x, y, u,
+                                       std::make_integer_sequence<int, kStages>{});
     if (e < ne) {
 #pragma unroll
       for (int i = 0; i < kDofs; ++i) fe[i * ne + e] = y[i];

@@ -4,7 +4,9 @@
 //   fcvm::block_matvec  K0   csrc/block_matvec.cu
 //   fcvm::block_matmat  K0m  csrc/block_matmat.cu
 //   fcvm::khat_matvec   K1   csrc/khat_matvec.cu
+//   fcvm::khat_matmat   K1m  csrc/khat_matmat.cu
 //   fcvm::two_level_apply  K4  csrc/two_level.cu (around at::mv)
+//   fcvm::two_level_apply_block  K4m  csrc/two_level.cu (around at::mm)
 //   fcvm::segment_sum   K8   csrc/segment_sum.cu (in place: accumulate or write)
 //   fcvm::soa_matvec    K0p  csrc/bw_probe.cu
 //   fcvm::bw_read       Kbw  csrc/bw_probe.cu
@@ -16,6 +18,7 @@
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
 #include <ATen/ops/empty_like.h>
+#include <ATen/ops/mm.h>
 #include <ATen/ops/mv.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -41,6 +44,16 @@ extern "C" int fcvm_khat_matvec_f64(const double* packed, const int* elnodes_t,
                                     const int* offsets, const int* pos, const double* x,
                                     const double* fixmask, double* fe, double* y, long long ne,
                                     long long nn, long long ntiles, void* stream);
+extern "C" int fcvm_khat_matmat_f32(const float* packed, const int* elnodes_t,
+                                    const int* offsets, const int* pos, const float* x,
+                                    const float* fixmask, float* fe, float* y, long long ne,
+                                    long long nn, long long ntiles, int m, int form, int negate,
+                                    void* stream);
+extern "C" int fcvm_khat_matmat_f64(const double* packed, const int* elnodes_t,
+                                    const int* offsets, const int* pos, const double* x,
+                                    const double* fixmask, double* fe, double* y, long long ne,
+                                    long long nn, long long ntiles, int m, int form, int negate,
+                                    void* stream);
 extern "C" int fcvm_segment_sum_f32(const float* vals, const int* order, const int* walk,
                                     const int* holes, float* out, long long nu, long long nlong,
                                     long long nholes, long long w, int write, void* stream);
@@ -62,6 +75,22 @@ extern "C" int fcvm_two_level_prolong_f64(const double* qmat, const double* zc,
                                           const double* fixmask, const double* z_fine,
                                           double* z, long long nn, int cs, int ncl, int nm,
                                           void* stream);
+extern "C" int fcvm_two_level_restrict_block_f32(const float* r, const float* fixmask,
+                                                 const float* qmat, const float* pinv, float* z,
+                                                 float* rc, long long nn, int cs, int ncl,
+                                                 int nm, int m, void* stream);
+extern "C" int fcvm_two_level_restrict_block_f64(const double* r, const double* fixmask,
+                                                 const double* qmat, const double* pinv,
+                                                 double* z, double* rc, long long nn, int cs,
+                                                 int ncl, int nm, int m, void* stream);
+extern "C" int fcvm_two_level_prolong_block_f32(const float* qmat, const float* zc,
+                                                const float* fixmask, const float* z_fine,
+                                                float* z, long long nn, int cs, int ncl, int nm,
+                                                int m, void* stream);
+extern "C" int fcvm_two_level_prolong_block_f64(const double* qmat, const double* zc,
+                                                const double* fixmask, const double* z_fine,
+                                                double* z, long long nn, int cs, int ncl, int nm,
+                                                int m, void* stream);
 extern "C" int fcvm_soa_matvec_f32(const float* esm_t, const float* ue_t, float* out,
                                    long long ne, int tile, void* stream);
 extern "C" int fcvm_bw_read_blocks(long long rows, long long chunk_rows, int device);
@@ -205,6 +234,74 @@ at::Tensor khat_matvec(const at::Tensor& packed, const at::Tensor& elnodes_t,
   return y;
 }
 
+// K1m: Y = P K (P X) + (I - P) X (identity) or P K (P X) with fixmask, K X
+// without; each negated with negate.  X (3 nn, m), row-major; the blocks and
+// tables as K1's.
+at::Tensor khat_matmat(const at::Tensor& packed, const at::Tensor& elnodes_t,
+                       const at::Tensor& offsets, const at::Tensor& pos, const at::Tensor& x,
+                       const std::optional<at::Tensor>& fixmask, bool identity, bool negate) {
+  TORCH_CHECK(packed.is_cuda() && elnodes_t.device() == packed.device() &&
+                  offsets.device() == packed.device() && pos.device() == packed.device() &&
+                  x.device() == packed.device() &&
+                  (!fixmask || fixmask->device() == packed.device()),
+              "khat_matmat: all tensors must be on one CUDA device");
+  TORCH_CHECK(x.scalar_type() == packed.scalar_type() &&
+                  (!fixmask || fixmask->scalar_type() == packed.scalar_type()),
+              "khat_matmat: packed, x and fixmask differ in dtype");
+  TORCH_CHECK(elnodes_t.scalar_type() == at::kInt && offsets.scalar_type() == at::kInt &&
+                  pos.scalar_type() == at::kInt,
+              "khat_matmat: elnodes_t, offsets and pos must be int32");
+  const long long tile = static_cast<long long>(1024 / packed.element_size());
+  const long long ne = elnodes_t.dim() == 2 ? elnodes_t.size(1) : -1;
+  const long long nn = offsets.dim() == 1 ? offsets.size(0) - 1 : -1;
+  const long long ntiles = packed.dim() == 3 ? packed.size(0) : -1;
+  const long long m = x.dim() == 2 ? x.size(1) : -1;
+  TORCH_CHECK(packed.dim() == 3 && packed.size(1) == 465 && packed.size(2) == tile &&
+                  (ntiles - 1) * tile < ne && ne <= ntiles * tile && elnodes_t.size(0) == 10 &&
+                  nn >= 0 && pos.dim() == 1 && pos.size(0) == 10 * ne && x.dim() == 2 &&
+                  x.size(0) == 3 * nn && m >= 1 && m <= 0x7fffffffLL &&
+                  (!fixmask || (fixmask->dim() == 1 && fixmask->size(0) == 3 * nn)) &&
+                  30 * ne <= 0x7fffffffLL,
+              "khat_matmat: expected packed (ntiles, 465, 1024 / itemsize) covering ne "
+              "elements, elnodes_t (10, ne), offsets (nn + 1), pos (10 ne), x (3 nn, m) with "
+              "m >= 1, fixmask (3 nn), 30 ne < 2^31");
+  TORCH_CHECK(packed.is_contiguous() && elnodes_t.is_contiguous() && offsets.is_contiguous() &&
+                  pos.is_contiguous() && x.is_contiguous() &&
+                  (!fixmask || fixmask->is_contiguous()) &&
+                  reinterpret_cast<uintptr_t>(packed.data_ptr()) % 16 == 0,
+              "khat_matmat: inputs must be contiguous, packed 16-byte aligned");
+  const c10::cuda::CUDAGuard guard(packed.device());
+  at::Tensor fe = at::empty({30, ne, m}, x.options());
+  at::Tensor y = at::empty_like(x);
+  void* stream = c10::cuda::getCurrentCUDAStream().stream();
+  const int* tables[3] = {elnodes_t.data_ptr<int>(), offsets.data_ptr<int>(),
+                          pos.data_ptr<int>()};
+  const int form = !fixmask ? 0 : identity ? 2 : 1;
+  int err = 0;
+  switch (packed.scalar_type()) {
+    case at::kFloat:
+      err = fcvm_khat_matmat_f32(packed.data_ptr<float>(), tables[0], tables[1], tables[2],
+                                 x.data_ptr<float>(),
+                                 fixmask ? fixmask->data_ptr<float>() : nullptr,
+                                 fe.data_ptr<float>(), y.data_ptr<float>(), ne, nn, ntiles,
+                                 static_cast<int>(m), form, negate, stream);
+      break;
+    case at::kDouble:
+      err = fcvm_khat_matmat_f64(packed.data_ptr<double>(), tables[0], tables[1], tables[2],
+                                 x.data_ptr<double>(),
+                                 fixmask ? fixmask->data_ptr<double>() : nullptr,
+                                 fe.data_ptr<double>(), y.data_ptr<double>(), ne, nn, ntiles,
+                                 static_cast<int>(m), form, negate, stream);
+      break;
+    default:
+      TORCH_CHECK(false, "khat_matmat: dtype must be float32 or float64, got ",
+                  packed.scalar_type());
+  }
+  TORCH_CHECK(err == 0, "khat_matmat: kernel launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  return y;
+}
+
 // K8: out[seg_u, :] (+)= sum over the rows p of segment u of vals[order[p], :],
 // in place; accumulating onto out's rows (write false) or onto zeros, with
 // every row of out that no key names (holes) written 0 (write true).  vals
@@ -339,6 +436,79 @@ at::Tensor two_level_apply(const at::Tensor& pinv, const at::Tensor& qmat,
   return z;
 }
 
+// K4m: K4 on the m columns of r (3 nn, m), z_fine (3 nn, m) or none.
+at::Tensor two_level_apply_block(const at::Tensor& pinv, const at::Tensor& qmat,
+                                 const at::Tensor& coarse_inv, const at::Tensor& fixmask,
+                                 const at::Tensor& r, const std::optional<at::Tensor>& z_fine) {
+  TORCH_CHECK(r.is_cuda() && pinv.device() == r.device() && qmat.device() == r.device() &&
+                  coarse_inv.device() == r.device() && fixmask.device() == r.device() &&
+                  (!z_fine || z_fine->device() == r.device()),
+              "two_level_apply_block: all tensors must be on one CUDA device");
+  const auto dt = r.scalar_type();
+  TORCH_CHECK(pinv.scalar_type() == dt && qmat.scalar_type() == dt &&
+                  coarse_inv.scalar_type() == dt && fixmask.scalar_type() == dt &&
+                  (!z_fine || z_fine->scalar_type() == dt),
+              "two_level_apply_block: the tensors differ in dtype");
+  const long long nn = r.dim() == 2 ? r.size(0) / 3 : -1;
+  const long long m = r.dim() == 2 ? r.size(1) : -1;
+  const long long nm = qmat.dim() == 3 ? qmat.size(2) : -1;
+  const long long ncl = nm > 0 && coarse_inv.dim() == 2 ? coarse_inv.size(0) / nm : -1;
+  TORCH_CHECK(r.dim() == 2 && r.size(0) == 3 * nn && m >= 1 && m <= 0x7fffffffLL &&
+                  fixmask.dim() == 1 && fixmask.size(0) == 3 * nn &&
+                  (!z_fine || z_fine->sizes() == r.sizes()) && pinv.dim() == 3 &&
+                  pinv.size(0) == nn && pinv.size(1) == 3 && pinv.size(2) == 3 &&
+                  (nm == 6 || nm == 12) && qmat.size(1) == 3 && ncl > 0 &&
+                  coarse_inv.size(0) == nm * ncl && coarse_inv.size(1) == nm * ncl &&
+                  qmat.size(0) % ncl == 0 && qmat.size(0) >= nn &&
+                  qmat.size(0) / ncl <= 0x7fffffffLL && ncl <= 0x7fffffffLL,
+              "two_level_apply_block: expected r and z_fine (3 nn, m) with m >= 1, fixmask "
+              "(3 nn), pinv (nn, 3, 3), qmat (ncl cs, 3, nm) with nm 6 or 12 and ncl cs >= nn, "
+              "coarse_inv (nm ncl, nm ncl)");
+  // coarse_inv reaches only at::mm, which takes any layout
+  TORCH_CHECK(pinv.is_contiguous() && qmat.is_contiguous() && fixmask.is_contiguous() &&
+                  r.is_contiguous() && (!z_fine || z_fine->is_contiguous()),
+              "two_level_apply_block: inputs other than coarse_inv must be contiguous");
+  const c10::cuda::CUDAGuard guard(r.device());
+  const int cs = static_cast<int>(qmat.size(0) / ncl);
+  at::Tensor rc = at::empty({nm * ncl, m}, r.options());
+  at::Tensor z = at::empty_like(r);
+  void* stream = c10::cuda::getCurrentCUDAStream().stream();
+  const int ncl_i = static_cast<int>(ncl), nm_i = static_cast<int>(nm), m_i = static_cast<int>(m);
+  int err = 0;
+  switch (dt) {
+    case at::kFloat:
+      err = fcvm_two_level_restrict_block_f32(
+          r.data_ptr<float>(), fixmask.data_ptr<float>(), qmat.data_ptr<float>(),
+          z_fine ? nullptr : pinv.data_ptr<float>(), z.data_ptr<float>(), rc.data_ptr<float>(),
+          nn, cs, ncl_i, nm_i, m_i, stream);
+      break;
+    case at::kDouble:
+      err = fcvm_two_level_restrict_block_f64(
+          r.data_ptr<double>(), fixmask.data_ptr<double>(), qmat.data_ptr<double>(),
+          z_fine ? nullptr : pinv.data_ptr<double>(), z.data_ptr<double>(),
+          rc.data_ptr<double>(), nn, cs, ncl_i, nm_i, m_i, stream);
+      break;
+    default:
+      TORCH_CHECK(false, "two_level_apply_block: dtype must be float32 or float64, got ", dt);
+  }
+  TORCH_CHECK(err == 0, "two_level_apply_block: restrict launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  const at::Tensor zc = at::mm(coarse_inv, rc).contiguous();
+  const at::Tensor& fine = z_fine ? *z_fine : z;
+  if (dt == at::kFloat)
+    err = fcvm_two_level_prolong_block_f32(qmat.data_ptr<float>(), zc.data_ptr<float>(),
+                                           fixmask.data_ptr<float>(), fine.data_ptr<float>(),
+                                           z.data_ptr<float>(), nn, cs, ncl_i, nm_i, m_i, stream);
+  else
+    err = fcvm_two_level_prolong_block_f64(qmat.data_ptr<double>(), zc.data_ptr<double>(),
+                                           fixmask.data_ptr<double>(), fine.data_ptr<double>(),
+                                           z.data_ptr<double>(), nn, cs, ncl_i, nm_i, m_i,
+                                           stream);
+  TORCH_CHECK(err == 0, "two_level_apply_block: prolong launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  return z;
+}
+
 at::Tensor soa_matvec(const at::Tensor& esm_t, const at::Tensor& ue_t, int64_t tile) {
   TORCH_CHECK(esm_t.is_cuda() && ue_t.device() == esm_t.device(),
               "soa_matvec: both tensors must be on one CUDA device");
@@ -395,9 +565,13 @@ TORCH_LIBRARY(fcvm, m) {
   m.def("block_matmat(Tensor esm_t, Tensor ue) -> Tensor");
   m.def("khat_matvec(Tensor packed, Tensor elnodes_t, Tensor offsets, Tensor pos, Tensor x, "
         "Tensor? fixmask) -> Tensor");
+  m.def("khat_matmat(Tensor packed, Tensor elnodes_t, Tensor offsets, Tensor pos, Tensor x, "
+        "Tensor? fixmask, bool identity, bool negate) -> Tensor");
   m.def("segment_sum(Tensor vals, Tensor order, Tensor walk, Tensor? holes, Tensor(a!) out, "
         "int nlong, bool write) -> ()");
   m.def("two_level_apply(Tensor pinv, Tensor qmat, Tensor coarse_inv, Tensor fixmask, "
+        "Tensor r, Tensor? z_fine) -> Tensor");
+  m.def("two_level_apply_block(Tensor pinv, Tensor qmat, Tensor coarse_inv, Tensor fixmask, "
         "Tensor r, Tensor? z_fine) -> Tensor");
   m.def("soa_matvec(Tensor esm_t, Tensor ue_t, int tile) -> Tensor");
   m.def("bw_read(Tensor x, int k, int chunk_rows) -> Tensor");
@@ -407,7 +581,9 @@ TORCH_LIBRARY_IMPL(fcvm, CUDA, m) {
   m.impl("block_matvec", &block_matvec);
   m.impl("block_matmat", &block_matmat);
   m.impl("khat_matvec", &khat_matvec);
+  m.impl("khat_matmat", &khat_matmat);
   m.impl("two_level_apply", &two_level_apply);
+  m.impl("two_level_apply_block", &two_level_apply_block);
   m.impl("segment_sum", &segment_sum);
   m.impl("soa_matvec", &soa_matvec);
   m.impl("bw_read", &bw_read);

@@ -9,15 +9,15 @@ over the element node table and its node-incidence CSR
 (:func:`node_incidence`), whose node sums run in a fixed order, so its
 results are deterministic; on the card K1 reads the blocks' packed upper
 triangles (:func:`fcvm_tpu_torch.ops.kernels.pack_blocks`, made once per
-operator).  An ``(ndof, m)`` block of vectors goes through K0m
-(:func:`fcvm_tpu_torch.ops.kernels.block_matmat`) in one pass.  Every other
-sum of element rows into nodes (the loads, the block products' node pass,
-the block-Jacobi blocks) is K8
+operator).  An ``(ndof, m)`` block of vectors goes through K1m
+(:func:`fcvm_tpu_torch.ops.kernels.khat_matmat`), K1 on m columns at once,
+over the same packed blocks and incidence table.  Every other
+sum of element rows into nodes (the loads, the block-Jacobi blocks) is K8
 (:func:`fcvm_tpu_torch.ops.kernels.segment_sum`) over a
 :class:`~fcvm_tpu_torch.ops.kernels.SegmentPlan` of its keys, a fixed
 order as well; CPU tensors take ``index_add_``, the plain version.  The
-operator stores the blocks element-major, ``(30, 30, ne)``, the layout K0m
-reads coalesced.
+operator stores the blocks element-major, ``(30, 30, ne)``, the layout the
+plain versions read.
 
 Dirichlet boundary conditions reproduce the reference's elimination scheme
 (``fcVM.py:771-796``): the operator is the identity on fixed dofs and the
@@ -215,8 +215,8 @@ def _incidence(eldofs, ndof, incidence):
 
 
 def _blocks(esm_t, packed):
-    """What K1 reads: on the CPU the full blocks, on the card their packed
-    copy (made here when not given)."""
+    """What K1 and K1m read: on the CPU the full blocks, on the card their
+    packed copy (made here when not given)."""
     if esm_t.device.type == "cpu":
         return esm_t
     return packed if packed is not None else kernels.pack_blocks(esm_t)
@@ -254,33 +254,30 @@ def make_bc_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.Ten
     return khat
 
 
-def make_multi_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.Tensor,
-                      identity_on_fixed: bool = True, negate: bool = False):
-    """``(ndof, m) -> (ndof, m)`` block operator with Dirichlet projection,
-    ``P K P U`` (plus ``(I - P) U`` with ``identity_on_fixed``; negated
-    with ``negate``), over element-major blocks ``esm_t`` (30, 30, ne).
+def make_multi_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask,
+                      identity_on_fixed: bool = True, negate: bool = False, incidence=None,
+                      packed=None):
+    """``(ndof, m) -> (ndof, m)`` block operator with Dirichlet projection
+    through K1m (:func:`fcvm_tpu_torch.ops.kernels.khat_matmat`): ``P K P
+    U`` (plus ``(I - P) U`` with ``identity_on_fixed``; negated with
+    ``negate``), over element-major blocks ``esm_t`` (30, 30, ne).
 
-    The node-row gather of ``U`` gives the (ne, 30, m) layout K0m reads,
-    and K0m's output reshapes to node rows for K8's node sum (its write
-    form, the plan built here, once): no copy on either side.
     ``identity_on_fixed`` gives ``K_hat @ U``; without it and with
     ``negate``, ``-G_hat @ U`` of the buckling pencil (zero on fixed dofs);
-    ``fixmask`` all ones gives the raw ``K @ U``."""
-    elnodes = eldofs[:, ::3] // 3
-    ne = elnodes.shape[0]
-    nn = fixmask.shape[0] // 3
-    plan = kernels.segment_plan(elnodes, rows=nn)
-    pm = fixmask[:, None]
+    ``fixmask`` None gives the raw ``K @ U`` (all ones, the same values
+    through the masks), and then ``incidence`` must be given.
+    ``incidence`` and on the card ``packed`` as in :func:`make_matvec`,
+    made here when not given.  A block that is not dense (a column slice)
+    is copied first."""
+    if fixmask is None and incidence is None:
+        raise ValueError("make_multi_matvec: the raw form needs the incidence table (its "
+                         "node count)")
+    inc = _incidence(eldofs, None if fixmask is None else fixmask.shape[0], incidence)
+    blocks = _blocks(esm_t, packed)
 
     def mv(u):
-        m = u.shape[1]
-        ue = (pm * u).reshape(nn, 3, m)[elnodes].reshape(ne, 30, m)  # node-row gather
-        fe = kernels.block_matmat(esm_t, ue)
-        out = kernels.segment_sum(fe.reshape(ne * 10, 3, m), plan, rows=nn)
-        y = pm * out.reshape(nn * 3, m)
-        if identity_on_fixed:
-            y = y + (1.0 - pm) * u
-        return -y if negate else y
+        return kernels.khat_matmat(blocks, inc, u.contiguous(), fixmask, identity_on_fixed,
+                                   negate)
 
     return mv
 

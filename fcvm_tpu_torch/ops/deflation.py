@@ -15,7 +15,7 @@ driver's policy (harvest one correction solve, keep the space across load
 steps, drop it when a deflated solve regresses) lives in
 :mod:`fcvm_tpu_torch.runtime.driver`.
 
-``K_hat @ W`` runs through K0m (:func:`fcvm_tpu_torch.ops.assembly.make_multi_matvec`).
+``K_hat @ W`` runs through K1m (:func:`fcvm_tpu_torch.ops.assembly.make_multi_matvec`).
 The other ``(ndof, k)`` products here are plain PyTorch in the working dtype;
 float32 runs in full float32 (no TF32, :func:`fcvm_tpu_torch.config.pin_full_fp32`),
 the counterpart of the JAX package's HIGHEST matmul precision: the
@@ -115,24 +115,28 @@ def build_w(zs, coef, fixmask):
     return fixmask[:, None] * (zs[: coef.shape[0]].T @ coef)
 
 
-def block_khat_matvec(esm_t, eldofs, fixmask, w):
-    """``K_hat @ W`` for a (ndof, k) block of vectors in one pass (K0m).
+def block_khat_matvec(esm_t, eldofs, fixmask, w, incidence=None, packed=None):
+    """``K_hat @ W`` for a (ndof, k) block of vectors in one pass (K1m).
 
     ``esm_t`` holds the element blocks element-major, (30, 30, ne), as the
-    operator stores them; ``eldofs`` (ne, 30)."""
-    return asm.make_multi_matvec(esm_t, eldofs, fixmask)(w)
+    operator stores them; ``eldofs`` (ne, 30); ``incidence`` and on the
+    card ``packed``, the operator's node-incidence table and packed blocks,
+    are made here when not given
+    (:func:`fcvm_tpu_torch.ops.assembly.make_multi_matvec`)."""
+    return asm.make_multi_matvec(esm_t, eldofs, fixmask, incidence=incidence, packed=packed)(w)
 
 
-def galerkin(esm_t, eldofs, fixmask, w):
+def galerkin(esm_t, eldofs, fixmask, w, incidence=None, packed=None):
     """(k, k) Galerkin matrix ``W^T K_hat W`` on the current operator."""
-    return w.T @ block_khat_matvec(esm_t, eldofs, fixmask, w)
+    return w.T @ block_khat_matvec(esm_t, eldofs, fixmask, w, incidence, packed)
 
 
-def build_space(esm_t, eldofs, fixmask, zs, coef) -> DeflationSpace:
+def build_space(esm_t, eldofs, fixmask, zs, coef, incidence=None, packed=None) -> DeflationSpace:
     """Deflation space from harvested residuals ``zs`` and Ritz
-    coefficients ``coef`` on the operator of blocks ``esm_t``."""
+    coefficients ``coef`` on the operator of blocks ``esm_t`` (its
+    ``incidence`` and ``packed`` as in :func:`block_khat_matvec`)."""
     w = build_w(zs, coef, fixmask)
-    return DeflationSpace(w, pinv_psd(galerkin(esm_t, eldofs, fixmask, w)))
+    return DeflationSpace(w, pinv_psd(galerkin(esm_t, eldofs, fixmask, w, incidence, packed)))
 
 
 def pinv_psd(kw):

@@ -12,6 +12,11 @@
   ``ScatterPlan`` node sum; source ``csrc/khat_matvec.cu``.  On the card it
   reads the blocks' upper triangles, packed tile by tile
   (:func:`pack_blocks`), streamed by bulk asynchronous copies.
+* K1m :func:`khat_matmat`, K1 on an ``(ndof, m)`` block (K_hat·V, -G_hat·V,
+  the raw K·V), replaces the XLA-lowered
+  ``fcvm_tpu/runtime/buckling.py::_multi_matvec`` and
+  ``fcvm_tpu/ops/deflation.py::block_khat_matvec``; source
+  ``csrc/khat_matmat.cu``, on K1's packed blocks and incidence table.
 * K8 :func:`segment_sum`, the fixed-order segment sum of a
   :class:`SegmentPlan`, replaces the node reductions of the JAX package
   (``fcvm_tpu/ops/assembly.py::scatter_node_rows`` with its
@@ -23,19 +28,21 @@
 * K4 :func:`two_level_apply`, the fused two-level preconditioner apply on
   a vector, replaces the XLA-lowered
   ``fcvm_tpu/ops/precond.py::TwoLevelPrecond.apply``; source
-  ``csrc/two_level.cu``.
+  ``csrc/two_level.cu``.  K4m :func:`two_level_apply_block`, its block
+  form, replaces that apply under the eigensolve's ``vmap``; the same
+  source.
 * K0p :func:`soa_matvec` replaces ``tools/bw_probe.py::soa_matvec``;
   source ``csrc/bw_probe.cu``.
 * Kbw :func:`bw_read` replaces ``tools/bw_probe.py::make_bw_kernel``;
   source ``csrc/bw_probe.cu``.
 
 K1 and K4 carry the solver's CG iteration (every ``K_hat @ v`` and raw
-``K @ v``, every preconditioner apply on a vector); K8 every sum of element
-rows into nodes outside K1 (the internal force of every residual, the
-loads, the block products' node pass, the preconditioner builds); K0m is
-the block stage of the multi-column K_hat·V and -G_hat·V (the buckling
-eigensolve, the deflation Galerkin and correction builds); K0, K0p and Kbw
-serve the
+``K @ v``, every preconditioner apply on a vector); K1m and K4m the block
+solves of the buckling eigensolve (every K_hat·V, -G_hat·V and block
+preconditioner apply) and the deflation builds' K_hat·W; K8 every sum of
+element rows into nodes outside K1 and K1m (the internal force of every
+residual, the loads, the preconditioner builds).  K0m runs on no path
+since K1m; it, K0, K0p and Kbw serve phase 3 of ``chip_smoke.py`` and the
 bandwidth probe (:mod:`fcvm_tpu_torch.tools.bw_probe`).  What bounds each
 on the card and how its design answers that is written at the top of its
 source.
@@ -45,8 +52,8 @@ version (``*_ref``), on CUDA tensors it launches the kernel or raises.  There
 is no fallback from a failed build or launch.  Each wrapper counts its
 kernel launches in its ``launches`` attribute (K8 its calls, each launching
 one or two kernels); K0, K1, K4 and K8 also count them by dtype in their
-``dtypes``, K0m by dtype and column count in ``block_matmat.shapes``, and
-K8 its kernels by form and path in ``segment_sum.paths``.
+``dtypes``, K0m, K1m and K4m by dtype and column count in their
+``shapes``, and K8 its kernels by form and path in ``segment_sum.paths``.
 
 The kernels are compiled at first use by ``torch.utils.cpp_extension.load``
 (``nvcc`` for ``sm_90a``, the host compiler for the bindings) into
@@ -68,8 +75,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("ops.cpp", "block_matvec.cu", "block_matmat.cu", "khat_matvec.cu", "two_level.cu",
-           "segment_sum.cu", "bw_probe.cu")
+SOURCES = ("ops.cpp", "block_matvec.cu", "block_matmat.cu", "khat_matvec.cu",
+           "khat_matmat.cu", "two_level.cu", "segment_sum.cu", "bw_probe.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3")
 
 
@@ -276,17 +283,27 @@ def khat_matvec_ref(esm_t: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
     """Plain version of K1 on full blocks (the CPU's path): the gather of
     ``P u`` (``u`` without ``fixmask``) at the element dofs, K0's plain
     version, ``index_add_`` into the dofs and, with ``fixmask``,
-    ``P (.) + (I - P) u``."""
-    ne = esm_t.shape[-1]
-    a3 = torch.arange(3, device=u.device)
-    eldofs_t = (3 * inc.elnodes_t.long()[:, None, :] + a3[None, :, None]).reshape(30, ne)
-    v = u if fixmask is None else fixmask * u
-    fe_t = block_matvec_ref(esm_t, v[eldofs_t])
-    out = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
-    out.index_add_(0, eldofs_t.reshape(-1), fe_t.reshape(-1))
-    if fixmask is None:
+    ``P (.) + (I - P) u``.  On an ``(ndof, m)`` block ``u`` (K1m's plain
+    version) the node-row gather, K0m's plain version and ``index_add_``
+    into the nodes, element by element, as K1m's node pass orders them."""
+    ne = inc.elnodes_t.shape[1]
+    pm = fixmask if fixmask is None or u.dim() == 1 else fixmask[:, None]
+    v = u if pm is None else pm * u
+    if u.dim() == 2:
+        nn, m = u.shape[0] // 3, u.shape[1]
+        eln = inc.elnodes_t.T.long()  # (ne, 10)
+        fe = block_matmat_ref(esm_t, v.reshape(nn, 3, m)[eln].reshape(ne, 30, m))
+        out = torch.zeros((nn, 3, m), dtype=u.dtype, device=u.device)
+        out = out.index_add_(0, eln.reshape(-1), fe.reshape(ne * 10, 3, m)).reshape(3 * nn, m)
+    else:
+        a3 = torch.arange(3, device=u.device)
+        eldofs_t = (3 * inc.elnodes_t.long()[:, None, :] + a3[None, :, None]).reshape(30, ne)
+        fe_t = block_matvec_ref(esm_t, v[eldofs_t])
+        out = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+        out.index_add_(0, eldofs_t.reshape(-1), fe_t.reshape(-1))
+    if pm is None:
         return out
-    return fixmask * out + (1.0 - fixmask) * u
+    return pm * out + (1.0 - pm) * u
 
 
 def khat_matvec_packed_ref(packed: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
@@ -322,29 +339,8 @@ def khat_matvec(blocks: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
         raise ValueError(
             f"khat_matvec: elnodes_t {tuple(inc.elnodes_t.shape)}, {nn} nodes, pos "
             f"{tuple(inc.pos.shape)}, u {tuple(u.shape)}; expected (10, ne), (10 ne,), (3 nn,)")
-    tensors = (blocks, u, *inc) + (() if fixmask is None else (fixmask,))
-    if all(t.device.type == "cpu" for t in tensors):
-        if blocks.shape != (30, 30, ne):
-            raise ValueError(f"khat_matvec: CPU blocks {tuple(blocks.shape)}; expected the "
-                             f"full blocks (30, 30, {ne})")
+    if _k1_on_cpu("khat_matvec", blocks, inc, u, fixmask):
         return khat_matvec_ref(blocks, inc, u, fixmask)
-    if blocks.device.type != "cuda" or any(t.device != blocks.device for t in tensors):
-        raise ValueError("khat_matvec: tensors on several devices; expected all on the CPU "
-                         "or all on one CUDA device")
-    if (blocks.dtype not in PACK_TILE or u.dtype != blocks.dtype
-            or (fixmask is not None and fixmask.dtype != blocks.dtype)):
-        raise TypeError(f"khat_matvec: dtypes {blocks.dtype}/{u.dtype}; expected float32 or "
-                        "float64 throughout")
-    tile = PACK_TILE[blocks.dtype]
-    if (blocks.dim() != 3 or blocks.shape[1:] != (NPACK, tile)
-            or not (blocks.shape[0] - 1) * tile < ne <= blocks.shape[0] * tile):
-        raise ValueError(f"khat_matvec: CUDA blocks {tuple(blocks.shape)} for {ne} "
-                         f"elements; expected (ntiles, {NPACK}, {tile}) from pack_blocks")
-    if any(t.dtype != torch.int32 for t in inc):
-        raise TypeError("khat_matvec: the incidence tables must be int32")
-    if not all(t.is_contiguous() for t in tensors) or blocks.data_ptr() % 16:
-        raise ValueError("khat_matvec: inputs must be contiguous, the packed blocks "
-                         "16-byte aligned")
     build()
     out = torch.ops.fcvm.khat_matvec(blocks, inc.elnodes_t, inc.offsets, inc.pos, u, fixmask)
     khat_matvec.launches += 1
@@ -354,6 +350,114 @@ def khat_matvec(blocks: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
 
 khat_matvec.launches = 0
 khat_matvec.dtypes = Counter()  # launches by dtype name
+
+
+def _k1_on_cpu(name, blocks, inc, u, fixmask) -> bool:
+    """Check the devices, dtypes and blocks of K1's or K1m's inputs (their
+    shapes checked by the caller): True for CPU tensors, which take the
+    full blocks; False for one CUDA device, whose kernel takes the packed
+    copy, every input dense."""
+    ne = inc.elnodes_t.shape[1]
+    tensors = (blocks, u, *inc) + (() if fixmask is None else (fixmask,))
+    cpu = all(t.device.type == "cpu" for t in tensors)
+    if not cpu and (blocks.device.type != "cuda"
+                    or any(t.device != blocks.device for t in tensors)):
+        raise ValueError(f"{name}: tensors on several devices; expected all on the CPU or all "
+                         "on one CUDA device")
+    if (blocks.dtype not in PACK_TILE or u.dtype != blocks.dtype
+            or (fixmask is not None and fixmask.dtype != blocks.dtype)):
+        raise TypeError(f"{name}: dtypes {blocks.dtype}/{u.dtype}; expected float32 or float64 "
+                        "throughout")
+    if any(t.dtype != torch.int32 for t in inc):
+        raise TypeError(f"{name}: the incidence tables must be int32")
+    if cpu:
+        if blocks.shape != (30, 30, ne):
+            raise ValueError(f"{name}: CPU blocks {tuple(blocks.shape)}; expected the full "
+                             f"blocks (30, 30, {ne})")
+        return True
+    tile = PACK_TILE[blocks.dtype]
+    if (blocks.dim() != 3 or blocks.shape[1:] != (NPACK, tile)
+            or not (blocks.shape[0] - 1) * tile < ne <= blocks.shape[0] * tile):
+        raise ValueError(f"{name}: CUDA blocks {tuple(blocks.shape)} for {ne} elements; "
+                         f"expected (ntiles, {NPACK}, {tile}) from pack_blocks")
+    if not all(t.is_contiguous() for t in tensors) or blocks.data_ptr() % 16:
+        raise ValueError(f"{name}: inputs must be contiguous (a column slice of a block is "
+                         "not), the packed blocks 16-byte aligned")
+    return False
+
+
+def khat_matmat_ref(esm_t: torch.Tensor, inc: NodeIncidence, u: torch.Tensor, fixmask=None,
+                    identity_on_fixed: bool = True, negate: bool = False) -> torch.Tensor:
+    """Plain version of K1m on full blocks (the CPU's path): the raw ``K U``
+    of :func:`khat_matvec_ref` on ``P U``, then ``P (.)``, ``+ (I - P) U``
+    with ``identity_on_fixed``, and the sign (the chain the port ran before
+    K1m, bit for bit)."""
+    if fixmask is None:
+        y = khat_matvec_ref(esm_t, inc, u)
+    else:
+        pm = fixmask[:, None]
+        y = pm * khat_matvec_ref(esm_t, inc, pm * u)
+        if identity_on_fixed:
+            y = y + (1.0 - pm) * u
+    return -y if negate else y
+
+
+def khat_matmat_packed_ref(packed: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
+                           fixmask=None, identity_on_fixed: bool = True,
+                           negate: bool = False) -> torch.Tensor:
+    """Plain version of K1m on the card: the packed blocks unpacked to
+    symmetric blocks, then :func:`khat_matmat_ref`."""
+    return khat_matmat_ref(unpack_blocks(packed, inc.elnodes_t.shape[1]), inc, u, fixmask,
+                           identity_on_fixed, negate)
+
+
+def khat_matmat(blocks: torch.Tensor, inc: NodeIncidence, u: torch.Tensor, fixmask=None,
+                identity_on_fixed: bool = True, negate: bool = False) -> torch.Tensor:
+    """K1m: K1 on the m columns of a block (design and bound at the top of
+    ``csrc/khat_matmat.cu``):
+
+    * with ``fixmask`` and ``identity_on_fixed``: ``K_hat U = P K (P U) +
+      (I - P) U``, ``P = diag(fixmask)``;
+    * with ``fixmask`` alone: ``P K (P U)`` (``-G_hat U`` once negated);
+    * without ``fixmask``: the raw ``K U`` (``identity_on_fixed`` unread);
+
+    each negated with ``negate``.
+
+    Args:
+      blocks: as in :func:`khat_matvec`: the full element-major blocks on
+        the CPU, their :func:`pack_blocks` copy on the card.
+      inc: the element numbering's :class:`NodeIncidence` over ``nn`` nodes.
+      u: (3 nn, m) block, row-major (a column slice is not: make it dense).
+      fixmask: (3 nn,) 1 on free dofs, 0 on fixed ones, or None.
+
+    Returns:
+      (3 nn, m).  CPU tensors take the plain version; CUDA tensors launch
+      the kernels (``khat_matmat.launches`` counts those calls, by dtype and
+      m in ``khat_matmat.shapes``), whose sums run in a fixed order: two
+      calls on the same inputs give the same bits.
+    """
+    ne = inc.elnodes_t.shape[1] if inc.elnodes_t.dim() == 2 else -1
+    nn = inc.offsets.shape[0] - 1
+    if (inc.elnodes_t.shape != (10, ne) or inc.pos.shape != (10 * ne,) or u.dim() != 2
+            or u.shape[0] != 3 * nn or (fixmask is not None and fixmask.shape != (3 * nn,))):
+        raise ValueError(
+            f"khat_matmat: elnodes_t {tuple(inc.elnodes_t.shape)}, {nn} nodes, pos "
+            f"{tuple(inc.pos.shape)}, u {tuple(u.shape)}; expected (10, ne), (10 ne,), "
+            "(3 nn, m) and a (3 nn,) fixmask")
+    if _k1_on_cpu("khat_matmat", blocks, inc, u, fixmask):
+        return khat_matmat_ref(blocks, inc, u, fixmask, identity_on_fixed, negate)
+    if u.shape[1] == 0:
+        return torch.empty_like(u)
+    build()
+    out = torch.ops.fcvm.khat_matmat(blocks, inc.elnodes_t, inc.offsets, inc.pos, u, fixmask,
+                                     identity_on_fixed, negate)
+    khat_matmat.launches += 1
+    khat_matmat.shapes[(_dtype_name(u), u.shape[1])] += 1
+    return out
+
+
+khat_matmat.launches = 0
+khat_matmat.shapes = Counter()  # launches by (dtype name, m)
 
 
 class SegmentPlan(NamedTuple):
@@ -602,25 +706,8 @@ def two_level_apply(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
         raise ValueError(
             f"two_level_apply: shapes pinv {tuple(pinv.shape)}, qmat {tuple(qmat.shape)}, "
             f"r {tuple(r.shape)}; expected (nn, 3, 3), (ncl cs, 3, nm), (3 nn,)")
-    nm = qmat.shape[2]
-    ncl = coarse_inv.shape[0] // nm if nm else 0
-    if (nm not in (6, 12) or ncl == 0 or coarse_inv.shape != (nm * ncl, nm * ncl)
-            or qmat.shape[0] % ncl or qmat.shape[0] < nn):
-        raise ValueError(
-            f"two_level_apply: qmat {tuple(qmat.shape)} and coarse_inv "
-            f"{tuple(coarse_inv.shape)}; expected nm 6 or 12 modes on ncl clusters that "
-            "cover the nodes")
-    tensors = (pinv, qmat, coarse_inv, fixmask, r) + (() if z_fine is None else (z_fine,))
-    if all(t.device.type == "cpu" for t in tensors):
+    if _two_level_on_cpu("two_level_apply", pinv, qmat, coarse_inv, fixmask, r, z_fine, nn):
         return two_level_apply_ref(pinv, qmat, coarse_inv, fixmask, r, z_fine)
-    if r.device.type != "cuda" or any(t.device != r.device for t in tensors):
-        raise ValueError("two_level_apply: tensors on several devices; expected all on the "
-                         "CPU or all on one CUDA device")
-    if r.dtype not in (torch.float32, torch.float64) or any(t.dtype != r.dtype
-                                                             for t in tensors):
-        raise TypeError("two_level_apply: expected float32 or float64 throughout")
-    if not all(t.is_contiguous() for t in tensors if t is not coarse_inv):
-        raise ValueError("two_level_apply: inputs other than coarse_inv must be contiguous")
     build()
     out = torch.ops.fcvm.two_level_apply(pinv, qmat, coarse_inv, fixmask, r, z_fine)
     two_level_apply.launches += 1
@@ -630,6 +717,92 @@ def two_level_apply(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
 
 two_level_apply.launches = 0
 two_level_apply.dtypes = Counter()  # launches by dtype name
+
+
+def _two_level_on_cpu(name, pinv, qmat, coarse_inv, fixmask, r, z_fine, nn) -> bool:
+    """Check the coarse space, devices, dtypes and layouts of K4's or K4m's
+    inputs (their vector or block shapes checked by the caller): True for
+    CPU tensors, False for one CUDA device, every input but coarse_inv
+    dense (it reaches only cuBLAS, which takes cholesky_inverse's
+    column-major layout as it is)."""
+    nm = qmat.shape[2]
+    ncl = coarse_inv.shape[0] // nm if nm else 0
+    if (nm not in (6, 12) or ncl == 0 or coarse_inv.shape != (nm * ncl, nm * ncl)
+            or qmat.shape[0] % ncl or qmat.shape[0] < nn):
+        raise ValueError(f"{name}: qmat {tuple(qmat.shape)} and coarse_inv "
+                         f"{tuple(coarse_inv.shape)}; expected nm 6 or 12 modes on ncl clusters "
+                         "that cover the nodes")
+    tensors = (pinv, qmat, coarse_inv, fixmask, r) + (() if z_fine is None else (z_fine,))
+    cpu = all(t.device.type == "cpu" for t in tensors)
+    if not cpu and (r.device.type != "cuda" or any(t.device != r.device for t in tensors)):
+        raise ValueError(f"{name}: tensors on several devices; expected all on the CPU or all "
+                         "on one CUDA device")
+    if r.dtype not in (torch.float32, torch.float64) or any(t.dtype != r.dtype
+                                                             for t in tensors):
+        raise TypeError(f"{name}: expected float32 or float64 throughout")
+    if not cpu and not all(t.is_contiguous() for t in tensors if t is not coarse_inv):
+        raise ValueError(f"{name}: inputs other than coarse_inv must be contiguous (a column "
+                         "slice of a block is not)")
+    return cpu
+
+
+def two_level_apply_block_ref(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
+    """Plain version of K4m: :func:`two_level_apply_ref`'s steps on the m
+    columns of ``r`` (3 nn, m) at once, with a trailing column axis and the
+    coarse product a GEMM."""
+    m = r.shape[1]
+    z = z_fine
+    if z is None:
+        z = torch.einsum("nab,nbm->nam", pinv, r.reshape(-1, 3, m)).reshape(r.shape)
+    nn_cl, _, nm = qmat.shape
+    ncl = coarse_inv.shape[0] // nm
+    cs = nn_cl // ncl
+    r3 = (fixmask[:, None] * r).reshape(-1, 3, m)
+    nn = r3.shape[0]
+    r3p = torch.nn.functional.pad(r3, (0, 0, 0, 0, 0, nn_cl - nn))
+    rc = torch.einsum("nak,nam->nkm", qmat, r3p).reshape(ncl, cs, nm, m).sum(dim=1)
+    zc = coarse_inv @ rc.permute(1, 0, 2).reshape(nm * ncl, m)  # mode-major rows
+    zc_n = zc.reshape(nm, ncl, m).permute(1, 0, 2).repeat_interleave(cs, dim=0)
+    z2 = torch.einsum("nak,nkm->nam", qmat, zc_n)
+    return z + z2[:nn].reshape(-1, m) * fixmask[:, None]
+
+
+def two_level_apply_block(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
+    """K4m: :func:`two_level_apply` on the m columns of a block at once
+    (design and bound at the top of ``csrc/two_level.cu``).
+
+    Args:
+      pinv, qmat, coarse_inv, fixmask: as in :func:`two_level_apply`.
+      r: (3 nn, m) block, row-major (a column slice is not: make it dense).
+      z_fine: (3 nn, m) the fine level's output, or None for block Jacobi.
+
+    Returns:
+      (3 nn, m).  CPU tensors take the plain version; CUDA tensors launch
+      the kernels (``two_level_apply_block.launches`` counts those calls,
+      by dtype and m in ``two_level_apply_block.shapes``).
+    """
+    nn = r.shape[0] // 3 if r.dim() == 2 else -1
+    if (r.dim() != 2 or r.shape[0] != 3 * nn or fixmask.shape != (3 * nn,)
+            or pinv.shape != (nn, 3, 3) or qmat.dim() != 3 or qmat.shape[1] != 3
+            or (z_fine is not None and z_fine.shape != r.shape)):
+        raise ValueError(
+            f"two_level_apply_block: shapes pinv {tuple(pinv.shape)}, qmat "
+            f"{tuple(qmat.shape)}, r {tuple(r.shape)}; expected (nn, 3, 3), (ncl cs, 3, nm), "
+            "(3 nn, m)")
+    if _two_level_on_cpu("two_level_apply_block", pinv, qmat, coarse_inv, fixmask, r, z_fine,
+                         nn):
+        return two_level_apply_block_ref(pinv, qmat, coarse_inv, fixmask, r, z_fine)
+    if r.shape[1] == 0:
+        return torch.empty_like(r)
+    build()
+    out = torch.ops.fcvm.two_level_apply_block(pinv, qmat, coarse_inv, fixmask, r, z_fine)
+    two_level_apply_block.launches += 1
+    two_level_apply_block.shapes[(_dtype_name(r), r.shape[1])] += 1
+    return out
+
+
+two_level_apply_block.launches = 0
+two_level_apply_block.shapes = Counter()  # launches by (dtype name, m)
 
 
 def soa_matvec_ref(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:

@@ -77,34 +77,15 @@ class TwoLevelPrecond(NamedTuple):
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """Apply to a vector (ndof,) through K4
-        (:func:`fcvm_tpu_torch.ops.kernels.two_level_apply`, block Jacobi
-        fused into it; the cluster smoother's ``bmm`` runs before it), or
-        to each column of a block (ndof, m)."""
-        if r.dim() == 2:
-            return self._apply_block(r)
-        r = r.contiguous()  # K4 reads a dense vector; a column of a block is strided
+        (:func:`fcvm_tpu_torch.ops.kernels.two_level_apply`) or to the m
+        columns of a block (ndof, m) through K4m
+        (:func:`~fcvm_tpu_torch.ops.kernels.two_level_apply_block`), block
+        Jacobi fused into either; the cluster smoother's ``bmm`` runs
+        before them."""
+        r = r.contiguous()  # the kernels read dense tensors; a column of a block is strided
         z_fine = None if self.smooth_inv is None else self.fine(r)
-        return kernels.two_level_apply(self.pinv, self.qmat, self.coarse_inv, self.fixmask, r,
-                                       z_fine)
-
-    def _apply_block(self, r: torch.Tensor) -> torch.Tensor:
-        """:meth:`apply` on the m columns of ``r`` at once: the same steps
-        with a trailing column axis, and the coarse product a GEMM.  The
-        vector form stays separate: run as a block of one column, it made
-        the default plate run's stepping ~3% slower on the H100 (PERF.md)."""
-        m = r.shape[1]
-        z = self.fine(r)
-        nn_cl, _, nm = self.qmat.shape
-        ncl = self.coarse_inv.shape[0] // nm
-        cs = nn_cl // ncl
-        r3 = (self.fixmask[:, None] * r).reshape(-1, 3, m)
-        nn = r3.shape[0]
-        r3p = torch.nn.functional.pad(r3, (0, 0, 0, 0, 0, nn_cl - nn))
-        rc = torch.einsum("nak,nam->nkm", self.qmat, r3p).reshape(ncl, cs, nm, m).sum(dim=1)
-        zc = self.coarse_inv @ rc.permute(1, 0, 2).reshape(nm * ncl, m)  # mode-major rows
-        zc_n = zc.reshape(nm, ncl, m).permute(1, 0, 2).repeat_interleave(cs, dim=0)
-        z2 = torch.einsum("nak,nkm->nam", self.qmat, zc_n)
-        return z + z2[:nn].reshape(-1, m) * self.fixmask[:, None]
+        apply = kernels.two_level_apply if r.dim() == 1 else kernels.two_level_apply_block
+        return apply(self.pinv, self.qmat, self.coarse_inv, self.fixmask, r, z_fine)
 
 
 def apply_precond(pc, r):

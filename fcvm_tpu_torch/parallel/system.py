@@ -13,8 +13,8 @@ per device instead of one process driving a mesh.
   the world size.
 * **Node vectors are replicated.**  Every operator application runs K1's
   raw form (:func:`fcvm_tpu_torch.ops.kernels.khat_matvec`, over the rank's
-  own node-incidence table and packed blocks) or K0m (``block_matmat``,
-  reduced by K8, ``segment_sum``) on the rank's blocks and ends in exactly one
+  own node-incidence table and packed blocks) or K1m's (``khat_matmat``,
+  over the same) on the rank's blocks and ends in exactly one
   ``all_reduce`` of the
   ``(ndof_pad,)`` or ``(ndof_pad, k)`` result, then applies the Dirichlet
   mask: the counterpart of the one ``psum``.  The same holds for the
@@ -71,12 +71,14 @@ from fcvm_tpu_torch.runtime.backend import TorchSystem
 
 class ShardedOperator(NamedTuple):
     """``K_hat`` over this rank's blocks (30, 30, ne_l), Morton element
-    order, element-major.  Calling it applies ``K_hat @ v`` (one
-    ``all_reduce``); ``local(v)`` is this rank's unreduced raw ``K @ v``."""
+    order, element-major, and on the card their packed copy (None on the
+    CPU).  Calling it applies ``K_hat @ v`` (one ``all_reduce``);
+    ``local(v)`` is this rank's unreduced raw ``K @ v``."""
 
     esm_t: torch.Tensor
     matvec: Callable
     local: Callable
+    packed: torch.Tensor = None
 
     def __call__(self, v):
         return self.matvec(v)
@@ -166,20 +168,23 @@ class ShardedSystem(TorchSystem):
     def operator(self, esm):
         """``K_hat @ v`` in the solve space over this rank's blocks."""
         esm_t = esm.permute(1, 2, 0).contiguous()
-        local = asm.make_matvec(esm_t, self.eldofs_m_l, self.ndof_pad, self.incidence_l)
+        packed = kernels.pack_blocks(esm_t) if esm_t.device.type != "cpu" else None
+        local = asm.make_matvec(esm_t, self.eldofs_m_l, self.ndof_pad, self.incidence_l, packed)
         fm = self.space.fixmask_m
         free = 1.0 - fm
 
         def khat(u):
             return fm * pdist.all_reduce(local(fm * u)) + free * u
 
-        return ShardedOperator(esm_t, khat, local)
+        return ShardedOperator(esm_t, khat, local, packed)
 
-    def _block_op(self, esm_t, identity_on_fixed=True, negate=False):
+    def _block_op(self, esm_t, identity_on_fixed=True, negate=False, packed=None):
         """``(ndof, m) -> (ndof, m)``: ``K_hat @ U`` (or ``-G_hat @ U`` with
-        ``identity_on_fixed=False, negate=True``) through K0m on this rank's
-        blocks and one ``all_reduce``."""
-        raw = asm.make_multi_matvec(esm_t, self.eldofs_m_l, torch.ones_like(self.fixmask))
+        ``identity_on_fixed=False, negate=True``) through K1m's raw form on
+        this rank's blocks (``packed``, their packed copy, made here on the
+        card when not given) and one ``all_reduce``."""
+        raw = asm.make_multi_matvec(esm_t, self.eldofs_m_l, None, incidence=self.incidence_l,
+                                    packed=packed)
         fm = self.space.fixmask_m[:, None]
 
         def mv(u):
@@ -309,7 +314,8 @@ class ShardedSystem(TorchSystem):
     # -- Ritz-deflation recycling ------------------------------------------------
 
     def make_deflation(self, khat, w):
-        return dfl.DeflationSpace(w, dfl.pinv_psd(w.T @ self._block_op(khat.esm_t)(w)))
+        return dfl.DeflationSpace(
+            w, dfl.pinv_psd(w.T @ self._block_op(khat.esm_t, packed=khat.packed)(w)))
 
     def build_deflation(self, khat, zs, coef):
         return self.make_deflation(khat, dfl.build_w(zs, coef, self.space.fixmask_m))
@@ -392,7 +398,7 @@ class ShardedSystem(TorchSystem):
         pre-stress ``sig_el_gp`` (this rank's Gauss slice).
 
         The (K, -G) pencil's blocks are this rank's; ``K_hat @ V`` and
-        ``-G_hat @ V`` go through K0m and one ``all_reduce``, the inner
+        ``-G_hat @ V`` go through K1m and one ``all_reduce``, the inner
         block solves and the deep Ritz harvest through the sharded
         operator, the Rayleigh-Ritz algebra replicated.  The penalty BC
         runs the single-device tier, as does the retry after a float32
@@ -411,7 +417,7 @@ class ShardedSystem(TorchSystem):
         pc = self.make_pc(esm, self._pinv_m(esm))
         nstore, k_defl = bk._recycling_params(self.ndof_pad, esm.element_size())
         del esm
-        kmv = self._block_op(khat.esm_t)
+        kmv = self._block_op(khat.esm_t, packed=khat.packed)
         minus_g = self._block_op(nsm_t, identity_on_fixed=False, negate=True)
         record = {"dtype": str(dtype).replace("torch.", ""), "solver": "cg", "sweeps": 0,
                   "inner_iters": [], "harvest": None, "pencil_residuals": None,

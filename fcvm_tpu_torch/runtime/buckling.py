@@ -6,10 +6,12 @@ shift-invert mode (``source code/fcVM.py:1199-1214``).  Here the buckling
 factors are ``lambda_i = 1 / theta_i`` for the largest eigenvalues
 ``theta`` of ``K_hat^{-1} (-G_hat)``, found by block subspace iteration
 with Rayleigh-Ritz on the (K, -G) pencil (:func:`pencil_subspace`).  Every
-operator application is the matrix-free node-row gather, block product
-(the CUDA kernel K0m on the card) and fixed-order node sum (K8) over
-``(ndof, m)`` blocks; the inner ``K_hat^{-1}`` solves the ``m`` columns together with
-:func:`fcvm_tpu_torch.ops.solver.pcg_block`, deflated by one deep Ritz
+operator application is K1m over ``(ndof, m)`` blocks (the node-row
+gather, block product and fixed-order node sum of one CUDA kernel pair on
+the card, over one packed copy of each operator's blocks and one
+incidence table); the inner ``K_hat^{-1}`` solves the ``m`` columns
+together with :func:`fcvm_tpu_torch.ops.solver.pcg_block`, each
+preconditioner apply on the block one K4m, deflated by one deep Ritz
 harvest of the first column (:func:`make_recycled_k_inverse`).
 
 Boundary conditions: fixed dofs are eliminated exactly by default
@@ -170,11 +172,11 @@ def _penalty_operators(esm, nsm, eldofs, elnodes, fixmask, ndof, solver, rtol, m
     (``fcVM.py:1051-1062``): the full stiffness and geometric matrices (no
     Dirichlet elimination) with the fixed K diagonals multiplied by 100 and
     G unpenalised.  No recycling: the mode targets small parity meshes."""
-    ones = torch.ones_like(fixmask)
-    kfull = asm.make_multi_matvec(esm.permute(1, 2, 0).contiguous(), eldofs, ones,
-                                  identity_on_fixed=False)
-    minus_g = asm.make_multi_matvec(nsm.permute(1, 2, 0).contiguous(), eldofs, ones,
-                                    identity_on_fixed=False, negate=True)
+    inc = asm.node_incidence(elnodes, ndof // 3)  # one incidence for both operators
+    kfull = asm.make_multi_matvec(esm.permute(1, 2, 0).contiguous(), eldofs, None,
+                                  incidence=inc)
+    minus_g = asm.make_multi_matvec(nsm.permute(1, 2, 0).contiguous(), eldofs, None,
+                                    negate=True, incidence=inc)
     diag = _assembled_diagonal(esm, eldofs, ndof)
     empty = (diag == 0).to(diag.dtype)  # dof-alignment padding rows
     dvec_k = 99.0 * diag * (1.0 - fixmask) + empty
@@ -318,8 +320,18 @@ def buckling_from_arrays(
     esm_t = esm.permute(1, 2, 0).contiguous()
     nsm_t = nsm.permute(1, 2, 0).contiguous()
     del nsm
-    kmv = asm.make_multi_matvec(esm_t, eldofs, fixmask)
-    minus_g = asm.make_multi_matvec(nsm_t, eldofs, fixmask, identity_on_fixed=False, negate=True)
+    # one incidence table, and on the card one packed copy of each operator's
+    # blocks, shared by K_hat·V, -G_hat·V, the harvest's K_hat·v and the
+    # deflation build
+    inc = space.incidence if space is not None else asm.node_incidence(elnodes, ndof // 3)
+    on_card = esm_t.device.type != "cpu"
+    packed = kernels.pack_blocks(esm_t) if on_card else None
+    kmv = asm.make_multi_matvec(esm_t, eldofs, fixmask, incidence=inc, packed=packed)
+    minus_g = asm.make_multi_matvec(nsm_t, eldofs, fixmask, identity_on_fixed=False, negate=True,
+                                    incidence=inc,
+                                    packed=kernels.pack_blocks(nsm_t) if on_card else None)
+    if on_card:
+        del nsm_t  # -G_hat·V reads its packed copy only
 
     if solver == "scipy":
         # the reference's direct tier (fcVM.py:1263-1278): an exact K^-1
@@ -336,7 +348,7 @@ def buckling_from_arrays(
         else:
             pc = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
         nstore, k_defl = _recycling_params(ndof, esm.element_size())
-        kv = asm.make_bc_matvec(esm_t, eldofs, fixmask)
+        kv = asm.make_bc_matvec(esm_t, eldofs, fixmask, incidence=inc, packed=packed)
 
         def prec(r):
             return apply_precond(pc, r)
@@ -352,7 +364,7 @@ def buckling_from_arrays(
 
         k_inverse = make_recycled_k_inverse(
             kinv, harvest,
-            lambda zs, coef: dfl.build_space(esm_t, eldofs, fixmask, zs, coef),
+            lambda zs, coef: dfl.build_space(esm_t, eldofs, fixmask, zs, coef, inc, packed),
             k_defl, cfg.deflation_min_iters, cfg.deflation, record=record)
     del esm
 

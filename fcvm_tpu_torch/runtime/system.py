@@ -250,14 +250,15 @@ def regalerkin_deflation(khat: Operator, space: SolveSpace, w) -> dfl.DeflationS
     ``khat``: one block matvec and the PSD pseudo-inverse.  A tangent
     refresh re-Galerkins a held basis on the new operator this way (a stale
     Galerkin stays SPD but deflates the wrong scales)."""
-    return dfl.DeflationSpace(
-        w, dfl.pinv_psd(dfl.galerkin(khat.esm_t, space.eldofs_m, space.fixmask_m, w)))
+    return dfl.DeflationSpace(w, dfl.pinv_psd(dfl.galerkin(
+        khat.esm_t, space.eldofs_m, space.fixmask_m, w, space.incidence, khat.packed)))
 
 
 def build_deflation(khat: Operator, space: SolveSpace, zs, coef) -> dfl.DeflationSpace:
     """Deflation space from harvested residuals ``zs`` and Ritz
     coefficients ``coef``, on the operator ``khat``, in the solve space."""
-    return dfl.build_space(khat.esm_t, space.eldofs_m, space.fixmask_m, zs, coef)
+    return dfl.build_space(khat.esm_t, space.eldofs_m, space.fixmask_m, zs, coef,
+                           space.incidence, khat.packed)
 
 
 def residual(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu,

@@ -42,8 +42,8 @@ appends a cumulative JSON line to a file after each stage.
 
 A step is timed on the host clock around ``torch.cuda.synchronize()``; the
 CG's host sync in every iteration stays inside it, as the driver pays it.
-Each row carries the kernel launches it made (``launches``: K1, K4, K0m,
-K0) and, on a GPU, its peak device memory (``peak_mib``).  Everything runs
+Each row carries the kernel launches it made (``launches``: K1, K4, K8,
+K1m, K4m, K0m, K0) and, on a GPU, its peak device memory (``peak_mib``).  Everything runs
 on ``cuda`` unless ``--cpu`` is given; a failed row raises and ends the run
 with a non-zero exit after the rows before it were printed, and nothing
 falls back to the CPU.  The CPU baseline's failure alone is reported in the line
@@ -162,10 +162,12 @@ def _sync(device):
     return torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
 
-# the kernels a row can launch: K1 and K4 (every CG iteration), K0m (the
-# deflation and sharded block products), K0 (on no row's path: K1 carries
-# K_hat·v)
-ROW_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "block_matmat", "block_matvec")
+# the kernels a row can launch: K1 and K4 (every CG iteration), K8 (every
+# node sum), K1m (the deflation and sharded block products), K4m (the
+# eigensolve's block preconditioner apply), K0m and K0 (on no row's path:
+# K1m and K1 carry K_hat·V and K_hat·v)
+ROW_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "khat_matmat",
+               "two_level_apply_block", "block_matmat", "block_matvec")
 
 
 def _tracker(device):

@@ -12,8 +12,8 @@ probe builds it with ``nvcc`` into ``fcvm_tpu_torch/_build/`` (a plain C
 interface, loaded with ``ctypes``; the solver never loads it), and at the
 sites of ``chip_smoke.py`` phase 3c (``chip_smoke.k8_sites``: the plate's
 and the beam-column's plans, float32 and float64) times against K8: at the
-write-form sites (the internal force, K_hat·V at m = 8, block Jacobi) the
-register path with all 3, 9 or 24 columns of a row a thread; at the coarse
+write-form sites (the internal force, block Jacobi) the register path with
+all 3 or 9 columns of a row a thread; at the coarse
 table's chunks the ring with other stage sizes and slot counts, and no
 ring (every group on the register path).  Each must give K8's bits, which
 phase 3c holds to the CPU's ``index_add_``.  CUDA-event medians of 20; the

@@ -3,11 +3,13 @@
 Compares two trees of the port on one card, in turns (A B B A, each turn a
 process of its own):
 
-    python fcvm_tpu_torch/tools/turns.py TREE kernels  # K0, K0p, K0m, K1, K4, K8 at the paths' shapes
+    python fcvm_tpu_torch/tools/turns.py TREE kernels  # K0, K0p, K0m, K1, K4, K8, K1m, K4m at
+                                                       # the paths' shapes
     python fcvm_tpu_torch/tools/turns.py TREE cg       # TREE's own phase 3c on the plate
     python fcvm_tpu_torch/tools/turns.py TREE plate    # phases 5 and 7 (stepping times, the
                                                        # Newton and CG counts, lbd's bits)
-    python fcvm_tpu_torch/tools/turns.py TREE column   # phase 9 (eigensolve, stepping)
+    python fcvm_tpu_torch/tools/turns.py TREE column   # phases 9 (eigensolve, stepping, peak
+                                                       # memory) and 9b (its pieces)
     python fcvm_tpu_torch/tools/turns.py TREE smoother # phase 11 (stepping, the counts, lbd's
                                                        # bits; the two-level build and its split)
 
@@ -24,7 +26,10 @@ K0 where they would be: its plate runs are held to K0's launches, and its
 (``segment_sum``) and K1's packed blocks is held to the kernels it has, and
 its ``kernels`` part has no K1, K4 and K8 rows.  A tree from before K8's
 write form times, at the sites that use it, what its paths run there:
-``torch.zeros``, then K8 accumulating.
+``torch.zeros``, then K8 accumulating.  A tree from before K1m and K4m
+(``kernels.khat_matmat``, ``two_level_apply_block``) is held to K0m's
+launches in its column run, times its chains in 9b, and its ``kernels``
+part has no K1m and K4m rows.
 """
 
 from __future__ import annotations
@@ -56,10 +61,12 @@ def main(tree: str, part: str) -> dict:
     # an older tree's wrappers keep no counts by shape, and an older tree
     # lacks the newer kernels: give them empty ones
     fused = hasattr(kernels, "khat_matvec")
+    blocks = hasattr(kernels, "khat_matmat")
     has = tuple(name for name in smoke.CG_KERNELS if hasattr(kernels, name))
-    for name in smoke.CG_KERNELS:
+    for name in smoke.PATH_KERNELS:
         if not hasattr(kernels, name):
-            setattr(kernels, name, SimpleNamespace(launches=0, dtypes=Counter()))
+            setattr(kernels, name, SimpleNamespace(launches=0, dtypes=Counter(),
+                                                   shapes=Counter()))
     for fn, attr in ((kernels.block_matvec, "dtypes"), (kernels.block_matmat, "shapes")):
         if not hasattr(fn, attr):
             setattr(fn, attr, Counter())
@@ -94,6 +101,10 @@ def main(tree: str, part: str) -> dict:
                             for (k, dt, m, v), row in smoke.cg_kernel_phase(models).items()]
             out["k8"] = [{"dtype": dt, "model": m, "site": site, **row}
                          for (dt, m, site), row in smoke.k8_phase(models).items()]
+            if blocks:
+                out["k1m_k4m"] = [
+                    {"kernel": k, "dtype": dt, "model": mo, "variant": v, "m": m, **row}
+                    for (k, dt, mo, v, m), row in smoke.block_kernel_phase(models).items()]
     elif part == "cg":
         spec = importlib.util.spec_from_file_location(
             "tree_smoke", Path(tree).resolve() / "chip_smoke.py")
@@ -130,9 +141,12 @@ def main(tree: str, part: str) -> dict:
         print(f"build: {build}")
         out["build"], out["split"] = build, split
     elif part == "column":
+        cfg = FcvmConfig(device="cuda", dtype="float32")
         out["phase 9"] = smoke.run_column(
-            FcvmConfig(device="cuda", dtype="float32"),
-            required=(*has, "block_matmat") if fused else ("block_matvec",))
+            cfg, required=((*has, *smoke.BLOCK_KERNELS) if blocks else
+                           (*has, "block_matmat") if fused else ("block_matvec",)),
+            absent=("block_matmat",) if blocks else ())
+        out["phase 9b"] = smoke.column_breakdown(cfg)
     else:
         raise SystemExit(f"turns.py: unknown part {part!r}")
     return out

@@ -299,6 +299,97 @@ def test_residual_and_block_products_give_the_same_bits(cuda):
     assert torch.equal(pinv, again)
 
 
+# the widths at which the paths launch K1m (chip_smoke.K0M_SHAPES): the
+# beam-column's eigensolve block of 8 and its tails, its deflation k = 64;
+# the plate's deflation k = 32; and off-path checks of the chunk edges
+K1M_SHAPES = (*(("column", m) for m in (1, 2, 3, 4, 5, 6, 7, 8, 32, 64)), ("plate", 32),
+              ("ragged", 3), ("ragged", 9), ("ragged", 37), ("box", 8))
+K1M_FORMS = {"masked": (True, True, False), "projected_negated": (True, False, True),
+             "raw": (False, False, False)}  # (with fixmask, identity_on_fixed, negate)
+
+
+def _k1m_operator(size, dtype):
+    """K1m's inputs at ``size``: the 3x3x3 box's operator, mask and incidence
+    in its solve space, or ``_random_operator`` at a path's counts."""
+    if size == "box":
+        be = TorchSystem(_tension_box(3), FcvmConfig(device="cuda", dtype="float64"), dtype,
+                         torch.device("cuda"))
+        esm, *_ = be.assemble(be.tensor(be.mesh.coords))
+        op = be.operator(esm)
+        return op.esm_t, op.packed, be.space.incidence, be.space.fixmask_m
+    esm_t, packed, inc, _, fm = _random_operator(*PATH_SIZES[size], dtype, seed=8)
+    return esm_t, packed, inc, fm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("form", list(K1M_FORMS))
+@pytest.mark.parametrize("size,m", K1M_SHAPES, ids=[f"{s}-m{m}" for s, m in K1M_SHAPES])
+def test_khat_matmat_kernel_matches_plain(cuda, dtype, form, size, m):
+    """K1m against its plain version on the card at every width the paths
+    give it, in each form (K_hat·V; -G_hat·V, projected and negated; the raw
+    K·V): on random symmetric blocks and connectivity at the beam-column's
+    and the plate's counts, at a ragged count (no whole tile, widths across
+    the chunk of 8 columns) and on the 3x3x3 box's operator; the kernel
+    reads only the packed blocks; max |kernel - plain| / max |plain| within
+    TOL against the packed plain version and the full blocks'; the same bits
+    on a second call; one launch counted each, by dtype and m."""
+    esm_t, packed, inc, fm = _k1m_operator(size, dtype)
+    masked, ident, neg = K1M_FORMS[form]
+    fm = fm if masked else None
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    u = torch.randn((3 * (inc.offsets.shape[0] - 1), m), generator=gen, device="cuda",
+                    dtype=dtype)
+    launches = kernels.khat_matmat.launches
+    shape = kernels.khat_matmat.shapes[(str(dtype).removeprefix("torch."), m)]
+    out = kernels.khat_matmat(packed, inc, u, fm, ident, neg)
+    again = kernels.khat_matmat(packed, inc, u, fm, ident, neg)
+    torch.cuda.synchronize()
+    assert kernels.khat_matmat.launches == launches + 2
+    assert kernels.khat_matmat.shapes[(str(dtype).removeprefix("torch."), m)] == shape + 2
+    assert torch.equal(out, again)  # fixed-order sums: deterministic
+    for ref in (kernels.khat_matmat_packed_ref(packed, inc, u, fm, ident, neg),
+                kernels.khat_matmat_ref(esm_t, inc, u, fm, ident, neg)):
+        assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("form", ["masked", "raw"])
+def test_khat_matmat_on_one_column_is_khat_matvec(cuda, dtype, form):
+    """K1m on an (ndof, 1) block gives K1's bits on that column: the same
+    entries in the same order in each element, the same incidences in the
+    same order at each node."""
+    esm_t, packed, inc, _, fm = _random_operator(*PATH_SIZES["column"], dtype, seed=9)
+    fm = fm if form == "masked" else None
+    u = torch.randn((3 * (inc.offsets.shape[0] - 1), 1), device="cuda", dtype=dtype)
+    assert torch.equal(kernels.khat_matmat(packed, inc, u, fm)[:, 0],
+                       kernels.khat_matvec(packed, inc, u[:, 0].contiguous(), fm))
+
+
+def test_khat_matmat_rejects_what_it_does_not_take(cuda):
+    esm_t, packed, inc, u, fm = _random_operator(50, 120, torch.float32, seed=3)
+    v = torch.stack([u, u, u], dim=1)
+    with pytest.raises(ValueError):
+        kernels.khat_matmat(esm_t, inc, v, fm)  # the full blocks, not the packed copy
+    with pytest.raises(TypeError):
+        kernels.khat_matmat(packed, inc, v.double(), fm)
+    with pytest.raises(TypeError):
+        kernels.khat_matmat(packed, inc._replace(offsets=inc.offsets.long()), v, fm)
+    with pytest.raises(ValueError):
+        kernels.khat_matmat(packed, inc, v.cpu(), fm)
+    with pytest.raises(ValueError):
+        kernels.khat_matmat(packed, inc, v[:-3], fm)
+    with pytest.raises(ValueError):
+        kernels.khat_matmat(packed, inc, u, fm)  # a vector, not a block
+    with pytest.raises(ValueError):
+        kernels.khat_matmat(packed, inc, v[:, 1:], fm)  # a column slice: strided
+    with pytest.raises(ValueError):
+        kernels.khat_matmat(packed[:, :, :128].contiguous(), inc, v, fm)
+    # the operator of make_multi_matvec makes a column slice dense first
+    op = tasm.make_multi_matvec(esm_t, tasm.element_dof_ids(inc.elnodes_t.T.long()), fm,
+                                incidence=inc, packed=packed)
+    assert torch.equal(op(v[:, 1:]), op(v[:, 1:].contiguous()))
+
+
 def _random_precond(nn, cs, ncl, nm, dtype, seed):
     """Random block-Jacobi blocks, mode basis (zero past the nn nodes),
     coarse inverse, mask, vector and fine-level output on the card."""
@@ -348,6 +439,65 @@ def test_two_level_apply_kernel_matches_plain(cuda, dtype, fine, size):
     assert torch.equal(out, again)
     ref = kernels.two_level_apply_ref(*args, z_fine)
     assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("fine", ["jacobi3", "cluster"])
+@pytest.mark.parametrize("size,m", [("box", 5), ("column", 1), ("column", 3), ("column", 8),
+                                    ("column", 37), ("plate", 8)])
+def test_two_level_apply_block_kernel_matches_plain(cuda, dtype, fine, size, m):
+    """K4m against its plain version on the card, with block Jacobi and with
+    a fine level given (the cluster smoother's output): on the 3x3x3 box's
+    preconditioner (6 modes, 16-node smoother clusters) and on random state
+    at the beam-column's and the plate's node counts with their coarse sizes,
+    at the eigensolve's block widths and one past a warp of columns; within
+    TOL, the same bits on a second call, one launch counted each."""
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    if size == "box":
+        cfg = FcvmConfig(device="cuda", dtype="float64", smoother=fine,
+                         smoother_cluster_nodes=16, coarse_modes=6)
+        be = TorchSystem(_tension_box(3), cfg, dtype, cuda)
+        esm, pinv, *_ = be.assemble(be.tensor(be.mesh.coords))
+        pc = be.make_pc(esm, pinv)
+        assert pc.qmat.shape[2] == 6 and (pc.smooth_inv is None) == (fine == "jacobi3")
+        r = torch.randn((be.ndof_pad, m), generator=gen, device="cuda", dtype=dtype)
+        args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, r)
+        z_fine = pc.fine(r) if fine == "cluster" else None
+    else:
+        nn = PATH_SIZES[size][1] + (-PATH_SIZES[size][1] % 128)
+        cs, ncl = {"plate": (164, 1022), "column": (148, 1021)}[size]
+        pinv, qmat, kinv, fm, *_ = _random_precond(nn, cs, ncl, 12, dtype, seed=5)
+        r = torch.randn((3 * nn, m), generator=gen, device="cuda", dtype=dtype)
+        args = (pinv, qmat, kinv, fm, r)
+        z_fine = torch.randn_like(r) if fine == "cluster" else None
+    launches = kernels.two_level_apply_block.launches
+    out = kernels.two_level_apply_block(*args, z_fine)
+    again = kernels.two_level_apply_block(*args, z_fine)
+    torch.cuda.synchronize()
+    assert kernels.two_level_apply_block.launches == launches + 2
+    assert torch.equal(out, again)
+    ref = kernels.two_level_apply_block_ref(*args, z_fine)
+    assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+def test_two_level_apply_block_rejects_what_it_does_not_take(cuda):
+    pinv, qmat, kinv, fm, r, _ = _random_precond(200, 16, 13, 12, torch.float32, seed=6)
+    block = torch.stack([r, r, r], dim=1)
+    with pytest.raises(TypeError):
+        kernels.two_level_apply_block(pinv, qmat, kinv.double(), fm, block)
+    with pytest.raises(ValueError):
+        kernels.two_level_apply_block(pinv, qmat, kinv, fm, block.cpu())
+    with pytest.raises(ValueError):
+        kernels.two_level_apply_block(pinv, qmat, kinv, fm, r)  # a vector, not a block
+    with pytest.raises(ValueError):
+        kernels.two_level_apply_block(pinv, qmat, kinv, fm, block[:, 1:])  # strided
+    with pytest.raises(ValueError):
+        kernels.two_level_apply_block(pinv, qmat, kinv, fm, block, block[:, :2])
+    # TwoLevelPrecond.apply makes a column slice dense first
+    from fcvm_tpu_torch.ops.precond import TwoLevelPrecond
+
+    pc = TwoLevelPrecond(pinv, qmat, kinv, fm)
+    assert torch.equal(pc.apply(block[:, 1:]), pc.apply(block[:, 1:].contiguous()))
 
 
 def test_two_level_apply_rejects_what_it_does_not_take(cuda):
@@ -595,9 +745,9 @@ def _pcg_block(device):
 
 
 def test_pcg_block_cuda_matches_cpu(cuda):
-    """The block PCG through K0m on the card against the CPU, float64:
-    every column's CG count within one (atomic sums in another order), the
-    same solutions."""
+    """The block PCG through K1m on the card against the CPU, float64:
+    every column's CG count within one (sums in another order), the same
+    solutions."""
     ref, res = _pcg_block("cpu"), _pcg_block("cuda")
     assert all(abs(a - b) <= 1 for a, b in zip(res.iters, ref.iters))
     np.testing.assert_allclose(res.x.cpu().numpy(), ref.x.numpy(), rtol=0,
@@ -606,24 +756,26 @@ def test_pcg_block_cuda_matches_cpu(cuda):
 
 def test_linear_buckling_cuda_matches_cpu(cuda):
     """linear_buckling of the 8x1x1 clamped-free column in float64 on the
-    card (K0m in every K_hat·V and -G_hat·V) against the CPU: the factors
-    to 1e-10, the (near-degenerate) mode pair spanning the same plane.  The
+    card (K1m in every K_hat·V and -G_hat·V, K4m in every block
+    preconditioner apply, K0m in none) against the CPU: the factors to
+    1e-10, the (near-degenerate) mode pair spanning the same plane.  The
     solves run to 1e-12: at the default 1e-6 the two devices' pre-stress
     solves, whose sums round in another order, differ by ~1e-8, and so do
     the factors."""
     params = ControlParams(gnl="GNLY", nstep=1)
+    block_kernels = (kernels.khat_matmat, kernels.two_level_apply_block, kernels.block_matmat)
     out = {}
     for device in ("cpu", "cuda"):
-        launches = kernels.block_matmat.launches
+        launches = [k.launches for k in block_kernels]
         out[device] = linear_buckling(
             _column_model(), params,
             config=FcvmConfig(device=device, dtype="float64", cg_rtol=1e-12))
-        out[device] += (kernels.block_matmat.launches - launches,)
-    (lam_c, v_c, k0m_c), (lam_g, v_g, k0m_g) = out["cpu"], out["cuda"]
+        out[device] += ([k.launches - n for k, n in zip(block_kernels, launches)],)
+    (lam_c, v_c, blk_c), (lam_g, v_g, blk_g) = out["cpu"], out["cuda"]
     np.testing.assert_allclose(lam_g, lam_c, rtol=1e-10, atol=0)
     coef, *_ = np.linalg.lstsq(v_c, v_g, rcond=None)
     assert np.linalg.norm(v_g - v_c @ coef) < 1e-6 * np.linalg.norm(v_g)
-    assert k0m_c == 0 and k0m_g > 0
+    assert blk_c == [0, 0, 0] and blk_g[0] > 0 and blk_g[1] > 0 and blk_g[2] == 0
 
 
 @pytest.mark.parametrize("case", ["buckling_only", "seeded", "scipy"])
@@ -736,26 +888,26 @@ def _sharded_rank(case, device):
     """One rank of a sharded run of ``case`` in float64 at ``cg_rtol``
     1e-10 on ``device``: its load factors, buckling factors, the CG
     iterations of every solve, the fewer of its K1 and K4 launches and its
-    K0m launches."""
+    K1m launches."""
     from fcvm_tpu_torch.parallel import dist as pdist
 
     model, params = ((_tension_box(2), GNL_BOX) if case == "gnl" else
                      (_column_model(), COLUMN))
-    cg, k0m = _cg_launches(), kernels.block_matmat.launches
+    cg, k1m = _cg_launches(), kernels.khat_matmat.launches
     res = solve_collapse(model, ControlParams(**params), config=FcvmConfig(
         device=device, dtype="float64", cg_rtol=1e-10, force_sharded=True,
         n_devices=pdist.world_size()))
     return dict(lbd=np.asarray(res.history.lbd), eig=res.eigenvalues,
                 cg=[s["cg"] for s in res.cg_stats["steps"]], iters=res.cg_stats["iters"],
                 k1k4=min(np.subtract(_cg_launches(), cg)),
-                k0m=kernels.block_matmat.launches - k0m)
+                k1m=kernels.khat_matmat.launches - k1m)
 
 
 @pytest.mark.parametrize("case", ["gnl", "column"])
 def test_sharded_world_of_one_over_nccl_matches_torchsystem(cuda, case):
     """The sharded backend on a world of one over NCCL against the
     single-device backend on the same card, float64: the same load and
-    buckling factors to 1e-9, K1 and K4 (and K0m for the eigensolve)
+    buckling factors to 1e-9, K1 and K4 (and K1m for the eigensolve)
     launched."""
     from fcvm_tpu_torch.parallel import dist as pdist
 
@@ -767,7 +919,7 @@ def test_sharded_world_of_one_over_nccl_matches_torchsystem(cuda, case):
     np.testing.assert_allclose(out["lbd"], ref.history.lbd, rtol=1e-9, atol=0)
     if case == "column":
         np.testing.assert_allclose(out["eig"], ref.eigenvalues, rtol=1e-9)
-        assert out["k0m"] > 0
+        assert out["k1m"] > 0
     assert out["k1k4"] > 0
 
 
