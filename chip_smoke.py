@@ -51,10 +51,15 @@ Phases, each printing its numbers before the next starts:
    and K4m (``two_level_apply_block``, with block Jacobi and with the
    cluster smoother's output) on the beam-column's preconditioner at the
    widths of its block solves, float32 and float64, against their plain
-   versions and bit for bit against a second call; timed against their
-   plain versions, the chains they replaced (K1m: gather, K0m, K8, masks;
-   K4m: the torch steps, and m vector applies) and, for K1m's K_hat·V, a
-   cuSPARSE CSR product (``torch.sparse.mm``) of the assembled K_hat;
+   versions and bit for bit against a second call (K1m: through its
+   operator's plan, as the paths call it, and against a call that makes
+   its own); K1m's share of compacted element rows on each mesh, and on the
+   beam-column at m = 8 each column of K_hat·V and of the raw K·V K1's
+   bits; timed against their plain versions, the chains they replaced (K1m:
+   gather, K0m, K8, masks; K4m: the torch steps, and m vector applies) and,
+   for K1m's K_hat·V, a cuSPARSE CSR product (``torch.sparse.mm``) of the
+   assembled K_hat at every width, with the device time of each of K1m's
+   two passes (torch.profiler);
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
    the load-factor histories must agree; and ``linear_buckling`` of a small
@@ -302,6 +307,25 @@ def device_ms(fn, *args, calls=10):
         torch.cuda.synchronize()
     return sum(ev.self_device_time_total for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA) / calls / 1e3
+
+
+def device_ms_by_kernel(fn, *args, calls=10):
+    """``{kernel name: mean device time of one call in ms}`` of the CUDA
+    kernels torch.profiler records over ``calls`` calls of ``fn`` (after a
+    warm-up), each named by its function's name alone (no namespace,
+    template arguments or parameters)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    out = Counter()
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.key.split("<")[0].split("::")[-1].split("(")[0].split()[-1]
+            out[name] += ev.self_device_time_total / calls / 1e3
+    return dict(out)
 
 
 # the kernels of the solver's paths: K1 and K4 in every CG iteration (the
@@ -919,6 +943,11 @@ def cg_kernel_phase(models):
     return rows
 
 
+def _bits(t):
+    """A float tensor's bits as integers, so -0 and 0 differ."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
 def old_multi_matvec(esm_t, eldofs, fixmask, identity_on_fixed=True, negate=False):
     """The K_hat·V (or, projected and negated, -G_hat·V) the eigensolve ran
     before K1m: the node-row gather of ``P U``, K0m, K8's write form over
@@ -981,20 +1010,46 @@ def block_kernel_phase(models):
             ne, nn = esm_t.shape[2], be.ndof_pad // 3
             kcsr = assembled_khat(esm_t, sp.eldofs_m, fm)
             gen = torch.Generator(device="cuda").manual_seed(13)
+            # K1m's plan of each form's operator, made once as the paths make it
+            # (a tree from before the plans calls the kernel without one)
+            planned = hasattr(kernels, "khat_matmat_plan")
+            plans = {masked: kernels.khat_matmat_plan(packed, inc, fm if masked else None)
+                     for masked in (True, False)} if planned else {}
+            share = None
+            if planned:
+                share = inc.k1m.node_rows.shape[0] / (10 * ne)
+                print(f"K1m's compacted element rows on the {name}: "
+                      f"{inc.k1m.node_rows.shape[0]} of 10 ne = {10 * ne}, a share of "
+                      f"{share:.4f} (sub-tiles of {kernels.K1M_SUB} elements)")
             for m in K1M_WIDTHS[name]:
                 u = torch.randn((be.ndof_pad, m), generator=gen, device="cuda", dtype=dtype)
                 for form, (masked, ident, neg) in K1M_FORMS.items():
                     f = fm if masked else None
                     args = (packed, inc, u, f, ident, neg)
-                    out, again = kernels.khat_matmat(*args), kernels.khat_matmat(*args)
+                    kargs = args + ((plans[masked],) if planned else ())
+                    out, again = kernels.khat_matmat(*kargs), kernels.khat_matmat(*kargs)
                     torch.cuda.synchronize()
                     ref = kernels.khat_matmat_packed_ref(*args)
                     abs_err = float((out - ref).abs().max())
                     rel = abs_err / float(ref.abs().max())
                     same = bool(torch.equal(out, again))
+                    if planned:  # a call that makes its own plan gives the same bits
+                        same = same and bool(torch.equal(kernels.khat_matmat(*args), out))
+                    row = dict(max_abs_err=abs_err, ms=cuda_ms(kernels.khat_matmat, *kargs),
+                               plain_ms=None, chain_ms=None, library_ms=None,
+                               fe_rows_share=share)
+                    if planned and name == "column" and m == 8 and form != "projected_negated":
+                        # each column K1's bits (the same entries and adds in the same order)
+                        cols = [kernels.khat_matvec(packed, inc, u[:, c].contiguous(), f)
+                                for c in range(m)]
+                        k1_bits = all(torch.equal(_bits(out[:, c].contiguous()), _bits(col))
+                                      for c, col in enumerate(cols))
+                        print(f"K1m {dname} {name} m={m} {form}: each column K1's bits "
+                              f"{'yes' if k1_bits else 'NO'}")
+                        check(k1_bits, f"K1m's columns are not K1's bits ({dname}, {form})")
+                        row["k1_bits"] = k1_bits
+                        del cols
                     del out, again, ref
-                    row = dict(max_abs_err=abs_err, ms=cuda_ms(kernels.khat_matmat, *args),
-                               plain_ms=None, chain_ms=None, library_ms=None)
                     # the packed blocks, the node table, pos and offsets, U (and
                     # the mask) read once, Y written once
                     nbytes = ((465 * size + 80) * ne + 4 * (nn + 1)
@@ -1005,11 +1060,14 @@ def block_kernel_phase(models):
                         chain = old_multi_matvec(esm_t, sp.eldofs_m, fm)
                         row.update(plain_ms=cuda_ms(kernels.khat_matmat_packed_ref, *args),
                                    chain_ms=cuda_ms(chain, u),
-                                   library_ms=cuda_ms(torch.sparse.mm, kcsr, u))
+                                   library_ms=cuda_ms(torch.sparse.mm, kcsr, u),
+                                   passes_ms=device_ms_by_kernel(kernels.khat_matmat, *kargs))
                         del chain
-                        extra = (f"; plain {row['plain_ms']:.4f} ms, the chain it replaced "
-                                 f"(gather, K0m, K8, masks) {row['chain_ms']:.4f} ms, cuSPARSE "
-                                 f"CSR product {row['library_ms']:.4f} ms")
+                        extra = (f"; device time by pass " + ", ".join(
+                            f"{k} {v:.4f} ms" for k, v in row["passes_ms"].items())
+                            + f"; plain {row['plain_ms']:.4f} ms, the chain it replaced "
+                            f"(gather, K0m, K8, masks) {row['chain_ms']:.4f} ms, cuSPARSE "
+                            f"CSR product {row['library_ms']:.4f} ms")
                     print(f"K1m {dname} {name} ne={ne} m={m} {form}: max rel err {rel:.3e} "
                           f"(limit {tol:g}), second call "
                           f"{'the same bits' if same else 'DIFFERENT BITS'}; kernel "
@@ -1022,7 +1080,7 @@ def block_kernel_phase(models):
                                 f"{form})")
                     rows[("khat_matmat", dname, name, form, m)] = dict(ne=ne, **row)
                 del u
-            del kcsr, op, packed
+            del kcsr, op, packed, plans
             if name != "column":
                 del be, esm, pinv, esm_t
                 torch.cuda.empty_cache()
@@ -2465,8 +2523,8 @@ def main():
                    for (dtype, ne), row in k0.items()],
     }, *probe_rows, {
         "name": "khat_matmat", "route": "cuda", "source": "fcvm_tpu_torch/csrc/khat_matmat.cu",
-        "source_also": "fcvm_tpu_torch/csrc/packed.cuh, bulk.cuh, segment.cuh; K1's packed "
-                       "blocks and incidence table",
+        "source_also": "fcvm_tpu_torch/csrc/packed.cuh, bulk.cuh, ring.cuh, segment.cuh; K1's "
+                       "packed blocks and incidence table, K1m's compacted tables",
         "replaces": "fcvm_tpu/runtime/buckling.py:292",
         "replaces_also": "fcvm_tpu/ops/deflation.py:166 (block_khat_matvec), "
                          "fcvm_tpu/ops/pallas_kernels.py:60 under the vmap of "

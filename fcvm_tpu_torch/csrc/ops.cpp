@@ -4,7 +4,7 @@
 //   fcvm::block_matvec  K0   csrc/block_matvec.cu
 //   fcvm::block_matmat  K0m  csrc/block_matmat.cu
 //   fcvm::khat_matvec   K1   csrc/khat_matvec.cu
-//   fcvm::khat_matmat   K1m  csrc/khat_matmat.cu
+//   fcvm::khat_matmat   K1m  csrc/khat_matmat.cu (khat_matmat_map: its tensor maps)
 //   fcvm::two_level_apply  K4  csrc/two_level.cu (around at::mv)
 //   fcvm::two_level_apply_block  K4m  csrc/two_level.cu (around at::mm)
 //   fcvm::segment_sum   K8   csrc/segment_sum.cu (in place: accumulate or write)
@@ -44,16 +44,22 @@ extern "C" int fcvm_khat_matvec_f64(const double* packed, const int* elnodes_t,
                                     const int* offsets, const int* pos, const double* x,
                                     const double* fixmask, double* fe, double* y, long long ne,
                                     long long nn, long long ntiles, void* stream);
-extern "C" int fcvm_khat_matmat_f32(const float* packed, const int* elnodes_t,
-                                    const int* offsets, const int* pos, const float* x,
-                                    const float* fixmask, float* fe, float* y, long long ne,
-                                    long long nn, long long ntiles, int m, int form, int negate,
+extern "C" int fcvm_khat_matmat_map_bytes();
+extern "C" int fcvm_khat_matmat_map_f32(const float* packed, long long ntiles, void* maps);
+extern "C" int fcvm_khat_matmat_map_f64(const double* packed, long long ntiles, void* maps);
+extern "C" long long fcvm_khat_matmat_rows(int itemsize, int m, long long ne, long long rows);
+extern "C" int fcvm_khat_matmat_f32(const void* maps, const int* elnodes_t, const int* offsets,
+                                    const int* pos, const int* ents, const int* ent_rows,
+                                    const int* node_offsets, const int* node_rows,
+                                    const float* x, const float* fixmask, float* fe, float* y,
+                                    long long ne, long long nn, int m, int form, int negate,
                                     void* stream);
-extern "C" int fcvm_khat_matmat_f64(const double* packed, const int* elnodes_t,
-                                    const int* offsets, const int* pos, const double* x,
-                                    const double* fixmask, double* fe, double* y, long long ne,
-                                    long long nn, long long ntiles, int m, int form, int negate,
-                                    void* stream);
+extern "C" int fcvm_khat_matmat_f64(const void* maps, const int* elnodes_t, const int* offsets,
+                                    const int* pos, const int* ents, const int* ent_rows,
+                                    const int* node_offsets, const int* node_rows,
+                                    const double* x, const double* fixmask, double* fe,
+                                    double* y, long long ne, long long nn, int m, int form,
+                                    int negate, void* stream);
 extern "C" int fcvm_segment_sum_f32(const float* vals, const int* order, const int* walk,
                                     const int* holes, float* out, long long nu, long long nlong,
                                     long long nholes, long long w, int write, void* stream);
@@ -234,69 +240,114 @@ at::Tensor khat_matvec(const at::Tensor& packed, const at::Tensor& elnodes_t,
   return y;
 }
 
+// K1m's tensor maps of a packed copy (ntiles, 465, 1024 / itemsize), on the
+// CPU, encoded once per operator and valid while the copy lives: the maps'
+// bytes, then the copy's address and tile count, which khat_matmat checks.
+at::Tensor khat_matmat_map(const at::Tensor& packed) {
+  const long long tile = static_cast<long long>(1024 / packed.element_size());
+  TORCH_CHECK(packed.is_cuda() && packed.dim() == 3 && packed.size(1) == 465 &&
+                  packed.size(2) == tile && packed.is_contiguous() &&
+                  reinterpret_cast<uintptr_t>(packed.data_ptr()) % 16 == 0,
+              "khat_matmat_map: expected a contiguous, 16-byte aligned CUDA packed copy "
+              "(ntiles, 465, 1024 / itemsize)");
+  const c10::cuda::CUDAGuard guard(packed.device());
+  const long long nbytes = fcvm_khat_matmat_map_bytes();
+  at::Tensor map = at::empty({nbytes + 16}, at::TensorOptions().dtype(at::kByte));
+  int err = 0;
+  switch (packed.scalar_type()) {
+    case at::kFloat:
+      err = fcvm_khat_matmat_map_f32(packed.data_ptr<float>(), packed.size(0), map.data_ptr());
+      break;
+    case at::kDouble:
+      err = fcvm_khat_matmat_map_f64(packed.data_ptr<double>(), packed.size(0), map.data_ptr());
+      break;
+    default:
+      TORCH_CHECK(false, "khat_matmat_map: dtype must be float32 or float64, got ",
+                  packed.scalar_type());
+  }
+  TORCH_CHECK(err == 0, "khat_matmat_map: encoding the tensor map failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  auto* tail = reinterpret_cast<int64_t*>(map.data_ptr<uint8_t>() + nbytes);
+  tail[0] = static_cast<int64_t>(reinterpret_cast<uintptr_t>(packed.data_ptr()));
+  tail[1] = packed.size(0);
+  return map;
+}
+
 // K1m: Y = P K (P X) + (I - P) X (identity) or P K (P X) with fixmask, K X
-// without; each negated with negate.  X (3 nn, m), row-major; the blocks and
-// tables as K1's.
-at::Tensor khat_matmat(const at::Tensor& packed, const at::Tensor& elnodes_t,
-                       const at::Tensor& offsets, const at::Tensor& pos, const at::Tensor& x,
-                       const std::optional<at::Tensor>& fixmask, bool identity, bool negate) {
-  TORCH_CHECK(packed.is_cuda() && elnodes_t.device() == packed.device() &&
-                  offsets.device() == packed.device() && pos.device() == packed.device() &&
-                  x.device() == packed.device() &&
-                  (!fixmask || fixmask->device() == packed.device()),
-              "khat_matmat: all tensors must be on one CUDA device");
+// without; each negated with negate.  X (3 nn, m), row-major; packed and its
+// maps (khat_matmat_map); K1's node table and incidence CSR (offsets, pos)
+// and K1m's compacted tables (ops/kernels.py::K1mTables), whose contents
+// ops/kernels.py::khat_matmat_plan checks once: here their sizes, dtypes
+// and devices, and that the maps are the copy's.
+at::Tensor khat_matmat(const at::Tensor& packed, const at::Tensor& map,
+                       const at::Tensor& elnodes_t, const at::Tensor& offsets,
+                       const at::Tensor& pos, const at::Tensor& ents, const at::Tensor& ent_rows,
+                       const at::Tensor& node_offsets, const at::Tensor& node_rows,
+                       const at::Tensor& x, const std::optional<at::Tensor>& fixmask,
+                       bool identity, bool negate) {
+  const at::Tensor* ints[7] = {&elnodes_t, &offsets, &pos, &ents, &ent_rows, &node_offsets,
+                               &node_rows};
+  bool ok = packed.is_cuda() && x.device() == packed.device() &&
+            (!fixmask || fixmask->device() == packed.device());
+  for (const at::Tensor* t : ints)
+    ok = ok && t->device() == packed.device() && t->scalar_type() == at::kInt &&
+         t->is_contiguous();
+  TORCH_CHECK(ok, "khat_matmat: all tensors must be on one CUDA device, the tables int32 and "
+              "contiguous");
   TORCH_CHECK(x.scalar_type() == packed.scalar_type() &&
                   (!fixmask || fixmask->scalar_type() == packed.scalar_type()),
               "khat_matmat: packed, x and fixmask differ in dtype");
-  TORCH_CHECK(elnodes_t.scalar_type() == at::kInt && offsets.scalar_type() == at::kInt &&
-                  pos.scalar_type() == at::kInt,
-              "khat_matmat: elnodes_t, offsets and pos must be int32");
   const long long tile = static_cast<long long>(1024 / packed.element_size());
   const long long ne = elnodes_t.dim() == 2 ? elnodes_t.size(1) : -1;
   const long long nn = offsets.dim() == 1 ? offsets.size(0) - 1 : -1;
   const long long ntiles = packed.dim() == 3 ? packed.size(0) : -1;
+  const long long rows = node_rows.dim() == 1 ? node_rows.size(0) : -1;
   const long long m = x.dim() == 2 ? x.size(1) : -1;
   TORCH_CHECK(packed.dim() == 3 && packed.size(1) == 465 && packed.size(2) == tile &&
-                  (ntiles - 1) * tile < ne && ne <= ntiles * tile && elnodes_t.size(0) == 10 &&
-                  nn >= 0 && pos.dim() == 1 && pos.size(0) == 10 * ne && x.dim() == 2 &&
-                  x.size(0) == 3 * nn && m >= 1 && m <= 0x7fffffffLL &&
-                  (!fixmask || (fixmask->dim() == 1 && fixmask->size(0) == 3 * nn)) &&
+                  packed.is_contiguous() && (ntiles - 1) * tile < ne && ne <= ntiles * tile &&
+                  elnodes_t.size(0) == 10 && nn >= 0 && pos.dim() == 1 &&
+                  pos.size(0) == 10 * ne && ents.dim() == 1 && ents.size(0) == 10 * ne &&
+                  ent_rows.dim() == 1 && ent_rows.size(0) == 10 * ne &&
+                  node_offsets.dim() == 1 && node_offsets.size(0) == nn + 1 && rows >= 0 &&
+                  rows <= 10 * ne && x.dim() == 2 && x.size(0) == 3 * nn && m >= 1 &&
+                  m <= 0x7fffffffLL && x.is_contiguous() &&
+                  (!fixmask || (fixmask->dim() == 1 && fixmask->size(0) == 3 * nn &&
+                                fixmask->is_contiguous())) &&
                   30 * ne <= 0x7fffffffLL,
               "khat_matmat: expected packed (ntiles, 465, 1024 / itemsize) covering ne "
-              "elements, elnodes_t (10, ne), offsets (nn + 1), pos (10 ne), x (3 nn, m) with "
-              "m >= 1, fixmask (3 nn), 30 ne < 2^31");
-  TORCH_CHECK(packed.is_contiguous() && elnodes_t.is_contiguous() && offsets.is_contiguous() &&
-                  pos.is_contiguous() && x.is_contiguous() &&
-                  (!fixmask || fixmask->is_contiguous()) &&
-                  reinterpret_cast<uintptr_t>(packed.data_ptr()) % 16 == 0,
-              "khat_matmat: inputs must be contiguous, packed 16-byte aligned");
+              "elements, elnodes_t (10, ne), offsets and node_offsets (nn + 1), pos, ents and "
+              "ent_rows (10 ne), node_rows (R <= 10 ne), x (3 nn, m) with m >= 1, fixmask "
+              "(3 nn), all contiguous, 30 ne < 2^31");
+  const long long nbytes = fcvm_khat_matmat_map_bytes();
+  TORCH_CHECK(map.is_cpu() && map.scalar_type() == at::kByte && map.numel() == nbytes + 16 &&
+                  map.is_contiguous(),
+              "khat_matmat: map must be the copy's khat_matmat_map");
+  const auto* tail = reinterpret_cast<const int64_t*>(map.data_ptr<uint8_t>() + nbytes);
+  TORCH_CHECK(tail[0] == static_cast<int64_t>(reinterpret_cast<uintptr_t>(packed.data_ptr())) &&
+                  tail[1] == ntiles,
+              "khat_matmat: map encodes another packed copy than the one given");
   const c10::cuda::CUDAGuard guard(packed.device());
-  at::Tensor fe = at::empty({30, ne, m}, x.options());
+  const long long fe_rows = fcvm_khat_matmat_rows(static_cast<int>(packed.element_size()),
+                                                  static_cast<int>(m), ne, rows);
+  at::Tensor fe = at::empty({fe_rows, 3, m}, x.options());
   at::Tensor y = at::empty_like(x);
   void* stream = c10::cuda::getCurrentCUDAStream().stream();
-  const int* tables[3] = {elnodes_t.data_ptr<int>(), offsets.data_ptr<int>(),
-                          pos.data_ptr<int>()};
+  const int* tab[7];
+  for (int i = 0; i < 7; ++i) tab[i] = ints[i]->data_ptr<int>();
   const int form = !fixmask ? 0 : identity ? 2 : 1;
   int err = 0;
-  switch (packed.scalar_type()) {
-    case at::kFloat:
-      err = fcvm_khat_matmat_f32(packed.data_ptr<float>(), tables[0], tables[1], tables[2],
-                                 x.data_ptr<float>(),
-                                 fixmask ? fixmask->data_ptr<float>() : nullptr,
-                                 fe.data_ptr<float>(), y.data_ptr<float>(), ne, nn, ntiles,
-                                 static_cast<int>(m), form, negate, stream);
-      break;
-    case at::kDouble:
-      err = fcvm_khat_matmat_f64(packed.data_ptr<double>(), tables[0], tables[1], tables[2],
-                                 x.data_ptr<double>(),
-                                 fixmask ? fixmask->data_ptr<double>() : nullptr,
-                                 fe.data_ptr<double>(), y.data_ptr<double>(), ne, nn, ntiles,
-                                 static_cast<int>(m), form, negate, stream);
-      break;
-    default:
-      TORCH_CHECK(false, "khat_matmat: dtype must be float32 or float64, got ",
-                  packed.scalar_type());
-  }
+  if (packed.scalar_type() == at::kFloat)
+    err = fcvm_khat_matmat_f32(map.data_ptr(), tab[0], tab[1], tab[2], tab[3], tab[4], tab[5],
+                               tab[6], x.data_ptr<float>(),
+                               fixmask ? fixmask->data_ptr<float>() : nullptr,
+                               fe.data_ptr<float>(), y.data_ptr<float>(), ne, nn,
+                               static_cast<int>(m), form, negate, stream);
+  else
+    err = fcvm_khat_matmat_f64(map.data_ptr(), tab[0], tab[1], tab[2], tab[3], tab[4], tab[5],
+                               tab[6], x.data_ptr<double>(),
+                               fixmask ? fixmask->data_ptr<double>() : nullptr,
+                               fe.data_ptr<double>(), y.data_ptr<double>(), ne, nn,
+                               static_cast<int>(m), form, negate, stream);
   TORCH_CHECK(err == 0, "khat_matmat: kernel launch failed: ",
               cudaGetErrorString(static_cast<cudaError_t>(err)));
   return y;
@@ -565,7 +616,9 @@ TORCH_LIBRARY(fcvm, m) {
   m.def("block_matmat(Tensor esm_t, Tensor ue) -> Tensor");
   m.def("khat_matvec(Tensor packed, Tensor elnodes_t, Tensor offsets, Tensor pos, Tensor x, "
         "Tensor? fixmask) -> Tensor");
-  m.def("khat_matmat(Tensor packed, Tensor elnodes_t, Tensor offsets, Tensor pos, Tensor x, "
+  m.def("khat_matmat_map(Tensor packed) -> Tensor");
+  m.def("khat_matmat(Tensor packed, Tensor map, Tensor elnodes_t, Tensor offsets, Tensor pos, "
+        "Tensor ents, Tensor ent_rows, Tensor node_offsets, Tensor node_rows, Tensor x, "
         "Tensor? fixmask, bool identity, bool negate) -> Tensor");
   m.def("segment_sum(Tensor vals, Tensor order, Tensor walk, Tensor? holes, Tensor(a!) out, "
         "int nlong, bool write) -> ()");
@@ -581,6 +634,7 @@ TORCH_LIBRARY_IMPL(fcvm, CUDA, m) {
   m.impl("block_matvec", &block_matvec);
   m.impl("block_matmat", &block_matmat);
   m.impl("khat_matvec", &khat_matvec);
+  m.impl("khat_matmat_map", &khat_matmat_map);
   m.impl("khat_matmat", &khat_matmat);
   m.impl("two_level_apply", &two_level_apply);
   m.impl("two_level_apply_block", &two_level_apply_block);

@@ -81,4 +81,48 @@ __device__ __forceinline__ void block_sum(const T* ring, Ring bars, long long k0
   (one(std::integral_constant<int, kS>{}), ...);
 }
 
+// The same sums on kPer columns of one element (K1m): each packed entry
+// read once from shared memory feeds 2 kPer FMAs, and each column's sums
+// take the entries in packed order, as entry() does.
+template <int kI, int kJ, int kPer, typename T>
+__device__ __forceinline__ void entry_cols(T k, T (&y)[kPer][kDofs], const T (&u)[kPer][kDofs]) {
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) {
+    y[c][kI] = fma(k, u[c][kJ], y[c][kI]);
+    if constexpr (kI != kJ) y[c][kJ] = fma(k, u[c][kI], y[c][kJ]);
+  }
+}
+
+template <int kS, int kStride, int kPer, typename T, int... kR>
+__device__ __forceinline__ void stage_sum_cols(const T* slot, T (&y)[kPer][kDofs],
+                                               const T (&u)[kPer][kDofs],
+                                               std::integer_sequence<int, kR...>) {
+  (entry_cols<entry_row(kS * kRows + kR), entry_col(kS * kRows + kR), kPer>(
+       slot[kR * kStride], y, u),
+   ...);
+}
+
+// block_sum on kPer columns, a slot kSlotVals values whose entry r of this
+// thread's element sits at slot[lane + r kStride]; the slots are released
+// only where `release` (K1m walks a resident sub-tile once for each chunk
+// of columns and releases it after the last).
+template <int kStride, int kSlotVals, int kSlots, int kPer, typename T, int... kS>
+__device__ __forceinline__ void block_sum_cols(const T* ring, Ring bars, long long k0, int lane,
+                                               T (&y)[kPer][kDofs], const T (&u)[kPer][kDofs],
+                                               bool release, std::integer_sequence<int, kS...>) {
+  const auto one = [&](auto stage) {
+    constexpr int s = decltype(stage)::value;
+    const long long k = k0 + s;
+    const int slot = static_cast<int>(k % kSlots);
+    fcvm_bulk::mbar_wait(bars.full + slot, static_cast<uint32_t>((k / kSlots) & 1));
+    stage_sum_cols<s, kStride, kPer>(ring + slot * kSlotVals + lane, y, u,
+                                     std::make_integer_sequence<int, kRows>{});
+    if (release) {
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) fcvm_bulk::mbar_arrive(bars.empty + slot);
+    }
+  };
+  (one(std::integral_constant<int, kS>{}), ...);
+}
+
 }  // namespace fcvm_packed

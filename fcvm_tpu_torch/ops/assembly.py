@@ -194,7 +194,9 @@ def node_incidence(elnodes: torch.Tensor, nn: int) -> kernels.NodeIncidence:
     :func:`~fcvm_tpu_torch.ops.kernels.segment_plan` of ``elnodes`` (the
     JAX package's ``ScatterPlan`` semantics) with a row for every node and
     ``pos`` each incidence's offset ``3 slot ne + e`` into K1's element
-    output (30, ne).  Built once per element numbering."""
+    output (30, ne); on the card also K1m's compacted tables
+    (:func:`~fcvm_tpu_torch.ops.kernels.k1m_tables`).  Built once per
+    element numbering."""
     ne = elnodes.shape[0]
     if 30 * ne >= 2**31:
         raise ValueError(f"node_incidence: {ne} elements; K1's int32 offsets need 30 ne < 2^31")
@@ -204,10 +206,13 @@ def node_incidence(elnodes: torch.Tensor, nn: int) -> kernels.NodeIncidence:
     counts = torch.zeros(nn + 1, dtype=torch.int32, device=elnodes.device)
     counts[plan.segs.long() + 1] = plan.offsets[1:] - plan.offsets[:-1]
     order = plan.order.long()
-    return kernels.NodeIncidence(
+    inc = kernels.NodeIncidence(
         elnodes.T.contiguous().to(torch.int32),
         torch.cumsum(counts, 0, dtype=torch.int32),
         (3 * (order % 10) * ne + order // 10).to(torch.int32))
+    if elnodes.device.type == "cpu":
+        return inc
+    return inc._replace(k1m=kernels.k1m_tables(inc))
 
 
 def _incidence(eldofs, ndof, incidence):
@@ -268,16 +273,19 @@ def make_multi_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask,
     through the masks), and then ``incidence`` must be given.
     ``incidence`` and on the card ``packed`` as in :func:`make_matvec`,
     made here when not given.  A block that is not dense (a column slice)
-    is copied first."""
+    is copied first.  On the card K1m's plan (its tables and the blocks'
+    tensor map, :func:`~fcvm_tpu_torch.ops.kernels.khat_matmat_plan`) is
+    made here, once."""
     if fixmask is None and incidence is None:
         raise ValueError("make_multi_matvec: the raw form needs the incidence table (its "
                          "node count)")
     inc = _incidence(eldofs, None if fixmask is None else fixmask.shape[0], incidence)
     blocks = _blocks(esm_t, packed)
+    plan = kernels.khat_matmat_plan(blocks, inc, fixmask)
 
     def mv(u):
         return kernels.khat_matmat(blocks, inc, u.contiguous(), fixmask, identity_on_fixed,
-                                   negate)
+                                   negate, plan)
 
     return mv
 

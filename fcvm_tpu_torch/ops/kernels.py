@@ -16,7 +16,10 @@
   the raw K·V), replaces the XLA-lowered
   ``fcvm_tpu/runtime/buckling.py::_multi_matvec`` and
   ``fcvm_tpu/ops/deflation.py::block_khat_matvec``; source
-  ``csrc/khat_matmat.cu``, on K1's packed blocks and incidence table.
+  ``csrc/khat_matmat.cu``, on K1's packed blocks and incidence table and
+  its own compacted tables (:func:`k1m_tables`, read where its element
+  pass takes the collapse layout), its tensor maps made once per operator
+  (:func:`khat_matmat_plan`).
 * K8 :func:`segment_sum`, the fixed-order segment sum of a
   :class:`SegmentPlan`, replaces the node reductions of the JAX package
   (``fcvm_tpu/ops/assembly.py::scatter_node_rows`` with its
@@ -217,9 +220,38 @@ block_matmat.launches = 0
 block_matmat.shapes = Counter()  # launches by (dtype name, m)
 
 
+class K1mTables(NamedTuple):
+    """K1m's int32 tables of one element numbering (built by
+    :func:`k1m_tables`): the element pass in its collapse layout (float32
+    from 5 columns) writes compacted rows, and its node pass sums them.
+
+    An incidence is an (element, slot) of K1's table, each node's in
+    ascending element order.  The elements fall in sub-tiles of
+    ``K1M_SUB``.  A node's incidences in the sub-tile of its first one make
+    one row, its partial: their sum from 0 in table order, which is K1's
+    running sum after them, bit for bit.  Every later incidence is a row of
+    its own.  Rows are numbered sub-tile by sub-tile, in each by their first
+    incidence, so sub-tile ``b``'s incidences are entries ``10 K1M_SUB b``
+    onwards.
+
+    Fields:
+      ents: (10 ne,) the incidences row by row, each row's in table order,
+        as ``10 (e mod K1M_SUB) + slot`` in their sub-tile.
+      ent_rows: (10 ne,) each entry's row, ascending.
+      node_offsets: (nn + 1,) each node's first entry of ``node_rows``.
+      node_rows: (R,) each node's rows, its partial first, then its later
+        incidences in table order.
+    """
+
+    ents: torch.Tensor
+    ent_rows: torch.Tensor
+    node_offsets: torch.Tensor
+    node_rows: torch.Tensor
+
+
 class NodeIncidence(NamedTuple):
     """K1's int32 tables of one element numbering (built by
-    :func:`fcvm_tpu_torch.ops.assembly.node_incidence`).
+    :func:`fcvm_tpu_torch.ops.assembly.node_incidence`), and K1m's.
 
     Fields:
       elnodes_t: (10, ne) element node ids, element-major.
@@ -227,11 +259,43 @@ class NodeIncidence(NamedTuple):
       pos: (10 ne,) each incidence's offset ``3 slot ne + e`` into K1's
         element output (30, ne), the node's incidences in ascending
         element order.
+      k1m: K1m's :class:`K1mTables` of the same numbering, made with the
+        others on the card (None on the CPU, whose plain version needs
+        none).
     """
 
     elnodes_t: torch.Tensor
     offsets: torch.Tensor
     pos: torch.Tensor
+    k1m: K1mTables | None = None
+
+
+K1M_SUB = 32  # elements a sub-tile of K1m's element pass: kSub of csrc/khat_matmat.cu
+
+
+def k1m_tables(inc: NodeIncidence, sub: int = K1M_SUB) -> K1mTables:
+    """K1m's :class:`K1mTables` of ``inc``'s numbering at sub-tiles of
+    ``sub`` elements (the kernel's ``K1M_SUB``; another size is a probe's),
+    on ``inc``'s device: a few sorts, once per element numbering."""
+    ne, nn, dev = inc.elnodes_t.shape[1], inc.offsets.shape[0] - 1, inc.pos.device
+    offsets, pos = inc.offsets.long(), inc.pos.long()
+    e, slot = pos % max(ne, 1), pos // max(3 * ne, 1)
+    k = 10 * e + slot  # the incidence's element-major id: a node's table order is k's
+    node = torch.repeat_interleave(torch.arange(nn, device=dev), offsets[1:] - offsets[:-1])
+    first = offsets[:-1][node]  # the table position of the node's first incidence
+    s = e // sub
+    # the row of each incidence, named by its first incidence's k
+    key = torch.where(s == s[first], k[first], k)
+    keys, row = torch.unique(key, sorted=True, return_inverse=True)
+    nrows = keys.shape[0]
+    order = torch.argsort(row * (10 * ne) + k)
+    row_node = torch.zeros(nrows, dtype=torch.int64, device=dev).scatter_(0, row, node)
+    node_offsets = torch.zeros(nn + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(row_node, minlength=nn), 0, out=node_offsets[1:])
+    # a node's rows by their first incidence: the partial's is the node's first
+    node_rows = torch.argsort(row_node * (10 * ne) + keys)
+    return K1mTables(*(t.to(torch.int32) for t in ((10 * (e % sub) + slot)[order], row[order],
+                                                    node_offsets, node_rows)))
 
 
 # K1's packed blocks: the upper triangle i <= j of each 30x30 block, row by
@@ -354,21 +418,22 @@ khat_matvec.dtypes = Counter()  # launches by dtype name
 
 def _k1_on_cpu(name, blocks, inc, u, fixmask) -> bool:
     """Check the devices, dtypes and blocks of K1's or K1m's inputs (their
-    shapes checked by the caller): True for CPU tensors, which take the
-    full blocks; False for one CUDA device, whose kernel takes the packed
-    copy, every input dense."""
+    shapes checked by the caller; ``u`` None for an operator's): True for
+    CPU tensors, which take the full blocks; False for one CUDA device,
+    whose kernel takes the packed copy, every input dense."""
     ne = inc.elnodes_t.shape[1]
-    tensors = (blocks, u, *inc) + (() if fixmask is None else (fixmask,))
+    tensors = (blocks, *inc[:3]) + (() if u is None else (u,)) + (
+        () if fixmask is None else (fixmask,))
     cpu = all(t.device.type == "cpu" for t in tensors)
     if not cpu and (blocks.device.type != "cuda"
                     or any(t.device != blocks.device for t in tensors)):
         raise ValueError(f"{name}: tensors on several devices; expected all on the CPU or all "
                          "on one CUDA device")
-    if (blocks.dtype not in PACK_TILE or u.dtype != blocks.dtype
+    if (blocks.dtype not in PACK_TILE or (u is not None and u.dtype != blocks.dtype)
             or (fixmask is not None and fixmask.dtype != blocks.dtype)):
-        raise TypeError(f"{name}: dtypes {blocks.dtype}/{u.dtype}; expected float32 or float64 "
-                        "throughout")
-    if any(t.dtype != torch.int32 for t in inc):
+        raise TypeError(f"{name}: dtypes {blocks.dtype}/{None if u is None else u.dtype}; "
+                        "expected float32 or float64 throughout")
+    if any(t.dtype != torch.int32 for t in inc[:3]):
         raise TypeError(f"{name}: the incidence tables must be int32")
     if cpu:
         if blocks.shape != (30, 30, ne):
@@ -411,8 +476,56 @@ def khat_matmat_packed_ref(packed: torch.Tensor, inc: NodeIncidence, u: torch.Te
                            identity_on_fixed, negate)
 
 
+class K1mPlan(NamedTuple):
+    """What K1m reads on the card for one operator, checked and made once
+    (:func:`khat_matmat_plan`): the packed blocks and their TMA tensor maps
+    (bytes on the CPU), K1's tables, K1m's tables, the mask, and the
+    operator's dof count."""
+
+    packed: torch.Tensor
+    map: torch.Tensor
+    inc: NodeIncidence
+    tables: K1mTables
+    fixmask: torch.Tensor | None
+    ndof: int
+
+
+def _check_shapes(name, inc, u, fixmask):
+    ne = inc.elnodes_t.shape[1] if inc.elnodes_t.dim() == 2 else -1
+    nn = inc.offsets.shape[0] - 1
+    if (inc.elnodes_t.shape != (10, ne) or inc.pos.shape != (10 * ne,)
+            or (u is not None and (u.dim() != 2 or u.shape[0] != 3 * nn))
+            or (fixmask is not None and fixmask.shape != (3 * nn,))):
+        raise ValueError(
+            f"{name}: elnodes_t {tuple(inc.elnodes_t.shape)}, {nn} nodes, pos "
+            f"{tuple(inc.pos.shape)}, u {None if u is None else tuple(u.shape)}; expected "
+            "(10, ne), (10 ne,), (3 nn, m) and a (3 nn,) fixmask")
+
+
+def khat_matmat_plan(blocks: torch.Tensor, inc: NodeIncidence, fixmask=None):
+    """K1m's :class:`K1mPlan` of one operator (the arguments as in
+    :func:`khat_matmat`), checked once: ``inc.k1m`` (made here when None)
+    and the tensor maps of the packed blocks, which a call would otherwise
+    encode again.  None for CPU tensors, whose plain version needs none.
+    The plan keeps the blocks alive; it serves every width."""
+    _check_shapes("khat_matmat", inc, None, fixmask)
+    if _k1_on_cpu("khat_matmat", blocks, inc, None, fixmask):
+        return None
+    tables = inc.k1m if inc.k1m is not None else k1m_tables(inc)
+    ne, nn, rows = inc.elnodes_t.shape[1], inc.offsets.shape[0] - 1, tables.node_rows.shape[0]
+    want = {"ents": 10 * ne, "ent_rows": 10 * ne, "node_offsets": nn + 1, "node_rows": rows}
+    for field, t in zip(K1mTables._fields, tables):
+        if (t.shape != (want[field],) or t.dtype != torch.int32 or t.device != blocks.device
+                or not t.is_contiguous()):
+            raise ValueError(f"khat_matmat: K1m table {field} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}; expected ({want[field]},) int32 on {blocks.device}")
+    build()
+    return K1mPlan(blocks, torch.ops.fcvm.khat_matmat_map(blocks), inc, tables, fixmask, 3 * nn)
+
+
 def khat_matmat(blocks: torch.Tensor, inc: NodeIncidence, u: torch.Tensor, fixmask=None,
-                identity_on_fixed: bool = True, negate: bool = False) -> torch.Tensor:
+                identity_on_fixed: bool = True, negate: bool = False,
+                plan: K1mPlan | None = None) -> torch.Tensor:
     """K1m: K1 on the m columns of a block (design and bound at the top of
     ``csrc/khat_matmat.cu``):
 
@@ -429,28 +542,35 @@ def khat_matmat(blocks: torch.Tensor, inc: NodeIncidence, u: torch.Tensor, fixma
       inc: the element numbering's :class:`NodeIncidence` over ``nn`` nodes.
       u: (3 nn, m) block, row-major (a column slice is not: make it dense).
       fixmask: (3 nn,) 1 on free dofs, 0 on fixed ones, or None.
+      plan: on the card, :func:`khat_matmat_plan` of the same ``blocks``,
+        ``inc`` and ``fixmask`` (the same tensors: a plan of others
+        raises), made once per operator: a call then checks only ``u``.
+        Without it each call makes one.
 
     Returns:
       (3 nn, m).  CPU tensors take the plain version; CUDA tensors launch
       the kernels (``khat_matmat.launches`` counts those calls, by dtype and
-      m in ``khat_matmat.shapes``), whose sums run in a fixed order: two
-      calls on the same inputs give the same bits.
+      m in ``khat_matmat.shapes``), whose sums run in a fixed order: each
+      column has K1's bits, and two calls on the same inputs give the same
+      bits.
     """
-    ne = inc.elnodes_t.shape[1] if inc.elnodes_t.dim() == 2 else -1
-    nn = inc.offsets.shape[0] - 1
-    if (inc.elnodes_t.shape != (10, ne) or inc.pos.shape != (10 * ne,) or u.dim() != 2
-            or u.shape[0] != 3 * nn or (fixmask is not None and fixmask.shape != (3 * nn,))):
-        raise ValueError(
-            f"khat_matmat: elnodes_t {tuple(inc.elnodes_t.shape)}, {nn} nodes, pos "
-            f"{tuple(inc.pos.shape)}, u {tuple(u.shape)}; expected (10, ne), (10 ne,), "
-            "(3 nn, m) and a (3 nn,) fixmask")
-    if _k1_on_cpu("khat_matmat", blocks, inc, u, fixmask):
-        return khat_matmat_ref(blocks, inc, u, fixmask, identity_on_fixed, negate)
+    if plan is None:
+        _check_shapes("khat_matmat", inc, u, fixmask)
+        if _k1_on_cpu("khat_matmat", blocks, inc, u, fixmask):
+            return khat_matmat_ref(blocks, inc, u, fixmask, identity_on_fixed, negate)
+        plan = khat_matmat_plan(blocks, inc, fixmask)
+    elif (plan.packed is not blocks or plan.inc.elnodes_t is not inc.elnodes_t
+          or plan.fixmask is not fixmask):
+        raise ValueError("khat_matmat: the plan was made for other blocks, incidence tables or "
+                         "fixmask than the ones given")
+    elif (u.dim() != 2 or u.shape[0] != plan.ndof or u.dtype != plan.packed.dtype
+          or u.device != plan.packed.device or not u.is_contiguous()):
+        raise ValueError(f"khat_matmat: u {tuple(u.shape)} {u.dtype} on {u.device}; expected a "
+                         f"dense ({plan.ndof}, m) {plan.packed.dtype} on {plan.packed.device}")
     if u.shape[1] == 0:
         return torch.empty_like(u)
-    build()
-    out = torch.ops.fcvm.khat_matmat(blocks, inc.elnodes_t, inc.offsets, inc.pos, u, fixmask,
-                                     identity_on_fixed, negate)
+    out = torch.ops.fcvm.khat_matmat(plan.packed, plan.map, *plan.inc[:3], *plan.tables, u,
+                                     plan.fixmask, identity_on_fixed, negate)
     khat_matmat.launches += 1
     khat_matmat.shapes[(_dtype_name(u), u.shape[1])] += 1
     return out

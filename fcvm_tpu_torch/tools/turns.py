@@ -12,6 +12,8 @@ process of its own):
                                                        # memory) and 9b (its pieces)
     python fcvm_tpu_torch/tools/turns.py TREE smoother # phase 11 (stepping, the counts, lbd's
                                                        # bits; the two-level build and its split)
+    python fcvm_tpu_torch/tools/turns.py TREE blocks   # phase 3d alone: K1m and K4m at the
+                                                       # paths' widths, cuSPARSE beside K1m
 
 ``TREE`` is the root of a checkout (``.`` for this one, or a ``git archive``
 of another commit unpacked in a directory that ``.gitignore`` lists); its
@@ -43,6 +45,12 @@ from pathlib import Path
 from types import SimpleNamespace
 
 HERE = Path(__file__).resolve().parents[2]
+
+
+def block_rows(smoke, models) -> list:
+    """Phase 3d's K1m and K4m rows on ``models``, one dict a row."""
+    return [{"kernel": k, "dtype": dt, "model": mo, "variant": v, "m": m, **row}
+            for (k, dt, mo, v, m), row in smoke.block_kernel_phase(models).items()]
 
 
 def main(tree: str, part: str) -> dict:
@@ -102,9 +110,13 @@ def main(tree: str, part: str) -> dict:
             out["k8"] = [{"dtype": dt, "model": m, "site": site, **row}
                          for (dt, m, site), row in smoke.k8_phase(models).items()]
             if blocks:
-                out["k1m_k4m"] = [
-                    {"kernel": k, "dtype": dt, "model": mo, "variant": v, "m": m, **row}
-                    for (k, dt, mo, v, m), row in smoke.block_kernel_phase(models).items()]
+                out["k1m_k4m"] = block_rows(smoke, models)
+    elif part == "blocks":
+        if not blocks:
+            raise SystemExit("turns.py: this tree has no K1m and K4m")
+        out["k1m_k4m"] = block_rows(smoke, {
+            "plate": smoke.plate_model(smoke.PLATE_BIG),
+            "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)})
     elif part == "cg":
         spec = importlib.util.spec_from_file_location(
             "tree_smoke", Path(tree).resolve() / "chip_smoke.py")

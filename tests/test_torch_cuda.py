@@ -365,6 +365,32 @@ def test_khat_matmat_on_one_column_is_khat_matvec(cuda, dtype, form):
                        kernels.khat_matvec(packed, inc, u[:, 0].contiguous(), fm))
 
 
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("form", ["masked", "raw"])
+@pytest.mark.parametrize("size,m", K1M_SHAPES, ids=[f"{s}-m{m}" for s, m in K1M_SHAPES])
+def test_khat_matmat_is_khat_matvec_column_by_column(cuda, dtype, form, size, m):
+    """K1m at every width of K1M_SHAPES gives, in each column, K1's bits on
+    that column: each element's entries in packed order, each node's
+    partial of its first sub-tile and then its later rows, the adds of K1's
+    node sum in K1's order; through the operator's plan, as the paths call
+    it, and without it."""
+    esm_t, packed, inc, fm = _k1m_operator(size, dtype)
+    fm = fm if form == "masked" else None
+    gen = torch.Generator(device="cuda").manual_seed(100 + m)
+    u = torch.randn((3 * (inc.offsets.shape[0] - 1), m), generator=gen, device="cuda",
+                    dtype=dtype)
+    plan = kernels.khat_matmat_plan(packed, inc, fm)
+    out = kernels.khat_matmat(packed, inc, u, fm, plan=plan)
+    assert torch.equal(_bits(kernels.khat_matmat(packed, inc, u, fm)), _bits(out))
+    for c in range(m):
+        col = kernels.khat_matvec(packed, inc, u[:, c].contiguous(), fm)
+        assert torch.equal(_bits(out[:, c].contiguous()), _bits(col)), c
+
+
 def test_khat_matmat_rejects_what_it_does_not_take(cuda):
     esm_t, packed, inc, u, fm = _random_operator(50, 120, torch.float32, seed=3)
     v = torch.stack([u, u, u], dim=1)
@@ -388,6 +414,32 @@ def test_khat_matmat_rejects_what_it_does_not_take(cuda):
     op = tasm.make_multi_matvec(esm_t, tasm.element_dof_ids(inc.elnodes_t.T.long()), fm,
                                 incidence=inc, packed=packed)
     assert torch.equal(op(v[:, 1:]), op(v[:, 1:].contiguous()))
+
+
+def test_khat_matmat_plan_is_held_to_its_operator(cuda):
+    """A plan serves only the blocks, tables and mask it was made for, and
+    the op refuses tables of the wrong size and maps of another copy."""
+    esm_t, packed, inc, u, fm = _random_operator(50, 120, torch.float32, seed=3)
+    v = torch.stack([u, u, u], dim=1)
+    plan = kernels.khat_matmat_plan(packed, inc, fm)
+    with pytest.raises(ValueError):
+        kernels.khat_matmat(packed, inc, v, None, plan=plan)  # made with the mask
+    with pytest.raises(ValueError):
+        kernels.khat_matmat(packed.clone(), inc, v, fm, plan=plan)
+    with pytest.raises(ValueError):
+        kernels.khat_matmat(packed, inc._replace(elnodes_t=inc.elnodes_t.clone()), v, fm,
+                            plan=plan)
+    want = kernels.khat_matmat(packed, inc, v, fm, plan=plan)
+    tab = plan.tables
+    args = (*inc[:3], *tab, v, fm, True, False)
+    assert torch.equal(torch.ops.fcvm.khat_matmat(packed, plan.map, *args), want)
+    with pytest.raises(RuntimeError):  # the map of another copy
+        torch.ops.fcvm.khat_matmat(packed.clone(), plan.map, *args)
+    with pytest.raises(RuntimeError):  # a table cut short
+        torch.ops.fcvm.khat_matmat(packed, plan.map, *inc[:3], tab.ents[:-1], *tab[1:], v, fm,
+                                   True, False)
+    with pytest.raises(RuntimeError):  # a mask of the wrong size
+        torch.ops.fcvm.khat_matmat(packed, plan.map, *inc[:3], *tab, v, fm[:-3], True, False)
 
 
 def _random_precond(nn, cs, ncl, nm, dtype, seed):
