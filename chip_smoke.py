@@ -30,7 +30,11 @@ Phases, each printing its numbers before the next starts:
    blocks) on the plate's and the beam-column's operators and K4
    (``two_level_apply``, with block Jacobi and with the cluster smoother's
    output) on the plate's preconditioner, float32 and float64, against
-   their plain versions, K1 bit for bit the same on a second call; timed
+   their plain versions, each bit for bit the same on a second call; K4's
+   coarse product K4c alone (``coarse_product`` on a vector, on the packed
+   upper tiles of the coarse inverse) against its plain version and the build's dense
+   inverse (its asymmetry ``max |A - A^T| / max |A|``), timed against
+   ``torch.mv`` of the dense inverse, its bound the stored triangle; timed
    against their plain versions, against the chain K1 replaced (gather, K0,
    ``index_add_``, masks) and, for K1, against a cuSPARSE CSR matvec of the
    assembled K_hat (``torch.sparse``, built once here); the blocks'
@@ -51,7 +55,9 @@ Phases, each printing its numbers before the next starts:
    and K4m (``two_level_apply_block``, with block Jacobi and with the
    cluster smoother's output) on the beam-column's preconditioner at the
    widths of its block solves, float32 and float64, against their plain
-   versions and bit for bit against a second call (K1m: through its
+   versions and bit for bit against a second call, K4c alone
+   (``coarse_product`` on a block) at each width against its plain version and
+   ``torch.mm`` of the dense inverse (K1m: through its
    operator's plan, as the paths call it, and against a call that makes
    its own); K1m's share of compacted element rows on each mesh, and on the
    beam-column at m = 8 each column of K_hat·V and of the raw K·V K1's
@@ -73,9 +79,10 @@ Phases, each printing its numbers before the next starts:
    in a fixed order);
 6. layers: on the same plate, the CUDA-event time of each piece of one CG
    iteration (K_hat·v through K1 and the stages of the chain it replaced,
-   the preconditioner apply through K4 and its coarse product, the plain
-   apply) and of one residual, and torch.profiler's share of device time
-   per operation over one elastic solve;
+   the preconditioner apply through K4 and its coarse product K4c against
+   ``torch.mv`` of the dense inverse, the plain apply) and of one
+   residual, and torch.profiler's share of device time per operation over
+   one elastic solve;
 7. the same plate and steps with the default configuration (Ritz deflation,
    residual refinement and the float64 failover on): phase 5's checks, at
    least one deflation space built, and the ratios of stepping time and CG
@@ -391,6 +398,7 @@ def layer_breakdown(model, cfg):
     fe = kernels.block_matvec(esm_t, ue_t).reshape(-1)
     zc = torch.ones(pc.coarse_inv.shape[0], dtype=u.dtype, device=u.device)
     pc_args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, u)
+    mirrored = dense_coarse(pc.coarse_inv)  # the plain version's coarse inverse
     rows = [
         ("K_hat.v (K1)", cuda_ms(khat, u)),
         ("  K1, raw K.v", cuda_ms(kernels.khat_matvec, khat.packed, space.incidence, u)),
@@ -403,11 +411,13 @@ def layer_breakdown(model, cfg):
         ("preconditioner apply (K4)", cuda_ms(pc.apply, u)),
         ("  K4 alone", cuda_ms(kernels.two_level_apply, *pc_args)),
         ("preconditioner apply by the code K4 replaced (its plain version)",
-         cuda_ms(kernels.two_level_apply_ref, *pc_args)),
+         cuda_ms(kernels.two_level_apply_ref, pc.pinv, pc.qmat, mirrored, pc.fixmask, u)),
         ("  block Jacobi", cuda_ms(asm.apply_block_precond, pc.pinv, u)),
-        (f"  coarse GEMV ({zc.numel()})", cuda_ms(lambda: pc.coarse_inv @ zc)),
+        (f"  coarse product ({zc.numel()}), as K4 runs it", cuda_ms(pc.coarse, zc)
+         if hasattr(pc, "coarse") else cuda_ms(torch.mv, pc.coarse_inv, zc)),
+        ("  the same by torch.mv of the dense inverse", cuda_ms(torch.mv, mirrored, zc)),
     ]
-    del ue_t, fe
+    del ue_t, fe, mirrored
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = backend.solve(khat, pc, rhs, x0=backend.u_fix)
@@ -825,6 +835,89 @@ def assembled_khat(esm_t, eldofs, fm):
                                        (n, n)).coalesce().to_sparse_csr()
 
 
+def dense_coarse(coarse):
+    """The dense coarse inverse that a plain version or a library call
+    reads (``kernels.dense_coarse``: a packed copy's mirrored tiles); a
+    tree from before K4c keeps it dense."""
+    from fcvm_tpu_torch.ops import kernels
+
+    return kernels.dense_coarse(coarse) if hasattr(kernels, "dense_coarse") else coarse
+
+
+def built_coarse(be, esm, pc):
+    """The dense coarse inverse as the two-level build computes it before it
+    packs it: the coarse table of ``esm`` on pc's modes, inverted with the
+    ridge ladder; a tree from before K4c keeps it in pc as it is."""
+    from fcvm_tpu_torch.ops import kernels, precond
+
+    if not hasattr(kernels, "PackedCoarse"):
+        return pc.coarse_inv
+    sp = be.space
+    ncl = pc.coarse_inv.shape[0] // pc.qmat.shape[2]
+    kc = precond.coarse_accumulate(esm[sp.eperm], sp.elnodes_m, pc.qmat, pc.qmat.shape[0] // ncl)
+    return precond.invert_coarse_with_ladder(kc)
+
+
+def coarse_rows(be, esm, pc, dtype, tol, widths, vector, gen, label):
+    """K4c alone (``coarse_product`` on a vector when ``vector``, else on
+    blocks at each of ``widths``) on pc's packed coarse inverse,
+    against its plain version (the mirrored tiles' dense product) and,
+    timed, against the library call on the build's dense inverse
+    (``torch.mv`` / ``torch.mm``), bit for bit against a second call; its
+    bound counts the stored triangle, n (n + 1) / 2 values.  The dense
+    inverse's asymmetry ``max |A - A^T| / max |A|`` and the product's error
+    against it.  A tree from before K4c times its coarse product, cuBLAS's
+    on the dense inverse.  Returns ``{m: numbers}``."""
+    from fcvm_tpu_torch.ops import kernels
+
+    size = torch.finfo(dtype).bits // 8
+    ncf = pc.coarse_inv.shape[0]
+    dense = built_coarse(be, esm, pc)
+    asym = float((dense - dense.T).abs().max() / dense.abs().max())
+    new = hasattr(kernels, "PackedCoarse")
+    mirrored = dense_coarse(pc.coarse_inv)
+    same_pack = bool(torch.equal(kernels.pack_coarse(dense).tiles, pc.coarse_inv.tiles)) if new \
+        else None
+    rows = {}
+    for m in widths:
+        x = torch.randn((ncf,) if vector else (ncf, m), generator=gen, device="cuda", dtype=dtype)
+        lib = torch.mv if vector else torch.mm
+        fn, ref_fn = (kernels.coarse_product, kernels.coarse_product_ref) if new else (None, None)
+        if new:
+            out, again = fn(pc.coarse_inv, x), fn(pc.coarse_inv, x)
+        else:  # the tree's coarse product: cuBLAS on the dense inverse
+            out, again = lib(dense, x), lib(dense, x)
+        torch.cuda.synchronize()
+        plain, full = lib(mirrored, x), lib(dense, x)
+        abs_err = float((out - plain).abs().max())
+        rel = abs_err / float(plain.abs().max())
+        rel_dense = float((out - full).abs().max()) / float(full.abs().max())
+        same = bool(torch.equal(out, again))
+        del out, again, plain, full
+        row = dict(m=m, max_abs_err=abs_err, rel_err=rel, rel_err_vs_dense=rel_dense,
+                   coarse_asymmetry=asym, same_bits=same, packed_is_the_builds=same_pack,
+                   ms=cuda_ms(fn, pc.coarse_inv, x) if new else cuda_ms(lib, dense, x),
+                   plain_ms=cuda_ms(ref_fn, pc.coarse_inv, x) if new else None,
+                   library_ms=cuda_ms(lib, dense, x))
+        nbytes = (ncf * (ncf + 1) // 2 + 2 * ncf * m) * size
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * ncf * ncf * m, dtype)
+        print(f"K4c {label} m={m}: coarse {ncf}; max rel err {rel:.3e} against its plain "
+              f"version (limit {tol:g}), {rel_dense:.3e} against the build's dense inverse "
+              f"(its max |A - A^T| / max |A| {asym:.3e}; the packed copy the build's: "
+              f"{same_pack}), second call {'the same bits' if same else 'DIFFERENT BITS'}; "
+              f"{'K4c' if new else 'this tree: cuBLAS on the dense inverse'} {row['ms']:.4f} ms, "
+              f"{lib.__name__} of the dense inverse {row['library_ms']:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, the triangle), "
+              f"{row['bound_ms'] / row['ms']:.1%} of it; median of 20")
+        if new:
+            check(rel <= tol, f"K4c disagrees with its plain version ({label}, m={m})")
+            check(same, f"K4c gave other bits on a second call ({label}, m={m})")
+        rows[m] = row
+        del x
+    del dense, mirrored
+    return rows
+
+
 def cg_kernel_phase(models):
     """Phase 3c: K1 (masked and raw) on the operators of ``models`` (name ->
     model: the plate and the beam-column) and K4 (block Jacobi and the
@@ -904,40 +997,53 @@ def cg_kernel_phase(models):
                 torch.cuda.empty_cache()
                 continue
             r = torch.randn(be.ndof_pad, generator=gen, device="cuda", dtype=dtype)
+            coarse = None
             for fine in ("jacobi3", "cluster"):
                 be.cfg = FcvmConfig(device="cuda", dtype=dname, smoother=fine)
                 pc = be.make_pc(esm, pinv)
                 check((pc.smooth_inv is not None) == (fine == "cluster"),
                       f"phase 3c: the {fine} preconditioner was not built")
+                if coarse is None:  # K4c alone, on the coarse inverse of either build
+                    (coarse,) = coarse_rows(be, esm, pc, dtype, tol, (1,), True, gen,
+                                            f"{dname} {name}").values()
                 z_fine = None if fine == "jacobi3" else pc.fine(r)
                 args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, r, z_fine)
+                # the plain version on the mirrored tiles, unpacked once
+                ref_args = (pc.pinv, pc.qmat, dense_coarse(pc.coarse_inv), pc.fixmask, r, z_fine)
                 out = kernels.two_level_apply(*args)
                 again = kernels.two_level_apply(*args)
                 torch.cuda.synchronize()
-                ref = kernels.two_level_apply_ref(*args)
+                ref = kernels.two_level_apply_ref(*ref_args)
                 abs_err = float((out - ref).abs().max())
                 rel = abs_err / float(ref.abs().max())
                 same = bool(torch.equal(out, again))
                 nm, nn_cl, ncf = pc.qmat.shape[2], pc.qmat.shape[0], pc.coarse_inv.shape[0]
-                nbytes = (3 * nm * nn_cl + ncf * ncf + (9 if z_fine is None else 3) * nn
-                          + 9 * nn) * size
+                # the coarse inverse's stored triangle once, qmat twice, pinv
+                # (block Jacobi), r, the mask, z (and z_fine) once each
+                nbytes = (3 * nm * nn_cl + ncf * (ncf + 1) // 2
+                          + (9 if z_fine is None else 3) * nn + 9 * nn) * size
                 row = dict(max_abs_err=abs_err, ms=cuda_ms(kernels.two_level_apply, *args),
-                           plain_ms=cuda_ms(kernels.two_level_apply_ref, *args),
+                           plain_ms=cuda_ms(kernels.two_level_apply_ref, *ref_args),
                            apply_ms=cuda_ms(pc.apply, r), library_ms=None,
-                           gemv_ms=cuda_ms(torch.mv, pc.coarse_inv, r[:ncf].contiguous()))
+                           coarse_ms=coarse["ms"], coarse_library_ms=coarse["library_ms"],
+                           coarse_bound_ms=coarse["bound_ms"],
+                           coarse_asymmetry=coarse["coarse_asymmetry"],
+                           coarse_rel_err_vs_dense=coarse["rel_err_vs_dense"])
                 row["bound_ms"], row["bound_by"] = bound(
                     nbytes, 2 * ncf * ncf + 12 * nm * nn + 18 * nn, dtype)
                 print(f"K4 {dname} {name} {fine}: coarse {ncf} = {nm} x {ncf // nm} clusters of "
                       f"{nn_cl // (ncf // nm)} nodes; max rel err {rel:.3e} (limit {tol:g}), "
-                      f"second call {'the same bits' if same else 'other bits'}; kernel "
-                      f"{row['ms']:.4f} ms (its coarse GEMV alone {row['gemv_ms']:.4f} ms), "
+                      f"second call {'the same bits' if same else 'DIFFERENT BITS'}; kernel "
+                      f"{row['ms']:.4f} ms (its coarse product alone {row['coarse_ms']:.4f} ms, "
+                      f"torch.mv of the dense inverse {row['coarse_library_ms']:.4f} ms), "
                       f"plain {row['plain_ms']:.4f} ms, the whole apply (with the fine level) "
                       f"{row['apply_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
-                      f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of it; median "
-                      "of 20")
+                      f"({row['bound_by']}, the stored triangle), "
+                      f"{row['bound_ms'] / row['ms']:.1%} of it; median of 20")
                 check(rel <= tol, f"K4 disagrees with its plain version ({dname}, {fine})")
+                check(same, f"K4 gave other bits on a second call ({dname}, {fine})")
                 rows[("two_level_apply", dname, name, fine)] = dict(nn=nn, **row)
-                del pc, out, again, ref, args, z_fine
+                del pc, out, again, ref, args, ref_args, z_fine
             del be, esm, pinv, esm_t, r
             torch.cuda.empty_cache()
     return rows
@@ -1085,51 +1191,64 @@ def block_kernel_phase(models):
                 del be, esm, pinv, esm_t
                 torch.cuda.empty_cache()
                 continue
+            coarse = None
             for fine in ("jacobi3", "cluster"):
                 be.cfg = FcvmConfig(device="cuda", dtype=dname, smoother=fine)
                 pc = be.make_pc(esm, pinv)
                 check((pc.smooth_inv is not None) == (fine == "cluster"),
                       f"phase 3d: the {fine} preconditioner was not built")
+                if coarse is None:  # K4c alone at each width
+                    coarse = coarse_rows(be, esm, pc, dtype, tol, K4M_WIDTHS, False, gen,
+                                         f"{dname} {name}")
                 nm, nn_cl, ncf = pc.qmat.shape[2], pc.qmat.shape[0], pc.coarse_inv.shape[0]
+                mirrored = dense_coarse(pc.coarse_inv)  # the plain version's, unpacked once
                 for m in K4M_WIDTHS:
                     r = torch.randn((be.ndof_pad, m), generator=gen, device="cuda", dtype=dtype)
                     z_fine = None if fine == "jacobi3" else pc.fine(r)
                     args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, r, z_fine)
+                    ref_args = (pc.pinv, pc.qmat, mirrored, pc.fixmask, r, z_fine)
                     out = kernels.two_level_apply_block(*args)
                     again = kernels.two_level_apply_block(*args)
                     torch.cuda.synchronize()
-                    ref = kernels.two_level_apply_block_ref(*args)
+                    ref = kernels.two_level_apply_block_ref(*ref_args)
                     abs_err = float((out - ref).abs().max())
                     rel = abs_err / float(ref.abs().max())
                     same = bool(torch.equal(out, again))
                     del out, again, ref
-                    # coarse_inv once, qmat twice, pinv (block Jacobi), the mask,
-                    # r and z (and z_fine) once each
-                    nbytes = (ncf * ncf + 6 * nm * nn_cl + (9 * nn if z_fine is None else 0)
+                    # the coarse inverse's stored triangle once, qmat twice, pinv
+                    # (block Jacobi), the mask, r and z (and z_fine) once each
+                    nbytes = (ncf * (ncf + 1) // 2 + 6 * nm * nn_cl
+                              + (9 * nn if z_fine is None else 0)
                               + 3 * nn + (2 if z_fine is None else 3) * 3 * nn * m) * size
                     row = dict(max_abs_err=abs_err,
                                ms=cuda_ms(kernels.two_level_apply_block, *args),
-                               plain_ms=cuda_ms(kernels.two_level_apply_block_ref, *args),
+                               plain_ms=cuda_ms(kernels.two_level_apply_block_ref, *ref_args),
                                apply_ms=cuda_ms(pc.apply, r),
                                vectors_ms=cuda_ms(lambda: [pc.apply(r[:, c]) for c in range(m)]),
-                               library_ms=None)
+                               library_ms=None, coarse_ms=coarse[m]["ms"],
+                               coarse_library_ms=coarse[m]["library_ms"],
+                               coarse_bound_ms=coarse[m]["bound_ms"],
+                               coarse_asymmetry=coarse[m]["coarse_asymmetry"],
+                               coarse_rel_err_vs_dense=coarse[m]["rel_err_vs_dense"])
                     row["bound_ms"], row["bound_by"] = bound(
                         nbytes, (2 * ncf * ncf + 12 * nm * nn + 18 * nn) * m, dtype)
                     print(f"K4m {dname} {name} {fine} m={m}: coarse {ncf} = {nm} x {ncf // nm} "
                           f"clusters; max rel err {rel:.3e} (limit {tol:g}), second call "
-                          f"{'the same bits' if same else 'other bits'}; kernel {row['ms']:.4f} "
-                          f"ms, plain (the chain it replaced) {row['plain_ms']:.4f} ms; the "
-                          f"whole apply (fine level included) {row['apply_ms']:.4f} ms, {m} "
-                          f"vector applies (K4) "
+                          f"{'the same bits' if same else 'DIFFERENT BITS'}; kernel "
+                          f"{row['ms']:.4f} ms (its coarse product alone "
+                          f"{row['coarse_ms']:.4f} ms, torch.mm of the dense inverse "
+                          f"{row['coarse_library_ms']:.4f} ms), plain (the chain it replaced) "
+                          f"{row['plain_ms']:.4f} ms; the whole apply (fine level included) "
+                          f"{row['apply_ms']:.4f} ms, {m} vector applies (K4) "
                           f"{row['vectors_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
-                          f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of it; "
-                          "median of 20")
+                          f"({row['bound_by']}, the stored triangle), "
+                          f"{row['bound_ms'] / row['ms']:.1%} of it; median of 20")
                     check(rel <= tol, f"K4m disagrees with its plain version ({dname}, {fine}, "
                                       f"m={m})")
                     check(same, f"K4m gave other bits on a second call ({dname}, {fine}, m={m})")
                     rows[("two_level_apply_block", dname, name, fine, m)] = dict(nn=nn, **row)
-                    del r, z_fine, args
-                del pc
+                    del r, z_fine, args, ref_args
+                del pc, mirrored
             del be, esm, pinv, esm_t
             torch.cuda.empty_cache()
     return rows
@@ -1421,9 +1540,11 @@ def column_breakdown(cfg):
              "minus_g": old_multi_matvec(nsm_t, sp.eldofs_m, sp.fixmask_m, False, True),
              "apply": pc.apply}  # an older tree's block apply is the chain
     if fused:
+        mirrored = dense_coarse(pc.coarse_inv)  # the plain version's coarse inverse
+
         def chain_apply(r):  # K4m's plain version is the chain it replaced
             z_fine = None if pc.smooth_inv is None else pc.fine(r)
-            return kernels.two_level_apply_block_ref(pc.pinv, pc.qmat, pc.coarse_inv,
+            return kernels.two_level_apply_block_ref(pc.pinv, pc.qmat, mirrored,
                                                      pc.fixmask, r, z_fine)
 
         chain["apply"] = chain_apply
@@ -1451,6 +1572,12 @@ def column_breakdown(cfg):
     rows += [("K_hat.v, one column (K1)", cuda_ms(khat, cols[0])),
              ("preconditioner apply, 8 vectors (K4)",
               cuda_ms(lambda: [pc.apply(c) for c in cols]))]
+    if hasattr(kernels, "coarse_product"):  # the coarse product alone, m = 8
+        xc = v[:pc.coarse_inv.shape[0]].contiguous()
+        rows += [("coarse product, m = 8, K4c", cuda_ms(kernels.coarse_product, pc.coarse_inv, xc)),
+                 ("coarse product, m = 8, torch.mm of the dense inverse",
+                  cuda_ms(torch.mm, dense_coarse(pc.coarse_inv), xc))]
+        del xc
     b = new["minus_g"](v)
 
     def per_iteration(solve):
@@ -2507,7 +2634,11 @@ def main():
                    for (dt, m, site), row in k8.items()],
     }, {
         "name": "two_level_apply", "route": "cuda", "source": "fcvm_tpu_torch/csrc/two_level.cu",
-        "replaces": "fcvm_tpu/ops/precond.py:108", "replaces_also": "XLA-lowered",
+        "source_also": "its coarse product K4c on the packed upper tiles of "
+                       "fcvm_tpu_torch/ops/kernels.py:pack_coarse (coarse_* keys: K4c alone, "
+                       "torch.mv of the dense inverse, the triangle's bound)",
+        "replaces": "fcvm_tpu/ops/precond.py:108",
+        "replaces_also": "the coarse product at fcvm_tpu/ops/precond.py:137; XLA-lowered",
         "launches": off["launches"]["two_level_apply"], **path_launches("two_level_apply"),
         "launches_column_by_dtype": col["by_dtype"]["two_level_apply"],
         "dtype": "float32", "model": "plate", "variant": "jacobi3",
@@ -2539,9 +2670,12 @@ def main():
     }, {
         "name": "two_level_apply_block", "route": "cuda",
         "source": "fcvm_tpu_torch/csrc/two_level.cu",
-        "source_also": "+ cuBLAS GEMM (at::mm), as the JAX package leaves it to XLA",
+        "source_also": "its coarse product K4c on m columns, on the packed upper tiles of "
+                       "fcvm_tpu_torch/ops/kernels.py:pack_coarse (coarse_* keys: K4c alone, "
+                       "torch.mm of the dense inverse, the triangle's bound)",
         "replaces": "fcvm_tpu/ops/precond.py:108",
-        "replaces_also": "under the vmap of fcvm_tpu/runtime/buckling.py:552; XLA-lowered",
+        "replaces_also": "under the vmap of fcvm_tpu/runtime/buckling.py:552, its coarse "
+                         "product at fcvm_tpu/ops/precond.py:137; XLA-lowered",
         "launches": col["launches"]["two_level_apply_block"],
         **path_launches("two_level_apply_block"),
         "launches_by_shape": col["by_dtype"]["two_level_apply_block"],

@@ -5,8 +5,9 @@
 //   fcvm::block_matmat  K0m  csrc/block_matmat.cu
 //   fcvm::khat_matvec   K1   csrc/khat_matvec.cu
 //   fcvm::khat_matmat   K1m  csrc/khat_matmat.cu (khat_matmat_map: its tensor maps)
-//   fcvm::two_level_apply  K4  csrc/two_level.cu (around at::mv)
-//   fcvm::two_level_apply_block  K4m  csrc/two_level.cu (around at::mm)
+//   fcvm::two_level_apply  K4  csrc/two_level.cu (with K4c)
+//   fcvm::two_level_apply_block  K4m  csrc/two_level.cu (with K4c)
+//   fcvm::coarse_product  K4c  csrc/two_level.cu (alone)
 //   fcvm::segment_sum   K8   csrc/segment_sum.cu (in place: accumulate or write)
 //   fcvm::soa_matvec    K0p  csrc/bw_probe.cu
 //   fcvm::bw_read       Kbw  csrc/bw_probe.cu
@@ -18,8 +19,6 @@
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
 #include <ATen/ops/empty_like.h>
-#include <ATen/ops/mm.h>
-#include <ATen/ops/mv.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 #include <cuda_runtime_api.h>
@@ -97,6 +96,13 @@ extern "C" int fcvm_two_level_prolong_block_f64(const double* qmat, const double
                                                 const double* fixmask, const double* z_fine,
                                                 double* z, long long nn, int cs, int ncl, int nm,
                                                 int m, void* stream);
+extern "C" int fcvm_coarse_plan(int itemsize, int m, long long n, int* nruns, int* maxseg);
+extern "C" int fcvm_coarse_product_f32(const float* tiles, const float* x, float* y, float* sv,
+                                       float* su, long long n, int m, int nruns, int maxseg,
+                                       void* stream);
+extern "C" int fcvm_coarse_product_f64(const double* tiles, const double* x, double* y,
+                                       double* sv, double* su, long long n, int m, int nruns,
+                                       int maxseg, void* stream);
 extern "C" int fcvm_soa_matvec_f32(const float* esm_t, const float* ue_t, float* out,
                                    long long ne, int tile, void* stream);
 extern "C" int fcvm_bw_read_blocks(long long rows, long long chunk_rows, int device);
@@ -414,36 +420,93 @@ void segment_sum(const at::Tensor& vals, const at::Tensor& order, const at::Tens
               cudaGetErrorString(static_cast<cudaError_t>(err)));
 }
 
+constexpr long long kCoarseTile = 128;  // K4c's tile, csrc/two_level.cu
+
+// Check K4c's packed tiles of an (n, n) coarse inverse against x's device
+// and dtype: (nb (nb + 1) / 2, 128, 128), nb = ceil(n / 128), dense, 16-byte
+// aligned.
+void check_tiles(const char* name, const at::Tensor& tiles, long long n, const at::Tensor& x) {
+  const long long nb = (n + kCoarseTile - 1) / kCoarseTile;
+  TORCH_CHECK(tiles.device() == x.device(), name, ": the tiles are on another device");
+  TORCH_CHECK(tiles.scalar_type() == x.scalar_type(), name, ": the tiles differ in dtype");
+  TORCH_CHECK(n > 0 && n <= 0x7fffffffLL && tiles.dim() == 3 &&
+                  tiles.size(0) == nb * (nb + 1) / 2 && tiles.size(1) == kCoarseTile &&
+                  tiles.size(2) == kCoarseTile,
+              name, ": expected the packed tiles (nb (nb + 1) / 2, 128, 128) of n = ", n,
+              " coarse dofs, nb = ", nb);
+  TORCH_CHECK(tiles.is_contiguous() && reinterpret_cast<uintptr_t>(tiles.data_ptr()) % 16 == 0,
+              name, ": the tiles must be contiguous and 16-byte aligned");
+}
+
+// K4c on a dense (n, m) x: zc (n, m), with its scratch.
+at::Tensor coarse_apply(const char* name, const at::Tensor& tiles, const at::Tensor& x,
+                        long long n, long long m, void* stream) {
+  int nruns = 0, maxseg = 0;
+  int err = fcvm_coarse_plan(static_cast<int>(x.element_size()), static_cast<int>(m), n, &nruns,
+                             &maxseg);
+  TORCH_CHECK(err == 0, name, ": coarse product plan failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  at::Tensor y = at::empty({n, m}, x.options());
+  at::Tensor sv = at::empty({tiles.size(0) * kCoarseTile * m}, x.options());
+  at::Tensor su = at::empty({static_cast<long long>(nruns) * maxseg * kCoarseTile * m},
+                            x.options());
+  if (x.scalar_type() == at::kFloat)
+    err = fcvm_coarse_product_f32(tiles.data_ptr<float>(), x.data_ptr<float>(),
+                                  y.data_ptr<float>(), sv.data_ptr<float>(), su.data_ptr<float>(),
+                                  n, static_cast<int>(m), nruns, maxseg, stream);
+  else
+    err = fcvm_coarse_product_f64(tiles.data_ptr<double>(), x.data_ptr<double>(),
+                                  y.data_ptr<double>(), sv.data_ptr<double>(),
+                                  su.data_ptr<double>(), n, static_cast<int>(m), nruns, maxseg,
+                                  stream);
+  TORCH_CHECK(err == 0, name, ": coarse product launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  return y;
+}
+
+// K4c alone: Kc^-1 x for x (n,) or (n, m), n = x.size(0).
+at::Tensor coarse_product(const at::Tensor& tiles, const at::Tensor& x) {
+  TORCH_CHECK(x.is_cuda(), "coarse_product: x must be on a CUDA device");
+  TORCH_CHECK(x.scalar_type() == at::kFloat || x.scalar_type() == at::kDouble,
+              "coarse_product: dtype must be float32 or float64, got ", x.scalar_type());
+  TORCH_CHECK((x.dim() == 1 || (x.dim() == 2 && x.size(1) >= 1 && x.size(1) <= 0x7fffffffLL)) &&
+                  x.is_contiguous(),
+              "coarse_product: expected a dense x (n,) or (n, m), m >= 1");
+  const long long n = x.size(0), m = x.dim() == 2 ? x.size(1) : 1;
+  check_tiles("coarse_product", tiles, n, x);
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor y = coarse_apply("coarse_product", tiles, x, n, m,
+                              c10::cuda::getCurrentCUDAStream().stream());
+  return x.dim() == 1 ? y.reshape({n}) : y;
+}
+
 // K4: z = z_fine + P Q Kc^-1 Q^T (P r), z_fine = pinv r per node unless given.
 at::Tensor two_level_apply(const at::Tensor& pinv, const at::Tensor& qmat,
-                           const at::Tensor& coarse_inv, const at::Tensor& fixmask,
+                           const at::Tensor& coarse, int64_t ncf, const at::Tensor& fixmask,
                            const at::Tensor& r, const std::optional<at::Tensor>& z_fine) {
   TORCH_CHECK(r.is_cuda() && pinv.device() == r.device() && qmat.device() == r.device() &&
-                  coarse_inv.device() == r.device() && fixmask.device() == r.device() &&
+                  fixmask.device() == r.device() &&
                   (!z_fine || z_fine->device() == r.device()),
               "two_level_apply: all tensors must be on one CUDA device");
   const auto dt = r.scalar_type();
   TORCH_CHECK(pinv.scalar_type() == dt && qmat.scalar_type() == dt &&
-                  coarse_inv.scalar_type() == dt && fixmask.scalar_type() == dt &&
-                  (!z_fine || z_fine->scalar_type() == dt),
+                  fixmask.scalar_type() == dt && (!z_fine || z_fine->scalar_type() == dt),
               "two_level_apply: the tensors differ in dtype");
   const long long nn = r.dim() == 1 ? r.size(0) / 3 : -1;
   const long long nm = qmat.dim() == 3 ? qmat.size(2) : -1;
-  const long long ncl = nm > 0 && coarse_inv.dim() == 2 ? coarse_inv.size(0) / nm : -1;
+  const long long ncl = nm > 0 ? ncf / nm : -1;
   TORCH_CHECK(r.dim() == 1 && r.size(0) == 3 * nn && fixmask.sizes() == r.sizes() &&
                   (!z_fine || z_fine->sizes() == r.sizes()) && pinv.dim() == 3 &&
                   pinv.size(0) == nn && pinv.size(1) == 3 && pinv.size(2) == 3 &&
-                  (nm == 6 || nm == 12) && qmat.size(1) == 3 && ncl > 0 &&
-                  coarse_inv.size(0) == nm * ncl && coarse_inv.size(1) == nm * ncl &&
+                  (nm == 6 || nm == 12) && qmat.size(1) == 3 && ncl > 0 && ncf == nm * ncl &&
                   qmat.size(0) % ncl == 0 && qmat.size(0) >= nn &&
                   qmat.size(0) / ncl <= 0x7fffffffLL && ncl <= 0x7fffffffLL,
               "two_level_apply: expected r, fixmask (3 nn), pinv (nn, 3, 3), qmat (ncl cs, 3, "
-              "nm) with nm 6 or 12 and ncl cs >= nn, coarse_inv (nm ncl, nm ncl)");
-  // coarse_inv reaches only at::mv, which takes any layout (cholesky_inverse
-  // gives column-major)
+              "nm) with nm 6 or 12 and ncl cs >= nn, ncf = nm ncl coarse dofs");
   TORCH_CHECK(pinv.is_contiguous() && qmat.is_contiguous() && fixmask.is_contiguous() &&
                   r.is_contiguous() && (!z_fine || z_fine->is_contiguous()),
-              "two_level_apply: inputs other than coarse_inv must be contiguous");
+              "two_level_apply: inputs must be contiguous");
+  check_tiles("two_level_apply", coarse, ncf, r);
   const c10::cuda::CUDAGuard guard(r.device());
   const int cs = static_cast<int>(qmat.size(0) / ncl);
   at::Tensor rc = at::empty({nm * ncl}, r.options());
@@ -470,7 +533,7 @@ at::Tensor two_level_apply(const at::Tensor& pinv, const at::Tensor& qmat,
   }
   TORCH_CHECK(err == 0, "two_level_apply: restrict launch failed: ",
               cudaGetErrorString(static_cast<cudaError_t>(err)));
-  const at::Tensor zc = at::mv(coarse_inv, rc);
+  const at::Tensor zc = coarse_apply("two_level_apply", coarse, rc, ncf, 1, stream);
   const at::Tensor& fine = z_fine ? *z_fine : z;
   if (dt == at::kFloat)
     err = fcvm_two_level_prolong_f32(qmat.data_ptr<float>(), zc.data_ptr<float>(),
@@ -489,36 +552,35 @@ at::Tensor two_level_apply(const at::Tensor& pinv, const at::Tensor& qmat,
 
 // K4m: K4 on the m columns of r (3 nn, m), z_fine (3 nn, m) or none.
 at::Tensor two_level_apply_block(const at::Tensor& pinv, const at::Tensor& qmat,
-                                 const at::Tensor& coarse_inv, const at::Tensor& fixmask,
-                                 const at::Tensor& r, const std::optional<at::Tensor>& z_fine) {
+                                 const at::Tensor& coarse, int64_t ncf,
+                                 const at::Tensor& fixmask, const at::Tensor& r,
+                                 const std::optional<at::Tensor>& z_fine) {
   TORCH_CHECK(r.is_cuda() && pinv.device() == r.device() && qmat.device() == r.device() &&
-                  coarse_inv.device() == r.device() && fixmask.device() == r.device() &&
+                  fixmask.device() == r.device() &&
                   (!z_fine || z_fine->device() == r.device()),
               "two_level_apply_block: all tensors must be on one CUDA device");
   const auto dt = r.scalar_type();
   TORCH_CHECK(pinv.scalar_type() == dt && qmat.scalar_type() == dt &&
-                  coarse_inv.scalar_type() == dt && fixmask.scalar_type() == dt &&
-                  (!z_fine || z_fine->scalar_type() == dt),
+                  fixmask.scalar_type() == dt && (!z_fine || z_fine->scalar_type() == dt),
               "two_level_apply_block: the tensors differ in dtype");
   const long long nn = r.dim() == 2 ? r.size(0) / 3 : -1;
   const long long m = r.dim() == 2 ? r.size(1) : -1;
   const long long nm = qmat.dim() == 3 ? qmat.size(2) : -1;
-  const long long ncl = nm > 0 && coarse_inv.dim() == 2 ? coarse_inv.size(0) / nm : -1;
+  const long long ncl = nm > 0 ? ncf / nm : -1;
   TORCH_CHECK(r.dim() == 2 && r.size(0) == 3 * nn && m >= 1 && m <= 0x7fffffffLL &&
                   fixmask.dim() == 1 && fixmask.size(0) == 3 * nn &&
                   (!z_fine || z_fine->sizes() == r.sizes()) && pinv.dim() == 3 &&
                   pinv.size(0) == nn && pinv.size(1) == 3 && pinv.size(2) == 3 &&
-                  (nm == 6 || nm == 12) && qmat.size(1) == 3 && ncl > 0 &&
-                  coarse_inv.size(0) == nm * ncl && coarse_inv.size(1) == nm * ncl &&
+                  (nm == 6 || nm == 12) && qmat.size(1) == 3 && ncl > 0 && ncf == nm * ncl &&
                   qmat.size(0) % ncl == 0 && qmat.size(0) >= nn &&
                   qmat.size(0) / ncl <= 0x7fffffffLL && ncl <= 0x7fffffffLL,
               "two_level_apply_block: expected r and z_fine (3 nn, m) with m >= 1, fixmask "
               "(3 nn), pinv (nn, 3, 3), qmat (ncl cs, 3, nm) with nm 6 or 12 and ncl cs >= nn, "
-              "coarse_inv (nm ncl, nm ncl)");
-  // coarse_inv reaches only at::mm, which takes any layout
+              "ncf = nm ncl coarse dofs");
   TORCH_CHECK(pinv.is_contiguous() && qmat.is_contiguous() && fixmask.is_contiguous() &&
                   r.is_contiguous() && (!z_fine || z_fine->is_contiguous()),
-              "two_level_apply_block: inputs other than coarse_inv must be contiguous");
+              "two_level_apply_block: inputs must be contiguous");
+  check_tiles("two_level_apply_block", coarse, ncf, r);
   const c10::cuda::CUDAGuard guard(r.device());
   const int cs = static_cast<int>(qmat.size(0) / ncl);
   at::Tensor rc = at::empty({nm * ncl, m}, r.options());
@@ -544,7 +606,7 @@ at::Tensor two_level_apply_block(const at::Tensor& pinv, const at::Tensor& qmat,
   }
   TORCH_CHECK(err == 0, "two_level_apply_block: restrict launch failed: ",
               cudaGetErrorString(static_cast<cudaError_t>(err)));
-  const at::Tensor zc = at::mm(coarse_inv, rc).contiguous();
+  const at::Tensor zc = coarse_apply("two_level_apply_block", coarse, rc, ncf, m, stream);
   const at::Tensor& fine = z_fine ? *z_fine : z;
   if (dt == at::kFloat)
     err = fcvm_two_level_prolong_block_f32(qmat.data_ptr<float>(), zc.data_ptr<float>(),
@@ -622,10 +684,11 @@ TORCH_LIBRARY(fcvm, m) {
         "Tensor? fixmask, bool identity, bool negate) -> Tensor");
   m.def("segment_sum(Tensor vals, Tensor order, Tensor walk, Tensor? holes, Tensor(a!) out, "
         "int nlong, bool write) -> ()");
-  m.def("two_level_apply(Tensor pinv, Tensor qmat, Tensor coarse_inv, Tensor fixmask, "
+  m.def("two_level_apply(Tensor pinv, Tensor qmat, Tensor coarse, int ncf, Tensor fixmask, "
         "Tensor r, Tensor? z_fine) -> Tensor");
-  m.def("two_level_apply_block(Tensor pinv, Tensor qmat, Tensor coarse_inv, Tensor fixmask, "
-        "Tensor r, Tensor? z_fine) -> Tensor");
+  m.def("two_level_apply_block(Tensor pinv, Tensor qmat, Tensor coarse, int ncf, "
+        "Tensor fixmask, Tensor r, Tensor? z_fine) -> Tensor");
+  m.def("coarse_product(Tensor tiles, Tensor x) -> Tensor");
   m.def("soa_matvec(Tensor esm_t, Tensor ue_t, int tile) -> Tensor");
   m.def("bw_read(Tensor x, int k, int chunk_rows) -> Tensor");
 }
@@ -638,6 +701,7 @@ TORCH_LIBRARY_IMPL(fcvm, CUDA, m) {
   m.impl("khat_matmat", &khat_matmat);
   m.impl("two_level_apply", &two_level_apply);
   m.impl("two_level_apply_block", &two_level_apply_block);
+  m.impl("coarse_product", &coarse_product);
   m.impl("segment_sum", &segment_sum);
   m.impl("soa_matvec", &soa_matvec);
   m.impl("bw_read", &bw_read);

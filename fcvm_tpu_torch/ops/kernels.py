@@ -33,7 +33,10 @@
   ``fcvm_tpu/ops/precond.py::TwoLevelPrecond.apply``; source
   ``csrc/two_level.cu``.  K4m :func:`two_level_apply_block`, its block
   form, replaces that apply under the eigensolve's ``vmap``; the same
-  source.
+  source.  Their coarse product is K4c, the symmetric product on the
+  coarse inverse's packed upper tiles (:func:`pack_coarse`, made once per
+  preconditioner build), which :func:`coarse_product` launches alone (the
+  sharded backend's coarse product).
 * K0p :func:`soa_matvec` replaces ``tools/bw_probe.py::soa_matvec``;
   source ``csrc/bw_probe.cu``.
 * Kbw :func:`bw_read` replaces ``tools/bw_probe.py::make_bw_kernel``;
@@ -56,7 +59,8 @@ is no fallback from a failed build or launch.  Each wrapper counts its
 kernel launches in its ``launches`` attribute (K8 its calls, each launching
 one or two kernels); K0, K1, K4 and K8 also count them by dtype in their
 ``dtypes``, K0m, K1m and K4m by dtype and column count in their
-``shapes``, and K8 its kernels by form and path in ``segment_sum.paths``.
+``shapes`` (K4c alone too: ``coarse_product.shapes``),
+and K8 its kernels by form and path in ``segment_sum.paths``.
 
 The kernels are compiled at first use by ``torch.utils.cpp_extension.load``
 (``nvcc`` for ``sm_90a``, the host compiler for the bindings) into
@@ -776,11 +780,118 @@ segment_sum.dtypes = Counter()  # those calls by dtype name
 segment_sum.paths = Counter()  # kernels launched, by form and path ("write register", ...)
 
 
+# K4c's packed coarse inverse: the (n, n) symmetric matrix cut into
+# COARSE_TILE x COARSE_TILE tiles, the upper ones (bi <= bj) in row-major
+# tile order, each contiguous and row-major, the last tile row and column
+# zero-padded; a diagonal tile whole, its lower half the mirror of its upper
+COARSE_TILE = 128
+
+
+class PackedCoarse(NamedTuple):
+    """The upper tiles (nb (nb + 1) / 2, T, T) of an (n, n) symmetric
+    coarse inverse, nb = ceil(n / T) (:func:`pack_coarse`)."""
+    tiles: torch.Tensor
+    n: int
+
+    @property
+    def shape(self):  # the matrix's
+        return (self.n, self.n)
+
+
+def pack_coarse(coarse_inv: torch.Tensor, tile: int = COARSE_TILE) -> PackedCoarse:
+    """K4c's packed copy of a coarse inverse (n, n): the values ``i <= j``
+    of its upper triangle, tile by tile (see ``COARSE_TILE``).  One tile row
+    at a time, so it needs a tile row of scratch beside the result; once
+    per preconditioner build."""
+    if coarse_inv.dim() != 2 or coarse_inv.shape[0] != coarse_inv.shape[1]:
+        raise ValueError(f"pack_coarse: shape {tuple(coarse_inv.shape)}; expected (n, n)")
+    if coarse_inv.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"pack_coarse: dtype {coarse_inv.dtype}; expected float32 or float64")
+    n = coarse_inv.shape[0]
+    nb = -(-n // tile)
+    tiles = torch.empty((nb * (nb + 1) // 2, tile, tile), dtype=coarse_inv.dtype,
+                        device=coarse_inv.device)
+    t = 0
+    for b in range(nb):
+        rows = coarse_inv[b * tile:(b + 1) * tile, b * tile:]
+        rows = torch.nn.functional.pad(rows, (0, (nb - b) * tile - rows.shape[1],
+                                              0, tile - rows.shape[0]))
+        tiles[t:t + nb - b] = rows.reshape(tile, nb - b, tile).transpose(0, 1)
+        diag = tiles[t].triu()
+        tiles[t] = diag + diag.triu(1).T
+        t += nb - b
+    return PackedCoarse(tiles, n)
+
+
+def unpack_coarse(packed: PackedCoarse) -> torch.Tensor:
+    """The symmetric (n, n) matrix of a :func:`pack_coarse` copy: each
+    stored upper tile at (bi, bj) and its transpose at (bj, bi)."""
+    tiles, n = packed
+    ntiles, tile, _ = tiles.shape
+    nb = -(-n // tile)
+    if tiles.shape[2] != tile or ntiles != nb * (nb + 1) // 2:
+        raise ValueError(f"unpack_coarse: tiles {tuple(tiles.shape)} for n = {n}")
+    bi, bj = torch.triu_indices(nb, nb, device=tiles.device)  # row-major tile order
+    grid = torch.empty((nb, nb, tile, tile), dtype=tiles.dtype, device=tiles.device)
+    grid[bj, bi] = tiles.transpose(1, 2)
+    grid[bi, bj] = tiles
+    return grid.transpose(1, 2).reshape(nb * tile, nb * tile)[:n, :n]
+
+
+def dense_coarse(coarse) -> torch.Tensor:
+    """The dense matrix of a coarse inverse as a two-level preconditioner
+    keeps it (dense on the CPU, :func:`pack_coarse`'s copy on the card): the
+    one the plain versions and the library calls read, a packed copy's
+    mirrored tiles."""
+    return unpack_coarse(coarse) if isinstance(coarse, PackedCoarse) else coarse
+
+
+def coarse_product_ref(coarse, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4c: the dense product (:func:`dense_coarse`)."""
+    return dense_coarse(coarse) @ x
+
+
+def coarse_product(coarse, x: torch.Tensor) -> torch.Tensor:
+    """K4c: ``Kc^-1 x`` for x (n,) or (n, m), m >= 1 (up to 8 columns a pass
+    over the tiles; design and bound at the top of ``csrc/two_level.cu``).
+    CPU tensors take the plain version, on the dense inverse or a packed
+    copy; CUDA tensors launch the kernels on the packed copy
+    (``coarse_product.launches``, by dtype and m, 1 for a vector, in
+    ``coarse_product.shapes``)."""
+    name = "coarse_product"
+    if x.dim() not in (1, 2) or x.shape[0] != coarse.shape[0] or x.dim() == 2 and x.shape[1] < 1:
+        raise ValueError(f"{name}: x {tuple(x.shape)}; expected (n,) or (n, m), m >= 1, with "
+                         f"n = {coarse.shape[0]}")
+    packed = isinstance(coarse, PackedCoarse)
+    values = coarse.tiles if packed else coarse
+    if values.device != x.device or x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors on {values.device} and {x.device}; expected both on "
+                         "the CPU or both on one CUDA device")
+    if x.dtype not in (torch.float32, torch.float64) or values.dtype != x.dtype:
+        raise TypeError(f"{name}: dtypes {values.dtype}/{x.dtype}; expected one of float32 or "
+                        "float64")
+    if x.device.type == "cpu":
+        return coarse_product_ref(coarse, x)
+    if not packed:
+        raise TypeError(f"{name}: on CUDA the coarse inverse must be packed (kernels.pack_coarse)")
+    build()
+    out = torch.ops.fcvm.coarse_product(coarse.tiles, x.contiguous())
+    coarse_product.launches += 1
+    coarse_product.shapes[(_dtype_name(x), 1 if x.dim() == 1 else x.shape[1])] += 1
+    return out
+
+
+coarse_product.launches = 0
+coarse_product.shapes = Counter()  # launches by (dtype name, m)
+
+
 def two_level_apply_ref(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
     """Plain version of K4: the fine level (block Jacobi ``pinv r`` per
     node, or ``z_fine``), the projection of ``P r`` onto the cluster modes,
-    the cluster sum, the coarse product in mode-major order, the
-    prolongation and the mask."""
+    the cluster sum, the coarse product in mode-major order (the dense
+    inverse, or a packed copy's mirrored tiles), the prolongation and the
+    mask."""
+    coarse_inv = dense_coarse(coarse_inv)
     z = z_fine
     if z is None:
         z = torch.einsum("nab,nb->na", pinv, r.reshape(-1, 3)).reshape(-1)
@@ -808,9 +919,9 @@ def two_level_apply(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
     Args:
       pinv: (nn, 3, 3) block-Jacobi inverses.
       qmat: (ncl cs, 3, nm) cluster mode basis, nm 6 or 12, ncl cs >= nn.
-      coarse_inv: (nm ncl, nm ncl) coarse inverse, mode-major, in any
-        layout (``cholesky_inverse`` gives column-major): it reaches only
-        the GEMV, cuBLAS's, as in the plain version.
+      coarse_inv: the (nm ncl, nm ncl) symmetric coarse inverse,
+        mode-major: on CUDA its packed copy (:func:`pack_coarse`), which K4c
+        reads; on the CPU the dense matrix (any layout) or a packed copy.
       fixmask, r: (3 nn,).
       z_fine: (3 nn,) the fine level's output (the cluster smoother's), or
         None for block Jacobi.
@@ -829,7 +940,8 @@ def two_level_apply(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
     if _two_level_on_cpu("two_level_apply", pinv, qmat, coarse_inv, fixmask, r, z_fine, nn):
         return two_level_apply_ref(pinv, qmat, coarse_inv, fixmask, r, z_fine)
     build()
-    out = torch.ops.fcvm.two_level_apply(pinv, qmat, coarse_inv, fixmask, r, z_fine)
+    out = torch.ops.fcvm.two_level_apply(pinv, qmat, coarse_inv.tiles, coarse_inv.n, fixmask, r,
+                                         z_fine)
     two_level_apply.launches += 1
     two_level_apply.dtypes[_dtype_name(r)] += 1
     return out
@@ -842,17 +954,18 @@ two_level_apply.dtypes = Counter()  # launches by dtype name
 def _two_level_on_cpu(name, pinv, qmat, coarse_inv, fixmask, r, z_fine, nn) -> bool:
     """Check the coarse space, devices, dtypes and layouts of K4's or K4m's
     inputs (their vector or block shapes checked by the caller): True for
-    CPU tensors, False for one CUDA device, every input but coarse_inv
-    dense (it reaches only cuBLAS, which takes cholesky_inverse's
-    column-major layout as it is)."""
+    CPU tensors, False for one CUDA device, every input dense and the
+    coarse inverse packed (:func:`pack_coarse`: K4c reads its tiles)."""
     nm = qmat.shape[2]
     ncl = coarse_inv.shape[0] // nm if nm else 0
-    if (nm not in (6, 12) or ncl == 0 or coarse_inv.shape != (nm * ncl, nm * ncl)
+    if (nm not in (6, 12) or ncl == 0 or tuple(coarse_inv.shape) != (nm * ncl, nm * ncl)
             or qmat.shape[0] % ncl or qmat.shape[0] < nn):
         raise ValueError(f"{name}: qmat {tuple(qmat.shape)} and coarse_inv "
                          f"{tuple(coarse_inv.shape)}; expected nm 6 or 12 modes on ncl clusters "
                          "that cover the nodes")
-    tensors = (pinv, qmat, coarse_inv, fixmask, r) + (() if z_fine is None else (z_fine,))
+    packed = isinstance(coarse_inv, PackedCoarse)
+    tensors = ((pinv, qmat, coarse_inv.tiles if packed else coarse_inv, fixmask, r)
+               + (() if z_fine is None else (z_fine,)))
     cpu = all(t.device.type == "cpu" for t in tensors)
     if not cpu and (r.device.type != "cuda" or any(t.device != r.device for t in tensors)):
         raise ValueError(f"{name}: tensors on several devices; expected all on the CPU or all "
@@ -860,9 +973,11 @@ def _two_level_on_cpu(name, pinv, qmat, coarse_inv, fixmask, r, z_fine, nn) -> b
     if r.dtype not in (torch.float32, torch.float64) or any(t.dtype != r.dtype
                                                              for t in tensors):
         raise TypeError(f"{name}: expected float32 or float64 throughout")
-    if not cpu and not all(t.is_contiguous() for t in tensors if t is not coarse_inv):
-        raise ValueError(f"{name}: inputs other than coarse_inv must be contiguous (a column "
-                         "slice of a block is not)")
+    if not cpu and not packed:
+        raise TypeError(f"{name}: on CUDA the coarse inverse must be packed "
+                        "(kernels.pack_coarse)")
+    if not cpu and not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous (a column slice of a block is not)")
     return cpu
 
 
@@ -870,6 +985,7 @@ def two_level_apply_block_ref(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
     """Plain version of K4m: :func:`two_level_apply_ref`'s steps on the m
     columns of ``r`` (3 nn, m) at once, with a trailing column axis and the
     coarse product a GEMM."""
+    coarse_inv = dense_coarse(coarse_inv)
     m = r.shape[1]
     z = z_fine
     if z is None:
@@ -915,7 +1031,8 @@ def two_level_apply_block(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
     if r.shape[1] == 0:
         return torch.empty_like(r)
     build()
-    out = torch.ops.fcvm.two_level_apply_block(pinv, qmat, coarse_inv, fixmask, r, z_fine)
+    out = torch.ops.fcvm.two_level_apply_block(pinv, qmat, coarse_inv.tiles, coarse_inv.n,
+                                               fixmask, r, z_fine)
     two_level_apply_block.launches += 1
     two_level_apply_block.shapes[(_dtype_name(r), r.shape[1])] += 1
     return out

@@ -20,9 +20,11 @@ ranges are spatially compact.
 
 The coarse inverse is a Cholesky factor and ``cholesky_inverse`` in the
 working dtype (the JAX package forces float32 and a blocked Schur scheme
-because of TPU limits).  The coarse product, projection and prolongation run
-in full float32 at least (no TF32): the coarse correction exists to cancel
-smooth error below CG's tolerance.
+because of TPU limits).  On the card it is kept only as its upper triangle's
+tiles (:func:`fcvm_tpu_torch.ops.kernels.pack_coarse`), which the symmetric
+coarse product K4c reads; on the CPU it stays dense.  The coarse product,
+projection and prolongation run in full float32 at least (no TF32): the
+coarse correction exists to cancel smooth error below CG's tolerance.
 """
 
 from __future__ import annotations
@@ -58,7 +60,9 @@ _RIDGE_LADDER = (3.0e-5, 3.0e-4, 3.0e-3, 3.0e-2, 3.0e-1)
 class TwoLevelPrecond(NamedTuple):
     pinv: torch.Tensor  # (nn, 3, 3) block-Jacobi inverses
     qmat: torch.Tensor  # (nn_cl, 3, nm) cluster mode basis per node
-    coarse_inv: torch.Tensor  # (nm ncl, nm ncl), mode-major order
+    # (nm ncl, nm ncl), mode-major order: dense on the CPU, its packed upper
+    # tiles on the card (see stored_coarse; kernels.dense_coarse reads either)
+    coarse_inv: torch.Tensor | kernels.PackedCoarse
     fixmask: torch.Tensor  # (ndof,)
     # the cluster block-Cholesky smoother (ncl_s, 3 cs, 3 cs); when present
     # it replaces the block-Jacobi fine level
@@ -86,6 +90,18 @@ class TwoLevelPrecond(NamedTuple):
         z_fine = None if self.smooth_inv is None else self.fine(r)
         apply = kernels.two_level_apply if r.dim() == 1 else kernels.two_level_apply_block
         return apply(self.pinv, self.qmat, self.coarse_inv, self.fixmask, r, z_fine)
+
+    def coarse(self, rc: torch.Tensor) -> torch.Tensor:
+        """The coarse product ``Kc^-1 rc`` alone, ``rc`` (nm ncl,): the
+        dense inverse's on the CPU, K4c on the packed tiles on the card."""
+        return kernels.coarse_product(self.coarse_inv, rc)
+
+
+def stored_coarse(coarse_inv: torch.Tensor):
+    """The coarse inverse as a :class:`TwoLevelPrecond` keeps it: on the
+    card its packed upper tiles (the dense copy is dropped), on the CPU the
+    dense matrix."""
+    return kernels.pack_coarse(coarse_inv) if coarse_inv.is_cuda else coarse_inv
 
 
 def apply_precond(pc, r):
@@ -285,7 +301,7 @@ def build_two_level(esm, elnodes, coords, fixmask, cluster_size: int = 64,
     pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
     qmat = qmat_bc(coords, fixmask, cluster_size, n_modes)
     kc = coarse_accumulate(esm, elnodes, qmat, cluster_size)
-    coarse_inv = invert_coarse_with_ladder(kc)
+    coarse_inv = stored_coarse(invert_coarse_with_ladder(kc))
     del kc
     smooth_inv = None
     cs = smoother_cluster_nodes

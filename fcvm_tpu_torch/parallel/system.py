@@ -61,6 +61,7 @@ from fcvm_tpu_torch.ops.precond import (
     coarse_accumulate,
     invert_coarse_with_ladder,
     qmat_bc,
+    stored_coarse,
 )
 from fcvm_tpu_torch.ops.stress_update import internal_force_from_stress, update_stress_load
 from fcvm_tpu_torch.parallel import dist as pdist
@@ -252,7 +253,8 @@ class ShardedSystem(TorchSystem):
         cs = cfg.resolve_cluster_size(self.mesh.n_nodes)
         qmat = qmat_bc(sp.coords_m, sp.fixmask_m, cs, cfg.coarse_modes)
         kc = pdist.all_reduce(coarse_accumulate(esm, self.eln_m_l, qmat, cs))
-        return TwoLevelPrecond(pinv, qmat, invert_coarse_with_ladder(kc, label="sharded "),
+        return TwoLevelPrecond(pinv, qmat,
+                               stored_coarse(invert_coarse_with_ladder(kc, label="sharded ")),
                                sp.fixmask_m, None)
 
     def _np_solve_ok(self, pc):
@@ -296,7 +298,7 @@ class ShardedSystem(TorchSystem):
             if two_level:
                 rc = kernels.segment_sum(torch.einsum("nak,na->nk", q, fm3 * r3).contiguous(),
                                          cid_plan, rows=ncl)
-                zc = pc.coarse_inv @ pdist.all_reduce(rc).T.reshape(-1)  # mode-major
+                zc = pc.coarse(pdist.all_reduce(rc).T.reshape(-1))  # mode-major
                 z3 = z3 + torch.einsum("nak,nk->na", q, zc.reshape(nm, ncl).T[cid]) * fm3
             z = z3.reshape(-1)
             if w is not None:

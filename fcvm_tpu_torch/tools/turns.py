@@ -3,8 +3,8 @@
 Compares two trees of the port on one card, in turns (A B B A, each turn a
 process of its own):
 
-    python fcvm_tpu_torch/tools/turns.py TREE kernels  # K0, K0p, K0m, K1, K4, K8, K1m, K4m at
-                                                       # the paths' shapes
+    python fcvm_tpu_torch/tools/turns.py TREE kernels  # K0, K0p, K0m, K1, K4, K8, K1m, K4m
+                                                       # and K4c alone at the paths' shapes
     python fcvm_tpu_torch/tools/turns.py TREE cg       # TREE's own phase 3c on the plate
     python fcvm_tpu_torch/tools/turns.py TREE plate    # phases 5 and 7 (stepping times, the
                                                        # Newton and CG counts, lbd's bits)
@@ -12,8 +12,9 @@ process of its own):
                                                        # memory) and 9b (its pieces)
     python fcvm_tpu_torch/tools/turns.py TREE smoother # phase 11 (stepping, the counts, lbd's
                                                        # bits; the two-level build and its split)
-    python fcvm_tpu_torch/tools/turns.py TREE blocks   # phase 3d alone: K1m and K4m at the
-                                                       # paths' widths, cuSPARSE beside K1m
+    python fcvm_tpu_torch/tools/turns.py TREE blocks   # phase 3d alone: K1m, K4m and K4c at
+                                                       # the paths' widths, cuSPARSE beside
+                                                       # K1m, torch.mm beside K4c
 
 ``TREE`` is the root of a checkout (``.`` for this one, or a ``git archive``
 of another commit unpacked in a directory that ``.gitignore`` lists); its
@@ -31,7 +32,10 @@ write form times, at the sites that use it, what its paths run there:
 ``torch.zeros``, then K8 accumulating.  A tree from before K1m and K4m
 (``kernels.khat_matmat``, ``two_level_apply_block``) is held to K0m's
 launches in its column run, times its chains in 9b, and its ``kernels``
-part has no K1m and K4m rows.
+part has no K1m and K4m rows.  A tree from before K4c (``kernels.pack_coarse``)
+keeps the dense coarse inverse: its K4 and K4m rows time its coarse product,
+cuBLAS's GEMV or GEMM on that inverse, where K4c would be, and count their
+bounds on the stored triangle as this checkout's do.
 """
 
 from __future__ import annotations

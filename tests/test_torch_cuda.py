@@ -442,9 +442,18 @@ def test_khat_matmat_plan_is_held_to_its_operator(cuda):
         torch.ops.fcvm.khat_matmat(packed, plan.map, *inc[:3], *tab, v, fm[:-3], True, False)
 
 
+def _random_coarse(n, dtype, gen):
+    """A random symmetric (n, n) matrix of unit scale on the card and its
+    packed upper tiles (K4c's input)."""
+    a = torch.randn((n, n), generator=gen, device="cuda", dtype=dtype) / n**0.5
+    a = 0.5 * (a + a.T)
+    return a, kernels.pack_coarse(a)
+
+
 def _random_precond(nn, cs, ncl, nm, dtype, seed):
     """Random block-Jacobi blocks, mode basis (zero past the nn nodes),
-    coarse inverse, mask, vector and fine-level output on the card."""
+    packed symmetric coarse inverse, mask, vector and fine-level output on
+    the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
@@ -453,8 +462,86 @@ def _random_precond(nn, cs, ncl, nm, dtype, seed):
     qmat = randn(ncl * cs, 3, nm)
     qmat[nn:] = 0.0
     fm = (torch.rand(3 * nn, generator=gen, device="cuda") > 0.1).to(dtype)
-    return (randn(nn, 3, 3), qmat, randn(nm * ncl, nm * ncl) / (nm * ncl) ** 0.5, fm,
-            randn(3 * nn), randn(3 * nn))
+    pinv = randn(nn, 3, 3)
+    _, kinv = _random_coarse(nm * ncl, dtype, gen)
+    return (pinv, qmat, kinv, fm, randn(3 * nn), randn(3 * nn))
+
+
+# coarse dimensions: one partial tile, a few tiles with a ragged edge, the
+# plate's 12 x 1,022
+COARSE_SIZES = {"small": 300, "ragged": 1000, "plate": 12_264}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("m", [1, 2, 8, 32])
+@pytest.mark.parametrize("size", list(COARSE_SIZES))
+def test_coarse_product_kernel_matches_plain(cuda, dtype, m, size):
+    """K4c, the symmetric coarse product on the packed upper tiles, against
+    its plain version (the mirrored tiles' dense product) and the dense
+    product of the matrix packed, on a vector (m = 1) and on blocks (one
+    pass over the tiles at m <= 8, four at 32; at 8 columns in float64 the
+    tensor-core pass); within TOL, the same bits on a second call, one
+    launch counted each."""
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    n = COARSE_SIZES[size]
+    dense, packed = _random_coarse(n, dtype, gen)
+    x = torch.randn((n,) if m == 1 else (n, m), generator=gen, device="cuda", dtype=dtype)
+    launches = kernels.coarse_product.launches
+    out, again = kernels.coarse_product(packed, x), kernels.coarse_product(packed, x)
+    torch.cuda.synchronize()
+    assert kernels.coarse_product.launches == launches + 2
+    assert out.shape == x.shape and torch.equal(out, again)
+    for ref in (kernels.coarse_product_ref(packed, x), dense @ x):
+        assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+def test_coarse_product_rejects_what_it_does_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dense, packed = _random_coarse(300, torch.float32, gen)
+    x = torch.randn(300, generator=gen, device="cuda")
+    with pytest.raises(TypeError):  # the dense matrix, not its packed copy
+        kernels.coarse_product(dense, x)
+    with pytest.raises(TypeError):
+        kernels.coarse_product(packed, x.double())
+    with pytest.raises(ValueError):
+        kernels.coarse_product(packed, x[:-1])
+    with pytest.raises(ValueError):
+        kernels.coarse_product(packed, x.cpu())
+    with pytest.raises(ValueError):
+        kernels.coarse_product(packed, x.reshape(300, 1, 1))  # neither a vector nor a block
+    with pytest.raises(ValueError):
+        kernels.coarse_product(kernels.PackedCoarse(packed.tiles, 500), x)
+    with pytest.raises(RuntimeError):  # tiles of another size
+        kernels.coarse_product(kernels.PackedCoarse(packed.tiles[1:], 300), x)
+    with pytest.raises(RuntimeError):
+        torch.ops.fcvm.coarse_product(packed.tiles, x[:100])
+
+
+# K4's error on the 3x3x3 box with the cluster smoother in float32, against
+# the plain version in float64 on the same inputs, as a multiple of the
+# float32 plain version's.  That output is a small difference of the fine
+# level and the coarse correction (1e-5 of the terms it is summed from), so
+# any two float32 summation orders of the coarse product differ by more than
+# TOL of it: K4c's order and cuBLAS's (the plain version's) lie 2.59e-5 of
+# the output apart, K4 2.53e-5 from float64 and the plain version 5.13e-5
+# (PERF.md; fcvm_tpu_torch/tools/coarse_probe.py on an H100).
+BOX_CLUSTER_F32_FACTOR = 1.0
+
+
+def _assert_two_level_close(out, ref_fn, args, z_fine, ill_conditioned=False):
+    """K4's or K4m's output against its plain version, within TOL.  Where
+    ``ill_conditioned`` (K4 on the box with the cluster smoother in
+    float32), instead no further from the plain version in float64 than
+    BOX_CLUSTER_F32_FACTOR times the float32 plain version is."""
+    ref = ref_fn(*args, z_fine)
+    err = float((out - ref).abs().max())
+    if not ill_conditioned:
+        assert err <= TOL[out.dtype] * float(ref.abs().max())
+        return
+    up = [kernels.dense_coarse(a).double() for a in args]  # the coarse inverse made dense
+    ref64 = ref_fn(*up, None if z_fine is None else z_fine.double())
+    assert (float((out.double() - ref64).abs().max())
+            <= BOX_CLUSTER_F32_FACTOR * float((ref.double() - ref64).abs().max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
@@ -463,9 +550,10 @@ def _random_precond(nn, cs, ncl, nm, dtype, seed):
 def test_two_level_apply_kernel_matches_plain(cuda, dtype, fine, size):
     """K4 against its plain version on the card, with block Jacobi and with
     the cluster smoother's output as the fine level: on the 3x3x3 box's
-    preconditioner (16-node smoother clusters), and on random state at the
-    plate's and the beam-column's node counts with their coarse sizes (12
-    modes on 1,022 clusters of 164 nodes; 1,021 of 148); within TOL, the
+    preconditioner (16-node smoother clusters; its coarse inverse packed by
+    the build), and on random state at the plate's and the beam-column's
+    node counts with their coarse sizes (12 modes on 1,022 clusters of 164
+    nodes; 1,021 of 148); within TOL (see _assert_two_level_close), the
     same bits on a second call, one launch counted each."""
     if size == "box":
         cfg = FcvmConfig(device="cuda", dtype="float64", smoother=fine,
@@ -478,6 +566,7 @@ def test_two_level_apply_kernel_matches_plain(cuda, dtype, fine, size):
         args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, r)
         z_fine = pc.fine(r) if fine == "cluster" else None
         assert (pc.smooth_inv is None) == (fine == "jacobi3")
+        assert isinstance(pc.coarse_inv, kernels.PackedCoarse)
     else:
         nn = PATH_SIZES[size][1] + (-PATH_SIZES[size][1] % 128)  # the padded node count
         cs, ncl = {"plate": (164, 1022), "column": (148, 1021)}[size]
@@ -489,8 +578,8 @@ def test_two_level_apply_kernel_matches_plain(cuda, dtype, fine, size):
     torch.cuda.synchronize()
     assert kernels.two_level_apply.launches == launches + 2
     assert torch.equal(out, again)
-    ref = kernels.two_level_apply_ref(*args, z_fine)
-    assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+    _assert_two_level_close(out, kernels.two_level_apply_ref, args, z_fine,
+                            size == "box" and fine == "cluster" and dtype == torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
@@ -528,15 +617,17 @@ def test_two_level_apply_block_kernel_matches_plain(cuda, dtype, fine, size, m):
     torch.cuda.synchronize()
     assert kernels.two_level_apply_block.launches == launches + 2
     assert torch.equal(out, again)
-    ref = kernels.two_level_apply_block_ref(*args, z_fine)
-    assert float((out - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+    _assert_two_level_close(out, kernels.two_level_apply_block_ref, args, z_fine)
 
 
 def test_two_level_apply_block_rejects_what_it_does_not_take(cuda):
     pinv, qmat, kinv, fm, r, _ = _random_precond(200, 16, 13, 12, torch.float32, seed=6)
     block = torch.stack([r, r, r], dim=1)
     with pytest.raises(TypeError):
-        kernels.two_level_apply_block(pinv, qmat, kinv.double(), fm, block)
+        kernels.two_level_apply_block(pinv, qmat, kernels.PackedCoarse(kinv.tiles.double(),
+                                                                       kinv.n), fm, block)
+    with pytest.raises(TypeError):  # the dense inverse: on the card K4c reads the packed tiles
+        kernels.two_level_apply_block(pinv, qmat, kernels.unpack_coarse(kinv), fm, block)
     with pytest.raises(ValueError):
         kernels.two_level_apply_block(pinv, qmat, kinv, fm, block.cpu())
     with pytest.raises(ValueError):
@@ -545,6 +636,8 @@ def test_two_level_apply_block_rejects_what_it_does_not_take(cuda):
         kernels.two_level_apply_block(pinv, qmat, kinv, fm, block[:, 1:])  # strided
     with pytest.raises(ValueError):
         kernels.two_level_apply_block(pinv, qmat, kinv, fm, block, block[:, :2])
+    with pytest.raises(RuntimeError):  # tiles of another coarse size
+        torch.ops.fcvm.two_level_apply_block(pinv, qmat, kinv.tiles[1:], kinv.n, fm, block, None)
     # TwoLevelPrecond.apply makes a column slice dense first
     from fcvm_tpu_torch.ops.precond import TwoLevelPrecond
 
@@ -555,7 +648,10 @@ def test_two_level_apply_block_rejects_what_it_does_not_take(cuda):
 def test_two_level_apply_rejects_what_it_does_not_take(cuda):
     pinv, qmat, kinv, fm, r, _ = _random_precond(200, 16, 13, 12, torch.float32, seed=6)
     with pytest.raises(TypeError):
-        kernels.two_level_apply(pinv, qmat, kinv.double(), fm, r)
+        kernels.two_level_apply(pinv, qmat, kernels.PackedCoarse(kinv.tiles.double(), kinv.n),
+                                fm, r)
+    with pytest.raises(TypeError):  # the dense inverse: on the card K4c reads the packed tiles
+        kernels.two_level_apply(pinv, qmat, kernels.unpack_coarse(kinv), fm, r)
     with pytest.raises(ValueError):
         kernels.two_level_apply(pinv, qmat, kinv, fm, r.cpu())
     with pytest.raises(ValueError):
@@ -563,6 +659,8 @@ def test_two_level_apply_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         kernels.two_level_apply(pinv, qmat.transpose(1, 2).contiguous().transpose(1, 2), kinv,
                                 fm, r)
+    with pytest.raises(RuntimeError):  # tiles of another coarse size
+        torch.ops.fcvm.two_level_apply(pinv, qmat, kinv.tiles[1:], kinv.n, fm, r, None)
 
 
 @pytest.mark.parametrize("ne,tile", [(4096, 1024), (3000, 1000), (512, 512)])
@@ -973,6 +1071,35 @@ def test_sharded_world_of_one_over_nccl_matches_torchsystem(cuda, case):
         np.testing.assert_allclose(out["eig"], ref.eigenvalues, rtol=1e-9)
         assert out["k1m"] > 0
     assert out["k1k4"] > 0
+
+
+def _node_partition_rank(device):
+    """One rank of the GNL box on the node-partitioned sharded PCG
+    (``node_partition``), float64: its load factors and its launches of
+    K4c alone (the sharded coarse product) and of K4."""
+    from fcvm_tpu_torch.parallel import dist as pdist
+
+    k4c, k4 = kernels.coarse_product.launches, kernels.two_level_apply.launches
+    res = solve_collapse(_tension_box(2), ControlParams(**GNL_BOX), config=FcvmConfig(
+        device=device, dtype="float64", cg_rtol=1e-10, force_sharded=True, node_partition=True,
+        n_devices=pdist.world_size()))
+    return dict(lbd=np.asarray(res.history.lbd), k4c=kernels.coarse_product.launches - k4c,
+                k4=kernels.two_level_apply.launches - k4)
+
+
+def test_sharded_coarse_product_world_of_one_matches_local(cuda):
+    """The node-partitioned sharded PCG on a world of one over NCCL, whose
+    preconditioner calls K4c alone on the all-reduced coarse vector,
+    against the single-device backend (K4, whose coarse product is the same
+    kernel) on the same card, float64: the same load factors to 1e-9, K4c
+    launched by the sharded run."""
+    from fcvm_tpu_torch.parallel import dist as pdist
+
+    (out,) = pdist.spawn(_node_partition_rank, 1, args=("cuda",), device="cuda", timeout=900)
+    ref = solve_collapse(_tension_box(2), ControlParams(**GNL_BOX),
+                         config=FcvmConfig(device="cuda", dtype="float64", cg_rtol=1e-10))
+    np.testing.assert_allclose(out["lbd"], ref.history.lbd, rtol=1e-9, atol=0)
+    assert out["k4c"] > 0
 
 
 def test_sharded_two_gloo_ranks_on_one_card_match_cpu(cuda):
