@@ -66,6 +66,19 @@ Phases, each printing its numbers before the next starts:
    for K1m's K_hat·V, a cuSPARSE CSR product (``torch.sparse.mm``) of the
    assembled K_hat at every width, with the device time of each of K1m's
    two passes (torch.profiler);
+3e. K6 (``cg_iteration``), the rest of a CG iteration: each of its four
+   passes and the start form of three on the plate's vectors (float32 and
+   float64, float32 with a 32-vector deflation space and with a 64-slot
+   harvest) and the beam-column's block at m = 8 (both dtypes, a third of
+   the columns frozen) against its plain version (the updates, counters,
+   flags and harvested residuals bit for bit, the sums to the tolerance)
+   and bit for bit against a second launch; one iteration's four passes
+   timed against their plain versions, their bound, the torch chain they
+   replaced and (deflated) the three torch products of the correction, with
+   each pass's device time; then one elastic solve of the plate at each
+   ``CG_BATCH`` of ``K6_BATCHES``, in turns: the same bits and count at
+   every batch, at most ceil(iters / batch) + 2 host reads, the wall time
+   per iteration;
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
    the load-factor histories must agree; and ``linear_buckling`` of a small
@@ -73,7 +86,8 @@ Phases, each printing its numbers before the next starts:
 5. the slice at full size: the quarter plate with a hole at 502,599 dof,
    float32, two-level PCG without deflation or the precision tiers, plastic
    Riks steps through ``fcvm_tpu_torch.solve_collapse``; the launch counts
-   of K1, K4 and K8, the kernels on that path, must be > 0;
+   of K1, K4, K8 and K6, the kernels on that path, must be > 0; the CG
+   loop's host reads per solve and idle queued iterations (as in 7, 9, 9b);
 5b. phase 5 again in the same process: the same Newton and CG counts of
    every step and the same load factors, bit for bit (every node sum runs
    in a fixed order);
@@ -165,14 +179,14 @@ Phases, each printing its numbers before the next starts:
    card): phase 4's small plate, small strain and GNL, and the small
    column's buckling (``nstep = 1``) in float64 against the CPU's
    single-device runs (lbd to LBD_RTOL, factors to EIG_RTOL), both ranks'
-   histories identical, K1, K4, K8 and K1m launched on each rank, K0m not.
+   histories identical, K1, K4, K8, K6 and K1m launched on each rank, K0m not.
 14. the port's benchmark (``fcvm_tpu_torch.tools.bench.main`` with
    ``--no-same-size``, in this process): the matched plate, the 502,599-dof
    headline plate (plastic, ``assembly_gdof_s`` > 0), the box at 499,125
    dof, the capacity rows at 1,073,733 and 1,975,509 dof (converged below
    the CG cap) with each row's peak device memory, the sharded row within
-   its ``lbd_tol``, a ``vs_baseline`` from the CPU child, and K1, K4 and K8
-   launched in every row.
+   its ``lbd_tol``, a ``vs_baseline`` from the CPU child, and K1, K4, K8
+   and K6 launched in every row.
 
 Each phase prints its wall time.
 
@@ -340,7 +354,12 @@ def device_ms_by_kernel(fn, *args, calls=10):
 # (the eigensolve, the deflation builds), K4m in the eigensolve's block
 # preconditioner applies; K0m and K0 in none since K1m and K1 carry K_hat·V
 # and K_hat·v
-CG_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum")
+# and K6 the rest of every CG iteration: the sharded backend's too, whose
+# element-partitioned solves run the local loop around an all_reduced
+# operator; only its node-partitioned PCG (config.node_partition, off by
+# default and in no phase) passes its own inner product and keeps the host
+# loop (ROADMAP.md queues K6's partials through all_reduce there)
+CG_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "cg_iteration")
 BLOCK_KERNELS = ("khat_matmat", "two_level_apply_block")
 PATH_KERNELS = (*CG_KERNELS, *BLOCK_KERNELS, "block_matmat", "block_matvec")
 BY_SHAPE = ("block_matmat", *BLOCK_KERNELS)  # counted by dtype and column count
@@ -355,6 +374,30 @@ def reset_launches():
         fn.launches = 0
         getattr(fn, "shapes" if name in BY_SHAPE else "dtypes").clear()
     getattr(kernels.segment_sum, "paths", Counter()).clear()
+    getattr(kernels.cg_iteration, "passes", Counter()).clear()
+
+
+def cg_stats_reset():
+    """Clear the CG loop's counts (an older tree has none: None)."""
+    from fcvm_tpu_torch.ops import solver as slv
+
+    stats = getattr(slv, "CG_STATS", None)
+    if stats is not None:
+        stats.clear()
+    return stats
+
+
+def cg_loop_line(stats, iters, wall_s):
+    """The CG loop's host reads per solve and idle queued iterations, beside
+    the wall time per CG iteration ``wall_s`` / ``iters``."""
+    per = 1e3 * wall_s / max(iters, 1)
+    if stats is None:
+        return f"{per:.4f} ms wall per CG iteration; host read every iteration (this tree)"
+    solves = max(stats["solves"], 1)
+    return (f"{per:.4f} ms wall per CG iteration; {stats['solves']} device-loop solves, "
+            f"{stats['reads'] / solves:.2f} host reads per solve ({stats['reads']} reads), "
+            f"{stats['queued']} iterations queued, {stats['idle']} of them idle "
+            f"({stats['idle'] / max(stats['queued'], 1):.2%})")
 
 
 def read_launches():
@@ -370,6 +413,7 @@ def read_launches():
         by[name] = {f"{dt} m={m}": n
                     for (dt, m), n in sorted(getattr(kernels, name).shapes.items())}
     by["segment_sum paths"] = dict(getattr(kernels.segment_sum, "paths", {}))
+    by["cg_iteration passes"] = dict(getattr(kernels.cg_iteration, "passes", {}))
     return counts, by
 
 
@@ -649,6 +693,7 @@ def run_plate(big, cfg, label, gnl=False, required=CG_KERNELS):
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    stats = cg_stats_reset()
     stamps[0] = time.perf_counter()
     res = solve_collapse(big, plate_params(4, gnl), continuation=continuation,
                          progress=lines.append, monitor=monitor, config=cfg)
@@ -676,6 +721,7 @@ def run_plate(big, cfg, label, gnl=False, required=CG_KERNELS):
           f"ms per CG iteration incl. stress updates, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches} "
           f"{by_dtype}")
+    print(f"CG loop: {cg_loop_line(stats, res.cg_stats['iters'], res.cg_stats['time'])}")
     lbd = np.asarray(h.lbd)
     check(not any("MAXIMUM RESTARTS" in ln for ln in lines), f"{label}: a load step did not converge")
     check(len(res.cg_stats["steps"]) == len(lbd) - 1 >= 4, f"{label}: fewer than 4 recorded steps")
@@ -690,7 +736,8 @@ def run_plate(big, cfg, label, gnl=False, required=CG_KERNELS):
           f"{label}: {required} not all launched on the main path")
     return dict(lines=lines, cg_stats=res.cg_stats, res=res,
                 stepping=t["stepping"], step_iters=step_iters, step_solves=step_solves,
-                launches=launches, by_dtype=by_dtype, lbd=lbd)
+                launches=launches, by_dtype=by_dtype, lbd=lbd,
+                loop=None if stats is None else dict(stats))
 
 
 def column_model(size, width, traction, length=COL_L):
@@ -1254,6 +1301,252 @@ def block_kernel_phase(models):
     return rows
 
 
+K6_BATCHES = (1, 2, 4, 8, 16, 32)  # the CG_BATCH sweep of phase 3e
+
+
+def k6_inputs(n, m, dtype, defl=False, harvest=False, seed=16):
+    """A K6 plan of n rows (a vector for m = 0, else m columns) mid-solve on
+    the card, and seeded x, r, p and v: a running state that stays running
+    (no tolerance, gate or iteration cap in reach), every third column of a
+    block frozen; with ``defl`` a 32-vector space, with ``harvest`` 64 slots."""
+    from fcvm_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def vec(*shape):
+        return torch.randn(shape or ((n,) if m == 0 else (n, m)), generator=gen,
+                           device="cuda", dtype=dtype)
+
+    dfl = hv = None
+    if defl:
+        a = torch.randn((32, 32), generator=gen, device="cuda", dtype=dtype)
+        dfl = (vec(n, 32), a @ a.T / 32)
+    if harvest:
+        hv = (torch.zeros((64, n), dtype=dtype, device="cuda"),
+              torch.zeros((3, 64), dtype=dtype, device="cuda"))
+    plan = kernels.cg_plan(vec(), 0.0, 0.0, 1e15, 1e15, dfl, hv)
+    if defl:  # the c of a last update pass
+        plan.c.copy_(vec(32))
+    st, cols = plan.state, plan.state.shape[0]
+    st[:, kernels.SLOT_RZ] = float(n)
+    st[:, kernels.SLOT_ALPHA] = 0.25
+    st[:, kernels.SLOT_BETA] = 0.5
+    st[:, kernels.SLOT_K] = 70.0  # past the harvest's 64 slots: the clamped slot
+    st[:, kernels.SLOT_BEST] = 1e30
+    run = torch.ones(cols, dtype=torch.float64, device="cuda")
+    if cols > 1:
+        run[::3] = 0.0
+    st[:, kernels.SLOT_RUN] = run
+    st[:, kernels.SLOT_NEXT] = run
+    # x, r, p and v near one vector, so no inner product cancels: each sum
+    # is then held to the tolerance of its own size
+    base = vec()
+    return plan, [base + 0.1 * vec() for _ in range(4)]
+
+
+def k6_copy(plan, vecs):
+    from fcvm_tpu_torch.ops import kernels
+
+    scratch = plan.scratch.clone()
+    c = None if plan.c is None else scratch[kernels.CG_SCRATCH_C:
+                                            kernels.CG_SCRATCH_C + plan.c.shape[0]]
+    hv = [None if t is None else t.clone() for t in (plan.zs, plan.coef)]
+    return (kernels.CGPlan(plan.state.clone(), plan.w, plan.kw_inv, *hv, scratch,
+                           plan.ticket.clone(), c), [v.clone() for v in vecs])
+
+
+def k6_compare(plan, vecs):
+    """Each pass (and the start form of steps 1 to 3) on copies of ``plan``
+    and ``vecs``, kernel against plain version: (the max relative and
+    absolute errors of the sums and what follows from them, and of a
+    deflated z; whether every
+    vector an elementwise update writes, every counter and flag and the
+    harvest's residuals agree bit for bit, and a second launch repeats the
+    first's bits)."""
+    from fcvm_tpu_torch.ops import kernels
+
+    near = [kernels.SLOT_RZ, kernels.SLOT_ALPHA, kernels.SLOT_BETA, kernels.SLOT_RNORM,
+            kernels.SLOT_BEST, kernels.SLOT_TOL, kernels.SLOT_GATE]
+    exact = [i for i in range(len(kernels.CG_SLOTS)) if i not in near]
+    rel, abs_err, same = 0.0, 0.0, True
+
+    def err(a, b):
+        nonlocal abs_err
+        diff = float((a - b).abs().max())
+        abs_err = max(abs_err, diff)
+        return diff / max(float(b.abs().max()), 1e-300)
+
+    for start in (False, True):
+        for step in range(4):
+            if start and step == 0:
+                continue
+            (pk, vk), (pk2, vk2), (pr, vr) = (k6_copy(plan, vecs) for _ in range(3))
+            kernels.cg_iteration(step, pk, *vk, start=start)
+            kernels.cg_iteration(step, pk2, *vk2, start=start)
+            torch.cuda.synchronize()
+            kernels.cg_iteration_ref(step, start, pr, *vr)
+            for i, (a, b) in enumerate(zip(vk, vr)):
+                if step == 2 and i == 3 and plan.w is not None:
+                    rel = max(rel, err(a, b))
+                else:
+                    same &= bool(torch.equal(a, b))
+            for slot in near:  # each scalar against its own size
+                rel = max(rel, err(pk.state[:, slot], pr.state[:, slot]))
+            same &= bool(torch.equal(pk.state[:, exact], pr.state[:, exact]))
+            if plan.w is not None and step == 1:
+                rel = max(rel, err(pk.c, pr.c))
+            if plan.zs is not None:
+                same &= bool(torch.equal(pk.zs, pr.zs))
+                rel = max(rel, err(pk.coef, pr.coef))
+            same &= bool(torch.equal(pk.state, pk2.state)) and all(
+                torch.equal(a, b) for a, b in zip(vk, vk2))
+    return rel, abs_err, same
+
+
+def k6_chain(plan, vecs):
+    """The torch chain K6 replaced, one iteration of the parent's loop on the
+    same vectors: the inner products, the step length and direction update
+    with their zero guards, the three updates, the norms and their read on
+    the host."""
+    from fcvm_tpu_torch.ops import kernels
+
+    x, r, p, v = vecs
+    rows = plan.state.shape[0]
+    rz = plan.state[:, kernels.SLOT_RZ].to(x.dtype)
+    if x.dim() == 1:
+        rz = rz[0]
+
+    def dot(a, b):
+        return torch.dot(a, b) if a.dim() == 1 else (a * b).sum(dim=0)
+
+    def one():
+        pap = dot(p, v)
+        alpha = rz / torch.where(pap == 0.0, torch.ones_like(pap), pap)
+        xn, rn = x + alpha * p, r - alpha * v
+        rz_new = dot(rn, v)
+        beta = rz_new / torch.where(rz == 0.0, torch.ones_like(rz), rz)
+        pn = v + beta * p
+        norms = torch.linalg.vector_norm(rn, dim=0 if rows > 1 else None)
+        return xn, pn, norms.cpu()
+
+    return one
+
+
+def k6_phase(models):
+    """Phase 3e: K6 (``cg_iteration``) on the plate's vectors (float32 and
+    float64; float32 with a 32-vector deflation space and with a 64-slot
+    harvest) and the beam-column's block at m = 8 (float32, float64), each
+    pass and the start form of steps 1 to 3 against its plain version, bit
+    for bit on a second launch; one iteration's four passes timed against
+    their plain versions, their bound, the torch chain they replaced and the
+    deflation's three torch products; then the ``CG_BATCH`` sweep: one
+    elastic solve of the plate in float32 at each batch, in turns.  Returns
+    ``{(dtype, model, form): numbers}``."""
+    from fcvm_tpu_torch import FcvmConfig
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.ops import solver as slv
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+    from fcvm_tpu_torch.utils.indexing import pad_ndof
+
+    rows = {}
+    cases = [("plate", torch.float32, "vector"), ("plate", torch.float64, "vector"),
+             ("plate", torch.float32, "deflated"), ("plate", torch.float32, "harvest"),
+             ("column", torch.float32, "m=8"), ("column", torch.float64, "m=8")]
+    for name, dtype, form in cases:
+        dname, size = str(dtype).removeprefix("torch."), torch.finfo(dtype).bits // 8
+        tol = TOL_F32 if dtype == torch.float32 else TOL_F64
+        n = pad_ndof(models[name].mesh.ndof)
+        m = 8 if form == "m=8" else 0
+        plan, vecs = k6_inputs(n, m, dtype, form == "deflated", form == "harvest")
+        rel, abs_err, same = k6_compare(plan, vecs)
+        x, r, p, v = vecs
+
+        def iteration():
+            for step in range(4):
+                kernels.cg_iteration(step, plan, x, r, p, v)
+
+        def plain():
+            for step in range(4):
+                kernels.cg_iteration_ref(step, False, plan, x, r, p, v)
+
+        ms = cuda_ms(iteration)
+        row = dict(n=n, m=max(m, 1), max_abs_err=abs_err, max_rel_err=rel, ms=ms,
+                   plain_ms=cuda_ms(plain), chain_ms=cuda_ms(k6_chain(plan, vecs)),
+                   library_ms=None)
+        # 12 vectors of n m values an iteration (p, ap; r, ap, r; r, z; z, p,
+        # x, p, x); deflated W twice and z once more; a harvest z once more
+        nvec = 12 * max(m, 1) + (65 if form == "deflated" else 0) + (form == "harvest")
+        row["bound_ms"], row["bound_by"] = bound(nvec * n * size, 10 * n * max(m, 1), dtype)
+        extra = ""
+        if form == "deflated":
+            w, kw_inv = plan.w, plan.kw_inv
+            row["defl_products_ms"] = cuda_ms(lambda: v + w @ (kw_inv @ (w.T @ r)))
+            extra = (f", the deflation's three torch products (with the add) "
+                     f"{row['defl_products_ms']:.4f} ms")
+        bits = "the same bits" if same else "DIFFERENT BITS"
+        print(f"K6 {dname} {name} {form} n={n}: max rel err {rel:.3e} (limit {tol:g}), "
+              f"updates, counters, flags and second launch {bits}; "
+              f"four passes {ms:.4f} ms, plain {row['plain_ms']:.4f} ms (host reads of the "
+              f"state in each), the torch chain they replaced {row['chain_ms']:.4f} ms{extra}; "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{row['bound_ms'] / ms:.1%} of it; median of 20")
+        check(rel <= tol, f"K6 disagrees with its plain version ({dname}, {name}, {form})")
+        check(same, f"K6's bits differ from its plain version's or a second launch's "
+                    f"({dname}, {name}, {form})")
+        # the same pass kernels, each alone (device time, torch.profiler)
+        by = device_ms_by_kernel(iteration)
+        row["pass_device_ms"] = {k: v_ for k, v_ in by.items() if k.startswith("cg_")}
+        print(f"  device time per pass: " + ", ".join(
+            f"{k} {v_:.4f} ms" for k, v_ in sorted(row["pass_device_ms"].items())))
+        rows[(dname, name, form)] = row
+        del plan, vecs, x, r, p, v
+        torch.cuda.empty_cache()
+
+    # CG_BATCH: one elastic solve of the plate at each batch, in turns
+    big = models["plate"]
+    be = TorchSystem(big, FcvmConfig(device="cuda", dtype="float32"), torch.float32,
+                     torch.device("cuda"))
+    esm, pinv, _, rhs, *_ = be.assemble(be.tensor(big.mesh.coords))
+    khat, pc = be.operator(esm), be.make_pc(esm, pinv)
+    del esm, pinv
+    be.solve(khat, pc, rhs, x0=be.u_fix)  # warm
+    sweep = {b: [] for b in K6_BATCHES}
+    saved = slv.CG_BATCH
+    try:
+        for order in (K6_BATCHES, K6_BATCHES[::-1]):
+            for batch in order:
+                slv.CG_BATCH = batch
+                slv.CG_STATS.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = be.solve(khat, pc, rhs, x0=be.u_fix)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                sweep[batch].append(dict(ms=1e3 * wall, iters=res.iters,
+                                         reads=slv.CG_STATS["reads"],
+                                         idle=slv.CG_STATS["idle"], x=res.x))
+    finally:
+        slv.CG_BATCH = saved
+    ref = sweep[1][0]["x"]
+    for batch, runs in sweep.items():
+        same = all(torch.equal(r_["x"], ref) and r_["iters"] == sweep[1][0]["iters"]
+                   for r_ in runs)
+        print(f"CG_BATCH {batch}: elastic solve {runs[0]['iters']} CG iterations, wall "
+              f"{runs[0]['ms']:.2f} / {runs[1]['ms']:.2f} ms (turns 1 / 2) = "
+              f"{runs[0]['ms'] / runs[0]['iters']:.4f} / {runs[1]['ms'] / runs[1]['iters']:.4f} "
+              f"ms per iteration, {runs[0]['reads']} host reads, {runs[0]['idle']} idle "
+              f"iterations; x and count {'those of CG_BATCH 1' if same else 'DIFFER'}")
+        check(same, f"phase 3e: CG_BATCH {batch} changed the solve's bits or count")
+        check(runs[0]["reads"] <= -(-runs[0]["iters"] // batch) + 2,
+              f"phase 3e: more than ceil(iters / {batch}) + 2 host reads")
+    print(f"CG_BATCH in the port: {saved}")
+    rows["sweep"] = {b: [{k: v_ for k, v_ in r_.items() if k != "x"} for r_ in runs]
+                     for b, runs in sweep.items()}
+    del khat, pc, be, sweep, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
 # where the coarse table's later chunk starts (its longest group: 7,473 rows
 # on the plate)
 COARSE_LATER = 57_344
@@ -1446,6 +1739,7 @@ def run_column(cfg, nstep=COL_NSTEP, label="phase 9", required=(*CG_KERNELS, *BL
     torch.cuda.reset_peak_memory_stats()
     direct0 = (ScipyDirectSolver.factorizations, ScipyDirectSolver.solves)
     reset_launches()
+    stats = cg_stats_reset()
     with warnings.catch_warnings(record=True) as warned:
         warnings.simplefilter("always")
         stamps[0] = time.perf_counter()
@@ -1499,6 +1793,9 @@ def run_column(cfg, nstep=COL_NSTEP, label="phase 9", required=(*CG_KERNELS, *BL
           f"{label}: {required} not all launched on the path")
     check(all(launches[k] == 0 for k in absent), f"{label}: {absent} launched on the path")
     print(f"launches by dtype (K0m, K1m and K4m by dtype and m) {by_dtype}")
+    inner = sum(sum(map(sum, r["inner_iters"])) for r in tiers)
+    print(f"CG loop, eigensolve (block iterations and their columns' inner CG {inner}): "
+          f"{cg_loop_line(stats, inner, t['buckling'])}")
     return dict(launches=launches, by_dtype=by_dtype, buckling=t["buckling"],
                 stepping=t["stepping"], wall=wall, factors=lam.tolist(), tiers=tiers,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -1819,7 +2116,7 @@ def case_phase(tmp, smi):
     check(float(res.peeq_gp.max()) > 0.0, "phase 10: no plastic strain")
     check(bool(dmat_shapes) and all(s == (NE_BIG, 6, 6) for s in dmat_shapes),
           f"phase 10: the backend's elasticity is {dmat_shapes}, not per element")
-    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 10: K1, K4 or K8 was not launched")
+    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 10: K1, K4, K8 or K6 was not launched")
     return dict(launches=launches)
 
 
@@ -1846,9 +2143,9 @@ def cli_phase(tmp):
         lbd[dev] = latest_step(tmp / dev / "checkpoints")[1]["lbd"]
         fields[dev] = read_point_fields(tmp / dev / "plate.vtk")
         print(f"CLI run --x64{' --cpu' if dev == 'cpu' else ''}: {time.perf_counter() - t0:.2f} s, "
-              f"lbd {np.round(lbd[dev], 6).tolist()}, K1, K4 and K8 launches {launches}")
+              f"lbd {np.round(lbd[dev], 6).tolist()}, K1, K4, K8 and K6 launches {launches}")
         check(all((n > 0) == (dev == "cuda") for n in launches.values()),
-              f"phase 10b: K1, K4 and K8 launches {launches} on {dev}")
+              f"phase 10b: K1, K4, K8 and K6 launches {launches} on {dev}")
     check(len(lbd["cuda"]) == len(lbd["cpu"]) == 7, "phase 10b: step counts differ from 6")
     diff = float(np.max(np.abs(lbd["cuda"] - lbd["cpu"]) / np.maximum(np.abs(lbd["cpu"]), 1e-300)))
     fdiff, fname = max((float(np.abs(fields["cuda"][k] - v).max() / max(np.abs(v).max(), 1.0)), k)
@@ -2138,7 +2435,7 @@ def fcstd_phase(tmp, smi):
     check(diff <= CLI_RTOL, "phase 12: the document's history differs from the TOML case's")
     check(bool(np.all(np.diff(lbd["fcstd"]) >= 0.0)) and lbd["fcstd"].max() < 1.76,
           "phase 12: load factors decreasing or above 1.76")
-    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 12: K1, K4 or K8 was not launched")
+    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 12: K1, K4, K8 or K6 was not launched")
     return dict(launches=launches, t_read=t_read, t_resolver=t_resolver, t_build=t_build,
                 walls=walls)
 
@@ -2345,7 +2642,7 @@ def bench_phase(smi):
     check(sh["lbd_within_tol"], "phase 14: sharded and local load factors differ")
     check(g["vs_baseline"] is not None, "phase 14: no vs_baseline")
     check(all(r["launches"][k] > 0 for r in rows.values() for k in CG_KERNELS),
-          "phase 14: a row of the bench did not launch K1, K4 or K8")
+          "phase 14: a row of the bench did not launch K1, K4, K8 or K6")
     return launches
 
 
@@ -2400,6 +2697,10 @@ def main():
     phase(f"3d K1m and K4m vs plain, the chains they replaced and cuSPARSE, on the plate's and "
           f"the beam-column's operators ({smi})")
     block_rows = block_kernel_phase(cg_models)
+
+    phase(f"3e K6, the CG iteration's passes, vs plain, the torch chain it replaced and the "
+          f"deflation's products; the CG_BATCH sweep ({smi})")
+    k6 = k6_phase(cg_models)
     del cg_models
 
     phase("4 small plate, float64, GPU vs CPU, small strain and GNL")
@@ -2619,6 +2920,25 @@ def main():
         "dtype": "float32", "model": "plate", "variant": "masked",
         **cg_rows[("khat_matvec", "float32", "plate", "masked")],
         "shapes": cg_shapes("khat_matvec"),
+    }, {
+        "name": "cg_iteration", "route": "cuda", "source": "fcvm_tpu_torch/csrc/cg_iteration.cu",
+        "source_also": "its plan and plain version fcvm_tpu_torch/ops/kernels.py:cg_plan, "
+                       "cg_iteration_ref; its loop fcvm_tpu_torch/ops/solver.py (CG_BATCH)",
+        "replaces": "fcvm_tpu/ops/solver.py:107",
+        "replaces_also": "the body and cond of the lax.while_loop of pcg and pcg_harvest "
+                         "(fcvm_tpu/ops/solver.py:107-122, :175-197), the products of "
+                         "fcvm_tpu/ops/deflation.py:74 (deflated), the same body under the vmap "
+                         "of fcvm_tpu/runtime/buckling.py:552; XLA-lowered",
+        "launches": off["launches"]["cg_iteration"], **path_launches("cg_iteration"),
+        "launches_by_pass": {k: v["by_dtype"]["cg_iteration passes"] for k, v in paths.items()
+                             if "by_dtype" in v},
+        "host_loop": "the sharded backend's node-partitioned PCG (config.node_partition, in "
+                     "no phase) passes its own inner product and keeps the host loop",
+        "dtype": "float32", "model": "plate", "form": "vector",
+        **k6[("float32", "plate", "vector")],
+        "shapes": [{"dtype": dt, "model": mo, "form": f, **row}
+                   for key, row in k6.items() if key != "sweep" for dt, mo, f in [key]],
+        "cg_batch_sweep": k6["sweep"],
     }, {
         "name": "segment_sum", "route": "cuda", "source": "fcvm_tpu_torch/csrc/segment_sum.cu",
         "replaces": "fcvm_tpu/ops/assembly.py:386",

@@ -9,6 +9,7 @@
 //   fcvm::two_level_apply_block  K4m  csrc/two_level.cu (with K4c)
 //   fcvm::coarse_product  K4c  csrc/two_level.cu (alone)
 //   fcvm::segment_sum   K8   csrc/segment_sum.cu (in place: accumulate or write)
+//   fcvm::cg_pass       K6   csrc/cg_iteration.cu (one pass of a CG iteration, in place)
 //   fcvm::soa_matvec    K0p  csrc/bw_probe.cu
 //   fcvm::bw_read       Kbw  csrc/bw_probe.cu
 // so each is called as torch.ops.fcvm.<name>.  The kernels themselves keep a
@@ -103,6 +104,15 @@ extern "C" int fcvm_coarse_product_f32(const float* tiles, const float* x, float
 extern "C" int fcvm_coarse_product_f64(const double* tiles, const double* x, double* y,
                                        double* sv, double* su, long long n, int m, int nruns,
                                        int maxseg, void* stream);
+extern "C" long long fcvm_cg_scratch();
+extern "C" int fcvm_cg_pass_f32(int step, int start, double* st, float* part, unsigned* ticket,
+                                float* x, float* r, float* p, float* v, const float* w,
+                                const float* kw_inv, float* zs, float* coef, long long n, int m,
+                                int kd, int nstore, void* stream);
+extern "C" int fcvm_cg_pass_f64(int step, int start, double* st, double* part, unsigned* ticket,
+                                double* x, double* r, double* p, double* v, const double* w,
+                                const double* kw_inv, double* zs, double* coef, long long n,
+                                int m, int kd, int nstore, void* stream);
 extern "C" int fcvm_soa_matvec_f32(const float* esm_t, const float* ue_t, float* out,
                                    long long ne, int tile, void* stream);
 extern "C" int fcvm_bw_read_blocks(long long rows, long long chunk_rows, int device);
@@ -622,6 +632,82 @@ at::Tensor two_level_apply_block(const at::Tensor& pinv, const at::Tensor& qmat,
   return z;
 }
 
+// K6: pass `step` (0-3: p.ap, the update, r.z, the direction) of a CG
+// iteration on state (m, 16) float64, in place; x, r, p, v (n,) for m = 1 or
+// (n, m); v is ap for steps 0 and 1, z for 2 and 3.  Deflation (w (n, kd),
+// kw_inv (kd, kd)) and the harvest (zs (nstore, n), coef (3, nstore)) only
+// for m = 1.  Tensors a pass does not read may be any of the vectors.
+template <typename T>
+T* ptr(const std::optional<at::Tensor>& t) {
+  return t ? t->data_ptr<T>() : nullptr;
+}
+
+void cg_pass(int64_t step, bool start, const at::Tensor& state, const at::Tensor& scratch,
+             const at::Tensor& ticket, const at::Tensor& x, const at::Tensor& r,
+             const at::Tensor& p, const at::Tensor& v, const std::optional<at::Tensor>& w,
+             const std::optional<at::Tensor>& kw_inv, const std::optional<at::Tensor>& zs,
+             const std::optional<at::Tensor>& coef) {
+  const auto dev = state.device();
+  const auto dt = x.scalar_type();
+  TORCH_CHECK(state.is_cuda(), "cg_pass: the state must be on a CUDA device");
+  for (const at::Tensor* t : {&scratch, &ticket, &x, &r, &p, &v})
+    TORCH_CHECK(t->device() == dev && t->is_contiguous(),
+                "cg_pass: every tensor must be contiguous and on the state's device");
+  for (const auto* t : {&w, &kw_inv, &zs, &coef})
+    TORCH_CHECK(!*t || ((*t)->device() == dev && (*t)->is_contiguous() &&
+                        (*t)->scalar_type() == dt),
+                "cg_pass: w, kw_inv, zs and coef must be contiguous, on the state's device and "
+                "of the vectors' dtype");
+  TORCH_CHECK(dt == at::kFloat || dt == at::kDouble, "cg_pass: dtype must be float32 or "
+              "float64, got ", dt);
+  TORCH_CHECK(r.scalar_type() == dt && p.scalar_type() == dt && v.scalar_type() == dt &&
+                  scratch.scalar_type() == dt,
+              "cg_pass: x, r, p, v and the scratch differ in dtype");
+  TORCH_CHECK(state.scalar_type() == at::kDouble && state.dim() == 2 && state.size(1) == 16 &&
+                  state.size(0) >= 1 && state.size(0) <= 64,
+              "cg_pass: expected a float64 state (m, 16), 1 <= m <= 64");
+  TORCH_CHECK(ticket.scalar_type() == at::kInt && ticket.numel() == 1,
+              "cg_pass: expected an int32 ticket of one value");
+  TORCH_CHECK(scratch.dim() == 1 && scratch.size(0) >= fcvm_cg_scratch(),
+              "cg_pass: the scratch needs ", fcvm_cg_scratch(), " values");
+  TORCH_CHECK(step >= 0 && step <= 3, "cg_pass: step must be 0 to 3");
+  const long long m = state.size(0), n = x.dim() >= 1 ? x.size(0) : -1;
+  const bool vec = x.dim() == 1;
+  TORCH_CHECK((vec ? m == 1 : (x.dim() == 2 && x.size(1) == m)) && r.sizes() == x.sizes() &&
+                  p.sizes() == x.sizes() && v.sizes() == x.sizes(),
+              "cg_pass: expected x, r, p, v of one shape, (n,) with one state row or (n, m) "
+              "with m");
+  TORCH_CHECK(!w == !kw_inv && !zs == !coef, "cg_pass: give w with kw_inv, zs with coef");
+  const long long kd = w ? w->size(w->dim() - 1) : 0;
+  TORCH_CHECK(!w || (vec && w->dim() == 2 && w->size(0) == n && kd >= 1 && kd <= 32 &&
+                     kw_inv->dim() == 2 && kw_inv->size(0) == kd && kw_inv->size(1) == kd),
+              "cg_pass: expected w (n, kd), 1 <= kd <= 32, and kw_inv (kd, kd), with a vector");
+  const long long nstore = coef ? coef->size(coef->dim() - 1) : 0;
+  TORCH_CHECK(!zs || (vec && zs->dim() == 2 && zs->size(1) == n && coef->dim() == 2 &&
+                      coef->size(0) == 3 && nstore == zs->size(0) && nstore >= 1 &&
+                      nstore <= 0x7fffffffLL),
+              "cg_pass: expected zs (nstore, n) and coef (3, nstore), with a vector");
+  const c10::cuda::CUDAGuard guard(dev);
+  void* stream = c10::cuda::getCurrentCUDAStream().stream();
+  auto* st = state.data_ptr<double>();
+  auto* tk = reinterpret_cast<unsigned*>(ticket.data_ptr<int>());
+  int err = 0;
+  if (dt == at::kFloat)
+    err = fcvm_cg_pass_f32(static_cast<int>(step), start, st, scratch.data_ptr<float>(), tk,
+                           x.data_ptr<float>(), r.data_ptr<float>(), p.data_ptr<float>(),
+                           v.data_ptr<float>(), ptr<float>(w), ptr<float>(kw_inv),
+                           ptr<float>(zs), ptr<float>(coef), n, static_cast<int>(m),
+                           static_cast<int>(kd), static_cast<int>(nstore), stream);
+  else
+    err = fcvm_cg_pass_f64(static_cast<int>(step), start, st, scratch.data_ptr<double>(), tk,
+                           x.data_ptr<double>(), r.data_ptr<double>(), p.data_ptr<double>(),
+                           v.data_ptr<double>(), ptr<double>(w), ptr<double>(kw_inv),
+                           ptr<double>(zs), ptr<double>(coef), n, static_cast<int>(m),
+                           static_cast<int>(kd), static_cast<int>(nstore), stream);
+  TORCH_CHECK(err == 0, "cg_pass: kernel launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+}
+
 at::Tensor soa_matvec(const at::Tensor& esm_t, const at::Tensor& ue_t, int64_t tile) {
   TORCH_CHECK(esm_t.is_cuda() && ue_t.device() == esm_t.device(),
               "soa_matvec: both tensors must be on one CUDA device");
@@ -689,6 +775,9 @@ TORCH_LIBRARY(fcvm, m) {
   m.def("two_level_apply_block(Tensor pinv, Tensor qmat, Tensor coarse, int ncf, "
         "Tensor fixmask, Tensor r, Tensor? z_fine) -> Tensor");
   m.def("coarse_product(Tensor tiles, Tensor x) -> Tensor");
+  m.def("cg_pass(int step, bool start, Tensor(a!) state, Tensor(b!) scratch, Tensor(c!) ticket, "
+        "Tensor(d!) x, Tensor(e!) r, Tensor(f!) p, Tensor(g!) v, Tensor? w, Tensor? kw_inv, "
+        "Tensor(h!)? zs, Tensor(i!)? coef) -> ()");
   m.def("soa_matvec(Tensor esm_t, Tensor ue_t, int tile) -> Tensor");
   m.def("bw_read(Tensor x, int k, int chunk_rows) -> Tensor");
 }
@@ -703,6 +792,7 @@ TORCH_LIBRARY_IMPL(fcvm, CUDA, m) {
   m.impl("two_level_apply_block", &two_level_apply_block);
   m.impl("coarse_product", &coarse_product);
   m.impl("segment_sum", &segment_sum);
+  m.impl("cg_pass", &cg_pass);
   m.impl("soa_matvec", &soa_matvec);
   m.impl("bw_read", &bw_read);
 }

@@ -234,11 +234,10 @@ def make_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, ndof: int, incidence=
     of ``eldofs`` (ne, 30) over ``ndof // 3`` nodes, and on the card
     ``packed``, the blocks' :func:`~fcvm_tpu_torch.ops.kernels.pack_blocks`
     copy, are made here when not given."""
-    inc = _incidence(eldofs, ndof, incidence)
-    blocks = _blocks(esm_t, packed)
+    k1 = kernels.khat_matvec_bound(_blocks(esm_t, packed), _incidence(eldofs, ndof, incidence))
 
     def kv(u):
-        return kernels.khat_matvec(blocks, inc, u.contiguous())  # a dense vector
+        return k1(u.contiguous())  # a dense vector
 
     return kv
 
@@ -249,12 +248,13 @@ def make_bc_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, fixmask: torch.Ten
     ``K_hat u = P K P u + (I - P) u`` with ``P = diag(fixmask)`` — the same
     solution space as the reference's row/column elimination
     (``fcVM.py:771-796``).  ``esm_t`` is element-major (30, 30, ne);
-    ``incidence`` and ``packed`` as in :func:`make_matvec`."""
-    inc = _incidence(eldofs, fixmask.shape[0], incidence)
-    blocks = _blocks(esm_t, packed)
+    ``incidence`` and ``packed`` as in :func:`make_matvec`.  K1's checks run
+    here, once per operator."""
+    k1 = kernels.khat_matvec_bound(_blocks(esm_t, packed),
+                                   _incidence(eldofs, fixmask.shape[0], incidence), fixmask)
 
     def khat(u):
-        return kernels.khat_matvec(blocks, inc, u.contiguous(), fixmask)
+        return k1(u.contiguous())
 
     return khat
 

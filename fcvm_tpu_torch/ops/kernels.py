@@ -37,6 +37,15 @@
   coarse inverse's packed upper tiles (:func:`pack_coarse`, made once per
   preconditioner build), which :func:`coarse_product` launches alone (the
   sharded backend's coarse product).
+* K6 :func:`cg_iteration`, one of the four vector passes of a CG iteration
+  on the solve's device state (:class:`CGPlan`), with the loop's
+  convergence test and the Ritz deflation correction folded in, replaces
+  the XLA-lowered body and cond of the ``lax.while_loop`` of
+  ``fcvm_tpu/ops/solver.py::pcg``/``pcg_harvest`` (the chain at
+  ``solver.py:107-122``), the products of
+  ``fcvm_tpu/ops/deflation.py::deflated`` and, on a block, the same body
+  under the ``vmap`` of ``fcvm_tpu/runtime/buckling.py::_kinv``; source
+  ``csrc/cg_iteration.cu``.
 * K0p :func:`soa_matvec` replaces ``tools/bw_probe.py::soa_matvec``;
   source ``csrc/bw_probe.cu``.
 * Kbw :func:`bw_read` replaces ``tools/bw_probe.py::make_bw_kernel``;
@@ -57,9 +66,10 @@ Dispatch is by the tensors' device: on CPU tensors a wrapper runs the plain
 version (``*_ref``), on CUDA tensors it launches the kernel or raises.  There
 is no fallback from a failed build or launch.  Each wrapper counts its
 kernel launches in its ``launches`` attribute (K8 its calls, each launching
-one or two kernels); K0, K1, K4 and K8 also count them by dtype in their
-``dtypes``, K0m, K1m and K4m by dtype and column count in their
-``shapes`` (K4c alone too: ``coarse_product.shapes``),
+one or two kernels); K0, K1, K4, K6 and K8 also count them by dtype in their
+``dtypes`` (K6 by pass in ``cg_iteration.passes``), K0m, K1m and K4m by
+dtype and column count in their ``shapes`` (K4c alone too:
+``coarse_product.shapes``),
 and K8 its kernels by form and path in ``segment_sum.paths``.
 
 The kernels are compiled at first use by ``torch.utils.cpp_extension.load``
@@ -83,7 +93,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("ops.cpp", "block_matvec.cu", "block_matmat.cu", "khat_matvec.cu",
-           "khat_matmat.cu", "two_level.cu", "segment_sum.cu", "bw_probe.cu")
+           "khat_matmat.cu", "two_level.cu", "segment_sum.cu", "cg_iteration.cu",
+           "bw_probe.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3")
 
 
@@ -400,24 +411,45 @@ def khat_matvec(blocks: torch.Tensor, inc: NodeIncidence, u: torch.Tensor,
       kernel (``khat_matvec.launches`` counts those launches), whose sums
       run in a fixed order: two calls on the same inputs give the same bits.
     """
-    ne = inc.elnodes_t.shape[1] if inc.elnodes_t.dim() == 2 else -1
-    nn = inc.offsets.shape[0] - 1
-    if (inc.elnodes_t.shape != (10, ne) or inc.pos.shape != (10 * ne,)
-            or u.shape != (3 * nn,) or (fixmask is not None and fixmask.shape != u.shape)):
-        raise ValueError(
-            f"khat_matvec: elnodes_t {tuple(inc.elnodes_t.shape)}, {nn} nodes, pos "
-            f"{tuple(inc.pos.shape)}, u {tuple(u.shape)}; expected (10, ne), (10 ne,), (3 nn,)")
-    if _k1_on_cpu("khat_matvec", blocks, inc, u, fixmask):
-        return khat_matvec_ref(blocks, inc, u, fixmask)
-    build()
-    out = torch.ops.fcvm.khat_matvec(blocks, inc.elnodes_t, inc.offsets, inc.pos, u, fixmask)
-    khat_matvec.launches += 1
-    khat_matvec.dtypes[_dtype_name(u)] += 1
-    return out
+    _k1_shapes(inc, u.shape, fixmask)
+    _k1_on_cpu("khat_matvec", blocks, inc, u, fixmask)
+    return khat_matvec_bound(blocks, inc, fixmask)(u)
 
 
 khat_matvec.launches = 0
 khat_matvec.dtypes = Counter()  # launches by dtype name
+
+
+def _k1_shapes(inc, u_shape, fixmask):
+    ne = inc.elnodes_t.shape[1] if inc.elnodes_t.dim() == 2 else -1
+    nn = inc.offsets.shape[0] - 1
+    if (inc.elnodes_t.shape != (10, ne) or inc.pos.shape != (10 * ne,)
+            or u_shape != (3 * nn,) or (fixmask is not None and fixmask.shape != u_shape)):
+        raise ValueError(
+            f"khat_matvec: elnodes_t {tuple(inc.elnodes_t.shape)}, {nn} nodes, pos "
+            f"{tuple(inc.pos.shape)}, u {tuple(u_shape)}; expected (10, ne), (10 ne,), (3 nn,)")
+
+
+def khat_matvec_bound(blocks: torch.Tensor, inc: NodeIncidence, fixmask=None):
+    """K1 of one operator, the checks of ``blocks``, ``inc`` and
+    ``fixmask`` made once: returns ``u -> khat_matvec(blocks, inc, u,
+    fixmask)``, which on the CPU takes the plain version and on the card
+    launches K1 at once (the binding checks ``u``) and counts it in
+    ``khat_matvec.launches``: the one place that launches K1."""
+    nn = inc.offsets.shape[0] - 1
+    _k1_shapes(inc, (3 * nn,), fixmask)
+    if _k1_on_cpu("khat_matvec", blocks, inc, None, fixmask):
+        return lambda u: khat_matvec_ref(blocks, inc, u, fixmask)
+    build()
+    op, tables, name = torch.ops.fcvm.khat_matvec, tuple(inc[:3]), _dtype_name(blocks)
+
+    def k1(u):
+        out = op(blocks, *tables, u, fixmask)
+        khat_matvec.launches += 1
+        khat_matvec.dtypes[name] += 1
+        return out
+
+    return k1
 
 
 def _k1_on_cpu(name, blocks, inc, u, fixmask) -> bool:
@@ -937,18 +969,41 @@ def two_level_apply(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
         raise ValueError(
             f"two_level_apply: shapes pinv {tuple(pinv.shape)}, qmat {tuple(qmat.shape)}, "
             f"r {tuple(r.shape)}; expected (nn, 3, 3), (ncl cs, 3, nm), (3 nn,)")
-    if _two_level_on_cpu("two_level_apply", pinv, qmat, coarse_inv, fixmask, r, z_fine, nn):
-        return two_level_apply_ref(pinv, qmat, coarse_inv, fixmask, r, z_fine)
-    build()
-    out = torch.ops.fcvm.two_level_apply(pinv, qmat, coarse_inv.tiles, coarse_inv.n, fixmask, r,
-                                         z_fine)
-    two_level_apply.launches += 1
-    two_level_apply.dtypes[_dtype_name(r)] += 1
-    return out
+    _two_level_on_cpu("two_level_apply", pinv, qmat, coarse_inv, fixmask, r, z_fine, nn)
+    return two_level_apply_bound(pinv, qmat, coarse_inv, fixmask)(r, z_fine)
 
 
 two_level_apply.launches = 0
 two_level_apply.dtypes = Counter()  # launches by dtype name
+
+
+def two_level_apply_bound(pinv, qmat, coarse_inv, fixmask):
+    """K4 of one preconditioner, the checks of its operands made once:
+    returns ``(r, z_fine=None) -> two_level_apply(pinv, qmat, coarse_inv,
+    fixmask, r, z_fine)`` on vectors, which on the CPU takes the plain
+    version and on the card launches K4 at once (the binding checks ``r``
+    and ``z_fine``) and counts it in ``two_level_apply.launches``: the one
+    place that launches K4."""
+    nn = pinv.shape[0] if pinv.dim() == 3 else -1
+    if (fixmask.shape != (3 * nn,) or pinv.shape != (nn, 3, 3) or qmat.dim() != 3
+            or qmat.shape[1] != 3):
+        raise ValueError(
+            f"two_level_apply: shapes pinv {tuple(pinv.shape)}, qmat {tuple(qmat.shape)}, "
+            f"fixmask {tuple(fixmask.shape)}; expected (nn, 3, 3), (ncl cs, 3, nm), (3 nn,)")
+    if _two_level_on_cpu("two_level_apply", pinv, qmat, coarse_inv, fixmask, fixmask, None, nn):
+        return lambda r, z_fine=None: two_level_apply_ref(pinv, qmat, coarse_inv, fixmask, r,
+                                                          z_fine)
+    build()
+    op, tiles, ncf, name = (torch.ops.fcvm.two_level_apply, coarse_inv.tiles, coarse_inv.n,
+                            _dtype_name(fixmask))
+
+    def k4(r, z_fine=None):
+        out = op(pinv, qmat, tiles, ncf, fixmask, r, z_fine)
+        two_level_apply.launches += 1
+        two_level_apply.dtypes[name] += 1
+        return out
+
+    return k4
 
 
 def _two_level_on_cpu(name, pinv, qmat, coarse_inv, fixmask, r, z_fine, nn) -> bool:
@@ -1040,6 +1095,273 @@ def two_level_apply_block(pinv, qmat, coarse_inv, fixmask, r, z_fine=None):
 
 two_level_apply_block.launches = 0
 two_level_apply_block.shapes = Counter()  # launches by (dtype name, m)
+
+
+# K6's state: one float64 row of these slots a column of the solve, read and
+# written by its passes alone (the order of csrc/cg_iteration.cu)
+CG_SLOTS = ("rz", "alpha", "beta", "k", "rnorm", "best", "since", "run", "next", "tol", "gate",
+            "stall_lim", "maxiter", "bnorm", "rtol", "atol")
+(SLOT_RZ, SLOT_ALPHA, SLOT_BETA, SLOT_K, SLOT_RNORM, SLOT_BEST, SLOT_SINCE, SLOT_RUN, SLOT_NEXT,
+ SLOT_TOL, SLOT_GATE, SLOT_STALL_LIM, SLOT_MAXITER, SLOT_BNORM, SLOT_RTOL,
+ SLOT_ATOL) = range(len(CG_SLOTS))
+CG_PASSES = ("pap", "update", "rz", "direction")  # K6's steps 0 to 3
+CG_MAX_COLS = 64  # columns of a block solve (kMaxCols)
+CG_MAX_DEFL = 32  # deflation vectors on the card (kMaxDefl: a lane each)
+CG_SCRATCH_C = 1024 * CG_MAX_COLS  # the partials of kMaxBlocks blocks, then c
+CG_SCRATCH = CG_SCRATCH_C + CG_MAX_DEFL
+
+
+class CGPlan:
+    """What K6 reads and writes of one CG solve beside its vectors, checked
+    once (:func:`cg_plan`).
+
+    Fields:
+      state: (m, 16) float64, a row of ``CG_SLOTS`` a column (m = 1 for a
+        vector solve) on the solve's device.
+      w, kw_inv: the deflation basis (n, kd) and Galerkin pseudo-inverse
+        (kd, kd), or None.
+      c: (kd,) ``kw_inv W^T r`` of the last update pass (on the card a view
+        of the scratch), or None.
+      zs, coef: the harvest, (nstore, n) residuals and (3, nstore) rows
+        r.z, alpha and beta, or None.
+      scratch, ticket: on the card the partial sums' scratch and the
+        last-block ticket (None on the CPU).
+    """
+
+    def __init__(self, state, w, kw_inv, zs, coef, scratch, ticket, c):
+        self.state, self.w, self.kw_inv, self.zs, self.coef = state, w, kw_inv, zs, coef
+        self.scratch, self.ticket, self.c = scratch, ticket, c
+        self.cpu = state.device.type == "cpu"
+        self.dtype_name = None if scratch is None else _dtype_name(scratch)
+
+    def read(self) -> list:
+        """The state's rows on the host: the one read of the device a batch."""
+        return self.state.tolist()
+
+    def select(self, cols) -> "CGPlan":
+        """The plan of the columns ``cols`` (host ints) of a block solve: a
+        copy of their state rows, the same scratch and ticket."""
+        idx = torch.as_tensor(cols, dtype=torch.long, device=self.state.device)
+        return CGPlan(self.state.index_select(0, idx), None, None, None, None, self.scratch,
+                      self.ticket, None)
+
+
+def cg_plan(b: torch.Tensor, rtol: float, atol: float, maxiter: int, stall_lim: int,
+            defl=None, harvest=None) -> CGPlan:
+    """K6's :class:`CGPlan` of a solve of ``b`` ((n,), or (n, m) with m <=
+    ``CG_MAX_COLS`` for a block of independent solves): the state with the
+    tolerances and ``||b||`` per column (no read of the device), and on the
+    card the scratch.  ``defl``: ``(w, kw_inv)`` of a deflation space
+    ((n, kd), kd <= ``CG_MAX_DEFL`` on the card); ``harvest``: ``(zs,
+    coef)``, (nstore, n) and (3, nstore); both for a vector only."""
+    if b.dim() not in (1, 2) or (b.dim() == 2 and not 1 <= b.shape[1] <= CG_MAX_COLS):
+        raise ValueError(f"cg_plan: b {tuple(b.shape)}; expected (n,) or (n, m), 1 <= m <= "
+                         f"{CG_MAX_COLS}")
+    if b.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"cg_plan: dtype {b.dtype}; expected float32 or float64")
+    if b.device.type not in ("cpu", "cuda") or not b.is_contiguous():
+        raise ValueError(f"cg_plan: b on {b.device}, contiguous {b.is_contiguous()}; expected "
+                         "a dense b on the CPU or a CUDA device")
+    n, m, cuda = b.shape[0], 1 if b.dim() == 1 else b.shape[1], b.is_cuda
+    extra = ()
+    if defl is not None:
+        w, kw_inv = defl
+        kd = w.shape[-1] if w.dim() == 2 else -1
+        if (b.dim() != 1 or w.shape != (n, kd) or kw_inv.shape != (kd, kd) or kd < 1
+                or (cuda and kd > CG_MAX_DEFL)):
+            raise ValueError(f"cg_plan: deflation w {tuple(w.shape)}, kw_inv "
+                             f"{tuple(kw_inv.shape)} for b {tuple(b.shape)}; expected a vector "
+                             f"b (n,), w (n, kd) and kw_inv (kd, kd), kd <= {CG_MAX_DEFL} on "
+                             "the card")
+        extra += (w, kw_inv)
+    if harvest is not None:
+        zs, coef = harvest
+        if (b.dim() != 1 or zs.dim() != 2 or zs.shape[1] != n or zs.shape[0] < 1
+                or coef.shape != (3, zs.shape[0])):
+            raise ValueError(f"cg_plan: harvest zs {tuple(zs.shape)}, coef {tuple(coef.shape)} "
+                             f"for b {tuple(b.shape)}; expected a vector b (n,), zs (nstore, n) "
+                             "and coef (3, nstore)")
+        extra += (zs, coef)
+    for t in extra:
+        if t.device != b.device or t.dtype != b.dtype or not t.is_contiguous():
+            raise ValueError("cg_plan: the deflation space and the harvest must be dense, on "
+                             "b's device and of its dtype")
+    state = torch.zeros((m, len(CG_SLOTS)), dtype=torch.float64, device=b.device)
+    for slot, value in ((SLOT_RTOL, rtol), (SLOT_ATOL, atol), (SLOT_STALL_LIM, stall_lim),
+                        (SLOT_MAXITER, maxiter)):
+        state[:, slot] = float(value)  # fills on the device: no copy from the host
+    state[:, SLOT_BNORM] = _col_norms(b).to(torch.float64)
+    w, kw_inv = defl if defl is not None else (None, None)
+    zs, coef = harvest if harvest is not None else (None, None)
+    if not cuda:
+        c = None if w is None else torch.empty(w.shape[1], dtype=b.dtype)
+        return CGPlan(state, w, kw_inv, zs, coef, None, None, c)
+    build()
+    scratch = torch.empty(CG_SCRATCH, dtype=b.dtype, device=b.device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=b.device)
+    c = None if w is None else scratch[CG_SCRATCH_C:CG_SCRATCH_C + w.shape[1]]
+    return CGPlan(state, w, kw_inv, zs, coef, scratch, ticket, c)
+
+
+def _col_dots(u, v):
+    """(m,) the solver's inner products: ``torch.dot`` of vectors, column
+    sums of the products of blocks."""
+    return torch.dot(u, v).reshape(1) if u.dim() == 1 else (u * v).sum(dim=0)
+
+
+def _col_norms(v):
+    """(m,) ``torch.linalg.vector_norm`` of a vector or of each column."""
+    if v.dim() == 1:
+        return torch.linalg.vector_norm(v).reshape(1)
+    return torch.linalg.vector_norm(v, dim=0)
+
+
+def _per_col(values, like):
+    """Host floats of each column as a tensor of ``like``'s dtype that
+    scales ``like``: 0-d for a vector, (m,) for a block's rows."""
+    t = torch.tensor(values, dtype=like.dtype, device=like.device)
+    return t[0] if like.dim() == 1 else t
+
+
+def _masked(run, like):
+    """``run`` (host bools a column) as a mask over ``like``'s columns."""
+    mask = torch.tensor(run, device=like.device)
+    return mask[0] if like.dim() == 1 else mask
+
+
+def _cond(row) -> float:
+    """The JAX ``while_loop``'s cond on a state row after its update, in
+    float64 (the kernel's ``cond_of``)."""
+    rn = row[SLOT_RNORM]
+    stalled = row[SLOT_SINCE] >= row[SLOT_STALL_LIM] and rn < row[SLOT_GATE]
+    return 1.0 if rn > row[SLOT_TOL] and row[SLOT_K] < row[SLOT_MAXITER] and not stalled else 0.0
+
+
+def cg_iteration_ref(step: int, start: bool, plan: CGPlan, x, r, p, v) -> None:
+    """Plain version of K6's pass ``step`` on ``plan``, in place: the
+    parent's torch chain (``torch.dot`` or column sums, the step length and
+    direction update with their zero guards, the updates, ``vector_norm``,
+    ``W (K_w^+ (W^T r))``), the scalar tail on the host in float64 (a read
+    of the state on the card), each column frozen once its ``run`` is 0.
+    ``v`` is ``ap`` in steps 0 and 1, ``z`` in 2 and 3."""
+    state = plan.state
+    rows = state.tolist()
+    run = [bool(row[SLOT_RUN]) for row in rows]
+    if step == 0:  # p.ap; run = next; alpha
+        nxt = [row[SLOT_NEXT] for row in rows]
+        if any(nxt):
+            pap = _col_dots(p, v)
+            rz = torch.tensor([row[SLOT_RZ] for row in rows], dtype=p.dtype, device=p.device)
+            alpha = (rz / torch.where(pap == 0.0, torch.ones_like(pap), pap)).tolist()
+            for row, go, a in zip(rows, nxt, alpha):
+                if go:
+                    row[SLOT_ALPHA] = a
+        for row, go in zip(rows, nxt):
+            row[SLOT_RUN] = go
+    elif step == 1:  # the update, ||r||, the test; c = K_w^+ W^T r
+        if not (start or any(run)):
+            return
+        if not start:
+            alpha = _per_col([row[SLOT_ALPHA] for row in rows], r)
+            if all(run):
+                r.sub_(alpha * v)
+            else:
+                r.copy_(torch.where(_masked(run, r), r - alpha * v, r))
+        rnorm = _col_norms(r).tolist()
+        for row, go, rn in zip(rows, run, rnorm):
+            if start:
+                bn = row[SLOT_BNORM]
+                row[SLOT_K] = row[SLOT_SINCE] = 0.0
+                row[SLOT_BEST] = rn
+                row[SLOT_TOL] = max(row[SLOT_RTOL] * bn, row[SLOT_ATOL])
+                row[SLOT_GATE] = 1.0e-3 * bn
+                row[SLOT_RUN] = 1.0
+            elif go:
+                row[SLOT_K] += 1.0
+                row[SLOT_SINCE] = 0.0 if rn < 0.999 * row[SLOT_BEST] else row[SLOT_SINCE] + 1.0
+                row[SLOT_BEST] = min(row[SLOT_BEST], rn)
+            else:
+                continue
+            row[SLOT_RNORM] = rn
+            row[SLOT_NEXT] = _cond(row)
+        if plan.w is not None:
+            plan.c.copy_(plan.kw_inv @ (plan.w.T @ r))
+    elif step == 2:  # z += W c; r.z; beta
+        if not (start or any(run)):
+            return
+        if plan.w is not None:
+            v.add_(plan.w @ plan.c)
+        rz_new = _col_dots(r, v)
+        if start:
+            for row, rz in zip(rows, rz_new.tolist()):
+                row[SLOT_RZ] = rz
+        else:
+            rz = torch.tensor([row[SLOT_RZ] for row in rows], dtype=r.dtype, device=r.device)
+            beta = (rz_new / torch.where(rz == 0.0, torch.ones_like(rz), rz)).tolist()
+            for row, go, bt, rzn in zip(rows, run, beta, rz_new.tolist()):
+                if go:
+                    row[SLOT_BETA], row[SLOT_RZ] = bt, rzn
+    else:  # x += alpha p; p = z + beta p; the harvest's slots
+        if not (start or any(run)):
+            return
+        if not start:
+            alpha = _per_col([row[SLOT_ALPHA] for row in rows], x)
+            beta = _per_col([row[SLOT_BETA] for row in rows], p)
+            if all(run):
+                x.add_(alpha * p)
+                p.copy_(v + beta * p)
+            else:
+                mask = _masked(run, p)
+                x.copy_(torch.where(mask, x + alpha * p, x))
+                p.copy_(torch.where(mask, v + beta * p, p))
+        if plan.zs is not None:
+            cap = plan.zs.shape[0] - 1
+            row = rows[0]
+            k = 0 if start else int(row[SLOT_K])
+            plan.zs[min(k, cap)] = v
+            plan.coef[0, min(k, cap)] = row[SLOT_RZ]
+            if not start:
+                plan.coef[1:, min(k - 1, cap)] = torch.tensor(
+                    [row[SLOT_ALPHA], row[SLOT_BETA]], dtype=plan.coef.dtype)
+        return
+    state.copy_(torch.tensor(rows, dtype=torch.float64))
+
+
+def cg_iteration(step: int, plan: CGPlan, x, r, p, v, start: bool = False) -> None:
+    """K6: pass ``step`` (0 to 3, ``CG_PASSES``) of a CG iteration on the
+    vectors of ``plan``'s solve, in place (design and bound at the top of
+    ``csrc/cg_iteration.cu``):
+
+    0. ``p.ap``; ``run = next``; ``alpha = rz / (pap == 0 ? 1 : pap)``;
+    1. ``r -= alpha ap``; ``||r||``, ``k``, ``best``,
+       ``since`` and ``next``, the loop's test on this ``r``; with a
+       deflation space ``c = K_w^+ W^T r`` (``start``: no update; the
+       tolerance and gate from ``||b||``);
+    2. with a deflation space ``z += W c``; ``r.z``; ``beta`` (``start``:
+       ``rz`` alone);
+    3. ``x += alpha p``, ``p = z + beta p``; a harvest's slot ``min(k,
+       nstore - 1)`` (``start``: slot 0 alone).
+
+    A column whose ``run`` is 0 is left as it is.  Args: x, r, p, v of one
+    shape, (n,) or (n, m), dense, of ``plan``'s dtype and device; ``v`` is
+    ``ap`` in steps 0 and 1, ``z`` in 2 and 3 (written in step 2 when
+    deflating); a tensor a step does not read may be any of them.  CPU
+    tensors take the plain version (:func:`cg_iteration_ref`); CUDA tensors
+    launch the kernel (``cg_iteration.launches``, by dtype in ``dtypes``
+    and by pass in ``passes``), whose sums run in a fixed order."""
+    if plan.cpu:
+        cg_iteration_ref(step, start, plan, x, r, p, v)
+        return
+    torch.ops.fcvm.cg_pass(step, start, plan.state, plan.scratch, plan.ticket, x, r, p, v,
+                           plan.w, plan.kw_inv, plan.zs, plan.coef)
+    cg_iteration.launches += 1
+    cg_iteration.dtypes[plan.dtype_name] += 1
+    cg_iteration.passes[CG_PASSES[step]] += 1
+
+
+cg_iteration.launches = 0
+cg_iteration.dtypes = Counter()  # launches by dtype name
+cg_iteration.passes = Counter()  # launches by pass name (CG_PASSES)
 
 
 def soa_matvec_ref(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:

@@ -86,10 +86,25 @@ class TwoLevelPrecond(NamedTuple):
         (:func:`~fcvm_tpu_torch.ops.kernels.two_level_apply_block`), block
         Jacobi fused into either; the cluster smoother's ``bmm`` runs
         before them."""
+        if r.dim() == 1:
+            return self.bind()(r)
         r = r.contiguous()  # the kernels read dense tensors; a column of a block is strided
         z_fine = None if self.smooth_inv is None else self.fine(r)
-        apply = kernels.two_level_apply if r.dim() == 1 else kernels.two_level_apply_block
-        return apply(self.pinv, self.qmat, self.coarse_inv, self.fixmask, r, z_fine)
+        return kernels.two_level_apply_block(self.pinv, self.qmat, self.coarse_inv, self.fixmask,
+                                             r, z_fine)
+
+    def bind(self):
+        """:meth:`apply` on vectors with K4's checks made once (a solve's):
+        ``r -> z``, which on the card launches K4 at once."""
+        k4 = kernels.two_level_apply_bound(self.pinv, self.qmat, self.coarse_inv, self.fixmask)
+        if self.smooth_inv is None:
+            return lambda r: k4(r.contiguous())
+
+        def apply(r):
+            r = r.contiguous()
+            return k4(r, self.fine(r))
+
+        return apply
 
     def coarse(self, rc: torch.Tensor) -> torch.Tensor:
         """The coarse product ``Kc^-1 rc`` alone, ``rc`` (nm ncl,): the
@@ -109,6 +124,15 @@ def apply_precond(pc, r):
     if isinstance(pc, TwoLevelPrecond):
         return pc.apply(r)
     return asm.apply_block_precond(pc, r)
+
+
+def bound_precond(pc):
+    """``r -> apply_precond(pc, r)`` on vectors, bound once: a
+    :class:`TwoLevelPrecond`'s :meth:`~TwoLevelPrecond.bind`, or block
+    Jacobi."""
+    if isinstance(pc, TwoLevelPrecond):
+        return pc.bind()
+    return lambda r: asm.apply_block_precond(pc, r)
 
 
 def refresh_blocks(pc, esm, elnodes, fixmask, plan=None):

@@ -1,14 +1,25 @@
 """Preconditioned conjugate gradients, the port of :func:`fcvm_tpu.ops.solver.pcg`.
 
-The JAX solver runs its Krylov loop on the device in ``lax.while_loop``.
-Here the loop is a Python loop that reads the residual norm on the host
-every iteration: the same update order and the same ``rnorm > tol`` test,
-so an f64 solve takes exactly the JAX package's iteration count.  The
-per-iteration host sync is the price; a sync-free loop is ROADMAP Queue 2
-item K6.  :func:`pcg_harvest` runs the same iteration and keeps its Lanczos
-byproducts for Ritz deflation (:mod:`fcvm_tpu_torch.ops.deflation`).
-:func:`pcg_block` runs ``m`` independent solves as the columns of one
-block, the counterpart of the JAX package's ``vmap`` of :func:`pcg`.
+The JAX solver runs its Krylov loop on the device in ``lax.while_loop``, so
+its convergence test never leaves the chip.  Here the vector work of each
+iteration and that test are K6 (:func:`fcvm_tpu_torch.ops.kernels.cg_iteration`):
+four passes around the caller's matvec and preconditioner apply, on a state
+of the solve's scalars that lives on its device.  The loop queues
+``CG_BATCH`` iterations at a time and reads the state on the host once per
+batch: iterations queued after the test failed change nothing (each pass
+leaves a finished column as it is), so results do not depend on
+``CG_BATCH``; their count is kept in ``CG_STATS``.  The same update order
+and tests as the JAX package, so an f64 solve takes exactly its iteration
+count.  A deflation space (``defl=``) is folded into K6's passes; a
+harvesting solve (:func:`pcg_harvest`) keeps the Lanczos byproducts for
+Ritz deflation (:mod:`fcvm_tpu_torch.ops.deflation`) in K6's last pass.
+:func:`pcg_block` runs ``m`` independent solves as the columns of one block,
+the counterpart of the JAX package's ``vmap`` of :func:`pcg`: a finished
+column is frozen within a batch and dropped from the block at the next
+batch's start (on the CPU, where a read costs no sync, at every
+iteration).  A solve with its own inner product (``dot=``, the sharded
+backend's node-partitioned PCG) keeps a host loop that reads the residual
+norm every iteration.
 
 The scipy direct tier (:class:`ScipyDirectSolver`) assembles ``K_hat``
 from the device's element blocks on the host and factorises it with
@@ -17,10 +28,22 @@ scipy's sparse LU, as the reference factorises its stiffness.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from fcvm_tpu_torch.ops import kernels
+
+# iterations queued between two reads of the solve's state on the host; the
+# value comes from the smoke's batch sweep on the card (PERF.md)
+CG_BATCH = 8
+
+# the device loop's counts since the last clear: solves, host reads of the
+# state, iterations queued, and of those the idle ones (queued after the
+# solve's test failed)
+CG_STATS = Counter()
 
 
 class CGResult(NamedTuple):
@@ -42,6 +65,10 @@ class HarvestData(NamedTuple):
     betas: torch.Tensor  # (nstore,) CG direction updates
 
 
+def _stall_lim(stall, maxiter) -> int:
+    return int(stall) if stall and stall > 0 else int(maxiter) + 1
+
+
 def pcg(
     matvec: Callable,
     b: torch.Tensor,
@@ -52,6 +79,7 @@ def pcg(
     maxiter: int = 1000,
     stall: int = 0,
     dot: Optional[Callable] = None,
+    defl=None,
 ) -> CGResult:
     """Solve ``matvec(x) = b`` by preconditioned conjugate gradients.
 
@@ -59,9 +87,17 @@ def pcg(
     iterations.  ``stall > 0`` adds a stagnation exit: stop once the
     residual norm has not improved by more than 0.1% for ``stall``
     consecutive iterations, armed only once ``||r|| < 1e-3 ||b||``.
-    ``dot`` overrides the inner product (default ``torch.dot``).
+    ``defl``, a :class:`fcvm_tpu_torch.ops.deflation.DeflationSpace`, adds
+    its correction ``W K_w^+ W^T r`` to ``precond`` inside K6's passes.
+    ``dot`` overrides the inner product (default ``torch.dot``) and takes
+    the host loop (not with ``defl``).
     """
-    return _pcg(matvec, b, precond, x0, rtol, atol, maxiter, stall, dot)
+    if dot is not None:
+        if defl is not None:
+            raise ValueError("pcg: a custom dot takes the host loop, which has no folded "
+                             "deflation; wrap precond with deflation.deflated instead")
+        return _pcg_host(matvec, b, precond, x0, rtol, atol, maxiter, stall, dot)
+    return _pcg_device(matvec, b, precond, x0, rtol, atol, maxiter, stall, defl, None)
 
 
 def pcg_harvest(
@@ -74,6 +110,7 @@ def pcg_harvest(
     maxiter: int = 1000,
     nstore: int = 64,
     stall: int = 0,
+    defl=None,
 ):
     """:func:`pcg` that also records its Lanczos byproducts.
 
@@ -82,72 +119,74 @@ def pcg_harvest(
     as the JAX package clamps them), from which the caller extracts Ritz
     vectors.  Returns ``(CGResult, HarvestData)``.
     """
-    h = HarvestData(
-        torch.zeros((nstore, b.shape[0]), dtype=b.dtype, device=b.device),
-        torch.zeros(nstore, dtype=b.dtype, device=b.device),
-        torch.zeros(nstore, dtype=b.dtype, device=b.device),
-        torch.zeros(nstore, dtype=b.dtype, device=b.device),
-    )
-    cap = nstore - 1
-
-    def record(j, z, rz, alpha=None, beta=None):
-        h.zs[min(j, cap)] = z
-        h.rzs[min(j, cap)] = rz
-        if j > 0:
-            h.alphas[min(j - 1, cap)] = alpha
-            h.betas[min(j - 1, cap)] = beta
-
-    return _pcg(matvec, b, precond, x0, rtol, atol, maxiter, stall, None, record), h
+    zs = torch.zeros((nstore, b.shape[0]), dtype=b.dtype, device=b.device)
+    coef = torch.zeros((3, nstore), dtype=b.dtype, device=b.device)  # rzs, alphas, betas
+    res = _pcg_device(matvec, b, precond, x0, rtol, atol, maxiter, stall, defl, (zs, coef))
+    return res, HarvestData(zs, coef[0], coef[1], coef[2])
 
 
-def _pcg(matvec, b, precond, x0, rtol, atol, maxiter, stall, dot, record=None) -> CGResult:
-    """The loop of :func:`pcg`.  ``record(j, z_j, r_j^T z_j, alpha, beta)``,
-    when given, sees each preconditioned residual with the step length and
-    direction update that produced it (none for ``j = 0``)."""
+def _relres(row) -> float:
+    bn = row[kernels.SLOT_BNORM]
+    return row[kernels.SLOT_RNORM] / (bn if bn != 0.0 else 1.0)
+
+
+def _queue(plan, matvec, precond, x, r, p, count):
+    """``count`` iterations of K6 around ``matvec`` and ``precond``, with no
+    read of the device."""
+    step = kernels.cg_iteration
+    for _ in range(count):
+        ap = matvec(p)
+        step(0, plan, x, r, p, ap)
+        step(1, plan, x, r, p, ap)
+        z = precond(r)
+        if plan.w is not None and z.data_ptr() == r.data_ptr():
+            z = z.clone()  # step 2 writes the deflated z over the apply's output
+        step(2, plan, x, r, p, z)
+        step(3, plan, x, r, p, z)
+    CG_STATS["queued"] += count
+
+
+def _start(plan, matvec, b, precond, x0):
+    """x0, r0 = b - A x0, z0 = M r0 (deflated), p0 = z0, the state's start
+    (||r0||, the tolerance, rz0) and the harvest's slot 0: K6's start form
+    of steps 1 to 3."""
+    x = torch.zeros_like(b) if x0 is None else x0.clone(memory_format=torch.contiguous_format)
+    r = b - matvec(x) if x0 is not None else b.clone()
+    step = kernels.cg_iteration
+    step(1, plan, x, r, r, r, start=True)
+    z = precond(r)
+    if plan.w is not None and z.data_ptr() == r.data_ptr():
+        z = z.clone()
+    step(2, plan, x, r, r, z, start=True)
+    if plan.zs is not None:
+        step(3, plan, x, r, r, z, start=True)
+    p = z.clone() if z.data_ptr() == r.data_ptr() else z  # step 3 updates p in place
+    CG_STATS["solves"] += 1
+    return x, r, p
+
+
+def _pcg_device(matvec, b, precond, x0, rtol, atol, maxiter, stall, defl, harvest):
+    """The loop of :func:`pcg` and :func:`pcg_harvest` on K6: the state read
+    once per batch of ``CG_BATCH`` iterations (each batch cut to what
+    ``maxiter`` leaves)."""
     if precond is None:
         precond = lambda r: r  # noqa: E731
-    if dot is None:
-        dot = torch.dot
-        norm = torch.linalg.vector_norm
-    else:
-        def norm(v):
-            return torch.sqrt(dot(v, v))
-
-    bnorm = float(norm(b))
-    tol = max(rtol * bnorm, atol)
-    stall_lim = int(stall) if stall and stall > 0 else int(maxiter) + 1
-    stall_gate = 1.0e-3 * bnorm
-
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    r = b - matvec(x) if x0 is not None else b.clone()
-    z = precond(r)
-    p = z
-    rz = dot(r, z)
-    if record is not None:
-        record(0, z, rz)
-    rnorm = float(norm(r))
-    best, since, k = rnorm, 0, 0
-    while rnorm > tol and k < maxiter and not (since >= stall_lim and rnorm < stall_gate):
-        ap = matvec(p)
-        pap = dot(p, ap)
-        alpha = rz / torch.where(pap == 0.0, torch.ones_like(pap), pap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = precond(r)
-        rz_new = dot(r, z)
-        beta = rz_new / torch.where(rz == 0.0, torch.ones_like(rz), rz)
-        p = z + beta * p
-        if record is not None:
-            record(k + 1, z, rz_new, alpha, beta)
-        rz = rz_new
-        rnorm = float(norm(r))
-        k += 1
-        if rnorm < 0.999 * best:
-            since = 0
-        else:
-            since += 1
-        best = min(best, rnorm)
-    return CGResult(x, k, rnorm / (bnorm if bnorm != 0.0 else 1.0))
+    b = b.contiguous()
+    plan = kernels.cg_plan(b, rtol, atol, maxiter, _stall_lim(stall, maxiter),
+                           None if defl is None else (defl.w, defl.kw_inv), harvest)
+    x, r, p = _start(plan, matvec, b, precond, x0)
+    last = None  # the last batch: k at its start, its count
+    while True:
+        (row,) = plan.read()
+        CG_STATS["reads"] += 1
+        k = int(row[kernels.SLOT_K])
+        if last is not None:
+            CG_STATS["idle"] += last[1] - (k - last[0])
+        if not row[kernels.SLOT_NEXT]:
+            return CGResult(x, k, _relres(row))
+        count = min(CG_BATCH, int(maxiter) - k)
+        _queue(plan, matvec, precond, x, r, p, count)
+        last = (k, count)
 
 
 class BlockCGResult(NamedTuple):
@@ -171,68 +210,110 @@ def pcg_block(
     Column ``c`` follows exactly the iterates of ``pcg(matvec, b[:, c],
     ...)``: its own step length, direction update, convergence test and
     stagnation exit, and it is frozen once done.  ``matvec`` and
-    ``precond`` take (n, m') blocks and act on each column as on a vector;
-    they see only the columns still running.  The (m,) residual norms are
-    read on the host once per iteration.
+    ``precond`` take (n, m') blocks and act on each column as on a vector.
+    K6 keeps a state a column on the device, read on the host once per
+    batch of ``CG_BATCH`` iterations on the card, and after every iteration
+    on the CPU, where the read costs no sync; the columns found done are
+    then dropped from the block (``matvec`` and ``precond`` see the others
+    only).  A block's width can change a column's rounding (a GEMM's
+    blocking), so on the CPU a column leaves the block at the iteration it
+    is done, as it always has.  More than ``CG_MAX_COLS`` columns run as
+    several blocks, one after the other.
     """
+    if b.dim() != 2:
+        raise ValueError(f"pcg_block: b {tuple(b.shape)}; expected (n, m)")
+    return _pcg_block(matvec, b, precond, x0, rtol, atol, maxiter, stall,
+                      CG_BATCH if b.is_cuda else 1)
+
+
+def _pcg_block(matvec, b, precond, x0, rtol, atol, maxiter, stall, batch) -> BlockCGResult:
+    """The loop of :func:`pcg_block`: the states read once per ``batch``
+    iterations, a column dropped from the block at the read that finds it
+    done."""
+    step = kernels.CG_MAX_COLS
+    if b.shape[1] > step:
+        parts = [_pcg_block(matvec, b[:, j:j + step].contiguous(), precond,
+                            None if x0 is None else x0[:, j:j + step].contiguous(), rtol, atol,
+                            maxiter, stall, batch) for j in range(0, b.shape[1], step)]
+        return BlockCGResult(torch.cat([q.x for q in parts], dim=1),
+                             sum((q.iters for q in parts), []),
+                             sum((q.relres for q in parts), []))
+    if precond is None:
+        precond = lambda r: r  # noqa: E731
+    m = b.shape[1]
+    b = b.contiguous()
+    plan = kernels.cg_plan(b, rtol, atol, maxiter, _stall_lim(stall, maxiter))
+    x, r, p = _start(plan, matvec, b, precond, x0)
+    out = x  # the solutions: a column is written back when it leaves the block
+    cols = list(range(m))  # the block's columns, by their index in b
+    iters, relres = [0] * m, [0.0] * m
+    last = None
+    while True:
+        rows = plan.read()
+        CG_STATS["reads"] += 1
+        k = None
+        for c, row in zip(cols, rows):
+            iters[c], relres[c] = int(row[kernels.SLOT_K]), _relres(row)
+            if row[kernels.SLOT_NEXT]:
+                k = iters[c]  # every running column has taken the same iterations
+        if last is not None:  # block iterations in which no column ran
+            CG_STATS["idle"] += last[1] - max(iters[c] - last[0] for c in cols)
+        keep = [i for i, row in enumerate(rows) if row[kernels.SLOT_NEXT]]
+        if len(keep) < len(cols):
+            if x is not out:
+                done = [i for i in range(len(cols)) if i not in keep]
+                out[:, [cols[i] for i in done]] = x[:, done]
+            if not keep:
+                return BlockCGResult(out, iters, relres)
+            sel = torch.as_tensor(keep, device=b.device)
+            x, r, p = (t.index_select(1, sel) for t in (x, r, p))
+            plan = plan.select(keep)
+            cols = [cols[i] for i in keep]
+        count = min(batch, int(maxiter) - k)
+        _queue(plan, matvec, precond, x, r, p, count)
+        last = (k, count)
+
+
+def _pcg_host(matvec, b, precond, x0, rtol, atol, maxiter, stall, dot) -> CGResult:
+    """The loop of :func:`pcg` with a custom inner product: torch vector work
+    and the residual norm read on the host every iteration."""
     if precond is None:
         precond = lambda r: r  # noqa: E731
 
-    def col_dot(u, v):
-        return (u * v).sum(dim=0)
+    def norm(v):
+        return torch.sqrt(dot(v, v))
 
-    def host_norms(v):
-        return torch.linalg.vector_norm(v, dim=0).cpu().double().numpy()
-
-    m = b.shape[1]
-    bnorm = host_norms(b)
-    tol = np.maximum(rtol * bnorm, atol)
-    stall_lim = int(stall) if stall and stall > 0 else int(maxiter) + 1
+    bnorm = float(norm(b))
+    tol = max(rtol * bnorm, atol)
+    stall_lim = _stall_lim(stall, maxiter)
     stall_gate = 1.0e-3 * bnorm
 
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - matvec(x) if x0 is not None else b.clone()
     z = precond(r)
-    p = z.clone()
-    rz = col_dot(r, z)
-    rnorm = host_norms(r)
-    best = rnorm.copy()
-    since = np.zeros(m, dtype=np.int64)
-    k = np.zeros(m, dtype=np.int64)
-
-    def running():
-        stalled = (since >= stall_lim) & (rnorm < stall_gate)
-        return (rnorm > tol) & (k < maxiter) & ~stalled
-
-    act = running()
-    while act.any():
-        idx = np.flatnonzero(act)
-        every = len(idx) == m
-        sel = None if every else torch.as_tensor(idx, device=b.device)
-        pa = p if every else p[:, sel]
-        rza = rz if every else rz[sel]
-        ap = matvec(pa)
-        pap = col_dot(pa, ap)
-        alpha = rza / torch.where(pap == 0.0, torch.ones_like(pap), pap)
-        xa = (x if every else x[:, sel]) + alpha * pa
-        ra = (r if every else r[:, sel]) - alpha * ap
-        za = precond(ra)
-        rz_new = col_dot(ra, za)
-        beta = rz_new / torch.where(rza == 0.0, torch.ones_like(rza), rza)
-        pa = za + beta * pa
-        if every:
-            x, r, p, rz = xa, ra, pa, rz_new
+    p = z
+    rz = dot(r, z)
+    rnorm = float(norm(r))
+    best, since, k = rnorm, 0, 0
+    while rnorm > tol and k < maxiter and not (since >= stall_lim and rnorm < stall_gate):
+        ap = matvec(p)
+        pap = dot(p, ap)
+        alpha = rz / torch.where(pap == 0.0, torch.ones_like(pap), pap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = precond(r)
+        rz_new = dot(r, z)
+        beta = rz_new / torch.where(rz == 0.0, torch.ones_like(rz), rz)
+        p = z + beta * p
+        rz = rz_new
+        rnorm = float(norm(r))
+        k += 1
+        if rnorm < 0.999 * best:
+            since = 0
         else:
-            x[:, sel], r[:, sel], p[:, sel], rz[sel] = xa, ra, pa, rz_new
-        rn = host_norms(ra)
-        rnorm[idx] = rn
-        k[idx] += 1
-        improved = rn < 0.999 * best[idx]
-        since[idx] = np.where(improved, 0, since[idx] + 1)
-        best[idx] = np.minimum(best[idx], rn)
-        act = running()
-    relres = rnorm / np.where(bnorm == 0.0, 1.0, bnorm)
-    return BlockCGResult(x, k.tolist(), relres.tolist())
+            since += 1
+        best = min(best, rnorm)
+    return CGResult(x, k, rnorm / (bnorm if bnorm != 0.0 else 1.0))
 
 
 # ---------------------------------------------------------------------------

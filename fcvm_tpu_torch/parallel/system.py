@@ -58,6 +58,7 @@ from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.precond import (
     TwoLevelPrecond,
     apply_precond,
+    bound_precond,
     coarse_accumulate,
     invert_coarse_with_ladder,
     qmat_bc,
@@ -344,9 +345,11 @@ class ShardedSystem(TorchSystem):
         if not solve_predictor:
             return khat, pc_t, glv_t, sp.from_m(rhs), 0
         defl = None if w is None else self.make_deflation(khat, w)
-        res = slv.pcg(khat, rhs, precond=dfl.deflated(lambda r: apply_precond(pc_t, r), defl),
+        # the replicated solve folds the deflation into K6 as the local
+        # backend's predictor does, so a world of one repeats its bits
+        res = slv.pcg(khat, rhs, precond=bound_precond(pc_t),
                       x0=None if ue0 is None else sp.to_m(ue0), rtol=self.rtol,
-                      maxiter=self.maxiter)
+                      maxiter=self.maxiter, defl=defl)
         return khat, pc_t, glv_t, sp.from_m(res.x), res.iters
 
     def residual(self, coords, sig_yield, disp_new, du, sig_old, glv, lbd1,

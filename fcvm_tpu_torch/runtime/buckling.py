@@ -45,7 +45,7 @@ from fcvm_tpu_torch.ops import assembly as asm
 from fcvm_tpu_torch.ops import deflation as dfl
 from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import solver as slv
-from fcvm_tpu_torch.ops.precond import apply_precond, build_two_level
+from fcvm_tpu_torch.ops.precond import apply_precond, bound_precond, build_two_level
 from fcvm_tpu_torch.utils.linalg3 import inv3_spd
 
 # Pencil-residual acceptance bound of pencil_subspace's a-posteriori check:
@@ -359,7 +359,7 @@ def buckling_from_arrays(
                                  rtol=rtol, maxiter=maxiter, stall=STALL)
 
         def harvest(b):
-            return slv.pcg_harvest(kv, b, precond=prec, rtol=rtol, maxiter=maxiter,
+            return slv.pcg_harvest(kv, b, precond=bound_precond(pc), rtol=rtol, maxiter=maxiter,
                                    nstore=nstore, stall=STALL)
 
         k_inverse = make_recycled_k_inverse(

@@ -29,7 +29,7 @@ from fcvm_tpu_torch.ops import deflation as dfl
 from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.kernels import NodeIncidence, SegmentPlan
-from fcvm_tpu_torch.ops.precond import apply_precond, build_two_level, refresh_blocks
+from fcvm_tpu_torch.ops.precond import bound_precond, build_two_level, refresh_blocks
 from fcvm_tpu_torch.ops.stress_update import update_stress_load
 from fcvm_tpu_torch.utils.ordering import morton_perm
 
@@ -224,10 +224,9 @@ def solve_displacement(khat, pc, b, rtol, maxiter: int, space: SolveSpace,
     the fixed dofs exact from iteration zero.  ``defl`` (a
     :class:`fcvm_tpu_torch.ops.deflation.DeflationSpace` in the solve space)
     adds the Ritz correction to the preconditioner."""
-    res = slv.pcg(khat, space.to_m(b),
-                  precond=dfl.deflated(lambda r: apply_precond(pc, r), defl),
+    res = slv.pcg(khat, space.to_m(b), precond=bound_precond(pc),
                   x0=None if x0 is None else space.to_m(x0), rtol=rtol,
-                  maxiter=maxiter)
+                  maxiter=maxiter, defl=defl)
     return res._replace(x=space.from_m(res.x))
 
 
@@ -239,7 +238,7 @@ def solve_displacement_harvest(khat, pc, b, rtol, maxiter: int, space: SolveSpac
     Returns ``(CGResult, HarvestData)``; the harvested ``zs`` live in the
     solve space, as the deflation space built from them does."""
     res, h = slv.pcg_harvest(
-        khat, space.to_m(b), precond=lambda r: apply_precond(pc, r),
+        khat, space.to_m(b), precond=bound_precond(pc),
         x0=None if x0 is None else space.to_m(x0), rtol=rtol, maxiter=maxiter,
         nstore=nstore)
     return res._replace(x=space.from_m(res.x)), h
@@ -352,8 +351,9 @@ def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTa
     if not solve_predictor:
         return khat, pc_t, glv_t, space.from_m(rhs), 0
     defl = None if w is None else regalerkin_deflation(khat, space, w)
-    res = slv.pcg(khat, rhs, precond=dfl.deflated(lambda r: apply_precond(pc_t, r), defl),
-                  x0=None if ue0 is None else space.to_m(ue0), rtol=rtol, maxiter=maxiter)
+    res = slv.pcg(khat, rhs, precond=bound_precond(pc_t),
+                  x0=None if ue0 is None else space.to_m(ue0), rtol=rtol, maxiter=maxiter,
+                  defl=defl)
     return khat, pc_t, glv_t, space.from_m(res.x), res.iters
 
 

@@ -41,8 +41,9 @@ baseline runs in a child process that sees no GPU
 appends a cumulative JSON line to a file after each stage.
 
 A step is timed on the host clock around ``torch.cuda.synchronize()``; the
-CG's host sync in every iteration stays inside it, as the driver pays it.
-Each row carries the kernel launches it made (``launches``: K1, K4, K8,
+CG's reads of its state on the host (once per ``CG_BATCH`` iterations, every
+iteration on the sharded row) stay inside it, as the driver pays them.
+Each row carries the kernel launches it made (``launches``: K1, K4, K8, K6,
 K1m, K4m, K0m, K0) and, on a GPU, its peak device memory (``peak_mib``).  Everything runs
 on ``cuda`` unless ``--cpu`` is given; a failed row raises and ends the run
 with a non-zero exit after the rows before it were printed, and nothing
@@ -166,7 +167,7 @@ def _sync(device):
 # node sum), K1m (the deflation and sharded block products), K4m (the
 # eigensolve's block preconditioner apply), K0m and K0 (on no row's path:
 # K1m and K1 carry K_hat·V and K_hat·v)
-ROW_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "khat_matmat",
+ROW_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "cg_iteration", "khat_matmat",
                "two_level_apply_block", "block_matmat", "block_matvec")
 
 

@@ -322,6 +322,46 @@ def test_linear_buckling_matches_jax(jax_bj, monkeypatch):
     np.testing.assert_allclose(lam_s, lam_j, rtol=1e-6)
 
 
+@pytest.mark.parametrize("section", ["2x1", "2x2"])
+def test_linear_buckling_with_the_cards_block_schedule_matches_jax(jax_bj, monkeypatch,
+                                                                    section):
+    """The eigensolve with ``pcg_block`` reading its states once per
+    ``CG_BATCH`` iterations and dropping done columns only then, the
+    schedule it runs on the card (on the CPU it drops a column the
+    iteration it is done), against the JAX package as
+    :func:`test_linear_buckling_matches_jax`: equal sweeps, factors to 1e-8;
+    the 2x1 section's distinct modes to 1e-6 of their max; the square
+    section's pair of equal factors spanning the JAX pair's plane (a
+    block's width moves its columns' rounding, and so how the pair
+    splits)."""
+    monkeypatch.setattr(get_config(), "cg_rtol", 1e-10)
+    model = column_model(nx=4, ny=2, nz=1 if section == "2x1" else 2, lc=20.0)
+    lam_j, vec_j = fcvm_tpu.linear_buckling(model, fcvm_tpu.ControlParams(**BUCKLE))
+    stats = []
+    seeded = functools.partial(tbk.buckling_from_arrays, v0=jax_start(pad_ndof(model.mesh.ndof)),
+                               stats=stats)
+    monkeypatch.setattr(tbk, "buckling_from_arrays", seeded)
+
+    def card_schedule(matvec, b, precond=None, x0=None, rtol=1e-6, atol=0.0, maxiter=1000,
+                      stall=0):
+        return tslv._pcg_block(matvec, b, precond, x0, rtol, atol, maxiter, stall,
+                               tslv.CG_BATCH)
+
+    monkeypatch.setattr(tslv, "pcg_block", card_schedule)
+    tslv.CG_STATS.clear()
+    cfg = ft.FcvmConfig(device="cpu", dtype="float64", precond="block_jacobi", cg_rtol=1e-10)
+    lam_t, vec_t = ft.linear_buckling(ft.model_from_arrays(model), ft.ControlParams(**BUCKLE),
+                                      config=cfg)
+    assert tslv.CG_STATS["reads"] < tslv.CG_STATS["queued"] / 2  # a read a batch, not an iteration
+    assert [r["sweeps"] for r in stats] == jax_bj
+    np.testing.assert_allclose(lam_t, lam_j, rtol=1e-8)
+    if section == "2x1":
+        np.testing.assert_allclose(vec_t, vec_j, rtol=0, atol=1e-6 * np.abs(vec_j).max())
+    else:
+        coef, *_ = np.linalg.lstsq(vec_j, vec_t, rcond=None)
+        assert np.linalg.norm(vec_t - vec_j @ coef) < 1e-6 * np.linalg.norm(vec_t)
+
+
 def test_euler_column_buckling():
     """``tests/test_buckling_gnl.py:29-40`` on the port (default two-level
     configuration, float64), and against the JAX package: the

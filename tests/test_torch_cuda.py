@@ -1117,3 +1117,167 @@ def test_sharded_two_gloo_ranks_on_one_card_match_cpu(cuda):
                          config=FcvmConfig(device="cpu", dtype="float64", cg_rtol=1e-10))
     np.testing.assert_allclose(outs[0]["lbd"], ref.history.lbd, rtol=1e-9, atol=0)
     assert outs[0]["k1k4"] > 0
+
+
+# -- K6: the CG iteration's passes ---------------------------------------------
+
+K6_NSTORE = 8
+
+
+def _k6_inputs(cuda, dtype, n, m, defl, harvest, seed=3):
+    """A K6 plan of n rows (a vector for m = 0, else m columns) on a running
+    state (on a block every third column frozen), and seeded x, r, p and v:
+    what a pass sees mid-solve."""
+    rng = np.random.default_rng(seed)
+    shape = (n,) if m == 0 else (n, m)
+
+    def vec(*s):
+        return torch.as_tensor(rng.normal(size=s or shape), device=cuda).to(dtype)
+
+    b = vec()
+    dfl, hv = None, None
+    if defl:
+        a = rng.normal(size=(32, 32))
+        dfl = (vec(n, 32), torch.as_tensor(a @ a.T / 32, device=cuda).to(dtype))
+    if harvest:
+        hv = (torch.zeros((K6_NSTORE, n), dtype=dtype, device=cuda),
+              torch.zeros((3, K6_NSTORE), dtype=dtype, device=cuda))
+    plan = kernels.cg_plan(b, 1e-3, 0.0, 500, 6, dfl, hv)
+    if defl:  # the c of a last update pass
+        plan.c.copy_(vec(32))
+    cols = plan.state.shape[0]
+    st = plan.state
+    st[:, kernels.SLOT_RZ] = torch.as_tensor(rng.uniform(0.5, 2.0, cols), device=cuda)
+    st[:, kernels.SLOT_ALPHA] = torch.as_tensor(rng.uniform(0.1, 0.5, cols), device=cuda)
+    st[:, kernels.SLOT_BETA] = torch.as_tensor(rng.uniform(0.1, 0.9, cols), device=cuda)
+    st[:, kernels.SLOT_K] = 11.0  # past the harvest's 8 slots: the clamped slot
+    st[:, kernels.SLOT_SINCE] = 5.0
+    st[:, kernels.SLOT_BEST] = 1e9
+    st[:, kernels.SLOT_TOL] = 1e-6
+    st[:, kernels.SLOT_GATE] = 1e9  # armed: a stall ends the column
+    running = torch.ones(cols, dtype=torch.float64, device=cuda)
+    running[::3] = 0.0 if cols > 1 else 1.0
+    st[:, kernels.SLOT_RUN] = running
+    st[:, kernels.SLOT_NEXT] = running
+    # the floats a pass casts to the working dtype are exact in it
+    st[:, :3] = st[:, :3].to(dtype).to(torch.float64)
+    # x, r, p and v near one vector, so no inner product cancels: each sum
+    # is then held to TOL of its own size
+    base = vec()
+    return plan, [base + 0.1 * vec() for _ in range(4)]
+
+
+def _k6_copy(plan, vecs):
+    scratch = plan.scratch.clone()
+    c = None if plan.c is None else scratch[kernels.CG_SCRATCH_C:
+                                            kernels.CG_SCRATCH_C + plan.c.shape[0]]
+    clone = [None if t is None else t.clone() for t in (plan.zs, plan.coef)]
+    return (kernels.CGPlan(plan.state.clone(), plan.w, plan.kw_inv, *clone, scratch,
+                           plan.ticket.clone(), c), [v.clone() for v in vecs])
+
+
+def _k6_compare(dtype, step, start, plan_k, vk, plan_r, vr):
+    """The kernel's pass against the plain version's: the vectors an
+    elementwise update writes bit for bit (step 2's deflated z to TOL), the
+    sums and what follows from them to TOL, the counters and flags exactly."""
+    tol = TOL[dtype]
+    for i, (a, b) in enumerate(zip(vk, vr)):
+        if step == 2 and i == 3 and plan_k.w is not None:
+            assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+        else:
+            assert torch.equal(a, b), (step, start, i)
+    sk, sr = plan_k.state, plan_r.state
+    exact = [kernels.SLOT_K, kernels.SLOT_SINCE, kernels.SLOT_RUN, kernels.SLOT_NEXT,
+             kernels.SLOT_STALL_LIM, kernels.SLOT_MAXITER, kernels.SLOT_BNORM,
+             kernels.SLOT_RTOL, kernels.SLOT_ATOL]
+    assert torch.equal(sk[:, exact], sr[:, exact]), (step, start)
+    near = [kernels.SLOT_RZ, kernels.SLOT_ALPHA, kernels.SLOT_BETA, kernels.SLOT_RNORM,
+            kernels.SLOT_BEST, kernels.SLOT_TOL, kernels.SLOT_GATE]
+    for slot in near:  # each scalar against its own size
+        assert float((sk[:, slot] - sr[:, slot]).abs().max()) <= tol * float(
+            sr[:, slot].abs().max()), (step, start, slot)
+    if plan_k.c is not None and step == 1:
+        assert float((plan_k.c - plan_r.c).abs().max()) <= tol * float(plan_r.c.abs().max())
+    if plan_k.zs is not None:
+        assert torch.equal(plan_k.zs, plan_r.zs)
+        assert float((plan_k.coef - plan_r.coef).abs().max()) <= tol * float(
+            plan_r.coef.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("form", ["vector", "deflated", "harvest", "m1", "m5", "m8"])
+@pytest.mark.parametrize("n", [1, 1000, 77_777])
+def test_cg_iteration_kernel_matches_plain(cuda, dtype, form, n):
+    """Each of K6's four passes, and the start form of steps 1 to 3, against
+    its plain version on the same inputs (a vector, with a deflation space of
+    32 vectors or a harvest of 8 slots, or a block of 1, 5 and 8 columns with
+    frozen ones); a second launch on the same inputs gives the same bits;
+    one launch each counted."""
+    m = int(form[1:]) if form.startswith("m") else 0
+    plan, vecs = _k6_inputs(cuda, dtype, n, m, form == "deflated", form == "harvest")
+    for start in (False, True):
+        for step in range(4):
+            if start and step == 0:
+                continue
+            (pk, vk), (pk2, vk2), (pr, vr) = (_k6_copy(plan, vecs) for _ in range(3))
+            launches = kernels.cg_iteration.launches
+            for p_, v_ in ((pk, vk), (pk2, vk2)):
+                x, r, p, v = v_
+                kernels.cg_iteration(step, p_, x, r, p, v, start=start)
+            torch.cuda.synchronize()
+            assert kernels.cg_iteration.launches == launches + 2
+            x, r, p, v = vr
+            kernels.cg_iteration_ref(step, start, pr, x, r, p, v)
+            _k6_compare(dtype, step, start, pk, vk, pr, vr)
+            assert torch.equal(pk.state, pk2.state) and all(
+                torch.equal(a, b) for a, b in zip(vk, vk2))
+
+
+def test_cg_iteration_idle_pass_writes_nothing(cuda):
+    """A plan whose every column is done: no pass writes a value (pass 0
+    sets run to 0 and nothing else)."""
+    plan, vecs = _k6_inputs(cuda, torch.float32, 5000, 8, False, False)
+    plan.state[:, kernels.SLOT_NEXT] = 0.0
+    state, before = plan.state.clone(), [v.clone() for v in vecs]
+    for step in range(4):
+        kernels.cg_iteration(step, plan, *vecs)
+    torch.cuda.synchronize()
+    state[:, kernels.SLOT_RUN] = 0.0
+    assert torch.equal(plan.state, state)
+    assert all(torch.equal(a, b) for a, b in zip(vecs, before))
+
+
+def _box_solve(device, harvest):
+    model = _tension_box(3)
+    be = TorchSystem(model, FcvmConfig(device=device, dtype="float64", precond="two_level",
+                                       cg_rtol=1e-8), torch.float64, torch.device(device))
+    esm, pinv, _, rhs, *_ = be.assemble(be.tensor(model.mesh.coords))
+    khat, pc = be.operator(esm), be.make_pc(esm, pinv)
+    tslv.CG_STATS.clear()
+    if harvest:
+        res, h = be.solve_harvest(khat, pc, rhs, nstore=16)
+        return res, dict(tslv.CG_STATS), torch.cat([h.zs.reshape(-1), h.rzs, h.alphas, h.betas])
+    return be.solve(khat, pc, rhs), dict(tslv.CG_STATS), None
+
+
+@pytest.mark.parametrize("harvest", [False, True], ids=["pcg", "pcg_harvest"])
+def test_device_cg_cuda_matches_cpu(cuda, harvest):
+    """A whole pcg and pcg_harvest through K1, K4 and K6 on the card against
+    the CPU, float64, two-level, rtol 1e-8: equal counts, the same solution
+    to 1e-10 and harvest to 1e-9; on the card K6 launched four times an
+    iteration queued, and the state read at most ceil(iters / CG_BATCH) + 2
+    times."""
+    launches = kernels.cg_iteration.launches
+    res, stats, hv = _box_solve("cuda", harvest)
+    torch.cuda.synchronize()
+    ref, ref_stats, ref_hv = _box_solve("cpu", harvest)
+    assert res.iters == ref.iters > 5
+    x_ref = ref.x.numpy()
+    np.testing.assert_allclose(res.x.cpu().numpy(), x_ref, rtol=0,
+                               atol=1e-10 * np.abs(x_ref).max())
+    if harvest:
+        assert float((hv.cpu() - ref_hv).abs().max()) <= 1e-9 * float(ref_hv.abs().max())
+    assert stats == ref_stats
+    assert stats["reads"] <= -(-res.iters // tslv.CG_BATCH) + 2
+    starts = 3 if harvest else 2
+    assert kernels.cg_iteration.launches - launches == 4 * stats["queued"] + starts
