@@ -66,19 +66,21 @@ Phases, each printing its numbers before the next starts:
    for K1m's K_hat·V, a cuSPARSE CSR product (``torch.sparse.mm``) of the
    assembled K_hat at every width, with the device time of each of K1m's
    two passes (torch.profiler);
-3e. K6 (``cg_iteration``), the rest of a CG iteration: each of its four
-   passes and the start form of three on the plate's vectors (float32 and
-   float64, float32 with a 32-vector deflation space and with a 64-slot
-   harvest) and the beam-column's block at m = 8 (both dtypes, a third of
-   the columns frozen) against its plain version (the updates, counters,
-   flags and harvested residuals bit for bit, the sums to the tolerance)
-   and bit for bit against a second launch; one iteration's four passes
-   timed against their plain versions, their bound, the torch chain they
-   replaced and (deflated) the three torch products of the correction, with
-   each pass's device time; then one elastic solve of the plate at each
-   ``CG_BATCH`` of ``K6_BATCHES``, in turns: the same bits and count at
-   every batch, at most ceil(iters / batch) + 2 host reads, the wall time
-   per iteration;
+3e. K6 (``cg_iteration``), the rest of a CG iteration: each of its two
+   passes (the update; the direction) and their start forms on the plate's
+   vectors (float32 and float64, float32 with a 32-vector deflation space
+   and with a 64-slot harvest) and the beam-column's block at m = 8 (both
+   dtypes, a third of the columns frozen) against its plain version (the
+   counters, flags and harvested residuals bit for bit, x, r and p bit for
+   bit as the plain updates make them with the kernel's own step lengths,
+   the sums and a deflated direction to the tolerance, z never written)
+   and bit for bit against a second launch; one iteration's two passes
+   timed against their plain versions, their bound (10 vectors), the torch
+   chain they replaced and (deflated) the three torch products of the
+   correction, with each pass's device time, beside the four-pass design's;
+   then one elastic solve of the plate at each ``CG_BATCH`` of
+   ``K6_BATCHES``, in turns: the same bits and count at every batch, at
+   most ceil(iters / batch) + 2 host reads, the wall time per iteration;
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
    the load-factor histories must agree; and ``linear_buckling`` of a small
@@ -86,8 +88,10 @@ Phases, each printing its numbers before the next starts:
 5. the slice at full size: the quarter plate with a hole at 502,599 dof,
    float32, two-level PCG without deflation or the precision tiers, plastic
    Riks steps through ``fcvm_tpu_torch.solve_collapse``; the launch counts
-   of K1, K4, K8 and K6, the kernels on that path, must be > 0; the CG
-   loop's host reads per solve and idle queued iterations (as in 7, 9, 9b);
+   of K1, K4, K8 and K6, the kernels on that path, must be > 0, and K6's
+   exactly two passes for each queued CG iteration and each solve's start
+   (as in every plate phase, 9, 9c and 14); the CG loop's host reads per
+   solve and idle queued iterations (as in 7, 9, 9b);
 5b. phase 5 again in the same process: the same Newton and CG counts of
    every step and the same load factors, bit for bit (every node sum runs
    in a fixed order);
@@ -123,7 +127,9 @@ Phases, each printing its numbers before the next starts:
    K1m and through the chain it replaced, the block preconditioner apply
    through K4m, through the steps it replaced and as 8 vector applies, and
    one pcg_block iteration through each against one pcg iteration (wall,
-   host sync included);
+   host sync included); one pcg_block iteration deflated by the
+   eigensolve's own space (kd = 64) and that deflation's three torch
+   products alone (the block fold the eigensolve leaves to torch);
 9c. phase 9 with the cluster smoother (``smoother="cluster"``), its checks,
    against phase 9: the eigensolve's tier, sweeps and inner CG iterations,
    the factors, the stepping and the peak device memory (the smoother's
@@ -320,32 +326,30 @@ def device_ms(fn, *args, calls=10):
     """Mean device time of one call of ``fn``: the CUDA kernels
     torch.profiler records over ``calls`` calls (after a warm-up), with no
     host time between them."""
-    fn(*args)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) / calls / 1e3
+    return sum(device_ms_by_kernel(fn, *args, calls=calls).values())
 
 
-def device_ms_by_kernel(fn, *args, calls=10):
+def device_ms_by_kernel(fn, *args, calls=10, tries=3):
     """``{kernel name: mean device time of one call in ms}`` of the CUDA
     kernels torch.profiler records over ``calls`` calls of ``fn`` (after a
     warm-up), each named by its function's name alone (no namespace,
-    template arguments or parameters)."""
+    template arguments or parameters).  A profile that recorded no kernel
+    (the tracer can miss a window) is taken again, up to ``tries`` times;
+    after that the dict is empty."""
     fn(*args)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize()
     out = Counter()
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            name = ev.key.split("<")[0].split("::")[-1].split("(")[0].split()[-1]
-            out[name] += ev.self_device_time_total / calls / 1e3
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                name = ev.key.split("<")[0].split("::")[-1].split("(")[0].split()[-1]
+                out[name] += ev.self_device_time_total / calls / 1e3
+        if out:
+            break
     return dict(out)
 
 
@@ -398,6 +402,23 @@ def cg_loop_line(stats, iters, wall_s):
             f"{stats['reads'] / solves:.2f} host reads per solve ({stats['reads']} reads), "
             f"{stats['queued']} iterations queued, {stats['idle']} of them idle "
             f"({stats['idle'] / max(stats['queued'], 1):.2%})")
+
+
+def k6_two_passes(launches, stats, label):
+    """Check that K6 launched its two passes for each queued CG iteration
+    and each solve's start, and no other kernel: ``2 (queued + solves)`` of
+    the CG loop's counts ``stats``.  A tree of another design (four passes,
+    ``tools/turns.py``) or without the counts is not held to it."""
+    from fcvm_tpu_torch.ops import kernels
+
+    if stats is None or len(getattr(kernels, "CG_PASSES", ())) != 2:
+        return
+    want = 2 * (stats["queued"] + stats["solves"])
+    print(f"K6: {launches['cg_iteration']} launches, two passes for each of {stats['queued']} "
+          f"queued iterations and {stats['solves']} starts: {want}")
+    check(launches["cg_iteration"] == want,
+          f"{label}: K6 launched {launches['cg_iteration']} times, not two passes an iteration "
+          f"queued and a start ({want})")
 
 
 def read_launches():
@@ -734,6 +755,7 @@ def run_plate(big, cfg, label, gnl=False, required=CG_KERNELS):
           f"{label}: stresses are not finite (ne, 4, 6)")
     check(all(launches[k] > 0 for k in required),
           f"{label}: {required} not all launched on the main path")
+    k6_two_passes(launches, stats, label)
     return dict(lines=lines, cg_stats=res.cg_stats, res=res,
                 stepping=t["stepping"], step_iters=step_iters, step_solves=step_solves,
                 launches=launches, by_dtype=by_dtype, lbd=lbd,
@@ -1302,6 +1324,12 @@ def block_kernel_phase(models):
 
 
 K6_BATCHES = (1, 2, 4, 8, 16, 32)  # the CG_BATCH sweep of phase 3e
+# the paths' forms: the plate's vectors, the eigensolve's block at m = 8 and
+# at the widths its block solves drop to as their columns finish
+K6_CASES = (("plate", torch.float32, "vector"), ("plate", torch.float64, "vector"),
+            ("plate", torch.float32, "deflated"), ("plate", torch.float32, "harvest"),
+            ("column", torch.float32, "m=8"), ("column", torch.float64, "m=8"),
+            *(("column", torch.float32, f"m={m}") for m in (7, 6, 5, 4, 3, 2)))
 
 
 def k6_inputs(n, m, dtype, defl=False, harvest=False, seed=16):
@@ -1318,14 +1346,14 @@ def k6_inputs(n, m, dtype, defl=False, harvest=False, seed=16):
                            device="cuda", dtype=dtype)
 
     dfl = hv = None
-    if defl:
+    if defl:  # W c of the size of z / sqrt(n): the iterates stay finite however many passes run
         a = torch.randn((32, 32), generator=gen, device="cuda", dtype=dtype)
-        dfl = (vec(n, 32), a @ a.T / 32)
+        dfl = (vec(n, 32) / math.sqrt(n), a @ a.T / 32)
     if harvest:
         hv = (torch.zeros((64, n), dtype=dtype, device="cuda"),
               torch.zeros((3, 64), dtype=dtype, device="cuda"))
     plan = kernels.cg_plan(vec(), 0.0, 0.0, 1e15, 1e15, dfl, hv)
-    if defl:  # the c of a last update pass
+    if defl:  # the c a four-pass tree reads in its r.z pass
         plan.c.copy_(vec(32))
     st, cols = plan.state, plan.state.shape[0]
     st[:, kernels.SLOT_RZ] = float(n)
@@ -1344,25 +1372,16 @@ def k6_inputs(n, m, dtype, defl=False, harvest=False, seed=16):
     return plan, [base + 0.1 * vec() for _ in range(4)]
 
 
-def k6_copy(plan, vecs):
-    from fcvm_tpu_torch.ops import kernels
-
-    scratch = plan.scratch.clone()
-    c = None if plan.c is None else scratch[kernels.CG_SCRATCH_C:
-                                            kernels.CG_SCRATCH_C + plan.c.shape[0]]
-    hv = [None if t is None else t.clone() for t in (plan.zs, plan.coef)]
-    return (kernels.CGPlan(plan.state.clone(), plan.w, plan.kw_inv, *hv, scratch,
-                           plan.ticket.clone(), c), [v.clone() for v in vecs])
-
-
 def k6_compare(plan, vecs):
-    """Each pass (and the start form of steps 1 to 3) on copies of ``plan``
-    and ``vecs``, kernel against plain version: (the max relative and
+    """Each of K6's two passes (and their start forms) on copies of ``plan``
+    and ``vecs``, kernel against plain version, the direction pass on the
+    partials an update pass's start form leaves: (the max relative and
     absolute errors of the sums and what follows from them, and of a
-    deflated z; whether every
-    vector an elementwise update writes, every counter and flag and the
-    harvest's residuals agree bit for bit, and a second launch repeats the
-    first's bits)."""
+    deflated direction; whether the counters and flags, the harvest's
+    residuals and x, r and p agree bit for bit, x, r and p with what the
+    plain version's updates make of the inputs with the kernel's own step
+    lengths, z is left unwritten, and a second launch repeats the first's
+    bits)."""
     from fcvm_tpu_torch.ops import kernels
 
     near = [kernels.SLOT_RZ, kernels.SLOT_ALPHA, kernels.SLOT_BETA, kernels.SLOT_RNORM,
@@ -1377,29 +1396,44 @@ def k6_compare(plan, vecs):
         return diff / max(float(b.abs().max()), 1e-300)
 
     for start in (False, True):
-        for step in range(4):
-            if start and step == 0:
-                continue
-            (pk, vk), (pk2, vk2), (pr, vr) = (k6_copy(plan, vecs) for _ in range(3))
+        for step in (0, 1):
+            base, vin = plan.copy(), [v.clone() for v in vecs]
+            if step == 1:  # the partials of r, as the update pass leaves them
+                kernels.cg_iteration(0, base, *vin, start=True)
+            (pk, vk), (pk2, vk2), (pr, vr) = ((base.copy(), [v.clone() for v in vin])
+                                             for _ in range(3))
             kernels.cg_iteration(step, pk, *vk, start=start)
             kernels.cg_iteration(step, pk2, *vk2, start=start)
             torch.cuda.synchronize()
             kernels.cg_iteration_ref(step, start, pr, *vr)
-            for i, (a, b) in enumerate(zip(vk, vr)):
-                if step == 2 and i == 3 and plan.w is not None:
-                    rel = max(rel, err(a, b))
+            rows = pk.state.tolist()
+            run = [bool(row[kernels.SLOT_RUN]) for row in rows]
+            alpha = [row[kernels.SLOT_ALPHA] for row in rows]
+            x, r, p, z = (t.clone() for t in vin)
+            if step == 0 and not start and any(run):
+                kernels.cg_update_r(r, z, alpha, run)
+            elif step == 1 and start:
+                p.copy_(z)
+            elif step == 1 and any(run):
+                kernels.cg_update_direction(x, p, z, alpha,
+                                            [row[kernels.SLOT_BETA] for row in rows], run)
+            deflated = plan.w is not None and step == 1
+            for i, (a, want) in enumerate(zip(vk, (x, r, p, vin[3]))):
+                if deflated and i == 2:
+                    rel = max(rel, err(a, vr[2]))
                 else:
-                    same &= bool(torch.equal(a, b))
+                    same &= bool(torch.equal(a, want))
             for slot in near:  # each scalar against its own size
                 rel = max(rel, err(pk.state[:, slot], pr.state[:, slot]))
             same &= bool(torch.equal(pk.state[:, exact], pr.state[:, exact]))
-            if plan.w is not None and step == 1:
+            if deflated:
                 rel = max(rel, err(pk.c, pr.c))
             if plan.zs is not None:
                 same &= bool(torch.equal(pk.zs, pr.zs))
                 rel = max(rel, err(pk.coef, pr.coef))
             same &= bool(torch.equal(pk.state, pk2.state)) and all(
                 torch.equal(a, b) for a, b in zip(vk, vk2))
+            del base, vin, pk, vk, pk2, vk2, pr, vr
     return rel, abs_err, same
 
 
@@ -1432,50 +1466,46 @@ def k6_chain(plan, vecs):
     return one
 
 
-def k6_phase(models):
-    """Phase 3e: K6 (``cg_iteration``) on the plate's vectors (float32 and
-    float64; float32 with a 32-vector deflation space and with a 64-slot
-    harvest) and the beam-column's block at m = 8 (float32, float64), each
-    pass and the start form of steps 1 to 3 against its plain version, bit
-    for bit on a second launch; one iteration's four passes timed against
-    their plain versions, their bound, the torch chain they replaced and the
-    deflation's three torch products; then the ``CG_BATCH`` sweep: one
-    elastic solve of the plate in float32 at each batch, in turns.  Returns
+def k6_times(models, compare=True):
+    """K6 (``cg_iteration``) on the plate's vectors (float32 and float64;
+    float32 with a 32-vector deflation space and with a 64-slot harvest)
+    and the beam-column's block at m = 8 (float32, float64): with
+    ``compare``, each pass and its start form against its plain version
+    (``k6_compare``); one iteration's passes (as many as the tree's
+    ``CG_PASSES``) timed with CUDA events and each pass's device time
+    (torch.profiler), against their plain versions, their bound, the torch
+    chain they replaced and (deflated) the deflation's three torch products
+    (the parent design's times: ``tools/turns.py TREE k6``).  Returns
     ``{(dtype, model, form): numbers}``."""
-    from fcvm_tpu_torch import FcvmConfig
     from fcvm_tpu_torch.ops import kernels
-    from fcvm_tpu_torch.ops import solver as slv
-    from fcvm_tpu_torch.runtime.backend import TorchSystem
     from fcvm_tpu_torch.utils.indexing import pad_ndof
 
     rows = {}
-    cases = [("plate", torch.float32, "vector"), ("plate", torch.float64, "vector"),
-             ("plate", torch.float32, "deflated"), ("plate", torch.float32, "harvest"),
-             ("column", torch.float32, "m=8"), ("column", torch.float64, "m=8")]
-    for name, dtype, form in cases:
+    passes = len(kernels.CG_PASSES)
+    for name, dtype, form in K6_CASES:
         dname, size = str(dtype).removeprefix("torch."), torch.finfo(dtype).bits // 8
         tol = TOL_F32 if dtype == torch.float32 else TOL_F64
         n = pad_ndof(models[name].mesh.ndof)
-        m = 8 if form == "m=8" else 0
+        m = int(form[2:]) if form.startswith("m=") else 0
         plan, vecs = k6_inputs(n, m, dtype, form == "deflated", form == "harvest")
-        rel, abs_err, same = k6_compare(plan, vecs)
+        rel, abs_err, same = k6_compare(plan, vecs) if compare else (None, None, None)
         x, r, p, v = vecs
 
         def iteration():
-            for step in range(4):
+            for step in range(passes):
                 kernels.cg_iteration(step, plan, x, r, p, v)
 
         def plain():
-            for step in range(4):
+            for step in range(passes):
                 kernels.cg_iteration_ref(step, False, plan, x, r, p, v)
 
         ms = cuda_ms(iteration)
-        row = dict(n=n, m=max(m, 1), max_abs_err=abs_err, max_rel_err=rel, ms=ms,
+        row = dict(n=n, m=max(m, 1), passes=passes, max_abs_err=abs_err, max_rel_err=rel, ms=ms,
                    plain_ms=cuda_ms(plain), chain_ms=cuda_ms(k6_chain(plan, vecs)),
-                   library_ms=None)
-        # 12 vectors of n m values an iteration (p, ap; r, ap, r; r, z; z, p,
-        # x, p, x); deflated W twice and z once more; a harvest z once more
-        nvec = 12 * max(m, 1) + (65 if form == "deflated" else 0) + (form == "harvest")
+                   library_ms=None, grid=getattr(plan, "grid", None))
+        # 10 vectors of n m values an iteration (the update: p, ap, r, r; the
+        # direction: r, z, p, x, x, p); deflated W twice; a harvest z once more
+        nvec = 10 * max(m, 1) + (64 if form == "deflated" else 0) + (form == "harvest")
         row["bound_ms"], row["bound_by"] = bound(nvec * n * size, 10 * n * max(m, 1), dtype)
         extra = ""
         if form == "deflated":
@@ -1483,24 +1513,51 @@ def k6_phase(models):
             row["defl_products_ms"] = cuda_ms(lambda: v + w @ (kw_inv @ (w.T @ r)))
             extra = (f", the deflation's three torch products (with the add) "
                      f"{row['defl_products_ms']:.4f} ms")
-        bits = "the same bits" if same else "DIFFERENT BITS"
-        print(f"K6 {dname} {name} {form} n={n}: max rel err {rel:.3e} (limit {tol:g}), "
-              f"updates, counters, flags and second launch {bits}; "
-              f"four passes {ms:.4f} ms, plain {row['plain_ms']:.4f} ms (host reads of the "
-              f"state in each), the torch chain they replaced {row['chain_ms']:.4f} ms{extra}; "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-              f"{row['bound_ms'] / ms:.1%} of it; median of 20")
-        check(rel <= tol, f"K6 disagrees with its plain version ({dname}, {name}, {form})")
-        check(same, f"K6's bits differ from its plain version's or a second launch's "
-                    f"({dname}, {name}, {form})")
         # the same pass kernels, each alone (device time, torch.profiler)
         by = device_ms_by_kernel(iteration)
+        running = plan.state[:, kernels.SLOT_RUN].clone()
+        iteration()
+        check(torch.equal(plan.state[:, kernels.SLOT_NEXT], running)
+              and bool(torch.isfinite(plan.state[:, kernels.SLOT_RNORM]).all()),
+              f"K6's timed passes let a column finish or overflow ({dname}, {name}, {form}): the "
+              f"times would be of idle passes")
         row["pass_device_ms"] = {k: v_ for k, v_ in by.items() if k.startswith("cg_")}
+        # None where the profiler recorded no pass: not measured
+        row["device_ms"] = sum(row["pass_device_ms"].values()) or None
+        dev = row["device_ms"]
+        dev_text, share = ("not recorded", "") if dev is None else (
+            f"{dev:.4f} ms", f"{row['bound_ms'] / dev:.1%} of the device time, ")
+        checked = "" if not compare else (
+            f"max rel err {rel:.3e} (limit {tol:g}), updates, counters, flags and second launch "
+            f"{'the same bits' if same else 'DIFFERENT BITS'}; ")
+        print(f"K6 {dname} {name} {form} n={n} (grid {row['grid']}): {checked}{passes} passes "
+              f"{ms:.4f} ms (CUDA events), device time {dev_text}; plain "
+              f"{row['plain_ms']:.4f} ms (host reads of the state in each), the torch chain they "
+              f"replaced {row['chain_ms']:.4f} ms{extra}; bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}, {nvec} vectors), {share}{row['bound_ms'] / ms:.1%} of the "
+              f"events'; median of 20")
         print(f"  device time per pass: " + ", ".join(
             f"{k} {v_:.4f} ms" for k, v_ in sorted(row["pass_device_ms"].items())))
+        if compare:
+            check(rel <= tol, f"K6 disagrees with its plain version ({dname}, {name}, {form})")
+            check(same, f"K6's bits differ from its plain version's or a second launch's "
+                        f"({dname}, {name}, {form})")
         rows[(dname, name, form)] = row
         del plan, vecs, x, r, p, v
         torch.cuda.empty_cache()
+    return rows
+
+
+def k6_phase(models):
+    """Phase 3e: K6 on the paths' vectors (``k6_times``), then the
+    ``CG_BATCH`` sweep: one elastic solve of the plate in float32 at each
+    batch, in turns.  Returns ``{(dtype, model, form): numbers, "sweep":
+    ...}``."""
+    from fcvm_tpu_torch import FcvmConfig
+    from fcvm_tpu_torch.ops import solver as slv
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    rows = k6_times(models)
 
     # CG_BATCH: one elastic solve of the plate at each batch, in turns
     big = models["plate"]
@@ -1796,6 +1853,7 @@ def run_column(cfg, nstep=COL_NSTEP, label="phase 9", required=(*CG_KERNELS, *BL
     inner = sum(sum(map(sum, r["inner_iters"])) for r in tiers)
     print(f"CG loop, eigensolve (block iterations and their columns' inner CG {inner}): "
           f"{cg_loop_line(stats, inner, t['buckling'])}")
+    k6_two_passes(launches, stats, label)
     return dict(launches=launches, by_dtype=by_dtype, buckling=t["buckling"],
                 stepping=t["stepping"], wall=wall, factors=lam.tolist(), tiers=tiers,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -1808,13 +1866,18 @@ def column_breakdown(cfg):
     (gather, K0m, K8, masks), the block preconditioner apply through K4m,
     through the torch steps it replaced and as 8 vector applies, and one
     pcg_block iteration through each against one pcg iteration (wall time
-    per iteration over 20 iterations, host syncs included).  A tree without
+    per iteration over 20 iterations, host syncs included); then one
+    pcg_block iteration deflated by the eigensolve's own space (a harvest of
+    the first column, kd Ritz vectors) and that deflation's three torch
+    products alone.  A tree without
     K1m (``tools/turns.py``) times its own path, the chain.  Returns the
     rows."""
     from fcvm_tpu_torch.ops import assembly as asm
+    from fcvm_tpu_torch.ops import deflation as dfl
     from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.ops import solver as slv
     from fcvm_tpu_torch.runtime.backend import TorchSystem
+    from fcvm_tpu_torch.runtime.buckling import STALL, _recycling_params
 
     col = column_model(COL_BIG, COL_W, COL_T)
     backend = TorchSystem(col, cfg, cfg.resolve_dtype(), cfg.resolve_device())
@@ -1903,6 +1966,26 @@ def column_breakdown(cfg):
         rows.append(("pcg_block iteration, m = 8 (wall), this tree's chains",
                      per_iteration(block(chain))))
     rows.append(("pcg iteration, one column (wall)", per_iteration(single)))
+    # the block deflation fold the eigensolve leaves to torch products: its
+    # own space (a harvest of the first column, its Ritz vectors on this
+    # operator), one deflated pcg_block iteration and the products alone
+    nstore, k_defl = _recycling_params(backend.ndof_pad, ue.element_size())
+    res0, h = slv.pcg_harvest(khat, b[:, 0].contiguous(), precond=pc.apply, rtol=1e-10,
+                              maxiter=2000, nstore=nstore, stall=STALL)
+    alphas, betas, rzs = torch.stack([h.alphas, h.betas, h.rzs]).cpu().numpy()
+    coef = dfl.ritz_coefficients(alphas, betas, rzs, res0.iters, k_defl)
+    space = dfl.build_space(khat.esm_t, sp.eldofs_m, sp.fixmask_m, h.zs, coef, sp.incidence,
+                            getattr(khat, "packed", None))
+    del h, res0
+    kd = space.w.shape[1]
+    deflated = dfl.deflated(new["apply"], space)
+    rows += [(f"pcg_block iteration, m = 8 (wall), deflated by the eigensolve's space (kd = "
+              f"{kd}, {nstore} slots harvested)",
+              per_iteration(lambda iters: slv.pcg_block(new["kmv"], b, precond=deflated,
+                                                        rtol=1e-10, maxiter=iters))),
+             (f"the deflation's three torch products alone, m = 8, kd = {kd}",
+              cuda_ms(lambda: space.w @ (space.kw_inv @ (space.w.T @ v))))]
+    del space, deflated
     print("CUDA-event times, median of 20 runs unless marked:")
     for name, ms in rows:
         print(f"{name}: {ms:.4f} ms")
@@ -2603,8 +2686,10 @@ def bench_phase(smi):
     torch.cuda.reset_peak_memory_stats()
     lines = []
     reset_launches()
+    stats = cg_stats_reset()
     rc = bench.main(["--no-same-size"], emit=lines.append)
     launches = read_launches()[0]
+    k6_two_passes(launches, stats, "phase 14")
     check(rc == 0 and len(lines) >= 2, "phase 14: the bench did not finish")
     g = json.loads(lines[-1])
     x = g["extra"]

@@ -17,47 +17,72 @@
 // The solve's scalars live in a float64 state row a column (the slots
 // below, ops/kernels.py CG_SLOTS), read and written only by the passes, so
 // no iteration needs the host: the caller queues iterations and reads the
-// flags once per batch.  Four passes an iteration, around K1 (ap = K_hat p)
-// and K4 (z4 = M r):
-//   (a) p.ap.  Its tail copies `next` to `run` and writes alpha.
-//   (b) r -= alpha ap, ||r||^2 and (deflated) W^T r.  Its tail writes
-//       rnorm, k, best, since and `next`, the cond of the next iteration
-//       decided from this one's r (tolerance, stall and gate compared in
-//       float64), and c = K_w^+ (W^T r) (kd x kd, on chip).
-//   (c) (deflated) z = z4 + W c, written over z4; then r.z.  Its tail writes
-//       beta and rz.
-//   (d) x += alpha p and p = z + beta p, reading the old p once for both (x
-//       takes the step where the direction is read anyway: nothing between
-//       (b) and (d) reads x); in a harvesting solve z into slot min(k, cap)
-//       of the harvest and rz, alpha and beta beside it.
-// A pass writes nothing of a column whose `run` is 0, so a converged solve
-// stays frozen bit for bit while the queued iterations pass; a pass with no
-// running column returns at once.  The start of a solve runs (b), (c) and
-// (d) in their start form: ||r0||, the tolerance and gate from ||b||, rz0,
-// and slot 0 of the harvest.
+// flags once per batch.  Two passes an iteration, each a cooperative launch
+// of a grid that is resident by construction (as many blocks an SM as the
+// occupancy of both passes allows, at most kMaxBlocksPerSm; a grid that
+// cannot be co-resident is refused at launch), with one grid barrier inside:
+//   update, between K1 (ap = K_hat p) and K4 (z4 = M r): p.ap partials; the
+//     barrier; every block sums all the partials in one fixed order, so every
+//     block holds alpha with the same bits; r -= alpha ap on the ap values the
+//     thread still holds in registers, ||r||^2 partials and (deflated) W^T r
+//     partials.  Block 0 writes run = next and alpha.
+//   direction, after K4: every block sums the update's partials in the same
+//     fixed order: ||r||, k, best, since and `next` (the cond of the next
+//     iteration decided from this r: tolerance, stall and gate compared in
+//     float64) and c = K_w^+ (W^T r) (kd x kd, on chip); z = z4 + W c in
+//     registers; r.z partials; the barrier; beta; x += alpha p (x takes the
+//     step where the old p is read anyway) and p = z + beta p on the z values
+//     the thread holds; in a harvesting solve z into slot min(k, cap) of the
+//     harvest and rz, alpha and beta beside it.  Every block reads the state
+//     before the barrier and block 0 writes it after it.
+// z is never written back; only a harvest stores it.  A pass writes nothing
+// of a column whose `run` is 0, so a converged solve stays frozen bit for
+// bit while the queued iterations pass; a pass with no running column
+// returns at once.  The start of a solve runs both passes in their start
+// form: the update takes the partials of r0 alone; the direction ||r0||, the
+// tolerance and gate from ||b||, rz0, p0 = z0 and slot 0 of the harvest.
 //
-// Sums: a block sums its rows of a column in a fixed order (a thread's rows,
-// then a shared-memory tree over the threads of the column), writes one
-// partial a column and takes an integer ticket; the block that takes the
-// last ticket adds the partials in the same order and writes the state.  No
-// float atomics: two runs give the same bits.  The element updates round as
-// the plain version's separate product and sum (no contraction to an FMA),
-// so x, r and p are its bits given the same scalars.  The sums and the
-// state's step lengths stay in the working dtype; the state stores them in
-// float64, exactly.
+// The walk: the grid is persistent; thread t of block b takes items b U + t,
+// (G + b) U + t, ... (G blocks, U threads that take items) of the row-major
+// (n, m) values.  An item is 16 bytes (float4 or double2: kVec consecutive
+// values, a thread's columns of a row contiguous) where every vector's base
+// is aligned, else one value; U kVec is a multiple of m, so a thread's lanes
+// keep their columns from item to item and their partials stay in
+// registers.  The ragged tail is loaded and stored value by value.  Each
+// pass has two layouts of its registers, picked at launch: where the grid
+// covers the items in 4 sweeps (the plate's vectors), a thread holds its 4
+// items across the barrier (ap in the update, z in the direction) and loads
+// before it the operands the far side needs of its first 2 (r; p and x),
+// so their reads overlap the partial sums; with more items (the
+// eigensolve's blocks), it holds its first 8 in float32 and 4 in float64,
+// and reads the rest again after the barrier (z: again plus W c).
+
+// Deflation layout: W is (n, kd) with kd a multiple of 4 (the plan pads the
+// basis with zero columns).  W^T r: a chunk's r in shared memory; thread t
+// loads 16 bytes of a row (four columns, 4 (t % G)) and keeps four column
+// partials in registers over all its rows, folded into the block's tree
+// once.  W c: a thread multiplies its four columns by c, held in registers,
+// and the G threads of a row add their parts with a fixed xor tree (three
+// shuffles at kd = 32).
 //
-// What bounds it: bytes.  An iteration reads and writes 12 vectors of n
-// values (p, ap; r, ap, r; r, z; z, p, x, p, x): 24.1 MB in float32 on the
-// 502,599-dof plate, 7.2 us at 3.35 TB/s; deflated it also reads W (n, 32)
-// twice and writes z, 154.8 MB, 46.2 us (the floor: W^T r needs the new r
-// and W c must reach z before r.z); a harvest writes z once more; a block
-// of m columns moves 12 m.  The design's answer: each operand read
-// once a pass, the deflation products inside the passes that hold r and z
-// already, a warp reading W's rows whole (a lane a column), and at most
-// kMaxBlocks blocks whose partials stay in L2, the last block loading
-// eight blocks' partials at once.  What it cannot hide: four tails an
-// iteration (a fence, a ticket and a tree over the partials), latency that
-// a kernel per pass pays.
+// Sums: a thread's items in order, then the block's pairwise tree over its
+// threads (one column: the last five levels by shuffles) or over a step's
+// rows (several), one partial a block; after the barrier each block adds the grid's partials,
+// each of its threads a fixed set of blocks in order, then a tree.  No float atomics: two runs give the same bits.  The element
+// updates round as the plain version's separate product and sum (no
+// contraction to an FMA), so x, r and p are its bits given the same
+// scalars.  The sums and the state's step lengths stay in the working
+// dtype; the state stores them in float64, exactly.
+//
+// What bounds it: bytes.  An iteration reads and writes 10 vectors of n
+// values (p, ap, r, r; r, z, p, x, x, p): 20.1 MB in float32 on the
+// 502,599-dof plate, 6.0 us at 3.35 TB/s; deflated it also reads W (n, 32)
+// twice, 148.8 MB, 44.4 us (the floor: W^T r needs the new r and W c must
+// reach z before r.z); a harvest writes z once more; a block of m columns
+// moves 10 m.  What it cannot hide: two grid barriers an iteration, each
+// followed by every block reading the grid's partials (latency, not bytes:
+// on an H100 a pass on the plate takes ~5 us more than its bytes), and the
+// launches around K1 and K4.
 
 #include <cstdint>
 
@@ -71,27 +96,49 @@ constexpr int kRz = 0, kAlpha = 1, kBeta = 2, kK = 3, kRnorm = 4, kBest = 5, kSi
               kBnorm = 13, kRtol = 14, kAtol = 15, kSlots = 16;
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 1024;
-constexpr int kMaxCols = 64;  // columns of a block solve; partial columns of a pass
-constexpr int kMaxDefl = 32;  // deflation vectors: a lane each
-// scratch: kMaxBlocks x kMaxCols partials, then c (kMaxDefl)
-constexpr long long kScratchC = static_cast<long long>(kMaxBlocks) * kMaxCols;
+constexpr int kMaxBlocksPerSm = 4;  // more blocks only lengthen the partials' sums
+constexpr int kMaxCols = 64;        // columns of a block solve
+constexpr int kMaxDefl = 32;        // deflation vectors
+// The two layouts of a pass's registers (a sweep: the grid's threads once
+// over the items): up to kFewHeld sweeps, kFewHeld items held across the
+// barrier and the later operands (r; p, x) of kFewPre of them loaded before
+// it; more, Many<T>::held held and nothing loaded early.
+constexpr int kFewHeld = 4, kFewPre = 2;
+template <typename T>
+struct Many {  // 8 items held in float32, 4 in float64 (the registers' budget)
+  static constexpr int held = sizeof(T) == 4 ? 8 : 4;
+};
 constexpr unsigned kFull = 0xffffffffu;
 
-// the row slots of a block: the largest power of two R with R m <= kThreads;
-// thread t takes column t % m at row slot t / m, so a warp reads runs of
-// consecutive values of a row-major (n, m) block
-__host__ __device__ inline int row_slots(int m) {
-  int r = 1;
-  while (2 * r * m <= kThreads) r *= 2;
-  return r;
-}
+// 16 bytes of T
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using type = float4;
+  static constexpr int n = 4;
+};
+template <>
+struct Vec<double> {
+  using type = double2;
+  static constexpr int n = 2;
+};
 
-__host__ __device__ inline int grid_of(long long n, int m) {
-  const long long rows = row_slots(m);
-  const long long g = (n + rows - 1) / rows;
-  return static_cast<int>(g < 1 ? 1 : (g > kMaxBlocks ? kMaxBlocks : g));
+__device__ inline void unpack(float (&v)[4], float4 u) {
+  v[0] = u.x;
+  v[1] = u.y;
+  v[2] = u.z;
+  v[3] = u.w;
 }
+__device__ inline void unpack(double (&v)[2], double2 u) {
+  v[0] = u.x;
+  v[1] = u.y;
+}
+__device__ inline float4 pack(const float (&v)[4]) { return make_float4(v[0], v[1], v[2], v[3]); }
+__device__ inline double2 pack(const double (&v)[2]) { return make_double2(v[0], v[1]); }
+// a thread's lanes of a vector item, added in a fixed tree
+__device__ inline float fold(const float (&a)[4]) { return (a[0] + a[1]) + (a[2] + a[3]); }
+__device__ inline double fold(const double (&a)[2]) { return a[0] + a[1]; }
 
 // products and sums rounded alone (no FMA contraction): the plain version's
 __device__ inline float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -103,65 +150,243 @@ __device__ inline double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 __device__ inline float sqrt_of(float a) { return sqrtf(a); }
 __device__ inline double sqrt_of(double a) { return sqrt(a); }
 
-// sh[slot m + c] (slot < R) -> sh[c]: the sum over the slots of column c, a
-// fixed tree (slot + s into slot).  Every thread of the block calls it.
+// The scratch, in values of T: the p.ap and r.z partials (grid x m) at 0,
+// the ||r||^2 partials (grid x m) at y, the W^T r partials (grid x kd) at
+// w, c (kd) at c; each region starts on a multiple of 4 values.
+struct Layout {
+  long long y, w, c, size;
+};
+
+__host__ __device__ inline long long round4(long long v) { return (v + 3) / 4 * 4; }
+
+__host__ __device__ inline Layout layout_of(int grid, int m, int kd) {
+  Layout l;
+  l.y = round4(static_cast<long long>(grid) * m);
+  l.w = l.y + round4(static_cast<long long>(grid) * m);
+  l.c = l.w + round4(static_cast<long long>(grid) * kd);
+  l.size = l.c + round4(kd);
+  return l;
+}
+
+// A pass's walk over the values of an (n, m) block (m = 1: a vector),
+// row-major, in items of q consecutive values: thread t of block b takes
+// items b U + t, (G + b) U + t, ... (G blocks, U threads that take items).
+// U q is a multiple of m, so the lanes of a thread fall on the same
+// columns in every item it takes, (t q + j) % m, and a block's items at a
+// step are U q / m whole rows.
+struct Walk {
+  int q;            // values an item
+  int used;         // U
+  int rows;         // rows of a block's step: U q / m
+  long long nvals;  // n m
+  long long nit;    // items
+};
+
+__host__ __device__ inline int gcd_of(int a, int b) {
+  while (b) {
+    const int c = a % b;
+    a = b;
+    b = c;
+  }
+  return a;
+}
+
+__host__ __device__ inline Walk walk_of(long long n, int m, int q) {
+  Walk w;
+  w.q = q;
+  const int step = m / gcd_of(m, q);  // U is a multiple of it
+  w.used = step * (kThreads / step);
+  w.rows = w.used * q / m;
+  w.nvals = n * m;
+  w.nit = (w.nvals + q - 1) / q;
+  return w;
+}
+
+// the values of an item (kVec of them; the rest of the lanes 0)
 template <typename T>
-__device__ void column_tree(T* sh, int m, int R) {
+struct Item {
+  T v[Vec<T>::n];
+};
+
+// the values of the item at a + e: one 16-byte load where it is whole and q
+// is the vector width, else cnt values one at a time
+template <typename T>
+__device__ __forceinline__ Item<T> load_item(const T* a, long long e, int q, int cnt) {
+  constexpr int kv = Vec<T>::n;
+  Item<T> it;
+  if (q == kv && cnt == kv) {
+    unpack(it.v, *reinterpret_cast<const typename Vec<T>::type*>(a + e));
+  } else {
+#pragma unroll
+    for (int j = 0; j < kv; ++j) it.v[j] = j < cnt ? a[e + j] : T(0);
+  }
+  return it;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_item(T* a, long long e, int q, int cnt, const Item<T>& it) {
+  constexpr int kv = Vec<T>::n;
+  if (q == kv && cnt == kv) {
+    *reinterpret_cast<typename Vec<T>::type*>(a + e) = pack(it.v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kv; ++j)
+      if (j < cnt) a[e + j] = it.v[j];
+  }
+}
+
+// the values of item `it` of the walk: q, or what is left at the end
+__device__ __forceinline__ int item_count(long long it, const Walk& wk) {
+  const long long left = wk.nvals - it * wk.q;
+  return left < wk.q ? static_cast<int>(left) : wk.q;
+}
+
+// four consecutive values of W, read once and not kept in the caches
+__device__ inline void load4(float (&v)[4], const float* a) {
+  unpack(v, __ldcs(reinterpret_cast<const float4*>(a)));
+}
+__device__ inline void load4(double (&v)[4], const double* a) {
+  const double2 lo = __ldcs(reinterpret_cast<const double2*>(a));
+  const double2 hi = __ldcs(reinterpret_cast<const double2*>(a) + 1);
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = hi.x;
+  v[3] = hi.y;
+}
+
+// sh[row w + c] (row < rows) -> sh[c]: the sum over the rows of column c,
+// a fixed tree (the rows past the largest power of two first folded onto
+// the first ones, then row + s into row).  Every thread of the block calls
+// it.
+template <typename T>
+__device__ void rows_tree(T* sh, int w, int rows) {
+  int p = 1;
+  while (2 * p <= rows) p *= 2;
   __syncthreads();
-  for (int s = R / 2; s > 0; s >>= 1) {
-    if (static_cast<int>(threadIdx.x) < s * m) sh[threadIdx.x] += sh[threadIdx.x + s * m];
+  for (int i = threadIdx.x; i < (rows - p) * w; i += kThreads) sh[i] += sh[i + p * w];
+  __syncthreads();
+  for (int s = p / 2; s > 0; s >>= 1) {
+    for (int i = threadIdx.x; i < s * w; i += kThreads) sh[i] += sh[i + s * w];
     __syncthreads();
   }
 }
 
-// The block's partials: v at thread (slot, c) of the mapping of
-// row_slots(m), summed over the slots; columns c < nw go to
-// part[block cols + col0 + c].
+// sh[0] = the block's sum of one value a thread: the pairwise tree of
+// rows_tree(sh, 1, kThreads) (slot t + s into slot t), the same bits, its
+// last five levels inside warp 0 by shuffles instead of barriers.  Every
+// thread of the block calls it.
 template <typename T>
-__device__ void write_partials(T* sh, T v, int m, T* part, int cols, int col0, int nw) {
-  const int R = row_slots(m), t = threadIdx.x;
-  if (t < R * m) sh[t] = v;
-  column_tree(sh, m, R);
-  if (t < nw) part[static_cast<long long>(blockIdx.x) * cols + col0 + t] = sh[t];
+__device__ __forceinline__ void block_sum1(T* sh, T v) {
+  const int t = threadIdx.x;
+  __syncthreads();
+  sh[t] = v;
+  __syncthreads();
+  for (int s = kThreads / 2; s >= 32; s >>= 1) {
+    if (t < s) sh[t] += sh[t + s];
+    __syncthreads();
+  }
+  if (t < 32) {
+    T x = sh[t];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) x += __shfl_down_sync(kFull, x, s);
+    if (t == 0) sh[0] = x;
+  }
   __syncthreads();
 }
 
-// After every block wrote its partials: true in the one block that takes the
-// last ticket, which sets the ticket back to 0 for the next pass.
-__device__ bool last_block(unsigned* ticket) {
-  __shared__ bool last;
-  __threadfence();
+// sh[c] = the block's sum of column c < m of the threads' lane partials
+// acc (the lanes of a vector's item are one column, folded first)
+template <typename T>
+__device__ __forceinline__ void block_cols(T* sh, const Item<T>& acc, const Walk& wk, int m) {
+  const int t = threadIdx.x;
+  if (m == 1) {
+    block_sum1(sh, fold(acc.v));
+  } else {
+    __syncthreads();
+    if (t < wk.used) {
+#pragma unroll
+      for (int j = 0; j < Vec<T>::n; ++j)  // constant bounds keep acc in registers
+        if (j < wk.q) sh[t * wk.q + j] = acc.v[j];
+    }
+    rows_tree(sh, m, wk.rows);
+  }
+}
+
+// the partials of block b at columns c0 .. c0 + q of a region of `cols`
+// columns (16 bytes where q is the vector width, else one value)
+template <typename T>
+__device__ __forceinline__ Item<T> load_partial(const T* part, int b, int cols, int c0, int q) {
+  constexpr int kv = Vec<T>::n;
+  const T* a = part + static_cast<long long>(b) * cols + c0;
+  Item<T> it;
+  if (q == kv) {
+    unpack(it.v, __ldcg(reinterpret_cast<const typename Vec<T>::type*>(a)));
+  } else {
+#pragma unroll
+    for (int j = 0; j < kv; ++j) it.v[j] = j == 0 ? __ldcg(a) : T(0);
+  }
+  return it;
+}
+
+// sh[c] = the sum over the grid's blocks of part[b cols + c] (c < cols) in
+// one fixed order, the same in every block: thread (slot, group) adds the
+// blocks slot, slot + slots, ... in order (16 bytes a load where cols is a
+// multiple of the vector width, four loads in flight), then the tree over
+// the slots.
+template <typename T>
+__device__ void sum_cols(T* sh, const T* part, int cols) {
+  constexpr int kv = Vec<T>::n;
+  const int q = cols % kv == 0 ? kv : 1, g = cols / q, nb = gridDim.x, t = threadIdx.x;
+  int slots = 1;
+  while (2 * slots * g <= kThreads) slots *= 2;
+  T acc1 = 0;
+  if (t < slots * g) {
+    const int slot = t / g, c0 = (t % g) * q;
+    Item<T> acc = {};
+    int b = slot;
+    for (; b + 3 * slots < nb; b += 4 * slots) {
+      const Item<T> v0 = load_partial(part, b, cols, c0, q),
+                    v1 = load_partial(part, b + slots, cols, c0, q),
+                    v2 = load_partial(part, b + 2 * slots, cols, c0, q),
+                    v3 = load_partial(part, b + 3 * slots, cols, c0, q);
+#pragma unroll
+      for (int j = 0; j < kv; ++j) acc.v[j] = ((acc.v[j] + v0.v[j]) + v1.v[j] + v2.v[j]) + v3.v[j];
+    }
+    for (; b < nb; b += slots) {
+      const Item<T> v = load_partial(part, b, cols, c0, q);
+#pragma unroll
+      for (int j = 0; j < kv; ++j) acc.v[j] += v.v[j];
+    }
+    if (cols > 1) {
+#pragma unroll
+      for (int j = 0; j < kv; ++j)
+        if (j < q) sh[slot * cols + c0 + j] = acc.v[j];
+    } else {
+      acc1 = acc.v[0];
+    }
+  }
+  if (cols == 1) {  // every thread a slot
+    block_sum1(sh, acc1);
+  } else {
+    rows_tree(sh, cols, slots);
+  }
+}
+
+// Every block of the (co-resident) grid waits here until all have arrived;
+// what a block wrote before is then visible to every block.  The word
+// starts at 0 and returns to it: block 0 adds 2^31 - (blocks - 1), the rest
+// 1 each, so the top bit flips when the last block arrives.
+__device__ void grid_sync(unsigned* bar) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    const unsigned t = atomicAdd(ticket, 1u);
-    last = t == gridDim.x - 1;
-    if (last) *ticket = 0u;
+    const unsigned add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned old = atomicAdd(bar, add);
+    while (((old ^ *reinterpret_cast<volatile unsigned*>(bar)) & 0x80000000u) == 0) {
+    }
+    __threadfence();
   }
   __syncthreads();
-  return last;
-}
-
-// In the last block: sh[c] = the sum over the gridDim.x blocks of column c
-// of the partials (cols columns), in block order per slot, then the tree.
-// The loads of eight blocks are in flight at once; they are added in order.
-template <typename T>
-__device__ void sum_partials(T* sh, const T* part, int cols) {
-  const int R = row_slots(cols), t = threadIdx.x, nb = gridDim.x;
-  if (t < R * cols) {
-    const int c = t % cols;
-    T acc = 0;
-    int b = t / cols;
-    for (; b + 7 * R < nb; b += 8 * R) {
-      T v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = __ldcg(part + static_cast<long long>(b + k * R) * cols + c);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) acc += v[k];
-    }
-    for (; b < nb; b += R) acc += __ldcg(part + static_cast<long long>(b) * cols + c);
-    sh[t] = acc;
-  }
-  column_tree(sh, cols, R);
 }
 
 // the while_loop's cond on a column's state after its update
@@ -171,271 +396,545 @@ __device__ inline double cond_of(const double* s) {
   return (rn > s[kTol] && s[kK] < s[kMaxIter] && !stalled) ? 1.0 : 0.0;
 }
 
-// One step of transpose_sum: a lane keeps the S rows of v whose bit S
-// matches its own and adds its partner's (lane ^ S) copies of them.
-template <int S, typename T>
-__device__ inline void transpose_step(T (&v)[32], int lane) {
-  const bool upper = (lane & S) != 0;
+// the deflation's thread groups: kd / 4 columns of four, rounded up to a
+// power of two (<= 8)
+__device__ inline int groups_of(int kd) {
+  int g = 1;
+  while (4 * g < kd) g *= 2;
+  return g;
+}
+
+// W^T r over a chunk's rows [row0, row0 + nrows) (sr[i] = r[row0 + i]):
+// thread t adds its four columns 4 (t % G) of rows t / G, t / G + kThreads
+// / G, ... to its column partials wr, four rows' loads in flight
+template <typename T>
+__device__ __forceinline__ void wtr_chunk(T (&wr)[4], const T* w, const T* sr, long long row0,
+                                          int nrows, int kd, int G) {
+  const int g = threadIdx.x % G, rs = threadIdx.x / G, step = kThreads / G;
+  if (4 * g >= kd) return;
+  int i = rs;
+  for (; i + 3 * step < nrows; i += 4 * step) {
+    T v[4][4];
 #pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const T send = upper ? v[i] : v[i + S];
-    const T keep = upper ? v[i + S] : v[i];
-    v[i] = keep + __shfl_xor_sync(kFull, send, S);
+    for (int k = 0; k < 4; ++k) load4(v[k], w + (row0 + i + k * step) * kd + 4 * g);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const T ri = sr[i + k * step];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wr[j] += v[k][j] * ri;
+    }
+  }
+  for (; i < nrows; i += step) {
+    T v[4];
+    load4(v, w + (row0 + i) * kd + 4 * g);
+    const T ri = sr[i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wr[j] += v[j] * ri;
   }
 }
 
-// v[i] in each lane, i < 32: returns in lane l the sum over the warp's
-// lanes of v[l], a fixed tree of 31 shuffles (each step halves the rows a
-// lane carries); every index a constant, so v stays in registers
+// (W c)[row0 + i] -> sw[i] for a chunk's rows: thread t takes the four
+// columns 4 (t % G) of a row with c's four values cv, and the G threads of
+// the row add their parts with a fixed xor tree (every lane of the group
+// ends with the same bits); four rows' loads in flight
 template <typename T>
-__device__ inline T transpose_sum(T (&v)[32]) {
-  const int lane = threadIdx.x & 31;
-  transpose_step<16>(v, lane);
-  transpose_step<8>(v, lane);
-  transpose_step<4>(v, lane);
-  transpose_step<2>(v, lane);
-  transpose_step<1>(v, lane);
-  return v[0];
+__device__ __forceinline__ void wc_chunk(T* sw, const T* w, const T (&cv)[4], long long row0,
+                                         int nrows, int kd, int G) {
+  const int g = threadIdx.x % G, rs = threadIdx.x / G, step = kThreads / G;
+  const bool has = 4 * g < kd;
+  for (int base = 0; base < nrows; base += 4 * step) {  // uniform: every lane shuffles
+    T v[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = base + k * step + rs;
+      if (has && i < nrows) {
+        load4(v[k], w + (row0 + i) * kd + 4 * g);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[k][j] = T(0);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      T s = (v[k][0] * cv[0] + v[k][1] * cv[1]) + (v[k][2] * cv[2] + v[k][3] * cv[3]);
+      for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+      const int i = base + k * step + rs;
+      if (g == 0 && i < nrows) sw[i] = s;
+    }
+  }
 }
 
-// (a) p.ap; the tail: run = next, alpha = rz / (pap == 0 ? 1 : pap)
+// the rows of a vector's chunk at item cbase: [cbase q, cbase q + kThreads q) within n
+__device__ __forceinline__ int chunk_rows(long long cbase, int q, long long n) {
+  const long long left = n - cbase * q;
+  return static_cast<int>(left < kThreads * q ? left : kThreads * q);
+}
+
+// The update pass's work on the thread's item in the chunk at item cbase
+// (block-uniform): r -= alpha ap on the running lanes, ||r||^2 into rr and,
+// deflated, the chunk's W^T r into wr
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    cg_pap_kernel(double* __restrict__ st, T* __restrict__ part, unsigned* ticket,
-                  const T* __restrict__ p, const T* __restrict__ ap, long long n, int m) {
-  __shared__ T sh[kThreads];
+__device__ __forceinline__ void update_chunk(T* r, const T* w, T* sr, const Item<T>& av,
+                                             const Item<T>* rin, long long cbase, const Walk& wk,
+                                             long long n, int kd, int G, int start,
+                                             const bool (&go)[Vec<T>::n], const Item<T>& al,
+                                             Item<T>& rr, T (&wr)[4]) {
+  constexpr int kv = Vec<T>::n;
+  const int t = threadIdx.x, q = wk.q;
+  const long long it = cbase + t;
+  Item<T> rv = {};
+  if (t < wk.used && it < wk.nit) {
+    const int cnt = item_count(it, wk);
+    rv = rin ? *rin : load_item(r, it * q, q, cnt);
+    if (!start) {
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < kv; ++j)
+        if (go[j]) {
+          rv.v[j] = sub_rn(rv.v[j], mul_rn(al.v[j], av.v[j]));
+          any = true;
+        }
+      if (any) store_item(r, it * q, q, cnt, rv);
+    }
+#pragma unroll
+    for (int j = 0; j < kv; ++j) rr.v[j] += rv.v[j] * rv.v[j];
+  }
+  if (kd) {  // a vector
+#pragma unroll
+    for (int j = 0; j < kv; ++j)
+      if (j < q) sr[t * q + j] = rv.v[j];
+    __syncthreads();
+    wtr_chunk(wr, w, sr, cbase * q, chunk_rows(cbase, q, n), kd, G);
+    __syncthreads();
+  }
+}
+
+// The update pass: p.ap, the barrier, alpha; r -= alpha ap, ||r||^2 and
+// W^T r partials (start: the partials of r alone)
+template <typename T, int kHeld, int kPre>
+__global__ void __launch_bounds__(kThreads, 2)
+    cg_pass_update_kernel(double* st, T* part, unsigned* bar, T* r, const T* p, const T* ap,
+                          const T* __restrict__ w, long long n, int m, int kd, int q, int start) {
+  constexpr int kv = Vec<T>::n;
+  __shared__ T sh[4 * kThreads];
+  __shared__ T sr[kv * kThreads];
+  __shared__ T salpha[kMaxCols];
+  __shared__ bool sgo[kMaxCols];
   const int t = threadIdx.x;
-  if (!__syncthreads_or(t < m && st[t * kSlots + kNext] != 0.0)) {
+  if (t < m) sgo[t] = !start && st[t * kSlots + kNext] != 0.0;  // the test of the last r
+  if (!__syncthreads_or(start || (t < m && sgo[t]))) {
     if (blockIdx.x == 0 && t < m) st[t * kSlots + kRun] = 0.0;  // no column runs
     return;
   }
-  const int R = row_slots(m), c = t % m, slot = t / m;
-  T acc = 0;
-  if (slot < R)
-    for (long long row = static_cast<long long>(blockIdx.x) * R + slot; row < n;
-         row += static_cast<long long>(gridDim.x) * R)
-      acc += p[row * m + c] * ap[row * m + c];
-  write_partials(sh, acc, m, part, m, 0, m);
-  if (!last_block(ticket)) return;
-  sum_partials(sh, part, m);
-  if (t < m) {
-    double* s = st + t * kSlots;
-    const double next = s[kNext];
-    s[kRun] = next;
-    if (next != 0.0) {
-      const T pap = sh[t];
-      s[kAlpha] = static_cast<double>(static_cast<T>(s[kRz]) / (pap == T(0) ? T(1) : pap));
+  const Walk wk = walk_of(n, m, q);
+  const Layout lay = layout_of(gridDim.x, m, kd);
+  const bool active = t < wk.used;
+  const long long u = wk.used;
+  Item<T> held[kHeld];                 // ap of the thread's first kHeld items
+  Item<T> rpre[kPre > 0 ? kPre : 1];  // r of its first kPre, loaded before the barrier
+  if (!start) {
+    Item<T> acc = {};
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      const long long it = (static_cast<long long>(k) * gridDim.x + blockIdx.x) * u + t;
+      if (active && it < wk.nit) {
+        const int cnt = item_count(it, wk);
+        const Item<T> pv = load_item(p, it * q, q, cnt);
+        held[k] = load_item(ap, it * q, q, cnt);
+        if (k < kPre) rpre[k < kPre ? k : 0] = load_item(r, it * q, q, cnt);
+#pragma unroll
+        for (int j = 0; j < kv; ++j) acc.v[j] += pv.v[j] * held[k].v[j];
+      }
     }
+    if constexpr (kPre == 0) {  // later items: the few layout has none
+      for (long long it = (static_cast<long long>(kHeld) * gridDim.x + blockIdx.x) * u + t;
+           active && it < wk.nit; it += gridDim.x * u) {
+        const int cnt = item_count(it, wk);
+        const Item<T> pv = load_item(p, it * q, q, cnt), av = load_item(ap, it * q, q, cnt);
+#pragma unroll
+        for (int j = 0; j < kv; ++j) acc.v[j] += pv.v[j] * av.v[j];
+      }
+    }
+    block_cols(sh, acc, wk, m);
+    if (t < m) part[static_cast<long long>(blockIdx.x) * m + t] = sh[t];
+    grid_sync(bar);
+    sum_cols(sh, part, m);
+    if (t < m) {
+      const T rz = static_cast<T>(st[t * kSlots + kRz]), pap = sh[t];
+      salpha[t] = rz / (pap == T(0) ? T(1) : pap);
+    }
+    __syncthreads();
+    if (blockIdx.x == 0 && t < m) {
+      double* s = st + t * kSlots;
+      s[kRun] = sgo[t] ? 1.0 : 0.0;  // run = next
+      if (sgo[t]) s[kAlpha] = static_cast<double>(salpha[t]);
+    }
+  }
+  bool go[kv];
+  Item<T> al;
+#pragma unroll
+  for (int j = 0; j < kv; ++j) {
+    const int c = (t * q + (j < q ? j : 0)) % m;
+    go[j] = active && sgo[c];
+    al.v[j] = start ? T(0) : salpha[c];
+  }
+  const int G = kd ? groups_of(kd) : 1;
+  Item<T> rr = {};
+  T wr[4] = {};
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k) {
+    const long long cbase = (static_cast<long long>(k) * gridDim.x + blockIdx.x) * u;
+    if (cbase < wk.nit)
+      update_chunk(r, w, sr, start ? Item<T>{} : held[k],
+                   !start && k < kPre ? &rpre[k < kPre ? k : 0] : nullptr, cbase, wk, n, kd, G,
+                   start, go, al, rr, wr);
+  }
+  if constexpr (kPre == 0) {  // later items: the few layout has none
+    for (long long cbase = (static_cast<long long>(kHeld) * gridDim.x + blockIdx.x) * u;
+         cbase < wk.nit; cbase += gridDim.x * u) {
+      Item<T> av = {};
+      const long long it = cbase + t;
+      if (!start && active && it < wk.nit) av = load_item(ap, it * q, q, item_count(it, wk));
+      update_chunk(r, w, sr, av, static_cast<const Item<T>*>(nullptr), cbase, wk, n, kd, G,
+                   start, go, al, rr, wr);
+    }
+  }
+  block_cols(sh, rr, wk, m);
+  if (t < m) part[lay.y + static_cast<long long>(blockIdx.x) * m + t] = sh[t];
+  if (kd) {
+    __syncthreads();
+    const int g = t % G, rs = t / G;
+    if (4 * g < kd)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sh[rs * kd + 4 * g + j] = wr[j];
+    rows_tree(sh, kd, kThreads / G);
+    if (t < kd) part[lay.w + static_cast<long long>(blockIdx.x) * kd + t] = sh[t];
   }
 }
 
-// (b) the update, ||r||^2 and W^T r (start: no update); the tail writes the
-// norm, the counters, the next flag and c
+// z of the thread's item in the chunk at item cbase (0 outside the items),
+// with the chunk's W c when deflated (block-uniform)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    cg_update_kernel(double* __restrict__ st, T* __restrict__ part, unsigned* ticket,
-                     T* __restrict__ r, const T* __restrict__ ap, const T* __restrict__ w,
-                     const T* __restrict__ kw_inv, long long n, int m, int kd, int start) {
-  __shared__ T sh[kThreads];
+__device__ __forceinline__ Item<T> z_chunk(const T* z, const Item<T>* zin, const T* w, T* sw,
+                                           const T (&cv)[4], long long cbase, const Walk& wk,
+                                           long long n, int kd, int G) {
+  constexpr int kv = Vec<T>::n;
+  const int t = threadIdx.x, q = wk.q;
+  const long long it = cbase + t;
+  const bool in = t < wk.used && it < wk.nit;
+  Item<T> zv = {};
+  if (in) zv = zin ? *zin : load_item(z, it * q, q, item_count(it, wk));
+  if (kd) {
+    wc_chunk(sw, w, cv, cbase * q, chunk_rows(cbase, q, n), kd, G);
+    __syncthreads();
+    if (in) {
+      const int cnt = item_count(it, wk);
+#pragma unroll
+      for (int j = 0; j < kv; ++j)
+        if (j < cnt) zv.v[j] = add_rn(zv.v[j], sw[t * q + j]);
+    }
+    __syncthreads();
+  }
+  return zv;
+}
+
+// The direction pass's update of item `it`: x += alpha p and p = z + beta p
+// on the running lanes (start: p = z), and a harvest's slot kz
+template <typename T>
+__device__ __forceinline__ void direction_item(T* x, T* p, T* zs, const Item<T>& zv,
+                                               const Item<T>* pin, const Item<T>* xin,
+                                               long long it, const Walk& wk, long long n,
+                                               long long kz, int start,
+                                               const bool (&go)[Vec<T>::n], const Item<T>& al,
+                                               const Item<T>& be) {
+  constexpr int kv = Vec<T>::n;
+  const int q = wk.q, cnt = item_count(it, wk);
+  const long long e = it * q;
+  if (start) {
+    store_item(p, e, q, cnt, zv);
+  } else {
+    Item<T> pv = pin ? *pin : load_item(p, e, q, cnt), xv = xin ? *xin : load_item(x, e, q, cnt);
+#pragma unroll
+    for (int j = 0; j < kv; ++j)
+      if (go[j]) {
+        xv.v[j] = add_rn(xv.v[j], mul_rn(al.v[j], pv.v[j]));
+        pv.v[j] = add_rn(zv.v[j], mul_rn(be.v[j], pv.v[j]));
+      }
+    store_item(x, e, q, cnt, xv);
+    store_item(p, e, q, cnt, pv);
+  }
+  if (zs)  // a vector
+#pragma unroll
+    for (int j = 0; j < kv; ++j)
+      if (j < cnt) zs[kz * n + e + j] = zv.v[j];
+}
+
+// The direction pass: ||r||, the counters, the test and c from the update's
+// partials; z = z4 + W c, r.z partials, the barrier, beta; x += alpha p, p =
+// z + beta p and the harvest's slot (start: p = z and slot 0 alone).  The
+// operands of the thread's first kPre items are loaded before the head's
+// sums, so their reads overlap it and the barrier.
+template <typename T, int kHeld, int kPre>
+__global__ void __launch_bounds__(kThreads, 2)
+    cg_pass_direction_kernel(double* st, T* part, unsigned* bar, T* x, const T* r, T* p,
+                             const T* z, const T* __restrict__ w, const T* __restrict__ kw_inv,
+                             T* zs, T* coef, long long n, int m, int kd, int nstore, int q,
+                             int start) {
+  constexpr int kv = Vec<T>::n;
+  __shared__ T sh[4 * kThreads];
+  __shared__ T sw[kv * kThreads];
   __shared__ T skw[kMaxDefl * kMaxDefl];
+  __shared__ double sst[kMaxCols * kSlots];
+  __shared__ T sc[kMaxDefl];
+  __shared__ T salpha[kMaxCols], sbeta[kMaxCols];
+  __shared__ bool sgo[kMaxCols];
   const int t = threadIdx.x;
-  if (!__syncthreads_or(start || (t < m && st[t * kSlots + kRun] != 0.0))) return;
-  const int R = row_slots(m), c = t % m, slot = t / m, lane = t & 31;
-  const bool go = !start && st[c * kSlots + kRun] != 0.0;
-  const T alpha = static_cast<T>(st[c * kSlots + kAlpha]);
-  T rr = 0, wr = 0;
-  for (long long base = static_cast<long long>(blockIdx.x) * R; base < n;
-       base += static_cast<long long>(gridDim.x) * R) {
-    const long long row = base + slot;
-    T rv = 0;
-    if (slot < R && row < n) {
-      const long long i = row * m + c;
-      rv = r[i];
-      if (go) {
-        rv = sub_rn(rv, mul_rn(alpha, ap[i]));
-        r[i] = rv;
-      }
-      rr += rv * rv;
-    }
-    if (kd) {  // m == 1: a warp holds 32 consecutive rows; lane j adds W[row, j] r[row]
-      const long long first = base + (t & ~31);
-#pragma unroll 8
-      for (int i = 0; i < 32; ++i) {
-        const T ri = __shfl_sync(kFull, rv, i);
-        if (lane < kd && first + i < n) wr += w[(first + i) * kd + lane] * ri;
+  for (int i = t; i < m * kSlots; i += kThreads) sst[i] = st[i];  // every block, before the barrier
+  __syncthreads();
+  if (t < m) sgo[t] = start || sst[t * kSlots + kRun] != 0.0;
+  if (!__syncthreads_or(t < m && sgo[t])) return;
+  const Walk wk = walk_of(n, m, q);
+  const Layout lay = layout_of(gridDim.x, m, kd);
+  const bool active = t < wk.used;
+  const long long u = wk.used;
+  constexpr int kP = kPre > 0 ? kPre : 1;
+  Item<T> zpre[kP], rpre[kP], ppre[kP], xpre[kP];
+#pragma unroll
+  for (int k = 0; k < kPre; ++k) {
+    const long long it = (static_cast<long long>(k) * gridDim.x + blockIdx.x) * u + t;
+    if (active && it < wk.nit) {
+      const int cnt = item_count(it, wk);
+      zpre[k] = load_item(z, it * q, q, cnt);
+      rpre[k] = load_item(r, it * q, q, cnt);
+      if (!start) {
+        ppre[k] = load_item(p, it * q, q, cnt);
+        xpre[k] = load_item(x, it * q, q, cnt);
       }
     }
   }
-  const int cols = kd ? 1 + kd : m;
-  write_partials(sh, rr, m, part, cols, 0, m);
-  if (kd) write_partials(sh, wr, 32, part, cols, 1, kd);  // lane j of each warp: column 1 + j
-  if (!last_block(ticket)) return;
-  sum_partials(sh, part, cols);
-  if (t < m) {
-    double* s = st + t * kSlots;
-    if (start || s[kRun] != 0.0) {
-      const double rn = static_cast<double>(sqrt_of(sh[t]));
-      if (start) {
-        const double bn = s[kBnorm];
-        s[kK] = 0.0;
-        s[kSince] = 0.0;
-        s[kBest] = rn;
-        s[kTol] = fmax(s[kRtol] * bn, s[kAtol]);
-        s[kGate] = 1.0e-3 * bn;
-        s[kRun] = 1.0;  // the start's (c) and (d) run whatever the test says
-      } else {
-        s[kK] += 1.0;
-        s[kSince] = rn < 0.999 * s[kBest] ? 0.0 : s[kSince] + 1.0;
-        s[kBest] = fmin(s[kBest], rn);
-      }
-      s[kRnorm] = rn;
-      s[kNext] = cond_of(s);
+  // the head: ||r|| and the test of each running column, in every block
+  sum_cols(sh, part + lay.y, m);
+  if (t < m && sgo[t]) {
+    double* s = sst + t * kSlots;
+    const double rn = static_cast<double>(sqrt_of(sh[t]));
+    if (start) {
+      const double bn = s[kBnorm];
+      s[kK] = 0.0;
+      s[kSince] = 0.0;
+      s[kBest] = rn;
+      s[kTol] = fmax(s[kRtol] * bn, s[kAtol]);
+      s[kGate] = 1.0e-3 * bn;
+      s[kRun] = 1.0;
+    } else {
+      s[kK] += 1.0;
+      s[kSince] = rn < 0.999 * s[kBest] ? 0.0 : s[kSince] + 1.0;
+      s[kBest] = fmin(s[kBest], rn);
     }
+    s[kRnorm] = rn;
+    s[kNext] = cond_of(s);
   }
+  if (t < m) salpha[t] = static_cast<T>(sst[t * kSlots + kAlpha]);
+  const int G = kd ? groups_of(kd) : 1;
+  T cv[4] = {};
   if (kd) {  // c = K_w^+ (W^T r), each entry a sum in column order
     for (int i = t; i < kd * kd; i += kThreads) skw[i] = kw_inv[i];
     __syncthreads();
+    sum_cols(sh, part + lay.w, kd);
     if (t < kd) {
       T acc = 0;
-      for (int j = 0; j < kd; ++j) acc += skw[t * kd + j] * sh[1 + j];
-      part[kScratchC + t] = acc;
+      for (int j = 0; j < kd; ++j) acc += skw[t * kd + j] * sh[j];
+      sc[t] = acc;
     }
-  }
-}
-
-// (c) z = z4 + W c (deflated), r.z; the tail writes beta and rz (start: rz)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    cg_rz_kernel(double* __restrict__ st, T* __restrict__ part, unsigned* ticket,
-                 const T* __restrict__ r, T* __restrict__ z, const T* __restrict__ w, long long n,
-                 int m, int kd, int start) {
-  __shared__ T sh[kThreads];
-  const int t = threadIdx.x;
-  if (!__syncthreads_or(start || (t < m && st[t * kSlots + kRun] != 0.0))) return;
-  const int R = row_slots(m), c = t % m, slot = t / m, lane = t & 31;
-  const bool go = start || st[c * kSlots + kRun] != 0.0;
-  const T cl = (kd && lane < kd) ? __ldcg(part + kScratchC + lane) : T(0);
-  T acc = 0;
-  for (long long base = static_cast<long long>(blockIdx.x) * R; base < n;
-       base += static_cast<long long>(gridDim.x) * R) {
-    const long long row = base + slot;
-    const bool in = slot < R && row < n;
-    const long long i = row * m + c;
-    T zv = in ? z[i] : T(0);
-    if (kd) {  // m == 1: lane l gets (W c) of the warp's row l
-      const long long first = base + (t & ~31);
-      T v[32];
+    __syncthreads();
+    if (blockIdx.x == 0 && t < kd) part[lay.c + t] = sc[t];
+    const int g = t % G;
 #pragma unroll
-      for (int k = 0; k < 32; ++k)
-        v[k] = (lane < kd && first + k < n) ? w[(first + k) * kd + lane] * cl : T(0);
-      zv = add_rn(zv, transpose_sum(v));
-      if (in && go) z[i] = zv;
-    }
-    if (in) acc += r[i] * zv;
+    for (int j = 0; j < 4; ++j) cv[j] = 4 * g + j < kd ? sc[4 * g + j] : T(0);
   }
-  write_partials(sh, acc, m, part, m, 0, m);
-  if (!last_block(ticket)) return;
-  sum_partials(sh, part, m);
-  if (t < m) {
-    double* s = st + t * kSlots;
+  __syncthreads();
+  Item<T> held[kHeld];  // z (+ W c) of the thread's first kHeld items
+  Item<T> acc = {};
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k) {
+    const long long cbase = (static_cast<long long>(k) * gridDim.x + blockIdx.x) * u;
+    if (cbase < wk.nit) {
+      const int kp = k < kPre ? k : 0;
+      held[k] = z_chunk(z, k < kPre ? &zpre[kp] : nullptr, w, sw, cv, cbase, wk, n, kd, G);
+      const long long it = cbase + t;
+      if (active && it < wk.nit) {
+        const Item<T> rv = k < kPre ? rpre[kp] : load_item(r, it * q, q, item_count(it, wk));
+#pragma unroll
+        for (int j = 0; j < kv; ++j) acc.v[j] += rv.v[j] * held[k].v[j];
+      }
+    }
+  }
+  if constexpr (kPre == 0) {  // later items: the few layout has none
+    for (long long cbase = (static_cast<long long>(kHeld) * gridDim.x + blockIdx.x) * u;
+         cbase < wk.nit; cbase += gridDim.x * u) {
+      const Item<T> zv = z_chunk(z, static_cast<const Item<T>*>(nullptr), w, sw, cv, cbase, wk, n,
+                                 kd, G);
+      const long long it = cbase + t;
+      if (active && it < wk.nit) {
+        const Item<T> rv = load_item(r, it * q, q, item_count(it, wk));
+#pragma unroll
+        for (int j = 0; j < kv; ++j) acc.v[j] += rv.v[j] * zv.v[j];
+      }
+    }
+  }
+  block_cols(sh, acc, wk, m);
+  if (t < m) part[static_cast<long long>(blockIdx.x) * m + t] = sh[t];
+  grid_sync(bar);
+  sum_cols(sh, part, m);
+  if (t < m && sgo[t]) {
+    double* s = sst + t * kSlots;
     const T rz_new = sh[t];
-    if (start) {
-      s[kRz] = static_cast<double>(rz_new);
-    } else if (s[kRun] != 0.0) {
+    if (!start) {
       const T rz = static_cast<T>(s[kRz]);
       s[kBeta] = static_cast<double>(rz_new / (rz == T(0) ? T(1) : rz));
-      s[kRz] = static_cast<double>(rz_new);
     }
+    s[kRz] = static_cast<double>(rz_new);
   }
-}
-
-// (d) x += alpha p, p = z + beta p, and the harvest's slot (start: slot 0
-// alone)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    cg_direction_kernel(const double* __restrict__ st, const T* __restrict__ z,
-                        T* __restrict__ x, T* __restrict__ p, T* __restrict__ zs,
-                        T* __restrict__ coef, long long n, int m, int nstore, int start) {
-  const int t = threadIdx.x;
-  if (!__syncthreads_or(start || (t < m && st[t * kSlots + kRun] != 0.0))) return;
-  const int R = row_slots(m), c = t % m, slot = t / m;
-  const double* s = st + c * kSlots;
-  const bool go = start || s[kRun] != 0.0;
-  const T alpha = static_cast<T>(s[kAlpha]), beta = static_cast<T>(s[kBeta]);
+  __syncthreads();
+  if (t < m) sbeta[t] = static_cast<T>(sst[t * kSlots + kBeta]);
+  if (blockIdx.x == 0)
+    for (int i = t; i < m * kSlots; i += kThreads) st[i] = sst[i];
   // the JAX package's slots: z and rz at min(k, cap), alpha and beta of the
-  // step that made them at min(k - 1, cap), k already advanced by (b)
-  const long long cap = nstore - 1;
-  const long long k = start ? 0 : static_cast<long long>(st[kK]);
-  const long long kz = k < cap ? k : cap, kc = k - 1 < cap ? k - 1 : cap;
-  if (go && slot < R)
-    for (long long row = static_cast<long long>(blockIdx.x) * R + slot; row < n;
-         row += static_cast<long long>(gridDim.x) * R) {
-      const long long i = row * m + c;
-      const T zv = z[i];
-      if (!start) {
-        const T pv = p[i];
-        x[i] = add_rn(x[i], mul_rn(alpha, pv));
-        p[i] = add_rn(zv, mul_rn(beta, pv));
-      }
-      if (zs) zs[kz * n + row] = zv;  // m == 1
-    }
+  // step that made them at min(k - 1, cap), k already advanced
+  const long long cap = nstore - 1, kk = static_cast<long long>(sst[kK]);
+  const long long kz = kk < cap ? kk : cap, kc = kk - 1 < cap ? kk - 1 : cap;
   if (coef && blockIdx.x == 0 && t == 0) {  // rows rz, alpha, beta of (3, nstore)
-    coef[kz] = static_cast<T>(st[kRz]);
+    coef[kz] = static_cast<T>(sst[kRz]);
     if (!start) {
-      coef[nstore + kc] = static_cast<T>(st[kAlpha]);
-      coef[2 * nstore + kc] = static_cast<T>(st[kBeta]);
+      coef[nstore + kc] = static_cast<T>(sst[kAlpha]);
+      coef[2 * nstore + kc] = static_cast<T>(sst[kBeta]);
+    }
+  }
+  __syncthreads();
+  bool go[kv];
+  Item<T> al, be;
+#pragma unroll
+  for (int j = 0; j < kv; ++j) {
+    const int c = (t * q + (j < q ? j : 0)) % m;
+    go[j] = sgo[c];
+    al.v[j] = salpha[c];
+    be.v[j] = sbeta[c];
+  }
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k) {
+    const long long it = (static_cast<long long>(k) * gridDim.x + blockIdx.x) * u + t;
+    const int kp = k < kPre ? k : 0;
+    const bool pre = !start && k < kPre;
+    if (active && it < wk.nit)
+      direction_item(x, p, zs, held[k], pre ? &ppre[kp] : nullptr, pre ? &xpre[kp] : nullptr, it,
+                     wk, n, kz, start, go, al, be);
+  }
+  if constexpr (kPre == 0) {  // later items: the few layout has none
+    for (long long cbase = (static_cast<long long>(kHeld) * gridDim.x + blockIdx.x) * u;
+         cbase < wk.nit; cbase += gridDim.x * u) {
+      const Item<T> zv = z_chunk(z, static_cast<const Item<T>*>(nullptr), w, sw, cv, cbase, wk, n,
+                                 kd, G);
+      const long long it = cbase + t;
+      if (active && it < wk.nit)
+        direction_item(x, p, zs, zv, static_cast<const Item<T>*>(nullptr),
+                       static_cast<const Item<T>*>(nullptr), it, wk, n, kz, start, go, al, be);
     }
   }
 }
 
-// C interface: returns cudaGetLastError() after the launch (0 = launched);
-// step 0-3 is pass (a)-(d); v is ap for (a) and (b), z for (c) and (d).
 template <typename T>
-int cg_pass(int step, int start, double* st, T* part, unsigned* ticket, T* x, T* r, T* p, T* v,
-            const T* w, const T* kw_inv, T* zs, T* coef, long long n, int m, int kd, int nstore,
-            void* stream) {
-  if (m < 1 || m > kMaxCols || kd < 0 || kd > kMaxDefl || ((kd || zs || coef) && m != 1) ||
-      n < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int grid = grid_of(n, m);
-  switch (step) {
-    case 0:
-      cg_pap_kernel<T><<<grid, kThreads, 0, s>>>(st, part, ticket, p, v, n, m);
-      break;
-    case 1:
-      cg_update_kernel<T><<<grid, kThreads, 0, s>>>(st, part, ticket, r, v, w, kw_inv, n, m,
-                                                    kd, start);
-      break;
-    case 2:
-      cg_rz_kernel<T><<<grid, kThreads, 0, s>>>(st, part, ticket, r, v, w, n, m, kd, start);
-      break;
-    case 3:
-      cg_direction_kernel<T><<<grid, kThreads, 0, s>>>(st, v, x, p, zs, coef, n, m, nstore,
-                                                       start);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+int resident_grid() {
+  int dev = 0, sms = 0, per = kMaxBlocksPerSm;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  const void* kernels[] = {(void*)cg_pass_update_kernel<T, kFewHeld, kFewPre>,
+                           (void*)cg_pass_direction_kernel<T, kFewHeld, kFewPre>,
+                           (void*)cg_pass_update_kernel<T, Many<T>::held, 0>,
+                           (void*)cg_pass_direction_kernel<T, Many<T>::held, 0>};
+  for (const void* k : kernels) {
+    int a = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a, k, kThreads, 0) != cudaSuccess)
+      return -1;
+    per = a < per ? a : per;
   }
-  return static_cast<int>(cudaGetLastError());
+  return per * sms;
+}
+
+// C interface: returns the launch's error (0 = launched); step 0 is the
+// update (v = ap), 1 the direction (v = z); grid from fcvm_cg_grid.
+template <typename T>
+int cg_pass(int step, int start, double* st, T* part, unsigned* bar, T* x, T* r, T* p, T* v,
+            const T* w, const T* kw_inv, T* zs, T* coef, long long n, int m, int kd, int nstore,
+            int grid, void* stream) {
+  constexpr int kv = Vec<T>::n;
+  auto aligned = [](const void* a) { return reinterpret_cast<uintptr_t>(a) % 16 == 0; };
+  if (m < 1 || m > kMaxCols || kd < 0 || kd > kMaxDefl || kd % 4 != 0 ||
+      ((kd || zs || coef) && m != 1) || n < 0 || grid < 1 || (kd && !aligned(w)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int q = aligned(x) && aligned(r) && aligned(p) && aligned(v) ? kv : 1;
+  const Walk wk = walk_of(n, m, q);
+  const bool few = wk.nit <= static_cast<long long>(kFewHeld) * grid * wk.used;
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (step == 0) {
+    const T *pc = p, *vc = v;
+    void* args[] = {&st, &part, &bar, &r, &pc, &vc, &w, &n, &m, &kd, &q, &start};
+    const void* k = few ? (void*)cg_pass_update_kernel<T, kFewHeld, kFewPre>
+                        : (void*)cg_pass_update_kernel<T, Many<T>::held, 0>;
+    err = cudaLaunchCooperativeKernel(k, dim3(grid), dim3(kThreads), args, 0, s);
+  } else if (step == 1) {
+    const T *rc = r, *vc = v;
+    void* args[] = {&st, &part, &bar, &x,  &rc, &p,      &vc, &w,     &kw_inv,
+                    &zs, &coef, &n,   &m,  &kd, &nstore, &q,  &start};
+    const void* k = few ? (void*)cg_pass_direction_kernel<T, kFewHeld, kFewPre>
+                        : (void*)cg_pass_direction_kernel<T, Many<T>::held, 0>;
+    err = cudaLaunchCooperativeKernel(k, dim3(grid), dim3(kThreads), args, 0, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
 
-extern "C" long long fcvm_cg_scratch() { return kScratchC + kMaxDefl; }
-
-extern "C" int fcvm_cg_pass_f32(int step, int start, double* st, float* part, unsigned* ticket,
-                                float* x, float* r, float* p, float* v, const float* w,
-                                const float* kw_inv, float* zs, float* coef, long long n, int m,
-                                int kd, int nstore, void* stream) {
-  return cg_pass<float>(step, start, st, part, ticket, x, r, p, v, w, kw_inv, zs, coef, n, m, kd,
-                        nstore, stream);
+// the blocks of K6's grid for an (n, m) solve on the current device: as
+// many as stay resident on every SM for both passes (at most
+// kMaxBlocksPerSm an SM), and no more than one sweep of the items needs;
+// -1 on an error
+extern "C" int fcvm_cg_grid(int itemsize, long long n, int m) {
+  if (m < 1 || m > kMaxCols || n < 0 || (itemsize != 4 && itemsize != 8)) return -1;
+  const int resident = itemsize == 4 ? resident_grid<float>() : resident_grid<double>();
+  if (resident < 1) return -1;
+  const int kv = 16 / itemsize;
+  const Walk wk = walk_of(n, m, kv);
+  const long long need = (wk.nit + wk.used - 1) / wk.used;
+  return static_cast<int>(need < 1 ? 1 : (need < resident ? need : resident));
 }
 
-extern "C" int fcvm_cg_pass_f64(int step, int start, double* st, double* part, unsigned* ticket,
+// the scratch's layout for a grid of `grid` blocks, in values: out = the
+// offsets of the ||r||^2 partials, the W^T r partials and c, and the size
+// (the one copy the wrapper slices c from and the op checks the size by)
+extern "C" void fcvm_cg_layout(int grid, int m, int kd, long long* out) {
+  const Layout l = layout_of(grid, m, kd);
+  out[0] = l.y;
+  out[1] = l.w;
+  out[2] = l.c;
+  out[3] = l.size;
+}
+
+extern "C" int fcvm_cg_pass_f32(int step, int start, double* st, float* part, unsigned* bar,
+                                float* x, float* r, float* p, float* v, const float* w,
+                                const float* kw_inv, float* zs, float* coef, long long n, int m,
+                                int kd, int nstore, int grid, void* stream) {
+  return cg_pass<float>(step, start, st, part, bar, x, r, p, v, w, kw_inv, zs, coef, n, m, kd,
+                        nstore, grid, stream);
+}
+
+extern "C" int fcvm_cg_pass_f64(int step, int start, double* st, double* part, unsigned* bar,
                                 double* x, double* r, double* p, double* v, const double* w,
                                 const double* kw_inv, double* zs, double* coef, long long n,
-                                int m, int kd, int nstore, void* stream) {
-  return cg_pass<double>(step, start, st, part, ticket, x, r, p, v, w, kw_inv, zs, coef, n, m,
-                         kd, nstore, stream);
+                                int m, int kd, int nstore, int grid, void* stream) {
+  return cg_pass<double>(step, start, st, part, bar, x, r, p, v, w, kw_inv, zs, coef, n, m, kd,
+                         nstore, grid, stream);
 }

@@ -9,7 +9,8 @@
 //   fcvm::two_level_apply_block  K4m  csrc/two_level.cu (with K4c)
 //   fcvm::coarse_product  K4c  csrc/two_level.cu (alone)
 //   fcvm::segment_sum   K8   csrc/segment_sum.cu (in place: accumulate or write)
-//   fcvm::cg_pass       K6   csrc/cg_iteration.cu (one pass of a CG iteration, in place)
+//   fcvm::cg_pass       K6   csrc/cg_iteration.cu (one pass of a CG iteration, in place;
+//                            cg_grid: its resident grid; cg_layout: its scratch)
 //   fcvm::soa_matvec    K0p  csrc/bw_probe.cu
 //   fcvm::bw_read       Kbw  csrc/bw_probe.cu
 // so each is called as torch.ops.fcvm.<name>.  The kernels themselves keep a
@@ -27,6 +28,8 @@
 
 #include <cstdint>
 #include <optional>
+#include <string>
+#include <vector>
 
 extern "C" int fcvm_block_matvec_f32(const float* esm_t, const float* ue_t,
                                      float* out, long long ne, void* stream);
@@ -104,15 +107,16 @@ extern "C" int fcvm_coarse_product_f32(const float* tiles, const float* x, float
 extern "C" int fcvm_coarse_product_f64(const double* tiles, const double* x, double* y,
                                        double* sv, double* su, long long n, int m, int nruns,
                                        int maxseg, void* stream);
-extern "C" long long fcvm_cg_scratch();
-extern "C" int fcvm_cg_pass_f32(int step, int start, double* st, float* part, unsigned* ticket,
+extern "C" int fcvm_cg_grid(int itemsize, long long n, int m);
+extern "C" void fcvm_cg_layout(int grid, int m, int kd, long long* out);
+extern "C" int fcvm_cg_pass_f32(int step, int start, double* st, float* part, unsigned* bar,
                                 float* x, float* r, float* p, float* v, const float* w,
                                 const float* kw_inv, float* zs, float* coef, long long n, int m,
-                                int kd, int nstore, void* stream);
-extern "C" int fcvm_cg_pass_f64(int step, int start, double* st, double* part, unsigned* ticket,
+                                int kd, int nstore, int grid, void* stream);
+extern "C" int fcvm_cg_pass_f64(int step, int start, double* st, double* part, unsigned* bar,
                                 double* x, double* r, double* p, double* v, const double* w,
                                 const double* kw_inv, double* zs, double* coef, long long n,
-                                int m, int kd, int nstore, void* stream);
+                                int m, int kd, int nstore, int grid, void* stream);
 extern "C" int fcvm_soa_matvec_f32(const float* esm_t, const float* ue_t, float* out,
                                    long long ne, int tile, void* stream);
 extern "C" int fcvm_bw_read_blocks(long long rows, long long chunk_rows, int device);
@@ -632,25 +636,48 @@ at::Tensor two_level_apply_block(const at::Tensor& pinv, const at::Tensor& qmat,
   return z;
 }
 
-// K6: pass `step` (0-3: p.ap, the update, r.z, the direction) of a CG
-// iteration on state (m, 16) float64, in place; x, r, p, v (n,) for m = 1 or
-// (n, m); v is ap for steps 0 and 1, z for 2 and 3.  Deflation (w (n, kd),
-// kw_inv (kd, kd)) and the harvest (zs (nstore, n), coef (3, nstore)) only
-// for m = 1.  Tensors a pass does not read may be any of the vectors.
+// K6: the blocks of its resident grid for an (n, m) solve of `itemsize`-byte
+// values on the current device.
+int64_t cg_grid(int64_t itemsize, int64_t n, int64_t m) {
+  TORCH_CHECK((itemsize == 4 || itemsize == 8) && n >= 0 && m >= 1 && m <= 64,
+              "cg_grid: expected itemsize 4 or 8, n >= 0 and 1 <= m <= 64");
+  return fcvm_cg_grid(static_cast<int>(itemsize), n, static_cast<int>(m));
+}
+
+// K6: the offsets, in values, of its scratch's regions for a grid of `grid`
+// blocks on m columns with kd deflation vectors (||r||^2 partials, W^T r
+// partials, c) and its size.
+std::vector<int64_t> cg_layout(int64_t grid, int64_t m, int64_t kd) {
+  TORCH_CHECK(grid >= 1 && grid <= 0x7fffffff && m >= 1 && m <= 64 && kd >= 0 && kd <= 32,
+              "cg_layout: expected grid >= 1, 1 <= m <= 64 and 0 <= kd <= 32");
+  long long out[4];
+  fcvm_cg_layout(static_cast<int>(grid), static_cast<int>(m), static_cast<int>(kd), out);
+  return {out[0], out[1], out[2], out[3]};
+}
+
+// K6: pass `step` (0: the update, 1: the direction) of a CG iteration on
+// state (m, 16) float64, in place, a cooperative launch of `grid` blocks;
+// x, r, p, v (n,) for m = 1 or (n, m); v is ap for step 0, z for step 1.
+// Deflation (w (n, kd), kw_inv (kd, kd), kd a multiple of 4, w 16-byte
+// aligned) and the harvest (zs (nstore, n), coef (3, nstore)) only for m =
+// 1.  Tensors a pass does not read may be any of the vectors.  Returns the
+// launch's CUDA error (0: launched), which the caller turns into an
+// exception: a refused launch (a grid past residency) is not thrown from
+// here.
 template <typename T>
 T* ptr(const std::optional<at::Tensor>& t) {
   return t ? t->data_ptr<T>() : nullptr;
 }
 
-void cg_pass(int64_t step, bool start, const at::Tensor& state, const at::Tensor& scratch,
-             const at::Tensor& ticket, const at::Tensor& x, const at::Tensor& r,
-             const at::Tensor& p, const at::Tensor& v, const std::optional<at::Tensor>& w,
-             const std::optional<at::Tensor>& kw_inv, const std::optional<at::Tensor>& zs,
-             const std::optional<at::Tensor>& coef) {
+int64_t cg_pass(int64_t step, bool start, const at::Tensor& state, const at::Tensor& scratch,
+                const at::Tensor& barrier, const at::Tensor& x, const at::Tensor& r,
+                const at::Tensor& p, const at::Tensor& v, const std::optional<at::Tensor>& w,
+                const std::optional<at::Tensor>& kw_inv, const std::optional<at::Tensor>& zs,
+                const std::optional<at::Tensor>& coef, int64_t grid) {
   const auto dev = state.device();
   const auto dt = x.scalar_type();
   TORCH_CHECK(state.is_cuda(), "cg_pass: the state must be on a CUDA device");
-  for (const at::Tensor* t : {&scratch, &ticket, &x, &r, &p, &v})
+  for (const at::Tensor* t : {&scratch, &barrier, &x, &r, &p, &v})
     TORCH_CHECK(t->device() == dev && t->is_contiguous(),
                 "cg_pass: every tensor must be contiguous and on the state's device");
   for (const auto* t : {&w, &kw_inv, &zs, &coef})
@@ -666,11 +693,10 @@ void cg_pass(int64_t step, bool start, const at::Tensor& state, const at::Tensor
   TORCH_CHECK(state.scalar_type() == at::kDouble && state.dim() == 2 && state.size(1) == 16 &&
                   state.size(0) >= 1 && state.size(0) <= 64,
               "cg_pass: expected a float64 state (m, 16), 1 <= m <= 64");
-  TORCH_CHECK(ticket.scalar_type() == at::kInt && ticket.numel() == 1,
-              "cg_pass: expected an int32 ticket of one value");
-  TORCH_CHECK(scratch.dim() == 1 && scratch.size(0) >= fcvm_cg_scratch(),
-              "cg_pass: the scratch needs ", fcvm_cg_scratch(), " values");
-  TORCH_CHECK(step >= 0 && step <= 3, "cg_pass: step must be 0 to 3");
+  TORCH_CHECK(barrier.scalar_type() == at::kInt && barrier.numel() == 1,
+              "cg_pass: expected an int32 barrier word");
+  TORCH_CHECK(step >= 0 && step <= 1, "cg_pass: step must be 0 or 1");
+  TORCH_CHECK(grid >= 1 && grid <= 0x7fffffff, "cg_pass: grid must be at least 1");
   const long long m = state.size(0), n = x.dim() >= 1 ? x.size(0) : -1;
   const bool vec = x.dim() == 1;
   TORCH_CHECK((vec ? m == 1 : (x.dim() == 2 && x.size(1) == m)) && r.sizes() == x.sizes() &&
@@ -679,33 +705,45 @@ void cg_pass(int64_t step, bool start, const at::Tensor& state, const at::Tensor
               "with m");
   TORCH_CHECK(!w == !kw_inv && !zs == !coef, "cg_pass: give w with kw_inv, zs with coef");
   const long long kd = w ? w->size(w->dim() - 1) : 0;
-  TORCH_CHECK(!w || (vec && w->dim() == 2 && w->size(0) == n && kd >= 1 && kd <= 32 &&
+  TORCH_CHECK(!w || (vec && w->dim() == 2 && w->size(0) == n && kd >= 4 && kd <= 32 &&
+                     kd % 4 == 0 && reinterpret_cast<uintptr_t>(w->data_ptr()) % 16 == 0 &&
                      kw_inv->dim() == 2 && kw_inv->size(0) == kd && kw_inv->size(1) == kd),
-              "cg_pass: expected w (n, kd), 1 <= kd <= 32, and kw_inv (kd, kd), with a vector");
+              "cg_pass: expected w (n, kd), 16-byte aligned, kd a multiple of 4 up to 32, and "
+              "kw_inv (kd, kd), with a vector");
   const long long nstore = coef ? coef->size(coef->dim() - 1) : 0;
   TORCH_CHECK(!zs || (vec && zs->dim() == 2 && zs->size(1) == n && coef->dim() == 2 &&
                       coef->size(0) == 3 && nstore == zs->size(0) && nstore >= 1 &&
                       nstore <= 0x7fffffffLL),
               "cg_pass: expected zs (nstore, n) and coef (3, nstore), with a vector");
+  const long long need = cg_layout(grid, m, kd)[3];
+  TORCH_CHECK(scratch.dim() == 1 && scratch.size(0) >= need, "cg_pass: the scratch needs ",
+              need, " values for a grid of ", grid);
   const c10::cuda::CUDAGuard guard(dev);
   void* stream = c10::cuda::getCurrentCUDAStream().stream();
   auto* st = state.data_ptr<double>();
-  auto* tk = reinterpret_cast<unsigned*>(ticket.data_ptr<int>());
+  auto* bar = reinterpret_cast<unsigned*>(barrier.data_ptr<int>());
   int err = 0;
   if (dt == at::kFloat)
-    err = fcvm_cg_pass_f32(static_cast<int>(step), start, st, scratch.data_ptr<float>(), tk,
+    err = fcvm_cg_pass_f32(static_cast<int>(step), start, st, scratch.data_ptr<float>(), bar,
                            x.data_ptr<float>(), r.data_ptr<float>(), p.data_ptr<float>(),
                            v.data_ptr<float>(), ptr<float>(w), ptr<float>(kw_inv),
                            ptr<float>(zs), ptr<float>(coef), n, static_cast<int>(m),
-                           static_cast<int>(kd), static_cast<int>(nstore), stream);
+                           static_cast<int>(kd), static_cast<int>(nstore),
+                           static_cast<int>(grid), stream);
   else
-    err = fcvm_cg_pass_f64(static_cast<int>(step), start, st, scratch.data_ptr<double>(), tk,
+    err = fcvm_cg_pass_f64(static_cast<int>(step), start, st, scratch.data_ptr<double>(), bar,
                            x.data_ptr<double>(), r.data_ptr<double>(), p.data_ptr<double>(),
                            v.data_ptr<double>(), ptr<double>(w), ptr<double>(kw_inv),
                            ptr<double>(zs), ptr<double>(coef), n, static_cast<int>(m),
-                           static_cast<int>(kd), static_cast<int>(nstore), stream);
-  TORCH_CHECK(err == 0, "cg_pass: kernel launch failed: ",
-              cudaGetErrorString(static_cast<cudaError_t>(err)));
+                           static_cast<int>(kd), static_cast<int>(nstore),
+                           static_cast<int>(grid), stream);
+  return err;
+}
+
+// the name and text of a CUDA error code
+std::string cuda_error(int64_t code) {
+  const auto e = static_cast<cudaError_t>(code);
+  return std::string(cudaGetErrorName(e)) + ": " + cudaGetErrorString(e);
 }
 
 at::Tensor soa_matvec(const at::Tensor& esm_t, const at::Tensor& ue_t, int64_t tile) {
@@ -775,9 +813,12 @@ TORCH_LIBRARY(fcvm, m) {
   m.def("two_level_apply_block(Tensor pinv, Tensor qmat, Tensor coarse, int ncf, "
         "Tensor fixmask, Tensor r, Tensor? z_fine) -> Tensor");
   m.def("coarse_product(Tensor tiles, Tensor x) -> Tensor");
-  m.def("cg_pass(int step, bool start, Tensor(a!) state, Tensor(b!) scratch, Tensor(c!) ticket, "
-        "Tensor(d!) x, Tensor(e!) r, Tensor(f!) p, Tensor(g!) v, Tensor? w, Tensor? kw_inv, "
-        "Tensor(h!)? zs, Tensor(i!)? coef) -> ()");
+  m.def("cg_grid(int itemsize, int n, int m) -> int", &cg_grid);  // no tensor: any backend
+  m.def("cg_layout(int grid, int m, int kd) -> int[]", &cg_layout);
+  m.def("cg_pass(int step, bool start, Tensor(a!) state, Tensor(b!) scratch, "
+        "Tensor(c!) barrier, Tensor(d!) x, Tensor(e!) r, Tensor(f!) p, Tensor(g!) v, Tensor? w, "
+        "Tensor? kw_inv, Tensor(h!)? zs, Tensor(i!)? coef, int grid) -> int");
+  m.def("cuda_error(int code) -> str", &cuda_error);
   m.def("soa_matvec(Tensor esm_t, Tensor ue_t, int tile) -> Tensor");
   m.def("bw_read(Tensor x, int k, int chunk_rows) -> Tensor");
 }

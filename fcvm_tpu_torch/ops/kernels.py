@@ -37,7 +37,7 @@
   coarse inverse's packed upper tiles (:func:`pack_coarse`, made once per
   preconditioner build), which :func:`coarse_product` launches alone (the
   sharded backend's coarse product).
-* K6 :func:`cg_iteration`, one of the four vector passes of a CG iteration
+* K6 :func:`cg_iteration`, one of the two vector passes of a CG iteration
   on the solve's device state (:class:`CGPlan`), with the loop's
   convergence test and the Ritz deflation correction folded in, replaces
   the XLA-lowered body and cond of the ``lax.while_loop`` of
@@ -1104,11 +1104,33 @@ CG_SLOTS = ("rz", "alpha", "beta", "k", "rnorm", "best", "since", "run", "next",
 (SLOT_RZ, SLOT_ALPHA, SLOT_BETA, SLOT_K, SLOT_RNORM, SLOT_BEST, SLOT_SINCE, SLOT_RUN, SLOT_NEXT,
  SLOT_TOL, SLOT_GATE, SLOT_STALL_LIM, SLOT_MAXITER, SLOT_BNORM, SLOT_RTOL,
  SLOT_ATOL) = range(len(CG_SLOTS))
-CG_PASSES = ("pap", "update", "rz", "direction")  # K6's steps 0 to 3
+CG_PASSES = ("update", "direction")  # K6's steps 0 and 1
 CG_MAX_COLS = 64  # columns of a block solve (kMaxCols)
-CG_MAX_DEFL = 32  # deflation vectors on the card (kMaxDefl: a lane each)
-CG_SCRATCH_C = 1024 * CG_MAX_COLS  # the partials of kMaxBlocks blocks, then c
-CG_SCRATCH = CG_SCRATCH_C + CG_MAX_DEFL
+CG_MAX_DEFL = 32  # deflation vectors on the card (kMaxDefl)
+CG_HELD = 8  # most items a thread keeps in registers across a pass's grid barrier (Many::held)
+
+
+def cg_layout(grid: int, m: int, kd: int):
+    """Offsets, in values, of K6's scratch regions for a grid of ``grid``
+    blocks on ``m`` columns with ``kd`` deflation vectors, as the kernel lays
+    them out (``layout_of`` in ``csrc/cg_iteration.cu``, through the op): the
+    ``||r||^2`` partials, the ``W^T r`` partials, ``c``, and the size (the
+    r.z and p.ap partials at 0)."""
+    build()
+    return tuple(torch.ops.fcvm.cg_layout(grid, m, kd))
+
+
+def cg_grid(dtype: torch.dtype, n: int, m: int = 1, device=None) -> int:
+    """The blocks of K6's grid for an (n, m) solve of ``dtype`` on the CUDA
+    ``device`` (default: the current one): as many as stay resident on
+    every SM for both passes (at most 4 an SM), and no more than one sweep
+    of the items needs."""
+    build()
+    with torch.cuda.device(device):
+        grid = torch.ops.fcvm.cg_grid(torch.empty(0, dtype=dtype).element_size(), n, m)
+    if grid < 1:
+        raise RuntimeError(f"cg_grid: no resident grid for {dtype} n={n} m={m}")
+    return grid
 
 
 class CGPlan:
@@ -1119,18 +1141,19 @@ class CGPlan:
       state: (m, 16) float64, a row of ``CG_SLOTS`` a column (m = 1 for a
         vector solve) on the solve's device.
       w, kw_inv: the deflation basis (n, kd) and Galerkin pseudo-inverse
-        (kd, kd), or None.
-      c: (kd,) ``kw_inv W^T r`` of the last update pass (on the card a view
-        of the scratch), or None.
+        (kd, kd), or None; on the card kd is a multiple of 4 (the basis and
+        its inverse padded with zeros, :func:`cg_plan`).
+      c: (kd,) ``kw_inv W^T r`` of the last direction pass (on the card a
+        view of the scratch, kd the padded one), or None.
       zs, coef: the harvest, (nstore, n) residuals and (3, nstore) rows
         r.z, alpha and beta, or None.
-      scratch, ticket: on the card the partial sums' scratch and the
-        last-block ticket (None on the CPU).
+      scratch, barrier, grid: on the card the partial sums' scratch, the
+        grid barrier's word and the passes' blocks (None on the CPU).
     """
 
-    def __init__(self, state, w, kw_inv, zs, coef, scratch, ticket, c):
+    def __init__(self, state, w, kw_inv, zs, coef, scratch, barrier, c, grid=None):
         self.state, self.w, self.kw_inv, self.zs, self.coef = state, w, kw_inv, zs, coef
-        self.scratch, self.ticket, self.c = scratch, ticket, c
+        self.scratch, self.barrier, self.c, self.grid = scratch, barrier, c, grid
         self.cpu = state.device.type == "cpu"
         self.dtype_name = None if scratch is None else _dtype_name(scratch)
 
@@ -1140,10 +1163,28 @@ class CGPlan:
 
     def select(self, cols) -> "CGPlan":
         """The plan of the columns ``cols`` (host ints) of a block solve: a
-        copy of their state rows, the same scratch and ticket."""
+        copy of their state rows, the same scratch, barrier and grid."""
         idx = torch.as_tensor(cols, dtype=torch.long, device=self.state.device)
         return CGPlan(self.state.index_select(0, idx), None, None, None, None, self.scratch,
-                      self.ticket, None)
+                      self.barrier, None, self.grid)
+
+    def copy(self) -> "CGPlan":
+        """A plan with copies of everything a pass writes (the state, the
+        harvest, the scratch and ``c`` in it, the barrier), sharing the
+        deflation space."""
+        def clone(t):
+            return None if t is None else t.clone()
+
+        scratch = clone(self.scratch)
+        if self.c is None:
+            c = None
+        elif scratch is None:
+            c = self.c.clone()
+        else:
+            off = cg_layout(self.grid, self.state.shape[0], self.w.shape[1])[2]
+            c = scratch[off:off + self.c.shape[0]]
+        return CGPlan(self.state.clone(), self.w, self.kw_inv, clone(self.zs), clone(self.coef),
+                      scratch, clone(self.barrier), c, self.grid)
 
 
 def cg_plan(b: torch.Tensor, rtol: float, atol: float, maxiter: int, stall_lim: int,
@@ -1151,9 +1192,12 @@ def cg_plan(b: torch.Tensor, rtol: float, atol: float, maxiter: int, stall_lim: 
     """K6's :class:`CGPlan` of a solve of ``b`` ((n,), or (n, m) with m <=
     ``CG_MAX_COLS`` for a block of independent solves): the state with the
     tolerances and ``||b||`` per column (no read of the device), and on the
-    card the scratch.  ``defl``: ``(w, kw_inv)`` of a deflation space
-    ((n, kd), kd <= ``CG_MAX_DEFL`` on the card); ``harvest``: ``(zs,
-    coef)``, (nstore, n) and (3, nstore); both for a vector only."""
+    card the grid, sized once here to what stays resident, and its scratch.
+    ``defl``: ``(w, kw_inv)`` of a deflation space ((n, kd), kd <=
+    ``CG_MAX_DEFL`` on the card, where a kd that is not a multiple of 4 or a
+    basis off 16-byte alignment is copied, padded with zero columns);
+    ``harvest``: ``(zs, coef)``, (nstore, n) and (3, nstore); both for a
+    vector only."""
     if b.dim() not in (1, 2) or (b.dim() == 2 and not 1 <= b.shape[1] <= CG_MAX_COLS):
         raise ValueError(f"cg_plan: b {tuple(b.shape)}; expected (n,) or (n, m), 1 <= m <= "
                          f"{CG_MAX_COLS}")
@@ -1196,11 +1240,17 @@ def cg_plan(b: torch.Tensor, rtol: float, atol: float, maxiter: int, stall_lim: 
     if not cuda:
         c = None if w is None else torch.empty(w.shape[1], dtype=b.dtype)
         return CGPlan(state, w, kw_inv, zs, coef, None, None, c)
-    build()
-    scratch = torch.empty(CG_SCRATCH, dtype=b.dtype, device=b.device)
-    ticket = torch.zeros(1, dtype=torch.int32, device=b.device)
-    c = None if w is None else scratch[CG_SCRATCH_C:CG_SCRATCH_C + w.shape[1]]
-    return CGPlan(state, w, kw_inv, zs, coef, scratch, ticket, c)
+    kd = 0 if w is None else w.shape[1]
+    if kd % 4 or (w is not None and w.data_ptr() % 16):  # the kernel's layout
+        kdp = -(-kd // 4) * 4
+        w = torch.nn.functional.pad(w, (0, kdp - kd))
+        kw_inv = torch.nn.functional.pad(kw_inv, (0, kdp - kd, 0, kdp - kd))
+    grid = cg_grid(b.dtype, n, m, b.device)
+    off = cg_layout(grid, m, 0 if w is None else w.shape[1])
+    scratch = torch.empty(off[3], dtype=b.dtype, device=b.device)
+    barrier = torch.zeros(1, dtype=torch.int32, device=b.device)
+    c = None if w is None else scratch[off[2]:off[2] + w.shape[1]]
+    return CGPlan(state, w, kw_inv, zs, coef, scratch, barrier, c, grid)
 
 
 def _col_dots(u, v):
@@ -1237,17 +1287,43 @@ def _cond(row) -> float:
     return 1.0 if rn > row[SLOT_TOL] and row[SLOT_K] < row[SLOT_MAXITER] and not stalled else 0.0
 
 
+def cg_update_r(r, ap, alpha, run) -> None:
+    """``r -= alpha ap`` in place on the columns whose ``run`` is true
+    (``alpha``, ``run``: host values a column): the plain version's update,
+    which the kernel's rounds as (a product, then a difference)."""
+    alpha = _per_col(alpha, r)
+    if all(run):
+        r.sub_(alpha * ap)
+    else:
+        r.copy_(torch.where(_masked(run, r), r - alpha * ap, r))
+
+
+def cg_update_direction(x, p, z, alpha, beta, run) -> None:
+    """``x += alpha p`` and ``p = z + beta p`` in place on the columns whose
+    ``run`` is true (host values a column): the plain version's updates,
+    each rounded as a product, then a sum, as the kernel's."""
+    alpha, beta = _per_col(alpha, x), _per_col(beta, p)
+    if all(run):
+        x.add_(alpha * p)
+        p.copy_(z + beta * p)
+    else:
+        mask = _masked(run, p)
+        x.copy_(torch.where(mask, x + alpha * p, x))
+        p.copy_(torch.where(mask, z + beta * p, p))
+
+
 def cg_iteration_ref(step: int, start: bool, plan: CGPlan, x, r, p, v) -> None:
     """Plain version of K6's pass ``step`` on ``plan``, in place: the
     parent's torch chain (``torch.dot`` or column sums, the step length and
     direction update with their zero guards, the updates, ``vector_norm``,
     ``W (K_w^+ (W^T r))``), the scalar tail on the host in float64 (a read
     of the state on the card), each column frozen once its ``run`` is 0.
-    ``v`` is ``ap`` in steps 0 and 1, ``z`` in 2 and 3."""
+    ``v`` is ``ap`` in step 0, ``z`` in step 1 (not written)."""
     state = plan.state
     rows = state.tolist()
-    run = [bool(row[SLOT_RUN]) for row in rows]
-    if step == 0:  # p.ap; run = next; alpha
+    if step == 0:  # p.ap; run = next; alpha; r -= alpha ap (start: nothing)
+        if start:
+            return
         nxt = [row[SLOT_NEXT] for row in rows]
         if any(nxt):
             pap = _col_dots(p, v)
@@ -1258,15 +1334,13 @@ def cg_iteration_ref(step: int, start: bool, plan: CGPlan, x, r, p, v) -> None:
                     row[SLOT_ALPHA] = a
         for row, go in zip(rows, nxt):
             row[SLOT_RUN] = go
-    elif step == 1:  # the update, ||r||, the test; c = K_w^+ W^T r
-        if not (start or any(run)):
+        run = [bool(go) for go in nxt]
+        if any(run):
+            cg_update_r(r, v, [row[SLOT_ALPHA] for row in rows], run)
+    else:  # ||r||, the test, c; z + W c; r.z; beta; x, p; the harvest's slots
+        run = [True] * len(rows) if start else [bool(row[SLOT_RUN]) for row in rows]
+        if not any(run):
             return
-        if not start:
-            alpha = _per_col([row[SLOT_ALPHA] for row in rows], r)
-            if all(run):
-                r.sub_(alpha * v)
-            else:
-                r.copy_(torch.where(_masked(run, r), r - alpha * v, r))
         rnorm = _col_norms(r).tolist()
         for row, go, rn in zip(rows, run, rnorm):
             if start:
@@ -1284,76 +1358,66 @@ def cg_iteration_ref(step: int, start: bool, plan: CGPlan, x, r, p, v) -> None:
                 continue
             row[SLOT_RNORM] = rn
             row[SLOT_NEXT] = _cond(row)
+        z = v
         if plan.w is not None:
             plan.c.copy_(plan.kw_inv @ (plan.w.T @ r))
-    elif step == 2:  # z += W c; r.z; beta
-        if not (start or any(run)):
-            return
-        if plan.w is not None:
-            v.add_(plan.w @ plan.c)
-        rz_new = _col_dots(r, v)
+            z = v + plan.w @ plan.c
+        rz_new = _col_dots(r, z)
         if start:
             for row, rz in zip(rows, rz_new.tolist()):
                 row[SLOT_RZ] = rz
+            p.copy_(z)
         else:
             rz = torch.tensor([row[SLOT_RZ] for row in rows], dtype=r.dtype, device=r.device)
             beta = (rz_new / torch.where(rz == 0.0, torch.ones_like(rz), rz)).tolist()
             for row, go, bt, rzn in zip(rows, run, beta, rz_new.tolist()):
                 if go:
                     row[SLOT_BETA], row[SLOT_RZ] = bt, rzn
-    else:  # x += alpha p; p = z + beta p; the harvest's slots
-        if not (start or any(run)):
-            return
-        if not start:
-            alpha = _per_col([row[SLOT_ALPHA] for row in rows], x)
-            beta = _per_col([row[SLOT_BETA] for row in rows], p)
-            if all(run):
-                x.add_(alpha * p)
-                p.copy_(v + beta * p)
-            else:
-                mask = _masked(run, p)
-                x.copy_(torch.where(mask, x + alpha * p, x))
-                p.copy_(torch.where(mask, v + beta * p, p))
+            cg_update_direction(x, p, z, [row[SLOT_ALPHA] for row in rows],
+                                [row[SLOT_BETA] for row in rows], run)
         if plan.zs is not None:
             cap = plan.zs.shape[0] - 1
             row = rows[0]
-            k = 0 if start else int(row[SLOT_K])
-            plan.zs[min(k, cap)] = v
+            k = int(row[SLOT_K])
+            plan.zs[min(k, cap)] = z
             plan.coef[0, min(k, cap)] = row[SLOT_RZ]
             if not start:
                 plan.coef[1:, min(k - 1, cap)] = torch.tensor(
                     [row[SLOT_ALPHA], row[SLOT_BETA]], dtype=plan.coef.dtype)
-        return
     state.copy_(torch.tensor(rows, dtype=torch.float64))
 
 
 def cg_iteration(step: int, plan: CGPlan, x, r, p, v, start: bool = False) -> None:
-    """K6: pass ``step`` (0 to 3, ``CG_PASSES``) of a CG iteration on the
+    """K6: pass ``step`` (0 or 1, ``CG_PASSES``) of a CG iteration on the
     vectors of ``plan``'s solve, in place (design and bound at the top of
     ``csrc/cg_iteration.cu``):
 
-    0. ``p.ap``; ``run = next``; ``alpha = rz / (pap == 0 ? 1 : pap)``;
-    1. ``r -= alpha ap``; ``||r||``, ``k``, ``best``,
-       ``since`` and ``next``, the loop's test on this ``r``; with a
-       deflation space ``c = K_w^+ W^T r`` (``start``: no update; the
-       tolerance and gate from ``||b||``);
-    2. with a deflation space ``z += W c``; ``r.z``; ``beta`` (``start``:
-       ``rz`` alone);
-    3. ``x += alpha p``, ``p = z + beta p``; a harvest's slot ``min(k,
-       nstore - 1)`` (``start``: slot 0 alone).
+    0. the update, between ``ap = K p`` and ``z = M r``: ``p.ap``; ``run =
+       next``; ``alpha = rz / (pap == 0 ? 1 : pap)``; ``r -= alpha ap``
+       (``start``: nothing but, on the card, the partial sums of ``r0``);
+    1. the direction: ``||r||``, ``k``, ``best``, ``since`` and ``next``,
+       the loop's test on this ``r``; with a deflation space ``c = K_w^+
+       W^T r`` and ``z + W c`` in place of ``z`` (``z`` itself is not
+       written); ``r.z``; ``beta``; ``x += alpha p``, ``p = z + beta p``; a
+       harvest's slot ``min(k, nstore - 1)`` (``start``: the tolerance and
+       gate from ``||b||``, ``rz``, ``p = z`` and slot 0).
 
     A column whose ``run`` is 0 is left as it is.  Args: x, r, p, v of one
     shape, (n,) or (n, m), dense, of ``plan``'s dtype and device; ``v`` is
-    ``ap`` in steps 0 and 1, ``z`` in 2 and 3 (written in step 2 when
-    deflating); a tensor a step does not read may be any of them.  CPU
-    tensors take the plain version (:func:`cg_iteration_ref`); CUDA tensors
-    launch the kernel (``cg_iteration.launches``, by dtype in ``dtypes``
-    and by pass in ``passes``), whose sums run in a fixed order."""
+    ``ap`` in step 0, ``z`` in step 1; a tensor a step does not read may be
+    any of them.  CPU tensors take the plain version
+    (:func:`cg_iteration_ref`); CUDA tensors launch the kernel, a
+    cooperative launch of the plan's resident grid (``cg_iteration.launches``,
+    by dtype in ``dtypes`` and by pass in ``passes``), whose sums run in a
+    fixed order; a launch the card refuses raises."""
     if plan.cpu:
         cg_iteration_ref(step, start, plan, x, r, p, v)
         return
-    torch.ops.fcvm.cg_pass(step, start, plan.state, plan.scratch, plan.ticket, x, r, p, v,
-                           plan.w, plan.kw_inv, plan.zs, plan.coef)
+    err = torch.ops.fcvm.cg_pass(step, start, plan.state, plan.scratch, plan.barrier, x, r, p,
+                                 v, plan.w, plan.kw_inv, plan.zs, plan.coef, plan.grid)
+    if err:
+        raise RuntimeError(f"cg_iteration: the cooperative launch of {plan.grid} blocks of pass "
+                           f"{CG_PASSES[step]!r} failed: {torch.ops.fcvm.cuda_error(err)}")
     cg_iteration.launches += 1
     cg_iteration.dtypes[plan.dtype_name] += 1
     cg_iteration.passes[CG_PASSES[step]] += 1

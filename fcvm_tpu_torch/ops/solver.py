@@ -3,16 +3,16 @@
 The JAX solver runs its Krylov loop on the device in ``lax.while_loop``, so
 its convergence test never leaves the chip.  Here the vector work of each
 iteration and that test are K6 (:func:`fcvm_tpu_torch.ops.kernels.cg_iteration`):
-four passes around the caller's matvec and preconditioner apply, on a state
-of the solve's scalars that lives on its device.  The loop queues
-``CG_BATCH`` iterations at a time and reads the state on the host once per
-batch: iterations queued after the test failed change nothing (each pass
+two passes, one after the caller's matvec and one after its preconditioner
+apply, on a state of the solve's scalars that lives on its device.  The
+loop queues ``CG_BATCH`` iterations at a time and reads the state on the
+host once per batch: iterations queued after the test failed change nothing (each pass
 leaves a finished column as it is), so results do not depend on
 ``CG_BATCH``; their count is kept in ``CG_STATS``.  The same update order
 and tests as the JAX package, so an f64 solve takes exactly its iteration
 count.  A deflation space (``defl=``) is folded into K6's passes; a
 harvesting solve (:func:`pcg_harvest`) keeps the Lanczos byproducts for
-Ritz deflation (:mod:`fcvm_tpu_torch.ops.deflation`) in K6's last pass.
+Ritz deflation (:mod:`fcvm_tpu_torch.ops.deflation`) in K6's second pass.
 :func:`pcg_block` runs ``m`` independent solves as the columns of one block,
 the counterpart of the JAX package's ``vmap`` of :func:`pcg`: a finished
 column is frozen within a batch and dropped from the block at the next
@@ -137,30 +137,20 @@ def _queue(plan, matvec, precond, x, r, p, count):
     for _ in range(count):
         ap = matvec(p)
         step(0, plan, x, r, p, ap)
-        step(1, plan, x, r, p, ap)
-        z = precond(r)
-        if plan.w is not None and z.data_ptr() == r.data_ptr():
-            z = z.clone()  # step 2 writes the deflated z over the apply's output
-        step(2, plan, x, r, p, z)
-        step(3, plan, x, r, p, z)
+        step(1, plan, x, r, p, precond(r))
     CG_STATS["queued"] += count
 
 
 def _start(plan, matvec, b, precond, x0):
     """x0, r0 = b - A x0, z0 = M r0 (deflated), p0 = z0, the state's start
     (||r0||, the tolerance, rz0) and the harvest's slot 0: K6's start form
-    of steps 1 to 3."""
+    of both passes."""
     x = torch.zeros_like(b) if x0 is None else x0.clone(memory_format=torch.contiguous_format)
     r = b - matvec(x) if x0 is not None else b.clone()
+    p = torch.empty_like(r)
     step = kernels.cg_iteration
-    step(1, plan, x, r, r, r, start=True)
-    z = precond(r)
-    if plan.w is not None and z.data_ptr() == r.data_ptr():
-        z = z.clone()
-    step(2, plan, x, r, r, z, start=True)
-    if plan.zs is not None:
-        step(3, plan, x, r, r, z, start=True)
-    p = z.clone() if z.data_ptr() == r.data_ptr() else z  # step 3 updates p in place
+    step(0, plan, x, r, r, r, start=True)
+    step(1, plan, x, r, p, precond(r), start=True)
     CG_STATS["solves"] += 1
     return x, r, p
 

@@ -6,6 +6,8 @@ process of its own):
     python fcvm_tpu_torch/tools/turns.py TREE kernels  # K0, K0p, K0m, K1, K4, K8, K1m, K4m
                                                        # and K4c alone at the paths' shapes
     python fcvm_tpu_torch/tools/turns.py TREE cg       # TREE's own phase 3c on the plate
+    python fcvm_tpu_torch/tools/turns.py TREE k6       # K6's passes of an iteration at the
+                                                       # paths' shapes (phase 3e's timings)
     python fcvm_tpu_torch/tools/turns.py TREE plate    # phases 5 and 7 (stepping times, the
                                                        # Newton and CG counts, lbd's bits)
     python fcvm_tpu_torch/tools/turns.py TREE column   # phases 9 (eigensolve, stepping, peak
@@ -121,6 +123,11 @@ def main(tree: str, part: str) -> dict:
         out["k1m_k4m"] = block_rows(smoke, {
             "plate": smoke.plate_model(smoke.PLATE_BIG),
             "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)})
+    elif part == "k6":
+        models = {"plate": smoke.plate_model(smoke.PLATE_BIG),
+                  "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)}
+        out["k6"] = [{"dtype": dt, "model": m, "form": f, **row}
+                     for (dt, m, f), row in smoke.k6_times(models, compare=False).items()]
     elif part == "cg":
         spec = importlib.util.spec_from_file_location(
             "tree_smoke", Path(tree).resolve() / "chip_smoke.py")

@@ -1122,12 +1122,25 @@ def test_sharded_two_gloo_ranks_on_one_card_match_cpu(cuda):
 # -- K6: the CG iteration's passes ---------------------------------------------
 
 K6_NSTORE = 8
+# "big": past CG_HELD sweeps of the resident grid (a thread reads its later
+# items again after the barrier) and 3 rows past a multiple of 4 (a vector
+# ends in a ragged item)
+K6_SIZES = [1, 1000, 77_777, "big"]
+K6_FORMS = ["vector", "deflated", "deflated6", "harvest", "m1", "m5", "m8"]
 
 
-def _k6_inputs(cuda, dtype, n, m, defl, harvest, seed=3):
+def _k6_n(cuda, dtype, n, m):
+    if n != "big":
+        return n
+    per = 16 // torch.empty(0, dtype=dtype).element_size()  # values an item
+    sweep = kernels.cg_grid(dtype, 1 << 40, max(m, 1), cuda) * 256 * per
+    return kernels.CG_HELD * sweep // max(m, 1) + 3
+
+
+def _k6_inputs(cuda, dtype, n, m, kd, harvest, seed=3):
     """A K6 plan of n rows (a vector for m = 0, else m columns) on a running
     state (on a block every third column frozen), and seeded x, r, p and v:
-    what a pass sees mid-solve."""
+    what a pass sees mid-solve; with a deflation space of kd vectors."""
     rng = np.random.default_rng(seed)
     shape = (n,) if m == 0 else (n, m)
 
@@ -1136,15 +1149,13 @@ def _k6_inputs(cuda, dtype, n, m, defl, harvest, seed=3):
 
     b = vec()
     dfl, hv = None, None
-    if defl:
-        a = rng.normal(size=(32, 32))
-        dfl = (vec(n, 32), torch.as_tensor(a @ a.T / 32, device=cuda).to(dtype))
+    if kd:
+        a = rng.normal(size=(kd, kd))
+        dfl = (vec(n, kd), torch.as_tensor(a @ a.T / kd, device=cuda).to(dtype))
     if harvest:
         hv = (torch.zeros((K6_NSTORE, n), dtype=dtype, device=cuda),
               torch.zeros((3, K6_NSTORE), dtype=dtype, device=cuda))
     plan = kernels.cg_plan(b, 1e-3, 0.0, 500, 6, dfl, hv)
-    if defl:  # the c of a last update pass
-        plan.c.copy_(vec(32))
     cols = plan.state.shape[0]
     st = plan.state
     st[:, kernels.SLOT_RZ] = torch.as_tensor(rng.uniform(0.5, 2.0, cols), device=cuda)
@@ -1167,82 +1178,111 @@ def _k6_inputs(cuda, dtype, n, m, defl, harvest, seed=3):
     return plan, [base + 0.1 * vec() for _ in range(4)]
 
 
-def _k6_copy(plan, vecs):
-    scratch = plan.scratch.clone()
-    c = None if plan.c is None else scratch[kernels.CG_SCRATCH_C:
-                                            kernels.CG_SCRATCH_C + plan.c.shape[0]]
-    clone = [None if t is None else t.clone() for t in (plan.zs, plan.coef)]
-    return (kernels.CGPlan(plan.state.clone(), plan.w, plan.kw_inv, *clone, scratch,
-                           plan.ticket.clone(), c), [v.clone() for v in vecs])
-
-
-def _k6_compare(dtype, step, start, plan_k, vk, plan_r, vr):
-    """The kernel's pass against the plain version's: the vectors an
-    elementwise update writes bit for bit (step 2's deflated z to TOL), the
-    sums and what follows from them to TOL, the counters and flags exactly."""
+def _k6_compare(dtype, step, start, plan_k, vk, plan_r, vr, vin):
+    """The kernel's pass against the plain version's: the counters and flags
+    exactly, the sums and what follows from them to TOL; x, r and p bit for
+    bit what the plain version's updates make of the inputs with the
+    kernel's own step lengths (a deflated direction to TOL of the plain
+    version's: z + W c is a sum), z never written; a harvest's residuals bit
+    for bit."""
     tol = TOL[dtype]
-    for i, (a, b) in enumerate(zip(vk, vr)):
-        if step == 2 and i == 3 and plan_k.w is not None:
-            assert float((a - b).abs().max()) <= tol * float(b.abs().max())
-        else:
-            assert torch.equal(a, b), (step, start, i)
+
+    def near(a, b):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max()), (step, start)
+
     sk, sr = plan_k.state, plan_r.state
     exact = [kernels.SLOT_K, kernels.SLOT_SINCE, kernels.SLOT_RUN, kernels.SLOT_NEXT,
              kernels.SLOT_STALL_LIM, kernels.SLOT_MAXITER, kernels.SLOT_BNORM,
              kernels.SLOT_RTOL, kernels.SLOT_ATOL]
     assert torch.equal(sk[:, exact], sr[:, exact]), (step, start)
-    near = [kernels.SLOT_RZ, kernels.SLOT_ALPHA, kernels.SLOT_BETA, kernels.SLOT_RNORM,
-            kernels.SLOT_BEST, kernels.SLOT_TOL, kernels.SLOT_GATE]
-    for slot in near:  # each scalar against its own size
-        assert float((sk[:, slot] - sr[:, slot]).abs().max()) <= tol * float(
-            sr[:, slot].abs().max()), (step, start, slot)
-    if plan_k.c is not None and step == 1:
-        assert float((plan_k.c - plan_r.c).abs().max()) <= tol * float(plan_r.c.abs().max())
+    for slot in (kernels.SLOT_RZ, kernels.SLOT_ALPHA, kernels.SLOT_BETA, kernels.SLOT_RNORM,
+                 kernels.SLOT_BEST, kernels.SLOT_TOL, kernels.SLOT_GATE):
+        near(sk[:, slot], sr[:, slot])  # each scalar against its own size
+    rows = sk.tolist()
+    run = [bool(row[kernels.SLOT_RUN]) for row in rows]
+    alpha = [row[kernels.SLOT_ALPHA] for row in rows]
+    x, r, p, z = (t.clone() for t in vin)
+    if step == 0 and not start and any(run):
+        kernels.cg_update_r(r, z, alpha, run)
+    elif step == 1 and start:
+        p.copy_(z)
+    elif step == 1 and any(run):
+        kernels.cg_update_direction(x, p, z, alpha, [row[kernels.SLOT_BETA] for row in rows],
+                                    run)
+    deflated = plan_k.w is not None and step == 1
+    for i, (a, want) in enumerate(zip(vk, (x, r, p, vin[3]))):
+        if deflated and i == 2:
+            near(a, vr[2])
+        else:
+            assert torch.equal(a, want), (step, start, i)
+    if deflated:
+        near(plan_k.c, plan_r.c)
     if plan_k.zs is not None:
         assert torch.equal(plan_k.zs, plan_r.zs)
-        assert float((plan_k.coef - plan_r.coef).abs().max()) <= tol * float(
-            plan_r.coef.abs().max())
+        near(plan_k.coef, plan_r.coef)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
-@pytest.mark.parametrize("form", ["vector", "deflated", "harvest", "m1", "m5", "m8"])
-@pytest.mark.parametrize("n", [1, 1000, 77_777])
+@pytest.mark.parametrize("form", K6_FORMS)
+@pytest.mark.parametrize("n", K6_SIZES)
 def test_cg_iteration_kernel_matches_plain(cuda, dtype, form, n):
-    """Each of K6's four passes, and the start form of steps 1 to 3, against
-    its plain version on the same inputs (a vector, with a deflation space of
-    32 vectors or a harvest of 8 slots, or a block of 1, 5 and 8 columns with
-    frozen ones); a second launch on the same inputs gives the same bits;
-    one launch each counted."""
+    """Each of K6's two passes, and their start forms, against the plain
+    version on the same inputs (a vector, with a deflation space of 32
+    vectors or of 6, which the plan pads to 8, or a harvest of 8 slots, or a
+    block of 1, 5 and 8 columns with frozen ones); the direction pass on the
+    partials an update pass's start form leaves of r; a second launch on the
+    same inputs gives the same bits; one launch each counted."""
     m = int(form[1:]) if form.startswith("m") else 0
-    plan, vecs = _k6_inputs(cuda, dtype, n, m, form == "deflated", form == "harvest")
+    kd = {"deflated": 32, "deflated6": 6}.get(form, 0)
+    n = _k6_n(cuda, dtype, n, m)
     for start in (False, True):
-        for step in range(4):
-            if start and step == 0:
-                continue
-            (pk, vk), (pk2, vk2), (pr, vr) = (_k6_copy(plan, vecs) for _ in range(3))
+        for step in (0, 1):
+            plan, vin = _k6_inputs(cuda, dtype, n, m, kd, form == "harvest")
+            if step == 1:  # the partials of r, as the update pass leaves them
+                kernels.cg_iteration(0, plan, *vin, start=True)
+            (pk, vk), (pk2, vk2), (pr, vr) = ((plan.copy(), [v.clone() for v in vin])
+                                             for _ in range(3))
             launches = kernels.cg_iteration.launches
             for p_, v_ in ((pk, vk), (pk2, vk2)):
-                x, r, p, v = v_
-                kernels.cg_iteration(step, p_, x, r, p, v, start=start)
+                kernels.cg_iteration(step, p_, *v_, start=start)
             torch.cuda.synchronize()
             assert kernels.cg_iteration.launches == launches + 2
-            x, r, p, v = vr
-            kernels.cg_iteration_ref(step, start, pr, x, r, p, v)
-            _k6_compare(dtype, step, start, pk, vk, pr, vr)
+            kernels.cg_iteration_ref(step, start, pr, *vr)
+            _k6_compare(dtype, step, start, pk, vk, pr, vr, vin)
             assert torch.equal(pk.state, pk2.state) and all(
                 torch.equal(a, b) for a, b in zip(vk, vk2))
+            del plan, vin, pk, vk, pk2, vk2, pr, vr
 
 
 def test_cg_iteration_idle_pass_writes_nothing(cuda):
-    """A plan whose every column is done: no pass writes a value (pass 0
-    sets run to 0 and nothing else)."""
-    plan, vecs = _k6_inputs(cuda, torch.float32, 5000, 8, False, False)
+    """A plan whose every column is done: no pass writes a value (the update
+    pass sets run to 0 and nothing else)."""
+    plan, vecs = _k6_inputs(cuda, torch.float32, 5000, 8, 0, False)
     plan.state[:, kernels.SLOT_NEXT] = 0.0
     state, before = plan.state.clone(), [v.clone() for v in vecs]
-    for step in range(4):
+    for step in range(len(kernels.CG_PASSES)):
         kernels.cg_iteration(step, plan, *vecs)
     torch.cuda.synchronize()
     state[:, kernels.SLOT_RUN] = 0.0
+    assert torch.equal(plan.state, state)
+    assert all(torch.equal(a, b) for a, b in zip(vecs, before))
+
+
+def test_cg_iteration_refused_launch_raises(cuda):
+    """A grid larger than what stays resident: the cooperative launch is
+    refused and the wrapper raises, with no fallback and nothing written."""
+    plan, vecs = _k6_inputs(cuda, torch.float32, 1 << 20, 0, 0, False)
+    grid = 8 * kernels.cg_grid(torch.float32, 1 << 40, 1, cuda)
+    big = kernels.CGPlan(plan.state, None, None, None, None,
+                         torch.empty(kernels.cg_layout(grid, 1, 0)[3], device=cuda),
+                         plan.barrier, None, grid)
+    state, before = plan.state.clone(), [v.clone() for v in vecs]
+    launches = kernels.cg_iteration.launches
+    for step in range(len(kernels.CG_PASSES)):
+        with pytest.raises(RuntimeError, match="cooperative launch"):
+            kernels.cg_iteration(step, big, *vecs)
+    torch.cuda.synchronize()
+    assert kernels.cg_iteration.launches == launches
     assert torch.equal(plan.state, state)
     assert all(torch.equal(a, b) for a, b in zip(vecs, before))
 
@@ -1264,9 +1304,9 @@ def _box_solve(device, harvest):
 def test_device_cg_cuda_matches_cpu(cuda, harvest):
     """A whole pcg and pcg_harvest through K1, K4 and K6 on the card against
     the CPU, float64, two-level, rtol 1e-8: equal counts, the same solution
-    to 1e-10 and harvest to 1e-9; on the card K6 launched four times an
-    iteration queued, and the state read at most ceil(iters / CG_BATCH) + 2
-    times."""
+    to 1e-10 and harvest to 1e-9; on the card K6 launched twice an
+    iteration queued and twice a solve's start, and the state read at most
+    ceil(iters / CG_BATCH) + 2 times."""
     launches = kernels.cg_iteration.launches
     res, stats, hv = _box_solve("cuda", harvest)
     torch.cuda.synchronize()
@@ -1279,5 +1319,4 @@ def test_device_cg_cuda_matches_cpu(cuda, harvest):
         assert float((hv.cpu() - ref_hv).abs().max()) <= 1e-9 * float(ref_hv.abs().max())
     assert stats == ref_stats
     assert stats["reads"] <= -(-res.iters // tslv.CG_BATCH) + 2
-    starts = 3 if harvest else 2
-    assert kernels.cg_iteration.launches - launches == 4 * stats["queued"] + starts
+    assert kernels.cg_iteration.launches - launches == 2 * (stats["queued"] + stats["solves"])
