@@ -81,6 +81,19 @@ Phases, each printing its numbers before the next starts:
    then one elastic solve of the plate at each ``CG_BATCH`` of
    ``K6_BATCHES``, in turns: the same bits and count at every batch, at
    most ceil(iters / batch) + 2 host reads, the wall time per iteration;
+3f. K2 (``stress_update``), the stress update and internal force of every
+   residual: on the plate's and the beam-column's meshes (``K2_CASES``: the
+   update and the given-stress form, each in small strain and GNL; on the
+   plate the GNL update with phase 10's region, a D, G and H per element,
+   and element weights with zeros), float32 and float64, seeded with about
+   half the Gauss points plastic, against its plain version (every output
+   to ``K2_TOL``, in float32 no farther from the float64 plain version than
+   twice the float32 plain version, the plastic flags equal but within
+   ``K2_FLIP`` of the yield surface, the flips counted) and bit for bit
+   against a second launch; timed (CUDA events, device time) against its
+   plain version (the chain it replaced) and its bound; then the plate's
+   whole ``backend.residual`` through K2 and through the plain version, in
+   turns;
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
    the load-factor histories must agree; and ``linear_buckling`` of a small
@@ -88,7 +101,8 @@ Phases, each printing its numbers before the next starts:
 5. the slice at full size: the quarter plate with a hole at 502,599 dof,
    float32, two-level PCG without deflation or the precision tiers, plastic
    Riks steps through ``fcvm_tpu_torch.solve_collapse``; the launch counts
-   of K1, K4, K8 and K6, the kernels on that path, must be > 0, and K6's
+   of K1, K4, K8, K6 and K2, the kernels on that path, must be > 0 (K2's
+   is the residual count, printed by form), and K6's
    exactly two passes for each queued CG iteration and each solve's start
    (as in every plate phase, 9, 9c and 14); the CG loop's host reads per
    solve and idle queued iterations (as in 7, 9, 9b);
@@ -192,7 +206,8 @@ Phases, each printing its numbers before the next starts:
    dof, the capacity rows at 1,073,733 and 1,975,509 dof (converged below
    the CG cap) with each row's peak device memory, the sharded row within
    its ``lbd_tol``, a ``vs_baseline`` from the CPU child, and K1, K4, K8
-   and K6 launched in every row.
+   and K6 launched in every row, K2 in every row but the capacity rows
+   (which evaluate no residual).
 
 Each phase prints its wall time.
 
@@ -358,12 +373,13 @@ def device_ms_by_kernel(fn, *args, calls=10, tries=3):
 # (the eigensolve, the deflation builds), K4m in the eigensolve's block
 # preconditioner applies; K0m and K0 in none since K1m and K1 carry K_hat·V
 # and K_hat·v
-# and K6 the rest of every CG iteration: the sharded backend's too, whose
+# and K6 the rest of every CG iteration (and K2 every residual and internal
+# force): the sharded backend's too, whose
 # element-partitioned solves run the local loop around an all_reduced
 # operator; only its node-partitioned PCG (config.node_partition, off by
 # default and in no phase) passes its own inner product and keeps the host
 # loop (ROADMAP.md queues K6's partials through all_reduce there)
-CG_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "cg_iteration")
+CG_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "cg_iteration", "stress_update")
 BLOCK_KERNELS = ("khat_matmat", "two_level_apply_block")
 PATH_KERNELS = (*CG_KERNELS, *BLOCK_KERNELS, "block_matmat", "block_matvec")
 BY_SHAPE = ("block_matmat", *BLOCK_KERNELS)  # counted by dtype and column count
@@ -379,6 +395,7 @@ def reset_launches():
         getattr(fn, "shapes" if name in BY_SHAPE else "dtypes").clear()
     getattr(kernels.segment_sum, "paths", Counter()).clear()
     getattr(kernels.cg_iteration, "passes", Counter()).clear()
+    getattr(kernels.stress_update, "forms", Counter()).clear()
 
 
 def cg_stats_reset():
@@ -435,6 +452,7 @@ def read_launches():
                     for (dt, m), n in sorted(getattr(kernels, name).shapes.items())}
     by["segment_sum paths"] = dict(getattr(kernels.segment_sum, "paths", {}))
     by["cg_iteration passes"] = dict(getattr(kernels.cg_iteration, "passes", {}))
+    by["stress_update forms"] = dict(getattr(kernels.stress_update, "forms", {}))
     return counts, by
 
 
@@ -491,7 +509,8 @@ def layer_breakdown(model, cfg):
     qnorm = max(float(torch.linalg.vector_norm(glv)), 1.0)
     sig_yield, sig0 = backend.gauss_full(PLATE_SY), backend.gauss_zeros((6,))
     zero = torch.zeros_like(res.x)
-    rows.append(("residual (stress update + internal force), per Newton iteration",
+    rows.append(("residual (K2's stress update and internal force, K8's node sum), per Newton "
+                 "iteration",
                  cuda_ms(lambda: backend.residual(coords, sig_yield, zero, res.x, sig0,
                                                   glv, 1.0, qnorm, 0.0))))
     rows_k8 = torch.ones((backend.ne * 10, 3), dtype=u.dtype, device=u.device)
@@ -1604,6 +1623,227 @@ def k6_phase(models):
     return rows
 
 
+# K2's cases in phase 3f: (model, form, large_disp, region): the update in
+# small strain and GNL, the given-stress form (the reaction's) in both, and
+# on the plate the update in GNL with phase 10's region (y > 75, E doubled:
+# a D, G and H per element) and element weights with 10% zeros (the sharded
+# backend's padding)
+K2_CASES = tuple((m, f, gnl, False) for m in ("plate", "column") for f in ("update", "given")
+                 for gnl in (False, True)) + (("plate", "update", True, True),)
+K2_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}  # max |kernel - plain| / max |plain|
+K2_FLIP = {torch.float32: 1e-5, torch.float64: 1e-12}  # |svm - sy| / sy where pgp may flip
+K2_ET_E = 0.1
+
+
+def k2_inputs(model, dtype, gnl, region, seed=18):
+    """K2's inputs at a path's shapes on ``model``: its coordinates and
+    connectivity, a seeded step-start displacement (GNL) and increment, old
+    stresses of 30 MPa, one D (or per element with phase 10's region), and
+    yield stresses that make about half the Gauss points plastic (the float64
+    plain version's trial von Mises stress times a uniform factor in [0.5,
+    1.5]); with ``region`` also element weights with 10% zeros.  Returns
+    (the wrapper's positional and keyword arguments, the float64 plain
+    version's trial von Mises stress)."""
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.ops import material as mat
+    from fcvm_tpu_torch.utils.indexing import pad_ndof
+
+    mesh = model.mesh
+    rng = np.random.default_rng(seed)
+    ne, nd = mesh.n_elements, pad_ndof(mesh.ndof)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), device="cuda").to(dt)
+
+    if region:
+        y = mesh.coords[mesh.elnodes].mean(axis=1)[:, 1]
+        e = t(np.where(y > 75.0, 2 * E, E))
+        nu = t(np.full(ne, NU))
+    else:
+        e, nu = E, NU
+    pe, pn = mat.per_gauss(e), mat.per_gauss(nu)
+    args = [t(mesh.coords), torch.as_tensor(mesh.elnodes.astype(np.int64), device="cuda"),
+            t(3e-3 * rng.normal(size=nd)), t(rng.normal(scale=30.0, size=(ne, 4, 6))), gnl]
+    kw = dict(du=t(3e-4 * rng.normal(size=nd)), dmat=mat.hooke_dmat(e, nu, dtype, "cuda"),
+              g=mat.shear_modulus(pe, pn), h=mat.hardening_modulus(pe, K2_ET_E))
+    if region:
+        kw["weights"] = t(rng.uniform(size=ne) > 0.1)
+
+    def f64(v):
+        return v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+
+    trial = kernels.stress_update_ref(*map(f64, args), **{k: f64(v) for k, v in kw.items()},
+                                      sig_yield=t(np.full((ne, 4), 1e30), torch.float64))[1]
+    svm = mat.von_mises(trial)[2]
+    kw["sig_yield"] = (svm * t(rng.uniform(0.5, 1.5, size=(ne, 4)), torch.float64)).to(dtype)
+    return args, kw, svm
+
+
+def k2_work(args, kw, given):
+    """(bytes, operations) of one K2 launch on these inputs: each input read
+    once (the node arrays at the mesh's nodes), each output written once;
+    the kernel's own arithmetic, an FMA as two operations, per Gauss point
+    (csrc/stress_update.cu: J 180, J^-1 50, dN/dx 180 a pass over the nodes,
+    elv 210 and its two shuffle adds 60; the update's B du 180, D deps 78,
+    the return 40; GNL's grad du 180 and F sig F^T / det F 115)."""
+    coords, eln, disp, sig, gnl = args
+    size = coords.element_size()
+    ne, nn = eln.shape[0], coords.shape[0]
+    nbytes = eln.numel() * 8 + coords.numel() * size + sig.numel() * size + ne * 30 * size
+    nbytes += 3 * nn * size if gnl else 0
+    nbytes += kw["weights"].numel() * size if "weights" in kw else 0
+    per_gp = 180 + 50 + 180 + 210 + 60
+    if not given:
+        nbytes += 3 * nn * size + kw["sig_yield"].numel() * size + kw["dmat"].numel() * size
+        nbytes += 2 * ne * size if torch.is_tensor(kw["g"]) else 0  # G and H + 3 G
+        nbytes += 2 * sig.numel() * size + ne * 4  # sig_new, sig_test; pgp
+        per_gp += 180 + 180 + 78 + 40 + ((180 + 115) if gnl else 0)
+    return nbytes, 4 * ne * per_gp
+
+
+def k2_phase(models, smi):
+    """Phase 3f: K2 (``stress_update``) against its plain version at the
+    plate's and the beam-column's element counts (``K2_CASES``), float32 and
+    float64: every output to ``K2_TOL``; in float32 no farther from the
+    float64 plain version than twice the float32 plain version; the plastic
+    flags equal but where |svm - sy| <= ``K2_FLIP`` sy (the flips counted);
+    a second launch the same bits; timed (CUDA events and device time)
+    against the plain version (the chain it replaced) and its bound; then
+    one ``backend.residual`` of the plate through K2 and through the plain
+    version.  Returns ``{(dtype, model, case): numbers}``."""
+    from fcvm_tpu_torch import FcvmConfig
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).removeprefix("torch.")
+        for name, form, gnl, region in K2_CASES:
+            case = form + (" gnl" if gnl else "") + (" region weighted" if region else "")
+            args, kw, svm = k2_inputs(models[name], dtype, gnl, region)
+            given = form == "given"
+            if given:
+                kw = {k: v for k, v in kw.items() if k == "weights"}
+            out = kernels.stress_update(*args, **kw)
+            again = kernels.stress_update(*args, **kw)
+            torch.cuda.synchronize()
+            out, again = ((out,), (again,)) if given else (out, again)
+            same = all(torch.equal(a, b) for a, b in zip(out, again))
+            ref = kernels.stress_update_ref(*args, **kw)
+            ref = (ref,) if given else ref
+            f64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+                   for k, v in kw.items()}
+            exact = kernels.stress_update_ref(*(a.double() if torch.is_tensor(a)
+                                                and a.is_floating_point() else a for a in args),
+                                              **f64)
+            exact = (exact,) if given else exact
+            names = ("elv",) if given else ("sig_new", "sig_test", "pgp", "elv")
+            errs, flips = {}, 0
+            for n, a, b, c in zip(names, out, ref, exact):
+                if n == "pgp":
+                    differ = a != b
+                    near = (svm - kw["sig_yield"].double()).abs() <= K2_FLIP[dtype] * \
+                        kw["sig_yield"].double()
+                    flips = int(differ.sum())
+                    check(bool((~differ | near).all()),
+                          f"K2 {dname} {name} {case}: a plastic flag differs away from the "
+                          "yield surface")
+                    continue
+                scale = float(b.abs().max())
+                errs[n] = dict(abs=float((a - b).abs().max()),
+                               rel=float((a - b).abs().max()) / scale,
+                               vs_f64=float((a.double() - c).abs().max()) / float(c.abs().max()),
+                               plain_vs_f64=float((b.double() - c).abs().max())
+                               / float(c.abs().max()))
+            plastic = float(out[2].float().mean()) if not given else None
+            del ref, exact
+            ms = cuda_ms(lambda: kernels.stress_update(*args, **kw))
+            plain_ms = cuda_ms(lambda: kernels.stress_update_ref(*args, **kw))
+            by = device_ms_by_kernel(lambda: kernels.stress_update(*args, **kw))
+            dev = sum(v for k, v in by.items() if k.startswith("stress_update")) or None
+            nbytes, ops = k2_work(args, kw, given)
+            bound_ms, bound_by = bound(nbytes, ops, dtype)
+            row = dict(ne=args[1].shape[0], max_abs_err=max(e["abs"] for e in errs.values()),
+                       max_rel_err=max(e["rel"] for e in errs.values()), errors=errs,
+                       pgp_flips=flips, plastic_share=plastic, same_bits=same, ms=ms,
+                       device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       bytes=nbytes, operations=ops, library_ms=None)
+            share = "" if dev is None else f", {bound_ms / dev:.1%} of the device time"
+            print(f"K2 {dname} {name} {case} ne={row['ne']}: max rel err "
+                  + ", ".join(f"{n} {e['rel']:.2e} (vs f64 {e['vs_f64']:.2e}, plain's "
+                              f"{e['plain_vs_f64']:.2e})" for n, e in errs.items())
+                  + f" (limit {K2_TOL[dtype]:g}); pgp flips {flips}"
+                  + ("" if given else f" (plastic share {plastic:.3f})")
+                  + f"; second launch {'the same bits' if same else 'DIFFERENT BITS'}; "
+                  f"{ms:.4f} ms (CUDA events), device time "
+                  + ("not recorded" if dev is None else f"{dev:.4f} ms")
+                  + f"; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{nbytes / 1e6:.1f} MB){share}, {bound_ms / ms:.1%} of the events'; no "
+                  f"single library call; median of 20 ({smi})")
+            for n, e in errs.items():
+                check(e["rel"] <= K2_TOL[dtype],
+                      f"K2 {dname} {name} {case}: {n} disagrees with its plain version")
+                if dtype == torch.float32:
+                    check(e["vs_f64"] <= 2 * max(e["plain_vs_f64"], 1e-7),
+                          f"K2 {dname} {name} {case}: {n} farther from float64 than twice the "
+                          "float32 plain version")
+            check(same, f"K2 {dname} {name} {case}: a second launch gave other bits")
+            check(given or 0.3 < plastic < 0.7,
+                  f"K2 {dname} {name} {case}: not a mix of plastic and elastic points")
+            rows[(dname, name, case)] = row
+            del args, kw, svm, out, again
+            torch.cuda.empty_cache()
+
+    # one residual of the plate at the elastic solution's shape, through K2
+    # and through the plain version (the chain the path ran before K2)
+    big = models["plate"]
+    be = TorchSystem(big, FcvmConfig(device="cuda", dtype="float32"), torch.float32,
+                     torch.device("cuda"))
+    coords = be.tensor(big.mesh.coords)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    du = 1e-3 * torch.randn(be.ndof_pad, generator=gen, device="cuda")
+    glv = torch.zeros_like(du)
+    sig_y, sig0 = be.gauss_full(PLATE_SY), be.gauss_zeros((6,))
+
+    def residual():
+        return be.residual(coords, sig_y, torch.zeros_like(du), du, sig0, glv, 1.0, 1.0, 0.0)
+
+    wrapper = kernels.stress_update
+    times = {}
+    for label in ("K2", "plain", "plain", "K2"):
+        kernels.stress_update = wrapper if label == "K2" else kernels.stress_update_ref
+        try:
+            times.setdefault(label, []).append(cuda_ms(residual))
+        finally:
+            kernels.stress_update = wrapper
+    print(f"backend.residual of the plate, float32, turns K2 / plain / plain / K2: "
+          f"{times['K2'][0]:.4f} / {times['plain'][0]:.4f} / {times['plain'][1]:.4f} / "
+          f"{times['K2'][1]:.4f} ms ({smi})")
+    # where its time goes: device time by kernel (K2, K8's ring or register
+    # kernels, the vector ops around them) against its CUDA-event time
+    by = device_ms_by_kernel(residual)
+    parts = Counter()
+    for name, ms in by.items():
+        parts["K2" if name.startswith("stress_update") else
+              "K8" if name in ("ring_kernel", "register_kernel") else "rest"] += ms
+    events = cuda_ms(residual)
+    print(f"backend.residual of the plate, float32, device time by kernel (torch.profiler, "
+          f"mean of 10): K2 {parts['K2']:.4f} / K8 {parts['K8']:.4f} / the rest "
+          f"{parts['rest']:.4f} ms over {len(by)} kernels, {sum(by.values()):.4f} in all against "
+          f"{events:.4f} ms of CUDA events; the rest: "
+          + ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(by.items(), key=lambda kv: -kv[1])
+                      if n not in ("ring_kernel", "register_kernel")
+                      and not n.startswith("stress_update")) + f" ({smi})")
+    check(parts["K2"] > 0 and parts["K8"] > 0,
+          "backend.residual: the profile shows no K2 or no K8 kernel")
+    times["device_ms_by_kernel"] = by
+    times["events_ms"] = events
+    rows["residual"] = times
+    del be, coords, du, glv, sig_y, sig0
+    torch.cuda.empty_cache()
+    return rows
+
+
 # where the coarse table's later chunk starts (its longest group: 7,473 rows
 # on the plate)
 COARSE_LATER = 57_344
@@ -2199,7 +2439,7 @@ def case_phase(tmp, smi):
     check(float(res.peeq_gp.max()) > 0.0, "phase 10: no plastic strain")
     check(bool(dmat_shapes) and all(s == (NE_BIG, 6, 6) for s in dmat_shapes),
           f"phase 10: the backend's elasticity is {dmat_shapes}, not per element")
-    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 10: K1, K4, K8 or K6 was not launched")
+    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 10: K1, K4, K8, K6 or K2 was not launched")
     return dict(launches=launches)
 
 
@@ -2226,9 +2466,9 @@ def cli_phase(tmp):
         lbd[dev] = latest_step(tmp / dev / "checkpoints")[1]["lbd"]
         fields[dev] = read_point_fields(tmp / dev / "plate.vtk")
         print(f"CLI run --x64{' --cpu' if dev == 'cpu' else ''}: {time.perf_counter() - t0:.2f} s, "
-              f"lbd {np.round(lbd[dev], 6).tolist()}, K1, K4, K8 and K6 launches {launches}")
+              f"lbd {np.round(lbd[dev], 6).tolist()}, K1, K4, K8, K6 and K2 launches {launches}")
         check(all((n > 0) == (dev == "cuda") for n in launches.values()),
-              f"phase 10b: K1, K4, K8 and K6 launches {launches} on {dev}")
+              f"phase 10b: K1, K4, K8, K6 and K2 launches {launches} on {dev}")
     check(len(lbd["cuda"]) == len(lbd["cpu"]) == 7, "phase 10b: step counts differ from 6")
     diff = float(np.max(np.abs(lbd["cuda"] - lbd["cpu"]) / np.maximum(np.abs(lbd["cpu"]), 1e-300)))
     fdiff, fname = max((float(np.abs(fields["cuda"][k] - v).max() / max(np.abs(v).max(), 1.0)), k)
@@ -2518,7 +2758,7 @@ def fcstd_phase(tmp, smi):
     check(diff <= CLI_RTOL, "phase 12: the document's history differs from the TOML case's")
     check(bool(np.all(np.diff(lbd["fcstd"]) >= 0.0)) and lbd["fcstd"].max() < 1.76,
           "phase 12: load factors decreasing or above 1.76")
-    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 12: K1, K4, K8 or K6 was not launched")
+    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 12: K1, K4, K8, K6 or K2 was not launched")
     return dict(launches=launches, t_read=t_read, t_resolver=t_resolver, t_build=t_build,
                 walls=walls)
 
@@ -2670,7 +2910,7 @@ def gloo_phase(cpu_small):
     check(eig_diff <= EIG_RTOL, "phase 13b: buckling factors disagree with the CPU")
     check(same, "phase 13b: the two ranks' histories differ")
     check(all(o["launches"][k] > 0 for o in outs for k in (*CG_KERNELS, "khat_matmat")),
-          "phase 13b: K1, K4, K8 or K1m was not launched on a rank")
+          "phase 13b: K1, K4, K8, K6, K2 or K1m was not launched on a rank")
     check(all(o["launches"]["block_matmat"] == 0 for o in outs),
           "phase 13b: K0m was launched on a rank")
     return [o["launches"] for o in outs]
@@ -2715,7 +2955,10 @@ def bench_phase(smi):
               f"{r['host_mesh_s']:.2f} s, tensors and solve space {r['host_setup_s']:.2f} s")
     print(f"sharded (world of one) vs local, {sh['ndof']} dof: step {sh['step_ms_sharded']:.1f} "
           f"/ {sh['step_ms_local']:.1f} ms, max lbd diff {sh['max_lbd_diff']:.3e} (tol "
-          f"{sh['lbd_tol']:g}); launches in the bench: {launches}")
+          f"{sh['lbd_tol']:g}), decisions {sh['decisions_local']} / {sh['decisions_sharded']}, "
+          f"first-step margins {sh['first_step_margin_local']:.2f} / "
+          f"{sh['first_step_margin_sharded']:.2f} (at least {sh['first_step_margin_min']:g}); "
+          f"launches in the bench: {launches}")
     check(g["metric"] == "newton_load_step_wall_ms_plate_with_hole_503kdof"
           and head["ndof"] == NDOF_BIG, "phase 14: not the 502,599-dof headline")
     check(head["plastic_gp_fraction"] > 0, "phase 14: the headline step is not plastic")
@@ -2726,8 +2969,11 @@ def bench_phase(smi):
           "phase 14: a capacity row's elastic solve reached the CG cap")
     check(sh["lbd_within_tol"], "phase 14: sharded and local load factors differ")
     check(g["vs_baseline"] is not None, "phase 14: no vs_baseline")
-    check(all(r["launches"][k] > 0 for r in rows.values() for k in CG_KERNELS),
-          "phase 14: a row of the bench did not launch K1, K4, K8 or K6")
+    # the capacity rows solve once and evaluate no residual: K2 in the others
+    check(all(r["launches"][k] > 0 for name, r in rows.items() for k in CG_KERNELS
+              if k != "stress_update" or not name.startswith("capacity")),
+          "phase 14: a row of the bench did not launch K1, K4, K8 or K6, or one with residuals "
+          "K2")
     return launches
 
 
@@ -2786,6 +3032,10 @@ def main():
     phase(f"3e K6, the CG iteration's passes, vs plain, the torch chain it replaced and the "
           f"deflation's products; the CG_BATCH sweep ({smi})")
     k6 = k6_phase(cg_models)
+
+    phase(f"3f K2, the stress update and internal force, vs plain and its bound; the residual "
+          f"through K2 and through the plain version ({smi})")
+    k2 = k2_phase(cg_models, smi)
     del cg_models
 
     phase("4 small plate, float64, GPU vs CPU, small strain and GNL")
@@ -3024,6 +3274,23 @@ def main():
         "shapes": [{"dtype": dt, "model": mo, "form": f, **row}
                    for key, row in k6.items() if key != "sweep" for dt, mo, f in [key]],
         "cg_batch_sweep": k6["sweep"],
+    }, {
+        "name": "stress_update", "route": "cuda", "source": "fcvm_tpu_torch/csrc/stress_update.cu",
+        "source_also": "its plain version fcvm_tpu_torch/ops/kernels.py:stress_update_ref; its "
+                       "node sum K8 (segment_sum)",
+        "replaces": "fcvm_tpu/ops/stress_update.py:66",
+        "replaces_also": "_element_stress_update_hp, update_stress_load, "
+                         "internal_force_from_stress (fcvm_tpu/ops/stress_update.py:66-195), "
+                         "radial_return and von_mises (fcvm_tpu/ops/material.py:52-88), "
+                         "tet10_element_geometry (fcvm_tpu/ops/elements.py:126); XLA-lowered",
+        "launches": off["launches"]["stress_update"], **path_launches("stress_update"),
+        "launches_by_form": {k: v["by_dtype"]["stress_update forms"] for k, v in paths.items()
+                             if "by_dtype" in v},
+        "dtype": "float32", "model": "plate", "case": "update",
+        **k2[("float32", "plate", "update")],
+        "residual_ms_k2_plain": k2["residual"],
+        "shapes": [{"dtype": dt, "model": mo, "case": c, **row}
+                   for key, row in k2.items() if key != "residual" for dt, mo, c in [key]],
     }, {
         "name": "segment_sum", "route": "cuda", "source": "fcvm_tpu_torch/csrc/segment_sum.cu",
         "replaces": "fcvm_tpu/ops/assembly.py:386",

@@ -11,6 +11,8 @@
 //   fcvm::segment_sum   K8   csrc/segment_sum.cu (in place: accumulate or write)
 //   fcvm::cg_pass       K6   csrc/cg_iteration.cu (one pass of a CG iteration, in place;
 //                            cg_grid: its resident grid; cg_layout: its scratch)
+//   fcvm::stress_update K2   csrc/stress_update.cu (the stress update and elv; with no
+//                            du the given-stress form, elv alone)
 //   fcvm::soa_matvec    K0p  csrc/bw_probe.cu
 //   fcvm::bw_read       Kbw  csrc/bw_probe.cu
 // so each is called as torch.ops.fcvm.<name>.  The kernels themselves keep a
@@ -117,6 +119,20 @@ extern "C" int fcvm_cg_pass_f64(int step, int start, double* st, double* part, u
                                 double* x, double* r, double* p, double* v, const double* w,
                                 const double* kw_inv, double* zs, double* coef, long long n,
                                 int m, int kd, int nstore, int grid, void* stream);
+extern "C" int fcvm_stress_update_f32(const float* coords, const long long* elnodes,
+                                      const float* disp, const float* du, const float* sig,
+                                      const float* sig_yield, const float* dmat,
+                                      long long dstride, const float* g, const float* h3g,
+                                      double g_s, double h3g_s, const float* weights,
+                                      float* sig_new, float* sig_test, unsigned char* pgp,
+                                      float* elv, long long ne, int large_disp, void* stream);
+extern "C" int fcvm_stress_update_f64(const double* coords, const long long* elnodes,
+                                      const double* disp, const double* du, const double* sig,
+                                      const double* sig_yield, const double* dmat,
+                                      long long dstride, const double* g, const double* h3g,
+                                      double g_s, double h3g_s, const double* weights,
+                                      double* sig_new, double* sig_test, unsigned char* pgp,
+                                      double* elv, long long ne, int large_disp, void* stream);
 extern "C" int fcvm_soa_matvec_f32(const float* esm_t, const float* ue_t, float* out,
                                    long long ne, int tile, void* stream);
 extern "C" int fcvm_bw_read_blocks(long long rows, long long chunk_rows, int device);
@@ -740,6 +756,99 @@ int64_t cg_pass(int64_t step, bool start, const at::Tensor& state, const at::Ten
   return err;
 }
 
+// K2: the stress update of every Gauss point and each element's internal
+// force rows elv (ne, 30).  coords (nn, 3), elnodes int64 (ne, 10), sig
+// (ne, 4, 6) 16-byte aligned; disp (3 n,) under large_disp.  With du (3 n,):
+// sig is sig_old, and sig_yield (ne, 4), dmat (6, 6) or (ne, 6, 6), the
+// shear moduli g and H + 3 G h3g (each (ne,) or its scalar) are read; the
+// result is [sig_new, sig_test, pgp (bool), elv].  Without du: sig is the
+// given stress and the result is [elv].  weights (ne,) scales elv.
+std::vector<at::Tensor> stress_update(const at::Tensor& coords, const at::Tensor& elnodes,
+                                      const std::optional<at::Tensor>& disp,
+                                      const std::optional<at::Tensor>& du, const at::Tensor& sig,
+                                      const std::optional<at::Tensor>& sig_yield,
+                                      const std::optional<at::Tensor>& dmat,
+                                      const std::optional<at::Tensor>& g,
+                                      const std::optional<at::Tensor>& h3g, double g_s,
+                                      double h3g_s, const std::optional<at::Tensor>& weights,
+                                      bool large_disp) {
+  const auto dev = coords.device();
+  const auto dt = coords.scalar_type();
+  TORCH_CHECK(coords.is_cuda(), "stress_update: coords must be on a CUDA device");
+  TORCH_CHECK(dt == at::kFloat || dt == at::kDouble,
+              "stress_update: dtype must be float32 or float64, got ", dt);
+  const bool given = !du;
+  TORCH_CHECK(!large_disp || disp, "stress_update: large_disp reads disp");
+  TORCH_CHECK(given || (sig_yield && dmat), "stress_update: the update reads sig_yield and dmat");
+  const std::optional<at::Tensor>* floats[] = {&disp, &du, &sig_yield, &dmat, &g, &h3g, &weights};
+  TORCH_CHECK(elnodes.device() == dev && sig.device() == dev && sig.scalar_type() == dt,
+              "stress_update: elnodes and sig must be on coords' device, sig of its dtype");
+  for (const auto* t : floats)
+    TORCH_CHECK(!*t || ((*t)->device() == dev && (*t)->scalar_type() == dt &&
+                        (*t)->is_contiguous()),
+                "stress_update: every float tensor must be contiguous, on coords' device and "
+                "of its dtype");
+  TORCH_CHECK(elnodes.scalar_type() == at::kLong, "stress_update: elnodes must be int64");
+  const long long ne = elnodes.dim() == 2 ? elnodes.size(0) : -1;
+  TORCH_CHECK(coords.dim() == 2 && coords.size(1) == 3 && coords.size(0) <= 0x7fffffffLL &&
+                  ne >= 0 && elnodes.size(1) == 10 && sig.dim() == 3 && sig.size(0) == ne &&
+                  sig.size(1) == 4 && sig.size(2) == 6,
+              "stress_update: expected coords (nn, 3), elnodes (ne, 10), sig (ne, 4, 6)");
+  TORCH_CHECK(coords.is_contiguous() && elnodes.is_contiguous() && sig.is_contiguous() &&
+                  reinterpret_cast<uintptr_t>(sig.data_ptr()) % 16 == 0,
+              "stress_update: coords, elnodes and sig must be contiguous, sig 16-byte aligned");
+  // the node rows of disp and du: every node of coords
+  for (const auto* t : {&disp, &du})
+    TORCH_CHECK(!*t || ((*t)->dim() == 1 && (*t)->size(0) % 3 == 0 &&
+                        (*t)->size(0) >= 3 * coords.size(0)),
+                "stress_update: expected disp and du (3 n,), n at least coords' rows");
+  long long dstride = 0;
+  if (!given) {
+    TORCH_CHECK(sig_yield->dim() == 2 && sig_yield->size(0) == ne && sig_yield->size(1) == 4,
+                "stress_update: expected sig_yield (ne, 4)");
+    TORCH_CHECK((dmat->dim() == 2 && dmat->size(0) == 6 && dmat->size(1) == 6) ||
+                    (dmat->dim() == 3 && dmat->size(0) == ne && dmat->size(1) == 6 &&
+                     dmat->size(2) == 6),
+                "stress_update: expected dmat (6, 6) or (ne, 6, 6)");
+    dstride = dmat->dim() == 3 ? 36 : 0;
+  }
+  for (const auto* t : {&g, &h3g, &weights})
+    TORCH_CHECK(!*t || ((*t)->dim() == 1 && (*t)->size(0) == ne),
+                "stress_update: expected g, h3g and weights (ne,)");
+  const c10::cuda::CUDAGuard guard(dev);
+  at::Tensor elv = at::empty({ne, 30}, coords.options());
+  at::Tensor sig_new, sig_test, pgp;
+  if (!given) {
+    sig_new = at::empty_like(sig);
+    sig_test = at::empty_like(sig);
+    pgp = at::empty({ne, 4}, coords.options().dtype(at::kBool));
+  }
+  void* stream = c10::cuda::getCurrentCUDAStream().stream();
+  const auto* nodes = elnodes.data_ptr<int64_t>();
+  const auto* nodes_ll = reinterpret_cast<const long long*>(nodes);
+  auto* flags = given ? nullptr : reinterpret_cast<unsigned char*>(pgp.data_ptr<bool>());
+  int err = 0;
+  if (dt == at::kFloat)
+    err = fcvm_stress_update_f32(
+        coords.data_ptr<float>(), nodes_ll, ptr<float>(disp), ptr<float>(du),
+        sig.data_ptr<float>(), ptr<float>(sig_yield), ptr<float>(dmat), dstride, ptr<float>(g),
+        ptr<float>(h3g), g_s, h3g_s, ptr<float>(weights),
+        given ? nullptr : sig_new.data_ptr<float>(), given ? nullptr : sig_test.data_ptr<float>(),
+        flags, elv.data_ptr<float>(), ne, large_disp ? 1 : 0, stream);
+  else
+    err = fcvm_stress_update_f64(
+        coords.data_ptr<double>(), nodes_ll, ptr<double>(disp), ptr<double>(du),
+        sig.data_ptr<double>(), ptr<double>(sig_yield), ptr<double>(dmat), dstride,
+        ptr<double>(g), ptr<double>(h3g), g_s, h3g_s, ptr<double>(weights),
+        given ? nullptr : sig_new.data_ptr<double>(),
+        given ? nullptr : sig_test.data_ptr<double>(), flags, elv.data_ptr<double>(), ne,
+        large_disp ? 1 : 0, stream);
+  TORCH_CHECK(err == 0, "stress_update: kernel launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  if (given) return {elv};
+  return {sig_new, sig_test, pgp, elv};
+}
+
 // the name and text of a CUDA error code
 std::string cuda_error(int64_t code) {
   const auto e = static_cast<cudaError_t>(code);
@@ -818,6 +927,9 @@ TORCH_LIBRARY(fcvm, m) {
   m.def("cg_pass(int step, bool start, Tensor(a!) state, Tensor(b!) scratch, "
         "Tensor(c!) barrier, Tensor(d!) x, Tensor(e!) r, Tensor(f!) p, Tensor(g!) v, Tensor? w, "
         "Tensor? kw_inv, Tensor(h!)? zs, Tensor(i!)? coef, int grid) -> int");
+  m.def("stress_update(Tensor coords, Tensor elnodes, Tensor? disp, Tensor? du, Tensor sig, "
+        "Tensor? sig_yield, Tensor? dmat, Tensor? g, Tensor? h3g, float g_s, float h3g_s, "
+        "Tensor? weights, bool large_disp) -> Tensor[]");
   m.def("cuda_error(int code) -> str", &cuda_error);
   m.def("soa_matvec(Tensor esm_t, Tensor ue_t, int tile) -> Tensor");
   m.def("bw_read(Tensor x, int k, int chunk_rows) -> Tensor");
@@ -834,6 +946,7 @@ TORCH_LIBRARY_IMPL(fcvm, CUDA, m) {
   m.impl("coarse_product", &coarse_product);
   m.impl("segment_sum", &segment_sum);
   m.impl("cg_pass", &cg_pass);
+  m.impl("stress_update", &stress_update);
   m.impl("soa_matvec", &soa_matvec);
   m.impl("bw_read", &bw_read);
 }

@@ -31,7 +31,6 @@ import torch
 from fcvm_tpu_torch.ops import elements as el
 from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import material as mat
-from fcvm_tpu_torch.ops.stress_update import voigt_to_tensor
 from fcvm_tpu_torch.utils.linalg3 import det3, inv3_spd
 
 
@@ -98,7 +97,7 @@ def geometric_stiffness_blocks(coords, elnodes, sig_gp) -> torch.Tensor:
     the pre-stress field."""
     det, dshpg, _ = el.tet10_element_geometry(coords[elnodes])
     scale = torch.as_tensor(el.W10, dtype=coords.dtype, device=coords.device) * det.abs()
-    m = torch.einsum("egij,egik,egkl,eg->ejl", dshpg, voigt_to_tensor(sig_gp), dshpg, scale)
+    m = torch.einsum("egij,egik,egkl,eg->ejl", dshpg, mat.voigt_to_tensor(sig_gp), dshpg, scale)
     eye3 = torch.eye(3, dtype=coords.dtype, device=coords.device)
     return torch.einsum("ejl,bc->ejblc", m, eye3).reshape(-1, 30, 30)
 

@@ -46,6 +46,13 @@
   ``fcvm_tpu/ops/deflation.py::deflated`` and, on a block, the same body
   under the ``vmap`` of ``fcvm_tpu/runtime/buckling.py::_kinv``; source
   ``csrc/cg_iteration.cu``.
+* K2 :func:`stress_update`, the stress update of every Gauss point and each
+  element's rows of the internal force (the given-stress form: the rows
+  alone), replaces the XLA-lowered per-element update of
+  ``fcvm_tpu/ops/stress_update.py`` (``_element_stress_update_hp``,
+  ``update_stress_load``, ``internal_force_from_stress``) with
+  ``fcvm_tpu/ops/material.py::radial_return``; source
+  ``csrc/stress_update.cu``.  K8 sums its rows into nodes.
 * K0p :func:`soa_matvec` replaces ``tools/bw_probe.py::soa_matvec``;
   source ``csrc/bw_probe.cu``.
 * Kbw :func:`bw_read` replaces ``tools/bw_probe.py::make_bw_kernel``;
@@ -56,7 +63,8 @@ K1 and K4 carry the solver's CG iteration (every ``K_hat @ v`` and raw
 solves of the buckling eigensolve (every K_hat·V, -G_hat·V and block
 preconditioner apply) and the deflation builds' K_hat·W; K8 every sum of
 element rows into nodes outside K1 and K1m (the internal force of every
-residual, the loads, the preconditioner builds).  K0m runs on no path
+residual, the loads, the preconditioner builds); K2 every residual's stress
+update and internal force.  K0m runs on no path
 since K1m; it, K0, K0p and Kbw serve phase 3 of ``chip_smoke.py`` and the
 bandwidth probe (:mod:`fcvm_tpu_torch.tools.bw_probe`).  What bounds each
 on the card and how its design answers that is written at the top of its
@@ -66,8 +74,9 @@ Dispatch is by the tensors' device: on CPU tensors a wrapper runs the plain
 version (``*_ref``), on CUDA tensors it launches the kernel or raises.  There
 is no fallback from a failed build or launch.  Each wrapper counts its
 kernel launches in its ``launches`` attribute (K8 its calls, each launching
-one or two kernels); K0, K1, K4, K6 and K8 also count them by dtype in their
-``dtypes`` (K6 by pass in ``cg_iteration.passes``), K0m, K1m and K4m by
+one or two kernels); K0, K1, K2, K4, K6 and K8 also count them by dtype in
+their ``dtypes`` (K6 by pass in ``cg_iteration.passes``, K2 by form in
+``stress_update.forms``), K0m, K1m and K4m by
 dtype and column count in their ``shapes`` (K4c alone too:
 ``coarse_product.shapes``),
 and K8 its kernels by form and path in ``segment_sum.paths``.
@@ -89,12 +98,16 @@ from typing import NamedTuple
 
 import torch
 
+from fcvm_tpu_torch.ops import elements as el
+from fcvm_tpu_torch.ops import material as mat
+from fcvm_tpu_torch.utils.linalg3 import det3
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("ops.cpp", "block_matvec.cu", "block_matmat.cu", "khat_matvec.cu",
            "khat_matmat.cu", "two_level.cu", "segment_sum.cu", "cg_iteration.cu",
-           "bw_probe.cu")
+           "stress_update.cu", "bw_probe.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3")
 
 
@@ -1426,6 +1439,126 @@ def cg_iteration(step: int, plan: CGPlan, x, r, p, v, start: bool = False) -> No
 cg_iteration.launches = 0
 cg_iteration.dtypes = Counter()  # launches by dtype name
 cg_iteration.passes = Counter()  # launches by pass name (CG_PASSES)
+
+
+# -- K2: the stress update and internal force ------------------------------------
+
+
+def stress_update_ref(coords, elnodes, disp, sig, large_disp=False, *, du=None, dmat=None,
+                      sig_yield=None, g=None, h=None, weights=None):
+    """Plain version of K2, the torch chain it replaced: B (ne, 4, 6, 30) at
+    every Gauss point, ``deps = B du``, under ``large_disp`` the convected
+    ``F sig F^T / det F``, the trial stress and the radial return, and
+    ``elv = sum_g B^T sig w |J|`` (times ``weights``).  Arguments and
+    results as :func:`stress_update`."""
+    coords_el = coords[elnodes]
+    if large_disp:
+        coords_el = coords_el + disp.reshape(-1, 3)[elnodes]
+    det, dshpg, bmat = el.tet10_element_geometry(coords_el)
+    w = torch.as_tensor(el.W10, dtype=coords_el.dtype, device=coords_el.device)
+    scale = w * det.abs()
+    if du is not None:
+        du_el = du.reshape(-1, 3)[elnodes]  # (ne, 10, 3)
+        deps = torch.einsum("egkn,en->egk", bmat, du_el.reshape(-1, 30))  # (ne, 4, 6)
+        sig_c = sig
+        if large_disp:
+            # incremental deformation gradient on the start-of-step deformed
+            # configuration (fcVM.py:2396-2414): F[a, b] = d_ab + sum_i du_ia dN_i/dx_b
+            f = torch.eye(3, dtype=du.dtype, device=du.device) + torch.einsum(
+                "eia,egbi->egab", du_el, dshpg)
+            s_conv = torch.einsum("egij,egjl,egkl->egik", f, mat.voigt_to_tensor(sig), f)
+            sig_c = mat.tensor_to_voigt(s_conv / det3(f)[..., None, None])
+        sig_test = sig_c + mat.apply_dmat(dmat, deps)
+        sig, pgp = mat.radial_return(sig_test, sig_yield, h, g)
+    elv = torch.einsum("egkn,egk,eg->en", bmat, sig, scale)
+    if weights is not None:
+        elv = elv * weights[:, None]
+    return elv if du is None else (sig, sig_test, pgp, elv)
+
+
+def _per_element(x, ne: int, like: torch.Tensor) -> torch.Tensor:
+    """A material constant (a number, or a (ne,) or (ne, 1) tensor of
+    ``like``'s dtype) as a contiguous (ne,) tensor."""
+    if torch.is_tensor(x) and x.dtype != like.dtype:
+        raise TypeError(f"stress_update: a material tensor of {x.dtype}; expected {like.dtype}")
+    t = torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    if t.numel() not in (1, ne):
+        raise ValueError(f"stress_update: a material tensor of shape {tuple(t.shape)}; "
+                         f"expected one value or {ne}")
+    return t.reshape(-1).expand(ne).contiguous()
+
+
+def stress_update(coords, elnodes, disp, sig, large_disp=False, *, du=None, dmat=None,
+                  sig_yield=None, g=None, h=None, weights=None):
+    """K2: the stress update of every Gauss point and each element's rows of
+    the internal force, on the element's 10 nodes (design and bound at the
+    top of ``csrc/stress_update.cu``); the node sum is the caller's (K8).
+
+    Args:
+      coords: (nn, 3) nodal coordinates, float32 or float64.
+      elnodes: (ne, 10) int64 connectivity.
+      disp: (3 n,) step-start displacement, read only with ``large_disp``
+        (the deformed configuration; without it neither its dtype nor its
+        device is checked); n at least nn.
+      sig: (ne, 4, 6) the step-start stress ``sig_old``, or, without
+        ``du``, the given stress whose internal force is wanted.
+      du: (3 n,) the step's displacement increment; None for the
+        given-stress form.
+      dmat: (6, 6) or per-element (ne, 6, 6) elasticity; sig_yield (ne, 4);
+        g, h: the shear and hardening moduli, numbers or per-element
+        tensors (ne,) or (ne, 1) (read with ``du`` only).
+      weights: optional (ne,) scale of each element's rows.
+
+    Returns:
+      With ``du``: (sig_new, sig_test, pgp, elv): (ne, 4, 6) twice, (ne, 4)
+      bool, (ne, 30); without: elv.  CPU tensors take the plain version;
+      CUDA tensors launch the kernel or raise (``stress_update.launches``
+      counts the launches, ``.dtypes`` and ``.forms`` them by dtype and by
+      form).
+    """
+    given = du is None
+    if not large_disp:
+        disp = None  # unread: a float64 disp of the refinement tier may come with it
+    tensors = [t for t in (coords, elnodes, sig, disp, du, dmat, sig_yield, g, h, weights)
+               if torch.is_tensor(t)]
+    if all(t.device.type == "cpu" for t in tensors):
+        return stress_update_ref(coords, elnodes, disp, sig, large_disp, du=du, dmat=dmat,
+                                 sig_yield=sig_yield, g=g, h=h, weights=weights)
+    if coords.device.type != "cuda" or any(t.device != coords.device for t in tensors):
+        raise ValueError("stress_update: tensors on several devices; expected all on the CPU "
+                         "or all on one CUDA device")
+    floats = [t for t in (coords, sig, disp, du, dmat, sig_yield, g, h, weights)
+              if torch.is_tensor(t)]
+    if (coords.dtype not in (torch.float32, torch.float64)
+            or any(t.dtype != coords.dtype for t in floats) or elnodes.dtype != torch.int64):
+        raise TypeError(f"stress_update: dtypes {[str(t.dtype) for t in floats]}, elnodes "
+                        f"{elnodes.dtype}; expected one of float32 or float64, elnodes int64")
+    if large_disp and disp is None:
+        raise ValueError("stress_update: large_disp reads disp")
+    if not given and any(v is None for v in (dmat, sig_yield, g, h)):
+        raise ValueError("stress_update: the update reads dmat, sig_yield, g and h")
+    ne = elnodes.shape[0] if elnodes.dim() == 2 else -1
+    gv = h3g = None
+    g_s = h3g_s = 0.0
+    if not given:
+        # H + 3 G as radial_return forms it, per element where either is a tensor
+        if torch.is_tensor(g) or torch.is_tensor(h):
+            gv = _per_element(g, ne, coords)
+            h3g = _per_element(h + 3.0 * g, ne, coords)
+        else:
+            g_s, h3g_s = float(g), float(h + 3.0 * g)
+    build()
+    out = torch.ops.fcvm.stress_update(coords, elnodes, disp, du, sig, sig_yield, dmat, gv, h3g,
+                                       g_s, h3g_s, weights, bool(large_disp))
+    stress_update.launches += 1
+    stress_update.dtypes[_dtype_name(coords)] += 1
+    stress_update.forms[("given" if given else "update") + (" gnl" if large_disp else "")] += 1
+    return out[0] if given else tuple(out)
+
+
+stress_update.launches = 0
+stress_update.dtypes = Counter()  # launches by dtype name
+stress_update.forms = Counter()  # launches by form ("update", "given", each " gnl")
 
 
 def soa_matvec_ref(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:

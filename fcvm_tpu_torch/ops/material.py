@@ -55,6 +55,23 @@ def apply_dmat(dmat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ekl,egl...->egk...", dmat, x)
 
 
+def voigt_to_tensor(sig: torch.Tensor) -> torch.Tensor:
+    """(..., 6) Voigt [xx,yy,zz,xy,zx,yz] -> (..., 3, 3) symmetric tensor."""
+    sxx, syy, szz = sig[..., 0], sig[..., 1], sig[..., 2]
+    sxy, szx, syz = sig[..., 3], sig[..., 4], sig[..., 5]
+    return torch.stack([
+        torch.stack([sxx, sxy, szx], dim=-1),
+        torch.stack([sxy, syy, syz], dim=-1),
+        torch.stack([szx, syz, szz], dim=-1),
+    ], dim=-2)
+
+
+def tensor_to_voigt(s: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) symmetric tensor -> (..., 6) Voigt [xx,yy,zz,xy,zx,yz]."""
+    return torch.stack([s[..., 0, 0], s[..., 1, 1], s[..., 2, 2],
+                        s[..., 0, 1], s[..., 0, 2], s[..., 1, 2]], dim=-1)
+
+
 def shear_modulus(e, nu):
     return e / (1.0 + nu) / 2.0
 

@@ -165,3 +165,67 @@ def test_runs_on_cuda_by_default():
     assert proc.returncode != 0
     assert "torch.cuda.is_available() is false" in proc.stderr
     assert '"metric"' not in proc.stdout
+
+
+@pytest.fixture(scope="module")
+def sharded_row():
+    """The sharded row's record at the tiny size, on the CPU."""
+    return tb.sharded_record(2, "cpu")
+
+
+def test_sharded_row_records_each_backends_decisions(sharded_row):
+    """Each backend's per-step Newton counts, restarts, refinement
+    activations and last Newton errors, and the first-step margins, are in
+    the row; at this size the two runs decide alike, each first step well
+    below error_max, and the row has no fault."""
+    row = sharded_row
+    steps = row["steps_local"]
+    assert steps == row["steps_sharded"] == 3
+    for side in ("local", "sharded"):
+        dec = row[f"decisions_{side}"]
+        assert len(dec["newton"]) == len(dec["restarts"]) == steps and min(dec["newton"]) >= 1
+        assert dec["refinement_activations"] == 0 and dec["failovers"] == 0
+        assert len(row[f"last_errors_{side}"]) == steps
+        assert all(e <= row["params"]["error_max"] for e in row[f"last_errors_{side}"])
+        assert row[f"first_step_margin_{side}"] >= tb.FIRST_STEP_MARGIN
+    assert row["decisions_equal"] and row["lbd_within_tol"]
+    assert tb.sharded_faults(row) == []
+
+
+def test_sharded_row_fails_when_the_decisions_differ(sharded_row, monkeypatch):
+    """A restart, a refinement, a clamp or a step more on one side, a first step
+    closer to error_max than the margin, or lbd apart: each is a fault, and
+    the row raises on one."""
+    def differ(row, side, key, value):
+        out = json.loads(json.dumps(row))
+        out[f"decisions_{side}"][key] = value
+        out["decisions_equal"] = out["decisions_local"] == out["decisions_sharded"]
+        return out
+
+    row = sharded_row
+    for bad in (differ(row, "sharded", "restarts", [1, 0, 0]),
+                differ(row, "local", "refinement_activations", 1),
+                differ(row, "local", "floor_clamp_steps", [0]),
+                differ(row, "sharded", "newton", row["decisions_local"]["newton"] + [1])):
+        assert any("decided differently" in f for f in tb.sharded_faults(bad))
+    close = {**row, "first_step_margin_sharded": 1.5}
+    assert any("judges rounding" in f for f in tb.sharded_faults(close))
+    apart = {**row, "max_lbd_diff": 2 * tb.LBD_TOL, "lbd_within_tol": False}
+    assert any("beyond" in f for f in tb.sharded_faults(apart))
+    monkeypatch.setattr(tb, "sharded_record", lambda nx, device: differ(
+        row, "sharded", "restarts", [0, 1, 0]))
+    with pytest.raises(RuntimeError, match="decided differently"):
+        tb.sharded_vs_local_row(2, "cpu")
+
+
+def test_newton_record_reads_the_drivers_log():
+    lines = ["Step: 0", "Iteration: 0, Error: 6.21e-02", "Iteration: 1, Error: 2.00e-05",
+             "RESTART # 1", "Iteration: 0, Error: 3.00e-02", "Iteration: 1, Error: 4.00e-06",
+             "Step: 1", "Iteration: 0, Error: 5.00e-06"]
+    rec = tb.newton_record(lines)
+    assert rec["failovers"] == 0 and [s["step"] for s in rec["steps"]] == [0, 1]
+    assert rec["steps"][0]["errors"] == [6.21e-2, 2e-5, 3e-2, 4e-6]
+    assert rec["steps"][0]["last_error"] == 4e-6 and rec["steps"][1]["last_error"] == 5e-6
+    again = tb.newton_record(lines + ["PRECISION FAILOVER: ...", "Step: 0",
+                                      "Iteration: 0, Error: 1.00e-06"])
+    assert again["failovers"] == 1 and len(again["steps"]) == 1

@@ -1320,3 +1320,242 @@ def test_device_cg_cuda_matches_cpu(cuda, harvest):
     assert stats == ref_stats
     assert stats["reads"] <= -(-res.iters // tslv.CG_BATCH) + 2
     assert kernels.cg_iteration.launches - launches == 2 * (stats["queued"] + stats["solves"])
+
+
+# -- K2, the stress update and internal force ---------------------------------------
+
+
+def _k2_inputs(dtype, large, per_element, seed=18):
+    """K2's inputs on the card: a 6 x 6 x 6 box (1,296 elements) with its
+    nodes moved by up to 5% of an element, a step-start displacement and
+    increment, seeded old stresses, one D or a D and moduli per element, and
+    yield stresses that make about half the Gauss points plastic, each at
+    least 10% from the surface in the plain version's float64 update."""
+    mesh = meshgen.box_tet10(6, 6, 6, 10.0, 10.0, 10.0)
+    rng = np.random.default_rng(seed)
+    nn, ne = mesh.coords.shape[0], mesh.elnodes.shape[0]
+    f64 = torch.float64
+    cuda = torch.device("cuda")
+
+    def dev(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), device=cuda).to(dt)
+
+    coords = mesh.coords + 0.05 * (10.0 / 6) * rng.uniform(-1, 1, size=mesh.coords.shape)
+    disp = rng.normal(scale=0.01, size=3 * nn + 3)
+    du = rng.normal(scale=1e-3, size=3 * nn + 3)
+    sig = rng.normal(scale=60.0, size=(ne, 4, 6))
+    e = 210000.0 * rng.uniform(0.5, 2.0, size=ne) if per_element else 210000.0
+    nu = 0.3 + 0.05 * rng.uniform(-1, 1, size=ne) if per_element else 0.3
+    e_t, nu_t = (dev(e), dev(nu)) if per_element else (e, nu)
+    g = tmat.shear_modulus(tmat.per_gauss(e_t), tmat.per_gauss(nu_t))
+    h = tmat.hardening_modulus(tmat.per_gauss(e_t), 0.1)
+    dmat = tmat.hooke_dmat(e_t, nu_t, dtype, cuda)
+    eln = torch.as_tensor(mesh.elnodes.astype(np.int64), device=cuda)
+    kw = dict(du=dev(du), dmat=dmat, g=g, h=h)
+    trial = kernels.stress_update_ref(dev(coords, f64), eln, dev(disp, f64), dev(sig, f64), large,
+                                      du=dev(du, f64), dmat=dmat.to(f64), sig_yield=dev(
+                                          np.full((ne, 4), 1e30), f64),
+                                      g=g.to(f64) if torch.is_tensor(g) else g,
+                                      h=h.to(f64) if torch.is_tensor(h) else h)[1]
+    svm = tmat.von_mises(trial)[2].cpu().numpy()
+    plastic = rng.uniform(size=(ne, 4)) < 0.5
+    sy = np.where(plastic, rng.uniform(0.5, 0.9, size=(ne, 4)),
+                  rng.uniform(1.1, 1.5, size=(ne, 4))) * svm
+    kw["sig_yield"] = dev(sy)
+    weights = dev((rng.uniform(size=ne) > 0.3) * rng.uniform(0.5, 2.0, size=ne))
+    return (dev(coords), eln, dev(disp), dev(sig)), kw, weights
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("large", [False, True], ids=["small_strain", "gnl"])
+@pytest.mark.parametrize("per_element", [False, True], ids=["one_d", "per_element_d"])
+@pytest.mark.parametrize("form", ["update", "given"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+def test_stress_update_kernel_matches_plain(cuda, dtype, large, per_element, form, weighted):
+    """K2 against its plain version on the same tensors, each output to TOL
+    of its largest entry, the plastic flags equal (no point lies within 10%
+    of the surface), one launch counted; in float32 the kernel no farther
+    from the float64 plain version than twice the float32 plain version."""
+    args, kw, weights = _k2_inputs(dtype, large, per_element)
+    if form == "given":
+        kw = {}
+    if weighted:
+        kw["weights"] = weights
+    launches = kernels.stress_update.launches
+    got = kernels.stress_update(*args, large, **kw)
+    torch.cuda.synchronize()
+    assert kernels.stress_update.launches == launches + 1
+    want = kernels.stress_update_ref(*args, large, **kw)
+    got, want = ((got,), (want,)) if form == "given" else (got, want)
+    if form == "update":
+        assert torch.equal(got[2], want[2]) and 0.3 < float(got[2].float().mean()) < 0.7
+    floats = [(a, b) for a, b in zip(got, want) if a.dtype != torch.bool]
+    for a, b in floats:
+        assert _rel(a, b) <= TOL[dtype]
+    if dtype == torch.float32:
+        f64 = [a.double() if a.is_floating_point() else a for a in args]
+        kw64 = {k: v.double() if torch.is_tensor(v) else v for k, v in kw.items()}
+        exact = kernels.stress_update_ref(*f64, large, **kw64)
+        exact = (exact,) if form == "given" else exact
+        for (a, b), c in zip(floats, [x for x in exact if x.dtype != torch.bool]):
+            assert _rel(a.double(), c) <= 2 * max(_rel(b.double(), c), 1e-7)
+
+
+def test_stress_update_repeats_its_bits(cuda):
+    """Two launches on one input give the same bits (float32, GNL, per
+    element, weighted; and the given-stress form)."""
+    args, kw, weights = _k2_inputs(torch.float32, True, True)
+    a = kernels.stress_update(*args, True, weights=weights, **kw)
+    b = kernels.stress_update(*args, True, weights=weights, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(kernels.stress_update(*args, True), kernels.stress_update(*args, True))
+
+
+def test_stress_update_rejects_what_it_does_not_take(cuda):
+    (coords, eln, disp, sig), kw, _ = _k2_inputs(torch.float32, False, False)
+    bad = (TypeError, ValueError, RuntimeError)
+    with pytest.raises(TypeError):
+        kernels.stress_update(coords, eln, disp, sig.double(), **kw)
+    with pytest.raises(TypeError):
+        kernels.stress_update(coords, eln.int(), disp, sig, **kw)
+    with pytest.raises(ValueError):
+        kernels.stress_update(coords, eln, disp, sig.cpu(), **kw)
+    with pytest.raises(bad):
+        kernels.stress_update(coords, eln, disp, sig[:, :3].contiguous(), **kw)
+    with pytest.raises(bad):
+        kernels.stress_update(coords, eln, disp, sig.transpose(1, 2).contiguous()
+                              .transpose(1, 2), **kw)
+    with pytest.raises(bad):
+        kernels.stress_update(coords, eln, disp, sig, **{**kw, "dmat": kw["dmat"][:5]})
+    with pytest.raises(ValueError):
+        kernels.stress_update(coords, eln, None, sig, True)
+
+
+@pytest.mark.parametrize("large", [False, True], ids=["small_strain", "gnl"])
+def test_stress_update_forms_take_a_float64_disp(cuda, large, monkeypatch):
+    """A float32 run's disp is float64 once the refinement tier has committed
+    a step.  The reaction (``internal_force_from_stress``) takes it in both
+    modes, casting it where K2 reads it (GNL), and the small-strain update
+    takes it unread; each through K2 against the plain version on the same
+    tensors, and the small-strain results the bits of a float32 disp."""
+    from fcvm_tpu_torch.ops.stress_update import internal_force_from_stress, update_stress_load
+    (coords, eln, disp, sig), kw, _ = _k2_inputs(torch.float32, large, False)
+    disp64 = disp.double() + 1e-9
+
+    def forms(d):
+        out = [internal_force_from_stress(coords, eln, sig, d, large)]
+        if not large:
+            out += update_stress_load(coords, eln, kw["dmat"], kw["sig_yield"], d, kw["du"], sig,
+                                      210000.0, 0.3, 0.1, False)
+        return out
+
+    launches = kernels.stress_update.launches
+    got = forms(disp64)
+    assert kernels.stress_update.launches == launches + (1 if large else 2)
+    if not large:
+        assert all(torch.equal(a, b) for a, b in zip(got, forms(disp)))
+    monkeypatch.setattr(kernels, "stress_update", kernels.stress_update_ref)
+    for a, b in zip(got, forms(disp64)):
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b)
+        else:
+            assert a.dtype == torch.float32 and _rel(a, b) <= TOL[torch.float32]
+
+
+def test_driver_launches_stress_update_once_a_residual(cuda, monkeypatch):
+    """A GNL plastic run of the 3x3x3 box on the card launches K2 once for
+    each stress update and internal force the driver asks of its backend,
+    every residual among them, and for nothing else."""
+    calls = {"n": 0}
+    for name in ("residual", "residual_refined", "stress_update", "internal_force"):
+        method = getattr(TorchSystem, name)
+
+        def counted(self, *a, _m=method, **k):
+            calls["n"] += 1
+            return _m(self, *a, **k)
+
+        monkeypatch.setattr(TorchSystem, name, counted)
+    params = ControlParams(sig_yield=60.0, nstep=3, error_max=1e-8, et_e=0.1, target_lf=99.0,
+                           gnl="GNLY", max_imp=0.0)
+    launches = kernels.stress_update.launches
+    res = solve_collapse(_tension_box(3), params, config=FcvmConfig(device="cuda",
+                                                                     dtype="float64"))
+    assert len(res.history.lbd) == 4 and max(res.history.peeqmax) > 0
+    assert kernels.stress_update.launches - launches == calls["n"] > 3
+
+
+# -- the bench's sharded row and the float32 Newton floor under it -----------------
+
+
+class _Restarted(Exception):
+    pass
+
+
+def test_sharded_rows_float32_newton_floor(cuda):
+    """The first attempt of the sharded row's first step (its physics in
+    float32, ``error_max`` 1e-12, no precision tiers, stopped at its first
+    restart after 7 iterations) on the box at ``SHARDED_NX``, 16 and
+    ``NX_BOX``: where its Newton error stalls.  The floor grows with the box,
+    and at ``SHARDED_NX`` it lies ``FIRST_STEP_MARGIN`` times below the row's
+    ``error_max``.  Each size's errors are printed as one JSON line."""
+    import json
+
+    from fcvm_tpu_torch.tools import bench as tb
+
+    floors = []
+    for nx in (tb.SHARDED_NX, 16, tb.NX_BOX):
+        _, model = tb.build(nx)
+        errors = []
+
+        def progress(line, errors=errors):
+            if line.startswith("Iteration: "):
+                errors.append(float(line.rsplit(" ", 1)[1]))
+            elif line.startswith("RESTART"):
+                raise _Restarted
+
+        with pytest.raises(_Restarted):
+            solve_collapse(model, ControlParams(**{**tb.SHARDED_PARAMS, "error_max": 1e-12,
+                                                   "iterat_max": 7}),
+                           progress=progress, config=FcvmConfig(
+                               device="cuda", dtype="float32", residual_refinement=False,
+                               precision_failover=False))
+        print(json.dumps({"nx": nx, "ndof": 3 * len(model.mesh.coords), "errors": errors}))
+        floors.append(min(errors))
+    assert floors == sorted(floors)
+    assert floors[0] * tb.FIRST_STEP_MARGIN <= tb.SHARDED_PARAMS["error_max"]
+
+
+def test_sharded_row_passes_with_the_plain_stress_update_on_the_local_path(cuda, monkeypatch):
+    """The bench's sharded row with the local run's stress update from K2's
+    plain version (the sum order of the chain the path ran before K2) and
+    the sharded run's from K2: a row that judges parity, not rounding,
+    passes under both orders.  Its record is printed as one JSON line."""
+    import json
+
+    from fcvm_tpu_torch.tools import bench as tb
+
+    run = tb.solve_collapse
+    local_launches = []
+
+    def plain_local(model, params, **kw):
+        if kw["config"].force_sharded:
+            return run(model, params, **kw)
+        launches = kernels.stress_update.launches
+        with monkeypatch.context() as m:
+            m.setattr(kernels, "stress_update", kernels.stress_update_ref)
+            out = run(model, params, **kw)
+        local_launches.append(kernels.stress_update.launches - launches)
+        return out
+
+    monkeypatch.setattr(tb, "solve_collapse", plain_local)
+    launches = kernels.stress_update.launches
+    row = tb.sharded_record(tb.SHARDED_NX, "cuda")
+    faults = tb.sharded_faults(row)
+    print(json.dumps({"faults": faults, "stress_update_launches":
+                      kernels.stress_update.launches - launches, **row}))
+    assert local_launches == [0] and kernels.stress_update.launches > launches
+    assert faults == []

@@ -29,6 +29,7 @@ from fcvm_tpu.runtime.backend import LocalSystem
 from fcvm_tpu_torch.models.spec import model_from_arrays, to_torch
 from fcvm_tpu_torch.ops import assembly as tasm
 from fcvm_tpu_torch.ops import kernels
+from fcvm_tpu_torch.ops import material as tmat
 from fcvm_tpu_torch.ops import precond as tpre
 from fcvm_tpu_torch.ops import stress_update as tsu
 from fcvm_tpu_torch.runtime import system as tsys
@@ -129,7 +130,7 @@ def test_gnl_stress_convection_rigid_rotation():
         t64(mat.hooke_dmat(jnp.float64(E), jnp.float64(NU))),
         torch.full((ne, 4), 1e30, dtype=F64), torch.zeros(mesh.ndof, dtype=F64), t64(du),
         t64(sig0), E, NU, 0.0, large_disp=True)
-    t = tsu.voigt_to_tensor(t64(sig0[0, 0])).numpy()
+    t = tmat.voigt_to_tensor(t64(sig0[0, 0])).numpy()
     rt = r @ t @ r.T
     expect = np.array([rt[0, 0], rt[1, 1], rt[2, 2], rt[0, 1], rt[0, 2], rt[1, 2]])
     got = sig_new.numpy().reshape(-1, 6)

@@ -391,14 +391,15 @@ def test_internal_force_is_the_parents_index_add(box):
     rng = np.random.default_rng(50)
     coords = t64(mesh.coords + 0.01 * rng.normal(size=mesh.coords.shape))
     sig = t64(rng.normal(size=(mesh.n_elements, 4, 6)))
-    _, bmat, scale = tsu._geometry(coords[eln])
+    det, _, bmat = tel.tet10_element_geometry(coords[eln])
+    scale = t64(tel.W10) * det.abs()
     weights = t64(rng.uniform(size=mesh.n_elements))
     for wt in (None, weights):
         elv = torch.einsum("egkn,egk,eg->en", bmat, sig, scale)
         if wt is not None:
             elv = elv * wt[:, None]
         want = torch.zeros(nd, dtype=F64).index_add_(0, _dofs(eln).reshape(-1), elv.reshape(-1))
-        assert torch.equal(tsu._internal_force(bmat, scale, sig, eln, nd, wt), want)
+        assert torch.equal(tsu._node_sum(elv, eln, nd), want)
         got = tsu.internal_force_from_stress(coords, eln, sig, torch.zeros(nd, dtype=F64),
                                              weights=wt, plan=kernels.segment_plan(eln))
         assert torch.equal(got, want)
