@@ -81,19 +81,24 @@ Phases, each printing its numbers before the next starts:
    then one elastic solve of the plate at each ``CG_BATCH`` of
    ``K6_BATCHES``, in turns: the same bits and count at every batch, at
    most ceil(iters / batch) + 2 host reads, the wall time per iteration;
-3f. K2 (``stress_update``), the stress update and internal force of every
-   residual: on the plate's and the beam-column's meshes (``K2_CASES``: the
-   update and the given-stress form, each in small strain and GNL; on the
-   plate the GNL update with phase 10's region, a D, G and H per element,
-   and element weights with zeros), float32 and float64, seeded with about
-   half the Gauss points plastic, against its plain version (every output
-   to ``K2_TOL``, in float32 no farther from the float64 plain version than
-   twice the float32 plain version, the plastic flags equal but within
-   ``K2_FLIP`` of the yield surface, the flips counted) and bit for bit
-   against a second launch; timed (CUDA events, device time) against its
-   plain version (the chain it replaced) and its bound; then the plate's
-   whole ``backend.residual`` through K2 and through the plain version, in
-   turns;
+3f. K2, the stress update and internal force of every residual, in two
+   passes.  Its element pass (``stress_update``): on the plate's and the
+   beam-column's meshes (``K2_CASES``: the update and the given-stress form,
+   each in small strain and GNL; on the plate the GNL update with phase 10's
+   region, a D, G and H per element, and element weights with zeros),
+   float32 and float64, seeded with about half the Gauss points plastic,
+   against its plain version (every output to ``K2_TOL``, in float32 no
+   farther from the float64 plain version than twice the float32 plain
+   version, the plastic flags equal but within ``K2_FLIP`` of the yield
+   surface, the flips counted) and bit for bit against a second launch;
+   timed (CUDA events, device time) against its plain version (the chain
+   it replaced) and its bound.  Its node pass (``node_force``) on both meshes' node plans, the
+   internal force and the residual form: bit for bit K8's write form and
+   the torch tail, error within 4 ulps, to ``K2_TOL`` of its plain version,
+   timed against it, its bound and ``index_add_``.  Then the plate's whole
+   ``backend.residual``: one launch of each pass and none of K8, the bits of
+   the unfused composition (element pass, K8, torch tail), timed against it
+   in turns, and a profile that shows K2's two kernels and nothing else;
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
    the load-factor histories must agree; and ``linear_buckling`` of a small
@@ -101,8 +106,8 @@ Phases, each printing its numbers before the next starts:
 5. the slice at full size: the quarter plate with a hole at 502,599 dof,
    float32, two-level PCG without deflation or the precision tiers, plastic
    Riks steps through ``fcvm_tpu_torch.solve_collapse``; the launch counts
-   of K1, K4, K8, K6 and K2, the kernels on that path, must be > 0 (K2's
-   is the residual count, printed by form), and K6's
+   of K1, K4, K8, K6 and K2's two passes, the kernels on that path, must be
+   > 0 (K2's are the residual count, printed by form), and K6's
    exactly two passes for each queued CG iteration and each solve's start
    (as in every plate phase, 9, 9c and 14); the CG loop's host reads per
    solve and idle queued iterations (as in 7, 9, 9b);
@@ -373,13 +378,15 @@ def device_ms_by_kernel(fn, *args, calls=10, tries=3):
 # (the eigensolve, the deflation builds), K4m in the eigensolve's block
 # preconditioner applies; K0m and K0 in none since K1m and K1 carry K_hat·V
 # and K_hat·v
-# and K6 the rest of every CG iteration (and K2 every residual and internal
-# force): the sharded backend's too, whose
+# and K6 the rest of every CG iteration (and K2's two passes, stress_update
+# and node_force, every residual and internal force): the sharded backend's
+# too, whose
 # element-partitioned solves run the local loop around an all_reduced
 # operator; only its node-partitioned PCG (config.node_partition, off by
 # default and in no phase) passes its own inner product and keeps the host
 # loop (ROADMAP.md queues K6's partials through all_reduce there)
-CG_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "cg_iteration", "stress_update")
+CG_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "cg_iteration", "stress_update",
+              "node_force")
 BLOCK_KERNELS = ("khat_matmat", "two_level_apply_block")
 PATH_KERNELS = (*CG_KERNELS, *BLOCK_KERNELS, "block_matmat", "block_matvec")
 BY_SHAPE = ("block_matmat", *BLOCK_KERNELS)  # counted by dtype and column count
@@ -396,6 +403,7 @@ def reset_launches():
     getattr(kernels.segment_sum, "paths", Counter()).clear()
     getattr(kernels.cg_iteration, "passes", Counter()).clear()
     getattr(kernels.stress_update, "forms", Counter()).clear()
+    getattr(kernels.node_force, "forms", Counter()).clear()
 
 
 def cg_stats_reset():
@@ -453,6 +461,7 @@ def read_launches():
     by["segment_sum paths"] = dict(getattr(kernels.segment_sum, "paths", {}))
     by["cg_iteration passes"] = dict(getattr(kernels.cg_iteration, "passes", {}))
     by["stress_update forms"] = dict(getattr(kernels.stress_update, "forms", {}))
+    by["node_force forms"] = dict(getattr(kernels.node_force, "forms", {}))
     return counts, by
 
 
@@ -509,8 +518,7 @@ def layer_breakdown(model, cfg):
     qnorm = max(float(torch.linalg.vector_norm(glv)), 1.0)
     sig_yield, sig0 = backend.gauss_full(PLATE_SY), backend.gauss_zeros((6,))
     zero = torch.zeros_like(res.x)
-    rows.append(("residual (K2's stress update and internal force, K8's node sum), per Newton "
-                 "iteration",
+    rows.append(("residual (K2's element pass and node pass), per Newton iteration",
                  cuda_ms(lambda: backend.residual(coords, sig_yield, zero, res.x, sig0,
                                                   glv, 1.0, qnorm, 0.0))))
     rows_k8 = torch.ones((backend.ne * 10, 3), dtype=u.dtype, device=u.device)
@@ -1680,16 +1688,20 @@ def k2_inputs(model, dtype, gnl, region, seed=18):
 
 
 def k2_work(args, kw, given):
-    """(bytes, operations) of one K2 launch on these inputs: each input read
-    once (the node arrays at the mesh's nodes), each output written once;
-    the kernel's own arithmetic, an FMA as two operations, per Gauss point
+    """(bytes, operations) of one launch of K2's element pass on these
+    inputs: each input read once (the node arrays at the mesh's nodes, the
+    int32 node table ``kw["table"]``, or without it the int64
+    connectivity), each output written once; the kernel's own
+    arithmetic, an FMA as two operations, per Gauss point
     (csrc/stress_update.cu: J 180, J^-1 50, dN/dx 180 a pass over the nodes,
     elv 210 and its two shuffle adds 60; the update's B du 180, D deps 78,
     the return 40; GNL's grad du 180 and F sig F^T / det F 115)."""
     coords, eln, disp, sig, gnl = args
     size = coords.element_size()
     ne, nn = eln.shape[0], coords.shape[0]
-    nbytes = eln.numel() * 8 + coords.numel() * size + sig.numel() * size + ne * 30 * size
+    table = kw.get("table")
+    nbytes = eln.numel() * 8 if table is None else table.numel() * table.element_size()
+    nbytes += coords.numel() * size + sig.numel() * size + ne * 30 * size
     nbytes += 3 * nn * size if gnl else 0
     nbytes += kw["weights"].numel() * size if "weights" in kw else 0
     per_gp = 180 + 50 + 180 + 210 + 60
@@ -1701,21 +1713,32 @@ def k2_work(args, kw, given):
     return nbytes, 4 * ne * per_gp
 
 
-def k2_phase(models, smi):
-    """Phase 3f: K2 (``stress_update``) against its plain version at the
-    plate's and the beam-column's element counts (``K2_CASES``), float32 and
-    float64: every output to ``K2_TOL``; in float32 no farther from the
-    float64 plain version than twice the float32 plain version; the plastic
-    flags equal but where |svm - sy| <= ``K2_FLIP`` sy (the flips counted);
-    a second launch the same bits; timed (CUDA events and device time)
-    against the plain version (the chain it replaced) and its bound; then
-    one ``backend.residual`` of the plate through K2 and through the plain
-    version.  Returns ``{(dtype, model, case): numbers}``."""
-    from fcvm_tpu_torch import FcvmConfig
+def node_work(plan, size, residual):
+    """Bytes of one launch of K2's node pass over ``plan`` (values of
+    ``size`` bytes): elv's rows and the plan (order, offsets, segs, holes)
+    read once, qin written; in the residual form glv and fixmask read and r
+    written too (the block partials, 8 bytes a block of 256, besides)."""
+    rows = plan.rows
+    nbytes = plan.keys.shape[0] * 3 * size + 4 * (plan.order.shape[0] + plan.offsets.shape[0]
+                                                  + plan.segs.shape[0] + plan.holes.shape[0])
+    nbytes += 3 * rows * size * (4 if residual else 1)
+    return nbytes + (8 * -(-rows // 256) if residual else 0)
+
+
+def k2_element_rows(models, smi):
+    """Phase 3f's element pass (``kernels.stress_update``) against its plain
+    version at the plate's and the beam-column's element counts
+    (``K2_CASES``), float32 and float64: every output to ``K2_TOL``; in
+    float32 no farther from the float64 plain version than twice the float32
+    plain version; the plastic flags equal but where |svm - sy| <=
+    ``K2_FLIP`` sy (the flips counted); a second launch the same bits;
+    timed (CUDA events and device time) against the plain version (the
+    chain it replaced) and its bound.  Returns ``{(dtype, model, case):
+    numbers}``."""
     from fcvm_tpu_torch.ops import kernels
-    from fcvm_tpu_torch.runtime.backend import TorchSystem
 
     rows = {}
+    tabled = hasattr(kernels, "element_table")
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).removeprefix("torch.")
         for name, form, gnl, region in K2_CASES:
@@ -1724,6 +1747,8 @@ def k2_phase(models, smi):
             given = form == "given"
             if given:
                 kw = {k: v for k, v in kw.items() if k == "weights"}
+            if tabled:  # the node table a backend makes once
+                kw["table"] = kernels.element_table(args[1])
             out = kernels.stress_update(*args, **kw)
             again = kernels.stress_update(*args, **kw)
             torch.cuda.synchronize()
@@ -1769,7 +1794,7 @@ def k2_phase(models, smi):
                        device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        bytes=nbytes, operations=ops, library_ms=None)
             share = "" if dev is None else f", {bound_ms / dev:.1%} of the device time"
-            print(f"K2 {dname} {name} {case} ne={row['ne']}: max rel err "
+            print(f"K2 element pass {dname} {name} {case} ne={row['ne']}: max rel err "
                   + ", ".join(f"{n} {e['rel']:.2e} (vs f64 {e['vs_f64']:.2e}, plain's "
                               f"{e['plain_vs_f64']:.2e})" for n, e in errs.items())
                   + f" (limit {K2_TOL[dtype]:g}); pgp flips {flips}"
@@ -1793,54 +1818,230 @@ def k2_phase(models, smi):
             rows[(dname, name, case)] = row
             del args, kw, svm, out, again
             torch.cuda.empty_cache()
+    return rows
 
-    # one residual of the plate at the elastic solution's shape, through K2
-    # and through the plain version (the chain the path ran before K2)
-    big = models["plate"]
+
+def ulps(a, b, dtype):
+    """|a - b| in units of ``dtype``'s last place at b."""
+    return abs(float(a) - float(b)) / (torch.finfo(dtype).eps * abs(float(b)))
+
+
+def k2_node_rows(models, smi):
+    """Phase 3f's node pass (``kernels.node_force``; the residual form
+    through ``kernels.stress_residual_bound``) on the plate's and the
+    beam-column's node plans, float32 and float64, on the element pass's
+    rows of the update with seeded loads and a mask with 20% fixed dofs:
+    the internal force bit for bit K8's write form and to ``K2_TOL`` of its
+    plain version (``index_add_``); the residual form's qin and r bit for
+    bit the unfused composition on the card (K8's write form, the torch
+    tail) and its error within 4 ulps; a second launch the same bits; timed
+    (CUDA events, device time) against its plain version and its bound, the
+    internal force also against ``index_add_`` into zeros.  Returns
+    ``{(dtype, model, form): numbers}``."""
+    from fcvm_tpu_torch.ops import kernels
+
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).removeprefix("torch.")
+        for name in ("plate", "column"):
+            args, kw, _ = k2_inputs(models[name], dtype, False, False)
+            coords, eln, disp, sig, _ = args
+            kw["table"] = kernels.element_table(eln)
+            elv = kernels.stress_update(*args, **kw)[3]
+            nd = disp.shape[0]
+            plan = kernels.segment_plan(eln, rows=nd // 3)
+            gen = np.random.default_rng(19)
+            glv = torch.as_tensor(gen.normal(scale=1e3, size=nd), device="cuda").to(dtype)
+            fixmask = torch.as_tensor(gen.uniform(size=nd) > 0.2, device="cuda").to(dtype)
+            lbd1, qnorm, relax = 1.3, 7.0, 0.7
+            k2 = kernels.stress_residual_bound(eln, plan, fixmask, kw["dmat"], kw["g"],
+                                               kw["h"], table=kw["table"])
+            rest = (coords, disp, kw["du"], sig, kw["sig_yield"], glv, lbd1, qnorm, False,
+                    relax)
+            # the residual form of the node pass alone, on the element pass's elv
+            node = torch.ops.fcvm.node_force
+            tables = (plan.order, plan.offsets, plan.segs, plan.holes, plan.rows)
+            ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+            def residual_form():
+                return node(elv, *tables, glv, fixmask, ticket, lbd1, relax, qnorm)
+
+            def unfused_tail():
+                qin = kernels.segment_sum(elv.reshape(-1, 3).contiguous(), plan, rows=nd // 3)
+                raw = fixmask * (torch.as_tensor(lbd1, dtype=torch.float64, device="cuda")
+                                 .to(dtype) * glv - qin.reshape(-1))
+                return qin.reshape(-1), relax * raw, torch.linalg.vector_norm(raw) / qnorm
+
+            def plain_tail():
+                qin = kernels.node_force_ref(elv, plan, nd // 3)
+                raw = fixmask * (lbd1 * glv - qin)
+                return qin, relax * raw, torch.linalg.vector_norm(raw) / qnorm
+
+            for form in ("force", "residual"):
+                if form == "force":
+                    got = (kernels.node_force(elv, plan, rows=nd // 3),)
+                    again = (kernels.node_force(elv, plan, rows=nd // 3),)
+                    want = (kernels.segment_sum(elv.reshape(-1, 3).contiguous(), plan,
+                                                rows=nd // 3).reshape(-1),)
+                    plain = (kernels.node_force_ref(elv, plan, nd // 3),)
+                else:
+                    got, again = residual_form(), residual_form()
+                    want, plain = unfused_tail(), plain_tail()
+                    # through both passes: the element pass's elv, so the force form's qin
+                    check(torch.equal(k2(*rest)[3], kernels.node_force(elv, plan,
+                                                                       rows=nd // 3)),
+                          f"K2 node pass {dname} {name}: the two passes' qin is not the force "
+                          "form's")
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                bits = all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
+                err_ulps = ulps(got[2], want[2], dtype) if form == "residual" else 0.0
+                errs = [float((a - b).abs().max()) for a, b in zip(got, plain)]
+                rels = [e / max(float(b.abs().max()), 1e-300) for e, b in zip(errs, plain)]
+                if form == "force":
+                    ms = cuda_ms(lambda: kernels.node_force(elv, plan, rows=nd // 3))
+                    by = device_ms_by_kernel(lambda: kernels.node_force(elv, plan,
+                                                                        rows=nd // 3))
+                    plain_ms = cuda_ms(lambda: kernels.node_force_ref(elv, plan, nd // 3))
+                    keys = elv.reshape(-1, 3)
+                    library_ms = cuda_ms(lambda: torch.zeros((nd // 3, 3), dtype=dtype,
+                                                             device="cuda").index_add_(
+                        0, plan.keys, keys))
+                else:
+                    ms = cuda_ms(residual_form)
+                    by = device_ms_by_kernel(residual_form)
+                    plain_ms = cuda_ms(plain_tail)
+                    library_ms = None
+                dev = sum(v for k, v in by.items() if k.startswith("stress_node")) or None
+                nbytes = node_work(plan, elv.element_size(), form == "residual")
+                bound_ms, bound_by = bound(nbytes, 0, dtype)
+                row = dict(rows=nd // 3, max_abs_err=max(errs), max_rel_err=max(rels),
+                           error_ulps=err_ulps, same_bits=same, unfused_bits=bits, ms=ms,
+                           device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, bytes=nbytes, library_ms=library_ms)
+                share = "" if dev is None else f", {bound_ms / dev:.1%} of the device time"
+                print(f"K2 node pass {dname} {name} {form}: {nd // 3} rows; max rel err "
+                      f"{max(rels):.2e} against the plain version (limit {K2_TOL[dtype]:g}); "
+                      + ("qin, r bit for bit the unfused composition (K8, torch tail): "
+                         f"{bits}, error {err_ulps:.2f} ulps from it"
+                         if form == "residual" else f"bit for bit K8's write form: {bits}")
+                      + f"; second launch {'the same bits' if same else 'DIFFERENT BITS'}; "
+                      f"{ms:.4f} ms (CUDA events), device time "
+                      + ("not recorded" if dev is None else f"{dev:.4f} ms")
+                      + f"; plain {plain_ms:.4f} ms"
+                      + ("" if library_ms is None else f"; index_add_ into zeros "
+                         f"{library_ms:.4f} ms")
+                      + f"; bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB){share}; median of "
+                      f"20 ({smi})")
+                check(max(rels) <= K2_TOL[dtype],
+                      f"K2 node pass {dname} {name} {form}: disagrees with its plain version")
+                check(bits, f"K2 node pass {dname} {name} {form}: not the unfused bits")
+                check(err_ulps <= 4, f"K2 node pass {dname} {name}: error {err_ulps:.2f} ulps "
+                      "from the unfused composition's")
+                check(same, f"K2 node pass {dname} {name} {form}: a second launch gave other "
+                      "bits")
+                rows[(dname, name, form)] = row
+            del args, kw, elv, plan, glv, fixmask, k2
+            torch.cuda.empty_cache()
+    return rows
+
+
+def k2_residual(big, smi):
+    """Phase 3f's residual of the plate (``backend.residual``, float32, at
+    a seeded increment): through K2's two passes against the unfused
+    composition (the element pass, K8's write form, the torch tail with
+    ``lbd1`` copied to the card) in turns, and the plain version once; the
+    two passes' bits against the composition's; where its device time goes
+    (torch.profiler), which must show K2's two kernels and nothing else: no
+    K8 kernel, no torch kernel, no copy to the card.  Returns the numbers."""
+    from fcvm_tpu_torch import FcvmConfig
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.ops import material as mat
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
     be = TorchSystem(big, FcvmConfig(device="cuda", dtype="float32"), torch.float32,
                      torch.device("cuda"))
     coords = be.tensor(big.mesh.coords)
     gen = torch.Generator(device="cuda").manual_seed(6)
     du = 1e-3 * torch.randn(be.ndof_pad, generator=gen, device="cuda")
-    glv = torch.zeros_like(du)
+    glv = torch.randn(be.ndof_pad, generator=gen, device="cuda")
     sig_y, sig0 = be.gauss_full(PLATE_SY), be.gauss_zeros((6,))
+    zero = torch.zeros_like(du)
+    lbd1, qnorm, et_e = 1.0, 1.0, 0.0
+    mat_g = mat.shear_modulus(mat.per_gauss(be.e), mat.per_gauss(be.nu))
+    mat_h = mat.hardening_modulus(mat.per_gauss(be.e), et_e)
 
     def residual():
-        return be.residual(coords, sig_y, torch.zeros_like(du), du, sig0, glv, 1.0, 1.0, 0.0)
+        return be.residual(coords, sig_y, zero, du, sig0, glv, lbd1, qnorm, et_e)
 
-    wrapper = kernels.stress_update
+    def unfused_residual():
+        out = kernels.stress_update(coords, be.elnodes, zero, sig0, False, du=du, dmat=be.dmat,
+                                    sig_yield=sig_y, g=mat_g, h=mat_h, table=be.element_table)
+        qin = kernels.segment_sum(out[3].reshape(-1, 3), be.node_plan,
+                                  rows=be.ndof_pad // 3).reshape(-1)
+        raw = be.fixmask * (be.tensor(lbd1) * glv - qin)
+        return out[0], out[1], out[2], qin, raw, torch.linalg.vector_norm(raw) / qnorm
+
+    def plain():
+        return kernels.stress_residual_ref(coords, be.elnodes, zero, du, sig0, sig_y, glv,
+                                           be.fixmask, lbd1, qnorm, dmat=be.dmat, g=mat_g,
+                                           h=mat_h, plan=be.node_plan)
+
+    reset_launches()
+    got = residual()
+    torch.cuda.synchronize()
+    counts, _ = read_launches()
+    want = unfused_residual()
+    torch.cuda.synchronize()
+    bits = all(torch.equal(a, b) for a, b in zip(got[:5], want[:5]))
+    err_ulps = ulps(got[5], want[5], torch.float32)
+    print(f"backend.residual of the plate, float32: launches {counts['stress_update']} element "
+          f"pass, {counts['node_force']} node pass, {counts['segment_sum']} K8; sig_new, "
+          f"sig_test, pgp, qin, r bit for bit the unfused composition: {bits}; error "
+          f"{err_ulps:.2f} ulps from it")
+    check(counts["stress_update"] == 1 and counts["node_force"] == 1
+          and counts["segment_sum"] == 0,
+          "backend.residual: not one launch of each K2 pass and none of K8")
+    check(bits, "backend.residual: the two passes' bits differ from the unfused composition's")
+    check(err_ulps <= 4, "backend.residual: error more than 4 ulps from the composition's")
     times = {}
-    for label in ("K2", "plain", "plain", "K2"):
-        kernels.stress_update = wrapper if label == "K2" else kernels.stress_update_ref
-        try:
-            times.setdefault(label, []).append(cuda_ms(residual))
-        finally:
-            kernels.stress_update = wrapper
-    print(f"backend.residual of the plate, float32, turns K2 / plain / plain / K2: "
-          f"{times['K2'][0]:.4f} / {times['plain'][0]:.4f} / {times['plain'][1]:.4f} / "
-          f"{times['K2'][1]:.4f} ms ({smi})")
-    # where its time goes: device time by kernel (K2, K8's ring or register
-    # kernels, the vector ops around them) against its CUDA-event time
+    for label in ("K2", "unfused", "unfused", "K2"):
+        times.setdefault(label, []).append(cuda_ms(residual if label == "K2"
+                                                   else unfused_residual))
+    plain_ms = cuda_ms(plain)
+    print(f"backend.residual of the plate, float32, turns K2's two passes / the unfused "
+          f"composition / again / K2: {times['K2'][0]:.4f} / {times['unfused'][0]:.4f} / "
+          f"{times['unfused'][1]:.4f} / {times['K2'][1]:.4f} ms; its plain version "
+          f"{plain_ms:.4f} ms ({smi})")
+    # where its time goes: device time by kernel against its CUDA-event time
     by = device_ms_by_kernel(residual)
-    parts = Counter()
-    for name, ms in by.items():
-        parts["K2" if name.startswith("stress_update") else
-              "K8" if name in ("ring_kernel", "register_kernel") else "rest"] += ms
     events = cuda_ms(residual)
+    by_unfused = device_ms_by_kernel(unfused_residual)
     print(f"backend.residual of the plate, float32, device time by kernel (torch.profiler, "
-          f"mean of 10): K2 {parts['K2']:.4f} / K8 {parts['K8']:.4f} / the rest "
-          f"{parts['rest']:.4f} ms over {len(by)} kernels, {sum(by.values()):.4f} in all against "
-          f"{events:.4f} ms of CUDA events; the rest: "
-          + ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(by.items(), key=lambda kv: -kv[1])
-                      if n not in ("ring_kernel", "register_kernel")
-                      and not n.startswith("stress_update")) + f" ({smi})")
-    check(parts["K2"] > 0 and parts["K8"] > 0,
-          "backend.residual: the profile shows no K2 or no K8 kernel")
-    times["device_ms_by_kernel"] = by
-    times["events_ms"] = events
-    rows["residual"] = times
-    del be, coords, du, glv, sig_y, sig0
+          f"mean of 10): " + ", ".join(f"{n} {ms:.4f}" for n, ms in
+                                       sorted(by.items(), key=lambda kv: -kv[1]))
+          + f"; {sum(by.values()):.4f} in all against {events:.4f} ms of CUDA events; the "
+          f"unfused composition: " + ", ".join(
+              f"{n} {ms:.4f}" for n, ms in sorted(by_unfused.items(), key=lambda kv: -kv[1]))
+          + f", {sum(by_unfused.values()):.4f} in all ({smi})")
+    check(set(by) == {"stress_update_kernel", "stress_node_kernel"},
+          f"backend.residual: the profile shows {sorted(by)}, not K2's two passes alone (no "
+          "K8 kernel, no torch kernel, no copy to the card)")
+    del be, coords, du, glv, sig_y, sig0, zero
     torch.cuda.empty_cache()
+    return dict(turns_ms=times, plain_ms=plain_ms, device_ms_by_kernel=by, events_ms=events,
+                unfused_device_ms_by_kernel=by_unfused, unfused_bits=bits,
+                error_ulps=err_ulps)
+
+
+def k2_phase(models, smi):
+    """Phase 3f: K2's element pass (:func:`k2_element_rows`), its node pass
+    (:func:`k2_node_rows`) and the plate's residual through both
+    (:func:`k2_residual`).  Returns ``{(dtype, model, case): numbers}`` of
+    the element pass, ``"node"``: the node pass's and ``"residual"``."""
+    rows = k2_element_rows(models, smi)
+    rows["node"] = k2_node_rows(models, smi)
+    rows["residual"] = k2_residual(models["plate"], smi)
     return rows
 
 
@@ -2971,7 +3172,7 @@ def bench_phase(smi):
     check(g["vs_baseline"] is not None, "phase 14: no vs_baseline")
     # the capacity rows solve once and evaluate no residual: K2 in the others
     check(all(r["launches"][k] > 0 for name, r in rows.items() for k in CG_KERNELS
-              if k != "stress_update" or not name.startswith("capacity")),
+              if k not in ("stress_update", "node_force") or not name.startswith("capacity")),
           "phase 14: a row of the bench did not launch K1, K4, K8 or K6, or one with residuals "
           "K2")
     return launches
@@ -3033,8 +3234,8 @@ def main():
           f"deflation's products; the CG_BATCH sweep ({smi})")
     k6 = k6_phase(cg_models)
 
-    phase(f"3f K2, the stress update and internal force, vs plain and its bound; the residual "
-          f"through K2 and through the plain version ({smi})")
+    phase(f"3f K2's element pass and node pass, vs plain and their bounds; the residual "
+          f"through both against the unfused composition ({smi})")
     k2 = k2_phase(cg_models, smi)
     del cg_models
 
@@ -3276,8 +3477,10 @@ def main():
         "cg_batch_sweep": k6["sweep"],
     }, {
         "name": "stress_update", "route": "cuda", "source": "fcvm_tpu_torch/csrc/stress_update.cu",
-        "source_also": "its plain version fcvm_tpu_torch/ops/kernels.py:stress_update_ref; its "
-                       "node sum K8 (segment_sum)",
+        "pass": "element",
+        "source_also": "fcvm_tpu_torch/csrc/bulk.cuh; its plain version "
+                       "fcvm_tpu_torch/ops/kernels.py:stress_update_ref; its node sum K2's node "
+                       "pass (node_force)",
         "replaces": "fcvm_tpu/ops/stress_update.py:66",
         "replaces_also": "_element_stress_update_hp, update_stress_load, "
                          "internal_force_from_stress (fcvm_tpu/ops/stress_update.py:66-195), "
@@ -3288,9 +3491,27 @@ def main():
                              if "by_dtype" in v},
         "dtype": "float32", "model": "plate", "case": "update",
         **k2[("float32", "plate", "update")],
-        "residual_ms_k2_plain": k2["residual"],
+        "residual": k2["residual"],
         "shapes": [{"dtype": dt, "model": mo, "case": c, **row}
-                   for key, row in k2.items() if key != "residual" for dt, mo, c in [key]],
+                   for key, row in k2.items() if key not in ("node", "residual")
+                   for dt, mo, c in [key]],
+    }, {
+        "name": "node_force", "route": "cuda", "source": "fcvm_tpu_torch/csrc/stress_update.cu",
+        "pass": "node",
+        "source_also": "fcvm_tpu_torch/csrc/segment.cuh; K8's write-form plan; its plain "
+                       "version fcvm_tpu_torch/ops/kernels.py:node_force_ref (the residual "
+                       "form's: stress_residual_ref's tail)",
+        "replaces": "fcvm_tpu/ops/stress_update.py:151",
+        "replaces_also": "the segment_sum of update_stress_load and internal_force_from_stress "
+                         "(fcvm_tpu/ops/stress_update.py:151-157) and the residual's tail "
+                         "(fcvm_tpu/runtime/system.py:364-365); XLA-lowered",
+        "launches": off["launches"]["node_force"], **path_launches("node_force"),
+        "launches_by_form": {k: v["by_dtype"]["node_force forms"] for k, v in paths.items()
+                             if "by_dtype" in v},
+        "dtype": "float32", "model": "plate", "form": "residual",
+        **k2["node"][("float32", "plate", "residual")],
+        "shapes": [{"dtype": dt, "model": mo, "form": f, **row}
+                   for (dt, mo, f), row in k2["node"].items()],
     }, {
         "name": "segment_sum", "route": "cuda", "source": "fcvm_tpu_torch/csrc/segment_sum.cu",
         "replaces": "fcvm_tpu/ops/assembly.py:386",

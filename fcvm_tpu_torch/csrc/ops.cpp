@@ -11,8 +11,10 @@
 //   fcvm::segment_sum   K8   csrc/segment_sum.cu (in place: accumulate or write)
 //   fcvm::cg_pass       K6   csrc/cg_iteration.cu (one pass of a CG iteration, in place;
 //                            cg_grid: its resident grid; cg_layout: its scratch)
-//   fcvm::stress_update K2   csrc/stress_update.cu (the stress update and elv; with no
-//                            du the given-stress form, elv alone)
+//   fcvm::stress_update K2   csrc/stress_update.cu (the element pass: the stress update
+//                            and elv; with no du the given-stress form, elv alone)
+//   fcvm::node_force    K2   csrc/stress_update.cu (the node pass: qin; with glv the
+//                            residual form, r and its norm too)
 //   fcvm::soa_matvec    K0p  csrc/bw_probe.cu
 //   fcvm::bw_read       Kbw  csrc/bw_probe.cu
 // so each is called as torch.ops.fcvm.<name>.  The kernels themselves keep a
@@ -28,6 +30,7 @@
 #include <cuda_runtime_api.h>
 #include <torch/library.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <optional>
 #include <string>
@@ -119,20 +122,33 @@ extern "C" int fcvm_cg_pass_f64(int step, int start, double* st, double* part, u
                                 double* x, double* r, double* p, double* v, const double* w,
                                 const double* kw_inv, double* zs, double* coef, long long n,
                                 int m, int kd, int nstore, int grid, void* stream);
-extern "C" int fcvm_stress_update_f32(const float* coords, const long long* elnodes,
+extern "C" int fcvm_stress_update_f32(const float* coords, const int* table,
                                       const float* disp, const float* du, const float* sig,
                                       const float* sig_yield, const float* dmat,
                                       long long dstride, const float* g, const float* h3g,
                                       double g_s, double h3g_s, const float* weights,
-                                      float* sig_new, float* sig_test, unsigned char* pgp,
+                                      float* sig_new, float* sig_test, uint32_t* pgp,
                                       float* elv, long long ne, int large_disp, void* stream);
-extern "C" int fcvm_stress_update_f64(const double* coords, const long long* elnodes,
+extern "C" int fcvm_stress_update_f64(const double* coords, const int* table,
                                       const double* disp, const double* du, const double* sig,
                                       const double* sig_yield, const double* dmat,
                                       long long dstride, const double* g, const double* h3g,
                                       double g_s, double h3g_s, const double* weights,
-                                      double* sig_new, double* sig_test, unsigned char* pgp,
+                                      double* sig_new, double* sig_test, uint32_t* pgp,
                                       double* elv, long long ne, int large_disp, void* stream);
+extern "C" long long fcvm_node_force_blocks(long long units);
+extern "C" int fcvm_node_force_f32(const float* elv, const int* order, const int* offsets,
+                                   const int* segs, const int* holes, long long nu,
+                                   long long nholes, float* qin, const float* glv,
+                                   const float* fixmask, float* r, double* partials,
+                                   unsigned* ticket, float* error, double lbd1, double relax,
+                                   double qnorm, void* stream);
+extern "C" int fcvm_node_force_f64(const double* elv, const int* order, const int* offsets,
+                                   const int* segs, const int* holes, long long nu,
+                                   long long nholes, double* qin, const double* glv,
+                                   const double* fixmask, double* r, double* partials,
+                                   unsigned* ticket, double* error, double lbd1, double relax,
+                                   double qnorm, void* stream);
 extern "C" int fcvm_soa_matvec_f32(const float* esm_t, const float* ue_t, float* out,
                                    long long ne, int tile, void* stream);
 extern "C" int fcvm_bw_read_blocks(long long rows, long long chunk_rows, int device);
@@ -756,14 +772,15 @@ int64_t cg_pass(int64_t step, bool start, const at::Tensor& state, const at::Ten
   return err;
 }
 
-// K2: the stress update of every Gauss point and each element's internal
-// force rows elv (ne, 30).  coords (nn, 3), elnodes int64 (ne, 10), sig
-// (ne, 4, 6) 16-byte aligned; disp (3 n,) under large_disp.  With du (3 n,):
-// sig is sig_old, and sig_yield (ne, 4), dmat (6, 6) or (ne, 6, 6), the
-// shear moduli g and H + 3 G h3g (each (ne,) or its scalar) are read; the
-// result is [sig_new, sig_test, pgp (bool), elv].  Without du: sig is the
-// given stress and the result is [elv].  weights (ne,) scales elv.
-std::vector<at::Tensor> stress_update(const at::Tensor& coords, const at::Tensor& elnodes,
+// K2's element pass: the stress update of every Gauss point and each
+// element's internal force rows elv (ne, 30).  coords (nn, 3), table int32
+// (10, ne) (the element-major node table), sig (ne, 4, 6) 16-byte aligned;
+// disp (3 n,) under large_disp.  With du (3 n,): sig is sig_old, and
+// sig_yield (ne, 4), dmat (6, 6) or (ne, 6, 6), the shear moduli g and
+// H + 3 G h3g (each (ne,) or its scalar) are read; the result is [sig_new,
+// sig_test, pgp (bool), elv].  Without du: sig is the given stress and the
+// result is [elv].  weights (ne,) scales elv.
+std::vector<at::Tensor> stress_update(const at::Tensor& coords, const at::Tensor& table,
                                       const std::optional<at::Tensor>& disp,
                                       const std::optional<at::Tensor>& du, const at::Tensor& sig,
                                       const std::optional<at::Tensor>& sig_yield,
@@ -781,22 +798,22 @@ std::vector<at::Tensor> stress_update(const at::Tensor& coords, const at::Tensor
   TORCH_CHECK(!large_disp || disp, "stress_update: large_disp reads disp");
   TORCH_CHECK(given || (sig_yield && dmat), "stress_update: the update reads sig_yield and dmat");
   const std::optional<at::Tensor>* floats[] = {&disp, &du, &sig_yield, &dmat, &g, &h3g, &weights};
-  TORCH_CHECK(elnodes.device() == dev && sig.device() == dev && sig.scalar_type() == dt,
-              "stress_update: elnodes and sig must be on coords' device, sig of its dtype");
+  TORCH_CHECK(table.device() == dev && sig.device() == dev && sig.scalar_type() == dt,
+              "stress_update: table and sig must be on coords' device, sig of its dtype");
   for (const auto* t : floats)
     TORCH_CHECK(!*t || ((*t)->device() == dev && (*t)->scalar_type() == dt &&
                         (*t)->is_contiguous()),
                 "stress_update: every float tensor must be contiguous, on coords' device and "
                 "of its dtype");
-  TORCH_CHECK(elnodes.scalar_type() == at::kLong, "stress_update: elnodes must be int64");
-  const long long ne = elnodes.dim() == 2 ? elnodes.size(0) : -1;
+  TORCH_CHECK(table.scalar_type() == at::kInt, "stress_update: the node table must be int32");
+  const long long ne = table.dim() == 2 ? table.size(1) : -1;
   TORCH_CHECK(coords.dim() == 2 && coords.size(1) == 3 && coords.size(0) <= 0x7fffffffLL &&
-                  ne >= 0 && elnodes.size(1) == 10 && sig.dim() == 3 && sig.size(0) == ne &&
+                  ne >= 0 && table.size(0) == 10 && sig.dim() == 3 && sig.size(0) == ne &&
                   sig.size(1) == 4 && sig.size(2) == 6,
-              "stress_update: expected coords (nn, 3), elnodes (ne, 10), sig (ne, 4, 6)");
-  TORCH_CHECK(coords.is_contiguous() && elnodes.is_contiguous() && sig.is_contiguous() &&
+              "stress_update: expected coords (nn, 3), table (10, ne), sig (ne, 4, 6)");
+  TORCH_CHECK(coords.is_contiguous() && table.is_contiguous() && sig.is_contiguous() &&
                   reinterpret_cast<uintptr_t>(sig.data_ptr()) % 16 == 0,
-              "stress_update: coords, elnodes and sig must be contiguous, sig 16-byte aligned");
+              "stress_update: coords, table and sig must be contiguous, sig 16-byte aligned");
   // the node rows of disp and du: every node of coords
   for (const auto* t : {&disp, &du})
     TORCH_CHECK(!*t || ((*t)->dim() == 1 && (*t)->size(0) % 3 == 0 &&
@@ -824,29 +841,102 @@ std::vector<at::Tensor> stress_update(const at::Tensor& coords, const at::Tensor
     pgp = at::empty({ne, 4}, coords.options().dtype(at::kBool));
   }
   void* stream = c10::cuda::getCurrentCUDAStream().stream();
-  const auto* nodes = elnodes.data_ptr<int64_t>();
-  const auto* nodes_ll = reinterpret_cast<const long long*>(nodes);
-  auto* flags = given ? nullptr : reinterpret_cast<unsigned char*>(pgp.data_ptr<bool>());
+  const int* nodes = table.data_ptr<int>();
+  auto* flags = given ? nullptr : reinterpret_cast<uint32_t*>(pgp.data_ptr<bool>());
+  const int large = large_disp ? 1 : 0;
   int err = 0;
   if (dt == at::kFloat)
     err = fcvm_stress_update_f32(
-        coords.data_ptr<float>(), nodes_ll, ptr<float>(disp), ptr<float>(du),
+        coords.data_ptr<float>(), nodes, ptr<float>(disp), ptr<float>(du),
         sig.data_ptr<float>(), ptr<float>(sig_yield), ptr<float>(dmat), dstride, ptr<float>(g),
         ptr<float>(h3g), g_s, h3g_s, ptr<float>(weights),
         given ? nullptr : sig_new.data_ptr<float>(), given ? nullptr : sig_test.data_ptr<float>(),
-        flags, elv.data_ptr<float>(), ne, large_disp ? 1 : 0, stream);
+        flags, elv.data_ptr<float>(), ne, large, stream);
   else
     err = fcvm_stress_update_f64(
-        coords.data_ptr<double>(), nodes_ll, ptr<double>(disp), ptr<double>(du),
+        coords.data_ptr<double>(), nodes, ptr<double>(disp), ptr<double>(du),
         sig.data_ptr<double>(), ptr<double>(sig_yield), ptr<double>(dmat), dstride,
         ptr<double>(g), ptr<double>(h3g), g_s, h3g_s, ptr<double>(weights),
         given ? nullptr : sig_new.data_ptr<double>(),
-        given ? nullptr : sig_test.data_ptr<double>(), flags, elv.data_ptr<double>(), ne,
-        large_disp ? 1 : 0, stream);
+        given ? nullptr : sig_test.data_ptr<double>(), flags, elv.data_ptr<double>(), ne, large,
+        stream);
   TORCH_CHECK(err == 0, "stress_update: kernel launch failed: ",
               cudaGetErrorString(static_cast<cudaError_t>(err)));
   if (given) return {elv};
   return {sig_new, sig_test, pgp, elv};
+}
+
+// K2's node pass over a write-form segment plan of elv's 3-wide rows (order,
+// offsets, segs, holes: every one of the rows output rows a group or a
+// hole): [qin (3 rows,)], or with glv, fixmask and ticket (int32 (1,), 0
+// before and after) the residual form's [qin, relax (fixmask (lbd1 glv -
+// qin)), error (0-dim)], error = ||fixmask (lbd1 glv - qin)|| / qnorm.
+std::vector<at::Tensor> node_force(const at::Tensor& elv, const at::Tensor& order,
+                                   const at::Tensor& offsets, const at::Tensor& segs,
+                                   const at::Tensor& holes, int64_t rows,
+                                   const std::optional<at::Tensor>& glv,
+                                   const std::optional<at::Tensor>& fixmask,
+                                   const std::optional<at::Tensor>& ticket, double lbd1,
+                                   double relax, double qnorm) {
+  const auto dev = elv.device();
+  const auto dt = elv.scalar_type();
+  TORCH_CHECK(elv.is_cuda(), "node_force: elv must be on a CUDA device");
+  TORCH_CHECK(dt == at::kFloat || dt == at::kDouble,
+              "node_force: dtype must be float32 or float64, got ", dt);
+  const bool residual = glv.has_value();
+  TORCH_CHECK(residual == fixmask.has_value() && residual == ticket.has_value(),
+              "node_force: the residual form takes glv, fixmask and ticket together");
+  for (const at::Tensor* t : {&order, &offsets, &segs, &holes})
+    TORCH_CHECK(t->device() == dev && t->scalar_type() == at::kInt && t->dim() == 1 &&
+                    t->is_contiguous(),
+                "node_force: the plan's order, offsets, segs and holes must be contiguous "
+                "int32 vectors on elv's device");
+  const long long nu = segs.size(0), nholes = holes.size(0);
+  TORCH_CHECK(elv.is_contiguous() && elv.numel() % 3 == 0 && offsets.size(0) == nu + 1 &&
+                  order.size(0) <= elv.numel() / 3 && nu + nholes == rows,
+              "node_force: expected contiguous elv of 3-wide rows, offsets (nu + 1,), order "
+              "at most its rows, and segs and holes covering the ", rows, " output rows");
+  if (residual) {
+    for (const at::Tensor* t : {&*glv, &*fixmask})
+      TORCH_CHECK(t->device() == dev && t->scalar_type() == dt && t->dim() == 1 &&
+                      t->size(0) == 3 * rows && t->is_contiguous(),
+                  "node_force: glv and fixmask must be contiguous (3 rows,) of elv's dtype "
+                  "and device");
+    TORCH_CHECK(ticket->device() == dev && ticket->scalar_type() == at::kInt &&
+                    ticket->numel() == 1,
+                "node_force: ticket must be one int32 on elv's device");
+  }
+  const c10::cuda::CUDAGuard guard(dev);
+  at::Tensor qin = at::empty({3 * rows}, elv.options());
+  at::Tensor r, error, partials;
+  if (residual) {
+    r = at::empty({3 * rows}, elv.options());
+    error = at::empty({}, elv.options());
+    partials = at::empty({std::max<long long>(fcvm_node_force_blocks(rows), 1)},
+                         elv.options().dtype(at::kDouble));
+  }
+  void* stream = c10::cuda::getCurrentCUDAStream().stream();
+  auto* part = residual ? partials.data_ptr<double>() : nullptr;
+  auto* tick = residual ? reinterpret_cast<unsigned*>(ticket->data_ptr<int>()) : nullptr;
+  const int* tabs[4] = {order.data_ptr<int>(), offsets.data_ptr<int>(), segs.data_ptr<int>(),
+                        holes.data_ptr<int>()};
+  int err = 0;
+  if (dt == at::kFloat)
+    err = fcvm_node_force_f32(elv.data_ptr<float>(), tabs[0], tabs[1], tabs[2], tabs[3], nu,
+                              nholes, qin.data_ptr<float>(), ptr<float>(glv),
+                              ptr<float>(fixmask), residual ? r.data_ptr<float>() : nullptr,
+                              part, tick, residual ? error.data_ptr<float>() : nullptr, lbd1,
+                              relax, qnorm, stream);
+  else
+    err = fcvm_node_force_f64(elv.data_ptr<double>(), tabs[0], tabs[1], tabs[2], tabs[3], nu,
+                              nholes, qin.data_ptr<double>(), ptr<double>(glv),
+                              ptr<double>(fixmask), residual ? r.data_ptr<double>() : nullptr,
+                              part, tick, residual ? error.data_ptr<double>() : nullptr, lbd1,
+                              relax, qnorm, stream);
+  TORCH_CHECK(err == 0, "node_force: kernel launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  if (!residual) return {qin};
+  return {qin, r, error};
 }
 
 // the name and text of a CUDA error code
@@ -927,9 +1017,12 @@ TORCH_LIBRARY(fcvm, m) {
   m.def("cg_pass(int step, bool start, Tensor(a!) state, Tensor(b!) scratch, "
         "Tensor(c!) barrier, Tensor(d!) x, Tensor(e!) r, Tensor(f!) p, Tensor(g!) v, Tensor? w, "
         "Tensor? kw_inv, Tensor(h!)? zs, Tensor(i!)? coef, int grid) -> int");
-  m.def("stress_update(Tensor coords, Tensor elnodes, Tensor? disp, Tensor? du, Tensor sig, "
+  m.def("stress_update(Tensor coords, Tensor table, Tensor? disp, Tensor? du, Tensor sig, "
         "Tensor? sig_yield, Tensor? dmat, Tensor? g, Tensor? h3g, float g_s, float h3g_s, "
         "Tensor? weights, bool large_disp) -> Tensor[]");
+  m.def("node_force(Tensor elv, Tensor order, Tensor offsets, Tensor segs, Tensor holes, "
+        "int rows, Tensor? glv, Tensor? fixmask, Tensor(a!)? ticket, float lbd1, float relax, "
+        "float qnorm) -> Tensor[]");
   m.def("cuda_error(int code) -> str", &cuda_error);
   m.def("soa_matvec(Tensor esm_t, Tensor ue_t, int tile) -> Tensor");
   m.def("bw_read(Tensor x, int k, int chunk_rows) -> Tensor");
@@ -947,6 +1040,7 @@ TORCH_LIBRARY_IMPL(fcvm, CUDA, m) {
   m.impl("segment_sum", &segment_sum);
   m.impl("cg_pass", &cg_pass);
   m.impl("stress_update", &stress_update);
+  m.impl("node_force", &node_force);
   m.impl("soa_matvec", &soa_matvec);
   m.impl("bw_read", &bw_read);
 }

@@ -27,7 +27,8 @@
   ``csrc/segment_sum.cu``: long groups of wide rows stream through a
   bulk-copy ring, the rest are summed in registers, longest first, in
   place or into a new output it writes whole.  Every node reduction of the
-  port runs through it, so none is an atomic scatter-add on the card.
+  port but K1's, K1m's and K2's (each in K8's fixed order) runs through it,
+  so none is an atomic scatter-add on the card.
 * K4 :func:`two_level_apply`, the fused two-level preconditioner apply on
   a vector, replaces the XLA-lowered
   ``fcvm_tpu/ops/precond.py::TwoLevelPrecond.apply``; source
@@ -46,13 +47,18 @@
   ``fcvm_tpu/ops/deflation.py::deflated`` and, on a block, the same body
   under the ``vmap`` of ``fcvm_tpu/runtime/buckling.py::_kinv``; source
   ``csrc/cg_iteration.cu``.
-* K2 :func:`stress_update`, the stress update of every Gauss point and each
-  element's rows of the internal force (the given-stress form: the rows
-  alone), replaces the XLA-lowered per-element update of
-  ``fcvm_tpu/ops/stress_update.py`` (``_element_stress_update_hp``,
-  ``update_stress_load``, ``internal_force_from_stress``) with
-  ``fcvm_tpu/ops/material.py::radial_return``; source
-  ``csrc/stress_update.cu``.  K8 sums its rows into nodes.
+* K2, the stress update and internal force in two passes, replaces the
+  XLA-lowered per-element update of ``fcvm_tpu/ops/stress_update.py``
+  (``_element_stress_update_hp``, ``update_stress_load``,
+  ``internal_force_from_stress``) with
+  ``fcvm_tpu/ops/material.py::radial_return``, and its node sum; source
+  ``csrc/stress_update.cu``.  Its element pass :func:`stress_update`, the
+  stress update of every Gauss point and each element's rows of the
+  internal force (the given-stress form: the rows alone), on its int32 node
+  table (:func:`element_table`, made once per mesh); its node pass
+  :func:`node_force`, the rows summed into nodes in K8's order; both as a
+  residual, with its tail and norm in the node pass,
+  :func:`stress_residual_bound`.
 * K0p :func:`soa_matvec` replaces ``tools/bw_probe.py::soa_matvec``;
   source ``csrc/bw_probe.cu``.
 * Kbw :func:`bw_read` replaces ``tools/bw_probe.py::make_bw_kernel``;
@@ -62,9 +68,9 @@ K1 and K4 carry the solver's CG iteration (every ``K_hat @ v`` and raw
 ``K @ v``, every preconditioner apply on a vector); K1m and K4m the block
 solves of the buckling eigensolve (every K_hat·V, -G_hat·V and block
 preconditioner apply) and the deflation builds' K_hat·W; K8 every sum of
-element rows into nodes outside K1 and K1m (the internal force of every
-residual, the loads, the preconditioner builds); K2 every residual's stress
-update and internal force.  K0m runs on no path
+element rows into nodes outside K1, K1m and K2 (the loads, the
+preconditioner builds); K2 every residual's stress update, internal force
+and residual.  K0m runs on no path
 since K1m; it, K0, K0p and Kbw serve phase 3 of ``chip_smoke.py`` and the
 bandwidth probe (:mod:`fcvm_tpu_torch.tools.bw_probe`).  What bounds each
 on the card and how its design answers that is written at the top of its
@@ -75,8 +81,8 @@ version (``*_ref``), on CUDA tensors it launches the kernel or raises.  There
 is no fallback from a failed build or launch.  Each wrapper counts its
 kernel launches in its ``launches`` attribute (K8 its calls, each launching
 one or two kernels); K0, K1, K2, K4, K6 and K8 also count them by dtype in
-their ``dtypes`` (K6 by pass in ``cg_iteration.passes``, K2 by form in
-``stress_update.forms``), K0m, K1m and K4m by
+their ``dtypes`` (K6 by pass in ``cg_iteration.passes``, K2's passes by form
+in ``stress_update.forms`` and ``node_force.forms``), K0m, K1m and K4m by
 dtype and column count in their ``shapes`` (K4c alone too:
 ``coarse_product.shapes``),
 and K8 its kernels by form and path in ``segment_sum.paths``.
@@ -1443,14 +1449,24 @@ cg_iteration.passes = Counter()  # launches by pass name (CG_PASSES)
 
 # -- K2: the stress update and internal force ------------------------------------
 
+def element_table(elnodes: torch.Tensor) -> torch.Tensor:
+    """K2's node table of the connectivity ``elnodes`` (ne, 10): (10, ne)
+    int32, element-major (the layout of K1's ``NodeIncidence.elnodes_t``),
+    so neighbouring lanes read neighbouring elements' ids.  A backend makes
+    it once."""
+    if elnodes.dim() != 2 or elnodes.shape[1] != 10:
+        raise ValueError(f"element_table: elnodes {tuple(elnodes.shape)}; expected (ne, 10)")
+    return elnodes.t().to(torch.int32).contiguous()
+
 
 def stress_update_ref(coords, elnodes, disp, sig, large_disp=False, *, du=None, dmat=None,
-                      sig_yield=None, g=None, h=None, weights=None):
-    """Plain version of K2, the torch chain it replaced: B (ne, 4, 6, 30) at
-    every Gauss point, ``deps = B du``, under ``large_disp`` the convected
-    ``F sig F^T / det F``, the trial stress and the radial return, and
-    ``elv = sum_g B^T sig w |J|`` (times ``weights``).  Arguments and
-    results as :func:`stress_update`."""
+                      sig_yield=None, g=None, h=None, weights=None, table=None):
+    """Plain version of K2's element pass, the torch chain it replaced: B
+    (ne, 4, 6, 30) at every Gauss point, ``deps = B du``, under
+    ``large_disp`` the convected ``F sig F^T / det F``, the trial stress and
+    the radial return, and ``elv = sum_g B^T sig w |J|`` (times
+    ``weights``).  Arguments and results as :func:`stress_update` (the
+    kernel's node ``table`` is not read)."""
     coords_el = coords[elnodes]
     if large_disp:
         coords_el = coords_el + disp.reshape(-1, 3)[elnodes]
@@ -1488,11 +1504,43 @@ def _per_element(x, ne: int, like: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).expand(ne).contiguous()
 
 
+def _k2_materials(g, h, ne: int, like: torch.Tensor):
+    """The element pass's moduli: ``(g, h3g, g_s, h3g_s)``, H + 3 G as
+    radial_return forms it, (ne,) tensors where either is a tensor, else
+    numbers (and None)."""
+    if torch.is_tensor(g) or torch.is_tensor(h):
+        return _per_element(g, ne, like), _per_element(h + 3.0 * g, ne, like), 0.0, 0.0
+    return None, None, float(g), float(h + 3.0 * g)
+
+
+def _k2_table(elnodes, table, like):
+    """K2's node table on the card: ``table`` checked against ``elnodes``'s
+    shape and ``like``'s device, or made from ``elnodes``."""
+    if table is None:
+        return element_table(elnodes)
+    if (table.dtype != torch.int32 or table.device != like.device
+            or table.shape != (10, elnodes.shape[0]) or not table.is_contiguous()):
+        raise ValueError(f"stress_update: a node table {tuple(table.shape)} {table.dtype} on "
+                         f"{table.device}; expected element_table(elnodes) on {like.device}")
+    return table
+
+
+def _element_pass(coords, table, disp, du, sig, sig_yield, dmat, mats, weights, large_disp):
+    """Launch K2's element pass (the binding checks the tensors) and count it."""
+    out = torch.ops.fcvm.stress_update(coords, table, disp, du, sig, sig_yield, dmat, *mats,
+                                       weights, bool(large_disp))
+    stress_update.launches += 1
+    stress_update.dtypes[_dtype_name(coords)] += 1
+    stress_update.forms[("given" if du is None else "update") + (" gnl" if large_disp else "")] += 1
+    return out
+
+
 def stress_update(coords, elnodes, disp, sig, large_disp=False, *, du=None, dmat=None,
-                  sig_yield=None, g=None, h=None, weights=None):
-    """K2: the stress update of every Gauss point and each element's rows of
-    the internal force, on the element's 10 nodes (design and bound at the
-    top of ``csrc/stress_update.cu``); the node sum is the caller's (K8).
+                  sig_yield=None, g=None, h=None, weights=None, table=None):
+    """K2's element pass: the stress update of every Gauss point and each
+    element's rows of the internal force, on the element's 10 nodes (design
+    and bound at the top of ``csrc/stress_update.cu``); the node sum is the
+    caller's (:func:`node_force`).
 
     Args:
       coords: (nn, 3) nodal coordinates, float32 or float64.
@@ -1508,6 +1556,8 @@ def stress_update(coords, elnodes, disp, sig, large_disp=False, *, du=None, dmat
         g, h: the shear and hardening moduli, numbers or per-element
         tensors (ne,) or (ne, 1) (read with ``du`` only).
       weights: optional (ne,) scale of each element's rows.
+      table: the :func:`element_table` of ``elnodes`` (made here on the
+        card when not given; a backend makes it once).
 
     Returns:
       With ``du``: (sig_new, sig_test, pgp, elv): (ne, 4, 6) twice, (ne, 4)
@@ -1537,28 +1587,159 @@ def stress_update(coords, elnodes, disp, sig, large_disp=False, *, du=None, dmat
         raise ValueError("stress_update: large_disp reads disp")
     if not given and any(v is None for v in (dmat, sig_yield, g, h)):
         raise ValueError("stress_update: the update reads dmat, sig_yield, g and h")
-    ne = elnodes.shape[0] if elnodes.dim() == 2 else -1
-    gv = h3g = None
-    g_s = h3g_s = 0.0
-    if not given:
-        # H + 3 G as radial_return forms it, per element where either is a tensor
-        if torch.is_tensor(g) or torch.is_tensor(h):
-            gv = _per_element(g, ne, coords)
-            h3g = _per_element(h + 3.0 * g, ne, coords)
-        else:
-            g_s, h3g_s = float(g), float(h + 3.0 * g)
+    if elnodes.dim() != 2 or elnodes.shape[1] != 10:
+        raise ValueError(f"stress_update: elnodes {tuple(elnodes.shape)}; expected (ne, 10)")
+    ne = elnodes.shape[0]
+    mats = (None, None, 0.0, 0.0) if given else _k2_materials(g, h, ne, coords)
     build()
-    out = torch.ops.fcvm.stress_update(coords, elnodes, disp, du, sig, sig_yield, dmat, gv, h3g,
-                                       g_s, h3g_s, weights, bool(large_disp))
-    stress_update.launches += 1
-    stress_update.dtypes[_dtype_name(coords)] += 1
-    stress_update.forms[("given" if given else "update") + (" gnl" if large_disp else "")] += 1
+    out = _element_pass(coords, _k2_table(elnodes, table, coords), disp, du, sig, sig_yield,
+                        dmat, mats, weights, large_disp)
     return out[0] if given else tuple(out)
 
 
 stress_update.launches = 0
 stress_update.dtypes = Counter()  # launches by dtype name
 stress_update.forms = Counter()  # launches by form ("update", "given", each " gnl")
+
+
+def node_force_ref(elv: torch.Tensor, plan: SegmentPlan, rows: int) -> torch.Tensor:
+    """Plain version of K2's node pass, the internal force: K8's plain
+    version of the write form on ``elv``'s 3-wide rows, flattened."""
+    return segment_sum_ref(elv.reshape(-1, 3).contiguous(), plan, rows=rows).reshape(-1)
+
+
+def _node_plan_checks(name, plan, rows, nrows, device):
+    if plan.keys.shape[0] != nrows or not plan.top <= rows < 2**31:
+        raise ValueError(f"{name}: {nrows} element rows, {rows} output rows, a plan of "
+                         f"{plan.keys.shape[0]} keys needing {plan.top} rows; expected a key for "
+                         "each row, every key below the output's rows")
+    if device.type == "cuda" and (plan.rows != rows or plan.holes is None):
+        raise ValueError(f"{name}: the node pass on the card needs a write-form plan built with "
+                         f"rows = {rows}")
+
+
+def node_force(elv: torch.Tensor, plan: SegmentPlan, *, rows: int) -> torch.Tensor:
+    """K2's node pass, the internal force: ``qin`` (3 rows,), element
+    ``elv``'s 3-wide rows (ne, 30) summed into the node rows ``plan`` names,
+    each in the plan's fixed order from zero, and 0 in the rows it does not
+    name: K8's write form's bits (design at the top of
+    ``csrc/stress_update.cu``).
+
+    ``plan``: the :class:`SegmentPlan` of the rows' node keys, built with
+    ``rows`` on the card.  CPU tensors take the plain version
+    (:func:`node_force_ref`); CUDA tensors launch the kernel or raise
+    (``node_force.launches`` counts the launches, ``.dtypes`` and
+    ``.forms`` them by dtype and form: "force" here, "residual" by
+    :func:`stress_residual_bound`)."""
+    _node_plan_checks("node_force", plan, rows, elv.numel() // 3, elv.device)
+    if elv.device.type == "cpu":
+        if any(t.device.type != "cpu" for t in (plan.keys, plan.order)):
+            raise ValueError("node_force: tensors on several devices; expected all on the CPU "
+                             "or all on one CUDA device")
+        return node_force_ref(elv, plan, rows)
+    if elv.device.type != "cuda":
+        raise ValueError(f"node_force: elv on {elv.device}; expected the CPU or a CUDA device")
+    build()
+    (qin,) = torch.ops.fcvm.node_force(elv, plan.order, plan.offsets, plan.segs, plan.holes,
+                                       rows, None, None, None, 0.0, 1.0, 1.0)
+    node_force.launches += 1
+    node_force.dtypes[_dtype_name(elv)] += 1
+    node_force.forms["force"] += 1
+    return qin
+
+
+node_force.launches = 0
+node_force.dtypes = Counter()  # launches by dtype name
+node_force.forms = Counter()  # launches by form ("force", "residual")
+
+
+def stress_residual_ref(coords, elnodes, disp, du, sig_old, sig_yield, glv, fixmask, lbd1,
+                        qnorm, large_disp=False, relax=1.0, *, dmat, g, h, plan, weights=None):
+    """Plain version of :func:`stress_residual_bound`, the chain the residual ran
+    before its node pass: the element pass's plain version, K8's (the write
+    form into ``disp``'s node rows), then ``r = fixmask (lbd1 glv - qin)``
+    and its norm as torch steps; ``lbd1`` a number or a tensor, taken in
+    ``glv``'s dtype."""
+    sig_new, sig_test, pgp, elv = stress_update_ref(
+        coords, elnodes, disp if large_disp else None, sig_old, large_disp, du=du, dmat=dmat,
+        sig_yield=sig_yield, g=g, h=h, weights=weights)
+    qin = segment_sum_ref(elv.reshape(-1, 3).contiguous(), plan,
+                          rows=disp.shape[0] // 3).reshape(-1)
+    lbd1 = torch.as_tensor(lbd1, dtype=torch.float64, device=glv.device).to(glv.dtype)
+    r = fixmask * (lbd1 * glv - qin)
+    error = torch.linalg.vector_norm(r) / qnorm
+    return sig_new, sig_test, pgp, qin, relax * r, error
+
+
+def stress_residual_bound(elnodes, plan: SegmentPlan, fixmask, dmat, g, h, *, weights=None,
+                          table=None):
+    """K2's two passes for one mesh, material and Dirichlet mask, their
+    checks made once: returns ``k2(coords, disp, du, sig_old, sig_yield,
+    glv, lbd1, qnorm, large_disp=False, relax=1.0)``, which computes the
+    stress update and the out-of-balance residual
+
+        (sig_new, sig_test, pgp, qin, relax r, error),
+        r = fixmask (lbd1 glv - qin),  error = ||r|| / qnorm (0-dim),
+
+    on the CPU by the plain version (:func:`stress_residual_ref`), on the
+    card in two launches: the element pass and the node pass's residual form,
+    ``lbd1``, ``relax`` and ``qnorm`` passed as kernel scalars (no copy to
+    the card).  ``plan`` is the write-form :class:`SegmentPlan` of the
+    element rows' node keys over ``fixmask``'s node rows; ``dmat``, ``g``,
+    ``h``, ``weights`` as for :func:`stress_update`; ``table`` its
+    :func:`element_table` (made here on the card when not given).  Each
+    launch is counted by its pass's wrapper (``stress_update`` and
+    ``node_force``, form "residual")."""
+    static = [t for t in (elnodes, fixmask, dmat, g, h, weights, table, plan.keys, plan.order)
+              if torch.is_tensor(t)]
+    if all(t.device.type == "cpu" for t in static):
+        def plain(coords, disp, du, sig_old, sig_yield, glv, lbd1, qnorm, large_disp=False,
+                  relax=1.0):
+            return stress_residual_ref(coords, elnodes, disp, du, sig_old, sig_yield, glv,
+                                       fixmask, lbd1, qnorm, large_disp, relax, dmat=dmat, g=g,
+                                       h=h, plan=plan, weights=weights)
+
+        return plain
+    dev = fixmask.device
+    if dev.type != "cuda" or any(t.device != dev for t in static):
+        raise ValueError("stress_residual_bound: tensors on several devices; expected all on "
+                         "the CPU or all on one CUDA device")
+    dtype = fixmask.dtype
+    floats = [t for t in (dmat, g, h, weights) if torch.is_tensor(t)]
+    if dtype not in (torch.float32, torch.float64) or any(t.dtype != dtype for t in floats):
+        names = [str(t.dtype) for t in [fixmask, *floats]]
+        raise TypeError(f"stress_residual_bound: dtypes {names}; expected one of float32 or "
+                        "float64")
+    if elnodes.dim() != 2 or elnodes.shape[1] != 10 or elnodes.dtype != torch.int64:
+        raise ValueError(f"stress_residual_bound: elnodes {tuple(elnodes.shape)} {elnodes.dtype}; "
+                         "expected (ne, 10) int64")
+    rows = fixmask.shape[0] // 3
+    if fixmask.dim() != 1 or fixmask.shape[0] != 3 * rows or not fixmask.is_contiguous():
+        raise ValueError(f"stress_residual_bound: fixmask {tuple(fixmask.shape)}; expected a "
+                         "contiguous (3 rows,)")
+    ne = elnodes.shape[0]
+    _node_plan_checks("stress_residual_bound", plan, rows, 10 * ne, dev)
+    table = _k2_table(elnodes, table, fixmask)
+    mats = _k2_materials(g, h, ne, fixmask)
+    tables = (plan.order, plan.offsets, plan.segs, plan.holes)
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)  # the node pass's, 0 between launches
+    name = _dtype_name(fixmask)
+    build()
+    node_op = torch.ops.fcvm.node_force
+
+    def k2(coords, disp, du, sig_old, sig_yield, glv, lbd1, qnorm, large_disp=False,
+           relax=1.0):
+        sig_new, sig_test, pgp, elv = _element_pass(
+            coords, table, disp if large_disp else None, du, sig_old, sig_yield, dmat, mats,
+            weights, large_disp)
+        qin, r, error = node_op(elv, *tables, rows, glv, fixmask, ticket, float(lbd1),
+                                float(relax), float(qnorm))
+        node_force.launches += 1
+        node_force.dtypes[name] += 1
+        node_force.forms["residual"] += 1
+        return sig_new, sig_test, pgp, qin, r, error
+
+    return k2
 
 
 def soa_matvec_ref(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:

@@ -130,6 +130,13 @@ class ShardedSystem(TorchSystem):
             local(x) for x in (self.e, self.nu, self.density, self.g))
         self.dmat_l = self.dmat[self._user] if self.dmat.dim() == 3 else self.dmat
 
+    @property
+    def element_table(self):
+        """K2's node tables of this rank's elements, made at first use and kept."""
+        if self._element_table is None:
+            self._element_table = kernels.element_table(self.eln_l)
+        return self._element_table
+
     # -- Gauss state (this rank's slice of the padded Morton order) ----------
 
     def gauss_zeros(self, trailing=()):
@@ -357,7 +364,8 @@ class ShardedSystem(TorchSystem):
         return sysm.residual(
             coords, self.eln_l, self.dmat_l, sig_yield, disp_new, du, sig_old, self.e_l,
             self.nu_l, et_e, glv, self.fixmask, self.tensor(lbd1), qnorm, large_disp,
-            relax=relax, weights=self.w_l, reduce=pdist.all_reduce, plan=self.node_plan_l)
+            relax=relax, weights=self.w_l, reduce=pdist.all_reduce, plan=self.node_plan_l,
+            table=self.element_table)
 
     def residual_refined(self, coords, sig_yield, disp_new, du, sig_old, glv,
                          lbd1, qnorm, et_e, large_disp=False, relax=1.0):
@@ -366,18 +374,18 @@ class ShardedSystem(TorchSystem):
             self.nu_l, et_e, glv, self.fixmask,
             torch.tensor(float(lbd1), dtype=torch.float64, device=self.device),
             qnorm, large_disp, relax=relax, weights=self.w_l, reduce=pdist.all_reduce,
-            plan=self.node_plan_l)
+            plan=self.node_plan_l, table=self.element_table)
 
     def stress_update(self, coords, sig_yield, disp, du, sig_old, et_e, large_disp=False):
         return update_stress_load(coords, self.eln_l, self.dmat_l, sig_yield, disp, du,
                                   sig_old, self.e_l, self.nu_l, et_e, large_disp,
                                   weights=self.w_l, reduce=pdist.all_reduce,
-                                  plan=self.node_plan_l)
+                                  plan=self.node_plan_l, table=self.element_table)
 
     def internal_force(self, coords, sig_gp, disp, large_disp=False):
         return internal_force_from_stress(coords, self.eln_l, sig_gp, disp, large_disp,
                                           weights=self.w_l, reduce=pdist.all_reduce,
-                                          plan=self.node_plan_l)
+                                          plan=self.node_plan_l, table=self.element_table)
 
     def update_peeq_csr(self, sig_test, sig_new, sig_yield, peeq, csr, et_e,
                         ultimate_strain):

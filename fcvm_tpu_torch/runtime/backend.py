@@ -65,6 +65,8 @@ class TorchSystem:
         # the K8 plan of the internal force's and gravity's node sums, over
         # the user element order the Gauss state keeps
         self.node_plan = kernels.segment_plan(self.elnodes, rows=self.ndof_pad // 3)
+        self._element_table = None
+        self._residuals = {}  # K2's bound residuals by (et_e, refined)
 
         def vec(a):
             return torch.as_tensor(pad_vector(a, self.ndof_pad), device=device).to(dtype)
@@ -79,6 +81,15 @@ class TorchSystem:
                                             self.fixmask, self.ndof_pad)
         self.rtol = cfg.cg_rtol
         self.maxiter = cfg.resolve_cg_maxiter(mesh.ndof)
+
+    @property
+    def element_table(self):
+        """K2's node tables of ``elnodes`` (:func:`~fcvm_tpu_torch.ops.kernels.element_table`),
+        made at the first stress update (after the preconditioner's first
+        build, whose peak they stay out of) and kept."""
+        if self._element_table is None:
+            self._element_table = kernels.element_table(self.elnodes)
+        return self._element_table
 
     # -- Gauss-state helpers -------------------------------------------------
 
@@ -181,12 +192,27 @@ class TorchSystem:
             self.rtol, self.maxiter, pc, self.space, ue0=ue0, w=w,
             solve_predictor=solve_predictor, plan=self.node_plan)
 
+    def _residual_kernel(self, et_e, refined: bool):
+        """The residual's :func:`~fcvm_tpu_torch.runtime.system.residual_kernel`
+        for ``et_e``, in the working dtype or (``refined``) in float64 over
+        the upcast material and mask: made once and kept."""
+        key = (float(et_e), refined)
+        if key not in self._residuals:
+            def c(x):
+                return x.to(torch.float64) if refined and torch.is_tensor(x) else x
+
+            self._residuals[key] = sysm.residual_kernel(
+                self.elnodes, c(self.dmat), c(self.e), c(self.nu), et_e, c(self.fixmask),
+                plan=self.node_plan, table=self.element_table)
+        return self._residuals[key]
+
     def residual(self, coords, sig_yield, disp_new, du, sig_old, glv, lbd1,
                  qnorm, et_e, large_disp=False, relax=1.0):
         return sysm.residual(
             coords, self.elnodes, self.dmat, sig_yield, disp_new, du, sig_old,
-            self.e, self.nu, et_e, glv, self.fixmask, self.tensor(lbd1),
-            qnorm, large_disp, relax=relax, plan=self.node_plan)
+            self.e, self.nu, et_e, glv, self.fixmask, float(lbd1),
+            qnorm, large_disp, relax=relax, plan=self.node_plan, table=self.element_table,
+            k2=self._residual_kernel(et_e, False))
 
     def residual_refined(self, coords, sig_yield, disp_new, du, sig_old, glv,
                          lbd1, qnorm, et_e, large_disp=False, relax=1.0):
@@ -194,18 +220,18 @@ class TorchSystem:
         :func:`fcvm_tpu_torch.runtime.system.residual_refined`)."""
         return sysm.residual_refined(
             coords, self.elnodes, self.dmat, sig_yield, disp_new, du, sig_old,
-            self.e, self.nu, et_e, glv, self.fixmask,
-            torch.tensor(float(lbd1), dtype=torch.float64, device=self.device),
-            qnorm, large_disp, relax=relax, plan=self.node_plan)
+            self.e, self.nu, et_e, glv, self.fixmask, float(lbd1),
+            qnorm, large_disp, relax=relax, plan=self.node_plan, table=self.element_table,
+            k2=self._residual_kernel(et_e, True))
 
     def stress_update(self, coords, sig_yield, disp, du, sig_old, et_e, large_disp=False):
         return update_stress_load(coords, self.elnodes, self.dmat, sig_yield,
                                   disp, du, sig_old, self.e, self.nu, et_e, large_disp,
-                                  plan=self.node_plan)
+                                  plan=self.node_plan, table=self.element_table)
 
     def internal_force(self, coords, sig_gp, disp, large_disp=False):
         return internal_force_from_stress(coords, self.elnodes, sig_gp, disp, large_disp,
-                                          plan=self.node_plan)
+                                          plan=self.node_plan, table=self.element_table)
 
     def update_peeq_csr(self, sig_test, sig_new, sig_yield, peeq, csr, et_e,
                         ultimate_strain):

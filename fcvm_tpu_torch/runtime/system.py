@@ -27,6 +27,7 @@ import torch
 from fcvm_tpu_torch.ops import assembly as asm
 from fcvm_tpu_torch.ops import deflation as dfl
 from fcvm_tpu_torch.ops import kernels
+from fcvm_tpu_torch.ops import material as mat
 from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.kernels import NodeIncidence, SegmentPlan
 from fcvm_tpu_torch.ops.precond import bound_precond, build_two_level, refresh_blocks
@@ -260,20 +261,43 @@ def build_deflation(khat: Operator, space: SolveSpace, zs, coef) -> dfl.Deflatio
                            space.incidence, khat.packed)
 
 
+def residual_kernel(elnodes, dmat, e, nu, et_e, fixmask, weights=None, *, plan: SegmentPlan,
+                    table=None):
+    """The residual of one mesh, material (``e``, ``nu``: numbers or
+    per-element tensors), hardening ratio ``et_e`` and mask, bound once:
+    :func:`fcvm_tpu_torch.ops.kernels.stress_residual_bound` with the
+    moduli ``update_stress_load`` forms, ``k2(coords, disp, du, sig_old,
+    sig_yield, glv, lbd1, qnorm, large_disp, relax)``.  A backend keeps one
+    for each ``et_e`` (and the refinement tier's float64), so on the card a
+    residual is two launches and nothing else."""
+    e, nu = mat.per_gauss(e), mat.per_gauss(nu)
+    return kernels.stress_residual_bound(
+        elnodes, plan, fixmask, dmat, mat.shear_modulus(e, nu), mat.hardening_modulus(e, et_e),
+        weights=weights, table=table)
+
+
 def residual(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu,
              et_e, glv, fixmask, lbd1, qnorm, large_disp=False, relax=1.0,
-             weights=None, reduce=None, *, plan: SegmentPlan):
+             weights=None, reduce=None, *, plan: SegmentPlan, table=None, k2=None):
     """Stress update + out-of-balance residual (``fcVM.py:1323-1342``).
 
     The returned ``r`` is pre-scaled by the relaxation factor (applied at
     the solve RHS, ``fcVM.py:1398-1400``); ``error`` (a 0-dim tensor) is
     computed from the raw residual as the reference does.  ``weights``,
-    ``reduce`` and ``plan`` go to the internal force (the sharded backend's
-    padding elements and ``all_reduce``, the node sum's segment plan,
-    :func:`update_stress_load`)."""
+    ``reduce``, ``plan`` and ``table`` go to the internal force (the sharded
+    backend's padding elements and ``all_reduce``, the node sum's segment
+    plan, the element pass's node table, :func:`update_stress_load`).
+    Without ``reduce`` all of it is K2's two passes (``k2``, the
+    :func:`residual_kernel` of these arguments, made here when not given;
+    ``lbd1`` a number); with it, the stress update and internal force of
+    :func:`update_stress_load`, the sum and the residual's torch steps."""
+    if reduce is None:
+        k2 = k2 or residual_kernel(elnodes, dmat, e, nu, et_e, fixmask, weights, plan=plan,
+                                   table=table)
+        return k2(coords, disp_new, du, sig_old, sig_yield, glv, lbd1, qnorm, large_disp, relax)
     sig_new, sig_test, pgp, qin = update_stress_load(
         coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu, et_e, large_disp,
-        weights=weights, reduce=reduce, plan=plan)
+        weights=weights, reduce=reduce, plan=plan, table=table)
     r = fixmask * (lbd1 * glv - qin)
     error = torch.linalg.vector_norm(r) / qnorm
     return sig_new, sig_test, pgp, qin, relax * r, error
@@ -281,7 +305,7 @@ def residual(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e, nu,
 
 def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
                      nu, et_e, glv, fixmask, lbd1, qnorm, large_disp=False, relax=1.0,
-                     weights=None, reduce=None, *, plan: SegmentPlan):
+                     weights=None, reduce=None, *, plan: SegmentPlan, table=None, k2=None):
     """:func:`residual` evaluated in float64 over float32-stored state.
 
     The mixed-precision refinement tier (``config.residual_refinement``):
@@ -289,20 +313,30 @@ def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
     are computed in float64, which removes the float32 evaluation floor of
     ``B^T sigma``.  Returns the Gauss state, the internal force and the CG
     right-hand side in the storage dtype of ``glv`` (the operator and the
-    correction solve stay float32) and the error as a float64 scalar."""
+    correction solve stay float32) and the error as a float64 scalar.
+    ``k2``: the float64 :func:`residual_kernel` (of the upcast material and
+    mask), made here when not given."""
     f64 = torch.float64
     out_dt = glv.dtype
 
     def c(x):  # numbers (one material's E and nu) stay as they are
         return x.to(f64) if torch.is_tensor(x) else x
 
-    sig_new, sig_test, pgp, qin = update_stress_load(
-        c(coords), elnodes, c(dmat), c(sig_yield), c(disp_new), c(du), c(sig_old),
-        c(e), c(nu), et_e, large_disp, weights=c(weights), reduce=reduce, plan=plan)
-    r = c(fixmask) * (c(lbd1) * c(glv) - qin)
-    error = torch.linalg.vector_norm(r) / qnorm
-    return (sig_new.to(out_dt), sig_test.to(out_dt), pgp, qin.to(out_dt),
-            (relax * r).to(out_dt), error)
+    if reduce is None:
+        k2 = k2 or residual_kernel(elnodes, c(dmat), c(e), c(nu), et_e, c(fixmask), c(weights),
+                                   plan=plan, table=table)
+        sig_new, sig_test, pgp, qin, r, error = k2(
+            c(coords), c(disp_new), c(du), c(sig_old), c(sig_yield), c(glv), lbd1, qnorm,
+            large_disp, relax)
+    else:
+        sig_new, sig_test, pgp, qin = update_stress_load(
+            c(coords), elnodes, c(dmat), c(sig_yield), c(disp_new), c(du), c(sig_old),
+            c(e), c(nu), et_e, large_disp, weights=c(weights), reduce=reduce, plan=plan,
+            table=table)
+        r = c(fixmask) * (c(lbd1) * c(glv) - qin)
+        error = torch.linalg.vector_norm(r) / qnorm
+        r = relax * r
+    return (sig_new.to(out_dt), sig_test.to(out_dt), pgp, qin.to(out_dt), r.to(out_dt), error)
 
 
 def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTables,

@@ -17,13 +17,20 @@ process of its own):
     python fcvm_tpu_torch/tools/turns.py TREE blocks   # phase 3d alone: K1m, K4m and K4c at
                                                        # the paths' widths, cuSPARSE beside
                                                        # K1m, torch.mm beside K4c
+    python fcvm_tpu_torch/tools/turns.py TREE k2       # TREE's own phase 3f: K2 at the paths'
+                                                       # shapes, the plate's residual
+    python fcvm_tpu_torch/tools/turns.py TREE headline # TREE's bench headline: one plastic
+                                                       # step of the plate (min of 3)
 
 ``TREE`` is the root of a checkout (``.`` for this one, or a ``git archive``
 of another commit unpacked in a directory that ``.gitignore`` lists); its
 ``fcvm_tpu_torch`` is imported and built, while the phases' code is this
 checkout's ``chip_smoke.py``, except for ``cg``, which runs TREE's own
 ``chip_smoke.py`` phase 3c (K1 and K4 as that tree calls them, against
-its plain versions, the chain K1 replaced and cuSPARSE) on the plate.  Prints the card's ``nvidia-smi`` name and
+its plain versions, the chain K1 replaced and cuSPARSE) on the plate, and
+``k2``, which runs TREE's own phase 3f (K2 and the residual as that tree
+runs them) on the plate and the beam-column, and ``headline``, TREE's
+``tools.bench.step_time`` of the plate.  Prints the card's ``nvidia-smi`` name and
 power limit, then one JSON line.  Needs a CUDA device.  A tree from before
 K1 and K4 (``kernels.khat_matvec``, ``two_level_apply``) times and launches
 K0 where they would be: its plate runs are held to K0's launches, and its
@@ -57,6 +64,29 @@ def block_rows(smoke, models) -> list:
     """Phase 3d's K1m and K4m rows on ``models``, one dict a row."""
     return [{"kernel": k, "dtype": dt, "model": mo, "variant": v, "m": m, **row}
             for (k, dt, mo, v, m), row in smoke.block_kernel_phase(models).items()]
+
+
+def keyed_rows(rows) -> list:
+    """``{key tuple: row}`` as a list of rows with their keys (``key``);
+    other entries (a dict of them, or numbers) under their names."""
+    out = []
+    for k, v in rows.items():
+        if isinstance(k, tuple):
+            out.append({"key": list(k), **v})
+        elif isinstance(v, dict) and v and all(isinstance(x, tuple) for x in v):
+            out += [{"key": [k, *x], **row} for x, row in v.items()]
+        else:
+            out.append({"key": [k], "value": v})
+    return out
+
+
+def tree_smoke(tree: str):
+    """TREE's own ``chip_smoke.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "tree_smoke", Path(tree).resolve() / "chip_smoke.py")
+    tsmoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tsmoke)
+    return tsmoke
 
 
 def main(tree: str, part: str) -> dict:
@@ -128,11 +158,26 @@ def main(tree: str, part: str) -> dict:
                   "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)}
         out["k6"] = [{"dtype": dt, "model": m, "form": f, **row}
                      for (dt, m, f), row in smoke.k6_times(models, compare=False).items()]
+    elif part == "k2":
+        tsmoke = tree_smoke(tree)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip()
+        models = {"plate": tsmoke.plate_model(tsmoke.PLATE_BIG),
+                  "column": tsmoke.column_model(tsmoke.COL_BIG, tsmoke.COL_W, tsmoke.COL_T)}
+        out["k2"] = keyed_rows(tsmoke.k2_phase(models, smi))
+    elif part == "headline":
+        from fcvm_tpu_torch.tools import bench as tb
+
+        t_step, ndof, t_asm, iters, diag = tb.step_time(lambda: tb.build_plate(tb.PLATE_BIG),
+                                                        label="plate ")
+        print(f"headline plastic step of the plate ({ndof} dof): {1e3 * t_step:.2f} ms; "
+              f"elastic CG {iters}; launches {diag['launches']}")
+        out["headline"] = dict(step_ms=1e3 * t_step, ndof=ndof, assembly_s=t_asm,
+                               elastic_iters=iters, launches=diag["launches"],
+                               peak_mib=diag.get("peak_mib"))
     elif part == "cg":
-        spec = importlib.util.spec_from_file_location(
-            "tree_smoke", Path(tree).resolve() / "chip_smoke.py")
-        tsmoke = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(tsmoke)
+        tsmoke = tree_smoke(tree)
         rows = tsmoke.cg_kernel_phase({"plate": tsmoke.plate_model(tsmoke.PLATE_BIG)})
         out["cg"] = [{"kernel": k, "dtype": dt, "model": m, "variant": v, **row}
                      for (k, dt, m, v), row in rows.items()]

@@ -275,9 +275,10 @@ def test_segment_sum_write_form_matches_index_add_into_zeros(cuda, dtype, width)
 
 
 def test_residual_and_block_products_give_the_same_bits(cuda):
-    """The residual (stress update and internal force through K8) twice at
-    one state, and K_hat·V and the block-Jacobi blocks twice: the same
-    bits, float32, on the 3x3x3 box; K8 launched."""
+    """The residual (K2's element pass and node pass) twice at one state,
+    and K_hat·V and the block-Jacobi blocks twice: the same bits, float32,
+    on the 3x3x3 box; the node pass launched for each residual, K8 for
+    none."""
     be = TorchSystem(_tension_box(3), FcvmConfig(device="cuda", dtype="float32"),
                      torch.float32, cuda)
     coords = be.tensor(be.mesh.coords)
@@ -285,10 +286,11 @@ def test_residual_and_block_products_give_the_same_bits(cuda):
     gen = torch.Generator(device="cuda").manual_seed(4)
     du = 1e-3 * torch.randn(be.ndof_pad, generator=gen, device="cuda")
     sig_y, sig0 = be.gauss_full(100.0), be.gauss_zeros((6,))
-    launches = kernels.segment_sum.launches
+    launches = kernels.segment_sum.launches, kernels.node_force.launches
     res = [be.residual(coords, sig_y, torch.zeros_like(du), du, sig0, glv, 1.0, 1.0, 0.1)
            for _ in range(2)]
-    assert kernels.segment_sum.launches > launches
+    assert (kernels.segment_sum.launches, kernels.node_force.launches) == (
+        launches[0], launches[1] + 2)
     for a, b in zip(res[0], res[1]):
         assert torch.equal(a, b)
     sp = be.space
@@ -1467,9 +1469,10 @@ def test_stress_update_forms_take_a_float64_disp(cuda, large, monkeypatch):
 
 
 def test_driver_launches_stress_update_once_a_residual(cuda, monkeypatch):
-    """A GNL plastic run of the 3x3x3 box on the card launches K2 once for
-    each stress update and internal force the driver asks of its backend,
-    every residual among them, and for nothing else."""
+    """A GNL plastic run of the 3x3x3 box on the card launches K2's element
+    pass and its node pass once each for each stress update and internal
+    force the driver asks of its backend, every residual among them, and
+    for nothing else."""
     calls = {"n": 0}
     for name in ("residual", "residual_refined", "stress_update", "internal_force"):
         method = getattr(TorchSystem, name)
@@ -1481,11 +1484,110 @@ def test_driver_launches_stress_update_once_a_residual(cuda, monkeypatch):
         monkeypatch.setattr(TorchSystem, name, counted)
     params = ControlParams(sig_yield=60.0, nstep=3, error_max=1e-8, et_e=0.1, target_lf=99.0,
                            gnl="GNLY", max_imp=0.0)
-    launches = kernels.stress_update.launches
+    launches = kernels.stress_update.launches, kernels.node_force.launches
     res = solve_collapse(_tension_box(3), params, config=FcvmConfig(device="cuda",
                                                                      dtype="float64"))
     assert len(res.history.lbd) == 4 and max(res.history.peeqmax) > 0
-    assert kernels.stress_update.launches - launches == calls["n"] > 3
+    assert kernels.stress_update.launches - launches[0] == calls["n"] > 3
+    assert kernels.node_force.launches - launches[1] == calls["n"]
+
+
+def _k2_residual_inputs(dtype, seed=20):
+    """A load vector, a mask with 20% fixed dofs and the write-form node plan
+    over the dof vectors of :func:`_k2_inputs` (one node past the mesh)."""
+    (coords, eln, disp, sig), kw, weights = _k2_inputs(dtype, True, True)
+    rng = np.random.default_rng(seed)
+    nd = disp.shape[0]
+    glv = torch.as_tensor(rng.normal(scale=50.0, size=nd), device=coords.device).to(dtype)
+    fixmask = torch.as_tensor(rng.uniform(size=nd) > 0.2, device=coords.device).to(dtype)
+    plan = kernels.segment_plan(eln, rows=nd // 3)
+    return (coords, eln, disp, sig), kw, weights, glv, fixmask, plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_node_force_kernel_matches_plain(cuda, dtype):
+    """K2's node pass, the internal force: bit for bit K8's write form on the
+    same rows and plan, to TOL of its plain version (``index_add_``), zero in
+    the holes, one launch counted."""
+    (coords, eln, disp, sig), kw, weights, glv, fixmask, plan = _k2_residual_inputs(dtype)
+    elv = kernels.stress_update(coords, eln, disp, sig, True, weights=weights)
+    rows = disp.shape[0] // 3
+    launches = kernels.node_force.launches
+    qin = kernels.node_force(elv, plan, rows=rows)
+    torch.cuda.synchronize()
+    assert kernels.node_force.launches == launches + 1
+    k8 = kernels.segment_sum(elv.reshape(-1, 3).contiguous(), plan, rows=rows).reshape(-1)
+    assert torch.equal(qin, k8)
+    want = kernels.node_force_ref(elv, plan, rows)
+    assert _rel(qin, want) <= TOL[dtype]
+    assert torch.equal(qin.reshape(-1, 3)[plan.holes.long()],
+                       torch.zeros((plan.holes.shape[0], 3), dtype=dtype, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("large", [False, True], ids=["small_strain", "gnl"])
+@pytest.mark.parametrize("per_element", [False, True], ids=["one_d", "per_element_d"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+def test_residual_matches_the_unfused_composition(cuda, dtype, large, per_element, weighted):
+    """K2's two passes as one residual (``kernels.stress_residual_bound``,
+    relax 0.7) against the unfused composition on the card (the element pass, K8's
+    write form, the torch tail): sig_new, sig_test, pgp, qin and r bit for
+    bit, error within 4 ulps; against the plain version to TOL; two calls the
+    same bits; one launch of each pass a call."""
+    (coords, eln, disp, sig), kw, weights, glv, fixmask, plan = _k2_residual_inputs(dtype)
+    if not per_element:
+        args, kw, _ = _k2_inputs(dtype, large, False)
+        coords, eln, disp, sig = args
+    w = weights if weighted else None
+    lbd1, qnorm, relax = 1.3, 7.0, 0.7
+    mats = dict(dmat=kw["dmat"], g=kw["g"], h=kw["h"])
+    launches = kernels.stress_update.launches, kernels.node_force.launches
+    k2 = kernels.stress_residual_bound(eln, plan, fixmask, weights=w, **mats)
+    got = [k2(coords, disp, kw["du"], sig, kw["sig_yield"], glv, lbd1, qnorm, large, relax)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (kernels.stress_update.launches, kernels.node_force.launches) == (
+        launches[0] + 2, launches[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    got = got[0]
+    sig_new, sig_test, pgp, elv = kernels.stress_update(coords, eln, disp, sig, large,
+                                                        weights=w, **kw)
+    qin = kernels.segment_sum(elv.reshape(-1, 3).contiguous(), plan,
+                              rows=disp.shape[0] // 3).reshape(-1)
+    lbd = torch.as_tensor(lbd1, dtype=torch.float64, device=cuda).to(dtype)
+    raw = fixmask * (lbd * glv - qin)
+    error = torch.linalg.vector_norm(raw) / qnorm
+    for a, b in zip(got[:5], (sig_new, sig_test, pgp, qin, relax * raw)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[5].dim() == 0 and got[5].dtype == dtype
+    ulp = torch.finfo(dtype).eps * abs(float(error))
+    assert abs(float(got[5]) - float(error)) <= 4 * ulp
+    plain = kernels.stress_residual_ref(coords, eln, disp, kw["du"], sig, kw["sig_yield"], glv,
+                                        fixmask, lbd1, qnorm, large, relax, plan=plan,
+                                        weights=w, **mats)
+    for a, b in zip(got, plain):
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b)
+        else:
+            assert _rel(a, b) <= TOL[dtype]
+
+
+def test_residual_rejects_what_it_does_not_take(cuda):
+    (coords, eln, disp, sig), kw, weights, glv, fixmask, plan = _k2_residual_inputs(
+        torch.float32)
+    mats = dict(dmat=kw["dmat"], g=kw["g"], h=kw["h"])
+    bad = (TypeError, ValueError, RuntimeError)
+    with pytest.raises(ValueError):  # a plan of other rows
+        kernels.stress_residual_bound(eln, kernels.segment_plan(eln), fixmask, **mats)
+    with pytest.raises(bad):
+        kernels.stress_residual_bound(eln, plan, fixmask.double(), **mats)
+    with pytest.raises(ValueError):
+        kernels.stress_residual_bound(eln, plan, fixmask.cpu(), **mats)
+    k2 = kernels.stress_residual_bound(eln, plan, fixmask, **mats)
+    with pytest.raises(bad):  # glv of another length
+        k2(coords, disp, kw["du"], sig, kw["sig_yield"], glv[:-3], 1.0, 1.0)
+    with pytest.raises(bad):
+        k2(coords, disp, kw["du"], sig, kw["sig_yield"], glv.double(), 1.0, 1.0)
 
 
 # -- the bench's sharded row and the float32 Newton floor under it -----------------
@@ -1529,11 +1631,21 @@ def test_sharded_rows_float32_newton_floor(cuda):
     assert floors[0] * tb.FIRST_STEP_MARGIN <= tb.SHARDED_PARAMS["error_max"]
 
 
+def _plain_residual_bound(elnodes, plan, fixmask, dmat, g, h, *, weights=None, table=None):
+    """``kernels.stress_residual_bound`` with its plain version on the card."""
+    def k2(coords, disp, du, sig_old, sig_yield, glv, lbd1, qnorm, large_disp=False, relax=1.0):
+        return kernels.stress_residual_ref(coords, elnodes, disp, du, sig_old, sig_yield, glv,
+                                           fixmask, lbd1, qnorm, large_disp, relax, dmat=dmat,
+                                           g=g, h=h, plan=plan, weights=weights)
+    return k2
+
+
 def test_sharded_row_passes_with_the_plain_stress_update_on_the_local_path(cuda, monkeypatch):
-    """The bench's sharded row with the local run's stress update from K2's
-    plain version (the sum order of the chain the path ran before K2) and
-    the sharded run's from K2: a row that judges parity, not rounding,
-    passes under both orders.  Its record is printed as one JSON line."""
+    """The bench's sharded row with the local run's stress update and
+    residual from K2's plain versions (the sum order of the chain the path
+    ran before K2) and the sharded run's from K2: a row that judges parity,
+    not rounding, passes under both orders.  Its record is printed as one
+    JSON line."""
     import json
 
     from fcvm_tpu_torch.tools import bench as tb
@@ -1544,11 +1656,15 @@ def test_sharded_row_passes_with_the_plain_stress_update_on_the_local_path(cuda,
     def plain_local(model, params, **kw):
         if kw["config"].force_sharded:
             return run(model, params, **kw)
-        launches = kernels.stress_update.launches
+        launches = kernels.stress_update.launches + kernels.node_force.launches
         with monkeypatch.context() as m:
             m.setattr(kernels, "stress_update", kernels.stress_update_ref)
+            m.setattr(kernels, "node_force",
+                      lambda elv, plan, rows: kernels.node_force_ref(elv, plan, rows))
+            m.setattr(kernels, "stress_residual_bound", _plain_residual_bound)
             out = run(model, params, **kw)
-        local_launches.append(kernels.stress_update.launches - launches)
+        local_launches.append(kernels.stress_update.launches + kernels.node_force.launches
+                              - launches)
         return out
 
     monkeypatch.setattr(tb, "solve_collapse", plain_local)

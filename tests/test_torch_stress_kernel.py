@@ -6,7 +6,8 @@
   per-element D and E, plastic and elastic points, and element weights with
   zeros against the JAX force of the mesh without those elements.
 * A NumPy transcription of the kernel's own formulation (``csrc/stress_update.cu``:
-  a Gauss point at a time, dN/dx from J^-1 and the kernel's table with no B,
+  node k of element e from its int32 node table at k ne + e, a Gauss point
+  at a time, dN/dx from J^-1 and the kernel's table with no B,
   the Gauss points' rows added as (g0 + g1) + (g2 + g3)) against the JAX
   package's per-element update, to ``RTOL``: the index check of the kernel
   that runs without a card.  The table is read from the kernel's source.
@@ -192,13 +193,16 @@ def _transcribed(coords, eln, disp, sig, large, du=None, dmat=None, sy=None, g=N
                  weights=None):
     """The kernel's steps for every element at once (arrays over elements),
     one Gauss point at a time: (sig_new, sig_test, pgp, elv), or elv alone
-    without ``du``."""
+    without ``du``.  The node ids come from the kernel's int32 node table,
+    node k of element e at k ne + e."""
     table, weight = _kernel_table()
     ne = eln.shape[0]
-    x = coords[eln]  # (ne, 10, 3)
+    nodes = kernels.element_table(ti(eln)).numpy().reshape(-1)
+    node = nodes[np.arange(10)[None, :] * ne + np.arange(ne)[:, None]]  # (ne, 10)
+    x = coords[node]  # (ne, 10, 3)
     if large:
-        x = x + disp.reshape(-1, 3)[eln]
-    u = None if du is None else du.reshape(-1, 3)[eln]
+        x = x + disp.reshape(-1, 3)[node]
+    u = None if du is None else du.reshape(-1, 3)[node]
     dm = dmat if dmat is None or dmat.ndim == 3 else np.broadcast_to(dmat, (ne, 6, 6))
     new, test, pgp = np.zeros((ne, 4, 6)), np.zeros((ne, 4, 6)), np.zeros((ne, 4), bool)
     rows = np.zeros((4, ne, 10, 3))
