@@ -68,16 +68,19 @@ Phases, each printing its numbers before the next starts:
    two passes (torch.profiler);
 3e. K6 (``cg_iteration``), the rest of a CG iteration: each of its two
    passes (the update; the direction) and their start forms on the plate's
-   vectors (float32 and float64, float32 with a 32-vector deflation space
-   and with a 64-slot harvest) and the beam-column's block at m = 8 (both
-   dtypes, a third of the columns frozen) against its plain version (the
+   vectors (float32 and float64, float32 with a 32-vector deflation space,
+   that space on the block form at m = 1, and with a 64-slot harvest) and
+   the beam-column's block at m = 8 (both dtypes, a third of the columns
+   frozen), undeflated and deflated by 64 vectors at m = 2 to 8 in both
+   dtypes (the eigensolve's block fold), against its plain version on
+   inputs whose W c is of the size of z (the
    counters, flags and harvested residuals bit for bit, x, r and p bit for
    bit as the plain updates make them with the kernel's own step lengths,
    the sums and a deflated direction to the tolerance, z never written)
    and bit for bit against a second launch; one iteration's two passes
    timed against their plain versions, their bound (10 vectors), the torch
    chain they replaced and (deflated) the three torch products of the
-   correction, with each pass's device time, beside the four-pass design's;
+   correction, with each pass's device time;
    then one elastic solve of the plate at each ``CG_BATCH`` of
    ``K6_BATCHES``, in turns: the same bits and count at every batch, at
    most ceil(iters / batch) + 2 host reads, the wall time per iteration;
@@ -140,15 +143,19 @@ Phases, each printing its numbers before the next starts:
    within 3% of the clamped-free Euler value, the imperfection applied
    exactly, every step converged below the squash factor, and K1, K4, K8,
    K1m and K4m launched on the path, K0m not (K1, K4 and K8 by dtype, K1m
-   and K4m by dtype and column count); its peak device memory;
+   and K4m by dtype and column count), K6 in its deflated block form (by
+   form: as in 9c and 13); its peak device memory;
 9b. the eigensolve in pieces on the same mesh: CUDA-event times of the
    geometric-block formation, one K_hat·V and one -G_hat·V at m = 8 through
    K1m and through the chain it replaced, the block preconditioner apply
    through K4m, through the steps it replaced and as 8 vector applies, and
    one pcg_block iteration through each against one pcg iteration (wall,
    host sync included); one pcg_block iteration deflated by the
-   eigensolve's own space (kd = 64) and that deflation's three torch
-   products alone (the block fold the eigensolve leaves to torch);
+   eigensolve's own space (kd = 64), the correction folded into K6's
+   passes (``defl=``), beside the same iteration with the preconditioner
+   wrapped in ``deflation.deflated`` and that deflation's three torch
+   products alone; a profile of 8 more folded iterations: no torch kernel
+   beyond the undeflated iteration's (no product for the correction);
 9c. phase 9 with the cluster smoother (``smoother="cluster"``), its checks,
    against phase 9: the eigensolve's tier, sweeps and inner CG iterations,
    the factors, the stepping and the peak device memory (the smoother's
@@ -224,6 +231,7 @@ with its launches, error and times.
 from __future__ import annotations
 
 import faulthandler
+import inspect
 import itertools
 import json
 import math
@@ -373,6 +381,25 @@ def device_ms_by_kernel(fn, *args, calls=10, tries=3):
     return dict(out)
 
 
+def kernel_launches(fn, *args):
+    """``(port, other)``: ``{kernel name: launches}`` of the CUDA kernels
+    torch.profiler records over one call of ``fn``, the port's (the
+    functions in the anonymous namespaces of ``fcvm_tpu_torch/csrc``) and
+    every other (PyTorch's, cuBLAS's), each named as in
+    ``device_ms_by_kernel``."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    port, other = Counter(), Counter()
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.key.split("<")[0].split("::")[-1].split("(")[0].split()[-1]
+            ours = ev.key.removeprefix("void ").startswith("(anonymous namespace)::")
+            (port if ours else other)[name] += ev.count
+    return port, other
+
+
 # the kernels of the solver's paths: K1 and K4 in every CG iteration (the
 # vector paths), K8 in every residual and build, K1m in the block products
 # (the eigensolve, the deflation builds), K4m in the eigensolve's block
@@ -402,6 +429,7 @@ def reset_launches():
         getattr(fn, "shapes" if name in BY_SHAPE else "dtypes").clear()
     getattr(kernels.segment_sum, "paths", Counter()).clear()
     getattr(kernels.cg_iteration, "passes", Counter()).clear()
+    getattr(kernels.cg_iteration, "forms", Counter()).clear()
     getattr(kernels.stress_update, "forms", Counter()).clear()
     getattr(kernels.node_force, "forms", Counter()).clear()
 
@@ -449,7 +477,8 @@ def k6_two_passes(launches, stats, label):
 def read_launches():
     """``({kernel: launches}, {kernel: {dtype: launches}})`` of the path
     kernels; K0m's, K1m's and K4m's by dtype and column count; K8's also by
-    form and path (``"segment_sum paths"``)."""
+    form and path (``"segment_sum paths"``), K6's by pass and by its plan's
+    form (``"cg_iteration forms"``)."""
     from fcvm_tpu_torch.ops import kernels
 
     counts = {name: getattr(kernels, name).launches for name in PATH_KERNELS}
@@ -460,6 +489,7 @@ def read_launches():
                     for (dt, m), n in sorted(getattr(kernels, name).shapes.items())}
     by["segment_sum paths"] = dict(getattr(kernels.segment_sum, "paths", {}))
     by["cg_iteration passes"] = dict(getattr(kernels.cg_iteration, "passes", {}))
+    by["cg_iteration forms"] = dict(getattr(kernels.cg_iteration, "forms", {}))
     by["stress_update forms"] = dict(getattr(kernels.stress_update, "forms", {}))
     by["node_force forms"] = dict(getattr(kernels.node_force, "forms", {}))
     return counts, by
@@ -1354,16 +1384,32 @@ K6_BATCHES = (1, 2, 4, 8, 16, 32)  # the CG_BATCH sweep of phase 3e
 # the paths' forms: the plate's vectors, the eigensolve's block at m = 8 and
 # at the widths its block solves drop to as their columns finish
 K6_CASES = (("plate", torch.float32, "vector"), ("plate", torch.float64, "vector"),
-            ("plate", torch.float32, "deflated"), ("plate", torch.float32, "harvest"),
+            ("plate", torch.float32, "deflated"), ("plate", torch.float32, "m=1 deflated"),
+            ("plate", torch.float32, "harvest"),
             ("column", torch.float32, "m=8"), ("column", torch.float64, "m=8"),
-            *(("column", torch.float32, f"m={m}") for m in (7, 6, 5, 4, 3, 2)))
+            *(("column", torch.float32, f"m={m}") for m in (7, 6, 5, 4, 3, 2)),
+            *(("column", dtype, f"m={m} deflated") for dtype in (torch.float32, torch.float64)
+              for m in (8, 7, 6, 5, 4, 3, 2)))
+# deflation vectors: the plate's (the driver's space; its m = 1 block form
+# beside the vector form), the beam-column's (the eigensolve's)
+K6_KD = {"plate": 32, "column": 64}
 
 
-def k6_inputs(n, m, dtype, defl=False, harvest=False, seed=16):
+def k6_form(name, form):
+    """(m (0: a vector), kd, harvest) of a ``K6_CASES`` model and form."""
+    m = int(form[2:].split()[0]) if form.startswith("m=") else 0
+    kd = K6_KD[name] if form.endswith("deflated") else 0
+    return m, kd, form == "harvest"
+
+
+def k6_inputs(n, m, dtype, defl=False, harvest=False, seed=16, kd=32, held=False):
     """A K6 plan of n rows (a vector for m = 0, else m columns) mid-solve on
     the card, and seeded x, r, p and v: a running state that stays running
     (no tolerance, gate or iteration cap in reach), every third column of a
-    block frozen; with ``defl`` a 32-vector space, with ``harvest`` 64 slots."""
+    block frozen; with ``defl`` a ``kd``-vector space, with ``harvest`` 64
+    slots.  W c is of the size of z / sqrt(n), so the iterates stay finite
+    however many passes are timed; with ``held``, of the size of z itself,
+    so a direction pass's W c is held through p to the tolerance of z."""
     from fcvm_tpu_torch.ops import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1373,15 +1419,16 @@ def k6_inputs(n, m, dtype, defl=False, harvest=False, seed=16):
                            device="cuda", dtype=dtype)
 
     dfl = hv = None
-    if defl:  # W c of the size of z / sqrt(n): the iterates stay finite however many passes run
-        a = torch.randn((32, 32), generator=gen, device="cuda", dtype=dtype)
-        dfl = (vec(n, 32) / math.sqrt(n), a @ a.T / 32)
+    if defl:  # W c ~ |W|^2 kd sqrt(n) |r|: a scale of W for each of the two sizes
+        a = torch.randn((kd, kd), generator=gen, device="cuda", dtype=dtype)
+        scale = 2.0 / math.sqrt(kd * math.sqrt(n)) if held else 1.0 / math.sqrt(n)
+        dfl = (vec(n, kd) * scale, a @ a.T / kd)
     if harvest:
         hv = (torch.zeros((64, n), dtype=dtype, device="cuda"),
               torch.zeros((3, 64), dtype=dtype, device="cuda"))
     plan = kernels.cg_plan(vec(), 0.0, 0.0, 1e15, 1e15, dfl, hv)
-    if defl:  # the c a four-pass tree reads in its r.z pass
-        plan.c.copy_(vec(32))
+    if defl:  # a c before any pass
+        plan.c.copy_(vec(*plan.c.shape))
     st, cols = plan.state, plan.state.shape[0]
     st[:, kernels.SLOT_RZ] = float(n)
     st[:, kernels.SLOT_ALPHA] = 0.25
@@ -1455,6 +1502,8 @@ def k6_compare(plan, vecs):
             same &= bool(torch.equal(pk.state[:, exact], pr.state[:, exact]))
             if deflated:
                 rel = max(rel, err(pk.c, pr.c))
+            elif plan.w is not None and getattr(plan, "block", False):  # the update pass's c
+                rel = max(rel, err(pk.c, pk.kw_inv @ (pk.w.T @ vk[1])))
             if plan.zs is not None:
                 same &= bool(torch.equal(pk.zs, pr.zs))
                 rel = max(rel, err(pk.coef, pr.coef))
@@ -1493,16 +1542,20 @@ def k6_chain(plan, vecs):
     return one
 
 
-def k6_times(models, compare=True):
+def k6_times(models, compare=True, skip_missing=False):
     """K6 (``cg_iteration``) on the plate's vectors (float32 and float64;
     float32 with a 32-vector deflation space and with a 64-slot harvest)
-    and the beam-column's block at m = 8 (float32, float64): with
+    and the beam-column's block at m = 2 to 8 (float32; float64 at m = 8),
+    deflated by 64 vectors at m = 2 to 8 (float32, float64): with
     ``compare``, each pass and its start form against its plain version
     (``k6_compare``); one iteration's passes (as many as the tree's
     ``CG_PASSES``) timed with CUDA events and each pass's device time
     (torch.profiler), against their plain versions, their bound, the torch
     chain they replaced and (deflated) the deflation's three torch products
-    (the parent design's times: ``tools/turns.py TREE k6``).  Returns
+    (the parent design's times: ``tools/turns.py TREE k6``, which sets
+    ``skip_missing``, so a tree whose plan refuses a form skips it; else a
+    refused form fails).  The comparison runs on inputs whose W c is of the
+    size of z (``k6_inputs``'s ``held``), the timings on their own.  Returns
     ``{(dtype, model, form): numbers}``."""
     from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.utils.indexing import pad_ndof
@@ -1513,9 +1566,23 @@ def k6_times(models, compare=True):
         dname, size = str(dtype).removeprefix("torch."), torch.finfo(dtype).bits // 8
         tol = TOL_F32 if dtype == torch.float32 else TOL_F64
         n = pad_ndof(models[name].mesh.ndof)
-        m = int(form[2:]) if form.startswith("m=") else 0
-        plan, vecs = k6_inputs(n, m, dtype, form == "deflated", form == "harvest")
-        rel, abs_err, same = k6_compare(plan, vecs) if compare else (None, None, None)
+        m, kd, harvest = k6_form(name, form)
+        try:
+            plan, vecs = k6_inputs(n, m, dtype, kd > 0, harvest, kd=kd or 32)
+        except ValueError as err:
+            if not skip_missing:
+                raise
+            print(f"K6 {dname} {name} {form}: not in this tree ({err})")  # an older tree's plan
+            continue
+        rel, abs_err, same, wc_z = None, None, None, None
+        if compare:
+            held = k6_inputs(n, m, dtype, kd > 0, harvest, kd=kd or 32, held=True)
+            if kd:  # the size of the W c that the comparison holds, against z's
+                hp, (_, hr, _, hv) = held
+                wc_z = float((hp.w @ (hp.kw_inv @ (hp.w.T @ hr))).abs().max() / hv.abs().max())
+                del hp, hr, hv
+            rel, abs_err, same = k6_compare(*held)
+            del held
         x, r, p, v = vecs
 
         def iteration():
@@ -1531,11 +1598,15 @@ def k6_times(models, compare=True):
                    plain_ms=cuda_ms(plain), chain_ms=cuda_ms(k6_chain(plan, vecs)),
                    library_ms=None, grid=getattr(plan, "grid", None))
         # 10 vectors of n m values an iteration (the update: p, ap, r, r; the
-        # direction: r, z, p, x, x, p); deflated W twice; a harvest z once more
-        nvec = 10 * max(m, 1) + (64 if form == "deflated" else 0) + (form == "harvest")
-        row["bound_ms"], row["bound_by"] = bound(nvec * n * size, 10 * n * max(m, 1), dtype)
+        # direction: r, z, p, x, x, p); deflated W twice (and its two
+        # products' 4 n kd m operations); a harvest z once more
+        nvec = 10 * max(m, 1) + 2 * kd + harvest
+        row["kd"], row["wc_over_z"] = kd, wc_z
+        row["bound_ms"], row["bound_by"] = bound(nvec * n * size,
+                                                 10 * n * max(m, 1) + 4 * n * kd * max(m, 1),
+                                                 dtype)
         extra = ""
-        if form == "deflated":
+        if kd:
             w, kw_inv = plan.w, plan.kw_inv
             row["defl_products_ms"] = cuda_ms(lambda: v + w @ (kw_inv @ (w.T @ r)))
             extra = (f", the deflation's three torch products (with the add) "
@@ -1555,7 +1626,9 @@ def k6_times(models, compare=True):
         dev_text, share = ("not recorded", "") if dev is None else (
             f"{dev:.4f} ms", f"{row['bound_ms'] / dev:.1%} of the device time, ")
         checked = "" if not compare else (
-            f"max rel err {rel:.3e} (limit {tol:g}), updates, counters, flags and second launch "
+            f"max rel err {rel:.3e} (limit {tol:g}"
+            f"{'' if wc_z is None else f'; max |W c| / max |z| {wc_z:.3f}'}), "
+            f"updates, counters, flags and second launch "
             f"{'the same bits' if same else 'DIFFERENT BITS'}; ")
         print(f"K6 {dname} {name} {form} n={n} (grid {row['grid']}): {checked}{passes} passes "
               f"{ms:.4f} ms (CUDA events), device time {dev_text}; plain "
@@ -1566,6 +1639,8 @@ def k6_times(models, compare=True):
         print(f"  device time per pass: " + ", ".join(
             f"{k} {v_:.4f} ms" for k, v_ in sorted(row["pass_device_ms"].items())))
         if compare:
+            check(wc_z is None or wc_z >= 0.1,
+                  f"K6's comparison holds a W c too small against z ({dname}, {name}, {form})")
             check(rel <= tol, f"K6 disagrees with its plain version ({dname}, {name}, {form})")
             check(same, f"K6's bits differ from its plain version's or a second launch's "
                         f"({dname}, {name}, {form})")
@@ -1585,6 +1660,9 @@ def k6_phase(models):
     from fcvm_tpu_torch.runtime.backend import TorchSystem
 
     rows = k6_times(models)
+    missing = [(str(dt).removeprefix("torch."), name, form) for name, dt, form in K6_CASES
+               if (str(dt).removeprefix("torch."), name, form) not in rows]
+    check(not missing, f"phase 3e: K6 forms without a row: {missing}")
 
     # CG_BATCH: one elastic solve of the plate at each batch, in turns
     big = models["plate"]
@@ -2218,8 +2296,10 @@ def run_column(cfg, nstep=COL_NSTEP, label="phase 9", required=(*CG_KERNELS, *BL
     """Drive ``solve_collapse`` on the imperfect beam-column at 451,875 dof
     (buckling, seeding, ``nstep`` GNL steps) with the launch counts set to
     0 just before it; print the eigensolve and the steps, apply the checks
-    (the kernels ``required`` launched, those ``absent`` not) and return
-    the launch counts, the times, the factors and the peak device memory."""
+    (the kernels ``required`` launched, those ``absent`` not, and where the
+    tree counts K6 by form, K6's deflated block form: the eigensolve's
+    solves deflated by its Ritz space) and return the launch counts, the
+    times, the factors and the peak device memory."""
     from fcvm_tpu_torch import solve_collapse
     from fcvm_tpu_torch.ops.solver import ScipyDirectSolver
 
@@ -2290,6 +2370,12 @@ def run_column(cfg, nstep=COL_NSTEP, label="phase 9", required=(*CG_KERNELS, *BL
     check(all(launches[k] > 0 for k in required),
           f"{label}: {required} not all launched on the path")
     check(all(launches[k] == 0 for k in absent), f"{label}: {absent} launched on the path")
+    from fcvm_tpu_torch.ops import kernels
+
+    if hasattr(kernels.cg_iteration, "forms"):  # a tree that counts K6 by form
+        check(by_dtype["cg_iteration forms"].get("block deflated", 0) > 0,
+              f"{label}: K6's deflated block form was not launched (harvests "
+              f"{[r['harvest'] for r in tiers]})")
     print(f"launches by dtype (K0m, K1m and K4m by dtype and m) {by_dtype}")
     inner = sum(sum(map(sum, r["inner_iters"])) for r in tiers)
     print(f"CG loop, eigensolve (block iterations and their columns' inner CG {inner}): "
@@ -2309,10 +2395,14 @@ def column_breakdown(cfg):
     pcg_block iteration through each against one pcg iteration (wall time
     per iteration over 20 iterations, host syncs included); then one
     pcg_block iteration deflated by the eigensolve's own space (a harvest of
-    the first column, kd Ritz vectors) and that deflation's three torch
-    products alone.  A tree without
-    K1m (``tools/turns.py``) times its own path, the chain.  Returns the
-    rows."""
+    the first column, kd Ritz vectors), folded into K6's passes
+    (``pcg_block(defl=)``), against the same iteration with the
+    preconditioner wrapped in ``deflation.deflated`` and that deflation's
+    three torch products alone; then the kernels 8 more iterations launch
+    (torch.profiler): the folded ones no torch kernel beyond the undeflated
+    iteration's (checked), the wrapped ones the products'.  A tree without
+    K1m (``tools/turns.py``) times its own path, the chain; a tree without
+    the fold, the wrapped iteration alone.  Returns the rows."""
     from fcvm_tpu_torch.ops import assembly as asm
     from fcvm_tpu_torch.ops import deflation as dfl
     from fcvm_tpu_torch.ops import kernels
@@ -2420,12 +2510,39 @@ def column_breakdown(cfg):
     del h, res0
     kd = space.w.shape[1]
     deflated = dfl.deflated(new["apply"], space)
+    folds = "defl" in inspect.signature(slv.pcg_block).parameters
+
+    def wrapped(iters):
+        return slv.pcg_block(new["kmv"], b, precond=deflated, rtol=1e-10, maxiter=iters)
+
+    def folded(iters):
+        return slv.pcg_block(new["kmv"], b, precond=new["apply"], rtol=1e-10, maxiter=iters,
+                             defl=space)
+
+    if folds:
+        folded(1)
+        rows.append((f"pcg_block iteration, m = 8 (wall), deflated by the eigensolve's space, "
+                     f"folded into K6's passes (kd = {kd}, {nstore} slots harvested)",
+                     per_iteration(folded)))
     rows += [(f"pcg_block iteration, m = 8 (wall), deflated by the eigensolve's space (kd = "
-              f"{kd}, {nstore} slots harvested)",
-              per_iteration(lambda iters: slv.pcg_block(new["kmv"], b, precond=deflated,
-                                                        rtol=1e-10, maxiter=iters))),
+              f"{kd}, {nstore} slots harvested)", per_iteration(wrapped)),
              (f"the deflation's three torch products alone, m = 8, kd = {kd}",
               cuda_ms(lambda: space.w @ (space.kw_inv @ (space.w.T @ v))))]
+    if folds:  # the kernels of 8 iterations: 9 less 1, the same start and reads
+        def per_8(solve):
+            (p9, o9), (p1, o1) = kernel_launches(solve, 9), kernel_launches(solve, 1)
+            return p9 - p1, o9 - o1
+
+        fp, fo = per_8(folded)
+        _, uo = per_8(block(new))
+        _, wo = per_8(wrapped)
+        print(f"kernels of 8 more pcg_block iterations, m = 8 (torch.profiler): folded: the "
+              f"port's {dict(fp)}, others {dict(fo)}; undeflated: others {dict(uo)}; wrapped in "
+              f"deflation.deflated: others {dict(wo)}")
+        check(fp["cg_pass_update_kernel"] >= 8 and fp["cg_pass_direction_kernel"] >= 8,
+              "phase 9b: the profile of the folded iterations recorded no K6 pass")
+        check(fo == uo, f"phase 9b: the folded deflated iterations launched torch kernels beyond "
+                        f"the undeflated ones' ({dict(fo - uo)})")
     del space, deflated
     print("CUDA-event times, median of 20 runs unless marked:")
     for name, ms in rows:
@@ -3463,11 +3580,17 @@ def main():
         "replaces": "fcvm_tpu/ops/solver.py:107",
         "replaces_also": "the body and cond of the lax.while_loop of pcg and pcg_harvest "
                          "(fcvm_tpu/ops/solver.py:107-122, :175-197), the products of "
-                         "fcvm_tpu/ops/deflation.py:74 (deflated), the same body under the vmap "
-                         "of fcvm_tpu/runtime/buckling.py:552; XLA-lowered",
+                         "fcvm_tpu/ops/deflation.py:74 (deflated), the same body and those "
+                         "products under the vmap of fcvm_tpu/runtime/buckling.py:552 (the "
+                         "block form, deflated by the eigensolve's Ritz space); XLA-lowered",
         "launches": off["launches"]["cg_iteration"], **path_launches("cg_iteration"),
         "launches_by_pass": {k: v["by_dtype"]["cg_iteration passes"] for k, v in paths.items()
                              if "by_dtype" in v},
+        "launches_by_form": {k: v["by_dtype"]["cg_iteration forms"] for k, v in paths.items()
+                             if "by_dtype" in v},
+        "block_deflated": {"form": "m=8 deflated", "kd": K6_KD["column"],
+                           "float32": k6[("float32", "column", "m=8 deflated")],
+                           "float64": k6[("float64", "column", "m=8 deflated")]},
         "host_loop": "the sharded backend's node-partitioned PCG (config.node_partition, in "
                      "no phase) passes its own inner product and keeps the host loop",
         "dtype": "float32", "model": "plate", "form": "vector",

@@ -112,16 +112,16 @@ extern "C" int fcvm_coarse_product_f32(const float* tiles, const float* x, float
 extern "C" int fcvm_coarse_product_f64(const double* tiles, const double* x, double* y,
                                        double* sv, double* su, long long n, int m, int nruns,
                                        int maxseg, void* stream);
-extern "C" int fcvm_cg_grid(int itemsize, long long n, int m);
-extern "C" void fcvm_cg_layout(int grid, int m, int kd, long long* out);
+extern "C" int fcvm_cg_grid(int itemsize, long long n, int m, int kd, int block);
+extern "C" void fcvm_cg_layout(int grid, int m, int kd, long long n, int block, long long* out);
 extern "C" int fcvm_cg_pass_f32(int step, int start, double* st, float* part, unsigned* bar,
                                 float* x, float* r, float* p, float* v, const float* w,
                                 const float* kw_inv, float* zs, float* coef, long long n, int m,
-                                int kd, int nstore, int grid, void* stream);
+                                int kd, int nstore, int block, int grid, void* stream);
 extern "C" int fcvm_cg_pass_f64(int step, int start, double* st, double* part, unsigned* bar,
                                 double* x, double* r, double* p, double* v, const double* w,
                                 const double* kw_inv, double* zs, double* coef, long long n,
-                                int m, int kd, int nstore, int grid, void* stream);
+                                int m, int kd, int nstore, int block, int grid, void* stream);
 extern "C" int fcvm_stress_update_f32(const float* coords, const int* table,
                                       const float* disp, const float* du, const float* sig,
                                       const float* sig_yield, const float* dmat,
@@ -669,30 +669,37 @@ at::Tensor two_level_apply_block(const at::Tensor& pinv, const at::Tensor& qmat,
 }
 
 // K6: the blocks of its resident grid for an (n, m) solve of `itemsize`-byte
-// values on the current device.
-int64_t cg_grid(int64_t itemsize, int64_t n, int64_t m) {
-  TORCH_CHECK((itemsize == 4 || itemsize == 8) && n >= 0 && m >= 1 && m <= 64,
-              "cg_grid: expected itemsize 4 or 8, n >= 0 and 1 <= m <= 64");
-  return fcvm_cg_grid(static_cast<int>(itemsize), n, static_cast<int>(m));
+// values on the current device (block: an (n, m) block, deflated by kd
+// vectors).
+int64_t cg_grid(int64_t itemsize, int64_t n, int64_t m, int64_t kd, bool block) {
+  TORCH_CHECK((itemsize == 4 || itemsize == 8) && n >= 0 && m >= 1 && m <= 64 && kd >= 0 &&
+                  kd <= 64,
+              "cg_grid: expected itemsize 4 or 8, n >= 0, 1 <= m <= 64 and 0 <= kd <= 64");
+  return fcvm_cg_grid(static_cast<int>(itemsize), n, static_cast<int>(m), static_cast<int>(kd),
+                      block ? 1 : 0);
 }
 
 // K6: the offsets, in values, of its scratch's regions for a grid of `grid`
 // blocks on m columns with kd deflation vectors (||r||^2 partials, W^T r
-// partials, c) and its size.
-std::vector<int64_t> cg_layout(int64_t grid, int64_t m, int64_t kd) {
-  TORCH_CHECK(grid >= 1 && grid <= 0x7fffffff && m >= 1 && m <= 64 && kd >= 0 && kd <= 32,
-              "cg_layout: expected grid >= 1, 1 <= m <= 64 and 0 <= kd <= 32");
-  long long out[4];
-  fcvm_cg_layout(static_cast<int>(grid), static_cast<int>(m), static_cast<int>(kd), out);
-  return {out[0], out[1], out[2], out[3]};
+// partials, c), its size, and the offset of a deflated block's z (n rows:
+// its size counts them).
+std::vector<int64_t> cg_layout(int64_t grid, int64_t m, int64_t kd, int64_t n, bool block) {
+  TORCH_CHECK(grid >= 1 && grid <= 0x7fffffff && m >= 1 && m <= 64 && kd >= 0 &&
+                  kd <= (block ? 64 : 32) && n >= 0,
+              "cg_layout: expected grid >= 1, 1 <= m <= 64, n >= 0 and 0 <= kd <= 32 (64 on a "
+              "block)");
+  long long out[5];
+  fcvm_cg_layout(static_cast<int>(grid), static_cast<int>(m), static_cast<int>(kd), n,
+                 block ? 1 : 0, out);
+  return {out[0], out[1], out[2], out[3], out[4]};
 }
 
 // K6: pass `step` (0: the update, 1: the direction) of a CG iteration on
 // state (m, 16) float64, in place, a cooperative launch of `grid` blocks;
 // x, r, p, v (n,) for m = 1 or (n, m); v is ap for step 0, z for step 1.
-// Deflation (w (n, kd), kw_inv (kd, kd), kd a multiple of 4, w 16-byte
-// aligned) and the harvest (zs (nstore, n), coef (3, nstore)) only for m =
-// 1.  Tensors a pass does not read may be any of the vectors.  Returns the
+// Deflation: w (n, kd), kw_inv (kd, kd), kd a multiple of 4 up to 32 on a
+// vector, 64 on a block, w 16-byte aligned; the harvest (zs (nstore, n),
+// coef (3, nstore)) only on a vector.  Tensors a pass does not read may be any of the vectors.  Returns the
 // launch's CUDA error (0: launched), which the caller turns into an
 // exception: a refused launch (a grid past residency) is not thrown from
 // here.
@@ -737,17 +744,17 @@ int64_t cg_pass(int64_t step, bool start, const at::Tensor& state, const at::Ten
               "with m");
   TORCH_CHECK(!w == !kw_inv && !zs == !coef, "cg_pass: give w with kw_inv, zs with coef");
   const long long kd = w ? w->size(w->dim() - 1) : 0;
-  TORCH_CHECK(!w || (vec && w->dim() == 2 && w->size(0) == n && kd >= 4 && kd <= 32 &&
+  TORCH_CHECK(!w || (w->dim() == 2 && w->size(0) == n && kd >= 4 && kd <= (vec ? 32 : 64) &&
                      kd % 4 == 0 && reinterpret_cast<uintptr_t>(w->data_ptr()) % 16 == 0 &&
                      kw_inv->dim() == 2 && kw_inv->size(0) == kd && kw_inv->size(1) == kd),
-              "cg_pass: expected w (n, kd), 16-byte aligned, kd a multiple of 4 up to 32, and "
-              "kw_inv (kd, kd), with a vector");
+              "cg_pass: expected w (n, kd), 16-byte aligned, kd a multiple of 4 up to 32 on a "
+              "vector and 64 on a block, and kw_inv (kd, kd)");
   const long long nstore = coef ? coef->size(coef->dim() - 1) : 0;
   TORCH_CHECK(!zs || (vec && zs->dim() == 2 && zs->size(1) == n && coef->dim() == 2 &&
                       coef->size(0) == 3 && nstore == zs->size(0) && nstore >= 1 &&
                       nstore <= 0x7fffffffLL),
               "cg_pass: expected zs (nstore, n) and coef (3, nstore), with a vector");
-  const long long need = cg_layout(grid, m, kd)[3];
+  const long long need = cg_layout(grid, m, kd, n, !vec)[3];
   TORCH_CHECK(scratch.dim() == 1 && scratch.size(0) >= need, "cg_pass: the scratch needs ",
               need, " values for a grid of ", grid);
   const c10::cuda::CUDAGuard guard(dev);
@@ -760,14 +767,14 @@ int64_t cg_pass(int64_t step, bool start, const at::Tensor& state, const at::Ten
                            x.data_ptr<float>(), r.data_ptr<float>(), p.data_ptr<float>(),
                            v.data_ptr<float>(), ptr<float>(w), ptr<float>(kw_inv),
                            ptr<float>(zs), ptr<float>(coef), n, static_cast<int>(m),
-                           static_cast<int>(kd), static_cast<int>(nstore),
+                           static_cast<int>(kd), static_cast<int>(nstore), vec ? 0 : 1,
                            static_cast<int>(grid), stream);
   else
     err = fcvm_cg_pass_f64(static_cast<int>(step), start, st, scratch.data_ptr<double>(), bar,
                            x.data_ptr<double>(), r.data_ptr<double>(), p.data_ptr<double>(),
                            v.data_ptr<double>(), ptr<double>(w), ptr<double>(kw_inv),
                            ptr<double>(zs), ptr<double>(coef), n, static_cast<int>(m),
-                           static_cast<int>(kd), static_cast<int>(nstore),
+                           static_cast<int>(kd), static_cast<int>(nstore), vec ? 0 : 1,
                            static_cast<int>(grid), stream);
   return err;
 }
@@ -1012,8 +1019,9 @@ TORCH_LIBRARY(fcvm, m) {
   m.def("two_level_apply_block(Tensor pinv, Tensor qmat, Tensor coarse, int ncf, "
         "Tensor fixmask, Tensor r, Tensor? z_fine) -> Tensor");
   m.def("coarse_product(Tensor tiles, Tensor x) -> Tensor");
-  m.def("cg_grid(int itemsize, int n, int m) -> int", &cg_grid);  // no tensor: any backend
-  m.def("cg_layout(int grid, int m, int kd) -> int[]", &cg_layout);
+  m.def("cg_grid(int itemsize, int n, int m, int kd=0, bool block=False) -> int",
+        &cg_grid);  // no tensor: any backend
+  m.def("cg_layout(int grid, int m, int kd, int n=0, bool block=False) -> int[]", &cg_layout);
   m.def("cg_pass(int step, bool start, Tensor(a!) state, Tensor(b!) scratch, "
         "Tensor(c!) barrier, Tensor(d!) x, Tensor(e!) r, Tensor(f!) p, Tensor(g!) v, Tensor? w, "
         "Tensor? kw_inv, Tensor(h!)? zs, Tensor(i!)? coef, int grid) -> int");

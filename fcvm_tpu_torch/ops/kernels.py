@@ -45,8 +45,8 @@
   ``fcvm_tpu/ops/solver.py::pcg``/``pcg_harvest`` (the chain at
   ``solver.py:107-122``), the products of
   ``fcvm_tpu/ops/deflation.py::deflated`` and, on a block, the same body
-  under the ``vmap`` of ``fcvm_tpu/runtime/buckling.py::_kinv``; source
-  ``csrc/cg_iteration.cu``.
+  with those products under the ``vmap`` of
+  ``fcvm_tpu/runtime/buckling.py::_kinv``; source ``csrc/cg_iteration.cu``.
 * K2, the stress update and internal force in two passes, replaces the
   XLA-lowered per-element update of ``fcvm_tpu/ops/stress_update.py``
   (``_element_stress_update_hp``, ``update_stress_load``,
@@ -1125,30 +1125,35 @@ CG_SLOTS = ("rz", "alpha", "beta", "k", "rnorm", "best", "since", "run", "next",
  SLOT_ATOL) = range(len(CG_SLOTS))
 CG_PASSES = ("update", "direction")  # K6's steps 0 and 1
 CG_MAX_COLS = 64  # columns of a block solve (kMaxCols)
-CG_MAX_DEFL = 32  # deflation vectors on the card (kMaxDefl)
+CG_MAX_DEFL = 32  # deflation vectors of a vector solve on the card (kMaxDefl)
+CG_MAX_DEFL_BLOCK = 64  # deflation vectors of a block solve, on every device (kMaxDeflBlock)
 CG_HELD = 8  # most items a thread keeps in registers across a pass's grid barrier (Many::held)
 
 
-def cg_layout(grid: int, m: int, kd: int):
+def cg_layout(grid: int, m: int, kd: int, n: int = 0, block: bool = False):
     """Offsets, in values, of K6's scratch regions for a grid of ``grid``
-    blocks on ``m`` columns with ``kd`` deflation vectors, as the kernel lays
+    blocks on ``m`` columns with ``kd`` deflation vectors (``block``: an (n,
+    m) block, whose deflation keeps n m values of z), as the kernel lays
     them out (``layout_of`` in ``csrc/cg_iteration.cu``, through the op): the
-    ``||r||^2`` partials, the ``W^T r`` partials, ``c``, and the size (the
-    r.z and p.ap partials at 0)."""
+    ``||r||^2`` partials, the ``W^T r`` partials, ``c``, the size (the r.z
+    and p.ap partials at 0) and a deflated block's ``z``."""
     build()
-    return tuple(torch.ops.fcvm.cg_layout(grid, m, kd))
+    return tuple(torch.ops.fcvm.cg_layout(grid, m, kd, n, block))
 
 
-def cg_grid(dtype: torch.dtype, n: int, m: int = 1, device=None) -> int:
+def cg_grid(dtype: torch.dtype, n: int, m: int = 1, device=None, kd: int = 0,
+            block: bool = False) -> int:
     """The blocks of K6's grid for an (n, m) solve of ``dtype`` on the CUDA
-    ``device`` (default: the current one): as many as stay resident on
-    every SM for both passes (at most 4 an SM), and no more than one sweep
-    of the items needs."""
+    ``device`` (default: the current one; ``block``: an (n, m) block,
+    deflated by ``kd`` vectors): as many as stay resident on every SM for
+    both passes (at most 4 an SM), and no more than one sweep of the items
+    needs."""
     build()
     with torch.cuda.device(device):
-        grid = torch.ops.fcvm.cg_grid(torch.empty(0, dtype=dtype).element_size(), n, m)
+        grid = torch.ops.fcvm.cg_grid(torch.empty(0, dtype=dtype).element_size(), n, m, kd,
+                                      block)
     if grid < 1:
-        raise RuntimeError(f"cg_grid: no resident grid for {dtype} n={n} m={m}")
+        raise RuntimeError(f"cg_grid: no resident grid for {dtype} n={n} m={m} kd={kd}")
     return grid
 
 
@@ -1162,30 +1167,53 @@ class CGPlan:
       w, kw_inv: the deflation basis (n, kd) and Galerkin pseudo-inverse
         (kd, kd), or None; on the card kd is a multiple of 4 (the basis and
         its inverse padded with zeros, :func:`cg_plan`).
-      c: (kd,) ``kw_inv W^T r`` of the last direction pass (on the card a
-        view of the scratch, kd the padded one), or None.
+      c: (kd,) ``kw_inv W^T r`` of the last direction pass, on a block (kd,
+        m) ``kw_inv W^T R`` (on the card the update pass's; a view of the
+        scratch, kd the padded one), or None.
+      n, block: the solve's rows; whether its vectors are an (n, m) block.
+      form: ``"vector"`` or ``"block"``, with ``" deflated"`` and ``"
+        harvest"`` as the plan has them (:func:`cg_iteration` counts its
+        launches by it).
       zs, coef: the harvest, (nstore, n) residuals and (3, nstore) rows
         r.z, alpha and beta, or None.
       scratch, barrier, grid: on the card the partial sums' scratch, the
         grid barrier's word and the passes' blocks (None on the CPU).
     """
 
-    def __init__(self, state, w, kw_inv, zs, coef, scratch, barrier, c, grid=None):
+    def __init__(self, state, w, kw_inv, zs, coef, scratch, barrier, c, grid=None, n=0,
+                 block=False):
         self.state, self.w, self.kw_inv, self.zs, self.coef = state, w, kw_inv, zs, coef
         self.scratch, self.barrier, self.c, self.grid = scratch, barrier, c, grid
+        self.n, self.block = n, block
         self.cpu = state.device.type == "cpu"
         self.dtype_name = None if scratch is None else _dtype_name(scratch)
+        self.form = ("block" if block else "vector") + (" deflated" if w is not None else "") + (
+            " harvest" if zs is not None else "")
 
     def read(self) -> list:
         """The state's rows on the host: the one read of the device a batch."""
         return self.state.tolist()
 
+    def _c(self, scratch, m):
+        """``c`` of this plan's deflation on ``m`` columns: on the card the
+        view of ``scratch`` the kernel writes, on the CPU a new tensor."""
+        if self.w is None:
+            return None
+        kd = self.w.shape[1]
+        shape = (kd, m) if self.block else (kd,)
+        if scratch is None:
+            return torch.empty(shape, dtype=self.w.dtype)
+        off = cg_layout(self.grid, m, kd, self.n, self.block)[2]
+        return scratch[off:off + kd * m].view(shape)
+
     def select(self, cols) -> "CGPlan":
         """The plan of the columns ``cols`` (host ints) of a block solve: a
-        copy of their state rows, the same scratch, barrier and grid."""
+        copy of their state rows, the same deflation space, scratch,
+        barrier and grid."""
         idx = torch.as_tensor(cols, dtype=torch.long, device=self.state.device)
-        return CGPlan(self.state.index_select(0, idx), None, None, None, None, self.scratch,
-                      self.barrier, None, self.grid)
+        return CGPlan(self.state.index_select(0, idx), self.w, self.kw_inv, None, None,
+                      self.scratch, self.barrier, self._c(self.scratch, len(cols)), self.grid,
+                      self.n, self.block)
 
     def copy(self) -> "CGPlan":
         """A plan with copies of everything a pass writes (the state, the
@@ -1200,10 +1228,9 @@ class CGPlan:
         elif scratch is None:
             c = self.c.clone()
         else:
-            off = cg_layout(self.grid, self.state.shape[0], self.w.shape[1])[2]
-            c = scratch[off:off + self.c.shape[0]]
+            c = self._c(scratch, self.state.shape[0])
         return CGPlan(self.state.clone(), self.w, self.kw_inv, clone(self.zs), clone(self.coef),
-                      scratch, clone(self.barrier), c, self.grid)
+                      scratch, clone(self.barrier), c, self.grid, self.n, self.block)
 
 
 def cg_plan(b: torch.Tensor, rtol: float, atol: float, maxiter: int, stall_lim: int,
@@ -1212,11 +1239,12 @@ def cg_plan(b: torch.Tensor, rtol: float, atol: float, maxiter: int, stall_lim: 
     ``CG_MAX_COLS`` for a block of independent solves): the state with the
     tolerances and ``||b||`` per column (no read of the device), and on the
     card the grid, sized once here to what stays resident, and its scratch.
-    ``defl``: ``(w, kw_inv)`` of a deflation space ((n, kd), kd <=
-    ``CG_MAX_DEFL`` on the card, where a kd that is not a multiple of 4 or a
+    ``defl``: ``(w, kw_inv)`` of a deflation space ((n, kd); kd <=
+    ``CG_MAX_DEFL`` for a vector on the card, <= ``CG_MAX_DEFL_BLOCK`` for a
+    block on every device; on the card a kd that is not a multiple of 4 or a
     basis off 16-byte alignment is copied, padded with zero columns);
-    ``harvest``: ``(zs, coef)``, (nstore, n) and (3, nstore); both for a
-    vector only."""
+    ``harvest``: ``(zs, coef)``, (nstore, n) and (3, nstore), for a vector
+    only."""
     if b.dim() not in (1, 2) or (b.dim() == 2 and not 1 <= b.shape[1] <= CG_MAX_COLS):
         raise ValueError(f"cg_plan: b {tuple(b.shape)}; expected (n,) or (n, m), 1 <= m <= "
                          f"{CG_MAX_COLS}")
@@ -1227,15 +1255,17 @@ def cg_plan(b: torch.Tensor, rtol: float, atol: float, maxiter: int, stall_lim: 
                          "a dense b on the CPU or a CUDA device")
     n, m, cuda = b.shape[0], 1 if b.dim() == 1 else b.shape[1], b.is_cuda
     extra = ()
+    block = b.dim() == 2
     if defl is not None:
         w, kw_inv = defl
         kd = w.shape[-1] if w.dim() == 2 else -1
-        if (b.dim() != 1 or w.shape != (n, kd) or kw_inv.shape != (kd, kd) or kd < 1
-                or (cuda and kd > CG_MAX_DEFL)):
+        if (w.shape != (n, kd) or kw_inv.shape != (kd, kd) or kd < 1
+                or (block and kd > CG_MAX_DEFL_BLOCK)
+                or (cuda and not block and kd > CG_MAX_DEFL)):
             raise ValueError(f"cg_plan: deflation w {tuple(w.shape)}, kw_inv "
-                             f"{tuple(kw_inv.shape)} for b {tuple(b.shape)}; expected a vector "
-                             f"b (n,), w (n, kd) and kw_inv (kd, kd), kd <= {CG_MAX_DEFL} on "
-                             "the card")
+                             f"{tuple(kw_inv.shape)} for b {tuple(b.shape)}; expected w (n, kd) "
+                             f"and kw_inv (kd, kd), kd <= {CG_MAX_DEFL} for a vector on the "
+                             f"card, <= {CG_MAX_DEFL_BLOCK} for a block")
         extra += (w, kw_inv)
     if harvest is not None:
         zs, coef = harvest
@@ -1257,19 +1287,21 @@ def cg_plan(b: torch.Tensor, rtol: float, atol: float, maxiter: int, stall_lim: 
     w, kw_inv = defl if defl is not None else (None, None)
     zs, coef = harvest if harvest is not None else (None, None)
     if not cuda:
-        c = None if w is None else torch.empty(w.shape[1], dtype=b.dtype)
-        return CGPlan(state, w, kw_inv, zs, coef, None, None, c)
+        plan = CGPlan(state, w, kw_inv, zs, coef, None, None, None, n=n, block=block)
+        plan.c = plan._c(None, m)
+        return plan
     kd = 0 if w is None else w.shape[1]
     if kd % 4 or (w is not None and w.data_ptr() % 16):  # the kernel's layout
         kdp = -(-kd // 4) * 4
         w = torch.nn.functional.pad(w, (0, kdp - kd))
         kw_inv = torch.nn.functional.pad(kw_inv, (0, kdp - kd, 0, kdp - kd))
-    grid = cg_grid(b.dtype, n, m, b.device)
-    off = cg_layout(grid, m, 0 if w is None else w.shape[1])
-    scratch = torch.empty(off[3], dtype=b.dtype, device=b.device)
+        kd = kdp
+    grid = cg_grid(b.dtype, n, m, b.device, kd, block)
+    scratch = torch.empty(cg_layout(grid, m, kd, n, block)[3], dtype=b.dtype, device=b.device)
     barrier = torch.zeros(1, dtype=torch.int32, device=b.device)
-    c = None if w is None else scratch[off[2]:off[2] + w.shape[1]]
-    return CGPlan(state, w, kw_inv, zs, coef, scratch, barrier, c, grid)
+    plan = CGPlan(state, w, kw_inv, zs, coef, scratch, barrier, None, grid, n, block)
+    plan.c = plan._c(scratch, m)
+    return plan
 
 
 def _col_dots(u, v):
@@ -1335,9 +1367,12 @@ def cg_iteration_ref(step: int, start: bool, plan: CGPlan, x, r, p, v) -> None:
     """Plain version of K6's pass ``step`` on ``plan``, in place: the
     parent's torch chain (``torch.dot`` or column sums, the step length and
     direction update with their zero guards, the updates, ``vector_norm``,
-    ``W (K_w^+ (W^T r))``), the scalar tail on the host in float64 (a read
-    of the state on the card), each column frozen once its ``run`` is 0.
-    ``v`` is ``ap`` in step 0, ``z`` in step 1 (not written)."""
+    ``W (K_w^+ (W^T r))``, on a block ``W (K_w^+ (W^T R))``: the products
+    and the sum of ``deflation.deflated`` in its order, so a deflated block
+    solve has the bits of one with that wrapped preconditioner), the scalar
+    tail on the host in float64 (a read of the state on the card), each
+    column frozen once its ``run`` is 0.  ``v`` is ``ap`` in step 0, ``z``
+    in step 1 (not written)."""
     state = plan.state
     rows = state.tolist()
     if step == 0:  # p.ap; run = next; alpha; r -= alpha ap (start: nothing)
@@ -1414,12 +1449,14 @@ def cg_iteration(step: int, plan: CGPlan, x, r, p, v, start: bool = False) -> No
     0. the update, between ``ap = K p`` and ``z = M r``: ``p.ap``; ``run =
        next``; ``alpha = rz / (pap == 0 ? 1 : pap)``; ``r -= alpha ap``
        (``start``: nothing but, on the card, the partial sums of ``r0``);
+       on the card a deflated block's ``c = K_w^+ W^T R`` too;
     1. the direction: ``||r||``, ``k``, ``best``, ``since`` and ``next``,
        the loop's test on this ``r``; with a deflation space ``c = K_w^+
-       W^T r`` and ``z + W c`` in place of ``z`` (``z`` itself is not
-       written); ``r.z``; ``beta``; ``x += alpha p``, ``p = z + beta p``; a
-       harvest's slot ``min(k, nstore - 1)`` (``start``: the tolerance and
-       gate from ``||b||``, ``rz``, ``p = z`` and slot 0).
+       W^T r`` (a block's from the update pass) and ``z + W c`` in place of
+       ``z`` (``z`` itself is not written); ``r.z``; ``beta``; ``x += alpha
+       p``, ``p = z + beta p``; a harvest's slot ``min(k, nstore - 1)``
+       (``start``: the tolerance and gate from ``||b||``, ``rz``, ``p = z``
+       and slot 0).
 
     A column whose ``run`` is 0 is left as it is.  Args: x, r, p, v of one
     shape, (n,) or (n, m), dense, of ``plan``'s dtype and device; ``v`` is
@@ -1427,8 +1464,10 @@ def cg_iteration(step: int, plan: CGPlan, x, r, p, v, start: bool = False) -> No
     any of them.  CPU tensors take the plain version
     (:func:`cg_iteration_ref`); CUDA tensors launch the kernel, a
     cooperative launch of the plan's resident grid (``cg_iteration.launches``,
-    by dtype in ``dtypes`` and by pass in ``passes``), whose sums run in a
-    fixed order; a launch the card refuses raises."""
+    by dtype in ``dtypes``, by pass in ``passes`` and by the plan's form in
+    ``forms``), whose sums run in a fixed order; a launch the card refuses
+    raises.  A deflated block runs its folded form at every width: no
+    torch product."""
     if plan.cpu:
         cg_iteration_ref(step, start, plan, x, r, p, v)
         return
@@ -1440,11 +1479,13 @@ def cg_iteration(step: int, plan: CGPlan, x, r, p, v, start: bool = False) -> No
     cg_iteration.launches += 1
     cg_iteration.dtypes[plan.dtype_name] += 1
     cg_iteration.passes[CG_PASSES[step]] += 1
+    cg_iteration.forms[plan.form] += 1
 
 
 cg_iteration.launches = 0
 cg_iteration.dtypes = Counter()  # launches by dtype name
 cg_iteration.passes = Counter()  # launches by pass name (CG_PASSES)
+cg_iteration.forms = Counter()  # launches by the plan's form (CGPlan.form)
 
 
 # -- K2: the stress update and internal force ------------------------------------

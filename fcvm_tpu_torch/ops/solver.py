@@ -10,8 +10,8 @@ host once per batch: iterations queued after the test failed change nothing (eac
 leaves a finished column as it is), so results do not depend on
 ``CG_BATCH``; their count is kept in ``CG_STATS``.  The same update order
 and tests as the JAX package, so an f64 solve takes exactly its iteration
-count.  A deflation space (``defl=``) is folded into K6's passes; a
-harvesting solve (:func:`pcg_harvest`) keeps the Lanczos byproducts for
+count.  A deflation space (``defl=``, on a vector or a block) is folded
+into K6's passes; a harvesting solve (:func:`pcg_harvest`) keeps the Lanczos byproducts for
 Ritz deflation (:mod:`fcvm_tpu_torch.ops.deflation`) in K6's second pass.
 :func:`pcg_block` runs ``m`` independent solves as the columns of one block,
 the counterpart of the JAX package's ``vmap`` of :func:`pcg`: a finished
@@ -194,6 +194,7 @@ def pcg_block(
     atol: float = 0.0,
     maxiter: int = 1000,
     stall: int = 0,
+    defl=None,
 ) -> BlockCGResult:
     """:func:`pcg` on each column of ``b`` (n, m), all columns at once.
 
@@ -208,15 +209,21 @@ def pcg_block(
     only).  A block's width can change a column's rounding (a GEMM's
     blocking), so on the CPU a column leaves the block at the iteration it
     is done, as it always has.  More than ``CG_MAX_COLS`` columns run as
-    several blocks, one after the other.
+    several blocks, one after the other.  ``defl``, a
+    :class:`fcvm_tpu_torch.ops.deflation.DeflationSpace` of at most
+    ``CG_MAX_DEFL_BLOCK`` vectors, corrects every column's ``precond`` as
+    :func:`fcvm_tpu_torch.ops.deflation.deflated` does, inside K6's passes
+    (on the CPU with its products in that order: the same bits); a
+    dropped column leaves the others deflated.
     """
     if b.dim() != 2:
         raise ValueError(f"pcg_block: b {tuple(b.shape)}; expected (n, m)")
     return _pcg_block(matvec, b, precond, x0, rtol, atol, maxiter, stall,
-                      CG_BATCH if b.is_cuda else 1)
+                      CG_BATCH if b.is_cuda else 1, defl)
 
 
-def _pcg_block(matvec, b, precond, x0, rtol, atol, maxiter, stall, batch) -> BlockCGResult:
+def _pcg_block(matvec, b, precond, x0, rtol, atol, maxiter, stall, batch,
+               defl=None) -> BlockCGResult:
     """The loop of :func:`pcg_block`: the states read once per ``batch``
     iterations, a column dropped from the block at the read that finds it
     done."""
@@ -224,7 +231,7 @@ def _pcg_block(matvec, b, precond, x0, rtol, atol, maxiter, stall, batch) -> Blo
     if b.shape[1] > step:
         parts = [_pcg_block(matvec, b[:, j:j + step].contiguous(), precond,
                             None if x0 is None else x0[:, j:j + step].contiguous(), rtol, atol,
-                            maxiter, stall, batch) for j in range(0, b.shape[1], step)]
+                            maxiter, stall, batch, defl) for j in range(0, b.shape[1], step)]
         return BlockCGResult(torch.cat([q.x for q in parts], dim=1),
                              sum((q.iters for q in parts), []),
                              sum((q.relres for q in parts), []))
@@ -232,7 +239,8 @@ def _pcg_block(matvec, b, precond, x0, rtol, atol, maxiter, stall, batch) -> Blo
         precond = lambda r: r  # noqa: E731
     m = b.shape[1]
     b = b.contiguous()
-    plan = kernels.cg_plan(b, rtol, atol, maxiter, _stall_lim(stall, maxiter))
+    plan = kernels.cg_plan(b, rtol, atol, maxiter, _stall_lim(stall, maxiter),
+                           None if defl is None else (defl.w, defl.kw_inv))
     x, r, p = _start(plan, matvec, b, precond, x0)
     out = x  # the solutions: a column is written back when it leaves the block
     cols = list(range(m))  # the block's columns, by their index in b

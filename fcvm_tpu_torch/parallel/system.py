@@ -443,8 +443,8 @@ class ShardedSystem(TorchSystem):
 
         def kinv(w, defl, x0_basis, x0_scale):
             x0 = None if x0_basis is None else x0_basis * x0_scale[None, :]
-            return slv.pcg_block(kmv, w, precond=dfl.deflated(prec, defl), x0=x0, rtol=rtol,
-                                 maxiter=self.maxiter, stall=bk.STALL)
+            return slv.pcg_block(kmv, w, precond=prec, x0=x0, rtol=rtol, maxiter=self.maxiter,
+                                 stall=bk.STALL, defl=defl)
 
         def harvest(b):
             return slv.pcg_harvest(khat, b, precond=prec, rtol=rtol, maxiter=self.maxiter,

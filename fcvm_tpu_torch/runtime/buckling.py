@@ -11,8 +11,9 @@ gather, block product and fixed-order node sum of one CUDA kernel pair on
 the card, over one packed copy of each operator's blocks and one
 incidence table); the inner ``K_hat^{-1}`` solves the ``m`` columns
 together with :func:`fcvm_tpu_torch.ops.solver.pcg_block`, each
-preconditioner apply on the block one K4m, deflated by one deep Ritz
-harvest of the first column (:func:`make_recycled_k_inverse`).
+preconditioner apply on the block one K4m, every solve deflated by one deep
+Ritz harvest of the first column (:func:`make_recycled_k_inverse`) inside
+K6's passes (``pcg_block(defl=)``).
 
 Boundary conditions: fixed dofs are eliminated exactly by default
 (identity rows in K_hat, zero rows in G_hat), the limit the reference's x100
@@ -355,8 +356,8 @@ def buckling_from_arrays(
 
         def kinv(w, defl, x0_basis, x0_scale):
             x0 = None if x0_basis is None else x0_basis * x0_scale[None, :]
-            return slv.pcg_block(kmv, w, precond=dfl.deflated(prec, defl), x0=x0,
-                                 rtol=rtol, maxiter=maxiter, stall=STALL)
+            return slv.pcg_block(kmv, w, precond=prec, x0=x0, rtol=rtol, maxiter=maxiter,
+                                 stall=STALL, defl=defl)
 
         def harvest(b):
             return slv.pcg_harvest(kv, b, precond=bound_precond(pc), rtol=rtol, maxiter=maxiter,

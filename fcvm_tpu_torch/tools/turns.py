@@ -12,6 +12,8 @@ process of its own):
                                                        # Newton and CG counts, lbd's bits)
     python fcvm_tpu_torch/tools/turns.py TREE column   # phases 9 (eigensolve, stepping, peak
                                                        # memory) and 9b (its pieces)
+    python fcvm_tpu_torch/tools/turns.py TREE column_cluster  # phase 9c: phase 9 with the
+                                                       # cluster smoother
     python fcvm_tpu_torch/tools/turns.py TREE smoother # phase 11 (stepping, the counts, lbd's
                                                        # bits; the two-level build and its split)
     python fcvm_tpu_torch/tools/turns.py TREE blocks   # phase 3d alone: K1m, K4m and K4c at
@@ -156,8 +158,8 @@ def main(tree: str, part: str) -> dict:
     elif part == "k6":
         models = {"plate": smoke.plate_model(smoke.PLATE_BIG),
                   "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)}
-        out["k6"] = [{"dtype": dt, "model": m, "form": f, **row}
-                     for (dt, m, f), row in smoke.k6_times(models, compare=False).items()]
+        k6 = smoke.k6_times(models, compare=False, skip_missing=True)
+        out["k6"] = [{"dtype": dt, "model": m, "form": f, **row} for (dt, m, f), row in k6.items()]
     elif part == "k2":
         tsmoke = tree_smoke(tree)
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -215,6 +217,12 @@ def main(tree: str, part: str) -> dict:
                            (*has, "block_matmat") if fused else ("block_matvec",)),
             absent=("block_matmat",) if blocks else ())
         out["phase 9b"] = smoke.column_breakdown(cfg)
+    elif part == "column_cluster":
+        out["phase 9c"] = smoke.run_column(
+            FcvmConfig(device="cuda", dtype="float32", smoother="cluster"), label="phase 9c",
+            required=((*has, *smoke.BLOCK_KERNELS) if blocks else
+                      (*has, "block_matmat") if fused else ("block_matvec",)),
+            absent=("block_matmat",) if blocks else ())
     else:
         raise SystemExit(f"turns.py: unknown part {part!r}")
     return out

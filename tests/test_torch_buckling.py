@@ -343,9 +343,9 @@ def test_linear_buckling_with_the_cards_block_schedule_matches_jax(jax_bj, monke
     monkeypatch.setattr(tbk, "buckling_from_arrays", seeded)
 
     def card_schedule(matvec, b, precond=None, x0=None, rtol=1e-6, atol=0.0, maxiter=1000,
-                      stall=0):
+                      stall=0, defl=None):
         return tslv._pcg_block(matvec, b, precond, x0, rtol, atol, maxiter, stall,
-                               tslv.CG_BATCH)
+                               tslv.CG_BATCH, defl)
 
     monkeypatch.setattr(tslv, "pcg_block", card_schedule)
     tslv.CG_STATS.clear()
@@ -408,6 +408,39 @@ def test_buckling_deflation_matches_undeflated():
     lam_on, v_on = _port_buckling(model, deflation=True)
     np.testing.assert_allclose(lam_on, lam_off, rtol=1e-8)
     np.testing.assert_allclose(v_on, v_off, atol=1e-6 * np.abs(v_off).max())
+
+
+def test_eigensolve_hands_its_deflation_to_pcg_block(monkeypatch):
+    """``linear_buckling``'s inner solves pass the eigensolve's Ritz space
+    to ``pcg_block`` (``defl=``, folded into K6's passes) and wrap no
+    preconditioner in ``deflation.deflated``; on the CPU the factors and
+    modes are bit for bit those of the wrapped preconditioner, the way the
+    solves ran before the fold."""
+    model = column_model(nx=12)
+    calls, wraps = [], []
+    pcg_block, deflated = tslv.pcg_block, tdfl.deflated
+
+    def recorded(*args, defl=None, **kw):
+        calls.append(defl)
+        return pcg_block(*args, defl=defl, **kw)
+
+    def wrap(precond, defl):
+        if defl is not None:
+            wraps.append(defl)
+        return deflated(precond, defl)
+
+    monkeypatch.setattr(tslv, "pcg_block", recorded)
+    monkeypatch.setattr(tdfl, "deflated", wrap)
+    lam, vecs = _port_buckling(model, deflation=True)
+    assert any(d is not None for d in calls)
+    assert not wraps
+
+    def wrapped(matvec, b, precond=None, defl=None, **kw):  # the preconditioner wrapped instead
+        return pcg_block(matvec, b, precond=deflated(precond, defl), **kw)
+
+    monkeypatch.setattr(tslv, "pcg_block", wrapped)
+    lam_w, vecs_w = _port_buckling(model, deflation=True)
+    assert np.array_equal(lam, lam_w) and np.array_equal(vecs, vecs_w)
 
 
 def test_cg_eigensolve_matches_direct_tier():

@@ -8,8 +8,10 @@ numbers, so the comparison is of the loops.
 Each case holds the port's ``pcg``, ``pcg_harvest`` and ``pcg_block``
 against the JAX package's ``pcg``, ``pcg_harvest`` and ``vmap`` of ``pcg``
 (equal iteration counts; solutions and harvests to 1e-10 of their max), its
-folded deflation against the JAX ``deflated`` preconditioner, and the
-port's bits across ``CG_BATCH`` values.
+folded deflation, on a vector and on a block, against the JAX ``deflated``
+preconditioner (the block's under ``vmap``), the folded block's bits
+against the wrapped preconditioner's, and the port's bits across
+``CG_BATCH`` values.
 """
 
 import jax
@@ -212,6 +214,75 @@ def test_folded_deflation_matches_jax(system, x0, batch, monkeypatch):
     assert wrapped.iters == res.iters and torch.equal(wrapped.x, res.x)
 
 
+def _space(system):
+    """The port's and the JAX package's DeflationSpace of ``_deflation``."""
+    w, kw_inv = _deflation(system)
+    return (tdfl.DeflationSpace(torch.as_tensor(w), torch.as_tensor(kw_inv)),
+            jdfl.DeflationSpace(jnp.asarray(w), jnp.asarray(kw_inv)))
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("x0", [False, True])
+def test_block_folded_deflation_matches_jax_vmap(system, x0, batch):
+    """``pcg_block``'s loop with ``defl=`` (the block form of the folded
+    deflation, read once a batch as on the card) on four columns that
+    finish apart, against ``jax.vmap`` of ``pcg`` with the JAX
+    ``deflated`` preconditioner: every column's count (warm-started, within
+    one: the block's column sums and products round in another order than
+    the vector's, and a warm column ends at 9.8e-11 of ``||b||``, at the
+    tolerance's edge, one iteration before JAX's; the wrapped
+    preconditioner's block takes the same count), fewer iterations than
+    undeflated, the solutions to 1e-12 of their max."""
+    (tk, tm), (jk, jm) = _ops(system)
+    space, jspace = _space(system)
+    b = system["b"]
+    x0b = _x0(system, 0.3 if x0 else None, slice(None))
+    kw = dict(rtol=1e-10, maxiter=2000)
+
+    def solve_col(bc, x0c, precond):
+        return jslv.pcg(jk, bc, precond=precond, x0=x0c, **kw)
+
+    out = jslv.CGResult(1, 0, 0)
+    refs = []
+    for precond in (jdfl.deflated(jm, jspace), jm):
+        if x0b is None:
+            refs.append(jax.vmap(lambda bc: solve_col(bc, None, precond), in_axes=1,
+                                 out_axes=out)(jnp.asarray(b)))
+        else:
+            refs.append(jax.vmap(lambda bc, xc: solve_col(bc, xc, precond), in_axes=(1, 1),
+                                 out_axes=out)(jnp.asarray(b), jnp.asarray(x0b)))
+    ref, plain = refs
+    res = tslv._pcg_block(tk, torch.as_tensor(b), tm,
+                          None if x0b is None else torch.as_tensor(x0b), kw["rtol"], 0.0,
+                          kw["maxiter"], 0, batch, space)
+    if x0:
+        assert all(abs(a - int(b_)) <= 1 for a, b_ in zip(res.iters, ref.iters))
+    else:
+        assert res.iters == [int(i) for i in ref.iters]
+    assert len(set(res.iters)) > 1  # the columns finish apart: dropped ones leave the rest deflated
+    assert sum(res.iters) < sum(int(i) for i in plain.iters)
+    _close(res.x, ref.x, 1e-12)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+def test_block_folded_deflation_has_the_wrapped_bits(system, batch):
+    """On the CPU ``pcg_block(defl=...)`` gives bit for bit the counts and
+    x of ``pcg_block`` with ``deflation.deflated`` wrapped round its
+    preconditioner (the plain passes take its products in its order), at
+    every batch of its loop."""
+    (tk, tm), _ = _ops(system)
+    space, _ = _space(system)
+    b = torch.as_tensor(system["b"])
+    folded = tslv._pcg_block(tk, b, tm, None, 1e-10, 0.0, 2000, 0, batch, space)
+    wrapped = tslv._pcg_block(tk, b, tdfl.deflated(tm, space), None, 1e-10, 0.0, 2000, 0, batch)
+    assert folded.iters == wrapped.iters
+    assert torch.equal(folded.x, wrapped.x)
+    assert folded.relres == wrapped.relres
+    if batch == 1:  # pcg_block's own loop on the CPU
+        res = tslv.pcg_block(tk, b, precond=tm, rtol=1e-10, maxiter=2000, defl=space)
+        assert res.iters == folded.iters and torch.equal(res.x, folded.x)
+
+
 @pytest.mark.parametrize("solver", ["pcg", "pcg_harvest", "pcg_block"])
 def test_bits_do_not_depend_on_the_batch(system, solver, monkeypatch):
     """The same bits and counts at every ``CG_BATCH`` tested (for
@@ -269,9 +340,25 @@ def test_plan_rejects_what_k6_does_not_take():
         kernels.cg_plan(b.to(torch.int64), 1e-6, 0.0, 10, 11)
     with pytest.raises(ValueError):
         kernels.cg_plan(torch.zeros((12, kernels.CG_MAX_COLS + 1), dtype=F64), 1e-6, 0.0, 10, 11)
-    with pytest.raises(ValueError):  # deflation on a block
-        kernels.cg_plan(torch.zeros((12, 2), dtype=F64), 1e-6, 0.0, 10, 11,
-                        defl=(torch.zeros((12, 3), dtype=F64), torch.zeros((3, 3), dtype=F64)))
+    blk = torch.zeros((12, 2), dtype=F64)
+    kd = kernels.CG_MAX_DEFL_BLOCK + 1
+    with pytest.raises(ValueError):  # a block's deflation past its limit, on every device
+        kernels.cg_plan(blk, 1e-6, 0.0, 10, 11,
+                        defl=(torch.zeros((12, kd), dtype=F64), torch.zeros((kd, kd), dtype=F64)))
+    with pytest.raises(ValueError):
+        tslv.pcg_block(lambda v: v, blk, defl=tdfl.DeflationSpace(
+            torch.zeros((12, kd), dtype=F64), torch.zeros((kd, kd), dtype=F64)))
+    for w, kw_inv in (((11, 3), (3, 3)), ((12, 3), (3, 4)), ((12, 3, 1), (3, 3))):
+        with pytest.raises(ValueError):  # a block's basis or inverse of the wrong shape
+            kernels.cg_plan(blk, 1e-6, 0.0, 10, 11,
+                            defl=(torch.zeros(w, dtype=F64), torch.zeros(kw_inv, dtype=F64)))
+    with pytest.raises(ValueError):  # a harvest on a block
+        kernels.cg_plan(blk, 1e-6, 0.0, 10, 11,
+                        harvest=(torch.zeros((4, 12), dtype=F64), torch.zeros((3, 4), dtype=F64)))
+    plan = kernels.cg_plan(blk, 1e-6, 0.0, 10, 11, defl=(torch.zeros((12, 64), dtype=F64),
+                                                          torch.zeros((64, 64), dtype=F64)))
+    assert plan.form == "block deflated" and plan.c.shape == (64, 2)
+    assert plan.select([1]).c.shape == (64, 1) and plan.select([1]).w is plan.w
     with pytest.raises(ValueError):  # a basis of other rows
         kernels.cg_plan(b, 1e-6, 0.0, 10, 11,
                         defl=(torch.zeros((11, 3), dtype=F64), torch.zeros((3, 3), dtype=F64)))

@@ -15,7 +15,9 @@ packages get the same numbers.  Forms: a vector; a vector deflated by 8
 seeded vectors (the JAX side's ``deflated`` preconditioner); a harvest of
 8 slots (its residuals and coefficients too); a block of 5 columns, one of
 them frozen from the start (a zero right-hand side), against the JAX
-``pcg`` of each column, as its ``vmap`` runs them.
+``pcg`` of each column, as its ``vmap`` runs them; the same block deflated
+by the 8 vectors (the block form of the folded deflation), against the JAX
+``pcg`` of each column with the ``deflated`` preconditioner.
 """
 
 import jax
@@ -65,10 +67,10 @@ def _port(system, form, k):
     passes."""
     kt, mt = torch.as_tensor(system["k"]), torch.as_tensor(system["m"])
     b = torch.as_tensor(np.ascontiguousarray(
-        system["b"] if form == "block" else system["b"][:, 0]))
+        system["b"] if form.startswith("block") else system["b"][:, 0]))
     n = b.shape[0]
     defl = harvest = None
-    if form == "deflated":
+    if form in ("deflated", "block_deflated"):
         defl = (torch.as_tensor(system["w"]), torch.as_tensor(system["kw_inv"]))
     if form == "harvest":
         harvest = (torch.zeros((NSTORE, n), dtype=F64), torch.zeros((3, NSTORE), dtype=F64))
@@ -87,7 +89,7 @@ def _jax(system, form, k, col, monkeypatch):
     p, rz, ||r||, alpha and beta, and the harvest."""
     kj, mj = jnp.asarray(system["k"]), jnp.asarray(system["m"])
     precond = lambda r: mj @ r  # noqa: E731
-    if form == "deflated":
+    if form in ("deflated", "block_deflated"):
         precond = jdfl.deflated(precond, jdfl.DeflationSpace(jnp.asarray(system["w"]),
                                                              jnp.asarray(system["kw_inv"])))
     b = jnp.asarray(system["b"][:, col])
@@ -118,7 +120,7 @@ def _close(port, ref):
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
-@pytest.mark.parametrize("form", ["vector", "deflated", "harvest", "block"])
+@pytest.mark.parametrize("form", ["vector", "deflated", "harvest", "block", "block_deflated"])
 def test_pass_split_matches_jax_iterates(system, form, k, monkeypatch):
     """x, r, p and the state's rz, alpha, beta and ||r|| after k iterations
     of the two passes, each column against the JAX iterates at ``maxiter =
@@ -126,14 +128,14 @@ def test_pass_split_matches_jax_iterates(system, form, k, monkeypatch):
     harvest's residuals and coefficients against the JAX harvest."""
     plan, x, r, p = _port(system, form, k)
     rows = plan.read()
-    cols = range(COLS) if form == "block" else [0]
+    block = form.startswith("block")
+    cols = range(COLS) if block else [0]
     for c, row in zip(cols, rows):
         ref = _jax(system, form, k, c, monkeypatch)
-        assert int(row[kernels.SLOT_K]) == ref["iters"] == (0 if c == 2 and form == "block"
-                                                             else k)
+        assert int(row[kernels.SLOT_K]) == ref["iters"] == (0 if c == 2 and block else k)
         assert row[kernels.SLOT_NEXT] == 0.0
         for port, name in ((x, "x"), (r, "r"), (p, "p")):
-            _close(port[:, c] if form == "block" else port, ref[name])
+            _close(port[:, c] if block else port, ref[name])
         for slot, name in ((kernels.SLOT_RZ, "rz"), (kernels.SLOT_ALPHA, "alpha"),
                            (kernels.SLOT_BETA, "beta"), (kernels.SLOT_RNORM, "rnorm")):
             _close(row[slot], ref[name])

@@ -15,6 +15,7 @@ from fcvm_tpu_torch import ControlParams, FcvmConfig, linear_buckling, solve_col
 from fcvm_tpu_torch.models import meshgen
 from fcvm_tpu_torch.models.spec import BoundaryConditions, Loads, Material, Model
 from fcvm_tpu_torch.ops import assembly as tasm
+from fcvm_tpu_torch.ops import deflation as tdfl
 from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import material as tmat
 from fcvm_tpu_torch.ops import solver as tslv
@@ -878,9 +879,11 @@ def _column_model(nx=8, ny=1, lc=20.0, p=1000.0):
     return Model(mesh, Material(210000.0, 0.3), bcs, loads)
 
 
-def _pcg_block(device):
+def _pcg_block(device, deflated=False):
     """pcg_block on four columns of a 3x3x3 tension box's K_hat, float64,
-    block-Jacobi preconditioner, half of them warm-started."""
+    block-Jacobi preconditioner, half of them warm-started; ``deflated``:
+    with ``defl=`` the 6 lowest eigenvectors of K_hat on the free dofs (made
+    on the host)."""
     model = _tension_box(3)
     cfg = FcvmConfig(device=device, dtype="float64")
     be = TorchSystem(model, cfg, torch.float64, torch.device(device))
@@ -892,18 +895,38 @@ def _pcg_block(device):
     b = sp.fixmask_m[:, None] * b
     x0 = torch.zeros_like(b)
     x0[:, 2:] = 0.5 * b[:, 2:]
+    defl = None
+    if deflated:
+        kmat = tslv.assemble_scipy_csc(khat.esm_t.permute(2, 0, 1), sp.eldofs_m, sp.fixmask_m,
+                                       be.ndof_pad).toarray()
+        free = sp.fixmask_m.cpu().numpy() > 0.5
+        w = np.zeros((be.ndof_pad, 6))
+        w[free] = np.linalg.eigh(kmat[np.ix_(free, free)])[1][:, :6]
+        w = torch.as_tensor(w)
+        defl = tdfl.DeflationSpace(w.to(device), tdfl.pinv_psd(w.T @ torch.as_tensor(kmat) @ w)
+                                   .to(device))
     return tslv.pcg_block(kmv, b, precond=lambda r: tasm.apply_block_precond(pinv[sp.nperm], r),
-                          x0=x0, rtol=1e-10, maxiter=500)
+                          x0=x0, rtol=1e-10, maxiter=500, defl=defl)
 
 
-def test_pcg_block_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("deflated", [False, True], ids=["plain", "deflated"])
+def test_pcg_block_cuda_matches_cpu(cuda, deflated):
     """The block PCG through K1m on the card against the CPU, float64:
     every column's CG count within one (sums in another order), the same
-    solutions."""
-    ref, res = _pcg_block("cpu"), _pcg_block("cuda")
+    solutions; deflated (K6's block form of the fold), the columns finish
+    in different batches, so the first dropped leaves the rest deflated,
+    and the card launched the deflated block form only."""
+    ref = _pcg_block("cpu", deflated)
+    forms = dict(kernels.cg_iteration.forms)
+    res = _pcg_block("cuda", deflated)
     assert all(abs(a - b) <= 1 for a, b in zip(res.iters, ref.iters))
     np.testing.assert_allclose(res.x.cpu().numpy(), ref.x.numpy(), rtol=0,
                                atol=1e-9 * float(ref.x.abs().max()))
+    if deflated:
+        assert len({i // tslv.CG_BATCH for i in res.iters}) > 1
+        launched = {k: n - forms.get(k, 0) for k, n in kernels.cg_iteration.forms.items()
+                    if n != forms.get(k, 0)}
+        assert list(launched) == ["block deflated"]
 
 
 def test_linear_buckling_cuda_matches_cpu(cuda):
@@ -1128,7 +1151,8 @@ K6_NSTORE = 8
 # items again after the barrier) and 3 rows past a multiple of 4 (a vector
 # ends in a ragged item)
 K6_SIZES = [1, 1000, 77_777, "big"]
-K6_FORMS = ["vector", "deflated", "deflated6", "harvest", "m1", "m5", "m8"]
+K6_FORMS = ["vector", "deflated", "deflated6", "harvest", "m1", "m5", "m8",
+            "m1d6", "m5d6", "m8d6", "m1d64", "m5d64", "m8d64"]  # mMdK: m columns, kd = K
 
 
 def _k6_n(cuda, dtype, n, m):
@@ -1219,6 +1243,8 @@ def _k6_compare(dtype, step, start, plan_k, vk, plan_r, vr, vin):
             assert torch.equal(a, want), (step, start, i)
     if deflated:
         near(plan_k.c, plan_r.c)
+    elif plan_k.w is not None and plan_k.block:  # a deflated block's c: the update pass's
+        near(plan_k.c, plan_k.kw_inv @ (plan_k.w.T @ vk[1]))
     if plan_k.zs is not None:
         assert torch.equal(plan_k.zs, plan_r.zs)
         near(plan_k.coef, plan_r.coef)
@@ -1231,11 +1257,14 @@ def test_cg_iteration_kernel_matches_plain(cuda, dtype, form, n):
     """Each of K6's two passes, and their start forms, against the plain
     version on the same inputs (a vector, with a deflation space of 32
     vectors or of 6, which the plan pads to 8, or a harvest of 8 slots, or a
-    block of 1, 5 and 8 columns with frozen ones); the direction pass on the
-    partials an update pass's start form leaves of r; a second launch on the
-    same inputs gives the same bits; one launch each counted."""
-    m = int(form[1:]) if form.startswith("m") else 0
-    kd = {"deflated": 32, "deflated6": 6}.get(form, 0)
+    block of 1, 5 and 8 columns with frozen ones, undeflated and deflated
+    by 6 or 64 vectors); the direction pass on the partials an update
+    pass's start form leaves of r (a deflated block's c); a second launch on
+    the same inputs gives the same bits; one launch each counted, by its
+    plan's form."""
+    m = int(form[1:].split("d")[0]) if form.startswith("m") else 0
+    kd = {"deflated": 32, "deflated6": 6}.get(form, int(form.split("d")[1]) if "d" in form
+                                              and form.startswith("m") else 0)
     n = _k6_n(cuda, dtype, n, m)
     for start in (False, True):
         for step in (0, 1):
@@ -1245,10 +1274,14 @@ def test_cg_iteration_kernel_matches_plain(cuda, dtype, form, n):
             (pk, vk), (pk2, vk2), (pr, vr) = ((plan.copy(), [v.clone() for v in vin])
                                              for _ in range(3))
             launches = kernels.cg_iteration.launches
+            forms = kernels.cg_iteration.forms[pk.form]
             for p_, v_ in ((pk, vk), (pk2, vk2)):
                 kernels.cg_iteration(step, p_, *v_, start=start)
             torch.cuda.synchronize()
             assert kernels.cg_iteration.launches == launches + 2
+            assert kernels.cg_iteration.forms[pk.form] == forms + 2
+            assert pk.form == ("block" if m else "vector") + (" deflated" if kd else "") + (
+                " harvest" if form == "harvest" else "")
             kernels.cg_iteration_ref(step, start, pr, *vr)
             _k6_compare(dtype, step, start, pk, vk, pr, vr, vin)
             assert torch.equal(pk.state, pk2.state) and all(
