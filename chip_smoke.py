@@ -102,6 +102,24 @@ Phases, each printing its numbers before the next starts:
    ``backend.residual``: one launch of each pass and none of K8, the bits of
    the unfused composition (element pass, K8, torch tail), timed against it
    in turns, and a profile that shows K2's two kernels and nothing else;
+3g. K3 and K5, the element blocks and the block-Jacobi rebuild.  K3
+   (``form_blocks``) at every shape the paths give it (``K3_CASES``: the
+   plate's tangent as a refresh forms it, its packed tiles alone in the
+   solve space's order, and with phase 10's region, a D, G and H per
+   element, on a seeded state with about half the Gauss points plastic; the
+   plate's and the beam-column's elastic operators, both outputs; the
+   beam-column's geometric pencil on a seeded pre-stress; the sharded
+   weights with zeros), float32 and float64, against its plain version
+   (the einsum chain and ``pack_blocks``) to ``K3_TOL``, in float32 no
+   farther from the float64 plain version than twice the float32 plain
+   version, its blocks exactly symmetric and its packed tiles bit for bit
+   ``pack_blocks`` of its own element-major blocks, a second launch the same
+   bits; K5 (``jacobi_inverse``) on the refresh's packed tiles, on the
+   assembly's element-major blocks in the user order (``cols``), in the
+   sharded form (its sum, a reduce, its tail) and on the beam-column's
+   tiles, its sum bit for bit K8's write form, its inverses within 4 ulps
+   of the torch tail; each timed (CUDA events, device time) against its
+   plain version and its bound;
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
    the load-factor histories must agree; and ``linear_buckling`` of a small
@@ -109,8 +127,9 @@ Phases, each printing its numbers before the next starts:
 5. the slice at full size: the quarter plate with a hole at 502,599 dof,
    float32, two-level PCG without deflation or the precision tiers, plastic
    Riks steps through ``fcvm_tpu_torch.solve_collapse``; the launch counts
-   of K1, K4, K8, K6 and K2's two passes, the kernels on that path, must be
-   > 0 (K2's are the residual count, printed by form), and K6's
+   of K1, K4, K8, K6, K2's two passes, K3 and K5, the kernels on that path,
+   must be > 0 (K2's are the residual count, printed by form; K3 and K5 by
+   form as well: every path phase, 5 to 14, holds them), and K6's
    exactly two passes for each queued CG iteration and each solve's start
    (as in every plate phase, 9, 9c and 14); the CG loop's host reads per
    solve and idle queued iterations (as in 7, 9, 9b);
@@ -133,16 +152,23 @@ Phases, each printing its numbers before the next starts:
    predictor CG counts of every step, the refreshes' time and the stepping
    time against phase 7;
 8b. one tangent refresh in pieces, on the plastic end state of phase 8:
-   CUDA-event times of the tangent formation, the follower loads, the
-   operator build, the block-Jacobi rebuild, the predictor solve cold and
-   warm-started, and the GNL residual against the small-strain one;
+   CUDA-event times of the tangent formation (K3, and the plain chain it
+   replaced), the block-Jacobi rebuild (K5, and its plain chain), the
+   follower loads, the right-hand side, the whole refresh without the
+   predictor, the predictor solve cold and warm-started, and the GNL
+   residual against the small-strain one; a profile of four refreshes
+   without the predictor, its raw totals printed: K3 and K5 launched four
+   times each by their wrappers' counts and recorded at least three times
+   each (the tracer misses records of a profile's first call), and beside
+   them only kernels that the follower loads and the right-hand side launch
+   on their own, per call;
 9. the imperfect beam-column of ``examples/imperfect_column_collapse.toml``
    refined to 451,875 dof, float32, default configuration: the linear
    buckling eigensolve (its tier, sweeps, pencil residuals and inner CG
    iterations), imperfection seeding and a few GNL steps; both factors
    within 3% of the clamped-free Euler value, the imperfection applied
    exactly, every step converged below the squash factor, and K1, K4, K8,
-   K1m and K4m launched on the path, K0m not (K1, K4 and K8 by dtype, K1m
+   K1m, K4m and K3's geometric form launched on the path, K0m not (K1, K4 and K8 by dtype, K1m
    and K4m by dtype and column count), K6 in its deflated block form (by
    form: as in 9c and 13); its peak device memory;
 9b. the eigensolve in pieces on the same mesh: CUDA-event times of the
@@ -381,15 +407,19 @@ def device_ms_by_kernel(fn, *args, calls=10, tries=3):
     return dict(out)
 
 
-def kernel_launches(fn, *args):
+def kernel_launches(fn, *args, calls=1):
     """``(port, other)``: ``{kernel name: launches}`` of the CUDA kernels
-    torch.profiler records over one call of ``fn``, the port's (the
-    functions in the anonymous namespaces of ``fcvm_tpu_torch/csrc``) and
-    every other (PyTorch's, cuBLAS's), each named as in
-    ``device_ms_by_kernel``."""
+    torch.profiler records over ``calls`` calls of ``fn``, totals, the
+    port's (the functions in the anonymous namespaces of
+    ``fcvm_tpu_torch/csrc``) and every other (PyTorch's, cuBLAS's), each
+    named as in ``device_ms_by_kernel``.  The tracer can miss the first
+    kernels of a profile: in the whole smoke on the card, the first five to
+    nine of every profile of 8b, K3 and K5 in the refresh's, with or without
+    a traced warm-up step or a 20 ms spin kernel before them."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn(*args)
+        for _ in range(calls):
+            fn(*args)
         torch.cuda.synchronize()
     port, other = Counter(), Counter()
     for ev in prof.key_averages():
@@ -406,14 +436,16 @@ def kernel_launches(fn, *args):
 # preconditioner applies; K0m and K0 in none since K1m and K1 carry K_hat·V
 # and K_hat·v
 # and K6 the rest of every CG iteration (and K2's two passes, stress_update
-# and node_force, every residual and internal force): the sharded backend's
+# and node_force, every residual and internal force; K3, form_blocks, every
+# element block an assembly, a refresh or the pencil forms, and K5,
+# jacobi_inverse, every block-Jacobi rebuild): the sharded backend's
 # too, whose
 # element-partitioned solves run the local loop around an all_reduced
 # operator; only its node-partitioned PCG (config.node_partition, off by
 # default and in no phase) passes its own inner product and keeps the host
 # loop (ROADMAP.md queues K6's partials through all_reduce there)
 CG_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "cg_iteration", "stress_update",
-              "node_force")
+              "node_force", "form_blocks", "jacobi_inverse")
 BLOCK_KERNELS = ("khat_matmat", "two_level_apply_block")
 PATH_KERNELS = (*CG_KERNELS, *BLOCK_KERNELS, "block_matmat", "block_matvec")
 BY_SHAPE = ("block_matmat", *BLOCK_KERNELS)  # counted by dtype and column count
@@ -430,8 +462,8 @@ def reset_launches():
     getattr(kernels.segment_sum, "paths", Counter()).clear()
     getattr(kernels.cg_iteration, "passes", Counter()).clear()
     getattr(kernels.cg_iteration, "forms", Counter()).clear()
-    getattr(kernels.stress_update, "forms", Counter()).clear()
-    getattr(kernels.node_force, "forms", Counter()).clear()
+    for name in ("stress_update", "node_force", "form_blocks", "jacobi_inverse"):
+        getattr(getattr(kernels, name), "forms", Counter()).clear()
 
 
 def cg_stats_reset():
@@ -478,7 +510,7 @@ def read_launches():
     """``({kernel: launches}, {kernel: {dtype: launches}})`` of the path
     kernels; K0m's, K1m's and K4m's by dtype and column count; K8's also by
     form and path (``"segment_sum paths"``), K6's by pass and by its plan's
-    form (``"cg_iteration forms"``)."""
+    form (``"cg_iteration forms"``), K2's, K3's and K5's by form."""
     from fcvm_tpu_torch.ops import kernels
 
     counts = {name: getattr(kernels, name).launches for name in PATH_KERNELS}
@@ -490,8 +522,8 @@ def read_launches():
     by["segment_sum paths"] = dict(getattr(kernels.segment_sum, "paths", {}))
     by["cg_iteration passes"] = dict(getattr(kernels.cg_iteration, "passes", {}))
     by["cg_iteration forms"] = dict(getattr(kernels.cg_iteration, "forms", {}))
-    by["stress_update forms"] = dict(getattr(kernels.stress_update, "forms", {}))
-    by["node_force forms"] = dict(getattr(kernels.node_force, "forms", {}))
+    for name in ("stress_update", "node_force", "form_blocks", "jacobi_inverse"):
+        by[f"{name} forms"] = dict(getattr(getattr(kernels, name), "forms", {}))
     return counts, by
 
 
@@ -507,12 +539,11 @@ def layer_breakdown(model, cfg):
 
     backend = TorchSystem(model, cfg, cfg.resolve_dtype(), cfg.resolve_device())
     coords = backend.tensor(model.mesh.coords)
-    esm, pinv, glv, rhs, *_ = backend.assemble(coords)
-    khat = backend.operator(esm)
-    pc = backend.make_pc(esm, pinv)
+    khat, pinv, glv, rhs, *_ = backend.assemble_operator(coords)
+    pc = backend.operator_pc(khat, pinv)
     space = backend.space
     esm_t = khat.esm_t
-    del esm, pinv
+    del pinv
     eldofs_t = space.eldofs_m.T.contiguous()
     u = space.to_m(rhs)
     fm = space.fixmask_m
@@ -605,15 +636,27 @@ def layer_breakdown(model, cfg):
               f"{ev.key[:90]}")
 
 
-def refresh_breakdown(model, cfg, res):
-    """Print the CUDA-event time of each piece of one GNL tangent refresh on
-    the end state of a GNL run ``res`` (its total displacement and
-    stresses; the plastic points are those on the yield surface): tangent
-    formation, follower loads, operator build, block-Jacobi rebuild, the
-    predictor solve cold and warm-started from the predictor of a nearby
-    state (5% less displacement, standing for the previous Newton
-    iteration's), and one residual with and without GNL."""
+def refresh_breakdown(model, cfg, res, calls=4):
+    """Print the pieces of one GNL tangent refresh on the end state of a GNL
+    run ``res`` (its total displacement and stresses; the plastic points are
+    those on the yield surface), CUDA events: the tangent formation, K3's
+    packed tiles in the solve space's order, beside the plain chain it
+    replaced (the einsums, the element-major copy, ``pack_blocks``); the
+    block-Jacobi rebuild, K5 on those tiles, beside its plain chain (the
+    diagonal slice, K8, the torch tail); the follower loads; the right-hand
+    side (K1 on the tiles); the whole refresh without the predictor solve;
+    the predictor solve cold and warm-started from the predictor of a
+    nearby state (5% less displacement, standing for the previous Newton
+    iteration's); one residual with and without GNL.  Then a profile of
+    ``calls`` refreshes without the predictor (:func:`kernel_launches`),
+    whose raw totals it prints, checked: K3's and K5's wrappers count
+    ``calls`` launches each, the profile records each at least ``calls -
+    1`` times, and beside them only kernels that the follower loads and
+    the right-hand side launch on their own, as often a call (each total
+    over ``calls``, rounded up: the tracer misses records of a profile's
+    first call only, :func:`kernel_launches`).  Returns the rows."""
     from fcvm_tpu_torch.ops import assembly as asm
+    from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.ops import material as mat
     from fcvm_tpu_torch.ops.precond import refresh_blocks
     from fcvm_tpu_torch.runtime import system as sysm
@@ -622,9 +665,9 @@ def refresh_breakdown(model, cfg, res):
 
     backend = TorchSystem(model, cfg, cfg.resolve_dtype(), cfg.resolve_device())
     coords = backend.tensor(model.mesh.coords)
-    esm, pinv, glv, *_ = backend.assemble(coords)
-    pc = backend.make_pc(esm, pinv)
-    del esm, pinv
+    khat, pinv, glv, *_ = backend.assemble_operator(coords)
+    pc = backend.operator_pc(khat, pinv)
+    del khat, pinv
     space = backend.space
     disp = backend.tensor(pad_vector(res.disp_total, backend.ndof_pad))
     sig = backend.tensor(res.sig_gp)
@@ -635,37 +678,88 @@ def refresh_breakdown(model, cfg, res):
     check(bool(pgp.any()), "phase 8b: no plastic Gauss point in the end state")
     et_e = 0.0
     eperm = space.eperm
-    coords_def = coords + disp.reshape(-1, 3)[: coords.shape[0]]
+    g, h = backend.g, mat.hardening_modulus(backend.e, et_e)
+    tangent = dict(dmat=backend.dmat, sig=sig, pgp=pgp, g=g, h=h)
+
+    def chain():  # the formation before K3: the einsums, the element-major copy, the packing
+        coords_def = coords + disp.reshape(-1, 3)[: coords.shape[0]]
+        esm_t = kernels.form_blocks_ref("tangent", coords_def, backend.elnodes, perm=eperm,
+                                        **tangent)[0].contiguous()
+        return esm_t, kernels.pack_blocks(esm_t)
 
     def form():
-        return asm.tangent_stiffness_blocks(
-            coords_def, backend.elnodes[eperm], backend.dmat, sig[eperm], pgp[eperm],
-            backend.g, mat.hardening_modulus(backend.e, et_e))
+        return asm.operator_blocks("tangent", coords, backend.elnodes, disp=disp, perm=eperm,
+                                   table=backend.element_table, **tangent)
 
-    esm_m = form()
-    rows = [
-        ("tangent formation (ne, 30, 30), solve-space element order [median of 5]",
-         cuda_ms(form, runs=5)),
-        ("follower loads (pressure and gravity on the deformed geometry)",
-         cuda_ms(lambda: sysm.external_loads(coords, disp, backend.elnodes, backend.loads,
-                                             backend.density, follower=True,
-                                             plan=backend.node_plan))),
-        ("operator build (blocks to element-major (30, 30, ne))",
-         cuda_ms(lambda: sysm.make_operator(esm_m, space))),
-        ("block-Jacobi rebuild", cuda_ms(
-            lambda: refresh_blocks(pc, esm_m, space.elnodes_m, space.fixmask_m))),
-    ]
-    del esm_m
-    rows.append(("whole refresh without the predictor solve [median of 5]", cuda_ms(
-        lambda: backend.tangent_refresh(coords, sig, pgp, disp, pc, et_e,
-                                        solve_predictor=False), runs=5)))
+    def loads():
+        return sysm.external_loads(coords, disp, backend.elnodes, backend.loads,
+                                   backend.density, follower=True, plan=backend.node_plan)
+
+    esm_t, packed = chain()
+    glv_t = loads()[0]
+    blocks = form()
+
+    def rebuild():
+        return refresh_blocks(pc, None, space.elnodes_m, space.fixmask_m, space.jacobi_plan,
+                              packed=blocks.packed)
+
+    rows = [("tangent formation, K3: the packed tiles, solve-space order", cuda_ms(form)),
+            ("  K3's device time (torch.profiler, mean of 10)", device_ms(form)),
+            ("tangent formation, the plain chain (the einsums, the element-major copy, "
+             "pack_blocks) [median of 5]", cuda_ms(chain, runs=5)),
+            ("block-Jacobi rebuild, K5 on the packed tiles", cuda_ms(rebuild)),
+            ("  K5's device time (torch.profiler, mean of 10)", device_ms(rebuild)),
+            ("block-Jacobi rebuild, the plain chain (the diagonal slice, K8, the torch tail)",
+             cuda_ms(lambda: kernels.jacobi_inverse_ref(esm_t, space.jacobi_plan,
+                                                        space.fixmask_m)))]
+    op = sysm.make_operator(blocks, space)
+
+    def rhs():  # in user dof order, as the refresh returns it without the predictor
+        return space.from_m(asm.dirichlet_rhs(op.esm_t, space.eldofs_m, space.fixmask_m,
+                                              space.to_m(backend.u_fix), space.to_m(glv_t),
+                                              space.incidence, op.packed))
+
+    rows += [("follower loads (pressure and gravity on the deformed geometry)", cuda_ms(loads)),
+             ("the right-hand side (K1 on the tangent's tiles)", cuda_ms(rhs))]
+
+    def refresh():
+        return backend.tangent_refresh(coords, sig, pgp, disp, pc, et_e, solve_predictor=False)
+
+    rows.append(("whole refresh without the predictor solve [median of 5]",
+                 cuda_ms(refresh, runs=5)))
+    del esm_t, packed, blocks
+    counted = kernels.form_blocks.launches, kernels.jacobi_inverse.launches
+    port, other = kernel_launches(refresh, calls=calls)
+    counted = (kernels.form_blocks.launches - counted[0],
+               kernels.jacobi_inverse.launches - counted[1])
+    allowed = Counter()
+    for piece in (loads, rhs):
+        allowed.update(sum(kernel_launches(piece, calls=calls), Counter()))
+    print(f"profile of {calls} refreshes without the predictor, totals: the port's kernels "
+          f"{dict(port)}; every other kernel {dict(other)}; those the follower loads and the "
+          f"right-hand side launch on their own over as many calls: {dict(allowed)}; K3's and "
+          f"K5's wrappers counted {counted}")
+
+    def per_call(totals):
+        return {k: -(-n // calls) for k, n in totals.items()}
+
+    allowed_call = per_call(allowed)
+    beyond = {k: n for k, n in per_call(port + other).items()
+              if k not in ("form_blocks_kernel", "jacobi_kernel") and n > allowed_call.get(k, 0)}
+    check(counted == (calls, calls), f"phase 8b: {calls} refreshes launched K3 and K5 {counted} "
+          f"times")
+    check(min(port["form_blocks_kernel"], port["jacobi_kernel"]) >= calls - 1,
+          f"phase 8b: the profile of {calls} refreshes recorded K3 {port['form_blocks_kernel']} "
+          f"and K5 {port['jacobi_kernel']} times")
+    check(not beyond, f"phase 8b: a refresh launched kernels beyond K3, K5, the follower "
+          f"loads' and the right-hand side's (a call's): {beyond}")
+    del op
     prev = backend.tangent_refresh(coords, sig, pgp, 0.95 * disp, pc, et_e)[3]
-    khat, pc_t, _, rhs, _ = backend.tangent_refresh(coords, sig, pgp, disp, pc, et_e,
-                                                     solve_predictor=False)
+    khat, pc_t, _, rhs_t, _ = refresh()
     for name, x0 in (("cold", None), ("warm", prev)):
-        iters = backend.solve(khat, pc_t, rhs, x0=x0).iters
+        iters = backend.solve(khat, pc_t, rhs_t, x0=x0).iters
         rows.append((f"predictor solve, {name}: {iters} CG iterations [median of 3]",
-                     cuda_ms(lambda: backend.solve(khat, pc_t, rhs, x0=x0), runs=3)))
+                     cuda_ms(lambda: backend.solve(khat, pc_t, rhs_t, x0=x0), runs=3)))
     del khat, pc_t, prev
     qnorm = max(float(torch.linalg.vector_norm(glv)), 1.0)
     du = 0.02 * disp
@@ -677,6 +771,8 @@ def refresh_breakdown(model, cfg, res):
     for name, ms in rows:
         print(f"{name}: {ms:.4f} ms")
     torch.cuda.empty_cache()
+    return dict(rows) | {"profile totals": dict(port + other), "profile calls": calls,
+                         "wrapper launches": counted}
 
 
 def probe_phase():
@@ -970,21 +1066,23 @@ def dense_coarse(coarse):
     return kernels.dense_coarse(coarse) if hasattr(kernels, "dense_coarse") else coarse
 
 
-def built_coarse(be, esm, pc):
+def built_coarse(be, op, pc):
     """The dense coarse inverse as the two-level build computes it before it
-    packs it: the coarse table of ``esm`` on pc's modes, inverted with the
-    ridge ladder; a tree from before K4c keeps it in pc as it is."""
+    packs it: the coarse table of the operator ``op``'s blocks on pc's
+    modes, inverted with the ridge ladder; a tree from before K4c keeps it
+    in pc as it is."""
     from fcvm_tpu_torch.ops import kernels, precond
 
     if not hasattr(kernels, "PackedCoarse"):
         return pc.coarse_inv
     sp = be.space
     ncl = pc.coarse_inv.shape[0] // pc.qmat.shape[2]
-    kc = precond.coarse_accumulate(esm[sp.eperm], sp.elnodes_m, pc.qmat, pc.qmat.shape[0] // ncl)
+    kc = precond.coarse_accumulate(op.esm_t.permute(2, 0, 1).contiguous(), sp.elnodes_m,
+                                   pc.qmat, pc.qmat.shape[0] // ncl)
     return precond.invert_coarse_with_ladder(kc)
 
 
-def coarse_rows(be, esm, pc, dtype, tol, widths, vector, gen, label):
+def coarse_rows(be, op, pc, dtype, tol, widths, vector, gen, label):
     """K4c alone (``coarse_product`` on a vector when ``vector``, else on
     blocks at each of ``widths``) on pc's packed coarse inverse,
     against its plain version (the mirrored tiles' dense product) and,
@@ -998,7 +1096,7 @@ def coarse_rows(be, esm, pc, dtype, tol, widths, vector, gen, label):
 
     size = torch.finfo(dtype).bits // 8
     ncf = pc.coarse_inv.shape[0]
-    dense = built_coarse(be, esm, pc)
+    dense = built_coarse(be, op, pc)
     asym = float((dense - dense.T).abs().max() / dense.abs().max())
     new = hasattr(kernels, "PackedCoarse")
     mirrored = dense_coarse(pc.coarse_inv)
@@ -1063,10 +1161,11 @@ def cg_kernel_phase(models):
         for name, model in models.items():
             cfg = FcvmConfig(device="cuda", dtype=dname)
             be = TorchSystem(model, cfg, dtype, torch.device("cuda"))
-            esm, pinv, *_ = be.assemble(be.tensor(model.mesh.coords))
+            op, pinv, *_ = be.assemble_operator(be.tensor(model.mesh.coords))
+            esm = op.esm_t.permute(2, 0, 1)
             asym = float((esm - esm.transpose(1, 2)).abs().max() / esm.abs().max())
+            del esm
             sp = be.space
-            op = be.operator(esm)
             esm_t, packed = op.esm_t, op.packed
             ne, nn = esm_t.shape[2], be.ndof_pad // 3
             print(f"{name} {dname}: blocks' max |K - K^T| / max |K| = {asym:.3e}; packed copy "
@@ -1117,20 +1216,20 @@ def cg_kernel_phase(models):
                 check(same, f"K1 gave other bits on a second call ({dname}, {name}, {form})")
                 rows[("khat_matvec", dname, name, form)] = dict(ne=ne, **row)
                 del out, again, ref, full
-            del kcsr, u, eldofs_t, op, packed
+            del kcsr, u, eldofs_t, packed
             if name != "plate":
-                del be, esm, pinv, esm_t
+                del be, op, pinv, esm_t
                 torch.cuda.empty_cache()
                 continue
             r = torch.randn(be.ndof_pad, generator=gen, device="cuda", dtype=dtype)
             coarse = None
             for fine in ("jacobi3", "cluster"):
                 be.cfg = FcvmConfig(device="cuda", dtype=dname, smoother=fine)
-                pc = be.make_pc(esm, pinv)
+                pc = be.operator_pc(op, pinv)
                 check((pc.smooth_inv is not None) == (fine == "cluster"),
                       f"phase 3c: the {fine} preconditioner was not built")
                 if coarse is None:  # K4c alone, on the coarse inverse of either build
-                    (coarse,) = coarse_rows(be, esm, pc, dtype, tol, (1,), True, gen,
+                    (coarse,) = coarse_rows(be, op, pc, dtype, tol, (1,), True, gen,
                                             f"{dname} {name}").values()
                 z_fine = None if fine == "jacobi3" else pc.fine(r)
                 args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, r, z_fine)
@@ -1170,7 +1269,7 @@ def cg_kernel_phase(models):
                 check(same, f"K4 gave other bits on a second call ({dname}, {fine})")
                 rows[("two_level_apply", dname, name, fine)] = dict(nn=nn, **row)
                 del pc, out, again, ref, args, ref_args, z_fine
-            del be, esm, pinv, esm_t, r
+            del be, op, pinv, esm_t, r
             torch.cuda.empty_cache()
     return rows
 
@@ -1235,9 +1334,8 @@ def block_kernel_phase(models):
         for name, model in models.items():
             be = TorchSystem(model, FcvmConfig(device="cuda", dtype=dname), dtype,
                              torch.device("cuda"))
-            esm, pinv, *_ = be.assemble(be.tensor(model.mesh.coords))
+            op, pinv, *_ = be.assemble_operator(be.tensor(model.mesh.coords))
             sp = be.space
-            op = be.operator(esm)
             esm_t, packed, inc, fm = op.esm_t, op.packed, sp.incidence, sp.fixmask_m
             ne, nn = esm_t.shape[2], be.ndof_pad // 3
             kcsr = assembled_khat(esm_t, sp.eldofs_m, fm)
@@ -1312,19 +1410,19 @@ def block_kernel_phase(models):
                                 f"{form})")
                     rows[("khat_matmat", dname, name, form, m)] = dict(ne=ne, **row)
                 del u
-            del kcsr, op, packed, plans
+            del kcsr, packed, plans
             if name != "column":
-                del be, esm, pinv, esm_t
+                del be, op, pinv, esm_t
                 torch.cuda.empty_cache()
                 continue
             coarse = None
             for fine in ("jacobi3", "cluster"):
                 be.cfg = FcvmConfig(device="cuda", dtype=dname, smoother=fine)
-                pc = be.make_pc(esm, pinv)
+                pc = be.operator_pc(op, pinv)
                 check((pc.smooth_inv is not None) == (fine == "cluster"),
                       f"phase 3d: the {fine} preconditioner was not built")
                 if coarse is None:  # K4c alone at each width
-                    coarse = coarse_rows(be, esm, pc, dtype, tol, K4M_WIDTHS, False, gen,
+                    coarse = coarse_rows(be, op, pc, dtype, tol, K4M_WIDTHS, False, gen,
                                          f"{dname} {name}")
                 nm, nn_cl, ncf = pc.qmat.shape[2], pc.qmat.shape[0], pc.coarse_inv.shape[0]
                 mirrored = dense_coarse(pc.coarse_inv)  # the plain version's, unpacked once
@@ -1375,7 +1473,7 @@ def block_kernel_phase(models):
                     rows[("two_level_apply_block", dname, name, fine, m)] = dict(nn=nn, **row)
                     del r, z_fine, args, ref_args
                 del pc, mirrored
-            del be, esm, pinv, esm_t
+            del be, op, pinv, esm_t
             torch.cuda.empty_cache()
     return rows
 
@@ -1668,9 +1766,9 @@ def k6_phase(models):
     big = models["plate"]
     be = TorchSystem(big, FcvmConfig(device="cuda", dtype="float32"), torch.float32,
                      torch.device("cuda"))
-    esm, pinv, _, rhs, *_ = be.assemble(be.tensor(big.mesh.coords))
-    khat, pc = be.operator(esm), be.make_pc(esm, pinv)
-    del esm, pinv
+    khat, pinv, _, rhs, *_ = be.assemble_operator(be.tensor(big.mesh.coords))
+    pc = be.operator_pc(khat, pinv)
+    del pinv
     be.solve(khat, pc, rhs, x0=be.u_fix)  # warm
     sweep = {b: [] for b in K6_BATCHES}
     saved = slv.CG_BATCH
@@ -2112,6 +2210,33 @@ def k2_residual(big, smi):
                 error_ulps=err_ulps)
 
 
+def k2_digests(models):
+    """SHA-256 of K2's element-pass outputs at each ``K2_CASES`` input, both
+    dtypes: two trees whose K2 gives the same bits give the same digests
+    (``tools/turns.py TREE k2bits``).  Returns ``{"dtype model case": hex}``."""
+    import hashlib
+
+    from fcvm_tpu_torch.ops import kernels
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for name, form, gnl, region in K2_CASES:
+            args, kw, _ = k2_inputs(models[name], dtype, gnl, region)
+            if form == "given":
+                kw = {k: v for k, v in kw.items() if k == "weights"}
+            got = kernels.stress_update(*args, **kw)
+            got = (got,) if form == "given" else got
+            h = hashlib.sha256()
+            for t in got:
+                h.update(t.contiguous().cpu().numpy().tobytes())
+            key = (f"{str(dtype).removeprefix('torch.')} {name} {form}"
+                   + (" gnl" if gnl else "") + (" region weighted" if region else ""))
+            out[key] = h.hexdigest()
+            del args, kw, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def k2_phase(models, smi):
     """Phase 3f: K2's element pass (:func:`k2_element_rows`), its node pass
     (:func:`k2_node_rows`) and the plate's residual through both
@@ -2120,7 +2245,294 @@ def k2_phase(models, smi):
     rows = k2_element_rows(models, smi)
     rows["node"] = k2_node_rows(models, smi)
     rows["residual"] = k2_residual(models["plate"], smi)
+    digests = k2_digests(models)
+    print("K2 element pass, SHA-256 of its outputs by case (tools/turns.py TREE k2bits holds "
+          "two trees' against each other): " + "; ".join(f"{k} {v[:16]}"
+                                                        for k, v in digests.items()))
     return rows
+
+
+# K3's cases of phase 3g: (model, form, what the paths form: the case's
+# inputs and outputs); each in float32 and float64
+K3_CASES = (("plate", "tangent", "refresh"),  # phase 8's refresh: packed tiles alone
+            ("plate", "tangent", "region"),  # phase 10's region, a D, G and H per element
+            ("plate", "elastic", "assembly"),  # the elastic operator: both outputs
+            ("column", "elastic", "assembly"),
+            ("column", "geometric", "pencil"),  # -G_hat's packed tiles, a seeded pre-stress
+            ("plate", "elastic", "sharded weights"))  # weights with zeros, no perm
+# K5's: (model, the blocks it reads)
+K5_CASES = (("plate", "refresh"),  # packed tiles in the solve space's order, its plan
+            ("plate", "assembly"),  # the element-major blocks, the user plan, cols
+            ("plate", "sharded"),  # the sum, a reduce, the tail
+            ("column", "eigensolve"))  # the packed tiles, the solve space's plan
+K3_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}  # max |kernel - plain| / max |plain|
+
+
+def form_setup(models):
+    """Per model: a float32 backend (its solve space, element table and
+    masks) and the seeded state K3 forms from (about half the Gauss points
+    plastic, stresses of 30 MPa, a displacement, phase 10's region)."""
+    from fcvm_tpu_torch import FcvmConfig
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    out = {}
+    for name, model in models.items():
+        be = TorchSystem(model, FcvmConfig(device="cuda", dtype="float32"), torch.float32,
+                         torch.device("cuda"))
+        mesh = model.mesh
+        rng = np.random.default_rng(19)
+        y = mesh.coords[mesh.elnodes].mean(axis=1)[:, 1]
+        out[name] = dict(be=be, rng_state=dict(
+            disp=3e-3 * rng.normal(size=be.ndof_pad),
+            sig=rng.normal(scale=30.0, size=(mesh.n_elements, 4, 6)),
+            pgp=rng.uniform(size=(mesh.n_elements, 4)) < 0.5,
+            e=np.where(y > 75.0, 2 * E, E) if name == "plate" else np.full(mesh.n_elements, E),
+            weights=(rng.uniform(size=mesh.n_elements) > 0.1).astype(float)))
+    return out
+
+
+def k3_inputs(setup, model, form, case, dtype):
+    """K3's arguments and keywords for a ``K3_CASES`` entry in ``dtype``."""
+    from fcvm_tpu_torch.ops import material as mat
+
+    st = setup[model]
+    be, r = st["be"], st["rng_state"]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device="cuda").to(dtype)
+
+    kw = dict(table=be.element_table)
+    if case != "sharded weights":
+        kw["perm"] = be.space.eperm
+    else:
+        kw["weights"] = t(r["weights"])
+    e = t(r["e"]) if case == "region" else E
+    if form in ("elastic", "tangent"):
+        kw["dmat"] = mat.hooke_dmat(e, NU, dtype, "cuda")
+    if form in ("tangent", "geometric"):
+        kw["sig"] = t(r["sig"])
+    if form == "tangent":
+        kw.update(disp=t(r["disp"]), pgp=torch.as_tensor(r["pgp"], device="cuda"),
+                  g=mat.shear_modulus(e, NU), h=mat.hardening_modulus(e, K2_ET_E))
+    packed_only = case in ("refresh", "pencil")
+    return (form, t(be.mesh.coords), be.elnodes), kw, dict(full=not packed_only, packed=True)
+
+
+def k3_work(args, kw, outs, dtype):
+    """(bytes, operations) of one K3 launch: each input read once (the
+    coordinates and displacements at every node, the int32 table, perm, the
+    per-element stresses, flags, D, G, H and weights), each output written
+    once (the packed tiles with their padding, the element-major blocks when
+    written); the arithmetic, an FMA as two operations: per Gauss point the
+    geometry (J 90, J^-1 40, dN/dx 90, D_g 60 FMAs) and per node pair D B_b
+    and B_a^T (D B_b), 81 FMAs (geometric: 12)."""
+    form, coords, eln = args
+    size = coords.element_size()
+    ne = kw["perm"].shape[0] if "perm" in kw else eln.shape[0]
+    nbytes = coords.numel() * size + 40 * eln.shape[0] + (8 * ne if "perm" in kw else 0)
+    for k in ("disp", "sig", "dmat", "g", "h", "weights"):
+        v = kw.get(k)
+        nbytes += v.numel() * size if torch.is_tensor(v) else 0
+    nbytes += kw["pgp"].numel() if "pgp" in kw else 0
+    tile = {torch.float32: 256, torch.float64: 128}[dtype]
+    nbytes += 465 * -(-ne // tile) * tile * size + (900 * ne * size if outs["full"] else 0)
+    pair = 12 if form == "geometric" else 81
+    return nbytes, 2 * ne * 4 * (280 + 55 * pair)
+
+
+def k3_rows(setup, smi):
+    """Phase 3g's K3 rows (``K3_CASES``), float32 and float64: against its
+    plain version (the einsum chain and ``pack_blocks``) on the same
+    tensors, to ``K3_TOL``, in float32 no farther from the float64 plain
+    version than twice the float32 plain version; its blocks exactly
+    symmetric, its packed tiles bit for bit ``pack_blocks`` of its own
+    element-major blocks, a second launch the same bits; timed (CUDA events,
+    device time) against its plain version and its bound."""
+    from fcvm_tpu_torch.ops import kernels
+
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).removeprefix("torch.")
+        for model, form, case in K3_CASES:
+            args, kw, outs = k3_inputs(setup, model, form, case, dtype)
+            got = kernels.form_blocks(*args, **kw, full=True, packed=True)
+            again = kernels.form_blocks(*args, **kw, **outs)
+            torch.cuda.synchronize()
+            same = all(b is None or torch.equal(a, b) for a, b in zip(got, again))
+            sym = torch.equal(got[0], got[0].transpose(0, 1))
+            packs = torch.equal(got[1], kernels.pack_blocks(got[0]))
+            want = kernels.form_blocks_ref(*args, **kw)[0]
+            scale = float(want.abs().max())
+            err = float((got[0] - want).abs().max())
+            f64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+                   for k, v in kw.items()}
+            exact = kernels.form_blocks_ref(args[0], args[1].double(), args[2], **f64)[0]
+            vs_f64 = float((got[0].double() - exact).abs().max()) / float(exact.abs().max())
+            plain_vs_f64 = float((want.double() - exact).abs().max()) / float(exact.abs().max())
+            del got, again, want, exact
+            torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: kernels.form_blocks(*args, **kw, **outs))
+            plain_ms = cuda_ms(lambda: kernels.form_blocks_ref(*args, **kw, **outs), runs=5)
+            by = device_ms_by_kernel(lambda: kernels.form_blocks(*args, **kw, **outs))
+            dev = sum(v for k, v in by.items() if k.startswith("form_blocks")) or None
+            nbytes, ops = k3_work(args, kw, outs, dtype)
+            bound_ms, bound_by = bound(nbytes, ops, dtype)
+            ne = kw["perm"].shape[0] if "perm" in kw else args[2].shape[0]
+            row = dict(ne=ne, outputs="packed" if not outs["full"] else "element-major, packed",
+                       max_abs_err=err, max_rel_err=err / scale, vs_f64=vs_f64,
+                       plain_vs_f64=plain_vs_f64, same_bits=same, symmetric=sym,
+                       packed_is_pack_blocks=packs, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, operations=ops,
+                       library_ms=None)
+            share = "" if dev is None else f", {bound_ms / dev:.1%} of the device time"
+            print(f"K3 {dname} {model} {form} ({case}) ne={ne}, {row['outputs']}: max rel err "
+                  f"{err / scale:.2e} (vs f64 {vs_f64:.2e}, plain's {plain_vs_f64:.2e}; limit "
+                  f"{K3_TOL[dtype]:g}); symmetric {sym}; packed tiles pack_blocks' {packs}; "
+                  f"second launch {'the same bits' if same else 'DIFFERENT BITS'}; {ms:.4f} ms "
+                  f"(CUDA events), device time "
+                  + ("not recorded" if dev is None else f"{dev:.4f} ms")
+                  + f"; plain (the einsum chain, pack_blocks) {plain_ms:.4f} ms [median of 5]; "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB){share}; no "
+                  f"library call ({smi})")
+            check(err / scale <= K3_TOL[dtype], f"K3 {dname} {model} {form} ({case}): disagrees "
+                  "with its plain version")
+            if dtype == torch.float32:
+                check(vs_f64 <= 2 * max(plain_vs_f64, 1e-7), f"K3 {dname} {model} {form} "
+                      f"({case}): farther from float64 than twice the float32 plain version")
+            check(same and sym and packs, f"K3 {dname} {model} {form} ({case}): a second launch "
+                  "gave other bits, or its blocks are not symmetric or its tiles not theirs")
+            rows[(dname, model, f"{form} {case}")] = row
+            del args, kw
+            torch.cuda.empty_cache()
+    return rows
+
+
+def k5_inputs(setup, model, case, dtype):
+    """K5's blocks, plan, mask and keywords for a ``K5_CASES`` entry, and the
+    element-major blocks the plain version reads: K3's elastic blocks of
+    ``model`` as the case's path holds them."""
+    from fcvm_tpu_torch.ops import assembly as asm
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.ops import material as mat
+
+    be = setup[model]["be"]
+    sp = be.space
+    coords = torch.as_tensor(be.mesh.coords, device="cuda").to(dtype)
+    dmat = mat.hooke_dmat(E, NU, dtype, "cuda")
+    perm = None if case == "sharded" else sp.eperm
+    esm_t, packed = kernels.form_blocks("elastic", coords, be.elnodes, dmat=dmat, perm=perm,
+                                        table=be.element_table, packed=True)
+    kw = {}
+    if case == "assembly":
+        blocks, plan, fixmask = esm_t, asm.jacobi_plan(be.elnodes, be.ndof_pad // 3), be.fixmask
+        kw["cols"] = sp.epos
+    elif case == "sharded":
+        blocks, plan, fixmask = esm_t, asm.jacobi_plan(be.elnodes, be.ndof_pad // 3), be.fixmask
+        kw["reduce"] = lambda nodal: nodal  # a world of one's all_reduce
+    else:
+        blocks, plan, fixmask = packed, sp.jacobi_plan, sp.fixmask_m
+    return blocks, plan, fixmask.to(dtype), kw, esm_t
+
+
+def k5_work(blocks, plan, fixmask, kw):
+    """Bytes of one K5 call: the diagonal values it must read (6 of each
+    (element, slot) block from the packed tiles, 9 from the element-major
+    blocks), the plan (order, offsets, segs, holes), cols, the mask and the
+    inverses written (the sum form's nodal blocks written and read again
+    once more); its arithmetic is below the bytes' time."""
+    size = blocks.element_size()
+    inc = plan.keys.shape[0]
+    nbytes = inc * (6 if blocks.shape[1] == 465 else 9) * size
+    nbytes += 4 * (plan.order.shape[0] + plan.offsets.shape[0] + plan.segs.shape[0]
+                   + plan.holes.shape[0])
+    nbytes += 8 * kw["cols"].shape[0] if "cols" in kw else 0
+    rows = fixmask.shape[0] // 3
+    nbytes += fixmask.numel() * size + 9 * rows * size * (3 if "reduce" in kw else 1)
+    return nbytes, 2 * rows * 60
+
+
+def k5_rows(setup, smi):
+    """Phase 3g's K5 rows (``K5_CASES``), float32 and float64: its sum bit
+    for bit K8's write form on the same blocks (the sum form's output, read
+    through a reduce), its inverses within 4 ulps of the torch tail, a
+    second call the same bits; timed against its plain version (the slice,
+    K8, the torch tail) and its bound."""
+    from fcvm_tpu_torch.ops import kernels
+
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).removeprefix("torch.")
+        for model, case in K5_CASES:
+            blocks, plan, fixmask, kw, esm_t = k5_inputs(setup, model, case, dtype)
+            seen = {}
+
+            def keep(nodal):
+                seen["nodal"] = nodal.clone()
+                return nodal
+
+            got = kernels.jacobi_inverse(blocks, plan, fixmask, **kw)
+            again = kernels.jacobi_inverse(blocks, plan, fixmask, **kw)
+            summed = kernels.jacobi_inverse(blocks, plan, fixmask, cols=kw.get("cols"),
+                                            reduce=keep)
+            torch.cuda.synchronize()
+            ne = esm_t.shape[2]
+            cols = kw.get("cols")
+            src = esm_t if cols is None else esm_t[:, :, cols]
+            idx = torch.arange(10, device="cuda")
+            diag = src.permute(2, 0, 1).reshape(ne, 10, 3, 10, 3)[:, idx, :, idx, :]
+            nodal = kernels.segment_sum(diag.reshape(-1, 3, 3).contiguous(), plan,
+                                        rows=fixmask.shape[0] // 3)
+            sum_bits = torch.equal(seen["nodal"], nodal)
+            tail = kernels._jacobi_tail_ref(nodal, fixmask)
+            tiny = torch.finfo(dtype).tiny
+            max_ulps = float(((got - tail).abs() / (torch.finfo(dtype).eps
+                                                    * tail.abs().clamp_min(tiny))).max())
+            err = float((got - tail).abs().max())
+            same = torch.equal(got, again) and torch.equal(got, summed)
+            del again, summed, src, diag, nodal, tail
+            ms = cuda_ms(lambda: kernels.jacobi_inverse(blocks, plan, fixmask, **kw))
+            plain_ms = cuda_ms(lambda: kernels.jacobi_inverse_ref(blocks, plan, fixmask, **kw))
+            by = device_ms_by_kernel(lambda: kernels.jacobi_inverse(blocks, plan, fixmask, **kw))
+            dev = sum(v for k, v in by.items() if k.startswith("jacobi")) or None
+            nbytes, ops = k5_work(blocks, plan, fixmask, kw)
+            bound_ms, bound_by = bound(nbytes, ops, dtype)
+            form = "sum, reduce, tail" if "reduce" in kw else "fused"
+            layout = "packed tiles" if blocks.shape[1] == 465 else "element-major"
+            row = dict(nodes=fixmask.shape[0] // 3, ne=ne, form=form, layout=layout,
+                       cols="cols" in kw, max_abs_err=err, max_ulps=max_ulps,
+                       sum_bit_for_bit=sum_bits, same_bits=same, ms=ms, device_ms=dev,
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                       operations=ops, library_ms=None)
+            share = "" if dev is None else f", {bound_ms / dev:.1%} of the device time"
+            print(f"K5 {dname} {model} ({case}: {form}, {layout}"
+                  + (", cols" if "cols" in kw else "") + f"), {row['nodes']} nodes: sum bit for "
+                  f"bit K8's write form {sum_bits}; inverses {max_ulps:.2f} ulps from the torch "
+                  f"tail (max abs {err:.2e}); second call and the reduce form "
+                  f"{'the same bits' if same else 'DIFFERENT BITS'}; {ms:.4f} ms (CUDA events), "
+                  f"device time " + ("not recorded" if dev is None else f"{dev:.4f} ms")
+                  + f"; plain (the slice, K8, the torch tail) {plain_ms:.4f} ms; bound "
+                  f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB){share}; no library "
+                  f"call ({smi})")
+            check(sum_bits, f"K5 {dname} {model} ({case}): its sum is not K8's bits")
+            check(max_ulps <= 4, f"K5 {dname} {model} ({case}): inverses more than 4 ulps from "
+                  "the torch tail")
+            check(same, f"K5 {dname} {model} ({case}): a second call or the reduce form gave "
+                  "other bits")
+            rows[(dname, model, case)] = row
+            del blocks, plan, fixmask, kw, esm_t, got
+            torch.cuda.empty_cache()
+    return rows
+
+
+def form_phase(models, smi):
+    """Phase 3g: K3 (:func:`k3_rows`) and K5 (:func:`k5_rows`) at every shape
+    the paths give them.  Returns ``{"form_blocks": rows, "jacobi_inverse":
+    rows}``."""
+    setup = form_setup(models)
+    out = {"form_blocks": k3_rows(setup, smi), "jacobi_inverse": k5_rows(setup, smi)}
+    del setup
+    torch.cuda.empty_cache()
+    return out
 
 
 # where the coarse table's later chunk starts (its longest group: 7,473 rows
@@ -2376,6 +2788,9 @@ def run_column(cfg, nstep=COL_NSTEP, label="phase 9", required=(*CG_KERNELS, *BL
         check(by_dtype["cg_iteration forms"].get("block deflated", 0) > 0,
               f"{label}: K6's deflated block form was not launched (harvests "
               f"{[r['harvest'] for r in tiers]})")
+    if hasattr(kernels, "form_blocks_ref"):  # the pencil's -G_hat through K3's geometric form
+        check(by_dtype["form_blocks forms"].get("geometric", 0) > 0,
+              f"{label}: K3's geometric form was not launched")
     print(f"launches by dtype (K0m, K1m and K4m by dtype and m) {by_dtype}")
     inner = sum(sum(map(sum, r["inner_iters"])) for r in tiers)
     print(f"CG loop, eigensolve (block iterations and their columns' inner CG {inner}): "
@@ -2413,10 +2828,9 @@ def column_breakdown(cfg):
     col = column_model(COL_BIG, COL_W, COL_T)
     backend = TorchSystem(col, cfg, cfg.resolve_dtype(), cfg.resolve_device())
     coords = backend.tensor(col.mesh.coords)
-    esm, pinv, _, rhs, *_ = backend.assemble(coords)
-    khat = backend.operator(esm)
-    pc = backend.make_pc(esm, pinv)
-    del esm, pinv
+    khat, pinv, _, rhs, *_ = backend.assemble_operator(coords)
+    pc = backend.operator_pc(khat, pinv)
+    del pinv
     ue = backend.solve(khat, pc, rhs, x0=backend.u_fix).x
     sig, *_ = backend.stress_update(coords, backend.gauss_full(1.0e30), torch.zeros_like(ue),
                                     ue, backend.gauss_zeros((6,)), 0.0)
@@ -2757,7 +3171,8 @@ def case_phase(tmp, smi):
     check(float(res.peeq_gp.max()) > 0.0, "phase 10: no plastic strain")
     check(bool(dmat_shapes) and all(s == (NE_BIG, 6, 6) for s in dmat_shapes),
           f"phase 10: the backend's elasticity is {dmat_shapes}, not per element")
-    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 10: K1, K4, K8, K6 or K2 was not launched")
+    check(all(launches[k] > 0 for k in CG_KERNELS),
+          "phase 10: K1, K4, K8, K6, K2, K3 or K5 was not launched")
     return dict(launches=launches)
 
 
@@ -2784,9 +3199,10 @@ def cli_phase(tmp):
         lbd[dev] = latest_step(tmp / dev / "checkpoints")[1]["lbd"]
         fields[dev] = read_point_fields(tmp / dev / "plate.vtk")
         print(f"CLI run --x64{' --cpu' if dev == 'cpu' else ''}: {time.perf_counter() - t0:.2f} s, "
-              f"lbd {np.round(lbd[dev], 6).tolist()}, K1, K4, K8, K6 and K2 launches {launches}")
+              f"lbd {np.round(lbd[dev], 6).tolist()}, K1, K4, K8, K6, K2, K3 and K5 launches "
+              f"{launches}")
         check(all((n > 0) == (dev == "cuda") for n in launches.values()),
-              f"phase 10b: K1, K4, K8, K6 and K2 launches {launches} on {dev}")
+              f"phase 10b: K1, K4, K8, K6, K2, K3 and K5 launches {launches} on {dev}")
     check(len(lbd["cuda"]) == len(lbd["cpu"]) == 7, "phase 10b: step counts differ from 6")
     diff = float(np.max(np.abs(lbd["cuda"] - lbd["cpu"]) / np.maximum(np.abs(lbd["cpu"]), 1e-300)))
     fdiff, fname = max((float(np.abs(fields["cuda"][k] - v).max() / max(np.abs(v).max(), 1.0)), k)
@@ -2882,19 +3298,19 @@ def build_split(model, cfg):
     from fcvm_tpu_torch.runtime.backend import TorchSystem
 
     backend = TorchSystem(model, cfg, cfg.resolve_dtype(), cfg.resolve_device())
-    esm, pinv, *_ = backend.assemble(backend.tensor(model.mesh.coords))
+    khat, pinv, *_ = backend.assemble_operator(backend.tensor(model.mesh.coords))
     walls = []
     for _ in range(6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pc = backend.make_pc(esm, pinv)
+        pc = backend.operator_pc(khat, pinv)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     sp = backend.space
-    split = accumulate_split(esm[sp.eperm], sp, pc.qmat,
+    split = accumulate_split(khat.esm_t.permute(2, 0, 1).contiguous(), sp, pc.qmat,
                              cfg.resolve_cluster_size(model.mesh.n_nodes),
                              cfg.smoother_cluster_nodes)
-    del backend, esm, pinv, pc
+    del backend, khat, pinv, pc
     torch.cuda.empty_cache()
     return {"build (wall, median of 5 after one)": float(np.median(walls[1:]))}, split
 
@@ -2915,7 +3331,7 @@ def smoother_breakdown(model, cfg):
     from fcvm_tpu_torch.runtime.backend import TorchSystem
 
     backend = TorchSystem(model, cfg, cfg.resolve_dtype(), cfg.resolve_device())
-    esm, pinv, _, rhs, *_ = backend.assemble(backend.tensor(model.mesh.coords))
+    khat, pinv, _, rhs, *_ = backend.assemble_operator(backend.tensor(model.mesh.coords))
     builds = {}
     for name, c in (("jacobi3", dataclasses.replace(cfg, smoother="jacobi3")), ("cluster", cfg)):
         backend.cfg = c
@@ -2923,15 +3339,15 @@ def smoother_breakdown(model, cfg):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        pc = backend.make_pc(esm, pinv)
+        pc = backend.operator_pc(khat, pinv)
         torch.cuda.synchronize()
         builds[name] = (time.perf_counter() - t0, (torch.cuda.memory_allocated() - base) / 2**20,
                         (torch.cuda.max_memory_allocated() - base) / 2**20)
     backend.cfg = cfg
     check(pc.smooth_inv is not None, "phase 11: the cluster smoother was not built")
     sp, cs = backend.space, cfg.smoother_cluster_nodes
-    esm_m = esm[sp.eperm]
-    del esm, pinv
+    esm_m = khat.esm_t.permute(2, 0, 1).contiguous()
+    del khat, pinv
     ncl, m, _ = pc.smooth_inv.shape
     blocks = pre.cluster_diag_blocks(esm_m, sp.elnodes_m, sp.fixmask_m, cs)
     csz = cfg.resolve_cluster_size(model.mesh.n_nodes)
@@ -3076,7 +3492,8 @@ def fcstd_phase(tmp, smi):
     check(diff <= CLI_RTOL, "phase 12: the document's history differs from the TOML case's")
     check(bool(np.all(np.diff(lbd["fcstd"]) >= 0.0)) and lbd["fcstd"].max() < 1.76,
           "phase 12: load factors decreasing or above 1.76")
-    check(all(launches[k] > 0 for k in CG_KERNELS), "phase 12: K1, K4, K8, K6 or K2 was not launched")
+    check(all(launches[k] > 0 for k in CG_KERNELS),
+          "phase 12: K1, K4, K8, K6, K2, K3 or K5 was not launched")
     return dict(launches=launches, t_read=t_read, t_resolver=t_resolver, t_build=t_build,
                 walls=walls)
 
@@ -3163,9 +3580,7 @@ def allreduce_pieces(big, cfg, vec):
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 10.0
     be = ShardedSystem(big, cfg, torch.float32, torch.device("cuda"))
-    esm, *_ = be.assemble(be.tensor(big.mesh.coords))
-    khat = be.operator(esm)
-    del esm
+    khat = be.assemble_operator(be.tensor(big.mesh.coords))[0]
     fm = be.space.fixmask_m
     u = torch.randn(be.ndof_pad, device="cuda")
     out = dict(one_ms=one_ms, host_ms=host_ms, khat_ms=cuda_ms(khat, u),
@@ -3228,7 +3643,7 @@ def gloo_phase(cpu_small):
     check(eig_diff <= EIG_RTOL, "phase 13b: buckling factors disagree with the CPU")
     check(same, "phase 13b: the two ranks' histories differ")
     check(all(o["launches"][k] > 0 for o in outs for k in (*CG_KERNELS, "khat_matmat")),
-          "phase 13b: K1, K4, K8, K6, K2 or K1m was not launched on a rank")
+          "phase 13b: K1, K4, K8, K6, K2, K3, K5 or K1m was not launched on a rank")
     check(all(o["launches"]["block_matmat"] == 0 for o in outs),
           "phase 13b: K0m was launched on a rank")
     return [o["launches"] for o in outs]
@@ -3290,8 +3705,8 @@ def bench_phase(smi):
     # the capacity rows solve once and evaluate no residual: K2 in the others
     check(all(r["launches"][k] > 0 for name, r in rows.items() for k in CG_KERNELS
               if k not in ("stress_update", "node_force") or not name.startswith("capacity")),
-          "phase 14: a row of the bench did not launch K1, K4, K8 or K6, or one with residuals "
-          "K2")
+          "phase 14: a row of the bench did not launch K1, K4, K8, K6, K3 or K5, or one with "
+          "residuals K2")
     return launches
 
 
@@ -3354,6 +3769,10 @@ def main():
     phase(f"3f K2's element pass and node pass, vs plain and their bounds; the residual "
           f"through both against the unfused composition ({smi})")
     k2 = k2_phase(cg_models, smi)
+
+    phase(f"3g K3 and K5, the element blocks and the block-Jacobi rebuild, vs plain and their "
+          f"bounds, at the paths' shapes ({smi})")
+    form = form_phase(cg_models, smi)
     del cg_models
 
     phase("4 small plate, float64, GPU vs CPU, small strain and GNL")
@@ -3635,6 +4054,38 @@ def main():
         **k2["node"][("float32", "plate", "residual")],
         "shapes": [{"dtype": dt, "model": mo, "form": f, **row}
                    for (dt, mo, f), row in k2["node"].items()],
+    }, {
+        "name": "form_blocks", "route": "cuda", "source": "fcvm_tpu_torch/csrc/form_blocks.cu",
+        "source_also": "fcvm_tpu_torch/csrc/tet10.cuh (K2's Gauss-point geometry); its plain "
+                       "version fcvm_tpu_torch/ops/kernels.py:form_blocks_ref (the einsum chain "
+                       "and pack_blocks)",
+        "replaces": "fcvm_tpu/ops/assembly.py:59",
+        "replaces_also": "_single_elastic_esm / elastic_stiffness_blocks "
+                         "(fcvm_tpu/ops/assembly.py:59-74, :105-114), _single_tangent_esm / "
+                         "tangent_stiffness_blocks (:117-162), _single_geometric_nsm / "
+                         "geometric_stiffness_blocks (:165-188); XLA-lowered",
+        "launches": off["launches"]["form_blocks"], **path_launches("form_blocks"),
+        "launches_by_form": {k: v["by_dtype"]["form_blocks forms"] for k, v in paths.items()
+                             if "by_dtype" in v},
+        "dtype": "float32", "model": "plate", "case": "tangent refresh",
+        **form["form_blocks"][("float32", "plate", "tangent refresh")],
+        "shapes": [{"dtype": dt, "model": mo, "case": c, **row}
+                   for (dt, mo, c), row in form["form_blocks"].items()],
+    }, {
+        "name": "jacobi_inverse", "route": "cuda",
+        "source": "fcvm_tpu_torch/csrc/jacobi_inverse.cu",
+        "source_also": "its plain version fcvm_tpu_torch/ops/kernels.py:jacobi_inverse_ref (the "
+                       "diagonal slice, K8's write form, the torch tail)",
+        "replaces": "fcvm_tpu/ops/assembly.py:614",
+        "replaces_also": "block_jacobi_inverse_blocks (fcvm_tpu/ops/assembly.py:614-633): the "
+                         "slice, its segment_sum, the mask and inv3; XLA-lowered",
+        "launches": off["launches"]["jacobi_inverse"], **path_launches("jacobi_inverse"),
+        "launches_by_form": {k: v["by_dtype"]["jacobi_inverse forms"] for k, v in paths.items()
+                             if "by_dtype" in v},
+        "dtype": "float32", "model": "plate", "case": "refresh",
+        **form["jacobi_inverse"][("float32", "plate", "refresh")],
+        "shapes": [{"dtype": dt, "model": mo, "case": c, **row}
+                   for (dt, mo, c), row in form["jacobi_inverse"].items()],
     }, {
         "name": "segment_sum", "route": "cuda", "source": "fcvm_tpu_torch/csrc/segment_sum.cu",
         "replaces": "fcvm_tpu/ops/assembly.py:386",

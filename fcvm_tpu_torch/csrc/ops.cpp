@@ -15,6 +15,11 @@
 //                            and elv; with no du the given-stress form, elv alone)
 //   fcvm::node_force    K2   csrc/stress_update.cu (the node pass: qin; with glv the
 //                            residual form, r and its norm too)
+//   fcvm::form_blocks   K3   csrc/form_blocks.cu (the element blocks, elastic, tangent
+//                            or geometric: K1's packed tiles and the element-major
+//                            blocks, either or both)
+//   fcvm::jacobi_inverse  K5  csrc/jacobi_inverse.cu (the block-Jacobi rebuild: fused,
+//                            or its sum and its tail around the caller's reduce)
 //   fcvm::soa_matvec    K0p  csrc/bw_probe.cu
 //   fcvm::bw_read       Kbw  csrc/bw_probe.cu
 // so each is called as torch.ops.fcvm.<name>.  The kernels themselves keep a
@@ -149,6 +154,33 @@ extern "C" int fcvm_node_force_f64(const double* elv, const int* order, const in
                                    const double* fixmask, double* r, double* partials,
                                    unsigned* ticket, double* error, double lbd1, double relax,
                                    double qnorm, void* stream);
+extern "C" int fcvm_form_blocks_f32(int form, const float* coords, const float* disp,
+                                    const int* table, long long nt, const long long* perm,
+                                    const float* dmat, long long dstride, const float* sig,
+                                    const unsigned char* pgp, const float* g, const float* h,
+                                    double g3fac_s, const float* weights, float* full,
+                                    float* packed, long long ne, long long npad, long long tile,
+                                    void* stream);
+extern "C" int fcvm_form_blocks_f64(int form, const double* coords, const double* disp,
+                                    const int* table, long long nt, const long long* perm,
+                                    const double* dmat, long long dstride, const double* sig,
+                                    const unsigned char* pgp, const double* g, const double* h,
+                                    double g3fac_s, const double* weights, double* full,
+                                    double* packed, long long ne, long long npad, long long tile,
+                                    void* stream);
+extern "C" int fcvm_jacobi_inverse_f32(int form, const float* blocks, long long si, long long sj,
+                                       long long se, long long tile, const int* order,
+                                       const int* offsets, const int* segs, const int* holes,
+                                       long long nu, long long nholes, long long ne,
+                                       const long long* cols, const float* fixmask,
+                                       const float* nodal, float* out, void* stream);
+extern "C" int fcvm_jacobi_inverse_f64(int form, const double* blocks, long long si,
+                                       long long sj, long long se, long long tile,
+                                       const int* order, const int* offsets, const int* segs,
+                                       const int* holes, long long nu, long long nholes,
+                                       long long ne, const long long* cols,
+                                       const double* fixmask, const double* nodal, double* out,
+                                       void* stream);
 extern "C" int fcvm_soa_matvec_f32(const float* esm_t, const float* ue_t, float* out,
                                    long long ne, int tile, void* stream);
 extern "C" int fcvm_bw_read_blocks(long long rows, long long chunk_rows, int device);
@@ -946,6 +978,221 @@ std::vector<at::Tensor> node_force(const at::Tensor& elv, const at::Tensor& orde
   return {qin, r, error};
 }
 
+// K3: the element blocks of the elements ne (perm's length, or the table's
+// columns) of one form (0 elastic, 1 tangent, 2 geometric), from coords (nn,
+// 3) (plus disp (3 n,) when given), the int32 node table (10, nt) and, by
+// input element, dmat (6, 6) or (nt, 6, 6) (elastic, tangent), sig (nt, 4,
+// 6) (tangent, geometric), pgp bool (nt, 4) and g and h (nt,) or neither
+// (then g3fac_s) (tangent), weights (nt,); perm (ne,) int64: the input
+// element of each output element.  Returns [the element-major blocks (30, 30,
+// ne)] when full, then [K1's packed tiles (ceil(ne / tile), 465, tile)]
+// when tile > 0, in that order.
+std::vector<at::Tensor> form_blocks(int64_t form, const at::Tensor& coords,
+                                    const std::optional<at::Tensor>& disp,
+                                    const at::Tensor& table, const std::optional<at::Tensor>& perm,
+                                    const std::optional<at::Tensor>& dmat,
+                                    const std::optional<at::Tensor>& sig,
+                                    const std::optional<at::Tensor>& pgp,
+                                    const std::optional<at::Tensor>& g,
+                                    const std::optional<at::Tensor>& h, double g3fac_s,
+                                    const std::optional<at::Tensor>& weights, bool full,
+                                    int64_t tile) {
+  const auto dev = coords.device();
+  const auto dt = coords.scalar_type();
+  TORCH_CHECK(coords.is_cuda(), "form_blocks: coords must be on a CUDA device");
+  TORCH_CHECK(dt == at::kFloat || dt == at::kDouble,
+              "form_blocks: dtype must be float32 or float64, got ", dt);
+  TORCH_CHECK(form >= 0 && form <= 2, "form_blocks: form must be 0, 1 or 2, got ", form);
+  TORCH_CHECK(full || tile > 0, "form_blocks: nothing to write");
+  TORCH_CHECK(tile == 0 || tile % (128 / static_cast<int64_t>(coords.element_size())) == 0,
+              "form_blocks: tile ", tile, " is not a multiple of the kernel's element tile");
+  TORCH_CHECK(coords.dim() == 2 && coords.size(1) == 3 && coords.is_contiguous(),
+              "form_blocks: expected contiguous coords (nn, 3)");
+  TORCH_CHECK(table.device() == dev && table.scalar_type() == at::kInt && table.dim() == 2 &&
+                  table.size(0) == 10 && table.is_contiguous(),
+              "form_blocks: the node table must be a contiguous int32 (10, nt) on coords' "
+              "device");
+  const long long nt = table.size(1);
+  long long ne = nt;
+  if (perm) {
+    TORCH_CHECK(perm->device() == dev && perm->scalar_type() == at::kLong &&
+                    perm->dim() == 1 && perm->is_contiguous(),
+                "form_blocks: perm must be a contiguous int64 vector on coords' device");
+    ne = perm->size(0);
+  }
+  TORCH_CHECK(ne < (1LL << 31) / 30, "form_blocks: ", ne, " elements are too many");
+  const bool tangent = form == 1, reads_d = form != 2, reads_sig = form != 0;
+  TORCH_CHECK(!reads_d || dmat, "form_blocks: the elastic and tangent forms read dmat");
+  TORCH_CHECK(!reads_sig || sig, "form_blocks: the tangent and geometric forms read sig");
+  TORCH_CHECK(!tangent || pgp, "form_blocks: the tangent form reads pgp");
+  TORCH_CHECK(g.has_value() == h.has_value(), "form_blocks: g and h come together");
+  const std::optional<at::Tensor>* floats[] = {&disp, &dmat, &sig, &g, &h, &weights};
+  for (const auto* t : floats)
+    TORCH_CHECK(!*t || ((*t)->device() == dev && (*t)->scalar_type() == dt &&
+                        (*t)->is_contiguous()),
+                "form_blocks: every float tensor must be contiguous, on coords' device and of "
+                "its dtype");
+  TORCH_CHECK(!disp || (disp->dim() == 1 && disp->size(0) % 3 == 0 &&
+                        disp->size(0) >= 3 * coords.size(0)),
+              "form_blocks: expected disp (3 n,), n at least coords' rows");
+  long long dstride = 0;
+  if (reads_d) {
+    TORCH_CHECK((dmat->dim() == 2 && dmat->size(0) == 6 && dmat->size(1) == 6) ||
+                    (dmat->dim() == 3 && dmat->size(0) == nt && dmat->size(1) == 6 &&
+                     dmat->size(2) == 6),
+                "form_blocks: expected dmat (6, 6) or (nt, 6, 6)");
+    dstride = dmat->dim() == 3 ? 36 : 0;
+  }
+  TORCH_CHECK(!reads_sig || (sig->dim() == 3 && sig->size(0) == nt && sig->size(1) == 4 &&
+                             sig->size(2) == 6),
+              "form_blocks: expected sig (nt, 4, 6)");
+  if (tangent)
+    TORCH_CHECK(pgp->device() == dev && pgp->scalar_type() == at::kBool && pgp->dim() == 2 &&
+                    pgp->size(0) == nt && pgp->size(1) == 4 && pgp->is_contiguous(),
+                "form_blocks: expected a contiguous bool pgp (nt, 4)");
+  for (const auto* t : {&g, &h, &weights})
+    TORCH_CHECK(!*t || ((*t)->dim() == 1 && (*t)->size(0) == nt),
+                "form_blocks: expected g, h and weights (nt,)");
+  const c10::cuda::CUDAGuard guard(dev);
+  std::vector<at::Tensor> out;
+  at::Tensor esm_t, packed;
+  if (full) {
+    esm_t = at::empty({30, 30, ne}, coords.options());
+    out.push_back(esm_t);
+  }
+  const long long npad = tile > 0 ? (ne + tile - 1) / tile * tile : ne;
+  if (tile > 0) {
+    packed = at::empty({npad / tile, 465, tile}, coords.options());
+    out.push_back(packed);
+  }
+  void* stream = c10::cuda::getCurrentCUDAStream().stream();
+  const int* nodes = table.data_ptr<int>();
+  const auto* pm =
+      perm ? reinterpret_cast<const long long*>(perm->data_ptr<int64_t>()) : nullptr;
+  const auto* flags = tangent ? reinterpret_cast<const unsigned char*>(pgp->data_ptr<bool>())
+                              : nullptr;
+  int err = 0;
+  if (dt == at::kFloat)
+    err = fcvm_form_blocks_f32(static_cast<int>(form), coords.data_ptr<float>(), ptr<float>(disp),
+                               nodes, nt, pm, reads_d ? ptr<float>(dmat) : nullptr, dstride,
+                               reads_sig ? ptr<float>(sig) : nullptr, flags,
+                               tangent ? ptr<float>(g) : nullptr,
+                               tangent ? ptr<float>(h) : nullptr, g3fac_s, ptr<float>(weights),
+                               full ? esm_t.data_ptr<float>() : nullptr,
+                               tile > 0 ? packed.data_ptr<float>() : nullptr, ne, npad, tile,
+                               stream);
+  else
+    err = fcvm_form_blocks_f64(static_cast<int>(form), coords.data_ptr<double>(),
+                               ptr<double>(disp), nodes, nt, pm,
+                               reads_d ? ptr<double>(dmat) : nullptr, dstride,
+                               reads_sig ? ptr<double>(sig) : nullptr, flags,
+                               tangent ? ptr<double>(g) : nullptr,
+                               tangent ? ptr<double>(h) : nullptr, g3fac_s,
+                               ptr<double>(weights), full ? esm_t.data_ptr<double>() : nullptr,
+                               tile > 0 ? packed.data_ptr<double>() : nullptr, ne, npad, tile,
+                               stream);
+  TORCH_CHECK(err == 0, "form_blocks: kernel launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  return out;
+}
+
+// K5: the inverse 3x3 nodal blocks (rows, 3, 3) of block Jacobi (form 0,
+// fused), their unmasked sums (form 1) or the inverses of given sums nodal
+// (rows, 3, 3) (form 2, the tail).  Forms 0 and 1 read the element blocks
+// of ne elements, element-major (30, 30, ne) with any strides (tile 0) or
+// K1's packed tiles (ntiles, 465, tile), over the write-form plan (order,
+// offsets, segs, holes) of their slot-major keys into rows (cols (ne,)
+// int64, when given: the blocks' element of each plan element); forms 0
+// and 2 read fixmask (3 rows,).
+at::Tensor jacobi_inverse(int64_t form, const std::optional<at::Tensor>& blocks, int64_t tile,
+                          const std::optional<at::Tensor>& order,
+                          const std::optional<at::Tensor>& offsets,
+                          const std::optional<at::Tensor>& segs,
+                          const std::optional<at::Tensor>& holes, int64_t ne, int64_t rows,
+                          const std::optional<at::Tensor>& cols,
+                          const std::optional<at::Tensor>& fixmask,
+                          const std::optional<at::Tensor>& nodal) {
+  TORCH_CHECK(form >= 0 && form <= 2, "jacobi_inverse: form must be 0, 1 or 2, got ", form);
+  const bool tail = form == 2;
+  TORCH_CHECK(tail ? nodal.has_value() : blocks.has_value(),
+              "jacobi_inverse: the sum reads blocks, the tail nodal");
+  const at::Tensor& src = tail ? *nodal : *blocks;
+  const auto dev = src.device();
+  const auto dt = src.scalar_type();
+  TORCH_CHECK(src.is_cuda(), "jacobi_inverse: its input must be on a CUDA device");
+  TORCH_CHECK(dt == at::kFloat || dt == at::kDouble,
+              "jacobi_inverse: dtype must be float32 or float64, got ", dt);
+  TORCH_CHECK(rows >= 0 && rows < (1LL << 31), "jacobi_inverse: rows out of range");
+  if (form != 1)
+    TORCH_CHECK(fixmask && fixmask->device() == dev && fixmask->scalar_type() == dt &&
+                    fixmask->dim() == 1 && fixmask->size(0) == 3 * rows &&
+                    fixmask->is_contiguous(),
+                "jacobi_inverse: fixmask must be a contiguous (3 rows,) of the blocks' dtype "
+                "and device");
+  long long si = 0, sj = 0, se = 0, nu = rows, nholes = 0;
+  const int* tabs[4] = {nullptr, nullptr, nullptr, nullptr};
+  if (tail) {
+    TORCH_CHECK(nodal->dim() == 3 && nodal->size(0) == rows && nodal->size(1) == 3 &&
+                    nodal->size(2) == 3 && nodal->is_contiguous(),
+                "jacobi_inverse: expected contiguous nodal blocks (rows, 3, 3)");
+  } else {
+    TORCH_CHECK(ne > 0 && 10 * ne < (1LL << 31), "jacobi_inverse: ne out of range");
+    if (tile > 0) {
+      TORCH_CHECK(blocks->dim() == 3 && blocks->size(1) == 465 && blocks->size(2) == tile &&
+                      blocks->size(0) * tile >= ne && blocks->is_contiguous(),
+                  "jacobi_inverse: expected contiguous packed tiles (ntiles, 465, tile) of ne "
+                  "elements");
+    } else {
+      TORCH_CHECK(blocks->dim() == 3 && blocks->size(0) == 30 && blocks->size(1) == 30 &&
+                      blocks->size(2) == ne,
+                  "jacobi_inverse: expected element-major blocks (30, 30, ne)");
+      si = blocks->stride(0);
+      sj = blocks->stride(1);
+      se = blocks->stride(2);
+    }
+    const std::optional<at::Tensor>* plan[] = {&order, &offsets, &segs, &holes};
+    for (int i = 0; i < 4; ++i) {
+      const auto& t = *plan[i];
+      TORCH_CHECK(t && t->device() == dev && t->scalar_type() == at::kInt && t->dim() == 1 &&
+                      t->is_contiguous(),
+                  "jacobi_inverse: the plan's order, offsets, segs and holes must be "
+                  "contiguous int32 vectors on the blocks' device");
+      tabs[i] = t->data_ptr<int>();
+    }
+    nu = segs->size(0);
+    nholes = holes->size(0);
+    TORCH_CHECK(!cols || (cols->device() == dev && cols->scalar_type() == at::kLong &&
+                          cols->dim() == 1 && cols->size(0) == ne && cols->is_contiguous()),
+                "jacobi_inverse: cols must be a contiguous int64 (ne,) on the blocks' device");
+    TORCH_CHECK(offsets->size(0) == nu + 1 && order->size(0) <= 10 * ne && nu + nholes == rows,
+                "jacobi_inverse: expected offsets (nu + 1,), order at most 10 ne and segs and "
+                "holes covering the ", rows, " rows");
+  }
+  const auto* cols_ptr =
+      tail || !cols ? nullptr : reinterpret_cast<const long long*>(cols->data_ptr<int64_t>());
+  const c10::cuda::CUDAGuard guard(dev);
+  at::Tensor out = at::empty({rows, 3, 3}, src.options());
+  void* stream = c10::cuda::getCurrentCUDAStream().stream();
+  int err = 0;
+  if (dt == at::kFloat)
+    err = fcvm_jacobi_inverse_f32(static_cast<int>(form), tail ? nullptr : blocks->data_ptr<float>(),
+                                  si, sj, se, tile, tabs[0], tabs[1], tabs[2], tabs[3], nu,
+                                  nholes, ne, cols_ptr,
+                                  ptr<float>(fixmask),
+                                  tail ? nodal->data_ptr<float>() : nullptr,
+                                  out.data_ptr<float>(), stream);
+  else
+    err = fcvm_jacobi_inverse_f64(static_cast<int>(form),
+                                  tail ? nullptr : blocks->data_ptr<double>(), si, sj, se, tile,
+                                  tabs[0], tabs[1], tabs[2], tabs[3], nu, nholes, ne,
+                                  cols_ptr, ptr<double>(fixmask),
+                                  tail ? nodal->data_ptr<double>() : nullptr,
+                                  out.data_ptr<double>(), stream);
+  TORCH_CHECK(err == 0, "jacobi_inverse: kernel launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+  return out;
+}
+
 // the name and text of a CUDA error code
 std::string cuda_error(int64_t code) {
   const auto e = static_cast<cudaError_t>(code);
@@ -1031,6 +1278,13 @@ TORCH_LIBRARY(fcvm, m) {
   m.def("node_force(Tensor elv, Tensor order, Tensor offsets, Tensor segs, Tensor holes, "
         "int rows, Tensor? glv, Tensor? fixmask, Tensor(a!)? ticket, float lbd1, float relax, "
         "float qnorm) -> Tensor[]");
+  m.def("form_blocks(int form, Tensor coords, Tensor? disp, Tensor table, Tensor? perm, "
+        "Tensor? dmat, Tensor? sig, Tensor? pgp, Tensor? g, Tensor? h, float g3fac_s, "
+        "Tensor? weights, bool full, int tile) -> Tensor[]");
+  m.def("jacobi_inverse(int form, Tensor? blocks, int tile, Tensor? order, Tensor? offsets, "
+        "Tensor? segs, Tensor? holes, int ne, int rows, Tensor? cols, Tensor? fixmask, "
+        "Tensor? nodal) -> "
+        "Tensor");
   m.def("cuda_error(int code) -> str", &cuda_error);
   m.def("soa_matvec(Tensor esm_t, Tensor ue_t, int tile) -> Tensor");
   m.def("bw_read(Tensor x, int k, int chunk_rows) -> Tensor");
@@ -1049,6 +1303,8 @@ TORCH_LIBRARY_IMPL(fcvm, CUDA, m) {
   m.impl("cg_pass", &cg_pass);
   m.impl("stress_update", &stress_update);
   m.impl("node_force", &node_force);
+  m.impl("form_blocks", &form_blocks);
+  m.impl("jacobi_inverse", &jacobi_inverse);
   m.impl("soa_matvec", &soa_matvec);
   m.impl("bw_read", &bw_read);
 }

@@ -13,7 +13,8 @@
 //    element's 10 nodes (moved by the step-start disp under large_disp):
 //
 //      J = sum_k x_k (x) dN_k/dxi, det J and J^-1 by the adjugate
-//      (fcvm_tpu_torch/utils/linalg3.py), dN_k/dx = J^-T dN_k/dxi;
+//      (fcvm_tpu_torch/utils/linalg3.py), dN_k/dx = J^-T dN_k/dxi, the
+//      geometry of tet10.cuh, which K3 forms the operator's blocks from;
 //      deps = B du, taken from dN/dx directly (B is never formed; Voigt
 //      [xx, yy, zz, xy, zx, yz], engineering shears, ops/elements.py:99-112);
 //      under large_disp F = I + grad du and sig_c = F sig_old F^T / det F;
@@ -88,45 +89,14 @@
 #include <cuda_runtime.h>
 
 #include "segment.cuh"
+#include "tet10.cuh"
 
 namespace {
 
-constexpr int kNodes = 10;
-constexpr int kGauss = 4;
-constexpr int kTable = kGauss * 3 * kNodes;
+using namespace fcvm_tet10;  // kNodes, kGauss, kTable, kDshp, kWeight, det3, dndx, jacobian, inverse
+
 constexpr int kNodeThreads = 256;  // the node pass's blocks
 constexpr int kNodeDepth = 4;      // incidences a gather batch (fcvm_segment::gather_sum)
-
-// dN_k/dxi_j at the 4 Gauss points of the tet10 rule, [g][j][k], as
-// fcvm_tpu_torch/ops/elements.py (DSHP10_AT_GP) computes them in float64
-// (shortest round-trip digits: the same doubles)
-__constant__ double kDshp[kTable] = {
-    -1.3416407864998683, -0.447213595499956, 0.0, 0.0, 1.7888543819998244, 0.552786404500044,
-    -0.552786404500044, -0.552786404500044, 0.552786404500044, 0.0,
-    -1.3416407864998683, 0.0, -0.447213595499956, 0.0, -0.552786404500044, 0.552786404500044,
-    1.788854381999824, -0.552786404500044, 0.0, 0.552786404500044,
-    -1.3416407864998683, 0.0, 0.0, -0.447213595499956, -0.552786404500044, 0.0,
-    -0.552786404500044, 1.7888543819998242, 0.552786404500044, 0.552786404500044,
-    0.44721359549995976, 1.3416407864998718, 0.0, 0.0, -1.7888543819998315, 0.552786404500044,
-    -0.552786404500044, -0.552786404500044, 0.552786404500044, 0.0,
-    0.44721359549995976, 0.0, -0.447213595499956, 0.0, -2.341640786499872, 2.341640786499872,
-    -3.885780586188048e-15, -0.552786404500044, 0.0, 0.552786404500044,
-    0.44721359549995976, 0.0, 0.0, -0.447213595499956, -2.341640786499872, 0.0,
-    -0.552786404500044, -3.774758283725532e-15, 2.341640786499872, 0.552786404500044,
-    0.44721359549995976, -0.447213595499956, 0.0, 0.0, -3.6637359812630166e-15, 2.341640786499872,
-    -2.341640786499872, -0.552786404500044, 0.552786404500044, 0.0,
-    0.44721359549995976, 0.0, 1.3416407864998718, 0.0, -0.552786404500044, 0.552786404500044,
-    -1.7888543819998315, -0.552786404500044, 0.0, 0.552786404500044,
-    0.44721359549995976, 0.0, 0.0, -0.447213595499956, -0.552786404500044, 0.0,
-    -2.341640786499872, -3.774758283725532e-15, 0.552786404500044, 2.341640786499872,
-    0.44721359549995965, -0.447213595499956, 0.0, 0.0, -3.552713678800501e-15, 0.552786404500044,
-    -0.552786404500044, -2.341640786499872, 2.341640786499872, 0.0,
-    0.44721359549995965, 0.0, -0.447213595499956, 0.0, -0.552786404500044, 0.552786404500044,
-    -3.9968028886505635e-15, -2.341640786499872, 0.0, 2.341640786499872,
-    0.44721359549995965, 0.0, 0.0, 1.3416407864998718, -0.552786404500044, 0.0,
-    -0.552786404500044, -1.7888543819998315, 0.552786404500044, 0.552786404500044,
-};
-constexpr double kWeight = 0.041666666666667;  // each Gauss point's weight (W10)
 
 template <typename T>
 struct Args {
@@ -192,22 +162,6 @@ __device__ __forceinline__ void store6(T* p, const T (&s)[6]) {
   for (int i = 0; i < 3; ++i) q[i] = P{s[2 * i], s[2 * i + 1]};
 }
 
-// the determinant by cofactors, in utils/linalg3.py:det3's order
-template <typename T>
-__device__ __forceinline__ T det3(const T (&a)[3][3]) {
-  return a[0][0] * a[1][1] * a[2][2] - a[0][0] * a[1][2] * a[2][1] +
-         a[0][2] * a[1][0] * a[2][1] - a[0][2] * a[1][1] * a[2][0] +
-         a[0][1] * a[1][2] * a[2][0] - a[0][1] * a[1][0] * a[2][2];
-}
-
-// dN_k/dx_i = sum_j Ji[j][i] dN_k/dxi_j at this thread's Gauss point
-template <typename T>
-__device__ __forceinline__ void dndx(const T (&ji)[3][3], const T* dn, int k, T (&d)[3]) {
-  const T a = dn[k], b = dn[kNodes + k], c = dn[2 * kNodes + k];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) d[i] = ji[0][i] * a + ji[1][i] * b + ji[2][i] * c;
-}
-
 // the trial stress t = s + D eps, D row-major (6, 6): a per-element D read
 // from global memory (kGlobal), the single one from shared memory
 template <bool kGlobal, typename T>
@@ -237,32 +191,12 @@ __device__ __forceinline__ void gauss_point(const Args<T>& a, const Nodes& nodes
                                             const T* table) {
   const T* dn = table + g * 3 * kNodes;
 
-  // J[i][j] = sum_k x_k[i] dN_k/dxi_j
-  T jac[3][3] = {};
-#pragma unroll
-  for (int k = 0; k < kNodes; ++k) {
-    T x[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) x[i] = nodes.x(k, i);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) jac[i][j] = x[i] * dn[j * kNodes + k] + jac[i][j];
-  }
+  // J, det J and J^-1 (tet10.cuh: the geometry K3 forms the operator from)
+  T jac[3][3];
+  jacobian(nodes, dn, jac);
   const T det = det3(jac);
   T ji[3][3];
-  {
-    const T(&m)[3][3] = jac;
-    ji[0][0] = (m[1][1] * m[2][2] - m[2][1] * m[1][2]) / det;
-    ji[0][1] = (m[0][2] * m[2][1] - m[0][1] * m[2][2]) / det;
-    ji[0][2] = (m[0][1] * m[1][2] - m[0][2] * m[1][1]) / det;
-    ji[1][0] = (m[1][2] * m[2][0] - m[1][0] * m[2][2]) / det;
-    ji[1][1] = (m[0][0] * m[2][2] - m[0][2] * m[2][0]) / det;
-    ji[1][2] = (m[1][0] * m[0][2] - m[0][0] * m[1][2]) / det;
-    ji[2][0] = (m[1][0] * m[2][1] - m[2][0] * m[1][1]) / det;
-    ji[2][1] = (m[2][0] * m[0][1] - m[0][0] * m[2][1]) / det;
-    ji[2][2] = (m[0][0] * m[1][1] - m[1][0] * m[0][1]) / det;
-  }
+  inverse(jac, det, ji);
 
   T s[6];
   load6(sig_in, s);

@@ -8,16 +8,19 @@ hand-written CUDA kernel K1 (:func:`fcvm_tpu_torch.ops.kernels.khat_matvec`)
 over the element node table and its node-incidence CSR
 (:func:`node_incidence`), whose node sums run in a fixed order, so its
 results are deterministic; on the card K1 reads the blocks' packed upper
-triangles (:func:`fcvm_tpu_torch.ops.kernels.pack_blocks`, made once per
-operator).  An ``(ndof, m)`` block of vectors goes through K1m
+triangles, which K3 (:func:`fcvm_tpu_torch.ops.kernels.form_blocks`)
+writes as it forms them (:func:`operator_blocks`; blocks given as a tensor
+are packed by :func:`fcvm_tpu_torch.ops.kernels.pack_blocks`).  An
+``(ndof, m)`` block of vectors goes through K1m
 (:func:`fcvm_tpu_torch.ops.kernels.khat_matmat`), K1 on m columns at once,
 over the same packed blocks and incidence table.  Every other
 sum of element rows into nodes (the loads, the block-Jacobi blocks) is K8
 (:func:`fcvm_tpu_torch.ops.kernels.segment_sum`) over a
 :class:`~fcvm_tpu_torch.ops.kernels.SegmentPlan` of its keys, a fixed
 order as well; CPU tensors take ``index_add_``, the plain version.  The
-operator stores the blocks element-major, ``(30, 30, ne)``, the layout the
-plain versions read.
+block-Jacobi rebuild is K5 (:func:`fcvm_tpu_torch.ops.kernels.jacobi_inverse`),
+one node pass over the element blocks.  The operator stores the blocks
+element-major, ``(30, 30, ne)``, the layout the plain versions read.
 
 Dirichlet boundary conditions reproduce the reference's elimination scheme
 (``fcVM.py:771-796``): the operator is the identity on fixed dofs and the
@@ -26,12 +29,13 @@ right-hand side carries ``-(K u_fix)_free + u_fix``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from fcvm_tpu_torch.ops import elements as el
 from fcvm_tpu_torch.ops import kernels
-from fcvm_tpu_torch.ops import material as mat
-from fcvm_tpu_torch.utils.linalg3 import det3, inv3_spd
+from fcvm_tpu_torch.utils.linalg3 import det3
 
 
 def element_dof_ids(elnodes: torch.Tensor) -> torch.Tensor:
@@ -57,14 +61,48 @@ def node_sum(rows: torch.Tensor, nodes: torch.Tensor, ndof: int, plan=None) -> t
 # ---------------------------------------------------------------------------
 
 
+class Blocks(NamedTuple):
+    """Element blocks as the operators take them: element-major ``esm_t``
+    (30, 30, ne) (None on the card unless asked for) and K1's packed tiles
+    ``packed`` (None on the CPU, whose plain versions read ``esm_t``)."""
+
+    esm_t: torch.Tensor | None
+    packed: torch.Tensor | None
+
+    @property
+    def esm(self) -> torch.Tensor | None:
+        """The element-major blocks as (ne, 30, 30), a view (None where
+        ``esm_t`` is)."""
+        return None if self.esm_t is None else self.esm_t.permute(2, 0, 1)
+
+
+def operator_blocks(form, coords, elnodes, *, full=False, **inputs) -> Blocks:
+    """K3's blocks of one ``form`` (see
+    :func:`fcvm_tpu_torch.ops.kernels.form_blocks`, whose keyword
+    ``inputs`` these are: ``disp``, ``dmat``, ``sig``, ``pgp``, ``g``, ``h``,
+    ``weights``, ``perm``, ``table``) as an operator takes them: on the CPU
+    the element-major blocks, contiguous; on the card K1's packed tiles,
+    with the element-major blocks from the same launch when ``full`` (the
+    two-level build, the scipy tier, the penalty pencil read them)."""
+    if coords.device.type == "cpu":
+        esm_t, _ = kernels.form_blocks(form, coords, elnodes, **inputs)
+        return Blocks(esm_t.contiguous(), None)
+    return Blocks(*kernels.form_blocks(form, coords, elnodes, full=full, packed=True, **inputs))
+
+
+def blocks_of(esm: torch.Tensor) -> Blocks:
+    """(ne, 30, 30) blocks given as a tensor, as an operator takes them:
+    element-major, and on the card packed by
+    :func:`~fcvm_tpu_torch.ops.kernels.pack_blocks`."""
+    esm_t = esm.permute(1, 2, 0).contiguous()
+    return Blocks(esm_t, kernels.pack_blocks(esm_t) if esm_t.device.type != "cpu" else None)
+
+
 def elastic_stiffness_blocks(coords, elnodes, dmat) -> torch.Tensor:
     """(ne, 30, 30) elastic element stiffness blocks (``fcVM.py:739-756``):
     ``sum_g B_g^T D B_g w_g |J_g|``; ``dmat`` (6, 6) or (ne, 6, 6) per
-    element."""
-    det, _, bmat = el.tet10_element_geometry(coords[elnodes])
-    scale = torch.as_tensor(el.W10, dtype=coords.dtype, device=coords.device) * det.abs()
-    db = mat.apply_dmat(dmat, bmat)
-    return torch.einsum("egkm,egkn,eg->emn", bmat, db, scale)
+    element.  K3 (on the card a view of its element-major output)."""
+    return kernels.form_blocks("elastic", coords, elnodes, dmat=dmat)[0].permute(2, 0, 1)
 
 
 def tangent_stiffness_blocks(coords_def, elnodes, dmat, sig_gp, pgp, g, h) -> torch.Tensor:
@@ -76,30 +114,16 @@ def tangent_stiffness_blocks(coords_def, elnodes, dmat, sig_gp, pgp, g, h) -> to
     plastic points.  Each element's block depends on its own rows only, so
     the rows of ``elnodes``, ``sig_gp`` and ``pgp`` (and of ``dmat`` (ne,
     6, 6), ``g`` and ``h`` (ne,) when they are per element) may come in any
-    element order, the same for all."""
-    det, _, bmat = el.tet10_element_geometry(coords_def[elnodes])
-    scale = torch.as_tensor(el.W10, dtype=coords_def.dtype,
-                            device=coords_def.device) * det.abs()
-    dev, _, svm = mat.von_mises(sig_gp)
-    svm = torch.where(svm == 0.0, torch.ones_like(svm), svm)
-    g, h = mat.per_gauss(g), mat.per_gauss(h)
-    g3fac = 3.0 * g / (1.0 + h / (3.0 * g))
-    fac = torch.where(pgp, g3fac / svm**2, torch.zeros_like(svm))
-    dmat_e = dmat if dmat.dim() == 2 else dmat[:, None]
-    dmat_g = dmat_e - fac[..., None, None] * dev[..., :, None] * dev[..., None, :]
-    db = torch.einsum("egkl,egln->egkn", dmat_g, bmat)
-    return torch.einsum("egkm,egkn,eg->emn", bmat, db, scale)
+    element order, the same for all.  K3."""
+    return kernels.form_blocks("tangent", coords_def, elnodes, dmat=dmat, sig=sig_gp, pgp=pgp,
+                               g=g, h=h)[0].permute(2, 0, 1)
 
 
 def geometric_stiffness_blocks(coords, elnodes, sig_gp) -> torch.Tensor:
     """(ne, 30, 30) initial-stress (geometric) blocks (``fcVM.py:1002-1006``):
     ``sum_g w_g |J_g| (dN_g^T sigma_g dN_g) (x) I_3``, ``sig_gp`` (ne, 4, 6)
-    the pre-stress field."""
-    det, dshpg, _ = el.tet10_element_geometry(coords[elnodes])
-    scale = torch.as_tensor(el.W10, dtype=coords.dtype, device=coords.device) * det.abs()
-    m = torch.einsum("egij,egik,egkl,eg->ejl", dshpg, mat.voigt_to_tensor(sig_gp), dshpg, scale)
-    eye3 = torch.eye(3, dtype=coords.dtype, device=coords.device)
-    return torch.einsum("ejl,bc->ejblc", m, eye3).reshape(-1, 30, 30)
+    the pre-stress field.  K3."""
+    return kernels.form_blocks("geometric", coords, elnodes, sig=sig_gp)[0].permute(2, 0, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -220,10 +244,13 @@ def _incidence(eldofs, ndof, incidence):
 
 def _blocks(esm_t, packed):
     """What K1 and K1m read: on the CPU the full blocks, on the card their
-    packed copy (made here when not given)."""
+    packed copy (K3's; made here when not given, and then ``esm_t`` may be
+    None)."""
+    if packed is not None and packed.device.type != "cpu":
+        return packed
     if esm_t.device.type == "cpu":
         return esm_t
-    return packed if packed is not None else kernels.pack_blocks(esm_t)
+    return kernels.pack_blocks(esm_t)
 
 
 def make_matvec(esm_t: torch.Tensor, eldofs: torch.Tensor, ndof: int, incidence=None,
@@ -304,29 +331,25 @@ def jacobi_plan(elnodes: torch.Tensor, nn: int) -> kernels.SegmentPlan:
     return kernels.segment_plan(elnodes.T, rows=nn)
 
 
-def block_jacobi_inverse_blocks(esm, elnodes, fixmask, reduce=None, plan=None):
-    """Inverse 3x3 nodal diagonal blocks of ``K_hat`` (nn, 3, 3).
+def block_jacobi_inverse_blocks(esm, elnodes, fixmask, reduce=None, plan=None, cols=None,
+                                packed=None):
+    """Inverse 3x3 nodal diagonal blocks of ``K_hat`` (nn, 3, 3): K5
+    (:func:`fcvm_tpu_torch.ops.kernels.jacobi_inverse`) over the (ne, 30,
+    30) blocks ``esm``, or over ``packed``, their packed tiles (K3's), where
+    given (``esm`` may then be None).
 
     Fixed dofs get identity rows/columns so the preconditioner is
-    consistent with :func:`make_bc_matvec`.  ``esm`` (ne, 30, 30).
-    ``reduce``, when given, sums the nodal blocks of a part of the mesh
-    over the parts before they are inverted (the sharded backend's
-    ``all_reduce``).  ``plan``, the :func:`jacobi_plan` of ``elnodes``
-    (K8's write form), is built here when not given.
+    consistent with :func:`make_bc_matvec`.  ``reduce``, when given, sums
+    the nodal blocks of a part of the mesh over the parts before they are
+    inverted (the sharded backend's ``all_reduce``).  ``plan``, the
+    :func:`jacobi_plan` of ``elnodes`` (K8's write form), is built here
+    when not given.  ``cols``: the blocks' element of each of ``elnodes``'
+    where the two orders differ (the sums then run in ``elnodes``' order).
     """
-    ne = esm.shape[0]
-    nn = fixmask.shape[0] // 3
-    idx = torch.arange(10, device=esm.device)
-    # diag[n, e] = esm[e, 3n:3n+3, 3n:3n+3] -> (10, ne, 3, 3)
-    diag = esm.reshape(ne, 10, 3, 10, 3)[:, idx, :, idx, :]
-    nodal = kernels.segment_sum(diag.reshape(-1, 3, 3).contiguous(),
-                                plan if plan is not None else jacobi_plan(elnodes, nn), rows=nn)
-    if reduce is not None:
-        nodal = reduce(nodal)
-    m3 = fixmask.reshape(nn, 3)
-    eye = torch.eye(3, dtype=esm.dtype, device=esm.device)
-    nodal = nodal * (m3[:, :, None] * m3[:, None, :]) + (1.0 - m3)[:, :, None] * eye
-    return inv3_spd(nodal)
+    if plan is None:
+        plan = jacobi_plan(elnodes, fixmask.shape[0] // 3)
+    blocks = packed if packed is not None else esm.permute(1, 2, 0)
+    return kernels.jacobi_inverse(blocks, plan, fixmask, reduce=reduce, cols=cols)
 
 
 def apply_block_precond(pinv, r):

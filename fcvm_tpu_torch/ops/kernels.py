@@ -59,6 +59,18 @@
   :func:`node_force`, the rows summed into nodes in K8's order; both as a
   residual, with its tail and norm in the node pass,
   :func:`stress_residual_bound`.
+* K3 :func:`form_blocks`, every element block the paths form (elastic,
+  tangent, geometric) in one launch, replaces the XLA-lowered
+  ``fcvm_tpu/ops/assembly.py::elastic_stiffness_blocks``,
+  ``tangent_stiffness_blocks`` and ``geometric_stiffness_blocks``; source
+  ``csrc/form_blocks.cu``, on the Gauss-point geometry of ``csrc/tet10.cuh``
+  (K2's); it writes K1's packed tiles (:func:`pack_blocks`'s layout) and,
+  when asked, the element-major blocks.
+* K5 :func:`jacobi_inverse`, the block-Jacobi rebuild as one node pass
+  (each node's diagonal blocks read from K3's output, summed in K8's
+  order, masked and inverted), replaces the XLA-lowered
+  ``fcvm_tpu/ops/assembly.py::block_jacobi_inverse_blocks``; source
+  ``csrc/jacobi_inverse.cu``.
 * K0p :func:`soa_matvec` replaces ``tools/bw_probe.py::soa_matvec``;
   source ``csrc/bw_probe.cu``.
 * Kbw :func:`bw_read` replaces ``tools/bw_probe.py::make_bw_kernel``;
@@ -70,7 +82,9 @@ solves of the buckling eigensolve (every K_hat·V, -G_hat·V and block
 preconditioner apply) and the deflation builds' K_hat·W; K8 every sum of
 element rows into nodes outside K1, K1m and K2 (the loads, the
 preconditioner builds); K2 every residual's stress update, internal force
-and residual.  K0m runs on no path
+and residual; K3 every element block an assembly, a tangent refresh or the
+eigensolve's pencil forms, and K5 every block-Jacobi rebuild.  K0m runs on
+no path
 since K1m; it, K0, K0p and Kbw serve phase 3 of ``chip_smoke.py`` and the
 bandwidth probe (:mod:`fcvm_tpu_torch.tools.bw_probe`).  What bounds each
 on the card and how its design answers that is written at the top of its
@@ -82,7 +96,8 @@ is no fallback from a failed build or launch.  Each wrapper counts its
 kernel launches in its ``launches`` attribute (K8 its calls, each launching
 one or two kernels); K0, K1, K2, K4, K6 and K8 also count them by dtype in
 their ``dtypes`` (K6 by pass in ``cg_iteration.passes``, K2's passes by form
-in ``stress_update.forms`` and ``node_force.forms``), K0m, K1m and K4m by
+in ``stress_update.forms`` and ``node_force.forms``, K3 and K5 by form in
+``form_blocks.forms`` and ``jacobi_inverse.forms``), K0m, K1m and K4m by
 dtype and column count in their ``shapes`` (K4c alone too:
 ``coarse_product.shapes``),
 and K8 its kernels by form and path in ``segment_sum.paths``.
@@ -106,14 +121,14 @@ import torch
 
 from fcvm_tpu_torch.ops import elements as el
 from fcvm_tpu_torch.ops import material as mat
-from fcvm_tpu_torch.utils.linalg3 import det3
+from fcvm_tpu_torch.utils.linalg3 import det3, inv3_spd
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("ops.cpp", "block_matvec.cu", "block_matmat.cu", "khat_matvec.cu",
            "khat_matmat.cu", "two_level.cu", "segment_sum.cu", "cg_iteration.cu",
-           "stress_update.cu", "bw_probe.cu")
+           "stress_update.cu", "form_blocks.cu", "jacobi_inverse.cu", "bw_probe.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3")
 
 
@@ -1533,14 +1548,14 @@ def stress_update_ref(coords, elnodes, disp, sig, large_disp=False, *, du=None, 
     return elv if du is None else (sig, sig_test, pgp, elv)
 
 
-def _per_element(x, ne: int, like: torch.Tensor) -> torch.Tensor:
+def _per_element(x, ne: int, like: torch.Tensor, name="stress_update") -> torch.Tensor:
     """A material constant (a number, or a (ne,) or (ne, 1) tensor of
     ``like``'s dtype) as a contiguous (ne,) tensor."""
     if torch.is_tensor(x) and x.dtype != like.dtype:
-        raise TypeError(f"stress_update: a material tensor of {x.dtype}; expected {like.dtype}")
+        raise TypeError(f"{name}: a material tensor of {x.dtype}; expected {like.dtype}")
     t = torch.as_tensor(x, dtype=like.dtype, device=like.device)
     if t.numel() not in (1, ne):
-        raise ValueError(f"stress_update: a material tensor of shape {tuple(t.shape)}; "
+        raise ValueError(f"{name}: a material tensor of shape {tuple(t.shape)}; "
                          f"expected one value or {ne}")
     return t.reshape(-1).expand(ne).contiguous()
 
@@ -1554,14 +1569,14 @@ def _k2_materials(g, h, ne: int, like: torch.Tensor):
     return None, None, float(g), float(h + 3.0 * g)
 
 
-def _k2_table(elnodes, table, like):
-    """K2's node table on the card: ``table`` checked against ``elnodes``'s
-    shape and ``like``'s device, or made from ``elnodes``."""
+def _k2_table(elnodes, table, like, name="stress_update"):
+    """K2's (and K3's) node table on the card: ``table`` checked against
+    ``elnodes``'s shape and ``like``'s device, or made from ``elnodes``."""
     if table is None:
         return element_table(elnodes)
     if (table.dtype != torch.int32 or table.device != like.device
             or table.shape != (10, elnodes.shape[0]) or not table.is_contiguous()):
-        raise ValueError(f"stress_update: a node table {tuple(table.shape)} {table.dtype} on "
+        raise ValueError(f"{name}: a node table {tuple(table.shape)} {table.dtype} on "
                          f"{table.device}; expected element_table(elnodes) on {like.device}")
     return table
 
@@ -1781,6 +1796,254 @@ def stress_residual_bound(elnodes, plan: SegmentPlan, fixmask, dmat, g, h, *, we
         return sig_new, sig_test, pgp, qin, r, error
 
     return k2
+
+
+# -- K3: the element stiffness blocks ---------------------------------------------
+
+FORMS = ("elastic", "tangent", "geometric")  # K3's forms: its kernel's form 0, 1, 2
+_FORM_READS = {"elastic": ("dmat",), "tangent": ("dmat", "sig", "pgp", "g", "h"),
+               "geometric": ("sig",)}
+
+
+def _element_blocks(form, coords, elnodes, dmat, sig, pgp, g, h):
+    """The torch chain of the element blocks (ne, 30, 30) of the elements
+    ``elnodes`` on ``coords``: B (ne, 4, 6, 30) at every Gauss point, then
+    ``sum_g B^T D_g B w |J|`` by einsum (elastic, tangent) or ``sum_g w |J|
+    (dN^T sigma dN) (x) I_3`` (geometric)."""
+    det, dshpg, bmat = el.tet10_element_geometry(coords[elnodes])
+    scale = torch.as_tensor(el.W10, dtype=coords.dtype, device=coords.device) * det.abs()
+    if form == "geometric":
+        m = torch.einsum("egij,egik,egkl,eg->ejl", dshpg, mat.voigt_to_tensor(sig), dshpg, scale)
+        eye3 = torch.eye(3, dtype=coords.dtype, device=coords.device)
+        return torch.einsum("ejl,bc->ejblc", m, eye3).reshape(-1, 30, 30)
+    if form == "elastic":
+        db = mat.apply_dmat(dmat, bmat)
+    else:
+        dev, _, svm = mat.von_mises(sig)
+        svm = torch.where(svm == 0.0, torch.ones_like(svm), svm)
+        g, h = mat.per_gauss(g), mat.per_gauss(h)
+        g3fac = 3.0 * g / (1.0 + h / (3.0 * g))
+        fac = torch.where(pgp, g3fac / svm**2, torch.zeros_like(svm))
+        dmat_e = dmat if dmat.dim() == 2 else dmat[:, None]
+        dmat_g = dmat_e - fac[..., None, None] * dev[..., :, None] * dev[..., None, :]
+        db = torch.einsum("egkl,egln->egkn", dmat_g, bmat)
+    return torch.einsum("egkm,egkn,eg->emn", bmat, db, scale)
+
+
+def form_blocks_ref(form, coords, elnodes, *, disp=None, dmat=None, sig=None, pgp=None, g=None,
+                    h=None, weights=None, perm=None, table=None, full=True, packed=False):
+    """Plain version of K3, the torch chain it replaced (the einsums of
+    :func:`_element_blocks` on the elements ``elnodes[perm]``, each
+    per-element input gathered with them; the blocks times ``weights``;
+    :func:`pack_blocks`).  Arguments and results as :func:`form_blocks`
+    (``table`` is not read); the element-major blocks are a (30, 30, ne)
+    view of the chain's (ne, 30, 30) output."""
+    if form not in FORMS:
+        raise ValueError(f"form_blocks: form {form!r}; expected one of {FORMS}")
+
+    def rows(x, dims):  # a per-element input in the output's element order
+        return x[perm] if perm is not None and torch.is_tensor(x) and x.dim() == dims else x
+
+    if disp is not None:
+        coords = coords + disp.reshape(-1, 3)[: coords.shape[0]]
+    esm = _element_blocks(form, coords, rows(elnodes, 2), rows(dmat, 3), rows(sig, 3),
+                          rows(pgp, 2), rows(g, 1), rows(h, 1))
+    if weights is not None:
+        esm = esm * rows(weights, 1)[:, None, None]
+    esm_t = esm.permute(1, 2, 0)
+    return (esm_t if full else None), (pack_blocks(esm_t) if packed else None)
+
+
+def form_blocks(form, coords, elnodes, *, disp=None, dmat=None, sig=None, pgp=None, g=None,
+                h=None, weights=None, perm=None, table=None, full=True, packed=False):
+    """K3: the element stiffness blocks of one ``form`` (design and bound at
+    the top of ``csrc/form_blocks.cu``).
+
+    Args:
+      form: "elastic" (``sum_g B^T D B w |J|``), "tangent" (``D_g = D - fac
+        s s^T`` at the plastic points, ``fac = 3G / (1 + H/3G) / svm^2``,
+        ``svm = 0`` read as 1) or "geometric" (``sum_g w |J| (dN^T sigma
+        dN) (x) I_3``).
+      coords: (nn, 3) nodal coordinates, float32 or float64; ``disp`` (3 n,),
+        when given, moves them (the tangent's deformed geometry, never
+        materialised on the card).
+      elnodes: (nt, 10) int64 connectivity of the input elements; ``table``
+        its :func:`element_table` (made here on the card when not given).
+      dmat: (6, 6) or per input element (nt, 6, 6) (elastic, tangent);
+        sig (nt, 4, 6) (the step-start stress of the tangent, the
+        pre-stress of the geometric form); pgp (nt, 4) bool and g, h the
+        shear and hardening moduli, numbers or (nt,) tensors (tangent);
+        weights (nt,) scales each element's block.
+      perm: (ne,) int64, the input element of each output element (the
+        solve space's ``eperm``); None: the input order.
+      full: return the element-major blocks (30, 30, ne); packed: return
+        K1's packed tiles (:func:`pack_blocks`'s layout), at least one.
+
+    Returns:
+      (esm_t, packed), each None where not asked.  CPU tensors take the
+      plain version (:func:`form_blocks_ref`); CUDA tensors launch the kernel
+      or raise (``form_blocks.launches`` counts the launches, ``.dtypes``
+      and ``.forms`` them by dtype and form).  The card writes only the upper
+      triangles, so its blocks are exactly symmetric.
+    """
+    if form not in FORMS:
+        raise ValueError(f"form_blocks: form {form!r}; expected one of {FORMS}")
+    if not (full or packed):
+        raise ValueError("form_blocks: neither the element-major blocks nor the packed tiles "
+                         "asked for")
+    given = dict(dmat=dmat, sig=sig, pgp=pgp, g=g, h=h)
+    missing = [k for k in _FORM_READS[form] if given[k] is None]
+    if missing:
+        raise ValueError(f"form_blocks: the {form} form reads {missing}")
+    tensors = [t for t in (coords, elnodes, disp, dmat, sig, pgp, g, h, weights, perm, table)
+               if torch.is_tensor(t)]
+    if all(t.device.type == "cpu" for t in tensors):
+        return form_blocks_ref(form, coords, elnodes, disp=disp, dmat=dmat, sig=sig, pgp=pgp,
+                               g=g, h=h, weights=weights, perm=perm, full=full, packed=packed)
+    if coords.device.type != "cuda" or any(t.device != coords.device for t in tensors):
+        raise ValueError("form_blocks: tensors on several devices; expected all on the CPU or "
+                         "all on one CUDA device")
+    floats = [t for t in (coords, disp, dmat, sig, g, h, weights) if torch.is_tensor(t)]
+    if coords.dtype not in PACK_TILE or any(t.dtype != coords.dtype for t in floats):
+        raise TypeError(f"form_blocks: dtypes {[str(t.dtype) for t in floats]}; expected one "
+                        "of float32 or float64")
+    if (elnodes.dtype != torch.int64 or (perm is not None and perm.dtype != torch.int64)
+            or (form == "tangent" and pgp.dtype != torch.bool)):
+        raise TypeError("form_blocks: elnodes and perm must be int64, pgp bool")
+    if elnodes.dim() != 2 or elnodes.shape[1] != 10 or (perm is not None and perm.dim() != 1):
+        raise ValueError(f"form_blocks: elnodes {tuple(elnodes.shape)}, perm "
+                         f"{None if perm is None else tuple(perm.shape)}; expected (nt, 10) "
+                         "and (ne,)")
+    nt = elnodes.shape[0]
+    gt = ht = None
+    g3fac = 0.0
+    if form == "tangent":
+        if torch.is_tensor(g) or torch.is_tensor(h):
+            gt, ht = (_per_element(x, nt, coords, "form_blocks") for x in (g, h))
+        else:
+            g3fac = 3.0 * float(g) / (1.0 + float(h) / (3.0 * float(g)))
+    reads = _FORM_READS[form]
+    build()
+    out = torch.ops.fcvm.form_blocks(
+        FORMS.index(form), coords, None if disp is None else disp.contiguous(),
+        _k2_table(elnodes, table, coords, "form_blocks"), perm,
+        dmat if "dmat" in reads else None, sig.contiguous() if "sig" in reads else None,
+        pgp.contiguous() if "pgp" in reads else None, gt, ht, g3fac, weights, bool(full),
+        PACK_TILE[coords.dtype] if packed else 0)
+    form_blocks.launches += 1
+    form_blocks.dtypes[_dtype_name(coords)] += 1
+    form_blocks.forms[form] += 1
+    return (out[0] if full else None), (out[-1] if packed else None)
+
+
+form_blocks.launches = 0
+form_blocks.dtypes = Counter()  # launches by dtype name
+form_blocks.forms = Counter()  # launches by form (FORMS)
+
+
+# -- K5: the block-Jacobi rebuild --------------------------------------------------
+
+JACOBI_FORMS = ("fused", "sum", "tail")  # K5's forms: its kernel's form 0, 1, 2
+
+
+def _jacobi_tail_ref(nodal: torch.Tensor, fixmask: torch.Tensor) -> torch.Tensor:
+    """The torch tail of the rebuild: the nodal blocks (nn, 3, 3) masked to
+    the identity on fixed dofs and inverted by the adjugate."""
+    m3 = fixmask.reshape(nodal.shape[0], 3)
+    eye = torch.eye(3, dtype=nodal.dtype, device=nodal.device)
+    return inv3_spd(nodal * (m3[:, :, None] * m3[:, None, :]) + (1.0 - m3)[:, :, None] * eye)
+
+
+def jacobi_inverse_ref(blocks: torch.Tensor, plan: SegmentPlan, fixmask: torch.Tensor, *,
+                       reduce=None, cols=None) -> torch.Tensor:
+    """Plain version of K5, the chain it replaced: the 10 diagonal 3x3
+    blocks of every element sliced out of the element-major blocks (the
+    packed tiles unpacked first; with ``cols`` the plan's elements gathered
+    from their columns), their sum into nodes by :func:`segment_sum`
+    (K8's write form on the card, ``index_add_`` on the CPU), ``reduce``,
+    then :func:`_jacobi_tail_ref`.  Arguments as :func:`jacobi_inverse`."""
+    ne = plan.keys.shape[0] // 10
+    esm_t = blocks if blocks.shape[:2] == (30, 30) else unpack_blocks(blocks, ne)
+    if cols is not None:
+        esm_t = esm_t[:, :, cols]
+    idx = torch.arange(10, device=esm_t.device)
+    # diag[n, e] = esm[e, 3n:3n+3, 3n:3n+3] -> (10, ne, 3, 3)
+    diag = esm_t.permute(2, 0, 1).reshape(ne, 10, 3, 10, 3)[:, idx, :, idx, :]
+    nodal = segment_sum(diag.reshape(-1, 3, 3).contiguous(), plan, rows=fixmask.shape[0] // 3)
+    if reduce is not None:
+        nodal = reduce(nodal)
+    return _jacobi_tail_ref(nodal, fixmask)
+
+
+def _jacobi_launch(form, *args):
+    out = torch.ops.fcvm.jacobi_inverse(JACOBI_FORMS.index(form), *args)
+    jacobi_inverse.launches += 1
+    jacobi_inverse.dtypes[_dtype_name(out)] += 1
+    jacobi_inverse.forms[form] += 1
+    return out
+
+
+def jacobi_inverse(blocks: torch.Tensor, plan: SegmentPlan, fixmask: torch.Tensor, *,
+                   reduce=None, cols=None) -> torch.Tensor:
+    """K5: the inverse 3x3 nodal diagonal blocks of ``K_hat`` (nn, 3, 3),
+    fixed dofs masked to the identity, in one node pass (design and bound at
+    the top of ``csrc/jacobi_inverse.cu``).
+
+    Args:
+      blocks: the element blocks of ne elements, element-major (30, 30, ne)
+        with any strides (K3's output, or a (ne, 30, 30) tensor's permuted
+        view) or K1's packed tiles (:func:`pack_blocks`).
+      plan: the write-form :class:`SegmentPlan` of their slot-major keys
+        into fixmask's nodes (``ops/assembly.py::jacobi_plan``); its order
+        is the sum's.
+      fixmask: (3 nn,) the free-dof mask.
+      cols: (ne,) int64, the column of the blocks that holds each of the
+        plan's elements, where the two orders differ (the solve space's
+        blocks summed in user element order); None: the same order.
+      reduce: sums the nodal blocks of a part of the mesh over the parts
+        (the sharded backend's ``all_reduce``) before they are inverted: on
+        the card the kernel's sum form, ``reduce``, then its tail form.
+
+    CPU tensors take the plain version (:func:`jacobi_inverse_ref`); CUDA
+    tensors launch the kernel or raise (``jacobi_inverse.launches`` counts
+    the launches, ``.dtypes`` and ``.forms`` them by dtype and form: one
+    "fused", or with ``reduce`` a "sum" and a "tail").  The sum is K8's
+    write form's bits on the same blocks, the tail the torch tail's."""
+    rows = fixmask.shape[0] // 3
+    ne = plan.keys.shape[0] // 10
+    packed = blocks.dim() == 3 and blocks.shape[1] == NPACK
+    if not packed and tuple(blocks.shape) != (30, 30, ne):
+        raise ValueError(f"jacobi_inverse: blocks {tuple(blocks.shape)}; expected (30, 30, {ne}) "
+                         "or packed tiles")
+    static = (blocks, fixmask, plan.keys, plan.order) + (() if cols is None else (cols,))
+    if all(t.device.type == "cpu" for t in static):
+        return jacobi_inverse_ref(blocks, plan, fixmask, reduce=reduce, cols=cols)
+    if blocks.device.type != "cuda" or any(t.device != blocks.device for t in static):
+        raise ValueError("jacobi_inverse: tensors on several devices; expected all on the CPU "
+                         "or all on one CUDA device")
+    if blocks.dtype not in PACK_TILE or fixmask.dtype != blocks.dtype:
+        raise TypeError(f"jacobi_inverse: dtypes {blocks.dtype}/{fixmask.dtype}; expected "
+                        "float32 or float64 throughout")
+    if cols is not None and (cols.dtype != torch.int64 or cols.shape != (ne,)):
+        raise ValueError(f"jacobi_inverse: cols {cols.dtype} {tuple(cols.shape)}; expected "
+                         f"int64 ({ne},)")
+    if packed and blocks.shape[2] != PACK_TILE[blocks.dtype]:
+        raise ValueError(f"jacobi_inverse: packed tiles {tuple(blocks.shape)}; expected "
+                         f"{PACK_TILE[blocks.dtype]} elements a tile")
+    _node_plan_checks("jacobi_inverse", plan, rows, 10 * ne, blocks.device)
+    build()
+    tables = (plan.order, plan.offsets, plan.segs, plan.holes)
+    tile = blocks.shape[2] if packed else 0
+    if reduce is None:
+        return _jacobi_launch("fused", blocks, tile, *tables, ne, rows, cols, fixmask, None)
+    nodal = reduce(_jacobi_launch("sum", blocks, tile, *tables, ne, rows, cols, None, None))
+    return _jacobi_launch("tail", None, 0, None, None, None, None, 0, rows, None, fixmask,
+                          nodal.contiguous())
+
+
+jacobi_inverse.launches = 0
+jacobi_inverse.dtypes = Counter()  # launches by dtype name
+jacobi_inverse.forms = Counter()  # launches by form (JACOBI_FORMS)
 
 
 def soa_matvec_ref(esm_t: torch.Tensor, ue_t: torch.Tensor) -> torch.Tensor:

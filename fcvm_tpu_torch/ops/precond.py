@@ -135,12 +135,12 @@ def bound_precond(pc):
     return lambda r: asm.apply_block_precond(pc, r)
 
 
-def refresh_blocks(pc, esm, elnodes, fixmask, plan=None):
+def refresh_blocks(pc, esm, elnodes, fixmask, plan=None, packed=None):
     """Rebuild the block-Jacobi part after a tangent refresh from the
-    blocks ``esm`` (ne, 30, 30) (``plan``: the
-    :func:`~fcvm_tpu_torch.ops.assembly.jacobi_plan` of ``elnodes``, built
-    when not given), keeping the two-level coarse correction of
-    the elastic operator (a preconditioner only needs to stay SPD and
+    blocks ``esm`` (ne, 30, 30), or from ``packed``, their packed tiles,
+    where given (``esm``, ``plan`` and ``packed`` as in
+    :func:`~fcvm_tpu_torch.ops.assembly.block_jacobi_inverse_blocks`),
+    keeping the two-level coarse correction of the elastic operator (a preconditioner only needs to stay SPD and
     spectrally close, as the reference keeps its elastic factor,
     ``fcVM.py:1400-1406``).  Returns the new preconditioner: a
     :class:`TwoLevelPrecond`, or the nodal blocks of the block-Jacobi tier.
@@ -148,7 +148,7 @@ def refresh_blocks(pc, esm, elnodes, fixmask, plan=None):
     elastic cluster inverses stay, and nothing is rebuilt."""
     if isinstance(pc, TwoLevelPrecond) and pc.smooth_inv is not None:
         return pc
-    pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask, plan=plan)
+    pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask, plan=plan, packed=packed)
     if isinstance(pc, TwoLevelPrecond):
         return pc._replace(pinv=pinv)
     return pinv

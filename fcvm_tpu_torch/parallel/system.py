@@ -73,8 +73,9 @@ from fcvm_tpu_torch.runtime.backend import TorchSystem
 
 class ShardedOperator(NamedTuple):
     """``K_hat`` over this rank's blocks (30, 30, ne_l), Morton element
-    order, element-major, and on the card their packed copy (None on the
-    CPU).  Calling it applies ``K_hat @ v`` (one ``all_reduce``);
+    order, element-major (on the card None after a tangent refresh, which
+    forms the packed tiles alone), and on the card their packed tiles
+    (None on the CPU).  Calling it applies ``K_hat @ v`` (one ``all_reduce``);
     ``local(v)`` is this rank's unreduced raw ``K @ v``."""
 
     esm_t: torch.Tensor
@@ -91,7 +92,7 @@ class ShardedSystem(TorchSystem):
 
     Gauss state is (ne_l, 4, ...) on each rank: the rank's slice of the
     padded Morton element order.  Element blocks passed between the
-    methods (``assemble`` → ``operator``/``make_pc``) are the rank's, in
+    methods (``assemble_operator`` → ``operator_pc``) are the rank's, in
     that order."""
 
     supports_scipy = False
@@ -174,10 +175,10 @@ class ShardedSystem(TorchSystem):
 
     # -- operators ------------------------------------------------------------
 
-    def operator(self, esm):
-        """``K_hat @ v`` in the solve space over this rank's blocks."""
-        esm_t = esm.permute(1, 2, 0).contiguous()
-        packed = kernels.pack_blocks(esm_t) if esm_t.device.type != "cpu" else None
+    def operator(self, blocks: asm.Blocks):
+        """``K_hat @ v`` in the solve space over this rank's ``blocks``
+        (K3's :class:`~fcvm_tpu_torch.ops.assembly.Blocks`)."""
+        esm_t, packed = blocks
         local = asm.make_matvec(esm_t, self.eldofs_m_l, self.ndof_pad, self.incidence_l, packed)
         fm = self.space.fixmask_m
         free = 1.0 - fm
@@ -204,10 +205,12 @@ class ShardedSystem(TorchSystem):
 
         return mv
 
-    def _pinv_m(self, esm):
-        """Replicated (nn_pad, 3, 3) block-Jacobi inverses, Morton order."""
-        return asm.block_jacobi_inverse_blocks(esm, self.eln_m_l, self.space.fixmask_m,
-                                               reduce=pdist.all_reduce, plan=self.jacobi_plan_l)
+    def _pinv_m(self, blocks: asm.Blocks):
+        """Replicated (nn_pad, 3, 3) block-Jacobi inverses, Morton order, of
+        this rank's ``blocks``: K5's sum, the ``all_reduce``, K5's tail."""
+        return asm.block_jacobi_inverse_blocks(blocks.esm, self.eln_m_l, self.space.fixmask_m,
+                                               reduce=pdist.all_reduce, plan=self.jacobi_plan_l,
+                                               packed=blocks.packed)
 
     def _external_loads(self, coords, disp, follower: bool):
         """:func:`fcvm_tpu_torch.runtime.system.external_loads` over this
@@ -239,28 +242,40 @@ class ShardedSystem(TorchSystem):
 
     # -- composites -------------------------------------------------------------
 
-    def assemble(self, coords):
-        """This rank's elastic blocks (ne_l, 30, 30), the replicated
-        block-Jacobi inverses (Morton order), loads, the elastic RHS (user
-        order), this rank's Gauss-point coordinates, volume and load sums."""
-        esm = asm.elastic_stiffness_blocks(coords, self.eln_l, self.dmat_l)
-        esm = esm * self.w_l[:, None, None]
-        pinv = self._pinv_m(esm)
+    def assemble_operator(self, coords):
+        """The operator over this rank's elastic blocks (K3, the padding
+        elements' weights folded in, element-major and on the card packed),
+        the replicated block-Jacobi inverses (Morton order), loads, the
+        elastic RHS (user order), this rank's Gauss-point coordinates,
+        volume and load sums."""
+        blocks = asm.operator_blocks("elastic", coords, self.eln_l, dmat=self.dmat_l,
+                                     weights=self.w_l, table=self.element_table, full=True)
+        khat = self.operator(blocks)
+        pinv = self._pinv_m(blocks)
+        del blocks
         glv, gp_coords, volume, loadsums = self._external_loads(
             coords, torch.zeros_like(self.u_fix), follower=False)
-        rhs = self.space.from_m(self._rhs_m(self.operator(esm), glv))
-        return esm, pinv, glv, rhs, gp_coords, volume, loadsums
+        rhs = self.space.from_m(self._rhs_m(khat, glv))
+        return khat, pinv, glv, rhs, gp_coords, volume, loadsums
 
-    def make_pc(self, esm, pinv):
-        """Two-level preconditioner (the coarse table all-reduced) or the
-        block-Jacobi blocks, Morton order; no cluster smoother."""
+    def assemble(self, coords):
+        """:meth:`assemble_operator` with this rank's elastic blocks (ne_l,
+        30, 30) (Morton order) in place of the operator."""
+        khat, *rest = self.assemble_operator(coords)
+        return (khat.esm_t.permute(2, 0, 1), *rest)
+
+    def operator_pc(self, khat, pinv):
+        """Two-level preconditioner on the blocks of the operator ``khat``
+        (the coarse table all-reduced) or the block-Jacobi blocks ``pinv``,
+        Morton order; no cluster smoother."""
         cfg = self.cfg
         if cfg.precond != "two_level":
             return pinv
         sp = self.space
         cs = cfg.resolve_cluster_size(self.mesh.n_nodes)
         qmat = qmat_bc(sp.coords_m, sp.fixmask_m, cs, cfg.coarse_modes)
-        kc = pdist.all_reduce(coarse_accumulate(esm, self.eln_m_l, qmat, cs))
+        kc = pdist.all_reduce(coarse_accumulate(khat.esm_t.permute(2, 0, 1).contiguous(),
+                                                self.eln_m_l, qmat, cs))
         return TwoLevelPrecond(pinv, qmat,
                                stored_coarse(invert_coarse_with_ladder(kc, label="sharded ")),
                                sp.fixmask_m, None)
@@ -338,14 +353,14 @@ class ShardedSystem(TorchSystem):
         rank's tangent blocks, the block-Jacobi rebuild and the follower
         loads all-reduced, the predictor solve replicated."""
         disp_new = disp_new.to(coords.dtype)
-        coords_def = coords + disp_new.reshape(-1, 3)[: coords.shape[0]]
-        h = mat.hardening_modulus(self.e_l, et_e)
-        esm = asm.tangent_stiffness_blocks(coords_def, self.eln_l, self.dmat_l, sig_old,
-                                           pgp, self.g_l, h) * self.w_l[:, None, None]
-        pinv = self._pinv_m(esm)
+        blocks = asm.operator_blocks(
+            "tangent", coords, self.eln_l, disp=disp_new, dmat=self.dmat_l, sig=sig_old,
+            pgp=pgp, g=self.g_l, h=mat.hardening_modulus(self.e_l, et_e), weights=self.w_l,
+            table=self.element_table)
+        pinv = self._pinv_m(blocks)
         pc_t = pc._replace(pinv=pinv) if isinstance(pc, TwoLevelPrecond) else pinv
-        khat = self.operator(esm)
-        del esm
+        khat = self.operator(blocks)
+        del blocks
         glv_t = self._external_loads(coords, disp_new, follower=True)[0]
         rhs = self._rhs_m(khat, glv_t)
         sp = self.space
@@ -421,17 +436,17 @@ class ShardedSystem(TorchSystem):
             return self._local_buckling(coords, sig_el_gp, k, stats)
         dtype, fm = self.dtype, self.space.fixmask_m
         rtol = min(self.rtol, 1.0e-10)
-        esm = asm.elastic_stiffness_blocks(coords, self.eln_l, self.dmat_l)
-        esm = esm * self.w_l[:, None, None]
-        nsm = asm.geometric_stiffness_blocks(coords, self.eln_l, sig_el_gp)
-        nsm_t = (nsm * self.w_l[:, None, None]).permute(1, 2, 0).contiguous()
-        del nsm
-        khat = self.operator(esm)
-        pc = self.make_pc(esm, self._pinv_m(esm))
-        nstore, k_defl = bk._recycling_params(self.ndof_pad, esm.element_size())
-        del esm
+        kb = asm.operator_blocks("elastic", coords, self.eln_l, dmat=self.dmat_l,
+                                 weights=self.w_l, table=self.element_table, full=True)
+        gb = asm.operator_blocks("geometric", coords, self.eln_l, sig=sig_el_gp,
+                                 weights=self.w_l, table=self.element_table)
+        khat = self.operator(kb)
+        pc = self.operator_pc(khat, self._pinv_m(kb))
+        nstore, k_defl = bk._recycling_params(self.ndof_pad, kb.esm_t.element_size())
+        del kb
         kmv = self._block_op(khat.esm_t, packed=khat.packed)
-        minus_g = self._block_op(nsm_t, identity_on_fixed=False, negate=True)
+        minus_g = self._block_op(gb.esm_t, identity_on_fixed=False, negate=True,
+                                 packed=gb.packed)
         record = {"dtype": str(dtype).replace("torch.", ""), "solver": "cg", "sweeps": 0,
                   "inner_iters": [], "harvest": None, "pencil_residuals": None,
                   "error": None, "sharded": True}
@@ -464,6 +479,6 @@ class ShardedSystem(TorchSystem):
             warnings.warn("sharded f32 buckling eigensolve broke down; escalating through "
                           "the local retry ladder (f64 iteration / re-assembly), the collapse "
                           "analysis itself stays sharded")
-            del kmv, minus_g, k_inverse, khat, nsm_t
+            del kmv, minus_g, k_inverse, khat, gb
             return self._local_buckling(coords, sig_el_gp, k, stats)
         return lam, vecs.reshape(-1, 3, k)[self.space.npos.cpu().numpy()].reshape(-1, k)

@@ -84,9 +84,9 @@ class TorchSystem:
 
     @property
     def element_table(self):
-        """K2's node tables of ``elnodes`` (:func:`~fcvm_tpu_torch.ops.kernels.element_table`),
-        made at the first stress update (after the preconditioner's first
-        build, whose peak they stay out of) and kept."""
+        """K2's and K3's node table of ``elnodes``
+        (:func:`~fcvm_tpu_torch.ops.kernels.element_table`), made at first
+        use and kept."""
         if self._element_table is None:
             self._element_table = kernels.element_table(self.elnodes)
         return self._element_table
@@ -123,22 +123,31 @@ class TorchSystem:
 
     # -- composites ----------------------------------------------------------
 
+    def assemble_operator(self, coords):
+        """The elastic system: the operator formed in the solve space's
+        order, the block-Jacobi inverses (user order), loads and
+        right-hand side (:func:`~fcvm_tpu_torch.runtime.system.assemble_operator`):
+        (khat, pinv, glv, rhs, gp_coords, volume, loadsums)."""
+        return sysm.assemble_operator(
+            coords, self.elnodes, self.dmat, self.loads, self.density, self.fixmask,
+            self.u_fix, self.node_plan, self.space, table=self.element_table)
+
     def assemble(self, coords):
-        return sysm.assemble_elastic(
-            coords, self.elnodes, self.dmat, self.loads, self.density,
-            self.fixmask, self.u_fix, self.node_plan)
+        """:meth:`assemble_operator` with the elastic blocks (ne, 30, 30) in
+        user element order (a copy) in place of the operator."""
+        khat, *rest = self.assemble_operator(coords)
+        return (khat.esm_t.permute(2, 0, 1)[self.space.epos], *rest)
 
-    def operator(self, esm):
-        """K_hat·v in the solve space over blocks ``esm`` (user order)."""
-        return sysm.make_operator(esm[self.space.eperm], self.space)
-
-    def make_pc(self, esm, pinv):
+    def operator_pc(self, khat, pinv):
+        """The preconditioner of :meth:`assemble_operator`'s operator
+        ``khat`` and inverses ``pinv``: the two-level preconditioner on its
+        blocks, or the inverses in the solve space (the block-Jacobi
+        tier)."""
         if self.cfg.precond == "two_level":
-            return sysm.build_precond(
-                esm, self.cfg.resolve_cluster_size(self.mesh.n_nodes),
-                self.space, self.cfg.coarse_modes, self.cfg.smoother,
-                self.cfg.smoother_cluster_nodes)
-        return pinv[self.space.nperm]  # block-Jacobi tier, in solve space
+            return sysm.operator_precond(
+                khat, self.cfg.resolve_cluster_size(self.mesh.n_nodes), self.space,
+                self.cfg.coarse_modes, self.cfg.smoother, self.cfg.smoother_cluster_nodes)
+        return pinv[self.space.nperm]
 
     def solve(self, khat, pc, b, x0=None, defl=None):
         return sysm.solve_displacement(khat, pc, b, self.rtol, self.maxiter,
@@ -190,7 +199,8 @@ class TorchSystem:
             coords, self.elnodes, self.dmat, sig_old, pgp, disp_new, self.loads,
             self.density, self.u_fix, self.g, mat.hardening_modulus(self.e, et_e),
             self.rtol, self.maxiter, pc, self.space, ue0=ue0, w=w,
-            solve_predictor=solve_predictor, plan=self.node_plan)
+            solve_predictor=solve_predictor, plan=self.node_plan, table=self.element_table,
+            full=self.cfg.solver == "scipy")
 
     def _residual_kernel(self, et_e, refined: bool):
         """The residual's :func:`~fcvm_tpu_torch.runtime.system.residual_kernel`

@@ -168,16 +168,18 @@ def _assemble_penalty_csc(esm, eldofs, dvec, ndof: int):
     return (k + sp.coo_matrix((dvec.cpu().numpy(), (idx, idx)), shape=(ndof, ndof))).tocsc()
 
 
-def _penalty_operators(esm, nsm, eldofs, elnodes, fixmask, ndof, solver, rtol, maxiter):
+def _penalty_operators(kb, gb, eldofs, elnodes, fixmask, ndof, solver, rtol, maxiter):
     """(kmv, minus_g, k_inverse) of the reference-parity penalty pencil
-    (``fcVM.py:1051-1062``): the full stiffness and geometric matrices (no
+    (``fcVM.py:1051-1062``) on the stiffness and geometric blocks ``kb`` and
+    ``gb``, :class:`~fcvm_tpu_torch.ops.assembly.Blocks` with their
+    element-major blocks.  The full stiffness and geometric matrices (no
     Dirichlet elimination) with the fixed K diagonals multiplied by 100 and
     G unpenalised.  No recycling: the mode targets small parity meshes."""
     inc = asm.node_incidence(elnodes, ndof // 3)  # one incidence for both operators
-    kfull = asm.make_multi_matvec(esm.permute(1, 2, 0).contiguous(), eldofs, None,
-                                  incidence=inc)
-    minus_g = asm.make_multi_matvec(nsm.permute(1, 2, 0).contiguous(), eldofs, None,
-                                    negate=True, incidence=inc)
+    kfull = asm.make_multi_matvec(kb.esm_t, eldofs, None, incidence=inc, packed=kb.packed)
+    minus_g = asm.make_multi_matvec(gb.esm_t, eldofs, None, negate=True, incidence=inc,
+                                    packed=gb.packed)
+    esm = kb.esm
     diag = _assembled_diagonal(esm, eldofs, ndof)
     empty = (diag == 0).to(diag.dtype)  # dof-alignment padding rows
     dvec_k = 99.0 * diag * (1.0 - fixmask) + empty
@@ -289,20 +291,29 @@ def buckling_from_arrays(
     # which the softest bending modes of a slender member amplify (on the
     # 451,875-dof beam-column of chip_smoke.py the factors of the upcast
     # float32 blocks came out 4.7% and 6.3% low, with a pencil residual of 7e-4)
-    esm = asm.elastic_stiffness_blocks(coords.to(dtype), elnodes, dmat.to(dtype))
-    nsm = asm.geometric_stiffness_blocks(coords.to(dtype), elnodes, sig_gp.to(dtype))
+    # K3 forms both pencils in the solve space's element order, each in one
+    # launch: K_hat's element-major blocks (the two-level build, the scipy
+    # and penalty tiers read them) and, on the card, both operators' packed
+    # tiles, which K_hat·V, -G_hat·V, the harvest's K_hat·v and the
+    # deflation build share; G_hat's element-major blocks only for the
+    # penalty pencil (and on the CPU, whose plain versions read them)
+    perm = None if space is None else space.eperm
+    kb = asm.operator_blocks("elastic", coords.to(dtype), elnodes, dmat=dmat.to(dtype),
+                             perm=perm, full=True)
+    gb = asm.operator_blocks("geometric", coords.to(dtype), elnodes, sig=sig_gp.to(dtype),
+                             perm=perm, full=penalty)
+    esm = kb.esm  # (ne, 30, 30), a view
     coords_work = coords
     if space is not None:
-        esm, nsm = esm[space.eperm], nsm[space.eperm]
         elnodes, fixmask, coords_work = space.elnodes_m, space.fixmask_m, space.coords_m
     fixmask, coords_work = fixmask.to(dtype), coords_work.to(dtype)
     eldofs = asm.element_dof_ids(elnodes)
     ladder_top = dtype == torch.float32
 
     if penalty:
-        kmv, minus_g, k_inverse = _penalty_operators(esm, nsm, eldofs, elnodes, fixmask,
+        kmv, minus_g, k_inverse = _penalty_operators(kb, gb, eldofs, elnodes, fixmask,
                                                      ndof, solver, rtol, maxiter)
-        del esm, nsm
+        del esm, kb, gb
         try:
             return pencil_subspace(
                 kmv, minus_g, k_inverse, ndof, dtype, k, m, outer_tol, max_outer,
@@ -318,21 +329,14 @@ def buckling_from_arrays(
                 coords, elnodes_in, dmat, sig_gp, fixmask_in, space=None,
                 allow_reassembly=allow_reassembly, _dtype_override=torch.float64, **retry)
 
-    esm_t = esm.permute(1, 2, 0).contiguous()
-    nsm_t = nsm.permute(1, 2, 0).contiguous()
-    del nsm
-    # one incidence table, and on the card one packed copy of each operator's
-    # blocks, shared by K_hat·V, -G_hat·V, the harvest's K_hat·v and the
-    # deflation build
+    esm_t, packed = kb
+    # one incidence table, shared by K_hat·V, -G_hat·V, the harvest's
+    # K_hat·v and the deflation build
     inc = space.incidence if space is not None else asm.node_incidence(elnodes, ndof // 3)
-    on_card = esm_t.device.type != "cpu"
-    packed = kernels.pack_blocks(esm_t) if on_card else None
     kmv = asm.make_multi_matvec(esm_t, eldofs, fixmask, incidence=inc, packed=packed)
-    minus_g = asm.make_multi_matvec(nsm_t, eldofs, fixmask, identity_on_fixed=False, negate=True,
-                                    incidence=inc,
-                                    packed=kernels.pack_blocks(nsm_t) if on_card else None)
-    if on_card:
-        del nsm_t  # -G_hat·V reads its packed copy only
+    minus_g = asm.make_multi_matvec(gb.esm_t, eldofs, fixmask, identity_on_fixed=False,
+                                    negate=True, incidence=inc, packed=gb.packed)
+    del gb
 
     if solver == "scipy":
         # the reference's direct tier (fcVM.py:1263-1278): an exact K^-1
@@ -342,12 +346,12 @@ def buckling_from_arrays(
             return direct.solve(w)  # exact: the Ritz warm start has nothing to seed
     else:
         if cfg.precond == "two_level":
-            pc = build_two_level(esm, elnodes, coords_work, fixmask,
+            pc = build_two_level(esm.contiguous(), elnodes, coords_work, fixmask,
                                  cluster_size=cfg.resolve_cluster_size(coords.shape[0]),
                                  n_modes=cfg.coarse_modes, smoother=cfg.smoother,
                                  smoother_cluster_nodes=cfg.smoother_cluster_nodes)
         else:
-            pc = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
+            pc = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask, packed=packed)
         nstore, k_defl = _recycling_params(ndof, esm.element_size())
         kv = asm.make_bc_matvec(esm_t, eldofs, fixmask, incidence=inc, packed=packed)
 
@@ -367,7 +371,7 @@ def buckling_from_arrays(
             kinv, harvest,
             lambda zs, coef: dfl.build_space(esm_t, eldofs, fixmask, zs, coef, inc, packed),
             k_defl, cfg.deflation_min_iters, cfg.deflation, record=record)
-    del esm
+    del esm, kb
 
     try:
         lam, vecs = pencil_subspace(
@@ -544,13 +548,12 @@ def _linear_buckling_impl(model, params, k: int, cfg: FcvmConfig):
     model.mesh.validate()
     backend = TorchSystem(model, cfg, dtype, device)
     coords = backend.tensor(model.mesh.coords)
-    esm, pinv, _, rhs, *_ = backend.assemble(coords)
-    khat = backend.operator(esm)
+    khat, pinv, _, rhs, *_ = backend.assemble_operator(coords)
     if cfg.solver == "scipy":
         ue = backend.scipy_direct(khat)(rhs)
     else:
-        ue = backend.solve(khat, backend.make_pc(esm, pinv), rhs).x
-    del esm, pinv, khat
+        ue = backend.solve(khat, backend.operator_pc(khat, pinv), rhs).x
+    del pinv, khat
     sig_el, *_ = backend.stress_update(
         coords, backend.gauss_full(1.0e30), torch.zeros_like(ue), ue,
         backend.gauss_zeros((6,)), 0.0)

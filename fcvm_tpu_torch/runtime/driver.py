@@ -353,13 +353,12 @@ def _solve_collapse_impl(model, params, continuation, checkpoint_path, resume_fr
         """The elastic operator and preconditioner, loads and right-hand
         side on the geometry ``coords``."""
         with timers.phase("assemble"):
-            esm, pinv, glv, rhs, gp_coords, volume, loadsums = backend.assemble(coords)
-            khat = backend.operator(esm)
+            khat, pinv, glv, rhs, gp_coords, volume, loadsums = backend.assemble_operator(coords)
         before = (COARSE_BUILD_STATS["ridge_escalations"],
                   COARSE_BUILD_STATS["zero_coarse_fallbacks"])
         with timers.phase("precond_build"):
-            pc = backend.make_pc(esm, pinv)
-        del esm, pinv  # the operator holds its own (Morton, element-major) copy
+            pc = backend.operator_pc(khat, pinv)
+        del pinv
         esc = COARSE_BUILD_STATS["ridge_escalations"] - before[0]
         fb = COARSE_BUILD_STATS["zero_coarse_fallbacks"] - before[1]
         cg_stats["coarse_ridge_escalations"] += esc

@@ -10,9 +10,11 @@ solve), the Riks and Crisfield arc-length updates and the converged-step
 records.  JAX compiles each of these into one device program, and fuses a
 Newton iteration's solve, Riks update and residual into another; here they
 are plain functions on tensors, which the driver calls one after the other,
-and the operator's element blocks are stored in the solve space's element
-order, element-major, once per operator (:func:`make_operator`), not on
-every solve, with K1's packed copy on the card.  Every fixed set of keys
+and the operator's element blocks are formed by K3 in the solve space's
+element order (:func:`assemble_operator`, :func:`tangent_refresh`), stored
+element-major and, on the card, as K1's packed tiles from the same launch,
+once per operator (:func:`make_operator`), not on every solve; the
+block-Jacobi rebuild is K5, one launch.  Every fixed set of keys
 of a node sum (the elements', the load tables', the block-Jacobi rebuild's)
 gets its K8 segment plan once, here or on the backend.
 """
@@ -100,22 +102,6 @@ def external_loads(coords, disp, elnodes, loads: LoadTables, density, follower: 
     return glv, gp_coords, volume, loadsums
 
 
-def assemble_elastic(coords, elnodes, dmat, loads: LoadTables, density, fixmask, u_fix,
-                     plan: SegmentPlan):
-    """Elastic blocks (ne, 30, 30) in user element order, nodal block-Jacobi
-    inverses, loads and the elastic RHS (``calcGSM``, ``fcVM.py:620-816``);
-    ``plan`` as in :func:`external_loads`.
-
-    Returns (esm, pinv, glv, rhs, gp_coords, volume, loadsums)."""
-    esm = asm.elastic_stiffness_blocks(coords, elnodes, dmat)
-    pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
-    glv, gp_coords, volume, loadsums = external_loads(
-        coords, torch.zeros_like(u_fix), elnodes, loads, density, follower=False, plan=plan)
-    rhs = asm.dirichlet_rhs(esm.permute(1, 2, 0).contiguous(), asm.element_dof_ids(elnodes),
-                            fixmask, u_fix, glv)
-    return esm, pinv, glv, rhs, gp_coords, volume, loadsums
-
-
 class SolveSpace(NamedTuple):
     """Morton-ordered solve space: the node/element numbering CG runs in.
 
@@ -128,6 +114,8 @@ class SolveSpace(NamedTuple):
       nperm: (nn_pad,) original padded-node id at each Morton slot.
       npos: (nn_pad,) Morton slot of each original padded node.
       eperm: (ne,) solver element order (ascending min Morton slot).
+      epos: (ne,) the solver position of each user element (``eperm``'s
+        inverse).
       elnodes_m: (ne, 10) Morton node ids, ``eperm``-sorted.
       eldofs_m: (ne, 30) the matching dof ids.
       fixmask_m: (ndof_pad,) fixmask in Morton numbering.
@@ -143,6 +131,7 @@ class SolveSpace(NamedTuple):
     nperm: torch.Tensor
     npos: torch.Tensor
     eperm: torch.Tensor
+    epos: torch.Tensor
     elnodes_m: torch.Tensor
     eldofs_m: torch.Tensor
     fixmask_m: torch.Tensor
@@ -173,6 +162,7 @@ def build_solve_space(coords_np, elnodes_np, fixmask, ndof_pad: int) -> SolveSpa
         perm_t,
         torch.as_tensor(npos, device=dev),
         torch.as_tensor(eperm, device=dev),
+        torch.as_tensor(np.argsort(eperm), device=dev),
         elnodes_m,
         asm.element_dof_ids(elnodes_m),
         fixmask.reshape(nn_pad, 3)[perm_t].reshape(-1),
@@ -184,9 +174,11 @@ def build_solve_space(coords_np, elnodes_np, fixmask, ndof_pad: int) -> SolveSpa
 
 class Operator(NamedTuple):
     """``K_hat`` in the solve space: its blocks, Morton-ordered and
-    element-major (30, 30, ne), their packed copy that K1 reads on the card
-    (:func:`fcvm_tpu_torch.ops.kernels.pack_blocks`; None on the CPU), and
-    the matvec over them.  Calling it applies the matvec."""
+    element-major (30, 30, ne) (on the card None where no caller reads them:
+    a tangent refresh's, but for the scipy tier), their packed tiles that K1
+    reads on the card (K3's, :func:`fcvm_tpu_torch.ops.kernels.pack_blocks`'s
+    layout; None on the CPU), and the matvec over them.  Calling it applies
+    the matvec."""
 
     esm_t: torch.Tensor
     matvec: Callable
@@ -196,23 +188,52 @@ class Operator(NamedTuple):
         return self.matvec(v)
 
 
-def make_operator(esm_m, space: SolveSpace) -> Operator:
-    """``K_hat @ v`` in the solve space over the blocks ``esm_m`` (ne, 30,
-    30) in the solve space's element order (``esm[space.eperm]`` of
-    user-order blocks): they are stored element-major (30, 30, ne) here,
-    once, and on the card packed for K1 as well."""
-    esm_t = esm_m.permute(1, 2, 0).contiguous()
-    packed = kernels.pack_blocks(esm_t) if esm_t.device.type != "cpu" else None
+def make_operator(blocks: asm.Blocks, space: SolveSpace) -> Operator:
+    """``K_hat @ v`` in the solve space over ``blocks``
+    (:class:`~fcvm_tpu_torch.ops.assembly.Blocks`) in the solve space's
+    element order: K3's (its packed tiles, and its element-major blocks
+    where formed), or :func:`~fcvm_tpu_torch.ops.assembly.blocks_of` a
+    tensor."""
+    esm_t, packed = blocks
     return Operator(esm_t, asm.make_bc_matvec(esm_t, space.eldofs_m, space.fixmask_m,
                                               space.incidence, packed), packed)
 
 
-def build_precond(esm, cluster_size: int, space: SolveSpace, n_modes: int,
-                  smoother: str = "jacobi3", smoother_cluster_nodes: int = 64):
-    """Two-level preconditioner on the Morton-permuted operator, with the
-    fine level ``smoother`` (see :func:`build_two_level`)."""
-    return build_two_level(esm[space.eperm], space.elnodes_m, space.coords_m,
-                           space.fixmask_m, cluster_size=cluster_size,
+def assemble_operator(coords, elnodes, dmat, loads: LoadTables, density, fixmask, u_fix,
+                      plan: SegmentPlan, space: SolveSpace, table=None):
+    """The elastic system (``calcGSM``, ``fcVM.py:620-816``): the operator
+    formed by K3 in the solve space's element order (one launch: its
+    element-major blocks, which the two-level build reads, and on the card
+    K1's packed tiles), K5's nodal block-Jacobi inverses over them (user
+    node order), the loads and the elastic right-hand side (user dof
+    order); ``plan`` as in :func:`external_loads`, ``table`` the
+    user-order element table K3 reads (made on the card when not given).
+    The inverses sum each node's blocks in user element order
+    (``space.epos`` maps each to its block).
+
+    Returns (khat, pinv, glv, rhs, gp_coords, volume, loadsums): the
+    :class:`Operator`, the inverses (nn, 3, 3), the load vector, the
+    right-hand side, the Gauss-point coordinates, the volume and the load
+    sums."""
+    blocks = asm.operator_blocks("elastic", coords, elnodes, dmat=dmat, perm=space.eperm,
+                                 table=table, full=True)
+    khat = make_operator(blocks, space)
+    pinv = asm.block_jacobi_inverse_blocks(blocks.esm, elnodes, fixmask, cols=space.epos,
+                                           packed=blocks.packed)
+    glv, gp_coords, volume, loadsums = external_loads(
+        coords, torch.zeros_like(u_fix), elnodes, loads, density, follower=False, plan=plan)
+    rhs = asm.dirichlet_rhs(khat.esm_t, space.eldofs_m, space.fixmask_m, space.to_m(u_fix),
+                            space.to_m(glv), space.incidence, khat.packed)
+    return khat, pinv, glv, space.from_m(rhs), gp_coords, volume, loadsums
+
+
+def operator_precond(khat: Operator, cluster_size: int, space: SolveSpace, n_modes: int,
+                     smoother: str = "jacobi3", smoother_cluster_nodes: int = 64):
+    """Two-level preconditioner on the blocks ``khat`` holds (formed in the
+    solve space's order by :func:`assemble_operator`), with the fine level
+    ``smoother`` (see :func:`build_two_level`)."""
+    return build_two_level(khat.esm_t.permute(2, 0, 1).contiguous(), space.elnodes_m,
+                           space.coords_m, space.fixmask_m, cluster_size=cluster_size,
                            n_modes=n_modes, smoother=smoother,
                            smoother_cluster_nodes=smoother_cluster_nodes)
 
@@ -342,20 +363,24 @@ def residual_refined(coords, elnodes, dmat, sig_yield, disp_new, du, sig_old, e,
 def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTables,
                     density, u_fix, g, h, rtol, maxiter: int, pc, space: SolveSpace,
                     ue0=None, w=None, solve_predictor: bool = True, *,
-                    plan: SegmentPlan):
+                    plan: SegmentPlan, table=None, full: bool = False):
     """GNL tangent refresh: tangent blocks on the deformed geometry,
     follower loads, block-Jacobi rebuild and the tangent predictor solve
     (``calcTSM``, re-factorisation and ``ue = K_t^-1 f``,
     ``fcVM.py:1351-1396``).
 
-    The blocks are formed directly in the solve space's element order (the
-    Gauss state ``sig_old``/``pgp``, and per-element ``dmat`` (ne, 6, 6),
-    ``g`` and ``h`` (ne,), come in user order and are permuted with them);
-    the two-level coarse correction of ``pc`` is kept and only
-    the nodal blocks are rebuilt (:func:`refresh_blocks`; a cluster
-    smoother is kept as well, and nothing is rebuilt).  A float64
-    ``disp_new`` (the refinement tier's) is cast to the storage dtype of
-    ``coords``: the tangent operator stays in it.
+    The blocks are formed by K3 directly in the solve space's element order
+    on ``coords`` moved by ``disp_new`` (the Gauss state ``sig_old``/``pgp``,
+    and per-element ``dmat`` (ne, 6, 6), ``g`` and ``h`` (ne,), come in user
+    order, and K3 reads them, and the user-order element ``table``, at each
+    block's element); on the card as K1's packed tiles alone, unless
+    ``full`` asks for the element-major blocks too (the scipy tier reads
+    them); the two-level coarse correction of ``pc`` is kept and only
+    the nodal blocks are rebuilt, by K5 from those tiles
+    (:func:`refresh_blocks`; a cluster smoother is kept as well, and
+    nothing is rebuilt).  A float64 ``disp_new`` (the refinement tier's) is
+    cast to the storage dtype of ``coords``: the tangent operator stays in
+    it.
 
     The predictor is warm-started from the previous predictor ``ue0`` (two
     successive tangents differ by one Newton update).  ``w``, a load-rhs
@@ -369,15 +394,13 @@ def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTa
     :class:`Operator`, the refreshed preconditioner, the follower load
     vector, the predictor (user dof order) and its CG count."""
     disp_new = disp_new.to(coords.dtype)
-    coords_def = coords + disp_new.reshape(-1, 3)[: coords.shape[0]]
-    eperm = space.eperm
-    if dmat.dim() == 3:  # per-element materials follow their elements
-        dmat, g, h = dmat[eperm], g[eperm], h[eperm]
-    esm_m = asm.tangent_stiffness_blocks(coords_def, elnodes[eperm], dmat, sig_old[eperm],
-                                         pgp[eperm], g, h)
-    pc_t = refresh_blocks(pc, esm_m, space.elnodes_m, space.fixmask_m, space.jacobi_plan)
-    khat = make_operator(esm_m, space)
-    del esm_m
+    blocks = asm.operator_blocks("tangent", coords, elnodes, disp=disp_new, dmat=dmat,
+                                 sig=sig_old, pgp=pgp, g=g, h=h, perm=space.eperm, table=table,
+                                 full=full)
+    pc_t = refresh_blocks(pc, blocks.esm, space.elnodes_m, space.fixmask_m, space.jacobi_plan,
+                          packed=blocks.packed)
+    khat = make_operator(blocks, space)
+    del blocks
     glv_t, *_ = external_loads(coords, disp_new, elnodes, loads, density, follower=True,
                                plan=plan)
     rhs = asm.dirichlet_rhs(khat.esm_t, space.eldofs_m, space.fixmask_m,

@@ -46,7 +46,7 @@ A step is timed on the host clock around ``torch.cuda.synchronize()``; the
 CG's reads of its state on the host (once per ``CG_BATCH`` iterations, every
 iteration on the sharded row) stay inside it, as the driver pays them.
 Each row carries the kernel launches it made (``launches``: K1, K4, K8, K6,
-K2's two passes, K1m, K4m, K0m, K0) and, on a GPU, its peak device memory
+K2's two passes, K3, K5, K1m, K4m, K0m, K0) and, on a GPU, its peak device memory
 (``peak_mib``).  Everything runs
 on ``cuda`` unless ``--cpu`` is given; a failed row raises and ends the run
 with a non-zero exit after the rows before it were printed, and nothing
@@ -178,12 +178,13 @@ def _sync(device):
 
 # the kernels a row can launch: K1 and K4 (every CG iteration), K8 (the
 # node sums outside K2), K6 (the rest of every CG iteration), K2's element
-# and node passes (every residual and internal force), K1m (the deflation
+# and node passes (every residual and internal force), K3 and K5 (every
+# assembly's blocks and block-Jacobi inverses), K1m (the deflation
 # and sharded block products), K4m (the eigensolve's block preconditioner
 # apply), K0m and K0 (on no row's path: K1m and K1 carry K_hat·V and K_hat·v)
 ROW_KERNELS = ("khat_matvec", "two_level_apply", "segment_sum", "cg_iteration", "stress_update",
-               "node_force", "khat_matmat", "two_level_apply_block", "block_matmat",
-               "block_matvec")
+               "node_force", "form_blocks", "jacobi_inverse", "khat_matmat",
+               "two_level_apply_block", "block_matmat", "block_matvec")
 
 
 def _tracker(device):
@@ -216,6 +217,7 @@ def _device_setup(mesh, model, device, dtype):
     return SimpleNamespace(
         coords=torch.as_tensor(mesh.coords, device=device).to(dtype),
         eln=eln, plan=kernels.segment_plan(eln, rows=nd_pad // 3),
+        table=kernels.element_table(eln),
         dmat=mat.hooke_dmat(E, NU, dtype, device),
         fixmask=fixmask, u_fix=vec(u_fix_np), nd_pad=nd_pad,
         loads=sysm.LoadTables.from_spec(model.loads, dtype, device, nd_pad),
@@ -223,26 +225,29 @@ def _device_setup(mesh, model, device, dtype):
 
 
 def _assemble(s, sync):
-    """Elastic assembly and the solve-space operator, timed: (seconds, esm,
-    khat, glv, rhs).  The operator's Morton, element-major copy of the
-    blocks is part of it, as the driver's assemble phase makes it."""
+    """Elastic assembly into the solve-space operator, timed: (seconds,
+    khat, glv, rhs).  K3 forms the blocks in the solve space's order (the
+    element-major blocks and K1's packed tiles in one launch) and K5 their
+    block-Jacobi inverses, as the driver's assemble phase does
+    (:func:`~fcvm_tpu_torch.runtime.system.assemble_operator`)."""
     t0 = time.perf_counter()
-    esm, _, glv, rhs, *_ = sysm.assemble_elastic(s.coords, s.eln, s.dmat, s.loads, 0.0,
-                                                 s.fixmask, s.u_fix, s.plan)
-    khat = sysm.make_operator(esm[s.space.eperm], s.space)
+    khat, _, glv, rhs, *_ = sysm.assemble_operator(s.coords, s.eln, s.dmat, s.loads, 0.0,
+                                                   s.fixmask, s.u_fix, s.plan, s.space,
+                                                   table=s.table)
     sync()
-    return time.perf_counter() - t0, esm, khat, glv, rhs
+    return time.perf_counter() - t0, khat, glv, rhs
 
 
-def _precond_twice(esm, s, cfg, n_nodes, sync):
-    """The two-level preconditioner built twice: (pc, first s, repeat s)."""
+def _precond_twice(khat, s, cfg, n_nodes, sync):
+    """The two-level preconditioner of the operator ``khat`` built twice:
+    (pc, first s, repeat s)."""
     cs = cfg.resolve_cluster_size(n_nodes)
     times = []
     for _ in range(2):
         pc = None  # a repeat never holds two generations at once
         t0 = time.perf_counter()
-        pc = sysm.build_precond(esm, cs, s.space, cfg.coarse_modes, cfg.smoother,
-                                cfg.smoother_cluster_nodes)
+        pc = sysm.operator_precond(khat, cs, s.space, cfg.coarse_modes, cfg.smoother,
+                                   cfg.smoother_cluster_nodes)
         sync()
         times.append(time.perf_counter() - t0)
     return pc, times[0], times[1]
@@ -277,13 +282,12 @@ def step_time(builder, sy=SY, drive=1.02, label="", device="cuda"):
     log(f"{device.type} {label}mesh: nn={mesh.n_nodes} ne={mesh.n_elements} ndof={mesh.ndof}; "
         f"host: mesh {t_mesh:.2f} s, tensors and solve space {t_setup:.2f} s")
 
-    t_asm_cold, esm, khat, glv, rhs = _assemble(s, sync)
-    del esm, khat, glv, rhs
-    t_asm, esm, khat, glv, rhs = _assemble(s, sync)
+    t_asm_cold, khat, glv, rhs = _assemble(s, sync)
+    del khat, glv, rhs
+    t_asm, khat, glv, rhs = _assemble(s, sync)
     log(f"assembly: first {t_asm_cold:.3f} s, steady {t_asm * 1e3:.2f} ms "
         f"({mesh.ndof / t_asm / 1e6:.1f} MDOF/s)")
-    pc, t_build1, t_build2 = _precond_twice(esm, s, cfg, mesh.n_nodes, sync)
-    del esm  # the operator holds its own copy
+    pc, t_build1, t_build2 = _precond_twice(khat, s, cfg, mesh.n_nodes, sync)
     log(f"two-level precond build: {t_build1:.3f} s first, {t_build2:.3f} s repeat")
 
     def solve(b, defl=None):
@@ -411,11 +415,10 @@ def capacity_row(nx, device="cuda"):
     log(f"capacity mesh: nn={mesh.n_nodes} ne={mesh.n_elements} ndof={mesh.ndof}; host: "
         f"mesh {t_mesh:.2f} s, tensors and solve space {t_setup:.2f} s")
 
-    t_asm_cold, esm, khat, glv, rhs = _assemble(s, sync)
-    del esm, khat, glv, rhs  # one generation of blocks at a time
-    t_asm, esm, khat, glv, rhs = _assemble(s, sync)
-    pc, t_build1, t_build2 = _precond_twice(esm, s, cfg, mesh.n_nodes, sync)
-    del esm
+    t_asm_cold, khat, glv, rhs = _assemble(s, sync)
+    del khat, glv, rhs  # one generation of blocks at a time
+    t_asm, khat, glv, rhs = _assemble(s, sync)
+    pc, t_build1, t_build2 = _precond_twice(khat, s, cfg, mesh.n_nodes, sync)
     t0 = time.perf_counter()
     res = sysm.solve_displacement(khat, pc, rhs, CG_RTOL, CG_MAXITER, s.space)
     sync()

@@ -98,8 +98,7 @@ def box_accuracy():
     for fine in ("jacobi3", "cluster"):
         cfg = FcvmConfig(device="cuda", dtype="float64", smoother=fine, smoother_cluster_nodes=16)
         be = TorchSystem(tension_box(3), cfg, torch.float32, torch.device("cuda"))
-        esm, pinv, *_ = be.assemble(be.tensor(be.mesh.coords))
-        pc = be.make_pc(esm, pinv)
+        pc = be.operator_pc(*be.assemble_operator(be.tensor(be.mesh.coords))[:2])
         r = torch.randn(be.ndof_pad, generator=torch.Generator(device="cuda").manual_seed(4),
                         device="cuda", dtype=torch.float32)
         z_fine = pc.fine(r) if fine == "cluster" else None

@@ -82,10 +82,9 @@ def main() -> dict:
         dname = str(dtype).removeprefix("torch.")
         be = TorchSystem(plate, FcvmConfig(device="cuda", dtype=dname), dtype,
                          torch.device("cuda"))
-        esm, *_ = be.assemble(be.tensor(plate.mesh.coords))
-        op, sp = be.operator(esm), be.space
+        op, sp = be.assemble_operator(be.tensor(plate.mesh.coords))[0], be.space
         esm_t, packed = op.esm_t, op.packed
-        del esm, op
+        del op
         gen = torch.Generator(device="cuda").manual_seed(7)
         u = torch.randn(be.ndof_pad, generator=gen, device="cuda", dtype=dtype)
         args = (esm_t, sp.incidence, u, sp.fixmask_m)

@@ -103,9 +103,7 @@ def main() -> dict:
                 continue  # its share once: the tables do not depend on the dtype
             be = TorchSystem(model, FcvmConfig(device="cuda", dtype=dname), dtype,
                              torch.device("cuda"))
-            esm, *_ = be.assemble(be.tensor(model.mesh.coords))
-            op, sp = be.operator(esm), be.space
-            del esm
+            op, sp = be.assemble_operator(be.tensor(model.mesh.coords))[0], be.space
             inc, fm = sp.incidence, sp.fixmask_m
             ne = inc.elnodes_t.shape[1]
             share = inc.k1m.node_rows.shape[0] / (10 * ne)

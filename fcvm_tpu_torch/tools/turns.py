@@ -23,6 +23,25 @@ process of its own):
                                                        # shapes, the plate's residual
     python fcvm_tpu_torch/tools/turns.py TREE headline # TREE's bench headline: one plastic
                                                        # step of the plate (min of 3)
+    python fcvm_tpu_torch/tools/turns.py TREE form     # phase 3g: K3 and K5 at the paths'
+                                                       # shapes (a tree with them)
+    python fcvm_tpu_torch/tools/turns.py TREE gnl      # phases 8 and 8b (the GNL plate's
+                                                       # stepping and counts; the refresh's
+                                                       # pieces)
+    python fcvm_tpu_torch/tools/turns.py TREE k2bits   # SHA-256 of K2's outputs at phase
+                                                       # 3f's inputs (two trees' K2 bits)
+    python fcvm_tpu_torch/tools/turns.py TREE assembly # TREE's bench assembly of the
+                                                       # plate (tools.bench._assemble), 20
+                                                       # times after a first, and the
+                                                       # element table's build alone
+    python fcvm_tpu_torch/tools/turns.py TREE pencil   # the beam-column's eigensolve
+                                                       # (backend.buckling, float32 config)
+                                                       # on a fixed pre-stress: the reference
+                                                       # load's uniform axial compression
+    python fcvm_tpu_torch/tools/turns.py TREE prestress # the beam-column's buckling
+                                                       # pre-analysis (phase 9's factors) in
+                                                       # float32, and in float64 at cg_rtol
+                                                       # 1e-10, each the driver's whole path
 
 ``TREE`` is the root of a checkout (``.`` for this one, or a ``git archive``
 of another commit unpacked in a directory that ``.gitignore`` lists); its
@@ -31,7 +50,8 @@ checkout's ``chip_smoke.py``, except for ``cg``, which runs TREE's own
 ``chip_smoke.py`` phase 3c (K1 and K4 as that tree calls them, against
 its plain versions, the chain K1 replaced and cuSPARSE) on the plate, and
 ``k2``, which runs TREE's own phase 3f (K2 and the residual as that tree
-runs them) on the plate and the beam-column, and ``headline``, TREE's
+runs them) on the plate and the beam-column, ``gnl``'s phase 8b, TREE's
+own (the refresh's pieces as that tree runs them), and ``headline``, TREE's
 ``tools.bench.step_time`` of the plate.  Prints the card's ``nvidia-smi`` name and
 power limit, then one JSON line.  Needs a CUDA device.  A tree from before
 K1 and K4 (``kernels.khat_matvec``, ``two_level_apply``) times and launches
@@ -46,7 +66,9 @@ launches in its column run, times its chains in 9b, and its ``kernels``
 part has no K1m and K4m rows.  A tree from before K4c (``kernels.pack_coarse``)
 keeps the dense coarse inverse: its K4 and K4m rows time its coarse product,
 cuBLAS's GEMV or GEMM on that inverse, where K4c would be, and count their
-bounds on the stored triangle as this checkout's do.
+bounds on the stored triangle as this checkout's do.  A tree from before
+``TorchSystem.assemble_operator`` gets one made of its ``assemble`` and
+``operator``, and an ``operator_pc`` of its ``make_pc``.
 """
 
 from __future__ import annotations
@@ -116,6 +138,20 @@ def main(tree: str, part: str) -> dict:
     for fn, attr in ((kernels.block_matvec, "dtypes"), (kernels.block_matmat, "shapes")):
         if not hasattr(fn, attr):
             setattr(fn, attr, Counter())
+    from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+    if not hasattr(TorchSystem, "assemble_operator"):
+        # a tree from before it: the operator of its assemble's blocks, and
+        # make_pc on the operator's blocks in user element order
+        def assemble_operator(self, coords):
+            esm, *rest = self.assemble(coords)
+            return (self.operator(esm), *rest)
+
+        def operator_pc(self, khat, pinv):
+            epos = torch.argsort(self.space.eperm)
+            return self.make_pc(khat.esm_t.permute(2, 0, 1)[epos], pinv)
+
+        TorchSystem.assemble_operator, TorchSystem.operator_pc = assemble_operator, operator_pc
     pin_full_fp32()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
@@ -178,6 +214,86 @@ def main(tree: str, part: str) -> dict:
         out["headline"] = dict(step_ms=1e3 * t_step, ndof=ndof, assembly_s=t_asm,
                                elastic_iters=iters, launches=diag["launches"],
                                peak_mib=diag.get("peak_mib"))
+    elif part == "form":
+        if not hasattr(kernels, "form_blocks_ref"):
+            raise SystemExit("turns.py: this tree has no K3 and K5")
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip()
+        models = {"plate": smoke.plate_model(smoke.PLATE_BIG),
+                  "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)}
+        out["form"] = {k: keyed_rows(v) for k, v in smoke.form_phase(models, smi).items()}
+    elif part == "gnl":
+        big = smoke.plate_model(smoke.PLATE_BIG)
+        cfg = FcvmConfig(device="cuda", dtype="float32")
+        r = smoke.run_plate(big, cfg, "phase 8", gnl=True, required=has)
+        cs = r["cg_stats"]
+        out["phase 8"] = dict(stepping=r["stepping"], step_iters=r["step_iters"],
+                              cg_iters=cs["iters"], launches=r["launches"],
+                              refreshes=cs["predictor_solves"], tangent_s=cs["tangent_time"],
+                              predictor_iters=cs["predictor_iters"],
+                              peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                              newton=[s["newton"] for s in cs["steps"]],
+                              cg=[s["cg"] for s in cs["steps"]],
+                              lbd_bits=[float(x).hex() for x in r["lbd"]])
+        out["phase 8b"] = tree_smoke(tree).refresh_breakdown(big, cfg, r["res"])
+    elif part == "k2bits":
+        models = {"plate": smoke.plate_model(smoke.PLATE_BIG),
+                  "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)}
+        out["k2bits"] = smoke.k2_digests(models)
+        print(json.dumps(out["k2bits"]))
+    elif part == "assembly":
+        from fcvm_tpu_torch.tools import bench as tb
+
+        mesh, model = tb.build_plate(tb.PLATE_BIG)
+        s = tb._device_setup(mesh, model, torch.device("cuda"), torch.float32)
+        times = [tb._assemble(s, torch.cuda.synchronize)[0] for _ in range(21)]
+        steady = sorted(times[1:])
+        # the element table K3 reads, which the bench builds in its set-up
+        # (once per mesh, as the backend does), outside the timed assembly
+        table_ms = smoke.cuda_ms(kernels.element_table, s.eln)
+        out["assembly"] = dict(ndof=mesh.ndof, first_s=times[0], median_ms=1e3 * steady[10],
+                               min_ms=1e3 * steady[0], max_ms=1e3 * steady[-1],
+                               gdof_s=mesh.ndof / steady[10] / 1e9, table_ms=table_ms)
+        print(f"bench assembly of the plate ({mesh.ndof} dof): first {times[0]:.3f} s, then "
+              f"median {1e3 * steady[10]:.3f} ms (min {1e3 * steady[0]:.3f}, max "
+              f"{1e3 * steady[-1]:.3f}) of 20; the element table alone {table_ms:.4f} ms "
+              f"(median of 20)")
+    elif part == "pencil":
+        import time
+
+        from fcvm_tpu_torch.runtime.backend import TorchSystem
+
+        col = smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)
+        cfg = FcvmConfig(device="cuda", dtype="float32")
+        be = TorchSystem(col, cfg, torch.float32, torch.device("cuda"))
+        sig = be.gauss_zeros((6,))
+        sig[..., 0] = -smoke.COL_T  # the reference load's uniform axial compression
+        stats = []
+        t0 = time.perf_counter()
+        lam, _ = be.buckling(be.tensor(col.mesh.coords), sig, k=2, stats=stats)
+        torch.cuda.synchronize()
+        out["pencil"] = dict(factors=[float(x) for x in lam], seconds=time.perf_counter() - t0,
+                             tiers=[(r["dtype"], r["solver"], r["sweeps"], r["error"] is None)
+                                    for r in stats])
+        print(f"the beam-column's eigensolve on a uniform pre-stress: factors {out['pencil']}")
+    elif part == "prestress":
+        from fcvm_tpu_torch import solve_collapse
+
+        col = smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)
+        out["prestress"] = {}
+        for name, cfg in (("float32", FcvmConfig(device="cuda", dtype="float32")),
+                          ("float64", FcvmConfig(device="cuda", dtype="float64",
+                                                 cg_rtol=1e-10))):
+            res = solve_collapse(col, smoke.column_params(1), config=cfg)
+            lam = [float(x) for x in res.eigenvalues]
+            out["prestress"][name] = dict(factors=lam, tiers=[
+                (r["dtype"], r["solver"], r["sweeps"], r["error"] is None)
+                for r in res.cg_stats["buckling"]])
+            print(f"the beam-column's buckling pre-analysis in {name}: factors {lam}")
+        f32, f64 = (out["prestress"][k]["factors"] for k in ("float32", "float64"))
+        out["prestress"]["float32 against float64"] = [a / b - 1 for a, b in zip(f32, f64)]
+        print(f"float32 factors against float64: {out['prestress']['float32 against float64']}")
     elif part == "cg":
         tsmoke = tree_smoke(tree)
         rows = tsmoke.cg_kernel_phase({"plate": tsmoke.plate_model(tsmoke.PLATE_BIG)})

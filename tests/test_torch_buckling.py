@@ -135,8 +135,8 @@ def test_penalty_operators_match_jax():
     eldofs = jasm.element_dof_ids(je)
     jk, jg, jinv = jbk._penalty_operators(esm, nsm, eldofs, je, jnp.asarray(fm), nd,
                                           jnp.float64, get_config(), 1e-12, 2000, 100)
-    tk, tg, tinv = tbk._penalty_operators(t64(esm), t64(nsm), ti(eldofs), ti(eln), t64(fm),
-                                          nd, "cg", 1e-12, 2000)
+    tk, tg, tinv = tbk._penalty_operators(tasm.blocks_of(t64(esm)), tasm.blocks_of(t64(nsm)),
+                                          ti(eldofs), ti(eln), t64(fm), nd, "cg", 1e-12, 2000)
     u = np.random.default_rng(4).normal(size=(nd, 3))
     for jop, top in ((jk, tk), (jg, tg), (jinv, tinv)):
         ref = np.asarray(jop(jnp.asarray(u)))
@@ -150,10 +150,9 @@ def _small_khat():
     model = ft.model_from_arrays(column_model(nx=3, ny=3, nz=3, lc=3.0))
     cfg = port_config(precond="two_level")
     be = ft.runtime.backend.TorchSystem(model, cfg, F64, torch.device("cpu"))
-    esm, pinv, *_ = be.assemble(be.tensor(model.mesh.coords))
-    khat = be.operator(esm)
+    khat, pinv, *_ = be.assemble_operator(be.tensor(model.mesh.coords))
     sp = be.space
-    pc = be.make_pc(esm, pinv)
+    pc = be.operator_pc(khat, pinv)
     b = sp.fixmask_m[:, None] * torch.as_tensor(
         np.random.default_rng(6).normal(size=(be.ndof_pad, 4)))
     return khat, sp, pinv[sp.nperm], pc, b
@@ -539,12 +538,13 @@ def test_reassembly_ladder_reaches_direct_tier(monkeypatch):
         return np.array([0.43, 0.44])[:k], np.zeros((ndof, k))
 
     monkeypatch.setattr(tbk, "pencil_subspace", fake_pencil)
-    built = []  # the dtype each tier assembles E and G in
-    for name in ("elastic_stiffness_blocks", "geometric_stiffness_blocks"):
-        def record(coords, *a, _inner=getattr(tasm, name)):
-            built.append(str(coords.dtype))
-            return _inner(coords, *a)
-        monkeypatch.setattr(tasm, name, record)
+    built = []  # the dtype each tier assembles E and G in (K3's entry, one call a form)
+
+    def record(form, coords, *a, _inner=tasm.operator_blocks, **kw):
+        built.append(str(coords.dtype))
+        return _inner(form, coords, *a, **kw)
+
+    monkeypatch.setattr(tasm, "operator_blocks", record)
     stats = []
     with pytest.warns(UserWarning, match="re-assembling the pencil"):
         lam, _ = tbk.buckling_from_arrays(coords, elnodes, dmat, sig, fixmask, k=2,

@@ -41,12 +41,11 @@ def system():
     model = ft.model_from_arrays(tension_model(n=3))
     be = ft.runtime.backend.TorchSystem(model, port_config(precond="two_level"), F64,
                                         torch.device("cpu"))
-    esm, pinv, *_ = be.assemble(be.tensor(model.mesh.coords))
+    khat, pinv, *_ = be.assemble_operator(be.tensor(model.mesh.coords))
     sp = be.space
-    khat = be.operator(esm)
     kmat = tslv.assemble_scipy_csc(khat.esm_t.permute(2, 0, 1), sp.eldofs_m, sp.fixmask_m,
                                    be.ndof_pad).toarray()
-    mmat = be.make_pc(esm, pinv).apply(torch.eye(be.ndof_pad, dtype=F64)).numpy()
+    mmat = be.operator_pc(khat, pinv).apply(torch.eye(be.ndof_pad, dtype=F64)).numpy()
     fm = sp.fixmask_m.numpy()
     b = fm[:, None] * np.random.default_rng(11).normal(size=(be.ndof_pad, 4))
     b[:, 1] *= 1e3  # the columns finish apart: other scales, other directions

@@ -142,8 +142,7 @@ def test_khat_matvec_kernel_matches_plain(cuda, dtype, form, size):
     if size == "box":
         be = TorchSystem(_tension_box(3), FcvmConfig(device="cuda", dtype="float64"), dtype,
                          cuda)
-        esm, *_ = be.assemble(be.tensor(be.mesh.coords))
-        op = be.operator(esm)
+        op = be.assemble_operator(be.tensor(be.mesh.coords))[0]
         esm_t, packed, inc, fm = op.esm_t, op.packed, be.space.incidence, be.space.fixmask_m
         u = torch.randn(be.ndof_pad, generator=torch.Generator(device="cuda").manual_seed(1),
                         device="cuda", dtype=dtype)
@@ -283,7 +282,7 @@ def test_residual_and_block_products_give_the_same_bits(cuda):
     be = TorchSystem(_tension_box(3), FcvmConfig(device="cuda", dtype="float32"),
                      torch.float32, cuda)
     coords = be.tensor(be.mesh.coords)
-    esm, pinv, glv, rhs, *_ = be.assemble(coords)
+    khat, pinv, glv, rhs, *_ = be.assemble_operator(coords)
     gen = torch.Generator(device="cuda").manual_seed(4)
     du = 1e-3 * torch.randn(be.ndof_pad, generator=gen, device="cuda")
     sig_y, sig0 = be.gauss_full(100.0), be.gauss_zeros((6,))
@@ -295,10 +294,10 @@ def test_residual_and_block_products_give_the_same_bits(cuda):
     for a, b in zip(res[0], res[1]):
         assert torch.equal(a, b)
     sp = be.space
-    op = tasm.make_multi_matvec(be.operator(esm).esm_t, sp.eldofs_m, sp.fixmask_m)
+    op = tasm.make_multi_matvec(khat.esm_t, sp.eldofs_m, sp.fixmask_m)
     v = torch.randn((be.ndof_pad, 8), generator=gen, device="cuda")
     assert torch.equal(op(v), op(v))
-    again = be.assemble(coords)[1]
+    again = be.assemble_operator(coords)[1]
     assert torch.equal(pinv, again)
 
 
@@ -317,8 +316,7 @@ def _k1m_operator(size, dtype):
     if size == "box":
         be = TorchSystem(_tension_box(3), FcvmConfig(device="cuda", dtype="float64"), dtype,
                          torch.device("cuda"))
-        esm, *_ = be.assemble(be.tensor(be.mesh.coords))
-        op = be.operator(esm)
+        op = be.assemble_operator(be.tensor(be.mesh.coords))[0]
         return op.esm_t, op.packed, be.space.incidence, be.space.fixmask_m
     esm_t, packed, inc, _, fm = _random_operator(*PATH_SIZES[size], dtype, seed=8)
     return esm_t, packed, inc, fm
@@ -562,8 +560,7 @@ def test_two_level_apply_kernel_matches_plain(cuda, dtype, fine, size):
         cfg = FcvmConfig(device="cuda", dtype="float64", smoother=fine,
                          smoother_cluster_nodes=16)
         be = TorchSystem(_tension_box(3), cfg, dtype, cuda)
-        esm, pinv, *_ = be.assemble(be.tensor(be.mesh.coords))
-        pc = be.make_pc(esm, pinv)
+        pc = be.operator_pc(*be.assemble_operator(be.tensor(be.mesh.coords))[:2])
         r = torch.randn(be.ndof_pad, generator=torch.Generator(device="cuda").manual_seed(4),
                         device="cuda", dtype=dtype)
         args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, r)
@@ -601,8 +598,7 @@ def test_two_level_apply_block_kernel_matches_plain(cuda, dtype, fine, size, m):
         cfg = FcvmConfig(device="cuda", dtype="float64", smoother=fine,
                          smoother_cluster_nodes=16, coarse_modes=6)
         be = TorchSystem(_tension_box(3), cfg, dtype, cuda)
-        esm, pinv, *_ = be.assemble(be.tensor(be.mesh.coords))
-        pc = be.make_pc(esm, pinv)
+        pc = be.operator_pc(*be.assemble_operator(be.tensor(be.mesh.coords))[:2])
         assert pc.qmat.shape[2] == 6 and (pc.smooth_inv is None) == (fine == "jacobi3")
         r = torch.randn((be.ndof_pad, m), generator=gen, device="cuda", dtype=dtype)
         args = (pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask, r)
@@ -744,8 +740,8 @@ def _deflated_solve(device):
     mesh = model.mesh
     cfg = FcvmConfig(device=device, dtype="float64", cg_rtol=1e-12)
     be = TorchSystem(model, cfg, torch.float64, torch.device(device))
-    esm, pinv, _, rhs, *_ = be.assemble(be.tensor(mesh.coords))
-    khat, pc = be.operator(esm), be.make_pc(esm, pinv)
+    khat, pinv, _, rhs, *_ = be.assemble_operator(be.tensor(mesh.coords))
+    pc = be.operator_pc(khat, pinv)
     res, h = be.solve_harvest(khat, pc, rhs, nstore=64)
     alphas, betas, rzs = torch.stack([h.alphas, h.betas, h.rzs]).cpu().numpy()
     defl = be.build_deflation(khat, h.zs, ritz_coefficients(alphas, betas, rzs, res.iters, 16))
@@ -791,8 +787,7 @@ def _smoothed_precond(device, dtype):
     model = _tension_box(3)
     cfg = FcvmConfig(device=device, dtype=dtype, smoother="cluster", smoother_cluster_nodes=16)
     be = TorchSystem(model, cfg, dtype, torch.device(device))
-    esm, pinv, *_ = be.assemble(be.tensor(model.mesh.coords))
-    pc = be.make_pc(esm, pinv)
+    pc = be.operator_pc(*be.assemble_operator(be.tensor(model.mesh.coords))[:2])
     r = np.random.default_rng(5).normal(size=(be.ndof_pad, 9))
     rr = torch.as_tensor(r, device=device).to(dtype)
     return [t.cpu().double().numpy() for t in (pc.smooth_inv, pc.apply(rr[:, 0]),
@@ -887,8 +882,7 @@ def _pcg_block(device, deflated=False):
     model = _tension_box(3)
     cfg = FcvmConfig(device=device, dtype="float64")
     be = TorchSystem(model, cfg, torch.float64, torch.device(device))
-    esm, pinv, *_ = be.assemble(be.tensor(model.mesh.coords))
-    khat = be.operator(esm)
+    khat, pinv, *_ = be.assemble_operator(be.tensor(model.mesh.coords))
     sp = be.space
     kmv = tasm.make_multi_matvec(khat.esm_t, sp.eldofs_m, sp.fixmask_m)
     b = torch.as_tensor(np.random.default_rng(5).normal(size=(be.ndof_pad, 4)), device=device)
@@ -1326,8 +1320,8 @@ def _box_solve(device, harvest):
     model = _tension_box(3)
     be = TorchSystem(model, FcvmConfig(device=device, dtype="float64", precond="two_level",
                                        cg_rtol=1e-8), torch.float64, torch.device(device))
-    esm, pinv, _, rhs, *_ = be.assemble(be.tensor(model.mesh.coords))
-    khat, pc = be.operator(esm), be.make_pc(esm, pinv)
+    khat, pinv, _, rhs, *_ = be.assemble_operator(be.tensor(model.mesh.coords))
+    pc = be.operator_pc(khat, pinv)
     tslv.CG_STATS.clear()
     if harvest:
         res, h = be.solve_harvest(khat, pc, rhs, nstore=16)
@@ -1708,3 +1702,211 @@ def test_sharded_row_passes_with_the_plain_stress_update_on_the_local_path(cuda,
                       kernels.stress_update.launches - launches, **row}))
     assert local_launches == [0] and kernels.stress_update.launches > launches
     assert faults == []
+
+
+# -- K3, the element blocks, and K5, the block-Jacobi rebuild --------------------------
+
+
+def _k3_inputs(dtype, per_element, seed=31):
+    """K3's inputs on the card: K2's box (1,296 elements, nodes moved), a
+    displacement (the tangent's geometry), seeded stresses with one Gauss
+    point at zero, about half the points plastic (the zero one among
+    them), one D or a D, G and H per element, weights with zeros, and a
+    permutation of the elements.  Returns (coords, eln, inputs by form,
+    weights, perm)."""
+    mesh = meshgen.box_tet10(6, 6, 6, 10.0, 10.0, 10.0)
+    rng = np.random.default_rng(seed)
+    nn, ne = mesh.coords.shape[0], mesh.elnodes.shape[0]
+    cuda = torch.device("cuda")
+
+    def dev(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), device=cuda).to(dt)
+
+    coords = mesh.coords + 0.05 * (10.0 / 6) * rng.uniform(-1, 1, size=mesh.coords.shape)
+    sig = rng.normal(scale=60.0, size=(ne, 4, 6))
+    sig[3, 1] = 0.0
+    pgp = rng.uniform(size=(ne, 4)) < 0.5
+    pgp[3, 1] = True
+    e = 210000.0 * rng.uniform(0.5, 2.0, size=ne) if per_element else 210000.0
+    e_t = dev(e) if per_element else e
+    inputs = {
+        "elastic": dict(dmat=tmat.hooke_dmat(e_t, 0.3, dtype, cuda)),
+        "geometric": dict(sig=dev(sig)),
+        "tangent": dict(disp=dev(rng.normal(scale=0.01, size=3 * nn + 3)),
+                        dmat=tmat.hooke_dmat(e_t, 0.3, dtype, cuda), sig=dev(sig),
+                        pgp=torch.as_tensor(pgp, device=cuda),
+                        g=tmat.shear_modulus(e_t, 0.3), h=tmat.hardening_modulus(e_t, 0.1))}
+    weights = dev((rng.uniform(size=ne) > 0.2) * rng.uniform(0.5, 2.0, size=ne))
+    perm = torch.as_tensor(rng.permutation(ne), device=cuda)
+    eln = torch.as_tensor(mesh.elnodes.astype(np.int64), device=cuda)
+    return dev(coords), eln, inputs, weights, perm
+
+
+def _as64(kw):
+    return {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+            for k, v in kw.items()}
+
+
+K3_CASES = [(f, p) for f in kernels.FORMS for p in (False, True) if f != "geometric" or not p]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("form,per_element", K3_CASES,
+                         ids=[f + ("_per_element_d" if p else "") for f, p in K3_CASES])
+@pytest.mark.parametrize("variant", ["plain", "permuted_weighted"])
+def test_form_blocks_kernel_matches_plain(cuda, dtype, form, per_element, variant):
+    """K3 against its plain version on the same tensors: in float64 within
+    1e-12 of ``max |block|``; in float32 no farther from the float64 plain
+    version than twice the float32 plain version; two launches counted; its
+    blocks exactly symmetric, its packed tiles bit for bit ``pack_blocks``
+    of its own element-major blocks, a second launch the same bits."""
+    coords, eln, inputs, weights, perm = _k3_inputs(dtype, per_element)
+    kw = dict(inputs[form])
+    if variant == "permuted_weighted":
+        kw.update(perm=perm, weights=weights)
+    launches = kernels.form_blocks.launches
+    esm_t, packed = kernels.form_blocks(form, coords, eln, full=True, packed=True, **kw)
+    again = kernels.form_blocks(form, coords, eln, full=True, packed=True, **kw)
+    torch.cuda.synchronize()
+    assert kernels.form_blocks.launches == launches + 2
+    assert torch.equal(esm_t, again[0]) and torch.equal(packed, again[1])
+    assert torch.equal(esm_t, esm_t.transpose(0, 1))
+    assert torch.equal(packed, kernels.pack_blocks(esm_t))
+    want, _ = kernels.form_blocks_ref(form, coords, eln, **kw)
+    if dtype == torch.float64:
+        assert _rel(esm_t, want) <= 1e-12
+    else:
+        exact, _ = kernels.form_blocks_ref(form, coords.double(), eln, **_as64(kw))
+        assert _rel(esm_t.double(), exact) <= 2 * max(_rel(want.double(), exact), 1e-7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_form_blocks_outputs_one_or_both(cuda, dtype):
+    """The packed tiles alone and the element-major blocks alone are the
+    bits of the call that writes both, and ``assembly.operator_blocks``
+    takes the packed tiles (the element-major blocks only with ``full``)."""
+    coords, eln, inputs, _, perm = _k3_inputs(dtype, False)
+    kw = dict(inputs["tangent"], perm=perm)
+    both = kernels.form_blocks("tangent", coords, eln, full=True, packed=True, **kw)
+    assert torch.equal(kernels.form_blocks("tangent", coords, eln, full=False, packed=True,
+                                           **kw)[1], both[1])
+    assert torch.equal(kernels.form_blocks("tangent", coords, eln, **kw)[0], both[0])
+    blocks = tasm.operator_blocks("tangent", coords, eln, **kw)
+    assert blocks.esm_t is None and torch.equal(blocks.packed, both[1])
+
+
+def test_form_blocks_rejects_what_it_does_not_take(cuda):
+    coords, eln, inputs, _, perm = _k3_inputs(torch.float32, False)
+    kw = inputs["tangent"]
+    bad = (TypeError, ValueError, RuntimeError)
+    with pytest.raises(TypeError):
+        kernels.form_blocks("tangent", coords.double(), eln, **kw)
+    with pytest.raises(TypeError):
+        kernels.form_blocks("tangent", coords, eln.int(), **kw)
+    with pytest.raises(TypeError):
+        kernels.form_blocks("tangent", coords, eln, **{**kw, "pgp": kw["pgp"].int()})
+    with pytest.raises(TypeError):
+        kernels.form_blocks("tangent", coords, eln, perm=perm.int(), **kw)
+    with pytest.raises(ValueError):
+        kernels.form_blocks("tangent", coords, eln, **{**kw, "sig": kw["sig"].cpu()})
+    with pytest.raises(ValueError):
+        kernels.form_blocks("elastic", coords, eln, dmat=kw["dmat"], full=False)
+    with pytest.raises(bad):
+        kernels.form_blocks("elastic", coords, eln, dmat=kw["dmat"][:5])
+    with pytest.raises(bad):
+        kernels.form_blocks("geometric", coords, eln, sig=kw["sig"][:, :3].contiguous())
+
+
+def _k5_inputs(dtype, layout, seed=33):
+    """K5's inputs on the card: K3's elastic blocks of the box in the
+    ``layout`` K5 reads, the rebuild's plan, a fixmask with the x = 0 face
+    and a seeded tenth of the dofs fixed; with ``layout`` "permuted" the
+    blocks in a permuted element order and ``cols``."""
+    coords, eln, inputs, _, perm = _k3_inputs(dtype, True)
+    nn = coords.shape[0]
+    fm = (np.random.default_rng(seed).uniform(size=3 * nn) > 0.1).astype(float)
+    fm.reshape(-1, 3)[coords[:, 0].cpu().numpy() < 1e-9, 0] = 0.0
+    fixmask = torch.as_tensor(fm, device=coords.device).to(dtype)
+    plan = tasm.jacobi_plan(eln, nn)
+    esm_t, packed = kernels.form_blocks("elastic", coords, eln, packed=True, **inputs["elastic"])
+    cols = None
+    if layout == "packed":
+        blocks = packed
+    elif layout == "view":
+        blocks = esm_t.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    elif layout == "permuted":
+        blocks, cols = esm_t[:, :, perm].contiguous(), torch.argsort(perm)
+    else:
+        blocks = esm_t
+    return blocks, plan, fixmask, cols, esm_t
+
+
+def _ulps(a, b):
+    eps = torch.finfo(a.dtype).eps
+    return float(((a - b).abs() / (eps * b.abs().clamp_min(torch.finfo(a.dtype).tiny))).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("layout", ["element_major", "view", "packed", "permuted"])
+def test_jacobi_inverse_kernel_matches_plain(cuda, dtype, layout):
+    """K5's sum bit for bit K8's write form on the same blocks, its inverses
+    within 4 ulps of the torch tail (bit for bit expected), the fused form
+    one launch, the sum-reduce-tail form the fused form's bits."""
+    blocks, plan, fixmask, cols, esm_t = _k5_inputs(dtype, layout)
+    launches = kernels.jacobi_inverse.launches
+    got = kernels.jacobi_inverse(blocks, plan, fixmask, cols=cols)
+    torch.cuda.synchronize()
+    assert kernels.jacobi_inverse.launches == launches + 1
+    seen = {}
+
+    def keep(nodal):
+        seen["nodal"] = nodal.clone()
+        return nodal
+
+    tail = kernels.jacobi_inverse(blocks, plan, fixmask, cols=cols, reduce=keep)
+    assert kernels.jacobi_inverse.launches == launches + 3
+    assert torch.equal(tail, got)
+    ne, nn = esm_t.shape[2], fixmask.shape[0] // 3
+    idx = torch.arange(10, device=cuda)
+    diag = esm_t.permute(2, 0, 1).reshape(ne, 10, 3, 10, 3)[:, idx, :, idx, :]
+    nodal = kernels.segment_sum(diag.reshape(-1, 3, 3).contiguous(), plan, rows=nn)
+    assert torch.equal(seen["nodal"], nodal)
+    want = kernels._jacobi_tail_ref(nodal, fixmask)
+    assert _ulps(got, want) <= 4
+    assert torch.equal(got, kernels.jacobi_inverse_ref(blocks, plan, fixmask, cols=cols))
+
+
+def test_jacobi_inverse_rejects_what_it_does_not_take(cuda):
+    blocks, plan, fixmask, _, esm_t = _k5_inputs(torch.float32, "packed")
+    with pytest.raises(TypeError):
+        kernels.jacobi_inverse(blocks, plan, fixmask.double())
+    with pytest.raises(ValueError):
+        kernels.jacobi_inverse(blocks, plan, fixmask.cpu())
+    with pytest.raises(ValueError):
+        kernels.jacobi_inverse(esm_t.permute(2, 0, 1), plan, fixmask)
+    with pytest.raises(ValueError):
+        kernels.jacobi_inverse(blocks[:, :, :128].contiguous(), plan, fixmask)
+    with pytest.raises(ValueError):
+        kernels.jacobi_inverse(esm_t, plan, fixmask, cols=torch.arange(3, device=cuda))
+    accumulating = kernels.segment_plan(plan.keys)  # no rows: not the write form
+    with pytest.raises(ValueError):
+        kernels.jacobi_inverse(esm_t, accumulating, fixmask)
+
+
+def test_k2_and_k3_share_their_geometry(cuda):
+    """K2 and K3 form from one geometry (``csrc/tet10.cuh``): K2's internal
+    force of the stress D B u (its update from zero stress, elastic, with
+    du = u) is K3's elastic blocks times u, float64, to 1e-12."""
+    coords, eln, inputs, _, _ = _k3_inputs(torch.float64, False)
+    nn = coords.shape[0]
+    u = torch.as_tensor(np.random.default_rng(4).normal(scale=1e-3, size=3 * nn),
+                        device=cuda)
+    dmat = inputs["elastic"]["dmat"]
+    sig0 = torch.zeros((eln.shape[0], 4, 6), dtype=torch.float64, device=cuda)
+    sy = torch.full((eln.shape[0], 4), 1e30, dtype=torch.float64, device=cuda)
+    elv = kernels.stress_update(coords, eln, u, sig0, du=u, dmat=dmat, sig_yield=sy,
+                                g=80769.0, h=1e3)[3]
+    esm_t, _ = kernels.form_blocks("elastic", coords, eln, dmat=dmat)
+    ue = u.reshape(-1, 3)[eln].reshape(-1, 30)
+    ku = torch.einsum("ije,ej->ei", esm_t, ue)
+    assert _rel(elv, ku) <= 1e-12

@@ -50,11 +50,11 @@ def system():
     res, h = be.solve_harvest(esm, pc, rhs, nstore=NSTORE)
 
     tbe = TorchSystem(model_from_arrays(model), port_config(), F64, torch.device("cpu"))
-    tesm, _, _, trhs, *_ = tbe.assemble(tbe.tensor(mesh.coords))
+    tkhat, _, _, trhs, *_ = tbe.assemble_operator(tbe.tensor(mesh.coords))
     tpc = tpre.TwoLevelPrecond(*to_torch((pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask),
                                          "cpu", F64))
     return dict(be=be, esm=esm, pc=pc, rhs=rhs, res=res, h=h, tbe=tbe,
-                khat=tbe.operator(tesm), tpc=tpc, trhs=trhs)
+                khat=tkhat, tpc=tpc, trhs=trhs)
 
 
 @pytest.mark.parametrize("nstore", [8, 64])

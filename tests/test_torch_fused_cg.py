@@ -239,7 +239,7 @@ def test_pcg_through_k1_and_k4_matches_jax(plate_pc):
                                   plate_pc["fixmask"], plate_pc["pc"], jnp.asarray(b), 1e-10,
                                   1000, space=sp)
     tsp = tsys.build_solve_space(mesh.coords, mesh.elnodes, t64(plate_pc["fixmask"]), nd)
-    khat = tsys.make_operator(t64(plate_pc["esm"])[ti(sp.eperm)], tsp)
+    khat = tsys.make_operator(tasm.blocks_of(t64(plate_pc["esm"])[ti(sp.eperm)]), tsp)
     before = _launches()
     res = tsys.solve_displacement(khat, plate_pc["tpc"], t64(b), 1e-10, 1000, tsp)
     assert _launches() == before

@@ -248,7 +248,8 @@ def morton_box(box):
     pc = sysm.build_precond(box["esm"], box["eln"], box["coords"], box["fixmask"], 8,
                             space=space, n_modes=12)
     tspace = tsys.build_solve_space(mesh.coords, mesh.elnodes, t64(box["fixmask"]), box["nd"])
-    tpc = tsys.build_precond(t64(box["esm"]), 8, tspace, 12)
+    tpc = tpre.build_two_level(t64(box["esm"])[tspace.eperm], tspace.elnodes_m, tspace.coords_m,
+                               tspace.fixmask_m, cluster_size=8, n_modes=12)
     return space, pc, tspace, tpc
 
 

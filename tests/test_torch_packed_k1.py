@@ -183,10 +183,10 @@ def test_cpu_operators_keep_reading_the_full_blocks(box, form):
 
 
 def test_operator_packs_only_on_the_card(box):
-    """``make_operator`` keeps no packed copy for CPU tensors (the CPU reads
-    the full blocks); the wrapper refuses the packed copy on the CPU."""
+    """``blocks_of`` and ``make_operator`` keep no packed copy for CPU
+    tensors (the CPU reads the full blocks); the wrapper refuses the packed copy on the CPU."""
     tsp = box["tspace"]
-    op = tsys.make_operator(box["esm_t"].permute(2, 0, 1), tsp)
+    op = tsys.make_operator(tasm.blocks_of(box["esm_t"].permute(2, 0, 1)), tsp)
     assert op.packed is None and torch.equal(op.esm_t, box["esm_t"])
     with pytest.raises(ValueError):
         kernels.khat_matvec(box["packed"], tsp.incidence, torch.zeros(box["nd"], dtype=F64))

@@ -44,12 +44,12 @@ def elastic():
     tmodel = model_from_arrays(model)
     tloads = tsys.LoadTables.from_spec(tmodel.loads, F64, "cpu", nd)
     teln = torch.as_tensor(mesh.elnodes.astype(np.int64))
-    tesm, tpinv, _, trhs, _, _, _ = tsys.assemble_elastic(
-        t64(mesh.coords), teln, t64(dmat), tloads, 0.0, t64(fixmask), t64(u_fix),
-        kernels.segment_plan(teln))
     tspace = tsys.build_solve_space(mesh.coords, mesh.elnodes, t64(fixmask), nd)
+    tkhat, tpinv, _, trhs, _, _, _ = tsys.assemble_operator(
+        t64(mesh.coords), teln, t64(dmat), tloads, 0.0, t64(fixmask), t64(u_fix),
+        kernels.segment_plan(teln), tspace)
     return dict(space=space, pc=pc, res=res, rhs=rhs, u_fix=u_fix, tspace=tspace,
-                tesm=tesm, tpinv=tpinv, trhs=trhs)
+                tkhat=tkhat, tpinv=tpinv, trhs=trhs)
 
 
 def test_solve_space_matches_jax(elastic):
@@ -68,8 +68,7 @@ def test_elastic_pcg_matches_jax(elastic):
     pc = elastic["pc"]
     tpc = tpre.TwoLevelPrecond(*to_torch((pc.pinv, pc.qmat, pc.coarse_inv, pc.fixmask),
                                          "cpu", F64))
-    khat = tsys.make_operator(elastic["tesm"][elastic["tspace"].eperm], elastic["tspace"])
-    res = tsys.solve_displacement(khat, tpc, elastic["trhs"], RTOL_CG, 2000,
+    res = tsys.solve_displacement(elastic["tkhat"], tpc, elastic["trhs"], RTOL_CG, 2000,
                                   elastic["tspace"], x0=t64(elastic["u_fix"]))
     ref = elastic["res"]
     assert res.iters == int(ref.iters) > 5
@@ -84,11 +83,10 @@ def test_elastic_pcg_own_precond_converges(elastic, precond):
     nodal blocks alone) the solve reaches the JAX package's solution."""
     tspace = elastic["tspace"]
     if precond == "two_level":
-        pc = tsys.build_precond(elastic["tesm"], CLUSTER, tspace, 12)
+        pc = tsys.operator_precond(elastic["tkhat"], CLUSTER, tspace, 12)
     else:
         pc = elastic["tpinv"][tspace.nperm]
-    khat = tsys.make_operator(elastic["tesm"][tspace.eperm], tspace)
-    res = tsys.solve_displacement(khat, pc, elastic["trhs"], 1e-12, 2000, tspace,
+    res = tsys.solve_displacement(elastic["tkhat"], pc, elastic["trhs"], 1e-12, 2000, tspace,
                                   x0=t64(elastic["u_fix"]))
     assert res.relres <= 1e-12
     x_ref = np.asarray(elastic["res"].x)

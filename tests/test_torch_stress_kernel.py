@@ -10,7 +10,8 @@
   at a time, dN/dx from J^-1 and the kernel's table with no B,
   the Gauss points' rows added as (g0 + g1) + (g2 + g3)) against the JAX
   package's per-element update, to ``RTOL``: the index check of the kernel
-  that runs without a card.  The table is read from the kernel's source.
+  that runs without a card.  The table is read from the kernel's source
+  (the Gauss-point geometry it includes, ``csrc/tet10.cuh``).
 * The plain version is bit for bit the torch chain it was moved from.
 * The wrapper has no fallback: no ``try``, and its plain version only on
   CPU tensors.
@@ -37,7 +38,7 @@ from fcvm_tpu_torch.ops import stress_update as tsu
 from fcvm_tpu_torch.utils.linalg3 import det3
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNEL = ROOT / "fcvm_tpu_torch" / "csrc" / "stress_update.cu"
+KERNEL = ROOT / "fcvm_tpu_torch" / "csrc" / "tet10.cuh"  # K2's geometry (and K3's)
 RTOL = 1e-12  # max |port - JAX| / max |JAX|: float64 sums in another order
 E, NU, ET_E = 210000.0, 0.3, 0.1
 MESHES = ("box", "plate")

@@ -120,9 +120,9 @@ def backend_ops(model, seed=0):
     cfg = config(force_sharded=True, cg_rtol=1e-10)
     be = ShardedSystem(model, cfg, torch.float64, torch.device("cpu"))
     coords = be.tensor(model.mesh.coords)
-    esm, pinv, glv, rhs, gpc, vol, ls = be.assemble(coords)
-    khat = be.operator(esm)
-    pc = be.make_pc(esm, pinv)
+    khat, pinv, glv, rhs, gpc, vol, ls = be.assemble_operator(coords)
+    esm = khat.esm_t.permute(2, 0, 1)
+    pc = be.operator_pc(khat, pinv)
     rng = np.random.default_rng(seed)
     u = torch.as_tensor(rng.normal(size=be.ndof_pad))
     w = torch.as_tensor(rng.normal(size=(be.ndof_pad, 5)))
