@@ -103,23 +103,26 @@ Phases, each printing its numbers before the next starts:
    the unfused composition (element pass, K8, torch tail), timed against it
    in turns, and a profile that shows K2's two kernels and nothing else;
 3g. K3 and K5, the element blocks and the block-Jacobi rebuild.  K3
-   (``form_blocks``) at every shape the paths give it (``K3_CASES``: the
-   plate's tangent as a refresh forms it, its packed tiles alone in the
-   solve space's order, and with phase 10's region, a D, G and H per
-   element, on a seeded state with about half the Gauss points plastic; the
-   plate's and the beam-column's elastic operators, both outputs; the
-   beam-column's geometric pencil on a seeded pre-stress; the sharded
-   weights with zeros), float32 and float64, against its plain version
-   (the einsum chain and ``pack_blocks``) to ``K3_TOL``, in float32 no
-   farther from the float64 plain version than twice the float32 plain
-   version, its blocks exactly symmetric and its packed tiles bit for bit
-   ``pack_blocks`` of its own element-major blocks, a second launch the same
-   bits; K5 (``jacobi_inverse``) on the refresh's packed tiles, on the
-   assembly's element-major blocks in the user order (``cols``), in the
-   sharded form (its sum, a reduce, its tail) and on the beam-column's
-   tiles, its sum bit for bit K8's write form, its inverses within 4 ulps
-   of the torch tail; each timed (CUDA events, device time) against its
-   plain version and its bound;
+   (``form_blocks``) at every shape the paths give it (``K3_CASES``, with
+   the outputs each writes, ``K3_OUTPUTS``: the plate's tangent as a
+   refresh forms it, its packed tiles and compact diagonal in the solve
+   space's order, and with phase 10's region, a D, G and H per element,
+   both blocks, on a seeded state with about half the Gauss points
+   plastic; the plate's and the beam-column's elastic operators, every
+   output; the beam-column's geometric pencil, its tiles, on a seeded
+   pre-stress; the sharded weights with zeros, every output), float32 and
+   float64, against its plain version (the einsum chain and
+   ``pack_blocks``) to ``K3_TOL``, in float32 no farther from the float64
+   plain version than twice the float32 plain version, its blocks exactly
+   symmetric, its packed tiles bit for bit ``pack_blocks`` of its own
+   element-major blocks and its compact diagonal their ``diag_sectors``, a
+   second launch the same bits; K5 (``jacobi_inverse``) on K3's compact
+   diagonal as the refresh, the assembly (the user plan, ``cols``), the
+   sharded form (its sum, a reduce, its tail) and the eigensolve (the
+   beam-column) read it, its sum bit for bit K8's write form, its
+   inverses within 4 ulps of the torch tail; each timed (CUDA events,
+   device time) against its plain version and its bound, each row's
+   SHA-256 printed;
 4. cross-check: a small plate-with-hole collapse in float64 on the GPU and
    on the CPU, small strain and geometrically nonlinear (``gnl="GNLY"``);
    the load-factor histories must agree; and ``linear_buckling`` of a small
@@ -180,8 +183,9 @@ Phases, each printing its numbers before the next starts:
    eigensolve's own space (kd = 64), the correction folded into K6's
    passes (``defl=``), beside the same iteration with the preconditioner
    wrapped in ``deflation.deflated`` and that deflation's three torch
-   products alone; a profile of 8 more folded iterations: no torch kernel
-   beyond the undeflated iteration's (no product for the correction);
+   products alone; a profile of 8 more folded iterations (9 less 1, over
+   10 calls each, rounded): no torch kernel beyond the undeflated
+   iteration's (no product for the correction);
 9c. phase 9 with the cluster smoother (``smoother="cluster"``), its checks,
    against phase 9: the eigensolve's tier, sweeps and inner CG iterations,
    the factors, the stepping and the peak device memory (the smoother's
@@ -415,7 +419,9 @@ def kernel_launches(fn, *args, calls=1):
     named as in ``device_ms_by_kernel``.  The tracer can miss the first
     kernels of a profile: in the whole smoke on the card, the first five to
     nine of every profile of 8b, K3 and K5 in the refresh's, with or without
-    a traced warm-up step or a 20 ms spin kernel before them."""
+    a traced warm-up step or a 20 ms spin kernel before them; in 9b's
+    profiles of pcg_block, in some and not others, the torch kernels of a
+    solve's start (the port's kernels recorded), so 9b counts over 10 calls."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
@@ -464,6 +470,7 @@ def reset_launches():
     getattr(kernels.cg_iteration, "forms", Counter()).clear()
     for name in ("stress_update", "node_force", "form_blocks", "jacobi_inverse"):
         getattr(getattr(kernels, name), "forms", Counter()).clear()
+    getattr(kernels.form_blocks, "outputs", Counter()).clear()
 
 
 def cg_stats_reset():
@@ -510,7 +517,9 @@ def read_launches():
     """``({kernel: launches}, {kernel: {dtype: launches}})`` of the path
     kernels; K0m's, K1m's and K4m's by dtype and column count; K8's also by
     form and path (``"segment_sum paths"``), K6's by pass and by its plan's
-    form (``"cg_iteration forms"``), K2's, K3's and K5's by form."""
+    form (``"cg_iteration forms"``), K2's, K3's and K5's by form, K3's by
+    output (``"form_blocks outputs"``: a launch that wrote the compact
+    diagonal counts under ``diag``)."""
     from fcvm_tpu_torch.ops import kernels
 
     counts = {name: getattr(kernels, name).launches for name in PATH_KERNELS}
@@ -524,6 +533,7 @@ def read_launches():
     by["cg_iteration forms"] = dict(getattr(kernels.cg_iteration, "forms", {}))
     for name in ("stress_update", "node_force", "form_blocks", "jacobi_inverse"):
         by[f"{name} forms"] = dict(getattr(getattr(kernels, name), "forms", {}))
+    by["form_blocks outputs"] = dict(getattr(kernels.form_blocks, "outputs", {}))
     return counts, by
 
 
@@ -640,10 +650,11 @@ def refresh_breakdown(model, cfg, res, calls=4):
     """Print the pieces of one GNL tangent refresh on the end state of a GNL
     run ``res`` (its total displacement and stresses; the plastic points are
     those on the yield surface), CUDA events: the tangent formation, K3's
-    packed tiles in the solve space's order, beside the plain chain it
-    replaced (the einsums, the element-major copy, ``pack_blocks``); the
-    block-Jacobi rebuild, K5 on those tiles, beside its plain chain (the
-    diagonal slice, K8, the torch tail); the follower loads; the right-hand
+    packed tiles and compact diagonal in the solve space's order, beside
+    the plain chain it replaced (the einsums, the element-major copy,
+    ``pack_blocks``); the block-Jacobi rebuild, K5 on that diagonal, beside
+    its plain chain (the diagonal slice, K8, the torch tail); the follower
+    loads; the right-hand
     side (K1 on the tiles); the whole refresh without the predictor solve;
     the predictor solve cold and warm-started from the predictor of a
     nearby state (5% less displacement, standing for the previous Newton
@@ -689,7 +700,7 @@ def refresh_breakdown(model, cfg, res, calls=4):
 
     def form():
         return asm.operator_blocks("tangent", coords, backend.elnodes, disp=disp, perm=eperm,
-                                   table=backend.element_table, **tangent)
+                                   table=backend.element_table, diag=True, **tangent)
 
     def loads():
         return sysm.external_loads(coords, disp, backend.elnodes, backend.loads,
@@ -701,13 +712,14 @@ def refresh_breakdown(model, cfg, res, calls=4):
 
     def rebuild():
         return refresh_blocks(pc, None, space.elnodes_m, space.fixmask_m, space.jacobi_plan,
-                              packed=blocks.packed)
+                              diag=blocks.diag)
 
-    rows = [("tangent formation, K3: the packed tiles, solve-space order", cuda_ms(form)),
+    rows = [("tangent formation, K3: the packed tiles and the compact diagonal, solve-space "
+             "order", cuda_ms(form)),
             ("  K3's device time (torch.profiler, mean of 10)", device_ms(form)),
             ("tangent formation, the plain chain (the einsums, the element-major copy, "
              "pack_blocks) [median of 5]", cuda_ms(chain, runs=5)),
-            ("block-Jacobi rebuild, K5 on the packed tiles", cuda_ms(rebuild)),
+            ("block-Jacobi rebuild, K5 on the compact diagonal", cuda_ms(rebuild)),
             ("  K5's device time (torch.profiler, mean of 10)", device_ms(rebuild)),
             ("block-Jacobi rebuild, the plain chain (the diagonal slice, K8, the torch tail)",
              cuda_ms(lambda: kernels.jacobi_inverse_ref(esm_t, space.jacobi_plan,
@@ -2253,18 +2265,24 @@ def k2_phase(models, smi):
 
 
 # K3's cases of phase 3g: (model, form, what the paths form: the case's
-# inputs and outputs); each in float32 and float64
-K3_CASES = (("plate", "tangent", "refresh"),  # phase 8's refresh: packed tiles alone
+# inputs and outputs, K3_OUTPUTS); each in float32 and float64
+K3_CASES = (("plate", "tangent", "refresh"),  # phase 8's refresh: packed tiles and diagonal
             ("plate", "tangent", "region"),  # phase 10's region, a D, G and H per element
-            ("plate", "elastic", "assembly"),  # the elastic operator: both outputs
+            ("plate", "elastic", "assembly"),  # the elastic operator: every output
             ("column", "elastic", "assembly"),
             ("column", "geometric", "pencil"),  # -G_hat's packed tiles, a seeded pre-stress
             ("plate", "elastic", "sharded weights"))  # weights with zeros, no perm
-# K5's: (model, the blocks it reads)
-K5_CASES = (("plate", "refresh"),  # packed tiles in the solve space's order, its plan
-            ("plate", "assembly"),  # the element-major blocks, the user plan, cols
+# the outputs each case writes (form_blocks' full, packed, diag): a refresh
+# the packed tiles and the compact diagonal K5 reads, an assembly and the
+# sharded backend's all three, the pencil's -G_hat its tiles alone
+K3_OUTPUTS = {"refresh": ("packed", "diag"), "region": ("full", "packed"),
+              "assembly": ("full", "packed", "diag"), "pencil": ("packed",),
+              "sharded weights": ("full", "packed", "diag")}
+# K5's: (model, the path whose diagonal it reads)
+K5_CASES = (("plate", "refresh"),  # the diagonal in the solve space's order, its plan
+            ("plate", "assembly"),  # the diagonal in that order, the user plan, cols
             ("plate", "sharded"),  # the sum, a reduce, the tail
-            ("column", "eigensolve"))  # the packed tiles, the solve space's plan
+            ("column", "eigensolve"))  # the diagonal, the solve space's plan
 K3_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}  # max |kernel - plain| / max |plain|
 
 
@@ -2292,7 +2310,8 @@ def form_setup(models):
 
 
 def k3_inputs(setup, model, form, case, dtype):
-    """K3's arguments and keywords for a ``K3_CASES`` entry in ``dtype``."""
+    """K3's arguments and keywords for a ``K3_CASES`` entry in ``dtype``,
+    and the outputs the case writes (``K3_OUTPUTS``) as keywords."""
     from fcvm_tpu_torch.ops import material as mat
 
     st = setup[model]
@@ -2314,18 +2333,20 @@ def k3_inputs(setup, model, form, case, dtype):
     if form == "tangent":
         kw.update(disp=t(r["disp"]), pgp=torch.as_tensor(r["pgp"], device="cuda"),
                   g=mat.shear_modulus(e, NU), h=mat.hardening_modulus(e, K2_ET_E))
-    packed_only = case in ("refresh", "pencil")
-    return (form, t(be.mesh.coords), be.elnodes), kw, dict(full=not packed_only, packed=True)
+    outs = {k: k in K3_OUTPUTS[case] for k in ("full", "packed", "diag")}
+    return (form, t(be.mesh.coords), be.elnodes), kw, outs
 
 
 def k3_work(args, kw, outs, dtype):
     """(bytes, operations) of one K3 launch: each input read once (the
     coordinates and displacements at every node, the int32 table, perm, the
     per-element stresses, flags, D, G, H and weights), each output written
-    once (the packed tiles with their padding, the element-major blocks when
-    written); the arithmetic, an FMA as two operations: per Gauss point the
-    geometry (J 90, J^-1 40, dN/dx 90, D_g 60 FMAs) and per node pair D B_b
-    and B_a^T (D B_b), 81 FMAs (geometric: 12)."""
+    once (the packed tiles with their padding, the element-major blocks and
+    the compact diagonal's 6 values an incidence when written); the
+    arithmetic, an FMA as two operations: per Gauss point the geometry (J
+    90, J^-1 40, dN/dx 90, D_g 60 FMAs), D_g B_b once a node (54 FMAs;
+    geometric sigma_g dN_b, 9) and B_a^T (D_g B_b) once a node pair (27;
+    geometric 4)."""
     form, coords, eln = args
     size = coords.element_size()
     ne = kw["perm"].shape[0] if "perm" in kw else eln.shape[0]
@@ -2335,9 +2356,10 @@ def k3_work(args, kw, outs, dtype):
         nbytes += v.numel() * size if torch.is_tensor(v) else 0
     nbytes += kw["pgp"].numel() if "pgp" in kw else 0
     tile = {torch.float32: 256, torch.float64: 128}[dtype]
-    nbytes += 465 * -(-ne // tile) * tile * size + (900 * ne * size if outs["full"] else 0)
-    pair = 12 if form == "geometric" else 81
-    return nbytes, 2 * ne * 4 * (280 + 55 * pair)
+    nbytes += ((465 * -(-ne // tile) * tile if outs["packed"] else 0)
+               + (900 * ne if outs["full"] else 0) + (60 * ne if outs["diag"] else 0)) * size
+    column, pair = (9, 4) if form == "geometric" else (54, 27)
+    return nbytes, 2 * ne * 4 * (280 + 10 * column + 55 * pair)
 
 
 def k3_rows(setup, smi):
@@ -2346,8 +2368,10 @@ def k3_rows(setup, smi):
     tensors, to ``K3_TOL``, in float32 no farther from the float64 plain
     version than twice the float32 plain version; its blocks exactly
     symmetric, its packed tiles bit for bit ``pack_blocks`` of its own
-    element-major blocks, a second launch the same bits; timed (CUDA events,
-    device time) against its plain version and its bound."""
+    element-major blocks and its compact diagonal their ``diag_sectors``, a
+    second launch of the case's outputs the same bits; timed (CUDA events,
+    device time) against its plain version and its bound, with the SHA-256
+    of the case's outputs."""
     from fcvm_tpu_torch.ops import kernels
 
     rows = {}
@@ -2355,12 +2379,14 @@ def k3_rows(setup, smi):
         dname = str(dtype).removeprefix("torch.")
         for model, form, case in K3_CASES:
             args, kw, outs = k3_inputs(setup, model, form, case, dtype)
-            got = kernels.form_blocks(*args, **kw, full=True, packed=True)
+            got = kernels.form_blocks(*args, **kw, full=True, packed=True, diag=True)
             again = kernels.form_blocks(*args, **kw, **outs)
             torch.cuda.synchronize()
             same = all(b is None or torch.equal(a, b) for a, b in zip(got, again))
             sym = torch.equal(got[0], got[0].transpose(0, 1))
             packs = torch.equal(got[1], kernels.pack_blocks(got[0]))
+            slices = torch.equal(got[2], kernels.diag_sectors(got[0]))
+            digest = sha256(b for b in again if b is not None)
             want = kernels.form_blocks_ref(*args, **kw)[0]
             scale = float(want.abs().max())
             err = float((got[0] - want).abs().max())
@@ -2378,18 +2404,19 @@ def k3_rows(setup, smi):
             nbytes, ops = k3_work(args, kw, outs, dtype)
             bound_ms, bound_by = bound(nbytes, ops, dtype)
             ne = kw["perm"].shape[0] if "perm" in kw else args[2].shape[0]
-            row = dict(ne=ne, outputs="packed" if not outs["full"] else "element-major, packed",
-                       max_abs_err=err, max_rel_err=err / scale, vs_f64=vs_f64,
-                       plain_vs_f64=plain_vs_f64, same_bits=same, symmetric=sym,
-                       packed_is_pack_blocks=packs, ms=ms, device_ms=dev, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, operations=ops,
-                       library_ms=None)
+            row = dict(ne=ne, outputs=", ".join(K3_OUTPUTS[case]), max_abs_err=err,
+                       max_rel_err=err / scale, vs_f64=vs_f64, plain_vs_f64=plain_vs_f64,
+                       same_bits=same, symmetric=sym, packed_is_pack_blocks=packs,
+                       diag_is_slices=slices, sha256=digest, ms=ms, device_ms=dev,
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                       operations=ops, library_ms=None)
             share = "" if dev is None else f", {bound_ms / dev:.1%} of the device time"
             print(f"K3 {dname} {model} {form} ({case}) ne={ne}, {row['outputs']}: max rel err "
                   f"{err / scale:.2e} (vs f64 {vs_f64:.2e}, plain's {plain_vs_f64:.2e}; limit "
                   f"{K3_TOL[dtype]:g}); symmetric {sym}; packed tiles pack_blocks' {packs}; "
-                  f"second launch {'the same bits' if same else 'DIFFERENT BITS'}; {ms:.4f} ms "
-                  f"(CUDA events), device time "
+                  f"diagonal their slices {slices}; second launch "
+                  f"{'the same bits' if same else 'DIFFERENT BITS'}, SHA-256 {digest[:16]}; "
+                  f"{ms:.4f} ms (CUDA events), device time "
                   + ("not recorded" if dev is None else f"{dev:.4f} ms")
                   + f"; plain (the einsum chain, pack_blocks) {plain_ms:.4f} ms [median of 5]; "
                   f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB){share}; no "
@@ -2399,8 +2426,9 @@ def k3_rows(setup, smi):
             if dtype == torch.float32:
                 check(vs_f64 <= 2 * max(plain_vs_f64, 1e-7), f"K3 {dname} {model} {form} "
                       f"({case}): farther from float64 than twice the float32 plain version")
-            check(same and sym and packs, f"K3 {dname} {model} {form} ({case}): a second launch "
-                  "gave other bits, or its blocks are not symmetric or its tiles not theirs")
+            check(same and sym and packs and slices, f"K3 {dname} {model} {form} ({case}): a "
+                  "second launch gave other bits, or its blocks are not symmetric or its tiles "
+                  "or diagonal not theirs")
             rows[(dname, model, f"{form} {case}")] = row
             del args, kw
             torch.cuda.empty_cache()
@@ -2408,9 +2436,9 @@ def k3_rows(setup, smi):
 
 
 def k5_inputs(setup, model, case, dtype):
-    """K5's blocks, plan, mask and keywords for a ``K5_CASES`` entry, and the
-    element-major blocks the plain version reads: K3's elastic blocks of
-    ``model`` as the case's path holds them."""
+    """K5's compact diagonal, plan, mask and keywords for a ``K5_CASES``
+    entry, and the element-major blocks K8's check reads: K3's elastic
+    blocks of ``model`` as the case's path forms them."""
     from fcvm_tpu_torch.ops import assembly as asm
     from fcvm_tpu_torch.ops import kernels
     from fcvm_tpu_torch.ops import material as mat
@@ -2420,29 +2448,25 @@ def k5_inputs(setup, model, case, dtype):
     coords = torch.as_tensor(be.mesh.coords, device="cuda").to(dtype)
     dmat = mat.hooke_dmat(E, NU, dtype, "cuda")
     perm = None if case == "sharded" else sp.eperm
-    esm_t, packed = kernels.form_blocks("elastic", coords, be.elnodes, dmat=dmat, perm=perm,
-                                        table=be.element_table, packed=True)
+    esm_t, _, diag = kernels.form_blocks("elastic", coords, be.elnodes, dmat=dmat, perm=perm,
+                                         table=be.element_table, diag=True)
     kw = {}
-    if case == "assembly":
-        blocks, plan, fixmask = esm_t, asm.jacobi_plan(be.elnodes, be.ndof_pad // 3), be.fixmask
-        kw["cols"] = sp.epos
-    elif case == "sharded":
-        blocks, plan, fixmask = esm_t, asm.jacobi_plan(be.elnodes, be.ndof_pad // 3), be.fixmask
-        kw["reduce"] = lambda nodal: nodal  # a world of one's all_reduce
+    if case in ("assembly", "sharded"):
+        plan, fixmask = asm.jacobi_plan(be.elnodes, be.ndof_pad // 3), be.fixmask
+        kw = {"cols": sp.epos} if case == "assembly" else {"reduce": lambda nodal: nodal}
     else:
-        blocks, plan, fixmask = packed, sp.jacobi_plan, sp.fixmask_m
-    return blocks, plan, fixmask.to(dtype), kw, esm_t
+        plan, fixmask = sp.jacobi_plan, sp.fixmask_m
+    return diag, plan, fixmask.to(dtype), kw, esm_t
 
 
 def k5_work(blocks, plan, fixmask, kw):
     """Bytes of one K5 call: the diagonal values it must read (6 of each
-    (element, slot) block from the packed tiles, 9 from the element-major
-    blocks), the plan (order, offsets, segs, holes), cols, the mask and the
-    inverses written (the sum form's nodal blocks written and read again
-    once more); its arithmetic is below the bytes' time."""
+    (element, slot) block), the plan (order, offsets, segs, holes), cols,
+    the mask and the inverses written (the sum form's nodal blocks written
+    and read again once more); its arithmetic is below the bytes' time."""
     size = blocks.element_size()
     inc = plan.keys.shape[0]
-    nbytes = inc * (6 if blocks.shape[1] == 465 else 9) * size
+    nbytes = inc * 6 * size
     nbytes += 4 * (plan.order.shape[0] + plan.offsets.shape[0] + plan.segs.shape[0]
                    + plan.holes.shape[0])
     nbytes += 8 * kw["cols"].shape[0] if "cols" in kw else 0
@@ -2452,11 +2476,13 @@ def k5_work(blocks, plan, fixmask, kw):
 
 
 def k5_rows(setup, smi):
-    """Phase 3g's K5 rows (``K5_CASES``), float32 and float64: its sum bit
-    for bit K8's write form on the same blocks (the sum form's output, read
+    """Phase 3g's K5 rows (``K5_CASES``), float32 and float64, on K3's
+    compact diagonal: its sum bit for bit K8's write form on the same
+    element-major blocks' diagonal slices (the sum form's output, read
     through a reduce), its inverses within 4 ulps of the torch tail, a
-    second call the same bits; timed against its plain version (the slice,
-    K8, the torch tail) and its bound."""
+    second call and the reduce form the same bits; timed against its plain
+    version (the blocks made of the diagonal, K8, the torch tail) and its
+    bound, with the SHA-256 of its fused, sum and tail outputs."""
     from fcvm_tpu_torch.ops import kernels
 
     rows = {}
@@ -2475,6 +2501,7 @@ def k5_rows(setup, smi):
             summed = kernels.jacobi_inverse(blocks, plan, fixmask, cols=kw.get("cols"),
                                             reduce=keep)
             torch.cuda.synchronize()
+            digest = sha256([got, seen["nodal"], summed])
             ne = esm_t.shape[2]
             cols = kw.get("cols")
             src = esm_t if cols is None else esm_t[:, :, cols]
@@ -2497,22 +2524,22 @@ def k5_rows(setup, smi):
             nbytes, ops = k5_work(blocks, plan, fixmask, kw)
             bound_ms, bound_by = bound(nbytes, ops, dtype)
             form = "sum, reduce, tail" if "reduce" in kw else "fused"
-            layout = "packed tiles" if blocks.shape[1] == 465 else "element-major"
-            row = dict(nodes=fixmask.shape[0] // 3, ne=ne, form=form, layout=layout,
+            row = dict(nodes=fixmask.shape[0] // 3, ne=ne, form=form, layout="compact diagonal",
                        cols="cols" in kw, max_abs_err=err, max_ulps=max_ulps,
-                       sum_bit_for_bit=sum_bits, same_bits=same, ms=ms, device_ms=dev,
-                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                       operations=ops, library_ms=None)
+                       sum_bit_for_bit=sum_bits, same_bits=same, sha256=digest, ms=ms,
+                       device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       bytes=nbytes, operations=ops, library_ms=None)
             share = "" if dev is None else f", {bound_ms / dev:.1%} of the device time"
-            print(f"K5 {dname} {model} ({case}: {form}, {layout}"
+            print(f"K5 {dname} {model} ({case}: {form}, compact diagonal"
                   + (", cols" if "cols" in kw else "") + f"), {row['nodes']} nodes: sum bit for "
                   f"bit K8's write form {sum_bits}; inverses {max_ulps:.2f} ulps from the torch "
                   f"tail (max abs {err:.2e}); second call and the reduce form "
-                  f"{'the same bits' if same else 'DIFFERENT BITS'}; {ms:.4f} ms (CUDA events), "
-                  f"device time " + ("not recorded" if dev is None else f"{dev:.4f} ms")
-                  + f"; plain (the slice, K8, the torch tail) {plain_ms:.4f} ms; bound "
-                  f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB){share}; no library "
-                  f"call ({smi})")
+                  f"{'the same bits' if same else 'DIFFERENT BITS'}, SHA-256 {digest[:16]}; "
+                  f"{ms:.4f} ms (CUDA events), device time "
+                  + ("not recorded" if dev is None else f"{dev:.4f} ms")
+                  + f"; plain (the blocks of the diagonal, K8, the torch tail) {plain_ms:.4f} "
+                  f"ms; bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB){share}; no "
+                  f"library call ({smi})")
             check(sum_bits, f"K5 {dname} {model} ({case}): its sum is not K8's bits")
             check(max_ulps <= 4, f"K5 {dname} {model} ({case}): inverses more than 4 ulps from "
                   "the torch tail")
@@ -2530,6 +2557,95 @@ def form_phase(models, smi):
     rows}``."""
     setup = form_setup(models)
     out = {"form_blocks": k3_rows(setup, smi), "jacobi_inverse": k5_rows(setup, smi)}
+    del setup
+    torch.cuda.empty_cache()
+    return out
+
+
+def sha256(tensors) -> str:
+    """The SHA-256 of ``tensors``' bytes, one after the other."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def form_digests(models):
+    """SHA-256 of K3's and K5's outputs at phase 3g's inputs, both dtypes,
+    by this checkout's code against the port it imports, which may be an
+    older tree's (``tools/turns.py TREE formbits``): K3's element-major
+    blocks and packed tiles in each ``K3_CASES`` case; its compact diagonal
+    where the case writes one (a tree whose K3 writes none: the same
+    layout sliced out of its packed tiles); K5's fused output, its sum (read
+    through a reduce) and its tail in each ``K5_CASES`` case, on the input
+    the tree's K5 takes (the compact diagonal, or a tree's packed tiles or
+    element-major blocks, as its paths gave them).  Two trees with the same
+    bits give the same digests.  Returns ``{"dtype model case output":
+    hex}``."""
+    from fcvm_tpu_torch.ops import assembly as asm
+    from fcvm_tpu_torch.ops import kernels
+    from fcvm_tpu_torch.ops import material as mat
+
+    has_diag = hasattr(kernels, "diag_sectors")
+
+    def sectors(packed, ne):  # the compact diagonal's layout, sliced out of packed tiles
+        esm_t = kernels.unpack_blocks(packed, ne)
+        idx = torch.arange(10, device=esm_t.device)
+        blocks = esm_t.reshape(10, 3, 10, 3, ne)[idx, :, idx]
+        out = esm_t.new_zeros((10, ne, 8))
+        out[:, :, :6] = blocks[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]].transpose(1, 2)
+        return out
+
+    setup = form_setup(models)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).removeprefix("torch.")
+        for model, form, case in K3_CASES:
+            args, kw, outs = k3_inputs(setup, model, form, case, dtype)
+            esm_t, packed = kernels.form_blocks(*args, **kw, full=True, packed=True)[:2]
+            key = f"{dname} {model} {form} {case}"
+            out[f"{key} element-major"] = sha256([esm_t])
+            out[f"{key} packed"] = sha256([packed])
+            if outs["diag"]:
+                ne = esm_t.shape[2]
+                diag = (kernels.form_blocks(*args, **kw, full=False, diag=True)[2] if has_diag
+                        else sectors(packed, ne))
+                out[f"{key} diagonal"] = sha256([diag])
+            del args, kw, esm_t, packed
+        for model, case in K5_CASES:
+            be = setup[model]["be"]
+            sp = be.space
+            coords = torch.as_tensor(be.mesh.coords, device="cuda").to(dtype)
+            perm = None if case == "sharded" else sp.eperm
+            got = kernels.form_blocks("elastic", coords, be.elnodes,
+                                      dmat=mat.hooke_dmat(E, NU, dtype, "cuda"), perm=perm,
+                                      table=be.element_table, packed=True,
+                                      **({"diag": True} if has_diag else {}))
+            esm_t, packed = got[:2]
+            kw = {"cols": sp.epos} if case == "assembly" else {}
+            if case in ("assembly", "sharded"):
+                plan, fixmask = asm.jacobi_plan(be.elnodes, be.ndof_pad // 3), be.fixmask
+                blocks = got[2] if has_diag else esm_t
+            else:
+                plan, fixmask = sp.jacobi_plan, sp.fixmask_m
+                blocks = got[2] if has_diag else packed
+            fixmask = fixmask.to(dtype)
+            seen = {}
+
+            def keep(nodal):
+                seen["nodal"] = nodal.clone()
+                return nodal
+
+            fused = kernels.jacobi_inverse(blocks, plan, fixmask, **kw)
+            tail = kernels.jacobi_inverse(blocks, plan, fixmask, reduce=keep, **kw)
+            key = f"{dname} {model} {case}"
+            out[f"{key} fused"] = sha256([fused])
+            out[f"{key} sum"] = sha256([seen["nodal"]])
+            out[f"{key} tail"] = sha256([tail])
+            del got, esm_t, packed, blocks, fused, tail, seen
+            torch.cuda.empty_cache()
     del setup
     torch.cuda.empty_cache()
     return out
@@ -2814,8 +2930,10 @@ def column_breakdown(cfg):
     (``pcg_block(defl=)``), against the same iteration with the
     preconditioner wrapped in ``deflation.deflated`` and that deflation's
     three torch products alone; then the kernels 8 more iterations launch
-    (torch.profiler): the folded ones no torch kernel beyond the undeflated
-    iteration's (checked), the wrapped ones the products'.  A tree without
+    (torch.profiler, 9 iterations less 1 over 10 calls each, rounded: the
+    tracer may lose the records of a profile's first call,
+    :func:`kernel_launches`): the folded ones no torch kernel beyond the
+    undeflated iteration's (checked), the wrapped ones the products'.  A tree without
     K1m (``tools/turns.py``) times its own path, the chain; a tree without
     the fold, the wrapped iteration alone.  Returns the rows."""
     from fcvm_tpu_torch.ops import assembly as asm
@@ -2943,16 +3061,26 @@ def column_breakdown(cfg):
              (f"the deflation's three torch products alone, m = 8, kd = {kd}",
               cuda_ms(lambda: space.w @ (space.kw_inv @ (space.w.T @ v))))]
     if folds:  # the kernels of 8 iterations: 9 less 1, the same start and reads
-        def per_8(solve):
-            (p9, o9), (p1, o1) = kernel_launches(solve, 9), kernel_launches(solve, 1)
-            return p9 - p1, o9 - o1
+        calls = 10  # a profile's first call may lose the records of its start's torch
+        raw = {}  # kernels (kernel_launches), under half a launch a call over 10 calls
 
-        fp, fo = per_8(folded)
-        _, uo = per_8(block(new))
-        _, wo = per_8(wrapped)
-        print(f"kernels of 8 more pcg_block iterations, m = 8 (torch.profiler): folded: the "
-              f"port's {dict(fp)}, others {dict(fo)}; undeflated: others {dict(uo)}; wrapped in "
-              f"deflation.deflated: others {dict(wo)}")
+        def per_8(solve, name):
+            (p9, o9), (p1, o1) = (kernel_launches(solve, n, calls=calls) for n in (9, 1))
+            raw[name] = dict(o9), dict(o1)
+
+            def each(nine, one):
+                return Counter({k: n for k in nine.keys() | one.keys()
+                                if (n := round((nine[k] - one[k]) / calls)) > 0})
+
+            return each(p9, p1), each(o9, o1)
+
+        fp, fo = per_8(folded, "folded")
+        _, uo = per_8(block(new), "undeflated")
+        _, wo = per_8(wrapped, "wrapped")
+        print(f"kernels of 8 more pcg_block iterations, m = 8 (torch.profiler, 9 iterations less "
+              f"1, over {calls} calls each): folded: the port's {dict(fp)}, others {dict(fo)}; "
+              f"undeflated: others {dict(uo)}; wrapped in deflation.deflated: others "
+              f"{dict(wo)}; raw totals of the other kernels, 9 / 1 iterations: {raw}")
         check(fp["cg_pass_update_kernel"] >= 8 and fp["cg_pass_direction_kernel"] >= 8,
               "phase 9b: the profile of the folded iterations recorded no K6 pass")
         check(fo == uo, f"phase 9b: the folded deflated iterations launched torch kernels beyond "
@@ -4067,6 +4195,8 @@ def main():
         "launches": off["launches"]["form_blocks"], **path_launches("form_blocks"),
         "launches_by_form": {k: v["by_dtype"]["form_blocks forms"] for k, v in paths.items()
                              if "by_dtype" in v},
+        "launches_by_output": {k: v["by_dtype"]["form_blocks outputs"]
+                               for k, v in paths.items() if "by_dtype" in v},
         "dtype": "float32", "model": "plate", "case": "tangent refresh",
         **form["form_blocks"][("float32", "plate", "tangent refresh")],
         "shapes": [{"dtype": dt, "model": mo, "case": c, **row}

@@ -8,18 +8,18 @@
 // port's side the slice, K8's write form and the torch tail of
 // ops/kernels.py:jacobi_inverse_ref.
 //
-// One thread a node row, over K8's write-form segment plan of the
-// slot-major keys (ops/assembly.py:jacobi_plan: incidence k = slot ne + e):
-//   1. the node's incidences in the plan's order, each (element, slot)
-//      diagonal block read straight from the element blocks (element e's at
-//      column cols[e] when the blocks come in another element order than
-//      the plan's, the solve space's, say): element-major
-//      (entry (i, j) of element e at i si + j sj + e se, any strides, so the
-//      (30, 30, ne) blocks and their (ne, 30, 30) views alike), 9 values;
-//      or K1's packed tiles ([t, q, k], e = t tile + k, q the row-major upper
-//      index), the 6 upper values, the lower ones their mirror;
+// It reads K3's compact diagonal (csrc/form_blocks.cu, diag): for incidence
+// k = slot ne + e the 6 upper values of element e's diagonal block (slot,
+// slot), padded to 8, one 32-byte sector in float32 (64 bytes in float64).
+// One thread a unit (a node row) of K8's write-form segment plan of the
+// slot-major keys (ops/assembly.py:jacobi_plan), in row order, so a warp's
+// neighbouring nodes share elements and their sectors' cache lines:
+//   1. the node's incidences in the plan's order, each one sector read
+//      (element e's at cols[e] when the diagonal comes in another element
+//      order than the plan's, the solve space's, say);
 //   2. summed from zero in that order, each add rounded on its own: K8's
-//      write form's bits (a node no key names sums nothing: 0);
+//      write form's bits (the lower values the upper ones' mirror, as the
+//      blocks are exactly symmetric; a node no key names sums nothing: 0);
 //   3. masked, nodal (m_i m_j) + (1 - m_i) delta_ij, and inverted by the
 //      adjugate, det by cofactors, each cofactor divided by det: every
 //      product, sum and quotient rounded on its own in the torch tail's
@@ -27,11 +27,14 @@
 // Three forms: fused (1 to 3, the inverses), sum (1 and 2, the nodal blocks,
 // which the sharded backend all-reduces) and tail (3 on given nodal blocks).
 //
-// What bounds it: bytes.  On the plate about 28 MB of diagonal values (9
-// of each of 1,179,360 (element, slot) blocks, read at the elements'
-// scattered columns), the plan and the mask, and 6 MB of inverses written:
-// 0.014 ms at 3.35 TB/s.  Each thread issues its incidences' loads in
-// batches of kDepth before their adds, which keeps the order of the adds.
+// What bounds it: bytes.  On the plate about 28 MB of diagonal values (6
+// of each of 1,179,360 (element, slot) blocks, in one sector each), the plan
+// and the mask, and 6 MB of inverses written: 0.013 ms at 3.35 TB/s.  Each
+// thread issues its incidences' loads in batches of kDepth before their
+// adds, which keeps the order of the adds.  A warp runs as long as its
+// busiest lane; taking the units longest first (the plan's walk) evens the
+// lanes' counts but scatters their reads and writes, and was slower
+// (csrc/jacobi_inverse_probe.cu, fcvm_tpu_torch/tools/k3_probe.py).
 //
 // C interface: each entry returns cudaGetLastError() after its launch (0 =
 // launched).  The caller owns all memory and the stream; the kernel does
@@ -44,23 +47,22 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kDepth = 4;         // incidences a load batch
-constexpr int kNPack = 30 * 31 / 2;
+constexpr int kDepth = 4;  // incidences a load batch
+constexpr int kDiag = 8;   // the diagonal's values an incidence, padded
 
 enum Form { kFused = 0, kSum = 1, kTail = 2 };
 
 template <typename T>
 struct Args {
-  const T* blocks;       // element-major (strides si, sj, se) or packed (tile)
-  long long si, sj, se;
-  long long tile;        // > 0: the packed tiles (ntiles, 465, tile)
+  const T* diag;         // (10, ne, 8): K3's compact diagonal
   const int* order;      // the plan: (nsum,), (nu + 1,), (nu,), (nholes,)
   const int* offsets;
   const int* segs;
   const int* holes;
+  const int* walk;       // kWalk: the units (3, nu), each one's begin, end and row
   long long nu, nholes;  // the tail form: nu the rows, no holes
   long long ne;
-  const long long* cols; // (ne,): the blocks' column of each plan element, or null
+  const long long* cols; // (ne,): the diagonal's element of each plan element, or null
   const T* fixmask;      // (3 rows,): fused, tail
   const T* nodal;        // (rows, 3, 3): tail
   T* out;                // (rows, 3, 3): the nodal blocks (sum) or their inverses
@@ -75,32 +77,25 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 
-__device__ __forceinline__ int packed_index(int i, int j) {
-  return i * 30 - i * (i - 1) / 2 + (j - i);
+// the 6 upper values of incidence k's diagonal block (slot k / ne of element k % ne)
+__device__ __forceinline__ void load_sector(const float* p, float (&v)[6]) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  const float2 y = __ldg(reinterpret_cast<const float2*>(p + 4));
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w, v[4] = y.x, v[5] = y.y;
+}
+__device__ __forceinline__ void load_sector(const double* p, double (&v)[6]) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const double2 x = __ldg(reinterpret_cast<const double2*>(p) + q);
+    v[2 * q] = x.x, v[2 * q + 1] = x.y;
+  }
 }
 
-// the 3x3 diagonal block of incidence k (slot k / ne of element k % ne)
 template <typename T>
-__device__ __forceinline__ void load_block(const Args<T>& a, int k, T (&v)[9]) {
+__device__ __forceinline__ void load_block(const Args<T>& a, int k, T (&v)[6]) {
   const long long slot = k / a.ne, pe = k - slot * a.ne;
   const long long e = a.cols ? __ldg(a.cols + pe) : pe;
-  if (a.tile > 0) {
-    const T* base = a.blocks + (e / a.tile) * kNPack * a.tile + e % a.tile;
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-#pragma unroll
-      for (int c = r; c < 3; ++c) {
-        const int i = 3 * static_cast<int>(slot);
-        v[3 * r + c] = __ldg(base + packed_index(i + r, i + c) * a.tile);
-        v[3 * c + r] = v[3 * r + c];
-      }
-  } else {
-    const T* base = a.blocks + 3 * slot * (a.si + a.sj) + e * a.se;
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) v[3 * r + c] = __ldg(base + r * a.si + c * a.sj);
-  }
+  load_sector(a.diag + (slot * a.ne + e) * kDiag, v);
 }
 
 // the tail: mask, then the inverse by the adjugate (utils/linalg3.py)
@@ -134,7 +129,7 @@ __device__ __forceinline__ void invert(const T (&s)[9], const T* fixmask, long l
   for (int q = 0; q < 9; ++q) out[9 * row + q] = div_rn(c[q], det);
 }
 
-template <typename T, int kForm>
+template <typename T, int kForm, bool kWalk>
 __global__ void __launch_bounds__(kThreads) jacobi_kernel(const Args<T> a) {
   const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= a.nu + a.nholes) return;
@@ -145,26 +140,31 @@ __global__ void __launch_bounds__(kThreads) jacobi_kernel(const Args<T> a) {
 #pragma unroll
     for (int q = 0; q < 9; ++q) s[q] = a.nodal[9 * row + q];
   } else {
+    T u[6];  // the upper values' sums, (0,0) (0,1) (0,2) (1,1) (1,2) (2,2)
 #pragma unroll
-    for (int q = 0; q < 9; ++q) s[q] = T(0);
+    for (int q = 0; q < 6; ++q) u[q] = T(0);
     if (t < a.nu) {
-      row = a.segs[t];
-      const int begin = a.offsets[t], end = a.offsets[t + 1];
+      const int begin = kWalk ? a.walk[t] : a.offsets[t];
+      const int end = kWalk ? a.walk[a.nu + t] : a.offsets[t + 1];
+      row = kWalk ? a.walk[2 * a.nu + t] : a.segs[t];
       for (int p = begin; p < end; p += kDepth) {
         const int n = end - p;
-        T v[kDepth][9];
+        T v[kDepth][6];
 #pragma unroll
         for (int d = 0; d < kDepth; ++d) load_block(a, a.order[d < n ? p + d : begin], v[d]);
 #pragma unroll
         for (int d = 0; d < kDepth; ++d)
           if (d < n) {
 #pragma unroll
-            for (int q = 0; q < 9; ++q) s[q] = add_rn(s[q], v[d][q]);
+            for (int q = 0; q < 6; ++q) u[q] = add_rn(u[q], v[d][q]);
           }
       }
     } else {
       row = a.holes[t - a.nu];
     }
+    s[0] = u[0], s[1] = u[1], s[2] = u[2];
+    s[3] = u[1], s[4] = u[3], s[5] = u[4];
+    s[6] = u[2], s[7] = u[4], s[8] = u[5];
   }
   if (kForm == kSum) {
 #pragma unroll
@@ -174,7 +174,7 @@ __global__ void __launch_bounds__(kThreads) jacobi_kernel(const Args<T> a) {
   }
 }
 
-template <typename T>
+template <typename T, bool kWalk = false>
 int run(int form, const Args<T>& a, void* stream) {
   const long long units = a.nu + a.nholes;
   if (units <= 0) return 0;
@@ -183,50 +183,46 @@ int run(int form, const Args<T>& a, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto grid = static_cast<unsigned>(blocks);
   if (form == kFused)
-    jacobi_kernel<T, kFused><<<grid, kThreads, 0, s>>>(a);
+    jacobi_kernel<T, kFused, kWalk><<<grid, kThreads, 0, s>>>(a);
   else if (form == kSum)
-    jacobi_kernel<T, kSum><<<grid, kThreads, 0, s>>>(a);
+    jacobi_kernel<T, kSum, kWalk><<<grid, kThreads, 0, s>>>(a);
   else if (form == kTail)
-    jacobi_kernel<T, kTail><<<grid, kThreads, 0, s>>>(a);
+    jacobi_kernel<T, kTail, kWalk><<<grid, kThreads, 0, s>>>(a);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int entry(int form, const T* blocks, long long si, long long sj, long long se, long long tile,
-          const int* order, const int* offsets, const int* segs, const int* holes, long long nu,
-          long long nholes, long long ne, const long long* cols, const T* fixmask,
-          const T* nodal, T* out, void* stream) {
-  const Args<T> a{blocks, si, sj,     se, tile, order,   offsets, segs,
-                  holes,  nu, nholes, ne, cols, fixmask, nodal,   out};
+int entry(int form, const T* diag, const int* order, const int* offsets, const int* segs,
+          const int* holes, long long nu, long long nholes, long long ne,
+          const long long* cols, const T* fixmask, const T* nodal, T* out, void* stream) {
+  const Args<T> a{diag,   order, offsets, segs, holes, nullptr,
+                  nu,     nholes, ne,     cols, fixmask, nodal, out};
   return run<T>(form, a, stream);
 }
 
 }  // namespace
 
-// form: 0 fused (blocks -> inverses), 1 sum (blocks -> nodal blocks), 2 tail
-// (nodal -> inverses: nu the rows, the plan and blocks unread).  tile > 0:
-// blocks are K1's packed tiles; else element-major with strides si, sj, se
-// (in elements).  The plan: K8's write form of the slot-major keys of ne
-// elements; cols (ne,) int64 or null: the blocks' element of each.
-extern "C" int fcvm_jacobi_inverse_f32(int form, const float* blocks, long long si, long long sj,
-                                       long long se, long long tile, const int* order,
+// form: 0 fused (diag -> inverses), 1 sum (diag -> nodal blocks), 2 tail
+// (nodal -> inverses: nu the rows, the plan and diag unread).  diag: K3's
+// compact diagonal (10, ne, 8) (16-byte aligned).  The plan: K8's write
+// form of the slot-major keys of ne elements (order, offsets, segs,
+// holes); cols (ne,) int64 or null: the diagonal's element of each.
+extern "C" int fcvm_jacobi_inverse_f32(int form, const float* diag, const int* order,
                                        const int* offsets, const int* segs, const int* holes,
                                        long long nu, long long nholes, long long ne,
                                        const long long* cols, const float* fixmask,
                                        const float* nodal, float* out, void* stream) {
-  return entry<float>(form, blocks, si, sj, se, tile, order, offsets, segs, holes, nu, nholes,
-                      ne, cols, fixmask, nodal, out, stream);
+  return entry<float>(form, diag, order, offsets, segs, holes, nu, nholes, ne, cols, fixmask,
+                      nodal, out, stream);
 }
 
-extern "C" int fcvm_jacobi_inverse_f64(int form, const double* blocks, long long si,
-                                       long long sj, long long se, long long tile,
-                                       const int* order, const int* offsets, const int* segs,
-                                       const int* holes, long long nu, long long nholes,
-                                       long long ne, const long long* cols,
-                                       const double* fixmask, const double* nodal, double* out,
-                                       void* stream) {
-  return entry<double>(form, blocks, si, sj, se, tile, order, offsets, segs, holes, nu, nholes,
-                       ne, cols, fixmask, nodal, out, stream);
+extern "C" int fcvm_jacobi_inverse_f64(int form, const double* diag, const int* order,
+                                       const int* offsets, const int* segs, const int* holes,
+                                       long long nu, long long nholes, long long ne,
+                                       const long long* cols, const double* fixmask,
+                                       const double* nodal, double* out, void* stream) {
+  return entry<double>(form, diag, order, offsets, segs, holes, nu, nholes, ne, cols, fixmask,
+                       nodal, out, stream);
 }

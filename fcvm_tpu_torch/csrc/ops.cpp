@@ -16,10 +16,11 @@
 //   fcvm::node_force    K2   csrc/stress_update.cu (the node pass: qin; with glv the
 //                            residual form, r and its norm too)
 //   fcvm::form_blocks   K3   csrc/form_blocks.cu (the element blocks, elastic, tangent
-//                            or geometric: K1's packed tiles and the element-major
-//                            blocks, either or both)
-//   fcvm::jacobi_inverse  K5  csrc/jacobi_inverse.cu (the block-Jacobi rebuild: fused,
-//                            or its sum and its tail around the caller's reduce)
+//                            or geometric: K1's packed tiles, the element-major
+//                            blocks and the compact diagonal, any of them)
+//   fcvm::jacobi_inverse  K5  csrc/jacobi_inverse.cu (the block-Jacobi rebuild on K3's
+//                            compact diagonal: fused, or its sum and its tail around
+//                            the caller's reduce)
 //   fcvm::soa_matvec    K0p  csrc/bw_probe.cu
 //   fcvm::bw_read       Kbw  csrc/bw_probe.cu
 // so each is called as torch.ops.fcvm.<name>.  The kernels themselves keep a
@@ -159,28 +160,25 @@ extern "C" int fcvm_form_blocks_f32(int form, const float* coords, const float* 
                                     const float* dmat, long long dstride, const float* sig,
                                     const unsigned char* pgp, const float* g, const float* h,
                                     double g3fac_s, const float* weights, float* full,
-                                    float* packed, long long ne, long long npad, long long tile,
-                                    void* stream);
+                                    float* packed, float* diag, long long ne, long long npad,
+                                    long long tile, void* stream);
 extern "C" int fcvm_form_blocks_f64(int form, const double* coords, const double* disp,
                                     const int* table, long long nt, const long long* perm,
                                     const double* dmat, long long dstride, const double* sig,
                                     const unsigned char* pgp, const double* g, const double* h,
                                     double g3fac_s, const double* weights, double* full,
-                                    double* packed, long long ne, long long npad, long long tile,
-                                    void* stream);
-extern "C" int fcvm_jacobi_inverse_f32(int form, const float* blocks, long long si, long long sj,
-                                       long long se, long long tile, const int* order,
+                                    double* packed, double* diag, long long ne, long long npad,
+                                    long long tile, void* stream);
+extern "C" int fcvm_jacobi_inverse_f32(int form, const float* diag, const int* order,
                                        const int* offsets, const int* segs, const int* holes,
                                        long long nu, long long nholes, long long ne,
                                        const long long* cols, const float* fixmask,
                                        const float* nodal, float* out, void* stream);
-extern "C" int fcvm_jacobi_inverse_f64(int form, const double* blocks, long long si,
-                                       long long sj, long long se, long long tile,
-                                       const int* order, const int* offsets, const int* segs,
-                                       const int* holes, long long nu, long long nholes,
-                                       long long ne, const long long* cols,
-                                       const double* fixmask, const double* nodal, double* out,
-                                       void* stream);
+extern "C" int fcvm_jacobi_inverse_f64(int form, const double* diag, const int* order,
+                                       const int* offsets, const int* segs, const int* holes,
+                                       long long nu, long long nholes, long long ne,
+                                       const long long* cols, const double* fixmask,
+                                       const double* nodal, double* out, void* stream);
 extern "C" int fcvm_soa_matvec_f32(const float* esm_t, const float* ue_t, float* out,
                                    long long ne, int tile, void* stream);
 extern "C" int fcvm_bw_read_blocks(long long rows, long long chunk_rows, int device);
@@ -986,7 +984,8 @@ std::vector<at::Tensor> node_force(const at::Tensor& elv, const at::Tensor& orde
 // (then g3fac_s) (tangent), weights (nt,); perm (ne,) int64: the input
 // element of each output element.  Returns [the element-major blocks (30, 30,
 // ne)] when full, then [K1's packed tiles (ceil(ne / tile), 465, tile)]
-// when tile > 0, in that order.
+// when tile > 0, then [the compact diagonal (10, ne, 8)] when diag, in that
+// order.
 std::vector<at::Tensor> form_blocks(int64_t form, const at::Tensor& coords,
                                     const std::optional<at::Tensor>& disp,
                                     const at::Tensor& table, const std::optional<at::Tensor>& perm,
@@ -996,14 +995,14 @@ std::vector<at::Tensor> form_blocks(int64_t form, const at::Tensor& coords,
                                     const std::optional<at::Tensor>& g,
                                     const std::optional<at::Tensor>& h, double g3fac_s,
                                     const std::optional<at::Tensor>& weights, bool full,
-                                    int64_t tile) {
+                                    int64_t tile, bool diag) {
   const auto dev = coords.device();
   const auto dt = coords.scalar_type();
   TORCH_CHECK(coords.is_cuda(), "form_blocks: coords must be on a CUDA device");
   TORCH_CHECK(dt == at::kFloat || dt == at::kDouble,
               "form_blocks: dtype must be float32 or float64, got ", dt);
   TORCH_CHECK(form >= 0 && form <= 2, "form_blocks: form must be 0, 1 or 2, got ", form);
-  TORCH_CHECK(full || tile > 0, "form_blocks: nothing to write");
+  TORCH_CHECK(full || tile > 0 || diag, "form_blocks: nothing to write");
   TORCH_CHECK(tile == 0 || tile % (128 / static_cast<int64_t>(coords.element_size())) == 0,
               "form_blocks: tile ", tile, " is not a multiple of the kernel's element tile");
   TORCH_CHECK(coords.dim() == 2 && coords.size(1) == 3 && coords.is_contiguous(),
@@ -1055,7 +1054,7 @@ std::vector<at::Tensor> form_blocks(int64_t form, const at::Tensor& coords,
                 "form_blocks: expected g, h and weights (nt,)");
   const c10::cuda::CUDAGuard guard(dev);
   std::vector<at::Tensor> out;
-  at::Tensor esm_t, packed;
+  at::Tensor esm_t, packed, sectors;
   if (full) {
     esm_t = at::empty({30, 30, ne}, coords.options());
     out.push_back(esm_t);
@@ -1064,6 +1063,10 @@ std::vector<at::Tensor> form_blocks(int64_t form, const at::Tensor& coords,
   if (tile > 0) {
     packed = at::empty({npad / tile, 465, tile}, coords.options());
     out.push_back(packed);
+  }
+  if (diag) {
+    sectors = at::empty({10, ne, 8}, coords.options());
+    out.push_back(sectors);
   }
   void* stream = c10::cuda::getCurrentCUDAStream().stream();
   const int* nodes = table.data_ptr<int>();
@@ -1079,7 +1082,8 @@ std::vector<at::Tensor> form_blocks(int64_t form, const at::Tensor& coords,
                                tangent ? ptr<float>(g) : nullptr,
                                tangent ? ptr<float>(h) : nullptr, g3fac_s, ptr<float>(weights),
                                full ? esm_t.data_ptr<float>() : nullptr,
-                               tile > 0 ? packed.data_ptr<float>() : nullptr, ne, npad, tile,
+                               tile > 0 ? packed.data_ptr<float>() : nullptr,
+                               diag ? sectors.data_ptr<float>() : nullptr, ne, npad, tile,
                                stream);
   else
     err = fcvm_form_blocks_f64(static_cast<int>(form), coords.data_ptr<double>(),
@@ -1089,7 +1093,8 @@ std::vector<at::Tensor> form_blocks(int64_t form, const at::Tensor& coords,
                                tangent ? ptr<double>(g) : nullptr,
                                tangent ? ptr<double>(h) : nullptr, g3fac_s,
                                ptr<double>(weights), full ? esm_t.data_ptr<double>() : nullptr,
-                               tile > 0 ? packed.data_ptr<double>() : nullptr, ne, npad, tile,
+                               tile > 0 ? packed.data_ptr<double>() : nullptr,
+                               diag ? sectors.data_ptr<double>() : nullptr, ne, npad, tile,
                                stream);
   TORCH_CHECK(err == 0, "form_blocks: kernel launch failed: ",
               cudaGetErrorString(static_cast<cudaError_t>(err)));
@@ -1098,25 +1103,24 @@ std::vector<at::Tensor> form_blocks(int64_t form, const at::Tensor& coords,
 
 // K5: the inverse 3x3 nodal blocks (rows, 3, 3) of block Jacobi (form 0,
 // fused), their unmasked sums (form 1) or the inverses of given sums nodal
-// (rows, 3, 3) (form 2, the tail).  Forms 0 and 1 read the element blocks
-// of ne elements, element-major (30, 30, ne) with any strides (tile 0) or
-// K1's packed tiles (ntiles, 465, tile), over the write-form plan (order,
-// offsets, segs, holes) of their slot-major keys into rows (cols (ne,)
-// int64, when given: the blocks' element of each plan element); forms 0
-// and 2 read fixmask (3 rows,).
-at::Tensor jacobi_inverse(int64_t form, const std::optional<at::Tensor>& blocks, int64_t tile,
+// (rows, 3, 3) (form 2, the tail).  Forms 0 and 1 read K3's compact diagonal
+// (10, ne, 8) of ne elements over the write-form plan (order, offsets, segs,
+// holes) of their slot-major keys into rows (cols (ne,) int64, when given: the
+// diagonal's element of each plan element); forms 0 and 2 read fixmask
+// (3 rows,).
+at::Tensor jacobi_inverse(int64_t form, const std::optional<at::Tensor>& diag,
                           const std::optional<at::Tensor>& order,
                           const std::optional<at::Tensor>& offsets,
                           const std::optional<at::Tensor>& segs,
-                          const std::optional<at::Tensor>& holes, int64_t ne, int64_t rows,
+                          const std::optional<at::Tensor>& holes, int64_t rows,
                           const std::optional<at::Tensor>& cols,
                           const std::optional<at::Tensor>& fixmask,
                           const std::optional<at::Tensor>& nodal) {
   TORCH_CHECK(form >= 0 && form <= 2, "jacobi_inverse: form must be 0, 1 or 2, got ", form);
   const bool tail = form == 2;
-  TORCH_CHECK(tail ? nodal.has_value() : blocks.has_value(),
-              "jacobi_inverse: the sum reads blocks, the tail nodal");
-  const at::Tensor& src = tail ? *nodal : *blocks;
+  TORCH_CHECK(tail ? nodal.has_value() : diag.has_value(),
+              "jacobi_inverse: the sum reads diag, the tail nodal");
+  const at::Tensor& src = tail ? *nodal : *diag;
   const auto dev = src.device();
   const auto dt = src.scalar_type();
   TORCH_CHECK(src.is_cuda(), "jacobi_inverse: its input must be on a CUDA device");
@@ -1129,41 +1133,33 @@ at::Tensor jacobi_inverse(int64_t form, const std::optional<at::Tensor>& blocks,
                     fixmask->is_contiguous(),
                 "jacobi_inverse: fixmask must be a contiguous (3 rows,) of the blocks' dtype "
                 "and device");
-  long long si = 0, sj = 0, se = 0, nu = rows, nholes = 0;
+  long long nu = rows, nholes = 0, ne = 0;
   const int* tabs[4] = {nullptr, nullptr, nullptr, nullptr};
   if (tail) {
     TORCH_CHECK(nodal->dim() == 3 && nodal->size(0) == rows && nodal->size(1) == 3 &&
                     nodal->size(2) == 3 && nodal->is_contiguous(),
                 "jacobi_inverse: expected contiguous nodal blocks (rows, 3, 3)");
   } else {
+    TORCH_CHECK(diag->dim() == 3 && diag->size(0) == 10 && diag->size(2) == 8 &&
+                    diag->is_contiguous() &&
+                    reinterpret_cast<uintptr_t>(diag->data_ptr()) % 16 == 0,
+                "jacobi_inverse: expected K3's contiguous, 16-byte aligned diagonal (10, ne, 8)");
+    ne = diag->size(1);
     TORCH_CHECK(ne > 0 && 10 * ne < (1LL << 31), "jacobi_inverse: ne out of range");
-    if (tile > 0) {
-      TORCH_CHECK(blocks->dim() == 3 && blocks->size(1) == 465 && blocks->size(2) == tile &&
-                      blocks->size(0) * tile >= ne && blocks->is_contiguous(),
-                  "jacobi_inverse: expected contiguous packed tiles (ntiles, 465, tile) of ne "
-                  "elements");
-    } else {
-      TORCH_CHECK(blocks->dim() == 3 && blocks->size(0) == 30 && blocks->size(1) == 30 &&
-                      blocks->size(2) == ne,
-                  "jacobi_inverse: expected element-major blocks (30, 30, ne)");
-      si = blocks->stride(0);
-      sj = blocks->stride(1);
-      se = blocks->stride(2);
-    }
     const std::optional<at::Tensor>* plan[] = {&order, &offsets, &segs, &holes};
     for (int i = 0; i < 4; ++i) {
       const auto& t = *plan[i];
       TORCH_CHECK(t && t->device() == dev && t->scalar_type() == at::kInt && t->dim() == 1 &&
                       t->is_contiguous(),
                   "jacobi_inverse: the plan's order, offsets, segs and holes must be "
-                  "contiguous int32 vectors on the blocks' device");
+                  "contiguous int32 vectors on the diagonal's device");
       tabs[i] = t->data_ptr<int>();
     }
     nu = segs->size(0);
     nholes = holes->size(0);
     TORCH_CHECK(!cols || (cols->device() == dev && cols->scalar_type() == at::kLong &&
                           cols->dim() == 1 && cols->size(0) == ne && cols->is_contiguous()),
-                "jacobi_inverse: cols must be a contiguous int64 (ne,) on the blocks' device");
+                "jacobi_inverse: cols must be a contiguous int64 (ne,) on the diagonal's device");
     TORCH_CHECK(offsets->size(0) == nu + 1 && order->size(0) <= 10 * ne && nu + nholes == rows,
                 "jacobi_inverse: expected offsets (nu + 1,), order at most 10 ne and segs and "
                 "holes covering the ", rows, " rows");
@@ -1175,17 +1171,15 @@ at::Tensor jacobi_inverse(int64_t form, const std::optional<at::Tensor>& blocks,
   void* stream = c10::cuda::getCurrentCUDAStream().stream();
   int err = 0;
   if (dt == at::kFloat)
-    err = fcvm_jacobi_inverse_f32(static_cast<int>(form), tail ? nullptr : blocks->data_ptr<float>(),
-                                  si, sj, se, tile, tabs[0], tabs[1], tabs[2], tabs[3], nu,
-                                  nholes, ne, cols_ptr,
-                                  ptr<float>(fixmask),
-                                  tail ? nodal->data_ptr<float>() : nullptr,
+    err = fcvm_jacobi_inverse_f32(static_cast<int>(form), tail ? nullptr : diag->data_ptr<float>(),
+                                  tabs[0], tabs[1], tabs[2], tabs[3], nu, nholes, ne, cols_ptr,
+                                  ptr<float>(fixmask), tail ? nodal->data_ptr<float>() : nullptr,
                                   out.data_ptr<float>(), stream);
   else
     err = fcvm_jacobi_inverse_f64(static_cast<int>(form),
-                                  tail ? nullptr : blocks->data_ptr<double>(), si, sj, se, tile,
-                                  tabs[0], tabs[1], tabs[2], tabs[3], nu, nholes, ne,
-                                  cols_ptr, ptr<double>(fixmask),
+                                  tail ? nullptr : diag->data_ptr<double>(), tabs[0], tabs[1],
+                                  tabs[2], tabs[3], nu, nholes, ne, cols_ptr,
+                                  ptr<double>(fixmask),
                                   tail ? nodal->data_ptr<double>() : nullptr,
                                   out.data_ptr<double>(), stream);
   TORCH_CHECK(err == 0, "jacobi_inverse: kernel launch failed: ",
@@ -1280,11 +1274,9 @@ TORCH_LIBRARY(fcvm, m) {
         "float qnorm) -> Tensor[]");
   m.def("form_blocks(int form, Tensor coords, Tensor? disp, Tensor table, Tensor? perm, "
         "Tensor? dmat, Tensor? sig, Tensor? pgp, Tensor? g, Tensor? h, float g3fac_s, "
-        "Tensor? weights, bool full, int tile) -> Tensor[]");
-  m.def("jacobi_inverse(int form, Tensor? blocks, int tile, Tensor? order, Tensor? offsets, "
-        "Tensor? segs, Tensor? holes, int ne, int rows, Tensor? cols, Tensor? fixmask, "
-        "Tensor? nodal) -> "
-        "Tensor");
+        "Tensor? weights, bool full, int tile, bool diag) -> Tensor[]");
+  m.def("jacobi_inverse(int form, Tensor? diag, Tensor? order, Tensor? offsets, Tensor? segs, "
+        "Tensor? holes, int rows, Tensor? cols, Tensor? fixmask, Tensor? nodal) -> Tensor");
   m.def("cuda_error(int code) -> str", &cuda_error);
   m.def("soa_matvec(Tensor esm_t, Tensor ue_t, int tile) -> Tensor");
   m.def("bw_read(Tensor x, int k, int chunk_rows) -> Tensor");

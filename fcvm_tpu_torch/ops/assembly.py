@@ -19,8 +19,9 @@ sum of element rows into nodes (the loads, the block-Jacobi blocks) is K8
 :class:`~fcvm_tpu_torch.ops.kernels.SegmentPlan` of its keys, a fixed
 order as well; CPU tensors take ``index_add_``, the plain version.  The
 block-Jacobi rebuild is K5 (:func:`fcvm_tpu_torch.ops.kernels.jacobi_inverse`),
-one node pass over the element blocks.  The operator stores the blocks
-element-major, ``(30, 30, ne)``, the layout the plain versions read.
+one node pass over the compact diagonal K3 writes beside its tiles.  The
+operator stores the blocks element-major, ``(30, 30, ne)``, the layout the
+plain versions read.
 
 Dirichlet boundary conditions reproduce the reference's elimination scheme
 (``fcVM.py:771-796``): the operator is the identity on fixed dofs and the
@@ -63,11 +64,15 @@ def node_sum(rows: torch.Tensor, nodes: torch.Tensor, ndof: int, plan=None) -> t
 
 class Blocks(NamedTuple):
     """Element blocks as the operators take them: element-major ``esm_t``
-    (30, 30, ne) (None on the card unless asked for) and K1's packed tiles
-    ``packed`` (None on the CPU, whose plain versions read ``esm_t``)."""
+    (30, 30, ne) (None on the card unless asked for), K1's packed tiles
+    ``packed`` and the compact diagonal ``diag`` (10, ne, 8) that K5 reads
+    (:func:`~fcvm_tpu_torch.ops.kernels.diag_sectors`'s layout; on the card
+    only where asked for).  On the CPU ``packed`` and ``diag`` are None: its
+    plain versions read ``esm_t``."""
 
     esm_t: torch.Tensor | None
     packed: torch.Tensor | None
+    diag: torch.Tensor | None = None
 
     @property
     def esm(self) -> torch.Tensor | None:
@@ -76,26 +81,31 @@ class Blocks(NamedTuple):
         return None if self.esm_t is None else self.esm_t.permute(2, 0, 1)
 
 
-def operator_blocks(form, coords, elnodes, *, full=False, **inputs) -> Blocks:
+def operator_blocks(form, coords, elnodes, *, full=False, diag=False, **inputs) -> Blocks:
     """K3's blocks of one ``form`` (see
     :func:`fcvm_tpu_torch.ops.kernels.form_blocks`, whose keyword
     ``inputs`` these are: ``disp``, ``dmat``, ``sig``, ``pgp``, ``g``, ``h``,
     ``weights``, ``perm``, ``table``) as an operator takes them: on the CPU
     the element-major blocks, contiguous; on the card K1's packed tiles,
-    with the element-major blocks from the same launch when ``full`` (the
-    two-level build, the scipy tier, the penalty pencil read them)."""
+    from the same launch the element-major blocks when ``full`` (the
+    two-level build, the scipy tier, the penalty pencil read them) and the
+    compact diagonal when ``diag`` (for callers that run K5 next)."""
     if coords.device.type == "cpu":
-        esm_t, _ = kernels.form_blocks(form, coords, elnodes, **inputs)
+        esm_t, *_ = kernels.form_blocks(form, coords, elnodes, **inputs)
         return Blocks(esm_t.contiguous(), None)
-    return Blocks(*kernels.form_blocks(form, coords, elnodes, full=full, packed=True, **inputs))
+    return Blocks(*kernels.form_blocks(form, coords, elnodes, full=full, packed=True, diag=diag,
+                                       **inputs))
 
 
 def blocks_of(esm: torch.Tensor) -> Blocks:
     """(ne, 30, 30) blocks given as a tensor, as an operator takes them:
     element-major, and on the card packed by
-    :func:`~fcvm_tpu_torch.ops.kernels.pack_blocks`."""
+    :func:`~fcvm_tpu_torch.ops.kernels.pack_blocks` with their
+    :func:`~fcvm_tpu_torch.ops.kernels.diag_sectors`."""
     esm_t = esm.permute(1, 2, 0).contiguous()
-    return Blocks(esm_t, kernels.pack_blocks(esm_t) if esm_t.device.type != "cpu" else None)
+    if esm_t.device.type == "cpu":
+        return Blocks(esm_t, None)
+    return Blocks(esm_t, kernels.pack_blocks(esm_t), kernels.diag_sectors(esm_t))
 
 
 def elastic_stiffness_blocks(coords, elnodes, dmat) -> torch.Tensor:
@@ -332,11 +342,12 @@ def jacobi_plan(elnodes: torch.Tensor, nn: int) -> kernels.SegmentPlan:
 
 
 def block_jacobi_inverse_blocks(esm, elnodes, fixmask, reduce=None, plan=None, cols=None,
-                                packed=None):
+                                diag=None):
     """Inverse 3x3 nodal diagonal blocks of ``K_hat`` (nn, 3, 3): K5
     (:func:`fcvm_tpu_torch.ops.kernels.jacobi_inverse`) over the (ne, 30,
-    30) blocks ``esm``, or over ``packed``, their packed tiles (K3's), where
-    given (``esm`` may then be None).
+    30) blocks ``esm`` (the CPU's), or over ``diag``, their compact
+    diagonal (K3's, which the card reads), where given (``esm`` may then be
+    None).
 
     Fixed dofs get identity rows/columns so the preconditioner is
     consistent with :func:`make_bc_matvec`.  ``reduce``, when given, sums
@@ -348,7 +359,7 @@ def block_jacobi_inverse_blocks(esm, elnodes, fixmask, reduce=None, plan=None, c
     """
     if plan is None:
         plan = jacobi_plan(elnodes, fixmask.shape[0] // 3)
-    blocks = packed if packed is not None else esm.permute(1, 2, 0)
+    blocks = diag if diag is not None else esm.permute(1, 2, 0)
     return kernels.jacobi_inverse(blocks, plan, fixmask, reduce=reduce, cols=cols)
 
 

@@ -65,10 +65,12 @@
   ``tangent_stiffness_blocks`` and ``geometric_stiffness_blocks``; source
   ``csrc/form_blocks.cu``, on the Gauss-point geometry of ``csrc/tet10.cuh``
   (K2's); it writes K1's packed tiles (:func:`pack_blocks`'s layout) and,
-  when asked, the element-major blocks.
+  when asked, the element-major blocks and the compact diagonal
+  (:func:`diag_sectors`'s layout) K5 reads.
 * K5 :func:`jacobi_inverse`, the block-Jacobi rebuild as one node pass
-  (each node's diagonal blocks read from K3's output, summed in K8's
-  order, masked and inverted), replaces the XLA-lowered
+  (each node's diagonal blocks read from K3's compact diagonal, one
+  sector an incidence, summed in K8's order, masked and inverted),
+  replaces the XLA-lowered
   ``fcvm_tpu/ops/assembly.py::block_jacobi_inverse_blocks``; source
   ``csrc/jacobi_inverse.cu``.
 * K0p :func:`soa_matvec` replaces ``tools/bw_probe.py::soa_matvec``;
@@ -97,7 +99,8 @@ kernel launches in its ``launches`` attribute (K8 its calls, each launching
 one or two kernels); K0, K1, K2, K4, K6 and K8 also count them by dtype in
 their ``dtypes`` (K6 by pass in ``cg_iteration.passes``, K2's passes by form
 in ``stress_update.forms`` and ``node_force.forms``, K3 and K5 by form in
-``form_blocks.forms`` and ``jacobi_inverse.forms``), K0m, K1m and K4m by
+``form_blocks.forms`` and ``jacobi_inverse.forms``, K3 by output in
+``form_blocks.outputs``), K0m, K1m and K4m by
 dtype and column count in their ``shapes`` (K4c alone too:
 ``coarse_product.shapes``),
 and K8 its kernels by form and path in ``segment_sum.paths``.
@@ -1801,6 +1804,8 @@ def stress_residual_bound(elnodes, plan: SegmentPlan, fixmask, dmat, g, h, *, we
 # -- K3: the element stiffness blocks ---------------------------------------------
 
 FORMS = ("elastic", "tangent", "geometric")  # K3's forms: its kernel's form 0, 1, 2
+DIAG = 8  # values of the compact diagonal an incidence: the 6 upper ones and 2 zeros
+_UPPER3 = ((0, 0, 0, 1, 1, 2), (0, 1, 2, 1, 2, 2))  # a 3x3 block's upper values, row-major
 _FORM_READS = {"elastic": ("dmat",), "tangent": ("dmat", "sig", "pgp", "g", "h"),
                "geometric": ("sig",)}
 
@@ -1830,14 +1835,28 @@ def _element_blocks(form, coords, elnodes, dmat, sig, pgp, g, h):
     return torch.einsum("egkm,egkn,eg->emn", bmat, db, scale)
 
 
+def diag_sectors(esm_t: torch.Tensor) -> torch.Tensor:
+    """K3's compact diagonal of element-major blocks ``esm_t`` (30, 30, ne):
+    (10, ne, ``DIAG``), row ``[slot, e]`` (incidence ``slot ne + e``) the 6
+    upper values of element ``e``'s diagonal block (slot, slot), row-major,
+    then 2 zeros (one 32-byte sector in float32).  Plain indexing."""
+    ne = esm_t.shape[2]
+    idx = torch.arange(10, device=esm_t.device)
+    blocks = esm_t.reshape(10, 3, 10, 3, ne)[idx, :, idx]  # (10, 3, 3, ne)
+    out = esm_t.new_zeros((10, ne, DIAG))
+    out[:, :, :6] = blocks[:, _UPPER3[0], _UPPER3[1]].transpose(1, 2)
+    return out
+
+
 def form_blocks_ref(form, coords, elnodes, *, disp=None, dmat=None, sig=None, pgp=None, g=None,
-                    h=None, weights=None, perm=None, table=None, full=True, packed=False):
+                    h=None, weights=None, perm=None, table=None, full=True, packed=False,
+                    diag=False):
     """Plain version of K3, the torch chain it replaced (the einsums of
     :func:`_element_blocks` on the elements ``elnodes[perm]``, each
     per-element input gathered with them; the blocks times ``weights``;
-    :func:`pack_blocks`).  Arguments and results as :func:`form_blocks`
-    (``table`` is not read); the element-major blocks are a (30, 30, ne)
-    view of the chain's (ne, 30, 30) output."""
+    :func:`pack_blocks`; :func:`diag_sectors`).  Arguments and results as
+    :func:`form_blocks` (``table`` is not read); the element-major blocks
+    are a (30, 30, ne) view of the chain's (ne, 30, 30) output."""
     if form not in FORMS:
         raise ValueError(f"form_blocks: form {form!r}; expected one of {FORMS}")
 
@@ -1851,11 +1870,13 @@ def form_blocks_ref(form, coords, elnodes, *, disp=None, dmat=None, sig=None, pg
     if weights is not None:
         esm = esm * rows(weights, 1)[:, None, None]
     esm_t = esm.permute(1, 2, 0)
-    return (esm_t if full else None), (pack_blocks(esm_t) if packed else None)
+    return ((esm_t if full else None), (pack_blocks(esm_t) if packed else None),
+            (diag_sectors(esm_t) if diag else None))
 
 
 def form_blocks(form, coords, elnodes, *, disp=None, dmat=None, sig=None, pgp=None, g=None,
-                h=None, weights=None, perm=None, table=None, full=True, packed=False):
+                h=None, weights=None, perm=None, table=None, full=True, packed=False,
+                diag=False):
     """K3: the element stiffness blocks of one ``form`` (design and bound at
     the top of ``csrc/form_blocks.cu``).
 
@@ -1877,20 +1898,22 @@ def form_blocks(form, coords, elnodes, *, disp=None, dmat=None, sig=None, pgp=No
       perm: (ne,) int64, the input element of each output element (the
         solve space's ``eperm``); None: the input order.
       full: return the element-major blocks (30, 30, ne); packed: return
-        K1's packed tiles (:func:`pack_blocks`'s layout), at least one.
+        K1's packed tiles (:func:`pack_blocks`'s layout); diag: return the
+        compact diagonal (10, ne, ``DIAG``) that K5 reads
+        (:func:`diag_sectors`'s layout); at least one.
 
     Returns:
-      (esm_t, packed), each None where not asked.  CPU tensors take the
+      (esm_t, packed, diag), each None where not asked.  CPU tensors take the
       plain version (:func:`form_blocks_ref`); CUDA tensors launch the kernel
       or raise (``form_blocks.launches`` counts the launches, ``.dtypes``
-      and ``.forms`` them by dtype and form).  The card writes only the upper
-      triangles, so its blocks are exactly symmetric.
+      and ``.forms`` them by dtype and form, ``.outputs`` the launches that
+      wrote each output).  The card writes only the upper triangles, so its
+      blocks are exactly symmetric.
     """
     if form not in FORMS:
         raise ValueError(f"form_blocks: form {form!r}; expected one of {FORMS}")
-    if not (full or packed):
-        raise ValueError("form_blocks: neither the element-major blocks nor the packed tiles "
-                         "asked for")
+    if not (full or packed or diag):
+        raise ValueError("form_blocks: no output asked for: full, packed or diag")
     given = dict(dmat=dmat, sig=sig, pgp=pgp, g=g, h=h)
     missing = [k for k in _FORM_READS[form] if given[k] is None]
     if missing:
@@ -1899,7 +1922,8 @@ def form_blocks(form, coords, elnodes, *, disp=None, dmat=None, sig=None, pgp=No
                if torch.is_tensor(t)]
     if all(t.device.type == "cpu" for t in tensors):
         return form_blocks_ref(form, coords, elnodes, disp=disp, dmat=dmat, sig=sig, pgp=pgp,
-                               g=g, h=h, weights=weights, perm=perm, full=full, packed=packed)
+                               g=g, h=h, weights=weights, perm=perm, full=full, packed=packed,
+                               diag=diag)
     if coords.device.type != "cuda" or any(t.device != coords.device for t in tensors):
         raise ValueError("form_blocks: tensors on several devices; expected all on the CPU or "
                          "all on one CUDA device")
@@ -1929,16 +1953,20 @@ def form_blocks(form, coords, elnodes, *, disp=None, dmat=None, sig=None, pgp=No
         _k2_table(elnodes, table, coords, "form_blocks"), perm,
         dmat if "dmat" in reads else None, sig.contiguous() if "sig" in reads else None,
         pgp.contiguous() if "pgp" in reads else None, gt, ht, g3fac, weights, bool(full),
-        PACK_TILE[coords.dtype] if packed else 0)
+        PACK_TILE[coords.dtype] if packed else 0, bool(diag))
     form_blocks.launches += 1
     form_blocks.dtypes[_dtype_name(coords)] += 1
     form_blocks.forms[form] += 1
-    return (out[0] if full else None), (out[-1] if packed else None)
+    asked = [k for k, v in (("full", full), ("packed", packed), ("diag", diag)) if v]
+    form_blocks.outputs.update(asked)
+    got = dict(zip(asked, out))
+    return got.get("full"), got.get("packed"), got.get("diag")
 
 
 form_blocks.launches = 0
 form_blocks.dtypes = Counter()  # launches by dtype name
 form_blocks.forms = Counter()  # launches by form (FORMS)
+form_blocks.outputs = Counter()  # launches that wrote each output: full, packed, diag
 
 
 # -- K5: the block-Jacobi rebuild --------------------------------------------------
@@ -1957,18 +1985,21 @@ def _jacobi_tail_ref(nodal: torch.Tensor, fixmask: torch.Tensor) -> torch.Tensor
 def jacobi_inverse_ref(blocks: torch.Tensor, plan: SegmentPlan, fixmask: torch.Tensor, *,
                        reduce=None, cols=None) -> torch.Tensor:
     """Plain version of K5, the chain it replaced: the 10 diagonal 3x3
-    blocks of every element sliced out of the element-major blocks (the
-    packed tiles unpacked first; with ``cols`` the plan's elements gathered
-    from their columns), their sum into nodes by :func:`segment_sum`
-    (K8's write form on the card, ``index_add_`` on the CPU), ``reduce``,
-    then :func:`_jacobi_tail_ref`.  Arguments as :func:`jacobi_inverse`."""
+    blocks of every element sliced out of the element-major blocks (or
+    made of K3's compact diagonal, each lower value its upper mirror; with
+    ``cols`` the plan's elements gathered from their columns), their sum
+    into nodes by :func:`segment_sum` (K8's write form on the card,
+    ``index_add_`` on the CPU), ``reduce``, then :func:`_jacobi_tail_ref`.
+    Arguments as :func:`jacobi_inverse`."""
     ne = plan.keys.shape[0] // 10
-    esm_t = blocks if blocks.shape[:2] == (30, 30) else unpack_blocks(blocks, ne)
-    if cols is not None:
-        esm_t = esm_t[:, :, cols]
-    idx = torch.arange(10, device=esm_t.device)
-    # diag[n, e] = esm[e, 3n:3n+3, 3n:3n+3] -> (10, ne, 3, 3)
-    diag = esm_t.permute(2, 0, 1).reshape(ne, 10, 3, 10, 3)[:, idx, :, idx, :]
+    if blocks.shape[:2] == (30, 30):
+        esm_t = blocks if cols is None else blocks[:, :, cols]
+        idx = torch.arange(10, device=esm_t.device)
+        # diag[n, e] = esm[e, 3n:3n+3, 3n:3n+3] -> (10, ne, 3, 3)
+        diag = esm_t.permute(2, 0, 1).reshape(ne, 10, 3, 10, 3)[:, idx, :, idx, :]
+    else:
+        upper = blocks if cols is None else blocks[:, cols]
+        diag = upper[:, :, [0, 1, 2, 1, 3, 4, 2, 4, 5]].reshape(10, ne, 3, 3)
     nodal = segment_sum(diag.reshape(-1, 3, 3).contiguous(), plan, rows=fixmask.shape[0] // 3)
     if reduce is not None:
         nodal = reduce(nodal)
@@ -1990,9 +2021,10 @@ def jacobi_inverse(blocks: torch.Tensor, plan: SegmentPlan, fixmask: torch.Tenso
     the top of ``csrc/jacobi_inverse.cu``).
 
     Args:
-      blocks: the element blocks of ne elements, element-major (30, 30, ne)
-        with any strides (K3's output, or a (ne, 30, 30) tensor's permuted
-        view) or K1's packed tiles (:func:`pack_blocks`).
+      blocks: K3's compact diagonal (10, ne, ``DIAG``) of ne elements
+        (:func:`form_blocks` with ``diag``, :func:`diag_sectors`'s layout),
+        the only input the card takes; on the CPU also the element-major
+        blocks (30, 30, ne) with any strides.
       plan: the write-form :class:`SegmentPlan` of their slot-major keys
         into fixmask's nodes (``ops/assembly.py::jacobi_plan``); its order
         is the sum's.
@@ -2008,36 +2040,36 @@ def jacobi_inverse(blocks: torch.Tensor, plan: SegmentPlan, fixmask: torch.Tenso
     tensors launch the kernel or raise (``jacobi_inverse.launches`` counts
     the launches, ``.dtypes`` and ``.forms`` them by dtype and form: one
     "fused", or with ``reduce`` a "sum" and a "tail").  The sum is K8's
-    write form's bits on the same blocks, the tail the torch tail's."""
+    write form's bits on the same (exactly symmetric) blocks, the tail the
+    torch tail's."""
     rows = fixmask.shape[0] // 3
     ne = plan.keys.shape[0] // 10
-    packed = blocks.dim() == 3 and blocks.shape[1] == NPACK
-    if not packed and tuple(blocks.shape) != (30, 30, ne):
-        raise ValueError(f"jacobi_inverse: blocks {tuple(blocks.shape)}; expected (30, 30, {ne}) "
-                         "or packed tiles")
+    sectors = tuple(blocks.shape) == (10, ne, DIAG)
+    if not sectors and tuple(blocks.shape) != (30, 30, ne):
+        raise ValueError(f"jacobi_inverse: blocks {tuple(blocks.shape)}; expected the compact "
+                         f"diagonal (10, {ne}, {DIAG}) or element-major (30, 30, {ne})")
     static = (blocks, fixmask, plan.keys, plan.order) + (() if cols is None else (cols,))
     if all(t.device.type == "cpu" for t in static):
         return jacobi_inverse_ref(blocks, plan, fixmask, reduce=reduce, cols=cols)
     if blocks.device.type != "cuda" or any(t.device != blocks.device for t in static):
         raise ValueError("jacobi_inverse: tensors on several devices; expected all on the CPU "
                          "or all on one CUDA device")
+    if not sectors:
+        raise ValueError("jacobi_inverse: on the card K5 reads K3's compact diagonal "
+                         "(form_blocks(..., diag=True)), not the element-major blocks")
     if blocks.dtype not in PACK_TILE or fixmask.dtype != blocks.dtype:
         raise TypeError(f"jacobi_inverse: dtypes {blocks.dtype}/{fixmask.dtype}; expected "
                         "float32 or float64 throughout")
     if cols is not None and (cols.dtype != torch.int64 or cols.shape != (ne,)):
         raise ValueError(f"jacobi_inverse: cols {cols.dtype} {tuple(cols.shape)}; expected "
                          f"int64 ({ne},)")
-    if packed and blocks.shape[2] != PACK_TILE[blocks.dtype]:
-        raise ValueError(f"jacobi_inverse: packed tiles {tuple(blocks.shape)}; expected "
-                         f"{PACK_TILE[blocks.dtype]} elements a tile")
     _node_plan_checks("jacobi_inverse", plan, rows, 10 * ne, blocks.device)
     build()
     tables = (plan.order, plan.offsets, plan.segs, plan.holes)
-    tile = blocks.shape[2] if packed else 0
     if reduce is None:
-        return _jacobi_launch("fused", blocks, tile, *tables, ne, rows, cols, fixmask, None)
-    nodal = reduce(_jacobi_launch("sum", blocks, tile, *tables, ne, rows, cols, None, None))
-    return _jacobi_launch("tail", None, 0, None, None, None, None, 0, rows, None, fixmask,
+        return _jacobi_launch("fused", blocks, *tables, rows, cols, fixmask, None)
+    nodal = reduce(_jacobi_launch("sum", blocks, *tables, rows, cols, None, None))
+    return _jacobi_launch("tail", None, None, None, None, None, rows, None, fixmask,
                           nodal.contiguous())
 
 

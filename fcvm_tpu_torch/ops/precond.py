@@ -135,10 +135,17 @@ def bound_precond(pc):
     return lambda r: asm.apply_block_precond(pc, r)
 
 
-def refresh_blocks(pc, esm, elnodes, fixmask, plan=None, packed=None):
+def rebuilds_jacobi(pc) -> bool:
+    """Whether :func:`refresh_blocks` rebuilds ``pc``'s block Jacobi (every
+    preconditioner but one with the cluster smoother), so its caller forms
+    the compact diagonal that the rebuild reads on the card."""
+    return not (isinstance(pc, TwoLevelPrecond) and pc.smooth_inv is not None)
+
+
+def refresh_blocks(pc, esm, elnodes, fixmask, plan=None, diag=None):
     """Rebuild the block-Jacobi part after a tangent refresh from the
-    blocks ``esm`` (ne, 30, 30), or from ``packed``, their packed tiles,
-    where given (``esm``, ``plan`` and ``packed`` as in
+    blocks ``esm`` (ne, 30, 30), or from ``diag``, their compact diagonal,
+    where given (``esm``, ``plan`` and ``diag`` as in
     :func:`~fcvm_tpu_torch.ops.assembly.block_jacobi_inverse_blocks`),
     keeping the two-level coarse correction of the elastic operator (a preconditioner only needs to stay SPD and
     spectrally close, as the reference keeps its elastic factor,
@@ -146,9 +153,9 @@ def refresh_blocks(pc, esm, elnodes, fixmask, plan=None, packed=None):
     :class:`TwoLevelPrecond`, or the nodal blocks of the block-Jacobi tier.
     A preconditioner with the cluster smoother is returned unchanged: its
     elastic cluster inverses stay, and nothing is rebuilt."""
-    if isinstance(pc, TwoLevelPrecond) and pc.smooth_inv is not None:
+    if not rebuilds_jacobi(pc):
         return pc
-    pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask, plan=plan, packed=packed)
+    pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask, plan=plan, diag=diag)
     if isinstance(pc, TwoLevelPrecond):
         return pc._replace(pinv=pinv)
     return pinv
@@ -314,15 +321,18 @@ def invert_coarse_with_ladder(kc, label: str = ""):
 
 def build_two_level(esm, elnodes, coords, fixmask, cluster_size: int = 64,
                     n_modes: int = 6, smoother: str = "jacobi3",
-                    smoother_cluster_nodes: int = 64) -> TwoLevelPrecond:
+                    smoother_cluster_nodes: int = 64, diag=None) -> TwoLevelPrecond:
     """Assemble the two-level preconditioner from element blocks.
 
     All inputs share one node/element numbering (the driver passes the
-    Morton solve-space views).  ``esm`` is (ne, 30, 30).  With
+    Morton solve-space views).  ``esm`` is (ne, 30, 30); ``diag``, their
+    compact diagonal (K3's), is what the block-Jacobi rebuild reads on the
+    card (see
+    :func:`~fcvm_tpu_torch.ops.assembly.block_jacobi_inverse_blocks`).  With
     ``smoother="cluster"`` the cluster smoother of ``smoother_cluster_nodes``
     nodes is built when that count divides the padded node count; an
     inverse with a NaN keeps block Jacobi, as in the JAX package."""
-    pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask)
+    pinv = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask, diag=diag)
     qmat = qmat_bc(coords, fixmask, cluster_size, n_modes)
     kc = coarse_accumulate(esm, elnodes, qmat, cluster_size)
     coarse_inv = stored_coarse(invert_coarse_with_ladder(kc))

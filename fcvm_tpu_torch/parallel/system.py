@@ -178,7 +178,7 @@ class ShardedSystem(TorchSystem):
     def operator(self, blocks: asm.Blocks):
         """``K_hat @ v`` in the solve space over this rank's ``blocks``
         (K3's :class:`~fcvm_tpu_torch.ops.assembly.Blocks`)."""
-        esm_t, packed = blocks
+        esm_t, packed = blocks.esm_t, blocks.packed
         local = asm.make_matvec(esm_t, self.eldofs_m_l, self.ndof_pad, self.incidence_l, packed)
         fm = self.space.fixmask_m
         free = 1.0 - fm
@@ -207,10 +207,11 @@ class ShardedSystem(TorchSystem):
 
     def _pinv_m(self, blocks: asm.Blocks):
         """Replicated (nn_pad, 3, 3) block-Jacobi inverses, Morton order, of
-        this rank's ``blocks``: K5's sum, the ``all_reduce``, K5's tail."""
+        this rank's ``blocks`` (on the card their compact diagonal): K5's
+        sum, the ``all_reduce``, K5's tail."""
         return asm.block_jacobi_inverse_blocks(blocks.esm, self.eln_m_l, self.space.fixmask_m,
                                                reduce=pdist.all_reduce, plan=self.jacobi_plan_l,
-                                               packed=blocks.packed)
+                                               diag=blocks.diag)
 
     def _external_loads(self, coords, disp, follower: bool):
         """:func:`fcvm_tpu_torch.runtime.system.external_loads` over this
@@ -249,7 +250,8 @@ class ShardedSystem(TorchSystem):
         elastic RHS (user order), this rank's Gauss-point coordinates,
         volume and load sums."""
         blocks = asm.operator_blocks("elastic", coords, self.eln_l, dmat=self.dmat_l,
-                                     weights=self.w_l, table=self.element_table, full=True)
+                                     weights=self.w_l, table=self.element_table, full=True,
+                                     diag=True)
         khat = self.operator(blocks)
         pinv = self._pinv_m(blocks)
         del blocks
@@ -356,7 +358,7 @@ class ShardedSystem(TorchSystem):
         blocks = asm.operator_blocks(
             "tangent", coords, self.eln_l, disp=disp_new, dmat=self.dmat_l, sig=sig_old,
             pgp=pgp, g=self.g_l, h=mat.hardening_modulus(self.e_l, et_e), weights=self.w_l,
-            table=self.element_table)
+            table=self.element_table, diag=True)
         pinv = self._pinv_m(blocks)
         pc_t = pc._replace(pinv=pinv) if isinstance(pc, TwoLevelPrecond) else pinv
         khat = self.operator(blocks)
@@ -437,7 +439,8 @@ class ShardedSystem(TorchSystem):
         dtype, fm = self.dtype, self.space.fixmask_m
         rtol = min(self.rtol, 1.0e-10)
         kb = asm.operator_blocks("elastic", coords, self.eln_l, dmat=self.dmat_l,
-                                 weights=self.w_l, table=self.element_table, full=True)
+                                 weights=self.w_l, table=self.element_table, full=True,
+                                 diag=True)
         gb = asm.operator_blocks("geometric", coords, self.eln_l, sig=sig_el_gp,
                                  weights=self.w_l, table=self.element_table)
         khat = self.operator(kb)

@@ -296,10 +296,11 @@ def buckling_from_arrays(
     # and penalty tiers read them) and, on the card, both operators' packed
     # tiles, which K_hat·V, -G_hat·V, the harvest's K_hat·v and the
     # deflation build share; G_hat's element-major blocks only for the
-    # penalty pencil (and on the CPU, whose plain versions read them)
+    # penalty pencil (and on the CPU, whose plain versions read them); K_hat's
+    # compact diagonal where the CG tier's block Jacobi (K5) reads it
     perm = None if space is None else space.eperm
     kb = asm.operator_blocks("elastic", coords.to(dtype), elnodes, dmat=dmat.to(dtype),
-                             perm=perm, full=True)
+                             perm=perm, full=True, diag=not penalty and solver != "scipy")
     gb = asm.operator_blocks("geometric", coords.to(dtype), elnodes, sig=sig_gp.to(dtype),
                              perm=perm, full=penalty)
     esm = kb.esm  # (ne, 30, 30), a view
@@ -329,7 +330,7 @@ def buckling_from_arrays(
                 coords, elnodes_in, dmat, sig_gp, fixmask_in, space=None,
                 allow_reassembly=allow_reassembly, _dtype_override=torch.float64, **retry)
 
-    esm_t, packed = kb
+    esm_t, packed, diag = kb
     # one incidence table, shared by K_hat·V, -G_hat·V, the harvest's
     # K_hat·v and the deflation build
     inc = space.incidence if space is not None else asm.node_incidence(elnodes, ndof // 3)
@@ -349,9 +350,9 @@ def buckling_from_arrays(
             pc = build_two_level(esm.contiguous(), elnodes, coords_work, fixmask,
                                  cluster_size=cfg.resolve_cluster_size(coords.shape[0]),
                                  n_modes=cfg.coarse_modes, smoother=cfg.smoother,
-                                 smoother_cluster_nodes=cfg.smoother_cluster_nodes)
+                                 smoother_cluster_nodes=cfg.smoother_cluster_nodes, diag=diag)
         else:
-            pc = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask, packed=packed)
+            pc = asm.block_jacobi_inverse_blocks(esm, elnodes, fixmask, diag=diag)
         nstore, k_defl = _recycling_params(ndof, esm.element_size())
         kv = asm.make_bc_matvec(esm_t, eldofs, fixmask, incidence=inc, packed=packed)
 
@@ -371,7 +372,7 @@ def buckling_from_arrays(
             kinv, harvest,
             lambda zs, coef: dfl.build_space(esm_t, eldofs, fixmask, zs, coef, inc, packed),
             k_defl, cfg.deflation_min_iters, cfg.deflation, record=record)
-    del esm, kb
+    del esm, kb, diag
 
     try:
         lam, vecs = pencil_subspace(

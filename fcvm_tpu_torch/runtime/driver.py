@@ -359,6 +359,8 @@ def _solve_collapse_impl(model, params, continuation, checkpoint_path, resume_fr
         with timers.phase("precond_build"):
             pc = backend.operator_pc(khat, pinv)
         del pinv
+        if getattr(khat, "diag", None) is not None:  # the compact diagonal the build read
+            khat = khat._replace(diag=None)
         esc = COARSE_BUILD_STATS["ridge_escalations"] - before[0]
         fb = COARSE_BUILD_STATS["zero_coarse_fallbacks"] - before[1]
         cg_stats["coarse_ridge_escalations"] += esc

@@ -14,7 +14,8 @@ and the operator's element blocks are formed by K3 in the solve space's
 element order (:func:`assemble_operator`, :func:`tangent_refresh`), stored
 element-major and, on the card, as K1's packed tiles from the same launch,
 once per operator (:func:`make_operator`), not on every solve; the
-block-Jacobi rebuild is K5, one launch.  Every fixed set of keys
+block-Jacobi rebuild is K5, one launch on the compact diagonal K3 writes
+beside them.  Every fixed set of keys
 of a node sum (the elements', the load tables', the block-Jacobi rebuild's)
 gets its K8 segment plan once, here or on the backend.
 """
@@ -32,7 +33,8 @@ from fcvm_tpu_torch.ops import kernels
 from fcvm_tpu_torch.ops import material as mat
 from fcvm_tpu_torch.ops import solver as slv
 from fcvm_tpu_torch.ops.kernels import NodeIncidence, SegmentPlan
-from fcvm_tpu_torch.ops.precond import bound_precond, build_two_level, refresh_blocks
+from fcvm_tpu_torch.ops.precond import (bound_precond, build_two_level, rebuilds_jacobi,
+                                         refresh_blocks)
 from fcvm_tpu_torch.ops.stress_update import update_stress_load
 from fcvm_tpu_torch.utils.ordering import morton_perm
 
@@ -177,12 +179,14 @@ class Operator(NamedTuple):
     element-major (30, 30, ne) (on the card None where no caller reads them:
     a tangent refresh's, but for the scipy tier), their packed tiles that K1
     reads on the card (K3's, :func:`fcvm_tpu_torch.ops.kernels.pack_blocks`'s
-    layout; None on the CPU), and the matvec over them.  Calling it applies
-    the matvec."""
+    layout; None on the CPU), the matvec over them, and the elastic
+    operator's compact diagonal on the card (K3's, which the two-level
+    build's K5 reads; None elsewhere).  Calling it applies the matvec."""
 
     esm_t: torch.Tensor
     matvec: Callable
     packed: torch.Tensor = None
+    diag: torch.Tensor = None
 
     def __call__(self, v):
         return self.matvec(v)
@@ -193,8 +197,8 @@ def make_operator(blocks: asm.Blocks, space: SolveSpace) -> Operator:
     (:class:`~fcvm_tpu_torch.ops.assembly.Blocks`) in the solve space's
     element order: K3's (its packed tiles, and its element-major blocks
     where formed), or :func:`~fcvm_tpu_torch.ops.assembly.blocks_of` a
-    tensor."""
-    esm_t, packed = blocks
+    tensor; the compact diagonal is not kept."""
+    esm_t, packed = blocks.esm_t, blocks.packed
     return Operator(esm_t, asm.make_bc_matvec(esm_t, space.eldofs_m, space.fixmask_m,
                                               space.incidence, packed), packed)
 
@@ -204,8 +208,9 @@ def assemble_operator(coords, elnodes, dmat, loads: LoadTables, density, fixmask
     """The elastic system (``calcGSM``, ``fcVM.py:620-816``): the operator
     formed by K3 in the solve space's element order (one launch: its
     element-major blocks, which the two-level build reads, and on the card
-    K1's packed tiles), K5's nodal block-Jacobi inverses over them (user
-    node order), the loads and the elastic right-hand side (user dof
+    K1's packed tiles and the compact diagonal, which the operator keeps
+    for the two-level build), K5's nodal block-Jacobi inverses over them
+    (user node order), the loads and the elastic right-hand side (user dof
     order); ``plan`` as in :func:`external_loads`, ``table`` the
     user-order element table K3 reads (made on the card when not given).
     The inverses sum each node's blocks in user element order
@@ -216,10 +221,10 @@ def assemble_operator(coords, elnodes, dmat, loads: LoadTables, density, fixmask
     right-hand side, the Gauss-point coordinates, the volume and the load
     sums."""
     blocks = asm.operator_blocks("elastic", coords, elnodes, dmat=dmat, perm=space.eperm,
-                                 table=table, full=True)
-    khat = make_operator(blocks, space)
+                                 table=table, full=True, diag=True)
+    khat = make_operator(blocks, space)._replace(diag=blocks.diag)
     pinv = asm.block_jacobi_inverse_blocks(blocks.esm, elnodes, fixmask, cols=space.epos,
-                                           packed=blocks.packed)
+                                           diag=blocks.diag)
     glv, gp_coords, volume, loadsums = external_loads(
         coords, torch.zeros_like(u_fix), elnodes, loads, density, follower=False, plan=plan)
     rhs = asm.dirichlet_rhs(khat.esm_t, space.eldofs_m, space.fixmask_m, space.to_m(u_fix),
@@ -230,12 +235,13 @@ def assemble_operator(coords, elnodes, dmat, loads: LoadTables, density, fixmask
 def operator_precond(khat: Operator, cluster_size: int, space: SolveSpace, n_modes: int,
                      smoother: str = "jacobi3", smoother_cluster_nodes: int = 64):
     """Two-level preconditioner on the blocks ``khat`` holds (formed in the
-    solve space's order by :func:`assemble_operator`), with the fine level
+    solve space's order by :func:`assemble_operator`; on the card its block
+    Jacobi from the compact diagonal ``khat`` keeps), with the fine level
     ``smoother`` (see :func:`build_two_level`)."""
     return build_two_level(khat.esm_t.permute(2, 0, 1).contiguous(), space.elnodes_m,
                            space.coords_m, space.fixmask_m, cluster_size=cluster_size,
                            n_modes=n_modes, smoother=smoother,
-                           smoother_cluster_nodes=smoother_cluster_nodes)
+                           smoother_cluster_nodes=smoother_cluster_nodes, diag=khat.diag)
 
 
 def solve_displacement(khat, pc, b, rtol, maxiter: int, space: SolveSpace,
@@ -373,14 +379,14 @@ def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTa
     on ``coords`` moved by ``disp_new`` (the Gauss state ``sig_old``/``pgp``,
     and per-element ``dmat`` (ne, 6, 6), ``g`` and ``h`` (ne,), come in user
     order, and K3 reads them, and the user-order element ``table``, at each
-    block's element); on the card as K1's packed tiles alone, unless
-    ``full`` asks for the element-major blocks too (the scipy tier reads
-    them); the two-level coarse correction of ``pc`` is kept and only
-    the nodal blocks are rebuilt, by K5 from those tiles
-    (:func:`refresh_blocks`; a cluster smoother is kept as well, and
-    nothing is rebuilt).  A float64 ``disp_new`` (the refinement tier's) is
-    cast to the storage dtype of ``coords``: the tangent operator stays in
-    it.
+    block's element); on the card as K1's packed tiles and the compact
+    diagonal, unless ``full`` asks for the element-major blocks too (the
+    scipy tier reads them); the two-level coarse correction of ``pc`` is
+    kept and only the nodal blocks are rebuilt, by K5 from that diagonal
+    (:func:`refresh_blocks`; a cluster smoother is kept as well, nothing is
+    rebuilt and no diagonal is formed).  A float64 ``disp_new`` (the
+    refinement tier's) is cast to the storage dtype of ``coords``: the
+    tangent operator stays in it.
 
     The predictor is warm-started from the previous predictor ``ue0`` (two
     successive tangents differ by one Newton update).  ``w``, a load-rhs
@@ -396,9 +402,9 @@ def tangent_refresh(coords, elnodes, dmat, sig_old, pgp, disp_new, loads: LoadTa
     disp_new = disp_new.to(coords.dtype)
     blocks = asm.operator_blocks("tangent", coords, elnodes, disp=disp_new, dmat=dmat,
                                  sig=sig_old, pgp=pgp, g=g, h=h, perm=space.eperm, table=table,
-                                 full=full)
+                                 full=full, diag=rebuilds_jacobi(pc))
     pc_t = refresh_blocks(pc, blocks.esm, space.elnodes_m, space.fixmask_m, space.jacobi_plan,
-                          packed=blocks.packed)
+                          diag=blocks.diag)
     khat = make_operator(blocks, space)
     del blocks
     glv_t, *_ = external_loads(coords, disp_new, elnodes, loads, density, follower=True,

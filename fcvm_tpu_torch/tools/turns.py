@@ -23,13 +23,17 @@ process of its own):
                                                        # shapes, the plate's residual
     python fcvm_tpu_torch/tools/turns.py TREE headline # TREE's bench headline: one plastic
                                                        # step of the plate (min of 3)
-    python fcvm_tpu_torch/tools/turns.py TREE form     # phase 3g: K3 and K5 at the paths'
-                                                       # shapes (a tree with them)
+    python fcvm_tpu_torch/tools/turns.py TREE form     # TREE's own phase 3g: K3 and K5 at
+                                                       # the paths' shapes (a tree with them)
     python fcvm_tpu_torch/tools/turns.py TREE gnl      # phases 8 and 8b (the GNL plate's
                                                        # stepping and counts; the refresh's
                                                        # pieces)
     python fcvm_tpu_torch/tools/turns.py TREE k2bits   # SHA-256 of K2's outputs at phase
                                                        # 3f's inputs (two trees' K2 bits)
+    python fcvm_tpu_torch/tools/turns.py TREE formbits # SHA-256 of K3's and K5's outputs at
+                                                       # phase 3g's inputs (two trees' bits;
+                                                       # a tree whose K3 writes no compact
+                                                       # diagonal: its tiles' slices)
     python fcvm_tpu_torch/tools/turns.py TREE assembly # TREE's bench assembly of the
                                                        # plate (tools.bench._assemble), 20
                                                        # times after a first, and the
@@ -50,7 +54,9 @@ checkout's ``chip_smoke.py``, except for ``cg``, which runs TREE's own
 ``chip_smoke.py`` phase 3c (K1 and K4 as that tree calls them, against
 its plain versions, the chain K1 replaced and cuSPARSE) on the plate, and
 ``k2``, which runs TREE's own phase 3f (K2 and the residual as that tree
-runs them) on the plate and the beam-column, ``gnl``'s phase 8b, TREE's
+runs them) on the plate and the beam-column, ``form``, TREE's own phase 3g
+(K3 and K5 at the outputs and inputs that tree's paths give them),
+``gnl``'s phase 8b, TREE's
 own (the refresh's pieces as that tree runs them), and ``headline``, TREE's
 ``tools.bench.step_time`` of the plate.  Prints the card's ``nvidia-smi`` name and
 power limit, then one JSON line.  Needs a CUDA device.  A tree from before
@@ -220,9 +226,10 @@ def main(tree: str, part: str) -> dict:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip()
-        models = {"plate": smoke.plate_model(smoke.PLATE_BIG),
-                  "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)}
-        out["form"] = {k: keyed_rows(v) for k, v in smoke.form_phase(models, smi).items()}
+        tsmoke = tree_smoke(tree)
+        models = {"plate": tsmoke.plate_model(tsmoke.PLATE_BIG),
+                  "column": tsmoke.column_model(tsmoke.COL_BIG, tsmoke.COL_W, tsmoke.COL_T)}
+        out["form"] = {k: keyed_rows(v) for k, v in tsmoke.form_phase(models, smi).items()}
     elif part == "gnl":
         big = smoke.plate_model(smoke.PLATE_BIG)
         cfg = FcvmConfig(device="cuda", dtype="float32")
@@ -242,6 +249,13 @@ def main(tree: str, part: str) -> dict:
                   "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)}
         out["k2bits"] = smoke.k2_digests(models)
         print(json.dumps(out["k2bits"]))
+    elif part == "formbits":
+        if not hasattr(kernels, "form_blocks_ref"):
+            raise SystemExit("turns.py: this tree has no K3 and K5")
+        models = {"plate": smoke.plate_model(smoke.PLATE_BIG),
+                  "column": smoke.column_model(smoke.COL_BIG, smoke.COL_W, smoke.COL_T)}
+        out["formbits"] = smoke.form_digests(models)
+        print(json.dumps(out["formbits"]))
     elif part == "assembly":
         from fcvm_tpu_torch.tools import bench as tb
 

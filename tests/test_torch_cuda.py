@@ -1759,40 +1759,48 @@ def test_form_blocks_kernel_matches_plain(cuda, dtype, form, per_element, varian
     1e-12 of ``max |block|``; in float32 no farther from the float64 plain
     version than twice the float32 plain version; two launches counted; its
     blocks exactly symmetric, its packed tiles bit for bit ``pack_blocks``
-    of its own element-major blocks, a second launch the same bits."""
+    of its own element-major blocks and its compact diagonal their
+    ``diag_sectors``, a second launch the same bits."""
     coords, eln, inputs, weights, perm = _k3_inputs(dtype, per_element)
     kw = dict(inputs[form])
     if variant == "permuted_weighted":
         kw.update(perm=perm, weights=weights)
     launches = kernels.form_blocks.launches
-    esm_t, packed = kernels.form_blocks(form, coords, eln, full=True, packed=True, **kw)
-    again = kernels.form_blocks(form, coords, eln, full=True, packed=True, **kw)
+    esm_t, packed, diag = kernels.form_blocks(form, coords, eln, full=True, packed=True,
+                                              diag=True, **kw)
+    again = kernels.form_blocks(form, coords, eln, full=True, packed=True, diag=True, **kw)
     torch.cuda.synchronize()
     assert kernels.form_blocks.launches == launches + 2
-    assert torch.equal(esm_t, again[0]) and torch.equal(packed, again[1])
+    assert all(torch.equal(a, b) for a, b in zip((esm_t, packed, diag), again))
     assert torch.equal(esm_t, esm_t.transpose(0, 1))
     assert torch.equal(packed, kernels.pack_blocks(esm_t))
-    want, _ = kernels.form_blocks_ref(form, coords, eln, **kw)
+    assert torch.equal(diag, kernels.diag_sectors(esm_t))
+    want = kernels.form_blocks_ref(form, coords, eln, **kw)[0]
     if dtype == torch.float64:
         assert _rel(esm_t, want) <= 1e-12
     else:
-        exact, _ = kernels.form_blocks_ref(form, coords.double(), eln, **_as64(kw))
+        exact = kernels.form_blocks_ref(form, coords.double(), eln, **_as64(kw))[0]
         assert _rel(esm_t.double(), exact) <= 2 * max(_rel(want.double(), exact), 1e-7)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
 def test_form_blocks_outputs_one_or_both(cuda, dtype):
-    """The packed tiles alone and the element-major blocks alone are the
-    bits of the call that writes both, and ``assembly.operator_blocks``
-    takes the packed tiles (the element-major blocks only with ``full``)."""
+    """The packed tiles, the element-major blocks and the compact diagonal
+    each alone are the bits of the call that writes all three, and
+    ``assembly.operator_blocks`` takes the packed tiles (the element-major
+    blocks only with ``full``, the diagonal only with ``diag``)."""
     coords, eln, inputs, _, perm = _k3_inputs(dtype, False)
     kw = dict(inputs["tangent"], perm=perm)
-    both = kernels.form_blocks("tangent", coords, eln, full=True, packed=True, **kw)
+    every = kernels.form_blocks("tangent", coords, eln, full=True, packed=True, diag=True, **kw)
     assert torch.equal(kernels.form_blocks("tangent", coords, eln, full=False, packed=True,
-                                           **kw)[1], both[1])
-    assert torch.equal(kernels.form_blocks("tangent", coords, eln, **kw)[0], both[0])
+                                           **kw)[1], every[1])
+    assert torch.equal(kernels.form_blocks("tangent", coords, eln, **kw)[0], every[0])
+    assert torch.equal(kernels.form_blocks("tangent", coords, eln, full=False, diag=True,
+                                           **kw)[2], every[2])
     blocks = tasm.operator_blocks("tangent", coords, eln, **kw)
-    assert blocks.esm_t is None and torch.equal(blocks.packed, both[1])
+    assert blocks.esm_t is None and blocks.diag is None and torch.equal(blocks.packed, every[1])
+    blocks = tasm.operator_blocks("tangent", coords, eln, diag=True, **kw)
+    assert torch.equal(blocks.packed, every[1]) and torch.equal(blocks.diag, every[2])
 
 
 def test_form_blocks_rejects_what_it_does_not_take(cuda):
@@ -1818,27 +1826,24 @@ def test_form_blocks_rejects_what_it_does_not_take(cuda):
 
 
 def _k5_inputs(dtype, layout, seed=33):
-    """K5's inputs on the card: K3's elastic blocks of the box in the
-    ``layout`` K5 reads, the rebuild's plan, a fixmask with the x = 0 face
-    and a seeded tenth of the dofs fixed; with ``layout`` "permuted" the
-    blocks in a permuted element order and ``cols``."""
+    """K5's inputs on the card: K3's compact diagonal of the box's elastic
+    blocks, the rebuild's plan, a fixmask with the x = 0 face and a seeded
+    tenth of the dofs fixed, and K3's element-major blocks; with ``layout``
+    "permuted" the diagonal of the elements in a permuted order (K3's
+    ``perm``) and ``cols``."""
     coords, eln, inputs, _, perm = _k3_inputs(dtype, True)
     nn = coords.shape[0]
     fm = (np.random.default_rng(seed).uniform(size=3 * nn) > 0.1).astype(float)
     fm.reshape(-1, 3)[coords[:, 0].cpu().numpy() < 1e-9, 0] = 0.0
     fixmask = torch.as_tensor(fm, device=coords.device).to(dtype)
     plan = tasm.jacobi_plan(eln, nn)
-    esm_t, packed = kernels.form_blocks("elastic", coords, eln, packed=True, **inputs["elastic"])
+    esm_t, _, diag = kernels.form_blocks("elastic", coords, eln, diag=True, **inputs["elastic"])
     cols = None
-    if layout == "packed":
-        blocks = packed
-    elif layout == "view":
-        blocks = esm_t.permute(2, 0, 1).contiguous().permute(1, 2, 0)
-    elif layout == "permuted":
-        blocks, cols = esm_t[:, :, perm].contiguous(), torch.argsort(perm)
-    else:
-        blocks = esm_t
-    return blocks, plan, fixmask, cols, esm_t
+    if layout == "permuted":
+        diag = kernels.form_blocks("elastic", coords, eln, full=False, diag=True, perm=perm,
+                                   **inputs["elastic"])[2]
+        cols = torch.argsort(perm)
+    return diag, plan, fixmask, cols, esm_t
 
 
 def _ulps(a, b):
@@ -1847,11 +1852,13 @@ def _ulps(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
-@pytest.mark.parametrize("layout", ["element_major", "view", "packed", "permuted"])
+@pytest.mark.parametrize("layout", ["diag", "permuted"])
 def test_jacobi_inverse_kernel_matches_plain(cuda, dtype, layout):
-    """K5's sum bit for bit K8's write form on the same blocks, its inverses
-    within 4 ulps of the torch tail (bit for bit expected), the fused form
-    one launch, the sum-reduce-tail form the fused form's bits."""
+    """K5 on K3's compact diagonal: its sum bit for bit K8's write form on
+    the element-major blocks' diagonal slices, its inverses within 4 ulps
+    of the torch tail (bit for bit expected), the fused form one launch,
+    the sum-reduce-tail form the fused form's bits, the plain version on
+    the same diagonal the same bits."""
     blocks, plan, fixmask, cols, esm_t = _k5_inputs(dtype, layout)
     launches = kernels.jacobi_inverse.launches
     got = kernels.jacobi_inverse(blocks, plan, fixmask, cols=cols)
@@ -1877,20 +1884,28 @@ def test_jacobi_inverse_kernel_matches_plain(cuda, dtype, layout):
 
 
 def test_jacobi_inverse_rejects_what_it_does_not_take(cuda):
-    blocks, plan, fixmask, _, esm_t = _k5_inputs(torch.float32, "packed")
+    """No fallback on the card: the element-major blocks (the plain
+    version's input), a diagonal of another shape, a mask of another dtype
+    or device, a ``cols`` of another length and a plan of the accumulating
+    form raise before any launch."""
+    blocks, plan, fixmask, _, esm_t = _k5_inputs(torch.float32, "diag")
+    launches = kernels.jacobi_inverse.launches
     with pytest.raises(TypeError):
         kernels.jacobi_inverse(blocks, plan, fixmask.double())
     with pytest.raises(ValueError):
         kernels.jacobi_inverse(blocks, plan, fixmask.cpu())
     with pytest.raises(ValueError):
+        kernels.jacobi_inverse(esm_t, plan, fixmask)  # element-major: the CPU's input
+    with pytest.raises(ValueError):
         kernels.jacobi_inverse(esm_t.permute(2, 0, 1), plan, fixmask)
     with pytest.raises(ValueError):
-        kernels.jacobi_inverse(blocks[:, :, :128].contiguous(), plan, fixmask)
+        kernels.jacobi_inverse(blocks[:, :, :6].contiguous(), plan, fixmask)
     with pytest.raises(ValueError):
-        kernels.jacobi_inverse(esm_t, plan, fixmask, cols=torch.arange(3, device=cuda))
+        kernels.jacobi_inverse(blocks, plan, fixmask, cols=torch.arange(3, device=cuda))
     accumulating = kernels.segment_plan(plan.keys)  # no rows: not the write form
     with pytest.raises(ValueError):
-        kernels.jacobi_inverse(esm_t, accumulating, fixmask)
+        kernels.jacobi_inverse(blocks, accumulating, fixmask)
+    assert kernels.jacobi_inverse.launches == launches
 
 
 def test_k2_and_k3_share_their_geometry(cuda):
@@ -1906,7 +1921,7 @@ def test_k2_and_k3_share_their_geometry(cuda):
     sy = torch.full((eln.shape[0], 4), 1e30, dtype=torch.float64, device=cuda)
     elv = kernels.stress_update(coords, eln, u, sig0, du=u, dmat=dmat, sig_yield=sy,
                                 g=80769.0, h=1e3)[3]
-    esm_t, _ = kernels.form_blocks("elastic", coords, eln, dmat=dmat)
+    esm_t = kernels.form_blocks("elastic", coords, eln, dmat=dmat)[0]
     ue = u.reshape(-1, 3)[eln].reshape(-1, 30)
     ku = torch.einsum("ije,ej->ei", esm_t, ue)
     assert _rel(elv, ku) <= 1e-12

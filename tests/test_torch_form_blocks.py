@@ -7,21 +7,27 @@ the CPU, float64.
   ``geometric_stiffness_blocks`` to ``RTOL`` of ``max |block|``, on a box and
   the small plate: mixed plastic flags, a Gauss point with zero stress,
   one D or a D, G and H per element; its packed tiles bit for bit
-  ``pack_blocks`` of its element-major blocks; a permuted element order the
-  permuted blocks, bit for bit; element weights scale the blocks.
-* A NumPy transcription of ``csrc/form_blocks.cu`` (the geometry of
-  ``csrc/tet10.cuh``, whose table is read from its source; s_g D_g's upper
-  21 values; each node pair a <= b in the kernel's row-major order, D B_b
-  then B_a^T (D B_b); the packed index and the mirrored element-major
-  store) against JAX to ``RTOL``: the index check of the kernel that runs
-  without a card.
+  ``pack_blocks`` of its element-major blocks and its compact diagonal
+  their diagonal slices (``diag_sectors``), with and without a permuted
+  element order; a permuted element order the permuted blocks, bit for
+  bit; element weights scale the blocks.
+* A NumPy transcription of ``csrc/form_blocks.cu`` (each element's nodes
+  gathered once; the geometry of ``csrc/tet10.cuh``, whose table is read
+  from its source; s_g D_g's upper 21 values; each node pair a <= b in the
+  kernel's row-major order, D B_b then B_a^T (D B_b); the packed index, the
+  mirrored element-major store and the compact diagonal's sector) against
+  JAX to ``RTOL``: the index check of the kernel that runs without a
+  card.
 * K5's plain version (``kernels.jacobi_inverse_ref``) against JAX's
   ``block_jacobi_inverse_blocks``, bit for bit the chain it replaced (the
-  slice, K8's write form, the torch tail), on element-major and packed
-  blocks, with the blocks in another element order than the plan's
-  (``cols``), and its sum-reduce-tail form against the fused one; a NumPy
-  transcription of ``csrc/jacobi_inverse.cu`` (the plan's order, the packed
-  mirror, each rounding of the tail) bit for bit.
+  slice, K8's write form, the torch tail), on element-major blocks and on
+  the compact diagonal of symmetric ones, with the blocks in another
+  element order than the plan's (``cols``), and its sum-reduce-tail form
+  against the fused one; a NumPy transcription of
+  ``csrc/jacobi_inverse.cu`` (the units in row order, each incidence's
+  sector, the upper sums mirrored, each rounding of the tail) bit for bit,
+  and the same bits with the units sorted by count (the plan's walk, the
+  probe's order).
 * Both wrappers have no fallback: no ``try``, their plain versions only on
   CPU tensors, and they refuse what they do not take.
 """
@@ -120,12 +126,13 @@ def _close(got, ref):
 def test_plain_version_matches_jax(name, form, material):
     """The three forms, each mesh and material, against the JAX package;
     the packed tiles of the same call bit for bit ``pack_blocks`` of its
-    element-major blocks."""
+    element-major blocks, its compact diagonal their ``diag_sectors``."""
     c = _case(name, material)
-    esm_t, packed = kernels.form_blocks(form, t64(c["coords"]), ti(c["eln"]), full=True,
-                                        packed=True, **_inputs(form, c))
+    esm_t, packed, diag = kernels.form_blocks(form, t64(c["coords"]), ti(c["eln"]), full=True,
+                                              packed=True, diag=True, **_inputs(form, c))
     _close(esm_t.permute(2, 0, 1).numpy(), _jax_blocks(form, c))
     assert torch.equal(packed, kernels.pack_blocks(esm_t))
+    assert torch.equal(diag, kernels.diag_sectors(esm_t))
     assert form_launches() == 0
 
 
@@ -137,9 +144,31 @@ def test_permuted_elements_give_permuted_blocks(form):
     c = _case("plate", "per element")
     perm = torch.as_tensor(np.random.default_rng(3).permutation(c["ne"]))
     args = (t64(c["coords"]), ti(c["eln"]))
-    base, _ = kernels.form_blocks(form, *args, **_inputs(form, c))
-    moved, _ = kernels.form_blocks(form, *args, perm=perm, **_inputs(form, c))
+    base = kernels.form_blocks(form, *args, **_inputs(form, c))[0]
+    moved = kernels.form_blocks(form, *args, perm=perm, **_inputs(form, c))[0]
     assert torch.equal(moved, base[:, :, perm])
+
+
+@pytest.mark.parametrize("permuted", [False, True], ids=["input_order", "permuted"])
+@pytest.mark.parametrize("form", kernels.FORMS)
+def test_diag_is_the_blocks_diagonal_slices(form, permuted):
+    """The compact diagonal, with and without ``perm``: for incidence
+    ``slot ne + e`` the 6 upper values of output element e's diagonal block
+    (slot, slot), row-major, bit for bit the element-major blocks' slices,
+    then two zeros; in the permuted order the unpermuted call's columns."""
+    c = _case("plate", "per element")
+    perm = torch.as_tensor(np.random.default_rng(4).permutation(c["ne"])) if permuted else None
+    args = (t64(c["coords"]), ti(c["eln"]))
+    esm_t, _, diag = kernels.form_blocks(form, *args, perm=perm, diag=True, **_inputs(form, c))
+    assert diag.shape == (10, c["ne"], kernels.DIAG)
+    for slot in range(10):
+        block = esm_t[3 * slot:3 * slot + 3, 3 * slot:3 * slot + 3]  # (3, 3, ne)
+        upper = [block[r, q] for r in range(3) for q in range(r, 3)]
+        assert torch.equal(diag[slot, :, :6], torch.stack(upper, dim=1))
+    assert not diag[:, :, 6:].any()
+    if permuted:
+        base = kernels.form_blocks(form, *args, full=False, diag=True, **_inputs(form, c))[2]
+        assert torch.equal(diag, base[:, perm])
 
 
 @pytest.mark.parametrize("form", kernels.FORMS)
@@ -150,20 +179,20 @@ def test_weights_scale_the_blocks(form):
     w = torch.as_tensor((np.random.default_rng(5).random(c["ne"]) > 0.2).astype(float)
                         * np.random.default_rng(6).uniform(0.5, 1.5, c["ne"]))
     args = (t64(c["coords"]), ti(c["eln"]))
-    base, _ = kernels.form_blocks(form, *args, **_inputs(form, c))
-    scaled, _ = kernels.form_blocks(form, *args, weights=w, **_inputs(form, c))
+    base = kernels.form_blocks(form, *args, **_inputs(form, c))[0]
+    scaled = kernels.form_blocks(form, *args, weights=w, **_inputs(form, c))[0]
     assert torch.equal(scaled, base * w)
     assert not scaled[:, :, w == 0].any()
 
 
 def test_operator_blocks_on_the_cpu():
     """``assembly.operator_blocks`` on CPU tensors: the element-major blocks,
-    contiguous, no packed tiles; the (ne, 30, 30) functions the chain's
-    output itself."""
+    contiguous, no packed tiles and no compact diagonal, asked for or not;
+    the (ne, 30, 30) functions the chain's output itself."""
     c = _case("box", "one")
     blocks = tasm.operator_blocks("elastic", t64(c["coords"]), ti(c["eln"]),
-                                  dmat=t64(c["dmat"]))
-    assert blocks.packed is None and blocks.esm_t.is_contiguous()
+                                  dmat=t64(c["dmat"]), diag=True)
+    assert blocks.packed is None and blocks.diag is None and blocks.esm_t.is_contiguous()
     esm = tasm.elastic_stiffness_blocks(t64(c["coords"]), ti(c["eln"]), t64(c["dmat"]))
     assert esm.is_contiguous() and torch.equal(esm.permute(1, 2, 0), blocks.esm_t)
 
@@ -208,7 +237,7 @@ def _pairs():
 
 def _k3_transcribed(form, c, tile):
     """``csrc/form_blocks.cu`` on every element at once: (full (30, 30, ne),
-    packed (ntiles, 465, tile))."""
+    packed (ntiles, 465, tile), diag (10, ne, 8))."""
     table, weight = _geometry_table()
     ne = c["ne"]
     nodes = kernels.element_table(ti(c["eln"])).numpy()  # (10, ne) int32
@@ -265,6 +294,7 @@ def _k3_transcribed(form, c, tile):
     full = np.empty((30, 30, ne))
     ntiles = -(-ne // tile)
     packed = np.zeros((ntiles, 465, tile))
+    sectors = np.zeros((10, ne, 8))
     for a, b in _pairs():
         acc = np.zeros((3, 3, ne))
         for g in range(4):
@@ -294,7 +324,9 @@ def _k3_transcribed(form, c, tile):
                 flat = np.zeros(ntiles * tile)
                 flat[:ne] = v
                 packed[:, _packed_index(i, j)] = flat.reshape(ntiles, tile)
-    return full, packed
+                if a == b:  # the diagonal's sector: the upper values, row-major
+                    sectors[a, :, ri * 3 - ri * (ri - 1) // 2 + (ci - ri)] = v
+    return full, packed, sectors
 
 
 @pytest.mark.parametrize("material", MATERIALS)
@@ -302,12 +334,14 @@ def _k3_transcribed(form, c, tile):
 def test_kernel_transcription_matches_jax(form, material):
     """The kernel's steps against the JAX package's blocks; its packed tiles
     ``pack_blocks`` of its element-major blocks (the packed index, the
-    padding zeros), which are symmetric by construction."""
+    padding zeros), which are symmetric by construction, and its compact
+    diagonal their ``diag_sectors``."""
     c = _case("plate", material)
     tile = kernels.PACK_TILE[F64]
-    full, packed = _k3_transcribed(form, c, tile)
+    full, packed, diag = _k3_transcribed(form, c, tile)
     _close(full.transpose(2, 0, 1), _jax_blocks(form, c))
     assert np.array_equal(packed, kernels.pack_blocks(torch.as_tensor(full)).numpy())
+    assert np.array_equal(diag, kernels.diag_sectors(torch.as_tensor(full)).numpy())
 
 
 def test_kernel_table_is_the_elements_table():
@@ -344,9 +378,9 @@ def _replaced_chain(esm, plan, fixmask):
 
 def test_jacobi_matches_jax_and_the_chain():
     """Against the JAX package's block Jacobi to ``RTOL``; bit for bit the
-    chain it replaced; on the packed tiles of symmetric blocks bit for bit
-    the element-major form; with ``cols`` (the blocks in a permuted order)
-    bit for bit the unpermuted call."""
+    chain it replaced; on the compact diagonal of symmetric blocks bit for
+    bit the element-major form; with ``cols`` (the blocks, and their
+    diagonal, in a permuted order) bit for bit the unpermuted call."""
     c, esm, fm, plan = _jacobi_case()
     ref = np.asarray(jasm.block_jacobi_inverse_blocks(
         jnp.asarray(esm.numpy()), jnp.asarray(c["eln"]), jnp.asarray(fm.numpy())))
@@ -355,14 +389,14 @@ def test_jacobi_matches_jax_and_the_chain():
     assert torch.equal(got, _replaced_chain(esm, plan, fm))
     assert torch.equal(tasm.block_jacobi_inverse_blocks(esm, ti(c["eln"]), fm), got)
     sym = kernels.unpack_blocks(kernels.pack_blocks(esm.permute(1, 2, 0)), c["ne"])
-    packed = kernels.pack_blocks(sym)
-    assert torch.equal(kernels.jacobi_inverse(packed, plan, fm),
+    diag = kernels.diag_sectors(sym)
+    assert torch.equal(kernels.jacobi_inverse(diag, plan, fm),
                        kernels.jacobi_inverse(sym, plan, fm))
     perm = torch.as_tensor(np.random.default_rng(2).permutation(c["ne"]))
     cols = torch.argsort(perm)
     assert torch.equal(kernels.jacobi_inverse(sym[:, :, perm], plan, fm, cols=cols),
                        kernels.jacobi_inverse(sym, plan, fm))
-    assert torch.equal(kernels.jacobi_inverse(kernels.pack_blocks(sym[:, :, perm]), plan, fm,
+    assert torch.equal(kernels.jacobi_inverse(kernels.diag_sectors(sym[:, :, perm]), plan, fm,
                                               cols=cols),
                        kernels.jacobi_inverse(sym, plan, fm))
 
@@ -388,29 +422,29 @@ def test_jacobi_reduce_form():
     _close(kernels.jacobi_inverse(parts[0], plan, fm, reduce=reduce).numpy(), whole.numpy())
 
 
-def _k5_transcribed(packed, plan, fixmask, ne):
-    """``csrc/jacobi_inverse.cu``'s fused form on K1's packed tiles: each
-    node's incidences in the plan's order, the 6 upper values mirrored,
-    summed from zero; then the tail, each product, sum and quotient rounded
-    on its own in the kernel's order."""
-    tile = packed.shape[2]
-    flat = packed.numpy()
-    order, offsets = plan.order.numpy(), plan.offsets.numpy()
-    segs, holes = plan.segs.numpy(), plan.holes.numpy()
+def _k5_transcribed(diag, plan, fixmask, units=None):
+    """``csrc/jacobi_inverse.cu``'s fused form on K3's compact diagonal (10,
+    ne, 8): a thread each unit of ``units`` (3, nu) (each unit's begin and
+    end in the plan's order and its row; the kernel's: the plan's units in
+    row order; its probe's: any table, the walk among them), its incidences
+    in the plan's order, each one sector, the 6 upper values summed from
+    zero and mirrored; then the holes; then the tail, each product, sum and
+    quotient rounded on its own in the kernel's order."""
+    if units is None:
+        units = torch.stack([plan.offsets[:-1], plan.offsets[1:], plan.segs])
+    units = units.numpy()
+    flat = diag.numpy()
+    order, holes = plan.order.numpy(), plan.holes.numpy()
+    ne = flat.shape[1]
     fm = fixmask.numpy().reshape(-1, 3)
     out = np.empty((fm.shape[0], 3, 3))
-    rows = list(zip(segs, zip(offsets[:-1], offsets[1:]))) + [(h, (0, 0)) for h in holes]
+    rows = [(row, (begin, end)) for begin, end, row in units.T] + [(h, (0, 0)) for h in holes]
     for row, (begin, end) in rows:
-        s = np.zeros((3, 3))
+        u = np.zeros(6)
         for p in range(begin, end):
-            k = int(order[p])
-            slot, e = divmod(k, ne)
-            v = np.empty((3, 3))
-            for r in range(3):
-                for q in range(r, 3):
-                    v[r, q] = v[q, r] = flat[e // tile, _packed_index(3 * slot + r, 3 * slot + q),
-                                             e % tile]
-            s = s + v
+            slot, e = divmod(int(order[p]), ne)
+            u = u + flat[slot, e, :6]
+        s = u[[0, 1, 2, 1, 3, 4, 2, 4, 5]].reshape(3, 3)
         m = fm[row]
         a = s * (m[:, None] * m[None, :]) + (1.0 - m)[:, None] * np.eye(3)
         det = (a[0, 0] * a[1, 1] * a[2, 2] - a[0, 0] * a[1, 2] * a[2, 1]
@@ -428,13 +462,32 @@ def _k5_transcribed(packed, plan, fixmask, ne):
 
 
 def test_jacobi_transcription_bit_for_bit():
-    """The kernel's steps on packed tiles, bit for bit the plain version on
-    the same (symmetric) blocks: the sum is K8's write form's, the tail the
-    torch tail's."""
+    """The kernel's steps on the compact diagonal, bit for bit the plain
+    version on the same (symmetric) blocks: the sum is K8's write form's,
+    the tail the torch tail's."""
     c, esm, fm, plan = _jacobi_case("box")
-    packed = kernels.pack_blocks(esm.permute(1, 2, 0))
-    want = kernels.jacobi_inverse(packed, plan, fm)
-    assert np.array_equal(_k5_transcribed(packed, plan, fm, c["ne"]), want.numpy())
+    sym = kernels.unpack_blocks(kernels.pack_blocks(esm.permute(1, 2, 0)), c["ne"])
+    want = kernels.jacobi_inverse(sym, plan, fm)
+    assert np.array_equal(_k5_transcribed(kernels.diag_sectors(sym), plan, fm), want.numpy())
+
+
+def test_jacobi_units_by_count_keep_the_bits():
+    """K5's threads take the plan's units in row order; its probe
+    (``csrc/jacobi_inverse_probe.cu``) takes them in the plan's walk,
+    sorted by incidence count, longest first (ties in ascending row), so a
+    warp's lanes carry nodes of like counts.  Each node's adds keep the
+    plan's order, so the transcription over the walk gives the bits of the
+    one in row order; on the plate the walk is not the row order."""
+    c, esm, fm, plan = _jacobi_case("plate")
+    sym = kernels.unpack_blocks(kernels.pack_blocks(esm.permute(1, 2, 0)), c["ne"])
+    diag = kernels.diag_sectors(sym)
+    counts = (plan.walk[1] - plan.walk[0]).numpy()
+    assert np.all(np.diff(counts) <= 0) and counts.sum() == plan.order.shape[0]
+    rows = torch.stack([plan.offsets[:-1], plan.offsets[1:], plan.segs])
+    assert not torch.equal(rows, plan.walk)
+    by_count = _k5_transcribed(diag, plan, fm, units=plan.walk)
+    assert np.array_equal(by_count, _k5_transcribed(diag, plan, fm, units=rows))
+    assert np.array_equal(by_count, kernels.jacobi_inverse(sym, plan, fm).numpy())
 
 
 # -- the wrappers ---------------------------------------------------------------------
